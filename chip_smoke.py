@@ -1,6 +1,7 @@
 """Chip smoke test of the PyTorch/H100 port: build the CUDA kernels, hold each
 against its plain PyTorch version, serve dinov2-small + LoRA pose requests
-through the kernels, and time kernels and serving.
+through the kernels, take dinov2-small + LoRA fine-tuning steps at batch 128
+through them, and time kernels, serving and the train step.
 
     python3 chip_smoke.py [--out results.json] [--profile]
 
@@ -9,12 +10,14 @@ kernel does not build, launch or agree, or when any phase fails. The last
 line of standard output is ``{"ok": true, "device": {...}}``; the line before
 it is the card's ``nvidia-smi`` name and power limit, and before that the
 per-kernel JSON line. Weights are random (from a seed), so only agreement
-between paths is checked, not pose accuracy.
+between paths is checked, not pose accuracy. f32 products on the card run in
+full f32: TF32 is switched off for matmuls and cuDNN convolutions.
 """
 
 from __future__ import annotations
 
 import argparse
+import copy
 import json
 import subprocess
 import sys
@@ -37,11 +40,41 @@ MODEL_REL_TOL = 5e-2
 # under one flip, so at least 75% of keypoints must agree within one heatmap
 # cell (224/48 px).
 KP_CELL_PX, KP_AGREE = 224 / 48, 0.75
+# Train steps, kernels vs plain, bf16 at batch 128: the losses are means over
+# 7M heatmap elements and 3072 z values, so one-ulp flips average out; they
+# are held to 1e-3 relative (they agree to 1.1e-4 over three steps on an
+# H100). The step-1 gradients are held to the bf16 noise of the plain path,
+# measured in the same run against a plain f32 step from the same weights and
+# dropout masks: the LoRA and first-head-conv gradients are sums over 32896
+# tokens (or 32768 positions) that the BatchNorm after them nearly cancels,
+# so bf16 rounding alone moves them 12-20% from f32 on either path. Each
+# gradient's error vs f32 on the kernel path, and its distance from the plain
+# path, must stay within GRAD_NOISE_FACTOR times the plain path's error vs
+# f32, plus GRAD_NOISE_SLACK for gradients that bf16 barely moves. On an H100
+# the largest of those ratios is 0.99 (LoRA B: kernels 0.2021 vs f32, plain
+# 0.2039), so 1.25 leaves a quarter for run-to-run noise. The dx kernel
+# itself is held tighter on the step's own tensors: the x2, cotangent dy and
+# weights that reach it in the first step, against mlp_dx_math at the
+# kernel tolerance scaled by max|dy| (the real cotangent is ~1e-4).
+LOSS_RTOL = 1e-3
+GRAD_NOISE_FACTOR, GRAD_NOISE_SLACK = 1.25, 2e-3
+TRAIN_BATCH, TRAIN_STEPS, LR = 128, 3, 3e-5
+TRAIN_CONFIG = {"model_name": "facebook/dinov2-small", "use_lora": True}
+GRAD_NAMES = (
+    "backbone.encoder.layer.11.attention.lora_output.lora_A",
+    "backbone.encoder.layer.11.attention.lora_output.lora_B",
+    "pose_heads.heatmap_head.feature_refine.0.weight",
+    "pose_heads.heatmap_head.prediction.3.weight",
+)
 KERNEL_ROWS = {
     "fused_block": "dino_pose_tpu/ops/block.py:159",
     "fused_attn_part": "dino_pose_tpu/ops/block.py:999",
     "fused_mlp_part": "dino_pose_tpu/ops/block.py:1021",
+    "fused_mlp_dx": "dino_pose_tpu/ops/block.py:1044",
 }
+# The batch each kernel's numbers in the JSON line were taken at: the
+# forward kernels at the serving batch, the backward at the training batch.
+ROW_BATCH = {"fused_block": 1, "fused_attn_part": 1, "fused_mlp_part": 1, "fused_mlp_dx": 128}
 SOURCE = "dino_pose_tpu_torch/ops/csrc/block_kernels.cu"
 
 
@@ -132,6 +165,36 @@ def phase_kernels(results: dict) -> None:
             row["max_abs_err"] = max(row["max_abs_err"], max_abs)
 
 
+def dx_inputs(b: int, gen: torch.Generator):
+    """x2, a unit-scale seeded cotangent dy, and the MLP half's parameters."""
+    from dino_pose_tpu_torch.ops.block import mlp_params
+
+    x, p = block_inputs(b, gen)
+    dy = torch.randn((b, S, D), generator=gen).to("cuda", torch.bfloat16)
+    return x, dy, mlp_params(p)
+
+
+def phase_mlp_dx(results: dict) -> None:
+    """fused_mlp_dx vs mlp_dx_math at full width, bf16, batch 1, 8 and 128."""
+    from dino_pose_tpu_torch.ops import block as B
+
+    gen = torch.Generator().manual_seed(SEED + 3)
+    for b in (1, 8, TRAIN_BATCH):
+        x2, dy, mp = dx_inputs(b, gen)
+        got = B.fused_mlp_dx(x2, dy, mp, EPS).float()
+        want = B.mlp_dx_math(x2, dy, mp, eps=EPS).float()
+        torch.cuda.synchronize()
+        max_abs = (got - want).abs().max().item()
+        ok = bool(torch.isfinite(got).all()) and torch.allclose(
+            got, want, atol=KERNEL_ATOL, rtol=KERNEL_RTOL)
+        log(f"kernel fused_mlp_dx B={b}: max_abs={max_abs:.6g} "
+            f"tol=atol {KERNEL_ATOL} + rtol {KERNEL_RTOL}*|ref| -> {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"fused_mlp_dx at B={b} disagrees with mlp_dx_math")
+        row = results.setdefault("fused_mlp_dx", {"max_abs_err": 0.0})
+        row["max_abs_err"] = max(row["max_abs_err"], max_abs)
+
+
 def randomise_for_serving(model, gen: torch.Generator) -> None:
     """Make no path an identity: LoRA B, BN running stats and LayerScale."""
     from torch import nn
@@ -203,7 +266,8 @@ def phase_serving(results: dict, serving: dict):
     rng = np.random.default_rng(SEED)
     requests = [[im] for im in seeded_images(rng, 4)] + [seeded_images(rng, 8)]
 
-    per_forward = {"fused_block": 11, "fused_attn_part": 1, "fused_mlp_part": 1}
+    # Serving runs no backward: fused_mlp_dx stays at 0.
+    per_forward = {"fused_block": 11, "fused_attn_part": 1, "fused_mlp_part": 1, "fused_mlp_dx": 0}
     B.reset_launches()
     for i, images in enumerate(requests):
         before = dict(B.LAUNCHES)
@@ -221,10 +285,12 @@ def phase_serving(results: dict, serving: dict):
         compare_paths(model, pixels, out, f"request {i}")
     launches = dict(B.LAUNCHES)
     for name, n in launches.items():
+        if per_forward[name] == 0:
+            continue
         if n == 0:
-            raise AssertionError(f"{name} was never launched on the main path")
+            raise AssertionError(f"{name} was never launched on the serving path")
         results[name]["launches"] = n
-    log(f"main-path launches over {len(requests)} requests: {launches}")
+    log(f"serving-path launches over {len(requests)} requests: {launches}")
 
     # Serving times: host clock around predict (preprocess, upload, forward,
     # decode, download), batch-1 p50 and batch-8 images/s.
@@ -258,6 +324,176 @@ def phase_serving(results: dict, serving: dict):
     return model
 
 
+def synthetic_batch(batch_size: int) -> dict:
+    """bench.py's synthetic fine-tune batch (loader contract: f32 pixels,
+    keypoints all visible, z), made on the host from seed 0 and moved to the
+    card once; the heatmap targets are rendered inside the step."""
+    rng = np.random.default_rng(0)
+    kps = rng.uniform(20, 200, (batch_size, 24, 3)).astype(np.float32)
+    kps[..., 2] = 2.0
+    batch = {
+        "image": rng.standard_normal((batch_size, 3, 224, 224)).astype(np.float32),
+        "2d_keypoints": kps,
+        "z_coords": rng.standard_normal((batch_size, 24)).astype(np.float32),
+    }
+    return {k: torch.from_numpy(v).cuda() for k, v in batch.items()}
+
+
+def make_step(model, kernels: bool, dtype=torch.bfloat16):
+    from dino_pose_tpu_torch.train.state import create_train_state
+    from dino_pose_tpu_torch.train.step import make_train_step, prepare_batch
+
+    state, optimizer, partition = create_train_state(model, TRAIN_CONFIG)
+    step = prepare_batch(make_train_step(model, optimizer, partition, kernels=kernels),
+                         device_targets=(224, 48), compute_dtype=dtype)
+    return state, step
+
+
+def rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    return ((got.float() - want.float()).norm() / want.float().norm()).item()
+
+
+def phase_train(results: dict, training: dict):
+    """Three dinov2-small + LoRA fine-tune steps at batch 128 through the
+    kernels, three from an identical copy through the plain versions (the
+    same dropout masks), compared step by step; then step times."""
+    from dino_pose_tpu_torch.models.registry import create_model_from_config
+    from dino_pose_tpu_torch.ops import block as B
+
+    model = create_model_from_config(dict(TRAIN_CONFIG), seed=SEED, device="cuda")
+    randomise_for_serving(model, torch.Generator().manual_seed(SEED + 4))
+    plain_model = copy.deepcopy(model)
+    ref_model = copy.deepcopy(model)
+    batch = synthetic_batch(TRAIN_BATCH)
+    state, step = make_step(model, kernels=True)
+    pstate, pstep = make_step(plain_model, kernels=False)
+
+    per_step = {"fused_block": 11, "fused_attn_part": 1, "fused_mlp_part": 1, "fused_mlp_dx": 1}
+    dx_seen = {}
+    fused_mlp_dx = B.fused_mlp_dx
+
+    def recording_mlp_dx(x2, dy, mp, eps):
+        dx2 = fused_mlp_dx(x2, dy, mp, eps)
+        dx_seen.update(x2=x2.clone(), dy=dy.clone(), mp=mp, eps=eps, dx2=dx2.clone())
+        return dx2
+
+    B.reset_launches()
+    kstats, grads = [], {}
+    params = dict(model.named_parameters())
+    for i in range(TRAIN_STEPS):
+        before = dict(B.LAUNCHES)
+        B.fused_mlp_dx = recording_mlp_dx if i == 0 else fused_mlp_dx
+        try:
+            state, stats = step(state, batch, LR, SEED)
+        finally:
+            B.fused_mlp_dx = fused_mlp_dx
+        torch.cuda.synchronize()
+        delta = {k: B.LAUNCHES[k] - before[k] for k in B.LAUNCHES}
+        log(f"train step {i} (batch {TRAIN_BATCH}): launches {delta}")
+        if delta != per_step:
+            raise AssertionError(f"train step {i}: launches {delta}, want {per_step}")
+        kstats.append({k: v.item() for k, v in stats.items()})
+        if i == 0:
+            grads = {n: params[n].grad.detach().clone() for n in GRAD_NAMES}
+    launches = dict(B.LAUNCHES)
+    for name, n in launches.items():
+        if n == 0:
+            raise AssertionError(f"{name} was never launched on the training path")
+        results[name]["launches_train"] = n
+    log(f"training-path launches over {TRAIN_STEPS} steps: {launches}")
+
+    # The dx kernel's output in step 1 against mlp_dx_math on the same x2,
+    # cotangent and weights; dx2 is linear in dy, so the kernel tolerance is
+    # scaled by max|dy|.
+    got = dx_seen["dx2"].float()
+    want = B.mlp_dx_math(dx_seen["x2"], dx_seen["dy"], dx_seen["mp"], eps=dx_seen["eps"]).float()
+    dy_max = dx_seen["dy"].float().abs().max().item()
+    err = (got - want).abs()
+    ok = dy_max > 0 and bool(torch.isfinite(got).all()) and bool(
+        (err <= KERNEL_ATOL * dy_max + KERNEL_RTOL * want.abs()).all())
+    training["dx_step1"] = {"max_abs": err.max().item(), "max_dy": dy_max,
+                            "max_abs_over_max_dy": err.max().item() / dy_max}
+    log(f"train step 0 fused_mlp_dx on the step's tensors: max_abs={err.max().item():.6g} "
+        f"max|dy|={dy_max:.6g} (ratio {err.max().item() / dy_max:.4g}); tol=(atol {KERNEL_ATOL}"
+        f" + rtol {KERNEL_RTOL}*|ref|) scaled by max|dy| -> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("fused_mlp_dx disagrees with mlp_dx_math on the train step's tensors")
+    dx_seen.clear()
+
+    # The step-1 gradients in f32 (plain versions, TF32 off) from the same
+    # weights and dropout masks: the yardstick for both bf16 paths.
+    rstate, rstep = make_step(ref_model, kernels=False, dtype=torch.float32)
+    rstep(rstate, batch, LR, SEED)
+    ref_grads = {n: p.grad for n, p in ref_model.named_parameters() if n in GRAD_NAMES}
+    del ref_model, rstate, rstep
+
+    failures = []
+    pparams = dict(plain_model.named_parameters())
+    for i in range(TRAIN_STEPS):
+        pstate, pstats = pstep(pstate, batch, LR, SEED)
+        pstats = {k: v.item() for k, v in pstats.items()}
+        for k in ("loss", "kp_loss", "z_loss", "weight"):
+            got, want = kstats[i][k], pstats[k]
+            ok = np.isfinite(got) and abs(got - want) <= LOSS_RTOL * abs(want)
+            log(f"train step {i} {k}: kernels {got:.7g} plain {want:.7g} "
+                f"rel {abs(got - want) / abs(want):.3g} (tol {LOSS_RTOL}) -> {'ok' if ok else 'FAIL'}")
+            if not ok:
+                failures.append(f"train step {i}: {k}")
+        if i == 0:
+            for n in GRAD_NAMES:
+                rel = rel_err(grads[n], pparams[n].grad)
+                k_ref = rel_err(grads[n], ref_grads[n])
+                p_ref = rel_err(pparams[n].grad, ref_grads[n])
+                tol = GRAD_NOISE_FACTOR * p_ref + GRAD_NOISE_SLACK
+                ok = bool(torch.isfinite(grads[n]).all()) and max(rel, k_ref) <= tol
+                log(f"step-1 grad {n}: rel Frobenius kernels vs plain {rel:.4g}, kernels vs "
+                    f"f32 {k_ref:.4g}, plain vs f32 {p_ref:.4g} (tol {GRAD_NOISE_FACTOR}*plain"
+                    f"+{GRAD_NOISE_SLACK} = {tol:.4g}); |g| {ref_grads[n].norm().item():.4g} "
+                    f"-> {'ok' if ok else 'FAIL'}")
+                training.setdefault("grad_rel", {})[n] = {
+                    "kernels_vs_plain": rel, "kernels_vs_f32": k_ref, "plain_vs_f32": p_ref}
+                if not ok:
+                    failures.append(f"step-1 gradient of {n}")
+    if failures:
+        raise AssertionError("kernels vs plain out of tolerance: " + "; ".join(failures))
+    training["steps"] = {"kernels": kstats}
+
+    # Step time (CUDA events around 5 steps after 2 warm-up steps), in turns
+    # kernels, plain, plain, kernels; the timing launches are not counted.
+    saved = dict(B.LAUNCHES)
+
+    def step_ms(fn, st, n=5):
+        for _ in range(2):
+            st, _ = fn(st, batch, LR, SEED)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        for _ in range(n):
+            st, _ = fn(st, batch, LR, SEED)
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / n
+
+    runs = {"kernels": [], "plain": []}
+    for which in ("kernels", "plain", "plain", "kernels"):
+        fn, st = (step, state) if which == "kernels" else (pstep, pstate)
+        runs[which].append(step_ms(fn, st))
+    B.LAUNCHES.update(saved)
+    torch.cuda.reset_peak_memory_stats()
+    state, _ = step(state, batch, LR, SEED)
+    torch.cuda.synchronize()
+    B.LAUNCHES.update(saved)
+    for which, ms in runs.items():
+        mean = float(np.mean(ms))
+        training[f"step_ms_{which}"] = mean
+        training[f"step_ms_{which}_runs"] = ms
+        training[f"images_per_s_{which}"] = TRAIN_BATCH * 1e3 / mean
+    training["peak_mem_gib_kernels"] = torch.cuda.max_memory_allocated() / 2**30
+    log("training " + json.dumps(training))
+    return model, step, state, batch
+
+
 def phase_times(results: dict) -> dict:
     """Kernel, plain and bound times at the main-path shapes."""
     from dino_pose_tpu_torch.ops import block as B
@@ -280,6 +516,20 @@ def phase_times(results: dict) -> dict:
             log(f"time {name} B={b}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
                 f"bound {bound:.5f} ms ({by})")
         B.LAUNCHES.update(saved)  # timing launches are not main-path launches
+    for b in (1, 8, TRAIN_BATCH):
+        x2, dy, mp = dx_inputs(b, gen)
+        saved = dict(B.LAUNCHES)
+        with torch.inference_mode():
+            ms = cuda_ms(lambda: B.fused_mlp_dx(x2, dy, mp, EPS), iters=20)
+            plain_ms = cuda_ms(lambda: B.mlp_dx_math(x2, dy, mp, eps=EPS), iters=20)
+        B.LAUNCHES.update(saved)
+        bound, by = B.bound_ms(b * B.block_flops(S, D, HIDDEN)["fused_mlp_dx"],
+                               B.block_bytes(b, S, D, HIDDEN)["fused_mlp_dx"])
+        by_batch.setdefault(b, {})["fused_mlp_dx"] = {
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+        }
+        log(f"time fused_mlp_dx B={b}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+            f"bound {bound:.5f} ms ({by})")
     return by_batch
 
 
@@ -299,16 +549,36 @@ def profile_forward(model) -> None:
     log(prof.key_averages().table(sort_by="cuda_time_total", row_limit=25))
 
 
+def profile_train_step(step, state, batch) -> None:
+    """Kernel time by name over two batch-128 train steps (torch.profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from dino_pose_tpu_torch.ops import block as B
+
+    saved = dict(B.LAUNCHES)
+    state, _ = step(state, batch, LR, SEED)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(2):
+            state, _ = step(state, batch, LR, SEED)
+        torch.cuda.synchronize()
+    B.LAUNCHES.update(saved)
+    log(prof.key_averages().table(sort_by="cuda_time_total", row_limit=25))
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write all measurements to this JSON file")
     ap.add_argument("--profile", action="store_true",
-                    help="print a torch.profiler kernel table of the batch-1 forward")
+                    help="print torch.profiler kernel tables of the batch-1 forward "
+                         "and of the batch-128 train step")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     from dino_pose_tpu_torch.ops import _ext
 
     card = nvidia_smi()
@@ -321,27 +591,39 @@ def main() -> int:
 
     results: dict = {}
     serving: dict = {}
+    training: dict = {}
     phase_kernels(results)
+    phase_mlp_dx(results)
     model = phase_serving(results, serving)
+    _, step, state, batch = phase_train(results, training)
     by_batch = phase_times(results)
     if args.profile:
         profile_forward(model)
+        profile_train_step(step, state, batch)
 
     kernels = []
     for name, replaces in KERNEL_ROWS.items():
-        t = by_batch[1][name]
+        b = ROW_BATCH[name]
+        t = by_batch[b][name]
+        row = results[name]
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCE, "replaces": replaces,
-            "launches": results[name]["launches"],
-            "max_abs_err": results[name]["max_abs_err"],
+            "batch": b,
+            # Launches on the path the kernel belongs to: the forward kernels'
+            # on the serving path, the backward's on the training path.
+            "launches": row["launches"] if "launches" in row else row["launches_train"],
+            "launches_train": row["launches_train"],
+            "max_abs_err": row["max_abs_err"],
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": None,
         })
     log("kernel_times_b8 " + json.dumps(by_batch[8]))
+    log("kernel_times_b128 " + json.dumps(by_batch[TRAIN_BATCH]))
     if args.out:
         with open(args.out, "w") as f:
-            json.dump({"card": card, "kernels": kernels, "b8": by_batch[8],
-                       "serving": serving}, f, indent=1)
+            json.dump({"card": card, "kernels": kernels, "b1": by_batch[1], "b8": by_batch[8],
+                       "b128": by_batch[TRAIN_BATCH], "serving": serving,
+                       "training": training}, f, indent=1)
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

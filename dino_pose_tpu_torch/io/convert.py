@@ -22,6 +22,11 @@ none        identical                    identical
 ``ConvTranspose`` in the JAX package stores the kernel of the equivalent
 dilated convolution (spatially flipped); torch's ``ConvTranspose2d`` takes
 the unflipped weight, hence the flip back.
+
+A JAX ``TrainState`` carries over in two parts: ``params`` and
+``batch_stats`` through :func:`state_dict_from_jax`, ``loss_weight``
+through :func:`loss_weight_from_jax`. Adam moments are not carried (both
+sides start them at zero).
 """
 
 from __future__ import annotations
@@ -201,3 +206,15 @@ def state_dict_from_jax(variables: Mapping, model) -> dict[str, torch.Tensor]:
             key = rule.torch_key.replace(".running_mean", ".num_batches_tracked")
             out[key] = torch.zeros((), dtype=torch.long)
     return out
+
+
+def loss_weight_from_jax(loss_weight, device=None):
+    """The JAX package's ``LossWeightState`` (an object or a mapping with
+    its six fields, numpy-convertible) as the port's, on ``device``."""
+    from dino_pose_tpu_torch.train.weighting import LossWeightState
+
+    def get(name):
+        v = loss_weight[name] if isinstance(loss_weight, Mapping) else getattr(loss_weight, name)
+        return torch.as_tensor(np.array(v), device=device)
+
+    return LossWeightState(**{f.name: get(f.name) for f in dataclasses.fields(LossWeightState)})

@@ -4,8 +4,10 @@
 Module trees follow the reference torch Sequential index naming
 (``heatmap_head.feature_refine.0`` ... ``z_head.mlp.9``), so reference-schema
 state dicts load with ``strict=True``. Layers are applied with the JAX
-package's rounding points (``nn/layers.py``); BatchNorm uses its running
-statistics (inference only in this slice). Activations are NCHW.
+package's rounding points (``nn/layers.py``). In train mode (``.train()``)
+BatchNorm uses batch statistics and updates its running ones, and the z
+head's dropout draws from the generator passed to ``forward``. Activations
+are NCHW.
 
 The MLP-variant heads (``HeatmapHead``/``PoseHeads``), which no model of the
 repo uses, are not ported yet.
@@ -38,21 +40,24 @@ def _deconv_bn_relu(cin: int, cout: int, k: int, stride: int, pad: int = 0) -> n
     )
 
 
-def run(seq: nn.Module, x: torch.Tensor) -> torch.Tensor:
-    """Apply a Sequential with the JAX rounding points of each layer kind."""
+def run(seq: nn.Module, x: torch.Tensor,
+        generator: torch.Generator | None = None) -> torch.Tensor:
+    """Apply a Sequential with the JAX rounding points of each layer kind.
+    In train mode BatchNorm normalises with batch statistics and updates its
+    running ones, and Dropout draws its mask from ``generator``."""
     for m in seq:
         if isinstance(m, nn.Conv2d):
             x = L.conv2d(x, m)
         elif isinstance(m, nn.ConvTranspose2d):
             x = L.conv_transpose2d(x, m)
         elif isinstance(m, nn.BatchNorm2d):
-            x = L.batch_norm_eval(x, m)
+            x = L.batch_norm_train(x, m) if m.training else L.batch_norm_eval(x, m)
         elif isinstance(m, nn.Linear):
             x = L.dense(x, m)
         elif isinstance(m, nn.ReLU):
             x = torch.relu(x)
         elif isinstance(m, nn.Dropout):
-            x = nn.functional.dropout(x, m.p, m.training)
+            x = L.dropout(x, m.p, generator) if m.training else x
         else:
             x = m(x)
     return x
@@ -154,8 +159,9 @@ class ZCoordinateHead(nn.Module):
         layers.append(nn.Linear(prev, num_keypoints))
         self.mlp = nn.Sequential(*layers)
 
-    def forward(self, feats: torch.Tensor) -> torch.Tensor:
-        return run(self.mlp, feats)
+    def forward(self, feats: torch.Tensor,
+                generator: torch.Generator | None = None) -> torch.Tensor:
+        return run(self.mlp, feats, generator)
 
 
 class SpatialAwarePoseHeads(nn.Module):
@@ -170,7 +176,8 @@ class SpatialAwarePoseHeads(nn.Module):
         )
         self.z_head = ZCoordinateHead(in_channels, num_keypoints, z_hidden_dims, z_dropout_rate)
 
-    def forward(self, fmap: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    def forward(self, fmap: torch.Tensor, generator: torch.Generator | None = None
+                ) -> tuple[torch.Tensor, torch.Tensor]:
         heatmaps = self.heatmap_head(fmap)
-        z = self.z_head(fmap.mean(dim=(2, 3)))
+        z = self.z_head(fmap.mean(dim=(2, 3)), generator)
         return heatmaps, z

@@ -30,14 +30,13 @@ class DinoPoseModule(nn.Module):
             spatial_input_size=input_size // vit.patch_size,
         )
 
-    def forward(self, pixels: torch.Tensor, *, kernels: bool = True):
+    def forward(self, pixels: torch.Tensor, *, kernels: bool = True,
+                generator: torch.Generator | None = None):
         """``kernels=False`` runs every block through its plain PyTorch
-        version (the comparison path on the card); on the CPU both are plain."""
-        if self.training:
-            raise NotImplementedError(
-                "training is not yet ported; call .eval() for inference"
-            )
-        tokens, (hp, wp) = self.backbone(pixels, kernels=kernels)
+        version (the comparison path on the card); on the CPU both are plain.
+        In train mode (``.train()``) BatchNorm uses batch statistics and the
+        LoRA and z-head dropouts draw from ``generator``."""
+        tokens, (hp, wp) = self.backbone(pixels, kernels=kernels, generator=generator)
         b, _, d = tokens.shape
         fmap = tokens[:, 1:, :].transpose(1, 2).reshape(b, d, hp, wp)
-        return self.pose_heads(fmap)
+        return self.pose_heads(fmap, generator)

@@ -7,11 +7,14 @@ reference-schema state dict loads with ``strict=True``.
 
 The blocks run through the fused wrappers of ``ops/block.py``: a non-LoRA
 layer through ``fused_block``, the LoRA layer through ``fused_attn_part`` ->
-adapter -> ``x + o*ls1`` -> ``fused_mlp_part``. Their packed parameters
-(q|k|v concatenated, matrices transposed to (in, out) and cast to the
-compute dtype) are built once per dtype and device and dropped when a state
-dict is loaded. This slice is inference only: the forward refuses training
-mode.
+adapter -> ``x + o*ls1`` -> ``mlp_part_frozen`` (``fused_mlp_part`` with the
+``fused_mlp_dx`` backward; with ``kernels=False`` the plain versions of
+each). Their packed parameters (q|k|v concatenated, matrices transposed to
+(in, out) and cast to the compute dtype) are detached copies, built once per
+dtype and device and dropped when a state dict is loaded. So a block's own
+weights never train: only the LoRA adapter, whose cotangent reaches it
+through the MLP half's backward. A block whose weights require grad is
+refused while grad mode is on (unfreeze-last-N is a later slice).
 """
 
 from __future__ import annotations
@@ -30,8 +33,7 @@ from dino_pose_tpu_torch.ops.block import (
     block_math,
     fused_attn_part,
     fused_block,
-    fused_mlp_part,
-    mlp_part_math,
+    mlp_part_frozen,
 )
 
 
@@ -72,7 +74,8 @@ VIT_PRESETS: dict[str, ViTConfig] = {
 
 class LoRAAdapter(nn.Module):
     """Residual low-rank adapter: ``dropout(x @ A @ B) * (alpha / rank)``;
-    A is (in, r), B is (r, in) (reference ``LoRALayer`` layout)."""
+    A is (in, r), B is (r, in) (reference ``LoRALayer`` layout). In train
+    mode the dropout mask comes from ``generator``."""
 
     def __init__(self, dim: int, rank: int, alpha: float, dropout: float):
         super().__init__()
@@ -81,10 +84,11 @@ class LoRAAdapter(nn.Module):
         self.scaling = alpha / rank
         self.dropout = dropout
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, generator: torch.Generator | None = None) -> torch.Tensor:
         h = x @ self.lora_A.to(x.dtype)
         h = h @ self.lora_B.to(x.dtype)
-        h = nn.functional.dropout(h, self.dropout, self.training)
+        if self.training:
+            h = L.dropout(h, self.dropout, generator)
         return h * self.scaling
 
 
@@ -186,9 +190,25 @@ class Block(nn.Module):
             self._packed = (key, params)
         return self._packed[1]
 
-    def forward(self, x: torch.Tensor, *, kernels: bool = True) -> torch.Tensor:
+    def _refuse_trainable_weights(self) -> None:
+        """The packed weights are detached: a block weight that requires
+        grad would silently get none."""
+        if not torch.is_grad_enabled():
+            return
+        att = self._base_attention()
+        mods = (self.norm1, att, self.layer_scale1, self.norm2, self.mlp, self.layer_scale2)
+        if any(p.requires_grad for m in mods for p in m.parameters()):
+            raise ValueError(
+                "a block weight requires grad, but the block kernels have no "
+                "weight-gradient backward (the unfreeze-last-N slice of the port); "
+                "freeze it or run under torch.no_grad()"
+            )
+
+    def forward(self, x: torch.Tensor, *, kernels: bool = True,
+                generator: torch.Generator | None = None) -> torch.Tensor:
         cfg = self.cfg
         h, eps = cfg.num_heads, cfg.layer_norm_eps
+        self._refuse_trainable_weights()
         p = self.packed(x.dtype)
         if not self.use_lora:
             if kernels:
@@ -200,11 +220,9 @@ class Block(nn.Module):
             o = fused_attn_part(x, ap, h, eps)
         else:
             o = attn_part_math(x, ap, num_heads=h, eps=eps)
-        o = o + self.attention.lora_output(o)
+        o = o + self.attention.lora_output(o, generator)
         x2 = x + o * p.ls1.to(o.dtype)
-        if kernels:
-            return fused_mlp_part(x2, mp, eps)
-        return mlp_part_math(x2, mp, eps=eps)
+        return mlp_part_frozen(x2, mp, eps, kernels=kernels)
 
 
 def _drop_packed(module: Block, incompatible_keys) -> None:
@@ -252,7 +270,8 @@ class Dinov2Backbone(nn.Module):
         self.encoder = _Encoder(cfg)
         self.layernorm = nn.LayerNorm(cfg.hidden_size, eps=cfg.layer_norm_eps)
 
-    def forward(self, pixels: torch.Tensor, *, kernels: bool = True):
+    def forward(self, pixels: torch.Tensor, *, kernels: bool = True,
+                generator: torch.Generator | None = None):
         cfg = self.config
         b, _, h, w = pixels.shape
         hp, wp = h // cfg.patch_size, w // cfg.patch_size
@@ -263,7 +282,7 @@ class Dinov2Backbone(nn.Module):
         x = torch.cat([cls, x], dim=1)
         x = (x + self.interpolated_pos(hp, wp).to(x.dtype)).contiguous()
         for blk in self.encoder.layer:
-            x = blk(x, kernels=kernels)
+            x = blk(x, kernels=kernels, generator=generator)
         x = L.layer_norm(x, self.layernorm.weight, self.layernorm.bias, cfg.layer_norm_eps)
         return x, (hp, wp)
 

@@ -60,6 +60,40 @@ def batch_norm_eval(x: torch.Tensor, bn: nn.BatchNorm2d) -> torch.Tensor:
     return y.to(x.dtype)
 
 
+def batch_norm_train(x: torch.Tensor, bn: nn.BatchNorm2d) -> torch.Tensor:
+    """Train ``BatchNorm`` (torch semantics, as the JAX package's): f32
+    two-pass batch statistics, the biased variance for normalising, the
+    unbiased variance into ``running_var``, momentum ``bn.momentum``. The
+    running statistics and ``num_batches_tracked`` update in place; output
+    in x.dtype."""
+    view = (1, -1, 1, 1)
+    xf = x.float()
+    mean = xf.mean(dim=(0, 2, 3))
+    var = (xf - mean.view(view)).square().mean(dim=(0, 2, 3))
+    n = x.numel() // x.shape[1]
+    with torch.no_grad():
+        m = bn.momentum
+        bn.running_mean.mul_(1 - m).add_(m * mean.detach())
+        bn.running_var.mul_(1 - m).add_(m * (var.detach() * (n / max(1, n - 1))))
+        bn.num_batches_tracked.add_(1)
+    inv = torch.rsqrt(var + bn.eps) * bn.weight
+    y = (xf - mean.view(view)) * inv.view(view) + bn.bias.view(view)
+    return y.to(x.dtype)
+
+
+def dropout(x: torch.Tensor, rate: float, generator: torch.Generator | None) -> torch.Tensor:
+    """Inverted dropout drawing its mask from ``generator`` (``None``: the
+    device's default generator): keep with probability 1 - rate, scale the
+    kept values by 1 / (1 - rate) in x.dtype (flax ``Dropout``)."""
+    if rate == 0.0:
+        return x
+    if rate >= 1.0:
+        return torch.zeros_like(x)
+    keep_prob = 1.0 - rate
+    keep = torch.rand(x.shape, generator=generator, device=x.device) < keep_prob
+    return torch.where(keep, x / keep_prob, torch.zeros_like(x))
+
+
 def layer_norm(
     x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, eps: float
 ) -> torch.Tensor:

@@ -38,6 +38,7 @@ _SIGNATURES = {
     "dp_fused_block": ([_P] * 20 + [_I] * 5 + [_F, _P], _I),
     "dp_fused_attn_part": ([_P] * 10 + [_I] * 4 + [_F, _P], _I),
     "dp_fused_mlp_part": ([_P] * 10 + [_I] * 3 + [_F, _P], _I),
+    "dp_fused_mlp_dx": ([_P] * 13 + [_I] * 3 + [_F, _P], _I),
 }
 
 

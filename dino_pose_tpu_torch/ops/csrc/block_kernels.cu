@@ -1,13 +1,14 @@
 // Fused ViT block kernels for Hopper (sm_90a), CUDA C++ with a plain C
 // interface (loaded with ctypes by dino_pose_tpu_torch/ops/_ext.py).
 //
-// They replace the three Pallas kernels of the dinov2 serving path
+// They replace the four Pallas kernels of the dinov2 + LoRA path
 // (dino_pose_tpu/ops/block.py): _block_kernel (:159), _attn_part_kernel
-// (:999, body _attn_half_core :948) and _mlp_part_kernel (:1021). The TPU
-// design holds one whole block (12 D^2 bf16 weights = 3.5 MB at D = 384) plus
-// a few rows of activations in VMEM per program. Hopper gives a block at most
-// 227 KB of shared memory, so each TPU kernel becomes a short chain of
-// kernels here, sharing two building blocks:
+// (:999, body _attn_half_core :948), _mlp_part_kernel (:1021) and the LoRA
+// layer's backward _mlp_dx_kernel (:1044). The TPU design holds one whole
+// block (12 D^2 bf16 weights = 3.5 MB at D = 384) plus a few rows of
+// activations in VMEM per program. Hopper gives a block at most 227 KB of
+// shared memory, so each TPU kernel becomes a short chain of kernels here,
+// sharing four building blocks:
 //
 //   gemm_kernel<LN, EPI>   C = epilogue(prologue(A) @ W), bf16 tensor-core
 //                          tiles (WMMA 16x16x16, f32 accumulation).
@@ -15,18 +16,31 @@
 //                          rounded to bf16) over whole rows held in shared
 //                          memory; EPI = +bias | +bias,GELU(erf) |
 //                          +bias,*LayerScale,+residual.
+//   gemm_nt_kernel<SCALE, EPI>  the same tile with W read transposed (the
+//                          backward products), an optional per-column scale
+//                          prologue, and a *gelu'(h) or raw-f32 epilogue.
 //   attention_kernel<DH>   one (batch, head, 64-query tile) per block: K and V
 //                          of all S keys for the head stay in shared memory,
 //                          f32 scores and softmax, P rounded to bf16 before PV.
+//   ln_bwd_rows_kernel     LayerNorm backward, one warp per row.
 //
 //   _attn_part_kernel = gemm<LN,BIAS>(qkv) -> attention -> gemm<-,BIAS>(out)
 //   _mlp_part_kernel  = gemm<LN,GELU>(fc1) -> gemm<-,LS_RES>(fc2)
 //   _block_kernel     = gemm<LN,BIAS> -> attention -> gemm<-,LS_RES>
 //                       -> gemm<LN,GELU> -> gemm<-,LS_RES>
+//   _mlp_dx_kernel    = gemm<LN,BIAS>(h1) -> gemm_nt<dy*ls2, *gelu'(h1)>(dh1b)
+//                       -> gemm_nt<-, f32>(dm) -> ln_bwd_rows(dx2)
 //
 // Every rounding point of the JAX kernels is reproduced: each product is
 // rounded to bf16, then the bias (f32 parameter rounded to bf16) is added in
-// bf16; LayerScale multiplies in bf16, the residual adds in bf16.
+// bf16; LayerScale multiplies in bf16, the residual adds in bf16. In the
+// backward, dy*ls2 and dh1b are rounded to bf16, the products dg and dm stay
+// f32, dx2 is rounded once. dm goes through device memory as f32 (B*S*D*4
+// bytes, 50 MB at batch 128) to a row kernel rather than into a GEMM
+// epilogue: the LayerNorm backward needs whole rows, and a 64x64 tile holds
+// a sixth of one. The dx chain is bound by its three products (0.909 GFLOP
+// per image at S = 257, D = 384: 0.118 ms at batch 128 on an H100) from
+// batch 2 up.
 //
 // Shapes: M = B*S rows are masked at the ragged edge (no padding copy); N is a
 // multiple of 64, K of 32 (the wrapper checks D % 64 == 0). Kernels launch on
@@ -50,8 +64,10 @@ constexpr int PAD_H = 8;           // bf16 row padding (keeps WMMA ldm % 8 == 0)
 constexpr int PAD_F = 4;           // f32 row padding
 constexpr int BQ = 64;             // query rows per attention block
 constexpr int ATTN_THREADS = 128;  // 4 warps, 16 query rows each
+constexpr int ROW_THREADS = 128;   // 4 warps, one row each (LayerNorm backward)
 
 enum Epilogue { EPI_BIAS = 0, EPI_BIAS_GELU = 1, EPI_BIAS_LS_RES = 2 };
+enum EpilogueNT { EPT_GELU_GRAD = 0, EPT_F32 = 1 };
 
 __host__ __device__ __forceinline__ size_t align128(size_t n) {
   return (n + 127) & ~static_cast<size_t>(127);
@@ -199,6 +215,133 @@ gemm_kernel(const bf16* __restrict__ A, const bf16* __restrict__ W,
   }
 }
 
+// C[M,N] = epilogue(A'[M,K] @ W[N,K]^T) for the backward products: W is a
+// forward weight stored (in, out) = row-major (N, K), read transposed. The B
+// tile is staged [n][k] in shared memory and loaded as a column-major WMMA
+// operand. A' = A, or with SCALE each element bf16(f32(a) * scale[k]).
+// EPT_GELU_GRAD: out bf16 = bf16(acc * gelu'(f32 aux[m, n])), aux bf16 (M, N);
+// EPT_F32: out f32 = acc (not rounded).
+template <bool SCALE, int EPI>
+__global__ void __launch_bounds__(GEMM_THREADS)
+gemm_nt_kernel(const bf16* __restrict__ A, const bf16* __restrict__ W,
+               const float* __restrict__ scale, const bf16* __restrict__ aux,
+               void* __restrict__ out, int M, int N, int K) {
+  constexpr int LDA = BK + PAD_H;  // As[m][k]
+  constexpr int LDW = BK + PAD_H;  // Ws[n][k]
+  constexpr int LDC = BN + PAD_F;
+  __shared__ __align__(128) bf16 As[BM * LDA];
+  __shared__ __align__(128) bf16 Ws[BN * LDW];
+  __shared__ __align__(128) float Cs[BM * LDC];
+
+  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
+  const int tid = threadIdx.x, warp = tid >> 5;
+  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.f);
+  const int wm = (warp >> 1) * 32, wn = (warp & 1) * 32;
+
+  for (int k0 = 0; k0 < K; k0 += BK) {
+    for (int i = tid; i < BM * BK / 8; i += GEMM_THREADS) {
+      const int r = i / (BK / 8), c = (i % (BK / 8)) * 8;
+      const int gm = m0 + r;
+      uint4 v = make_uint4(0u, 0u, 0u, 0u);
+      if (gm < M) {
+        v = *reinterpret_cast<const uint4*>(A + static_cast<size_t>(gm) * K + k0 + c);
+        if (SCALE) {
+          bf16* e = reinterpret_cast<bf16*>(&v);
+#pragma unroll
+          for (int j = 0; j < 8; ++j)
+            e[j] = __float2bfloat16(__bfloat162float(e[j]) * scale[k0 + c + j]);
+        }
+      }
+      *reinterpret_cast<uint4*>(As + r * LDA + c) = v;
+    }
+    for (int i = tid; i < BN * BK / 8; i += GEMM_THREADS) {
+      const int r = i / (BK / 8), c = (i % (BK / 8)) * 8;
+      *reinterpret_cast<uint4*>(Ws + r * LDW + c) =
+          *reinterpret_cast<const uint4*>(W + static_cast<size_t>(n0 + r) * K + k0 + c);
+    }
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < BK; kk += 16) {
+      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> af[2];
+      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> bfr[2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+        wmma::load_matrix_sync(af[i], As + (wm + 16 * i) * LDA + kk, LDA);
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+        wmma::load_matrix_sync(bfr[j], Ws + (wn + 16 * j) * LDW + kk, LDW);
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < 2; ++j) wmma::mma_sync(acc[i][j], af[i], bfr[j], acc[i][j]);
+    }
+    __syncthreads();
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+      wmma::store_matrix_sync(Cs + (wm + 16 * i) * LDC + wn + 16 * j, acc[i][j], LDC,
+                              wmma::mem_row_major);
+  __syncthreads();
+
+  for (int i = tid; i < BM * BN; i += GEMM_THREADS) {
+    const int r = i / BN, c = i % BN;
+    const int gm = m0 + r, gn = n0 + c;
+    if (gm >= M) continue;
+    const float a = Cs[r * LDC + c];
+    const size_t o = static_cast<size_t>(gm) * N + gn;
+    if (EPI == EPT_GELU_GRAD) {
+      const float z = __bfloat162float(aux[o]);
+      const float g = 0.5f * (1.f + erff(z * 0.70710678118654752440f)) +
+                      z * expf(-0.5f * z * z) * 0.3989422804014327f;
+      static_cast<bf16*>(out)[o] = __float2bfloat16(a * g);
+    } else {
+      static_cast<float*>(out)[o] = a;
+    }
+  }
+}
+
+// LayerNorm backward over whole rows, plus the residual's cotangent:
+// dx2 = bf16(dy + r*(dm*g - mean(dm*g) - xhat*mean(dm*g*xhat))), with xhat
+// and r recomputed from x2 in f32 (two-pass statistics). One warp per row.
+__global__ void __launch_bounds__(ROW_THREADS)
+ln_bwd_rows_kernel(const bf16* __restrict__ x2, const bf16* __restrict__ dy,
+                   const float* __restrict__ dm, const float* __restrict__ gamma,
+                   bf16* __restrict__ dx2, int M, int D, float eps) {
+  const int lane = threadIdx.x & 31;
+  const int row = blockIdx.x * (ROW_THREADS / 32) + (threadIdx.x >> 5);
+  if (row >= M) return;  // whole warps leave together
+  const size_t base = static_cast<size_t>(row) * D;
+  float s = 0.f;
+  for (int c = lane; c < D; c += 32) s += __bfloat162float(x2[base + c]);
+  const float mu = warp_sum(s) / D;
+  float q = 0.f;
+  for (int c = lane; c < D; c += 32) {
+    const float d = __bfloat162float(x2[base + c]) - mu;
+    q += d * d;
+  }
+  const float r = rsqrtf(warp_sum(q) / D + eps);
+  float s1 = 0.f, s2 = 0.f;
+  for (int c = lane; c < D; c += 32) {
+    const float dh = dm[base + c] * gamma[c];
+    s1 += dh;
+    s2 += dh * (__bfloat162float(x2[base + c]) - mu) * r;
+  }
+  const float mean1 = warp_sum(s1) / D, mean2 = warp_sum(s2) / D;
+  for (int c = lane; c < D; c += 32) {
+    const float dh = dm[base + c] * gamma[c];
+    const float xh = (__bfloat162float(x2[base + c]) - mu) * r;
+    dx2[base + c] =
+        __float2bfloat16(__bfloat162float(dy[base + c]) + r * (dh - mean1 - xh * mean2));
+  }
+}
+
 size_t attention_smem_bytes(int S, int dh) {
   const int sp = (S + 15) / 16 * 16;
   const int ldh = dh + PAD_H;
@@ -341,6 +484,16 @@ cudaError_t launch_gemm(const void* A, const void* W, const void* bias, const vo
   return cudaGetLastError();
 }
 
+template <bool SCALE, int EPI>
+cudaError_t launch_gemm_nt(const void* A, const void* W, const void* scale, const void* aux,
+                           void* out, int M, int N, int K, cudaStream_t stream) {
+  dim3 grid(N / BN, (M + BM - 1) / BM);
+  gemm_nt_kernel<SCALE, EPI><<<grid, GEMM_THREADS, 0, stream>>>(
+      static_cast<const bf16*>(A), static_cast<const bf16*>(W),
+      static_cast<const float*>(scale), static_cast<const bf16*>(aux), out, M, N, K);
+  return cudaGetLastError();
+}
+
 cudaError_t launch_attention(const void* qkv, void* ctx, int B, int S, int H, int dh,
                              cudaStream_t stream) {
   const size_t smem = attention_smem_bytes(S, dh);
@@ -433,6 +586,30 @@ int dp_fused_mlp_part(const void* x2, const void* g2, const void* b2, const void
                       void* hbuf, void* y, int M, int D, int hidden, float eps, void* stream) {
   return static_cast<int>(mlp_half(x2, g2, b2, w1, bf1, w2, bf2, ls2, hbuf, y, M, D, hidden,
                                    eps, static_cast<cudaStream_t>(stream)));
+}
+
+// _mlp_dx_kernel: dx2 = dy + LN2^T(W1^T(gelu'(h1) * W2^T(dy*ls2))), no weight
+// gradients. h1 = bf16(LN2(x2) W1) + bf16(bf1) is recomputed into h1buf
+// (M, hidden) bf16; dh1b (M, hidden) bf16 and dm (M, D) f32 are scratch.
+int dp_fused_mlp_dx(const void* x2, const void* dy, const void* g2, const void* b2,
+                    const void* w1, const void* bf1, const void* w2, const void* bf2,
+                    const void* ls2, void* h1buf, void* dh1b, void* dm, void* dx2, int M,
+                    int D, int hidden, float eps, void* stream) {
+  (void)bf2;  // the fc2 bias has no part in dx2
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err = launch_gemm<true, EPI_BIAS>(x2, w1, bf1, nullptr, nullptr, g2, b2, h1buf,
+                                                M, hidden, D, eps, st);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = launch_gemm_nt<true, EPT_GELU_GRAD>(dy, w2, ls2, h1buf, dh1b, M, hidden, D, st);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = launch_gemm_nt<false, EPT_F32>(dh1b, w1, nullptr, nullptr, dm, M, D, hidden, st);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int rows_per_block = ROW_THREADS / 32;
+  ln_bwd_rows_kernel<<<(M + rows_per_block - 1) / rows_per_block, ROW_THREADS, 0, st>>>(
+      static_cast<const bf16*>(x2), static_cast<const bf16*>(dy),
+      static_cast<const float*>(dm), static_cast<const float*>(g2),
+      static_cast<bf16*>(dx2), M, D, eps);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // extern "C"

@@ -11,12 +11,16 @@ every product to bf16, in another summation order, so single roundings flip
 by one ulp.
 """
 
+import copy
+
 import numpy as np
 import pytest
 import torch
 
 from dino_pose_tpu_torch.models import registry
 from dino_pose_tpu_torch.ops import block
+from dino_pose_tpu_torch.train.state import create_train_state
+from dino_pose_tpu_torch.train.step import make_train_step, prepare_batch
 
 EPS = 1e-6
 NAMES = ("fused_block", "fused_attn_part", "fused_mlp_part")
@@ -108,8 +112,90 @@ def test_tiny_model_kernels_match_plain(cuda_device):
         hm, z = model(x)
         hm_p, z_p = model(x, kernels=False)
     torch.cuda.synchronize()
-    assert block.LAUNCHES == {"fused_block": 1, "fused_attn_part": 1, "fused_mlp_part": 1}
+    assert block.LAUNCHES == {"fused_block": 1, "fused_attn_part": 1, "fused_mlp_part": 1,
+                              "fused_mlp_dx": 0}
     for got, want in ((hm, hm_p), (z, z_p)):
         assert torch.isfinite(got).all()
         err = (got.float() - want.float()).abs().max().item()
         assert err <= 5e-2 * want.float().abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch, seq", [(1, 257), (8, 257), (2, 57)])
+def test_mlp_dx_matches_plain(cuda_device, batch, seq):
+    mp = block.mlp_params(_params(cuda_device))
+    rng = np.random.default_rng(batch + seq)
+    x2, dy = (torch.from_numpy(rng.standard_normal((batch, seq, D)).astype(np.float32))
+              .to(cuda_device, torch.bfloat16) for _ in range(2))
+    block.reset_launches()
+    got = block.fused_mlp_dx(x2, dy, mp, EPS).float()
+    want = block.mlp_dx_math(x2, dy, mp, eps=EPS).float()
+    torch.cuda.synchronize()
+    assert block.LAUNCHES["fused_mlp_dx"] == 1
+    torch.testing.assert_close(got, want, atol=3e-2, rtol=3e-2)
+
+
+@pytest.mark.cuda
+def test_mlp_dx_refuses_what_it_does_not_take(cuda_device):
+    mp = block.mlp_params(_params(cuda_device))
+    x2 = torch.zeros((1, 257, D), device=cuda_device, dtype=torch.bfloat16)
+    with pytest.raises(TypeError, match="bf16"):
+        block.fused_mlp_dx(x2.float(), x2, mp, EPS)
+    with pytest.raises(ValueError, match="differ"):
+        block.fused_mlp_dx(x2, x2[:, :57].contiguous(), mp, EPS)
+    trainable = mp._replace(w2=mp.w2.clone().requires_grad_())
+    with pytest.raises(ValueError, match="requires grad"):
+        block.mlp_part_frozen(x2.clone().requires_grad_(), trainable, EPS)
+
+
+@pytest.mark.cuda
+def test_tiny_model_train_step_kernels_match_plain(cuda_device):
+    """One test/vit-tiny + LoRA train step at batch 2, kernels vs plain in
+    bf16 and plain in f32, the same dropout masks. Losses agree to 1e-3; the
+    bf16 gradients are held to the plain path's bf16 noise as in
+    chip_smoke.py: the kernel path's error vs f32, and its distance from the
+    plain path, are at most twice the plain bf16 path's error vs f32 plus
+    1e-2 (these gradients are sums that the BatchNorm after them nearly
+    cancels, so bf16 rounding alone moves them far from f32)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    config = {"model_name": "test/vit-tiny", "use_lora": True}
+    model = registry.create_model_from_config(config, device=cuda_device)
+    with torch.no_grad():
+        lora = model.backbone.encoder.layer[1].attention.lora_output
+        lora.lora_B.copy_(torch.randn(lora.lora_B.shape, generator=torch.Generator().manual_seed(0)) * 0.05)
+    rng = np.random.default_rng(0)
+    kps = rng.uniform(20, 200, (2, 24, 3)).astype(np.float32)
+    kps[..., 2] = 2.0
+    batch = {"image": torch.from_numpy(rng.standard_normal((2, 3, 224, 224)).astype(np.float32)),
+             "2d_keypoints": torch.from_numpy(kps),
+             "z_coords": torch.from_numpy(rng.standard_normal((2, 24)).astype(np.float32))}
+    batch = {k: v.to(cuda_device) for k, v in batch.items()}
+    names = ("backbone.encoder.layer.1.attention.lora_output.lora_A",
+             "backbone.encoder.layer.1.attention.lora_output.lora_B",
+             "pose_heads.heatmap_head.prediction.3.weight")
+    out = {}
+    for name, kernels, dtype in (("kernels", True, torch.bfloat16), ("plain", False, torch.bfloat16),
+                                 ("f32", False, torch.float32)):
+        m = copy.deepcopy(model)
+        state, opt, part = create_train_state(m, config)
+        step = prepare_batch(make_train_step(m, opt, part, kernels=kernels), (224, 48), dtype)
+        block.reset_launches()
+        _, stats = step(state, batch, 3e-5, 0)
+        torch.cuda.synchronize()
+        want = 1 if kernels else 0
+        assert block.LAUNCHES == {"fused_block": want, "fused_attn_part": want,
+                                  "fused_mlp_part": want, "fused_mlp_dx": want}
+        params = dict(m.named_parameters())
+        out[name] = (stats, {n: params[n].grad.float() for n in names})
+    (ks, kg), (ps, pg), (_, rg) = out["kernels"], out["plain"], out["f32"]
+    for k in ("loss", "kp_loss", "z_loss", "weight"):
+        assert abs(ks[k].item() - ps[k].item()) <= 1e-3 * abs(ps[k].item()), k
+
+    def rel(a, b):
+        return ((a - b).norm() / b.norm()).item()
+
+    for n in names:
+        assert torch.isfinite(kg[n]).all(), n
+        tol = 2 * rel(pg[n], rg[n]) + 1e-2
+        assert max(rel(kg[n], rg[n]), rel(kg[n], pg[n])) <= tol, n

@@ -182,7 +182,30 @@ def test_registry_names_and_families():
     assert set(tregistry.BACKBONE_REGISTRY) == set(jregistry.BACKBONE_REGISTRY)
 
 
-def test_training_mode_is_refused():
+def test_train_mode_forward_runs():
+    """Train mode: BatchNorm on batch statistics, gradients reach the LoRA
+    adapter and the heads, and no frozen backbone weight."""
     tm = tregistry.create_model_from_config(dict(CONFIG), device="cpu").train()
-    with pytest.raises(NotImplementedError, match="training"):
-        tm(torch.zeros(1, 3, 224, 224))
+    x = torch.from_numpy(np.random.default_rng(4).standard_normal((2, 3, 224, 224)).astype(np.float32))
+    hm, z = tm(x, generator=torch.Generator().manual_seed(0))
+    (hm.square().mean() + z.square().mean()).backward()
+    lora = tm.backbone.encoder.layer[1].attention.lora_output
+    assert lora.lora_A.grad is not None and lora.lora_B.grad.abs().max() > 0
+    assert all(p.grad is None for n, p in tm.backbone.named_parameters() if "lora_output" not in n)
+    assert all(p.grad is not None for p in tm.pose_heads.parameters())
+    assert tm.pose_heads.heatmap_head.feature_refine[1].num_batches_tracked.item() == 1
+
+
+def test_train_mode_refuses_what_the_port_cannot_train():
+    from dino_pose_tpu_torch.train.partition import apply_partition
+
+    tm = tregistry.create_model_from_config(dict(CONFIG), device="cpu").train()
+    x = torch.zeros(1, 3, 224, 224)
+    tm.backbone.encoder.layer[0].mlp.fc1.weight.requires_grad_(True)
+    with pytest.raises(ValueError, match="block weight requires grad"):
+        tm(x)
+    with torch.no_grad():
+        tm(x)                       # nothing to differentiate: runs
+    config = {"model_name": "test/vit-tiny", "unfreeze_last_n_layers": 1}
+    with pytest.raises(NotImplementedError, match="unfreeze-last-N"):
+        apply_partition(tregistry.create_model_from_config(config, device="cpu"), config)

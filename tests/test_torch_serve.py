@@ -92,9 +92,13 @@ def test_predictor_end_to_end_on_cpu(tiny_model):
     with pytest.raises(ValueError, match="B, 3, H, W"):
         predict(pixels[:, :2])
     # Parameters packed under the predictor's inference_mode still serve a
-    # forward outside it.
-    hm3, _ = tiny_model(torch.from_numpy(pixels).requires_grad_())
+    # forward outside it, with grad mode on.
+    hm3, _ = tiny_model(torch.from_numpy(pixels))
     np.testing.assert_array_equal(hm3.detach().numpy(), hm)
+    # Pixels that require grad would need a backward through the frozen
+    # blocks, which the block kernels do not have: refused, not cut.
+    with pytest.raises(ValueError, match="no backward"):
+        tiny_model(torch.from_numpy(pixels).requires_grad_())
 
 
 def test_entry_points_raise_without_cuda_unless_cpu_is_asked(tiny_model):
