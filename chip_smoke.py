@@ -1,7 +1,8 @@
 """Chip smoke test of the PyTorch/H100 port: build the CUDA kernels, hold each
 against its plain PyTorch version, serve dinov2-small + LoRA pose requests
-through the kernels, take dinov2-small + LoRA fine-tuning steps at batch 128
-through them, and time kernels, serving and the train step.
+through the kernels, take dinov2-small fine-tuning steps at batch 128 through
+them (LoRA, and unfreeze-last-4 with whole blocks training), and time
+kernels, serving and both train steps.
 
     python3 chip_smoke.py [--out results.json] [--profile]
 
@@ -58,23 +59,58 @@ KP_CELL_PX, KP_AGREE = 224 / 48, 0.75
 # kernel tolerance scaled by max|dy| (the real cotangent is ~1e-4).
 LOSS_RTOL = 1e-3
 GRAD_NOISE_FACTOR, GRAD_NOISE_SLACK = 1.25, 2e-3
+# The trainable block's backward kernels against their plain versions: dx
+# (and y, x2) at the kernel tolerance above (measured: 0.03125 at most, one
+# bf16 ulp of values in [4, 8)); each weight gradient, an f32 sum over B*S
+# rows of bf16-rounded terms in another order, elementwise within GRAD_TOL
+# of its largest magnitude: 2.4 times the largest ratio an H100 measured at
+# batch 1, 8 and 128 and on the train step's own tensors (8.3e-4).
+GRAD_TOL = 2e-3
 TRAIN_BATCH, TRAIN_STEPS, LR = 128, 3, 3e-5
-TRAIN_CONFIG = {"model_name": "facebook/dinov2-small", "use_lora": True}
-GRAD_NAMES = (
+LORA_CONFIG = {"model_name": "facebook/dinov2-small", "use_lora": True}
+UNFREEZE_CONFIG = {"model_name": "facebook/dinov2-small", "use_lora": False,
+                   "unfreeze_last_n_layers": 4}
+LORA_GRAD_NAMES = (
     "backbone.encoder.layer.11.attention.lora_output.lora_A",
     "backbone.encoder.layer.11.attention.lora_output.lora_B",
     "pose_heads.heatmap_head.feature_refine.0.weight",
     "pose_heads.heatmap_head.prediction.3.weight",
 )
+UNFREEZE_GRAD_NAMES = (
+    "backbone.encoder.layer.11.mlp.fc1.weight",
+    "backbone.encoder.layer.11.mlp.fc2.bias",
+    "backbone.encoder.layer.11.layer_scale2.lambda1",
+    "backbone.encoder.layer.11.norm2.weight",
+    "backbone.encoder.layer.8.attention.attention.query.weight",
+    "backbone.encoder.layer.8.attention.output.dense.bias",
+    "backbone.encoder.layer.8.layer_scale1.lambda1",
+    "backbone.encoder.layer.8.norm1.weight",
+    "pose_heads.heatmap_head.feature_refine.0.weight",
+)
+# Launches of each wrapper per forward or step on each path (the others 0).
+SERVING_LAUNCHES = {"fused_block": 11, "fused_attn_part": 1, "fused_mlp_part": 1}
+LORA_LAUNCHES = {"fused_block": 11, "fused_attn_part": 1, "fused_mlp_part": 1, "fused_mlp_dx": 1}
+UNFREEZE_LAUNCHES = {"fused_block": 8, "fused_block_train": 4, "fused_mlp_bwd": 4,
+                     "fused_attn_bwd": 4}
 KERNEL_ROWS = {
     "fused_block": "dino_pose_tpu/ops/block.py:159",
     "fused_attn_part": "dino_pose_tpu/ops/block.py:999",
     "fused_mlp_part": "dino_pose_tpu/ops/block.py:1021",
     "fused_mlp_dx": "dino_pose_tpu/ops/block.py:1044",
+    "fused_block_train": "dino_pose_tpu/ops/block.py:592",
+    "fused_mlp_bwd": "dino_pose_tpu/ops/block.py:284",
+    "fused_attn_bwd": "dino_pose_tpu/ops/block.py:334",
 }
-# The batch each kernel's numbers in the JSON line were taken at: the
-# forward kernels at the serving batch, the backward at the training batch.
-ROW_BATCH = {"fused_block": 1, "fused_attn_part": 1, "fused_mlp_part": 1, "fused_mlp_dx": 128}
+# The batch each kernel's numbers in the JSON line were taken at, and the
+# path whose launches its "launches" reports: the forward kernels at the
+# serving batch on the serving path, the backward ones at the training batch
+# on their training path.
+ROW_BATCH = {"fused_block": 1, "fused_attn_part": 1, "fused_mlp_part": 1,
+             "fused_mlp_dx": TRAIN_BATCH, "fused_block_train": TRAIN_BATCH,
+             "fused_mlp_bwd": TRAIN_BATCH, "fused_attn_bwd": TRAIN_BATCH}
+ROW_PATH = {"fused_block": "serving", "fused_attn_part": "serving", "fused_mlp_part": "serving",
+            "fused_mlp_dx": "lora_train", "fused_block_train": "unfreeze_train",
+            "fused_mlp_bwd": "unfreeze_train", "fused_attn_bwd": "unfreeze_train"}
 SOURCE = "dino_pose_tpu_torch/ops/csrc/block_kernels.cu"
 
 
@@ -143,6 +179,18 @@ def kernel_cases(x, p):
     }
 
 
+def expected(per: dict) -> dict:
+    """Every wrapper's launch count: ``per``, and 0 for the rest."""
+    from dino_pose_tpu_torch.ops import block as B
+
+    return {**dict.fromkeys(B.LAUNCHES, 0), **per}
+
+
+def record_launches(results: dict, path: str, launches: dict) -> None:
+    for name, n in launches.items():
+        results.setdefault(name, {"max_abs_err": 0.0}).setdefault("launches", {})[path] = n
+
+
 def phase_kernels(results: dict) -> None:
     """Each kernel vs its plain version at full width, bf16, batch 1 and 8."""
     gen = torch.Generator().manual_seed(SEED)
@@ -193,6 +241,70 @@ def phase_mlp_dx(results: dict) -> None:
             raise AssertionError(f"fused_mlp_dx at B={b} disagrees with mlp_dx_math")
         row = results.setdefault("fused_mlp_dx", {"max_abs_err": 0.0})
         row["max_abs_err"] = max(row["max_abs_err"], max_abs)
+
+
+def train_cases(x, dy, p):
+    """The trainable block's three wrappers and their plain versions, each
+    returning a flat tuple: (y, x2), or (dx, *weight gradients)."""
+    from dino_pose_tpu_torch.ops import block as B
+
+    mp, atp = B.mlp_params(p), B.attn_train_params(p)
+    return {
+        "fused_block_train": (lambda: B.fused_block_train(x, p, H, EPS),
+                              lambda: B.block_train_math(x, p, num_heads=H, eps=EPS)),
+        "fused_mlp_bwd": (lambda: flat(B.fused_mlp_bwd(x, dy, mp, EPS)),
+                          lambda: flat(B.mlp_bwd_math(x, dy, mp, eps=EPS))),
+        "fused_attn_bwd": (lambda: flat(B.fused_attn_bwd(x, dy, atp, H, EPS)),
+                           lambda: flat(B.attn_bwd_math(x, dy, atp, num_heads=H, eps=EPS))),
+    }
+
+
+def flat(out) -> tuple:
+    """(dx, grads) -> (dx, *grads); a tuple of tensors stays as it is."""
+    first, rest = out
+    return (first, *rest) if isinstance(rest, tuple) else (first, rest)
+
+
+def compare_outputs(got: tuple, want: tuple, act_scale: float = 1.0) -> tuple[float, float, bool]:
+    """Activations (3-D) within atol*act_scale + rtol*|ref|, weight gradients
+    elementwise within GRAD_TOL of their largest magnitude. Returns (max abs
+    error of the activations, largest gradient error over its largest
+    magnitude, ok)."""
+    act_err, grad_rel, ok = 0.0, 0.0, True
+    for g, w in zip(got, want):
+        g, w = g.float(), w.float()
+        ok &= g.shape == w.shape and bool(torch.isfinite(g).all())
+        err = (g - w).abs()
+        if g.dim() == 3:
+            act_err = max(act_err, err.max().item())
+            ok &= bool((err <= KERNEL_ATOL * act_scale + KERNEL_RTOL * w.abs()).all())
+        else:
+            scale = w.abs().max().item()
+            grad_rel = max(grad_rel, err.max().item() / scale)
+            ok &= scale > 0 and err.max().item() <= GRAD_TOL * scale
+    return act_err, grad_rel, ok
+
+
+def phase_train_kernels(results: dict) -> None:
+    """fused_block_train, fused_mlp_bwd and fused_attn_bwd vs their plain
+    versions at full width, bf16, batch 1, 8 and 128, with a unit-scale
+    seeded cotangent, on every output."""
+    gen = torch.Generator().manual_seed(SEED + 5)
+    for b in (1, 8, TRAIN_BATCH):
+        x, p = block_inputs(b, gen)
+        dy = torch.randn((b, S, D), generator=gen).to("cuda", torch.bfloat16)
+        for name, (kern, plain) in train_cases(x, dy, p).items():
+            got, want = kern(), plain()
+            torch.cuda.synchronize()
+            act_err, grad_rel, ok = compare_outputs(got, want)
+            log(f"kernel {name} B={b}: max_abs(activations)={act_err:.6g} "
+                f"max_err/max|ref|(weight grads)={grad_rel:.6g} tol=atol {KERNEL_ATOL} + rtol "
+                f"{KERNEL_RTOL}*|ref|, grads {GRAD_TOL}*max|ref| -> {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"{name} at B={b} disagrees with its plain version")
+            row = results.setdefault(name, {"max_abs_err": 0.0, "max_grad_err_rel": 0.0})
+            row["max_abs_err"] = max(row["max_abs_err"], act_err)
+            row["max_grad_err_rel"] = max(row.get("max_grad_err_rel", 0.0), grad_rel)
 
 
 def randomise_for_serving(model, gen: torch.Generator) -> None:
@@ -266,8 +378,8 @@ def phase_serving(results: dict, serving: dict):
     rng = np.random.default_rng(SEED)
     requests = [[im] for im in seeded_images(rng, 4)] + [seeded_images(rng, 8)]
 
-    # Serving runs no backward: fused_mlp_dx stays at 0.
-    per_forward = {"fused_block": 11, "fused_attn_part": 1, "fused_mlp_part": 1, "fused_mlp_dx": 0}
+    # Serving runs no backward: the backward wrappers stay at 0.
+    per_forward = expected(SERVING_LAUNCHES)
     B.reset_launches()
     for i, images in enumerate(requests):
         before = dict(B.LAUNCHES)
@@ -284,12 +396,7 @@ def phase_serving(results: dict, serving: dict):
         pixels = preprocessor(images)["pixel_values"]
         compare_paths(model, pixels, out, f"request {i}")
     launches = dict(B.LAUNCHES)
-    for name, n in launches.items():
-        if per_forward[name] == 0:
-            continue
-        if n == 0:
-            raise AssertionError(f"{name} was never launched on the serving path")
-        results[name]["launches"] = n
+    record_launches(results, "serving", launches)
     log(f"serving-path launches over {len(requests)} requests: {launches}")
 
     # Serving times: host clock around predict (preprocess, upload, forward,
@@ -339,11 +446,11 @@ def synthetic_batch(batch_size: int) -> dict:
     return {k: torch.from_numpy(v).cuda() for k, v in batch.items()}
 
 
-def make_step(model, kernels: bool, dtype=torch.bfloat16):
+def make_step(model, config: dict, kernels: bool, dtype=torch.bfloat16):
     from dino_pose_tpu_torch.train.state import create_train_state
     from dino_pose_tpu_torch.train.step import make_train_step, prepare_batch
 
-    state, optimizer, partition = create_train_state(model, TRAIN_CONFIG)
+    state, optimizer, partition = create_train_state(model, config)
     step = prepare_batch(make_train_step(model, optimizer, partition, kernels=kernels),
                          device_targets=(224, 48), compute_dtype=dtype)
     return state, step
@@ -353,78 +460,113 @@ def rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
     return ((got.float() - want.float()).norm() / want.float().norm()).item()
 
 
-def phase_train(results: dict, training: dict):
-    """Three dinov2-small + LoRA fine-tune steps at batch 128 through the
-    kernels, three from an identical copy through the plain versions (the
-    same dropout masks), compared step by step; then step times."""
+def clone(obj):
+    """Tensors cloned, tuples (named ones too) cloned elementwise."""
+    if isinstance(obj, torch.Tensor):
+        return obj.clone()
+    if isinstance(obj, tuple):
+        items = [clone(o) for o in obj]
+        return type(obj)(*items) if hasattr(obj, "_fields") else tuple(items)
+    return obj
+
+
+def check_step_tensors(tag: str, name: str, args: tuple, out, training: dict) -> bool:
+    """A backward wrapper's output in the first train step against its plain
+    version on the same inputs (the step's own activations, cotangent and
+    weights). The activation cotangent is linear in the incoming one, so the
+    kernel tolerance's absolute part is scaled by its max|.|; each weight
+    gradient is held to GRAD_TOL of its largest magnitude."""
+    from dino_pose_tpu_torch.ops import block as B
+
+    if name == "fused_mlp_dx":
+        x2, dy, mp, eps = args
+        got, want = (out,), (B.mlp_dx_math(x2, dy, mp, eps=eps),)
+    elif name == "fused_mlp_bwd":
+        x2, dy, mp, eps = args
+        got, want = flat(out), flat(B.mlp_bwd_math(x2, dy, mp, eps=eps))
+    else:
+        x, dy, atp, num_heads, eps = args
+        got, want = flat(out), flat(B.attn_bwd_math(x, dy, atp, num_heads=num_heads, eps=eps))
+    dy_max = dy.float().abs().max().item()
+    act_err, grad_rel, ok = compare_outputs(got, want, act_scale=dy_max)
+    ok &= dy_max > 0
+    training.setdefault("step1_tensors", {})[name] = {
+        "max_abs": act_err, "max_dy": dy_max, "max_abs_over_max_dy": act_err / dy_max,
+        "max_grad_err_rel": grad_rel}
+    log(f"{tag} train step 0 {name} on the step's tensors: max_abs={act_err:.6g} "
+        f"max|dy|={dy_max:.6g} (ratio {act_err / dy_max:.4g}); weight grads max_err/max|ref| "
+        f"{grad_rel:.4g}; tol=(atol {KERNEL_ATOL} + rtol {KERNEL_RTOL}*|ref|) scaled by "
+        f"max|dy|, grads {GRAD_TOL}*max|ref| -> {'ok' if ok else 'FAIL'}")
+    return ok
+
+
+def phase_train(results: dict, training: dict, tag: str, config: dict, per_step: dict,
+                grad_names: tuple, recorded: tuple):
+    """Three dinov2-small fine-tune steps with ``config`` at batch 128 through
+    the kernels, three from an identical copy through the plain versions (the
+    same dropout masks), compared step by step; the first step's call of each
+    ``recorded`` backward wrapper (the top layer's) held against its plain
+    version on its own inputs; then step times."""
     from dino_pose_tpu_torch.models.registry import create_model_from_config
     from dino_pose_tpu_torch.ops import block as B
 
-    model = create_model_from_config(dict(TRAIN_CONFIG), seed=SEED, device="cuda")
+    model = create_model_from_config(dict(config), seed=SEED, device="cuda")
     randomise_for_serving(model, torch.Generator().manual_seed(SEED + 4))
     plain_model = copy.deepcopy(model)
     ref_model = copy.deepcopy(model)
     batch = synthetic_batch(TRAIN_BATCH)
-    state, step = make_step(model, kernels=True)
-    pstate, pstep = make_step(plain_model, kernels=False)
+    state, step = make_step(model, config, kernels=True)
+    pstate, pstep = make_step(plain_model, config, kernels=False)
 
-    per_step = {"fused_block": 11, "fused_attn_part": 1, "fused_mlp_part": 1, "fused_mlp_dx": 1}
-    dx_seen = {}
-    fused_mlp_dx = B.fused_mlp_dx
+    want_step = expected(per_step)
+    seen = {}
+    originals = {name: getattr(B, name) for name in recorded}
 
-    def recording_mlp_dx(x2, dy, mp, eps):
-        dx2 = fused_mlp_dx(x2, dy, mp, eps)
-        dx_seen.update(x2=x2.clone(), dy=dy.clone(), mp=mp, eps=eps, dx2=dx2.clone())
-        return dx2
+    def recorder(name):
+        fn = originals[name]
+
+        def recording(*args):
+            out = fn(*args)
+            if name not in seen:
+                seen[name] = (clone(args), clone(out))
+            return out
+        return recording
 
     B.reset_launches()
     kstats, grads = [], {}
     params = dict(model.named_parameters())
     for i in range(TRAIN_STEPS):
         before = dict(B.LAUNCHES)
-        B.fused_mlp_dx = recording_mlp_dx if i == 0 else fused_mlp_dx
+        if i == 0:
+            for name in recorded:
+                setattr(B, name, recorder(name))
         try:
             state, stats = step(state, batch, LR, SEED)
         finally:
-            B.fused_mlp_dx = fused_mlp_dx
+            for name, fn in originals.items():
+                setattr(B, name, fn)
         torch.cuda.synchronize()
         delta = {k: B.LAUNCHES[k] - before[k] for k in B.LAUNCHES}
-        log(f"train step {i} (batch {TRAIN_BATCH}): launches {delta}")
-        if delta != per_step:
-            raise AssertionError(f"train step {i}: launches {delta}, want {per_step}")
+        log(f"{tag} train step {i} (batch {TRAIN_BATCH}): launches {delta}")
+        if delta != want_step:
+            raise AssertionError(f"{tag} train step {i}: launches {delta}, want {want_step}")
         kstats.append({k: v.item() for k, v in stats.items()})
         if i == 0:
-            grads = {n: params[n].grad.detach().clone() for n in GRAD_NAMES}
+            grads = {n: params[n].grad.detach().clone() for n in grad_names}
     launches = dict(B.LAUNCHES)
-    for name, n in launches.items():
-        if n == 0:
-            raise AssertionError(f"{name} was never launched on the training path")
-        results[name]["launches_train"] = n
-    log(f"training-path launches over {TRAIN_STEPS} steps: {launches}")
+    record_launches(results, f"{tag}_train", launches)
+    log(f"{tag} training-path launches over {TRAIN_STEPS} steps: {launches}")
 
-    # The dx kernel's output in step 1 against mlp_dx_math on the same x2,
-    # cotangent and weights; dx2 is linear in dy, so the kernel tolerance is
-    # scaled by max|dy|.
-    got = dx_seen["dx2"].float()
-    want = B.mlp_dx_math(dx_seen["x2"], dx_seen["dy"], dx_seen["mp"], eps=dx_seen["eps"]).float()
-    dy_max = dx_seen["dy"].float().abs().max().item()
-    err = (got - want).abs()
-    ok = dy_max > 0 and bool(torch.isfinite(got).all()) and bool(
-        (err <= KERNEL_ATOL * dy_max + KERNEL_RTOL * want.abs()).all())
-    training["dx_step1"] = {"max_abs": err.max().item(), "max_dy": dy_max,
-                            "max_abs_over_max_dy": err.max().item() / dy_max}
-    log(f"train step 0 fused_mlp_dx on the step's tensors: max_abs={err.max().item():.6g} "
-        f"max|dy|={dy_max:.6g} (ratio {err.max().item() / dy_max:.4g}); tol=(atol {KERNEL_ATOL}"
-        f" + rtol {KERNEL_RTOL}*|ref|) scaled by max|dy| -> {'ok' if ok else 'FAIL'}")
-    if not ok:
-        raise AssertionError("fused_mlp_dx disagrees with mlp_dx_math on the train step's tensors")
-    dx_seen.clear()
+    bad = [name for name in recorded if not check_step_tensors(tag, name, *seen[name], training)]
+    if bad:
+        raise AssertionError(f"{tag}: {bad} disagree with their plain versions on the step's tensors")
+    seen.clear()
 
     # The step-1 gradients in f32 (plain versions, TF32 off) from the same
     # weights and dropout masks: the yardstick for both bf16 paths.
-    rstate, rstep = make_step(ref_model, kernels=False, dtype=torch.float32)
+    rstate, rstep = make_step(ref_model, config, kernels=False, dtype=torch.float32)
     rstep(rstate, batch, LR, SEED)
-    ref_grads = {n: p.grad for n, p in ref_model.named_parameters() if n in GRAD_NAMES}
+    ref_grads = {n: p.grad for n, p in ref_model.named_parameters() if n in grad_names}
     del ref_model, rstate, rstep
 
     failures = []
@@ -435,18 +577,18 @@ def phase_train(results: dict, training: dict):
         for k in ("loss", "kp_loss", "z_loss", "weight"):
             got, want = kstats[i][k], pstats[k]
             ok = np.isfinite(got) and abs(got - want) <= LOSS_RTOL * abs(want)
-            log(f"train step {i} {k}: kernels {got:.7g} plain {want:.7g} "
+            log(f"{tag} train step {i} {k}: kernels {got:.7g} plain {want:.7g} "
                 f"rel {abs(got - want) / abs(want):.3g} (tol {LOSS_RTOL}) -> {'ok' if ok else 'FAIL'}")
             if not ok:
                 failures.append(f"train step {i}: {k}")
         if i == 0:
-            for n in GRAD_NAMES:
+            for n in grad_names:
                 rel = rel_err(grads[n], pparams[n].grad)
                 k_ref = rel_err(grads[n], ref_grads[n])
                 p_ref = rel_err(pparams[n].grad, ref_grads[n])
                 tol = GRAD_NOISE_FACTOR * p_ref + GRAD_NOISE_SLACK
                 ok = bool(torch.isfinite(grads[n]).all()) and max(rel, k_ref) <= tol
-                log(f"step-1 grad {n}: rel Frobenius kernels vs plain {rel:.4g}, kernels vs "
+                log(f"{tag} step-1 grad {n}: rel Frobenius kernels vs plain {rel:.4g}, kernels vs "
                     f"f32 {k_ref:.4g}, plain vs f32 {p_ref:.4g} (tol {GRAD_NOISE_FACTOR}*plain"
                     f"+{GRAD_NOISE_SLACK} = {tol:.4g}); |g| {ref_grads[n].norm().item():.4g} "
                     f"-> {'ok' if ok else 'FAIL'}")
@@ -455,13 +597,11 @@ def phase_train(results: dict, training: dict):
                 if not ok:
                     failures.append(f"step-1 gradient of {n}")
     if failures:
-        raise AssertionError("kernels vs plain out of tolerance: " + "; ".join(failures))
+        raise AssertionError(f"{tag}: kernels vs plain out of tolerance: " + "; ".join(failures))
     training["steps"] = {"kernels": kstats}
 
     # Step time (CUDA events around 5 steps after 2 warm-up steps), in turns
     # kernels, plain, plain, kernels; the timing launches are not counted.
-    saved = dict(B.LAUNCHES)
-
     def step_ms(fn, st, n=5):
         for _ in range(2):
             st, _ = fn(st, batch, LR, SEED)
@@ -479,19 +619,17 @@ def phase_train(results: dict, training: dict):
     for which in ("kernels", "plain", "plain", "kernels"):
         fn, st = (step, state) if which == "kernels" else (pstep, pstate)
         runs[which].append(step_ms(fn, st))
-    B.LAUNCHES.update(saved)
     torch.cuda.reset_peak_memory_stats()
     state, _ = step(state, batch, LR, SEED)
     torch.cuda.synchronize()
-    B.LAUNCHES.update(saved)
     for which, ms in runs.items():
         mean = float(np.mean(ms))
         training[f"step_ms_{which}"] = mean
         training[f"step_ms_{which}_runs"] = ms
         training[f"images_per_s_{which}"] = TRAIN_BATCH * 1e3 / mean
     training["peak_mem_gib_kernels"] = torch.cuda.max_memory_allocated() / 2**30
-    log("training " + json.dumps(training))
-    return model, step, state, batch
+    log(f"{tag} training " + json.dumps(training))
+    return step, state, batch
 
 
 def phase_times(results: dict) -> dict:
@@ -530,6 +668,22 @@ def phase_times(results: dict) -> dict:
         }
         log(f"time fused_mlp_dx B={b}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
             f"bound {bound:.5f} ms ({by})")
+    for b in (1, 8, TRAIN_BATCH):
+        x, p = block_inputs(b, gen)
+        dy = torch.randn((b, S, D), generator=gen).to("cuda", torch.bfloat16)
+        saved = dict(B.LAUNCHES)
+        for name, (kern, plain) in train_cases(x, dy, p).items():
+            with torch.inference_mode():
+                ms = cuda_ms(kern, iters=20)
+                plain_ms = cuda_ms(plain, iters=10, warmup=2)
+            bound, by = B.bound_ms(b * B.block_flops(S, D, HIDDEN)[name],
+                                   B.block_bytes(b, S, D, HIDDEN)[name])
+            by_batch.setdefault(b, {})[name] = {
+                "ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+            }
+            log(f"time {name} B={b}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+                f"bound {bound:.5f} ms ({by})")
+        B.LAUNCHES.update(saved)
     return by_batch
 
 
@@ -571,7 +725,7 @@ def main() -> int:
     ap.add_argument("--out", help="also write all measurements to this JSON file")
     ap.add_argument("--profile", action="store_true",
                     help="print torch.profiler kernel tables of the batch-1 forward "
-                         "and of the batch-128 train step")
+                         "and of the batch-128 LoRA and unfreeze train steps")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -591,15 +745,21 @@ def main() -> int:
 
     results: dict = {}
     serving: dict = {}
-    training: dict = {}
+    lora: dict = {}
+    unfreeze: dict = {}
     phase_kernels(results)
     phase_mlp_dx(results)
+    phase_train_kernels(results)
     model = phase_serving(results, serving)
-    _, step, state, batch = phase_train(results, training)
+    lora_run = phase_train(results, lora, "lora", LORA_CONFIG, LORA_LAUNCHES, LORA_GRAD_NAMES,
+                           ("fused_mlp_dx",))
+    unfreeze_run = phase_train(results, unfreeze, "unfreeze", UNFREEZE_CONFIG, UNFREEZE_LAUNCHES,
+                               UNFREEZE_GRAD_NAMES, ("fused_mlp_bwd", "fused_attn_bwd"))
     by_batch = phase_times(results)
     if args.profile:
         profile_forward(model)
-        profile_train_step(step, state, batch)
+        profile_train_step(*lora_run)
+        profile_train_step(*unfreeze_run)
 
     kernels = []
     for name, replaces in KERNEL_ROWS.items():
@@ -609,11 +769,11 @@ def main() -> int:
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCE, "replaces": replaces,
             "batch": b,
-            # Launches on the path the kernel belongs to: the forward kernels'
-            # on the serving path, the backward's on the training path.
-            "launches": row["launches"] if "launches" in row else row["launches_train"],
-            "launches_train": row["launches_train"],
+            # Launches on the path the kernel belongs to (ROW_PATH), and on each path.
+            "launches": row["launches"][ROW_PATH[name]],
+            "launches_by_path": row["launches"],
             "max_abs_err": row["max_abs_err"],
+            **({"max_grad_err_rel": row["max_grad_err_rel"]} if "max_grad_err_rel" in row else {}),
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": None,
         })
@@ -623,7 +783,7 @@ def main() -> int:
         with open(args.out, "w") as f:
             json.dump({"card": card, "kernels": kernels, "b1": by_batch[1], "b8": by_batch[8],
                        "b128": by_batch[TRAIN_BATCH], "serving": serving,
-                       "training": training}, f, indent=1)
+                       "training": lora, "training_unfreeze": unfreeze}, f, indent=1)
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -20,7 +20,7 @@ from torch import nn
 from dino_pose_tpu_torch.core.device import resolve_device
 from dino_pose_tpu_torch.models.pose import DinoPoseModule
 from dino_pose_tpu_torch.models.vit import VIT_PRESETS, LoRAAdapter, ViTConfig, _LayerScale
-from dino_pose_tpu_torch.train.partition import is_trainable
+from dino_pose_tpu_torch.train.partition import apply_partition
 
 
 @dataclasses.dataclass
@@ -88,8 +88,9 @@ def create_model_from_config(
     device: str | torch.device | None = None,
 ) -> DinoPoseModule:
     """Build a pose model from a ``config_model`` dict, in eval mode, with
-    weights drawn from ``seed`` and the backbone frozen (``requires_grad``
-    False outside the LoRA adapters). ``device`` defaults to ``cuda``."""
+    weights drawn from ``seed`` and ``requires_grad`` set by
+    ``train.partition``: the backbone frozen outside the LoRA adapters or the
+    last ``unfreeze_last_n_layers`` blocks. ``device`` defaults to ``cuda``."""
     name = resolve_model_name(config_model["model_name"])
     if name not in BACKBONE_REGISTRY:
         raise ValueError(f"Unsupported backbone: {name}")
@@ -106,11 +107,10 @@ def create_model_from_config(
         )
     model = model.to_empty(device="cpu")
     init_weights(model, torch.Generator().manual_seed(seed))
-    # The reference freezes the backbone when it builds the model; the heads
-    # and the LoRA adapters stay trainable, by the train step's own rule.
-    use_lora = bool(merged.get("use_lora", False))
-    for pname, p in model.named_parameters():
-        p.requires_grad_(is_trainable(pname, use_lora))
+    # The reference freezes the backbone when it builds the model; the heads,
+    # the LoRA adapters or the last unfrozen blocks stay trainable, by the
+    # train step's own rule.
+    apply_partition(model, merged)
     model.model_name = name
     model.config_model = merged
     return model.to(dev).eval()

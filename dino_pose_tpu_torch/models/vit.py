@@ -5,16 +5,25 @@ Modules carry the reference torch key names (HF ``Dinov2Model`` under
 ``attention.original_attention`` beside ``attention.lora_output``), so a
 reference-schema state dict loads with ``strict=True``.
 
-The blocks run through the fused wrappers of ``ops/block.py``: a non-LoRA
-layer through ``fused_block``, the LoRA layer through ``fused_attn_part`` ->
-adapter -> ``x + o*ls1`` -> ``mlp_part_frozen`` (``fused_mlp_part`` with the
-``fused_mlp_dx`` backward; with ``kernels=False`` the plain versions of
-each). Their packed parameters (q|k|v concatenated, matrices transposed to
-(in, out) and cast to the compute dtype) are detached copies, built once per
-dtype and device and dropped when a state dict is loaded. So a block's own
-weights never train: only the LoRA adapter, whose cotangent reaches it
-through the MLP half's backward. A block whose weights require grad is
-refused while grad mode is on (unfreeze-last-N is a later slice).
+The blocks run through the fused wrappers of ``ops/block.py`` (with
+``kernels=False`` the plain versions of each):
+
+- a block whose weights train (unfreeze-last-N), with grad mode on, through
+  ``block_train`` (``fused_block_train`` with the ``fused_mlp_bwd`` and
+  ``fused_attn_bwd`` backward), as JAX's ``dispatch_block_train``. Its
+  parameters are packed anew on every forward, with autograd (q|k|v
+  concatenated, matrices transposed to (in, out)); the cast to the compute
+  dtype happens inside, and the weight gradients reach the f32 parameters
+  unrounded;
+- any other non-LoRA block (frozen, or under ``no_grad``/``inference_mode``)
+  through ``fused_block`` on detached packed copies, cached per dtype,
+  device and the parameters' versions: an optimizer step or a loaded state
+  dict packs them anew, so no forward sees stale weights;
+- the LoRA layer through ``fused_attn_part`` -> adapter -> ``x + o*ls1`` ->
+  ``mlp_part_frozen`` (``fused_mlp_part`` with the ``fused_mlp_dx``
+  backward): only the adapter trains there. A LoRA layer whose base weights
+  require grad is refused while grad mode is on, since that backward gives
+  them no gradient.
 """
 
 from __future__ import annotations
@@ -31,6 +40,8 @@ from dino_pose_tpu_torch.ops.block import (
     MlpParams,
     attn_part_math,
     block_math,
+    block_train,
+    cast_params,
     fused_attn_part,
     fused_block,
     mlp_part_frozen,
@@ -159,56 +170,57 @@ class Block(nn.Module):
     def _base_attention(self) -> _Attention:
         return self.attention.original_attention if self.use_lora else self.attention
 
-    def packed(self, dtype: torch.dtype) -> BlockParams:
-        """Kernel-layout parameters, built once per (dtype, device): matrices
-        (in, out) in ``dtype``, vectors f32. Built as normal tensors even
-        when first asked for under ``inference_mode``, so that later calls
-        outside it can still use them."""
-        key = (dtype, self.norm1.weight.device)
-        if self._packed is None or self._packed[0] != key:
-            att = self._base_attention()
-            sa = att.attention
-
-            def mat(*ws):
-                return torch.cat([w.detach() for w in ws], 0).t().contiguous().to(dtype)
-
-            def vec(*vs):
-                return torch.cat([v.detach().float() for v in vs]).contiguous()
-
-            with torch.inference_mode(False), torch.no_grad():
-                params = BlockParams(
-                    g1=vec(self.norm1.weight), b1=vec(self.norm1.bias),
-                    wqkv=mat(sa.query.weight, sa.key.weight, sa.value.weight),
-                    bqkv=vec(sa.query.bias, sa.key.bias, sa.value.bias),
-                    wo=mat(att.output.dense.weight), bo=vec(att.output.dense.bias),
-                    ls1=vec(self.layer_scale1.lambda1),
-                    g2=vec(self.norm2.weight), b2=vec(self.norm2.bias),
-                    w1=mat(self.mlp.fc1.weight), bf1=vec(self.mlp.fc1.bias),
-                    w2=mat(self.mlp.fc2.weight), bf2=vec(self.mlp.fc2.bias),
-                    ls2=vec(self.layer_scale2.lambda1),
-                )
-            self._packed = (key, params)
-        return self._packed[1]
-
-    def _refuse_trainable_weights(self) -> None:
-        """The packed weights are detached: a block weight that requires
-        grad would silently get none."""
-        if not torch.is_grad_enabled():
-            return
+    def _base_weights(self) -> list[torch.Tensor]:
+        """The block's own parameters, the LoRA adapter's excluded."""
         att = self._base_attention()
         mods = (self.norm1, att, self.layer_scale1, self.norm2, self.mlp, self.layer_scale2)
-        if any(p.requires_grad for m in mods for p in m.parameters()):
-            raise ValueError(
-                "a block weight requires grad, but the block kernels have no "
-                "weight-gradient backward (the unfreeze-last-N slice of the port); "
-                "freeze it or run under torch.no_grad()"
-            )
+        return [p for m in mods for p in m.parameters()]
+
+    def layout(self) -> BlockParams:
+        """The parameters in the kernels' layout, built from the module's
+        tensors with autograd: q|k|v concatenated, matrices transposed to
+        (in, out), dtypes as stored."""
+        att = self._base_attention()
+        sa = att.attention
+        return BlockParams(
+            g1=self.norm1.weight, b1=self.norm1.bias,
+            wqkv=torch.cat([sa.query.weight, sa.key.weight, sa.value.weight]).t(),
+            bqkv=torch.cat([sa.query.bias, sa.key.bias, sa.value.bias]),
+            wo=att.output.dense.weight.t(), bo=att.output.dense.bias,
+            ls1=self.layer_scale1.lambda1,
+            g2=self.norm2.weight, b2=self.norm2.bias,
+            w1=self.mlp.fc1.weight.t(), bf1=self.mlp.fc1.bias,
+            w2=self.mlp.fc2.weight.t(), bf2=self.mlp.fc2.bias,
+            ls2=self.layer_scale2.lambda1,
+        )
+
+    def packed(self, dtype: torch.dtype) -> BlockParams:
+        """Detached kernel-layout copies (matrices in ``dtype``, vectors f32)
+        for the forward-only wrappers, cached per dtype, device and the
+        versions of the block's parameters: an in-place update (an optimizer
+        step, a loaded state dict) packs them anew. Built as normal tensors
+        even when first asked for under ``inference_mode``, so that later
+        calls outside it can still use them."""
+        weights = self._base_weights()
+        key = (dtype, weights[0].device, tuple(w._version for w in weights))
+        if self._packed is None or self._packed[0] != key:
+            with torch.inference_mode(False), torch.no_grad():
+                params = cast_params(BlockParams(*(t.detach() for t in self.layout())), dtype)
+            self._packed = (key, params)
+        return self._packed[1]
 
     def forward(self, x: torch.Tensor, *, kernels: bool = True,
                 generator: torch.Generator | None = None) -> torch.Tensor:
         cfg = self.cfg
         h, eps = cfg.num_heads, cfg.layer_norm_eps
-        self._refuse_trainable_weights()
+        if torch.is_grad_enabled() and any(w.requires_grad for w in self._base_weights()):
+            if self.use_lora:
+                raise ValueError(
+                    "a LoRA layer's base weight requires grad, but the layer's backward "
+                    "gives its base weights no gradient (only the adapter trains); "
+                    "freeze them or run under torch.no_grad()"
+                )
+            return block_train(x, self.layout(), h, eps, kernels=kernels)
         p = self.packed(x.dtype)
         if not self.use_lora:
             if kernels:

@@ -35,10 +35,13 @@ _F = ctypes.c_float
 _SIGNATURES = {
     "dp_gemm_smem_bytes": ([_I, _I], ctypes.c_longlong),
     "dp_attention_smem_bytes": ([_I, _I], ctypes.c_longlong),
+    "dp_attn_bwd_smem_bytes": ([_I, _I], ctypes.c_longlong),
     "dp_fused_block": ([_P] * 20 + [_I] * 5 + [_F, _P], _I),
     "dp_fused_attn_part": ([_P] * 10 + [_I] * 4 + [_F, _P], _I),
     "dp_fused_mlp_part": ([_P] * 10 + [_I] * 3 + [_F, _P], _I),
     "dp_fused_mlp_dx": ([_P] * 13 + [_I] * 3 + [_F, _P], _I),
+    "dp_fused_mlp_bwd": ([_P] * 24 + [_I] * 5 + [_F, _P], _I),
+    "dp_fused_attn_bwd": ([_P] * 26 + [_I] * 6 + [_F, _P], _I),
 }
 
 

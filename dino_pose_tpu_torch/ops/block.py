@@ -1,27 +1,33 @@
 """Fused ViT block: plain PyTorch versions and the CUDA kernel wrappers
 (counterpart of dino_pose_tpu/ops/block.py).
 
-Four functions of the dinov2 + LoRA path, each with its plain version:
+Seven functions of the dinov2 fine-tuning paths, each with its plain version:
 
-==================  ==================  =====================================
-wrapper             plain version       TPU kernel it replaces
-==================  ==================  =====================================
-``fused_block``     ``block_math``      ``_block_kernel`` (block.py:159)
-``fused_attn_part`` ``attn_part_math``  ``_attn_part_kernel`` (block.py:999)
-``fused_mlp_part``  ``mlp_part_math``   ``_mlp_part_kernel`` (block.py:1021)
-``fused_mlp_dx``    ``mlp_dx_math``     ``_mlp_dx_kernel`` (block.py:1044)
-==================  ==================  =====================================
+=====================  ====================  ==========================================
+wrapper                plain version         TPU kernel it replaces
+=====================  ====================  ==========================================
+``fused_block``        ``block_math``        ``_block_kernel`` (block.py:159)
+``fused_attn_part``    ``attn_part_math``    ``_attn_part_kernel`` (block.py:999)
+``fused_mlp_part``     ``mlp_part_math``     ``_mlp_part_kernel`` (block.py:1021)
+``fused_mlp_dx``       ``mlp_dx_math``       ``_mlp_dx_kernel`` (block.py:1044)
+``fused_block_train``  ``block_train_math``  ``_block_kernel``, training form (:592)
+``fused_mlp_bwd``      ``mlp_bwd_math``      ``_mlp_bwd_kernel`` (block.py:284)
+``fused_attn_bwd``     ``attn_bwd_math``     ``_attn_bwd_kernel`` (block.py:334)
+=====================  ====================  ==========================================
 
 A wrapper takes its plain version only for tensors on the CPU. On a CUDA
 tensor it launches the kernels of ``ops/csrc/block_kernels.cu`` or raises;
 it never falls back. Each launch adds one to ``LAUNCHES[<wrapper name>]``.
 
 The forward wrappers return tensors without a graph, so they refuse inputs
-that require grad while grad mode is on. The one backward is the LoRA
-layer's: :func:`mlp_part_frozen` is ``fused_mlp_part`` with an autograd
-backward that carries dx2 through ``fused_mlp_dx`` and gives the (frozen)
-MLP weights no gradient, as ``fused_mlp_part(..., assume_frozen_weights=True)``
-does in the JAX package.
+that require grad while grad mode is on. Two autograd functions carry the
+backward. :func:`mlp_part_frozen`, for the LoRA layer, is ``fused_mlp_part``
+with a backward that carries dx2 through ``fused_mlp_dx`` and gives the
+(frozen) MLP weights no gradient, as ``fused_mlp_part(...,
+assume_frozen_weights=True)`` does in the JAX package. :func:`block_train`,
+for a block that trains whole (unfreeze-last-N), is ``fused_block_train``
+with the backward ``fused_mlp_bwd`` then ``fused_attn_bwd``, which give dx
+and every weight gradient in f32, as JAX's ``fused_block_train`` does.
 
 Parameter layouts match the JAX package: matrices are (in, out) and
 ``wqkv``/``bqkv`` hold q|k|v on the output axis. For the kernels, matrices
@@ -42,9 +48,13 @@ from dino_pose_tpu_torch.ops.attention import plain_attention
 
 LAUNCHES: dict[str, int] = {
     "fused_block": 0, "fused_attn_part": 0, "fused_mlp_part": 0, "fused_mlp_dx": 0,
+    "fused_block_train": 0, "fused_mlp_bwd": 0, "fused_attn_bwd": 0,
 }
 
 _SMEM_LIMIT = 232448  # bytes of shared memory one Hopper block may use
+# Rows per block of the backward's column-sum partials: BM of the gemm_nt
+# epilogue sums and SUM_ROWS of the LayerNorm-backward row kernel.
+_SUM_ROWS = 64
 
 
 def reset_launches() -> None:
@@ -90,12 +100,39 @@ class MlpParams(NamedTuple):
     ls2: torch.Tensor
 
 
+class AttnTrainParams(NamedTuple):
+    """The attention half's parameters with its LayerScale: what
+    ``fused_attn_bwd`` takes, and the gradients it returns."""
+
+    g1: torch.Tensor
+    b1: torch.Tensor
+    wqkv: torch.Tensor
+    bqkv: torch.Tensor
+    wo: torch.Tensor
+    bo: torch.Tensor
+    ls1: torch.Tensor
+
+
 def attn_params(p: BlockParams) -> AttnParams:
     return AttnParams(p.g1, p.b1, p.wqkv, p.bqkv, p.wo, p.bo)
 
 
+def attn_train_params(p: BlockParams) -> AttnTrainParams:
+    return AttnTrainParams(p.g1, p.b1, p.wqkv, p.bqkv, p.wo, p.bo, p.ls1)
+
+
 def mlp_params(p: BlockParams) -> MlpParams:
     return MlpParams(p.g2, p.b2, p.w1, p.bf1, p.w2, p.bf2, p.ls2)
+
+
+def cast_params(p: BlockParams, dtype: torch.dtype) -> BlockParams:
+    """The kernels' layout of a block's parameters (JAX ``_prep_block_args``):
+    matrices in ``dtype``, vectors f32, all contiguous. Differentiable: the
+    casts of trainable parameters carry their gradients back in the
+    parameters' own dtype."""
+    return BlockParams(*(
+        t.to(dtype).contiguous() if t.dim() == 2 else t.float().contiguous() for t in p
+    ))
 
 
 # ---------------------------------------------------------------------------
@@ -133,13 +170,21 @@ def mlp_part_math(x2: torch.Tensor, mp: MlpParams, *, eps: float) -> torch.Tenso
     return x2 + h * mp.ls2.to(h.dtype)
 
 
+def block_train_math(
+    x: torch.Tensor, p: BlockParams, *, num_heads: int, eps: float
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """One pre-norm block and its attention residual: (y, x2) with
+    x2 = x + ls1*attn(x), y = x2 + ls2*mlp(x2)."""
+    o = attn_part_math(x, attn_params(p), num_heads=num_heads, eps=eps)
+    x2 = x + o * p.ls1.to(o.dtype)
+    return mlp_part_math(x2, mlp_params(p), eps=eps), x2
+
+
 def block_math(
     x: torch.Tensor, p: BlockParams, *, num_heads: int, eps: float
 ) -> torch.Tensor:
     """One pre-norm block: x2 = x + ls1*attn(x); y = x2 + ls2*mlp(x2)."""
-    o = attn_part_math(x, attn_params(p), num_heads=num_heads, eps=eps)
-    x2 = x + o * p.ls1.to(o.dtype)
-    return mlp_part_math(x2, mlp_params(p), eps=eps)
+    return block_train_math(x, p, num_heads=num_heads, eps=eps)[0]
 
 
 def _gelu_grad(z: torch.Tensor) -> torch.Tensor:
@@ -147,6 +192,35 @@ def _gelu_grad(z: torch.Tensor) -> torch.Tensor:
     phi = torch.exp(-0.5 * z * z) * 0.3989422804014327  # 1/sqrt(2*pi)
     cdf = 0.5 * (1.0 + torch.erf(z * 2.0**-0.5))
     return cdf + z * phi
+
+
+def _ln_fwd(x: torch.Tensor, g: torch.Tensor, b: torch.Tensor, eps: float):
+    """LayerNorm with its f32 statistics: (out in x's dtype, xhat, r)."""
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = (xf - mu).square().mean(dim=-1, keepdim=True)
+    r = torch.rsqrt(var + eps)
+    xhat = (xf - mu) * r
+    return (xhat * g.float() + b.float()).to(x.dtype), xhat, r
+
+
+def _ln_bwd(dout: torch.Tensor, xhat: torch.Tensor, r: torch.Tensor,
+            g: torch.Tensor) -> torch.Tensor:
+    """Input cotangent of LayerNorm (f32)."""
+    dh = dout * g.float()
+    mean1 = dh.mean(dim=-1, keepdim=True)
+    mean2 = (dh * xhat).mean(dim=-1, keepdim=True)
+    return r * (dh - mean1 - xhat * mean2)
+
+
+def _colsum(t: torch.Tensor) -> torch.Tensor:
+    """f32 sum over every row (all axes but the last)."""
+    return t.float().reshape(-1, t.shape[-1]).sum(0)
+
+
+def _tmm(a: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """a^T g over every row, in f32: the weight-gradient product."""
+    return a.float().reshape(-1, a.shape[-1]).t() @ g.float().reshape(-1, g.shape[-1])
 
 
 def mlp_dx_math(
@@ -161,22 +235,91 @@ def mlp_dx_math(
     rounded again; the product with W1^T is kept in f32; dx2 is rounded once.
     """
     dt = x2.dtype
-    xf = x2.float()
-    mu = xf.mean(dim=-1, keepdim=True)
-    var = (xf - mu).square().mean(dim=-1, keepdim=True)
-    r = torch.rsqrt(var + eps)
-    xhat = (xf - mu) * r
-    m = (xhat * mp.g2.float() + mp.b2.float()).to(dt)
+    m, xhat, r = _ln_fwd(x2, mp.g2, mp.b2, eps)
     h1 = _dense(m, mp.w1, mp.bf1)
     dyf = dy.float()
     dh2b = (dyf * mp.ls2.float()).to(dt)
     dg = dh2b.float() @ mp.w2.to(dt).float().t()
     dh1b = (dg * _gelu_grad(h1.float())).to(dt)
     dm = dh1b.float() @ mp.w1.to(dt).float().t()
-    dh = dm * mp.g2.float()
-    mean1 = dh.mean(dim=-1, keepdim=True)
-    mean2 = (dh * xhat).mean(dim=-1, keepdim=True)
-    return (dyf + r * (dh - mean1 - xhat * mean2)).to(dt)
+    return (dyf + _ln_bwd(dm, xhat, r, mp.g2)).to(dt)
+
+
+def mlp_bwd_math(
+    x2: torch.Tensor, dy: torch.Tensor, mp: MlpParams, *, eps: float
+) -> tuple[torch.Tensor, MlpParams]:
+    """Backward of y = x2 + ls2*(gelu(LN2(x2) W1 + bf1) W2 + bf2): dx2 and
+    the gradient of every ``MlpParams`` field, summed in f32 over all rows.
+
+    The rounding points of ``_mlp_bwd_kernel`` (JAX block.py:284-317): h1,
+    g = gelu(h1) and h2 recomputed in the activation dtype; dh2 = dy*ls2 in
+    f32, rounded for the products; dg, dh1 and dm f32, dh1 rounded for the
+    products; the bias gradients sum the unrounded f32 dh1 and dh2.
+    """
+    dt = x2.dtype
+    m, xhat, r = _ln_fwd(x2, mp.g2, mp.b2, eps)
+    h1 = _dense(m, mp.w1, mp.bf1)
+    g = _gelu_exact(h1)
+    h2 = _dense(g, mp.w2, mp.bf2)
+    dyf = dy.float()
+    dh2 = dyf * mp.ls2.float()
+    dh2b = dh2.to(dt)
+    dg = dh2b.float() @ mp.w2.to(dt).float().t()
+    dh1 = dg * _gelu_grad(h1.float())
+    dh1b = dh1.to(dt)
+    dm = dh1b.float() @ mp.w1.to(dt).float().t()
+    dx2 = (dyf + _ln_bwd(dm, xhat, r, mp.g2)).to(dt)
+    return dx2, MlpParams(
+        g2=_colsum(dm * xhat), b2=_colsum(dm), w1=_tmm(m, dh1b), bf1=_colsum(dh1),
+        w2=_tmm(g, dh2b), bf2=_colsum(dh2), ls2=_colsum(dyf * h2.float()),
+    )
+
+
+def attn_bwd_math(
+    x: torch.Tensor, dx2: torch.Tensor, atp: AttnTrainParams, *, num_heads: int, eps: float
+) -> tuple[torch.Tensor, AttnTrainParams]:
+    """Backward of x2 = x + ls1*(MHA(LN1(x) Wqkv + bqkv) Wo + bo): dx and the
+    gradient of every ``AttnTrainParams`` field, summed in f32 over all rows.
+
+    The rounding points of ``_attn_bwd_kernel`` (JAX block.py:349-404): qkv,
+    ctx and o recomputed in the activation dtype, the probabilities P in f32;
+    do = dx2*ls1 in f32, rounded for the products; dctx rounded; dP and dS
+    f32, dS rounded for dq and dk, P rounded for dv; dq, dk, dv rounded; da
+    f32. The bias gradients sum the unrounded do and the rounded dqkv.
+    """
+    dt = x.dtype
+    b, s, d = x.shape
+    dh = d // num_heads
+    scale = dh**-0.5
+
+    def heads(t: torch.Tensor) -> torch.Tensor:
+        return t.reshape(b, s, num_heads, dh).transpose(1, 2).float()
+
+    def merge(t: torch.Tensor) -> torch.Tensor:
+        return t.transpose(1, 2).reshape(b, s, d).to(dt)
+
+    a, xhat, r = _ln_fwd(x, atp.g1, atp.b1, eps)
+    qkv = _dense(a, atp.wqkv, atp.bqkv)
+    q, k, v = (heads(t) for t in qkv.split(d, dim=-1))
+    p = torch.softmax((q @ k.transpose(-1, -2)) * scale, dim=-1)
+    pb = p.to(dt).float()
+    ctx = merge(pb @ v)
+    o = _dense(ctx, atp.wo, atp.bo)
+    dx2f = dx2.float()
+    do = dx2f * atp.ls1.float()
+    dob = do.to(dt)
+    dctx = heads((dob.float() @ atp.wo.to(dt).float().t()).to(dt))
+    dp = dctx @ v.transpose(-1, -2)
+    ds = p * (dp - (p * dp).sum(dim=-1, keepdim=True))
+    dsb = ds.to(dt).float()
+    dqkv = torch.cat([merge((dsb @ k) * scale), merge((dsb.transpose(-1, -2) @ q) * scale),
+                      merge(pb.transpose(-1, -2) @ dctx)], dim=-1)
+    da = dqkv.float() @ atp.wqkv.to(dt).float().t()
+    dx = (dx2f + _ln_bwd(da, xhat, r, atp.g1)).to(dt)
+    return dx, AttnTrainParams(
+        g1=_colsum(da * xhat), b1=_colsum(da), wqkv=_tmm(a, dqkv), bqkv=_colsum(dqkv),
+        wo=_tmm(ctx, dob), bo=_colsum(do), ls1=_colsum(dx2f * o.float()),
+    )
 
 
 # ---------------------------------------------------------------------------
@@ -277,6 +420,30 @@ def fused_block(
     _refuse_grad(name, x, *p)
     if not _route(x):
         return block_math(x, p, num_heads=num_heads, eps=eps)
+    return _launch_block(x, p, num_heads, eps, name)[0]
+
+
+def fused_block_train(
+    x: torch.Tensor, p: BlockParams, num_heads: int, eps: float
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Whole block forward that also returns the attention residual x2, the
+    one activation the training backward keeps: (y, x2). Replaces
+    ``_block_kernel`` in its training form (dino_pose_tpu/ops/block.py:592,
+    ``_fused_forward_train``).
+
+    Design: the launches of ``fused_block``, whose chain already writes x2 to
+    a buffer of the caller's; here that buffer is returned. Bound as
+    ``fused_block``, plus B*S*D*2 bytes for x2.
+    """
+    name = "fused_block_train"
+    _refuse_grad(name, x, *p)
+    if not _route(x):
+        return block_train_math(x, p, num_heads=num_heads, eps=eps)
+    return _launch_block(x, p, num_heads, eps, name)
+
+
+def _launch_block(x: torch.Tensor, p: BlockParams, num_heads: int, eps: float,
+                  name: str) -> tuple[torch.Tensor, torch.Tensor]:
     _check_act(x, name)
     b, s, d = x.shape
     hidden = p.w1.shape[-1]
@@ -295,7 +462,7 @@ def fused_block(
     )
     _ext.check(err, name)
     LAUNCHES[name] += 1
-    return y
+    return y, x2
 
 
 def fused_attn_part(
@@ -387,10 +554,7 @@ def fused_mlp_dx(
     name = "fused_mlp_dx"
     if not _route(x2):
         return mlp_dx_math(x2, dy, mp, eps=eps)
-    _check_act(x2, name)
-    _check_act(dy, name)
-    if dy.shape != x2.shape:
-        raise ValueError(f"{name}: dy {tuple(dy.shape)} and x2 {tuple(x2.shape)} differ")
+    _check_pair(x2, dy, name)
     b, s, d = x2.shape
     hidden = mp.w1.shape[-1]
     if d % 64:
@@ -411,6 +575,137 @@ def fused_mlp_dx(
     return dx2
 
 
+def _splits(m: int, k_in: int, n: int) -> int:
+    """Row splits of a weight-gradient product dW (k_in, n) over m rows:
+    enough blocks for about four waves on the H100's 132 SMs, and at least
+    256 rows per split."""
+    tiles = (k_in // 64) * (n // 64)
+    return max(1, min(-(-m // 256), -(-4 * 132 // tiles)))
+
+
+def _f32(*shape: int, like: torch.Tensor) -> torch.Tensor:
+    return torch.empty(shape, dtype=torch.float32, device=like.device)
+
+
+def _act(*shape: int, like: torch.Tensor) -> torch.Tensor:
+    return torch.empty(shape, dtype=like.dtype, device=like.device)
+
+
+def _check_pair(x: torch.Tensor, dy: torch.Tensor, name: str) -> None:
+    _check_act(x, name)
+    _check_act(dy, name)
+    if dy.shape != x.shape:
+        raise ValueError(f"{name}: cotangent {tuple(dy.shape)} and input {tuple(x.shape)} differ")
+
+
+def fused_mlp_bwd(
+    x2: torch.Tensor, dy: torch.Tensor, mp: MlpParams, eps: float
+) -> tuple[torch.Tensor, MlpParams]:
+    """Backward of the MLP half with its weight gradients: (dx2, gradients
+    of every ``MlpParams`` field in f32, summed over all B*S rows); replaces
+    ``_mlp_bwd_kernel`` (dino_pose_tpu/ops/block.py:284, via ``_mlp_bwd`` :634).
+
+    Design: LN2 rows -> gemm<+bf1, h1 and GELU pair> -> gemm<+bf2>(h2) ->
+    gemm_nt<dy*ls2, *gelu'(h1), column sums>(dh1b, dbf1) -> gemm_nt<f32>(dm)
+    -> LayerNorm-backward rows with column sums (dx2, dbf2, dls2, dg2, db2)
+    -> gemm_tn(dW1 = m^T dh1b) -> gemm_tn<*ls2>(dW2 = g^T bf16(dy*ls2)). The
+    TPU kernel adds each batch row's weight gradients into VMEM across its
+    sequential grid; here the rows are split over blocks into f32 partials
+    that a second pass adds in a fixed order (reproducible bits, no atomics).
+    h1, g and h2 are recomputed, as JAX saves only x2.
+
+    Bound on an H100 at S = 257, D = 384: six products of 2*S*D*4D = 1.818
+    GFLOP per image, 0.235 ms at batch 128; operations bound it from batch 2.
+    """
+    name = "fused_mlp_bwd"
+    if not _route(x2):
+        return mlp_bwd_math(x2, dy, mp, eps=eps)
+    _check_pair(x2, dy, name)
+    b, s, d = x2.shape
+    hidden = mp.w1.shape[-1]
+    if d % 64:
+        raise ValueError(f"{name}: hidden size {d} is not a multiple of 64")
+    _check_hidden(hidden, name)
+    _check_params(x2, mp, _mlp_shapes(d, hidden), name)
+    m_rows = b * s
+    nblk = -(-m_rows // _SUM_ROWS)
+    s1, s2 = _splits(m_rows, d, hidden), _splits(m_rows, hidden, d)
+    # m, h1, g, h2, dh1b, dm, then the partials of dbf1, of the row sums,
+    # of dW1 and of dW2.
+    scratch = (_act(m_rows, d, like=x2), _act(m_rows, hidden, like=x2),
+               _act(m_rows, hidden, like=x2), _act(m_rows, d, like=x2),
+               _act(m_rows, hidden, like=x2), _f32(m_rows, d, like=x2),
+               _f32(nblk, hidden, like=x2), _f32(nblk, 4, d, like=x2),
+               _f32(s1, d, hidden, like=x2), _f32(s2, hidden, d, like=x2))
+    dx2 = torch.empty_like(x2)
+    dw1, dbf1 = _f32(d, hidden, like=x2), _f32(hidden, like=x2)
+    dw2, vec4 = _f32(hidden, d, like=x2), _f32(4, d, like=x2)
+    err = _ext.lib().dp_fused_mlp_bwd(
+        *(t.data_ptr() for t in (x2, dy, *mp, *scratch, dx2, dw1, dbf1, dw2, vec4)),
+        m_rows, d, hidden, s1, s2, eps, _stream(),
+    )
+    _ext.check(err, name)
+    LAUNCHES[name] += 1
+    dbf2, dls2, dg2, db2 = vec4
+    return dx2, MlpParams(g2=dg2, b2=db2, w1=dw1, bf1=dbf1, w2=dw2, bf2=dbf2, ls2=dls2)
+
+
+def fused_attn_bwd(
+    x: torch.Tensor, dx2: torch.Tensor, atp: AttnTrainParams, num_heads: int, eps: float
+) -> tuple[torch.Tensor, AttnTrainParams]:
+    """Backward of the attention half with its weight gradients: (dx,
+    gradients of every ``AttnTrainParams`` field in f32, summed over all B*S
+    rows); replaces ``_attn_bwd_kernel`` (dino_pose_tpu/ops/block.py:334,
+    via ``_attn_bwd`` :654).
+
+    Design: LN1 rows -> gemm<+bqkv> -> attention (ctx) -> gemm<+bo>(o) ->
+    gemm_nt<dx2*ls1, bf16>(dctx) -> attention backward: a dq kernel per
+    64-query tile with the head's K and V resident (f32 P, rowsum(P*dP)
+    saved) and a dk/dv kernel per 64-key tile with Q and dctx resident ->
+    gemm_nt<f32>(da) -> LayerNorm-backward rows with column sums (dx, dbo,
+    dls1, dg1, db1) -> gemm_tn with column sums (dWqkv, dbqkv) ->
+    gemm_tn<*ls1>(dWo). qkv, P, ctx and o are recomputed from x, as JAX
+    saves only x; weight gradients go through fixed-order f32 partials.
+
+    Bound on an H100 at S = 257, D = 384: three qkv-sized products, three of
+    2*S*D^2 and six of 2*S^2*D = 1.214 GFLOP per image, 0.157 ms at batch
+    128; operations bound it from batch 2.
+    """
+    name = "fused_attn_bwd"
+    if not _route(x):
+        return attn_bwd_math(x, dx2, atp, num_heads=num_heads, eps=eps)
+    _check_pair(x, dx2, name)
+    b, s, d = x.shape
+    _check_shapes(d, num_heads, s, name)
+    smem = _ext.lib().dp_attn_bwd_smem_bytes(s, d // num_heads)
+    if smem > _SMEM_LIMIT:
+        raise ValueError(f"{name}: S={s} needs {smem} B of shared memory for the attention "
+                         f"backward (limit {_SMEM_LIMIT})")
+    _check_params(x, atp, {**_attn_shapes(d), "ls1": (d,)}, name)
+    m_rows = b * s
+    nblk = -(-m_rows // _SUM_ROWS)
+    sq, so = _splits(m_rows, d, 3 * d), _splits(m_rows, d, d)
+
+    # a, qkv, ctx, o, dctx, dqkv, da, the softmax statistics, then the
+    # partials of the row sums, of dWqkv, of dWo and of dbqkv.
+    scratch = (_act(m_rows, d, like=x), _act(m_rows, 3 * d, like=x), _act(m_rows, d, like=x),
+               _act(m_rows, d, like=x), _act(m_rows, d, like=x), _act(m_rows, 3 * d, like=x),
+               _f32(m_rows, d, like=x), _f32(b, num_heads, 3, s, like=x),
+               _f32(nblk, 4, d, like=x), _f32(sq, d, 3 * d, like=x), _f32(so, d, d, like=x),
+               _f32(sq, 3 * d, like=x))
+    dx = torch.empty_like(x)
+    dwqkv, dbqkv = _f32(d, 3 * d, like=x), _f32(3 * d, like=x)
+    dwo, vec4 = _f32(d, d, like=x), _f32(4, d, like=x)
+    err = _ext.lib().dp_fused_attn_bwd(
+        *(t.data_ptr() for t in (x, dx2, *atp, *scratch, dx, dwqkv, dbqkv, dwo, vec4)),
+        b, s, d, num_heads, sq, so, eps, _stream(),
+    )
+    _ext.check(err, name)
+    LAUNCHES[name] += 1
+    dbo, dls1, dg1, db1 = vec4
+    return dx, AttnTrainParams(g1=dg1, b1=db1, wqkv=dwqkv, bqkv=dbqkv, wo=dwo, bo=dbo, ls1=dls1)
+
+
 class _MlpPartFrozen(torch.autograd.Function):
     """``fused_mlp_part`` with the frozen-weight backward: dx2 from
     ``fused_mlp_dx``, no gradient for any MLP parameter. With
@@ -421,8 +716,8 @@ class _MlpPartFrozen(torch.autograd.Function):
         if any(ctx.needs_input_grad[3:]):
             raise ValueError(
                 "mlp_part_frozen: an MLP weight requires grad, but its backward "
-                "gives the weights no gradient (assume_frozen_weights); the "
-                "weight-gradient backward comes with the unfreeze-last-N slice"
+                "gives the weights no gradient (assume_frozen_weights); a block "
+                "that trains whole goes through block_train"
             )
         ctx.save_for_backward(x2, *mp)
         ctx.eps, ctx.kernels = eps, kernels
@@ -450,25 +745,83 @@ def mlp_part_frozen(
     return _MlpPartFrozen.apply(x2, eps, kernels, *mp)
 
 
+class _BlockTrain(torch.autograd.Function):
+    """A block that trains whole: forward ``fused_block_train``, backward
+    ``fused_mlp_bwd`` then ``fused_attn_bwd`` on the dx2 it gives (JAX
+    ``fused_block_train``, ``_train_fwd``/``_train_bwd``). With
+    ``kernels=False`` the plain versions of all three, inside this same
+    function, so that both paths keep the f32 intermediates of the JAX
+    kernels (autograd of the bf16 ``block_math`` would round them)."""
+
+    @staticmethod
+    def forward(ctx, x, num_heads, eps, kernels, *params):
+        pc = cast_params(BlockParams(*params), x.dtype)
+        if kernels:
+            y, x2 = fused_block_train(x, pc, num_heads, eps)
+        else:
+            y, x2 = block_train_math(x, pc, num_heads=num_heads, eps=eps)
+        ctx.save_for_backward(x, x2, *params)
+        ctx.num_heads, ctx.eps, ctx.kernels = num_heads, eps, kernels
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, x2, *params = ctx.saved_tensors
+        pc = cast_params(BlockParams(*params), x.dtype)
+        h, eps = ctx.num_heads, ctx.eps
+        if ctx.kernels:
+            dx2, mg = fused_mlp_bwd(x2, dy.contiguous(), mlp_params(pc), eps)
+            dx, ag = fused_attn_bwd(x, dx2, attn_train_params(pc), h, eps)
+        else:
+            dx2, mg = mlp_bwd_math(x2, dy, mlp_params(pc), eps=eps)
+            dx, ag = attn_bwd_math(x, dx2, attn_train_params(pc), num_heads=h, eps=eps)
+        grads = BlockParams(**ag._asdict(), **mg._asdict())
+        # In each parameter's own dtype (JAX ``like``): f32 for f32 masters.
+        grads = (g.to(t.dtype) for g, t in zip(grads, params))
+        return (dx if ctx.needs_input_grad[0] else None, None, None, None, *grads)
+
+
+def block_train(
+    x: torch.Tensor, p: BlockParams, num_heads: int, eps: float, *, kernels: bool = True
+) -> torch.Tensor:
+    """A trainable block under autograd (JAX ``fused_block_train``). ``p``
+    holds the parameters as they train (f32, with their graphs); they are
+    cast to the kernels' layout inside, and their gradients come back f32.
+    Saves only (x, x2, p) for the backward, as JAX does. ``kernels=False``:
+    the plain versions of the forward and both backward halves."""
+    return _BlockTrain.apply(x, num_heads, eps, kernels, *p)
+
+
 def block_flops(s: int, d: int, hidden: int | None = None) -> dict[str, int]:
-    """Matrix-product FLOPs per image of each wrapper's function."""
+    """Matrix-product FLOPs per image of each wrapper's function. The
+    backward halves recompute their forward: the MLP backward is six
+    products of 2*S*D*4D (h1, h2, dg, dm, dW1, dW2), the attention backward
+    three qkv-sized ones (qkv, dWqkv, da), three of 2*S*D^2 (o, dWo, dctx)
+    and six of 2*S^2*D (scores, PV, dP, dq, dk, dv)."""
     h = 4 * d if hidden is None else hidden
     attn = 2 * s * d * 3 * d + 4 * s * s * d + 2 * s * d * d
     mlp = 4 * s * d * h
     return {"fused_attn_part": attn, "fused_mlp_part": mlp, "fused_block": attn + mlp,
-            "fused_mlp_dx": 6 * s * d * h}
+            "fused_mlp_dx": 6 * s * d * h, "fused_block_train": attn + mlp,
+            "fused_mlp_bwd": 12 * s * d * h,
+            "fused_attn_bwd": 3 * 2 * s * d * 3 * d + 3 * 2 * s * d * d + 6 * 2 * s * s * d}
 
 
 def block_bytes(b: int, s: int, d: int, hidden: int | None = None) -> dict[str, int]:
     """Bytes each wrapper must move: bf16 weights and activations once, f32
-    vectors."""
+    vectors, f32 weight gradients."""
     h = 4 * d if hidden is None else hidden
     act = 2 * b * s * d * 2
     attn_w = (3 * d * d + d * d) * 2 + (2 * d + 3 * d + d) * 4
     mlp_w = 2 * d * h * 2 + (2 * d + h + d + d) * 4
+    attn_g = (3 * d * d + d * d) * 4 + (2 * d + 3 * d + d + d) * 4
+    mlp_g = 2 * d * h * 4 + (2 * d + h + d + d) * 4
+    block = act + attn_w + mlp_w + d * 4
     return {"fused_attn_part": act + attn_w, "fused_mlp_part": act + mlp_w,
-            "fused_block": act + attn_w + mlp_w + d * 4,
-            "fused_mlp_dx": 3 * b * s * d * 2 + mlp_w}
+            "fused_block": block, "fused_mlp_dx": 3 * b * s * d * 2 + mlp_w,
+            "fused_block_train": block + b * s * d * 2,
+            "fused_mlp_bwd": 3 * b * s * d * 2 + mlp_w + mlp_g,
+            "fused_attn_bwd": 3 * b * s * d * 2 + attn_w + d * 4 + attn_g}
 
 
 def bound_ms(flops: float, nbytes: float) -> tuple[float, str]:

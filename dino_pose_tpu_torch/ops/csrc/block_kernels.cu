@@ -1,28 +1,42 @@
 // Fused ViT block kernels for Hopper (sm_90a), CUDA C++ with a plain C
 // interface (loaded with ctypes by dino_pose_tpu_torch/ops/_ext.py).
 //
-// They replace the four Pallas kernels of the dinov2 + LoRA path
-// (dino_pose_tpu/ops/block.py): _block_kernel (:159), _attn_part_kernel
-// (:999, body _attn_half_core :948), _mlp_part_kernel (:1021) and the LoRA
-// layer's backward _mlp_dx_kernel (:1044). The TPU design holds one whole
-// block (12 D^2 bf16 weights = 3.5 MB at D = 384) plus a few rows of
-// activations in VMEM per program. Hopper gives a block at most 227 KB of
-// shared memory, so each TPU kernel becomes a short chain of kernels here,
-// sharing four building blocks:
+// They replace the six Pallas kernels of the dinov2 fine-tuning paths
+// (dino_pose_tpu/ops/block.py): _block_kernel (:159, also in its training
+// form with the residual x2, :592), _attn_part_kernel (:999, body
+// _attn_half_core :948), _mlp_part_kernel (:1021), the LoRA layer's backward
+// _mlp_dx_kernel (:1044), and the trainable block's backward _mlp_bwd_kernel
+// (:284) and _attn_bwd_kernel (:334). The TPU design holds one whole block
+// (12 D^2 bf16 weights = 3.5 MB at D = 384) plus a few rows of activations
+// in VMEM per program. Hopper gives a block at most 227 KB of shared memory,
+// so each TPU kernel becomes a short chain of kernels here, sharing these
+// building blocks:
 //
 //   gemm_kernel<LN, EPI>   C = epilogue(prologue(A) @ W), bf16 tensor-core
 //                          tiles (WMMA 16x16x16, f32 accumulation).
 //                          LN = LayerNorm prologue (f32 statistics, output
 //                          rounded to bf16) over whole rows held in shared
 //                          memory; EPI = +bias | +bias,GELU(erf) |
-//                          +bias,*LayerScale,+residual.
+//                          +bias,*LayerScale,+residual | +bias with both the
+//                          pre-activation and its GELU written out.
 //   gemm_nt_kernel<SCALE, EPI>  the same tile with W read transposed (the
 //                          backward products), an optional per-column scale
-//                          prologue, and a *gelu'(h) or raw-f32 epilogue.
+//                          prologue, a *gelu'(h), raw-f32 or bf16 epilogue,
+//                          and optional per-tile f32 column sums.
+//   gemm_tn_kernel<SCALE, GSUM>  the weight-gradient product
+//                          dW = A^T @ G, reducing over the M = B*S rows: M is
+//                          split over blocks into f32 partials that
+//                          sum_rows_kernel adds in a fixed order.
 //   attention_kernel<DH>   one (batch, head, 64-query tile) per block: K and V
 //                          of all S keys for the head stay in shared memory,
 //                          f32 scores and softmax, P rounded to bf16 before PV.
-//   ln_bwd_rows_kernel     LayerNorm backward, one warp per row.
+//   attn_bwd_dq_kernel<DH>, attn_bwd_dkv_kernel<DH>  the attention backward,
+//                          FlashAttention-2 style: per query tile dq and the
+//                          softmax statistics, then per key tile dk and dv.
+//   ln_rows_kernel         LayerNorm forward, one warp per row.
+//   ln_bwd_rows_kernel<SUMS>  LayerNorm backward, one warp per row, with
+//                          optional per-block column sums for the vector
+//                          gradients.
 //
 //   _attn_part_kernel = gemm<LN,BIAS>(qkv) -> attention -> gemm<-,BIAS>(out)
 //   _mlp_part_kernel  = gemm<LN,GELU>(fc1) -> gemm<-,LS_RES>(fc2)
@@ -30,6 +44,17 @@
 //                       -> gemm<LN,GELU> -> gemm<-,LS_RES>
 //   _mlp_dx_kernel    = gemm<LN,BIAS>(h1) -> gemm_nt<dy*ls2, *gelu'(h1)>(dh1b)
 //                       -> gemm_nt<-, f32>(dm) -> ln_bwd_rows(dx2)
+//   _mlp_bwd_kernel   = ln_rows(m) -> gemm<-,BIAS,GELU pair>(h1, g)
+//                       -> gemm<-,BIAS>(h2) -> gemm_nt<dy*ls2,*gelu'(h1),sums>
+//                       (dh1b, dbf1) -> gemm_nt<-,f32>(dm) -> ln_bwd_rows<sums>
+//                       (dx2, dbf2, dls2, dg2, db2) -> gemm_tn(dW1 = m^T dh1b)
+//                       -> gemm_tn<*ls2>(dW2 = g^T bf16(dy*ls2))
+//   _attn_bwd_kernel  = ln_rows(a) -> gemm<-,BIAS>(qkv) -> attention(ctx)
+//                       -> gemm<-,BIAS>(o) -> gemm_nt<dx2*ls1,bf16>(dctx)
+//                       -> attn_bwd_dq -> attn_bwd_dkv (dqkv)
+//                       -> gemm_nt<-,f32>(da) -> ln_bwd_rows<sums>(dx, dbo,
+//                       dls1, dg1, db1) -> gemm_tn<colsums>(dWqkv, dbqkv)
+//                       -> gemm_tn<*ls1>(dWo = ctx^T bf16(dx2*ls1))
 //
 // Every rounding point of the JAX kernels is reproduced: each product is
 // rounded to bf16, then the bias (f32 parameter rounded to bf16) is added in
@@ -40,7 +65,14 @@
 // epilogue: the LayerNorm backward needs whole rows, and a 64x64 tile holds
 // a sixth of one. The dx chain is bound by its three products (0.909 GFLOP
 // per image at S = 257, D = 384: 0.118 ms at batch 128 on an H100) from
-// batch 2 up.
+// batch 2 up. The trainable block's backward keeps JAX's rounding points
+// too: dh1, dy*ls2 and dx2*ls1 enter their bias sums unrounded, the bf16
+// dqkv enters dbqkv, the probabilities stay f32 for dS; the residuals h1, g,
+// h2, qkv, P, ctx and o are recomputed from (x, x2), as JAX saves nothing
+// else. Weight gradients are sums over all B*S rows that the TPU kernel
+// carries across its sequential batch grid; a CUDA grid has no order, so
+// each block of rows writes f32 partials and one pass adds them in a fixed
+// order (no atomics: two runs give the same bits).
 //
 // Shapes: M = B*S rows are masked at the ragged edge (no padding copy); N is a
 // multiple of 64, K of 32 (the wrapper checks D % 64 == 0). Kernels launch on
@@ -64,10 +96,12 @@ constexpr int PAD_H = 8;           // bf16 row padding (keeps WMMA ldm % 8 == 0)
 constexpr int PAD_F = 4;           // f32 row padding
 constexpr int BQ = 64;             // query rows per attention block
 constexpr int ATTN_THREADS = 128;  // 4 warps, 16 query rows each
-constexpr int ROW_THREADS = 128;   // 4 warps, one row each (LayerNorm backward)
+constexpr int ROW_THREADS = 128;   // 4 warps, one row each (LayerNorm rows)
+constexpr int SUM_ROWS = 64;       // rows per block of the column-summing row kernel
+constexpr int NSUMS = 4;           // column sums of ln_bwd_rows_kernel<true>
 
-enum Epilogue { EPI_BIAS = 0, EPI_BIAS_GELU = 1, EPI_BIAS_LS_RES = 2 };
-enum EpilogueNT { EPT_GELU_GRAD = 0, EPT_F32 = 1 };
+enum Epilogue { EPI_BIAS = 0, EPI_BIAS_GELU = 1, EPI_BIAS_LS_RES = 2, EPI_BIAS_GELU_PAIR = 3 };
+enum EpilogueNT { EPT_GELU_GRAD = 0, EPT_F32 = 1, EPT_BF16 = 2 };
 
 __host__ __device__ __forceinline__ size_t align128(size_t n) {
   return (n + 127) & ~static_cast<size_t>(127);
@@ -97,14 +131,15 @@ size_t gemm_smem_bytes(bool ln, int K) {
 }
 
 // C[M,N] = epilogue(A'[M,K] @ W[K,N]); A, W, C, res row-major bf16;
-// bias, ls, gamma, beta f32 vectors.
+// bias, ls, gamma, beta f32 vectors. EPI_BIAS_GELU_PAIR writes the biased
+// product h to out and gelu(h) to out2.
 template <bool LN, int EPI>
 __global__ void __launch_bounds__(GEMM_THREADS)
 gemm_kernel(const bf16* __restrict__ A, const bf16* __restrict__ W,
             const float* __restrict__ bias, const float* __restrict__ ls,
             const bf16* __restrict__ res, const float* __restrict__ gamma,
             const float* __restrict__ beta, bf16* __restrict__ out,
-            int M, int N, int K, float eps) {
+            bf16* __restrict__ out2, int M, int N, int K, float eps) {
   extern __shared__ __align__(128) unsigned char smem[];
   const int lda = LN ? K + PAD_H : BK + PAD_H;
   constexpr int LDB = BN + PAD_H;
@@ -204,14 +239,19 @@ gemm_kernel(const bf16* __restrict__ A, const bf16* __restrict__ W,
     const int r = i / BN, c = i % BN;
     const int gm = m0 + r, gn = n0 + c;
     if (gm >= M) continue;
+    const size_t idx = static_cast<size_t>(gm) * N + gn;
     float o = bf16r(bf16r(Cs[r * LDC + c]) + bf16r(bias[gn]));
-    if (EPI == EPI_BIAS_GELU) {
-      o = bf16r(o * 0.5f * (1.f + erff(o * 0.70710678118654752440f)));
+    if (EPI == EPI_BIAS_GELU || EPI == EPI_BIAS_GELU_PAIR) {
+      const float gl = bf16r(o * 0.5f * (1.f + erff(o * 0.70710678118654752440f)));
+      if (EPI == EPI_BIAS_GELU_PAIR)
+        out2[idx] = __float2bfloat16(gl);
+      else
+        o = gl;
     } else if (EPI == EPI_BIAS_LS_RES) {
-      const float rv = __bfloat162float(res[static_cast<size_t>(gm) * N + gn]);
+      const float rv = __bfloat162float(res[idx]);
       o = bf16r(rv + bf16r(o * bf16r(ls[gn])));
     }
-    out[static_cast<size_t>(gm) * N + gn] = __float2bfloat16(o);
+    out[idx] = __float2bfloat16(o);
   }
 }
 
@@ -220,12 +260,14 @@ gemm_kernel(const bf16* __restrict__ A, const bf16* __restrict__ W,
 // tile is staged [n][k] in shared memory and loaded as a column-major WMMA
 // operand. A' = A, or with SCALE each element bf16(f32(a) * scale[k]).
 // EPT_GELU_GRAD: out bf16 = bf16(acc * gelu'(f32 aux[m, n])), aux bf16 (M, N);
-// EPT_F32: out f32 = acc (not rounded).
+// EPT_F32: out f32 = acc (not rounded); EPT_BF16: out bf16 = bf16(acc).
+// With colsum, each block also writes the f32 column sums of its tile's
+// epilogue values before rounding: colsum[blockIdx.y][n], (ceil(M/BM), N).
 template <bool SCALE, int EPI>
 __global__ void __launch_bounds__(GEMM_THREADS)
 gemm_nt_kernel(const bf16* __restrict__ A, const bf16* __restrict__ W,
                const float* __restrict__ scale, const bf16* __restrict__ aux,
-               void* __restrict__ out, int M, int N, int K) {
+               void* __restrict__ out, float* __restrict__ colsum, int M, int N, int K) {
   constexpr int LDA = BK + PAD_H;  // As[m][k]
   constexpr int LDW = BK + PAD_H;  // Ws[n][k]
   constexpr int LDC = BN + PAD_F;
@@ -293,52 +335,221 @@ gemm_nt_kernel(const bf16* __restrict__ A, const bf16* __restrict__ W,
   for (int i = tid; i < BM * BN; i += GEMM_THREADS) {
     const int r = i / BN, c = i % BN;
     const int gm = m0 + r, gn = n0 + c;
-    if (gm >= M) continue;
-    const float a = Cs[r * LDC + c];
+    if (gm >= M) {
+      Cs[r * LDC + c] = 0.f;  // no part in the column sums
+      continue;
+    }
+    float a = Cs[r * LDC + c];
     const size_t o = static_cast<size_t>(gm) * N + gn;
     if (EPI == EPT_GELU_GRAD) {
       const float z = __bfloat162float(aux[o]);
       const float g = 0.5f * (1.f + erff(z * 0.70710678118654752440f)) +
                       z * expf(-0.5f * z * z) * 0.3989422804014327f;
-      static_cast<bf16*>(out)[o] = __float2bfloat16(a * g);
+      a *= g;
+      static_cast<bf16*>(out)[o] = __float2bfloat16(a);
+    } else if (EPI == EPT_BF16) {
+      static_cast<bf16*>(out)[o] = __float2bfloat16(a);
     } else {
       static_cast<float*>(out)[o] = a;
+    }
+    Cs[r * LDC + c] = a;  // each element belongs to this one thread
+  }
+  if (colsum != nullptr) {  // the same for the whole block
+    __syncthreads();
+    if (tid < BN) {
+      float s = 0.f;
+      for (int r = 0; r < BM; ++r) s += Cs[r * LDC + tid];
+      colsum[static_cast<size_t>(blockIdx.y) * N + n0 + tid] = s;
     }
   }
 }
 
-// LayerNorm backward over whole rows, plus the residual's cotangent:
-// dx2 = bf16(dy + r*(dm*g - mean(dm*g) - xhat*mean(dm*g*xhat))), with xhat
-// and r recomputed from x2 in f32 (two-pass statistics). One warp per row.
+// ws[split][Kin, N] = A[rows, Kin]^T @ G'[rows, N] over the split's rows
+// [split*rps, min(M, (split+1)*rps)): the weight-gradient product. G' = G,
+// or with SCALE each element bf16(f32(g) * scale[n]). Grid (N/BN, Kin/BM,
+// splits); a split with no rows writes zeros. With GSUM the blocks of the
+// first Kin tile also write the f32 column sums of G' over their rows to
+// gsum[split][n]. A is staged [m][i] and loaded as a column-major WMMA
+// operand, so no transposed copy is made.
+template <bool SCALE, bool GSUM>
+__global__ void __launch_bounds__(GEMM_THREADS)
+gemm_tn_kernel(const bf16* __restrict__ A, const bf16* __restrict__ G,
+               const float* __restrict__ scale, float* __restrict__ ws,
+               float* __restrict__ gsum, int M, int Kin, int N, int rps) {
+  constexpr int LDA = BM + PAD_H;  // As[m][i]
+  constexpr int LDG = BN + PAD_H;  // Gs[m][n]
+  __shared__ __align__(128) bf16 As[BK * LDA];
+  __shared__ __align__(128) bf16 Gs[BK * LDG];
+
+  const int n0 = blockIdx.x * BN, i0 = blockIdx.y * BM, split = blockIdx.z;
+  const int mb = split * rps, me = min(M, mb + rps);
+  const int tid = threadIdx.x, warp = tid >> 5;
+  const bool sums = GSUM && blockIdx.y == 0 && tid < BN;
+  const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
+  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.f);
+  const int wi = (warp >> 1) * 32, wn = (warp & 1) * 32;
+  float gs = 0.f;
+
+  for (int m0 = mb; m0 < me; m0 += BK) {
+    for (int i = tid; i < BK * BM / 8; i += GEMM_THREADS) {
+      const int r = i / (BM / 8), c = (i % (BM / 8)) * 8;
+      uint4 v = zero;
+      if (m0 + r < me)
+        v = *reinterpret_cast<const uint4*>(A + static_cast<size_t>(m0 + r) * Kin + i0 + c);
+      *reinterpret_cast<uint4*>(As + r * LDA + c) = v;
+    }
+    for (int i = tid; i < BK * BN / 8; i += GEMM_THREADS) {
+      const int r = i / (BN / 8), c = (i % (BN / 8)) * 8;
+      uint4 v = zero;
+      if (m0 + r < me) {
+        v = *reinterpret_cast<const uint4*>(G + static_cast<size_t>(m0 + r) * N + n0 + c);
+        if (SCALE) {
+          bf16* e = reinterpret_cast<bf16*>(&v);
+#pragma unroll
+          for (int j = 0; j < 8; ++j)
+            e[j] = __float2bfloat16(__bfloat162float(e[j]) * scale[n0 + c + j]);
+        }
+      }
+      *reinterpret_cast<uint4*>(Gs + r * LDG + c) = v;
+    }
+    __syncthreads();
+    if (sums)
+      for (int r = 0; r < BK; ++r) gs += __bfloat162float(Gs[r * LDG + tid]);
+#pragma unroll
+    for (int kk = 0; kk < BK; kk += 16) {
+      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major> af[2];
+      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> bfr[2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+        wmma::load_matrix_sync(af[i], As + kk * LDA + wi + 16 * i, LDA);
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+        wmma::load_matrix_sync(bfr[j], Gs + kk * LDG + wn + 16 * j, LDG);
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < 2; ++j) wmma::mma_sync(acc[i][j], af[i], bfr[j], acc[i][j]);
+    }
+    __syncthreads();
+  }
+
+  float* dst = ws + static_cast<size_t>(split) * Kin * N;
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+      wmma::store_matrix_sync(dst + static_cast<size_t>(i0 + wi + 16 * i) * N + n0 + wn + 16 * j,
+                              acc[i][j], N, wmma::mem_row_major);
+  if (sums) gsum[static_cast<size_t>(split) * N + n0 + tid] = gs;
+}
+
+// out[i] = sum over r of part[r][i], r = 0 .. rows-1 in order: the fixed-order
+// second pass of every cross-block reduction.
+__global__ void sum_rows_kernel(const float* __restrict__ part, int rows, long long n,
+                                float* __restrict__ out) {
+  for (long long i = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x; i < n;
+       i += static_cast<long long>(gridDim.x) * blockDim.x) {
+    float s = 0.f;
+#pragma unroll 8
+    for (int r = 0; r < rows; ++r) s += part[r * n + i];
+    out[i] = s;
+  }
+}
+
+// LayerNorm forward over whole rows, rounded to bf16: the arithmetic of
+// gemm_kernel's LN prologue, written out for the backward's weight-gradient
+// products. One warp per row.
 __global__ void __launch_bounds__(ROW_THREADS)
-ln_bwd_rows_kernel(const bf16* __restrict__ x2, const bf16* __restrict__ dy,
-                   const float* __restrict__ dm, const float* __restrict__ gamma,
-                   bf16* __restrict__ dx2, int M, int D, float eps) {
+ln_rows_kernel(const bf16* __restrict__ x, const float* __restrict__ gamma,
+               const float* __restrict__ beta, bf16* __restrict__ out, int M, int D,
+               float eps) {
   const int lane = threadIdx.x & 31;
   const int row = blockIdx.x * (ROW_THREADS / 32) + (threadIdx.x >> 5);
-  if (row >= M) return;  // whole warps leave together
-  const size_t base = static_cast<size_t>(row) * D;
+  if (row >= M) return;
+  const bf16* src = x + static_cast<size_t>(row) * D;
+  bf16* dst = out + static_cast<size_t>(row) * D;
   float s = 0.f;
-  for (int c = lane; c < D; c += 32) s += __bfloat162float(x2[base + c]);
+  for (int c = lane; c < D; c += 32) s += __bfloat162float(src[c]);
   const float mu = warp_sum(s) / D;
   float q = 0.f;
   for (int c = lane; c < D; c += 32) {
-    const float d = __bfloat162float(x2[base + c]) - mu;
+    const float d = __bfloat162float(src[c]) - mu;
     q += d * d;
   }
-  const float r = rsqrtf(warp_sum(q) / D + eps);
-  float s1 = 0.f, s2 = 0.f;
-  for (int c = lane; c < D; c += 32) {
-    const float dh = dm[base + c] * gamma[c];
-    s1 += dh;
-    s2 += dh * (__bfloat162float(x2[base + c]) - mu) * r;
+  const float rstd = rsqrtf(warp_sum(q) / D + eps);
+  for (int c = lane; c < D; c += 32)
+    dst[c] = __float2bfloat16((__bfloat162float(src[c]) - mu) * rstd * gamma[c] + beta[c]);
+}
+
+// LayerNorm backward over whole rows, plus the residual's cotangent:
+// dx = bf16(dres + r*(dm*g - mean(dm*g) - xhat*mean(dm*g*xhat))), with xhat
+// and r recomputed from x in f32 (two-pass statistics). One warp per row;
+// a block takes rows [blockIdx.x*rows_per_block, +rows_per_block).
+// With SUMS each block also writes, for its rows, the f32 column sums
+// sums[blockIdx.x][0..3][c] = (dres*ls, dres*aux, dm*xhat, dm): the vector
+// gradients (dbf2, dls2, dg2, db2) of the MLP half, with dres = dy and
+// aux = h2, and (dbo, dls1, dg1, db1) of the attention half, with dres = dx2
+// and aux = o. Each warp sums its rows in its own shared-memory slice (lane
+// l owns the columns c = l mod 32), then the warps' slices are added in
+// order.
+template <bool SUMS>
+__global__ void __launch_bounds__(ROW_THREADS)
+ln_bwd_rows_kernel(const bf16* __restrict__ x, const bf16* __restrict__ dres,
+                   const float* __restrict__ dm, const float* __restrict__ gamma,
+                   const float* __restrict__ ls, const bf16* __restrict__ aux,
+                   bf16* __restrict__ dx, float* __restrict__ sums, int M, int D, float eps,
+                   int rows_per_block) {
+  extern __shared__ __align__(16) float wsum[];  // SUMS: [warps][NSUMS][D]
+  constexpr int WARPS = ROW_THREADS / 32;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  float* acc = wsum + static_cast<size_t>(warp) * NSUMS * D;
+  if (SUMS)
+    for (int e = lane; e < NSUMS * D; e += 32) acc[e] = 0.f;
+  const int r0 = blockIdx.x * rows_per_block, r1 = min(M, r0 + rows_per_block);
+  for (int row = r0 + warp; row < r1; row += WARPS) {
+    const size_t base = static_cast<size_t>(row) * D;
+    float s = 0.f;
+    for (int c = lane; c < D; c += 32) s += __bfloat162float(x[base + c]);
+    const float mu = warp_sum(s) / D;
+    float q = 0.f;
+    for (int c = lane; c < D; c += 32) {
+      const float d = __bfloat162float(x[base + c]) - mu;
+      q += d * d;
+    }
+    const float r = rsqrtf(warp_sum(q) / D + eps);
+    float s1 = 0.f, s2 = 0.f;
+    for (int c = lane; c < D; c += 32) {
+      const float dh = dm[base + c] * gamma[c];
+      s1 += dh;
+      s2 += dh * (__bfloat162float(x[base + c]) - mu) * r;
+    }
+    const float mean1 = warp_sum(s1) / D, mean2 = warp_sum(s2) / D;
+    for (int c = lane; c < D; c += 32) {
+      const float dmv = dm[base + c];
+      const float dh = dmv * gamma[c];
+      const float xh = (__bfloat162float(x[base + c]) - mu) * r;
+      const float dr = __bfloat162float(dres[base + c]);
+      dx[base + c] = __float2bfloat16(dr + r * (dh - mean1 - xh * mean2));
+      if (SUMS) {
+        acc[c] += dr * ls[c];
+        acc[D + c] += dr * __bfloat162float(aux[base + c]);
+        acc[2 * D + c] += dmv * xh;
+        acc[3 * D + c] += dmv;
+      }
+    }
   }
-  const float mean1 = warp_sum(s1) / D, mean2 = warp_sum(s2) / D;
-  for (int c = lane; c < D; c += 32) {
-    const float dh = dm[base + c] * gamma[c];
-    const float xh = (__bfloat162float(x2[base + c]) - mu) * r;
-    dx2[base + c] =
-        __float2bfloat16(__bfloat162float(dy[base + c]) + r * (dh - mean1 - xh * mean2));
+  if (SUMS) {
+    __syncthreads();
+    for (int e = threadIdx.x; e < NSUMS * D; e += ROW_THREADS) {
+      float t = 0.f;
+#pragma unroll
+      for (int w = 0; w < WARPS; ++w) t += wsum[static_cast<size_t>(w) * NSUMS * D + e];
+      sums[static_cast<size_t>(blockIdx.x) * NSUMS * D + e] = t;
+    }
   }
 }
 
@@ -466,10 +677,349 @@ attention_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ ctx, int S, in
   }
 }
 
+// Attention backward (the per-head loop of _attn_bwd_kernel, block.py:383-397):
+//   P = softmax(Q K^T * scale) (f32), dP = dO V^T (f32),
+//   dS = P * (dP - rowsum(P * dP)),
+//   dq = bf16(bf16(dS) K * scale), dk = bf16(bf16(dS)^T Q * scale),
+//   dv = bf16(bf16(P)^T dO),
+// dO being the head's slice of dctx. dk and dv sum over all queries, so the
+// work is split FlashAttention-2 style: attn_bwd_dq_kernel takes one query
+// tile with K and V resident and writes dq and the row statistics (max,
+// sum, rowsum(P*dP)); attn_bwd_dkv_kernel takes one key tile with Q and dO
+// resident, rebuilds P and dS from those statistics, and writes dk and dv.
+// Keys and queries >= S get P = dS = 0 (the forward's masking; no padding
+// copy). stats: (B, H, 3, S) f32. dqkv: (B, S, 3D) bf16, q|k|v as qkv.
+size_t attn_bwd_smem_bytes(int S, int dh) {
+  const int sp = (S + 15) / 16 * 16;
+  const int ldh = dh + PAD_H;
+  const size_t seq = align128(static_cast<size_t>(sp) * ldh * 2);
+  const size_t tile = align128(static_cast<size_t>(BQ) * ldh * 2);
+  const size_t pb = align128(static_cast<size_t>(BQ) * (sp + PAD_H) * 2);
+  const size_t warps = ATTN_THREADS / 32;
+  const size_t dq = 2 * seq + 2 * tile + align128(static_cast<size_t>(BQ) * (sp + PAD_F) * 4) +
+                    pb + align128(warps * 256 * 4);
+  const size_t dkv = 2 * seq + 2 * tile + 2 * pb + align128(warps * 2 * 256 * 4) +
+                     align128(static_cast<size_t>(3) * sp * 4);
+  return dq > dkv ? dq : dkv;
+}
+
+// Grid (ceil(S/BQ), H, B). Each warp owns 16 query rows of the tile.
+template <int DH>
+__global__ void __launch_bounds__(ATTN_THREADS)
+attn_bwd_dq_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ dctx,
+                   float* __restrict__ stats, bf16* __restrict__ dqkv, int S, int H,
+                   float scale) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int sp = (S + 15) / 16 * 16;
+  constexpr int LDH = DH + PAD_H;
+  const int lds = sp + PAD_F;
+  const int ldp = sp + PAD_H;
+  size_t off = 0;
+  bf16* Ks = reinterpret_cast<bf16*>(smem + off);
+  off += align128(static_cast<size_t>(sp) * LDH * 2);
+  bf16* Vs = reinterpret_cast<bf16*>(smem + off);
+  off += align128(static_cast<size_t>(sp) * LDH * 2);
+  bf16* Qs = reinterpret_cast<bf16*>(smem + off);
+  off += align128(static_cast<size_t>(BQ) * LDH * 2);
+  bf16* Os = reinterpret_cast<bf16*>(smem + off);  // dO tile
+  off += align128(static_cast<size_t>(BQ) * LDH * 2);
+  float* Ss = reinterpret_cast<float*>(smem + off);  // scores, then P (f32)
+  off += align128(static_cast<size_t>(BQ) * lds * 4);
+  bf16* Ps = reinterpret_cast<bf16*>(smem + off);  // bf16(dS)
+  off += align128(static_cast<size_t>(BQ) * ldp * 2);
+  float* Sc = reinterpret_cast<float*>(smem + off);  // 16x16 f32 per warp
+
+  const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * BQ;
+  const int D = H * DH, row = 3 * D;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const bf16* base = qkv + static_cast<size_t>(b) * S * row;
+  const bf16* dbase = dctx + static_cast<size_t>(b) * S * D;
+  float* st = stats + (static_cast<size_t>(b) * H + h) * 3 * S;
+  constexpr int VPR = DH / 8;
+  const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
+
+  for (int i = tid; i < sp * VPR; i += ATTN_THREADS) {
+    const int r = i / VPR, c = (i % VPR) * 8;
+    uint4 kv = zero, vv = zero;
+    if (r < S) {
+      const bf16* p = base + static_cast<size_t>(r) * row + h * DH + c;
+      kv = *reinterpret_cast<const uint4*>(p + D);
+      vv = *reinterpret_cast<const uint4*>(p + 2 * D);
+    }
+    *reinterpret_cast<uint4*>(Ks + r * LDH + c) = kv;
+    *reinterpret_cast<uint4*>(Vs + r * LDH + c) = vv;
+  }
+  for (int i = tid; i < BQ * VPR; i += ATTN_THREADS) {
+    const int r = i / VPR, c = (i % VPR) * 8;
+    uint4 qv = zero, ov = zero;
+    if (q0 + r < S) {
+      qv = *reinterpret_cast<const uint4*>(base + static_cast<size_t>(q0 + r) * row + h * DH + c);
+      ov = *reinterpret_cast<const uint4*>(dbase + static_cast<size_t>(q0 + r) * D + h * DH + c);
+    }
+    *reinterpret_cast<uint4*>(Qs + r * LDH + c) = qv;
+    *reinterpret_cast<uint4*>(Os + r * LDH + c) = ov;
+  }
+  __syncthreads();
+
+  // Scores and softmax exactly as attention_kernel, P kept in f32.
+  const int wr = warp * 16;
+  {
+    wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> qf[DH / 16];
+#pragma unroll
+    for (int kk = 0; kk < DH / 16; ++kk)
+      wmma::load_matrix_sync(qf[kk], Qs + wr * LDH + kk * 16, LDH);
+    for (int n = 0; n < sp; n += 16) {
+      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
+      wmma::fill_fragment(acc, 0.f);
+#pragma unroll
+      for (int kk = 0; kk < DH / 16; ++kk) {
+        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> kf;
+        wmma::load_matrix_sync(kf, Ks + n * LDH + kk * 16, LDH);
+        wmma::mma_sync(acc, qf[kk], kf, acc);
+      }
+      wmma::store_matrix_sync(Ss + wr * lds + n, acc, lds, wmma::mem_row_major);
+    }
+  }
+  __syncwarp();
+  for (int r = wr; r < wr + 16; ++r) {
+    float* srow = Ss + r * lds;
+    float mx = -INFINITY;
+    for (int c = lane; c < S; c += 32) mx = fmaxf(mx, srow[c] * scale);
+    mx = warp_max(mx);
+    float sum = 0.f;
+    for (int c = lane; c < S; c += 32) {
+      const float e = expf(srow[c] * scale - mx);
+      srow[c] = e;
+      sum += e;
+    }
+    sum = warp_sum(sum);
+    __syncwarp();
+    for (int c = lane; c < sp; c += 32) srow[c] = c < S ? srow[c] / sum : 0.f;
+    if (lane == 0 && q0 + r < S) {
+      st[q0 + r] = mx;
+      st[S + q0 + r] = sum;
+    }
+  }
+  __syncwarp();
+
+  // dP = dO V^T, 16 keys at a time through this warp's scratch tile, twice:
+  // first for rowsum(P * dP), then for dS. Lane pair (2j, 2j+1) owns row j
+  // of the tile, eight columns each.
+  wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> of[DH / 16];
+#pragma unroll
+  for (int kk = 0; kk < DH / 16; ++kk)
+    wmma::load_matrix_sync(of[kk], Os + wr * LDH + kk * 16, LDH);
+  float* sc = Sc + warp * 256;
+  const int tr = lane >> 1, tc = (lane & 1) * 8;
+  const float* prow = Ss + (wr + tr) * lds;
+  float rt = 0.f;
+  for (int pass = 0; pass < 2; ++pass) {
+    for (int n = 0; n < sp; n += 16) {
+      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
+      wmma::fill_fragment(acc, 0.f);
+#pragma unroll
+      for (int kk = 0; kk < DH / 16; ++kk) {
+        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> vf;
+        wmma::load_matrix_sync(vf, Vs + n * LDH + kk * 16, LDH);
+        wmma::mma_sync(acc, of[kk], vf, acc);
+      }
+      wmma::store_matrix_sync(sc, acc, 16, wmma::mem_row_major);
+      __syncwarp();
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float p = prow[n + tc + j], dp = sc[tr * 16 + tc + j];
+        if (pass == 0)
+          rt += p * dp;
+        else
+          Ps[(wr + tr) * ldp + n + tc + j] = __float2bfloat16(p * (dp - rt));
+      }
+      __syncwarp();
+    }
+    if (pass == 0) {
+      rt += __shfl_xor_sync(0xffffffffu, rt, 1);
+      if ((lane & 1) == 0 && q0 + wr + tr < S) st[2 * S + q0 + wr + tr] = rt;
+    }
+  }
+  __syncwarp();
+
+  // dq = bf16(dS) K * scale, staged through this warp's rows of Ss.
+  wmma::fragment<wmma::accumulator, 16, 16, 16, float> qacc[DH / 16];
+#pragma unroll
+  for (int j = 0; j < DH / 16; ++j) wmma::fill_fragment(qacc[j], 0.f);
+  for (int k = 0; k < sp; k += 16) {
+    wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> dsf;
+    wmma::load_matrix_sync(dsf, Ps + wr * ldp + k, ldp);
+#pragma unroll
+    for (int j = 0; j < DH / 16; ++j) {
+      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> kf;
+      wmma::load_matrix_sync(kf, Ks + k * LDH + j * 16, LDH);
+      wmma::mma_sync(qacc[j], dsf, kf, qacc[j]);
+    }
+  }
+  __syncwarp();
+#pragma unroll
+  for (int j = 0; j < DH / 16; ++j)
+    wmma::store_matrix_sync(Ss + wr * lds + j * 16, qacc[j], lds, wmma::mem_row_major);
+  __syncwarp();
+  for (int i = lane; i < 16 * DH; i += 32) {
+    const int r = i / DH, c = i % DH;
+    const int q = q0 + wr + r;
+    if (q < S)
+      dqkv[(static_cast<size_t>(b) * S + q) * row + h * DH + c] =
+          __float2bfloat16(Ss[(wr + r) * lds + c] * scale);
+  }
+}
+
+// Grid (ceil(S/BQ), H, B) over key tiles. Each warp owns 16 keys of the tile
+// and walks all queries 16 at a time: S^T = K Q^T and dP^T = V dO^T in its
+// scratch tiles, then P^T and dS^T (bf16) into shared rows; at the end
+// dv = P^T dO and dk = dS^T Q * scale for its 16 keys.
+template <int DH>
+__global__ void __launch_bounds__(ATTN_THREADS)
+attn_bwd_dkv_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ dctx,
+                    const float* __restrict__ stats, bf16* __restrict__ dqkv, int S, int H,
+                    float scale) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int sp = (S + 15) / 16 * 16;
+  constexpr int LDH = DH + PAD_H;
+  const int ldp = sp + PAD_H;
+  size_t off = 0;
+  bf16* Qs = reinterpret_cast<bf16*>(smem + off);
+  off += align128(static_cast<size_t>(sp) * LDH * 2);
+  bf16* Os = reinterpret_cast<bf16*>(smem + off);  // dO, all queries
+  off += align128(static_cast<size_t>(sp) * LDH * 2);
+  bf16* Kt = reinterpret_cast<bf16*>(smem + off);
+  off += align128(static_cast<size_t>(BQ) * LDH * 2);
+  bf16* Vt = reinterpret_cast<bf16*>(smem + off);
+  off += align128(static_cast<size_t>(BQ) * LDH * 2);
+  bf16* Pt = reinterpret_cast<bf16*>(smem + off);  // bf16(P)^T, [key][query]
+  off += align128(static_cast<size_t>(BQ) * ldp * 2);
+  bf16* Dt = reinterpret_cast<bf16*>(smem + off);  // bf16(dS)^T
+  off += align128(static_cast<size_t>(BQ) * ldp * 2);
+  float* Sc = reinterpret_cast<float*>(smem + off);  // two 16x16 f32 per warp
+  off += align128(static_cast<size_t>(ATTN_THREADS / 32) * 2 * 256 * 4);
+  float* St = reinterpret_cast<float*>(smem + off);  // max | sum | rowsum(P dP)
+
+  const int b = blockIdx.z, h = blockIdx.y, k0 = blockIdx.x * BQ;
+  const int D = H * DH, row = 3 * D;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const bf16* base = qkv + static_cast<size_t>(b) * S * row;
+  const bf16* dbase = dctx + static_cast<size_t>(b) * S * D;
+  const float* st = stats + (static_cast<size_t>(b) * H + h) * 3 * S;
+  constexpr int VPR = DH / 8;
+  const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
+
+  for (int i = tid; i < sp * VPR; i += ATTN_THREADS) {
+    const int r = i / VPR, c = (i % VPR) * 8;
+    uint4 qv = zero, ov = zero;
+    if (r < S) {
+      qv = *reinterpret_cast<const uint4*>(base + static_cast<size_t>(r) * row + h * DH + c);
+      ov = *reinterpret_cast<const uint4*>(dbase + static_cast<size_t>(r) * D + h * DH + c);
+    }
+    *reinterpret_cast<uint4*>(Qs + r * LDH + c) = qv;
+    *reinterpret_cast<uint4*>(Os + r * LDH + c) = ov;
+  }
+  for (int i = tid; i < BQ * VPR; i += ATTN_THREADS) {
+    const int r = i / VPR, c = (i % VPR) * 8;
+    uint4 kv = zero, vv = zero;
+    if (k0 + r < S) {
+      const bf16* p = base + static_cast<size_t>(k0 + r) * row + h * DH + c;
+      kv = *reinterpret_cast<const uint4*>(p + D);
+      vv = *reinterpret_cast<const uint4*>(p + 2 * D);
+    }
+    *reinterpret_cast<uint4*>(Kt + r * LDH + c) = kv;
+    *reinterpret_cast<uint4*>(Vt + r * LDH + c) = vv;
+  }
+  for (int i = tid; i < 3 * sp; i += ATTN_THREADS) {
+    const int w = i / sp, q = i % sp;
+    St[i] = q < S ? st[w * S + q] : 0.f;
+  }
+  __syncthreads();
+
+  const int kr = warp * 16;
+  wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> kf[DH / 16], vf[DH / 16];
+#pragma unroll
+  for (int kk = 0; kk < DH / 16; ++kk) {
+    wmma::load_matrix_sync(kf[kk], Kt + kr * LDH + kk * 16, LDH);
+    wmma::load_matrix_sync(vf[kk], Vt + kr * LDH + kk * 16, LDH);
+  }
+  float* s0 = Sc + warp * 512;
+  float* s1 = s0 + 256;
+  const int tr = lane >> 1, tc = (lane & 1) * 8;
+  const bool key_ok = k0 + kr + tr < S;
+  for (int i0 = 0; i0 < sp; i0 += 16) {
+    wmma::fragment<wmma::accumulator, 16, 16, 16, float> sacc, dacc;
+    wmma::fill_fragment(sacc, 0.f);
+    wmma::fill_fragment(dacc, 0.f);
+#pragma unroll
+    for (int kk = 0; kk < DH / 16; ++kk) {
+      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> qf, of;
+      wmma::load_matrix_sync(qf, Qs + i0 * LDH + kk * 16, LDH);
+      wmma::load_matrix_sync(of, Os + i0 * LDH + kk * 16, LDH);
+      wmma::mma_sync(sacc, kf[kk], qf, sacc);
+      wmma::mma_sync(dacc, vf[kk], of, dacc);
+    }
+    wmma::store_matrix_sync(s0, sacc, 16, wmma::mem_row_major);
+    wmma::store_matrix_sync(s1, dacc, 16, wmma::mem_row_major);
+    __syncwarp();
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int q = i0 + tc + j;
+      float p = 0.f, ds = 0.f;
+      if (key_ok && q < S) {
+        p = expf(s0[tr * 16 + tc + j] * scale - St[q]) / St[sp + q];
+        ds = p * (s1[tr * 16 + tc + j] - St[2 * sp + q]);
+      }
+      Pt[(kr + tr) * ldp + q] = __float2bfloat16(p);
+      Dt[(kr + tr) * ldp + q] = __float2bfloat16(ds);
+    }
+    __syncwarp();
+  }
+
+  wmma::fragment<wmma::accumulator, 16, 16, 16, float> vacc[DH / 16], kacc[DH / 16];
+#pragma unroll
+  for (int j = 0; j < DH / 16; ++j) {
+    wmma::fill_fragment(vacc[j], 0.f);
+    wmma::fill_fragment(kacc[j], 0.f);
+  }
+  for (int k = 0; k < sp; k += 16) {
+    wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> pf, df;
+    wmma::load_matrix_sync(pf, Pt + kr * ldp + k, ldp);
+    wmma::load_matrix_sync(df, Dt + kr * ldp + k, ldp);
+#pragma unroll
+    for (int j = 0; j < DH / 16; ++j) {
+      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> of, qf;
+      wmma::load_matrix_sync(of, Os + k * LDH + j * 16, LDH);
+      wmma::load_matrix_sync(qf, Qs + k * LDH + j * 16, LDH);
+      wmma::mma_sync(vacc[j], pf, of, vacc[j]);
+      wmma::mma_sync(kacc[j], df, qf, kacc[j]);
+    }
+  }
+  // dk at columns D + h*DH, dv at 2D + h*DH, 16x16 at a time through s0.
+  for (int j = 0; j < DH / 16; ++j) {
+    for (int which = 0; which < 2; ++which) {
+      __syncwarp();
+      wmma::store_matrix_sync(s0, which == 0 ? kacc[j] : vacc[j], 16, wmma::mem_row_major);
+      __syncwarp();
+      const int key = k0 + kr + tr;
+      if (key < S) {
+        bf16* dst = dqkv + (static_cast<size_t>(b) * S + key) * row + (1 + which) * D + h * DH +
+                    j * 16 + tc;
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+          const float v = s0[tr * 16 + tc + e];
+          dst[e] = __float2bfloat16(which == 0 ? v * scale : v);
+        }
+      }
+    }
+  }
+}
+
 template <bool LN, int EPI>
 cudaError_t launch_gemm(const void* A, const void* W, const void* bias, const void* ls,
                         const void* res, const void* gamma, const void* beta, void* out,
-                        int M, int N, int K, float eps, cudaStream_t stream) {
+                        int M, int N, int K, float eps, cudaStream_t stream,
+                        void* out2 = nullptr) {
   const size_t smem = gemm_smem_bytes(LN, K);
   cudaError_t err = cudaFuncSetAttribute(gemm_kernel<LN, EPI>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -480,18 +1030,115 @@ cudaError_t launch_gemm(const void* A, const void* W, const void* bias, const vo
       static_cast<const bf16*>(A), static_cast<const bf16*>(W),
       static_cast<const float*>(bias), static_cast<const float*>(ls),
       static_cast<const bf16*>(res), static_cast<const float*>(gamma),
-      static_cast<const float*>(beta), static_cast<bf16*>(out), M, N, K, eps);
+      static_cast<const float*>(beta), static_cast<bf16*>(out), static_cast<bf16*>(out2), M, N,
+      K, eps);
   return cudaGetLastError();
 }
 
 template <bool SCALE, int EPI>
 cudaError_t launch_gemm_nt(const void* A, const void* W, const void* scale, const void* aux,
-                           void* out, int M, int N, int K, cudaStream_t stream) {
+                           void* out, int M, int N, int K, cudaStream_t stream,
+                           void* colsum = nullptr) {
   dim3 grid(N / BN, (M + BM - 1) / BM);
   gemm_nt_kernel<SCALE, EPI><<<grid, GEMM_THREADS, 0, stream>>>(
       static_cast<const bf16*>(A), static_cast<const bf16*>(W),
-      static_cast<const float*>(scale), static_cast<const bf16*>(aux), out, M, N, K);
+      static_cast<const float*>(scale), static_cast<const bf16*>(aux), out,
+      static_cast<float*>(colsum), M, N, K);
   return cudaGetLastError();
+}
+
+// out[i] = sum over the first `rows` rows of part (rows, n), in order.
+cudaError_t launch_sum_rows(const void* part, int rows, long long n, void* out,
+                            cudaStream_t stream) {
+  const long long blocks = (n + 255) / 256;
+  sum_rows_kernel<<<static_cast<int>(blocks < 4096 ? blocks : 4096), 256, 0, stream>>>(
+      static_cast<const float*>(part), rows, n, static_cast<float*>(out));
+  return cudaGetLastError();
+}
+
+// dW[Kin, N] = A[M, Kin]^T @ G'[M, N] through `splits` f32 partials in ws
+// (splits, Kin, N); with GSUM also gsum_out[N] = column sums of G' through
+// gsum_ws (splits, N).
+template <bool SCALE, bool GSUM>
+cudaError_t launch_gemm_tn(const void* A, const void* G, const void* scale, void* ws,
+                           void* gsum_ws, void* dw, void* gsum_out, int M, int Kin, int N,
+                           int splits, cudaStream_t stream) {
+  const int rows = (M + splits - 1) / splits;
+  const int rps = (rows + BK - 1) / BK * BK;
+  dim3 grid(N / BN, Kin / BM, splits);
+  gemm_tn_kernel<SCALE, GSUM><<<grid, GEMM_THREADS, 0, stream>>>(
+      static_cast<const bf16*>(A), static_cast<const bf16*>(G),
+      static_cast<const float*>(scale), static_cast<float*>(ws), static_cast<float*>(gsum_ws),
+      M, Kin, N, rps);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  err = launch_sum_rows(ws, splits, static_cast<long long>(Kin) * N, dw, stream);
+  if (err != cudaSuccess || !GSUM) return err;
+  return launch_sum_rows(gsum_ws, splits, N, gsum_out, stream);
+}
+
+cudaError_t launch_ln_rows(const void* x, const void* gamma, const void* beta, void* out, int M,
+                           int D, float eps, cudaStream_t stream) {
+  const int rows_per_block = ROW_THREADS / 32;
+  ln_rows_kernel<<<(M + rows_per_block - 1) / rows_per_block, ROW_THREADS, 0, stream>>>(
+      static_cast<const bf16*>(x), static_cast<const float*>(gamma),
+      static_cast<const float*>(beta), static_cast<bf16*>(out), M, D, eps);
+  return cudaGetLastError();
+}
+
+// dx = dres + LN^T(dm) and the four column sums into vec4 (NSUMS, D),
+// through per-block partials part (ceil(M/SUM_ROWS), NSUMS, D).
+cudaError_t launch_ln_bwd_sums(const void* x, const void* dres, const void* dm,
+                               const void* gamma, const void* ls, const void* aux, void* dx,
+                               void* part, void* vec4, int M, int D, float eps,
+                               cudaStream_t stream) {
+  const size_t smem = static_cast<size_t>(ROW_THREADS / 32) * NSUMS * D * 4;
+  cudaError_t err = cudaFuncSetAttribute(ln_bwd_rows_kernel<true>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  const int blocks = (M + SUM_ROWS - 1) / SUM_ROWS;
+  ln_bwd_rows_kernel<true><<<blocks, ROW_THREADS, smem, stream>>>(
+      static_cast<const bf16*>(x), static_cast<const bf16*>(dres),
+      static_cast<const float*>(dm), static_cast<const float*>(gamma),
+      static_cast<const float*>(ls), static_cast<const bf16*>(aux), static_cast<bf16*>(dx),
+      static_cast<float*>(part), M, D, eps, SUM_ROWS);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  return launch_sum_rows(part, blocks, static_cast<long long>(NSUMS) * D, vec4, stream);
+}
+
+template <int DH>
+cudaError_t launch_attn_bwd_dh(const void* qkv, const void* dctx, void* stats, void* dqkv,
+                               int B, int S, int H, float scale, size_t smem,
+                               cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(attn_bwd_dq_kernel<DH>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(attn_bwd_dkv_kernel<DH>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  dim3 grid((S + BQ - 1) / BQ, H, B);
+  attn_bwd_dq_kernel<DH><<<grid, ATTN_THREADS, smem, stream>>>(
+      static_cast<const bf16*>(qkv), static_cast<const bf16*>(dctx),
+      static_cast<float*>(stats), static_cast<bf16*>(dqkv), S, H, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  attn_bwd_dkv_kernel<DH><<<grid, ATTN_THREADS, smem, stream>>>(
+      static_cast<const bf16*>(qkv), static_cast<const bf16*>(dctx),
+      static_cast<const float*>(stats), static_cast<bf16*>(dqkv), S, H, scale);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_attn_bwd(const void* qkv, const void* dctx, void* stats, void* dqkv, int B,
+                            int S, int H, int dh, cudaStream_t stream) {
+  const size_t smem = attn_bwd_smem_bytes(S, dh);
+  const float scale = 1.0f / sqrtf(static_cast<float>(dh));
+  if (dh == 64) return launch_attn_bwd_dh<64>(qkv, dctx, stats, dqkv, B, S, H, scale, smem, stream);
+  if (dh == 32) return launch_attn_bwd_dh<32>(qkv, dctx, stats, dqkv, B, S, H, scale, smem, stream);
+  return cudaErrorInvalidValue;
 }
 
 cudaError_t launch_attention(const void* qkv, void* ctx, int B, int S, int H, int dh,
@@ -556,6 +1203,7 @@ extern "C" {
 // the card cannot hold before launching.
 long long dp_gemm_smem_bytes(int ln, int K) { return (long long)gemm_smem_bytes(ln != 0, K); }
 long long dp_attention_smem_bytes(int S, int dh) { return (long long)attention_smem_bytes(S, dh); }
+long long dp_attn_bwd_smem_bytes(int S, int dh) { return (long long)attn_bwd_smem_bytes(S, dh); }
 
 // _block_kernel: y = x2 + ls2*MLP(LN2(x2)), x2 = x + ls1*(Wo MHA(LN1(x)) + bo).
 int dp_fused_block(const void* x, const void* g1, const void* b1, const void* wqkv,
@@ -605,11 +1253,90 @@ int dp_fused_mlp_dx(const void* x2, const void* dy, const void* g2, const void* 
   err = launch_gemm_nt<false, EPT_F32>(dh1b, w1, nullptr, nullptr, dm, M, D, hidden, st);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int rows_per_block = ROW_THREADS / 32;
-  ln_bwd_rows_kernel<<<(M + rows_per_block - 1) / rows_per_block, ROW_THREADS, 0, st>>>(
+  ln_bwd_rows_kernel<false><<<(M + rows_per_block - 1) / rows_per_block, ROW_THREADS, 0, st>>>(
       static_cast<const bf16*>(x2), static_cast<const bf16*>(dy),
-      static_cast<const float*>(dm), static_cast<const float*>(g2),
-      static_cast<bf16*>(dx2), M, D, eps);
+      static_cast<const float*>(dm), static_cast<const float*>(g2), nullptr, nullptr,
+      static_cast<bf16*>(dx2), nullptr, M, D, eps, rows_per_block);
   return static_cast<int>(cudaGetLastError());
+}
+
+// _mlp_bwd_kernel: dx2 and every MLP weight gradient, summed in f32 over the
+// M rows. Recomputed into scratch: m = LN2(x2) (M, D), h1 and g = gelu(h1)
+// (M, hidden), h2 (M, D), all bf16 at JAX's rounding points; dh1b
+// (M, hidden) bf16 and dm (M, D) f32 as in _mlp_dx_kernel. Partials:
+// colsum_part (ceil(M/64), hidden), row_part (ceil(M/64), 4, D), ws1
+// (splits1, D, hidden), ws2 (splits2, hidden, D). Outputs f32: dw1 (D, hidden),
+// dbf1 (hidden), dw2 (hidden, D), vec4 (4, D) = dbf2 | dls2 | dg2 | db2.
+int dp_fused_mlp_bwd(const void* x2, const void* dy, const void* g2, const void* b2,
+                     const void* w1, const void* bf1, const void* w2, const void* bf2,
+                     const void* ls2, void* m, void* h1, void* g, void* h2, void* dh1b, void* dm,
+                     void* colsum_part, void* row_part, void* ws1, void* ws2, void* dx2,
+                     void* dw1, void* dbf1, void* dw2, void* vec4, int M, int D, int hidden,
+                     int splits1, int splits2, float eps, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err = launch_ln_rows(x2, g2, b2, m, M, D, eps, st);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = launch_gemm<false, EPI_BIAS_GELU_PAIR>(m, w1, bf1, nullptr, nullptr, nullptr, nullptr,
+                                               h1, M, hidden, D, eps, st, g);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = launch_gemm<false, EPI_BIAS>(g, w2, bf2, nullptr, nullptr, nullptr, nullptr, h2, M, D,
+                                     hidden, eps, st);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = launch_gemm_nt<true, EPT_GELU_GRAD>(dy, w2, ls2, h1, dh1b, M, hidden, D, st,
+                                            colsum_part);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = launch_sum_rows(colsum_part, (M + BM - 1) / BM, hidden, dbf1, st);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = launch_gemm_nt<false, EPT_F32>(dh1b, w1, nullptr, nullptr, dm, M, D, hidden, st);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = launch_ln_bwd_sums(x2, dy, dm, g2, ls2, h2, dx2, row_part, vec4, M, D, eps, st);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = launch_gemm_tn<false, false>(m, dh1b, nullptr, ws1, nullptr, dw1, nullptr, M, D, hidden,
+                                     splits1, st);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(launch_gemm_tn<true, false>(g, dy, ls2, ws2, nullptr, dw2, nullptr, M,
+                                                      hidden, D, splits2, st));
+}
+
+// _attn_bwd_kernel: dx and every attention weight gradient, summed in f32
+// over the B*S rows. Recomputed into scratch (bf16): a = LN1(x) (M, D), qkv
+// (M, 3D), ctx (M, D), o = ctx Wo + bo (M, D, before LayerScale); then dctx
+// (M, D) and dqkv (M, 3D) bf16, da (M, D) f32, stats (B, H, 3, S) f32.
+// Partials: row_part (ceil(M/64), 4, D), ws_qkv (splits_qkv, D, 3D), ws_o
+// (splits_o, D, D), gsum_part (splits_qkv, 3D). Outputs f32: dwqkv (D, 3D),
+// dbqkv (3D), dwo (D, D), vec4 (4, D) = dbo | dls1 | dg1 | db1.
+int dp_fused_attn_bwd(const void* x, const void* dx2, const void* g1, const void* b1,
+                      const void* wqkv, const void* bqkv, const void* wo, const void* bo,
+                      const void* ls1, void* a, void* qkv, void* ctx, void* o, void* dctx,
+                      void* dqkv, void* da, void* stats, void* row_part, void* ws_qkv,
+                      void* ws_o, void* gsum_part, void* dx, void* dwqkv, void* dbqkv,
+                      void* dwo, void* vec4, int B, int S, int D, int H, int splits_qkv,
+                      int splits_o, float eps, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int M = B * S;
+  cudaError_t err = launch_ln_rows(x, g1, b1, a, M, D, eps, st);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = launch_gemm<false, EPI_BIAS>(a, wqkv, bqkv, nullptr, nullptr, nullptr, nullptr, qkv, M,
+                                     3 * D, D, eps, st);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = launch_attention(qkv, ctx, B, S, H, D / H, st);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = launch_gemm<false, EPI_BIAS>(ctx, wo, bo, nullptr, nullptr, nullptr, nullptr, o, M, D, D,
+                                     eps, st);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = launch_gemm_nt<true, EPT_BF16>(dx2, wo, ls1, nullptr, dctx, M, D, D, st);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = launch_attn_bwd(qkv, dctx, stats, dqkv, B, S, H, D / H, st);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = launch_gemm_nt<false, EPT_F32>(dqkv, wqkv, nullptr, nullptr, da, M, D, 3 * D, st);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = launch_ln_bwd_sums(x, dx2, da, g1, ls1, o, dx, row_part, vec4, M, D, eps, st);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = launch_gemm_tn<false, true>(a, dqkv, nullptr, ws_qkv, gsum_part, dwqkv, dbqkv, M, D,
+                                    3 * D, splits_qkv, st);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(launch_gemm_tn<true, false>(ctx, dx2, ls1, ws_o, nullptr, dwo, nullptr,
+                                                      M, D, D, splits_o, st));
 }
 
 }  // extern "C"

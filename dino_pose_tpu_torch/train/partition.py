@@ -4,9 +4,10 @@ The JAX package splits its parameter tree with a boolean mask; here the same
 mask sets ``requires_grad``, so autograd builds no graph below the deepest
 trainable parameter and the optimizer sees only the trainable tensors.
 
-dinov2 + LoRA: the pose heads and the adapters' ``lora_A``/``lora_B``.
-dinov2 without LoRA: the pose heads only. Unfreeze-last-N without LoRA is
-refused: the forward block kernels have no backward in the port yet.
+dinov2 + LoRA: the pose heads and the adapters' ``lora_A``/``lora_B`` (the
+unfreeze count is ignored, as in the JAX package). dinov2 without LoRA: the
+pose heads and every parameter of the last ``unfreeze_last_n_layers``
+encoder blocks; the final backbone LayerNorm stays frozen.
 """
 
 from __future__ import annotations
@@ -14,26 +15,29 @@ from __future__ import annotations
 from torch import nn
 
 
-def is_trainable(name: str, use_lora: bool) -> bool:
-    """Whether the parameter ``name`` trains: the pose heads, and under LoRA
-    the adapters. The registry builds models frozen by this rule too."""
+def is_trainable(name: str, use_lora: bool, first_unfrozen: int | None = None) -> bool:
+    """Whether the parameter ``name`` trains: the pose heads; under LoRA the
+    adapters; otherwise the parameters of encoder blocks
+    ``backbone.encoder.layer.{i}`` with ``i >= first_unfrozen`` (None: no
+    block trains)."""
     parts = name.split(".")
     if parts[0] == "pose_heads":
         return True
-    return use_lora and ("lora_output" in parts or parts[-1] in ("lora_A", "lora_B"))
+    if use_lora:
+        return "lora_output" in parts or parts[-1] in ("lora_A", "lora_B")
+    if first_unfrozen is not None and parts[:3] == ["backbone", "encoder", "layer"]:
+        return int(parts[3]) >= first_unfrozen
+    return False
 
 
 def trainable_mask(model: nn.Module, config_model: dict) -> dict[str, bool]:
     """{parameter name: trains?} over ``model.named_parameters()``."""
     use_lora = bool(config_model.get("use_lora", False))
     unfreeze_n = int(config_model.get("unfreeze_last_n_layers", 0) or 0)
-    if unfreeze_n > 0 and not use_lora:
-        raise NotImplementedError(
-            "unfreeze_last_n_layers > 0 trains whole encoder blocks, which the "
-            "unfreeze-last-N slice of the port brings (the block kernels have "
-            "no backward yet); use LoRA or unfreeze_last_n_layers=0"
-        )
-    return {name: is_trainable(name, use_lora) for name, _ in model.named_parameters()}
+    first = None
+    if unfreeze_n > 0:
+        first = len(model.backbone.encoder.layer) - unfreeze_n
+    return {name: is_trainable(name, use_lora, first) for name, _ in model.named_parameters()}
 
 
 def apply_partition(model: nn.Module, config_model: dict) -> frozenset[str]:

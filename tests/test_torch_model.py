@@ -197,15 +197,23 @@ def test_train_mode_forward_runs():
 
 
 def test_train_mode_refuses_what_the_port_cannot_train():
+    """A LoRA layer's backward gives its base weights no gradient, so a base
+    weight that requires grad is refused under grad mode. A plain block whose
+    weight requires grad trains through block_train."""
     from dino_pose_tpu_torch.train.partition import apply_partition
 
     tm = tregistry.create_model_from_config(dict(CONFIG), device="cpu").train()
     x = torch.zeros(1, 3, 224, 224)
-    tm.backbone.encoder.layer[0].mlp.fc1.weight.requires_grad_(True)
-    with pytest.raises(ValueError, match="block weight requires grad"):
+    base = tm.backbone.encoder.layer[1].attention.original_attention.attention.query.weight
+    base.requires_grad_(True)
+    with pytest.raises(ValueError, match="LoRA layer's base weight requires grad"):
         tm(x)
     with torch.no_grad():
         tm(x)                       # nothing to differentiate: runs
     config = {"model_name": "test/vit-tiny", "unfreeze_last_n_layers": 1}
-    with pytest.raises(NotImplementedError, match="unfreeze-last-N"):
-        apply_partition(tregistry.create_model_from_config(config, device="cpu"), config)
+    model = tregistry.create_model_from_config(config, device="cpu").train()
+    assert apply_partition(model, config) >= {"backbone.encoder.layer.1.mlp.fc1.weight"}
+    hm, z = model(x)
+    (hm.square().mean() + z.square().mean()).backward()
+    fc1 = model.backbone.encoder.layer[1].mlp.fc1.weight
+    assert fc1.grad is not None and fc1.grad.abs().max() > 0
