@@ -1,8 +1,10 @@
 """Chip smoke test of the PyTorch/H100 port: build the CUDA kernels, hold each
 against its plain PyTorch version, serve dinov2-small + LoRA pose requests
 through the kernels, take dinov2-small fine-tuning steps at batch 128 through
-them (LoRA, and unfreeze-last-4 with whole blocks training), and time
-kernels, serving and both train steps.
+them (LoRA, and unfreeze-last-4 with whole blocks training), all at 224²;
+then the long-sequence paths at 504² (S = 1297), where every layer streams
+its attention through the flash kernels: serving, and unfreeze-last-4 steps
+at batch 32. Times kernels, serving and every train step.
 
     python3 chip_smoke.py [--out results.json] [--profile]
 
@@ -34,13 +36,24 @@ D, H, S, HIDDEN, EPS = 384, 6, 257, 1536, 1e-6
 # flip by one ulp (2^-8 relative); 3e-2 abs/rel is the JAX suite's own bf16
 # tolerance for the fused block (tests/test_block_kernel.py).
 KERNEL_ATOL = KERNEL_RTOL = 3e-2
+# The attention alone — flash_attention's o, dq, dk, dv, and fused_attn_part's
+# output, which adds no residual — is held tighter: values there are ~0.04
+# (a softmax over ~500 keys), so 3e-2 would pass a kernel that drops the
+# ragged last key tile's row-sum share or uses a stale rowsum(P*dP).
+# Elementwise within ATTN_ATOL + ATTN_RTOL*|ref| (an H100 measured at most
+# 0.00195 on the flash outputs, 0.0039 on fused_attn_part's), and in
+# relative Frobenius norm, which catches a bias in the row sum of under 1%
+# that no elementwise bf16 limit can: the flash outputs within FLASH_FRO
+# (measured at most 1.5e-4), fused_attn_part's, which adds the rounding of
+# two GEMMs, within ATTN_FRO (measured at most 1.42e-3).
+ATTN_ATOL, ATTN_RTOL, FLASH_FRO, ATTN_FRO = 4e-3, 2e-2, 5e-4, 3e-3
 # Whole model, kernels vs plain, bf16: twelve blocks and the heads compound
 # those one-ulp flips, so outputs are held to 5% of their largest magnitude.
 MODEL_REL_TOL = 5e-2
 # Keypoints: an argmax over near-tied peaks of a random-weight model can move
 # under one flip, so at least 75% of keypoints must agree within one heatmap
-# cell (224/48 px).
-KP_CELL_PX, KP_AGREE = 224 / 48, 0.75
+# cell (image size / 48 px: 4.67 px at 224², 10.5 px at 504²).
+KP_AGREE = 0.75
 # Train steps, kernels vs plain, bf16 at batch 128: the losses are means over
 # 7M heatmap elements and 3072 z values, so one-ulp flips average out; they
 # are held to 1e-3 relative (they agree to 1.1e-4 over three steps on an
@@ -67,6 +80,11 @@ GRAD_NOISE_FACTOR, GRAD_NOISE_SLACK = 1.25, 2e-3
 # batch 1, 8 and 128 and on the train step's own tensors (8.3e-4).
 GRAD_TOL = 2e-3
 TRAIN_BATCH, TRAIN_STEPS, LR = 128, 3, 3e-5
+# The long-sequence paths: dinov2-small at 504² input, a 36x36 patch grid,
+# S = 1297 (bench.py --image-size 504); the unfreeze step at batch 32 (41504
+# token rows, about the 32896 of the 224²/bs=128 step), two checked steps.
+LONG_IMAGE, S_LONG, LONG_BATCH, LONG_STEPS = 504, 1297, 32, 2
+FLASH_BATCHES = (1, 8, LONG_BATCH)
 LORA_CONFIG = {"model_name": "facebook/dinov2-small", "use_lora": True}
 UNFREEZE_CONFIG = {"model_name": "facebook/dinov2-small", "use_lora": False,
                    "unfreeze_last_n_layers": 4}
@@ -87,31 +105,42 @@ UNFREEZE_GRAD_NAMES = (
     "backbone.encoder.layer.8.norm1.weight",
     "pose_heads.heatmap_head.feature_refine.0.weight",
 )
-# Launches of each wrapper per forward or step on each path (the others 0).
+# Launches of each wrapper per forward or step on each path (the others 0:
+# no flash launch at 224², where the chains keep K and V resident). At 504²
+# every attention streams: one flash forward per layer, and per trainable
+# layer a recomputed forward and a backward pair in fused_attn_bwd.
 SERVING_LAUNCHES = {"fused_block": 11, "fused_attn_part": 1, "fused_mlp_part": 1}
 LORA_LAUNCHES = {"fused_block": 11, "fused_attn_part": 1, "fused_mlp_part": 1, "fused_mlp_dx": 1}
 UNFREEZE_LAUNCHES = {"fused_block": 8, "fused_block_train": 4, "fused_mlp_bwd": 4,
                      "fused_attn_bwd": 4}
+SERVING_504_LAUNCHES = {**SERVING_LAUNCHES, "flash_fwd": 12}
+UNFREEZE_504_LAUNCHES = {**UNFREEZE_LAUNCHES, "flash_fwd": 16, "flash_bwd": 4}
+BLOCK_SOURCE = "dino_pose_tpu_torch/ops/csrc/block_kernels.cu"
+FLASH_SOURCE = "dino_pose_tpu_torch/ops/csrc/flash_kernels.cu"
+# Per JSON row: the TPU kernel it replaces, its source, the batch its
+# numbers were taken at, the path whose launches "launches" reports and the
+# LAUNCHES key counted there. The forward kernels at the serving batch on the
+# serving path, the backward ones at the training batch on their training
+# path; the flash rows at the 504² training batch, the forward on the 504²
+# serving path, the backward on the 504² unfreeze path.
 KERNEL_ROWS = {
-    "fused_block": "dino_pose_tpu/ops/block.py:159",
-    "fused_attn_part": "dino_pose_tpu/ops/block.py:999",
-    "fused_mlp_part": "dino_pose_tpu/ops/block.py:1021",
-    "fused_mlp_dx": "dino_pose_tpu/ops/block.py:1044",
-    "fused_block_train": "dino_pose_tpu/ops/block.py:592",
-    "fused_mlp_bwd": "dino_pose_tpu/ops/block.py:284",
-    "fused_attn_bwd": "dino_pose_tpu/ops/block.py:334",
+    "fused_block": ("dino_pose_tpu/ops/block.py:159", BLOCK_SOURCE, 1, "serving"),
+    "fused_attn_part": ("dino_pose_tpu/ops/block.py:999", BLOCK_SOURCE, 1, "serving"),
+    "fused_mlp_part": ("dino_pose_tpu/ops/block.py:1021", BLOCK_SOURCE, 1, "serving"),
+    "fused_mlp_dx": ("dino_pose_tpu/ops/block.py:1044", BLOCK_SOURCE, TRAIN_BATCH, "lora_train"),
+    "fused_block_train": ("dino_pose_tpu/ops/block.py:592", BLOCK_SOURCE, TRAIN_BATCH,
+                          "unfreeze_train"),
+    "fused_mlp_bwd": ("dino_pose_tpu/ops/block.py:284", BLOCK_SOURCE, TRAIN_BATCH,
+                      "unfreeze_train"),
+    "fused_attn_bwd": ("dino_pose_tpu/ops/block.py:334", BLOCK_SOURCE, TRAIN_BATCH,
+                       "unfreeze_train"),
+    "flash_attention": ("dino_pose_tpu/ops/attention.py:40", FLASH_SOURCE, LONG_BATCH,
+                        "serving_504"),
+    "flash_attention_bwd": ("dino_pose_tpu/ops/attention.py:130", FLASH_SOURCE, LONG_BATCH,
+                            "unfreeze_504_train"),
 }
-# The batch each kernel's numbers in the JSON line were taken at, and the
-# path whose launches its "launches" reports: the forward kernels at the
-# serving batch on the serving path, the backward ones at the training batch
-# on their training path.
-ROW_BATCH = {"fused_block": 1, "fused_attn_part": 1, "fused_mlp_part": 1,
-             "fused_mlp_dx": TRAIN_BATCH, "fused_block_train": TRAIN_BATCH,
-             "fused_mlp_bwd": TRAIN_BATCH, "fused_attn_bwd": TRAIN_BATCH}
-ROW_PATH = {"fused_block": "serving", "fused_attn_part": "serving", "fused_mlp_part": "serving",
-            "fused_mlp_dx": "lora_train", "fused_block_train": "unfreeze_train",
-            "fused_mlp_bwd": "unfreeze_train", "fused_attn_bwd": "unfreeze_train"}
-SOURCE = "dino_pose_tpu_torch/ops/csrc/block_kernels.cu"
+# The LAUNCHES key each row counts.
+LAUNCH_KEY = {"flash_attention": "flash_fwd", "flash_attention_bwd": "flash_bwd"}
 
 
 def log(msg: str) -> None:
@@ -140,8 +169,9 @@ def cuda_ms(fn, iters: int = 50, warmup: int = 5) -> float:
     return start.elapsed_time(end) / iters
 
 
-def block_inputs(b: int, gen: torch.Generator):
-    """Seeded full-width inputs, weights scaled like trained ones."""
+def block_inputs(b: int, gen: torch.Generator, s: int = S):
+    """Seeded full-width inputs of ``s`` tokens, weights scaled like trained
+    ones."""
     from dino_pose_tpu_torch.ops.block import BlockParams
 
     def n(*shape, std=1.0, mean=0.0):
@@ -161,7 +191,7 @@ def block_inputs(b: int, gen: torch.Generator):
     p = BlockParams(*(
         t.to("cuda", torch.bfloat16 if t.dim() == 2 else torch.float32).contiguous() for t in p
     ))
-    x = n(b, S, D).to("cuda", torch.bfloat16)
+    x = n(b, s, D).to("cuda", torch.bfloat16)
     return x, p
 
 
@@ -191,26 +221,53 @@ def record_launches(results: dict, path: str, launches: dict) -> None:
         results.setdefault(name, {"max_abs_err": 0.0}).setdefault("launches", {})[path] = n
 
 
+def attn_check(got: torch.Tensor, want: torch.Tensor,
+               fro_tol: float) -> tuple[float, float, bool]:
+    """The attention tolerance: (max abs error, relative Frobenius error, ok)."""
+    got, want = got.float(), want.float()
+    err = (got - want).abs()
+    fro = ((got - want).norm() / want.norm()).item()
+    ok = (bool(torch.isfinite(got).all()) and fro <= fro_tol
+          and bool((err <= ATTN_ATOL + ATTN_RTOL * want.abs()).all()))
+    return err.max().item(), fro, ok
+
+
+def attn_tol_text(fro_tol: float) -> str:
+    return f"atol {ATTN_ATOL} + rtol {ATTN_RTOL}*|ref| and rel Frobenius {fro_tol}"
+
+
 def phase_kernels(results: dict) -> None:
-    """Each kernel vs its plain version at full width, bf16, batch 1 and 8."""
+    """Each forward kernel vs its plain version at full width, bf16, batch 1
+    and 8, at S = 257 and at S = 1297, where the chains stream their
+    attention through flash_fwd_kernel on the packed qkv. fused_attn_part's
+    output (no residual) at the attention tolerance, the others at the
+    kernel tolerance."""
     gen = torch.Generator().manual_seed(SEED)
-    for b in (1, 8):
-        x, p = block_inputs(b, gen)
-        for name, (kern, plain) in kernel_cases(x, p).items():
-            got, want = kern().float(), plain().float()
-            torch.cuda.synchronize()
-            diff = (got - want).abs()
-            max_abs = diff.max().item()
-            big = want.abs() > 0.1
-            max_rel = (diff[big] / want.abs()[big]).max().item()
-            ok = bool(torch.isfinite(got).all()) and torch.allclose(
-                got, want, atol=KERNEL_ATOL, rtol=KERNEL_RTOL)
-            log(f"kernel {name} B={b}: max_abs={max_abs:.6g} max_rel(|ref|>0.1)={max_rel:.6g} "
-                f"tol=atol {KERNEL_ATOL} + rtol {KERNEL_RTOL}*|ref| -> {'ok' if ok else 'FAIL'}")
-            if not ok:
-                raise AssertionError(f"{name} at B={b} disagrees with its plain version")
-            row = results.setdefault(name, {"max_abs_err": 0.0})
-            row["max_abs_err"] = max(row["max_abs_err"], max_abs)
+    for s in (S, S_LONG):
+        for b in (1, 8):
+            x, p = block_inputs(b, gen, s)
+            for name, (kern, plain) in kernel_cases(x, p).items():
+                got, want = kern().float(), plain().float()
+                torch.cuda.synchronize()
+                diff = (got - want).abs()
+                big = want.abs() > 0.1
+                max_rel = (diff[big] / want.abs()[big]).max().item()
+                if name == "fused_attn_part":
+                    max_abs, fro, ok = attn_check(got, want, ATTN_FRO)
+                    tol = attn_tol_text(ATTN_FRO)
+                else:
+                    max_abs = diff.max().item()
+                    fro = (diff.norm() / want.norm()).item()
+                    ok = bool(torch.isfinite(got).all()) and torch.allclose(
+                        got, want, atol=KERNEL_ATOL, rtol=KERNEL_RTOL)
+                    tol = f"atol {KERNEL_ATOL} + rtol {KERNEL_RTOL}*|ref|"
+                where = "" if s == S else f" S={s}"
+                log(f"kernel {name} B={b}{where}: max_abs={max_abs:.6g} max_rel(|ref|>0.1)="
+                    f"{max_rel:.6g} rel_fro={fro:.4g} tol={tol} -> {'ok' if ok else 'FAIL'}")
+                if not ok:
+                    raise AssertionError(f"{name} at B={b}, S={s} disagrees with its plain version")
+                row = results.setdefault(name, {"max_abs_err": 0.0})
+                row["max_abs_err"] = max(row["max_abs_err"], max_abs)
 
 
 def dx_inputs(b: int, gen: torch.Generator):
@@ -287,24 +344,113 @@ def compare_outputs(got: tuple, want: tuple, act_scale: float = 1.0) -> tuple[fl
 
 def phase_train_kernels(results: dict) -> None:
     """fused_block_train, fused_mlp_bwd and fused_attn_bwd vs their plain
-    versions at full width, bf16, batch 1, 8 and 128, with a unit-scale
-    seeded cotangent, on every output."""
+    versions at full width, bf16, batch 1, 8 and 128 at S = 257, and at the
+    504² step's batch 32 at S = 1297 (where fused_block_train streams its
+    attention and fused_attn_bwd its recomputed forward and backward, on the
+    packed qkv), with a unit-scale seeded cotangent, on every output."""
     gen = torch.Generator().manual_seed(SEED + 5)
-    for b in (1, 8, TRAIN_BATCH):
-        x, p = block_inputs(b, gen)
-        dy = torch.randn((b, S, D), generator=gen).to("cuda", torch.bfloat16)
+    for b, s in ((1, S), (8, S), (TRAIN_BATCH, S), (LONG_BATCH, S_LONG)):
+        x, p = block_inputs(b, gen, s)
+        dy = torch.randn((b, s, D), generator=gen).to("cuda", torch.bfloat16)
         for name, (kern, plain) in train_cases(x, dy, p).items():
             got, want = kern(), plain()
             torch.cuda.synchronize()
             act_err, grad_rel, ok = compare_outputs(got, want)
-            log(f"kernel {name} B={b}: max_abs(activations)={act_err:.6g} "
+            where = "" if s == S else f" S={s}"
+            log(f"kernel {name} B={b}{where}: max_abs(activations)={act_err:.6g} "
                 f"max_err/max|ref|(weight grads)={grad_rel:.6g} tol=atol {KERNEL_ATOL} + rtol "
                 f"{KERNEL_RTOL}*|ref|, grads {GRAD_TOL}*max|ref| -> {'ok' if ok else 'FAIL'}")
             if not ok:
-                raise AssertionError(f"{name} at B={b} disagrees with its plain version")
+                raise AssertionError(f"{name} at B={b}, S={s} disagrees with its plain version")
             row = results.setdefault(name, {"max_abs_err": 0.0, "max_grad_err_rel": 0.0})
             row["max_abs_err"] = max(row["max_abs_err"], act_err)
             row["max_grad_err_rel"] = max(row.get("max_grad_err_rel", 0.0), grad_rel)
+
+
+def flash_inputs(b: int, gen: torch.Generator) -> list:
+    """Seeded q, k, v and a unit-scale cotangent, (b, 6, 1297, 64) bf16: the
+    attention of dinov2-small at 504²."""
+    shape = (b, H, S_LONG, D // H)
+    return [torch.randn(shape, generator=gen).to("cuda", torch.bfloat16) for _ in range(4)]
+
+
+def flash_cost(b: int) -> dict:
+    """(FLOPs, bytes) of the flash forward and backward at batch b: the JAX
+    CostEstimate FLOP counts (4 and 10 * B*H*S^2*dh); bytes read and written
+    once: q, k, v (and the cotangent) in, o (dq, dk, dv) out, bf16, and the
+    f32 row max and sum out of the forward, into the backward."""
+    dh = D // H
+    act, stats = b * H * S_LONG * dh * 2, b * H * S_LONG * 2 * 4
+    return {"flash_attention": (4 * b * H * S_LONG**2 * dh, 4 * act + stats),
+            "flash_attention_bwd": (10 * b * H * S_LONG**2 * dh, 7 * act + stats)}
+
+
+def phase_flash(results: dict) -> dict:
+    """flash_attention's kernels (a forward launch, a backward pair) against
+    flash_math and flash_bwd_math at (B, 6, 1297, 64) bf16, B = 1, 8, 32, on
+    o, dq, dk and dv; then their times beside the plain versions', the bound
+    and torch's scaled_dot_product_attention (forward; backward alone on a
+    kept graph, and forward+backward), the library yardstick, which the port
+    never calls. Returns the times by batch."""
+    import torch.nn.functional as F
+
+    from dino_pose_tpu_torch.ops import attention as A
+    from dino_pose_tpu_torch.ops import block as B
+
+    gen = torch.Generator().manual_seed(SEED + 6)
+    scale = (D // H) ** -0.5
+    times = {}
+    for b in FLASH_BATCHES:
+        q, k, v, g = flash_inputs(b, gen)
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        o = A.flash_attention(*leaves, scale)
+        o.backward(g)
+        checks = (("flash_attention", (o.detach(),), (A.flash_math(q, k, v, scale),)),
+                  ("flash_attention_bwd", tuple(t.grad for t in leaves),
+                   A.flash_bwd_math(q, k, v, g, scale)))
+        torch.cuda.synchronize()
+        for name, got, want in checks:
+            errs, fros, oks = zip(*(attn_check(x, w, FLASH_FRO) for x, w in zip(got, want)))
+            ok = all(oks)
+            outs = "o" if len(got) == 1 else "dq dk dv"
+            log(f"kernel {name} B={b}: max_abs ({outs}) = {' '.join(f'{e:.6g}' for e in errs)} "
+                f"rel_fro = {' '.join(f'{e:.4g}' for e in fros)} max|ref| = "
+                f"{' '.join(f'{w.float().abs().max().item():.4g}' for w in want)} "
+                f"tol={attn_tol_text(FLASH_FRO)} -> {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"{name} at B={b} disagrees with its plain version")
+            row = results.setdefault(name, {"max_abs_err": 0.0})
+            row["max_abs_err"] = max(row["max_abs_err"], *errs)
+        del checks, o
+
+        saved = dict(B.LAUNCHES)
+        _, stats = A.flash_fwd(q, k, v, scale)
+        sdpa_out = F.scaled_dot_product_attention(*leaves, scale=scale)
+        t = {
+            "flash_attention": (
+                cuda_ms(lambda: A.flash_fwd(q, k, v, scale), iters=20),
+                cuda_ms(lambda: A.flash_math(q, k, v, scale), iters=5, warmup=1),
+                cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, scale=scale), iters=20)),
+            "flash_attention_bwd": (
+                cuda_ms(lambda: A.flash_bwd(q, k, v, g, stats, scale), iters=20),
+                cuda_ms(lambda: A.flash_bwd_math(q, k, v, g, scale), iters=5, warmup=1),
+                cuda_ms(lambda: torch.autograd.grad(sdpa_out, leaves, g, retain_graph=True),
+                        iters=20)),
+        }
+        sdpa_fwd_bwd = cuda_ms(lambda: torch.autograd.grad(
+            F.scaled_dot_product_attention(*leaves, scale=scale), leaves, g), iters=20)
+        B.LAUNCHES.update(saved)  # timing launches are not main-path launches
+        del sdpa_out, leaves, stats
+        for name, (ms, plain_ms, lib_ms) in t.items():
+            bound, by = B.bound_ms(*flash_cost(b)[name])
+            times.setdefault(b, {})[name] = {
+                "ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+                "library_ms": lib_ms}
+            log(f"time {name} B={b}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+                f"bound {bound:.5f} ms ({by}), scaled_dot_product_attention {lib_ms:.4f} ms")
+        times[b]["flash_attention_bwd"]["library_fwd_bwd_ms"] = sdpa_fwd_bwd
+        log(f"time scaled_dot_product_attention forward+backward B={b}: {sdpa_fwd_bwd:.4f} ms")
+    return times
 
 
 def randomise_for_serving(model, gen: torch.Generator) -> None:
@@ -344,9 +490,10 @@ def compare_paths(model, pixels: np.ndarray, out, tag: str) -> None:
         if not np.isfinite(arr).all():
             raise AssertionError(f"{tag}: {name} has non-finite values")
     x = torch.from_numpy(pixels).cuda().to(torch.bfloat16)
+    size = pixels.shape[-1]
     with torch.inference_mode():
         hm_p, z_p = model(x, kernels=False)
-        kp_p = decode_heatmaps(hm_p, (224, 224)).float().cpu().numpy()
+        kp_p = decode_heatmaps(hm_p, (size, size)).float().cpu().numpy()
     for name, got, want in (("heatmaps", hm, hm_p.float().cpu().numpy()),
                             ("z", z, z_p.float().cpu().numpy())):
         err = float(np.abs(got - want).max())
@@ -356,14 +503,23 @@ def compare_paths(model, pixels: np.ndarray, out, tag: str) -> None:
             f" -> {'ok' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError(f"{tag}: {name} kernels vs plain out of tolerance")
+    cell = size / hm.shape[-1]
     dist = np.linalg.norm(kp - kp_p, axis=-1)
-    agree = float((dist <= KP_CELL_PX).mean())
-    log(f"{tag} keypoints: {agree:.3f} within {KP_CELL_PX:.3f} px (need {KP_AGREE})")
+    agree = float((dist <= cell).mean())
+    log(f"{tag} keypoints: {agree:.3f} within {cell:.3f} px (need {KP_AGREE})")
     if agree < KP_AGREE:
         raise AssertionError(f"{tag}: keypoints kernels vs plain disagree")
 
 
-def phase_serving(results: dict, serving: dict):
+def phase_serving(results: dict, serving: dict, tag: str = "serving", image_size: int = 224,
+                  per_forward_launches: dict = SERVING_LAUNCHES, n_lat: int = 30,
+                  n_batches: int = 10, fwd_iters: int = 20):
+    """The repo's default model (dinov2-small + LoRA r=8 on layer 11) behind
+    ``serve.make_predictor``: 4 batch-1 requests and 1 batch-8 request, each
+    checked (launches per forward, shapes, agreement with the plain path),
+    then timed. At 224² the requests are PIL images of several sizes (the
+    preprocessor crops them to 224²); at other sizes (B, 3, size, size)
+    pixel arrays, seeded."""
     from dino_pose_tpu_torch.data.preprocess import create_preprocessor
     from dino_pose_tpu_torch.models.registry import create_model_from_config
     from dino_pose_tpu_torch.ops import block as B
@@ -374,30 +530,39 @@ def phase_serving(results: dict, serving: dict):
     )
     randomise_for_serving(model, torch.Generator().manual_seed(SEED + 1))
     predict = make_predictor(model)
-    preprocessor = create_preprocessor("facebook/dinov2-small")
     rng = np.random.default_rng(SEED)
-    requests = [[im] for im in seeded_images(rng, 4)] + [seeded_images(rng, 8)]
+    if image_size == 224:
+        preprocessor = create_preprocessor("facebook/dinov2-small")
+        requests = [[im] for im in seeded_images(rng, 4)] + [seeded_images(rng, 8)]
+
+        def pixels_of(request):
+            return preprocessor(request)["pixel_values"]
+    else:
+        requests = [rng.standard_normal((b, 3, image_size, image_size)).astype(np.float32)
+                    for b in (1, 1, 1, 1, 8)]
+
+        def pixels_of(request):
+            return request
 
     # Serving runs no backward: the backward wrappers stay at 0.
-    per_forward = expected(SERVING_LAUNCHES)
+    per_forward = expected(per_forward_launches)
     B.reset_launches()
-    for i, images in enumerate(requests):
+    for i, request in enumerate(requests):
         before = dict(B.LAUNCHES)
-        out = predict(images)
+        out = predict(request)
         torch.cuda.synchronize()
         delta = {k: B.LAUNCHES[k] - before[k] for k in B.LAUNCHES}
-        log(f"request {i} (batch {len(images)}): launches {delta}")
+        n = len(request)
+        log(f"{tag} request {i} (batch {n}): launches {delta}")
         if delta != per_forward:
-            raise AssertionError(f"request {i}: launches {delta}, want {per_forward}")
+            raise AssertionError(f"{tag} request {i}: launches {delta}, want {per_forward}")
         kp, z, hm = out
-        if kp.shape != (len(images), 24, 2) or z.shape != (len(images), 24) \
-                or hm.shape != (len(images), 24, 48, 48):
-            raise AssertionError(f"request {i}: shapes {kp.shape} {z.shape} {hm.shape}")
-        pixels = preprocessor(images)["pixel_values"]
-        compare_paths(model, pixels, out, f"request {i}")
+        if kp.shape != (n, 24, 2) or z.shape != (n, 24) or hm.shape != (n, 24, 48, 48):
+            raise AssertionError(f"{tag} request {i}: shapes {kp.shape} {z.shape} {hm.shape}")
+        compare_paths(model, pixels_of(request), out, f"{tag} request {i}")
     launches = dict(B.LAUNCHES)
-    record_launches(results, "serving", launches)
-    log(f"serving-path launches over {len(requests)} requests: {launches}")
+    record_launches(results, tag, launches)
+    log(f"{tag}-path launches over {len(requests)} requests: {launches}")
 
     # Serving times: host clock around predict (preprocess, upload, forward,
     # decode, download), batch-1 p50 and batch-8 images/s.
@@ -407,12 +572,11 @@ def phase_serving(results: dict, serving: dict):
         predict(one)
         predict(eight)
     lat = []
-    for _ in range(30):
+    for _ in range(n_lat):
         t0 = time.perf_counter()
         predict(one)
         lat.append((time.perf_counter() - t0) * 1e3)
     t0 = time.perf_counter()
-    n_batches = 10
     for _ in range(n_batches):
         predict(eight)
     dt = time.perf_counter() - t0
@@ -421,38 +585,38 @@ def phase_serving(results: dict, serving: dict):
     serving["b8_images_per_s"] = 8 * n_batches / dt
 
     # Device forward alone (CUDA events), kernels vs plain, batch 1 and 8.
-    for b, pix in ((1, preprocessor(one)["pixel_values"]),
-                   (8, preprocessor(eight)["pixel_values"])):
+    for b, pix in ((1, pixels_of(one)), (8, pixels_of(eight))):
         x = torch.from_numpy(pix).cuda().to(torch.bfloat16)
         with torch.inference_mode():
-            serving[f"forward_ms_b{b}"] = cuda_ms(lambda: model(x), iters=20)
-            serving[f"forward_plain_ms_b{b}"] = cuda_ms(lambda: model(x, kernels=False), iters=20)
-    log("serving " + json.dumps(serving))
+            serving[f"forward_ms_b{b}"] = cuda_ms(lambda: model(x), iters=fwd_iters)
+            serving[f"forward_plain_ms_b{b}"] = cuda_ms(lambda: model(x, kernels=False),
+                                                        iters=fwd_iters, warmup=2)
+    log(f"{tag} " + json.dumps(serving))
     return model
 
 
-def synthetic_batch(batch_size: int) -> dict:
+def synthetic_batch(batch_size: int, image_size: int = 224) -> dict:
     """bench.py's synthetic fine-tune batch (loader contract: f32 pixels,
     keypoints all visible, z), made on the host from seed 0 and moved to the
     card once; the heatmap targets are rendered inside the step."""
     rng = np.random.default_rng(0)
-    kps = rng.uniform(20, 200, (batch_size, 24, 3)).astype(np.float32)
+    kps = rng.uniform(20, image_size - 24, (batch_size, 24, 3)).astype(np.float32)
     kps[..., 2] = 2.0
     batch = {
-        "image": rng.standard_normal((batch_size, 3, 224, 224)).astype(np.float32),
+        "image": rng.standard_normal((batch_size, 3, image_size, image_size)).astype(np.float32),
         "2d_keypoints": kps,
         "z_coords": rng.standard_normal((batch_size, 24)).astype(np.float32),
     }
     return {k: torch.from_numpy(v).cuda() for k, v in batch.items()}
 
 
-def make_step(model, config: dict, kernels: bool, dtype=torch.bfloat16):
+def make_step(model, config: dict, kernels: bool, dtype=torch.bfloat16, image_size: int = 224):
     from dino_pose_tpu_torch.train.state import create_train_state
     from dino_pose_tpu_torch.train.step import make_train_step, prepare_batch
 
     state, optimizer, partition = create_train_state(model, config)
     step = prepare_batch(make_train_step(model, optimizer, partition, kernels=kernels),
-                         device_targets=(224, 48), compute_dtype=dtype)
+                         device_targets=(image_size, 48), compute_dtype=dtype)
     return state, step
 
 
@@ -501,12 +665,14 @@ def check_step_tensors(tag: str, name: str, args: tuple, out, training: dict) ->
 
 
 def phase_train(results: dict, training: dict, tag: str, config: dict, per_step: dict,
-                grad_names: tuple, recorded: tuple):
-    """Three dinov2-small fine-tune steps with ``config`` at batch 128 through
-    the kernels, three from an identical copy through the plain versions (the
-    same dropout masks), compared step by step; the first step's call of each
-    ``recorded`` backward wrapper (the top layer's) held against its plain
-    version on its own inputs; then step times."""
+                grad_names: tuple, recorded: tuple, batch_size: int = TRAIN_BATCH,
+                image_size: int = 224, steps: int = TRAIN_STEPS, timed: int = 5):
+    """``steps`` dinov2-small fine-tune steps with ``config`` at
+    ``batch_size`` through the kernels, as many from an identical copy
+    through the plain versions (the same dropout masks), compared step by
+    step; the first step's call of each ``recorded`` backward wrapper (the
+    top layer's) held against its plain version on its own inputs; then step
+    times over ``timed`` steps."""
     from dino_pose_tpu_torch.models.registry import create_model_from_config
     from dino_pose_tpu_torch.ops import block as B
 
@@ -514,9 +680,9 @@ def phase_train(results: dict, training: dict, tag: str, config: dict, per_step:
     randomise_for_serving(model, torch.Generator().manual_seed(SEED + 4))
     plain_model = copy.deepcopy(model)
     ref_model = copy.deepcopy(model)
-    batch = synthetic_batch(TRAIN_BATCH)
-    state, step = make_step(model, config, kernels=True)
-    pstate, pstep = make_step(plain_model, config, kernels=False)
+    batch = synthetic_batch(batch_size, image_size)
+    state, step = make_step(model, config, kernels=True, image_size=image_size)
+    pstate, pstep = make_step(plain_model, config, kernels=False, image_size=image_size)
 
     want_step = expected(per_step)
     seen = {}
@@ -535,7 +701,7 @@ def phase_train(results: dict, training: dict, tag: str, config: dict, per_step:
     B.reset_launches()
     kstats, grads = [], {}
     params = dict(model.named_parameters())
-    for i in range(TRAIN_STEPS):
+    for i in range(steps):
         before = dict(B.LAUNCHES)
         if i == 0:
             for name in recorded:
@@ -547,7 +713,7 @@ def phase_train(results: dict, training: dict, tag: str, config: dict, per_step:
                 setattr(B, name, fn)
         torch.cuda.synchronize()
         delta = {k: B.LAUNCHES[k] - before[k] for k in B.LAUNCHES}
-        log(f"{tag} train step {i} (batch {TRAIN_BATCH}): launches {delta}")
+        log(f"{tag} train step {i} (batch {batch_size}): launches {delta}")
         if delta != want_step:
             raise AssertionError(f"{tag} train step {i}: launches {delta}, want {want_step}")
         kstats.append({k: v.item() for k, v in stats.items()})
@@ -555,7 +721,7 @@ def phase_train(results: dict, training: dict, tag: str, config: dict, per_step:
             grads = {n: params[n].grad.detach().clone() for n in grad_names}
     launches = dict(B.LAUNCHES)
     record_launches(results, f"{tag}_train", launches)
-    log(f"{tag} training-path launches over {TRAIN_STEPS} steps: {launches}")
+    log(f"{tag} training-path launches over {steps} steps: {launches}")
 
     bad = [name for name in recorded if not check_step_tensors(tag, name, *seen[name], training)]
     if bad:
@@ -564,14 +730,15 @@ def phase_train(results: dict, training: dict, tag: str, config: dict, per_step:
 
     # The step-1 gradients in f32 (plain versions, TF32 off) from the same
     # weights and dropout masks: the yardstick for both bf16 paths.
-    rstate, rstep = make_step(ref_model, config, kernels=False, dtype=torch.float32)
+    rstate, rstep = make_step(ref_model, config, kernels=False, dtype=torch.float32,
+                              image_size=image_size)
     rstep(rstate, batch, LR, SEED)
     ref_grads = {n: p.grad for n, p in ref_model.named_parameters() if n in grad_names}
     del ref_model, rstate, rstep
 
     failures = []
     pparams = dict(plain_model.named_parameters())
-    for i in range(TRAIN_STEPS):
+    for i in range(steps):
         pstate, pstats = pstep(pstate, batch, LR, SEED)
         pstats = {k: v.item() for k, v in pstats.items()}
         for k in ("loss", "kp_loss", "z_loss", "weight"):
@@ -600,9 +767,10 @@ def phase_train(results: dict, training: dict, tag: str, config: dict, per_step:
         raise AssertionError(f"{tag}: kernels vs plain out of tolerance: " + "; ".join(failures))
     training["steps"] = {"kernels": kstats}
 
-    # Step time (CUDA events around 5 steps after 2 warm-up steps), in turns
-    # kernels, plain, plain, kernels; the timing launches are not counted.
-    def step_ms(fn, st, n=5):
+    # Step time (CUDA events around ``timed`` steps after 2 warm-up steps), in
+    # turns kernels, plain, plain, kernels; the timing launches are not
+    # counted.
+    def step_ms(fn, st, n=timed):
         for _ in range(2):
             st, _ = fn(st, batch, LR, SEED)
         start = torch.cuda.Event(enable_timing=True)
@@ -626,7 +794,7 @@ def phase_train(results: dict, training: dict, tag: str, config: dict, per_step:
         mean = float(np.mean(ms))
         training[f"step_ms_{which}"] = mean
         training[f"step_ms_{which}_runs"] = ms
-        training[f"images_per_s_{which}"] = TRAIN_BATCH * 1e3 / mean
+        training[f"images_per_s_{which}"] = batch_size * 1e3 / mean
     training["peak_mem_gib_kernels"] = torch.cuda.max_memory_allocated() / 2**30
     log(f"{tag} training " + json.dumps(training))
     return step, state, batch
@@ -687,11 +855,11 @@ def phase_times(results: dict) -> dict:
     return by_batch
 
 
-def profile_forward(model) -> None:
+def profile_forward(model, image_size: int = 224) -> None:
     """Kernel time by name over five batch-1 forwards (torch.profiler)."""
     from torch.profiler import ProfilerActivity, profile
 
-    x = torch.randn(1, 3, 224, 224, generator=torch.Generator().manual_seed(SEED))
+    x = torch.randn(1, 3, image_size, image_size, generator=torch.Generator().manual_seed(SEED))
     x = x.cuda().to(torch.bfloat16)
     with torch.inference_mode():
         model(x)
@@ -704,7 +872,7 @@ def profile_forward(model) -> None:
 
 
 def profile_train_step(step, state, batch) -> None:
-    """Kernel time by name over two batch-128 train steps (torch.profiler)."""
+    """Kernel time by name over two train steps (torch.profiler)."""
     from torch.profiler import ProfilerActivity, profile
 
     from dino_pose_tpu_torch.ops import block as B
@@ -724,8 +892,9 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write all measurements to this JSON file")
     ap.add_argument("--profile", action="store_true",
-                    help="print torch.profiler kernel tables of the batch-1 forward "
-                         "and of the batch-128 LoRA and unfreeze train steps")
+                    help="print torch.profiler kernel tables of the batch-1 forward and "
+                         "the train steps: at 224² LoRA and unfreeze (batch 128), at 504² "
+                         "unfreeze (batch 32)")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -747,43 +916,58 @@ def main() -> int:
     serving: dict = {}
     lora: dict = {}
     unfreeze: dict = {}
+    serving_504: dict = {}
+    unfreeze_504: dict = {}
     phase_kernels(results)
     phase_mlp_dx(results)
     phase_train_kernels(results)
+    flash_times = phase_flash(results)
     model = phase_serving(results, serving)
     lora_run = phase_train(results, lora, "lora", LORA_CONFIG, LORA_LAUNCHES, LORA_GRAD_NAMES,
                            ("fused_mlp_dx",))
     unfreeze_run = phase_train(results, unfreeze, "unfreeze", UNFREEZE_CONFIG, UNFREEZE_LAUNCHES,
                                UNFREEZE_GRAD_NAMES, ("fused_mlp_bwd", "fused_attn_bwd"))
+    model_504 = phase_serving(results, serving_504, "serving_504", LONG_IMAGE,
+                              SERVING_504_LAUNCHES, n_lat=10, n_batches=4, fwd_iters=5)
+    unfreeze_504_run = phase_train(
+        results, unfreeze_504, "unfreeze_504", UNFREEZE_CONFIG, UNFREEZE_504_LAUNCHES,
+        UNFREEZE_GRAD_NAMES, ("fused_mlp_bwd", "fused_attn_bwd"), batch_size=LONG_BATCH,
+        image_size=LONG_IMAGE, steps=LONG_STEPS, timed=3)
     by_batch = phase_times(results)
+    for b, t in flash_times.items():
+        by_batch.setdefault(b, {}).update(t)
     if args.profile:
         profile_forward(model)
         profile_train_step(*lora_run)
         profile_train_step(*unfreeze_run)
+        profile_forward(model_504, LONG_IMAGE)
+        profile_train_step(*unfreeze_504_run)
 
     kernels = []
-    for name, replaces in KERNEL_ROWS.items():
-        b = ROW_BATCH[name]
+    for name, (replaces, source, b, path) in KERNEL_ROWS.items():
         t = by_batch[b][name]
         row = results[name]
+        runs = results[LAUNCH_KEY.get(name, name)]["launches"]
         kernels.append({
-            "name": name, "route": "cuda", "source": SOURCE, "replaces": replaces,
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "batch": b,
-            # Launches on the path the kernel belongs to (ROW_PATH), and on each path.
-            "launches": row["launches"][ROW_PATH[name]],
-            "launches_by_path": row["launches"],
+            # Launches on the path the kernel belongs to, and on each path.
+            "launches": runs[path], "launches_by_path": runs,
             "max_abs_err": row["max_abs_err"],
             **({"max_grad_err_rel": row["max_grad_err_rel"]} if "max_grad_err_rel" in row else {}),
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-            "bound_by": t["bound_by"], "library_ms": None,
+            "bound_by": t["bound_by"], "library_ms": t.get("library_ms"),
         })
     log("kernel_times_b8 " + json.dumps(by_batch[8]))
+    log("kernel_times_b32 " + json.dumps(by_batch[LONG_BATCH]))
     log("kernel_times_b128 " + json.dumps(by_batch[TRAIN_BATCH]))
     if args.out:
         with open(args.out, "w") as f:
             json.dump({"card": card, "kernels": kernels, "b1": by_batch[1], "b8": by_batch[8],
-                       "b128": by_batch[TRAIN_BATCH], "serving": serving,
-                       "training": lora, "training_unfreeze": unfreeze}, f, indent=1)
+                       "b32": by_batch[LONG_BATCH], "b128": by_batch[TRAIN_BATCH],
+                       "serving": serving, "training": lora, "training_unfreeze": unfreeze,
+                       "serving_504": serving_504, "training_unfreeze_504": unfreeze_504},
+                      f, indent=1)
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

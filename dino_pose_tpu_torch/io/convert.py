@@ -190,10 +190,8 @@ def state_dict_from_jax(variables: Mapping, model) -> dict[str, torch.Tensor]:
     """Render the JAX variables of a dinov2 pose model into the port's
     ``state_dict`` for ``model`` (a ``DinoPoseModule``). Every key of the
     model is produced, BatchNorm ``num_batches_tracked`` as 0."""
-    from dino_pose_tpu_torch.models.heads import upsampling_plan
-
     vit = model.vit
-    num_up = len(upsampling_plan(model.input_size // vit.patch_size, model.heatmap_size))
+    num_up = len(model.pose_heads.heatmap_head.upsampling)
     rules = dinov2_pose_rules(vit.num_layers, vit.lora_layers, num_up)
     flat = _flatten(variables)
     out: dict[str, torch.Tensor] = {}

@@ -113,11 +113,22 @@ def upsampling_plan(spatial_input_size: int, heatmap_size: int) -> list[tuple[in
 
 
 class SpatialAwareHeatmapHead(nn.Module):
+    """Refine -> hourglass -> transposed-conv upsampling -> prediction ->
+    bilinear resize to ``heatmap_size``.
+
+    The upsampling stages are built for ``spatial_input_size`` (the grid the
+    JAX registry initialises the model at, 224 // 14 = 16), so the parameter
+    tree and the reference key set are those of that grid. The plan that
+    runs is taken from the feature map of each call, as the JAX heads take
+    ``spatial_input_size=hp`` at call time: the first ``len(plan)`` stages
+    run with the plan's strides (a 36x36 grid at 504² runs ``upsampling.0``
+    at stride 1 alone). A plan with more stages than were built raises, as
+    the JAX apply would for want of their parameters."""
+
     def __init__(self, in_channels: int, num_keypoints: int = 24,
                  heatmap_size: int = 48, spatial_input_size: int = 16):
         super().__init__()
         self.heatmap_size = heatmap_size
-        self.spatial_input_size = spatial_input_size
         self.feature_refine = nn.Sequential(
             *_conv_bn_relu(in_channels, 512),
             HourglassModule(512, 512),
@@ -135,9 +146,16 @@ class SpatialAwareHeatmapHead(nn.Module):
 
     def forward(self, fmap: torch.Tensor) -> torch.Tensor:
         x = run(self.feature_refine, fmap)
-        tracker = self.spatial_input_size
-        for stage in self.upsampling:
-            x = run(stage, x)
+        tracker = fmap.shape[2]
+        plan = upsampling_plan(tracker, self.heatmap_size)
+        if len(plan) > len(self.upsampling):
+            raise ValueError(
+                f"a {tracker}x{fmap.shape[3]} feature grid needs {len(plan)} upsampling "
+                f"stages to reach {self.heatmap_size}, and the head was built with "
+                f"{len(self.upsampling)}"
+            )
+        for stage, (_, stride) in zip(self.upsampling, plan):
+            x = run(stage[1:], L.conv_transpose2d(x, stage[0], stride))
             tracker *= 2
         x = run(self.prediction, x)
         # Bug-for-bug: the reference gates the resize on its doubling

@@ -13,21 +13,25 @@ from dino_pose_tpu_torch.models.heads import SpatialAwarePoseHeads
 from dino_pose_tpu_torch.models.vit import Dinov2Backbone, ViTConfig
 
 
+# The input size the JAX registry initialises a dinov2 model at: the heads'
+# upsampling stages (and so the parameter tree) are built for its patch grid.
+INIT_INPUT_SIZE = 224
+
+
 class DinoPoseModule(nn.Module):
     """DINOv2 backbone + spatial-aware pose heads (torch keys ``backbone.*``
-    and ``pose_heads.*``)."""
+    and ``pose_heads.*``). Any input whose patch grid is divisible by 4 runs;
+    the heads take their upsampling plan from the grid of each call."""
 
-    def __init__(self, vit: ViTConfig, num_keypoints: int = 24, heatmap_size: int = 48,
-                 input_size: int = 224):
+    def __init__(self, vit: ViTConfig, num_keypoints: int = 24, heatmap_size: int = 48):
         super().__init__()
         self.vit = vit
         self.num_keypoints = num_keypoints
         self.heatmap_size = heatmap_size
-        self.input_size = input_size
         self.backbone = Dinov2Backbone(vit)
         self.pose_heads = SpatialAwarePoseHeads(
             vit.hidden_size, num_keypoints, heatmap_size,
-            spatial_input_size=input_size // vit.patch_size,
+            spatial_input_size=INIT_INPUT_SIZE // vit.patch_size,
         )
 
     def forward(self, pixels: torch.Tensor, *, kernels: bool = True,

@@ -24,6 +24,12 @@ The blocks run through the fused wrappers of ``ops/block.py`` (with
   backward): only the adapter trains there. A LoRA layer whose base weights
   require grad is refused while grad mode is on, since that backward gives
   them no gradient.
+
+These routes hold at every input size: each chain takes any sequence length,
+its attention step streaming through the flash kernels once the head's K
+and V no longer fit shared memory (S > ~320; at 504², S = 1297, in every
+layer). The JAX package instead switches its block kernels by size and, at
+504², runs ``block_math`` around its flash kernel (``ops/block.py``).
 """
 
 from __future__ import annotations

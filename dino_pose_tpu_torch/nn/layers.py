@@ -41,11 +41,13 @@ def conv2d(x: torch.Tensor, layer: nn.Conv2d) -> torch.Tensor:
     return y
 
 
-def conv_transpose2d(x: torch.Tensor, layer: nn.ConvTranspose2d) -> torch.Tensor:
-    """``ConvTranspose`` with torch geometry: out = (in-1)*s - 2p + k (+op)."""
+def conv_transpose2d(x: torch.Tensor, layer: nn.ConvTranspose2d,
+                     stride: int | None = None) -> torch.Tensor:
+    """``ConvTranspose`` with torch geometry: out = (in-1)*s - 2p + k (+op).
+    ``stride`` overrides the layer's own (the heads choose it per call)."""
     y = F.conv_transpose2d(
-        x, layer.weight.to(x.dtype), None, layer.stride, layer.padding,
-        layer.output_padding,
+        x, layer.weight.to(x.dtype), None, layer.stride if stride is None else stride,
+        layer.padding, layer.output_padding,
     )
     if layer.bias is not None:
         y = y + layer.bias.to(x.dtype).view(1, -1, 1, 1)

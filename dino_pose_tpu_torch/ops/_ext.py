@@ -2,14 +2,20 @@
 
 The sources are compiled with ``nvcc`` for ``sm_90a`` into a shared library
 with a plain C interface, at first use, into ``dino_pose_tpu_torch/build/``
-(listed in .gitignore). The library name carries a hash of the sources, so an
-edited source is rebuilt and a stale library is never loaded. Nothing here
-runs when the package is imported: the CPU tests import every module on a
-machine without ``nvcc``.
+(listed in .gitignore): one ``nvcc`` per source, all started together, then
+one link. The library name carries a hash of every file under ``csrc/``, so
+an edited source or header is rebuilt and a stale library is never loaded.
+Nothing here runs when the package is imported: the CPU tests import every
+module on a machine without ``nvcc``.
+
+``LAUNCHES`` counts the launches of each wrapper's kernels (``ops/block.py``
+and ``ops/attention.py`` add to it), so that a run can show that its path
+went through them.
 """
 
 from __future__ import annotations
 
+import concurrent.futures
 import ctypes
 import hashlib
 import os
@@ -17,14 +23,24 @@ import pathlib
 import shutil
 import subprocess
 import threading
+import time
 
 _CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 _BUILD = pathlib.Path(__file__).resolve().parent.parent / "build"
-_SOURCES = ("block_kernels.cu",)
+_SOURCES = ("block_kernels.cu", "flash_kernels.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-lineinfo",
 )
+
+LAUNCHES: dict[str, int] = {
+    "fused_block": 0, "fused_attn_part": 0, "fused_mlp_part": 0, "fused_mlp_dx": 0,
+    "fused_block_train": 0, "fused_mlp_bwd": 0, "fused_attn_bwd": 0,
+    # The streamed attention kernels: a forward launch (flash_fwd_kernel) and
+    # a backward pair (flash_bwd_dq_kernel + flash_bwd_dkv_kernel), counted
+    # inside the chains above and by the standalone ``flash_attention``.
+    "flash_fwd": 0, "flash_bwd": 0,
+}
 
 _LIB: ctypes.CDLL | None = None
 _LOCK = threading.Lock()
@@ -34,14 +50,16 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
     "dp_gemm_smem_bytes": ([_I, _I], ctypes.c_longlong),
-    "dp_attention_smem_bytes": ([_I, _I], ctypes.c_longlong),
-    "dp_attn_bwd_smem_bytes": ([_I, _I], ctypes.c_longlong),
+    "dp_flash_forward": ([_I, _I], _I),
+    "dp_flash_backward": ([_I, _I], _I),
     "dp_fused_block": ([_P] * 20 + [_I] * 5 + [_F, _P], _I),
     "dp_fused_attn_part": ([_P] * 10 + [_I] * 4 + [_F, _P], _I),
     "dp_fused_mlp_part": ([_P] * 10 + [_I] * 3 + [_F, _P], _I),
     "dp_fused_mlp_dx": ([_P] * 13 + [_I] * 3 + [_F, _P], _I),
     "dp_fused_mlp_bwd": ([_P] * 24 + [_I] * 5 + [_F, _P], _I),
     "dp_fused_attn_bwd": ([_P] * 26 + [_I] * 6 + [_F, _P], _I),
+    "dp_flash_fwd": ([_P] * 5 + [_I] * 4 + [_F, _P], _I),
+    "dp_flash_bwd": ([_P] * 8 + [_I] * 4 + [_F, _P], _I),
 }
 
 
@@ -57,10 +75,32 @@ def _nvcc() -> str:
 
 def library_path() -> pathlib.Path:
     digest = hashlib.sha256()
-    for name in _SOURCES:
-        digest.update((_CSRC / name).read_bytes())
+    for path in sorted(_CSRC.iterdir()):
+        digest.update(path.name.encode() + path.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
     return _BUILD / f"libdp_kernels_{digest.hexdigest()[:16]}.so"
+
+
+def _run_all(jobs: dict[str, list[str]], verbose: bool) -> None:
+    """Run the commands (by label) side by side; raise if any fails.
+    ``verbose`` prints each command's output and the seconds it took."""
+    def run(cmd):
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        return proc, time.perf_counter() - t0
+
+    with concurrent.futures.ThreadPoolExecutor(len(jobs)) as pool:
+        done = list(pool.map(run, jobs.values()))
+    failed = []
+    for (label, cmd), (proc, seconds) in zip(jobs.items(), done):
+        if verbose or proc.returncode != 0:
+            print(proc.stdout, flush=True)
+        if verbose:
+            print(f"nvcc {label}: {seconds:.1f} s", flush=True)
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}")
+    if failed:
+        raise RuntimeError("; ".join(failed))
 
 
 def build(verbose: bool = False) -> pathlib.Path:
@@ -69,14 +109,16 @@ def build(verbose: bool = False) -> pathlib.Path:
     if out.exists():
         return out
     _BUILD.mkdir(parents=True, exist_ok=True)
+    tag = f"{out.stem}.{os.getpid()}"
+    objs = [_BUILD / f"{tag}.{pathlib.Path(s).stem}.o" for s in _SOURCES]
+    ptxas = ["-Xptxas", "-v"] if verbose else []
+    _run_all({s: [_nvcc(), *NVCC_FLAGS, *ptxas, "-c", "-o", str(o), str(_CSRC / s)]
+              for s, o in zip(_SOURCES, objs)}, verbose)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
-           "-o", str(tmp), *(str(_CSRC / s) for s in _SOURCES)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if verbose or proc.returncode != 0:
-        print(proc.stdout + proc.stderr, flush=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}")
+    _run_all({"link": [_nvcc(), *NVCC_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)]},
+             verbose)
+    for o in objs:
+        o.unlink()
     os.replace(tmp, out)
     return out
 

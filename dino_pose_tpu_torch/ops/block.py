@@ -19,6 +19,19 @@ A wrapper takes its plain version only for tensors on the CPU. On a CUDA
 tensor it launches the kernels of ``ops/csrc/block_kernels.cu`` or raises;
 it never falls back. Each launch adds one to ``LAUNCHES[<wrapper name>]``.
 
+Every wrapper takes any sequence length. The attention step of a chain keeps
+the head's K and V resident in shared memory where they fit (S up to ~320
+at head width 64, dinov2 at 224²); past that it launches the streamed
+kernels of ``ops/csrc/flash_kernels.cu`` (``_flash_kernel`` and
+``_flash_bwd_kernel``'s counterparts, ``ops/attention.py``), and each such
+launch also adds one to ``LAUNCHES["flash_fwd"]`` (a forward) or
+``LAUNCHES["flash_bwd"]`` (a backward pair). This is where the port departs
+from the JAX route: at 504² (S = 1297) the JAX package runs ``block_math``
+in every layer, XLA's dense products around its flash kernel; the port keeps
+its GEMM chains, with ``block_math``'s rounding points, and puts the
+streamed kernel in the middle. The same chains serve 280-448², where the
+JAX package runs its resident, split or weight-streamed block kernels.
+
 The forward wrappers return tensors without a graph, so they refuse inputs
 that require grad while grad mode is on. Two autograd functions carry the
 backward. :func:`mlp_part_frozen`, for the LoRA layer, is ``fused_mlp_part``
@@ -46,10 +59,7 @@ from dino_pose_tpu_torch.nn.layers import layer_norm
 from dino_pose_tpu_torch.ops import _ext
 from dino_pose_tpu_torch.ops.attention import plain_attention
 
-LAUNCHES: dict[str, int] = {
-    "fused_block": 0, "fused_attn_part": 0, "fused_mlp_part": 0, "fused_mlp_dx": 0,
-    "fused_block_train": 0, "fused_mlp_bwd": 0, "fused_attn_bwd": 0,
-}
+LAUNCHES = _ext.LAUNCHES
 
 _SMEM_LIMIT = 232448  # bytes of shared memory one Hopper block may use
 # Rows per block of the backward's column-sum partials: BM of the gemm_nt
@@ -352,17 +362,11 @@ def _check_params(x: torch.Tensor, p, shapes: dict[str, tuple[int, ...]], name: 
             raise ValueError(f"{name}: {field} must be a contiguous {shape} tensor, got {tuple(t.shape)}")
 
 
-def _check_shapes(d: int, num_heads: int, s: int, name: str) -> None:
+def _check_shapes(d: int, num_heads: int, name: str) -> None:
     if d % 64:
         raise ValueError(f"{name}: hidden size {d} is not a multiple of 64")
     if d % num_heads or d // num_heads not in (32, 64):
         raise ValueError(f"{name}: head width {d / num_heads} is not 32 or 64")
-    smem = _ext.lib().dp_attention_smem_bytes(s, d // num_heads)
-    if smem > _SMEM_LIMIT:
-        raise ValueError(
-            f"{name}: S={s} needs {smem} B of shared memory for resident K/V "
-            f"(limit {_SMEM_LIMIT}); long sequences take the flash-attention slice"
-        )
 
 
 def _check_ln_width(k: int, name: str) -> None:
@@ -404,9 +408,9 @@ def fused_block(
     """Whole pre-norm block forward; replaces ``_block_kernel``
     (dino_pose_tpu/ops/block.py:159).
 
-    Design: five launches — gemm<LN1 prologue, +bqkv> -> attention ->
-    gemm<+bo, *ls1, +x> -> gemm<LN2 prologue, +bf1, GELU> ->
-    gemm<+bf2, *ls2, +x2>. The TPU kernel keeps the block's 3.5 MB of weights
+    Design: five launches — gemm<LN1 prologue, +bqkv> -> attention (K/V
+    resident, or streamed past S ~ 320) -> gemm<+bo, *ls1, +x> ->
+    gemm<LN2 prologue, +bf1, GELU> -> gemm<+bf2, *ls2, +x2>. The TPU kernel keeps the block's 3.5 MB of weights
     and a few rows in VMEM; Hopper's 227 KB of shared memory cannot, so the
     block is split where a product's whole output tile is ready, and only
     qkv, ctx, x2 and the MLP hidden tensor pass through device memory (L2 at
@@ -447,7 +451,7 @@ def _launch_block(x: torch.Tensor, p: BlockParams, num_heads: int, eps: float,
     _check_act(x, name)
     b, s, d = x.shape
     hidden = p.w1.shape[-1]
-    _check_shapes(d, num_heads, s, name)
+    _check_shapes(d, num_heads, name)
     _check_hidden(hidden, name)
     _check_ln_width(d, name)
     _check_params(x, p, {**_attn_shapes(d), "ls1": (d,), **_mlp_shapes(d, hidden)}, name)
@@ -462,6 +466,7 @@ def _launch_block(x: torch.Tensor, p: BlockParams, num_heads: int, eps: float,
     )
     _ext.check(err, name)
     LAUNCHES[name] += 1
+    LAUNCHES["flash_fwd"] += _ext.lib().dp_flash_forward(s, d // num_heads)
     return y, x2
 
 
@@ -474,7 +479,8 @@ def fused_attn_part(
 
     Design: three launches — gemm<LN1 prologue, +bqkv> -> attention (one
     block per batch row, head and 64-query tile; the head's K and V for all
-    S keys in shared memory, f32 softmax, P rounded to bf16) -> gemm<+bo>.
+    S keys in shared memory, f32 softmax, P rounded to bf16; past S ~ 320
+    the streamed flash_fwd_kernel) -> gemm<+bo>.
 
     Bound on an H100 at S = 257, D = 384: 0.405 GFLOP per image and 2.36 MB
     of weights; bytes bound it at batch 1, operations from batch 2 up.
@@ -485,7 +491,7 @@ def fused_attn_part(
         return attn_part_math(x, ap, num_heads=num_heads, eps=eps)
     _check_act(x, name)
     b, s, d = x.shape
-    _check_shapes(d, num_heads, s, name)
+    _check_shapes(d, num_heads, name)
     _check_ln_width(d, name)
     _check_params(x, ap, _attn_shapes(d), name)
     qkv = torch.empty((b, s, 3 * d), dtype=x.dtype, device=x.device)
@@ -497,6 +503,7 @@ def fused_attn_part(
     )
     _ext.check(err, name)
     LAUNCHES[name] += 1
+    LAUNCHES["flash_fwd"] += _ext.lib().dp_flash_forward(s, d // num_heads)
     return out
 
 
@@ -661,8 +668,9 @@ def fused_attn_bwd(
     Design: LN1 rows -> gemm<+bqkv> -> attention (ctx) -> gemm<+bo>(o) ->
     gemm_nt<dx2*ls1, bf16>(dctx) -> attention backward: a dq kernel per
     64-query tile with the head's K and V resident (f32 P, rowsum(P*dP)
-    saved) and a dk/dv kernel per 64-key tile with Q and dctx resident ->
-    gemm_nt<f32>(da) -> LayerNorm-backward rows with column sums (dx, dbo,
+    saved) and a dk/dv kernel per 64-key tile with Q and dctx resident;
+    past S = 304 the streamed flash_bwd_dq/dkv kernels, after a streamed
+    forward that saves the row statistics they read) -> gemm_nt<f32>(da) -> LayerNorm-backward rows with column sums (dx, dbo,
     dls1, dg1, db1) -> gemm_tn with column sums (dWqkv, dbqkv) ->
     gemm_tn<*ls1>(dWo). qkv, P, ctx and o are recomputed from x, as JAX
     saves only x; weight gradients go through fixed-order f32 partials.
@@ -676,11 +684,7 @@ def fused_attn_bwd(
         return attn_bwd_math(x, dx2, atp, num_heads=num_heads, eps=eps)
     _check_pair(x, dx2, name)
     b, s, d = x.shape
-    _check_shapes(d, num_heads, s, name)
-    smem = _ext.lib().dp_attn_bwd_smem_bytes(s, d // num_heads)
-    if smem > _SMEM_LIMIT:
-        raise ValueError(f"{name}: S={s} needs {smem} B of shared memory for the attention "
-                         f"backward (limit {_SMEM_LIMIT})")
+    _check_shapes(d, num_heads, name)
     _check_params(x, atp, {**_attn_shapes(d), "ls1": (d,)}, name)
     m_rows = b * s
     nblk = -(-m_rows // _SUM_ROWS)
@@ -702,6 +706,9 @@ def fused_attn_bwd(
     )
     _ext.check(err, name)
     LAUNCHES[name] += 1
+    flash = _ext.lib().dp_flash_backward(s, d // num_heads)
+    LAUNCHES["flash_fwd"] += flash
+    LAUNCHES["flash_bwd"] += flash
     dbo, dls1, dg1, db1 = vec4
     return dx, AttnTrainParams(g1=dg1, b1=db1, wqkv=dwqkv, bqkv=dbqkv, wo=dwo, bo=dbo, ls1=dls1)
 

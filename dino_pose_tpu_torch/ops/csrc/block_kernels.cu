@@ -33,6 +33,12 @@
 //   attn_bwd_dq_kernel<DH>, attn_bwd_dkv_kernel<DH>  the attention backward,
 //                          FlashAttention-2 style: per query tile dq and the
 //                          softmax statistics, then per key tile dk and dv.
+//   The resident K/V (or Q/dO) hold S up to ~320 (dh = 64). Past that the
+//   attention step of every chain launches the streamed kernels of
+//   flash_kernels.cu instead (dp_flash::launch_fwd / launch_bwd): a choice
+//   between hand-written kernels by shape, made in attn_half and
+//   dp_fused_attn_bwd (a backward that streams recomputes its forward
+//   streamed too, for the row statistics it reads).
 //   ln_rows_kernel         LayerNorm forward, one warp per row.
 //   ln_bwd_rows_kernel<SUMS>  LayerNorm backward, one warp per row, with
 //                          optional per-block column sums for the vector
@@ -85,6 +91,8 @@
 #include <mma.h>
 #include <stdint.h>
 
+#include "flash_kernels.cuh"
+
 using namespace nvcuda;
 typedef __nv_bfloat16 bf16;
 
@@ -99,6 +107,8 @@ constexpr int ATTN_THREADS = 128;  // 4 warps, 16 query rows each
 constexpr int ROW_THREADS = 128;   // 4 warps, one row each (LayerNorm rows)
 constexpr int SUM_ROWS = 64;       // rows per block of the column-summing row kernel
 constexpr int NSUMS = 4;           // column sums of ln_bwd_rows_kernel<true>
+
+constexpr size_t MAX_SMEM = 232448;  // shared memory one Hopper block may use
 
 enum Epilogue { EPI_BIAS = 0, EPI_BIAS_GELU = 1, EPI_BIAS_LS_RES = 2, EPI_BIAS_GELU_PAIR = 3 };
 enum EpilogueNT { EPT_GELU_GRAD = 0, EPT_F32 = 1, EPT_BF16 = 2 };
@@ -1132,8 +1142,46 @@ cudaError_t launch_attn_bwd_dh(const void* qkv, const void* dctx, void* stats, v
   return cudaGetLastError();
 }
 
+// The chains' view of qkv (B, S, 3D) and ctx (B, S, D) for the streamed
+// kernels; dqkv and dctx share those layouts.
+dp_flash::Params packed_heads(const void* qkv, int B, int S, int H, int dh) {
+  const int D = H * dh;
+  const bf16* base = static_cast<const bf16*>(qkv);
+  dp_flash::Params p = {};
+  p.q = base;
+  p.k = base + D;
+  p.v = base + 2 * D;
+  p.in_b = static_cast<long long>(S) * 3 * D;
+  p.in_h = dh;
+  p.in_r = 3 * D;
+  p.out_b = static_cast<long long>(S) * D;
+  p.out_h = dh;
+  p.out_r = D;
+  p.B = B;
+  p.H = H;
+  p.S = S;
+  p.scale = 1.0f / sqrtf(static_cast<float>(dh));
+  return p;
+}
+
+bool flash_forward(int S, int dh) { return attention_smem_bytes(S, dh) > MAX_SMEM; }
+bool flash_backward(int S, int dh) { return attn_bwd_smem_bytes(S, dh) > MAX_SMEM; }
+
+// flash: the streamed kernels, which read the forward's statistics from
+// stats (written by launch_attention with flash); else the resident pair.
 cudaError_t launch_attn_bwd(const void* qkv, const void* dctx, void* stats, void* dqkv, int B,
-                            int S, int H, int dh, cudaStream_t stream) {
+                            int S, int H, int dh, bool flash, cudaStream_t stream) {
+  if (flash) {
+    dp_flash::Params p = packed_heads(qkv, B, S, H, dh);
+    bf16* g = static_cast<bf16*>(dqkv);
+    const int D = H * dh;
+    p.dout = static_cast<const bf16*>(dctx);
+    p.stats = static_cast<float*>(stats);
+    p.dq = g;
+    p.dk = g + D;
+    p.dv = g + 2 * D;
+    return dp_flash::launch_bwd(p, dh, stream);
+  }
   const size_t smem = attn_bwd_smem_bytes(S, dh);
   const float scale = 1.0f / sqrtf(static_cast<float>(dh));
   if (dh == 64) return launch_attn_bwd_dh<64>(qkv, dctx, stats, dqkv, B, S, H, scale, smem, stream);
@@ -1141,8 +1189,16 @@ cudaError_t launch_attn_bwd(const void* qkv, const void* dctx, void* stats, void
   return cudaErrorInvalidValue;
 }
 
-cudaError_t launch_attention(const void* qkv, void* ctx, int B, int S, int H, int dh,
-                             cudaStream_t stream) {
+// flash: the streamed forward (writing the row statistics to stats when it
+// is not null); else attention_kernel with the head's K and V resident.
+cudaError_t launch_attention(const void* qkv, void* ctx, void* stats, int B, int S, int H,
+                             int dh, bool flash, cudaStream_t stream) {
+  if (flash) {
+    dp_flash::Params p = packed_heads(qkv, B, S, H, dh);
+    p.o = static_cast<bf16*>(ctx);
+    p.stats = static_cast<float*>(stats);
+    return dp_flash::launch_fwd(p, dh, stream);
+  }
   const size_t smem = attention_smem_bytes(S, dh);
   const float scale = 1.0f / sqrtf(static_cast<float>(dh));
   dim3 grid((S + BQ - 1) / BQ, H, B);
@@ -1175,7 +1231,7 @@ cudaError_t attn_half(const void* x, const void* g1, const void* b1, const void*
   cudaError_t err = launch_gemm<true, EPI_BIAS>(x, wqkv, bqkv, nullptr, nullptr, g1, b1, qkv,
                                                 M, 3 * D, D, eps, st);
   if (err != cudaSuccess) return err;
-  err = launch_attention(qkv, ctx, B, S, H, D / H, st);
+  err = launch_attention(qkv, ctx, nullptr, B, S, H, D / H, flash_forward(S, D / H), st);
   if (err != cudaSuccess) return err;
   if (ls1 == nullptr)
     return launch_gemm<false, EPI_BIAS>(ctx, wo, bo, nullptr, nullptr, nullptr, nullptr, out,
@@ -1202,8 +1258,10 @@ extern "C" {
 // Shared-memory bytes the kernels ask for, so the wrapper can refuse shapes
 // the card cannot hold before launching.
 long long dp_gemm_smem_bytes(int ln, int K) { return (long long)gemm_smem_bytes(ln != 0, K); }
-long long dp_attention_smem_bytes(int S, int dh) { return (long long)attention_smem_bytes(S, dh); }
-long long dp_attn_bwd_smem_bytes(int S, int dh) { return (long long)attn_bwd_smem_bytes(S, dh); }
+// 1 when the chains' attention forward (backward) at (S, dh) takes the
+// streamed kernels of flash_kernels.cu, 0 when the resident ones.
+int dp_flash_forward(int S, int dh) { return flash_forward(S, dh) ? 1 : 0; }
+int dp_flash_backward(int S, int dh) { return flash_backward(S, dh) ? 1 : 0; }
 
 // _block_kernel: y = x2 + ls2*MLP(LN2(x2)), x2 = x + ls1*(Wo MHA(LN1(x)) + bo).
 int dp_fused_block(const void* x, const void* g1, const void* b1, const void* wqkv,
@@ -1319,14 +1377,15 @@ int dp_fused_attn_bwd(const void* x, const void* dx2, const void* g1, const void
   err = launch_gemm<false, EPI_BIAS>(a, wqkv, bqkv, nullptr, nullptr, nullptr, nullptr, qkv, M,
                                      3 * D, D, eps, st);
   if (err != cudaSuccess) return static_cast<int>(err);
-  err = launch_attention(qkv, ctx, B, S, H, D / H, st);
+  const bool flash = flash_backward(S, D / H);
+  err = launch_attention(qkv, ctx, stats, B, S, H, D / H, flash, st);
   if (err != cudaSuccess) return static_cast<int>(err);
   err = launch_gemm<false, EPI_BIAS>(ctx, wo, bo, nullptr, nullptr, nullptr, nullptr, o, M, D, D,
                                      eps, st);
   if (err != cudaSuccess) return static_cast<int>(err);
   err = launch_gemm_nt<true, EPT_BF16>(dx2, wo, ls1, nullptr, dctx, M, D, D, st);
   if (err != cudaSuccess) return static_cast<int>(err);
-  err = launch_attn_bwd(qkv, dctx, stats, dqkv, B, S, H, D / H, st);
+  err = launch_attn_bwd(qkv, dctx, stats, dqkv, B, S, H, D / H, flash, st);
   if (err != cudaSuccess) return static_cast<int>(err);
   err = launch_gemm_nt<false, EPT_F32>(dqkv, wqkv, nullptr, nullptr, da, M, D, 3 * D, st);
   if (err != cudaSuccess) return static_cast<int>(err);

@@ -4,7 +4,7 @@
 
     model = registry.create_model_from_config({"model_name": ..., "use_lora": True})
     predict = make_predictor(model)          # cuda; device="cpu" on request
-    keypoints, z, heatmaps = predict(images)  # list of PIL images or (B,3,224,224)
+    keypoints, z, heatmaps = predict(images)  # list of PIL images or (B,3,H,W)
 """
 
 from __future__ import annotations
@@ -26,12 +26,14 @@ def make_predictor(
     """Move ``model`` to ``device`` (default ``cuda``) in eval mode and return
     ``predict(images) -> (keypoints[B,K,2], z[B,K], heatmaps[B,K,h,w])`` as
     host float32 numpy arrays. Pixels run in the device's compute dtype
-    (bf16 on the card, f32 on the CPU)."""
+    (bf16 on the card, f32 on the CPU). Keypoints are decoded into the width and
+    height of the pixels the model was given (224² for PIL images, which the
+    preprocessor crops to that size), as the JAX bench decodes into its
+    image size."""
     dev = resolve_device(device)
     model = model.to(dev).eval()
     dtype = policy_for_device(dev).compute_dtype
     preprocessor = create_preprocessor(getattr(model, "model_name", "facebook/dinov2-small"))
-    size = model.input_size
 
     def predict(images) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
         if isinstance(images, np.ndarray):
@@ -43,7 +45,7 @@ def make_predictor(
         x = torch.from_numpy(np.ascontiguousarray(pixels, np.float32)).to(dev).to(dtype)
         with torch.inference_mode():
             heatmaps, z = model(x)
-            keypoints = decode_heatmaps(heatmaps, (size, size))
+            keypoints = decode_heatmaps(heatmaps, (x.shape[-1], x.shape[-2]))
         return (
             keypoints.float().cpu().numpy(),
             z.float().cpu().numpy(),

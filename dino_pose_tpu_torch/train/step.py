@@ -52,6 +52,7 @@ def make_train_step(
             f"{sorted(trainable ^ partition)[:4]}"
         )
     device = next(model.parameters()).device
+    params = [p for p in model.parameters() if p.requires_grad]
 
     def train_step(state: TrainState, batch: dict, lr: float, seed: int):
         generator = step_generator(seed, state.step, device)
@@ -66,6 +67,13 @@ def make_train_step(
         lw = weighting.update(state.loss_weight, kp_l, z_l)
         loss = weighting.balanced_loss(lw, kp_l, z_l)
         loss.backward()
+        # A trainable parameter that this input does not reach (the heads'
+        # second upsampling stage, from a 24x24 patch grid up) gets a zero
+        # gradient, as every trainable leaf does in the JAX step, so that
+        # AdamW still decays it and counts the step.
+        for p in params:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
         optimizer.step()
 
         kp_c, z_c = weighting.loss_contributions(lw, kp_l.detach(), z_l.detach())

@@ -11,6 +11,12 @@ every product to bf16, in another summation order, so single roundings flip
 by one ulp. The backward's weight gradients are f32 sums over all B*S rows
 of such bf16 terms: each is held elementwise to 2e-3 of its largest
 magnitude (an H100 measured at most 8.3e-4, chip_smoke.py's GRAD_TOL).
+The attention alone (flash_attention's o, dq, dk, dv; fused_attn_part's
+output, which adds no residual) is held to chip_smoke.py's attention
+tolerance: 4e-3 + 2e-2*|ref| elementwise, since its values are ~0.04 at
+long S, and in relative Frobenius norm 5e-4 (flash) and 3e-3
+(fused_attn_part, two GEMMs more), about three and two times the largest
+an H100 measured.
 """
 
 import copy
@@ -20,7 +26,7 @@ import pytest
 import torch
 
 from dino_pose_tpu_torch.models import registry
-from dino_pose_tpu_torch.ops import block
+from dino_pose_tpu_torch.ops import attention, block
 from dino_pose_tpu_torch.train.state import create_train_state
 from dino_pose_tpu_torch.train.step import make_train_step, prepare_batch
 
@@ -312,3 +318,139 @@ def test_tiny_model_unfreeze_train_step_kernels_match_plain(cuda_device):
         assert torch.isfinite(kg[n]).all(), n
         tol = 2 * rel(pg[n], rg[n]) + 1e-2
         assert max(rel(kg[n], rg[n]), rel(kg[n], pg[n])) <= tol, n
+
+
+def _bf16(rng, shape, device):
+    return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(device, torch.bfloat16)
+
+
+def _assert_attention_close(got, want, fro_tol):
+    """The attention tolerance: elementwise and in relative Frobenius norm."""
+    got, want = got.float(), want.float()
+    torch.testing.assert_close(got, want, atol=4e-3, rtol=2e-2)
+    fro = ((got - want).norm() / want.norm()).item()
+    assert fro <= fro_tol, fro
+
+
+# (B, H, S, dh): dinov2-small at 504² (S = 1297, ragged: 20*64 + 17 rows) at
+# batch 1 and 4, head width 32, S = 577, and a single short tile.
+FLASH_CASES = [(1, 6, 1297, 64), (4, 6, 1297, 64), (2, 2, 1297, 32), (2, 6, 577, 64),
+               (1, 2, 100, 32)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", FLASH_CASES)
+def test_flash_attention_matches_plain(cuda_device, shape):
+    """flash_attention's kernels (one forward, one backward pair) against
+    flash_math / flash_bwd_math on o, dq, dk and dv, unit-scale cotangent."""
+    rng = np.random.default_rng(sum(shape))
+    q, k, v, g = (_bf16(rng, shape, cuda_device) for _ in range(4))
+    scale = shape[-1] ** -0.5
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    block.reset_launches()
+    o = attention.flash_attention(*leaves, scale)
+    o.backward(g)
+    torch.cuda.synchronize()
+    assert block.LAUNCHES == {**dict.fromkeys(block.LAUNCHES, 0), "flash_fwd": 1, "flash_bwd": 1}
+    want = (attention.flash_math(q, k, v, scale), *attention.flash_bwd_math(q, k, v, g, scale))
+    for got, w in zip((o.detach(), *(t.grad for t in leaves)), want):
+        assert got.dtype == torch.bfloat16 and torch.isfinite(got).all()
+        _assert_attention_close(got, w, 5e-4)
+
+
+@pytest.mark.cuda
+def test_flash_attention_refuses_what_it_does_not_take(cuda_device):
+    q = torch.zeros((1, 2, 300, 64), device=cuda_device, dtype=torch.bfloat16)
+    with pytest.raises(TypeError, match="bf16"):
+        attention.flash_attention(q.float(), q.float(), q.float(), 0.125)
+    with pytest.raises(ValueError, match="head width"):
+        attention.flash_attention(q[..., :48].contiguous(), q[..., :48].contiguous(),
+                                  q[..., :48].contiguous(), 0.125)
+    with pytest.raises(ValueError, match="contiguous"):
+        attention.flash_attention(q.transpose(1, 2), q, q, 0.125)
+
+
+# The block wrappers with an attention step; at S = 401 and 1297 the head's
+# K and V do not fit shared memory and the chains stream them.
+LONG_NAMES = ("fused_block", "fused_attn_part", "fused_block_train", "fused_attn_bwd")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seq", [401, 1297])
+@pytest.mark.parametrize("name", LONG_NAMES)
+def test_chains_stream_attention_at_long_sequences(cuda_device, name, seq):
+    """Each chain at batch 2 against its plain version on every output
+    (fused_attn_part's at the attention tolerance), and its launches: one
+    of the wrapper, one flash forward, and for fused_attn_bwd (which
+    recomputes the forward) one flash backward pair."""
+    p = _params(cuda_device)
+    rng = np.random.default_rng(seq)
+    x, dy = (_bf16(rng, (2, seq, D), cuda_device) for _ in range(2))
+    block.reset_launches()
+    if name in NAMES:
+        got, want = (_call(name, x, p, kernel=True),), (_call(name, x, p, kernel=False),)
+    else:
+        got, want = _train_call(name, x, dy, p, kernel=True), _train_call(name, x, dy, p, kernel=False)
+    torch.cuda.synchronize()
+    flash_bwd = int(name == "fused_attn_bwd")
+    assert block.LAUNCHES == {**dict.fromkeys(block.LAUNCHES, 0), name: 1, "flash_fwd": 1,
+                              "flash_bwd": flash_bwd}
+    for i, (g, w) in enumerate(zip(got, want)):
+        g, w = g.float(), w.float()
+        assert g.shape == w.shape and torch.isfinite(g).all(), i
+        if name == "fused_attn_part":
+            _assert_attention_close(g, w, 3e-3)
+        elif g.dim() == 3:
+            torch.testing.assert_close(g, w, atol=3e-2, rtol=3e-2)
+        else:
+            err = (g - w).abs().max().item()
+            assert err <= 2e-3 * w.abs().max().item(), (i, err, w.abs().max().item())
+
+
+@pytest.mark.cuda
+def test_tiny_model_at_504_kernels_match_plain(cuda_device):
+    """test/vit-tiny + LoRA at 504² (head width 32, S = 1297): both layers
+    stream their attention (two flash forwards), and the heads run their
+    one-stage plan."""
+    model = registry.create_model_from_config(
+        {"model_name": "test/vit-tiny", "use_lora": True}, device=cuda_device
+    )
+    x = _bf16(np.random.default_rng(2), (2, 3, 504, 504), cuda_device)
+    block.reset_launches()
+    with torch.inference_mode():
+        hm, z = model(x)
+        hm_p, z_p = model(x, kernels=False)
+    torch.cuda.synchronize()
+    assert block.LAUNCHES == {**dict.fromkeys(block.LAUNCHES, 0), "fused_block": 1,
+                              "fused_attn_part": 1, "fused_mlp_part": 1, "flash_fwd": 2}
+    assert hm.shape == (2, 24, 48, 48)
+    for got, want in ((hm, hm_p), (z, z_p)):
+        assert torch.isfinite(got).all()
+        err = (got.float() - want.float()).abs().max().item()
+        assert err <= 5e-2 * want.float().abs().max().item()
+
+
+@pytest.mark.cuda
+def test_attn_bwd_streams_where_only_the_resident_forward_fits(cuda_device):
+    """At S = 316 (head width 64) the resident attention forward fits shared
+    memory and the resident backward does not: fused_block keeps K and V
+    resident, while fused_attn_bwd streams both its recomputed forward (for
+    the row statistics) and its backward."""
+    p = _params(cuda_device)
+    rng = np.random.default_rng(316)
+    x, dy = (_bf16(rng, (2, 316, D), cuda_device) for _ in range(2))
+    zero = dict.fromkeys(block.LAUNCHES, 0)
+    block.reset_launches()
+    got = _call("fused_block", x, p, kernel=True)
+    torch.cuda.synchronize()
+    assert block.LAUNCHES == {**zero, "fused_block": 1}
+    torch.testing.assert_close(got.float(), _call("fused_block", x, p, kernel=False).float(),
+                               atol=3e-2, rtol=3e-2)
+    block.reset_launches()
+    got = _train_call("fused_attn_bwd", x, dy, p, kernel=True)
+    want = _train_call("fused_attn_bwd", x, dy, p, kernel=False)
+    torch.cuda.synchronize()
+    assert block.LAUNCHES == {**zero, "fused_attn_bwd": 1, "flash_fwd": 1, "flash_bwd": 1}
+    torch.testing.assert_close(got[0].float(), want[0].float(), atol=3e-2, rtol=3e-2)
+    for g, w in zip(got[1:], want[1:]):
+        assert (g - w).abs().max().item() <= 2e-3 * w.abs().max().item()

@@ -7,6 +7,7 @@ so that no path is an identity. Float32 on the CPU; heatmaps and z agree to
 """
 
 import dataclasses
+import importlib
 
 import jax
 import jax.numpy as jnp
@@ -92,6 +93,71 @@ def test_pose_model_matches_jax(models, pixels, route, monkeypatch):
     assert hm_t.shape == (2, 24, 48, 48) and z_t.shape == (2, 24)
     np.testing.assert_allclose(hm_t.numpy(), np.asarray(hm_j), atol=1e-4, rtol=0)
     np.testing.assert_allclose(z_t.numpy(), np.asarray(z_j), atol=1e-4, rtol=0)
+
+
+@pytest.fixture(scope="module")
+def plain_models():
+    """test/vit-tiny without LoRA (the unfreeze configurations' tree)."""
+    config = {"model_name": "test/vit-tiny"}
+    jm = jregistry.create_model_from_config(dict(config), pretrained=False)
+    variables = _randomise(jax.device_get(jm.variables), np.random.default_rng(5))
+    tm = tregistry.create_model_from_config(dict(config), device="cpu")
+    tm.load_state_dict(state_dict_from_jax(variables, tm), strict=True)
+    return jm, variables, tm
+
+
+@pytest.mark.parametrize("attention", ["xla", "pallas"])
+@pytest.mark.parametrize("lora", [True, False])
+def test_pose_model_at_504_matches_jax(models, plain_models, lora, attention, monkeypatch):
+    """dinov2 at 504² (a 36x36 grid, S = 1297): the JAX package's own route
+    there is block_math around ``attention()`` in every layer, set on the
+    CPU by ``DINO_POSE_TPU_BLOCK=unfused``; ``pallas`` runs its flash kernel
+    in each layer (interpret mode), ``xla`` its unfused attention. The heads
+    take a one-stage upsampling plan at this grid."""
+    jm, variables, tm = models if lora else plain_models
+    monkeypatch.setenv("DINO_POSE_TPU_BLOCK", "unfused")
+    monkeypatch.setenv("DINO_POSE_TPU_ATTENTION", attention)
+    jattention = importlib.import_module("dino_pose_tpu.ops.attention")
+    calls = []
+    flash = jattention._flash_kernel
+    monkeypatch.setattr(jattention, "_flash_kernel", lambda *a, **k: calls.append(1) or flash(*a, **k))
+    x = np.random.default_rng(6).standard_normal((1, 3, 504, 504)).astype(np.float32)
+    with jdispatch.local():
+        hm_j, z_j = jm.module.apply(variables, jnp.asarray(x), train=False)
+    assert len(calls) == (2 if attention == "pallas" else 0)
+    with torch.inference_mode():
+        hm_t, z_t = tm(torch.from_numpy(x))
+    assert hm_t.shape == (1, 24, 48, 48) and z_t.shape == (1, 24)
+    np.testing.assert_allclose(hm_t.numpy(), np.asarray(hm_j), atol=1e-4, rtol=0)
+    np.testing.assert_allclose(z_t.numpy(), np.asarray(z_j), atol=1e-4, rtol=0)
+
+
+@pytest.mark.parametrize("grid", [16, 20, 24, 28, 36])
+def test_heads_take_their_plan_from_the_grid(models, grid):
+    """The heads against JAX's built for the grid they are given (JAX passes
+    ``spatial_input_size=hp`` at call time): 16 runs both upsampling stages
+    (strides 3, 1), 20 both (2, 1), 24-36 the first alone (stride 2 or 1),
+    with the parameters built for 16."""
+    _, variables, tm = models
+    fmap = np.random.default_rng(grid).standard_normal((2, grid, grid, 64)).astype(np.float32)
+    heads = jheads.SpatialAwarePoseHeads(num_keypoints=24, heatmap_size=48,
+                                         spatial_input_size=grid)
+    hm_j, z_j = heads.apply({"params": variables["params"]["pose_heads"],
+                             "batch_stats": variables["batch_stats"]["pose_heads"]},
+                            jnp.asarray(fmap), train=False)
+    with torch.inference_mode():
+        hm_t, z_t = tm.pose_heads(torch.from_numpy(fmap.transpose(0, 3, 1, 2).copy()))
+    np.testing.assert_allclose(hm_t.numpy(), np.asarray(hm_j).transpose(0, 3, 1, 2),
+                               atol=1e-5, rtol=0)
+    np.testing.assert_allclose(z_t.numpy(), np.asarray(z_j), atol=1e-5, rtol=0)
+
+
+def test_heads_refuse_a_plan_longer_than_built(models):
+    """An 8x8 grid needs three upsampling stages; the heads hold two (as the
+    JAX parameters do), so the call raises."""
+    _, _, tm = models
+    with pytest.raises(ValueError, match="needs 3 upsampling stages"):
+        tm.pose_heads(torch.zeros(1, 64, 8, 8))
 
 
 @pytest.mark.parametrize("mode", ["bicubic", "nearest"])

@@ -24,6 +24,7 @@ versions on the card by tests/test_torch_cuda.py.
 """
 
 import dataclasses
+import importlib
 
 import jax
 import jax.numpy as jnp
@@ -496,16 +497,19 @@ def test_backbone_lora_grads_match_jax(jax_pose, batch, route, monkeypatch):
 
 
 def _two_steps_match_jax(module, variables, config, batch, step2_rtol=1e-5,
-                         above=_ABOVE_GATE_FLIPS):
+                         above=_ABOVE_GATE_FLIPS, unreached=()):
     """Two steps of the port's ``prepare_batch(make_train_step)`` against JAX
     ``_prepare_batch(make_train_step)`` with device targets, from the same
     weights: losses, step-1 gradients of every trainable leaf, parameters
     after AdamW and BatchNorm statistics after each step. Step-2 losses are
     held to ``step2_rtol``, gradients of the leaves named by ``above`` to
-    1e-4 and the others to 1e-2. Returns the port's step-1 gradients."""
+    1e-4 and the others to 1e-2. Modules under the ``unreached`` prefixes do
+    not run at this input size: their BatchNorms count no batch. Returns the
+    port's step-1 gradients."""
+    targets = (batch["image"].shape[-1], 48)
     # --- JAX
     js, tx, part = jstate.create_train_state(variables, config, "dinov2", weight_decay=WD)
-    jfn = jax.jit(jstep._prepare_batch(jstep.make_train_step(module, tx, part), (224, 48)))
+    jfn = jax.jit(jstep._prepare_batch(jstep.make_train_step(module, tx, part), targets))
     jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
     with jdispatch.local():
         js1, jstats1 = jfn(js, jbatch, jnp.float32(LR), jax.random.key(0))
@@ -514,7 +518,7 @@ def _two_steps_match_jax(module, variables, config, batch, step2_rtol=1e-5,
     # --- port
     tm = _port_model(variables, config)
     ts, opt, tpart = tstate.create_train_state(tm, config, weight_decay=WD)
-    tfn = tstep.prepare_batch(tstep.make_train_step(tm, opt, tpart), (224, 48))
+    tfn = tstep.prepare_batch(tstep.make_train_step(tm, opt, tpart), targets)
     tbatch = {k: _t(v) for k, v in batch.items()}
     before = {k: v.clone() for k, v in tm.state_dict().items()}
     tblock.reset_launches()
@@ -546,7 +550,7 @@ def _two_steps_match_jax(module, variables, config, batch, step2_rtol=1e-5,
         jsd = state_dict_from_jax({"params": jst.params, "batch_stats": jst.batch_stats}, tm)
         for k, v in tsd.items():
             if k.endswith("num_batches_tracked"):
-                assert v.item() == k_step
+                assert v.item() == (0 if k.startswith(unreached) else k_step), k
             elif k.endswith(("running_mean", "running_var")):
                 np.testing.assert_allclose(v.numpy(), jsd[k].numpy(), rtol=1e-5,
                                            atol=1e-7 if k_step == 1 else 1e-4, err_msg=k)
@@ -633,6 +637,40 @@ def test_unfreeze_train_step_matches_jax(jax_plain, batch, route, unfreeze, monk
     blocks = [n for n in grads if n.startswith("backbone.")]
     assert len(blocks) == _BLOCK_LEAVES * unfreeze
     assert {int(n.split(".")[3]) for n in blocks} == set(range(2 - unfreeze, 2))
+    assert all(np.abs(grads[n]).max() > 0 for n in blocks)
+
+
+def test_unfreeze_train_step_at_504_matches_jax(jax_plain, monkeypatch):
+    """Two unfreeze-last-1 train steps at 504² (S = 1297) against JAX's on
+    its own route there: block_math around ``flash_attention`` in both
+    layers (``DINO_POSE_TPU_BLOCK=unfused``, ``DINO_POSE_TPU_ATTENTION=
+    pallas``), so the trainable layer's backward runs _flash_bwd_kernel
+    (interpret mode). Held as the 224² unfreeze step. The heads take their
+    one-stage plan at the 36x36 grid: their second stage gets a zero
+    gradient, as in JAX, and AdamW only decays it."""
+    monkeypatch.setenv("DINO_POSE_TPU_BLOCK", "unfused")
+    monkeypatch.setenv("DINO_POSE_TPU_ATTENTION", "pallas")
+    monkeypatch.setattr(jlayers, "Dropout", _NoDropout)
+    jattention = importlib.import_module("dino_pose_tpu.ops.attention")
+    calls = {"_flash_kernel": 0, "_flash_bwd_kernel": 0}
+    for name in calls:
+        orig = getattr(jattention, name)
+        monkeypatch.setattr(jattention, name, lambda *a, _n=name, _o=orig, **k:
+                            calls.__setitem__(_n, calls[_n] + 1) or _o(*a, **k))
+    rng = np.random.default_rng(13)
+    batch = {"image": rng.standard_normal((2, 3, 504, 504)).astype(np.float32),
+             "2d_keypoints": _keypoints(rng, 2, 24, (504, 504)),
+             "z_coords": (rng.standard_normal((2, 24)) * 10).astype(np.float32)}
+    module = JaxPoseModule(vit=_unfreeze_vit(1), num_keypoints=24, heatmap_size=48)
+    unreached = "pose_heads.heatmap_head.upsampling.1."
+    grads = _two_steps_match_jax(module, jax_plain, _unfreeze_config(1), batch,
+                                 step2_rtol=1e-4, above=_ABOVE_LAST_RELU,
+                                 unreached=(unreached,))
+    assert all(not grads[n].any() for n in grads if n.startswith(unreached))
+    assert calls["_flash_kernel"] >= 2 and calls["_flash_bwd_kernel"] >= 1, calls
+    blocks = [n for n in grads if n.startswith("backbone.")]
+    assert len(blocks) == _BLOCK_LEAVES and all(n.startswith("backbone.encoder.layer.1.")
+                                                for n in blocks)
     assert all(np.abs(grads[n]).max() > 0 for n in blocks)
 
 
