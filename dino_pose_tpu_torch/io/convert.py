@@ -4,9 +4,11 @@ The input is ``{"params": ..., "batch_stats": ...}`` as nested dicts of numpy
 arrays (what ``jax.device_get`` of the JAX model's variables gives; no JAX is
 needed here). The output carries the reference torch key names
 (``backbone.encoder.layer.11.attention.original_attention.attention.query.weight``,
-``pose_heads.heatmap_head.feature_refine.0.weight``, ...), so
-``DinoPoseModule.load_state_dict(..., strict=True)`` takes it, and
-reference-schema ``.pth`` files load the same way.
+``pose_heads.heatmap_head.feature_refine.0.weight``, ...; for FastViT
+timm's ``backbone.stem.0.rbr_conv.0.conv.weight``, ..., heads under
+``backbone.head.``), so ``DinoPoseModule`` and ``FastVitPoseModule`` take it
+with ``load_state_dict(..., strict=True)``, and reference-schema ``.pth``
+files load the same way.
 
 Layout transforms per parameter kind (JAX layout -> torch layout):
 
@@ -16,6 +18,7 @@ kind        JAX layout                   torch layout
 linear      (in, out)                    (out, in)
 conv        (kh, kw, in/g, out) [HWIO]   (out, in/g, kh, kw)
 convT       (kh, kw, in, out), flipped   (in, out, kh, kw), unflipped
+scale2d     (C,)                         (C, 1, 1) (FastViT LayerScale)
 none        identical                    identical
 ==========  ===========================  =============================
 
@@ -44,7 +47,7 @@ class Rule:
 
     jax_path: tuple[str, ...]
     torch_key: str
-    kind: str = "none"  # linear | conv | convT | none
+    kind: str = "none"  # linear | conv | convT | scale2d | none
 
 
 def _to_torch(w: np.ndarray, kind: str) -> np.ndarray:
@@ -54,6 +57,8 @@ def _to_torch(w: np.ndarray, kind: str) -> np.ndarray:
         return np.ascontiguousarray(np.transpose(w, (3, 2, 0, 1)))
     if kind == "convT":
         return np.ascontiguousarray(np.transpose(w[::-1, ::-1], (2, 3, 0, 1)))
+    if kind == "scale2d":
+        return np.asarray(w).reshape(-1, 1, 1)
     return np.asarray(w)
 
 
@@ -117,10 +122,12 @@ def _conv_bn_rules(jax_base, torch_conv, torch_bn, *, deconv=False) -> list[Rule
     ]
 
 
-def spatial_heads_rules(num_up_stages: int = 2, z_hidden_count: int = 3) -> list[Rule]:
-    """``SpatialAwarePoseHeads`` vs the reference Sequential index naming."""
+def spatial_heads_rules(num_up_stages: int = 2, z_hidden_count: int = 3,
+                        torch_prefix: str = "pose_heads.") -> list[Rule]:
+    """``SpatialAwarePoseHeads`` vs the reference Sequential index naming;
+    the torch keys under ``torch_prefix`` (FastViT: ``backbone.head.``)."""
     hm = ("pose_heads", "heatmap_head")
-    thm = "pose_heads.heatmap_head."
+    thm = f"{torch_prefix}heatmap_head."
     hg = hm + ("hourglass",)
     thg = f"{thm}feature_refine.3."
     rules: list[Rule] = []
@@ -152,7 +159,7 @@ def spatial_heads_rules(num_up_stages: int = 2, z_hidden_count: int = 3) -> list
         Rule(("params",) + hm + ("pred_out", "bias"), f"{thm}prediction.3.bias"),
     ]
     z = ("pose_heads", "z_head")
-    tz = "pose_heads.z_head.mlp."
+    tz = f"{torch_prefix}z_head.mlp."
     for j in range(z_hidden_count):
         rules += [
             Rule(("params",) + z + (f"fc{j}", "kernel"), f"{tz}{3 * j}.weight", "linear"),
@@ -176,6 +183,125 @@ def dinov2_pose_rules(
     return rules + spatial_heads_rules(num_up_stages)
 
 
+def _split_conv_bn_rules(path: tuple[str, ...], jconv: str, jbn: str, tconv: str,
+                         tbn: str) -> list[Rule]:
+    """A (conv, BN) pair whose JAX variables are siblings (``<name>/kernel``
+    beside ``<name>_bn``) vs torch ``<tconv>.weight`` / ``<tbn>.*``."""
+    return [
+        Rule(("params",) + path + (jconv, "kernel"), f"{tconv}.weight", "conv"),
+        Rule(("params",) + path + (jbn, "scale"), f"{tbn}.weight"),
+        Rule(("params",) + path + (jbn, "bias"), f"{tbn}.bias"),
+        Rule(("batch_stats",) + path + (jbn, "mean"), f"{tbn}.running_mean"),
+        Rule(("batch_stats",) + path + (jbn, "var"), f"{tbn}.running_var"),
+    ]
+
+
+def _bn_module_rules(path: tuple[str, ...], tbn: str) -> list[Rule]:
+    """A standalone torch BatchNorm2d."""
+    return [
+        Rule(("params",) + path + ("scale",), f"{tbn}.weight"),
+        Rule(("params",) + path + ("bias",), f"{tbn}.bias"),
+        Rule(("batch_stats",) + path + ("mean",), f"{tbn}.running_mean"),
+        Rule(("batch_stats",) + path + ("var",), f"{tbn}.running_var"),
+    ]
+
+
+def mobileone_rules(path: tuple[str, ...], tp: str, *, kernel: int = 3, identity: bool = True,
+                    num_branches: int = 1, use_se: bool = False) -> list[Rule]:
+    """MobileOneBlock: JAX conv{b}/conv{b}_bn/scale/scale_bn/skip_bn/se vs
+    torch rbr_conv.{b}/rbr_scale/rbr_skip/se."""
+    rules: list[Rule] = []
+    for b in range(num_branches):
+        rules += _split_conv_bn_rules(path, f"conv{b}", f"conv{b}_bn",
+                                      f"{tp}rbr_conv.{b}.conv", f"{tp}rbr_conv.{b}.bn")
+    if kernel > 1:
+        rules += _split_conv_bn_rules(path, "scale", "scale_bn",
+                                      f"{tp}rbr_scale.conv", f"{tp}rbr_scale.bn")
+    if identity:
+        rules += _bn_module_rules(path + ("skip_bn",), f"{tp}rbr_skip")
+    if use_se:
+        for nm in ("reduce", "expand"):
+            rules += [
+                Rule(("params",) + path + ("se", nm, "kernel"), f"{tp}se.{nm}.weight", "conv"),
+                Rule(("params",) + path + ("se", nm, "bias"), f"{tp}se.{nm}.bias"),
+            ]
+    return rules
+
+
+def fastvit_backbone_rules(cfg) -> list[Rule]:
+    """The FastViT backbone vs timm's keys under ``backbone.``: ``stem.{i}``,
+    ``stages.{i}.{downsample.proj.{0,1},pos_emb,blocks.{j}}``,
+    ``final_conv``. A RepMixer block's ``layer_scale_2`` is torch's
+    ``layer_scale``, an attention block's ``layer_scale_2``; LoRA moves fc1
+    and fc2 under ``original_conv``."""
+    base, p = ("backbone",), "backbone."
+    lora = cfg.lora_rank > 0
+    rules = mobileone_rules(base + ("stem0",), f"{p}stem.0.", identity=False)
+    rules += mobileone_rules(base + ("stem1",), f"{p}stem.1.", identity=False)
+    rules += mobileone_rules(base + ("stem2",), f"{p}stem.2.", kernel=1)
+    for i in range(len(cfg.embed_dims)):
+        sp = f"{p}stages.{i}."
+        if i > 0:
+            for jname, tname in (("large", "lkb_origin"), ("small", "small_conv")):
+                rules += _split_conv_bn_rules(
+                    base + (f"downsample{i}", "proj"), jname, f"{jname}_bn",
+                    f"{sp}downsample.proj.0.{tname}.conv", f"{sp}downsample.proj.0.{tname}.bn")
+            rules += mobileone_rules(base + (f"downsample{i}", "mix"), f"{sp}downsample.proj.1.",
+                                     kernel=1)
+        if cfg.pos_embs[i]:
+            rules += [
+                Rule(("params", *base, f"pos_emb{i}", "pe", "kernel"), f"{sp}pos_emb.pe.weight",
+                     "conv"),
+                Rule(("params", *base, f"pos_emb{i}", "pe", "bias"), f"{sp}pos_emb.pe.bias"),
+            ]
+        for j in range(cfg.depths[i]):
+            bp = base + (f"stage{i}_block{j}",)
+            tb = f"{sp}blocks.{j}."
+            repmixer = cfg.token_mixers[i] == "repmixer"
+            if repmixer:
+                rules += mobileone_rules(bp + ("token_mixer", "mixer"), f"{tb}token_mixer.mixer.")
+                rules += _bn_module_rules(bp + ("token_mixer", "norm", "skip_bn"),
+                                          f"{tb}token_mixer.norm.rbr_skip")
+                rules += [Rule(("params",) + bp + ("token_mixer", "layer_scale"),
+                               f"{tb}token_mixer.layer_scale", "scale2d")]
+            else:
+                rules += _bn_module_rules(bp + ("attn", "norm"), f"{tb}norm")
+                rules += [
+                    Rule(("params",) + bp + ("attn", "qkv", "kernel"),
+                         f"{tb}token_mixer.qkv.weight", "linear"),
+                    Rule(("params",) + bp + ("attn", "proj", "kernel"),
+                         f"{tb}token_mixer.proj.weight", "linear"),
+                    Rule(("params",) + bp + ("attn", "proj", "bias"), f"{tb}token_mixer.proj.bias"),
+                    Rule(("params",) + bp + ("layer_scale_1",), f"{tb}layer_scale_1", "scale2d"),
+                ]
+            rules += _split_conv_bn_rules(bp + ("mlp",), "conv", "conv_bn",
+                                          f"{tb}mlp.conv.conv", f"{tb}mlp.conv.bn")
+            for fc in ("fc1", "fc2"):
+                tfc = f"{tb}mlp.{fc}.original_conv." if lora else f"{tb}mlp.{fc}."
+                rules += [
+                    Rule(("params",) + bp + ("mlp", fc, "kernel"), f"{tfc}weight", "conv"),
+                    Rule(("params",) + bp + ("mlp", fc, "bias"), f"{tfc}bias"),
+                ]
+                if lora:
+                    rules += [
+                        Rule(("params",) + bp + ("mlp", f"{fc}_lora", ab, "kernel"),
+                             f"{tb}mlp.{fc}.{ab}.weight", "conv")
+                        for ab in ("lora_A", "lora_B")
+                    ]
+            rules += [Rule(("params",) + bp + ("layer_scale_2",),
+                           f"{tb}layer_scale" if repmixer else f"{tb}layer_scale_2", "scale2d")]
+    rules += mobileone_rules(base + ("final_conv",), f"{p}final_conv.", identity=False,
+                             use_se=cfg.final_se)
+    return rules
+
+
+def fastvit_pose_rules(cfg, num_up_stages: int = 2) -> list[Rule]:
+    """Full variable-tree mapping for ``FastVitPoseModule``: the heads at
+    ``backbone.head.*`` (the reference replaces timm's head attribute)."""
+    return fastvit_backbone_rules(cfg) + spatial_heads_rules(
+        num_up_stages, torch_prefix="backbone.head.")
+
+
 def _flatten(tree: Mapping, prefix: tuple[str, ...] = ()) -> dict[tuple[str, ...], np.ndarray]:
     flat = {}
     for k, v in tree.items():
@@ -187,12 +313,15 @@ def _flatten(tree: Mapping, prefix: tuple[str, ...] = ()) -> dict[tuple[str, ...
 
 
 def state_dict_from_jax(variables: Mapping, model) -> dict[str, torch.Tensor]:
-    """Render the JAX variables of a dinov2 pose model into the port's
-    ``state_dict`` for ``model`` (a ``DinoPoseModule``). Every key of the
-    model is produced, BatchNorm ``num_batches_tracked`` as 0."""
-    vit = model.vit
-    num_up = len(model.pose_heads.heatmap_head.upsampling)
-    rules = dinov2_pose_rules(vit.num_layers, vit.lora_layers, num_up)
+    """Render the JAX variables of a pose model into the port's
+    ``state_dict`` for ``model`` (a ``DinoPoseModule`` or a
+    ``FastVitPoseModule``). Every key of the model is produced, BatchNorm
+    ``num_batches_tracked`` as 0."""
+    if hasattr(model, "vit"):
+        num_up = len(model.pose_heads.heatmap_head.upsampling)
+        rules = dinov2_pose_rules(model.vit.num_layers, model.vit.lora_layers, num_up)
+    else:
+        rules = fastvit_pose_rules(model.cfg, len(model.backbone.head.heatmap_head.upsampling))
     flat = _flatten(variables)
     out: dict[str, torch.Tensor] = {}
     for rule in rules:

@@ -117,13 +117,15 @@ class SpatialAwareHeatmapHead(nn.Module):
     bilinear resize to ``heatmap_size``.
 
     The upsampling stages are built for ``spatial_input_size`` (the grid the
-    JAX registry initialises the model at, 224 // 14 = 16), so the parameter
-    tree and the reference key set are those of that grid. The plan that
-    runs is taken from the feature map of each call, as the JAX heads take
-    ``spatial_input_size=hp`` at call time: the first ``len(plan)`` stages
-    run with the plan's strides (a 36x36 grid at 504² runs ``upsampling.0``
-    at stride 1 alone). A plan with more stages than were built raises, as
-    the JAX apply would for want of their parameters."""
+    JAX registry initialises the model at: 224 // 14 = 16 for dinov2, the
+    reference's fixed 14 for FastViT), so the parameter tree and the
+    reference key set are those of that size. The plan that runs is taken
+    from the ``spatial_input_size`` of each call, as the JAX heads take it
+    at call time (dinov2 passes its token grid, FastViT 14 whatever its
+    8x8 grid; left out, the feature map's grid): the first ``len(plan)``
+    stages run with the plan's strides (a 36x36 grid at 504² runs
+    ``upsampling.0`` at stride 1 alone). A plan with more stages than were
+    built raises, as the JAX apply would for want of their parameters."""
 
     def __init__(self, in_channels: int, num_keypoints: int = 24,
                  heatmap_size: int = 48, spatial_input_size: int = 16):
@@ -144,13 +146,13 @@ class SpatialAwareHeatmapHead(nn.Module):
             nn.Conv2d(64, num_keypoints, 1),
         )
 
-    def forward(self, fmap: torch.Tensor) -> torch.Tensor:
+    def forward(self, fmap: torch.Tensor, spatial_input_size: int | None = None) -> torch.Tensor:
         x = run(self.feature_refine, fmap)
-        tracker = fmap.shape[2]
+        tracker = fmap.shape[2] if spatial_input_size is None else spatial_input_size
         plan = upsampling_plan(tracker, self.heatmap_size)
         if len(plan) > len(self.upsampling):
             raise ValueError(
-                f"a {tracker}x{fmap.shape[3]} feature grid needs {len(plan)} upsampling "
+                f"a {tracker}x{tracker} spatial input size needs {len(plan)} upsampling "
                 f"stages to reach {self.heatmap_size}, and the head was built with "
                 f"{len(self.upsampling)}"
             )
@@ -194,8 +196,8 @@ class SpatialAwarePoseHeads(nn.Module):
         )
         self.z_head = ZCoordinateHead(in_channels, num_keypoints, z_hidden_dims, z_dropout_rate)
 
-    def forward(self, fmap: torch.Tensor, generator: torch.Generator | None = None
-                ) -> tuple[torch.Tensor, torch.Tensor]:
-        heatmaps = self.heatmap_head(fmap)
+    def forward(self, fmap: torch.Tensor, generator: torch.Generator | None = None,
+                spatial_input_size: int | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+        heatmaps = self.heatmap_head(fmap, spatial_input_size)
         z = self.z_head(fmap.mean(dim=(2, 3)), generator)
         return heatmaps, z

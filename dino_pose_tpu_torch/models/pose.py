@@ -43,4 +43,4 @@ class DinoPoseModule(nn.Module):
         tokens, (hp, wp) = self.backbone(pixels, kernels=kernels, generator=generator)
         b, _, d = tokens.shape
         fmap = tokens[:, 1:, :].transpose(1, 2).reshape(b, d, hp, wp)
-        return self.pose_heads(fmap, generator)
+        return self.pose_heads(fmap, generator, spatial_input_size=hp)

@@ -1,11 +1,11 @@
 """Backbone registry and model factory (counterpart of
 dino_pose_tpu/models/registry.py).
 
-Only the dinov2 family is ported; FastViT names are registered (so that
-names resolve as in the JAX package) but raise ``NotImplementedError``.
-Weights are made from a seed with an explicit ``torch.Generator``; trained
-weights come in through ``load_state_dict`` (reference schema) or
-``io/convert.py`` (the JAX package's variables).
+Both families build: dinov2 (``models/pose.py``) and FastViT
+(``models/fastvit_pose.py``, every preset, eval only so far). Weights are
+made from a seed with an explicit ``torch.Generator``; trained weights come
+in through ``load_state_dict`` (reference schema) or ``io/convert.py`` (the
+JAX package's variables).
 """
 
 from __future__ import annotations
@@ -18,6 +18,8 @@ import torch
 from torch import nn
 
 from dino_pose_tpu_torch.core.device import resolve_device
+from dino_pose_tpu_torch.models.fastvit import FASTVIT_PRESETS, ConvLoRA, FastViTConfig
+from dino_pose_tpu_torch.models.fastvit_pose import FastVitPoseModule
 from dino_pose_tpu_torch.models.pose import DinoPoseModule
 from dino_pose_tpu_torch.models.vit import VIT_PRESETS, LoRAAdapter, ViTConfig, _LayerScale
 from dino_pose_tpu_torch.train.partition import apply_partition
@@ -81,30 +83,46 @@ def vit_config_for(name: str, config: dict) -> ViTConfig:
     )
 
 
+def fastvit_config_for(variant: str, config: dict) -> FastViTConfig:
+    """The FastViTConfig a fastvit registry entry builds with ``config``
+    (JAX ``create_fastvit_pose``): LoRA of ``lora_rank`` (8 by default) on
+    every ConvFFN when ``use_lora``."""
+    use_lora = bool(config.get("use_lora", False))
+    return dataclasses.replace(
+        FASTVIT_PRESETS[variant],
+        lora_rank=int(config.get("lora_rank", 8)) if use_lora else 0,
+        lora_alpha=float(config.get("lora_alpha", 16)),
+        lora_dropout=float(config.get("lora_dropout", 0.1)),
+    )
+
+
 def create_model_from_config(
     config_model: dict[str, Any],
     *,
     seed: int = 0,
     device: str | torch.device | None = None,
-) -> DinoPoseModule:
+) -> DinoPoseModule | FastVitPoseModule:
     """Build a pose model from a ``config_model`` dict, in eval mode, with
     weights drawn from ``seed`` and ``requires_grad`` set by
     ``train.partition``: the backbone frozen outside the LoRA adapters or the
-    last ``unfreeze_last_n_layers`` blocks. ``device`` defaults to ``cuda``."""
+    last ``unfreeze_last_n_layers`` blocks (dinov2 only). ``device``
+    defaults to ``cuda``. ``model.input_size`` is the family's input
+    resolution: 224 for dinov2, ``input_size`` for FastViT (timm's 256;
+    128 for ``test/fastvit-tiny``)."""
     name = resolve_model_name(config_model["model_name"])
     if name not in BACKBONE_REGISTRY:
         raise ValueError(f"Unsupported backbone: {name}")
     entry = BACKBONE_REGISTRY[name]
-    if entry.family != "dinov2":
-        raise NotImplementedError(f"{name} ({entry.family}) is not yet ported")
     dev = resolve_device(device)
     merged = {**entry.default_config, **config_model, "model_name": name}
+    num_keypoints = int(merged.get("num_keypoints", 24))
+    heatmap_size = int(merged.get("output_heatmap_size", 48))
     with torch.device("meta"):
-        model = DinoPoseModule(
-            vit_config_for(name, merged),
-            num_keypoints=int(merged.get("num_keypoints", 24)),
-            heatmap_size=int(merged.get("output_heatmap_size", 48)),
-        )
+        if entry.family == "dinov2":
+            model = DinoPoseModule(vit_config_for(name, merged), num_keypoints, heatmap_size)
+        else:
+            model = FastVitPoseModule(fastvit_config_for(entry.variant, merged),
+                                      num_keypoints, heatmap_size)
     model = model.to_empty(device="cpu")
     init_weights(model, torch.Generator().manual_seed(seed))
     # The reference freezes the backbone when it builds the model; the heads,
@@ -113,14 +131,17 @@ def create_model_from_config(
     apply_partition(model, merged)
     model.model_name = name
     model.config_model = merged
+    model.input_size = 224 if entry.family == "dinov2" else int(merged.get("input_size", 256))
     return model.to(dev).eval()
 
 
 def init_weights(model: nn.Module, gen: torch.Generator) -> None:
     """The JAX package's initialisers, drawn from ``gen``: torch-default
-    U(+-1/sqrt(fan_in)) for Linear/Conv/ConvTranspose, N(0, 1) for the cls
-    and position tokens, LoRA A U(+-1/sqrt(r)) and B = 0, LayerScale at its
-    configured init, norms and BatchNorm at identity."""
+    U(+-1/sqrt(fan_in)) for Linear/Conv/ConvTranspose (FastViT's ConvLoRA A
+    included), norms and BatchNorm at identity; for dinov2 N(0, 1) for the
+    cls and position tokens, LoRA A U(+-1/sqrt(r)) and B = 0, LayerScale at
+    its configured init; for FastViT ConvLoRA B = 0 and every LayerScale at
+    ``layer_scale_init``."""
 
     def uniform_(t: torch.Tensor, bound: float) -> None:
         t.copy_(torch.rand(t.shape, generator=gen) * (2 * bound) - bound)
@@ -149,6 +170,14 @@ def init_weights(model: nn.Module, gen: torch.Generator) -> None:
                 m.lora_B.zero_()
             elif isinstance(m, _LayerScale):
                 m.lambda1.fill_(model.vit.layerscale_init)
+        if isinstance(model, FastVitPoseModule):
+            for m in model.modules():
+                if isinstance(m, ConvLoRA):
+                    m.lora_B.weight.zero_()
+            for name, p in model.named_parameters():
+                if name.rsplit(".", 1)[-1] in ("layer_scale", "layer_scale_1", "layer_scale_2"):
+                    p.fill_(model.cfg.layer_scale_init)
+            return
         emb = model.backbone.embeddings
         for t in (emb.cls_token, emb.position_embeddings):
             t.copy_(torch.randn(t.shape, generator=gen))

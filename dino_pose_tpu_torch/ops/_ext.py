@@ -8,9 +8,9 @@ an edited source or header is rebuilt and a stale library is never loaded.
 Nothing here runs when the package is imported: the CPU tests import every
 module on a machine without ``nvcc``.
 
-``LAUNCHES`` counts the launches of each wrapper's kernels (``ops/block.py``
-and ``ops/attention.py`` add to it), so that a run can show that its path
-went through them.
+``LAUNCHES`` counts the launches of each wrapper's kernels (``ops/block.py``,
+``ops/attention.py`` and ``ops/convffn.py`` add to it), so that a run can
+show that its path went through them.
 """
 
 from __future__ import annotations
@@ -27,7 +27,7 @@ import time
 
 _CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 _BUILD = pathlib.Path(__file__).resolve().parent.parent / "build"
-_SOURCES = ("block_kernels.cu", "flash_kernels.cu")
+_SOURCES = ("block_kernels.cu", "flash_kernels.cu", "convffn_kernels.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-lineinfo",
@@ -40,6 +40,8 @@ LAUNCHES: dict[str, int] = {
     # a backward pair (flash_bwd_dq_kernel + flash_bwd_dkv_kernel), counted
     # inside the chains above and by the standalone ``flash_attention``.
     "flash_fwd": 0, "flash_bwd": 0,
+    # FastViT's ConvFFN past its depthwise conv (convffn_fwd_kernel).
+    "fused_convffn": 0,
 }
 
 _LIB: ctypes.CDLL | None = None
@@ -60,6 +62,8 @@ _SIGNATURES = {
     "dp_fused_attn_bwd": ([_P] * 26 + [_I] * 6 + [_F, _P], _I),
     "dp_flash_fwd": ([_P] * 5 + [_I] * 4 + [_F, _P], _I),
     "dp_flash_bwd": ([_P] * 8 + [_I] * 4 + [_F, _P], _I),
+    "dp_convffn_smem_bytes": ([_I], ctypes.c_longlong),
+    "dp_fused_convffn": ([_P] * 14 + [_I] * 5 + [_F, _P], _I),
 }
 
 

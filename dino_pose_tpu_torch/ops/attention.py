@@ -19,6 +19,9 @@ the same function, so that both paths keep JAX's f32 intermediates.
 The same kernels are the attention step of the block chains
 (``ops/block.py``) wherever the head's K and V do not fit shared memory
 (S > ~320 at dh = 64): at 504² input all twelve dinov2 layers take them.
+FastViT's SpatialAttention (``models/fastvit.py``; the JAX package's
+fastvit.py:850) calls :func:`attention`: in fastvit_sa12 at 256², 16 heads
+of 32 over an 8x8 grid, S = 64, in each of its two attention blocks.
 """
 
 from __future__ import annotations
@@ -26,16 +29,6 @@ from __future__ import annotations
 import torch
 
 from dino_pose_tpu_torch.ops import _ext
-
-# The JAX package's sequence length from which its dispatcher takes the
-# flash kernel on a TPU (attention.py:263; XLA's unfused attention below).
-# On the card ``attention`` takes the streamed kernel at every S: it has no
-# (S, S) score tensor in device memory to save at any length. Nothing in the
-# port calls ``attention`` yet: the block chains pick their attention kernel
-# by shape. Its first caller is FastViT's SpatialAttention (the JAX
-# package's fastvit.py:850), in the FastViT slice.
-FLASH_MIN_SEQ = 512
-
 
 def plain_attention(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float
@@ -166,6 +159,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float) -> torch.Tensor:
-    """The JAX dispatcher's counterpart (attention.py:266): the streamed
-    kernels on the card at every S, the plain versions on the CPU."""
+    """The JAX dispatcher's counterpart (attention.py:266), called by
+    FastViT's SpatialAttention: the streamed kernels on the card at every S
+    (where the JAX package takes its flash kernel from S = 512 on a TPU and
+    XLA's unfused attention below; the kernel keeps no (S, S) score tensor
+    in device memory at any length), the plain versions on the CPU."""
     return flash_attention(q, k, v, scale)

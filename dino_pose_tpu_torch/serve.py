@@ -27,9 +27,9 @@ def make_predictor(
     ``predict(images) -> (keypoints[B,K,2], z[B,K], heatmaps[B,K,h,w])`` as
     host float32 numpy arrays. Pixels run in the device's compute dtype
     (bf16 on the card, f32 on the CPU). Keypoints are decoded into the width and
-    height of the pixels the model was given (224² for PIL images, which the
-    preprocessor crops to that size), as the JAX bench decodes into its
-    image size."""
+    height of the pixels the model was given (for PIL images the crop of the
+    model's preprocessor: 224² for dinov2, 256² for FastViT), as the JAX
+    bench decodes into its image size."""
     dev = resolve_device(device)
     model = model.to(dev).eval()
     dtype = policy_for_device(dev).compute_dtype

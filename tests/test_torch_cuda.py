@@ -16,7 +16,8 @@ output, which adds no residual) is held to chip_smoke.py's attention
 tolerance: 4e-3 + 2e-2*|ref| elementwise, since its values are ~0.04 at
 long S, and in relative Frobenius norm 5e-4 (flash) and 3e-3
 (fused_attn_part, two GEMMs more), about three and two times the largest
-an H100 measured.
+an H100 measured. ``fused_convffn`` (FastViT's ConvFFN) is held to 3e-2
+abs/rel at every fastvit_t8 and fastvit_sa12 stage shape.
 """
 
 import copy
@@ -26,7 +27,7 @@ import pytest
 import torch
 
 from dino_pose_tpu_torch.models import registry
-from dino_pose_tpu_torch.ops import attention, block
+from dino_pose_tpu_torch.ops import attention, block, convffn
 from dino_pose_tpu_torch.train.state import create_train_state
 from dino_pose_tpu_torch.train.step import make_train_step, prepare_batch
 
@@ -334,8 +335,10 @@ def _assert_attention_close(got, want, fro_tol):
 
 # (B, H, S, dh): dinov2-small at 504² (S = 1297, ragged: 20*64 + 17 rows) at
 # batch 1 and 4, head width 32, S = 577, and a single short tile.
+# fastvit_sa12's SpatialAttention at 256² (16 heads of 32 over an 8x8 grid:
+# one query tile, no ragged edge) at batch 1 and 8.
 FLASH_CASES = [(1, 6, 1297, 64), (4, 6, 1297, 64), (2, 2, 1297, 32), (2, 6, 577, 64),
-               (1, 2, 100, 32)]
+               (1, 2, 100, 32), (1, 16, 64, 32), (8, 16, 64, 32)]
 
 
 @pytest.mark.cuda
@@ -454,3 +457,112 @@ def test_attn_bwd_streams_where_only_the_resident_forward_fits(cuda_device):
     torch.testing.assert_close(got[0].float(), want[0].float(), atol=3e-2, rtol=3e-2)
     for g, w in zip(got[1:], want[1:]):
         assert (g - w).abs().max().item() <= 2e-3 * w.abs().max().item()
+
+
+# (C, H, S) of each stage at 256² input: fastvit_t8 (mlp ratio 3), then
+# fastvit_sa12 (mlp ratio 4); S = the stage's grid, 64x64 down to 8x8.
+CONVFFN_STAGES = [(48, 144, 4096), (96, 288, 1024), (192, 576, 256), (384, 1152, 64),
+                  (64, 256, 4096), (128, 512, 1024), (256, 1024, 256), (512, 2048, 64)]
+
+
+def _convffn_inputs(b, s, c, h, r, device, seed=0):
+    """bf16 y and matrices, f32 vectors; masks of zeros and 1/keep (rank
+    r), or rank 0 as rank-1 zero adapters with ones masks."""
+    rng = np.random.default_rng(seed)
+
+    def n(*shape, std=1.0):
+        return torch.from_numpy((rng.standard_normal(shape) * std).astype(np.float32))
+
+    rank = max(r, 1)
+    if r:
+        lora = dict(a1=n(c, r, std=c**-0.5), b1l=n(r, h, std=0.1),
+                    a2=n(h, r, std=h**-0.5), b2l=n(r, c, std=0.1))
+        m1, m2 = (torch.from_numpy((rng.random((b, r)) > 0.3).astype(np.float32) / 0.7)
+                  for _ in range(2))
+    else:
+        lora = dict(a1=torch.zeros(c, 1), b1l=torch.zeros(1, h), a2=torch.zeros(h, 1),
+                    b2l=torch.zeros(1, c))
+        m1 = m2 = torch.ones(b, rank)
+    p = dict(inv=torch.from_numpy(rng.uniform(0.5, 1.5, c).astype(np.float32)),
+             shift=n(c, std=0.1), w1=n(c, h, std=c**-0.5), b1=n(h, std=0.1),
+             w2=n(h, c, std=h**-0.5), b2=n(c, std=0.1), **lora, m1=m1, m2=m2)
+    p = convffn.ConvFFNParams(**{
+        k: v.to(device, torch.bfloat16 if v.dim() == 2 and k not in ("m1", "m2") else torch.float32)
+        for k, v in p.items()})
+    return n(b, s, c).to(device, torch.bfloat16), p
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch", [1, 8])
+@pytest.mark.parametrize("stage", CONVFFN_STAGES, ids=lambda t: f"C{t[0]}-H{t[1]}-S{t[2]}")
+def test_convffn_matches_plain(cuda_device, stage, batch):
+    c, h, s = stage
+    y, p = _convffn_inputs(batch, s, c, h, 8, cuda_device, seed=c + batch)
+    block.reset_launches()
+    got = convffn.fused_convffn(y, p, 2.0).float()
+    want = convffn.convffn_math(y, p, 2.0).float()
+    torch.cuda.synchronize()
+    assert block.LAUNCHES["fused_convffn"] == 1
+    torch.testing.assert_close(got, want, atol=3e-2, rtol=3e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rank", [8, 0])
+@pytest.mark.parametrize("batch, seq", [(3, 50), (1, 17)])
+def test_convffn_ragged_rows_and_ranks(cuda_device, batch, seq, rank):
+    """Row counts that are not a multiple of the 32-row tile (150, 17), and
+    rank 0 (rank-1 zeros, s = 1) beside rank 8 with real masks, at t8's
+    stage-0 widths (C = 48, H = 144: not multiples of 32 or 64)."""
+    y, p = _convffn_inputs(batch, seq, 48, 144, rank, cuda_device, seed=seq + rank)
+    s_lora = 2.0 if rank else 1.0
+    got = convffn.fused_convffn(y, p, s_lora).float()
+    want = convffn.convffn_math(y, p, s_lora).float()
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, atol=3e-2, rtol=3e-2)
+
+
+@pytest.mark.cuda
+def test_convffn_refuses_what_it_does_not_take(cuda_device):
+    y, p = _convffn_inputs(1, 64, 48, 144, 8, cuda_device)
+    with pytest.raises(TypeError, match="bf16"):
+        convffn.fused_convffn(y.float(), p, 2.0)
+    with pytest.raises(ValueError, match="no backward"):
+        convffn.fused_convffn(y, p._replace(a1=p.a1.clone().requires_grad_()), 2.0)
+    with torch.no_grad():
+        convffn.fused_convffn(y, p._replace(a1=p.a1.clone().requires_grad_()), 2.0)
+    with pytest.raises(ValueError, match="multiples of 16"):
+        y76, p76 = _convffn_inputs(1, 64, 76, 304, 8, cuda_device)   # fastvit_ma36
+        convffn.fused_convffn(y76, p76, 2.0)
+    with pytest.raises(ValueError, match="rank"):
+        y16, p16 = _convffn_inputs(1, 64, 48, 144, 16, cuda_device)
+        convffn.fused_convffn(y16, p16, 2.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name, launches", [("timm/fastvit_t8.apple_in1k", {"fused_convffn": 10}),
+                                            ("timm/fastvit_sa12.apple_in1k",
+                                             {"fused_convffn": 12, "flash_fwd": 2})])
+def test_fastvit_kernels_match_plain(cuda_device, name, launches):
+    """t8 + LoRA and sa12 at 256², batch 2, through the kernels and the plain
+    versions: launches per forward and agreement within 5% of the largest
+    output (chip_smoke.py's MODEL_REL_TOL)."""
+    model = registry.create_model_from_config(
+        {"model_name": name, "use_lora": "t8" in name}, device=cuda_device)
+    with torch.no_grad():
+        for n, prm in model.named_parameters():
+            if "lora_B" in n:
+                prm.copy_(torch.randn_like(prm) * 0.02)
+            elif n.rsplit(".", 1)[-1].startswith("layer_scale"):
+                prm.uniform_(0.1, 1.0)
+    x = torch.from_numpy(
+        np.random.default_rng(0).standard_normal((2, 3, 256, 256)).astype(np.float32)
+    ).to(cuda_device, torch.bfloat16)
+    block.reset_launches()
+    with torch.inference_mode():
+        hm, z = model(x)
+        torch.cuda.synchronize()
+        assert block.LAUNCHES == {**dict.fromkeys(block.LAUNCHES, 0), **launches}
+        hm_p, z_p = model(x, kernels=False)
+    for got, want in ((hm, hm_p), (z, z_p)):
+        err = (got.float() - want.float()).abs().max().item()
+        assert err <= 5e-2 * want.float().abs().max().item(), err

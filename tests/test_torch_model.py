@@ -240,9 +240,10 @@ def test_lora_and_unfreeze_are_mutually_exclusive():
 def test_registry_names_and_families():
     assert tregistry.resolve_model_name("dinov2") == "facebook/dinov2-small"
     assert tregistry.resolve_model_name("fastvit") == jregistry.resolve_model_name("fastvit")
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        tregistry.create_model_from_config({"model_name": "timm/fastvit_t8.apple_in1k"},
-                                           device="cpu")
+    fastvit = tregistry.create_model_from_config({"model_name": "timm/fastvit_sa12.apple_in1k"},
+                                                 device="cpu")
+    assert fastvit.model_name == "timm/fastvit_sa12.apple_in1k"
+    assert fastvit.cfg.token_mixers[-1] == "attention" and fastvit.input_size == 256
     with pytest.raises(ValueError, match="Unsupported"):
         tregistry.create_model_from_config({"model_name": "not/a-model"}, device="cpu")
     assert set(tregistry.BACKBONE_REGISTRY) == set(jregistry.BACKBONE_REGISTRY)
