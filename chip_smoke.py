@@ -6,7 +6,10 @@ then the long-sequence paths at 504² (S = 1297), where every layer streams
 its attention through the flash kernels: serving, and unfreeze-last-4 steps
 at batch 32; then FastViT serving at 256²: fastvit_t8 + LoRA r=8 (10
 ConvFFN kernel launches a forward) and fastvit_sa12 (12 ConvFFN launches and
-2 flash forwards, its attention stage). Times kernels, serving and every
+2 flash forwards, its attention stage); then FastViT LoRA fine-tuning at
+256²: fastvit_t8 + LoRA r=8 at batch 128 (10 ConvFFN forward and 10
+backward launches a step) and fastvit_sa12 + LoRA r=8 at batch 32 (12 and
+12, and 2 flash forwards and backwards). Times kernels, serving and every
 train step.
 
     python3 chip_smoke.py [--out results.json] [--profile]
@@ -130,6 +133,25 @@ T8_CONFIG = {"model_name": "timm/fastvit_t8.apple_in1k", "use_lora": True}
 SA12_CONFIG = {"model_name": "timm/fastvit_sa12.apple_in1k"}
 SERVING_T8_LAUNCHES = {"fused_convffn": 10}
 SERVING_SA12_LAUNCHES = {"fused_convffn": 12, "flash_fwd": 2}
+# FastViT LoRA fine-tuning at 256² (bench.py's FastViT cell: t8 + LoRA r=8 at
+# bs=128; sa12 + LoRA r=8 at bs=32, two checked steps, three timed). Every
+# ConvFFN runs its forward kernel and, in the backward, its backward kernel;
+# sa12's two attention blocks their flash forward and backward. The LoRA
+# dropout (0.1) draws the same masks on both paths (the step's generator).
+T8_TRAIN_BATCH, SA12_TRAIN_BATCH, FASTVIT_IMAGE = 128, 32, 256
+SA12_LORA_CONFIG = {**SA12_CONFIG, "use_lora": True}
+T8_TRAIN_LAUNCHES = {"fused_convffn": 10, "fused_convffn_bwd": 10}
+SA12_TRAIN_LAUNCHES = {"fused_convffn": 12, "fused_convffn_bwd": 12, "flash_fwd": 2,
+                       "flash_bwd": 2}
+# The first and the last ConvFFN's adapters (t8 and sa12 both end with two
+# blocks) and the heads' first conv.
+FASTVIT_GRAD_NAMES = (
+    "backbone.stages.0.blocks.0.mlp.fc1.lora_A.weight",
+    "backbone.stages.0.blocks.0.mlp.fc1.lora_B.weight",
+    "backbone.stages.3.blocks.1.mlp.fc2.lora_A.weight",
+    "backbone.stages.3.blocks.1.mlp.fc2.lora_B.weight",
+    "backbone.head.heatmap_head.feature_refine.0.weight",
+)
 # Each ConvFFN's (C, H, S at 256², blocks per forward): t8 with LoRA r=8 and
 # real masks in the kernel check (the serving path runs ones), sa12 with rank 0
 # (rank-1 zero adapters).
@@ -148,7 +170,9 @@ CONVFFN_SOURCE = "dino_pose_tpu_torch/ops/csrc/convffn_kernels.cu"
 # path; the flash rows at the 504² training batch, the forward on the 504²
 # serving path, the backward on the 504² unfreeze path; the ConvFFN row at
 # batch 1 on the t8 serving path, its times and bound summed over the ten
-# launches of one t8 forward.
+# launches of one t8 forward; the ConvFFN backward row at batch 128 on the t8
+# LoRA training path, its times and bound summed over the ten launches of one
+# t8 step.
 KERNEL_ROWS = {
     "fused_block": ("dino_pose_tpu/ops/block.py:159", BLOCK_SOURCE, 1, "serving"),
     "fused_attn_part": ("dino_pose_tpu/ops/block.py:999", BLOCK_SOURCE, 1, "serving"),
@@ -166,6 +190,8 @@ KERNEL_ROWS = {
                             "unfreeze_504_train"),
     "fused_convffn": ("dino_pose_tpu/ops/convffn.py:92", CONVFFN_SOURCE, 1,
                       "serving_fastvit_t8"),
+    "fused_convffn_bwd": ("dino_pose_tpu/ops/convffn.py:117", CONVFFN_SOURCE, T8_TRAIN_BATCH,
+                          "fastvit_t8_lora_train"),
 }
 # The LAUNCHES key each row counts.
 LAUNCH_KEY = {"flash_attention": "flash_fwd", "flash_attention_bwd": "flash_bwd"}
@@ -691,6 +717,7 @@ def check_step_tensors(tag: str, name: str, args: tuple, out, training: dict) ->
     kernel tolerance's absolute part is scaled by its max|.|; each weight
     gradient is held to GRAD_TOL of its largest magnitude."""
     from dino_pose_tpu_torch.ops import block as B
+    from dino_pose_tpu_torch.ops import convffn as CF
 
     if name == "fused_mlp_dx":
         x2, dy, mp, eps = args
@@ -698,6 +725,9 @@ def check_step_tensors(tag: str, name: str, args: tuple, out, training: dict) ->
     elif name == "fused_mlp_bwd":
         x2, dy, mp, eps = args
         got, want = flat(out), flat(B.mlp_bwd_math(x2, dy, mp, eps=eps))
+    elif name == "fused_convffn_bwd":
+        y, dy, p, s_lora = args
+        got, want = flat(out), flat(CF.convffn_bwd_math(y, dy, p, s_lora))
     else:
         x, dy, atp, num_heads, eps = args
         got, want = flat(out), flat(B.attn_bwd_math(x, dy, atp, num_heads=num_heads, eps=eps))
@@ -714,15 +744,25 @@ def check_step_tensors(tag: str, name: str, args: tuple, out, training: dict) ->
     return ok
 
 
+def wrapper_module(name: str):
+    """The module whose global ``name`` a backward wrapper is called by."""
+    from dino_pose_tpu_torch.ops import block as B
+    from dino_pose_tpu_torch.ops import convffn as CF
+
+    return CF if name.startswith("fused_convffn") else B
+
+
 def phase_train(results: dict, training: dict, tag: str, config: dict, per_step: dict,
                 grad_names: tuple, recorded: tuple, batch_size: int = TRAIN_BATCH,
-                image_size: int = 224, steps: int = TRAIN_STEPS, timed: int = 5):
-    """``steps`` dinov2-small fine-tune steps with ``config`` at
-    ``batch_size`` through the kernels, as many from an identical copy
-    through the plain versions (the same dropout masks), compared step by
-    step; the first step's call of each ``recorded`` backward wrapper (the
-    top layer's) held against its plain version on its own inputs; then step
-    times over ``timed`` steps."""
+                image_size: int = 224, steps: int = TRAIN_STEPS, timed: int = 5,
+                record_last: bool = False):
+    """``steps`` fine-tune steps of the model ``config`` names (dinov2-small,
+    or a FastViT) at ``batch_size`` through the kernels, as many from an
+    identical copy through the plain versions (the same dropout masks),
+    compared step by step; the first step's first call of each ``recorded``
+    backward wrapper (the top layer's; with ``record_last`` its last call,
+    the first block's) held against its plain version on its own inputs;
+    then step times over ``timed`` steps."""
     from dino_pose_tpu_torch.models.registry import create_model_from_config
     from dino_pose_tpu_torch.ops import block as B
 
@@ -736,14 +776,14 @@ def phase_train(results: dict, training: dict, tag: str, config: dict, per_step:
 
     want_step = expected(per_step)
     seen = {}
-    originals = {name: getattr(B, name) for name in recorded}
+    originals = {name: getattr(wrapper_module(name), name) for name in recorded}
 
     def recorder(name):
         fn = originals[name]
 
         def recording(*args):
             out = fn(*args)
-            if name not in seen:
+            if name not in seen or record_last:
                 seen[name] = (clone(args), clone(out))
             return out
         return recording
@@ -755,12 +795,12 @@ def phase_train(results: dict, training: dict, tag: str, config: dict, per_step:
         before = dict(B.LAUNCHES)
         if i == 0:
             for name in recorded:
-                setattr(B, name, recorder(name))
+                setattr(wrapper_module(name), name, recorder(name))
         try:
             state, stats = step(state, batch, LR, SEED)
         finally:
             for name, fn in originals.items():
-                setattr(B, name, fn)
+                setattr(wrapper_module(name), name, fn)
         torch.cuda.synchronize()
         delta = {k: B.LAUNCHES[k] - before[k] for k in B.LAUNCHES}
         log(f"{tag} train step {i} (batch {batch_size}): launches {delta}")
@@ -989,6 +1029,69 @@ def phase_convffn(results: dict) -> dict:
     return out
 
 
+def phase_convffn_bwd(results: dict) -> dict:
+    """fused_convffn_bwd vs convffn_bwd_math at every fastvit_t8 and
+    fastvit_sa12 stage shape, bf16, LoRA rank 8 with real masks, batch 1, 8
+    and the model's train batch (128, 32), with a unit-scale seeded
+    cotangent: dy at the kernel tolerance, each parameter gradient within
+    GRAD_TOL of its largest magnitude; then kernel, plain and bound times.
+    Returns, by batch, each model's per-step sums over its backward launches
+    and the per-stage numbers."""
+    from dino_pose_tpu_torch.ops import block as B
+    from dino_pose_tpu_torch.ops import convffn as CF
+
+    gen = torch.Generator().manual_seed(SEED + 8)
+    out: dict = {}
+    r, s_lora = 8, 2.0
+    for model, stages in CONVFFN_STAGES.items():
+        train_batch = T8_TRAIN_BATCH if model == "t8" else SA12_TRAIN_BATCH
+        for b in (1, 8, train_batch):
+            total = {"ms": 0.0, "plain_ms": 0.0, "flops": 0, "bytes": 0}
+            for i, (c, h, s, blocks) in enumerate(stages):
+                y, p = convffn_inputs(b, s, c, h, r, gen)
+                df = torch.randn((b, s, c), generator=gen).to("cuda", torch.bfloat16)
+                got = flat(CF.fused_convffn_bwd(y, df, p, s_lora))
+                want = flat(CF.convffn_bwd_math(y, df, p, s_lora))
+                torch.cuda.synchronize()
+                act_err, grad_rel, ok = compare_outputs(got, want)
+                where = f"{model} stage {i} (C={c}, H={h}, S={s}, R={r}) B={b}"
+                log(f"kernel fused_convffn_bwd {where}: max_abs(dy)={act_err:.6g} "
+                    f"max_err/max|ref|(grads)={grad_rel:.6g} tol=atol {KERNEL_ATOL} + rtol "
+                    f"{KERNEL_RTOL}*|ref|, grads {GRAD_TOL}*max|ref| -> {'ok' if ok else 'FAIL'}")
+                if not ok:
+                    raise AssertionError(f"fused_convffn_bwd at {where} disagrees with "
+                                         "convffn_bwd_math")
+                row = results.setdefault("fused_convffn_bwd",
+                                         {"max_abs_err": 0.0, "max_grad_err_rel": 0.0})
+                row["max_abs_err"] = max(row["max_abs_err"], act_err)
+                row["max_grad_err_rel"] = max(row.get("max_grad_err_rel", 0.0), grad_rel)
+                del got, want
+                saved = dict(B.LAUNCHES)
+                ms = cuda_ms(lambda: CF.fused_convffn_bwd(y, df, p, s_lora), iters=10, warmup=2)
+                plain_ms = cuda_ms(lambda: CF.convffn_bwd_math(y, df, p, s_lora), iters=3,
+                                   warmup=1)
+                B.LAUNCHES.update(saved)  # timing launches are not main-path launches
+                flops, nbytes = CF.convffn_bwd_cost(b, s, c, h, r)
+                bound, by = B.bound_ms(flops, nbytes)
+                log(f"time fused_convffn_bwd {where}: kernel {ms:.4f} ms, plain {plain_ms:.4f} "
+                    f"ms, bound {bound:.5f} ms ({by}); x{blocks} blocks a step")
+                out.setdefault(b, {}).setdefault(f"{model}_stages", []).append({
+                    "C": c, "H": h, "S": s, "R": r, "blocks": blocks, "ms": ms,
+                    "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+                    "max_abs_err": act_err, "max_grad_err_rel": grad_rel})
+                total["ms"] += blocks * ms
+                total["plain_ms"] += blocks * plain_ms
+                total["flops"] += blocks * flops
+                total["bytes"] += blocks * nbytes
+            bound, by = B.bound_ms(total["flops"], total["bytes"])
+            out[b][model] = {"ms": total["ms"], "plain_ms": total["plain_ms"], "bound_ms": bound,
+                             "bound_by": by, "library_ms": None}
+            log(f"time fused_convffn_bwd {model} step ({sum(t[3] for t in stages)} launches) "
+                f"B={b}: kernel {total['ms']:.4f} ms, plain {total['plain_ms']:.4f} ms, "
+                f"bound {bound:.5f} ms ({by})")
+    return out
+
+
 def profile_forward(model, image_size: int = 224) -> None:
     """Kernel time by name over five batch-1 forwards (torch.profiler)."""
     from torch.profiler import ProfilerActivity, profile
@@ -1028,7 +1131,8 @@ def main() -> int:
     ap.add_argument("--profile", action="store_true",
                     help="print torch.profiler kernel tables of the batch-1 forward and "
                          "the train steps: at 224² LoRA and unfreeze (batch 128), at 504² "
-                         "unfreeze (batch 32); and of the fastvit_t8 + LoRA batch-1 forward")
+                         "unfreeze (batch 32); and of the fastvit_t8 + LoRA batch-1 forward "
+                         "and its LoRA train step (batch 128)")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -1054,6 +1158,8 @@ def main() -> int:
     unfreeze_504: dict = {}
     serving_t8: dict = {}
     serving_sa12: dict = {}
+    train_t8: dict = {}
+    train_sa12: dict = {}
     phase_kernels(results)
     phase_mlp_dx(results)
     phase_train_kernels(results)
@@ -1075,11 +1181,21 @@ def main() -> int:
     phase_serving(results, serving_sa12, "serving_fastvit_sa12",
                   per_forward_launches=SERVING_SA12_LAUNCHES, n_lat=10, n_batches=4,
                   fwd_iters=10, config=SA12_CONFIG)
+    convffn_bwd_times = phase_convffn_bwd(results)
+    t8_run = phase_train(results, train_t8, "fastvit_t8_lora", T8_CONFIG, T8_TRAIN_LAUNCHES,
+                         FASTVIT_GRAD_NAMES, ("fused_convffn_bwd",), batch_size=T8_TRAIN_BATCH,
+                         image_size=FASTVIT_IMAGE, record_last=True)
+    phase_train(results, train_sa12, "fastvit_sa12_lora", SA12_LORA_CONFIG, SA12_TRAIN_LAUNCHES,
+                FASTVIT_GRAD_NAMES, ("fused_convffn_bwd",), batch_size=SA12_TRAIN_BATCH,
+                image_size=FASTVIT_IMAGE, steps=2, timed=3, record_last=True)
     by_batch = phase_times(results)
     for b, t in flash_times.items():
         by_batch.setdefault(b, {}).update(t)
     for b, t in convffn_times.items():
         by_batch.setdefault(b, {})["fused_convffn"] = t["t8"]
+    for b, t in convffn_bwd_times.items():
+        if "t8" in t:
+            by_batch.setdefault(b, {})["fused_convffn_bwd"] = t["t8"]
     if args.profile:
         profile_forward(model)
         profile_train_step(*lora_run)
@@ -1087,6 +1203,7 @@ def main() -> int:
         profile_forward(model_504, LONG_IMAGE)
         profile_train_step(*unfreeze_504_run)
         profile_forward(model_t8, model_t8.input_size)
+        profile_train_step(*t8_run)
 
     kernels = []
     for name, (replaces, source, b, path) in KERNEL_ROWS.items():
@@ -1107,14 +1224,17 @@ def main() -> int:
     log("kernel_times_b32 " + json.dumps(by_batch[LONG_BATCH]))
     log("kernel_times_b128 " + json.dumps(by_batch[TRAIN_BATCH]))
     log("convffn_times " + json.dumps(convffn_times))
+    log("convffn_bwd_times " + json.dumps(convffn_bwd_times))
     if args.out:
         with open(args.out, "w") as f:
             json.dump({"card": card, "kernels": kernels, "b1": by_batch[1], "b8": by_batch[8],
                        "b32": by_batch[LONG_BATCH], "b128": by_batch[TRAIN_BATCH],
-                       "convffn": convffn_times,
+                       "convffn": convffn_times, "convffn_bwd": convffn_bwd_times,
                        "serving": serving, "training": lora, "training_unfreeze": unfreeze,
                        "serving_504": serving_504, "training_unfreeze_504": unfreeze_504,
-                       "serving_fastvit_t8": serving_t8, "serving_fastvit_sa12": serving_sa12},
+                       "serving_fastvit_t8": serving_t8, "serving_fastvit_sa12": serving_sa12,
+                       "training_fastvit_t8_lora": train_t8,
+                       "training_fastvit_sa12_lora": train_sa12},
                       f, indent=1)
     print(json.dumps({"kernels": kernels}))
     print(card)

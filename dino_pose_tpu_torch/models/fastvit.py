@@ -1,4 +1,4 @@
-"""FastViT backbone, eval forward (counterpart of dino_pose_tpu/models/fastvit.py).
+"""FastViT backbone (counterpart of dino_pose_tpu/models/fastvit.py).
 
 Apple's FastViT as timm builds it: a MobileOne stem, four stages of RepMixer
 blocks (in the SA/MA variants, self-attention in the last stage, behind a
@@ -9,29 +9,44 @@ Module attribute names follow timm's state-dict keys (``stem.0.rbr_conv.0.conv``
 ``final_conv.se.reduce``, LoRA under ``mlp.fc1.{original_conv,lora_A,lora_B}``),
 so reference-schema state dicts load with ``strict=True``.
 
-Eval only, as the JAX package runs eval: every multi-branch block is one
-folded conv (``fastvit_fold``), RepMixer is one 3x3 depthwise conv with
-K = ls*(Km - Kn) + I, SpatialAttention folds its BatchNorm into qkv, and
-every ConvFFN runs its depthwise 7x7 conv then ``ops/convffn.fused_convffn``
-on the BatchNorm affine. **The port departs from the JAX route here:** the
-JAX package takes its ConvFFN kernel only at 64 <= C <= 256 on a TPU
-(convffn.py:586-604, a measured loss of XLA fusions elsewhere) and the
-folded XLA chain otherwise; the port runs its kernel in every ConvFFN (10 a
-t8 forward, 12 an sa12 forward), as its dinov2 chains do at every size.
-SpatialAttention calls ``ops/attention.attention`` (the flash kernel on the
-card). ``kernels=False`` runs the plain versions of both.
+Eval, as the JAX package runs it: every multi-branch block is one folded
+conv (``fastvit_fold``), RepMixer is one 3x3 depthwise conv with K =
+ls*(Km - Kn) + I, SpatialAttention folds its BatchNorm into qkv, and every
+ConvFFN runs its depthwise 7x7 conv then ``ops/convffn.fused_convffn`` on
+the BatchNorm affine.
+
+Train (``.train()``), as JAX's default train mode (``reuse``,
+fastvit_fold.py:72-130): each materialised branch output feeds its own
+batch-statistics BatchNorm affine elementwise, in f32; branches whose
+statistics are functions of x (the depthwise 1x1 scale branch, the identity
+BN, stem0's 1x1 over 3 channels) become per-channel coefficients on x from
+its moments; RepMixer is one 3x3 depthwise conv and one elementwise map;
+SpatialAttention normalises with ``nn/layers.batch_norm_train``; every
+ConvFFN runs ``ops/convffn.convffn_train`` (the forward kernel, and the
+backward kernel for the LoRA, BatchNorm and input gradients) with its
+ConvLoRA Dropout2d masks drawn from the step's generator, m1 then m2, block
+by block. Nothing in train mode comes from the fold cache but the frozen
+fc1/fc2 matrices. The backbone is frozen in every FastViT training mode
+(train/partition.py): with LoRA, gradients reach the adapters through the
+ConvFFN backward; without, no backbone tensor requires grad and autograd
+builds no graph below the heads.
+
+**The port departs from the JAX route here:** the JAX package takes its
+ConvFFN kernel only at 64 <= C <= 256 on a TPU (convffn.py:586-604, a
+measured loss of XLA fusions elsewhere), and in training only with LoRA;
+the port runs its kernels in every ConvFFN (10 a t8 forward, 12 an sa12
+forward, and as many backward launches a LoRA step), as its dinov2 chains
+do at every size. SpatialAttention calls ``ops/attention.attention`` (the
+flash kernels on the card). ``kernels=False`` runs the plain versions of
+both.
 
 The backbone runs in ``torch.channels_last``: a conv's NCHW output is then
-(B, H, W, C) in memory, and the ConvFFN kernel and the attention read it as
+(B, H, W, C) in memory, and the ConvFFN kernels and the attention read it as
 (B, H*W, C) rows without a copy.
 
-LayerScale multiplies in the compute dtype, as the port's ViT does. (The JAX
-package multiplies by the f32 parameter, which promotes its bf16 activations
-to f32 from the first block on; in f32 the two agree.)
-
-Training (batch statistics, the reuse forms, ConvLoRA dropout and the
-ConvFFN backward) is the next slice: the backbone refuses train mode, and a
-ConvFFN refuses to run under grad mode when a weight requires grad.
+LayerScale multiplies in the compute dtype, as the port's ViT does, in eval
+and train. (The JAX package multiplies by the f32 parameter, which promotes
+its bf16 activations to f32 from the first block on; in f32 the two agree.)
 """
 
 from __future__ import annotations
@@ -45,13 +60,25 @@ from torch import nn
 from dino_pose_tpu_torch.models.fastvit_fold import (
     apply_folded,
     bn_affine,
+    bn_train_affine,
+    branch_stats,
     cached_fold,
     center_identity,
+    channel_moments,
+    dw_branch_conv,
     fold_branch,
+    stats_branch_reuse,
 )
 from dino_pose_tpu_torch.nn import layers as L
 from dino_pose_tpu_torch.ops.attention import attention, plain_attention
-from dino_pose_tpu_torch.ops.convffn import ConvFFNParams, convffn_math, fused_convffn
+from dino_pose_tpu_torch.ops.convffn import (
+    ConvFFNParams,
+    convffn_math,
+    convffn_train,
+    fused_convffn,
+)
+
+_VIEW = (1, -1, 1, 1)  # a per-channel vector against NCHW
 
 
 @dataclasses.dataclass(frozen=True)
@@ -139,7 +166,8 @@ class MobileOneBlock(nn.Module):
     """Multi-branch reparameterisable conv block: ``num_conv_branches`` kxk
     (conv, BN) branches, a 1x1 (conv, BN) scale branch when k > 1, an
     identity BN when shapes allow; summed, optionally SE'd and GELU'd. Runs
-    as its eval fold (fastvit.py:298-401)."""
+    as its eval fold (fastvit.py:298-401), in train mode as its reuse form
+    (``_reuse``, fastvit.py:176-296)."""
 
     def __init__(self, cin: int, features: int, kernel_size: int = 3, stride: int = 1,
                  groups: int = 1, *, use_act: bool = True, use_se: bool = False,
@@ -173,7 +201,83 @@ class MobileOneBlock(nn.Module):
             kf, bf = kf + ident * inv.view(-1, 1, 1, 1), bf + shift
         return kf, bf
 
+    def train_terms(self, x: torch.Tensor):
+        """The train-mode linear part unapplied (``_reuse``'s terms):
+        ``(terms, xc, xc_rep, bias)``, ``terms`` a list of (f32 inv,
+        materialised branch output), ``xc`` the f32 per-channel coefficient on
+        the stride-sampled x (or None), ``xc_rep`` the same on x repeated to
+        the features of a depthwise-multiplier block, ``bias`` f32. Every
+        BatchNorm of the block takes its batch statistics here, once."""
+        s, groups, cin = self.stride, self.groups, self.in_g * self.groups
+        mult = self.features // groups
+        terms, xc, xc_rep = [], None, None
+        bias = torch.zeros(self.features, device=x.device)
+        for branch in self.rbr_conv:
+            y, inv, shift = stats_branch_reuse(x, branch.conv.weight, branch.bn,
+                                               stride=s, groups=groups)
+            terms.append((inv, y))
+            bias = bias + shift
+        if self.rbr_scale is not None:
+            w, bn = self.rbr_scale.conv.weight, self.rbr_scale.bn
+            if self.in_g == 1:
+                # Depthwise(-multiplier) 1x1: a per-channel scalar on x, whose
+                # statistics and output are functions of x's moments.
+                mx, m2x, n = channel_moments(x, s)
+                svec = w[:, 0, 0, 0].float()
+                mean = svec * mx.repeat_interleave(mult)
+                var = svec.square() * m2x.repeat_interleave(mult) - mean.square()
+                inv, shift = bn_train_affine(bn, mean, var, n)
+                coeff = inv * svec
+                if mult == 1:
+                    xc = coeff if xc is None else xc + coeff
+                else:
+                    xc_rep = coeff if xc_rep is None else xc_rep + coeff
+            elif groups == 1 and cin <= 8:
+                # Dense 1x1 over few channels (stem0): gram-matrix moments on
+                # the strided grid, the output as cin per-channel FMAs.
+                xs = x[:, :, ::s, ::s].float()
+                flat = xs.permute(0, 2, 3, 1).reshape(-1, cin)
+                n = flat.shape[0]
+                gram = flat.t() @ flat / n
+                wm = w[:, :, 0, 0].t().float()  # (cin, features)
+                mean = flat.mean(dim=0) @ wm
+                var = torch.einsum("co,do,cd->o", wm, wm, gram) - mean.square()
+                inv, shift = bn_train_affine(bn, mean, var, n)
+                y_scale = xs[:, 0:1] * wm[0].view(_VIEW)
+                for ci in range(1, cin):
+                    y_scale = y_scale + xs[:, ci:ci + 1] * wm[ci].view(_VIEW)
+                terms.append((inv, y_scale))
+            else:
+                y, inv, shift = stats_branch_reuse(x, w, bn, stride=s, groups=groups)
+                terms.append((inv, y))
+            bias = bias + shift
+        if self.rbr_skip is not None:
+            mx, m2x, n = channel_moments(x)
+            inv, shift = bn_train_affine(self.rbr_skip, mx, m2x - mx.square(), n)
+            xc = inv if xc is None else xc + inv
+            bias = bias + shift
+        return terms, xc, xc_rep, bias
+
+    def _train_forward(self, x: torch.Tensor) -> torch.Tensor:
+        """``_reuse`` applied: sum the terms in f32, cast, then SE and GELU."""
+        terms, xc, xc_rep, bias = self.train_terms(x)
+        out = bias.view(_VIEW)
+        for inv, y in terms:
+            out = y.float() * inv.view(_VIEW) + out
+        x_s = x[:, :, ::self.stride, ::self.stride] if self.stride != 1 else x
+        if xc is not None:
+            out = out + x_s.float() * xc.view(_VIEW)
+        if xc_rep is not None:
+            mult = self.features // self.groups
+            out = out + x_s.repeat_interleave(mult, dim=1).float() * xc_rep.view(_VIEW)
+        out = out.to(x.dtype)
+        if self.se is not None:
+            out = self.se(out)
+        return F.gelu(out) if self.use_act else out
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.training:
+            return self._train_forward(x)
         if self.rbr_skip is not None and not self.rbr_conv and self.rbr_scale is None:
             # Pure-affine block (identity BN only): no conv (fastvit.py:387-393).
             inv, shift = bn_affine(self.rbr_skip)
@@ -190,7 +294,9 @@ class MobileOneBlock(nn.Module):
 
 class ReparamLargeKernelConv(nn.Module):
     """Large-kernel conv with a parallel small-kernel branch, GELU'd; runs
-    as one folded k x k conv (fastvit.py:437-454)."""
+    as one folded k x k conv (fastvit.py:437-454), in train mode as both
+    branch outputs through their batch-statistics affines, summed in f32
+    (fastvit.py:418-436)."""
 
     def __init__(self, cin: int, features: int, kernel_size: int = 7, stride: int = 2,
                  groups: int = 1, small_kernel: int = 3):
@@ -205,6 +311,14 @@ class ReparamLargeKernelConv(nn.Module):
         return (kl + ks).to(dtype), (bl + bs).to(dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.training:
+            acc = None
+            for branch in (self.lkb_origin, self.small_conv):
+                y, inv, shift = stats_branch_reuse(x, branch.conv.weight, branch.bn,
+                                                   stride=self.stride, groups=self.groups)
+                t = y.float() * inv.view(_VIEW) + shift.view(_VIEW)
+                acc = t if acc is None else acc + t
+            return F.gelu(acc.to(x.dtype))
         kernel, bias = cached_fold(self, x.dtype, self._fold)
         out = apply_folded(x, kernel, bias, stride=self.stride,
                            padding=self.kernel_size // 2, groups=self.groups)
@@ -239,7 +353,10 @@ class RepCPE(nn.Module):
 
 class RepMixer(nn.Module):
     """Token mixing x + ls*(mixer(x) - norm(x)) as ONE 3x3 depthwise conv,
-    K = ls*(Km - Kn) + I, b = ls*(bm - bn) (fastvit.py:781-802)."""
+    K = ls*(Km - Kn) + I, b = ls*(bm - bn) (fastvit.py:781-802). In train
+    mode the reuse form (fastvit.py:756-780): the mixer's materialised 3x3
+    branch y0 and per-channel coefficients on x, one f32 map
+    x*(1 + ls*(xc_m - xc_n)) + ls*inv0*y0 + ls*(b_m - b_n)."""
 
     def __init__(self, c: int, layer_scale_init: float):
         super().__init__()
@@ -257,7 +374,24 @@ class RepMixer(nn.Module):
         kernel = ls.view(-1, 1, 1, 1) * (km - kn) + ident
         return kernel.to(dtype), (ls * (bm - bn_)).to(dtype)
 
+    def _train_forward(self, x: torch.Tensor) -> torch.Tensor:
+        terms_m, xc_m, _, bias_m = self.mixer.train_terms(x)
+        terms_n, xc_n, _, bias_n = self.norm.train_terms(x)
+        zero = torch.zeros_like(bias_m)
+        xc_m = zero if xc_m is None else xc_m
+        xc_n = zero if xc_n is None else xc_n
+        ls = self.layer_scale.float().view(-1)
+        out = (x.float() * (1.0 + ls * (xc_m - xc_n)).view(_VIEW)
+               + (ls * (bias_m - bias_n)).view(_VIEW))
+        for inv, y in terms_m:
+            out = out + y.float() * (ls * inv).view(_VIEW)
+        for inv, y in terms_n:
+            out = out - y.float() * (ls * inv).view(_VIEW)
+        return out.to(x.dtype)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.training:
+            return self._train_forward(x)
         kernel, bias = cached_fold(self, x.dtype, self._fold)
         return apply_folded(x, kernel, bias, stride=1, padding=1, groups=x.shape[1])
 
@@ -283,12 +417,17 @@ class ConvFFN(nn.Module):
     """Depthwise 7x7 conv (``conv``: conv + BN), then 1x1 fc1 -> GELU -> 1x1
     fc2, each 1x1 with ConvLoRA when ``lora_rank`` > 0. The depthwise conv
     runs on its own (JAX's ``dw_branch_conv``, stride 1, fastvit_fold.py:442);
-    the rest is ``fused_convffn`` on the BatchNorm's eval affine
-    (fastvit.py:658-674)."""
+    the rest is the ConvFFN kernel on the BatchNorm affine (fastvit.py:
+    658-674): in eval without grad ``fused_convffn`` on the cached eval
+    affine; in train mode ``convffn_train`` on the batch-statistics affine
+    (``branch_stats``, two-pass) with the ConvLoRA Dropout2d masks
+    bernoulli(keep)/keep per (sample, rank) (fastvit.py:585-595); in eval
+    with grad ``convffn_train`` on the running-statistics affine."""
 
-    def __init__(self, c: int, hidden: int, lora_rank: int = 0, lora_alpha: float = 16.0):
+    def __init__(self, c: int, hidden: int, lora_rank: int = 0, lora_alpha: float = 16.0,
+                 lora_dropout: float = 0.0):
         super().__init__()
-        self.c, self.lora_rank = c, lora_rank
+        self.c, self.lora_rank, self.lora_dropout = c, lora_rank, lora_dropout
         self.s_lora = lora_alpha / lora_rank if lora_rank else 1.0
         self.conv = ConvBN(c, c, 7, 1, groups=c)
         if lora_rank:
@@ -298,42 +437,71 @@ class ConvFFN(nn.Module):
             self.fc1 = nn.Conv2d(c, hidden, 1)
             self.fc2 = nn.Conv2d(hidden, c, 1)
 
-    def _fold(self, dtype: torch.dtype) -> tuple[torch.Tensor, ConvFFNParams]:
-        """The depthwise kernel in ``dtype`` and the kernel's parameters
-        without the masks (matrices in ``dtype``, vectors f32). Rank 0 is
-        rank-1 zero adapters (fastvit.py:596-603)."""
-        inv, shift = bn_affine(self.conv.bn)
+    def _base(self, dtype: torch.dtype) -> tuple[torch.Tensor, ...]:
+        """The frozen fc1/fc2 in the kernels' layout: (w1, b1, w2, b2)."""
+        fc1, fc2 = ((self.fc1.original_conv, self.fc2.original_conv) if self.lora_rank
+                    else (self.fc1, self.fc2))
+        return (_matrix(fc1, dtype), fc1.bias.float().contiguous(),
+                _matrix(fc2, dtype), fc2.bias.float().contiguous())
+
+    def _adapters(self, dtype: torch.dtype) -> list[torch.Tensor]:
+        """(A1, B1, A2, B2) as (in, out) views of the f32 LoRA weights, with
+        their graphs; rank 0 as rank-1 zeros in ``dtype`` (fastvit.py:596-603)."""
         if self.lora_rank:
-            fc1, fc2 = self.fc1.original_conv, self.fc2.original_conv
-            a1, b1l = _matrix(self.fc1.lora_A, dtype), _matrix(self.fc1.lora_B, dtype)
-            a2, b2l = _matrix(self.fc2.lora_A, dtype), _matrix(self.fc2.lora_B, dtype)
-        else:
-            fc1, fc2 = self.fc1, self.fc2
-            dev, hidden = inv.device, fc1.weight.shape[0]
-            a1, b1l = (torch.zeros(s, dtype=dtype, device=dev) for s in ((self.c, 1), (1, hidden)))
-            a2, b2l = (torch.zeros(s, dtype=dtype, device=dev) for s in ((hidden, 1), (1, self.c)))
-        p = ConvFFNParams(
-            inv=inv.contiguous(), shift=shift.contiguous(),
-            w1=_matrix(fc1, dtype), b1=fc1.bias.float().contiguous(),
-            w2=_matrix(fc2, dtype), b2=fc2.bias.float().contiguous(),
-            a1=a1, b1l=b1l, a2=a2, b2l=b2l, m1=None, m2=None,
-        )
+            return [m.weight[:, :, 0, 0].t() for m in (self.fc1.lora_A, self.fc1.lora_B,
+                                                      self.fc2.lora_A, self.fc2.lora_B)]
+        hidden, dev = self.fc1.weight.shape[0], self.fc1.weight.device
+        return [torch.zeros(shape, dtype=dtype, device=dev)
+                for shape in ((self.c, 1), (1, hidden), (hidden, 1), (1, self.c))]
+
+    def _fold(self, dtype: torch.dtype) -> tuple[torch.Tensor, ConvFFNParams]:
+        """The eval cache: the depthwise kernel in ``dtype`` and the kernel's
+        parameters without the masks (matrices in ``dtype``, vectors f32)."""
+        inv, shift = bn_affine(self.conv.bn)
+        p = ConvFFNParams(inv.contiguous(), shift.contiguous(), *self._base(dtype),
+                          *(t.to(dtype).contiguous() for t in self._adapters(dtype)), None, None)
         return self.conv.conv.weight.to(dtype), p
 
-    def forward(self, x: torch.Tensor, kernels: bool = True) -> torch.Tensor:
-        if torch.is_grad_enabled() and any(t.requires_grad for t in (x, *self.parameters())):
-            raise ValueError(
-                "the FastViT ConvFFN has no backward yet (the FastViT training slice), and an "
-                "input or weight requires grad; run the forward under torch.no_grad() or "
-                "torch.inference_mode()"
-            )
-        dw, p = cached_fold(self, x.dtype, self._fold)
-        y = F.conv2d(x, dw, None, 1, 3, 1, self.c)
+    def _live_params(self, inv: torch.Tensor, shift: torch.Tensor, b: int, dtype: torch.dtype,
+                     generator: torch.Generator | None) -> ConvFFNParams:
+        """The parameters as they train: the BatchNorm affine and the LoRA
+        matrices with their graphs, the frozen fc1/fc2 cached per version,
+        and the masks: in train mode with dropout, bernoulli(keep)/keep per
+        (sample, rank) from ``generator``, m1 then m2; ones otherwise."""
+        fc1, fc2 = ((self.fc1.original_conv, self.fc2.original_conv) if self.lora_rank
+                    else (self.fc1, self.fc2))
+        base = cached_fold(fc1, dtype, self._base, fc2)
+        dev, r = inv.device, max(self.lora_rank, 1)
+        if self.training and self.lora_rank and self.lora_dropout > 0.0:
+            keep = 1.0 - self.lora_dropout
+            m1, m2 = ((torch.rand((b, r), generator=generator, device=dev) < keep).float() / keep
+                      for _ in range(2))
+        else:
+            m1 = m2 = torch.ones((b, r), dtype=torch.float32, device=dev)
+        return ConvFFNParams(inv, shift, *base, *self._adapters(dtype), m1, m2)
+
+    def forward(self, x: torch.Tensor, kernels: bool = True,
+                generator: torch.Generator | None = None) -> torch.Tensor:
+        live = self.training or (torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x, *self.parameters())))
+        if live:
+            y = dw_branch_conv(x, self.conv.conv.weight, 1, self.c)
+            if self.training:
+                mean, var, n = branch_stats(y)
+                inv, shift = bn_train_affine(self.conv.bn, mean, var, n)
+            else:
+                inv, shift = bn_affine(self.conv.bn)
+            p = self._live_params(inv, shift, y.shape[0], x.dtype, generator)
+        else:
+            dw, p = cached_fold(self, x.dtype, self._fold)
+            y = F.conv2d(x, dw, None, 1, 3, 1, self.c)
+            ones = torch.ones((y.shape[0], p.a1.shape[1]), dtype=torch.float32, device=x.device)
+            p = p._replace(m1=ones, m2=ones)  # eval: no ConvLoRA dropout
         b, c, hh, ww = y.shape
         rows = y.permute(0, 2, 3, 1).reshape(b, hh * ww, c)  # a view under channels_last
-        ones = torch.ones((b, p.a1.shape[1]), dtype=torch.float32, device=x.device)
-        p = p._replace(m1=ones, m2=ones)  # eval: no ConvLoRA dropout
-        if kernels:
+        if live:
+            out = convffn_train(rows, p, self.s_lora, kernels=kernels)
+        elif kernels:
             out = fused_convffn(rows.contiguous(), p, self.s_lora)
         else:
             out = convffn_math(rows, p, self.s_lora)
@@ -343,8 +511,10 @@ class ConvFFN(nn.Module):
 class SpatialAttention(nn.Module):
     """Multi-head self-attention over the flattened grid (timm's Attention:
     ``qkv`` without bias, ``proj``). The pre-norm BatchNorm, which timm keeps
-    on the block (``blocks.j.norm``), is folded into qkv: BN(x) @ W =
-    x @ (inv * W) + shift @ W (fastvit.py:825-853)."""
+    on the block (``blocks.j.norm``), is folded into qkv in eval: BN(x) @ W =
+    x @ (inv * W) + shift @ W (fastvit.py:825-853). In train mode it
+    normalises with its batch statistics first, then qkv, attention and proj
+    run as layers (fastvit.py:841-853, JAX's train default)."""
 
     def __init__(self, c: int, head_dim: int):
         super().__init__()
@@ -360,15 +530,21 @@ class SpatialAttention(nn.Module):
                 self.proj.weight.t().to(dtype).contiguous(), self.proj.bias.to(dtype))
 
     def forward(self, x: torch.Tensor, norm: nn.BatchNorm2d, kernels: bool = True) -> torch.Tensor:
-        wqkv, bqkv, wproj, bproj = cached_fold(self, x.dtype, lambda dt: self._fold(norm, dt), norm)
         b, c, hh, ww = x.shape
         s, nh = hh * ww, self.num_heads
-        qkv = x.permute(0, 2, 3, 1).reshape(b, s, c) @ wqkv + bqkv
+        if self.training:
+            t = L.batch_norm_train(x, norm).permute(0, 2, 3, 1).reshape(b, s, c)
+            qkv = L.dense(t, self.qkv)
+        else:
+            wqkv, bqkv, wproj, bproj = cached_fold(
+                self, x.dtype, lambda dt: self._fold(norm, dt), norm)
+            qkv = x.permute(0, 2, 3, 1).reshape(b, s, c) @ wqkv + bqkv
         q, k, v = (t.reshape(b, s, nh, c // nh).transpose(1, 2).contiguous()
                    for t in qkv.split(c, dim=-1))
         scale = self.head_dim ** -0.5
         o = attention(q, k, v, scale) if kernels else plain_attention(q, k, v, scale)
-        o = o.transpose(1, 2).reshape(b, s, c) @ wproj + bproj
+        o = o.transpose(1, 2).reshape(b, s, c)
+        o = L.dense(o, self.proj) if self.training else o @ wproj + bproj
         return o.view(b, hh, ww, c).permute(0, 3, 1, 2)
 
 
@@ -389,16 +565,18 @@ class FastViTBlock(nn.Module):
             self.token_mixer = SpatialAttention(c, cfg.attn_head_dim)
             self.layer_scale_1 = nn.Parameter(torch.empty(c, 1, 1))
             self.layer_scale_2 = nn.Parameter(torch.empty(c, 1, 1))
-        self.mlp = ConvFFN(c, int(c * mlp_ratio), cfg.lora_rank, cfg.lora_alpha)
+        self.mlp = ConvFFN(c, int(c * mlp_ratio), cfg.lora_rank, cfg.lora_alpha,
+                           cfg.lora_dropout)
 
-    def forward(self, x: torch.Tensor, kernels: bool = True) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, kernels: bool = True,
+                generator: torch.Generator | None = None) -> torch.Tensor:
         if self.mixer == "repmixer":
             x = self.token_mixer(x)
             ls2 = self.layer_scale
         else:
             x = x + self.token_mixer(x, self.norm, kernels) * self.layer_scale_1.to(x.dtype)
             ls2 = self.layer_scale_2
-        return x + self.mlp(x, kernels) * ls2.to(x.dtype)
+        return x + self.mlp(x, kernels, generator) * ls2.to(x.dtype)
 
 
 class FastViTStage(nn.Module):
@@ -411,13 +589,14 @@ class FastViTStage(nn.Module):
             for _ in range(depth)
         )
 
-    def forward(self, x: torch.Tensor, kernels: bool = True) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, kernels: bool = True,
+                generator: torch.Generator | None = None) -> torch.Tensor:
         if self.downsample is not None:
             x = self.downsample(x)
         if self.pos_emb is not None:
             x = self.pos_emb(x)
         for blk in self.blocks:
-            x = blk(x, kernels)
+            x = blk(x, kernels, generator)
         return x
 
 
@@ -443,13 +622,12 @@ class FastViTBackbone(nn.Module):
         self.final_conv = MobileOneBlock(c, cfg.out_channels, 3, 1, groups=c,
                                          use_se=cfg.final_se)
 
-    def forward(self, pixels: torch.Tensor, *, kernels: bool = True) -> torch.Tensor:
-        if self.training:
-            raise NotImplementedError(
-                "FastViT runs eval only in the port so far: its train-mode blocks (batch "
-                "statistics, the ConvFFN backward) are the FastViT training slice; call .eval()"
-            )
+    def forward(self, pixels: torch.Tensor, *, kernels: bool = True,
+                generator: torch.Generator | None = None) -> torch.Tensor:
+        """In train mode (``.train()``) every BatchNorm takes batch statistics
+        and updates its running ones, and the ConvLoRA dropout draws from
+        ``generator``."""
         x = self.stem(pixels.contiguous(memory_format=torch.channels_last))
         for stage in self.stages:
-            x = stage(x, kernels)
+            x = stage(x, kernels, generator)
         return self.final_conv(x)

@@ -1,5 +1,5 @@
-"""Eval-time reparameterisation folds of the FastViT blocks (counterpart of
-the eval parts of dino_pose_tpu/models/fastvit_fold.py).
+"""Reparameterisation algebra of the FastViT blocks (counterpart of
+dino_pose_tpu/models/fastvit_fold.py): eval folds and train-time statistics.
 
 With running statistics a BatchNorm is an affine map, ``BN(y) = y * inv +
 shift``, so each (conv, BN) branch of a multi-branch block folds into its
@@ -12,10 +12,21 @@ in torch layout, (out, in/groups, kh, kw), and folded in f32.
 dtype, keyed on the dtype, the device and the data pointers and versions of
 every parameter and buffer involved: a loaded state dict or any in-place
 update folds them anew, so no forward sees stale weights (as
-``models/vit.py`` caches its packed block weights).
+``models/vit.py`` caches its packed block weights). They are built without
+autograd, so it refuses a module whose parameter requires grad while grad
+mode is on: a cached copy would cut that gradient silently.
 
-The train-time forms (batch statistics, the reuse arrangement,
-``_dw_s2_conv_frozen``) belong to the FastViT training slice.
+In train mode a BatchNorm is still an affine map once its batch statistics
+are known: ``bn_train_affine`` gives the differentiable (inv, shift) of
+``BNAffine`` (fastvit_fold.py:197-243) and updates the running statistics,
+from ``branch_stats`` of a materialised branch output (two-pass) or from
+``channel_moments`` of the input (one-pass, on the strided grid) for the
+branches whose statistics are functions of x. The blocks combine them in
+the reuse arrangement (JAX's default train mode, ``stats_branch_reuse``),
+never through the cache. JAX's ``_dw_s2_conv_frozen`` only works around an
+XLA layout of the stride-2 depthwise conv's dx; its function is
+``dw_branch_conv``'s conv, whose autograd gives the same dx (the kernel is
+frozen).
 """
 
 from __future__ import annotations
@@ -26,12 +37,64 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from dino_pose_tpu_torch.nn.layers import update_running_stats
+
 
 def bn_affine(bn: nn.BatchNorm2d) -> tuple[torch.Tensor, torch.Tensor]:
     """``BNAffine`` in eval (fastvit_fold.py:197-243): f32 (inv, shift) from
     the running statistics, inv = rsqrt(var + eps) * scale."""
     inv = torch.rsqrt(bn.running_var.float() + bn.eps) * bn.weight.float()
     return inv, bn.bias.float() - bn.running_mean.float() * inv
+
+
+def bn_train_affine(bn: nn.BatchNorm2d, mean: torch.Tensor, var: torch.Tensor,
+                    n: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """``BNAffine`` in train mode: f32 (inv, shift) from the batch's (mean,
+    biased var) over ``n`` positions, differentiable through both, and the
+    running update in place (``nn/layers.update_running_stats``)."""
+    update_running_stats(bn, mean, var, n)
+    inv = torch.rsqrt(var + bn.eps) * bn.weight
+    return inv, bn.bias - mean * inv
+
+
+def channel_moments(x: torch.Tensor, stride: int = 1) -> tuple[torch.Tensor, torch.Tensor, int]:
+    """f32 per-channel (mean, mean of squares, count) of NCHW ``x`` over the
+    stride-sampled positions (fastvit_fold.py:246-262): one pass, var =
+    m2 - mean^2."""
+    if stride != 1:
+        x = x[:, :, ::stride, ::stride]
+    xf = x.float()
+    return xf.mean(dim=(0, 2, 3)), xf.square().mean(dim=(0, 2, 3)), x.numel() // x.shape[1]
+
+
+def branch_stats(y: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, int]:
+    """f32 (mean, biased var, count) of a materialised branch output,
+    two-pass (fastvit_fold.py:265-275)."""
+    yf = y.float()
+    mean = yf.mean(dim=(0, 2, 3))
+    var = (yf - mean.view(1, -1, 1, 1)).square().mean(dim=(0, 2, 3))
+    return mean, var, y.numel() // y.shape[1]
+
+
+def dw_branch_conv(x: torch.Tensor, kernel: torch.Tensor, stride: int, groups: int) -> torch.Tensor:
+    """One branch conv in x's dtype, padded to half its kernel, no bias
+    (fastvit_fold.py:411-447). The JAX package routes the stride-2
+    depthwise(-multiplier) case through ``_dw_s2_conv_frozen`` (XLA forward,
+    a parity-decomposed dx, zero kernel cotangent); its function is this
+    conv, and autograd gives the same dx for a frozen kernel."""
+    k = kernel.shape[-1]
+    return F.conv2d(x, kernel.to(x.dtype), None, stride, k // 2, 1, groups)
+
+
+def stats_branch_reuse(x: torch.Tensor, kernel: torch.Tensor, bn: nn.BatchNorm2d, *,
+                       stride: int, groups: int) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """A train-mode (conv, BN) branch with its output reused
+    (fastvit_fold.py:450-467): (y, inv, shift), the caller adding
+    ``y * inv + shift`` elementwise."""
+    y = dw_branch_conv(x, kernel, stride, groups)
+    mean, var, n = branch_stats(y)
+    inv, shift = bn_train_affine(bn, mean, var, n)
+    return y, inv, shift
 
 
 def fold_branch(weight: torch.Tensor, bn: nn.BatchNorm2d, k: int) -> tuple[torch.Tensor, torch.Tensor]:
@@ -70,6 +133,10 @@ def cached_fold(owner: nn.Module, dtype: torch.dtype, build: Callable[[torch.dty
     for under ``inference_mode``, so that later calls outside it can use
     them."""
     tensors = [t for m in (owner, *others) for t in (*m.parameters(), *m.buffers())]
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise ValueError(
+            f"{type(owner).__name__}: a parameter requires grad, but the folded copies are "
+            "built without autograd and would cut its gradient; freeze it (train/partition.py)")
     key = (dtype, tensors[0].device, tuple((t.data_ptr(), t._version) for t in tensors))
     hit = getattr(owner, "_fold_cache", None)
     if hit is None or hit[0] != key:

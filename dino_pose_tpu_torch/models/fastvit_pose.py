@@ -23,8 +23,7 @@ REFERENCE_SPATIAL_INPUT_SIZE = 14
 
 
 class FastVitPoseModule(nn.Module):
-    """``forward(pixels[B,3,H,W]) -> (heatmaps[B,K,h,h], z[B,K])``; eval
-    only (the backbone refuses train mode)."""
+    """``forward(pixels[B,3,H,W]) -> (heatmaps[B,K,h,h], z[B,K])``."""
 
     def __init__(self, cfg: FastViTConfig, num_keypoints: int = 24, heatmap_size: int = 48):
         super().__init__()
@@ -41,7 +40,9 @@ class FastVitPoseModule(nn.Module):
     def forward(self, pixels: torch.Tensor, *, kernels: bool = True,
                 generator: torch.Generator | None = None):
         """``kernels=False`` runs the plain version of every ConvFFN and of
-        the attention (the comparison path on the card)."""
-        fmap = self.backbone(pixels, kernels=kernels)
+        the attention (the comparison path on the card). In train mode
+        (``.train()``) BatchNorm uses batch statistics and the ConvLoRA and
+        z-head dropouts draw from ``generator``."""
+        fmap = self.backbone(pixels, kernels=kernels, generator=generator)
         return self.backbone.head(fmap, generator,
                                   spatial_input_size=REFERENCE_SPATIAL_INPUT_SIZE)

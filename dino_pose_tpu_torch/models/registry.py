@@ -2,7 +2,7 @@
 dino_pose_tpu/models/registry.py).
 
 Both families build: dinov2 (``models/pose.py``) and FastViT
-(``models/fastvit_pose.py``, every preset, eval only so far). Weights are
+(``models/fastvit_pose.py``, every preset). Weights are
 made from a seed with an explicit ``torch.Generator``; trained weights come
 in through ``load_state_dict`` (reference schema) or ``io/convert.py`` (the
 JAX package's variables).

@@ -62,22 +62,29 @@ def batch_norm_eval(x: torch.Tensor, bn: nn.BatchNorm2d) -> torch.Tensor:
     return y.to(x.dtype)
 
 
-def batch_norm_train(x: torch.Tensor, bn: nn.BatchNorm2d) -> torch.Tensor:
-    """Train ``BatchNorm`` (torch semantics, as the JAX package's): f32
-    two-pass batch statistics, the biased variance for normalising, the
-    unbiased variance into ``running_var``, momentum ``bn.momentum``. The
-    running statistics and ``num_batches_tracked`` update in place; output
-    in x.dtype."""
-    view = (1, -1, 1, 1)
-    xf = x.float()
-    mean = xf.mean(dim=(0, 2, 3))
-    var = (xf - mean.view(view)).square().mean(dim=(0, 2, 3))
-    n = x.numel() // x.shape[1]
+def update_running_stats(bn: nn.BatchNorm2d, mean: torch.Tensor, var: torch.Tensor,
+                         n: int) -> None:
+    """The train-mode running update of ``bn`` from a batch's (mean, biased
+    var) over ``n`` positions, in place: momentum ``bn.momentum``, the
+    unbiased var * n / (n - 1) into ``running_var``, one more batch
+    counted."""
     with torch.no_grad():
         m = bn.momentum
         bn.running_mean.mul_(1 - m).add_(m * mean.detach())
         bn.running_var.mul_(1 - m).add_(m * (var.detach() * (n / max(1, n - 1))))
         bn.num_batches_tracked.add_(1)
+
+
+def batch_norm_train(x: torch.Tensor, bn: nn.BatchNorm2d) -> torch.Tensor:
+    """Train ``BatchNorm`` (torch semantics, as the JAX package's): f32
+    two-pass batch statistics, the biased variance for normalising, the
+    running statistics updated (``update_running_stats``); output in
+    x.dtype."""
+    view = (1, -1, 1, 1)
+    xf = x.float()
+    mean = xf.mean(dim=(0, 2, 3))
+    var = (xf - mean.view(view)).square().mean(dim=(0, 2, 3))
+    update_running_stats(bn, mean, var, x.numel() // x.shape[1])
     inv = torch.rsqrt(var + bn.eps) * bn.weight
     y = (xf - mean.view(view)) * inv.view(view) + bn.bias.view(view)
     return y.to(x.dtype)

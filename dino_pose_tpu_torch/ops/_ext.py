@@ -40,8 +40,9 @@ LAUNCHES: dict[str, int] = {
     # a backward pair (flash_bwd_dq_kernel + flash_bwd_dkv_kernel), counted
     # inside the chains above and by the standalone ``flash_attention``.
     "flash_fwd": 0, "flash_bwd": 0,
-    # FastViT's ConvFFN past its depthwise conv (convffn_fwd_kernel).
-    "fused_convffn": 0,
+    # FastViT's ConvFFN past its depthwise conv (convffn_fwd_kernel) and its
+    # backward (convffn_bwd_kernel + convffn_bwd_reduce_kernel).
+    "fused_convffn": 0, "fused_convffn_bwd": 0,
 }
 
 _LIB: ctypes.CDLL | None = None
@@ -64,6 +65,9 @@ _SIGNATURES = {
     "dp_flash_bwd": ([_P] * 8 + [_I] * 4 + [_F, _P], _I),
     "dp_convffn_smem_bytes": ([_I], ctypes.c_longlong),
     "dp_fused_convffn": ([_P] * 14 + [_I] * 5 + [_F, _P], _I),
+    "dp_convffn_bwd_smem_bytes": ([_I], ctypes.c_longlong),
+    "dp_convffn_bwd_blocks": ([_I, _I], _I),
+    "dp_fused_convffn_bwd": ([_P] * 17 + [_I] * 6 + [_F, _P], _I),
 }
 
 

@@ -18,6 +18,7 @@ of g, and the jitted and eager JAX results then differ by two ulps (0.0625
 at |out| ~ 4 for these inputs), so no port can sit closer to both.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -142,3 +143,161 @@ def test_cost_counts_the_products_and_bytes():
     assert flops == 4 * 2 * 64 * 48 * 144 + 4 * 2 * 64 * 8 * (48 + 144)
     assert nbytes == (2 * 2 * 64 * 48 * 2 + (2 * 48 * 144 + 2 * 8 * (48 + 144)) * 2
                       + (3 * 48 + 144) * 4 + 2 * 2 * 8 * 4)
+
+
+# ---------------------------------------------------------------------------
+# The backward: convffn_bwd_math against _convffn_bwd_kernel, and convffn_train
+# ---------------------------------------------------------------------------
+
+GRAD_FIELDS = ("inv", "shift", "a1", "b1l", "a2", "b2l")
+
+
+def _jax_vjp(y, df, p, jdt, monkeypatch):
+    """JAX's fused_convffn under jax.vjp, y in ``jdt`` and f32 parameters (cast
+    inside, as its train step passes them): (dy, {field: gradient}). Its
+    backward is the Pallas ``_convffn_bwd_kernel`` in interpret mode."""
+    monkeypatch.setenv("DINO_POSE_TPU_CONVFFN", "force")
+    calls = []
+    kernel = jconvffn._convffn_bwd_kernel
+    monkeypatch.setattr(jconvffn, "_convffn_bwd_kernel",
+                        lambda *a, **k: calls.append(1) or kernel(*a, **k))
+    jp = jconvffn.ConvFFNParams(**{k: jnp.asarray(v) for k, v in p.items()})
+    with jdispatch.local():
+        out, vjp = jax.vjp(lambda y_, p_: jconvffn.fused_convffn(y_, p_, S_LORA),
+                           jnp.asarray(y, jdt), jp)
+        dy, dp = vjp(jnp.asarray(df, jdt))
+    assert calls, "the JAX side must run its Pallas backward kernel"
+    return (np.asarray(dy.astype(jnp.float32)),
+            {k: np.asarray(getattr(dp, k)) for k in GRAD_FIELDS})
+
+
+def _port_bwd(y, df, p, dtype):
+    params = tconvffn.ConvFFNParams(**{k: torch.from_numpy(v) for k, v in p.items()})
+    dy, g = tconvffn.convffn_bwd_math(torch.from_numpy(y).to(dtype),
+                                      torch.from_numpy(df).to(dtype),
+                                      tconvffn._cast(params, dtype), S_LORA)
+    assert dy.dtype == dtype and all(t.dtype == torch.float32 for t in g)
+    return dy.float().numpy(), {k: getattr(g, k).numpy() for k in GRAD_FIELDS}
+
+
+def _rel_fro(got, want):
+    return np.linalg.norm(got - want) / np.linalg.norm(want)
+
+
+@pytest.mark.parametrize("rank", [4, 0])
+@pytest.mark.parametrize("s", [64, 49])
+def test_convffn_bwd_math_matches_jax_kernel_f32(s, rank, monkeypatch):
+    """Every output to 1e-5 relative Frobenius error; S = 49 is padded to 56
+    by JAX (padded rows give zero contributions on both sides). Rank 0's
+    adapter gradients are zero on both sides (its adapters are zeros)."""
+    y, p = _inputs(s, rank, seed=30 + s + rank)
+    df = np.random.default_rng(s + rank).standard_normal(y.shape).astype(np.float32)
+    want_dy, want = _jax_vjp(y, df, p, jnp.float32, monkeypatch)
+    got_dy, got = _port_bwd(y, df, p, torch.float32)
+    assert _rel_fro(got_dy, want_dy) < 1e-5
+    for k in GRAD_FIELDS:
+        if rank == 0 and k in ("a1", "b1l", "a2", "b2l"):
+            assert not got[k].any() and not want[k].any(), k
+            continue
+        assert got[k].shape == want[k].shape, k
+        assert _rel_fro(got[k], want[k]) < 1e-5, (k, _rel_fro(got[k], want[k]))
+
+
+@pytest.mark.parametrize("s", [64, 49])
+def test_convffn_bwd_math_matches_jax_kernel_bf16(s, monkeypatch):
+    """bf16 activations, f32 parameters cast inside: dy within two bf16 ulps
+    of its largest magnitude (the forward test's bound: the jitted kernel's
+    GELU polynomial may flip a rounding of g or dh; measured half an ulp).
+    The parameter gradients are f32 sums over bf16-rounded terms (a flipped
+    rounding of dh or du moves a whole row's share): each within 1e-2 of its
+    largest magnitude (measured at most 4.6e-3, dA2 at S = 64)."""
+    y, p = _inputs(s, 4, seed=40 + s)
+    df = np.random.default_rng(50 + s).standard_normal(y.shape).astype(np.float32)
+    want_dy, want = _jax_vjp(y, df, p, jnp.bfloat16, monkeypatch)
+    got_dy, got = _port_bwd(y, df, p, torch.bfloat16)
+    ulp = 2.0 ** (np.floor(np.log2(np.abs(want_dy).max())) - 7)
+    assert np.abs(got_dy - want_dy).max() <= 2 * ulp
+    for k in GRAD_FIELDS:
+        assert np.abs(got[k] - want[k]).max() <= 1e-2 * np.abs(want[k]).max(), k
+
+
+def test_convffn_bwd_math_matches_torch_autograd():
+    """In f32, the hand-written backward equals autograd of convffn_math."""
+    y, p = _inputs(49, 4, seed=60)
+    df = np.random.default_rng(61).standard_normal(y.shape).astype(np.float32)
+    leaves = {k: torch.from_numpy(v).requires_grad_(k in GRAD_FIELDS) for k, v in p.items()}
+    yt = torch.from_numpy(y).requires_grad_()
+    tconvffn.convffn_math(yt, tconvffn.ConvFFNParams(**leaves), S_LORA).backward(
+        torch.from_numpy(df))
+    got_dy, got = _port_bwd(y, df, p, torch.float32)
+    assert _rel_fro(got_dy, yt.grad.numpy()) < 1e-5
+    for k in GRAD_FIELDS:
+        assert _rel_fro(got[k], leaves[k].grad.numpy()) < 1e-5, k
+
+
+def _train_leaves(p, dtype):
+    """The parameters as a train step holds them: the BN affine and the LoRA
+    matrices f32 leaves that require grad, the frozen weights in ``dtype``."""
+    out = {}
+    for k, v in p.items():
+        t = torch.from_numpy(v)
+        if k in GRAD_FIELDS:
+            t.requires_grad_()
+        elif k in ("w1", "w2"):
+            t = t.to(dtype)
+        out[k] = t
+    return tconvffn.ConvFFNParams(**out)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_convffn_train_on_cpu_is_the_plain_backward(dtype):
+    """On CPU tensors convffn_train's forward is convffn_math and its
+    backward convffn_bwd_math, bit for bit, and no kernel launches; the f32
+    LoRA and BN-affine leaves get f32 gradients (JAX's f32 masters)."""
+    y, p = _inputs(49, 4, seed=70)
+    df = torch.from_numpy(np.random.default_rng(71).standard_normal(y.shape)
+                          .astype(np.float32)).to(dtype)
+    leaves = _train_leaves(p, dtype)
+    yt = torch.from_numpy(y).to(dtype).requires_grad_()
+    tconvffn.LAUNCHES.update(dict.fromkeys(tconvffn.LAUNCHES, 0))
+    out = tconvffn.convffn_train(yt, leaves, S_LORA)
+    assert type(out.grad_fn).__name__ == "_ConvFFNTrainBackward"
+    cast = tconvffn._cast(leaves, dtype)
+    with torch.no_grad():
+        assert torch.equal(out, tconvffn.convffn_math(yt, cast, S_LORA))
+    out.backward(df)
+    want_dy, want = tconvffn.convffn_bwd_math(yt.detach(), df, cast, S_LORA)
+    assert torch.equal(yt.grad, want_dy)
+    for k in GRAD_FIELDS:
+        g = getattr(leaves, k).grad
+        assert g.dtype == torch.float32 and torch.equal(g, getattr(want, k)), k
+    assert all(n == 0 for n in tconvffn.LAUNCHES.values())
+
+
+@pytest.mark.parametrize("field", ["w1", "b1", "w2", "b2"])
+def test_convffn_train_refuses_trainable_base_weights(field):
+    """JAX's backward returns zero cotangents for fc1/fc2 (frozen-backbone
+    LoRA): a base weight that requires grad is refused, not given zeros."""
+    y, p = _inputs(16, 4, seed=80)
+    leaves = _train_leaves(p, torch.float32)
+    leaves = leaves._replace(**{field: getattr(leaves, field).clone().requires_grad_()})
+    with pytest.raises(ValueError, match="requires grad"):
+        tconvffn.convffn_train(torch.from_numpy(y), leaves, S_LORA)
+
+
+def test_bwd_cost_counts_the_products_and_bytes():
+    """The t8 step's ten backward launches at bs=128 (256² input, rank 8):
+    three products of 2*B*S*C*H per launch (217.4 GFLOP) and the rank-8
+    terms (39.4), 0.260 ms on an H100 at 989 TFLOP/s against 0.193 ms for
+    their 0.648 GB: bound by operations."""
+    stages = [(48, 144, 4096, 2), (96, 288, 1024, 2), (192, 576, 256, 4), (384, 1152, 64, 2)]
+    flops = nbytes = 0
+    for c, h, s, n in stages:
+        f, b = tconvffn.convffn_bwd_cost(128, s, c, h, 8)
+        m = 128 * s
+        assert f == 6 * m * c * h + 2 * m * 8 * (5 * c + 6 * h)
+        assert b == (3 * m * c * 2 + (2 * c * h + 16 * (c + h)) * 2 + (2 * c + h) * 4
+                     + 2 * 128 * 8 * 4 + (2 * c + 16 * (c + h)) * 4)
+        flops, nbytes = flops + n * f, nbytes + n * b
+    assert abs(flops / 989e12 * 1e3 - 0.260) < 1e-3
+    assert abs(nbytes / 3.35e12 * 1e3 - 0.193) < 1e-3

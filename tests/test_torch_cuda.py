@@ -17,7 +17,10 @@ tolerance: 4e-3 + 2e-2*|ref| elementwise, since its values are ~0.04 at
 long S, and in relative Frobenius norm 5e-4 (flash) and 3e-3
 (fused_attn_part, two GEMMs more), about three and two times the largest
 an H100 measured. ``fused_convffn`` (FastViT's ConvFFN) is held to 3e-2
-abs/rel at every fastvit_t8 and fastvit_sa12 stage shape.
+abs/rel at every fastvit_t8 and fastvit_sa12 stage shape; its backward
+``fused_convffn_bwd`` holds dy to the same and each parameter gradient (f32
+sums over all rows) to 2e-3 of its largest magnitude, as the block
+backward's.
 """
 
 import copy
@@ -566,3 +569,132 @@ def test_fastvit_kernels_match_plain(cuda_device, name, launches):
     for got, want in ((hm, hm_p), (z, z_p)):
         err = (got.float() - want.float()).abs().max().item()
         assert err <= 5e-2 * want.float().abs().max().item(), err
+
+
+def _flat_bwd(out):
+    dy, g = out
+    return (dy, *g)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch", [1, 8])
+@pytest.mark.parametrize("stage", CONVFFN_STAGES, ids=lambda t: f"C{t[0]}-H{t[1]}-S{t[2]}")
+def test_convffn_bwd_matches_plain(cuda_device, stage, batch):
+    """dy at 3e-2 abs/rel (unit-scale cotangent), each parameter gradient
+    within 2e-3 of its largest magnitude (chip_smoke.py's GRAD_TOL)."""
+    c, h, s = stage
+    y, p = _convffn_inputs(batch, s, c, h, 8, cuda_device, seed=c + batch)
+    df = torch.from_numpy(np.random.default_rng(c).standard_normal((batch, s, c))
+                          .astype(np.float32)).to(cuda_device, torch.bfloat16)
+    block.reset_launches()
+    got = _flat_bwd(convffn.fused_convffn_bwd(y, df, p, 2.0))
+    want = _flat_bwd(convffn.convffn_bwd_math(y, df, p, 2.0))
+    torch.cuda.synchronize()
+    assert block.LAUNCHES["fused_convffn_bwd"] == 1 and sum(block.LAUNCHES.values()) == 1
+    _assert_bwd_close(got, want)
+
+
+def _assert_bwd_close(got, want):
+    for i, (g, w) in enumerate(zip(got, want)):
+        g, w = g.float(), w.float()
+        assert g.shape == w.shape and torch.isfinite(g).all(), i
+        if i == 0:
+            torch.testing.assert_close(g, w, atol=3e-2, rtol=3e-2)
+        else:
+            err = (g - w).abs().max().item()
+            assert err <= 2e-3 * w.abs().max().item(), (i, err, w.abs().max().item())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rank", [1, 3, 8, 0])
+@pytest.mark.parametrize("batch, seq", [(3, 50), (1, 17), (5, 64)])
+def test_convffn_bwd_ragged_rows_and_ranks(cuda_device, batch, seq, rank):
+    """Ragged row counts (150, 17: not a multiple of the 32-row tile, masks
+    changing inside a tile), ranks 1..8 and rank 0 (rank-1 zeros, s = 1),
+    at t8's stage-0 widths and the backward's fixed grid."""
+    y, p = _convffn_inputs(batch, seq, 48, 144, rank, cuda_device, seed=seq + rank)
+    df = torch.from_numpy(np.random.default_rng(rank).standard_normal((batch, seq, 48))
+                          .astype(np.float32)).to(cuda_device, torch.bfloat16)
+    s_lora = 2.0 if rank else 1.0
+    got = _flat_bwd(convffn.fused_convffn_bwd(y, df, p, s_lora))
+    want = _flat_bwd(convffn.convffn_bwd_math(y, df, p, s_lora))
+    torch.cuda.synchronize()
+    if rank:
+        _assert_bwd_close(got, want)
+    else:
+        torch.testing.assert_close(got[0].float(), want[0].float(), atol=3e-2, rtol=3e-2)
+        assert not any(t.any() for t in got[3:]) and not any(t.any() for t in want[3:])
+    again = _flat_bwd(convffn.fused_convffn_bwd(y, df, p, s_lora))
+    assert all(torch.equal(a, b) for a, b in zip(got, again))  # no atomics
+
+
+@pytest.mark.cuda
+def test_convffn_bwd_refuses_what_it_does_not_take(cuda_device):
+    y, p = _convffn_inputs(1, 64, 48, 144, 8, cuda_device)
+    with pytest.raises(TypeError, match="bf16"):
+        convffn.fused_convffn_bwd(y.float(), y.float(), p, 2.0)
+    with pytest.raises(ValueError, match="df must be"):
+        convffn.fused_convffn_bwd(y, y[:, :32], p, 2.0)
+    with pytest.raises(ValueError, match="multiples of 16"):
+        y76, p76 = _convffn_inputs(1, 64, 76, 304, 8, cuda_device)   # fastvit_ma36
+        convffn.fused_convffn_bwd(y76, y76, p76, 2.0)
+    with pytest.raises(ValueError, match="rank"):
+        y16, p16 = _convffn_inputs(1, 64, 48, 144, 16, cuda_device)
+        convffn.fused_convffn_bwd(y16, y16, p16, 2.0)
+    leaves = p._replace(w1=p.w1.clone().requires_grad_())
+    with pytest.raises(ValueError, match="requires grad"):
+        convffn.convffn_train(y, leaves, 2.0)
+
+
+@pytest.mark.cuda
+def test_fastvit_train_step_kernels_match_plain(cuda_device):
+    """One fastvit_t8 + LoRA train step at 256², batch 2, kernels vs plain
+    in bf16 and plain in f32, the same dropout masks: 10 forward and 10
+    backward ConvFFN launches, nothing else; losses agree to 1e-3; each
+    checked gradient's error vs f32, and its distance from the plain path,
+    at most twice the plain bf16 path's error vs f32 plus 1e-2."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    config = {"model_name": "timm/fastvit_t8.apple_in1k", "use_lora": True}
+    model = registry.create_model_from_config(config, device=cuda_device)
+    with torch.no_grad():
+        for n, prm in model.named_parameters():
+            if "lora_B" in n:
+                prm.copy_(torch.randn_like(prm) * 0.02)
+            elif n.rsplit(".", 1)[-1].startswith("layer_scale"):
+                prm.uniform_(0.1, 1.0)
+    rng = np.random.default_rng(2)
+    kps = rng.uniform(20, 230, (2, 24, 3)).astype(np.float32)
+    kps[..., 2] = 2.0
+    batch = {"image": torch.from_numpy(rng.standard_normal((2, 3, 256, 256)).astype(np.float32)),
+             "2d_keypoints": torch.from_numpy(kps),
+             "z_coords": torch.from_numpy(rng.standard_normal((2, 24)).astype(np.float32))}
+    batch = {k: v.to(cuda_device) for k, v in batch.items()}
+    names = ("backbone.stages.0.blocks.0.mlp.fc1.lora_A.weight",
+             "backbone.stages.3.blocks.1.mlp.fc2.lora_B.weight",
+             "backbone.head.heatmap_head.prediction.3.weight")
+    out = {}
+    for name, kernels, dtype in (("kernels", True, torch.bfloat16), ("plain", False, torch.bfloat16),
+                                 ("f32", False, torch.float32)):
+        m = copy.deepcopy(model)
+        state, opt, part = create_train_state(m, config)
+        step = prepare_batch(make_train_step(m, opt, part, kernels=kernels), (256, 48), dtype)
+        block.reset_launches()
+        _, stats = step(state, batch, 3e-5, 0)
+        torch.cuda.synchronize()
+        want = 10 if kernels else 0
+        assert block.LAUNCHES == {**dict.fromkeys(block.LAUNCHES, 0), "fused_convffn": want,
+                                  "fused_convffn_bwd": want}
+        params = dict(m.named_parameters())
+        out[name] = (stats, {n: params[n].grad.float() for n in names})
+    (ks, kg), (ps, pg), (_, rg) = out["kernels"], out["plain"], out["f32"]
+    for k in ("loss", "kp_loss", "z_loss", "weight"):
+        assert abs(ks[k].item() - ps[k].item()) <= 1e-3 * abs(ps[k].item()), k
+
+    def rel(a, b):
+        return ((a - b).norm() / b.norm()).item()
+
+    for n in names:
+        assert torch.isfinite(kg[n]).all() and kg[n].abs().max() > 0, n
+        tol = 2 * rel(pg[n], rg[n]) + 1e-2
+        assert max(rel(kg[n], rg[n]), rel(kg[n], pg[n])) <= tol, n

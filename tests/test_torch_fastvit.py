@@ -218,16 +218,26 @@ def test_trainable_parameters_follow_jax_mask(jax_lora):
 
 
 def test_refusals():
-    """Train mode and a ConvFFN under grad with a trainable weight are the
-    training slice's: refused, not run without a backward."""
+    """What stays refused: a ConvFFN whose base fc1/fc2 require grad (its
+    backward gives them no gradient, as JAX's does), in train mode and under
+    grad in eval; and on the card fastvit_ma36's C = 76, which the ConvFFN
+    kernels' 16-wide tiles do not take. LoRA adapters that require grad now
+    train, in either mode."""
     model = tregistry.create_model_from_config(dict(CONFIG), device="cpu")
     x = torch.zeros(1, 3, 128, 128)
-    with pytest.raises(ValueError, match="no backward yet"):
-        model(x)                         # LoRA A/B require grad, grad mode on
-    with pytest.raises(NotImplementedError, match="eval only"):
-        model.train()(x)
+    model(x)                             # eval under grad, LoRA A/B trainable
+    model.train()(x)
+    model.backbone.stages[0].blocks[0].mlp.fc1.original_conv.weight.requires_grad_(True)
+    for mode in (model.train, model.eval):
+        with pytest.raises(ValueError, match="requires grad"):
+            mode()(x)
     with torch.no_grad():
         model.eval()(x)
+    if torch.cuda.is_available():
+        ma36 = tregistry.create_model_from_config(
+            {"model_name": "timm/fastvit_ma36.apple_in1k"}, device="cuda")
+        with pytest.raises(ValueError, match="multiples of 16"), torch.no_grad():
+            ma36(torch.zeros(1, 3, 256, 256, device="cuda", dtype=torch.bfloat16))
 
 
 def test_mobileone_folds_match_branch_math():
