@@ -143,6 +143,8 @@ SA12_LORA_CONFIG = {**SA12_CONFIG, "use_lora": True}
 T8_TRAIN_LAUNCHES = {"fused_convffn": 10, "fused_convffn_bwd": 10}
 SA12_TRAIN_LAUNCHES = {"fused_convffn": 12, "fused_convffn_bwd": 12, "flash_fwd": 2,
                        "flash_bwd": 2}
+# fastvit_sa12's attention at 256²: (heads, S, dh) over stage 3's 8x8 grid.
+SA12_FLASH_SHAPE = (16, 64, 32)
 # The first and the last ConvFFN's adapters (t8 and sa12 both end with two
 # blocks) and the heads' first conv.
 FASTVIT_GRAD_NAMES = (
@@ -275,14 +277,15 @@ def record_launches(results: dict, path: str, launches: dict) -> None:
         results.setdefault(name, {"max_abs_err": 0.0}).setdefault("launches", {})[path] = n
 
 
-def attn_check(got: torch.Tensor, want: torch.Tensor,
-               fro_tol: float) -> tuple[float, float, bool]:
-    """The attention tolerance: (max abs error, relative Frobenius error, ok)."""
+def attn_check(got: torch.Tensor, want: torch.Tensor, fro_tol: float,
+               atol_scale: float = 1.0) -> tuple[float, float, bool]:
+    """The attention tolerance, its absolute part scaled by ``atol_scale``:
+    (max abs error, relative Frobenius error, ok)."""
     got, want = got.float(), want.float()
     err = (got - want).abs()
     fro = ((got - want).norm() / want.norm()).item()
     ok = (bool(torch.isfinite(got).all()) and fro <= fro_tol
-          and bool((err <= ATTN_ATOL + ATTN_RTOL * want.abs()).all()))
+          and bool((err <= ATTN_ATOL * atol_scale + ATTN_RTOL * want.abs()).all()))
     return err.max().item(), fro, ok
 
 
@@ -421,11 +424,38 @@ def phase_train_kernels(results: dict) -> None:
             row["max_grad_err_rel"] = max(row.get("max_grad_err_rel", 0.0), grad_rel)
 
 
-def flash_inputs(b: int, gen: torch.Generator) -> list:
-    """Seeded q, k, v and a unit-scale cotangent, (b, 6, 1297, 64) bf16: the
-    attention of dinov2-small at 504²."""
-    shape = (b, H, S_LONG, D // H)
-    return [torch.randn(shape, generator=gen).to("cuda", torch.bfloat16) for _ in range(4)]
+def flash_inputs(b: int, gen: torch.Generator, shape: tuple = (H, S_LONG, D // H)) -> list:
+    """Seeded q, k, v and a unit-scale cotangent, (b, *shape) bf16: by
+    default the attention of dinov2-small at 504², (b, 6, 1297, 64)."""
+    return [torch.randn((b, *shape), generator=gen).to("cuda", torch.bfloat16)
+            for _ in range(4)]
+
+
+def check_flash(results: dict, q, k, v, g, where: str) -> None:
+    """flash_attention's forward launch and backward pair against flash_math
+    and flash_bwd_math on o, dq, dk and dv, at the attention tolerance."""
+    from dino_pose_tpu_torch.ops import attention as A
+
+    scale = q.shape[-1] ** -0.5
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    o = A.flash_attention(*leaves, scale)
+    o.backward(g)
+    checks = (("flash_attention", (o.detach(),), (A.flash_math(q, k, v, scale),)),
+              ("flash_attention_bwd", tuple(t.grad for t in leaves),
+               A.flash_bwd_math(q, k, v, g, scale)))
+    torch.cuda.synchronize()
+    for name, got, want in checks:
+        errs, fros, oks = zip(*(attn_check(x, w, FLASH_FRO) for x, w in zip(got, want)))
+        ok = all(oks)
+        outs = "o" if len(got) == 1 else "dq dk dv"
+        log(f"kernel {name} {where}: max_abs ({outs}) = {' '.join(f'{e:.6g}' for e in errs)} "
+            f"rel_fro = {' '.join(f'{e:.4g}' for e in fros)} max|ref| = "
+            f"{' '.join(f'{w.float().abs().max().item():.4g}' for w in want)} "
+            f"tol={attn_tol_text(FLASH_FRO)} -> {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"{name} at {where} disagrees with its plain version")
+        row = results.setdefault(name, {"max_abs_err": 0.0})
+        row["max_abs_err"] = max(row["max_abs_err"], *errs)
 
 
 def flash_cost(b: int) -> dict:
@@ -441,41 +471,28 @@ def flash_cost(b: int) -> dict:
 
 def phase_flash(results: dict) -> dict:
     """flash_attention's kernels (a forward launch, a backward pair) against
-    flash_math and flash_bwd_math at (B, 6, 1297, 64) bf16, B = 1, 8, 32, on
-    o, dq, dk and dv; then their times beside the plain versions', the bound
-    and torch's scaled_dot_product_attention (forward; backward alone on a
-    kept graph, and forward+backward), the library yardstick, which the port
-    never calls. Returns the times by batch."""
+    flash_math and flash_bwd_math on o, dq, dk and dv, bf16, B = 1, 8, 32:
+    at (B, 6, 1297, 64), dinov2-small's at 504², and at (B, 16, 64, 32),
+    fastvit_sa12's attention stage at 256² (32-wide heads; its train batch is
+    32); then, at the first shape, their times beside the plain versions',
+    the bound and torch's scaled_dot_product_attention (forward; backward
+    alone on a kept graph, and forward+backward), the library yardstick,
+    which the port never calls. Returns the times by batch."""
     import torch.nn.functional as F
 
     from dino_pose_tpu_torch.ops import attention as A
     from dino_pose_tpu_torch.ops import block as B
 
-    gen = torch.Generator().manual_seed(SEED + 6)
+    gen, gen_sa12 = (torch.Generator().manual_seed(SEED + i) for i in (6, 10))
     scale = (D // H) ** -0.5
     times = {}
     for b in FLASH_BATCHES:
         q, k, v, g = flash_inputs(b, gen)
+        check_flash(results, q, k, v, g, f"B={b}")
+        heads, s, dh = SA12_FLASH_SHAPE
+        check_flash(results, *flash_inputs(b, gen_sa12, SA12_FLASH_SHAPE),
+                    f"B={b} (fastvit_sa12: {heads} heads, S={s}, dh={dh})")
         leaves = [t.clone().requires_grad_() for t in (q, k, v)]
-        o = A.flash_attention(*leaves, scale)
-        o.backward(g)
-        checks = (("flash_attention", (o.detach(),), (A.flash_math(q, k, v, scale),)),
-                  ("flash_attention_bwd", tuple(t.grad for t in leaves),
-                   A.flash_bwd_math(q, k, v, g, scale)))
-        torch.cuda.synchronize()
-        for name, got, want in checks:
-            errs, fros, oks = zip(*(attn_check(x, w, FLASH_FRO) for x, w in zip(got, want)))
-            ok = all(oks)
-            outs = "o" if len(got) == 1 else "dq dk dv"
-            log(f"kernel {name} B={b}: max_abs ({outs}) = {' '.join(f'{e:.6g}' for e in errs)} "
-                f"rel_fro = {' '.join(f'{e:.4g}' for e in fros)} max|ref| = "
-                f"{' '.join(f'{w.float().abs().max().item():.4g}' for w in want)} "
-                f"tol={attn_tol_text(FLASH_FRO)} -> {'ok' if ok else 'FAIL'}")
-            if not ok:
-                raise AssertionError(f"{name} at B={b} disagrees with its plain version")
-            row = results.setdefault(name, {"max_abs_err": 0.0})
-            row["max_abs_err"] = max(row["max_abs_err"], *errs)
-        del checks, o
 
         saved = dict(B.LAUNCHES)
         _, stats = A.flash_fwd(q, k, v, scale)
@@ -710,59 +727,83 @@ def clone(obj):
     return obj
 
 
-def check_step_tensors(tag: str, name: str, args: tuple, out, training: dict) -> bool:
-    """A backward wrapper's output in the first train step against its plain
-    version on the same inputs (the step's own activations, cotangent and
-    weights). The activation cotangent is linear in the incoming one, so the
-    kernel tolerance's absolute part is scaled by its max|.|; each weight
-    gradient is held to GRAD_TOL of its largest magnitude."""
+def plain_pair(name: str, args: tuple, out) -> tuple:
+    """A recorded wrapper call's (outputs, its plain version's outputs on the
+    same inputs, the incoming cotangent or None for a forward)."""
+    from dino_pose_tpu_torch.ops import attention as A
     from dino_pose_tpu_torch.ops import block as B
     from dino_pose_tpu_torch.ops import convffn as CF
 
     if name == "fused_mlp_dx":
         x2, dy, mp, eps = args
-        got, want = (out,), (B.mlp_dx_math(x2, dy, mp, eps=eps),)
-    elif name == "fused_mlp_bwd":
+        return (out,), (B.mlp_dx_math(x2, dy, mp, eps=eps),), dy
+    if name == "fused_mlp_bwd":
         x2, dy, mp, eps = args
-        got, want = flat(out), flat(B.mlp_bwd_math(x2, dy, mp, eps=eps))
-    elif name == "fused_convffn_bwd":
-        y, dy, p, s_lora = args
-        got, want = flat(out), flat(CF.convffn_bwd_math(y, dy, p, s_lora))
-    else:
+        return flat(out), flat(B.mlp_bwd_math(x2, dy, mp, eps=eps)), dy
+    if name == "fused_attn_bwd":
         x, dy, atp, num_heads, eps = args
-        got, want = flat(out), flat(B.attn_bwd_math(x, dy, atp, num_heads=num_heads, eps=eps))
-    dy_max = dy.float().abs().max().item()
-    act_err, grad_rel, ok = compare_outputs(got, want, act_scale=dy_max)
-    ok &= dy_max > 0
-    training.setdefault("step1_tensors", {})[name] = {
-        "max_abs": act_err, "max_dy": dy_max, "max_abs_over_max_dy": act_err / dy_max,
-        "max_grad_err_rel": grad_rel}
-    log(f"{tag} train step 0 {name} on the step's tensors: max_abs={act_err:.6g} "
-        f"max|dy|={dy_max:.6g} (ratio {act_err / dy_max:.4g}); weight grads max_err/max|ref| "
-        f"{grad_rel:.4g}; tol=(atol {KERNEL_ATOL} + rtol {KERNEL_RTOL}*|ref|) scaled by "
-        f"max|dy|, grads {GRAD_TOL}*max|ref| -> {'ok' if ok else 'FAIL'}")
+        return flat(out), flat(B.attn_bwd_math(x, dy, atp, num_heads=num_heads, eps=eps)), dy
+    if name == "fused_convffn":
+        y, p, s_lora = args
+        return (out,), (CF.convffn_math(y, p, s_lora),), None
+    if name == "fused_convffn_bwd":
+        y, df, p, s_lora = args
+        return flat(out), flat(CF.convffn_bwd_math(y, df, p, s_lora)), df
+    if name == "flash_fwd":
+        q, k, v, scale = args
+        return out[:1], (A.flash_math(q, k, v, scale),), None
+    q, k, v, do, _, scale = args  # flash_bwd
+    return out, A.flash_bwd_math(q, k, v, do, scale), do
+
+
+def check_step_tensors(tag: str, name: str, which: str, args: tuple, out,
+                       training: dict) -> bool:
+    """A wrapper's output in the first train step against its plain version
+    on the same inputs (the step's own activations, cotangent and weights).
+    A backward's outputs are linear in the incoming cotangent, so the
+    absolute part of the tolerance is scaled by its max|.|. Activations at
+    the kernel tolerance and each weight gradient within GRAD_TOL of its
+    largest magnitude; the flash outputs at the attention tolerance."""
+    got, want, ct = plain_pair(name, args, out)
+    ct_max = 1.0 if ct is None else ct.float().abs().max().item()
+    if name.startswith("flash"):
+        errs, fros, oks = zip(*(attn_check(g, w, FLASH_FRO, ct_max) for g, w in zip(got, want)))
+        act_err, ok = max(errs), all(oks)
+        extra = {"rel_fro": max(fros)}
+        tol = attn_tol_text(FLASH_FRO)
+    else:
+        act_err, grad_rel, ok = compare_outputs(got, want, act_scale=ct_max)
+        extra = {"max_grad_err_rel": grad_rel} if len(got) > 1 else {}
+        tol = f"atol {KERNEL_ATOL} + rtol {KERNEL_RTOL}*|ref|, grads {GRAD_TOL}*max|ref|"
+    ok &= ct_max > 0
+    training.setdefault("step1_tensors", {})[f"{name} {which}"] = {
+        "max_abs": act_err, "max_ct": ct_max, "max_abs_over_max_ct": act_err / ct_max, **extra}
+    log(f"{tag} train step 0 {name} ({which} call) on the step's tensors: max_abs={act_err:.6g} "
+        f"max|ct|={ct_max:.6g} (ratio {act_err / ct_max:.4g})"
+        + "".join(f" {k}={v:.4g}" for k, v in extra.items())
+        + f"; tol={tol}, atol scaled by max|ct| -> {'ok' if ok else 'FAIL'}")
     return ok
 
 
 def wrapper_module(name: str):
-    """The module whose global ``name`` a backward wrapper is called by."""
+    """The module whose global ``name`` a recorded wrapper is called by."""
+    from dino_pose_tpu_torch.ops import attention as A
     from dino_pose_tpu_torch.ops import block as B
     from dino_pose_tpu_torch.ops import convffn as CF
 
-    return CF if name.startswith("fused_convffn") else B
+    return CF if name.startswith("fused_convffn") else A if name.startswith("flash") else B
 
 
 def phase_train(results: dict, training: dict, tag: str, config: dict, per_step: dict,
                 grad_names: tuple, recorded: tuple, batch_size: int = TRAIN_BATCH,
-                image_size: int = 224, steps: int = TRAIN_STEPS, timed: int = 5,
-                record_last: bool = False):
+                image_size: int = 224, steps: int = TRAIN_STEPS, timed: int = 5):
     """``steps`` fine-tune steps of the model ``config`` names (dinov2-small,
     or a FastViT) at ``batch_size`` through the kernels, as many from an
     identical copy through the plain versions (the same dropout masks),
-    compared step by step; the first step's first call of each ``recorded``
-    backward wrapper (the top layer's; with ``record_last`` its last call,
-    the first block's) held against its plain version on its own inputs;
-    then step times over ``timed`` steps."""
+    compared step by step; the first step's first and last call of each
+    ``recorded`` wrapper (a backward's first call is the top layer's, its
+    last the bottom one's) held against its plain version on its own
+    inputs; then step times over ``timed`` steps."""
     from dino_pose_tpu_torch.models.registry import create_model_from_config
     from dino_pose_tpu_torch.ops import block as B
 
@@ -775,7 +816,7 @@ def phase_train(results: dict, training: dict, tag: str, config: dict, per_step:
     pstate, pstep = make_step(plain_model, config, kernels=False, image_size=image_size)
 
     want_step = expected(per_step)
-    seen = {}
+    first, last = {}, {}
     originals = {name: getattr(wrapper_module(name), name) for name in recorded}
 
     def recorder(name):
@@ -783,8 +824,9 @@ def phase_train(results: dict, training: dict, tag: str, config: dict, per_step:
 
         def recording(*args):
             out = fn(*args)
-            if name not in seen or record_last:
-                seen[name] = (clone(args), clone(out))
+            entry = (clone(args), clone(out))
+            first.setdefault(name, entry)
+            last[name] = entry  # the first entry itself when there is one call
             return out
         return recording
 
@@ -813,10 +855,16 @@ def phase_train(results: dict, training: dict, tag: str, config: dict, per_step:
     record_launches(results, f"{tag}_train", launches)
     log(f"{tag} training-path launches over {steps} steps: {launches}")
 
-    bad = [name for name in recorded if not check_step_tensors(tag, name, *seen[name], training)]
+    calls = [(name, which, entry) for name in recorded
+             for which, entry in (("first", first[name]), ("last", last[name]))
+             if which == "first" or entry is not first[name]]
+    bad = [f"{name} ({which} call)" for name, which, entry in calls
+           if not check_step_tensors(tag, name, which, *entry, training)]
     if bad:
         raise AssertionError(f"{tag}: {bad} disagree with their plain versions on the step's tensors")
-    seen.clear()
+    first.clear()
+    last.clear()
+    del calls
 
     # The step-1 gradients in f32 (plain versions, TF32 off) from the same
     # weights and dropout masks: the yardstick for both bf16 paths.
@@ -888,6 +936,65 @@ def phase_train(results: dict, training: dict, tag: str, config: dict, per_step:
     training["peak_mem_gib_kernels"] = torch.cuda.max_memory_allocated() / 2**30
     log(f"{tag} training " + json.dumps(training))
     return step, state, batch
+
+
+def phase_backbone_grads(training: dict, tag: str, config: dict, batch_size: int) -> None:
+    """The FastViT backbone's LoRA gradients alone, in train mode, under a
+    seeded unit cotangent on its feature map, from one seeded model and one
+    dropout generator: kernels (bf16), plain (bf16) and plain f32 (TF32 off).
+    The whole step's gradients pass the heads' train-mode BatchNorms and
+    ReLUs, which amplify any rounding (JAX's own bf16 step moves them ~40%
+    from its f32, tests/test_torch_fastvit_train.py), so the step compares
+    them only loosely; with no head in the way bf16 moves these a few
+    percent, and every adapter's gradient through the kernels must stay
+    within GRAD_NOISE_FACTOR times the plain path's error against f32, plus
+    GRAD_NOISE_SLACK. Every ConvFFN's forward and backward kernel (and sa12's
+    flash pair) run here; their launches are not main-path launches."""
+    from dino_pose_tpu_torch.models.registry import create_model_from_config
+    from dino_pose_tpu_torch.ops import block as B
+    from dino_pose_tpu_torch.train.step import step_generator
+
+    model = create_model_from_config(dict(config), seed=SEED, device="cuda")
+    randomise_for_serving(model, torch.Generator().manual_seed(SEED + 4))
+    gen = torch.Generator().manual_seed(SEED + 9)
+    x = torch.randn((batch_size, 3, FASTVIT_IMAGE, FASTVIT_IMAGE), generator=gen).cuda()
+    saved = dict(B.LAUNCHES)
+    grads, ct = {}, None
+    for which, kernels, dtype in (("kernels", True, torch.bfloat16),
+                                  ("plain", False, torch.bfloat16),
+                                  ("f32", False, torch.float32)):
+        m = copy.deepcopy(model).train()
+        fmap = m.backbone(x.to(dtype), kernels=kernels,
+                          generator=step_generator(SEED, 0, x.device))
+        if ct is None:
+            ct = torch.randn(fmap.shape, generator=gen).cuda()
+        fmap.float().backward(ct)
+        grads[which] = {n: p.grad for n, p in m.named_parameters() if "lora_" in n}
+        del m, fmap
+    torch.cuda.synchronize()
+    B.LAUNCHES.update(saved)
+
+    rows, bad = {}, []
+    for n, want in grads["f32"].items():
+        got, plain = grads["kernels"][n], grads["plain"][n]
+        k_ref, p_ref, kp = rel_err(got, want), rel_err(plain, want), rel_err(got, plain)
+        tol = GRAD_NOISE_FACTOR * p_ref + GRAD_NOISE_SLACK
+        rows[n] = {"kernels_vs_f32": k_ref, "plain_vs_f32": p_ref, "kernels_vs_plain": kp}
+        if not (bool(torch.isfinite(got).all()) and want.abs().max() > 0 and k_ref <= tol):
+            bad.append(n)
+            log(f"{tag} backbone LoRA grad {n}: kernels vs f32 {k_ref:.4g}, plain vs f32 "
+                f"{p_ref:.4g} (tol {tol:.4g}) -> FAIL")
+    worst = max(rows, key=lambda n: rows[n]["kernels_vs_f32"] / rows[n]["plain_vs_f32"])
+    stat = {k: max(r[k] for r in rows.values()) for k in rows[worst]}
+    training["backbone_grad_rel"] = {"max": stat, "worst": {worst: rows[worst]}, "leaves": rows}
+    log(f"{tag} backbone LoRA grads ({len(rows)} leaves, batch {batch_size}, seeded cotangent on "
+        f"the feature map): largest rel Frobenius kernels vs f32 {stat['kernels_vs_f32']:.4g}, "
+        f"plain vs f32 {stat['plain_vs_f32']:.4g}, kernels vs plain "
+        f"{stat['kernels_vs_plain']:.4g}; worst kernels/plain ratio {worst} "
+        f"{rows[worst]['kernels_vs_f32']:.4g}/{rows[worst]['plain_vs_f32']:.4g} (tol "
+        f"{GRAD_NOISE_FACTOR}*plain+{GRAD_NOISE_SLACK}) -> {'FAIL' if bad else 'ok'}")
+    if bad:
+        raise AssertionError(f"{tag}: backbone LoRA gradients out of tolerance: {bad}")
 
 
 def phase_times(results: dict) -> dict:
@@ -971,114 +1078,78 @@ def convffn_inputs(b: int, s: int, c: int, h: int, r: int, gen: torch.Generator)
     return n(b, s, c).to("cuda", torch.bfloat16), p
 
 
-def phase_convffn(results: dict) -> dict:
-    """fused_convffn vs convffn_math at every fastvit_t8 and fastvit_sa12
-    stage shape (256² input), bf16, batch 1 and 8, at the kernel tolerance;
-    then kernel, plain and bound times of each. Returns, by batch, each
-    model's per-forward sums over its ConvFFN launches (stage time x blocks)
-    and the per-stage numbers."""
+def phase_convffn(results: dict, backward: bool) -> dict:
+    """fused_convffn (with ``backward``, fused_convffn_bwd) against
+    convffn_math (convffn_bwd_math, with a unit-scale seeded cotangent) at
+    every fastvit_t8 and fastvit_sa12 stage shape (256² input), bf16, at
+    batch 1, 8 and the model's train batch (128, 32): the forward at batch 1
+    and 8 at the serving rank (t8: 8, sa12: 0, rank-1 zero adapters with
+    ones masks), everything else at rank 8 with Dropout2d-style masks.
+    Outputs at the kernel tolerance, each parameter gradient within GRAD_TOL
+    of its largest magnitude; then kernel, plain and bound times. Returns, by
+    batch, each model's sums over the launches of one forward (step) (stage
+    time x blocks) and the per-stage numbers."""
     from dino_pose_tpu_torch.ops import block as B
     from dino_pose_tpu_torch.ops import convffn as CF
 
-    gen = torch.Generator().manual_seed(SEED + 7)
+    name = "fused_convffn_bwd" if backward else "fused_convffn"
+    gen = torch.Generator().manual_seed(SEED + (8 if backward else 7))
+    gen_train = gen if backward else torch.Generator().manual_seed(SEED + 11)
     out: dict = {}
-    for model, stages in CONVFFN_STAGES.items():
-        r = CONVFFN_RANK[model]
-        s_lora = 16.0 / r if r else 1.0
-        for b in (1, 8):
-            total = {"ms": 0.0, "plain_ms": 0.0, "flops": 0, "bytes": 0}
-            for i, (c, h, s, blocks) in enumerate(stages):
-                y, p = convffn_inputs(b, s, c, h, r, gen)
-                got = CF.fused_convffn(y, p, s_lora).float()
-                want = CF.convffn_math(y, p, s_lora).float()
-                torch.cuda.synchronize()
-                max_abs = (got - want).abs().max().item()
-                ok = bool(torch.isfinite(got).all()) and torch.allclose(
-                    got, want, atol=KERNEL_ATOL, rtol=KERNEL_RTOL)
-                where = f"{model} stage {i} (C={c}, H={h}, S={s}, R={r}) B={b}"
-                log(f"kernel fused_convffn {where}: max_abs={max_abs:.6g} max|ref|="
-                    f"{want.abs().max().item():.4g} tol=atol {KERNEL_ATOL} + rtol {KERNEL_RTOL}"
-                    f"*|ref| -> {'ok' if ok else 'FAIL'}")
-                if not ok:
-                    raise AssertionError(f"fused_convffn at {where} disagrees with convffn_math")
-                row = results.setdefault("fused_convffn", {"max_abs_err": 0.0})
-                row["max_abs_err"] = max(row["max_abs_err"], max_abs)
-                saved = dict(B.LAUNCHES)
-                with torch.inference_mode():
-                    ms = cuda_ms(lambda: CF.fused_convffn(y, p, s_lora), iters=20)
-                    plain_ms = cuda_ms(lambda: CF.convffn_math(y, p, s_lora), iters=10, warmup=2)
-                B.LAUNCHES.update(saved)  # timing launches are not main-path launches
-                flops, nbytes = CF.convffn_cost(b, s, c, h, max(r, 1))
-                bound, by = B.bound_ms(flops, nbytes)
-                log(f"time fused_convffn {where}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-                    f"bound {bound:.5f} ms ({by}); x{blocks} blocks a forward")
-                out.setdefault(b, {}).setdefault(f"{model}_stages", []).append({
-                    "C": c, "H": h, "S": s, "R": r, "blocks": blocks, "ms": ms,
-                    "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
-                    "max_abs_err": max_abs})
-                total["ms"] += blocks * ms
-                total["plain_ms"] += blocks * plain_ms
-                total["flops"] += blocks * flops
-                total["bytes"] += blocks * nbytes
-            bound, by = B.bound_ms(total["flops"], total["bytes"])
-            out[b][model] = {"ms": total["ms"], "plain_ms": total["plain_ms"], "bound_ms": bound,
-                             "bound_by": by, "library_ms": None}
-            log(f"time fused_convffn {model} forward ({sum(t[3] for t in stages)} launches) "
-                f"B={b}: kernel {total['ms']:.4f} ms, plain {total['plain_ms']:.4f} ms, "
-                f"bound {bound:.5f} ms ({by})")
-    return out
-
-
-def phase_convffn_bwd(results: dict) -> dict:
-    """fused_convffn_bwd vs convffn_bwd_math at every fastvit_t8 and
-    fastvit_sa12 stage shape, bf16, LoRA rank 8 with real masks, batch 1, 8
-    and the model's train batch (128, 32), with a unit-scale seeded
-    cotangent: dy at the kernel tolerance, each parameter gradient within
-    GRAD_TOL of its largest magnitude; then kernel, plain and bound times.
-    Returns, by batch, each model's per-step sums over its backward launches
-    and the per-stage numbers."""
-    from dino_pose_tpu_torch.ops import block as B
-    from dino_pose_tpu_torch.ops import convffn as CF
-
-    gen = torch.Generator().manual_seed(SEED + 8)
-    out: dict = {}
-    r, s_lora = 8, 2.0
     for model, stages in CONVFFN_STAGES.items():
         train_batch = T8_TRAIN_BATCH if model == "t8" else SA12_TRAIN_BATCH
-        for b in (1, 8, train_batch):
+        rank = 8 if backward else CONVFFN_RANK[model]
+        for b, r, g in ((1, rank, gen), (8, rank, gen), (train_batch, 8, gen_train)):
+            s_lora = 16.0 / r if r else 1.0
             total = {"ms": 0.0, "plain_ms": 0.0, "flops": 0, "bytes": 0}
             for i, (c, h, s, blocks) in enumerate(stages):
-                y, p = convffn_inputs(b, s, c, h, r, gen)
-                df = torch.randn((b, s, c), generator=gen).to("cuda", torch.bfloat16)
-                got = flat(CF.fused_convffn_bwd(y, df, p, s_lora))
-                want = flat(CF.convffn_bwd_math(y, df, p, s_lora))
+                y, p = convffn_inputs(b, s, c, h, r, g)
+                if backward:
+                    df = torch.randn((b, s, c), generator=g).to("cuda", torch.bfloat16)
+
+                    def kern():
+                        return flat(CF.fused_convffn_bwd(y, df, p, s_lora))
+
+                    def plain():
+                        return flat(CF.convffn_bwd_math(y, df, p, s_lora))
+                    flops, nbytes = CF.convffn_bwd_cost(b, s, c, h, r)
+                else:
+                    def kern():
+                        return (CF.fused_convffn(y, p, s_lora),)
+
+                    def plain():
+                        return (CF.convffn_math(y, p, s_lora),)
+                    flops, nbytes = CF.convffn_cost(b, s, c, h, max(r, 1))
+                got, want = kern(), plain()
                 torch.cuda.synchronize()
                 act_err, grad_rel, ok = compare_outputs(got, want)
                 where = f"{model} stage {i} (C={c}, H={h}, S={s}, R={r}) B={b}"
-                log(f"kernel fused_convffn_bwd {where}: max_abs(dy)={act_err:.6g} "
-                    f"max_err/max|ref|(grads)={grad_rel:.6g} tol=atol {KERNEL_ATOL} + rtol "
-                    f"{KERNEL_RTOL}*|ref|, grads {GRAD_TOL}*max|ref| -> {'ok' if ok else 'FAIL'}")
+                grads = (f" max_err/max|ref|(grads)={grad_rel:.6g}" if backward else "")
+                log(f"kernel {name} {where}: max_abs={act_err:.6g} max|ref|="
+                    f"{want[0].float().abs().max().item():.4g}{grads} tol=atol {KERNEL_ATOL} + "
+                    f"rtol {KERNEL_RTOL}*|ref|{f', grads {GRAD_TOL}*max|ref|' if backward else ''}"
+                    f" -> {'ok' if ok else 'FAIL'}")
                 if not ok:
-                    raise AssertionError(f"fused_convffn_bwd at {where} disagrees with "
-                                         "convffn_bwd_math")
-                row = results.setdefault("fused_convffn_bwd",
-                                         {"max_abs_err": 0.0, "max_grad_err_rel": 0.0})
+                    raise AssertionError(f"{name} at {where} disagrees with its plain version")
+                row = results.setdefault(name, {"max_abs_err": 0.0})
                 row["max_abs_err"] = max(row["max_abs_err"], act_err)
-                row["max_grad_err_rel"] = max(row.get("max_grad_err_rel", 0.0), grad_rel)
+                if backward:
+                    row["max_grad_err_rel"] = max(row.get("max_grad_err_rel", 0.0), grad_rel)
                 del got, want
                 saved = dict(B.LAUNCHES)
-                ms = cuda_ms(lambda: CF.fused_convffn_bwd(y, df, p, s_lora), iters=10, warmup=2)
-                plain_ms = cuda_ms(lambda: CF.convffn_bwd_math(y, df, p, s_lora), iters=3,
-                                   warmup=1)
+                with torch.inference_mode():
+                    ms = cuda_ms(kern, iters=10 if backward else 20, warmup=2 if backward else 5)
+                    plain_ms = cuda_ms(plain, iters=3 if backward else 10,
+                                       warmup=1 if backward else 2)
                 B.LAUNCHES.update(saved)  # timing launches are not main-path launches
-                flops, nbytes = CF.convffn_bwd_cost(b, s, c, h, r)
                 bound, by = B.bound_ms(flops, nbytes)
-                log(f"time fused_convffn_bwd {where}: kernel {ms:.4f} ms, plain {plain_ms:.4f} "
-                    f"ms, bound {bound:.5f} ms ({by}); x{blocks} blocks a step")
+                log(f"time {name} {where}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+                    f"bound {bound:.5f} ms ({by}); x{blocks} blocks a "
+                    f"{'step' if backward else 'forward'}")
                 out.setdefault(b, {}).setdefault(f"{model}_stages", []).append({
                     "C": c, "H": h, "S": s, "R": r, "blocks": blocks, "ms": ms,
                     "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
-                    "max_abs_err": act_err, "max_grad_err_rel": grad_rel})
+                    "max_abs_err": act_err, **({"max_grad_err_rel": grad_rel} if backward else {})})
                 total["ms"] += blocks * ms
                 total["plain_ms"] += blocks * plain_ms
                 total["flops"] += blocks * flops
@@ -1086,9 +1157,9 @@ def phase_convffn_bwd(results: dict) -> dict:
             bound, by = B.bound_ms(total["flops"], total["bytes"])
             out[b][model] = {"ms": total["ms"], "plain_ms": total["plain_ms"], "bound_ms": bound,
                              "bound_by": by, "library_ms": None}
-            log(f"time fused_convffn_bwd {model} step ({sum(t[3] for t in stages)} launches) "
-                f"B={b}: kernel {total['ms']:.4f} ms, plain {total['plain_ms']:.4f} ms, "
-                f"bound {bound:.5f} ms ({by})")
+            log(f"time {name} {model} {'step' if backward else 'forward'} "
+                f"({sum(t[3] for t in stages)} launches) B={b}: kernel {total['ms']:.4f} ms, "
+                f"plain {total['plain_ms']:.4f} ms, bound {bound:.5f} ms ({by})")
     return out
 
 
@@ -1175,27 +1246,29 @@ def main() -> int:
         results, unfreeze_504, "unfreeze_504", UNFREEZE_CONFIG, UNFREEZE_504_LAUNCHES,
         UNFREEZE_GRAD_NAMES, ("fused_mlp_bwd", "fused_attn_bwd"), batch_size=LONG_BATCH,
         image_size=LONG_IMAGE, steps=LONG_STEPS, timed=3)
-    convffn_times = phase_convffn(results)
+    convffn_times = phase_convffn(results, backward=False)
     model_t8 = phase_serving(results, serving_t8, "serving_fastvit_t8",
                              per_forward_launches=SERVING_T8_LAUNCHES, config=T8_CONFIG)
     phase_serving(results, serving_sa12, "serving_fastvit_sa12",
                   per_forward_launches=SERVING_SA12_LAUNCHES, n_lat=10, n_batches=4,
                   fwd_iters=10, config=SA12_CONFIG)
-    convffn_bwd_times = phase_convffn_bwd(results)
+    convffn_bwd_times = phase_convffn(results, backward=True)
     t8_run = phase_train(results, train_t8, "fastvit_t8_lora", T8_CONFIG, T8_TRAIN_LAUNCHES,
-                         FASTVIT_GRAD_NAMES, ("fused_convffn_bwd",), batch_size=T8_TRAIN_BATCH,
-                         image_size=FASTVIT_IMAGE, record_last=True)
+                         FASTVIT_GRAD_NAMES, ("fused_convffn", "fused_convffn_bwd"),
+                         batch_size=T8_TRAIN_BATCH, image_size=FASTVIT_IMAGE)
+    phase_backbone_grads(train_t8, "fastvit_t8_lora", T8_CONFIG, T8_TRAIN_BATCH)
     phase_train(results, train_sa12, "fastvit_sa12_lora", SA12_LORA_CONFIG, SA12_TRAIN_LAUNCHES,
-                FASTVIT_GRAD_NAMES, ("fused_convffn_bwd",), batch_size=SA12_TRAIN_BATCH,
-                image_size=FASTVIT_IMAGE, steps=2, timed=3, record_last=True)
+                FASTVIT_GRAD_NAMES, ("fused_convffn", "fused_convffn_bwd", "flash_fwd",
+                                     "flash_bwd"),
+                batch_size=SA12_TRAIN_BATCH, image_size=FASTVIT_IMAGE, steps=2, timed=3)
+    phase_backbone_grads(train_sa12, "fastvit_sa12_lora", SA12_LORA_CONFIG, SA12_TRAIN_BATCH)
     by_batch = phase_times(results)
     for b, t in flash_times.items():
         by_batch.setdefault(b, {}).update(t)
-    for b, t in convffn_times.items():
-        by_batch.setdefault(b, {})["fused_convffn"] = t["t8"]
-    for b, t in convffn_bwd_times.items():
-        if "t8" in t:
-            by_batch.setdefault(b, {})["fused_convffn_bwd"] = t["t8"]
+    for name, times in (("fused_convffn", convffn_times), ("fused_convffn_bwd", convffn_bwd_times)):
+        for b, t in times.items():
+            if "t8" in t:
+                by_batch.setdefault(b, {})[name] = t["t8"]
     if args.profile:
         profile_forward(model)
         profile_train_step(*lora_run)

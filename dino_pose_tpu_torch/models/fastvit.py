@@ -421,8 +421,8 @@ class ConvFFN(nn.Module):
     658-674): in eval without grad ``fused_convffn`` on the cached eval
     affine; in train mode ``convffn_train`` on the batch-statistics affine
     (``branch_stats``, two-pass) with the ConvLoRA Dropout2d masks
-    bernoulli(keep)/keep per (sample, rank) (fastvit.py:585-595); in eval
-    with grad ``convffn_train`` on the running-statistics affine."""
+    bernoulli(keep)/keep per (sample, rank) (fastvit.py:585-595). Eval under
+    grad with a trainable adapter is refused by the eval cache."""
 
     def __init__(self, c: int, hidden: int, lora_rank: int = 0, lora_alpha: float = 16.0,
                  lora_dropout: float = 0.0):
@@ -482,15 +482,10 @@ class ConvFFN(nn.Module):
 
     def forward(self, x: torch.Tensor, kernels: bool = True,
                 generator: torch.Generator | None = None) -> torch.Tensor:
-        live = self.training or (torch.is_grad_enabled() and any(
-            t.requires_grad for t in (x, *self.parameters())))
-        if live:
+        if self.training:
             y = dw_branch_conv(x, self.conv.conv.weight, 1, self.c)
-            if self.training:
-                mean, var, n = branch_stats(y)
-                inv, shift = bn_train_affine(self.conv.bn, mean, var, n)
-            else:
-                inv, shift = bn_affine(self.conv.bn)
+            mean, var, n = branch_stats(y)
+            inv, shift = bn_train_affine(self.conv.bn, mean, var, n)
             p = self._live_params(inv, shift, y.shape[0], x.dtype, generator)
         else:
             dw, p = cached_fold(self, x.dtype, self._fold)
@@ -499,7 +494,7 @@ class ConvFFN(nn.Module):
             p = p._replace(m1=ones, m2=ones)  # eval: no ConvLoRA dropout
         b, c, hh, ww = y.shape
         rows = y.permute(0, 2, 3, 1).reshape(b, hh * ww, c)  # a view under channels_last
-        if live:
+        if self.training:
             out = convffn_train(rows, p, self.s_lora, kernels=kernels)
         elif kernels:
             out = fused_convffn(rows.contiguous(), p, self.s_lora)

@@ -220,12 +220,14 @@ def test_trainable_parameters_follow_jax_mask(jax_lora):
 def test_refusals():
     """What stays refused: a ConvFFN whose base fc1/fc2 require grad (its
     backward gives them no gradient, as JAX's does), in train mode and under
-    grad in eval; and on the card fastvit_ma36's C = 76, which the ConvFFN
-    kernels' 16-wide tiles do not take. LoRA adapters that require grad now
-    train, in either mode."""
+    grad in eval; eval under grad with trainable LoRA adapters (the eval
+    cache holds no graph: they train in train mode); and on the card
+    fastvit_ma36's C = 76, which the ConvFFN kernels' 16-wide tiles do not
+    take."""
     model = tregistry.create_model_from_config(dict(CONFIG), device="cpu")
     x = torch.zeros(1, 3, 128, 128)
-    model(x)                             # eval under grad, LoRA A/B trainable
+    with pytest.raises(ValueError, match="requires grad"):
+        model(x)                         # eval under grad, LoRA A/B trainable
     model.train()(x)
     model.backbone.stages[0].blocks[0].mlp.fc1.original_conv.weight.requires_grad_(True)
     for mode in (model.train, model.eval):
