@@ -9,8 +9,15 @@ ConvFFN kernel launches a forward) and fastvit_sa12 (12 ConvFFN launches and
 2 flash forwards, its attention stage); then FastViT LoRA fine-tuning at
 256²: fastvit_t8 + LoRA r=8 at batch 128 (10 ConvFFN forward and 10
 backward launches a step) and fastvit_sa12 + LoRA r=8 at batch 32 (12 and
-12, and 2 flash forwards and backwards). Times kernels, serving and every
-train step.
+12, and 2 flash forwards and backwards); then the bigger dinov2 backbones at
+224²: each forward kernel of their block routes and fused_mlp_dx at
+dinov2-base's and dinov2-large's widths at batch 1, 8 and 128, dinov2-base
++ LoRA serving and fine-tuning at batch 128 (the resident kernels, 11/1/1
+a forward), dinov2-large + LoRA r=8 on layer 23 serving and fine-tuning at
+batch 128 (24 launches each of the weight-streamed halves a forward, and
+the LoRA layer's dx kernel in the backward), each step's kernels held on
+its own tensors and the backbone's LoRA gradients alone at batch 128.
+Times kernels, serving and every train step.
 
     python3 chip_smoke.py [--out results.json] [--profile]
 
@@ -98,12 +105,17 @@ FLASH_BATCHES = (1, 8, LONG_BATCH)
 LORA_CONFIG = {"model_name": "facebook/dinov2-small", "use_lora": True}
 UNFREEZE_CONFIG = {"model_name": "facebook/dinov2-small", "use_lora": False,
                    "unfreeze_last_n_layers": 4}
-LORA_GRAD_NAMES = (
-    "backbone.encoder.layer.11.attention.lora_output.lora_A",
-    "backbone.encoder.layer.11.attention.lora_output.lora_B",
-    "pose_heads.heatmap_head.feature_refine.0.weight",
-    "pose_heads.heatmap_head.prediction.3.weight",
-)
+
+
+def lora_grad_names(layer: int) -> tuple:
+    """The LoRA matrices of ``layer`` and two head convs."""
+    return (f"backbone.encoder.layer.{layer}.attention.lora_output.lora_A",
+            f"backbone.encoder.layer.{layer}.attention.lora_output.lora_B",
+            "pose_heads.heatmap_head.feature_refine.0.weight",
+            "pose_heads.heatmap_head.prediction.3.weight")
+
+
+LORA_GRAD_NAMES = lora_grad_names(11)
 UNFREEZE_GRAD_NAMES = (
     "backbone.encoder.layer.11.mlp.fc1.weight",
     "backbone.encoder.layer.11.mlp.fc2.bias",
@@ -162,6 +174,37 @@ CONVFFN_STAGES = {
     "sa12": [(64, 256, 4096, 2), (128, 512, 1024, 2), (256, 1024, 256, 6), (512, 2048, 64, 2)],
 }
 CONVFFN_RANK = {"t8": 8, "sa12": 0}
+# The bigger dinov2 backbones at 224² (models/vit.py VIT_PRESETS): LoRA r=8
+# on the last layer, as the registry builds them. Their block route is JAX's
+# single-device TPU dispatch (ops/block.block_route): dinov2-base the
+# resident kernels (11 fused_block, the LoRA layer's two halves),
+# dinov2-large the weight-streamed halves in all 24 layers. Fine-tuning at
+# bs=128 (bench.py --model facebook/dinov2-large), two checked steps and
+# three timed each way.
+WIDE = {"dinov2-base": (768, 12, 3072), "dinov2-large": (1024, 16, 4096)}
+BASE_LORA_CONFIG = {"model_name": "facebook/dinov2-base", "use_lora": True}
+LARGE_LORA_CONFIG = {"model_name": "facebook/dinov2-large", "use_lora": True}
+SERVING_LARGE_LAUNCHES = {"fused_attn_part_stream": 24, "fused_mlp_part_stream": 24}
+LARGE_LORA_LAUNCHES = {**SERVING_LARGE_LAUNCHES, "fused_mlp_dx": 1}
+WIDE_STEPS, WIDE_TIMED = 2, 3
+# Their step-1 LoRA gradients are sums that the heads' BatchNorms nearly
+# cancel, so bf16 rounding alone moves them 12-32% from f32 on either path,
+# by an amount that changes from batch to batch. The wide phases take the
+# step-1 gradients of three seeded batches (the steps' own and two more)
+# and hold every batch's kernel-path error to its limit. dinov2-base's
+# ratios kernels/plain against f32 read 0.96-1.11 on an H100, inside the
+# 1.25 of the other phases. dinov2-large's LoRA A read 1.36, 0.91 and 0.67
+# on the three batches, with the kernel path as far from the plain one
+# (0.236) as the plain one from f32 (0.235): at this width the step's
+# gradient check is bound by that noise and cannot tell a slightly wrong
+# kernel from a right one. Its limit, LARGE_GRAD_NOISE_FACTOR, sits just
+# above the largest reading. What holds the kernels of the wide paths
+# tightly is the backbone's LoRA gradients alone under a seeded cotangent
+# at the step's batch (bf16 moves them ~1%, within GRAD_NOISE_FACTOR of
+# plain's), and every kernel of the path on the step's own tensors.
+WIDE_GRAD_BATCHES, LARGE_GRAD_NOISE_FACTOR = 3, 1.5
+BASE_RECORDED = ("fused_block", "fused_attn_part", "fused_mlp_part", "fused_mlp_dx")
+LARGE_RECORDED = ("fused_attn_part_stream", "fused_mlp_part_stream", "fused_mlp_dx")
 BLOCK_SOURCE = "dino_pose_tpu_torch/ops/csrc/block_kernels.cu"
 FLASH_SOURCE = "dino_pose_tpu_torch/ops/csrc/flash_kernels.cu"
 CONVFFN_SOURCE = "dino_pose_tpu_torch/ops/csrc/convffn_kernels.cu"
@@ -194,9 +237,19 @@ KERNEL_ROWS = {
                       "serving_fastvit_t8"),
     "fused_convffn_bwd": ("dino_pose_tpu/ops/convffn.py:117", CONVFFN_SOURCE, T8_TRAIN_BATCH,
                           "fastvit_t8_lora_train"),
+    # dinov2-large's streamed halves at batch 1 on its serving path, and the
+    # LoRA layer's dx kernel at D = 1024 (JAX's _mlp_stream_dx_kernel, the
+    # function of _mlp_dx_kernel) at batch 128 on its LoRA training path.
+    "fused_attn_part_stream": ("dino_pose_tpu/ops/block.py:1807", BLOCK_SOURCE, 1,
+                               "serving_dinov2_large"),
+    "fused_mlp_part_stream": ("dino_pose_tpu/ops/block.py:1636", BLOCK_SOURCE, 1,
+                              "serving_dinov2_large"),
+    "fused_mlp_dx_dinov2_large": ("dino_pose_tpu/ops/block.py:1663", BLOCK_SOURCE, TRAIN_BATCH,
+                                  "dinov2_large_lora_train"),
 }
 # The LAUNCHES key each row counts.
-LAUNCH_KEY = {"flash_attention": "flash_fwd", "flash_attention_bwd": "flash_bwd"}
+LAUNCH_KEY = {"flash_attention": "flash_fwd", "flash_attention_bwd": "flash_bwd",
+              "fused_mlp_dx_dinov2_large": "fused_mlp_dx"}
 
 
 def log(msg: str) -> None:
@@ -225,9 +278,9 @@ def cuda_ms(fn, iters: int = 50, warmup: int = 5) -> float:
     return start.elapsed_time(end) / iters
 
 
-def block_inputs(b: int, gen: torch.Generator, s: int = S):
-    """Seeded full-width inputs of ``s`` tokens, weights scaled like trained
-    ones."""
+def block_inputs(b: int, gen: torch.Generator, s: int = S, d: int = D, hidden: int = HIDDEN):
+    """Seeded inputs of ``s`` tokens at width ``d`` (dinov2-small's by
+    default), weights scaled like trained ones."""
     from dino_pose_tpu_torch.ops.block import BlockParams
 
     def n(*shape, std=1.0, mean=0.0):
@@ -237,29 +290,54 @@ def block_inputs(b: int, gen: torch.Generator, s: int = S):
         return torch.rand(shape, generator=gen) * (hi - lo) + lo
 
     p = BlockParams(
-        g1=n(D, std=0.1, mean=1.0), b1=n(D, std=0.05),
-        wqkv=n(D, 3 * D, std=D**-0.5), bqkv=n(3 * D, std=0.05),
-        wo=n(D, D, std=D**-0.5), bo=n(D, std=0.05), ls1=u(D, lo=0.1, hi=1.0),
-        g2=n(D, std=0.1, mean=1.0), b2=n(D, std=0.05),
-        w1=n(D, HIDDEN, std=D**-0.5), bf1=n(HIDDEN, std=0.05),
-        w2=n(HIDDEN, D, std=HIDDEN**-0.5), bf2=n(D, std=0.05), ls2=u(D, lo=0.1, hi=1.0),
+        g1=n(d, std=0.1, mean=1.0), b1=n(d, std=0.05),
+        wqkv=n(d, 3 * d, std=d**-0.5), bqkv=n(3 * d, std=0.05),
+        wo=n(d, d, std=d**-0.5), bo=n(d, std=0.05), ls1=u(d, lo=0.1, hi=1.0),
+        g2=n(d, std=0.1, mean=1.0), b2=n(d, std=0.05),
+        w1=n(d, hidden, std=d**-0.5), bf1=n(hidden, std=0.05),
+        w2=n(hidden, d, std=hidden**-0.5), bf2=n(d, std=0.05), ls2=u(d, lo=0.1, hi=1.0),
     )
     p = BlockParams(*(
         t.to("cuda", torch.bfloat16 if t.dim() == 2 else torch.float32).contiguous() for t in p
     ))
-    x = n(b, s, D).to("cuda", torch.bfloat16)
+    x = n(b, s, d).to("cuda", torch.bfloat16)
     return x, p
 
 
-def kernel_cases(x, p):
+def width(model: str | None) -> tuple:
+    """(D, heads, hidden) of ``model``: dinov2-small's when None."""
+    return WIDE.get(model, (D, H, HIDDEN))
+
+
+def result_key(name: str, model: str | None) -> str:
+    """The results key of a wrapper checked at ``model``'s width: its own
+    name at dinov2-small's width and for the streamed halves (which run only
+    at dinov2-large's), else the name and the model."""
+    if model is None or name.endswith("_stream"):
+        return name
+    return f"{name}_{model.replace('-', '_')}"
+
+
+def kernel_cases(x, p, heads: int = H, stream: bool = False):
+    """The forward wrappers of a block route and their plain versions: the
+    resident ones (dinov2-small and -base) or the weight-streamed halves
+    (dinov2-large)."""
     from dino_pose_tpu_torch.ops import block as B
 
     ap, mp = B.attn_params(p), B.mlp_params(p)
+    if stream:
+        return {
+            "fused_attn_part_stream": (
+                lambda: B.fused_attn_part_stream(x, ap, heads, EPS),
+                lambda: B.attn_part_stream_math(x, ap, num_heads=heads, eps=EPS)),
+            "fused_mlp_part_stream": (lambda: B.fused_mlp_part_stream(x, mp, EPS),
+                                      lambda: B.mlp_part_stream_math(x, mp, eps=EPS)),
+        }
     return {
-        "fused_block": (lambda: B.fused_block(x, p, H, EPS),
-                        lambda: B.block_math(x, p, num_heads=H, eps=EPS)),
-        "fused_attn_part": (lambda: B.fused_attn_part(x, ap, H, EPS),
-                            lambda: B.attn_part_math(x, ap, num_heads=H, eps=EPS)),
+        "fused_block": (lambda: B.fused_block(x, p, heads, EPS),
+                        lambda: B.block_math(x, p, num_heads=heads, eps=EPS)),
+        "fused_attn_part": (lambda: B.fused_attn_part(x, ap, heads, EPS),
+                            lambda: B.attn_part_math(x, ap, num_heads=heads, eps=EPS)),
         "fused_mlp_part": (lambda: B.fused_mlp_part(x, mp, EPS),
                            lambda: B.mlp_part_math(x, mp, eps=EPS)),
     }
@@ -293,68 +371,77 @@ def attn_tol_text(fro_tol: float) -> str:
     return f"atol {ATTN_ATOL} + rtol {ATTN_RTOL}*|ref| and rel Frobenius {fro_tol}"
 
 
-def phase_kernels(results: dict) -> None:
-    """Each forward kernel vs its plain version at full width, bf16, batch 1
-    and 8, at S = 257 and at S = 1297, where the chains stream their
-    attention through flash_fwd_kernel on the packed qkv. fused_attn_part's
-    output (no residual) at the attention tolerance, the others at the
-    kernel tolerance."""
-    gen = torch.Generator().manual_seed(SEED)
-    for s in (S, S_LONG):
-        for b in (1, 8):
-            x, p = block_inputs(b, gen, s)
-            for name, (kern, plain) in kernel_cases(x, p).items():
-                got, want = kern().float(), plain().float()
-                torch.cuda.synchronize()
-                diff = (got - want).abs()
-                big = want.abs() > 0.1
-                max_rel = (diff[big] / want.abs()[big]).max().item()
-                if name == "fused_attn_part":
-                    max_abs, fro, ok = attn_check(got, want, ATTN_FRO)
-                    tol = attn_tol_text(ATTN_FRO)
-                else:
-                    max_abs = diff.max().item()
-                    fro = (diff.norm() / want.norm()).item()
-                    ok = bool(torch.isfinite(got).all()) and torch.allclose(
-                        got, want, atol=KERNEL_ATOL, rtol=KERNEL_RTOL)
-                    tol = f"atol {KERNEL_ATOL} + rtol {KERNEL_RTOL}*|ref|"
-                where = "" if s == S else f" S={s}"
-                log(f"kernel {name} B={b}{where}: max_abs={max_abs:.6g} max_rel(|ref|>0.1)="
-                    f"{max_rel:.6g} rel_fro={fro:.4g} tol={tol} -> {'ok' if ok else 'FAIL'}")
-                if not ok:
-                    raise AssertionError(f"{name} at B={b}, S={s} disagrees with its plain version")
-                row = results.setdefault(name, {"max_abs_err": 0.0})
-                row["max_abs_err"] = max(row["max_abs_err"], max_abs)
+def check_kernel(results: dict, key: str, got: torch.Tensor, want: torch.Tensor,
+                 label: str) -> None:
+    """A forward wrapper's output against its plain version: the attention
+    halves' (no residual) at the attention tolerance, the others at the
+    kernel tolerance. Keeps the largest error under ``key``."""
+    got, want = got.float(), want.float()
+    torch.cuda.synchronize()
+    diff = (got - want).abs()
+    big = want.abs() > 0.1
+    max_rel = (diff[big] / want.abs()[big]).max().item() if big.any() else 0.0
+    if key.startswith("fused_attn_part"):
+        max_abs, fro, ok = attn_check(got, want, ATTN_FRO)
+        tol = attn_tol_text(ATTN_FRO)
+    else:
+        max_abs = diff.max().item()
+        fro = (diff.norm() / want.norm()).item()
+        ok = bool(torch.isfinite(got).all()) and torch.allclose(
+            got, want, atol=KERNEL_ATOL, rtol=KERNEL_RTOL)
+        tol = f"atol {KERNEL_ATOL} + rtol {KERNEL_RTOL}*|ref|"
+    log(f"kernel {label}: max_abs={max_abs:.6g} max_rel(|ref|>0.1)={max_rel:.6g} "
+        f"rel_fro={fro:.4g} tol={tol} -> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{label} disagrees with its plain version")
+    row = results.setdefault(key, {"max_abs_err": 0.0})
+    row["max_abs_err"] = max(row["max_abs_err"], max_abs)
 
 
-def dx_inputs(b: int, gen: torch.Generator):
+def where_text(model: str | None, s: int = S) -> str:
+    return ("" if s == S else f" S={s}") + (
+        "" if model is None else " ({}: D={}, {} heads)".format(model, *width(model)[:2]))
+
+
+def phase_kernels(results: dict, model: str | None = None, batches: tuple = (1, 8),
+                  seqs: tuple = (S, S_LONG), seed: int = SEED) -> None:
+    """Each forward kernel of ``model``'s block route (dinov2-small's when
+    None) vs its plain version at full width, bf16, at ``batches`` and
+    ``seqs``: at S = 1297 the chains stream their attention through
+    flash_fwd_kernel on the packed qkv."""
+    d, heads, hidden = width(model)
+    gen = torch.Generator().manual_seed(seed)
+    for s in seqs:
+        for b in batches:
+            x, p = block_inputs(b, gen, s, d, hidden)
+            cases = kernel_cases(x, p, heads, stream=model == "dinov2-large")
+            for name, (kern, plain) in cases.items():
+                check_kernel(results, result_key(name, model), kern(), plain(),
+                             f"{name} B={b}{where_text(model, s)}")
+            del x, p, cases
+
+
+def dx_inputs(b: int, gen: torch.Generator, d: int = D, hidden: int = HIDDEN):
     """x2, a unit-scale seeded cotangent dy, and the MLP half's parameters."""
     from dino_pose_tpu_torch.ops.block import mlp_params
 
-    x, p = block_inputs(b, gen)
-    dy = torch.randn((b, S, D), generator=gen).to("cuda", torch.bfloat16)
+    x, p = block_inputs(b, gen, S, d, hidden)
+    dy = torch.randn((b, S, d), generator=gen).to("cuda", torch.bfloat16)
     return x, dy, mlp_params(p)
 
 
-def phase_mlp_dx(results: dict) -> None:
-    """fused_mlp_dx vs mlp_dx_math at full width, bf16, batch 1, 8 and 128."""
+def phase_mlp_dx(results: dict, model: str | None = None, seed: int = SEED + 3) -> None:
+    """fused_mlp_dx vs mlp_dx_math at ``model``'s width (dinov2-small's when
+    None), bf16, batch 1, 8 and 128."""
     from dino_pose_tpu_torch.ops import block as B
 
-    gen = torch.Generator().manual_seed(SEED + 3)
+    d, _, hidden = width(model)
+    gen = torch.Generator().manual_seed(seed)
     for b in (1, 8, TRAIN_BATCH):
-        x2, dy, mp = dx_inputs(b, gen)
-        got = B.fused_mlp_dx(x2, dy, mp, EPS).float()
-        want = B.mlp_dx_math(x2, dy, mp, eps=EPS).float()
-        torch.cuda.synchronize()
-        max_abs = (got - want).abs().max().item()
-        ok = bool(torch.isfinite(got).all()) and torch.allclose(
-            got, want, atol=KERNEL_ATOL, rtol=KERNEL_RTOL)
-        log(f"kernel fused_mlp_dx B={b}: max_abs={max_abs:.6g} "
-            f"tol=atol {KERNEL_ATOL} + rtol {KERNEL_RTOL}*|ref| -> {'ok' if ok else 'FAIL'}")
-        if not ok:
-            raise AssertionError(f"fused_mlp_dx at B={b} disagrees with mlp_dx_math")
-        row = results.setdefault("fused_mlp_dx", {"max_abs_err": 0.0})
-        row["max_abs_err"] = max(row["max_abs_err"], max_abs)
+        x2, dy, mp = dx_inputs(b, gen, d, hidden)
+        check_kernel(results, result_key("fused_mlp_dx", model), B.fused_mlp_dx(x2, dy, mp, EPS),
+                     B.mlp_dx_math(x2, dy, mp, eps=EPS), f"fused_mlp_dx B={b}{where_text(model)}")
+        del x2, dy, mp
 
 
 def train_cases(x, dy, p):
@@ -688,11 +775,11 @@ def phase_serving(results: dict, serving: dict, tag: str = "serving", image_size
     return model
 
 
-def synthetic_batch(batch_size: int, image_size: int = 224) -> dict:
+def synthetic_batch(batch_size: int, image_size: int = 224, seed: int = 0) -> dict:
     """bench.py's synthetic fine-tune batch (loader contract: f32 pixels,
-    keypoints all visible, z), made on the host from seed 0 and moved to the
-    card once; the heatmap targets are rendered inside the step."""
-    rng = np.random.default_rng(0)
+    keypoints all visible, z), made on the host from ``seed`` and moved to
+    the card once; the heatmap targets are rendered inside the step."""
+    rng = np.random.default_rng(seed)
     kps = rng.uniform(20, image_size - 24, (batch_size, 24, 3)).astype(np.float32)
     kps[..., 2] = 2.0
     batch = {
@@ -734,6 +821,13 @@ def plain_pair(name: str, args: tuple, out) -> tuple:
     from dino_pose_tpu_torch.ops import block as B
     from dino_pose_tpu_torch.ops import convffn as CF
 
+    forward = {"fused_block": B.block_math, "fused_attn_part": B.attn_part_math,
+               "fused_attn_part_stream": B.attn_part_stream_math,
+               "fused_mlp_part": B.mlp_part_math, "fused_mlp_part_stream": B.mlp_part_stream_math}
+    if name in forward:
+        x, p, *heads, eps = args
+        kw = {"num_heads": heads[0]} if heads else {}
+        return (out,), (forward[name](x, p, eps=eps, **kw),), None
     if name == "fused_mlp_dx":
         x2, dy, mp, eps = args
         return (out,), (B.mlp_dx_math(x2, dy, mp, eps=eps),), dy
@@ -763,14 +857,16 @@ def check_step_tensors(tag: str, name: str, which: str, args: tuple, out,
     A backward's outputs are linear in the incoming cotangent, so the
     absolute part of the tolerance is scaled by its max|.|. Activations at
     the kernel tolerance and each weight gradient within GRAD_TOL of its
-    largest magnitude; the flash outputs at the attention tolerance."""
+    largest magnitude; the flash outputs and the attention halves' at the
+    attention tolerance."""
     got, want, ct = plain_pair(name, args, out)
     ct_max = 1.0 if ct is None else ct.float().abs().max().item()
-    if name.startswith("flash"):
-        errs, fros, oks = zip(*(attn_check(g, w, FLASH_FRO, ct_max) for g, w in zip(got, want)))
+    if name.startswith(("flash", "fused_attn_part")):
+        fro_tol = FLASH_FRO if name.startswith("flash") else ATTN_FRO
+        errs, fros, oks = zip(*(attn_check(g, w, fro_tol, ct_max) for g, w in zip(got, want)))
         act_err, ok = max(errs), all(oks)
         extra = {"rel_fro": max(fros)}
-        tol = attn_tol_text(FLASH_FRO)
+        tol = attn_tol_text(fro_tol)
     else:
         act_err, grad_rel, ok = compare_outputs(got, want, act_scale=ct_max)
         extra = {"max_grad_err_rel": grad_rel} if len(got) > 1 else {}
@@ -786,24 +882,41 @@ def check_step_tensors(tag: str, name: str, which: str, args: tuple, out,
 
 
 def wrapper_module(name: str):
-    """The module whose global ``name`` a recorded wrapper is called by."""
+    """The module whose global ``name`` a recorded wrapper is called by: the
+    dinov2 block's forward wrappers by models/vit.py, the MLP halves and the
+    backward ones by ops/block.py."""
+    from dino_pose_tpu_torch.models import vit as V
     from dino_pose_tpu_torch.ops import attention as A
     from dino_pose_tpu_torch.ops import block as B
     from dino_pose_tpu_torch.ops import convffn as CF
 
+    if name in ("fused_block", "fused_attn_part", "fused_attn_part_stream"):
+        return V
     return CF if name.startswith("fused_convffn") else A if name.startswith("flash") else B
+
+
+def step1_grads(model, config: dict, kernels: bool, dtype, batch: dict, image_size: int,
+                names: tuple) -> dict:
+    """The gradients of ``names`` in one train step of a copy of ``model``."""
+    m = copy.deepcopy(model)
+    state, step = make_step(m, config, kernels=kernels, dtype=dtype, image_size=image_size)
+    step(state, batch, LR, SEED)
+    return {n: p.grad for n, p in m.named_parameters() if n in names}
 
 
 def phase_train(results: dict, training: dict, tag: str, config: dict, per_step: dict,
                 grad_names: tuple, recorded: tuple, batch_size: int = TRAIN_BATCH,
-                image_size: int = 224, steps: int = TRAIN_STEPS, timed: int = 5):
-    """``steps`` fine-tune steps of the model ``config`` names (dinov2-small,
-    or a FastViT) at ``batch_size`` through the kernels, as many from an
+                image_size: int = 224, steps: int = TRAIN_STEPS, timed: int = 5,
+                grad_batches: int = 1, grad_factor: float = GRAD_NOISE_FACTOR):
+    """``steps`` fine-tune steps of the model ``config`` names (dinov2, or a
+    FastViT) at ``batch_size`` through the kernels, as many from an
     identical copy through the plain versions (the same dropout masks),
     compared step by step; the first step's first and last call of each
     ``recorded`` wrapper (a backward's first call is the top layer's, its
     last the bottom one's) held against its plain version on its own
-    inputs; then step times over ``timed`` steps."""
+    inputs; then step times over ``timed`` steps. The step-1 gradients of
+    ``grad_batches`` seeded batches (the first the steps' own) are each held
+    to ``grad_factor`` times the plain path's error against f32."""
     from dino_pose_tpu_torch.models.registry import create_model_from_config
     from dino_pose_tpu_torch.ops import block as B
 
@@ -811,6 +924,7 @@ def phase_train(results: dict, training: dict, tag: str, config: dict, per_step:
     randomise_for_serving(model, torch.Generator().manual_seed(SEED + 4))
     plain_model = copy.deepcopy(model)
     ref_model = copy.deepcopy(model)
+    init_model = copy.deepcopy(model) if grad_batches > 1 else None
     batch = synthetic_batch(batch_size, image_size)
     state, step = make_step(model, config, kernels=True, image_size=image_size)
     pstate, pstep = make_step(plain_model, config, kernels=False, image_size=image_size)
@@ -874,6 +988,20 @@ def phase_train(results: dict, training: dict, tag: str, config: dict, per_step:
     ref_grads = {n: p.grad for n, p in ref_model.named_parameters() if n in grad_names}
     del ref_model, rstate, rstep
 
+    # The step-1 gradients of further seeded batches, each way from the
+    # initial weights; their launches are not main-path launches.
+    extra = []
+    saved = dict(B.LAUNCHES)
+    for seed in range(1, grad_batches):
+        more = synthetic_batch(batch_size, image_size, seed)
+        extra.append(tuple(step1_grads(init_model, config, kernels, dtype, more, image_size,
+                                       grad_names)
+                           for kernels, dtype in ((True, torch.bfloat16), (False, torch.bfloat16),
+                                                  (False, torch.float32))))
+        del more
+    B.LAUNCHES.update(saved)
+    del init_model
+
     failures = []
     pparams = dict(plain_model.named_parameters())
     for i in range(steps):
@@ -887,20 +1015,27 @@ def phase_train(results: dict, training: dict, tag: str, config: dict, per_step:
             if not ok:
                 failures.append(f"train step {i}: {k}")
         if i == 0:
+            sets = [(grads, {n: pparams[n].grad for n in grad_names}, ref_grads), *extra]
             for n in grad_names:
-                rel = rel_err(grads[n], pparams[n].grad)
-                k_ref = rel_err(grads[n], ref_grads[n])
-                p_ref = rel_err(pparams[n].grad, ref_grads[n])
-                tol = GRAD_NOISE_FACTOR * p_ref + GRAD_NOISE_SLACK
-                ok = bool(torch.isfinite(grads[n]).all()) and max(rel, k_ref) <= tol
+                errs = [(rel_err(kg[n], pg[n]), rel_err(kg[n], fg[n]), rel_err(pg[n], fg[n]))
+                        for kg, pg, fg in sets]
+                tols = [grad_factor * p_ref + GRAD_NOISE_SLACK for _, _, p_ref in errs]
+                ok = all(bool(torch.isfinite(kg[n]).all()) for kg, _, _ in sets)
+                ok &= all(max(rel, k_ref) <= tol for (rel, k_ref, _), tol in zip(errs, tols))
+                (rel, k_ref, p_ref), tol = errs[0], tols[0]
+                ratio = max(k_ref / p_ref for _, k_ref, p_ref in errs)
+                more = "".join(f"; batch {j}: {a:.4g}, {b:.4g}, {c:.4g} (tol {t:.4g})"
+                               for j, ((a, b, c), t) in enumerate(zip(errs, tols)) if j)
                 log(f"{tag} step-1 grad {n}: rel Frobenius kernels vs plain {rel:.4g}, kernels vs "
-                    f"f32 {k_ref:.4g}, plain vs f32 {p_ref:.4g} (tol {GRAD_NOISE_FACTOR}*plain"
-                    f"+{GRAD_NOISE_SLACK} = {tol:.4g}); |g| {ref_grads[n].norm().item():.4g} "
-                    f"-> {'ok' if ok else 'FAIL'}")
+                    f"f32 {k_ref:.4g}, plain vs f32 {p_ref:.4g} (tol {grad_factor}*plain+"
+                    f"{GRAD_NOISE_SLACK} = {tol:.4g}){more}; largest kernels/plain ratio vs f32 "
+                    f"{ratio:.4g}; |g| {ref_grads[n].norm().item():.4g} -> {'ok' if ok else 'FAIL'}")
                 training.setdefault("grad_rel", {})[n] = {
-                    "kernels_vs_plain": rel, "kernels_vs_f32": k_ref, "plain_vs_f32": p_ref}
+                    "kernels_vs_plain": rel, "kernels_vs_f32": k_ref, "plain_vs_f32": p_ref,
+                    **({"per_batch": errs, "max_ratio": ratio} if len(sets) > 1 else {})}
                 if not ok:
                     failures.append(f"step-1 gradient of {n}")
+            del sets, extra
     if failures:
         raise AssertionError(f"{tag}: kernels vs plain out of tolerance: " + "; ".join(failures))
     training["steps"] = {"kernels": kstats}
@@ -938,18 +1073,20 @@ def phase_train(results: dict, training: dict, tag: str, config: dict, per_step:
     return step, state, batch
 
 
-def phase_backbone_grads(training: dict, tag: str, config: dict, batch_size: int) -> None:
-    """The FastViT backbone's LoRA gradients alone, in train mode, under a
-    seeded unit cotangent on its feature map, from one seeded model and one
-    dropout generator: kernels (bf16), plain (bf16) and plain f32 (TF32 off).
-    The whole step's gradients pass the heads' train-mode BatchNorms and
-    ReLUs, which amplify any rounding (JAX's own bf16 step moves them ~40%
-    from its f32, tests/test_torch_fastvit_train.py), so the step compares
-    them only loosely; with no head in the way bf16 moves these a few
-    percent, and every adapter's gradient through the kernels must stay
-    within GRAD_NOISE_FACTOR times the plain path's error against f32, plus
-    GRAD_NOISE_SLACK. Every ConvFFN's forward and backward kernel (and sa12's
-    flash pair) run here; their launches are not main-path launches."""
+def phase_backbone_grads(training: dict, tag: str, config: dict, batch_size: int,
+                         image_size: int = FASTVIT_IMAGE) -> None:
+    """The backbone's LoRA gradients alone, in train mode, under a seeded
+    unit cotangent on its feature map (FastViT) or tokens (dinov2), from one
+    seeded model and one dropout generator: kernels (bf16), plain (bf16) and
+    plain f32 (TF32 off). The whole step's gradients pass the heads'
+    train-mode BatchNorms and ReLUs, which amplify any rounding (JAX's own
+    bf16 FastViT step moves them ~40% from its f32,
+    tests/test_torch_fastvit_train.py), so the step compares them only
+    loosely; with no head in the way bf16 moves these a few percent, and
+    every adapter's gradient through the kernels must stay within
+    GRAD_NOISE_FACTOR times the plain path's error against f32, plus
+    GRAD_NOISE_SLACK. Every kernel of the backbone's forward and of its LoRA
+    backward runs here; their launches are not main-path launches."""
     from dino_pose_tpu_torch.models.registry import create_model_from_config
     from dino_pose_tpu_torch.ops import block as B
     from dino_pose_tpu_torch.train.step import step_generator
@@ -957,7 +1094,7 @@ def phase_backbone_grads(training: dict, tag: str, config: dict, batch_size: int
     model = create_model_from_config(dict(config), seed=SEED, device="cuda")
     randomise_for_serving(model, torch.Generator().manual_seed(SEED + 4))
     gen = torch.Generator().manual_seed(SEED + 9)
-    x = torch.randn((batch_size, 3, FASTVIT_IMAGE, FASTVIT_IMAGE), generator=gen).cuda()
+    x = torch.randn((batch_size, 3, image_size, image_size), generator=gen).cuda()
     saved = dict(B.LAUNCHES)
     grads, ct = {}, None
     for which, kernels, dtype in (("kernels", True, torch.bfloat16),
@@ -966,6 +1103,8 @@ def phase_backbone_grads(training: dict, tag: str, config: dict, batch_size: int
         m = copy.deepcopy(model).train()
         fmap = m.backbone(x.to(dtype), kernels=kernels,
                           generator=step_generator(SEED, 0, x.device))
+        if isinstance(fmap, tuple):  # dinov2: (tokens, patch grid)
+            fmap = fmap[0]
         if ct is None:
             ct = torch.randn(fmap.shape, generator=gen).cuda()
         fmap.float().backward(ct)
@@ -997,58 +1136,60 @@ def phase_backbone_grads(training: dict, tag: str, config: dict, batch_size: int
         raise AssertionError(f"{tag}: backbone LoRA gradients out of tolerance: {bad}")
 
 
-def phase_times(results: dict) -> dict:
-    """Kernel, plain and bound times at the main-path shapes."""
+def time_kernel(times: dict, key: str, b: int, kern, plain, flops: float, nbytes: float,
+                iters: int, plain_iters: int, plain_warmup: int = 5) -> None:
+    """Kernel, plain and bound times of one wrapper at batch ``b`` into
+    ``times[b][key]``; the timing launches are not main-path launches."""
     from dino_pose_tpu_torch.ops import block as B
 
-    gen = torch.Generator().manual_seed(SEED + 2)
-    by_batch = {}
+    saved = dict(B.LAUNCHES)
+    with torch.inference_mode():
+        ms = cuda_ms(kern, iters=iters)
+        plain_ms = cuda_ms(plain, iters=plain_iters, warmup=plain_warmup)
+    B.LAUNCHES.update(saved)
+    bound, by = B.bound_ms(flops, nbytes)
+    times.setdefault(b, {})[key] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+                                    "bound_by": by}
+    log(f"time {key} B={b}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        f"bound {bound:.5f} ms ({by})")
+
+
+def phase_times(model: str | None = None) -> dict:
+    """Kernel, plain and bound times at the main-path shapes of ``model``'s
+    width (dinov2-small's when None, with its trainable block's kernels):
+    the forward wrappers of its block route at batch 1 and 8, fused_mlp_dx
+    at 1, 8 and 128. The wider models' slower plain versions take fewer
+    iterations."""
+    from dino_pose_tpu_torch.ops import block as B
+
+    d, heads, hidden = width(model)
+    small = model is None
+    gen = torch.Generator().manual_seed(SEED + 2 if small else SEED + 13)
+    flops = B.block_flops(S, d, hidden)
+    by_batch: dict = {}
     for b in (1, 8):
-        x, p = block_inputs(b, gen)
-        flops = B.block_flops(S, D, HIDDEN)
-        nbytes = B.block_bytes(b, S, D, HIDDEN)
-        saved = dict(B.LAUNCHES)
-        for name, (kern, plain) in kernel_cases(x, p).items():
-            with torch.inference_mode():
-                ms = cuda_ms(kern)
-                plain_ms = cuda_ms(plain)
-            bound, by = B.bound_ms(b * flops[name], nbytes[name])
-            by_batch.setdefault(b, {})[name] = {
-                "ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
-            }
-            log(f"time {name} B={b}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-                f"bound {bound:.5f} ms ({by})")
-        B.LAUNCHES.update(saved)  # timing launches are not main-path launches
+        x, p = block_inputs(b, gen, S, d, hidden)
+        nbytes = B.block_bytes(b, S, d, hidden)
+        for name, (kern, plain) in kernel_cases(x, p, heads, model == "dinov2-large").items():
+            time_kernel(by_batch, result_key(name, model), b, kern, plain, b * flops[name],
+                        nbytes[name], *((50, 50) if small else (20, 10, 2)))
+        del x, p
     for b in (1, 8, TRAIN_BATCH):
-        x2, dy, mp = dx_inputs(b, gen)
-        saved = dict(B.LAUNCHES)
-        with torch.inference_mode():
-            ms = cuda_ms(lambda: B.fused_mlp_dx(x2, dy, mp, EPS), iters=20)
-            plain_ms = cuda_ms(lambda: B.mlp_dx_math(x2, dy, mp, eps=EPS), iters=20)
-        B.LAUNCHES.update(saved)
-        bound, by = B.bound_ms(b * B.block_flops(S, D, HIDDEN)["fused_mlp_dx"],
-                               B.block_bytes(b, S, D, HIDDEN)["fused_mlp_dx"])
-        by_batch.setdefault(b, {})["fused_mlp_dx"] = {
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
-        }
-        log(f"time fused_mlp_dx B={b}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-            f"bound {bound:.5f} ms ({by})")
+        x2, dy, mp = dx_inputs(b, gen, d, hidden)
+        time_kernel(by_batch, result_key("fused_mlp_dx", model), b,
+                    lambda: B.fused_mlp_dx(x2, dy, mp, EPS),
+                    lambda: B.mlp_dx_math(x2, dy, mp, eps=EPS), b * flops["fused_mlp_dx"],
+                    B.block_bytes(b, S, d, hidden)["fused_mlp_dx"],
+                    *((20, 20) if small else (10, 5, 2)))
+        del x2, dy, mp
+    if not small:
+        return by_batch
     for b in (1, 8, TRAIN_BATCH):
         x, p = block_inputs(b, gen)
         dy = torch.randn((b, S, D), generator=gen).to("cuda", torch.bfloat16)
-        saved = dict(B.LAUNCHES)
         for name, (kern, plain) in train_cases(x, dy, p).items():
-            with torch.inference_mode():
-                ms = cuda_ms(kern, iters=20)
-                plain_ms = cuda_ms(plain, iters=10, warmup=2)
-            bound, by = B.bound_ms(b * B.block_flops(S, D, HIDDEN)[name],
-                                   B.block_bytes(b, S, D, HIDDEN)[name])
-            by_batch.setdefault(b, {})[name] = {
-                "ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
-            }
-            log(f"time {name} B={b}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-                f"bound {bound:.5f} ms ({by})")
-        B.LAUNCHES.update(saved)
+            time_kernel(by_batch, name, b, kern, plain, b * flops[name],
+                        B.block_bytes(b, S, D, HIDDEN)[name], 20, 10, 2)
     return by_batch
 
 
@@ -1202,8 +1343,9 @@ def main() -> int:
     ap.add_argument("--profile", action="store_true",
                     help="print torch.profiler kernel tables of the batch-1 forward and "
                          "the train steps: at 224² LoRA and unfreeze (batch 128), at 504² "
-                         "unfreeze (batch 32); and of the fastvit_t8 + LoRA batch-1 forward "
-                         "and its LoRA train step (batch 128)")
+                         "unfreeze (batch 32); of the fastvit_t8 + LoRA batch-1 forward "
+                         "and its LoRA train step (batch 128); and of the dinov2-large + "
+                         "LoRA batch-1 forward and its LoRA train step (batch 128)")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -1231,6 +1373,10 @@ def main() -> int:
     serving_sa12: dict = {}
     train_t8: dict = {}
     train_sa12: dict = {}
+    serving_base: dict = {}
+    train_base: dict = {}
+    serving_large: dict = {}
+    train_large: dict = {}
     phase_kernels(results)
     phase_mlp_dx(results)
     phase_train_kernels(results)
@@ -1262,7 +1408,29 @@ def main() -> int:
                                      "flash_bwd"),
                 batch_size=SA12_TRAIN_BATCH, image_size=FASTVIT_IMAGE, steps=2, timed=3)
     phase_backbone_grads(train_sa12, "fastvit_sa12_lora", SA12_LORA_CONFIG, SA12_TRAIN_BATCH)
-    by_batch = phase_times(results)
+    wide_times = []
+    for wide in WIDE:
+        phase_kernels(results, wide, batches=(1, 8, TRAIN_BATCH), seqs=(S,), seed=SEED + 12)
+        phase_mlp_dx(results, wide, seed=SEED + 12)
+        wide_times.append(phase_times(wide))
+    phase_serving(results, serving_base, "serving_dinov2_base", n_lat=10, n_batches=4,
+                  fwd_iters=10, config=BASE_LORA_CONFIG)
+    phase_train(results, train_base, "dinov2_base_lora", BASE_LORA_CONFIG, LORA_LAUNCHES,
+                lora_grad_names(11), BASE_RECORDED, steps=WIDE_STEPS, timed=WIDE_TIMED,
+                grad_batches=WIDE_GRAD_BATCHES)
+    phase_backbone_grads(train_base, "dinov2_base_lora", BASE_LORA_CONFIG, TRAIN_BATCH, 224)
+    model_large = phase_serving(results, serving_large, "serving_dinov2_large",
+                                per_forward_launches=SERVING_LARGE_LAUNCHES, n_lat=8, n_batches=3,
+                                fwd_iters=5, config=LARGE_LORA_CONFIG)
+    large_run = phase_train(results, train_large, "dinov2_large_lora", LARGE_LORA_CONFIG,
+                            LARGE_LORA_LAUNCHES, lora_grad_names(23), LARGE_RECORDED,
+                            steps=WIDE_STEPS, timed=WIDE_TIMED, grad_batches=WIDE_GRAD_BATCHES,
+                            grad_factor=LARGE_GRAD_NOISE_FACTOR)
+    phase_backbone_grads(train_large, "dinov2_large_lora", LARGE_LORA_CONFIG, TRAIN_BATCH, 224)
+    by_batch = phase_times()
+    for times in wide_times:
+        for b, t in times.items():
+            by_batch.setdefault(b, {}).update(t)
     for b, t in flash_times.items():
         by_batch.setdefault(b, {}).update(t)
     for name, times in (("fused_convffn", convffn_times), ("fused_convffn_bwd", convffn_bwd_times)):
@@ -1277,6 +1445,8 @@ def main() -> int:
         profile_train_step(*unfreeze_504_run)
         profile_forward(model_t8, model_t8.input_size)
         profile_train_step(*t8_run)
+        profile_forward(model_large)
+        profile_train_step(*large_run)
 
     kernels = []
     for name, (replaces, source, b, path) in KERNEL_ROWS.items():
@@ -1307,7 +1477,10 @@ def main() -> int:
                        "serving_504": serving_504, "training_unfreeze_504": unfreeze_504,
                        "serving_fastvit_t8": serving_t8, "serving_fastvit_sa12": serving_sa12,
                        "training_fastvit_t8_lora": train_t8,
-                       "training_fastvit_sa12_lora": train_sa12},
+                       "training_fastvit_sa12_lora": train_sa12,
+                       "serving_dinov2_base": serving_base, "training_dinov2_base_lora": train_base,
+                       "serving_dinov2_large": serving_large,
+                       "training_dinov2_large_lora": train_large},
                       f, indent=1)
     print(json.dumps({"kernels": kernels}))
     print(card)

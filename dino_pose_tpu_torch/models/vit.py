@@ -16,20 +16,30 @@ The blocks run through the fused wrappers of ``ops/block.py`` (with
   dtype happens inside, and the weight gradients reach the f32 parameters
   unrounded;
 - any other non-LoRA block (frozen, or under ``no_grad``/``inference_mode``)
-  through ``fused_block`` on detached packed copies, cached per dtype,
-  device and the parameters' versions: an optimizer step or a loaded state
-  dict packs them anew, so no forward sees stale weights;
+  on detached packed copies, cached per dtype, device and the parameters'
+  versions (an optimizer step or a loaded state dict packs them anew, so no
+  forward sees stale weights), by the rounding route ``ops/block.block_route``
+  gives, JAX's single-device TPU dispatch (``vit.py:276-342``): on
+  ``"block"`` and ``"math"`` (dinov2-small and -base at 224², every size at
+  S = 1297) through ``fused_block``; on ``"stream"`` (dinov2-large at 224²)
+  through ``fused_attn_part_stream`` -> ``x + o*ls1`` in the activation
+  dtype (JAX's XLA stitch) -> ``fused_mlp_part_stream`` (through
+  ``mlp_part_frozen``, which builds no graph where nothing requires grad);
 - the LoRA layer through ``fused_attn_part`` -> adapter -> ``x + o*ls1`` ->
   ``mlp_part_frozen`` (``fused_mlp_part`` with the ``fused_mlp_dx``
-  backward): only the adapter trains there. A LoRA layer whose base weights
-  require grad is refused while grad mode is on, since that backward gives
-  them no gradient.
+  backward), on ``"stream"`` through ``fused_attn_part_stream`` and
+  ``mlp_part_frozen(route="stream")`` (``fused_mlp_part_stream``, the same
+  ``fused_mlp_dx`` backward): only the adapter trains there. A LoRA layer
+  whose base weights require grad is refused while grad mode is on, since
+  that backward gives them no gradient.
 
-These routes hold at every input size: each chain takes any sequence length,
-its attention step streaming through the flash kernels once the head's K
-and V no longer fit shared memory (S > ~320; at 504², S = 1297, in every
-layer). The JAX package instead switches its block kernels by size and, at
-504², runs ``block_math`` around its flash kernel (``ops/block.py``).
+Each chain takes any sequence length, its attention step streaming through
+the flash kernels once the head's K and V no longer fit shared memory
+(S > ~320; at 504², S = 1297, in every layer). Two departures from the JAX
+route: at 504² the JAX package runs ``block_math`` around its flash kernel
+where the port runs its chains (same rounding points); and a trainable
+dinov2-base or -large block goes through ``block_train``, which rounds like
+``_block_kernel``, where JAX takes its weight-streamed halves.
 """
 
 from __future__ import annotations
@@ -45,10 +55,13 @@ from dino_pose_tpu_torch.ops.block import (
     BlockParams,
     MlpParams,
     attn_part_math,
+    attn_part_stream_math,
     block_math,
+    block_route,
     block_train,
     cast_params,
     fused_attn_part,
+    fused_attn_part_stream,
     fused_block,
     mlp_part_frozen,
 )
@@ -228,19 +241,24 @@ class Block(nn.Module):
                 )
             return block_train(x, self.layout(), h, eps, kernels=kernels)
         p = self.packed(x.dtype)
-        if not self.use_lora:
+        route = block_route(cfg.hidden_size, x.shape[1], h, p.w1.shape[-1], x.element_size(),
+                            lora=self.use_lora, training=False)
+        stream = route == "stream"
+        if not (self.use_lora or stream):
             if kernels:
                 return fused_block(x, p, h, eps)
             return block_math(x, p, num_heads=h, eps=eps)
         ap = AttnParams(p.g1, p.b1, p.wqkv, p.bqkv, p.wo, p.bo)
         mp = MlpParams(p.g2, p.b2, p.w1, p.bf1, p.w2, p.bf2, p.ls2)
         if kernels:
-            o = fused_attn_part(x, ap, h, eps)
+            o = (fused_attn_part_stream if stream else fused_attn_part)(x, ap, h, eps)
         else:
-            o = attn_part_math(x, ap, num_heads=h, eps=eps)
-        o = o + self.attention.lora_output(o, generator)
+            o = (attn_part_stream_math if stream else attn_part_math)(x, ap, num_heads=h, eps=eps)
+        if self.use_lora:
+            o = o + self.attention.lora_output(o, generator)
+        # JAX's XLA stitch between the halves, in the activation dtype.
         x2 = x + o * p.ls1.to(o.dtype)
-        return mlp_part_frozen(x2, mp, eps, kernels=kernels)
+        return mlp_part_frozen(x2, mp, eps, kernels=kernels, route=route)
 
 
 def _drop_packed(module: Block, incompatible_keys) -> None:

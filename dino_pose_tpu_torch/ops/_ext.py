@@ -36,6 +36,8 @@ NVCC_FLAGS = (
 LAUNCHES: dict[str, int] = {
     "fused_block": 0, "fused_attn_part": 0, "fused_mlp_part": 0, "fused_mlp_dx": 0,
     "fused_block_train": 0, "fused_mlp_bwd": 0, "fused_attn_bwd": 0,
+    # dinov2-large's halves at the weight-streamed kernels' rounding points.
+    "fused_attn_part_stream": 0, "fused_mlp_part_stream": 0,
     # The streamed attention kernels: a forward launch (flash_fwd_kernel) and
     # a backward pair (flash_bwd_dq_kernel + flash_bwd_dkv_kernel), counted
     # inside the chains above and by the standalone ``flash_attention``.
@@ -58,6 +60,8 @@ _SIGNATURES = {
     "dp_fused_block": ([_P] * 20 + [_I] * 5 + [_F, _P], _I),
     "dp_fused_attn_part": ([_P] * 10 + [_I] * 4 + [_F, _P], _I),
     "dp_fused_mlp_part": ([_P] * 10 + [_I] * 3 + [_F, _P], _I),
+    "dp_fused_attn_part_stream": ([_P] * 10 + [_I] * 4 + [_F, _P], _I),
+    "dp_fused_mlp_part_stream": ([_P] * 10 + [_I] * 3 + [_F, _P], _I),
     "dp_fused_mlp_dx": ([_P] * 13 + [_I] * 3 + [_F, _P], _I),
     "dp_fused_mlp_bwd": ([_P] * 24 + [_I] * 5 + [_F, _P], _I),
     "dp_fused_attn_bwd": ([_P] * 26 + [_I] * 6 + [_F, _P], _I),

@@ -1,19 +1,35 @@
 """Fused ViT block: plain PyTorch versions and the CUDA kernel wrappers
 (counterpart of dino_pose_tpu/ops/block.py).
 
-Seven functions of the dinov2 fine-tuning paths, each with its plain version:
+Nine functions of the dinov2 fine-tuning paths, each with its plain version:
 
-=====================  ====================  ==========================================
-wrapper                plain version         TPU kernel it replaces
-=====================  ====================  ==========================================
-``fused_block``        ``block_math``        ``_block_kernel`` (block.py:159)
-``fused_attn_part``    ``attn_part_math``    ``_attn_part_kernel`` (block.py:999)
-``fused_mlp_part``     ``mlp_part_math``     ``_mlp_part_kernel`` (block.py:1021)
-``fused_mlp_dx``       ``mlp_dx_math``       ``_mlp_dx_kernel`` (block.py:1044)
-``fused_block_train``  ``block_train_math``  ``_block_kernel``, training form (:592)
-``fused_mlp_bwd``      ``mlp_bwd_math``      ``_mlp_bwd_kernel`` (block.py:284)
-``fused_attn_bwd``     ``attn_bwd_math``     ``_attn_bwd_kernel`` (block.py:334)
-=====================  ====================  ==========================================
+==========================  =========================  =====================================
+wrapper                     plain version              TPU kernel it replaces
+==========================  =========================  =====================================
+``fused_block``             ``block_math``             ``_block_kernel`` (block.py:159)
+``fused_attn_part``         ``attn_part_math``         ``_attn_part_kernel`` (block.py:999)
+``fused_mlp_part``          ``mlp_part_math``          ``_mlp_part_kernel`` (block.py:1021)
+``fused_mlp_dx``            ``mlp_dx_math``            ``_mlp_dx_kernel`` (block.py:1044) and
+                                                       ``_mlp_stream_dx_kernel`` (:1663)
+``fused_block_train``       ``block_train_math``       ``_block_kernel``, training form (:592)
+``fused_mlp_bwd``           ``mlp_bwd_math``           ``_mlp_bwd_kernel`` (block.py:284)
+``fused_attn_bwd``          ``attn_bwd_math``          ``_attn_bwd_kernel`` (block.py:334)
+``fused_attn_part_stream``  ``attn_part_stream_math``  ``_attn_stream_kernel`` (block.py:1807)
+``fused_mlp_part_stream``   ``mlp_part_stream_math``   ``_mlp_stream_kernel`` (block.py:1636)
+==========================  =========================  =====================================
+
+Ten TPU kernels: ``_mlp_stream_dx_kernel`` computes
+``_mlp_dx_kernel``'s function (up to the f32 summation order over hidden
+blocks; it recomputes h1 as bf16(m W1) + bf16(bf1) and reads no rounding of
+the forward), so ``fused_mlp_dx`` serves both.
+
+The halves come in two roundings, as in the JAX package, and
+:func:`block_route` picks between them as JAX's single-device TPU dispatch
+does: the resident kernels (``_block_kernel``, ``_attn_part_kernel``,
+``_mlp_part_kernel``; dinov2-small and -base) round each product to bf16 and
+add the bias in bf16; the weight-streamed ones (dinov2-large) sum the
+out-projection and fc2 in f32 and add the bias, and for fc2 multiply the
+LayerScale, in f32 before one rounding.
 
 A wrapper takes its plain version only for tensors on the CPU. On a CUDA
 tensor it launches the kernels of ``ops/csrc/block_kernels.cu`` or raises;
@@ -158,19 +174,27 @@ def _gelu_exact(x: torch.Tensor) -> torch.Tensor:
     return torch.nn.functional.gelu(x.float(), approximate="none").to(x.dtype)
 
 
+def _dense_f32(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The streamed kernels' output product: x @ w summed in f32 with the
+    f32 bias added, not yet rounded."""
+    return x.float() @ w.to(x.dtype).float() + b.float()
+
+
+def _heads_attention(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
+    b, s, d3 = qkv.shape
+    d = d3 // 3
+    dh = d // num_heads
+    q, k, v = (t.reshape(b, s, num_heads, dh).transpose(1, 2) for t in qkv.split(d, dim=-1))
+    return plain_attention(q, k, v, dh**-0.5).transpose(1, 2).reshape(b, s, d)
+
+
 def attn_part_math(
     x: torch.Tensor, ap: AttnParams, *, num_heads: int, eps: float
 ) -> torch.Tensor:
     """LN1 -> qkv -> multi-head attention -> out-projection + bias
     (before LayerScale, without the residual)."""
-    b, s, d = x.shape
-    dh = d // num_heads
     qkv = _dense(layer_norm(x, ap.g1, ap.b1, eps), ap.wqkv, ap.bqkv)
-    q, k, v = (
-        t.reshape(b, s, num_heads, dh).transpose(1, 2) for t in qkv.split(d, dim=-1)
-    )
-    ctx = plain_attention(q, k, v, dh**-0.5).transpose(1, 2).reshape(b, s, d)
-    return _dense(ctx, ap.wo, ap.bo)
+    return _dense(_heads_attention(qkv, num_heads), ap.wo, ap.bo)
 
 
 def mlp_part_math(x2: torch.Tensor, mp: MlpParams, *, eps: float) -> torch.Tensor:
@@ -178,6 +202,27 @@ def mlp_part_math(x2: torch.Tensor, mp: MlpParams, *, eps: float) -> torch.Tenso
     h = _gelu_exact(_dense(layer_norm(x2, mp.g2, mp.b2, eps), mp.w1, mp.bf1))
     h = _dense(h, mp.w2, mp.bf2)
     return x2 + h * mp.ls2.to(h.dtype)
+
+
+def attn_part_stream_math(
+    x: torch.Tensor, ap: AttnParams, *, num_heads: int, eps: float
+) -> torch.Tensor:
+    """``attn_part_math``'s function at ``_attn_stream_kernel``'s rounding
+    points (JAX block.py:1807-1865): LN1 and qkv = bf16(a Wqkv) + bf16(bqkv)
+    in the activation dtype, the attention as ``attn_part_math``'s, then the
+    out-projection summed in f32 with bo added in f32 and rounded once."""
+    qkv = _dense(layer_norm(x, ap.g1, ap.b1, eps), ap.wqkv, ap.bqkv)
+    ctx = _heads_attention(qkv, num_heads)
+    return _dense_f32(ctx, ap.wo, ap.bo).to(x.dtype)
+
+
+def mlp_part_stream_math(x2: torch.Tensor, mp: MlpParams, *, eps: float) -> torch.Tensor:
+    """``mlp_part_math``'s function at ``_mlp_stream_kernel``'s rounding
+    points (JAX block.py:1636-1660): LN2, h1 = bf16(m W1) + bf16(bf1) and
+    its exact GELU in the activation dtype; fc2 summed in f32, bf2 added and
+    ls2 multiplied in f32 and rounded once: y = x2 + bf16((g W2 + bf2) ls2)."""
+    h = _gelu_exact(_dense(layer_norm(x2, mp.g2, mp.b2, eps), mp.w1, mp.bf1))
+    return x2 + (_dense_f32(h, mp.w2, mp.bf2) * mp.ls2.float()).to(x2.dtype)
 
 
 def block_train_math(
@@ -330,6 +375,80 @@ def attn_bwd_math(
         g1=_colsum(da * xhat), b1=_colsum(da), wqkv=_tmm(a, dqkv), bqkv=_colsum(dqkv),
         wo=_tmm(ctx, dob), bo=_colsum(do), ls1=_colsum(dx2f * o.float()),
     )
+
+
+# ---------------------------------------------------------------------------
+# The rounding route (the JAX package's single-device TPU block dispatch)
+# ---------------------------------------------------------------------------
+
+_MIB = 1024 * 1024
+
+
+def _whole_block_fits(d: int, sp: int, hidden: int, itemsize: int) -> bool:
+    """JAX ``fused_blocks_enabled`` on one TPU: ratio-4 MLP, D <= 512 and at
+    least one batch row beside the weights in 10 MiB (``_rows_per_program``)."""
+    if hidden != 4 * d or d > 512:
+        return False
+    weights = 4 * d * d * itemsize + 2 * d * hidden * itemsize
+    per_row = 9 * sp * d * itemsize + 2 * sp * hidden * itemsize + sp * sp * 4
+    return (10 * _MIB - weights) // max(1, per_row) >= 1
+
+
+def _halves_fit(d: int, sp: int, hidden: int, itemsize: int) -> bool:
+    """JAX ``parts_fused_enabled`` on one TPU: each resident half's forward
+    working set within 13 MiB."""
+    attn = 8 * d * d * itemsize + 7 * sp * d * itemsize + 2 * sp * sp * 4
+    mlp = 2 * d * hidden * itemsize + 3 * sp * d * itemsize + sp * hidden * itemsize
+    return max(attn, mlp) <= 13 * _MIB
+
+
+def _stream_plans_exist(d: int, sp: int, num_heads: int, hidden: int, itemsize: int) -> bool:
+    """JAX ``_stream_mlp_plan`` and ``_stream_attn_plan`` at batch 1 (one row
+    a program): some hidden block, and the head group
+    ``_attn_heads_per_block`` gives, fit the streaming budget of 16 MiB."""
+    i = itemsize
+    mlp = any(
+        hidden % bh == 0
+        and sp * d * (5 * i + 8) + sp * bh * (i + 4) + 4 * d * bh * i <= 16 * _MIB
+        for bh in (2048, 1024, 512, 256)
+    )
+    dh = d // num_heads
+    hpb = max(1, -(-128 // dh))
+    while hpb <= num_heads and (num_heads % hpb or (hpb * dh) % 128):
+        hpb += 1
+    if hpb > num_heads:
+        return False
+    gw = hpb * dh
+    attn = sp * d * (5 * i + 8) + sp * sp * 4 + 8 * sp * gw * i + 8 * d * gw * i
+    return mlp and attn <= 16 * _MIB
+
+
+def block_route(d: int, s: int, num_heads: int, hidden: int, itemsize: int, *,
+                lora: bool, training: bool) -> str:
+    """The rounding route of one dinov2 block: the one JAX's single-device
+    TPU dispatch takes (``models/vit.py:276-342`` with ``fused_blocks_enabled``,
+    ``parts_fused_enabled`` and ``stream_fused_enabled``, ``ops/block.py``).
+
+    It picks JAX's rounding points, not a VMEM plan: the byte models only
+    decide, as on the TPU, which of its kernels a block of this shape takes.
+    ``"block"`` where JAX takes a resident kernel (``_block_kernel``, or the
+    halves ``_attn_part_kernel`` + XLA stitch + ``_mlp_part_kernel``: the
+    same rounding), ``"stream"`` where it takes the weight-streamed halves,
+    ``"math"`` where it runs its XLA ``block_math`` or the halves' math,
+    which round like ``"block"``. ``lora``: the block holds a LoRA adapter
+    (its route ignores ``training``); ``training``: a non-LoRA block whose
+    weights train in this pass. At 224² (S = 257) in bf16: dinov2-small
+    ``"block"``, dinov2-base ``"block"`` (``"stream"`` when training),
+    dinov2-large ``"stream"``; at S = 1297 all three ``"math"``."""
+    sp = -(-s // 8) * 8
+    if _whole_block_fits(d, sp, hidden, itemsize):
+        return "block"
+    streams = _stream_plans_exist(d, sp, num_heads, hidden, itemsize)
+    if training and not lora:
+        return "stream" if streams else "math"
+    if _halves_fit(d, sp, hidden, itemsize):
+        return "block"
+    return "stream" if streams else "math"
 
 
 # ---------------------------------------------------------------------------
@@ -489,6 +608,39 @@ def fused_attn_part(
     _refuse_grad(name, x, *ap)
     if not _route(x):
         return attn_part_math(x, ap, num_heads=num_heads, eps=eps)
+    return _launch_attn_part(x, ap, num_heads, eps, name, _ext.lib().dp_fused_attn_part)
+
+
+def fused_attn_part_stream(
+    x: torch.Tensor, ap: AttnParams, num_heads: int, eps: float
+) -> torch.Tensor:
+    """``fused_attn_part``'s function at the weight-streamed rounding points
+    (o = bf16(ctx Wo + bo), summed and biased in f32); replaces
+    ``_attn_stream_kernel`` (dino_pose_tpu/ops/block.py:1807), dinov2-large's
+    attention half.
+
+    Design: ``fused_attn_part``'s three launches with another epilogue on
+    the last — gemm<LN1 prologue, +bqkv> -> attention (K/V resident; the
+    streamed flash_fwd_kernel past S ~ 320) -> gemm<f32 +bo>. The TPU
+    kernel streams per-head-group weight slices through VMEM because one
+    half's 8 MB of bf16 weights (D = 1024) exceed its 16 MiB budget with the
+    activations; the Hopper GEMMs already walk every weight in 32x64 tiles
+    through shared memory, so that plan has nothing to carry over. The LN
+    prologue holds a 64-row tile of width D: 154 KB at D = 1024, one block
+    per SM.
+
+    Bound on an H100 at S = 257, D = 1024: 2.43 GFLOP per image and 8.4 MB
+    of weights; bytes bound it at batch 1, operations from batch 2 up.
+    """
+    name = "fused_attn_part_stream"
+    _refuse_grad(name, x, *ap)
+    if not _route(x):
+        return attn_part_stream_math(x, ap, num_heads=num_heads, eps=eps)
+    return _launch_attn_part(x, ap, num_heads, eps, name, _ext.lib().dp_fused_attn_part_stream)
+
+
+def _launch_attn_part(x: torch.Tensor, ap: AttnParams, num_heads: int, eps: float,
+                      name: str, entry) -> torch.Tensor:
     _check_act(x, name)
     b, s, d = x.shape
     _check_shapes(d, num_heads, name)
@@ -497,10 +649,8 @@ def fused_attn_part(
     qkv = torch.empty((b, s, 3 * d), dtype=x.dtype, device=x.device)
     ctx = torch.empty_like(x)
     out = torch.empty_like(x)
-    err = _ext.lib().dp_fused_attn_part(
-        *(t.data_ptr() for t in (x, *ap, qkv, ctx, out)),
-        b, s, d, num_heads, eps, _stream(),
-    )
+    err = entry(*(t.data_ptr() for t in (x, *ap, qkv, ctx, out)),
+                b, s, d, num_heads, eps, _stream())
     _ext.check(err, name)
     LAUNCHES[name] += 1
     LAUNCHES["flash_fwd"] += _ext.lib().dp_flash_forward(s, d // num_heads)
@@ -522,6 +672,35 @@ def fused_mlp_part(x2: torch.Tensor, mp: MlpParams, eps: float) -> torch.Tensor:
     _refuse_grad(name, x2, *mp)
     if not _route(x2):
         return mlp_part_math(x2, mp, eps=eps)
+    return _launch_mlp_part(x2, mp, eps, name, _ext.lib().dp_fused_mlp_part)
+
+
+def fused_mlp_part_stream(x2: torch.Tensor, mp: MlpParams, eps: float) -> torch.Tensor:
+    """``fused_mlp_part``'s function at the weight-streamed rounding points
+    (y = x2 + bf16((g W2 + bf2) ls2), fc2 summed, biased and scaled in f32);
+    replaces ``_mlp_stream_kernel`` (dino_pose_tpu/ops/block.py:1636),
+    dinov2-large's MLP half.
+
+    Design: ``fused_mlp_part``'s two launches with another epilogue on the
+    second — gemm<LN2 prologue, +bf1, exact GELU> -> gemm<f32 +bf2, *ls2,
+    rounded, +x2>. The TPU kernel streams (D, bh) fc1 and (bh, D) fc2 blocks
+    through VMEM (16.8 MB of bf16 weights at D = 1024) with an f32 (rows, D)
+    accumulator resident; here each output tile's f32 accumulator lives in
+    registers over the whole hidden axis, and the weights reach shared
+    memory in 32x64 tiles, so no plan of hidden blocks is needed.
+
+    Bound on an H100 at S = 257, D = 1024: 4.31 GFLOP per image and 16.8 MB
+    of weights; bytes bound it at batch 1, operations from batch 2 up.
+    """
+    name = "fused_mlp_part_stream"
+    _refuse_grad(name, x2, *mp)
+    if not _route(x2):
+        return mlp_part_stream_math(x2, mp, eps=eps)
+    return _launch_mlp_part(x2, mp, eps, name, _ext.lib().dp_fused_mlp_part_stream)
+
+
+def _launch_mlp_part(x2: torch.Tensor, mp: MlpParams, eps: float, name: str,
+                     entry) -> torch.Tensor:
     _check_act(x2, name)
     b, s, d = x2.shape
     hidden = mp.w1.shape[-1]
@@ -532,10 +711,7 @@ def fused_mlp_part(x2: torch.Tensor, mp: MlpParams, eps: float) -> torch.Tensor:
     _check_params(x2, mp, _mlp_shapes(d, hidden), name)
     hbuf = torch.empty((b, s, hidden), dtype=x2.dtype, device=x2.device)
     y = torch.empty_like(x2)
-    err = _ext.lib().dp_fused_mlp_part(
-        *(t.data_ptr() for t in (x2, *mp, hbuf, y)),
-        b * s, d, hidden, eps, _stream(),
-    )
+    err = entry(*(t.data_ptr() for t in (x2, *mp, hbuf, y)), b * s, d, hidden, eps, _stream())
     _ext.check(err, name)
     LAUNCHES[name] += 1
     return y
@@ -714,13 +890,13 @@ def fused_attn_bwd(
 
 
 class _MlpPartFrozen(torch.autograd.Function):
-    """``fused_mlp_part`` with the frozen-weight backward: dx2 from
+    """The MLP half of ``route`` with the frozen-weight backward: dx2 from
     ``fused_mlp_dx``, no gradient for any MLP parameter. With
     ``kernels=False`` the plain versions of both."""
 
     @staticmethod
-    def forward(ctx, x2, eps, kernels, *mp):
-        if any(ctx.needs_input_grad[3:]):
+    def forward(ctx, x2, eps, kernels, route, *mp):
+        if any(ctx.needs_input_grad[4:]):
             raise ValueError(
                 "mlp_part_frozen: an MLP weight requires grad, but its backward "
                 "gives the weights no gradient (assume_frozen_weights); a block "
@@ -728,28 +904,33 @@ class _MlpPartFrozen(torch.autograd.Function):
             )
         ctx.save_for_backward(x2, *mp)
         ctx.eps, ctx.kernels = eps, kernels
+        stream = route == "stream"
         if kernels:
-            return fused_mlp_part(x2, MlpParams(*mp), eps)
-        return mlp_part_math(x2, MlpParams(*mp), eps=eps)
+            return (fused_mlp_part_stream if stream else fused_mlp_part)(x2, MlpParams(*mp), eps)
+        return (mlp_part_stream_math if stream else mlp_part_math)(x2, MlpParams(*mp), eps=eps)
 
     @staticmethod
     def backward(ctx, dy):
         x2, *mp = ctx.saved_tensors
         args = (x2, dy.contiguous(), MlpParams(*mp))
         dx2 = fused_mlp_dx(*args, ctx.eps) if ctx.kernels else mlp_dx_math(*args, eps=ctx.eps)
-        return (dx2, None, None) + (None,) * len(mp)
+        return (dx2, None, None, None) + (None,) * len(mp)
 
 
 def mlp_part_frozen(
-    x2: torch.Tensor, mp: MlpParams, eps: float, *, kernels: bool = True
+    x2: torch.Tensor, mp: MlpParams, eps: float, *, kernels: bool = True,
+    route: str = "block",
 ) -> torch.Tensor:
     """The LoRA layer's MLP half under autograd (JAX
-    ``fused_mlp_part(..., assume_frozen_weights=True)``): the forward is
-    ``fused_mlp_part``, the backward ``fused_mlp_dx`` (``kernels=False``:
-    ``mlp_part_math`` and ``mlp_dx_math``); only x2 gets a gradient. Raises
+    ``fused_mlp_part(..., assume_frozen_weights=True)``, or on ``route``
+    ``"stream"`` ``fused_mlp_part_stream(..., True)``): the forward is
+    ``fused_mlp_part`` (``"stream"``: ``fused_mlp_part_stream``), the
+    backward ``fused_mlp_dx`` on either route, since JAX's
+    ``_mlp_stream_dx_kernel`` computes ``_mlp_dx_kernel``'s function
+    (``kernels=False``: the plain versions); only x2 gets a gradient. Raises
     ``ValueError`` if an ``MlpParams`` tensor requires grad. Saves only
     (x2, mp) for the backward, as JAX does."""
-    return _MlpPartFrozen.apply(x2, eps, kernels, *mp)
+    return _MlpPartFrozen.apply(x2, eps, kernels, route, *mp)
 
 
 class _BlockTrain(torch.autograd.Function):
@@ -809,6 +990,7 @@ def block_flops(s: int, d: int, hidden: int | None = None) -> dict[str, int]:
     attn = 2 * s * d * 3 * d + 4 * s * s * d + 2 * s * d * d
     mlp = 4 * s * d * h
     return {"fused_attn_part": attn, "fused_mlp_part": mlp, "fused_block": attn + mlp,
+            "fused_attn_part_stream": attn, "fused_mlp_part_stream": mlp,
             "fused_mlp_dx": 6 * s * d * h, "fused_block_train": attn + mlp,
             "fused_mlp_bwd": 12 * s * d * h,
             "fused_attn_bwd": 3 * 2 * s * d * 3 * d + 3 * 2 * s * d * d + 6 * 2 * s * s * d}
@@ -825,6 +1007,7 @@ def block_bytes(b: int, s: int, d: int, hidden: int | None = None) -> dict[str, 
     mlp_g = 2 * d * h * 4 + (2 * d + h + d + d) * 4
     block = act + attn_w + mlp_w + d * 4
     return {"fused_attn_part": act + attn_w, "fused_mlp_part": act + mlp_w,
+            "fused_attn_part_stream": act + attn_w, "fused_mlp_part_stream": act + mlp_w,
             "fused_block": block, "fused_mlp_dx": 3 * b * s * d * 2 + mlp_w,
             "fused_block_train": block + b * s * d * 2,
             "fused_mlp_bwd": 3 * b * s * d * 2 + mlp_w + mlp_g,

@@ -1,12 +1,16 @@
 // Fused ViT block kernels for Hopper (sm_90a), CUDA C++ with a plain C
 // interface (loaded with ctypes by dino_pose_tpu_torch/ops/_ext.py).
 //
-// They replace the six Pallas kernels of the dinov2 fine-tuning paths
+// They replace the nine Pallas kernels of the dinov2 fine-tuning paths
 // (dino_pose_tpu/ops/block.py): _block_kernel (:159, also in its training
 // form with the residual x2, :592), _attn_part_kernel (:999, body
 // _attn_half_core :948), _mlp_part_kernel (:1021), the LoRA layer's backward
-// _mlp_dx_kernel (:1044), and the trainable block's backward _mlp_bwd_kernel
-// (:284) and _attn_bwd_kernel (:334). The TPU design holds one whole block
+// _mlp_dx_kernel (:1044) and its weight-streamed twin _mlp_stream_dx_kernel
+// (:1663, the same function), the trainable block's backward _mlp_bwd_kernel
+// (:284) and _attn_bwd_kernel (:334), and dinov2-large's weight-streamed
+// halves _attn_stream_kernel (:1807) and _mlp_stream_kernel (:1636), which
+// differ from the resident ones only in their output epilogue (f32 bias).
+// The TPU design holds one whole block
 // (12 D^2 bf16 weights = 3.5 MB at D = 384) plus a few rows of activations
 // in VMEM per program. Hopper gives a block at most 227 KB of shared memory,
 // so each TPU kernel becomes a short chain of kernels here, sharing these
@@ -18,7 +22,8 @@
 //                          rounded to bf16) over whole rows held in shared
 //                          memory; EPI = +bias | +bias,GELU(erf) |
 //                          +bias,*LayerScale,+residual | +bias with both the
-//                          pre-activation and its GELU written out.
+//                          pre-activation and its GELU written out | f32
+//                          +bias | f32 +bias,*LayerScale, then +residual.
 //   gemm_nt_kernel<SCALE, EPI>  the same tile with W read transposed (the
 //                          backward products), an optional per-column scale
 //                          prologue, a *gelu'(h), raw-f32 or bf16 epilogue,
@@ -46,6 +51,8 @@
 //
 //   _attn_part_kernel = gemm<LN,BIAS>(qkv) -> attention -> gemm<-,BIAS>(out)
 //   _mlp_part_kernel  = gemm<LN,GELU>(fc1) -> gemm<-,LS_RES>(fc2)
+//   _attn_stream_kernel = gemm<LN,BIAS>(qkv) -> attention -> gemm<-,F32BIAS>(out)
+//   _mlp_stream_kernel  = gemm<LN,GELU>(fc1) -> gemm<-,F32BIAS_LS_RES>(fc2)
 //   _block_kernel     = gemm<LN,BIAS> -> attention -> gemm<-,LS_RES>
 //                       -> gemm<LN,GELU> -> gemm<-,LS_RES>
 //   _mlp_dx_kernel    = gemm<LN,BIAS>(h1) -> gemm_nt<dy*ls2, *gelu'(h1)>(dh1b)
@@ -110,7 +117,13 @@ constexpr int NSUMS = 4;           // column sums of ln_bwd_rows_kernel<true>
 
 constexpr size_t MAX_SMEM = 232448;  // shared memory one Hopper block may use
 
-enum Epilogue { EPI_BIAS = 0, EPI_BIAS_GELU = 1, EPI_BIAS_LS_RES = 2, EPI_BIAS_GELU_PAIR = 3 };
+// EPI_BIAS* round the product to bf16 and add the bf16-rounded bias in bf16
+// (the resident TPU kernels); EPI_F32BIAS* add the bias to the f32 sum
+// before one rounding (the weight-streamed ones, dinov2-large).
+enum Epilogue {
+  EPI_BIAS = 0, EPI_BIAS_GELU = 1, EPI_BIAS_LS_RES = 2, EPI_BIAS_GELU_PAIR = 3,
+  EPI_F32BIAS = 4, EPI_F32BIAS_LS_RES = 5
+};
 enum EpilogueNT { EPT_GELU_GRAD = 0, EPT_F32 = 1, EPT_BF16 = 2 };
 
 __host__ __device__ __forceinline__ size_t align128(size_t n) {
@@ -142,7 +155,9 @@ size_t gemm_smem_bytes(bool ln, int K) {
 
 // C[M,N] = epilogue(A'[M,K] @ W[K,N]); A, W, C, res row-major bf16;
 // bias, ls, gamma, beta f32 vectors. EPI_BIAS_GELU_PAIR writes the biased
-// product h to out and gelu(h) to out2.
+// product h to out and gelu(h) to out2. EPI_F32BIAS: bf16(acc + bias);
+// EPI_F32BIAS_LS_RES: bf16(res + bf16((acc + bias) * ls)), in f32 up to the
+// inner rounding.
 template <bool LN, int EPI>
 __global__ void __launch_bounds__(GEMM_THREADS)
 gemm_kernel(const bf16* __restrict__ A, const bf16* __restrict__ W,
@@ -250,6 +265,12 @@ gemm_kernel(const bf16* __restrict__ A, const bf16* __restrict__ W,
     const int gm = m0 + r, gn = n0 + c;
     if (gm >= M) continue;
     const size_t idx = static_cast<size_t>(gm) * N + gn;
+    if (EPI == EPI_F32BIAS || EPI == EPI_F32BIAS_LS_RES) {
+      float o = Cs[r * LDC + c] + bias[gn];
+      if (EPI == EPI_F32BIAS_LS_RES) o = bf16r(__bfloat162float(res[idx]) + bf16r(o * ls[gn]));
+      out[idx] = __float2bfloat16(o);
+      continue;
+    }
     float o = bf16r(bf16r(Cs[r * LDC + c]) + bf16r(bias[gn]));
     if (EPI == EPI_BIAS_GELU || EPI == EPI_BIAS_GELU_PAIR) {
       const float gl = bf16r(o * 0.5f * (1.f + erff(o * 0.70710678118654752440f)));
@@ -1223,6 +1244,10 @@ cudaError_t launch_attention(const void* qkv, void* ctx, void* stats, int B, int
   return cudaGetLastError();
 }
 
+// The attention half, its out-projection epilogue OUT_EPI: EPI_BIAS (o,
+// resident rounding), EPI_BIAS_LS_RES (x2 = x + ls1*o, the whole block) or
+// EPI_F32BIAS (o, streamed rounding).
+template <int OUT_EPI>
 cudaError_t attn_half(const void* x, const void* g1, const void* b1, const void* wqkv,
                       const void* bqkv, const void* wo, const void* bo, const void* ls1,
                       void* qkv, void* ctx, void* out, int B, int S, int D, int H, float eps,
@@ -1233,13 +1258,13 @@ cudaError_t attn_half(const void* x, const void* g1, const void* b1, const void*
   if (err != cudaSuccess) return err;
   err = launch_attention(qkv, ctx, nullptr, B, S, H, D / H, flash_forward(S, D / H), st);
   if (err != cudaSuccess) return err;
-  if (ls1 == nullptr)
-    return launch_gemm<false, EPI_BIAS>(ctx, wo, bo, nullptr, nullptr, nullptr, nullptr, out,
-                                        M, D, D, eps, st);
-  return launch_gemm<false, EPI_BIAS_LS_RES>(ctx, wo, bo, ls1, x, nullptr, nullptr, out, M,
-                                             D, D, eps, st);
+  return launch_gemm<false, OUT_EPI>(ctx, wo, bo, ls1, x, nullptr, nullptr, out, M, D, D, eps,
+                                     st);
 }
 
+// The MLP half, its fc2 epilogue OUT_EPI: EPI_BIAS_LS_RES (resident rounding)
+// or EPI_F32BIAS_LS_RES (streamed rounding).
+template <int OUT_EPI>
 cudaError_t mlp_half(const void* x2, const void* g2, const void* b2, const void* w1,
                      const void* bf1, const void* w2, const void* bf2, const void* ls2,
                      void* hbuf, void* y, int M, int D, int hidden, float eps,
@@ -1247,8 +1272,8 @@ cudaError_t mlp_half(const void* x2, const void* g2, const void* b2, const void*
   cudaError_t err = launch_gemm<true, EPI_BIAS_GELU>(x2, w1, bf1, nullptr, nullptr, g2, b2,
                                                      hbuf, M, hidden, D, eps, st);
   if (err != cudaSuccess) return err;
-  return launch_gemm<false, EPI_BIAS_LS_RES>(hbuf, w2, bf2, ls2, x2, nullptr, nullptr, y, M, D,
-                                             hidden, eps, st);
+  return launch_gemm<false, OUT_EPI>(hbuf, w2, bf2, ls2, x2, nullptr, nullptr, y, M, D, hidden,
+                                     eps, st);
 }
 
 }  // namespace
@@ -1271,27 +1296,55 @@ int dp_fused_block(const void* x, const void* g1, const void* b1, const void* wq
                    void* x2, void* hbuf, void* y, int B, int S, int D, int H, int hidden,
                    float eps, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err = attn_half(x, g1, b1, wqkv, bqkv, wo, bo, ls1, qkv, ctx, x2, B, S, D, H,
-                              eps, st);
+  cudaError_t err = attn_half<EPI_BIAS_LS_RES>(x, g1, b1, wqkv, bqkv, wo, bo, ls1, qkv, ctx,
+                                               x2, B, S, D, H, eps, st);
   if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(
-      mlp_half(x2, g2, b2, w1, bf1, w2, bf2, ls2, hbuf, y, B * S, D, hidden, eps, st));
+  return static_cast<int>(mlp_half<EPI_BIAS_LS_RES>(x2, g2, b2, w1, bf1, w2, bf2, ls2, hbuf, y,
+                                                    B * S, D, hidden, eps, st));
 }
 
 // _attn_part_kernel: o = Wo MHA(LN1(x) Wqkv + bqkv) + bo (no LayerScale).
 int dp_fused_attn_part(const void* x, const void* g1, const void* b1, const void* wqkv,
                        const void* bqkv, const void* wo, const void* bo, void* qkv, void* ctx,
                        void* out, int B, int S, int D, int H, float eps, void* stream) {
-  return static_cast<int>(attn_half(x, g1, b1, wqkv, bqkv, wo, bo, nullptr, qkv, ctx, out, B,
-                                    S, D, H, eps, static_cast<cudaStream_t>(stream)));
+  return static_cast<int>(attn_half<EPI_BIAS>(x, g1, b1, wqkv, bqkv, wo, bo, nullptr, qkv, ctx,
+                                              out, B, S, D, H, eps,
+                                              static_cast<cudaStream_t>(stream)));
 }
 
 // _mlp_part_kernel: y = x2 + ls2*(W2 gelu(W1 LN2(x2) + bf1) + bf2).
 int dp_fused_mlp_part(const void* x2, const void* g2, const void* b2, const void* w1,
                       const void* bf1, const void* w2, const void* bf2, const void* ls2,
                       void* hbuf, void* y, int M, int D, int hidden, float eps, void* stream) {
-  return static_cast<int>(mlp_half(x2, g2, b2, w1, bf1, w2, bf2, ls2, hbuf, y, M, D, hidden,
-                                   eps, static_cast<cudaStream_t>(stream)));
+  return static_cast<int>(mlp_half<EPI_BIAS_LS_RES>(x2, g2, b2, w1, bf1, w2, bf2, ls2, hbuf, y,
+                                                    M, D, hidden, eps,
+                                                    static_cast<cudaStream_t>(stream)));
+}
+
+// _attn_stream_kernel (block.py:1807): o = bf16(Wo MHA(LN1(x) Wqkv + bqkv) + bo),
+// the out-projection summed and biased in f32. The TPU kernel streams
+// per-head-group weight slices through VMEM; here every GEMM already walks
+// its weights in 32x64 tiles through shared memory, so the chain is
+// _attn_part_kernel's with the f32 epilogue.
+int dp_fused_attn_part_stream(const void* x, const void* g1, const void* b1, const void* wqkv,
+                              const void* bqkv, const void* wo, const void* bo, void* qkv,
+                              void* ctx, void* out, int B, int S, int D, int H, float eps,
+                              void* stream) {
+  return static_cast<int>(attn_half<EPI_F32BIAS>(x, g1, b1, wqkv, bqkv, wo, bo, nullptr, qkv,
+                                                 ctx, out, B, S, D, H, eps,
+                                                 static_cast<cudaStream_t>(stream)));
+}
+
+// _mlp_stream_kernel (block.py:1636): y = x2 + bf16((W2 gelu(W1 LN2(x2) + bf1)
+// + bf2) * ls2), fc2 summed, biased and scaled in f32 (the TPU kernel's f32
+// accumulator over streamed hidden blocks).
+int dp_fused_mlp_part_stream(const void* x2, const void* g2, const void* b2, const void* w1,
+                             const void* bf1, const void* w2, const void* bf2, const void* ls2,
+                             void* hbuf, void* y, int M, int D, int hidden, float eps,
+                             void* stream) {
+  return static_cast<int>(mlp_half<EPI_F32BIAS_LS_RES>(x2, g2, b2, w1, bf1, w2, bf2, ls2, hbuf,
+                                                       y, M, D, hidden, eps,
+                                                       static_cast<cudaStream_t>(stream)));
 }
 
 // _mlp_dx_kernel: dx2 = dy + LN2^T(W1^T(gelu'(h1) * W2^T(dy*ls2))), no weight

@@ -20,7 +20,10 @@ an H100 measured. ``fused_convffn`` (FastViT's ConvFFN) is held to 3e-2
 abs/rel at every fastvit_t8 and fastvit_sa12 stage shape; its backward
 ``fused_convffn_bwd`` holds dy to the same and each parameter gradient (f32
 sums over all rows) to 2e-3 of its largest magnitude, as the block
-backward's.
+backward's. dinov2-large's weight-streamed halves (``fused_attn_part_stream``,
+``fused_mlp_part_stream``, D = 1024, 16 heads) and ``fused_mlp_dx`` at that
+width are held as their resident twins: the attention half at the attention
+tolerance, the rest at 3e-2 abs/rel.
 """
 
 import copy
@@ -46,19 +49,19 @@ def cuda_device():
     return torch.device("cuda")
 
 
-def _params(device) -> block.BlockParams:
+def _params(device, d=D, hidden=HIDDEN) -> block.BlockParams:
     rng = np.random.default_rng(1)
 
     def n(*s, std=1.0, mean=0.0):
         return (rng.standard_normal(s) * std + mean).astype(np.float32)
 
     p = dict(
-        g1=n(D, std=0.1, mean=1), b1=n(D, std=0.05), wqkv=n(D, 3 * D, std=D**-0.5),
-        bqkv=n(3 * D, std=0.05), wo=n(D, D, std=D**-0.5), bo=n(D, std=0.05),
-        ls1=rng.uniform(0.1, 1, D).astype(np.float32), g2=n(D, std=0.1, mean=1),
-        b2=n(D, std=0.05), w1=n(D, HIDDEN, std=D**-0.5), bf1=n(HIDDEN, std=0.05),
-        w2=n(HIDDEN, D, std=HIDDEN**-0.5), bf2=n(D, std=0.05),
-        ls2=rng.uniform(0.1, 1, D).astype(np.float32),
+        g1=n(d, std=0.1, mean=1), b1=n(d, std=0.05), wqkv=n(d, 3 * d, std=d**-0.5),
+        bqkv=n(3 * d, std=0.05), wo=n(d, d, std=d**-0.5), bo=n(d, std=0.05),
+        ls1=rng.uniform(0.1, 1, d).astype(np.float32), g2=n(d, std=0.1, mean=1),
+        b2=n(d, std=0.05), w1=n(d, hidden, std=d**-0.5), bf1=n(hidden, std=0.05),
+        w2=n(hidden, d, std=hidden**-0.5), bf2=n(d, std=0.05),
+        ls2=rng.uniform(0.1, 1, d).astype(np.float32),
     )
     return block.BlockParams(**{
         k: torch.from_numpy(v).to(device, torch.bfloat16 if v.ndim == 2 else torch.float32)
@@ -698,3 +701,114 @@ def test_fastvit_train_step_kernels_match_plain(cuda_device):
         assert torch.isfinite(kg[n]).all() and kg[n].abs().max() > 0, n
         tol = 2 * rel(pg[n], rg[n]) + 1e-2
         assert max(rel(kg[n], rg[n]), rel(kg[n], pg[n])) <= tol, n
+
+
+# dinov2-large's width: D = 1024, 16 heads of 64, MLP 4096.
+LARGE_D, LARGE_HIDDEN, LARGE_HEADS = 1024, 4096, 16
+STREAM_NAMES = ("fused_attn_part_stream", "fused_mlp_part_stream")
+
+
+def _stream_call(name, x, p, kernel):
+    if name == "fused_attn_part_stream":
+        ap = block.attn_params(p)
+        return block.fused_attn_part_stream(x, ap, LARGE_HEADS, EPS) if kernel else \
+            block.attn_part_stream_math(x, ap, num_heads=LARGE_HEADS, eps=EPS)
+    mp = block.mlp_params(p)
+    return block.fused_mlp_part_stream(x, mp, EPS) if kernel else \
+        block.mlp_part_stream_math(x, mp, eps=EPS)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seq", [257, 57])
+@pytest.mark.parametrize("batch", [1, 8])
+@pytest.mark.parametrize("name", STREAM_NAMES)
+def test_stream_kernel_matches_plain(cuda_device, name, batch, seq):
+    """The weight-streamed halves at dinov2-large's width against their
+    plain versions: one launch each, the attention half at the attention
+    tolerance (relative Frobenius 3e-3, as fused_attn_part)."""
+    p = _params(cuda_device, LARGE_D, LARGE_HIDDEN)
+    x = _bf16(np.random.default_rng(batch + seq), (batch, seq, LARGE_D), cuda_device)
+    block.reset_launches()
+    got = _stream_call(name, x, p, kernel=True).float()
+    want = _stream_call(name, x, p, kernel=False).float()
+    torch.cuda.synchronize()
+    assert block.LAUNCHES == {**dict.fromkeys(block.LAUNCHES, 0), name: 1}
+    assert torch.isfinite(got).all()
+    if name == "fused_attn_part_stream":
+        _assert_attention_close(got, want, 3e-3)
+    else:
+        torch.testing.assert_close(got, want, atol=3e-2, rtol=3e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch", [1, 8])
+def test_mlp_dx_matches_plain_at_dinov2_large(cuda_device, batch):
+    """fused_mlp_dx at D = 1024, MLP 4096: the LoRA layer's backward on
+    dinov2-large (JAX's _mlp_stream_dx_kernel computes the same function)."""
+    mp = block.mlp_params(_params(cuda_device, LARGE_D, LARGE_HIDDEN))
+    rng = np.random.default_rng(batch)
+    x2, dy = (_bf16(rng, (batch, 257, LARGE_D), cuda_device) for _ in range(2))
+    block.reset_launches()
+    got = block.fused_mlp_dx(x2, dy, mp, EPS).float()
+    want = block.mlp_dx_math(x2, dy, mp, eps=EPS).float()
+    torch.cuda.synchronize()
+    assert block.LAUNCHES["fused_mlp_dx"] == 1
+    torch.testing.assert_close(got, want, atol=3e-2, rtol=3e-2)
+
+
+@pytest.mark.cuda
+def test_stream_wrappers_refuse_what_they_do_not_take(cuda_device):
+    p = _params(cuda_device, LARGE_D, LARGE_HIDDEN)
+    x = torch.zeros((1, 257, LARGE_D), device=cuda_device)
+    with pytest.raises(TypeError, match="bf16"):
+        block.fused_mlp_part_stream(x, block.mlp_params(p), EPS)        # f32 on CUDA
+    with pytest.raises(ValueError, match="head width"):
+        block.fused_attn_part_stream(x.to(torch.bfloat16), block.attn_params(p), 8, EPS)
+    with pytest.raises(TypeError, match="w2"):
+        bad = block.mlp_params(p)._replace(w2=p.w2.float())
+        block.fused_mlp_part_stream(x.to(torch.bfloat16), bad, EPS)
+
+
+@pytest.mark.cuda
+def test_tiny_model_on_the_stream_route_kernels_match_plain(cuda_device, monkeypatch):
+    """test/vit-tiny + LoRA with every block on the streamed route (forced):
+    a forward launches each streamed half twice, a LoRA train step also
+    fused_mlp_dx once; outputs and losses against the plain path."""
+    from dino_pose_tpu_torch.models import vit
+
+    monkeypatch.setattr(vit, "block_route", lambda *a, **k: "stream")
+    config = {"model_name": "test/vit-tiny", "use_lora": True}
+    model = registry.create_model_from_config(config, device=cuda_device)
+    rng = np.random.default_rng(2)
+    x = _bf16(rng, (2, 3, 224, 224), cuda_device)
+    block.reset_launches()
+    with torch.inference_mode():
+        hm, z = model(x)
+        hm_p, z_p = model(x, kernels=False)
+    torch.cuda.synchronize()
+    stream = {"fused_attn_part_stream": 2, "fused_mlp_part_stream": 2}
+    assert block.LAUNCHES == {**dict.fromkeys(block.LAUNCHES, 0), **stream}
+    for got, want in ((hm, hm_p), (z, z_p)):
+        assert torch.isfinite(got).all()
+        err = (got.float() - want.float()).abs().max().item()
+        assert err <= 5e-2 * want.float().abs().max().item()
+    kps = rng.uniform(20, 200, (2, 24, 3)).astype(np.float32)
+    kps[..., 2] = 2.0
+    batch = {"image": torch.from_numpy(rng.standard_normal((2, 3, 224, 224)).astype(np.float32)),
+             "2d_keypoints": torch.from_numpy(kps),
+             "z_coords": torch.from_numpy(rng.standard_normal((2, 24)).astype(np.float32))}
+    batch = {k: v.to(cuda_device) for k, v in batch.items()}
+    losses = {}
+    for kernels in (True, False):
+        m = copy.deepcopy(model)
+        state, opt, part = create_train_state(m, config)
+        step = prepare_batch(make_train_step(m, opt, part, kernels=kernels), (224, 48),
+                             torch.bfloat16)
+        block.reset_launches()
+        _, losses[kernels] = step(state, batch, 3e-5, 0)
+        torch.cuda.synchronize()
+        want = {**stream, "fused_mlp_dx": 1} if kernels else {}
+        assert block.LAUNCHES == {**dict.fromkeys(block.LAUNCHES, 0), **want}
+    for k in ("loss", "kp_loss", "z_loss"):
+        got, want = losses[True][k].item(), losses[False][k].item()
+        assert abs(got - want) <= 1e-3 * abs(want), k
