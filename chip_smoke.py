@@ -16,7 +16,12 @@ dinov2-base's and dinov2-large's widths at batch 1, 8 and 128, dinov2-base
 a forward), dinov2-large + LoRA r=8 on layer 23 serving and fine-tuning at
 batch 128 (24 launches each of the weight-streamed halves a forward, and
 the LoRA layer's dx kernel in the backward), each step's kernels held on
-its own tensors and the backbone's LoRA gradients alone at batch 128.
+its own tensors and the backbone's LoRA gradients alone at batch 128; then
+unfreeze-last-4 fine-tuning of both at batch 128, whose four trainable
+blocks take the weight-streamed training halves (the streamed MLP half that
+also saves h2, and the streamed backward chains of both halves: their
+kernels held at both widths at batch 1, 8 and 128 and on each step's own
+tensors, and the backbone's trainable-block gradients alone at batch 128).
 Times kernels, serving and every train step.
 
     python3 chip_smoke.py [--out results.json] [--profile]
@@ -116,17 +121,21 @@ def lora_grad_names(layer: int) -> tuple:
 
 
 LORA_GRAD_NAMES = lora_grad_names(11)
-UNFREEZE_GRAD_NAMES = (
-    "backbone.encoder.layer.11.mlp.fc1.weight",
-    "backbone.encoder.layer.11.mlp.fc2.bias",
-    "backbone.encoder.layer.11.layer_scale2.lambda1",
-    "backbone.encoder.layer.11.norm2.weight",
-    "backbone.encoder.layer.8.attention.attention.query.weight",
-    "backbone.encoder.layer.8.attention.output.dense.bias",
-    "backbone.encoder.layer.8.layer_scale1.lambda1",
-    "backbone.encoder.layer.8.norm1.weight",
-    "pose_heads.heatmap_head.feature_refine.0.weight",
-)
+
+
+def unfreeze_grad_names(top: int) -> tuple:
+    """MLP leaves of the top layer, attention leaves of the lowest of the
+    four trainable ones, and the heads' first conv."""
+    first = f"backbone.encoder.layer.{top - 3}."
+    return (*(f"backbone.encoder.layer.{top}.{leaf}" for leaf in (
+        "mlp.fc1.weight", "mlp.fc2.bias", "layer_scale2.lambda1", "norm2.weight")),
+            *(first + leaf for leaf in (
+                "attention.attention.query.weight", "attention.output.dense.bias",
+                "layer_scale1.lambda1", "norm1.weight")),
+            "pose_heads.heatmap_head.feature_refine.0.weight")
+
+
+UNFREEZE_GRAD_NAMES = unfreeze_grad_names(11)
 # Launches of each wrapper per forward or step on each path (the others 0:
 # no flash launch at 224², where the chains keep K and V resident). At 504²
 # every attention streams: one flash forward per layer, and per trainable
@@ -205,6 +214,33 @@ WIDE_STEPS, WIDE_TIMED = 2, 3
 WIDE_GRAD_BATCHES, LARGE_GRAD_NOISE_FACTOR = 3, 1.5
 BASE_RECORDED = ("fused_block", "fused_attn_part", "fused_mlp_part", "fused_mlp_dx")
 LARGE_RECORDED = ("fused_attn_part_stream", "fused_mlp_part_stream", "fused_mlp_dx")
+# Their unfreeze-last-4 fine-tuning at bs=128 (bench.py --model
+# facebook/dinov2-large --no_lora: unfreeze_last_n_layers=4), full depth. A
+# trainable block of either takes JAX's weight-streamed training route
+# (block_route(..., training=True) == "stream"): fused_attn_part_stream ->
+# the bf16 stitch -> fused_mlp_part_stream_train, backward
+# fused_mlp_bwd_stream then fused_attn_bwd_stream. Frozen layers as served:
+# large's 20 through the streamed halves, base's 8 through fused_block.
+BASE_UNFREEZE_CONFIG = {"model_name": "facebook/dinov2-base", "use_lora": False,
+                        "unfreeze_last_n_layers": 4}
+LARGE_UNFREEZE_CONFIG = {**BASE_UNFREEZE_CONFIG, "model_name": "facebook/dinov2-large"}
+STREAM_TRAIN = ("fused_mlp_part_stream_train", "fused_mlp_bwd_stream", "fused_attn_bwd_stream")
+STREAM_TRAIN_LAUNCHES = {"fused_attn_part_stream": 4, **dict.fromkeys(STREAM_TRAIN, 4)}
+BASE_UNFREEZE_LAUNCHES = {"fused_block": 8, **STREAM_TRAIN_LAUNCHES}
+LARGE_UNFREEZE_LAUNCHES = {**STREAM_TRAIN_LAUNCHES, "fused_attn_part_stream": 24,
+                           "fused_mlp_part_stream": 20}
+BASE_UNFREEZE_RECORDED = ("fused_block", "fused_attn_part_stream", *STREAM_TRAIN)
+LARGE_UNFREEZE_RECORDED = ("fused_attn_part_stream", "fused_mlp_part_stream", *STREAM_TRAIN)
+# Outputs that add no residual (output indices): the streamed MLP half's
+# pre-LayerScale h2 and the streamed attention backward's dx. Their values,
+# ~0.05-1, are where the elementwise 3e-2 holds little, so they are also
+# held in relative Frobenius norm to ATTN_FRO. Not to the attention half's
+# elementwise 4e-3 + 2e-2*|ref|: a row whose LayerNorm output rounds the
+# other way in one element moves many of the row's bf16 hidden values by
+# one ulp, and their sum moves an output of any size by more than 4e-3 (an
+# H100 put one h2 element of the dinov2-base B=128 check outside it, with
+# the rel Frobenius error at 1.9e-4).
+NO_RESIDUAL = {"fused_mlp_part_stream_train": (1,), "fused_attn_bwd_stream": (0,)}
 BLOCK_SOURCE = "dino_pose_tpu_torch/ops/csrc/block_kernels.cu"
 FLASH_SOURCE = "dino_pose_tpu_torch/ops/csrc/flash_kernels.cu"
 CONVFFN_SOURCE = "dino_pose_tpu_torch/ops/csrc/convffn_kernels.cu"
@@ -246,6 +282,14 @@ KERNEL_ROWS = {
                               "serving_dinov2_large"),
     "fused_mlp_dx_dinov2_large": ("dino_pose_tpu/ops/block.py:1663", BLOCK_SOURCE, TRAIN_BATCH,
                                   "dinov2_large_lora_train"),
+    # The trainable streamed halves at D = 1024, batch 128, on dinov2-large's
+    # unfreeze path; each backward wrapper replaces a pair of TPU kernels.
+    "fused_mlp_part_stream_train": ("dino_pose_tpu/ops/block.py:1695", BLOCK_SOURCE, TRAIN_BATCH,
+                                    "dinov2_large_unfreeze_train"),
+    "fused_mlp_bwd_stream": ("dino_pose_tpu/ops/block.py:1726, dino_pose_tpu/ops/block.py:1770",
+                             BLOCK_SOURCE, TRAIN_BATCH, "dinov2_large_unfreeze_train"),
+    "fused_attn_bwd_stream": ("dino_pose_tpu/ops/block.py:1924, dino_pose_tpu/ops/block.py:1973",
+                              BLOCK_SOURCE, TRAIN_BATCH, "dinov2_large_unfreeze_train"),
 }
 # The LAUNCHES key each row counts.
 LAUNCH_KEY = {"flash_attention": "flash_fwd", "flash_attention_bwd": "flash_bwd",
@@ -311,9 +355,11 @@ def width(model: str | None) -> tuple:
 
 def result_key(name: str, model: str | None) -> str:
     """The results key of a wrapper checked at ``model``'s width: its own
-    name at dinov2-small's width and for the streamed halves (which run only
-    at dinov2-large's), else the name and the model."""
-    if model is None or name.endswith("_stream"):
+    name at dinov2-small's width, for the streamed forward halves (the
+    largest error over every width they run at) and for the streamed
+    training wrappers at dinov2-large's, else the name and the model."""
+    if (model is None or name in ("fused_attn_part_stream", "fused_mlp_part_stream")
+            or model == "dinov2-large" and name in STREAM_TRAIN):
         return name
     return f"{name}_{model.replace('-', '_')}"
 
@@ -484,6 +530,84 @@ def compare_outputs(got: tuple, want: tuple, act_scale: float = 1.0) -> tuple[fl
             grad_rel = max(grad_rel, err.max().item() / scale)
             ok &= scale > 0 and err.max().item() <= GRAD_TOL * scale
     return act_err, grad_rel, ok
+
+
+def compare_train(name: str, got: tuple, want: tuple,
+                  act_scale: float = 1.0) -> tuple[float, float, float, bool]:
+    """``compare_outputs``, and the outputs ``NO_RESIDUAL`` names also held
+    in relative Frobenius norm to ATTN_FRO: (max abs error of the
+    activations, largest gradient error over its largest magnitude, largest
+    rel Frobenius error of the no-residual outputs, ok)."""
+    act_err, grad_rel, ok = compare_outputs(got, want, act_scale=act_scale)
+    fro = max((rel_err(got[i], want[i]) for i in NO_RESIDUAL.get(name, ())), default=0.0)
+    return act_err, grad_rel, fro, ok and fro <= ATTN_FRO
+
+
+def stream_train_cases(x, dy, p, heads: int):
+    """The trainable streamed halves' three wrappers and their plain
+    versions, each returning a flat tuple: (y, h2), or (dx, *weight
+    gradients). The MLP backward reads the h2 its plain forward gives."""
+    from dino_pose_tpu_torch.ops import block as B
+
+    ap, mp = B.attn_params(p), B.mlp_params(p)
+    h2 = B.mlp_part_stream_train_math(x, mp, eps=EPS)[1]
+    return {
+        "fused_mlp_part_stream_train": (lambda: B.fused_mlp_part_stream_train(x, mp, EPS),
+                                        lambda: B.mlp_part_stream_train_math(x, mp, eps=EPS)),
+        "fused_mlp_bwd_stream": (lambda: flat(B.fused_mlp_bwd_stream(x, dy, h2, mp, EPS)),
+                                 lambda: flat(B.mlp_stream_bwd_math(x, dy, h2, mp, eps=EPS))),
+        "fused_attn_bwd_stream": (
+            lambda: flat(B.fused_attn_bwd_stream(x, dy, ap, heads, EPS)),
+            lambda: flat(B.attn_stream_bwd_math(x, dy, ap, num_heads=heads, eps=EPS))),
+    }
+
+
+def phase_stream_train(results: dict) -> dict:
+    """The trainable streamed halves against their plain versions at
+    dinov2-base's and dinov2-large's widths (D = 768, 12 heads; D = 1024,
+    16 heads), S = 257, bf16, batch 1, 8 and 128, with a unit-scale seeded
+    cotangent, on every output (fused_attn_part_stream too at D = 768,
+    where base's trainable blocks run it); then their kernel, plain and
+    bound times. Returns the times by batch (dinov2-large's under the
+    wrapper's name, dinov2-base's under ``<name>_dinov2_base``)."""
+    from dino_pose_tpu_torch.ops import block as B
+
+    gen = torch.Generator().manual_seed(SEED + 14)
+    by_batch: dict = {}
+    for model in WIDE:
+        d, heads, hidden = width(model)
+        flops = B.block_flops(S, d, hidden)
+        for b in (1, 8, TRAIN_BATCH):
+            x, p = block_inputs(b, gen, S, d, hidden)
+            dy = torch.randn((b, S, d), generator=gen).to("cuda", torch.bfloat16)
+            if model == "dinov2-base":
+                kern, plain = kernel_cases(x, p, heads, stream=True)["fused_attn_part_stream"]
+                check_kernel(results, "fused_attn_part_stream", kern(), plain(),
+                             f"fused_attn_part_stream B={b}{where_text(model)}")
+            cases = stream_train_cases(x, dy, p, heads)
+            for name, (kern, plain) in cases.items():
+                got, want = kern(), plain()
+                torch.cuda.synchronize()
+                act_err, grad_rel, fro, ok = compare_train(name, got, want)
+                log(f"kernel {name} B={b}{where_text(model)}: max_abs(activations)={act_err:.6g} "
+                    f"rel_fro(no-residual outputs)={fro:.4g} max_err/max|ref|(weight grads)="
+                    f"{grad_rel:.6g} tol=atol {KERNEL_ATOL} + rtol {KERNEL_RTOL}*|ref| (no "
+                    f"residual: and rel Frobenius {ATTN_FRO}), grads {GRAD_TOL}*max|ref| -> "
+                    f"{'ok' if ok else 'FAIL'}")
+                if not ok:
+                    errs = [(g.float() - w.float()).abs().max().item() for g, w in zip(got, want)]
+                    log(f"  per output max_abs: {errs}")
+                    raise AssertionError(f"{name} at B={b} ({model}) disagrees with its plain "
+                                         "version")
+                row = results.setdefault(result_key(name, model), {"max_abs_err": 0.0})
+                row["max_abs_err"] = max(row["max_abs_err"], act_err)
+                if name != "fused_mlp_part_stream_train":
+                    row["max_grad_err_rel"] = max(row.get("max_grad_err_rel", 0.0), grad_rel)
+                del got, want
+                time_kernel(by_batch, result_key(name, model), b, kern, plain, b * flops[name],
+                            B.block_bytes(b, S, d, hidden)[name], 10, 5, 2)
+            del x, p, dy, cases
+    return by_batch
 
 
 def phase_train_kernels(results: dict) -> None:
@@ -837,6 +961,16 @@ def plain_pair(name: str, args: tuple, out) -> tuple:
     if name == "fused_attn_bwd":
         x, dy, atp, num_heads, eps = args
         return flat(out), flat(B.attn_bwd_math(x, dy, atp, num_heads=num_heads, eps=eps)), dy
+    if name == "fused_mlp_part_stream_train":
+        x2, mp, eps = args
+        return out, B.mlp_part_stream_train_math(x2, mp, eps=eps), None
+    if name == "fused_mlp_bwd_stream":
+        x2, dy, h2, mp, eps = args
+        return flat(out), flat(B.mlp_stream_bwd_math(x2, dy, h2, mp, eps=eps)), dy
+    if name == "fused_attn_bwd_stream":
+        x, do, ap, num_heads, eps = args
+        return flat(out), flat(B.attn_stream_bwd_math(x, do, ap, num_heads=num_heads,
+                                                      eps=eps)), do
     if name == "fused_convffn":
         y, p, s_lora = args
         return (out,), (CF.convffn_math(y, p, s_lora),), None
@@ -867,6 +1001,11 @@ def check_step_tensors(tag: str, name: str, which: str, args: tuple, out,
         act_err, ok = max(errs), all(oks)
         extra = {"rel_fro": max(fros)}
         tol = attn_tol_text(fro_tol)
+    elif name in NO_RESIDUAL:
+        act_err, grad_rel, fro, ok = compare_train(name, got, want, act_scale=ct_max)
+        extra = {"rel_fro": fro, **({"max_grad_err_rel": grad_rel} if len(got) > 2 else {})}
+        tol = (f"atol {KERNEL_ATOL} + rtol {KERNEL_RTOL}*|ref| (no residual: and rel "
+               f"Frobenius {ATTN_FRO}), grads {GRAD_TOL}*max|ref|")
     else:
         act_err, grad_rel, ok = compare_outputs(got, want, act_scale=ct_max)
         extra = {"max_grad_err_rel": grad_rel} if len(got) > 1 else {}
@@ -881,18 +1020,21 @@ def check_step_tensors(tag: str, name: str, which: str, args: tuple, out,
     return ok
 
 
-def wrapper_module(name: str):
-    """The module whose global ``name`` a recorded wrapper is called by: the
-    dinov2 block's forward wrappers by models/vit.py, the MLP halves and the
-    backward ones by ops/block.py."""
+def wrapper_modules(name: str) -> tuple:
+    """The modules whose global ``name`` a recorded wrapper is called by: the
+    dinov2 block's forward wrappers by models/vit.py (fused_attn_part_stream
+    also by ops/block.py, in a trainable streamed block), the MLP halves and
+    the backward ones by ops/block.py."""
     from dino_pose_tpu_torch.models import vit as V
     from dino_pose_tpu_torch.ops import attention as A
     from dino_pose_tpu_torch.ops import block as B
     from dino_pose_tpu_torch.ops import convffn as CF
 
-    if name in ("fused_block", "fused_attn_part", "fused_attn_part_stream"):
-        return V
-    return CF if name.startswith("fused_convffn") else A if name.startswith("flash") else B
+    if name == "fused_attn_part_stream":
+        return V, B
+    if name in ("fused_block", "fused_attn_part"):
+        return (V,)
+    return (CF if name.startswith("fused_convffn") else A if name.startswith("flash") else B,)
 
 
 def step1_grads(model, config: dict, kernels: bool, dtype, batch: dict, image_size: int,
@@ -931,10 +1073,10 @@ def phase_train(results: dict, training: dict, tag: str, config: dict, per_step:
 
     want_step = expected(per_step)
     first, last = {}, {}
-    originals = {name: getattr(wrapper_module(name), name) for name in recorded}
+    originals = {(m, name): getattr(m, name) for name in recorded for m in wrapper_modules(name)}
 
     def recorder(name):
-        fn = originals[name]
+        fn = originals[wrapper_modules(name)[0], name]
 
         def recording(*args):
             out = fn(*args)
@@ -951,12 +1093,14 @@ def phase_train(results: dict, training: dict, tag: str, config: dict, per_step:
         before = dict(B.LAUNCHES)
         if i == 0:
             for name in recorded:
-                setattr(wrapper_module(name), name, recorder(name))
+                rec = recorder(name)
+                for m in wrapper_modules(name):
+                    setattr(m, name, rec)
         try:
             state, stats = step(state, batch, LR, SEED)
         finally:
-            for name, fn in originals.items():
-                setattr(wrapper_module(name), name, fn)
+            for (m, name), fn in originals.items():
+                setattr(m, name, fn)
         torch.cuda.synchronize()
         delta = {k: B.LAUNCHES[k] - before[k] for k in B.LAUNCHES}
         log(f"{tag} train step {i} (batch {batch_size}): launches {delta}")
@@ -1073,9 +1217,20 @@ def phase_train(results: dict, training: dict, tag: str, config: dict, per_step:
     return step, state, batch
 
 
+def backbone_leaf(name: str, param: torch.nn.Parameter) -> bool:
+    """A trainable leaf of the backbone's own blocks: a LoRA matrix, or a
+    parameter of a trainable (unfrozen) dinov2 block but its key bias, whose
+    true gradient is zero (a constant added to every score of a query leaves
+    its softmax unchanged), so that each path holds only its own roundoff
+    there."""
+    return param.requires_grad and ("lora_" in name or name.startswith("backbone.encoder.")
+                                     and not name.endswith("attention.key.bias"))
+
+
 def phase_backbone_grads(training: dict, tag: str, config: dict, batch_size: int,
                          image_size: int = FASTVIT_IMAGE) -> None:
-    """The backbone's LoRA gradients alone, in train mode, under a seeded
+    """The backbone's trainable leaves' gradients alone (its LoRA matrices,
+    or its trainable blocks' parameters), in train mode, under a seeded
     unit cotangent on its feature map (FastViT) or tokens (dinov2), from one
     seeded model and one dropout generator: kernels (bf16), plain (bf16) and
     plain f32 (TF32 off). The whole step's gradients pass the heads'
@@ -1083,9 +1238,9 @@ def phase_backbone_grads(training: dict, tag: str, config: dict, batch_size: int
     bf16 FastViT step moves them ~40% from its f32,
     tests/test_torch_fastvit_train.py), so the step compares them only
     loosely; with no head in the way bf16 moves these a few percent, and
-    every adapter's gradient through the kernels must stay within
+    every leaf's gradient through the kernels must stay within
     GRAD_NOISE_FACTOR times the plain path's error against f32, plus
-    GRAD_NOISE_SLACK. Every kernel of the backbone's forward and of its LoRA
+    GRAD_NOISE_SLACK. Every kernel of the backbone's forward and of its
     backward runs here; their launches are not main-path launches."""
     from dino_pose_tpu_torch.models.registry import create_model_from_config
     from dino_pose_tpu_torch.ops import block as B
@@ -1108,7 +1263,7 @@ def phase_backbone_grads(training: dict, tag: str, config: dict, batch_size: int
         if ct is None:
             ct = torch.randn(fmap.shape, generator=gen).cuda()
         fmap.float().backward(ct)
-        grads[which] = {n: p.grad for n, p in m.named_parameters() if "lora_" in n}
+        grads[which] = {n: p.grad for n, p in m.named_parameters() if backbone_leaf(n, p)}
         del m, fmap
     torch.cuda.synchronize()
     B.LAUNCHES.update(saved)
@@ -1121,19 +1276,20 @@ def phase_backbone_grads(training: dict, tag: str, config: dict, batch_size: int
         rows[n] = {"kernels_vs_f32": k_ref, "plain_vs_f32": p_ref, "kernels_vs_plain": kp}
         if not (bool(torch.isfinite(got).all()) and want.abs().max() > 0 and k_ref <= tol):
             bad.append(n)
-            log(f"{tag} backbone LoRA grad {n}: kernels vs f32 {k_ref:.4g}, plain vs f32 "
+            log(f"{tag} backbone grad {n}: kernels vs f32 {k_ref:.4g}, plain vs f32 "
                 f"{p_ref:.4g} (tol {tol:.4g}) -> FAIL")
     worst = max(rows, key=lambda n: rows[n]["kernels_vs_f32"] / rows[n]["plain_vs_f32"])
     stat = {k: max(r[k] for r in rows.values()) for k in rows[worst]}
     training["backbone_grad_rel"] = {"max": stat, "worst": {worst: rows[worst]}, "leaves": rows}
-    log(f"{tag} backbone LoRA grads ({len(rows)} leaves, batch {batch_size}, seeded cotangent on "
+    log(f"{tag} backbone {'LoRA' if 'lora' in worst else 'block'} grads ({len(rows)} leaves, "
+        f"batch {batch_size}, seeded cotangent on "
         f"the feature map): largest rel Frobenius kernels vs f32 {stat['kernels_vs_f32']:.4g}, "
         f"plain vs f32 {stat['plain_vs_f32']:.4g}, kernels vs plain "
         f"{stat['kernels_vs_plain']:.4g}; worst kernels/plain ratio {worst} "
         f"{rows[worst]['kernels_vs_f32']:.4g}/{rows[worst]['plain_vs_f32']:.4g} (tol "
         f"{GRAD_NOISE_FACTOR}*plain+{GRAD_NOISE_SLACK}) -> {'FAIL' if bad else 'ok'}")
     if bad:
-        raise AssertionError(f"{tag}: backbone LoRA gradients out of tolerance: {bad}")
+        raise AssertionError(f"{tag}: backbone gradients out of tolerance: {bad}")
 
 
 def time_kernel(times: dict, key: str, b: int, kern, plain, flops: float, nbytes: float,
@@ -1344,8 +1500,9 @@ def main() -> int:
                     help="print torch.profiler kernel tables of the batch-1 forward and "
                          "the train steps: at 224² LoRA and unfreeze (batch 128), at 504² "
                          "unfreeze (batch 32); of the fastvit_t8 + LoRA batch-1 forward "
-                         "and its LoRA train step (batch 128); and of the dinov2-large + "
-                         "LoRA batch-1 forward and its LoRA train step (batch 128)")
+                         "and its LoRA train step (batch 128); of the dinov2-large + "
+                         "LoRA batch-1 forward and its LoRA train step (batch 128); and of "
+                         "the dinov2-large unfreeze-last-4 train step (batch 128)")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -1377,6 +1534,8 @@ def main() -> int:
     train_base: dict = {}
     serving_large: dict = {}
     train_large: dict = {}
+    unfreeze_large: dict = {}
+    unfreeze_base: dict = {}
     phase_kernels(results)
     phase_mlp_dx(results)
     phase_train_kernels(results)
@@ -1427,8 +1586,20 @@ def main() -> int:
                             steps=WIDE_STEPS, timed=WIDE_TIMED, grad_batches=WIDE_GRAD_BATCHES,
                             grad_factor=LARGE_GRAD_NOISE_FACTOR)
     phase_backbone_grads(train_large, "dinov2_large_lora", LARGE_LORA_CONFIG, TRAIN_BATCH, 224)
+    stream_train_times = phase_stream_train(results)
+    large_unfreeze_run = phase_train(
+        results, unfreeze_large, "dinov2_large_unfreeze", LARGE_UNFREEZE_CONFIG,
+        LARGE_UNFREEZE_LAUNCHES, unfreeze_grad_names(23), LARGE_UNFREEZE_RECORDED,
+        steps=WIDE_STEPS, timed=WIDE_TIMED, grad_batches=WIDE_GRAD_BATCHES)
+    phase_backbone_grads(unfreeze_large, "dinov2_large_unfreeze", LARGE_UNFREEZE_CONFIG,
+                         TRAIN_BATCH, 224)
+    phase_train(results, unfreeze_base, "dinov2_base_unfreeze", BASE_UNFREEZE_CONFIG,
+                BASE_UNFREEZE_LAUNCHES, unfreeze_grad_names(11), BASE_UNFREEZE_RECORDED,
+                steps=WIDE_STEPS, timed=WIDE_TIMED, grad_batches=WIDE_GRAD_BATCHES)
+    phase_backbone_grads(unfreeze_base, "dinov2_base_unfreeze", BASE_UNFREEZE_CONFIG,
+                         TRAIN_BATCH, 224)
     by_batch = phase_times()
-    for times in wide_times:
+    for times in (*wide_times, stream_train_times):
         for b, t in times.items():
             by_batch.setdefault(b, {}).update(t)
     for b, t in flash_times.items():
@@ -1447,6 +1618,7 @@ def main() -> int:
         profile_train_step(*t8_run)
         profile_forward(model_large)
         profile_train_step(*large_run)
+        profile_train_step(*large_unfreeze_run)
 
     kernels = []
     for name, (replaces, source, b, path) in KERNEL_ROWS.items():
@@ -1480,7 +1652,9 @@ def main() -> int:
                        "training_fastvit_sa12_lora": train_sa12,
                        "serving_dinov2_base": serving_base, "training_dinov2_base_lora": train_base,
                        "serving_dinov2_large": serving_large,
-                       "training_dinov2_large_lora": train_large},
+                       "training_dinov2_large_lora": train_large,
+                       "training_dinov2_large_unfreeze": unfreeze_large,
+                       "training_dinov2_base_unfreeze": unfreeze_base},
                       f, indent=1)
     print(json.dumps({"kernels": kernels}))
     print(card)

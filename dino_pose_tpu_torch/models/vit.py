@@ -8,9 +8,17 @@ reference-schema state dict loads with ``strict=True``.
 The blocks run through the fused wrappers of ``ops/block.py`` (with
 ``kernels=False`` the plain versions of each):
 
-- a block whose weights train (unfreeze-last-N), with grad mode on, through
-  ``block_train`` (``fused_block_train`` with the ``fused_mlp_bwd`` and
-  ``fused_attn_bwd`` backward), as JAX's ``dispatch_block_train``. Its
+- a block whose weights train (unfreeze-last-N), with grad mode on, by the
+  route ``block_route(..., training=True)`` gives: on ``"block"`` and
+  ``"math"`` (dinov2-small at 224² and 504², every width at S = 1297)
+  through ``block_train`` (``fused_block_train`` with the ``fused_mlp_bwd``
+  and ``fused_attn_bwd`` backward), as JAX's ``dispatch_block_train``; on
+  ``"stream"`` (dinov2-base and -large at 224²) through
+  ``attn_part_stream_train`` (``fused_attn_part_stream``, backward
+  ``fused_attn_bwd_stream``) -> ``x + o*ls1`` in the activation dtype under
+  plain autograd (JAX's XLA stitch) -> ``mlp_part_stream_train``
+  (``fused_mlp_part_stream_train``, backward ``fused_mlp_bwd_stream``), as
+  JAX's weight-streamed halves with their streamed backward. Its
   parameters are packed anew on every forward, with autograd (q|k|v
   concatenated, matrices transposed to (in, out)); the cast to the compute
   dtype happens inside, and the weight gradients reach the f32 parameters
@@ -37,9 +45,11 @@ Each chain takes any sequence length, its attention step streaming through
 the flash kernels once the head's K and V no longer fit shared memory
 (S > ~320; at 504², S = 1297, in every layer). Two departures from the JAX
 route: at 504² the JAX package runs ``block_math`` around its flash kernel
-where the port runs its chains (same rounding points); and a trainable
-dinov2-base or -large block goes through ``block_train``, which rounds like
-``_block_kernel``, where JAX takes its weight-streamed halves.
+where the port runs its chains (same rounding points); and where JAX runs a
+trainable block's streamed forward but finds no streamed backward plan for
+a half (dinov2-large at S ~ 273-625, dinov2-base at S ~ 377-785, between
+224² and 504²), it takes the exact unfused vjp of that half, where the port
+keeps its streamed backward chain.
 """
 
 from __future__ import annotations
@@ -54,8 +64,10 @@ from dino_pose_tpu_torch.ops.block import (
     AttnParams,
     BlockParams,
     MlpParams,
+    attn_params,
     attn_part_math,
     attn_part_stream_math,
+    attn_part_stream_train,
     block_math,
     block_route,
     block_train,
@@ -63,7 +75,9 @@ from dino_pose_tpu_torch.ops.block import (
     fused_attn_part,
     fused_attn_part_stream,
     fused_block,
+    mlp_params,
     mlp_part_frozen,
+    mlp_part_stream_train,
 )
 
 
@@ -239,7 +253,15 @@ class Block(nn.Module):
                     "gives its base weights no gradient (only the adapter trains); "
                     "freeze them or run under torch.no_grad()"
                 )
-            return block_train(x, self.layout(), h, eps, kernels=kernels)
+            route = block_route(cfg.hidden_size, x.shape[1], h, self.mlp.fc1.out_features,
+                                x.element_size(), lora=False, training=True)
+            p = self.layout()
+            if route != "stream":
+                return block_train(x, p, h, eps, kernels=kernels)
+            o = attn_part_stream_train(x, attn_params(p), h, eps, kernels=kernels)
+            # JAX's XLA stitch between the halves, in the activation dtype.
+            x2 = x + o * p.ls1.to(o.dtype)
+            return mlp_part_stream_train(x2, mlp_params(p), eps, kernels=kernels)
         p = self.packed(x.dtype)
         route = block_route(cfg.hidden_size, x.shape[1], h, p.w1.shape[-1], x.element_size(),
                             lora=self.use_lora, training=False)

@@ -38,6 +38,9 @@ LAUNCHES: dict[str, int] = {
     "fused_block_train": 0, "fused_mlp_bwd": 0, "fused_attn_bwd": 0,
     # dinov2-large's halves at the weight-streamed kernels' rounding points.
     "fused_attn_part_stream": 0, "fused_mlp_part_stream": 0,
+    # The trainable streamed halves of dinov2-base and -large: the MLP half
+    # that also saves h2, and the two halves' backward chains.
+    "fused_mlp_part_stream_train": 0, "fused_mlp_bwd_stream": 0, "fused_attn_bwd_stream": 0,
     # The streamed attention kernels: a forward launch (flash_fwd_kernel) and
     # a backward pair (flash_bwd_dq_kernel + flash_bwd_dkv_kernel), counted
     # inside the chains above and by the standalone ``flash_attention``.
@@ -62,9 +65,12 @@ _SIGNATURES = {
     "dp_fused_mlp_part": ([_P] * 10 + [_I] * 3 + [_F, _P], _I),
     "dp_fused_attn_part_stream": ([_P] * 10 + [_I] * 4 + [_F, _P], _I),
     "dp_fused_mlp_part_stream": ([_P] * 10 + [_I] * 3 + [_F, _P], _I),
+    "dp_fused_mlp_part_stream_train": ([_P] * 11 + [_I] * 3 + [_F, _P], _I),
     "dp_fused_mlp_dx": ([_P] * 13 + [_I] * 3 + [_F, _P], _I),
     "dp_fused_mlp_bwd": ([_P] * 24 + [_I] * 5 + [_F, _P], _I),
+    "dp_fused_mlp_bwd_stream": ([_P] * 24 + [_I] * 5 + [_F, _P], _I),
     "dp_fused_attn_bwd": ([_P] * 26 + [_I] * 6 + [_F, _P], _I),
+    "dp_fused_attn_bwd_stream": ([_P] * 24 + [_I] * 6 + [_F, _P], _I),
     "dp_flash_fwd": ([_P] * 5 + [_I] * 4 + [_F, _P], _I),
     "dp_flash_bwd": ([_P] * 8 + [_I] * 4 + [_F, _P], _I),
     "dp_convffn_smem_bytes": ([_I], ctypes.c_longlong),

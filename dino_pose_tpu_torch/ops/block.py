@@ -1,7 +1,8 @@
 """Fused ViT block: plain PyTorch versions and the CUDA kernel wrappers
 (counterpart of dino_pose_tpu/ops/block.py).
 
-Nine functions of the dinov2 fine-tuning paths, each with its plain version:
+Twelve functions of the dinov2 fine-tuning paths, each with its plain version:
+nine of the frozen, LoRA and resident paths
 
 ==========================  =========================  =====================================
 wrapper                     plain version              TPU kernel it replaces
@@ -18,7 +19,24 @@ wrapper                     plain version              TPU kernel it replaces
 ``fused_mlp_part_stream``   ``mlp_part_stream_math``   ``_mlp_stream_kernel`` (block.py:1636)
 ==========================  =========================  =====================================
 
-Ten TPU kernels: ``_mlp_stream_dx_kernel`` computes
+and three of the trainable streamed halves (dinov2-base and -large):
+
+===============================  ===============================  ==============================
+wrapper                          plain version                    TPU kernels it replaces
+===============================  ===============================  ==============================
+``fused_mlp_part_stream_train``  ``mlp_part_stream_train_math``   ``_mlp_stream_train_kernel``
+                                                                  (block.py:1695)
+``fused_mlp_bwd_stream``         ``mlp_stream_bwd_math``          ``_mlp_stream_dx_full_kernel``
+                                                                  (:1726) and
+                                                                  ``_mlp_stream_dw_kernel`` (:1770)
+``fused_attn_bwd_stream``        ``attn_stream_bwd_math``         ``_attn_stream_dx_kernel``
+                                                                  (:1924) and
+                                                                  ``_attn_stream_dw_kernel`` (:1973)
+===============================  ===============================  ==============================
+
+Fifteen TPU kernels: each streamed backward wrapper computes what its pair
+of TPU kernels computes together (the TPU splits a backward into a dx pass
+and a weight-gradient pass to fit VMEM), and ``_mlp_stream_dx_kernel`` computes
 ``_mlp_dx_kernel``'s function (up to the f32 summation order over hidden
 blocks; it recomputes h1 as bf16(m W1) + bf16(bf1) and reads no rounding of
 the forward), so ``fused_mlp_dx`` serves both.
@@ -29,7 +47,9 @@ does: the resident kernels (``_block_kernel``, ``_attn_part_kernel``,
 ``_mlp_part_kernel``; dinov2-small and -base) round each product to bf16 and
 add the bias in bf16; the weight-streamed ones (dinov2-large) sum the
 out-projection and fc2 in f32 and add the bias, and for fc2 multiply the
-LayerScale, in f32 before one rounding.
+LayerScale, in f32 before one rounding. A trainable dinov2-base or -large
+block takes the weight-streamed route too (JAX's
+``stream_fused_enabled(..., for_training=True)``).
 
 A wrapper takes its plain version only for tensors on the CPU. On a CUDA
 tensor it launches the kernels of ``ops/csrc/block_kernels.cu`` or raises;
@@ -49,7 +69,7 @@ streamed kernel in the middle. The same chains serve 280-448², where the
 JAX package runs its resident, split or weight-streamed block kernels.
 
 The forward wrappers return tensors without a graph, so they refuse inputs
-that require grad while grad mode is on. Two autograd functions carry the
+that require grad while grad mode is on. Four autograd functions carry the
 backward. :func:`mlp_part_frozen`, for the LoRA layer, is ``fused_mlp_part``
 with a backward that carries dx2 through ``fused_mlp_dx`` and gives the
 (frozen) MLP weights no gradient, as ``fused_mlp_part(...,
@@ -57,6 +77,11 @@ assume_frozen_weights=True)`` does in the JAX package. :func:`block_train`,
 for a block that trains whole (unfreeze-last-N), is ``fused_block_train``
 with the backward ``fused_mlp_bwd`` then ``fused_attn_bwd``, which give dx
 and every weight gradient in f32, as JAX's ``fused_block_train`` does.
+:func:`attn_part_stream_train` and :func:`mlp_part_stream_train`, the
+halves of a trainable dinov2-base or -large block, are the streamed
+forwards with the backward ``fused_attn_bwd_stream`` and
+``fused_mlp_bwd_stream``; the LayerScale and residual between them stay in
+plain autograd, JAX's XLA stitch.
 
 Parameter layouts match the JAX package: matrices are (in, out) and
 ``wqkv``/``bqkv`` hold q|k|v on the output axis. For the kernels, matrices
@@ -151,12 +176,12 @@ def mlp_params(p: BlockParams) -> MlpParams:
     return MlpParams(p.g2, p.b2, p.w1, p.bf1, p.w2, p.bf2, p.ls2)
 
 
-def cast_params(p: BlockParams, dtype: torch.dtype) -> BlockParams:
-    """The kernels' layout of a block's parameters (JAX ``_prep_block_args``):
-    matrices in ``dtype``, vectors f32, all contiguous. Differentiable: the
-    casts of trainable parameters carry their gradients back in the
-    parameters' own dtype."""
-    return BlockParams(*(
+def cast_params(p, dtype: torch.dtype):
+    """The kernels' layout of a block's (or a half's) parameters, the same
+    named tuple (JAX ``_prep_block_args``): matrices in ``dtype``, vectors
+    f32, all contiguous. Differentiable: the casts of trainable parameters
+    carry their gradients back in the parameters' own dtype."""
+    return type(p)(*(
         t.to(dtype).contiguous() if t.dim() == 2 else t.float().contiguous() for t in p
     ))
 
@@ -221,8 +246,19 @@ def mlp_part_stream_math(x2: torch.Tensor, mp: MlpParams, *, eps: float) -> torc
     points (JAX block.py:1636-1660): LN2, h1 = bf16(m W1) + bf16(bf1) and
     its exact GELU in the activation dtype; fc2 summed in f32, bf2 added and
     ls2 multiplied in f32 and rounded once: y = x2 + bf16((g W2 + bf2) ls2)."""
+    return mlp_part_stream_train_math(x2, mp, eps=eps)[0]
+
+
+def mlp_part_stream_train_math(
+    x2: torch.Tensor, mp: MlpParams, *, eps: float
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """``mlp_part_stream_math``'s y and the pre-LayerScale output the
+    streamed backward reads, (y, h2): ``_mlp_stream_train_kernel`` (JAX
+    block.py:1695-1723), h2 = bf16(g W2 + bf2) from the same f32 sum that
+    y = x2 + bf16((g W2 + bf2) ls2) rounds once."""
     h = _gelu_exact(_dense(layer_norm(x2, mp.g2, mp.b2, eps), mp.w1, mp.bf1))
-    return x2 + (_dense_f32(h, mp.w2, mp.bf2) * mp.ls2.float()).to(x2.dtype)
+    h2 = _dense_f32(h, mp.w2, mp.bf2)
+    return x2 + (h2 * mp.ls2.float()).to(x2.dtype), h2.to(x2.dtype)
 
 
 def block_train_math(
@@ -311,11 +347,31 @@ def mlp_bwd_math(
     f32, rounded for the products; dg, dh1 and dm f32, dh1 rounded for the
     products; the bias gradients sum the unrounded f32 dh1 and dh2.
     """
+    return _mlp_bwd(x2, dy, mp, eps, None)
+
+
+def mlp_stream_bwd_math(
+    x2: torch.Tensor, dy: torch.Tensor, h2: torch.Tensor, mp: MlpParams, *, eps: float
+) -> tuple[torch.Tensor, MlpParams]:
+    """``mlp_bwd_math`` on the streamed route, given the forward's saved
+    pre-LayerScale output h2 (``mlp_part_stream_train_math``): JAX
+    ``_mlp_stream_bwd`` (block.py:2217-2265), its kernels
+    ``_mlp_stream_dx_full_kernel`` (dx2, dg2, db2) and ``_mlp_stream_dw_kernel``
+    (dW1, dbf1, dW2) (:1726-1804) at ``_mlp_bwd_kernel``'s rounding points
+    (h1 and g recomputed in the activation dtype, dy*ls2 and dh1 rounded for
+    the products, dbf1 summing the f32 dh1), and its XLA reductions dls2 =
+    sum(dy*h2) on the saved h2 and dbf2 = ls2 * sum(dy), in f32."""
+    return _mlp_bwd(x2, dy, mp, eps, h2)
+
+
+def _mlp_bwd(x2, dy, mp: MlpParams, eps: float, saved_h2: torch.Tensor | None):
+    """The two MLP backward rounding routes: h2 recomputed (``saved_h2``
+    None, the resident kernel) or read from the forward (the streamed one)."""
     dt = x2.dtype
     m, xhat, r = _ln_fwd(x2, mp.g2, mp.b2, eps)
     h1 = _dense(m, mp.w1, mp.bf1)
     g = _gelu_exact(h1)
-    h2 = _dense(g, mp.w2, mp.bf2)
+    h2 = _dense(g, mp.w2, mp.bf2) if saved_h2 is None else saved_h2
     dyf = dy.float()
     dh2 = dyf * mp.ls2.float()
     dh2b = dh2.to(dt)
@@ -324,9 +380,10 @@ def mlp_bwd_math(
     dh1b = dh1.to(dt)
     dm = dh1b.float() @ mp.w1.to(dt).float().t()
     dx2 = (dyf + _ln_bwd(dm, xhat, r, mp.g2)).to(dt)
+    dbf2 = _colsum(dh2) if saved_h2 is None else mp.ls2.float() * _colsum(dyf)
     return dx2, MlpParams(
         g2=_colsum(dm * xhat), b2=_colsum(dm), w1=_tmm(m, dh1b), bf1=_colsum(dh1),
-        w2=_tmm(g, dh2b), bf2=_colsum(dh2), ls2=_colsum(dyf * h2.float()),
+        w2=_tmm(g, dh2b), bf2=dbf2, ls2=_colsum(dyf * h2.float()),
     )
 
 
@@ -342,6 +399,28 @@ def attn_bwd_math(
     f32, dS rounded for dq and dk, P rounded for dv; dq, dk, dv rounded; da
     f32. The bias gradients sum the unrounded do and the rounded dqkv.
     """
+    return _attn_bwd(x, dx2, atp, atp.ls1, num_heads, eps)
+
+
+def attn_stream_bwd_math(
+    x: torch.Tensor, do: torch.Tensor, ap: AttnParams, *, num_heads: int, eps: float
+) -> tuple[torch.Tensor, AttnParams]:
+    """Backward of o = MHA(LN1(x) Wqkv + bqkv) Wo + bo under the streamed
+    route's pre-LayerScale contract: ``do`` is the cotangent of o itself
+    (bf16, the stitch's ``x + o*ls1`` has already scaled it), the LayerScale
+    and the residual live outside. JAX ``_attn_stream_bwd`` (block.py:2389-
+    2468) with ``_attn_stream_dx_kernel`` (dx = LN1^T(da) with no residual,
+    dg1, db1) and ``_attn_stream_dw_kernel`` (dWqkv, dbqkv, dWo) (:1868-2012),
+    at ``attn_bwd_math``'s rounding points with dob = do, and its XLA dbo =
+    sum(do) in f32. Returns dx and the gradient of every ``AttnParams``
+    field."""
+    return _attn_bwd(x, do, ap, None, num_heads, eps)
+
+
+def _attn_bwd(x, dres, ap, ls1: torch.Tensor | None, num_heads: int, eps: float):
+    """The two attention backward routes: ``dres`` is dx2 and the LayerScale
+    ``ls1`` scales it (the resident kernel, its residual added to dx), or,
+    with ``ls1`` None, the pre-LayerScale cotangent do (the streamed one)."""
     dt = x.dtype
     b, s, d = x.shape
     dh = d // num_heads
@@ -353,28 +432,33 @@ def attn_bwd_math(
     def merge(t: torch.Tensor) -> torch.Tensor:
         return t.transpose(1, 2).reshape(b, s, d).to(dt)
 
-    a, xhat, r = _ln_fwd(x, atp.g1, atp.b1, eps)
-    qkv = _dense(a, atp.wqkv, atp.bqkv)
+    a, xhat, r = _ln_fwd(x, ap.g1, ap.b1, eps)
+    qkv = _dense(a, ap.wqkv, ap.bqkv)
     q, k, v = (heads(t) for t in qkv.split(d, dim=-1))
     p = torch.softmax((q @ k.transpose(-1, -2)) * scale, dim=-1)
     pb = p.to(dt).float()
     ctx = merge(pb @ v)
-    o = _dense(ctx, atp.wo, atp.bo)
-    dx2f = dx2.float()
-    do = dx2f * atp.ls1.float()
-    dob = do.to(dt)
-    dctx = heads((dob.float() @ atp.wo.to(dt).float().t()).to(dt))
+    if ls1 is None:
+        do = dres.float()
+        dob = dres
+    else:
+        dx2f = dres.float()
+        do = dx2f * ls1.float()
+        dob = do.to(dt)
+    dctx = heads((dob.float() @ ap.wo.to(dt).float().t()).to(dt))
     dp = dctx @ v.transpose(-1, -2)
     ds = p * (dp - (p * dp).sum(dim=-1, keepdim=True))
     dsb = ds.to(dt).float()
     dqkv = torch.cat([merge((dsb @ k) * scale), merge((dsb.transpose(-1, -2) @ q) * scale),
                       merge(pb.transpose(-1, -2) @ dctx)], dim=-1)
-    da = dqkv.float() @ atp.wqkv.to(dt).float().t()
-    dx = (dx2f + _ln_bwd(da, xhat, r, atp.g1)).to(dt)
-    return dx, AttnTrainParams(
-        g1=_colsum(da * xhat), b1=_colsum(da), wqkv=_tmm(a, dqkv), bqkv=_colsum(dqkv),
-        wo=_tmm(ctx, dob), bo=_colsum(do), ls1=_colsum(dx2f * o.float()),
-    )
+    da = dqkv.float() @ ap.wqkv.to(dt).float().t()
+    dln = _ln_bwd(da, xhat, r, ap.g1)
+    grads = dict(g1=_colsum(da * xhat), b1=_colsum(da), wqkv=_tmm(a, dqkv), bqkv=_colsum(dqkv),
+                 wo=_tmm(ctx, dob), bo=_colsum(do))
+    if ls1 is None:
+        return dln.to(dt), AttnParams(**grads)
+    o = _dense(ctx, ap.wo, ap.bo)
+    return (dx2f + dln).to(dt), AttnTrainParams(**grads, ls1=_colsum(dx2f * o.float()))
 
 
 # ---------------------------------------------------------------------------
@@ -699,8 +783,34 @@ def fused_mlp_part_stream(x2: torch.Tensor, mp: MlpParams, eps: float) -> torch.
     return _launch_mlp_part(x2, mp, eps, name, _ext.lib().dp_fused_mlp_part_stream)
 
 
+def fused_mlp_part_stream_train(
+    x2: torch.Tensor, mp: MlpParams, eps: float
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """``fused_mlp_part_stream``'s y and the pre-LayerScale output h2 =
+    bf16(g W2 + bf2) that the streamed backward reads: (y, h2); replaces
+    ``_mlp_stream_train_kernel`` (dino_pose_tpu/ops/block.py:1695), the MLP
+    half of a trainable dinov2-base or -large block.
+
+    Design: ``fused_mlp_part_stream``'s two launches, the fc2 epilogue
+    also storing h2 from the f32 sum it scales for y — gemm<LN2 prologue,
+    +bf1, exact GELU> -> gemm<f32 +bf2, h2 out, *ls2, rounded, +x2>. The TPU
+    kernel adds an h2 output block to ``_mlp_stream_kernel``'s hidden-block
+    walk; here the output tile's epilogue writes it.
+
+    Bound on an H100 at S = 257, D = 1024: 4.31 GFLOP per image and 16.8 MB
+    of weights, plus B*S*D*2 bytes for h2; bytes bound it at batch 1,
+    operations from batch 2 up.
+    """
+    name = "fused_mlp_part_stream_train"
+    _refuse_grad(name, x2, *mp)
+    if not _route(x2):
+        return mlp_part_stream_train_math(x2, mp, eps=eps)
+    return _launch_mlp_part(x2, mp, eps, name, _ext.lib().dp_fused_mlp_part_stream_train,
+                            save_h2=True)
+
+
 def _launch_mlp_part(x2: torch.Tensor, mp: MlpParams, eps: float, name: str,
-                     entry) -> torch.Tensor:
+                     entry, save_h2: bool = False):
     _check_act(x2, name)
     b, s, d = x2.shape
     hidden = mp.w1.shape[-1]
@@ -710,11 +820,13 @@ def _launch_mlp_part(x2: torch.Tensor, mp: MlpParams, eps: float, name: str,
     _check_ln_width(d, name)
     _check_params(x2, mp, _mlp_shapes(d, hidden), name)
     hbuf = torch.empty((b, s, hidden), dtype=x2.dtype, device=x2.device)
-    y = torch.empty_like(x2)
-    err = entry(*(t.data_ptr() for t in (x2, *mp, hbuf, y)), b * s, d, hidden, eps, _stream())
+    outs = (torch.empty_like(x2), torch.empty_like(x2)) if save_h2 else (torch.empty_like(x2),)
+    # The entry takes h2 before y.
+    err = entry(*(t.data_ptr() for t in (x2, *mp, hbuf, *outs[::-1])), b * s, d, hidden, eps,
+                _stream())
     _ext.check(err, name)
     LAUNCHES[name] += 1
-    return y
+    return outs if save_h2 else outs[0]
 
 
 def fused_mlp_dx(
@@ -803,6 +915,43 @@ def fused_mlp_bwd(
     name = "fused_mlp_bwd"
     if not _route(x2):
         return mlp_bwd_math(x2, dy, mp, eps=eps)
+    return _launch_mlp_bwd(x2, dy, None, mp, eps, name, _ext.lib().dp_fused_mlp_bwd)
+
+
+def fused_mlp_bwd_stream(
+    x2: torch.Tensor, dy: torch.Tensor, h2: torch.Tensor, mp: MlpParams, eps: float
+) -> tuple[torch.Tensor, MlpParams]:
+    """Backward of the trainable streamed MLP half, given the forward's
+    saved pre-LayerScale output h2 (``fused_mlp_part_stream_train``): (dx2,
+    gradients of every ``MlpParams`` field in f32); replaces the pair
+    ``_mlp_stream_dx_full_kernel`` (dx2, dg2, db2; dino_pose_tpu/ops/block.py:
+    1726) and ``_mlp_stream_dw_kernel`` (dW1, dbf1, dW2; :1770), with JAX's
+    XLA dls2 = sum(dy*h2) and dbf2 = ls2*sum(dy) (``_mlp_stream_bwd`` :2217).
+
+    Design: ``fused_mlp_bwd``'s chain without the h2 GEMM — LN2 rows ->
+    gemm<+bf1, h1 and GELU pair> -> gemm_nt<dy*ls2, *gelu'(h1), column
+    sums>(dh1b, dbf1) -> gemm_nt<f32>(dm) -> LayerNorm-backward rows with
+    column sums (dx2, sum(dy), dls2 on the saved h2, dg2, db2) ->
+    gemm_tn(dW1) -> gemm_tn<*ls2>(dW2); the wrapper scales sum(dy) by ls2.
+    The TPU pair streams (D, bh)/(bh, D) weight blocks through VMEM, the dW
+    pass hidden-block-major so each gradient block stays resident over the
+    rows; here every GEMM walks the weights in tiles, and dW sums fixed-order
+    f32 partials over row splits.
+
+    Bound on an H100 at S = 257, D = 1024: five products of 2*S*D*4D (h1,
+    dg, dm, dW1, dW2) = 10.78 GFLOP per image, 1.39 ms at batch 128;
+    operations bound it from batch 1.
+    """
+    name = "fused_mlp_bwd_stream"
+    if not _route(x2):
+        return mlp_stream_bwd_math(x2, dy, h2, mp, eps=eps)
+    _check_pair(x2, h2, name)
+    return _launch_mlp_bwd(x2, dy, h2, mp, eps, name, _ext.lib().dp_fused_mlp_bwd_stream)
+
+
+def _launch_mlp_bwd(x2: torch.Tensor, dy: torch.Tensor, h2: torch.Tensor | None, mp: MlpParams,
+                    eps: float, name: str, entry) -> tuple[torch.Tensor, MlpParams]:
+    """The MLP backward chain: h2 recomputed into scratch (None) or read."""
     _check_pair(x2, dy, name)
     b, s, d = x2.shape
     hidden = mp.w1.shape[-1]
@@ -816,20 +965,22 @@ def fused_mlp_bwd(
     # m, h1, g, h2, dh1b, dm, then the partials of dbf1, of the row sums,
     # of dW1 and of dW2.
     scratch = (_act(m_rows, d, like=x2), _act(m_rows, hidden, like=x2),
-               _act(m_rows, hidden, like=x2), _act(m_rows, d, like=x2),
+               _act(m_rows, hidden, like=x2), _act(m_rows, d, like=x2) if h2 is None else h2,
                _act(m_rows, hidden, like=x2), _f32(m_rows, d, like=x2),
                _f32(nblk, hidden, like=x2), _f32(nblk, 4, d, like=x2),
                _f32(s1, d, hidden, like=x2), _f32(s2, hidden, d, like=x2))
     dx2 = torch.empty_like(x2)
     dw1, dbf1 = _f32(d, hidden, like=x2), _f32(hidden, like=x2)
     dw2, vec4 = _f32(hidden, d, like=x2), _f32(4, d, like=x2)
-    err = _ext.lib().dp_fused_mlp_bwd(
+    err = entry(
         *(t.data_ptr() for t in (x2, dy, *mp, *scratch, dx2, dw1, dbf1, dw2, vec4)),
         m_rows, d, hidden, s1, s2, eps, _stream(),
     )
     _ext.check(err, name)
     LAUNCHES[name] += 1
     dbf2, dls2, dg2, db2 = vec4
+    if h2 is not None:
+        dbf2 = mp.ls2 * dbf2  # the chain summed dy
     return dx2, MlpParams(g2=dg2, b2=db2, w1=dw1, bf1=dbf1, w2=dw2, bf2=dbf2, ls2=dls2)
 
 
@@ -858,26 +1009,72 @@ def fused_attn_bwd(
     name = "fused_attn_bwd"
     if not _route(x):
         return attn_bwd_math(x, dx2, atp, num_heads=num_heads, eps=eps)
-    _check_pair(x, dx2, name)
+    dx, g, vec4 = _launch_attn_bwd(x, dx2, atp, num_heads, eps, name, stream=False)
+    dbo, dls1, dg1, db1 = vec4
+    return dx, AttnTrainParams(g1=dg1, b1=db1, ls1=dls1, bo=dbo, **g)
+
+
+def fused_attn_bwd_stream(
+    x: torch.Tensor, do: torch.Tensor, ap: AttnParams, num_heads: int, eps: float
+) -> tuple[torch.Tensor, AttnParams]:
+    """Backward of the trainable streamed attention half under its
+    pre-LayerScale contract: ``do`` (bf16) is the cotangent of the output o
+    itself, already times ls1 (the stitch ``x + o*ls1`` holds the LayerScale
+    and the residual). (dx, gradients of every ``AttnParams`` field in f32);
+    replaces the pair ``_attn_stream_dx_kernel`` (dx, dg1, db1;
+    dino_pose_tpu/ops/block.py:1924) and ``_attn_stream_dw_kernel`` (dWqkv,
+    dbqkv, dWo; :1973), with JAX's XLA dbo = sum(do) (``_attn_stream_bwd``
+    :2389).
+
+    Design: ``fused_attn_bwd``'s chain without the o recompute and without a
+    residual — LN1 rows -> gemm<+bqkv> -> attention (ctx, the row statistics)
+    -> gemm_nt<bf16>(dctx = do Wo^T) -> attention backward (the resident dq
+    and dk/dv kernels; past S = 304 the streamed flash pair) ->
+    gemm_nt<f32>(da) -> LayerNorm-backward rows with column sums (dx =
+    LN1^T(da), dbo, dg1, db1) -> gemm_tn with column sums (dWqkv, dbqkv) ->
+    gemm_tn(dWo = ctx^T do). The TPU pair streams per-head-group q/k/v
+    column and out-projection row slices, summing da over the groups in a
+    VMEM accumulator; here the GEMMs walk the weights in tiles.
+
+    Bound on an H100 at S = 257, D = 1024: three qkv-sized products, two of
+    2*S*D^2 (dctx, dWo) and six of 2*S^2*D = 6.74 GFLOP per image, 0.87 ms
+    at batch 128; operations bound it from batch 1.
+    """
+    name = "fused_attn_bwd_stream"
+    if not _route(x):
+        return attn_stream_bwd_math(x, do, ap, num_heads=num_heads, eps=eps)
+    dx, g, vec4 = _launch_attn_bwd(x, do, ap, num_heads, eps, name, stream=True)
+    return dx, AttnParams(g1=vec4[2], b1=vec4[3], bo=vec4[0], **g)
+
+
+def _launch_attn_bwd(x: torch.Tensor, dres: torch.Tensor, ap, num_heads: int, eps: float,
+                     name: str, stream: bool):
+    """The attention backward chain: (dx, {wqkv, bqkv, wo} gradients, the
+    row kernel's four column sums). ``stream``: ``dres`` is do and ``ap``
+    an ``AttnParams``; else ``dres`` is dx2 and ``ap`` carries ls1."""
+    _check_pair(x, dres, name)
     b, s, d = x.shape
     _check_shapes(d, num_heads, name)
-    _check_params(x, atp, {**_attn_shapes(d), "ls1": (d,)}, name)
+    _check_params(x, ap, _attn_shapes(d) if stream else {**_attn_shapes(d), "ls1": (d,)}, name)
     m_rows = b * s
     nblk = -(-m_rows // _SUM_ROWS)
     sq, so = _splits(m_rows, d, 3 * d), _splits(m_rows, d, d)
 
-    # a, qkv, ctx, o, dctx, dqkv, da, the softmax statistics, then the
-    # partials of the row sums, of dWqkv, of dWo and of dbqkv.
+    # a, qkv, ctx, o (not on the streamed route), dctx, dqkv, da, the
+    # softmax statistics, then the partials of the row sums, of dWqkv, of
+    # dWo and of dbqkv.
+    o = () if stream else (_act(m_rows, d, like=x),)
     scratch = (_act(m_rows, d, like=x), _act(m_rows, 3 * d, like=x), _act(m_rows, d, like=x),
-               _act(m_rows, d, like=x), _act(m_rows, d, like=x), _act(m_rows, 3 * d, like=x),
+               *o, _act(m_rows, d, like=x), _act(m_rows, 3 * d, like=x),
                _f32(m_rows, d, like=x), _f32(b, num_heads, 3, s, like=x),
                _f32(nblk, 4, d, like=x), _f32(sq, d, 3 * d, like=x), _f32(so, d, d, like=x),
                _f32(sq, 3 * d, like=x))
     dx = torch.empty_like(x)
     dwqkv, dbqkv = _f32(d, 3 * d, like=x), _f32(3 * d, like=x)
     dwo, vec4 = _f32(d, d, like=x), _f32(4, d, like=x)
-    err = _ext.lib().dp_fused_attn_bwd(
-        *(t.data_ptr() for t in (x, dx2, *atp, *scratch, dx, dwqkv, dbqkv, dwo, vec4)),
+    entry = _ext.lib().dp_fused_attn_bwd_stream if stream else _ext.lib().dp_fused_attn_bwd
+    err = entry(
+        *(t.data_ptr() for t in (x, dres, *ap, *scratch, dx, dwqkv, dbqkv, dwo, vec4)),
         b, s, d, num_heads, sq, so, eps, _stream(),
     )
     _ext.check(err, name)
@@ -885,8 +1082,7 @@ def fused_attn_bwd(
     flash = _ext.lib().dp_flash_backward(s, d // num_heads)
     LAUNCHES["flash_fwd"] += flash
     LAUNCHES["flash_bwd"] += flash
-    dbo, dls1, dg1, db1 = vec4
-    return dx, AttnTrainParams(g1=dg1, b1=db1, wqkv=dwqkv, bqkv=dbqkv, wo=dwo, bo=dbo, ls1=dls1)
+    return dx, {"wqkv": dwqkv, "bqkv": dbqkv, "wo": dwo}, vec4
 
 
 class _MlpPartFrozen(torch.autograd.Function):
@@ -980,30 +1176,123 @@ def block_train(
     return _BlockTrain.apply(x, num_heads, eps, kernels, *p)
 
 
+class _AttnPartStreamTrain(torch.autograd.Function):
+    """The attention half of a trainable streamed block: forward
+    ``fused_attn_part_stream``, backward ``fused_attn_bwd_stream`` (JAX
+    ``fused_attn_part_stream``'s custom vjp, ``_attn_stream_fwd``/
+    ``_attn_stream_bwd``). With ``kernels=False`` the plain versions of both,
+    inside this same function, so that both paths keep the f32
+    intermediates of the JAX kernels."""
+
+    @staticmethod
+    def forward(ctx, x, num_heads, eps, kernels, *params):
+        ap = cast_params(AttnParams(*params), x.dtype)
+        if kernels:
+            o = fused_attn_part_stream(x, ap, num_heads, eps)
+        else:
+            o = attn_part_stream_math(x, ap, num_heads=num_heads, eps=eps)
+        ctx.save_for_backward(x, *params)
+        ctx.num_heads, ctx.eps, ctx.kernels = num_heads, eps, kernels
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        x, *params = ctx.saved_tensors
+        ap = cast_params(AttnParams(*params), x.dtype)
+        if ctx.kernels:
+            dx, grads = fused_attn_bwd_stream(x, do.contiguous(), ap, ctx.num_heads, ctx.eps)
+        else:
+            dx, grads = attn_stream_bwd_math(x, do, ap, num_heads=ctx.num_heads, eps=ctx.eps)
+        grads = (g.to(t.dtype) for g, t in zip(grads, params))
+        return (dx if ctx.needs_input_grad[0] else None, None, None, None, *grads)
+
+
+def attn_part_stream_train(
+    x: torch.Tensor, ap: AttnParams, num_heads: int, eps: float, *, kernels: bool = True
+) -> torch.Tensor:
+    """The attention half o of a trainable dinov2-base or -large block under
+    autograd (JAX ``fused_attn_part_stream`` with its streamed backward):
+    ``ap`` holds the parameters as they train (f32, with their graphs), cast
+    to the kernels' layout inside; their gradients come back f32. The
+    cotangent of o is the stitch's (``x + o*ls1``). Saves only (x, ap) for
+    the backward, as JAX does. ``kernels=False``: the plain versions."""
+    return _AttnPartStreamTrain.apply(x, num_heads, eps, kernels, *ap)
+
+
+class _MlpPartStreamTrain(torch.autograd.Function):
+    """The MLP half of a trainable streamed block: forward
+    ``fused_mlp_part_stream_train`` (y, and h2 saved), backward
+    ``fused_mlp_bwd_stream`` (JAX ``fused_mlp_part_stream``'s custom vjp,
+    ``_mlp_stream_fwd``/``_mlp_stream_bwd``). With ``kernels=False`` the
+    plain versions of both, inside this same function."""
+
+    @staticmethod
+    def forward(ctx, x2, eps, kernels, *params):
+        mp = cast_params(MlpParams(*params), x2.dtype)
+        if kernels:
+            y, h2 = fused_mlp_part_stream_train(x2, mp, eps)
+        else:
+            y, h2 = mlp_part_stream_train_math(x2, mp, eps=eps)
+        ctx.save_for_backward(x2, h2, *params)
+        ctx.eps, ctx.kernels = eps, kernels
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        x2, h2, *params = ctx.saved_tensors
+        mp = cast_params(MlpParams(*params), x2.dtype)
+        if ctx.kernels:
+            dx2, grads = fused_mlp_bwd_stream(x2, dy.contiguous(), h2, mp, ctx.eps)
+        else:
+            dx2, grads = mlp_stream_bwd_math(x2, dy, h2, mp, eps=ctx.eps)
+        grads = (g.to(t.dtype) for g, t in zip(grads, params))
+        return (dx2 if ctx.needs_input_grad[0] else None, None, None, *grads)
+
+
+def mlp_part_stream_train(
+    x2: torch.Tensor, mp: MlpParams, eps: float, *, kernels: bool = True
+) -> torch.Tensor:
+    """The MLP half of a trainable dinov2-base or -large block under autograd
+    (JAX ``fused_mlp_part_stream`` with trainable weights): ``mp`` as they
+    train (f32, with their graphs), cast inside, gradients back f32. Saves
+    (x2, mp, h2) for the backward, as JAX does. ``kernels=False``: the plain
+    versions."""
+    return _MlpPartStreamTrain.apply(x2, eps, kernels, *mp)
+
+
 def block_flops(s: int, d: int, hidden: int | None = None) -> dict[str, int]:
-    """Matrix-product FLOPs per image of each wrapper's function. The
-    backward halves recompute their forward: the MLP backward is six
-    products of 2*S*D*4D (h1, h2, dg, dm, dW1, dW2), the attention backward
-    three qkv-sized ones (qkv, dWqkv, da), three of 2*S*D^2 (o, dWo, dctx)
-    and six of 2*S^2*D (scores, PV, dP, dq, dk, dv)."""
+    """Matrix-product FLOPs per image of each wrapper's function: the
+    products it needs, each counted once. The resident backward halves
+    recompute their forward: the MLP backward is six products of 2*S*D*4D
+    (h1, h2, dg, dm, dW1, dW2), the attention backward three qkv-sized ones
+    (qkv, dWqkv, da), three of 2*S*D^2 (o, dWo, dctx) and six of 2*S^2*D
+    (scores, PV, dP, dq, dk, dv). The streamed ones read h2 and need no o:
+    the MLP backward five of 2*S*D*4D (h1, dg, dm, dW1, dW2), the attention
+    backward the same but two of 2*S*D^2 (dWo, dctx). Not counted: the
+    scores the attention backward kernels compute twice (the dq and dk/dv
+    kernels each rebuild P), nor JAX's two-pass recompute of h1 or q/k/v."""
     h = 4 * d if hidden is None else hidden
     attn = 2 * s * d * 3 * d + 4 * s * s * d + 2 * s * d * d
     mlp = 4 * s * d * h
+    attn_bwd_stream = 3 * 2 * s * d * 3 * d + 2 * 2 * s * d * d + 6 * 2 * s * s * d
     return {"fused_attn_part": attn, "fused_mlp_part": mlp, "fused_block": attn + mlp,
             "fused_attn_part_stream": attn, "fused_mlp_part_stream": mlp,
             "fused_mlp_dx": 6 * s * d * h, "fused_block_train": attn + mlp,
             "fused_mlp_bwd": 12 * s * d * h,
-            "fused_attn_bwd": 3 * 2 * s * d * 3 * d + 3 * 2 * s * d * d + 6 * 2 * s * s * d}
+            "fused_attn_bwd": attn_bwd_stream + 2 * s * d * d,
+            "fused_mlp_part_stream_train": mlp, "fused_mlp_bwd_stream": 10 * s * d * h,
+            "fused_attn_bwd_stream": attn_bwd_stream}
 
 
 def block_bytes(b: int, s: int, d: int, hidden: int | None = None) -> dict[str, int]:
-    """Bytes each wrapper must move: bf16 weights and activations once, f32
+    """Bytes each wrapper must move: bf16 weights and activations once (the
+    streamed MLP half's h2 out of its forward and into its backward), f32
     vectors, f32 weight gradients."""
     h = 4 * d if hidden is None else hidden
     act = 2 * b * s * d * 2
     attn_w = (3 * d * d + d * d) * 2 + (2 * d + 3 * d + d) * 4
     mlp_w = 2 * d * h * 2 + (2 * d + h + d + d) * 4
-    attn_g = (3 * d * d + d * d) * 4 + (2 * d + 3 * d + d + d) * 4
+    attn_g = (3 * d * d + d * d) * 4 + (2 * d + 3 * d + d) * 4
     mlp_g = 2 * d * h * 4 + (2 * d + h + d + d) * 4
     block = act + attn_w + mlp_w + d * 4
     return {"fused_attn_part": act + attn_w, "fused_mlp_part": act + mlp_w,
@@ -1011,7 +1300,10 @@ def block_bytes(b: int, s: int, d: int, hidden: int | None = None) -> dict[str, 
             "fused_block": block, "fused_mlp_dx": 3 * b * s * d * 2 + mlp_w,
             "fused_block_train": block + b * s * d * 2,
             "fused_mlp_bwd": 3 * b * s * d * 2 + mlp_w + mlp_g,
-            "fused_attn_bwd": 3 * b * s * d * 2 + attn_w + d * 4 + attn_g}
+            "fused_attn_bwd": 3 * b * s * d * 2 + attn_w + d * 4 + attn_g + d * 4,
+            "fused_mlp_part_stream_train": act + mlp_w + b * s * d * 2,
+            "fused_mlp_bwd_stream": 4 * b * s * d * 2 + mlp_w + mlp_g,
+            "fused_attn_bwd_stream": 3 * b * s * d * 2 + attn_w + attn_g}
 
 
 def bound_ms(flops: float, nbytes: float) -> tuple[float, str]:

@@ -1,15 +1,20 @@
 // Fused ViT block kernels for Hopper (sm_90a), CUDA C++ with a plain C
 // interface (loaded with ctypes by dino_pose_tpu_torch/ops/_ext.py).
 //
-// They replace the nine Pallas kernels of the dinov2 fine-tuning paths
+// They replace the fourteen Pallas kernels of the dinov2 fine-tuning paths
 // (dino_pose_tpu/ops/block.py): _block_kernel (:159, also in its training
 // form with the residual x2, :592), _attn_part_kernel (:999, body
 // _attn_half_core :948), _mlp_part_kernel (:1021), the LoRA layer's backward
 // _mlp_dx_kernel (:1044) and its weight-streamed twin _mlp_stream_dx_kernel
 // (:1663, the same function), the trainable block's backward _mlp_bwd_kernel
-// (:284) and _attn_bwd_kernel (:334), and dinov2-large's weight-streamed
+// (:284) and _attn_bwd_kernel (:334), dinov2-large's weight-streamed
 // halves _attn_stream_kernel (:1807) and _mlp_stream_kernel (:1636), which
-// differ from the resident ones only in their output epilogue (f32 bias).
+// differ from the resident ones only in their output epilogue (f32 bias),
+// and the trainable streamed halves of dinov2-base and -large:
+// _mlp_stream_train_kernel (:1695, the MLP half that also saves h2), the
+// MLP backward pair _mlp_stream_dx_full_kernel (:1726) + _mlp_stream_dw_kernel
+// (:1770) and the attention backward pair _attn_stream_dx_kernel (:1924) +
+// _attn_stream_dw_kernel (:1973), which reuse the resident backward chains.
 // The TPU design holds one whole block
 // (12 D^2 bf16 weights = 3.5 MB at D = 384) plus a few rows of activations
 // in VMEM per program. Hopper gives a block at most 227 KB of shared memory,
@@ -68,6 +73,14 @@
 //                       -> gemm_nt<-,f32>(da) -> ln_bwd_rows<sums>(dx, dbo,
 //                       dls1, dg1, db1) -> gemm_tn<colsums>(dWqkv, dbqkv)
 //                       -> gemm_tn<*ls1>(dWo = ctx^T bf16(dx2*ls1))
+//   _mlp_stream_train_kernel = gemm<LN,GELU>(fc1) -> gemm<-,F32BIAS_LS_RES_H2>(fc2, h2)
+//   _mlp_stream_dx_full_kernel + _mlp_stream_dw_kernel = _mlp_bwd_kernel's
+//                       chain without the h2 GEMM (h2 saved by the forward),
+//                       ln_bwd_rows<sums, UNSCALED> (dbf2 = ls2 * sum(dy))
+//   _attn_stream_dx_kernel + _attn_stream_dw_kernel = _attn_bwd_kernel's chain
+//                       without the o GEMM, on do (pre-LayerScale): gemm_nt<-,
+//                       bf16>(dctx) ... ln_bwd_rows<sums, NO_RES>(dx, dbo = sum
+//                       (do), dg1, db1) ... gemm_tn(dWo = ctx^T do)
 //
 // Every rounding point of the JAX kernels is reproduced: each product is
 // rounded to bf16, then the bias (f32 parameter rounded to bf16) is added in
@@ -122,9 +135,16 @@ constexpr size_t MAX_SMEM = 232448;  // shared memory one Hopper block may use
 // before one rounding (the weight-streamed ones, dinov2-large).
 enum Epilogue {
   EPI_BIAS = 0, EPI_BIAS_GELU = 1, EPI_BIAS_LS_RES = 2, EPI_BIAS_GELU_PAIR = 3,
-  EPI_F32BIAS = 4, EPI_F32BIAS_LS_RES = 5
+  EPI_F32BIAS = 4, EPI_F32BIAS_LS_RES = 5, EPI_F32BIAS_LS_RES_H2 = 6
 };
 enum EpilogueNT { EPT_GELU_GRAD = 0, EPT_F32 = 1, EPT_BF16 = 2 };
+// What ln_bwd_rows_kernel adds and sums besides the LayerNorm backward:
+// ROWS_RESIDENT dx = dres + LN^T(dm), sums (dres*ls, dres*aux, ..) (the
+// resident backward kernels); ROWS_UNSCALED the same with sums (dres,
+// dres*aux, ..) (the streamed MLP backward, whose dbf2 = ls2 * sum(dy));
+// ROWS_NO_RES dx = LN^T(dm) with sums (dres, 0, ..) (the streamed attention
+// backward: dres = do adds nothing to dx, and its sum is dbo).
+enum RowsMode { ROWS_RESIDENT = 0, ROWS_UNSCALED = 1, ROWS_NO_RES = 2 };
 
 __host__ __device__ __forceinline__ size_t align128(size_t n) {
   return (n + 127) & ~static_cast<size_t>(127);
@@ -157,7 +177,8 @@ size_t gemm_smem_bytes(bool ln, int K) {
 // bias, ls, gamma, beta f32 vectors. EPI_BIAS_GELU_PAIR writes the biased
 // product h to out and gelu(h) to out2. EPI_F32BIAS: bf16(acc + bias);
 // EPI_F32BIAS_LS_RES: bf16(res + bf16((acc + bias) * ls)), in f32 up to the
-// inner rounding.
+// inner rounding; EPI_F32BIAS_LS_RES_H2 also writes h2 = bf16(acc + bias) to
+// out2 (the pre-LayerScale output that _mlp_stream_train_kernel saves).
 template <bool LN, int EPI>
 __global__ void __launch_bounds__(GEMM_THREADS)
 gemm_kernel(const bf16* __restrict__ A, const bf16* __restrict__ W,
@@ -265,9 +286,10 @@ gemm_kernel(const bf16* __restrict__ A, const bf16* __restrict__ W,
     const int gm = m0 + r, gn = n0 + c;
     if (gm >= M) continue;
     const size_t idx = static_cast<size_t>(gm) * N + gn;
-    if (EPI == EPI_F32BIAS || EPI == EPI_F32BIAS_LS_RES) {
+    if (EPI == EPI_F32BIAS || EPI == EPI_F32BIAS_LS_RES || EPI == EPI_F32BIAS_LS_RES_H2) {
       float o = Cs[r * LDC + c] + bias[gn];
-      if (EPI == EPI_F32BIAS_LS_RES) o = bf16r(__bfloat162float(res[idx]) + bf16r(o * ls[gn]));
+      if (EPI == EPI_F32BIAS_LS_RES_H2) out2[idx] = __float2bfloat16(o);
+      if (EPI != EPI_F32BIAS) o = bf16r(__bfloat162float(res[idx]) + bf16r(o * ls[gn]));
       out[idx] = __float2bfloat16(o);
       continue;
     }
@@ -526,8 +548,9 @@ ln_rows_kernel(const bf16* __restrict__ x, const float* __restrict__ gamma,
 // aux = h2, and (dbo, dls1, dg1, db1) of the attention half, with dres = dx2
 // and aux = o. Each warp sums its rows in its own shared-memory slice (lane
 // l owns the columns c = l mod 32), then the warps' slices are added in
-// order.
-template <bool SUMS>
+// order. MODE (RowsMode) drops ls (ROWS_UNSCALED), or the residual and aux
+// (ROWS_NO_RES), for the streamed backward chains.
+template <bool SUMS, int MODE = ROWS_RESIDENT>
 __global__ void __launch_bounds__(ROW_THREADS)
 ln_bwd_rows_kernel(const bf16* __restrict__ x, const bf16* __restrict__ dres,
                    const float* __restrict__ dm, const float* __restrict__ gamma,
@@ -564,10 +587,11 @@ ln_bwd_rows_kernel(const bf16* __restrict__ x, const bf16* __restrict__ dres,
       const float dh = dmv * gamma[c];
       const float xh = (__bfloat162float(x[base + c]) - mu) * r;
       const float dr = __bfloat162float(dres[base + c]);
-      dx[base + c] = __float2bfloat16(dr + r * (dh - mean1 - xh * mean2));
+      const float dln = r * (dh - mean1 - xh * mean2);
+      dx[base + c] = __float2bfloat16(MODE == ROWS_NO_RES ? dln : dr + dln);
       if (SUMS) {
-        acc[c] += dr * ls[c];
-        acc[D + c] += dr * __bfloat162float(aux[base + c]);
+        acc[c] += MODE == ROWS_RESIDENT ? dr * ls[c] : dr;
+        if (MODE != ROWS_NO_RES) acc[D + c] += dr * __bfloat162float(aux[base + c]);
         acc[2 * D + c] += dmv * xh;
         acc[3 * D + c] += dmv;
       }
@@ -1118,18 +1142,20 @@ cudaError_t launch_ln_rows(const void* x, const void* gamma, const void* beta, v
 }
 
 // dx = dres + LN^T(dm) and the four column sums into vec4 (NSUMS, D),
-// through per-block partials part (ceil(M/SUM_ROWS), NSUMS, D).
+// through per-block partials part (ceil(M/SUM_ROWS), NSUMS, D); MODE as
+// ln_bwd_rows_kernel's.
+template <int MODE>
 cudaError_t launch_ln_bwd_sums(const void* x, const void* dres, const void* dm,
                                const void* gamma, const void* ls, const void* aux, void* dx,
                                void* part, void* vec4, int M, int D, float eps,
                                cudaStream_t stream) {
   const size_t smem = static_cast<size_t>(ROW_THREADS / 32) * NSUMS * D * 4;
-  cudaError_t err = cudaFuncSetAttribute(ln_bwd_rows_kernel<true>,
+  cudaError_t err = cudaFuncSetAttribute(ln_bwd_rows_kernel<true, MODE>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   const int blocks = (M + SUM_ROWS - 1) / SUM_ROWS;
-  ln_bwd_rows_kernel<true><<<blocks, ROW_THREADS, smem, stream>>>(
+  ln_bwd_rows_kernel<true, MODE><<<blocks, ROW_THREADS, smem, stream>>>(
       static_cast<const bf16*>(x), static_cast<const bf16*>(dres),
       static_cast<const float*>(dm), static_cast<const float*>(gamma),
       static_cast<const float*>(ls), static_cast<const bf16*>(aux), static_cast<bf16*>(dx),
@@ -1262,18 +1288,107 @@ cudaError_t attn_half(const void* x, const void* g1, const void* b1, const void*
                                      st);
 }
 
-// The MLP half, its fc2 epilogue OUT_EPI: EPI_BIAS_LS_RES (resident rounding)
-// or EPI_F32BIAS_LS_RES (streamed rounding).
+// The MLP half, its fc2 epilogue OUT_EPI: EPI_BIAS_LS_RES (resident rounding),
+// EPI_F32BIAS_LS_RES (streamed rounding) or EPI_F32BIAS_LS_RES_H2 (streamed,
+// h2 written to the buffer h2).
 template <int OUT_EPI>
 cudaError_t mlp_half(const void* x2, const void* g2, const void* b2, const void* w1,
                      const void* bf1, const void* w2, const void* bf2, const void* ls2,
                      void* hbuf, void* y, int M, int D, int hidden, float eps,
-                     cudaStream_t st) {
+                     cudaStream_t st, void* h2 = nullptr) {
   cudaError_t err = launch_gemm<true, EPI_BIAS_GELU>(x2, w1, bf1, nullptr, nullptr, g2, b2,
                                                      hbuf, M, hidden, D, eps, st);
   if (err != cudaSuccess) return err;
   return launch_gemm<false, OUT_EPI>(hbuf, w2, bf2, ls2, x2, nullptr, nullptr, y, M, D, hidden,
-                                     eps, st);
+                                     eps, st, h2);
+}
+
+// The MLP half's backward with its weight gradients (dp_fused_mlp_bwd's
+// arguments). SAVED_H2: h2 is the forward's saved pre-LayerScale output (the
+// streamed route), so no h2 GEMM runs, and vec4[0] holds sum(dy), which the
+// caller scales by ls2 (JAX's dbf2 = ls2 * sum(dy)); otherwise h2 is
+// recomputed into the buffer and vec4[0] = sum(dy * ls2).
+template <bool SAVED_H2>
+cudaError_t mlp_bwd(const void* x2, const void* dy, const void* g2, const void* b2,
+                    const void* w1, const void* bf1, const void* w2, const void* bf2,
+                    const void* ls2, void* m, void* h1, void* g, void* h2, void* dh1b, void* dm,
+                    void* colsum_part, void* row_part, void* ws1, void* ws2, void* dx2,
+                    void* dw1, void* dbf1, void* dw2, void* vec4, int M, int D, int hidden,
+                    int splits1, int splits2, float eps, cudaStream_t st) {
+  cudaError_t err = launch_ln_rows(x2, g2, b2, m, M, D, eps, st);
+  if (err != cudaSuccess) return err;
+  err = launch_gemm<false, EPI_BIAS_GELU_PAIR>(m, w1, bf1, nullptr, nullptr, nullptr, nullptr,
+                                               h1, M, hidden, D, eps, st, g);
+  if (err != cudaSuccess) return err;
+  if (!SAVED_H2) {
+    err = launch_gemm<false, EPI_BIAS>(g, w2, bf2, nullptr, nullptr, nullptr, nullptr, h2, M, D,
+                                       hidden, eps, st);
+    if (err != cudaSuccess) return err;
+  }
+  err = launch_gemm_nt<true, EPT_GELU_GRAD>(dy, w2, ls2, h1, dh1b, M, hidden, D, st,
+                                            colsum_part);
+  if (err != cudaSuccess) return err;
+  err = launch_sum_rows(colsum_part, (M + BM - 1) / BM, hidden, dbf1, st);
+  if (err != cudaSuccess) return err;
+  err = launch_gemm_nt<false, EPT_F32>(dh1b, w1, nullptr, nullptr, dm, M, D, hidden, st);
+  if (err != cudaSuccess) return err;
+  err = launch_ln_bwd_sums<SAVED_H2 ? ROWS_UNSCALED : ROWS_RESIDENT>(
+      x2, dy, dm, g2, ls2, h2, dx2, row_part, vec4, M, D, eps, st);
+  if (err != cudaSuccess) return err;
+  err = launch_gemm_tn<false, false>(m, dh1b, nullptr, ws1, nullptr, dw1, nullptr, M, D, hidden,
+                                     splits1, st);
+  if (err != cudaSuccess) return err;
+  return launch_gemm_tn<true, false>(g, dy, ls2, ws2, nullptr, dw2, nullptr, M, hidden, D,
+                                     splits2, st);
+}
+
+// The attention half's backward with its weight gradients (dp_fused_attn_bwd's
+// arguments). STREAM: the cotangent dres is do, the pre-LayerScale output's
+// (bf16, already times ls1): o is not recomputed, dctx = bf16(do Wo^T), dx
+// = LN1^T(da) with no residual, vec4 = (dbo = sum(do), 0, dg1, db1) and dWo =
+// ctx^T do; ls1 and o are not read. Otherwise dres is dx2 and the chain
+// scales it by ls1 and adds it to dx.
+template <bool STREAM>
+cudaError_t attn_bwd(const void* x, const void* dres, const void* g1, const void* b1,
+                     const void* wqkv, const void* bqkv, const void* wo, const void* bo,
+                     const void* ls1, void* a, void* qkv, void* ctx, void* o, void* dctx,
+                     void* dqkv, void* da, void* stats, void* row_part, void* ws_qkv, void* ws_o,
+                     void* gsum_part, void* dx, void* dwqkv, void* dbqkv, void* dwo, void* vec4,
+                     int B, int S, int D, int H, int splits_qkv, int splits_o, float eps,
+                     cudaStream_t st) {
+  const int M = B * S;
+  cudaError_t err = launch_ln_rows(x, g1, b1, a, M, D, eps, st);
+  if (err != cudaSuccess) return err;
+  err = launch_gemm<false, EPI_BIAS>(a, wqkv, bqkv, nullptr, nullptr, nullptr, nullptr, qkv, M,
+                                     3 * D, D, eps, st);
+  if (err != cudaSuccess) return err;
+  const bool flash = flash_backward(S, D / H);
+  err = launch_attention(qkv, ctx, stats, B, S, H, D / H, flash, st);
+  if (err != cudaSuccess) return err;
+  if (STREAM) {
+    err = launch_gemm_nt<false, EPT_BF16>(dres, wo, nullptr, nullptr, dctx, M, D, D, st);
+  } else {
+    err = launch_gemm<false, EPI_BIAS>(ctx, wo, bo, nullptr, nullptr, nullptr, nullptr, o, M, D,
+                                       D, eps, st);
+    if (err != cudaSuccess) return err;
+    err = launch_gemm_nt<true, EPT_BF16>(dres, wo, ls1, nullptr, dctx, M, D, D, st);
+  }
+  if (err != cudaSuccess) return err;
+  err = launch_attn_bwd(qkv, dctx, stats, dqkv, B, S, H, D / H, flash, st);
+  if (err != cudaSuccess) return err;
+  err = launch_gemm_nt<false, EPT_F32>(dqkv, wqkv, nullptr, nullptr, da, M, D, 3 * D, st);
+  if (err != cudaSuccess) return err;
+  err = launch_ln_bwd_sums<STREAM ? ROWS_NO_RES : ROWS_RESIDENT>(
+      x, dres, da, g1, ls1, o, dx, row_part, vec4, M, D, eps, st);
+  if (err != cudaSuccess) return err;
+  err = launch_gemm_tn<false, true>(a, dqkv, nullptr, ws_qkv, gsum_part, dwqkv, dbqkv, M, D,
+                                    3 * D, splits_qkv, st);
+  if (err != cudaSuccess) return err;
+  if (STREAM)
+    return launch_gemm_tn<false, false>(ctx, dres, nullptr, ws_o, nullptr, dwo, nullptr, M, D, D,
+                                        splits_o, st);
+  return launch_gemm_tn<true, false>(ctx, dres, ls1, ws_o, nullptr, dwo, nullptr, M, D, D,
+                                     splits_o, st);
 }
 
 }  // namespace
@@ -1347,6 +1462,18 @@ int dp_fused_mlp_part_stream(const void* x2, const void* g2, const void* b2, con
                                                        static_cast<cudaStream_t>(stream)));
 }
 
+// _mlp_stream_train_kernel (block.py:1695): dp_fused_mlp_part_stream's y, and
+// h2 = bf16(W2 gelu(W1 LN2(x2) + bf1) + bf2) (M, D), the pre-LayerScale
+// output the streamed backward reads, written by the same fc2 epilogue.
+int dp_fused_mlp_part_stream_train(const void* x2, const void* g2, const void* b2,
+                                   const void* w1, const void* bf1, const void* w2,
+                                   const void* bf2, const void* ls2, void* hbuf, void* h2,
+                                   void* y, int M, int D, int hidden, float eps, void* stream) {
+  return static_cast<int>(mlp_half<EPI_F32BIAS_LS_RES_H2>(x2, g2, b2, w1, bf1, w2, bf2, ls2,
+                                                          hbuf, y, M, D, hidden, eps,
+                                                          static_cast<cudaStream_t>(stream), h2));
+}
+
 // _mlp_dx_kernel: dx2 = dy + LN2^T(W1^T(gelu'(h1) * W2^T(dy*ls2))), no weight
 // gradients. h1 = bf16(LN2(x2) W1) + bf16(bf1) is recomputed into h1buf
 // (M, hidden) bf16; dh1b (M, hidden) bf16 and dm (M, D) f32 are scratch.
@@ -1384,29 +1511,31 @@ int dp_fused_mlp_bwd(const void* x2, const void* dy, const void* g2, const void*
                      void* colsum_part, void* row_part, void* ws1, void* ws2, void* dx2,
                      void* dw1, void* dbf1, void* dw2, void* vec4, int M, int D, int hidden,
                      int splits1, int splits2, float eps, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err = launch_ln_rows(x2, g2, b2, m, M, D, eps, st);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  err = launch_gemm<false, EPI_BIAS_GELU_PAIR>(m, w1, bf1, nullptr, nullptr, nullptr, nullptr,
-                                               h1, M, hidden, D, eps, st, g);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  err = launch_gemm<false, EPI_BIAS>(g, w2, bf2, nullptr, nullptr, nullptr, nullptr, h2, M, D,
-                                     hidden, eps, st);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  err = launch_gemm_nt<true, EPT_GELU_GRAD>(dy, w2, ls2, h1, dh1b, M, hidden, D, st,
-                                            colsum_part);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  err = launch_sum_rows(colsum_part, (M + BM - 1) / BM, hidden, dbf1, st);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  err = launch_gemm_nt<false, EPT_F32>(dh1b, w1, nullptr, nullptr, dm, M, D, hidden, st);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  err = launch_ln_bwd_sums(x2, dy, dm, g2, ls2, h2, dx2, row_part, vec4, M, D, eps, st);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  err = launch_gemm_tn<false, false>(m, dh1b, nullptr, ws1, nullptr, dw1, nullptr, M, D, hidden,
-                                     splits1, st);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(launch_gemm_tn<true, false>(g, dy, ls2, ws2, nullptr, dw2, nullptr, M,
-                                                      hidden, D, splits2, st));
+  return static_cast<int>(mlp_bwd<false>(x2, dy, g2, b2, w1, bf1, w2, bf2, ls2, m, h1, g, h2,
+                                         dh1b, dm, colsum_part, row_part, ws1, ws2, dx2, dw1,
+                                         dbf1, dw2, vec4, M, D, hidden, splits1, splits2, eps,
+                                         static_cast<cudaStream_t>(stream)));
+}
+
+// _mlp_stream_dx_full_kernel (block.py:1726) + _mlp_stream_dw_kernel (:1770),
+// the trainable streamed MLP half's backward: dp_fused_mlp_bwd's chain and
+// arguments with h2 the forward's saved pre-LayerScale output (read, not
+// recomputed) and vec4 = sum(dy) | dls2 | dg2 | db2; dbf2 = ls2 * sum(dy) is
+// the caller's. The TPU pair streams (D, bh) and (bh, D) weight blocks and
+// keeps each dW block resident over a row sweep; here the GEMMs walk the
+// weights in tiles and dW sums fixed-order f32 partials over row splits.
+int dp_fused_mlp_bwd_stream(const void* x2, const void* dy, const void* g2, const void* b2,
+                            const void* w1, const void* bf1, const void* w2, const void* bf2,
+                            const void* ls2, void* m, void* h1, void* g, const void* h2,
+                            void* dh1b, void* dm, void* colsum_part, void* row_part, void* ws1,
+                            void* ws2, void* dx2, void* dw1, void* dbf1, void* dw2, void* vec4,
+                            int M, int D, int hidden, int splits1, int splits2, float eps,
+                            void* stream) {
+  return static_cast<int>(mlp_bwd<true>(x2, dy, g2, b2, w1, bf1, w2, bf2, ls2, m, h1, g,
+                                        const_cast<void*>(h2), dh1b, dm, colsum_part, row_part,
+                                        ws1, ws2, dx2, dw1, dbf1, dw2, vec4, M, D, hidden,
+                                        splits1, splits2, eps,
+                                        static_cast<cudaStream_t>(stream)));
 }
 
 // _attn_bwd_kernel: dx and every attention weight gradient, summed in f32
@@ -1423,32 +1552,33 @@ int dp_fused_attn_bwd(const void* x, const void* dx2, const void* g1, const void
                       void* ws_o, void* gsum_part, void* dx, void* dwqkv, void* dbqkv,
                       void* dwo, void* vec4, int B, int S, int D, int H, int splits_qkv,
                       int splits_o, float eps, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int M = B * S;
-  cudaError_t err = launch_ln_rows(x, g1, b1, a, M, D, eps, st);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  err = launch_gemm<false, EPI_BIAS>(a, wqkv, bqkv, nullptr, nullptr, nullptr, nullptr, qkv, M,
-                                     3 * D, D, eps, st);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const bool flash = flash_backward(S, D / H);
-  err = launch_attention(qkv, ctx, stats, B, S, H, D / H, flash, st);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  err = launch_gemm<false, EPI_BIAS>(ctx, wo, bo, nullptr, nullptr, nullptr, nullptr, o, M, D, D,
-                                     eps, st);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  err = launch_gemm_nt<true, EPT_BF16>(dx2, wo, ls1, nullptr, dctx, M, D, D, st);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  err = launch_attn_bwd(qkv, dctx, stats, dqkv, B, S, H, D / H, flash, st);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  err = launch_gemm_nt<false, EPT_F32>(dqkv, wqkv, nullptr, nullptr, da, M, D, 3 * D, st);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  err = launch_ln_bwd_sums(x, dx2, da, g1, ls1, o, dx, row_part, vec4, M, D, eps, st);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  err = launch_gemm_tn<false, true>(a, dqkv, nullptr, ws_qkv, gsum_part, dwqkv, dbqkv, M, D,
-                                    3 * D, splits_qkv, st);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(launch_gemm_tn<true, false>(ctx, dx2, ls1, ws_o, nullptr, dwo, nullptr,
-                                                      M, D, D, splits_o, st));
+  return static_cast<int>(attn_bwd<false>(x, dx2, g1, b1, wqkv, bqkv, wo, bo, ls1, a, qkv, ctx,
+                                          o, dctx, dqkv, da, stats, row_part, ws_qkv, ws_o,
+                                          gsum_part, dx, dwqkv, dbqkv, dwo, vec4, B, S, D, H,
+                                          splits_qkv, splits_o, eps,
+                                          static_cast<cudaStream_t>(stream)));
+}
+
+// _attn_stream_dx_kernel (block.py:1924) + _attn_stream_dw_kernel (:1973),
+// the trainable streamed attention half's backward under its pre-LayerScale
+// contract: do (B, S, D) bf16 is the cotangent of o = attn(x) itself (the
+// LayerScale and the residual live in the caller's stitch). dp_fused_attn_bwd's
+// chain without the o recompute and without a residual: dx = LN1^T(da),
+// vec4 = dbo | 0 | dg1 | db1 with dbo = sum(do), dWo = ctx^T do. The TPU pair
+// streams per-head-group q/k/v column and out-projection row slices; here
+// the GEMMs walk the weights in tiles.
+int dp_fused_attn_bwd_stream(const void* x, const void* dout, const void* g1, const void* b1,
+                             const void* wqkv, const void* bqkv, const void* wo, const void* bo,
+                             void* a, void* qkv, void* ctx, void* dctx, void* dqkv, void* da,
+                             void* stats, void* row_part, void* ws_qkv, void* ws_o,
+                             void* gsum_part, void* dx, void* dwqkv, void* dbqkv, void* dwo,
+                             void* vec4, int B, int S, int D, int H, int splits_qkv,
+                             int splits_o, float eps, void* stream) {
+  return static_cast<int>(attn_bwd<true>(x, dout, g1, b1, wqkv, bqkv, wo, bo, nullptr, a, qkv,
+                                         ctx, nullptr, dctx, dqkv, da, stats, row_part, ws_qkv,
+                                         ws_o, gsum_part, dx, dwqkv, dbqkv, dwo, vec4, B, S, D, H,
+                                         splits_qkv, splits_o, eps,
+                                         static_cast<cudaStream_t>(stream)));
 }
 
 }  // extern "C"

@@ -23,7 +23,12 @@ sums over all rows) to 2e-3 of its largest magnitude, as the block
 backward's. dinov2-large's weight-streamed halves (``fused_attn_part_stream``,
 ``fused_mlp_part_stream``, D = 1024, 16 heads) and ``fused_mlp_dx`` at that
 width are held as their resident twins: the attention half at the attention
-tolerance, the rest at 3e-2 abs/rel.
+tolerance, the rest at 3e-2 abs/rel. The trainable streamed halves of
+dinov2-base and -large (``fused_mlp_part_stream_train``,
+``fused_mlp_bwd_stream``, ``fused_attn_bwd_stream``) as the resident
+backward: outputs with a residual at 3e-2 abs/rel, those with none (h2, the
+attention backward's dx) at the attention tolerance, weight gradients
+within 2e-3 of their largest magnitude.
 """
 
 import copy
@@ -812,3 +817,150 @@ def test_tiny_model_on_the_stream_route_kernels_match_plain(cuda_device, monkeyp
     for k in ("loss", "kp_loss", "z_loss"):
         got, want = losses[True][k].item(), losses[False][k].item()
         assert abs(got - want) <= 1e-3 * abs(want), k
+
+
+# The trainable streamed halves of dinov2-base and -large: (D, heads, MLP).
+STREAM_TRAIN_WIDTHS = {"dinov2-base": (768, 12, 3072), "dinov2-large": (1024, 16, 4096)}
+STREAM_TRAIN_NAMES = ("fused_mlp_part_stream_train", "fused_mlp_bwd_stream",
+                      "fused_attn_bwd_stream")
+
+
+def _stream_train_call(name, x, dy, p, heads, kernel):
+    """The wrapper or its plain version: a flat tuple of its outputs; the
+    MLP backward reads the h2 of the plain forward."""
+    ap, mp = block.attn_params(p), block.mlp_params(p)
+    if name == "fused_mlp_part_stream_train":
+        return (block.fused_mlp_part_stream_train(x, mp, EPS) if kernel
+                else block.mlp_part_stream_train_math(x, mp, eps=EPS))
+    if name == "fused_mlp_bwd_stream":
+        h2 = block.mlp_part_stream_train_math(x, mp, eps=EPS)[1]
+        dx, g = (block.fused_mlp_bwd_stream(x, dy, h2, mp, EPS) if kernel
+                 else block.mlp_stream_bwd_math(x, dy, h2, mp, eps=EPS))
+    else:
+        dx, g = (block.fused_attn_bwd_stream(x, dy, ap, heads, EPS) if kernel
+                 else block.attn_stream_bwd_math(x, dy, ap, num_heads=heads, eps=EPS))
+    return (dx, *g)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch, seq", [(2, 257), (8, 257), (2, 57), (2, 401)])
+@pytest.mark.parametrize("model", list(STREAM_TRAIN_WIDTHS))
+@pytest.mark.parametrize("name", STREAM_TRAIN_NAMES)
+def test_stream_train_kernel_matches_plain(cuda_device, name, model, batch, seq):
+    """Every output of the trainable streamed halves at dinov2-base's and
+    dinov2-large's widths, with a unit-scale seeded cotangent (at S = 401
+    the attention backward takes the streamed flash pair): y and each
+    backward's dx with a residual at 3e-2 abs/rel; the outputs with none
+    (h2, the attention backward's dx) at the attention tolerance with
+    relative Frobenius 3e-3; each f32 weight gradient within 2e-3 of its
+    largest magnitude. One launch each, and no other."""
+    d, heads, hidden = STREAM_TRAIN_WIDTHS[model]
+    p = _params(cuda_device, d, hidden)
+    rng = np.random.default_rng(batch + seq + d)
+    x, dy = (_bf16(rng, (batch, seq, d), cuda_device) for _ in range(2))
+    block.reset_launches()
+    got = _stream_train_call(name, x, dy, p, heads, kernel=True)
+    want = _stream_train_call(name, x, dy, p, heads, kernel=False)
+    torch.cuda.synchronize()
+    flash = 0
+    if name == "fused_attn_bwd_stream":
+        flash = block._ext.lib().dp_flash_backward(seq, d // heads)
+    assert block.LAUNCHES == {**dict.fromkeys(block.LAUNCHES, 0), name: 1,
+                              "flash_fwd": flash, "flash_bwd": flash}
+    no_residual = {"fused_mlp_part_stream_train": 1, "fused_attn_bwd_stream": 0}.get(name)
+    for i, (g, w) in enumerate(zip(got, want)):
+        g, w = g.float(), w.float()
+        assert g.shape == w.shape and torch.isfinite(g).all(), i
+        if i == no_residual:
+            _assert_attention_close(g, w, 3e-3)
+        elif g.dim() == 3:
+            torch.testing.assert_close(g, w, atol=3e-2, rtol=3e-2)
+        else:
+            err = (g - w).abs().max().item()
+            assert err <= 2e-3 * w.abs().max().item(), (i, err, w.abs().max().item())
+
+
+@pytest.mark.cuda
+def test_stream_train_wrappers_refuse_what_they_do_not_take(cuda_device):
+    """On a CUDA tensor the trainable streamed halves launch or raise: f32
+    activations, an h2 of another shape and a head width the kernels do not
+    take are refused, and nothing is launched."""
+    d, heads, hidden = STREAM_TRAIN_WIDTHS["dinov2-large"]
+    p = _params(cuda_device, d, hidden)
+    ap, mp = block.attn_params(p), block.mlp_params(p)
+    x = torch.zeros((1, 257, d), device=cuda_device)
+    xb = x.to(torch.bfloat16)
+    block.reset_launches()
+    with pytest.raises(TypeError, match="bf16"):
+        block.fused_mlp_part_stream_train(x, mp, EPS)
+    with pytest.raises(TypeError, match="bf16"):
+        block.fused_mlp_bwd_stream(x, x, x, mp, EPS)
+    with pytest.raises(TypeError, match="bf16"):
+        block.fused_attn_bwd_stream(x, x, ap, heads, EPS)
+    with pytest.raises(ValueError, match="differ"):
+        block.fused_mlp_bwd_stream(xb, xb, xb[:, :200].contiguous(), mp, EPS)
+    with pytest.raises(ValueError, match="head width"):
+        block.fused_attn_bwd_stream(xb, xb, ap, 8, EPS)
+    with pytest.raises(TypeError, match="ls2"):
+        block.fused_mlp_bwd_stream(xb, xb, xb, mp._replace(ls2=p.ls2.to(torch.bfloat16)), EPS)
+    assert sum(block.LAUNCHES.values()) == 0
+
+
+@pytest.mark.cuda
+def test_tiny_model_unfreeze_on_the_stream_route_kernels_match_plain(cuda_device, monkeypatch):
+    """test/vit-tiny unfreeze-2 with both blocks on the streamed training
+    route (forced), one train step at batch 2: the kernels path launches
+    two of each streamed training wrapper and nothing else, and never calls
+    a plain version (they are made to raise); losses agree with the plain
+    path to 1e-3, and each block gradient's error vs f32 is at most twice
+    the plain bf16 path's plus 1e-2."""
+    from dino_pose_tpu_torch.models import vit
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    monkeypatch.setattr(vit, "block_route", lambda *a, **k: "stream")
+    config = {"model_name": "test/vit-tiny", "use_lora": False, "unfreeze_last_n_layers": 2}
+    model = registry.create_model_from_config(config, device=cuda_device)
+    rng = np.random.default_rng(3)
+    kps = rng.uniform(20, 200, (2, 24, 3)).astype(np.float32)
+    kps[..., 2] = 2.0
+    batch = {"image": torch.from_numpy(rng.standard_normal((2, 3, 224, 224)).astype(np.float32)),
+             "2d_keypoints": torch.from_numpy(kps),
+             "z_coords": torch.from_numpy(rng.standard_normal((2, 24)).astype(np.float32))}
+    batch = {k: v.to(cuda_device) for k, v in batch.items()}
+    names = [f"backbone.encoder.layer.{i}.{leaf}" for i in (0, 1) for leaf in (
+        "attention.attention.query.weight", "attention.output.dense.bias",
+        "layer_scale1.lambda1", "norm1.weight", "mlp.fc1.weight", "mlp.fc2.bias",
+        "layer_scale2.lambda1", "norm2.weight")]
+    plain = ("attn_part_stream_math", "mlp_part_stream_train_math", "mlp_stream_bwd_math",
+             "attn_stream_bwd_math")
+    out = {}
+    for name, kernels, dtype in (("kernels", True, torch.bfloat16),
+                                 ("plain", False, torch.bfloat16), ("f32", False, torch.float32)):
+        m = copy.deepcopy(model)
+        state, opt, part = create_train_state(m, config)
+        step = prepare_batch(make_train_step(m, opt, part, kernels=kernels), (224, 48), dtype)
+        with monkeypatch.context() as mp:
+            if kernels:
+                for fn in plain:
+                    mp.setattr(block, fn, lambda *a, _fn=fn, **k: pytest.fail(f"{_fn} on the card"))
+            block.reset_launches()
+            _, stats = step(state, batch, 3e-5, 0)
+            torch.cuda.synchronize()
+        want = 2 if kernels else 0
+        assert block.LAUNCHES == {**dict.fromkeys(block.LAUNCHES, 0),
+                                  "fused_attn_part_stream": want,
+                                  **dict.fromkeys(STREAM_TRAIN_NAMES, want)}
+        params = dict(m.named_parameters())
+        out[name] = (stats, {n: params[n].grad.float() for n in names})
+    (ks, kg), (ps, pg), (_, rg) = out["kernels"], out["plain"], out["f32"]
+    for k in ("loss", "kp_loss", "z_loss", "weight"):
+        assert abs(ks[k].item() - ps[k].item()) <= 1e-3 * abs(ps[k].item()), k
+
+    def rel(a, b):
+        return ((a - b).norm() / b.norm()).item()
+
+    for n in names:
+        assert torch.isfinite(kg[n]).all(), n
+        tol = 2 * rel(pg[n], rg[n]) + 1e-2
+        assert max(rel(kg[n], rg[n]), rel(kg[n], pg[n])) <= tol, n

@@ -60,10 +60,11 @@ def _jit(fn, *args):
     return jax.jit(fn).lower(*args).compile(compiler_options=NO_EXCESS)(*args)
 
 
-def _count_kernels(monkeypatch) -> dict:
-    """Count the calls of JAX's Pallas kernel bodies (one per pallas_call traced)."""
-    calls = dict.fromkeys(KERNELS, 0)
-    for name in KERNELS:
+def _count_kernels(monkeypatch, names=KERNELS) -> dict:
+    """Count the calls of JAX's Pallas kernel bodies ``names`` (one per
+    pallas_call traced)."""
+    calls = dict.fromkeys(names, 0)
+    for name in names:
         orig = getattr(jblock, name)
 
         def counted(*a, _name=name, _orig=orig, **k):
