@@ -21,8 +21,15 @@ unfreeze-last-4 fine-tuning of both at batch 128, whose four trainable
 blocks take the weight-streamed training halves (the streamed MLP half that
 also saves h2, and the streamed backward chains of both halves: their
 kernels held at both widths at batch 1, 8 and 128 and on each step's own
-tensors, and the backbone's trainable-block gradients alone at batch 128).
-Times kernels, serving and every train step.
+tensors, and the backbone's trainable-block gradients alone at batch 128);
+then FastViT's two opt-in kernel arms (JAX's DINO_POSE_TPU_DWCONV and
+DINO_POSE_TPU_STAGE_PAIR, set to ``on`` for those phases only): the
+depthwise conv, the combine + conv segment forward and backward and the
+ConvFFN with the block residual held at t8's stage 0 and 1 shapes (and
+ragged H) at batch 1, 8 and 128, fastvit_t8 + LoRA serving with the conv
+arm (4 depthwise-conv and 10 ConvFFN launches a forward), and its LoRA
+fine-tuning at batch 128 with both arms (the pair in stages 0-1). Times
+kernels, serving and every train step.
 
     python3 chip_smoke.py [--out results.json] [--profile]
 
@@ -38,8 +45,10 @@ full f32: TF32 is switched off for matmuls and cuDNN convolutions.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import copy
 import json
+import os
 import subprocess
 import sys
 import time
@@ -244,6 +253,27 @@ NO_RESIDUAL = {"fused_mlp_part_stream_train": (1,), "fused_attn_bwd_stream": (0,
 BLOCK_SOURCE = "dino_pose_tpu_torch/ops/csrc/block_kernels.cu"
 FLASH_SOURCE = "dino_pose_tpu_torch/ops/csrc/flash_kernels.cu"
 CONVFFN_SOURCE = "dino_pose_tpu_torch/ops/csrc/convffn_kernels.cu"
+DWCONV_SOURCE = "dino_pose_tpu_torch/ops/csrc/dwconv_kernels.cu"
+# FastViT's opt-in arms, JAX's own switches at "on": its TPU shape-and-fit
+# window, which at 256² takes t8's stages 0 and 1 (C = 48 at 64², 96 at
+# 32²). Serving with the conv arm: each of those stages' ConvFFN 7x7 convs
+# (the RepMixers fold into one conv in eval). The LoRA step with both arms:
+# the four blocks of stages 0-1 run as the pair (their mixers' 3x3 branch
+# through the conv arm, the combine + 7x7 segment, the ConvFFN with the
+# residual), stages 2-3 as before; in the backward the segment's and the
+# mixer conv's dx run in the three pair blocks whose input carries a
+# gradient (stage 0's first block input does not).
+ARMS = {"DINO_POSE_TPU_DWCONV": "on", "DINO_POSE_TPU_STAGE_PAIR": "on"}
+SERVING_T8_DW_LAUNCHES = {"fused_convffn": 10, "fused_dw_conv": 4}
+T8_PAIR_LAUNCHES = {"fused_dw_conv": 4 + 3, "fused_combine_dw": 4, "fused_convffn_res": 4,
+                    "fused_convffn": 6, "fused_combine_dw_bwd": 3, "fused_convffn_bwd": 10}
+T8_PAIR_RECORDED = ("fused_dw_conv", "fused_combine_dw", "fused_combine_dw_bwd",
+                    "fused_convffn_res", "fused_convffn_bwd")
+# The arms' t8 stages at 256²: (C, H = W, ConvFFN hidden, launches of a
+# serving forward's 7x7 conv, of a step's segment forward and of its
+# backward), and ragged rows (H = 24, 56) held but not on the path.
+ARM_STAGES = [(48, 64, 144, 2, 2, 1), (96, 32, 288, 2, 2, 2)]
+ARM_RAGGED = [(48, 24), (96, 56)]
 # Per JSON row: the TPU kernel it replaces, its source, the batch its
 # numbers were taken at, the path whose launches "launches" reports and the
 # LAUNCHES key counted there. The forward kernels at the serving batch on the
@@ -290,6 +320,19 @@ KERNEL_ROWS = {
                              BLOCK_SOURCE, TRAIN_BATCH, "dinov2_large_unfreeze_train"),
     "fused_attn_bwd_stream": ("dino_pose_tpu/ops/block.py:1924, dino_pose_tpu/ops/block.py:1973",
                               BLOCK_SOURCE, TRAIN_BATCH, "dinov2_large_unfreeze_train"),
+    # FastViT's opt-in arms: the 7x7 conv at batch 1 on the t8 serving path
+    # with the conv arm, times and bound summed over its four launches a
+    # forward; the segment forward and the ConvFFN with the residual (four
+    # launches a step) and the segment backward (three) at batch 128 on the
+    # t8 LoRA path with both arms, summed the same way.
+    "fused_dw_conv": ("dino_pose_tpu/ops/dwconv.py:54", DWCONV_SOURCE, 1,
+                      "serving_fastvit_t8_dwconv"),
+    "fused_combine_dw": ("dino_pose_tpu/ops/dwconv.py:287", DWCONV_SOURCE, T8_TRAIN_BATCH,
+                         "fastvit_t8_lora_pair_train"),
+    "fused_combine_dw_bwd": ("dino_pose_tpu/ops/dwconv.py:310", DWCONV_SOURCE, T8_TRAIN_BATCH,
+                             "fastvit_t8_lora_pair_train"),
+    "fused_convffn_res": ("dino_pose_tpu/ops/convffn.py:370", CONVFFN_SOURCE, T8_TRAIN_BATCH,
+                          "fastvit_t8_lora_pair_train"),
 }
 # The LAUNCHES key each row counts.
 LAUNCH_KEY = {"flash_attention": "flash_fwd", "flash_attention_bwd": "flash_bwd",
@@ -513,7 +556,7 @@ def flat(out) -> tuple:
 
 
 def compare_outputs(got: tuple, want: tuple, act_scale: float = 1.0) -> tuple[float, float, bool]:
-    """Activations (3-D) within atol*act_scale + rtol*|ref|, weight gradients
+    """Activations (3-D, 4-D) within atol*act_scale + rtol*|ref|, weight gradients
     elementwise within GRAD_TOL of their largest magnitude. Returns (max abs
     error of the activations, largest gradient error over its largest
     magnitude, ok)."""
@@ -522,7 +565,7 @@ def compare_outputs(got: tuple, want: tuple, act_scale: float = 1.0) -> tuple[fl
         g, w = g.float(), w.float()
         ok &= g.shape == w.shape and bool(torch.isfinite(g).all())
         err = (g - w).abs()
-        if g.dim() == 3:
+        if g.dim() >= 3:
             act_err = max(act_err, err.max().item())
             ok &= bool((err <= KERNEL_ATOL * act_scale + KERNEL_RTOL * w.abs()).all())
         else:
@@ -944,6 +987,7 @@ def plain_pair(name: str, args: tuple, out) -> tuple:
     from dino_pose_tpu_torch.ops import attention as A
     from dino_pose_tpu_torch.ops import block as B
     from dino_pose_tpu_torch.ops import convffn as CF
+    from dino_pose_tpu_torch.ops import dwconv as DW
 
     forward = {"fused_block": B.block_math, "fused_attn_part": B.attn_part_math,
                "fused_attn_part_stream": B.attn_part_stream_math,
@@ -977,6 +1021,16 @@ def plain_pair(name: str, args: tuple, out) -> tuple:
     if name == "fused_convffn_bwd":
         y, df, p, s_lora = args
         return flat(out), flat(CF.convffn_bwd_math(y, df, p, s_lora)), df
+    if name == "fused_convffn_res":
+        return (out,), (CF.convffn_res_math(*args),), None
+    if name == "fused_dw_conv":
+        return (out,), (DW.dw_conv_math(*args),), None
+    if name == "fused_combine_dw":
+        return out, DW.combine_dw_math(*args), None
+    if name == "fused_combine_dw_bwd":
+        _, _, dx2bar, dy7bar, *_ = args
+        ct = torch.maximum(dx2bar.float().abs().amax(), dy7bar.float().abs().amax())
+        return out, DW.combine_dw_bwd_math(*args), ct
     if name == "flash_fwd":
         q, k, v, scale = args
         return out[:1], (A.flash_math(q, k, v, scale),), None
@@ -1029,11 +1083,14 @@ def wrapper_modules(name: str) -> tuple:
     from dino_pose_tpu_torch.ops import attention as A
     from dino_pose_tpu_torch.ops import block as B
     from dino_pose_tpu_torch.ops import convffn as CF
+    from dino_pose_tpu_torch.ops import dwconv as DW
 
     if name == "fused_attn_part_stream":
         return V, B
     if name in ("fused_block", "fused_attn_part"):
         return (V,)
+    if name in ("fused_dw_conv", "fused_combine_dw", "fused_combine_dw_bwd"):
+        return (DW,)
     return (CF if name.startswith("fused_convffn") else A if name.startswith("flash") else B,)
 
 
@@ -1460,6 +1517,160 @@ def phase_convffn(results: dict, backward: bool) -> dict:
     return out
 
 
+@contextlib.contextmanager
+def gates(env: dict):
+    """Set JAX's arm switches ``env`` for one phase and restore them after
+    it, also when the phase fails (the failure still ends the run)."""
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def dw_inputs(b: int, h: int, c: int, kk: int, gen: torch.Generator):
+    """Seeded bf16 (b, h, h, c) x, y0 and unit-scale cotangents dx2bar,
+    dy7bar; f32 a ~ 1, b, bias (the reuse-form RepMixer's coefficients at
+    LayerScale ~ 0.1-1) and an HWIO conv kernel scaled like a trained
+    depthwise conv."""
+    def n(*shape, std=1.0, mean=0.0):
+        return torch.randn(shape, generator=gen) * std + mean
+
+    acts = [n(b, h, h, c).to("cuda", torch.bfloat16) for _ in range(4)]
+    vecs = [n(c, std=0.1, mean=1.0), n(c, std=0.3), n(c, std=0.1)]
+    return acts, [v.cuda() for v in vecs], n(kk, kk, 1, c, std=1.0 / kk).cuda()
+
+
+def check_dw(results: dict, name: str, got: tuple, want: tuple, where: str) -> float:
+    """A depthwise-arm wrapper against its plain version: activations at the
+    kernel tolerance, the backward's f32 (C,) sums within GRAD_TOL of their
+    largest magnitude. Keeps the largest errors under ``name``."""
+    torch.cuda.synchronize()
+    act_err, grad_rel, ok = compare_outputs(got, want)
+    sums = len(got) > 2
+    log(f"kernel {name} {where}: max_abs={act_err:.6g}"
+        + (f" max_err/max|ref|(sums)={grad_rel:.6g}" if sums else "")
+        + f" tol=atol {KERNEL_ATOL} + rtol {KERNEL_RTOL}*|ref|"
+        + (f", sums {GRAD_TOL}*max|ref|" if sums else "") + f" -> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{name} at {where} disagrees with its plain version")
+    row = results.setdefault(name, {"max_abs_err": 0.0})
+    row["max_abs_err"] = max(row["max_abs_err"], act_err)
+    if sums:
+        row["max_grad_err_rel"] = max(row.get("max_grad_err_rel", 0.0), grad_rel)
+    return act_err
+
+
+def phase_dwconv(results: dict) -> dict:
+    """FastViT's opt-in arms' wrappers against their plain versions at t8's
+    stage 0 and 1 shapes (256²), bf16, batch 1, 8 and 128: fused_dw_conv,
+    fused_combine_dw and fused_combine_dw_bwd at k = 3 and 7, and
+    fused_convffn_res at rank 8 with Dropout2d-style masks; the conv kernels
+    also at ragged H = 24 and 56. Then kernel, plain, bound and (for the
+    conv) cuDNN's grouped conv times at the path's shapes. Returns, by
+    batch, each wrapper's per-stage numbers and its sums over the launches
+    of one forward (the conv at batch 1, k = 7: the serving path) or one
+    step (the segment and the residual ConvFFN at batch 128, k = 7)."""
+    import torch.nn.functional as F
+
+    from dino_pose_tpu_torch.ops import block as B
+    from dino_pose_tpu_torch.ops import convffn as CF
+    from dino_pose_tpu_torch.ops import dwconv as DW
+
+    gen = torch.Generator().manual_seed(SEED + 14)
+    saved = dict(B.LAUNCHES)
+    for c, h in ARM_RAGGED:
+        for kk in DW.KERNEL_SIZES:
+            (x, y0, dx2, dy7), (a, b, bias), kern = dw_inputs(8, h, c, kk, gen)
+            where = f"(ragged: C={c}, H=W={h}, k={kk}) B=8"
+            check_dw(results, "fused_dw_conv", (DW.fused_dw_conv(x, kern),),
+                     (DW.dw_conv_math(x, kern),), where)
+            check_dw(results, "fused_combine_dw", DW.fused_combine_dw(x, y0, a, b, bias, kern),
+                     DW.combine_dw_math(x, y0, a, b, bias, kern), where)
+            check_dw(results, "fused_combine_dw_bwd",
+                     DW.fused_combine_dw_bwd(x, y0, dx2, dy7, a, b, kern),
+                     DW.combine_dw_bwd_math(x, y0, dx2, dy7, a, b, kern), where)
+    out: dict = {}
+    for b in (1, 8, T8_TRAIN_BATCH):
+        for c, h, hidden, n_serve, n_fwd, n_bwd in ARM_STAGES:
+            for kk in DW.KERNEL_SIZES:
+                (x, y0, dx2, dy7), (a, bv, bias), kern = dw_inputs(b, h, c, kk, gen)
+                where = f"t8 stage C={c}, H=W={h}, k={kk} B={b}"
+                x_nchw = x.permute(0, 3, 1, 2)  # channels_last, as the model holds it
+                w_lib = kern.permute(3, 2, 0, 1).to(torch.bfloat16).contiguous()
+                cases = {
+                    "fused_dw_conv": (lambda: (DW.fused_dw_conv(x, kern),),
+                                      lambda: (DW.dw_conv_math(x, kern),),
+                                      DW.dwconv_cost(b, h, h, c, kk),
+                                      lambda: F.conv2d(x_nchw, w_lib, None, 1, kk // 2, 1, c)),
+                    "fused_combine_dw": (lambda: DW.fused_combine_dw(x, y0, a, bv, bias, kern),
+                                         lambda: DW.combine_dw_math(x, y0, a, bv, bias, kern),
+                                         DW.combine_dw_cost(b, h, h, c, kk), None),
+                    "fused_combine_dw_bwd": (
+                        lambda: DW.fused_combine_dw_bwd(x, y0, dx2, dy7, a, bv, kern),
+                        lambda: DW.combine_dw_bwd_math(x, y0, dx2, dy7, a, bv, kern),
+                        DW.combine_dw_bwd_cost(b, h, h, c, kk), None),
+                }
+                for name, (kern_fn, plain_fn, (flops, nbytes), lib_fn) in cases.items():
+                    err = check_dw(results, name, kern_fn(), plain_fn(), where)
+                    with torch.inference_mode():
+                        ms = cuda_ms(kern_fn, iters=20)
+                        plain_ms = cuda_ms(plain_fn, iters=5 if b > 8 else 10, warmup=2)
+                        lib_ms = cuda_ms(lib_fn, iters=20) if lib_fn else None
+                    bound, by = B.bound_ms(flops, nbytes, DW.F32_FLOPS)
+                    log(f"time {name} {where}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+                        f"bound {bound:.5f} ms ({by})"
+                        + (f", cuDNN grouped conv (bf16 taps) {lib_ms:.4f} ms" if lib_fn else ""))
+                    blocks = {"fused_dw_conv": n_serve, "fused_combine_dw": n_fwd,
+                              "fused_combine_dw_bwd": n_bwd}[name]
+                    out.setdefault(b, {}).setdefault(f"{name}_stages", []).append({
+                        "C": c, "H": h, "k": kk, "launches": blocks, "ms": ms,
+                        "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+                        "library_ms": lib_ms, "flops": flops, "bytes": nbytes,
+                        "max_abs_err": err})
+                del x, y0, dx2, dy7
+            y, p = convffn_inputs(b, h * h, c, hidden, 8, gen)
+            res = torch.randn((b, h * h, c), generator=gen).to("cuda", torch.bfloat16)
+            where = f"t8 stage C={c}, H={hidden}, S={h * h}, R=8 B={b}"
+            err = check_dw(results, "fused_convffn_res", (CF.fused_convffn_res(y, res, p, 2.0),),
+                           (CF.convffn_res_math(y, res, p, 2.0),), where)
+            with torch.inference_mode():
+                ms = cuda_ms(lambda: CF.fused_convffn_res(y, res, p, 2.0), iters=20)
+                plain_ms = cuda_ms(lambda: CF.convffn_res_math(y, res, p, 2.0), iters=5, warmup=2)
+            flops, nbytes = CF.convffn_cost(b, h * h, c, hidden, 8, res=True)
+            bound, by = B.bound_ms(flops, nbytes)
+            log(f"time fused_convffn_res {where}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+                f"bound {bound:.5f} ms ({by})")
+            out[b].setdefault("fused_convffn_res_stages", []).append({
+                "C": c, "H": hidden, "S": h * h, "launches": n_fwd, "ms": ms,
+                "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by, "library_ms": None,
+                "flops": flops, "bytes": nbytes, "max_abs_err": err})
+            del y, p, res
+    B.LAUNCHES.update(saved)  # checks and timing launches are not main-path launches
+
+    # Sums over the launches of one serving forward (batch 1) or one step (128).
+    for name, b in (("fused_dw_conv", 1), ("fused_combine_dw", T8_TRAIN_BATCH),
+                    ("fused_combine_dw_bwd", T8_TRAIN_BATCH),
+                    ("fused_convffn_res", T8_TRAIN_BATCH)):
+        rows = [r for r in out[b][f"{name}_stages"] if r.get("k", 7) == 7]
+        total = {k: sum(r["launches"] * r[k] for r in rows)
+                 for k in ("ms", "plain_ms", "flops", "bytes")}
+        lib = [r["library_ms"] for r in rows]
+        bound, by = (B.bound_ms(total["flops"], total["bytes"]) if name == "fused_convffn_res"
+                     else B.bound_ms(total["flops"], total["bytes"], DW.F32_FLOPS))
+        out[b][name] = {"ms": total["ms"], "plain_ms": total["plain_ms"], "bound_ms": bound,
+                        "bound_by": by, "library_ms": None if None in lib else sum(
+                            r["launches"] * r["library_ms"] for r in rows)}
+        log(f"time {name} t8 {'forward' if b == 1 else 'step'} "
+            f"({sum(r['launches'] for r in rows)} launches, k=7) B={b}: " + json.dumps(out[b][name]))
+    return out
+
+
 def profile_forward(model, image_size: int = 224) -> None:
     """Kernel time by name over five batch-1 forwards (torch.profiler)."""
     from torch.profiler import ProfilerActivity, profile
@@ -1501,8 +1712,9 @@ def main() -> int:
                          "the train steps: at 224² LoRA and unfreeze (batch 128), at 504² "
                          "unfreeze (batch 32); of the fastvit_t8 + LoRA batch-1 forward "
                          "and its LoRA train step (batch 128); of the dinov2-large + "
-                         "LoRA batch-1 forward and its LoRA train step (batch 128); and of "
-                         "the dinov2-large unfreeze-last-4 train step (batch 128)")
+                         "LoRA batch-1 forward and its LoRA train step (batch 128); of "
+                         "the dinov2-large unfreeze-last-4 train step (batch 128); and of "
+                         "the fastvit_t8 + LoRA train step with both opt-in arms (batch 128)")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -1536,6 +1748,8 @@ def main() -> int:
     train_large: dict = {}
     unfreeze_large: dict = {}
     unfreeze_base: dict = {}
+    serving_t8_dw: dict = {}
+    train_t8_pair: dict = {}
     phase_kernels(results)
     phase_mlp_dx(results)
     phase_train_kernels(results)
@@ -1598,6 +1812,18 @@ def main() -> int:
                 steps=WIDE_STEPS, timed=WIDE_TIMED, grad_batches=WIDE_GRAD_BATCHES)
     phase_backbone_grads(unfreeze_base, "dinov2_base_unfreeze", BASE_UNFREEZE_CONFIG,
                          TRAIN_BATCH, 224)
+    dw_times = phase_dwconv(results)
+    with gates({"DINO_POSE_TPU_DWCONV": "on"}):
+        phase_serving(results, serving_t8_dw, "serving_fastvit_t8_dwconv",
+                      per_forward_launches=SERVING_T8_DW_LAUNCHES, config=T8_CONFIG)
+    with gates(ARMS):
+        pair_run = phase_train(results, train_t8_pair, "fastvit_t8_lora_pair", T8_CONFIG,
+                               T8_PAIR_LAUNCHES, FASTVIT_GRAD_NAMES, T8_PAIR_RECORDED,
+                               batch_size=T8_TRAIN_BATCH, image_size=FASTVIT_IMAGE)
+        phase_backbone_grads(train_t8_pair, "fastvit_t8_lora_pair", T8_CONFIG, T8_TRAIN_BATCH)
+    log("fastvit_t8_lora step ms by route (this card, kernels / plain): default "
+        f"{train_t8['step_ms_kernels']:.3f} / {train_t8['step_ms_plain']:.3f}, both arms on "
+        f"{train_t8_pair['step_ms_kernels']:.3f} / {train_t8_pair['step_ms_plain']:.3f}")
     by_batch = phase_times()
     for times in (*wide_times, stream_train_times):
         for b, t in times.items():
@@ -1608,6 +1834,8 @@ def main() -> int:
         for b, t in times.items():
             if "t8" in t:
                 by_batch.setdefault(b, {})[name] = t["t8"]
+    for b, t in dw_times.items():
+        by_batch.setdefault(b, {}).update({k: v for k, v in t.items() if k in KERNEL_ROWS})
     if args.profile:
         profile_forward(model)
         profile_train_step(*lora_run)
@@ -1619,6 +1847,8 @@ def main() -> int:
         profile_forward(model_large)
         profile_train_step(*large_run)
         profile_train_step(*large_unfreeze_run)
+        with gates(ARMS):
+            profile_train_step(*pair_run)
 
     kernels = []
     for name, (replaces, source, b, path) in KERNEL_ROWS.items():
@@ -1640,6 +1870,7 @@ def main() -> int:
     log("kernel_times_b128 " + json.dumps(by_batch[TRAIN_BATCH]))
     log("convffn_times " + json.dumps(convffn_times))
     log("convffn_bwd_times " + json.dumps(convffn_bwd_times))
+    log("dwconv_times " + json.dumps(dw_times))
     if args.out:
         with open(args.out, "w") as f:
             json.dump({"card": card, "kernels": kernels, "b1": by_batch[1], "b8": by_batch[8],
@@ -1654,7 +1885,9 @@ def main() -> int:
                        "serving_dinov2_large": serving_large,
                        "training_dinov2_large_lora": train_large,
                        "training_dinov2_large_unfreeze": unfreeze_large,
-                       "training_dinov2_base_unfreeze": unfreeze_base},
+                       "training_dinov2_base_unfreeze": unfreeze_base,
+                       "dwconv": dw_times, "serving_fastvit_t8_dwconv": serving_t8_dw,
+                       "training_fastvit_t8_lora_pair": train_t8_pair},
                       f, indent=1)
     print(json.dumps({"kernels": kernels}))
     print(card)

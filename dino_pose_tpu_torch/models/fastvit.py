@@ -47,6 +47,23 @@ The backbone runs in ``torch.channels_last``: a conv's NCHW output is then
 LayerScale multiplies in the compute dtype, as the port's ViT does, in eval
 and train. (The JAX package multiplies by the f32 parameter, which promotes
 its bf16 activations to f32 from the first block on; in f32 the two agree.)
+
+JAX's two opt-in kernel arms are its own switches, read at call time (off
+when unset; ``ops/dwconv.py`` for ``on`` and ``force``):
+
+- ``DINO_POSE_TPU_DWCONV``: every stride-1, multiplier-1 depthwise conv in
+  the window (the RepMixer mixer's 3x3 branch in training, each ConvFFN's
+  7x7 in eval and training, at C < 128) runs ``ops/dwconv.dw_conv_frozen``
+  with f32 taps, where the conv route casts them to the compute dtype;
+- ``DINO_POSE_TPU_STAGE_PAIR``: in training, a RepMixer + ConvFFN block
+  whose shapes pass ``pair_enabled`` and ``convffn_res_enabled`` (JAX's
+  gate, fastvit.py:870-898) runs as two segment kernels around its two
+  batch-statistics barriers: the RepMixer as per-channel (a, b, bias) on x
+  and its 3x3 branch y0 (``RepMixer.combine_terms``), then
+  ``combine_dw_frozen`` (x2 = a*x + b*y0 + bias, y7 = dw7(x2)), y7's batch
+  statistics, and ``convffn_res_train`` on (y7, x2) with LayerScale folded
+  into w2, b2 and b2l in f32 before the cast (``ConvFFN.pair_forward``).
+  The parameter tree is the same on either route.
 """
 
 from __future__ import annotations
@@ -65,7 +82,9 @@ from dino_pose_tpu_torch.models.fastvit_fold import (
     cached_fold,
     center_identity,
     channel_moments,
+    dw_arm_conv,
     dw_branch_conv,
+    dw_route,
     fold_branch,
     stats_branch_reuse,
 )
@@ -74,9 +93,12 @@ from dino_pose_tpu_torch.ops.attention import attention, plain_attention
 from dino_pose_tpu_torch.ops.convffn import (
     ConvFFNParams,
     convffn_math,
+    convffn_res_enabled,
+    convffn_res_train,
     convffn_train,
     fused_convffn,
 )
+from dino_pose_tpu_torch.ops.dwconv import combine_dw_frozen, pair_enabled
 
 _VIEW = (1, -1, 1, 1)  # a per-channel vector against NCHW
 
@@ -201,20 +223,21 @@ class MobileOneBlock(nn.Module):
             kf, bf = kf + ident * inv.view(-1, 1, 1, 1), bf + shift
         return kf, bf
 
-    def train_terms(self, x: torch.Tensor):
+    def train_terms(self, x: torch.Tensor, kernels: bool = True):
         """The train-mode linear part unapplied (``_reuse``'s terms):
         ``(terms, xc, xc_rep, bias)``, ``terms`` a list of (f32 inv,
         materialised branch output), ``xc`` the f32 per-channel coefficient on
         the stride-sampled x (or None), ``xc_rep`` the same on x repeated to
         the features of a depthwise-multiplier block, ``bias`` f32. Every
-        BatchNorm of the block takes its batch statistics here, once."""
+        BatchNorm of the block takes its batch statistics here, once.
+        ``kernels`` picks the depthwise-conv arm's kernel or plain version."""
         s, groups, cin = self.stride, self.groups, self.in_g * self.groups
         mult = self.features // groups
         terms, xc, xc_rep = [], None, None
         bias = torch.zeros(self.features, device=x.device)
         for branch in self.rbr_conv:
             y, inv, shift = stats_branch_reuse(x, branch.conv.weight, branch.bn,
-                                               stride=s, groups=groups)
+                                               stride=s, groups=groups, kernels=kernels)
             terms.append((inv, y))
             bias = bias + shift
         if self.rbr_scale is not None:
@@ -248,7 +271,8 @@ class MobileOneBlock(nn.Module):
                     y_scale = y_scale + xs[:, ci:ci + 1] * wm[ci].view(_VIEW)
                 terms.append((inv, y_scale))
             else:
-                y, inv, shift = stats_branch_reuse(x, w, bn, stride=s, groups=groups)
+                y, inv, shift = stats_branch_reuse(x, w, bn, stride=s, groups=groups,
+                                                   kernels=kernels)
                 terms.append((inv, y))
             bias = bias + shift
         if self.rbr_skip is not None:
@@ -374,24 +398,42 @@ class RepMixer(nn.Module):
         kernel = ls.view(-1, 1, 1, 1) * (km - kn) + ident
         return kernel.to(dtype), (ls * (bm - bn_)).to(dtype)
 
-    def _train_forward(self, x: torch.Tensor) -> torch.Tensor:
-        terms_m, xc_m, _, bias_m = self.mixer.train_terms(x)
-        terms_n, xc_n, _, bias_n = self.norm.train_terms(x)
+    def _coefficients(self, x: torch.Tensor, kernels: bool):
+        """The train-mode terms: (mixer terms, norm terms, f32 ls, f32 a, f32
+        bias), out = a*x + bias + sum ls*inv*y over the mixer's terms minus
+        the norm's."""
+        terms_m, xc_m, _, bias_m = self.mixer.train_terms(x, kernels)
+        terms_n, xc_n, _, bias_n = self.norm.train_terms(x, kernels)
         zero = torch.zeros_like(bias_m)
         xc_m = zero if xc_m is None else xc_m
         xc_n = zero if xc_n is None else xc_n
         ls = self.layer_scale.float().view(-1)
-        out = (x.float() * (1.0 + ls * (xc_m - xc_n)).view(_VIEW)
-               + (ls * (bias_m - bias_n)).view(_VIEW))
+        return terms_m, terms_n, ls, 1.0 + ls * (xc_m - xc_n), ls * (bias_m - bias_n)
+
+    def _train_forward(self, x: torch.Tensor, kernels: bool) -> torch.Tensor:
+        terms_m, terms_n, ls, a, bias = self._coefficients(x, kernels)
+        out = x.float() * a.view(_VIEW) + bias.view(_VIEW)
         for inv, y in terms_m:
             out = out + y.float() * (ls * inv).view(_VIEW)
         for inv, y in terms_n:
             out = out - y.float() * (ls * inv).view(_VIEW)
         return out.to(x.dtype)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def combine_terms(self, x: torch.Tensor, kernels: bool = True):
+        """The train-mode mixer unapplied, for the stage-pair arm (JAX's
+        ``return_combine``, fastvit.py:727-755): f32 (C,) ``a``, ``b``,
+        ``bias`` and the mixer's 3x3 branch output ``y0``, with out = a*x +
+        b*y0 + bias."""
+        terms_m, terms_n, ls, a, bias = self._coefficients(x, kernels)
+        if len(terms_m) != 1 or terms_n:
+            raise ValueError("combine_terms expects exactly one materialised mixer branch "
+                             "and a stats-only norm")
+        inv0, y0 = terms_m[0]
+        return a, ls * inv0, bias, y0
+
+    def forward(self, x: torch.Tensor, kernels: bool = True) -> torch.Tensor:
         if self.training:
-            return self._train_forward(x)
+            return self._train_forward(x, kernels)
         kernel, bias = cached_fold(self, x.dtype, self._fold)
         return apply_folded(x, kernel, bias, stride=1, padding=1, groups=x.shape[1])
 
@@ -416,18 +458,22 @@ def _matrix(conv: nn.Conv2d, dtype: torch.dtype) -> torch.Tensor:
 class ConvFFN(nn.Module):
     """Depthwise 7x7 conv (``conv``: conv + BN), then 1x1 fc1 -> GELU -> 1x1
     fc2, each 1x1 with ConvLoRA when ``lora_rank`` > 0. The depthwise conv
-    runs on its own (JAX's ``dw_branch_conv``, stride 1, fastvit_fold.py:442);
-    the rest is the ConvFFN kernel on the BatchNorm affine (fastvit.py:
-    658-674): in eval without grad ``fused_convffn`` on the cached eval
-    affine; in train mode ``convffn_train`` on the batch-statistics affine
-    (``branch_stats``, two-pass) with the ConvLoRA Dropout2d masks
-    bernoulli(keep)/keep per (sample, rank) (fastvit.py:585-595). Eval under
-    grad with a trainable adapter is refused by the eval cache."""
+    runs on its own (JAX's ``dw_branch_conv``, stride 1, fastvit_fold.py:442;
+    the depthwise-conv arm where ``dw_route`` passes, in eval as in
+    training, as JAX's eval takes it, fastvit.py:656); the rest is the
+    ConvFFN kernel on the BatchNorm affine (fastvit.py: 658-674): in eval
+    without grad ``fused_convffn`` on the cached eval affine; in train mode
+    ``convffn_train`` on the batch-statistics affine (``branch_stats``,
+    two-pass) with the ConvLoRA Dropout2d masks bernoulli(keep)/keep per
+    (sample, rank) (fastvit.py:585-595). Eval under grad with a trainable
+    adapter is refused by the eval cache. ``pair_forward`` is the
+    stage-pair arm's block (fastvit.py:626-655)."""
 
     def __init__(self, c: int, hidden: int, lora_rank: int = 0, lora_alpha: float = 16.0,
                  lora_dropout: float = 0.0):
         super().__init__()
-        self.c, self.lora_rank, self.lora_dropout = c, lora_rank, lora_dropout
+        self.c, self.hidden = c, hidden
+        self.lora_rank, self.lora_dropout = lora_rank, lora_dropout
         self.s_lora = lora_alpha / lora_rank if lora_rank else 1.0
         self.conv = ConvBN(c, c, 7, 1, groups=c)
         if lora_rank:
@@ -463,14 +509,23 @@ class ConvFFN(nn.Module):
         return self.conv.conv.weight.to(dtype), p
 
     def _live_params(self, inv: torch.Tensor, shift: torch.Tensor, b: int, dtype: torch.dtype,
-                     generator: torch.Generator | None) -> ConvFFNParams:
+                     generator: torch.Generator | None,
+                     ls2: torch.Tensor | None = None) -> ConvFFNParams:
         """The parameters as they train: the BatchNorm affine and the LoRA
         matrices with their graphs, the frozen fc1/fc2 cached per version,
         and the masks: in train mode with dropout, bernoulli(keep)/keep per
-        (sample, rank) from ``generator``, m1 then m2; ones otherwise."""
+        (sample, rank) from ``generator``, m1 then m2; ones otherwise. With
+        ``ls2`` (the stage-pair arm) LayerScale is folded into w2, b2 and
+        b2l in f32 (fastvit.py:646-652), cast to ``dtype`` in the kernel's
+        layout later; b2l keeps its graph."""
         fc1, fc2 = ((self.fc1.original_conv, self.fc2.original_conv) if self.lora_rank
                     else (self.fc1, self.fc2))
         base = cached_fold(fc1, dtype, self._base, fc2)
+        adapters = self._adapters(dtype)
+        if ls2 is not None:
+            lsf = ls2.float().view(-1)
+            base = (*base[:2], fc2.weight[:, :, 0, 0].t().float() * lsf, fc2.bias.float() * lsf)
+            adapters[3] = adapters[3] * lsf
         dev, r = inv.device, max(self.lora_rank, 1)
         if self.training and self.lora_rank and self.lora_dropout > 0.0:
             keep = 1.0 - self.lora_dropout
@@ -478,18 +533,21 @@ class ConvFFN(nn.Module):
                       for _ in range(2))
         else:
             m1 = m2 = torch.ones((b, r), dtype=torch.float32, device=dev)
-        return ConvFFNParams(inv, shift, *base, *self._adapters(dtype), m1, m2)
+        return ConvFFNParams(inv, shift, *base, *adapters, m1, m2)
 
     def forward(self, x: torch.Tensor, kernels: bool = True,
                 generator: torch.Generator | None = None) -> torch.Tensor:
         if self.training:
-            y = dw_branch_conv(x, self.conv.conv.weight, 1, self.c)
+            y = dw_branch_conv(x, self.conv.conv.weight, 1, self.c, kernels)
             mean, var, n = branch_stats(y)
             inv, shift = bn_train_affine(self.conv.bn, mean, var, n)
             p = self._live_params(inv, shift, y.shape[0], x.dtype, generator)
         else:
             dw, p = cached_fold(self, x.dtype, self._fold)
-            y = F.conv2d(x, dw, None, 1, 3, 1, self.c)
+            if dw_route(x, self.conv.conv.weight, 1, self.c):
+                y = dw_arm_conv(x, self.conv.conv.weight, kernels)
+            else:
+                y = F.conv2d(x, dw, None, 1, 3, 1, self.c)
             ones = torch.ones((y.shape[0], p.a1.shape[1]), dtype=torch.float32, device=x.device)
             p = p._replace(m1=ones, m2=ones)  # eval: no ConvLoRA dropout
         b, c, hh, ww = y.shape
@@ -501,6 +559,32 @@ class ConvFFN(nn.Module):
         else:
             out = convffn_math(rows, p, self.s_lora)
         return out.view(b, hh, ww, c).permute(0, 3, 1, 2)
+
+    def pair_forward(self, x: torch.Tensor, combine: tuple, ls2: torch.Tensor,
+                     kernels: bool = True,
+                     generator: torch.Generator | None = None) -> torch.Tensor:
+        """The stage-pair arm (JAX's ``ConvFFN`` with ``pair``, fastvit.py:
+        626-655): the BLOCK output x2 + ls2 * ConvFFN(x2) from the block input
+        ``x`` and the RepMixer's ``combine`` = (a, b, bias, y0):
+        ``combine_dw_frozen`` gives x2 and y7 = dw7(x2) (f32 taps), y7's batch
+        statistics give the BatchNorm affine, and ``convffn_res_train`` adds
+        the residual x2 to the ConvFFN with LayerScale folded into w2, b2
+        and b2l."""
+        a, bvec, bias, y0 = combine
+        x2, y7 = combine_dw_frozen(x.permute(0, 2, 3, 1), y0.permute(0, 2, 3, 1), a, bvec, bias,
+                                   self.conv.conv.weight.permute(2, 3, 1, 0), kernels=kernels)
+        b, hh, ww, c = y7.shape
+        mean, var, n = branch_stats(y7.permute(0, 3, 1, 2))
+        inv, shift = bn_train_affine(self.conv.bn, mean, var, n)
+        p = self._live_params(inv, shift, b, x.dtype, generator, ls2=ls2)
+        out = convffn_res_train(y7.reshape(b, hh * ww, c), x2.reshape(b, hh * ww, c), p,
+                                self.s_lora, kernels=kernels)
+        # The block output in its input's layout: the train-mode reuse forms
+        # leave NCHW-contiguous tensors, and a channels_last one would send
+        # every depthwise conv after it to cuDNN's grouped kernels.
+        layout = (torch.channels_last if x.is_contiguous(memory_format=torch.channels_last)
+                  else torch.contiguous_format)
+        return out.view(b, hh, ww, c).permute(0, 3, 1, 2).contiguous(memory_format=layout)
 
 
 class SpatialAttention(nn.Module):
@@ -546,8 +630,9 @@ class SpatialAttention(nn.Module):
 class FastViTBlock(nn.Module):
     """RepMixer block (``token_mixer``, ``layer_scale``) or attention block
     (``norm``, ``token_mixer``, ``layer_scale_1``, ``layer_scale_2``), each
-    with its ConvFFN ``mlp`` (fastvit.py:856-913; the default-off pair path
-    is not ported)."""
+    with its ConvFFN ``mlp`` (fastvit.py:856-913). A RepMixer block in
+    training takes the default-off stage-pair arm where JAX's gate passes
+    (``pair``)."""
 
     def __init__(self, c: int, mixer: str, mlp_ratio: float, cfg: FastViTConfig):
         super().__init__()
@@ -563,10 +648,23 @@ class FastViTBlock(nn.Module):
         self.mlp = ConvFFN(c, int(c * mlp_ratio), cfg.lora_rank, cfg.lora_alpha,
                            cfg.lora_dropout)
 
+    def pair(self, x: torch.Tensor) -> bool:
+        """JAX's stage-pair gate (fastvit.py:870-884): a RepMixer block in
+        training (the reuse form, the port's only train form) whose shapes
+        pass ``pair_enabled`` (k = 7) and ``convffn_res_enabled``."""
+        b, c, hh, ww = x.shape
+        return (self.training and self.mixer == "repmixer"
+                and pair_enabled(c, hh, ww, 7, x.element_size(), batch=b)
+                and convffn_res_enabled(c, self.mlp.hidden, hh * ww, x.element_size(), True,
+                                        self.mlp.lora_rank, batch=b))
+
     def forward(self, x: torch.Tensor, kernels: bool = True,
                 generator: torch.Generator | None = None) -> torch.Tensor:
+        if self.pair(x):
+            return self.mlp.pair_forward(x, self.token_mixer.combine_terms(x, kernels),
+                                         self.layer_scale, kernels, generator)
         if self.mixer == "repmixer":
-            x = self.token_mixer(x)
+            x = self.token_mixer(x, kernels)
             ls2 = self.layer_scale
         else:
             x = x + self.token_mixer(x, self.norm, kernels) * self.layer_scale_1.to(x.dtype)

@@ -26,7 +26,9 @@ the reuse arrangement (JAX's default train mode, ``stats_branch_reuse``),
 never through the cache. JAX's ``_dw_s2_conv_frozen`` only works around an
 XLA layout of the stride-2 depthwise conv's dx; its function is
 ``dw_branch_conv``'s conv, whose autograd gives the same dx (the kernel is
-frozen).
+frozen). A stride-1 multiplier-1 depthwise conv takes JAX's opt-in
+depthwise-conv arm when ``ops/dwconv.dwconv_enabled`` passes
+(``DINO_POSE_TPU_DWCONV``; ``dw_route``): ``dw_conv_frozen``, f32 taps.
 """
 
 from __future__ import annotations
@@ -38,6 +40,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from dino_pose_tpu_torch.nn.layers import update_running_stats
+from dino_pose_tpu_torch.ops.dwconv import dw_conv_frozen, dwconv_enabled
 
 
 def bn_affine(bn: nn.BatchNorm2d) -> tuple[torch.Tensor, torch.Tensor]:
@@ -76,22 +79,45 @@ def branch_stats(y: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, int]:
     return mean, var, y.numel() // y.shape[1]
 
 
-def dw_branch_conv(x: torch.Tensor, kernel: torch.Tensor, stride: int, groups: int) -> torch.Tensor:
+def dw_route(x: torch.Tensor, kernel: torch.Tensor, stride: int, groups: int) -> bool:
+    """JAX's routing test for the depthwise-conv arm (fastvit_fold.py:424-432):
+    a stride-1, multiplier-1 depthwise conv of NCHW ``x`` with a torch-layout
+    (C, 1, k, k) ``kernel``, where ``dwconv_enabled`` passes."""
+    b, c, h, w = x.shape
+    return (stride == 1 and kernel.shape[1] == 1 and groups == c == kernel.shape[0]
+            and dwconv_enabled(c, h, w, kernel.shape[-1], x.element_size(), batch=b))
+
+
+def dw_arm_conv(x: torch.Tensor, kernel: torch.Tensor, kernels: bool = True) -> torch.Tensor:
+    """The depthwise-conv arm on NCHW ``x`` (channels_last: NHWC in memory)
+    with the torch-layout kernel as JAX's HWIO taps, in f32:
+    ``ops/dwconv.dw_conv_frozen``, the result NCHW in channels_last memory."""
+    out = dw_conv_frozen(x.permute(0, 2, 3, 1), kernel.permute(2, 3, 1, 0), kernels=kernels)
+    return out.permute(0, 3, 1, 2)
+
+
+def dw_branch_conv(x: torch.Tensor, kernel: torch.Tensor, stride: int, groups: int,
+                   kernels: bool = True) -> torch.Tensor:
     """One branch conv in x's dtype, padded to half its kernel, no bias
-    (fastvit_fold.py:411-447). The JAX package routes the stride-2
-    depthwise(-multiplier) case through ``_dw_s2_conv_frozen`` (XLA forward,
-    a parity-decomposed dx, zero kernel cotangent); its function is this
-    conv, and autograd gives the same dx for a frozen kernel."""
+    (fastvit_fold.py:411-447); ``dw_arm_conv`` where ``dw_route`` passes
+    (f32 taps, ``kernels`` choosing the kernel or its plain version). The
+    JAX package routes the stride-2 depthwise(-multiplier) case through
+    ``_dw_s2_conv_frozen`` (XLA forward, a parity-decomposed dx, zero kernel
+    cotangent); its function is this conv, and autograd gives the same dx
+    for a frozen kernel."""
+    if dw_route(x, kernel, stride, groups):
+        return dw_arm_conv(x, kernel, kernels)
     k = kernel.shape[-1]
     return F.conv2d(x, kernel.to(x.dtype), None, stride, k // 2, 1, groups)
 
 
 def stats_branch_reuse(x: torch.Tensor, kernel: torch.Tensor, bn: nn.BatchNorm2d, *,
-                       stride: int, groups: int) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+                       stride: int, groups: int,
+                       kernels: bool = True) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """A train-mode (conv, BN) branch with its output reused
     (fastvit_fold.py:450-467): (y, inv, shift), the caller adding
     ``y * inv + shift`` elementwise."""
-    y = dw_branch_conv(x, kernel, stride, groups)
+    y = dw_branch_conv(x, kernel, stride, groups, kernels)
     mean, var, n = branch_stats(y)
     inv, shift = bn_train_affine(bn, mean, var, n)
     return y, inv, shift

@@ -9,8 +9,8 @@ Nothing here runs when the package is imported: the CPU tests import every
 module on a machine without ``nvcc``.
 
 ``LAUNCHES`` counts the launches of each wrapper's kernels (``ops/block.py``,
-``ops/attention.py`` and ``ops/convffn.py`` add to it), so that a run can
-show that its path went through them.
+``ops/attention.py``, ``ops/convffn.py`` and ``ops/dwconv.py`` add to it), so
+that a run can show that its path went through them.
 """
 
 from __future__ import annotations
@@ -27,7 +27,7 @@ import time
 
 _CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 _BUILD = pathlib.Path(__file__).resolve().parent.parent / "build"
-_SOURCES = ("block_kernels.cu", "flash_kernels.cu", "convffn_kernels.cu")
+_SOURCES = ("block_kernels.cu", "flash_kernels.cu", "convffn_kernels.cu", "dwconv_kernels.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-lineinfo",
@@ -48,6 +48,12 @@ LAUNCHES: dict[str, int] = {
     # FastViT's ConvFFN past its depthwise conv (convffn_fwd_kernel) and its
     # backward (convffn_bwd_kernel + convffn_bwd_reduce_kernel).
     "fused_convffn": 0, "fused_convffn_bwd": 0,
+    # FastViT's opt-in arms: the ConvFFN with the block residual (the same
+    # convffn_fwd_kernel, res operand), the stride-1 depthwise conv
+    # (dw_kernel<K, DW>), and the combine + conv segment forward and backward
+    # (dw_kernel<K, COMBINE>, dw_kernel<K, COMBINE_BWD> + dw_sums_reduce_kernel).
+    "fused_convffn_res": 0, "fused_dw_conv": 0, "fused_combine_dw": 0,
+    "fused_combine_dw_bwd": 0,
 }
 
 _LIB: ctypes.CDLL | None = None
@@ -78,6 +84,11 @@ _SIGNATURES = {
     "dp_convffn_bwd_smem_bytes": ([_I], ctypes.c_longlong),
     "dp_convffn_bwd_blocks": ([_I, _I], _I),
     "dp_fused_convffn_bwd": ([_P] * 17 + [_I] * 6 + [_F, _P], _I),
+    "dp_fused_convffn_res": ([_P] * 15 + [_I] * 5 + [_F, _P], _I),
+    "dp_dw_smem_bytes": ([_I] * 4, ctypes.c_longlong),
+    "dp_dw_conv": ([_P] * 3 + [_I] * 8 + [_P], _I),
+    "dp_combine_dw": ([_P] * 8 + [_I] * 8 + [_P], _I),
+    "dp_combine_dw_bwd": ([_P] * 11 + [_I] * 8 + [_P], _I),
 }
 
 

@@ -1306,9 +1306,10 @@ def block_bytes(b: int, s: int, d: int, hidden: int | None = None) -> dict[str, 
             "fused_attn_bwd_stream": 3 * b * s * d * 2 + attn_w + attn_g}
 
 
-def bound_ms(flops: float, nbytes: float) -> tuple[float, str]:
-    """Least time on an H100 SXM: max(FLOPs / 989 TFLOP/s, bytes / 3.35 TB/s)."""
-    t_ops = flops / 989e12 * 1e3
+def bound_ms(flops: float, nbytes: float, flops_per_s: float = 989e12) -> tuple[float, str]:
+    """Least time on an H100 SXM: max(FLOPs / 989 TFLOP/s (bf16 tensor cores;
+    ``flops_per_s`` for work of another type), bytes / 3.35 TB/s)."""
+    t_ops = flops / flops_per_s * 1e3
     t_mem = nbytes / 3.35e12 * 1e3
     return (t_ops, "operations") if t_ops >= t_mem else (t_mem, "bytes")
 

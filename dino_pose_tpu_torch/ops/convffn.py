@@ -1,12 +1,13 @@
 """FastViT ConvFFN past its depthwise conv: the plain PyTorch version and the
 CUDA kernel wrapper (counterpart of dino_pose_tpu/ops/convffn.py).
 
-=====================  ====================  ====================================
-wrapper                plain version         TPU kernel it replaces
-=====================  ====================  ====================================
-``fused_convffn``      ``convffn_math``      ``_convffn_fwd_kernel`` (convffn.py:92)
-``fused_convffn_bwd``  ``convffn_bwd_math``  ``_convffn_bwd_kernel`` (convffn.py:117)
-=====================  ====================  ====================================
+=====================  ======================  =======================================
+wrapper                plain version           TPU kernel it replaces
+=====================  ======================  =======================================
+``fused_convffn``      ``convffn_math``        ``_convffn_fwd_kernel`` (convffn.py:92)
+``fused_convffn_bwd``  ``convffn_bwd_math``    ``_convffn_bwd_kernel`` (convffn.py:117)
+``fused_convffn_res``  ``convffn_res_math``    ``_convffn_fwd_res_kernel`` (convffn.py:370)
+=====================  ======================  =======================================
 
 Over each row of ``y`` (one token, C channels)::
 
@@ -21,7 +22,11 @@ launches its kernel (``ops/csrc/convffn_kernels.cu``) and adds one to
 is the differentiable ConvFFN (JAX's ``custom_vjp`` ``fused_convffn``):
 forward ``fused_convffn``, backward ``fused_convffn_bwd``, gradients for
 y, the BatchNorm affine and the four LoRA matrices, none for the frozen
-fc1/fc2.
+fc1/fc2. ``convffn_res_train`` is the same with the block residual
+(JAX's ``fused_convffn_res``, the stage-pair arm's block output): forward
+``fused_convffn_res``, backward ``fused_convffn_bwd`` and dres = df.
+``convffn_res_enabled`` is JAX's gate for it, with its VMEM byte models
+copied.
 
 Rank 0 (no LoRA) is expressed as JAX expresses it (fastvit.py:596-603):
 rank-1 zero adapters, ones masks and s = 1, so one kernel serves every
@@ -133,13 +138,89 @@ def convffn_bwd_math(y: torch.Tensor, df: torch.Tensor, p: ConvFFNParams,
     return (dm * p.inv).to(dt), grads
 
 
-def convffn_cost(b: int, s: int, c: int, h: int, r: int) -> tuple[int, int]:
+def convffn_res_math(y: torch.Tensor, res: torch.Tensor, p: ConvFFNParams,
+                     s_lora: float) -> torch.Tensor:
+    """Plain version of ``_convffn_fwd_res_kernel`` (convffn.py:370):
+    ``convffn_math``'s output plus res, added in y's dtype, last."""
+    return convffn_math(y, p, s_lora) + res.to(y.dtype)
+
+
+# JAX's VMEM byte models of the ConvFFN kernels (convffn.py:178-250), copied
+# for ``convffn_res_enabled``.
+_FWD_BUDGET = 12 * 1024 * 1024
+_BWD_BUDGET = 10 * 1024 * 1024
+
+
+def _fwd_bytes(g: int, sp: int, c: int, h: int, r: int, i: int, streams: int = 2) -> int:
+    stream_b = streams * (2 * g * sp * c * i)       # y (+res) in + out, 2x-buffered
+    temps = g * sp * c * (i + 4) + g * sp * h * (2 * i + 8) + g * sp * r * 12
+    weights = 2 * c * h * i + 2 * r * (c + h) * i
+    return stream_b + temps + weights
+
+
+def _bwd_bytes(spt: int, c: int, h: int, r: int, i: int) -> int:
+    streams = 3 * (2 * spt * c * i)                 # y, df, dy
+    temps = spt * c * (2 * i + 12) + spt * h * (3 * i + 12) + spt * r * 16
+    weights = 2 * c * h * i + 2 * r * (c + h) * i
+    accums = 4 * (2 * c + r * (2 * c + 2 * h))
+    return streams + temps + weights + accums
+
+
+def _fwd_plan(sp: int, c: int, h: int, r: int, itemsize: int, batch: int,
+              streams: int) -> tuple[int, int]:
+    g = 0
+    for cand in (8, 4, 2, 1):
+        if _fwd_bytes(cand, sp, c, h, r, itemsize, streams) <= _FWD_BUDGET:
+            g = cand
+            break
+    while g > 1 and batch % g:
+        g //= 2
+    if g:
+        return g, 1
+    kt = 2
+    while kt <= sp // 8:
+        if sp % kt == 0 and (sp // kt) % 8 == 0 and _fwd_bytes(
+                1, sp // kt, c, h, r, itemsize, streams) <= _FWD_BUDGET:
+            return 1, kt
+        kt *= 2
+    return 0, 0
+
+
+def _bwd_row_chunks(sp: int, c: int, h: int, r: int, itemsize: int) -> int:
+    kt = 1
+    while kt <= sp // 8:
+        if sp % kt == 0 and (sp // kt) % 8 == 0 and (
+                _bwd_bytes(sp // kt, c, h, r, itemsize) <= _BWD_BUDGET):
+            return kt
+        kt *= 2
+    return 0
+
+
+def convffn_res_enabled(c: int, hidden: int, s: int, itemsize: int, train: bool,
+                        lora_rank: int, batch: int | None = None) -> bool:
+    """JAX's ``convffn_res_enabled`` (convffn.py:494), its contract part: the
+    ConvFFN side of the stage-pair gate, in training only with LoRA (the
+    backward gives the base fc1/fc2 no gradient), and only where JAX's
+    residual forward plan (three streams) and, in training, its backward
+    row chunks fit VMEM. (JAX's ``DINO_POSE_TPU_CONVFFN`` kill switch
+    selects its ConvFFN route, which the port does not have.)"""
+    if train and lora_rank == 0:
+        return False
+    sp = -(-s // 8) * 8
+    r = max(1, lora_rank)
+    if _fwd_plan(sp, c, hidden, r, itemsize, batch or 1, streams=3)[0] == 0:
+        return False
+    return not train or _bwd_row_chunks(sp, c, hidden, r, itemsize) > 0
+
+
+def convffn_cost(b: int, s: int, c: int, h: int, r: int, res: bool = False) -> tuple[int, int]:
     """(FLOPs, bytes) of one call: the two products (4*B*S*C*H, JAX's
-    CostEstimate) and the four LoRA products (4*B*S*R*(C+H)); y read and out
-    written once in bf16, the bf16 weights and LoRA matrices once, the f32
-    vectors and masks once."""
-    flops = 4 * b * s * c * h + 4 * b * s * r * (c + h)
-    nbytes = 2 * b * s * c * 2 + (2 * c * h + 2 * r * (c + h)) * 2 + (3 * c + h) * 4 + 2 * b * r * 4
+    CostEstimate) and the four LoRA products (4*B*S*R*(C+H)); y (and with
+    ``res`` the residual) read and out written once in bf16, the bf16
+    weights and LoRA matrices once, the f32 vectors and masks once."""
+    flops = 4 * b * s * c * h + 4 * b * s * r * (c + h) + (b * s * c if res else 0)
+    nbytes = ((3 if res else 2) * b * s * c * 2 + (2 * c * h + 2 * r * (c + h)) * 2
+              + (3 * c + h) * 4 + 2 * b * r * 4)
     return flops, nbytes
 
 
@@ -227,6 +308,40 @@ def fused_convffn(y: torch.Tensor, p: ConvFFNParams, s_lora: float) -> torch.Ten
     return out
 
 
+def fused_convffn_res(y: torch.Tensor, res: torch.Tensor, p: ConvFFNParams,
+                      s_lora: float) -> torch.Tensor:
+    """res + out over (B, S, C) rows; replaces ``_convffn_fwd_res_kernel``
+    (dino_pose_tpu/ops/convffn.py:370, via ``fused_convffn_res`` :377), the
+    stage-pair arm's block output (LayerScale folded into w2, b2 and b2l by
+    the caller).
+
+    Design: ``fused_convffn``'s kernel with the residual as one more operand;
+    its epilogue adds res to the rounded output, one more bf16 rounding, as
+    JAX adds it after the three bf16 terms (convffn.py:112-113). One launch.
+
+    Bound on an H100: ``fused_convffn``'s FLOPs, or y, res and out (bf16)
+    plus the weights at 3.35 TB/s; ``convffn_cost(..., res=True)``."""
+    name = "fused_convffn_res"
+    if y.device.type == "cpu":
+        return convffn_res_math(y, res, p, s_lora)
+    if y.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {y.device}")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (y, res, *p)):
+        raise ValueError(f"{name} has no backward of its own, and an operand requires grad: "
+                         "convffn_res_train is the differentiable one")
+    b, s, c, h, r = _check(y, p, name)
+    if (res.shape != y.shape or res.dtype != y.dtype or res.device != y.device
+            or not res.is_contiguous() or res.data_ptr() % 16):
+        raise ValueError(f"{name}: res must be a contiguous, 16-byte aligned bf16 tensor of y's "
+                         f"shape {tuple(y.shape)}")
+    out = torch.empty_like(y)
+    err = _ext.lib().dp_fused_convffn_res(
+        *(t.data_ptr() for t in (y, res, *p, out)), b * s, s, c, h, r, float(s_lora), _stream())
+    _ext.check(err, name)
+    LAUNCHES[name] += 1
+    return out
+
+
 def fused_convffn_bwd(y: torch.Tensor, df: torch.Tensor, p: ConvFFNParams,
                       s_lora: float) -> tuple[torch.Tensor, ConvFFNGrads]:
     """(dy, parameter gradients) over (B, S, C) rows; replaces
@@ -291,8 +406,8 @@ def _cast(p: ConvFFNParams, dtype: torch.dtype) -> ConvFFNParams:
 
 class _ConvFFNTrain(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, y, s_lora, kernels, *params):
-        trainable = [k for k, need in zip(ConvFFNParams._fields, ctx.needs_input_grad[3:])
+    def forward(ctx, y, res, s_lora, kernels, *params):
+        trainable = [k for k, need in zip(ConvFFNParams._fields, ctx.needs_input_grad[4:])
                      if need and k in _FROZEN]
         if trainable:
             raise ValueError(
@@ -301,7 +416,11 @@ class _ConvFFNTrain(torch.autograd.Function):
         ctx.save_for_backward(y, *params)
         ctx.s_lora, ctx.kernels = s_lora, kernels
         pc = _cast(ConvFFNParams(*params), y.dtype)
-        return fused_convffn(y, pc, s_lora) if kernels else convffn_math(y, pc, s_lora)
+        if res is None:
+            return fused_convffn(y, pc, s_lora) if kernels else convffn_math(y, pc, s_lora)
+        if kernels:
+            return fused_convffn_res(y, res, pc, s_lora)
+        return convffn_res_math(y, res, pc, s_lora)
 
     @staticmethod
     def backward(ctx, df):
@@ -312,8 +431,10 @@ class _ConvFFNTrain(torch.autograd.Function):
         g = g._asdict()
         # In each parameter's own dtype (JAX ``astype(p.a1.dtype)``): f32 for f32 masters.
         grads = [g[k].to(t.dtype) if need and k in g else None
-                 for k, t, need in zip(ConvFFNParams._fields, params, ctx.needs_input_grad[3:])]
-        return (dy if ctx.needs_input_grad[0] else None, None, None, *grads)
+                 for k, t, need in zip(ConvFFNParams._fields, params, ctx.needs_input_grad[4:])]
+        # The residual is additive: its cotangent is df (convffn.py:442-447).
+        dres = df if ctx.needs_input_grad[1] else None
+        return (dy if ctx.needs_input_grad[0] else None, dres, None, None, *grads)
 
 
 def convffn_train(y: torch.Tensor, p: ConvFFNParams, s_lora: float, *,
@@ -328,4 +449,14 @@ def convffn_train(y: torch.Tensor, p: ConvFFNParams, s_lora: float, *,
     ``custom_vjp``, so their gradients come back f32. Raises ``ValueError``
     if w1, b1, w2 or b2 requires grad: the backward gives them no gradient.
     Saves only y and ``p``; the backward recomputes the hidden activations."""
-    return _ConvFFNTrain.apply(y.contiguous(), float(s_lora), kernels, *p)
+    return _ConvFFNTrain.apply(y.contiguous(), None, float(s_lora), kernels, *p)
+
+
+def convffn_res_train(y: torch.Tensor, res: torch.Tensor, p: ConvFFNParams, s_lora: float, *,
+                      kernels: bool = True) -> torch.Tensor:
+    """res + the ConvFFN past its depthwise conv under autograd (JAX's
+    ``custom_vjp`` ``fused_convffn_res``, convffn.py:377-447): as
+    ``convffn_train``, the forward ``fused_convffn_res`` (``kernels=False``:
+    ``convffn_res_math``), the backward ``fused_convffn_bwd`` with the
+    residual's gradient df. Same contract for the parameters."""
+    return _ConvFFNTrain.apply(y.contiguous(), res.contiguous(), float(s_lora), kernels, *p)

@@ -4,7 +4,10 @@
 // described where it starts, below the forward.
 //
 // The forward replaces the Pallas kernel _convffn_fwd_kernel of
-// dino_pose_tpu/ops/convffn.py (:92, pallas_call :282), which runs, per row
+// dino_pose_tpu/ops/convffn.py (:92, pallas_call :282) and, with a residual
+// operand, _convffn_fwd_res_kernel (:370, via fused_convffn_res :377: the
+// stage-pair arm's block output, out + res with res added in bf16 after the
+// three bf16 terms), which runs, per row
 // of the (B, S, C) input y (one token of the depthwise conv's output):
 //
 //   m   = y * inv + shift                               BatchNorm as an affine
@@ -98,9 +101,12 @@ typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> FragB;
 typedef wmma::fragment<wmma::accumulator, 16, 16, 16, float> FragC;
 
 // y, out (M, C) bf16; inv, shift, b2 (C) f32; b1 (H) f32; w1 (C, H), w2 (H, C),
-// a1 (C, R), b1l (R, H), a2 (H, R), b2l (R, C) bf16; m1, m2 (M / S, R) f32.
+// a1 (C, R), b1l (R, H), a2 (H, R), b2l (R, C) bf16; m1, m2 (M / S, R) f32;
+// res (M, C) bf16 or null: _convffn_fwd_res_kernel's residual, added to the
+// rounded output in bf16, last (convffn.py:112-113).
 __global__ void __launch_bounds__(THREADS)
-convffn_fwd_kernel(const bf16* __restrict__ y, const float* __restrict__ inv,
+convffn_fwd_kernel(const bf16* __restrict__ y, const bf16* __restrict__ res,
+                   const float* __restrict__ inv,
                    const float* __restrict__ shift, const bf16* __restrict__ w1,
                    const float* __restrict__ b1, const bf16* __restrict__ w2,
                    const float* __restrict__ b2, const bf16* __restrict__ a1,
@@ -223,8 +229,10 @@ convffn_fwd_kernel(const bf16* __restrict__ y, const float* __restrict__ inv,
     if (gm >= M) continue;
     float lora = 0.f;
     for (int j = 0; j < R; ++j) lora += U2[r * MAXR + j] * bf(b2l[static_cast<size_t>(j) * C + c]);
-    const float o = bf16r(bf16r(bf16r(Os[r * ldo + c]) + bf16r(b2[c])) + bf16r(lora * s_lora));
-    out[static_cast<size_t>(gm) * C + c] = __float2bfloat16(o);
+    const size_t o_idx = static_cast<size_t>(gm) * C + c;
+    float o = bf16r(bf16r(bf16r(Os[r * ldo + c]) + bf16r(b2[c])) + bf16r(lora * s_lora));
+    if (res != nullptr) o += bf(res[o_idx]);
+    out[o_idx] = __float2bfloat16(o);
   }
 }
 
@@ -517,6 +525,12 @@ __global__ void convffn_bwd_reduce_kernel(const float* __restrict__ partials, in
 
 extern "C" {
 
+int dp_fused_convffn_res(const void* y, const void* res, const void* inv, const void* shift,
+                         const void* w1, const void* b1, const void* w2, const void* b2,
+                         const void* a1, const void* b1l, const void* a2, const void* b2l,
+                         const void* m1, const void* m2, void* out, int M, int S, int C, int H,
+                         int R, float s_lora, void* stream);
+
 // Shared-memory bytes the kernel asks for at width C, so the wrapper can
 // refuse a width the card cannot hold before launching.
 long long dp_convffn_smem_bytes(int C) { return static_cast<long long>(smem_bytes(C)); }
@@ -528,12 +542,23 @@ int dp_fused_convffn(const void* y, const void* inv, const void* shift, const vo
                      const void* b1l, const void* a2, const void* b2l, const void* m1,
                      const void* m2, void* out, int M, int S, int C, int H, int R,
                      float s_lora, void* stream) {
+  return dp_fused_convffn_res(y, nullptr, inv, shift, w1, b1, w2, b2, a1, b1l, a2, b2l, m1, m2,
+                              out, M, S, C, H, R, s_lora, stream);
+}
+
+// _convffn_fwd_res_kernel: out = res + _convffn_fwd_kernel's out, the sum
+// rounded once more in bf16 (res null: _convffn_fwd_kernel).
+int dp_fused_convffn_res(const void* y, const void* res, const void* inv, const void* shift,
+                         const void* w1, const void* b1, const void* w2, const void* b2,
+                         const void* a1, const void* b1l, const void* a2, const void* b2l,
+                         const void* m1, const void* m2, void* out, int M, int S, int C, int H,
+                         int R, float s_lora, void* stream) {
   const size_t smem = smem_bytes(C);
   cudaError_t err = cudaFuncSetAttribute(
       convffn_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   convffn_fwd_kernel<<<(M + BM - 1) / BM, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(y), static_cast<const float*>(inv),
+      static_cast<const bf16*>(y), static_cast<const bf16*>(res), static_cast<const float*>(inv),
       static_cast<const float*>(shift), static_cast<const bf16*>(w1),
       static_cast<const float*>(b1), static_cast<const bf16*>(w2),
       static_cast<const float*>(b2), static_cast<const bf16*>(a1),
