@@ -28,8 +28,17 @@ depthwise conv, the combine + conv segment forward and backward and the
 ConvFFN with the block residual held at t8's stage 0 and 1 shapes (and
 ragged H) at batch 1, 8 and 128, fastvit_t8 + LoRA serving with the conv
 arm (4 depthwise-conv and 10 ConvFFN launches a forward), and its LoRA
-fine-tuning at batch 128 with both arms (the pair in stages 0-1). Times
-kernels, serving and every train step.
+fine-tuning at batch 128 with both arms (the pair in stages 0-1); then the
+tensor-parallel slice: each shard's kernels (the attention and MLP halves'
+partial products and the LoRA layer's partial dx) at dinov2-base's shard
+shapes (tp = 2) and dinov2-large's (tp = 2 and 4), dinov2-base + LoRA r=8
+under a ('data', 'model') = (1, 2) mesh on the one card, serving (24 + 24
+shard launches a forward) and fine-tuning at batch 128 (and the LoRA
+layer's partial dx on both shards); then the final LayerNorm's kernel
+(JAX's DINO_POSE_TPU_LN=pallas) against its plain version and
+torch.nn.functional.layer_norm, and dinov2-small + LoRA serving and
+fine-tuning with that switch on. Times kernels, serving and every train
+step.
 
     python3 chip_smoke.py [--out results.json] [--profile]
 
@@ -274,6 +283,30 @@ T8_PAIR_RECORDED = ("fused_dw_conv", "fused_combine_dw", "fused_combine_dw_bwd",
 # backward), and ragged rows (H = 24, 56) held but not on the path.
 ARM_STAGES = [(48, 64, 144, 2, 2, 1), (96, 32, 288, 2, 2, 2)]
 ARM_RAGGED = [(48, 24), (96, 56)]
+# The tensor-parallel slice: dinov2-base + LoRA r=8 at 224² under a
+# ('data', 'model') = (1, 2) mesh whose two model shards live on the one
+# card (core/mesh.py): every block takes JAX's Megatron halves, each shard's
+# kernel launched in rank order on its slice of the weights, the partials
+# summed by the mesh. Per forward 12 layers x 2 shards of each half; per
+# LoRA step also the LoRA layer's partial dx on both shards. The shard
+# kernels are held at dinov2-base's shard shapes (D = 768, 6 heads and an
+# MLP width of 1536 a shard) and dinov2-large's (D = 1024 at tp 2 and 4).
+TP = 2
+TP_SHAPES = {"dinov2-base": (768, 12, 3072, 2), "dinov2-large": (1024, 16, 4096, 2),
+             "dinov2-large-tp4": (1024, 16, 4096, 4)}
+TP_SHARD = ("fused_attn_part_partial", "fused_mlp_part_partial", "fused_mlp_partial_dx")
+SERVING_TP_LAUNCHES = {"fused_attn_part_partial": 24, "fused_mlp_part_partial": 24}
+TP_LORA_LAUNCHES = {**SERVING_TP_LAUNCHES, "fused_mlp_partial_dx": 2}
+# The final LayerNorm's kernel behind JAX's DINO_POSE_TPU_LN=pallas, on
+# dinov2-small + LoRA (the gate's home, nn/layers.py:246-250): one launch a
+# forward on top of the path's own; held at the serving forward's (257, 384)
+# rows and the step's (128*257, D) for dinov2-small's, -base's and -large's
+# widths, bf16 and f32.
+LN_GATE = {"DINO_POSE_TPU_LN": "pallas"}
+SERVING_LN_LAUNCHES = {**SERVING_LAUNCHES, "fused_layernorm": 1}
+LORA_LN_LAUNCHES = {**LORA_LAUNCHES, "fused_layernorm": 1}
+LN_CASES = [(S, D), (TRAIN_BATCH * S, D), (TRAIN_BATCH * S, 768), (TRAIN_BATCH * S, 1024)]
+LN_SOURCE = "dino_pose_tpu_torch/ops/csrc/layernorm_kernels.cu"
 # Per JSON row: the TPU kernel it replaces, its source, the batch its
 # numbers were taken at, the path whose launches "launches" reports and the
 # LAUNCHES key counted there. The forward kernels at the serving batch on the
@@ -333,6 +366,17 @@ KERNEL_ROWS = {
                              "fastvit_t8_lora_pair_train"),
     "fused_convffn_res": ("dino_pose_tpu/ops/convffn.py:370", CONVFFN_SOURCE, T8_TRAIN_BATCH,
                           "fastvit_t8_lora_pair_train"),
+    # One tensor-parallel shard's kernels at dinov2-base's shard shapes
+    # (tp = 2): the halves at batch 1 on the tp2 serving path, the partial
+    # dx at batch 128 on its LoRA training path; the final LayerNorm at the
+    # serving forward's (257, 384) rows in bf16 on the gated serving path.
+    "fused_attn_part_partial": ("dino_pose_tpu/ops/block.py:1010", BLOCK_SOURCE, 1,
+                                "serving_dinov2_base_tp2"),
+    "fused_mlp_part_partial": ("dino_pose_tpu/ops/block.py:1062", BLOCK_SOURCE, 1,
+                               "serving_dinov2_base_tp2"),
+    "fused_mlp_partial_dx": ("dino_pose_tpu/ops/block.py:1099", BLOCK_SOURCE, TRAIN_BATCH,
+                             "dinov2_base_lora_tp2_train"),
+    "fused_layernorm": ("dino_pose_tpu/ops/layernorm.py:36", LN_SOURCE, 1, "serving_ln"),
 }
 # The LAUNCHES key each row counts.
 LAUNCH_KEY = {"flash_attention": "flash_fwd", "flash_attention_bwd": "flash_bwd",
@@ -989,9 +1033,13 @@ def plain_pair(name: str, args: tuple, out) -> tuple:
     from dino_pose_tpu_torch.ops import convffn as CF
     from dino_pose_tpu_torch.ops import dwconv as DW
 
+    from dino_pose_tpu_torch.ops import layernorm as LN
+
     forward = {"fused_block": B.block_math, "fused_attn_part": B.attn_part_math,
                "fused_attn_part_stream": B.attn_part_stream_math,
-               "fused_mlp_part": B.mlp_part_math, "fused_mlp_part_stream": B.mlp_part_stream_math}
+               "fused_mlp_part": B.mlp_part_math, "fused_mlp_part_stream": B.mlp_part_stream_math,
+               "fused_attn_part_partial": B.attn_part_math_partial,
+               "fused_mlp_part_partial": B.mlp_part_math_partial}
     if name in forward:
         x, p, *heads, eps = args
         kw = {"num_heads": heads[0]} if heads else {}
@@ -999,6 +1047,11 @@ def plain_pair(name: str, args: tuple, out) -> tuple:
     if name == "fused_mlp_dx":
         x2, dy, mp, eps = args
         return (out,), (B.mlp_dx_math(x2, dy, mp, eps=eps),), dy
+    if name == "fused_mlp_partial_dx":
+        x2, dp, pp, eps = args
+        return (out,), (B.mlp_partial_dx_math(x2, dp, pp, eps=eps),), dp
+    if name == "fused_layernorm":
+        return (out,), (LN.layernorm_reference(*args),), None
     if name == "fused_mlp_bwd":
         x2, dy, mp, eps = args
         return flat(out), flat(B.mlp_bwd_math(x2, dy, mp, eps=eps)), dy
@@ -1038,6 +1091,44 @@ def plain_pair(name: str, args: tuple, out) -> tuple:
     return out, A.flash_bwd_math(q, k, v, do, scale), do
 
 
+def shard_f32(name: str, args: tuple) -> torch.Tensor:
+    """A shard wrapper's plain version in f32 on the same inputs (the
+    activations and the bf16 weights as f32): the yardstick of the shard
+    outputs' relative Frobenius limit."""
+    from dino_pose_tpu_torch.ops import block as B
+
+    f32 = tuple(type(a)(*(t.float() for t in a)) if isinstance(a, tuple)
+                else a.float() if isinstance(a, torch.Tensor) else a for a in args)
+    if name == "fused_attn_part_partial":
+        x, pp, heads, eps = f32
+        return B.attn_part_math_partial(x, pp, num_heads=heads, eps=eps)
+    if name == "fused_mlp_part_partial":
+        x2, pp, eps = f32
+        return B.mlp_part_math_partial(x2, pp, eps=eps)
+    x2, dp, pp, eps = f32
+    return B.mlp_partial_dx_math(x2, dp, pp, eps=eps)
+
+
+def shard_check(got: torch.Tensor, want: torch.Tensor, want_f32: torch.Tensor, attention: bool,
+                atol_scale: float = 1.0) -> tuple[float, float, float, bool]:
+    """A shard's output, which adds no bias or residual, against its plain
+    version: elementwise at the attention tolerance (the attention half's)
+    or the kernel tolerance, the absolute part scaled by ``atol_scale``, and
+    in relative Frobenius norm within the plain bf16 version's own distance
+    from the plain f32 one on the same inputs. ATTN_FRO does not carry over:
+    without the bias the partials are smaller (dinov2-base's shard o is 0.67
+    of the whole half's norm), and an H100 measured 3.04e-3 for the base
+    shard's attention at batch 1, where plain bf16 sits 6.0e-3 from f32.
+    Returns (max abs error, rel Frobenius error, plain's own, ok)."""
+    got, want, want_f32 = got.float(), want.float(), want_f32.float()
+    err = (got - want).abs()
+    atol, rtol = (ATTN_ATOL, ATTN_RTOL) if attention else (KERNEL_ATOL, KERNEL_RTOL)
+    fro, noise = rel_err(got, want), rel_err(want, want_f32)
+    ok = (bool(torch.isfinite(got).all()) and fro <= noise
+          and bool((err <= atol * atol_scale + rtol * want.abs()).all()))
+    return err.max().item(), fro, noise, ok
+
+
 def check_step_tensors(tag: str, name: str, which: str, args: tuple, out,
                        training: dict) -> bool:
     """A wrapper's output in the first train step against its plain version
@@ -1049,7 +1140,14 @@ def check_step_tensors(tag: str, name: str, which: str, args: tuple, out,
     attention tolerance."""
     got, want, ct = plain_pair(name, args, out)
     ct_max = 1.0 if ct is None else ct.float().abs().max().item()
-    if name.startswith(("flash", "fused_attn_part")):
+    if name in TP_SHARD:
+        act_err, fro, noise, ok = shard_check(got[0], want[0], shard_f32(name, args),
+                                              name == "fused_attn_part_partial", ct_max)
+        extra = {"rel_fro": fro, "plain_bf16_vs_f32": noise}
+        tol = ("atol {} + rtol {}*|ref| and rel Frobenius within plain bf16's own vs f32".format(
+            *((ATTN_ATOL, ATTN_RTOL) if name == "fused_attn_part_partial"
+              else (KERNEL_ATOL, KERNEL_RTOL))))
+    elif name.startswith(("flash", "fused_attn_part")):
         fro_tol = FLASH_FRO if name.startswith("flash") else ATTN_FRO
         errs, fros, oks = zip(*(attn_check(g, w, fro_tol, ct_max) for g, w in zip(got, want)))
         act_err, ok = max(errs), all(oks)
@@ -1076,9 +1174,10 @@ def check_step_tensors(tag: str, name: str, which: str, args: tuple, out,
 
 def wrapper_modules(name: str) -> tuple:
     """The modules whose global ``name`` a recorded wrapper is called by: the
-    dinov2 block's forward wrappers by models/vit.py (fused_attn_part_stream
-    also by ops/block.py, in a trainable streamed block), the MLP halves and
-    the backward ones by ops/block.py."""
+    dinov2 block's forward wrappers and the gated final LayerNorm by
+    models/vit.py (fused_attn_part_stream also by ops/block.py, in a
+    trainable streamed block), the MLP halves, the tensor-parallel shard
+    wrappers and the backward ones by ops/block.py."""
     from dino_pose_tpu_torch.models import vit as V
     from dino_pose_tpu_torch.ops import attention as A
     from dino_pose_tpu_torch.ops import block as B
@@ -1087,7 +1186,7 @@ def wrapper_modules(name: str) -> tuple:
 
     if name == "fused_attn_part_stream":
         return V, B
-    if name in ("fused_block", "fused_attn_part"):
+    if name in ("fused_block", "fused_attn_part", "fused_layernorm"):
         return (V,)
     if name in ("fused_dw_conv", "fused_combine_dw", "fused_combine_dw_bwd"):
         return (DW,)
@@ -1622,7 +1721,7 @@ def phase_dwconv(results: dict) -> dict:
                         ms = cuda_ms(kern_fn, iters=20)
                         plain_ms = cuda_ms(plain_fn, iters=5 if b > 8 else 10, warmup=2)
                         lib_ms = cuda_ms(lib_fn, iters=20) if lib_fn else None
-                    bound, by = B.bound_ms(flops, nbytes, DW.F32_FLOPS)
+                    bound, by = B.bound_ms(flops, nbytes, B.F32_FLOPS)
                     log(f"time {name} {where}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
                         f"bound {bound:.5f} ms ({by})"
                         + (f", cuDNN grouped conv (bf16 taps) {lib_ms:.4f} ms" if lib_fn else ""))
@@ -1662,12 +1761,188 @@ def phase_dwconv(results: dict) -> dict:
                  for k in ("ms", "plain_ms", "flops", "bytes")}
         lib = [r["library_ms"] for r in rows]
         bound, by = (B.bound_ms(total["flops"], total["bytes"]) if name == "fused_convffn_res"
-                     else B.bound_ms(total["flops"], total["bytes"], DW.F32_FLOPS))
+                     else B.bound_ms(total["flops"], total["bytes"], B.F32_FLOPS))
         out[b][name] = {"ms": total["ms"], "plain_ms": total["plain_ms"], "bound_ms": bound,
                         "bound_by": by, "library_ms": None if None in lib else sum(
                             r["launches"] * r["library_ms"] for r in rows)}
         log(f"time {name} t8 {'forward' if b == 1 else 'step'} "
             f"({sum(r['launches'] for r in rows)} launches, k=7) B={b}: " + json.dumps(out[b][name]))
+    return out
+
+
+def phase_tp(results: dict) -> dict:
+    """One tensor-parallel shard's kernels against their plain versions, on
+    every shard: the attention half's partial product, the MLP half's and
+    its partial dx (a unit-scale seeded cotangent) at dinov2-base's shard
+    shapes (tp = 2) at B = 1, 8 and 128 and dinov2-large's (tp = 2 and 4)
+    at B = 1 and 8, bf16, S = 257 (``shard_check``); the shards' all-reduce
+    plus the bias (and the MLP half's LayerScale and residual) against the
+    whole half's plain version. Then shard 0's kernel, plain and bound times
+    (the shard's widths in ``block_flops``/``block_bytes``). Returns the
+    times by batch: dinov2-base's under the wrapper's name, dinov2-large's
+    under ``<name>_dinov2_large_tp<tp>``."""
+    from dino_pose_tpu_torch.core.mesh import MeshSpec, create_mesh
+    from dino_pose_tpu_torch.ops import block as B
+    from dino_pose_tpu_torch.ops import dispatch
+
+    gen = torch.Generator().manual_seed(SEED + 15)
+    saved = dict(B.LAUNCHES)
+    by_batch: dict = {}
+    for model, (d, heads, hidden, tp) in TP_SHAPES.items():
+        with dispatch.scoped():
+            mesh = create_mesh(MeshSpec(1, tp))
+        flops = B.block_flops(S, d, hidden, tp)
+        suffix = "" if model == "dinov2-base" else f"_dinov2_large_tp{tp}"
+        where = f"({model.split('-tp')[0]} shard: D={d}, tp={tp}, {heads // tp} heads, " \
+                f"MLP {hidden // tp})"
+        for b in ((1, 8, TRAIN_BATCH) if model == "dinov2-base" else (1, 8)):
+            x, p = block_inputs(b, gen, S, d, hidden)
+            dp = torch.randn((b, S, d), generator=gen).to("cuda", torch.bfloat16)
+            ap, mp = B.attn_params(p), B.mlp_params(p)
+            parts_a, parts_m = [], []
+            for r in range(tp):
+                pa = B.AttnPartialParams(*(t.contiguous() for t in B.shard_attn(ap, tp, r)))
+                pm = B.MlpPartialParams(*(t.contiguous() for t in B.shard_mlp(mp, tp, r)))
+                cases = {
+                    "fused_attn_part_partial": (
+                        lambda: B.fused_attn_part_partial(x, pa, heads // tp, EPS),
+                        lambda: B.attn_part_math_partial(x, pa, num_heads=heads // tp, eps=EPS),
+                        (x, pa, heads // tp, EPS)),
+                    "fused_mlp_part_partial": (lambda: B.fused_mlp_part_partial(x, pm, EPS),
+                                               lambda: B.mlp_part_math_partial(x, pm, eps=EPS),
+                                               (x, pm, EPS)),
+                    "fused_mlp_partial_dx": (lambda: B.fused_mlp_partial_dx(x, dp, pm, EPS),
+                                             lambda: B.mlp_partial_dx_math(x, dp, pm, eps=EPS),
+                                             (x, dp, pm, EPS)),
+                }
+                for name, (kern, plain, args) in cases.items():
+                    got = kern()
+                    max_abs, fro, noise, ok = shard_check(got, plain(), shard_f32(name, args),
+                                                          name == "fused_attn_part_partial")
+                    log(f"kernel {name} B={b} shard {r} {where}: max_abs={max_abs:.6g} "
+                        f"rel_fro={fro:.4g} (plain bf16 vs f32 {noise:.4g}) -> "
+                        f"{'ok' if ok else 'FAIL'}")
+                    if not ok:
+                        raise AssertionError(f"{name} shard {r} at B={b} {where} disagrees with "
+                                             "its plain version")
+                    row = results.setdefault(name + suffix, {"max_abs_err": 0.0})
+                    row["max_abs_err"] = max(row["max_abs_err"], max_abs)
+                    if name == "fused_attn_part_partial":
+                        parts_a.append(got)
+                    elif name == "fused_mlp_part_partial":
+                        parts_m.append(got)
+                    if r == 0:
+                        time_kernel(by_batch, name + suffix, b, kern, plain, b * flops[name],
+                                    B.block_bytes(b, S, d, hidden, tp)[name],
+                                    *((20, 10, 2) if b < TRAIN_BATCH else (10, 3, 1)))
+            # The all-reduce of the shards' partials and the half's tail.
+            o = mesh.all_reduce(parts_a) + ap.bo.to(torch.bfloat16)
+            want = B.attn_part_math(x, ap, num_heads=heads, eps=EPS)
+            f32 = B.AttnParams(*(t.float() for t in ap))
+            max_abs, fro, noise, ok = shard_check(
+                o, want, B.attn_part_math(x.float(), f32, num_heads=heads, eps=EPS), True)
+            y = x + (mesh.all_reduce(parts_m) + mp.bf2.to(torch.bfloat16)) * mp.ls2.to(
+                torch.bfloat16)
+            y_err = (y.float() - B.mlp_part_math(x, mp, eps=EPS).float()).abs().max().item()
+            ok &= torch.allclose(y.float(), B.mlp_part_math(x, mp, eps=EPS).float(),
+                                 atol=KERNEL_ATOL, rtol=KERNEL_RTOL)
+            log(f"kernel all_reduce(shards) + bias B={b} {where}: attention half max_abs="
+                f"{max_abs:.6g} rel_fro={fro:.4g} (plain bf16 vs f32 {noise:.4g}) vs "
+                f"attn_part_math; MLP half max_abs={y_err:.6g} vs mlp_part_math (tol atol "
+                f"{KERNEL_ATOL} + rtol {KERNEL_RTOL}*|ref|) -> {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"the shards' sum at B={b} {where} disagrees with the "
+                                     "whole half")
+            if model != "dinov2-base" and b == 1:
+                # x2's cotangent through mlp_part_tp under autograd, where
+                # JAX's backward takes its unfused vjp at tp = 2: every
+                # shard's fused_mlp_partial_dx, against the plain path.
+                shards = [B.MlpPartialParams(*(t.contiguous() for t in B.shard_mlp(mp, tp, r)))
+                          for r in range(tp)]
+                grads = []
+                for kernels in (True, False):
+                    before = B.LAUNCHES["fused_mlp_partial_dx"]
+                    xg = x.clone().requires_grad_()
+                    B.mlp_part_tp(xg, mp, EPS, mesh, kernels=kernels, shards=shards).backward(dp)
+                    grads.append(xg.grad.float())
+                    launched = B.LAUNCHES["fused_mlp_partial_dx"] - before
+                    if launched != (tp if kernels else 0):
+                        raise AssertionError(f"mlp_part_tp's backward {where} launched "
+                                             f"fused_mlp_partial_dx {launched} times")
+                err = (grads[0] - grads[1]).abs()
+                ok = bool(torch.isfinite(grads[0]).all()) and bool(
+                    (err <= KERNEL_ATOL + KERNEL_RTOL * grads[1].abs()).all())
+                log(f"kernel mlp_part_tp backward B=1 {where}: {tp} fused_mlp_partial_dx, "
+                    f"x2 grad max_abs={err.max().item():.6g} vs the plain path (tol atol "
+                    f"{KERNEL_ATOL} + rtol {KERNEL_RTOL}*|ref|) -> {'ok' if ok else 'FAIL'}")
+                if not ok:
+                    raise AssertionError(f"mlp_part_tp's backward {where} disagrees with the "
+                                         "plain path")
+                del shards, grads, xg
+            del x, p, dp, cases, parts_a, parts_m, o, y
+    B.LAUNCHES.update(saved)  # checks and timing launches are not main-path launches
+    return by_batch
+
+
+def phase_layernorm(results: dict) -> dict:
+    """fused_layernorm against layernorm_reference at the gated path's rows,
+    (257, 384) (a serving forward) and (128*257, D) for D = 384, 768, 1024
+    (a step at batch 128), bf16 and f32: f32 within 1e-5 abs/rel, bf16
+    within one ulp of the larger magnitude plus 1e-5 (tests/test_torch_cuda.py's
+    reason); then kernel, plain, bound (bytes: each row read and written
+    once, f32 scale and bias read once) and torch.nn.functional.layer_norm
+    times, the library yardstick, on the same tensor with scale and bias in
+    its dtype. Returns the times: (257, 384) and (128*257, 384) in bf16 under
+    ``fused_layernorm`` at batch 1 and 128, every case under ``cases``."""
+    import torch.nn.functional as F
+
+    from dino_pose_tpu_torch.ops import block as B
+    from dino_pose_tpu_torch.ops import layernorm as LN
+
+    gen = torch.Generator().manual_seed(SEED + 16)
+    saved = dict(B.LAUNCHES)
+    out: dict = {"cases": []}
+    for rows, d in LN_CASES:
+        x0 = torch.randn((rows, d), generator=gen) * 3 + 1
+        scale = (torch.rand(d, generator=gen) + 0.5).cuda()
+        bias = (torch.rand(d, generator=gen) * 2 - 1).cuda()
+        for dtype in (torch.bfloat16, torch.float32):
+            x = x0.to("cuda", dtype)
+            got = LN.fused_layernorm(x, scale, bias, EPS).float()
+            want = LN.layernorm_reference(x, scale, bias, EPS).float()
+            torch.cuda.synchronize()
+            err = (got - want).abs()
+            if dtype == torch.float32:
+                ok = bool((err <= 1e-5 + 1e-5 * want.abs()).all())
+                tol = "atol 1e-5 + rtol 1e-5*|ref|"
+            else:
+                mag = torch.maximum(got.abs(), want.abs()).clamp_min(1e-30)
+                ok = bool((err <= torch.exp2(torch.floor(torch.log2(mag)) - 7) + 1e-5).all())
+                tol = "one ulp of the larger magnitude + 1e-5"
+            where = f"({rows}, {d}) {str(dtype).split('.')[-1]}"
+            log(f"kernel fused_layernorm {where}: max_abs={err.max().item():.6g} tol={tol} -> "
+                f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"fused_layernorm at {where} disagrees with its plain version")
+            row = results.setdefault("fused_layernorm", {"max_abs_err": 0.0})
+            row["max_abs_err"] = max(row["max_abs_err"], err.max().item())
+            w_lib, b_lib = scale.to(dtype), bias.to(dtype)
+            with torch.inference_mode():
+                ms = cuda_ms(lambda: LN.fused_layernorm(x, scale, bias, EPS), iters=50)
+                plain_ms = cuda_ms(lambda: LN.layernorm_reference(x, scale, bias, EPS), iters=20)
+                lib_ms = cuda_ms(lambda: F.layer_norm(x, (d,), w_lib, b_lib, EPS), iters=50)
+            flops, nbytes = LN.layernorm_cost(rows, d, x.element_size())
+            bound, by = B.bound_ms(flops, nbytes, B.F32_FLOPS)
+            t = {"rows": rows, "D": d, "dtype": str(dtype).split(".")[-1], "ms": ms,
+                 "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by, "library_ms": lib_ms,
+                 "max_abs_err": err.max().item()}
+            out["cases"].append(t)
+            log(f"time fused_layernorm {where}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+                f"bound {bound:.5f} ms ({by}), F.layer_norm {lib_ms:.4f} ms")
+            if d == D and dtype == torch.bfloat16:
+                out.setdefault(1 if rows == S else TRAIN_BATCH, {})["fused_layernorm"] = t
+            del x, got, want
+    B.LAUNCHES.update(saved)
     return out
 
 
@@ -1713,8 +1988,10 @@ def main() -> int:
                          "unfreeze (batch 32); of the fastvit_t8 + LoRA batch-1 forward "
                          "and its LoRA train step (batch 128); of the dinov2-large + "
                          "LoRA batch-1 forward and its LoRA train step (batch 128); of "
-                         "the dinov2-large unfreeze-last-4 train step (batch 128); and of "
-                         "the fastvit_t8 + LoRA train step with both opt-in arms (batch 128)")
+                         "the dinov2-large unfreeze-last-4 train step (batch 128); of "
+                         "the fastvit_t8 + LoRA train step with both opt-in arms (batch 128); "
+                         "of the dinov2-base + LoRA tp=2 batch-1 forward and its LoRA step; "
+                         "and of the dinov2-small + LoRA step with the gated LayerNorm")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -1722,7 +1999,8 @@ def main() -> int:
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    from dino_pose_tpu_torch.ops import _ext
+    from dino_pose_tpu_torch.core.mesh import MeshSpec, create_mesh
+    from dino_pose_tpu_torch.ops import _ext, dispatch
 
     card = nvidia_smi()
     log(f"card: {card}")
@@ -1750,6 +2028,10 @@ def main() -> int:
     unfreeze_base: dict = {}
     serving_t8_dw: dict = {}
     train_t8_pair: dict = {}
+    serving_base_tp: dict = {}
+    train_base_tp: dict = {}
+    serving_ln: dict = {}
+    lora_ln: dict = {}
     phase_kernels(results)
     phase_mlp_dx(results)
     phase_train_kernels(results)
@@ -1792,6 +2074,33 @@ def main() -> int:
                 lora_grad_names(11), BASE_RECORDED, steps=WIDE_STEPS, timed=WIDE_TIMED,
                 grad_batches=WIDE_GRAD_BATCHES)
     phase_backbone_grads(train_base, "dinov2_base_lora", BASE_LORA_CONFIG, TRAIN_BATCH, 224)
+    tp_times = phase_tp(results)
+    with dispatch.scoped():
+        create_mesh(MeshSpec(1, TP))
+        model_tp = phase_serving(results, serving_base_tp, "serving_dinov2_base_tp2",
+                                 per_forward_launches=SERVING_TP_LAUNCHES, n_lat=10, n_batches=4,
+                                 fwd_iters=10, config=BASE_LORA_CONFIG)
+        tp_run = phase_train(results, train_base_tp, "dinov2_base_lora_tp2", BASE_LORA_CONFIG,
+                             TP_LORA_LAUNCHES, lora_grad_names(11), TP_SHARD, steps=WIDE_STEPS,
+                             timed=WIDE_TIMED, grad_batches=WIDE_GRAD_BATCHES)
+        phase_backbone_grads(train_base_tp, "dinov2_base_lora_tp2", BASE_LORA_CONFIG,
+                             TRAIN_BATCH, 224)
+    log("dinov2_base_lora step ms by route (this card, kernels / plain): one shard "
+        f"{train_base['step_ms_kernels']:.3f} / {train_base['step_ms_plain']:.3f}, tp=2 on one "
+        f"card {train_base_tp['step_ms_kernels']:.3f} / {train_base_tp['step_ms_plain']:.3f}; "
+        f"serving b1 p50 {serving_base['b1_latency_ms_p50']:.3f} / tp=2 "
+        f"{serving_base_tp['b1_latency_ms_p50']:.3f} ms, b8 images/s "
+        f"{serving_base['b8_images_per_s']:.2f} / {serving_base_tp['b8_images_per_s']:.2f}")
+    ln_times = phase_layernorm(results)
+    with gates(LN_GATE):
+        phase_serving(results, serving_ln, "serving_ln", per_forward_launches=SERVING_LN_LAUNCHES)
+        ln_run = phase_train(results, lora_ln, "lora_ln", LORA_CONFIG, LORA_LN_LAUNCHES,
+                             LORA_GRAD_NAMES, ("fused_mlp_dx", "fused_layernorm"))
+    log("dinov2-small + LoRA by final LayerNorm (this card, kernels / plain): plain norm "
+        f"step {lora['step_ms_kernels']:.3f} / {lora['step_ms_plain']:.3f} ms, serving b1 p50 "
+        f"{serving['b1_latency_ms_p50']:.3f}; DINO_POSE_TPU_LN=pallas step "
+        f"{lora_ln['step_ms_kernels']:.3f} / {lora_ln['step_ms_plain']:.3f} ms, serving b1 p50 "
+        f"{serving_ln['b1_latency_ms_p50']:.3f}")
     model_large = phase_serving(results, serving_large, "serving_dinov2_large",
                                 per_forward_launches=SERVING_LARGE_LAUNCHES, n_lat=8, n_batches=3,
                                 fwd_iters=5, config=LARGE_LORA_CONFIG)
@@ -1836,6 +2145,9 @@ def main() -> int:
                 by_batch.setdefault(b, {})[name] = t["t8"]
     for b, t in dw_times.items():
         by_batch.setdefault(b, {}).update({k: v for k, v in t.items() if k in KERNEL_ROWS})
+    for times in (tp_times, {b: t for b, t in ln_times.items() if b != "cases"}):
+        for b, t in times.items():
+            by_batch.setdefault(b, {}).update(t)
     if args.profile:
         profile_forward(model)
         profile_train_step(*lora_run)
@@ -1849,6 +2161,12 @@ def main() -> int:
         profile_train_step(*large_unfreeze_run)
         with gates(ARMS):
             profile_train_step(*pair_run)
+        with dispatch.scoped():
+            create_mesh(MeshSpec(1, TP))
+            profile_forward(model_tp)
+            profile_train_step(*tp_run)
+        with gates(LN_GATE):
+            profile_train_step(*ln_run)
 
     kernels = []
     for name, (replaces, source, b, path) in KERNEL_ROWS.items():
@@ -1871,6 +2189,8 @@ def main() -> int:
     log("convffn_times " + json.dumps(convffn_times))
     log("convffn_bwd_times " + json.dumps(convffn_bwd_times))
     log("dwconv_times " + json.dumps(dw_times))
+    log("tp_times " + json.dumps(tp_times))
+    log("layernorm_times " + json.dumps(ln_times["cases"]))
     if args.out:
         with open(args.out, "w") as f:
             json.dump({"card": card, "kernels": kernels, "b1": by_batch[1], "b8": by_batch[8],
@@ -1887,7 +2207,11 @@ def main() -> int:
                        "training_dinov2_large_unfreeze": unfreeze_large,
                        "training_dinov2_base_unfreeze": unfreeze_base,
                        "dwconv": dw_times, "serving_fastvit_t8_dwconv": serving_t8_dw,
-                       "training_fastvit_t8_lora_pair": train_t8_pair},
+                       "training_fastvit_t8_lora_pair": train_t8_pair, "tp": tp_times,
+                       "serving_dinov2_base_tp2": serving_base_tp,
+                       "training_dinov2_base_lora_tp2": train_base_tp,
+                       "layernorm": ln_times["cases"], "serving_ln": serving_ln,
+                       "training_lora_ln": lora_ln},
                       f, indent=1)
     print(json.dumps({"kernels": kernels}))
     print(card)

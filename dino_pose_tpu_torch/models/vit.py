@@ -39,7 +39,25 @@ The blocks run through the fused wrappers of ``ops/block.py`` (with
   ``mlp_part_frozen(route="stream")`` (``fused_mlp_part_stream``, the same
   ``fused_mlp_dx`` backward): only the adapter trains there. A LoRA layer
   whose base weights require grad is refused while grad mode is on, since
-  that backward gives them no gradient.
+  that backward gives them no gradient;
+- under a mesh whose ``'model'`` axis holds tp > 1 shards
+  (``core/mesh.create_mesh``, read at call time from
+  ``ops/dispatch.target_mesh``), a frozen block or the LoRA layer on the
+  route ``"tp"`` (``block_route(..., tp=)``, JAX's ``_tp_shard_mesh``)
+  through the Megatron halves, as JAX's ``vit.py:183`` and ``:384`` compose
+  them: ``attn_part_tp`` (each shard's ``fused_attn_part_partial``, the
+  mesh's all-reduce, ``+ bo``) -> the LoRA adapter on o -> ``x + o*ls1`` ->
+  ``mlp_part_tp`` (each shard's ``mlp_part_partial_frozen``:
+  ``fused_mlp_part_partial``, backward ``fused_mlp_partial_dx``). The
+  shards are cut from the packed copies and cached beside them, per ``tp``.
+  A frozen block goes through the frozen-weight shards too: its detached
+  copies take no gradient either way. A block that trains whole takes
+  ``"math"`` under a mesh, as in JAX (``block_train``, whose rounding is
+  ``block_math``'s).
+
+The final LayerNorm is ``nn/layers.layer_norm``, or with
+``DINO_POSE_TPU_LN=pallas`` (JAX's switch, read at call time) the kernel
+``ops/layernorm.fused_layernorm``.
 
 Each chain takes any sequence length, its attention step streaming through
 the flash kernels once the head's K and V no longer fit shared memory
@@ -55,6 +73,7 @@ keeps its streamed backward chain.
 from __future__ import annotations
 
 import dataclasses
+import os
 
 import torch
 from torch import nn
@@ -68,6 +87,7 @@ from dino_pose_tpu_torch.ops.block import (
     attn_part_math,
     attn_part_stream_math,
     attn_part_stream_train,
+    attn_part_tp,
     block_math,
     block_route,
     block_train,
@@ -78,7 +98,12 @@ from dino_pose_tpu_torch.ops.block import (
     mlp_params,
     mlp_part_frozen,
     mlp_part_stream_train,
+    mlp_part_tp,
+    shard_attn,
+    shard_mlp,
 )
+from dino_pose_tpu_torch.ops.dispatch import target_mesh
+from dino_pose_tpu_torch.ops.layernorm import fused_layernorm
 
 
 @dataclasses.dataclass(frozen=True)
@@ -198,6 +223,7 @@ class Block(nn.Module):
         self.mlp = _Mlp(d, d * cfg.mlp_ratio)
         self.layer_scale2 = _LayerScale(d)
         self._packed: tuple[tuple, BlockParams] | None = None
+        self._shards: tuple[tuple, list] | None = None
         self.register_load_state_dict_post_hook(_drop_packed)
 
     def _base_attention(self) -> _Attention:
@@ -242,10 +268,28 @@ class Block(nn.Module):
             self._packed = (key, params)
         return self._packed[1]
 
+    def shards(self, dtype: torch.dtype, tp: int) -> list[tuple]:
+        """Each model shard's (``AttnPartialParams``, ``MlpPartialParams``),
+        rank by rank, cut from ``packed(dtype)`` as JAX's ``attn_part_tp`` and
+        ``mlp_part_tp`` cut them, made contiguous for the kernels (row slices
+        stay views of the packed copies); cached beside them, keyed also on
+        ``tp``."""
+        p = self.packed(dtype)
+        key = (self._packed[0], tp)
+        if self._shards is None or self._shards[0] != key:
+            ap, mp = attn_params(p), mlp_params(p)
+            with torch.inference_mode(False), torch.no_grad():
+                cut = [(shard_attn(ap, tp, r), shard_mlp(mp, tp, r)) for r in range(tp)]
+                cut = [tuple(type(h)(*(t.contiguous() for t in h)) for h in pair) for pair in cut]
+            self._shards = (key, cut)
+        return self._shards[1]
+
     def forward(self, x: torch.Tensor, *, kernels: bool = True,
                 generator: torch.Generator | None = None) -> torch.Tensor:
         cfg = self.cfg
         h, eps = cfg.num_heads, cfg.layer_norm_eps
+        mesh = target_mesh()
+        tp = 1 if mesh is None else mesh.tp
         if torch.is_grad_enabled() and any(w.requires_grad for w in self._base_weights()):
             if self.use_lora:
                 raise ValueError(
@@ -254,7 +298,7 @@ class Block(nn.Module):
                     "freeze them or run under torch.no_grad()"
                 )
             route = block_route(cfg.hidden_size, x.shape[1], h, self.mlp.fc1.out_features,
-                                x.element_size(), lora=False, training=True)
+                                x.element_size(), lora=False, training=True, tp=tp)
             p = self.layout()
             if route != "stream":
                 return block_train(x, p, h, eps, kernels=kernels)
@@ -264,7 +308,9 @@ class Block(nn.Module):
             return mlp_part_stream_train(x2, mlp_params(p), eps, kernels=kernels)
         p = self.packed(x.dtype)
         route = block_route(cfg.hidden_size, x.shape[1], h, p.w1.shape[-1], x.element_size(),
-                            lora=self.use_lora, training=False)
+                            lora=self.use_lora, training=False, tp=tp)
+        if route == "tp":
+            return self._tp_forward(x, p, mesh, kernels, generator)
         stream = route == "stream"
         if not (self.use_lora or stream):
             if kernels:
@@ -282,9 +328,25 @@ class Block(nn.Module):
         x2 = x + o * p.ls1.to(o.dtype)
         return mlp_part_frozen(x2, mp, eps, kernels=kernels, route=route)
 
+    def _tp_forward(self, x: torch.Tensor, p: BlockParams, mesh, kernels: bool,
+                    generator: torch.Generator | None) -> torch.Tensor:
+        """The block over ``mesh``'s model axis: JAX's ``vit.py:183``/``:384``
+        with ``attn_part_tp`` and ``mlp_part_tp``."""
+        cfg = self.cfg
+        shards = self.shards(x.dtype, mesh.tp)
+        o = attn_part_tp(x, attn_params(p), cfg.num_heads, cfg.layer_norm_eps, mesh,
+                         kernels=kernels, shards=[a for a, _ in shards])
+        if self.use_lora:
+            o = o + self.attention.lora_output(o, generator)
+        # JAX's XLA stitch between the halves, in the activation dtype.
+        x2 = x + o * p.ls1.to(o.dtype)
+        return mlp_part_tp(x2, mlp_params(p), cfg.layer_norm_eps, mesh, kernels=kernels,
+                           shards=[m for _, m in shards])
+
 
 def _drop_packed(module: Block, incompatible_keys) -> None:
     module._packed = None
+    module._shards = None
 
 
 class _PatchEmbeddings(nn.Module):
@@ -341,7 +403,11 @@ class Dinov2Backbone(nn.Module):
         x = (x + self.interpolated_pos(hp, wp).to(x.dtype)).contiguous()
         for blk in self.encoder.layer:
             x = blk(x, kernels=kernels, generator=generator)
-        x = L.layer_norm(x, self.layernorm.weight, self.layernorm.bias, cfg.layer_norm_eps)
+        norm = self.layernorm
+        if kernels and os.environ.get("DINO_POSE_TPU_LN", "").lower() == "pallas":
+            x = fused_layernorm(x, norm.weight, norm.bias, cfg.layer_norm_eps)
+        else:
+            x = L.layer_norm(x, norm.weight, norm.bias, cfg.layer_norm_eps)
         return x, (hp, wp)
 
     def interpolated_pos(self, hp: int, wp: int) -> torch.Tensor:

@@ -9,8 +9,9 @@ Nothing here runs when the package is imported: the CPU tests import every
 module on a machine without ``nvcc``.
 
 ``LAUNCHES`` counts the launches of each wrapper's kernels (``ops/block.py``,
-``ops/attention.py``, ``ops/convffn.py`` and ``ops/dwconv.py`` add to it), so
-that a run can show that its path went through them.
+``ops/attention.py``, ``ops/convffn.py``, ``ops/dwconv.py`` and
+``ops/layernorm.py`` add to it), so that a run can show that its path went
+through them.
 """
 
 from __future__ import annotations
@@ -27,7 +28,8 @@ import time
 
 _CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 _BUILD = pathlib.Path(__file__).resolve().parent.parent / "build"
-_SOURCES = ("block_kernels.cu", "flash_kernels.cu", "convffn_kernels.cu", "dwconv_kernels.cu")
+_SOURCES = ("block_kernels.cu", "flash_kernels.cu", "convffn_kernels.cu", "dwconv_kernels.cu",
+            "layernorm_kernels.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-lineinfo",
@@ -54,6 +56,10 @@ LAUNCHES: dict[str, int] = {
     # (dw_kernel<K, COMBINE>, dw_kernel<K, COMBINE_BWD> + dw_sums_reduce_kernel).
     "fused_convffn_res": 0, "fused_dw_conv": 0, "fused_combine_dw": 0,
     "fused_combine_dw_bwd": 0,
+    # One tensor-parallel shard's halves (a launch per shard) and the LoRA
+    # layer's partial dx, and the gated final LayerNorm (ln_fwd_kernel).
+    "fused_attn_part_partial": 0, "fused_mlp_part_partial": 0, "fused_mlp_partial_dx": 0,
+    "fused_layernorm": 0,
 }
 
 _LIB: ctypes.CDLL | None = None
@@ -89,6 +95,10 @@ _SIGNATURES = {
     "dp_dw_conv": ([_P] * 3 + [_I] * 8 + [_P], _I),
     "dp_combine_dw": ([_P] * 8 + [_I] * 8 + [_P], _I),
     "dp_combine_dw_bwd": ([_P] * 11 + [_I] * 8 + [_P], _I),
+    "dp_fused_attn_part_partial": ([_P] * 9 + [_I] * 5 + [_F, _P], _I),
+    "dp_fused_mlp_part_partial": ([_P] * 8 + [_I] * 3 + [_F, _P], _I),
+    "dp_fused_mlp_partial_dx": ([_P] * 11 + [_I] * 3 + [_F, _P], _I),
+    "dp_layernorm": ([_P] * 4 + [_I] * 3 + [_F, _P], _I),
 }
 
 

@@ -1,8 +1,8 @@
 """Fused ViT block: plain PyTorch versions and the CUDA kernel wrappers
 (counterpart of dino_pose_tpu/ops/block.py).
 
-Twelve functions of the dinov2 fine-tuning paths, each with its plain version:
-nine of the frozen, LoRA and resident paths
+Fifteen functions of the dinov2 fine-tuning paths, each with its plain
+version: nine of the frozen, LoRA and resident paths
 
 ==========================  =========================  =====================================
 wrapper                     plain version              TPU kernel it replaces
@@ -34,7 +34,21 @@ wrapper                          plain version                    TPU kernels it
                                                                   ``_attn_stream_dw_kernel`` (:1973)
 ===============================  ===============================  ==============================
 
-Fifteen TPU kernels: each streamed backward wrapper computes what its pair
+and three of one tensor-parallel shard (a ``'model'`` mesh axis of ``tp``
+shards, ``core/mesh.py``):
+
+============================  ===========================  ================================
+wrapper                       plain version                TPU kernel it replaces
+============================  ===========================  ================================
+``fused_attn_part_partial``   ``attn_part_math_partial``   ``_attn_part_partial_kernel``
+                                                           (block.py:1010)
+``fused_mlp_part_partial``    ``mlp_part_math_partial``    ``_mlp_part_partial_kernel``
+                                                           (block.py:1062)
+``fused_mlp_partial_dx``      ``mlp_partial_dx_math``      ``_mlp_partial_dx_kernel``
+                                                           (block.py:1099)
+============================  ===========================  ================================
+
+Eighteen TPU kernels: each streamed backward wrapper computes what its pair
 of TPU kernels computes together (the TPU splits a backward into a dx pass
 and a weight-gradient pass to fit VMEM), and ``_mlp_stream_dx_kernel`` computes
 ``_mlp_dx_kernel``'s function (up to the f32 summation order over hidden
@@ -42,14 +56,21 @@ blocks; it recomputes h1 as bf16(m W1) + bf16(bf1) and reads no rounding of
 the forward), so ``fused_mlp_dx`` serves both.
 
 The halves come in two roundings, as in the JAX package, and
-:func:`block_route` picks between them as JAX's single-device TPU dispatch
-does: the resident kernels (``_block_kernel``, ``_attn_part_kernel``,
+:func:`block_route` picks between them as JAX's TPU dispatch does on one
+device: the resident kernels (``_block_kernel``, ``_attn_part_kernel``,
 ``_mlp_part_kernel``; dinov2-small and -base) round each product to bf16 and
 add the bias in bf16; the weight-streamed ones (dinov2-large) sum the
 out-projection and fc2 in f32 and add the bias, and for fc2 multiply the
 LayerScale, in f32 before one rounding. A trainable dinov2-base or -large
 block takes the weight-streamed route too (JAX's
-``stream_fused_enabled(..., for_training=True)``).
+``stream_fused_enabled(..., for_training=True)``). Under a mesh whose
+``'model'`` axis holds tp > 1 shards (``ops/dispatch.target_mesh``) a frozen
+or LoRA block takes JAX's Megatron halves, route ``"tp"``
+(:func:`attn_part_tp`, :func:`mlp_part_tp`): each shard runs the resident
+rounding on its slice of the weights (:func:`shard_attn`, :func:`shard_mlp`)
+and ends in a product with no bias, the mesh's ``all_reduce`` sums the
+shards' partials (f32, one rounding), and the bias, LayerScale and residual
+follow once in the activation dtype.
 
 A wrapper takes its plain version only for tensors on the CPU. On a CUDA
 tensor it launches the kernels of ``ops/csrc/block_kernels.cu`` or raises;
@@ -73,7 +94,9 @@ that require grad while grad mode is on. Four autograd functions carry the
 backward. :func:`mlp_part_frozen`, for the LoRA layer, is ``fused_mlp_part``
 with a backward that carries dx2 through ``fused_mlp_dx`` and gives the
 (frozen) MLP weights no gradient, as ``fused_mlp_part(...,
-assume_frozen_weights=True)`` does in the JAX package. :func:`block_train`,
+assume_frozen_weights=True)`` does in the JAX package;
+:func:`mlp_part_partial_frozen` is its shard form (``fused_mlp_part_partial``,
+backward ``fused_mlp_partial_dx``). :func:`block_train`,
 for a block that trains whole (unfreeze-last-N), is ``fused_block_train``
 with the backward ``fused_mlp_bwd`` then ``fused_attn_bwd``, which give dx
 and every weight gradient in f32, as JAX's ``fused_block_train`` does.
@@ -162,6 +185,54 @@ class AttnTrainParams(NamedTuple):
     wo: torch.Tensor
     bo: torch.Tensor
     ls1: torch.Tensor
+
+
+class AttnPartialParams(NamedTuple):
+    """One tensor-parallel shard's attention half (JAX block.py names): its
+    heads' q|k|v columns and out-projection rows, no output bias."""
+
+    g1: torch.Tensor     # (D,)
+    b1: torch.Tensor     # (D,)
+    wqkv: torch.Tensor   # (D, 3D/tp) as [q_l | k_l | v_l]
+    bqkv: torch.Tensor   # (3D/tp,)
+    wo: torch.Tensor     # (D/tp, D)
+
+
+class MlpPartialParams(NamedTuple):
+    """One shard's MLP half: its fc1 columns and fc2 rows, no fc2 bias."""
+
+    g2: torch.Tensor     # (D,)
+    b2: torch.Tensor     # (D,)
+    w1: torch.Tensor     # (D, 4D/tp)
+    bf1: torch.Tensor    # (4D/tp,)
+    w2: torch.Tensor     # (4D/tp, D)
+
+
+def shard_attn(ap: AttnParams, tp: int, r: int) -> AttnPartialParams:
+    """Shard ``r`` of ``tp`` of an attention half, as JAX ``attn_part_tp``
+    splits it (block.py:1351-1360): q, k and v apart first, each cut by
+    columns into ``tp`` blocks and shard ``r``'s three concatenated back;
+    ``wo`` cut by rows. Cut from ``ap`` with its autograd (``wo`` a view)."""
+    d = ap.wo.shape[0]
+    if d % tp:
+        raise ValueError(f"shard_attn: width {d} does not divide over {tp} shards")
+    dl = d // tp
+    cols = slice(r * dl, (r + 1) * dl)
+    w, b = ap.wqkv.split(d, dim=1), ap.bqkv.split(d)
+    return AttnPartialParams(
+        g1=ap.g1, b1=ap.b1, wqkv=torch.cat([t[:, cols] for t in w], dim=1),
+        bqkv=torch.cat([t[cols] for t in b]), wo=ap.wo[cols])
+
+
+def shard_mlp(mp: MlpParams, tp: int, r: int) -> MlpPartialParams:
+    """Shard ``r`` of ``tp`` of an MLP half, as JAX ``mlp_part_tp`` splits
+    it: ``w1``/``bf1`` by columns, ``w2`` by rows."""
+    h = mp.w1.shape[-1]
+    if h % tp:
+        raise ValueError(f"shard_mlp: hidden width {h} does not divide over {tp} shards")
+    cols = slice(r * h // tp, (r + 1) * h // tp)
+    return MlpPartialParams(g2=mp.g2, b2=mp.b2, w1=mp.w1[:, cols], bf1=mp.bf1[cols],
+                            w2=mp.w2[cols])
 
 
 def attn_params(p: BlockParams) -> AttnParams:
@@ -336,6 +407,44 @@ def mlp_dx_math(
     return (dyf + _ln_bwd(dm, xhat, r, mp.g2)).to(dt)
 
 
+def attn_part_math_partial(
+    x: torch.Tensor, pp: AttnPartialParams, *, num_heads: int, eps: float
+) -> torch.Tensor:
+    """One shard's attention half (JAX block.py:917-937): LN1 -> its qkv
+    columns + bias -> its ``num_heads`` local heads -> the product with its
+    out-projection rows, rounded once, with no bias."""
+    qkv = _dense(layer_norm(x, pp.g1, pp.b1, eps), pp.wqkv, pp.bqkv)
+    ctx = _heads_attention(qkv, num_heads)
+    return (ctx @ pp.wo.to(ctx.dtype)).to(ctx.dtype)
+
+
+def mlp_part_math_partial(x2: torch.Tensor, pp: MlpPartialParams, *, eps: float) -> torch.Tensor:
+    """One shard's MLP half (JAX block.py:940-945): LN2 -> its fc1 columns
+    + bias -> exact GELU -> the product with its fc2 rows, rounded once; no
+    fc2 bias, LayerScale or residual."""
+    h = _gelu_exact(_dense(layer_norm(x2, pp.g2, pp.b2, eps), pp.w1, pp.bf1))
+    return (h @ pp.w2.to(h.dtype)).to(h.dtype)
+
+
+def mlp_partial_dx_math(
+    x2: torch.Tensor, dp: torch.Tensor, pp: MlpPartialParams, *, eps: float
+) -> torch.Tensor:
+    """Input cotangent of ``mlp_part_math_partial`` with the weights held
+    fixed, given ``dp``, the cotangent of the shard's partial product
+    (already times ls2): dx2 = LN2^T(W1^T(gelu'(h1) * W2^T dp)), with no
+    residual term. ``mlp_dx_math`` without the LayerScale and without + dy:
+    the rounding points of ``_mlp_partial_dx_kernel`` (JAX block.py:1099-1115),
+    h1 recomputed as bf16(LN2(x2) W1) + bf16(bf1), dp W2^T kept in f32, times
+    gelu'(h1) rounded, the product with W1^T in f32, dx2 rounded once."""
+    dt = x2.dtype
+    m, xhat, r = _ln_fwd(x2, pp.g2, pp.b2, eps)
+    h1 = _dense(m, pp.w1, pp.bf1)
+    dg = dp.to(dt).float() @ pp.w2.to(dt).float().t()
+    dh1b = (dg * _gelu_grad(h1.float())).to(dt)
+    dm = dh1b.float() @ pp.w1.to(dt).float().t()
+    return _ln_bwd(dm, xhat, r, pp.g2).to(dt)
+
+
 def mlp_bwd_math(
     x2: torch.Tensor, dy: torch.Tensor, mp: MlpParams, *, eps: float
 ) -> tuple[torch.Tensor, MlpParams]:
@@ -478,11 +587,12 @@ def _whole_block_fits(d: int, sp: int, hidden: int, itemsize: int) -> bool:
     return (10 * _MIB - weights) // max(1, per_row) >= 1
 
 
-def _halves_fit(d: int, sp: int, hidden: int, itemsize: int) -> bool:
-    """JAX ``parts_fused_enabled`` on one TPU: each resident half's forward
-    working set within 13 MiB."""
-    attn = 8 * d * d * itemsize + 7 * sp * d * itemsize + 2 * sp * sp * 4
-    mlp = 2 * d * hidden * itemsize + 3 * sp * d * itemsize + sp * hidden * itemsize
+def _halves_fit(d: int, sp: int, hidden: int, itemsize: int, tp: int = 1) -> bool:
+    """JAX ``parts_fused_enabled``: each resident half's forward working set
+    within 13 MiB, its weights and hidden tensor divided over ``tp`` model
+    shards (block.py:2566-2590)."""
+    attn = 8 * d * d * itemsize // tp + 7 * sp * d * itemsize + 2 * sp * sp * 4
+    mlp = 2 * d * hidden * itemsize // tp + 3 * sp * d * itemsize + sp * hidden * itemsize // tp
     return max(attn, mlp) <= 13 * _MIB
 
 
@@ -508,10 +618,11 @@ def _stream_plans_exist(d: int, sp: int, num_heads: int, hidden: int, itemsize: 
 
 
 def block_route(d: int, s: int, num_heads: int, hidden: int, itemsize: int, *,
-                lora: bool, training: bool) -> str:
-    """The rounding route of one dinov2 block: the one JAX's single-device
-    TPU dispatch takes (``models/vit.py:276-342`` with ``fused_blocks_enabled``,
-    ``parts_fused_enabled`` and ``stream_fused_enabled``, ``ops/block.py``).
+                lora: bool, training: bool, tp: int = 1) -> str:
+    """The rounding route of one dinov2 block: the one JAX's TPU dispatch
+    takes (``models/vit.py:276-342`` with ``fused_blocks_enabled``,
+    ``parts_fused_enabled`` and ``stream_fused_enabled``, ``ops/block.py``)
+    on one device, or under a mesh of ``tp`` model shards.
 
     It picks JAX's rounding points, not a VMEM plan: the byte models only
     decide, as on the TPU, which of its kernels a block of this shape takes.
@@ -523,8 +634,22 @@ def block_route(d: int, s: int, num_heads: int, hidden: int, itemsize: int, *,
     (its route ignores ``training``); ``training``: a non-LoRA block whose
     weights train in this pass. At 224² (S = 257) in bf16: dinov2-small
     ``"block"``, dinov2-base ``"block"`` (``"stream"`` when training),
-    dinov2-large ``"stream"``; at S = 1297 all three ``"math"``."""
+    dinov2-large ``"stream"``; at S = 1297 all three ``"math"``.
+
+    With ``tp > 1`` (a mesh of one batch shard): JAX turns down the whole
+    block and the streamed halves on any mesh with a model axis, so a
+    frozen or LoRA block takes ``"tp"``, the Megatron halves
+    (``_tp_shard_mesh``, ``attn_part_tp``/``mlp_part_tp``), where the heads
+    and the MLP width divide over the shards and the tp-divided byte model
+    fits, and ``"math"`` otherwise, as does a block that trains whole. At
+    224² in bf16 dinov2-base and -large take ``"tp"`` at tp 2 and 4,
+    dinov2-small at tp 2 (its 6 heads do not divide over 4); at S = 1297
+    ``"math"``."""
     sp = -(-s // 8) * 8
+    if tp > 1:
+        if (training and not lora) or num_heads % tp or hidden % tp:
+            return "math"
+        return "tp" if _halves_fit(d, sp, hidden, itemsize, tp) else "math"
     if _whole_block_fits(d, sp, hidden, itemsize):
         return "block"
     streams = _stream_plans_exist(d, sp, num_heads, hidden, itemsize)
@@ -870,6 +995,137 @@ def fused_mlp_dx(
     return dx2
 
 
+def _check_partial_widths(d: int, n_in: int, k_out: int, name: str) -> None:
+    """A shard's chain: the first product's N (3D/tp or the local MLP width)
+    a multiple of 64, the last product's K (D/tp or the local MLP width) a
+    multiple of 32, the model width D a multiple of 64."""
+    if d % 64:
+        raise ValueError(f"{name}: hidden size {d} is not a multiple of 64")
+    if n_in % 64 or k_out % 32:
+        raise ValueError(f"{name}: the shard's widths ({n_in} wide, {k_out} deep) are not "
+                         "multiples of 64 and 32")
+
+
+def fused_attn_part_partial(
+    x: torch.Tensor, pp: AttnPartialParams, num_heads: int, eps: float
+) -> torch.Tensor:
+    """One tensor-parallel shard's attention half: its ``num_heads`` local
+    heads and the partial out-projection product, o_l = bf16(MHA_l(LN1(x)
+    Wqkv_l + bqkv_l) Wo_l) with no bias; replaces
+    ``_attn_part_partial_kernel`` (dino_pose_tpu/ops/block.py:1010, body
+    ``_attn_half_core`` :948, launched by ``_part_call`` :1117 from
+    ``fused_attn_part_partial`` :1250).
+
+    Design: ``fused_attn_part``'s three launches at the shard's widths —
+    gemm<LN1 prologue, +bqkv> with N = 3D/tp -> attention on the H/tp heads
+    of the packed [q_l | k_l | v_l] (K/V resident; the streamed
+    flash_fwd_kernel past S ~ 320) -> gemm<no bias> with K = D/tp. The
+    LayerNorm prologue still reads whole rows of width D. The TPU kernel
+    holds the shard's 8D²/tp bytes of weights in VMEM; here the GEMMs walk
+    them in 32x64 tiles.
+
+    Bound on an H100 at dinov2-base's shard (D = 768, tp = 2), S = 257:
+    0.708 GFLOP per image and 2.36 MB of weights; bytes bound it at batch
+    1, operations from batch 2 up.
+    """
+    name = "fused_attn_part_partial"
+    _refuse_grad(name, x, *pp)
+    if not _route(x):
+        return attn_part_math_partial(x, pp, num_heads=num_heads, eps=eps)
+    _check_act(x, name)
+    b, s, d = x.shape
+    dl = pp.wqkv.shape[-1] // 3
+    _check_partial_widths(d, 3 * dl, dl, name)
+    _check_shapes(dl, num_heads, name)
+    _check_ln_width(d, name)
+    _check_params(x, pp, {"g1": (d,), "b1": (d,), "wqkv": (d, 3 * dl), "bqkv": (3 * dl,),
+                          "wo": (dl, d)}, name)
+    qkv = _act(b, s, 3 * dl, like=x)
+    ctx = _act(b, s, dl, like=x)
+    out = torch.empty_like(x)
+    err = _ext.lib().dp_fused_attn_part_partial(
+        *(t.data_ptr() for t in (x, *pp, qkv, ctx, out)), b, s, d, dl, num_heads, eps, _stream())
+    _ext.check(err, name)
+    LAUNCHES[name] += 1
+    LAUNCHES["flash_fwd"] += _ext.lib().dp_flash_forward(s, dl // num_heads)
+    return out
+
+
+def _partial_mlp_checks(x2: torch.Tensor, pp: MlpPartialParams, name: str) -> tuple:
+    _check_act(x2, name)
+    b, s, d = x2.shape
+    hidden = pp.w1.shape[-1]
+    _check_partial_widths(d, hidden, hidden, name)
+    _check_ln_width(d, name)
+    _check_params(x2, pp, {"g2": (d,), "b2": (d,), "w1": (d, hidden), "bf1": (hidden,),
+                           "w2": (hidden, d)}, name)
+    return b, s, d, hidden
+
+
+def fused_mlp_part_partial(x2: torch.Tensor, pp: MlpPartialParams, eps: float) -> torch.Tensor:
+    """One shard's MLP half, bf16(gelu(bf16(LN2(x2) W1_l) + bf16(bf1_l)) W2_l)
+    with no bias, LayerScale or residual; replaces
+    ``_mlp_part_partial_kernel`` (dino_pose_tpu/ops/block.py:1062, through
+    ``fused_mlp_part_partial`` :1288).
+
+    Design: ``fused_mlp_part``'s two launches at the shard's MLP width
+    4D/tp — gemm<LN2 prologue, +bf1, exact GELU> -> gemm<no bias> with
+    K = 4D/tp; the (B*S, 4D/tp) hidden tensor is the only intermediate in
+    device memory.
+
+    Bound on an H100 at dinov2-base's shard (D = 768, tp = 2), S = 257:
+    1.212 GFLOP per image and 4.72 MB of weights; bytes bound it at batch
+    1, operations from batch 2 up.
+    """
+    name = "fused_mlp_part_partial"
+    _refuse_grad(name, x2, *pp)
+    if not _route(x2):
+        return mlp_part_math_partial(x2, pp, eps=eps)
+    b, s, d, hidden = _partial_mlp_checks(x2, pp, name)
+    hbuf = _act(b, s, hidden, like=x2)
+    out = torch.empty_like(x2)
+    err = _ext.lib().dp_fused_mlp_part_partial(
+        *(t.data_ptr() for t in (x2, *pp, hbuf, out)), b * s, d, hidden, eps, _stream())
+    _ext.check(err, name)
+    LAUNCHES[name] += 1
+    return out
+
+
+def fused_mlp_partial_dx(
+    x2: torch.Tensor, dp: torch.Tensor, pp: MlpPartialParams, eps: float
+) -> torch.Tensor:
+    """Activation-only backward of one shard's MLP half: dx2 =
+    LN2^T(W1_l^T(gelu'(h1) * W2_l^T dp)), ``dp`` the cotangent of the
+    shard's partial product (already times ls2), no residual term, no weight
+    gradients; replaces ``_mlp_partial_dx_kernel``
+    (dino_pose_tpu/ops/block.py:1099, through ``_mlp_partial_bwd`` :1309).
+
+    Design: ``fused_mlp_dx``'s four launches at the shard's MLP width with
+    two modes off — gemm<LN2 prologue, +bf1> recomputes h1 -> gemm_nt<no
+    dy*ls2 prologue, *gelu'(h1)> gives dh1b -> gemm_nt<f32> gives dm ->
+    the LayerNorm-backward row kernel with no residual.
+
+    Bound on an H100 at dinov2-base's shard (D = 768, tp = 2), S = 257:
+    1.818 GFLOP per image and 3*B*S*D*2 bytes of activations plus 4.72 MB
+    of weights; operations bound it from batch 2 up.
+    """
+    name = "fused_mlp_partial_dx"
+    if not _route(x2):
+        return mlp_partial_dx_math(x2, dp, pp, eps=eps)
+    _check_pair(x2, dp, name)
+    b, s, d, hidden = _partial_mlp_checks(x2, pp, name)
+    h1 = _act(b, s, hidden, like=x2)
+    dh1b = torch.empty_like(h1)
+    dm = _f32(b, s, d, like=x2)
+    dx2 = torch.empty_like(x2)
+    err = _ext.lib().dp_fused_mlp_partial_dx(
+        *(t.data_ptr() for t in (x2, dp, *pp, h1, dh1b, dm, dx2)), b * s, d, hidden, eps,
+        _stream())
+    _ext.check(err, name)
+    LAUNCHES[name] += 1
+    return dx2
+
+
 def _splits(m: int, k_in: int, n: int) -> int:
     """Row splits of a weight-gradient product dW (k_in, n) over m rows:
     enough blocks for about four waves on the H100's 132 SMs, and at least
@@ -1086,9 +1342,13 @@ def _launch_attn_bwd(x: torch.Tensor, dres: torch.Tensor, ap, num_heads: int, ep
 
 
 class _MlpPartFrozen(torch.autograd.Function):
-    """The MLP half of ``route`` with the frozen-weight backward: dx2 from
-    ``fused_mlp_dx``, no gradient for any MLP parameter. With
-    ``kernels=False`` the plain versions of both."""
+    """An MLP half with the frozen-weight backward, no gradient for any of
+    its parameters. ``route`` ``"stream"``: forward ``fused_mlp_part_stream``,
+    backward ``fused_mlp_dx``; ``"partial"`` (one tensor-parallel shard):
+    forward ``fused_mlp_part_partial``, backward ``fused_mlp_partial_dx``;
+    any other: forward ``fused_mlp_part``, backward ``fused_mlp_dx``. With
+    ``kernels=False`` the plain versions of both. The wrappers are looked
+    up when called, so that a caller may substitute a recording one."""
 
     @staticmethod
     def forward(ctx, x2, eps, kernels, route, *mp):
@@ -1099,7 +1359,12 @@ class _MlpPartFrozen(torch.autograd.Function):
                 "that trains whole goes through block_train"
             )
         ctx.save_for_backward(x2, *mp)
-        ctx.eps, ctx.kernels = eps, kernels
+        ctx.eps, ctx.kernels, ctx.route = eps, kernels, route
+        if route == "partial":
+            pp = MlpPartialParams(*mp)
+            if kernels:
+                return fused_mlp_part_partial(x2, pp, eps)
+            return mlp_part_math_partial(x2, pp, eps=eps)
         stream = route == "stream"
         if kernels:
             return (fused_mlp_part_stream if stream else fused_mlp_part)(x2, MlpParams(*mp), eps)
@@ -1108,8 +1373,12 @@ class _MlpPartFrozen(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dy):
         x2, *mp = ctx.saved_tensors
-        args = (x2, dy.contiguous(), MlpParams(*mp))
-        dx2 = fused_mlp_dx(*args, ctx.eps) if ctx.kernels else mlp_dx_math(*args, eps=ctx.eps)
+        partial = ctx.route == "partial"
+        args = (x2, dy.contiguous(), (MlpPartialParams if partial else MlpParams)(*mp))
+        if ctx.kernels:
+            dx2 = (fused_mlp_partial_dx if partial else fused_mlp_dx)(*args, ctx.eps)
+        else:
+            dx2 = (mlp_partial_dx_math if partial else mlp_dx_math)(*args, eps=ctx.eps)
         return (dx2, None, None, None) + (None,) * len(mp)
 
 
@@ -1127,6 +1396,63 @@ def mlp_part_frozen(
     ``ValueError`` if an ``MlpParams`` tensor requires grad. Saves only
     (x2, mp) for the backward, as JAX does."""
     return _MlpPartFrozen.apply(x2, eps, kernels, route, *mp)
+
+
+def mlp_part_partial_frozen(
+    x2: torch.Tensor, pp: MlpPartialParams, eps: float, *, kernels: bool = True
+) -> torch.Tensor:
+    """One shard's MLP half under autograd, :func:`mlp_part_frozen`'s
+    contract (JAX ``fused_mlp_part_partial(..., assume_frozen_weights=True)``):
+    the forward is ``fused_mlp_part_partial``, the backward gives x2 the
+    cotangent ``fused_mlp_partial_dx`` computes; raises ``ValueError`` if a
+    shard weight requires grad. Where JAX's ``_mlp_dx_fits`` turns the shard
+    down (dinov2-large at tp = 2, S = 257) JAX takes the unfused vjp of the
+    partial math instead; the port keeps this chain there, which differs
+    from it only in bf16 rounding. ``kernels=False``: the plain versions."""
+    return _MlpPartFrozen.apply(x2, eps, kernels, "partial", *pp)
+
+
+def attn_part_tp(
+    x: torch.Tensor, ap: AttnParams, num_heads: int, eps: float, mesh, *,
+    kernels: bool = True, shards: list[AttnPartialParams] | None = None,
+) -> torch.Tensor:
+    """The attention half over ``mesh``'s model axis (JAX ``attn_part_tp``,
+    block.py:1342-1375): each shard's ``fused_attn_part_partial`` on its
+    ``num_heads/tp`` heads (``kernels=False``: ``attn_part_math_partial``),
+    in rank order, the mesh's ``all_reduce`` of the partials, then ``+ bo``
+    in the activation dtype. ``shards``: ``shard_attn(ap, tp, r)`` for each
+    rank, cut once by the caller; cut here when None. Its forward only, as
+    JAX's is on the LoRA path (nothing below the adapter trains)."""
+    tp = mesh.tp
+    if num_heads % tp:
+        raise ValueError(f"attn_part_tp: {num_heads} heads do not divide over {tp} shards")
+    if shards is None:
+        shards = [shard_attn(ap, tp, r) for r in range(tp)]
+    fn = fused_attn_part_partial if kernels else (
+        lambda x_, pp, h, e: attn_part_math_partial(x_, pp, num_heads=h, eps=e))
+    parts = [fn(x_r, pp, num_heads // tp, eps) for x_r, pp in zip(mesh.replicate(x), shards)]
+    o = mesh.all_reduce(parts)
+    return o + ap.bo.to(o.dtype)
+
+
+def mlp_part_tp(
+    x2: torch.Tensor, mp: MlpParams, eps: float, mesh, *,
+    kernels: bool = True, shards: list[MlpPartialParams] | None = None,
+) -> torch.Tensor:
+    """The MLP half over ``mesh``'s model axis (JAX ``mlp_part_tp`` with
+    ``assume_frozen_weights=True``, block.py:1378-1401): each shard's
+    ``mlp_part_partial_frozen`` in rank order, the mesh's ``all_reduce``,
+    then ``+ bf2`` and ``x2 + h2 * ls2`` in the activation dtype. x2's
+    cotangent is the shards' dx2 summed by ``mesh.replicate``'s transpose,
+    plus the residual's; a shard weight that requires grad is refused.
+    ``shards``: as for :func:`attn_part_tp` (``shard_mlp``)."""
+    tp = mesh.tp
+    if shards is None:
+        shards = [shard_mlp(mp, tp, r) for r in range(tp)]
+    h2 = mesh.all_reduce([mlp_part_partial_frozen(x_r, pp, eps, kernels=kernels)
+                          for x_r, pp in zip(mesh.replicate(x2), shards)])
+    h2 = h2 + mp.bf2.to(h2.dtype)
+    return x2 + h2 * mp.ls2.to(h2.dtype)
 
 
 class _BlockTrain(torch.autograd.Function):
@@ -1260,7 +1586,7 @@ def mlp_part_stream_train(
     return _MlpPartStreamTrain.apply(x2, eps, kernels, *mp)
 
 
-def block_flops(s: int, d: int, hidden: int | None = None) -> dict[str, int]:
+def block_flops(s: int, d: int, hidden: int | None = None, tp: int = 1) -> dict[str, int]:
     """Matrix-product FLOPs per image of each wrapper's function: the
     products it needs, each counted once. The resident backward halves
     recompute their forward: the MLP backward is six products of 2*S*D*4D
@@ -1270,8 +1596,12 @@ def block_flops(s: int, d: int, hidden: int | None = None) -> dict[str, int]:
     the MLP backward five of 2*S*D*4D (h1, dg, dm, dW1, dW2), the attention
     backward the same but two of 2*S*D^2 (dWo, dctx). Not counted: the
     scores the attention backward kernels compute twice (the dq and dk/dv
-    kernels each rebuild P), nor JAX's two-pass recompute of h1 or q/k/v."""
+    kernels each rebuild P), nor JAX's two-pass recompute of h1 or q/k/v.
+    The shard wrappers at ``tp`` model shards: the attention half's
+    products at the local width D/tp (qkv, scores and PV, out-projection),
+    the MLP half and its dx at the local MLP width."""
     h = 4 * d if hidden is None else hidden
+    dl, hl = d // tp, h // tp
     attn = 2 * s * d * 3 * d + 4 * s * s * d + 2 * s * d * d
     mlp = 4 * s * d * h
     attn_bwd_stream = 3 * 2 * s * d * 3 * d + 2 * 2 * s * d * d + 6 * 2 * s * s * d
@@ -1281,14 +1611,19 @@ def block_flops(s: int, d: int, hidden: int | None = None) -> dict[str, int]:
             "fused_mlp_bwd": 12 * s * d * h,
             "fused_attn_bwd": attn_bwd_stream + 2 * s * d * d,
             "fused_mlp_part_stream_train": mlp, "fused_mlp_bwd_stream": 10 * s * d * h,
-            "fused_attn_bwd_stream": attn_bwd_stream}
+            "fused_attn_bwd_stream": attn_bwd_stream,
+            "fused_attn_part_partial": 2 * s * d * 3 * dl + 4 * s * s * dl + 2 * s * dl * d,
+            "fused_mlp_part_partial": 4 * s * d * hl, "fused_mlp_partial_dx": 6 * s * d * hl}
 
 
-def block_bytes(b: int, s: int, d: int, hidden: int | None = None) -> dict[str, int]:
+def block_bytes(b: int, s: int, d: int, hidden: int | None = None,
+                tp: int = 1) -> dict[str, int]:
     """Bytes each wrapper must move: bf16 weights and activations once (the
     streamed MLP half's h2 out of its forward and into its backward), f32
-    vectors, f32 weight gradients."""
+    vectors, f32 weight gradients; a shard wrapper its own slice of the
+    weights at ``tp`` model shards."""
     h = 4 * d if hidden is None else hidden
+    dl, hl = d // tp, h // tp
     act = 2 * b * s * d * 2
     attn_w = (3 * d * d + d * d) * 2 + (2 * d + 3 * d + d) * 4
     mlp_w = 2 * d * h * 2 + (2 * d + h + d + d) * 4
@@ -1303,12 +1638,19 @@ def block_bytes(b: int, s: int, d: int, hidden: int | None = None) -> dict[str, 
             "fused_attn_bwd": 3 * b * s * d * 2 + attn_w + d * 4 + attn_g + d * 4,
             "fused_mlp_part_stream_train": act + mlp_w + b * s * d * 2,
             "fused_mlp_bwd_stream": 4 * b * s * d * 2 + mlp_w + mlp_g,
-            "fused_attn_bwd_stream": 3 * b * s * d * 2 + attn_w + attn_g}
+            "fused_attn_bwd_stream": 3 * b * s * d * 2 + attn_w + attn_g,
+            "fused_attn_part_partial": act + 4 * d * dl * 2 + (2 * d + 3 * dl) * 4,
+            "fused_mlp_part_partial": act + 2 * d * hl * 2 + (2 * d + hl) * 4,
+            "fused_mlp_partial_dx": 3 * b * s * d * 2 + 2 * d * hl * 2 + (2 * d + hl) * 4}
+
+
+F32_FLOPS = 67e12  # H100 SXM f32 rate outside the tensor cores
 
 
 def bound_ms(flops: float, nbytes: float, flops_per_s: float = 989e12) -> tuple[float, str]:
     """Least time on an H100 SXM: max(FLOPs / 989 TFLOP/s (bf16 tensor cores;
-    ``flops_per_s`` for work of another type), bytes / 3.35 TB/s)."""
+    ``flops_per_s`` for work of another type, as ``F32_FLOPS``), bytes /
+    3.35 TB/s)."""
     t_ops = flops / flops_per_s * 1e3
     t_mem = nbytes / 3.35e12 * 1e3
     return (t_ops, "operations") if t_ops >= t_mem else (t_mem, "bytes")

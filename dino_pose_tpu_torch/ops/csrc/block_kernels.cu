@@ -1,7 +1,7 @@
 // Fused ViT block kernels for Hopper (sm_90a), CUDA C++ with a plain C
 // interface (loaded with ctypes by dino_pose_tpu_torch/ops/_ext.py).
 //
-// They replace the fourteen Pallas kernels of the dinov2 fine-tuning paths
+// They replace the seventeen Pallas kernels of the dinov2 fine-tuning paths
 // (dino_pose_tpu/ops/block.py): _block_kernel (:159, also in its training
 // form with the residual x2, :592), _attn_part_kernel (:999, body
 // _attn_half_core :948), _mlp_part_kernel (:1021), the LoRA layer's backward
@@ -14,7 +14,12 @@
 // _mlp_stream_train_kernel (:1695, the MLP half that also saves h2), the
 // MLP backward pair _mlp_stream_dx_full_kernel (:1726) + _mlp_stream_dw_kernel
 // (:1770) and the attention backward pair _attn_stream_dx_kernel (:1924) +
-// _attn_stream_dw_kernel (:1973), which reuse the resident backward chains.
+// _attn_stream_dw_kernel (:1973), which reuse the resident backward chains,
+// and one tensor-parallel shard's halves: _attn_part_partial_kernel (:1010)
+// and _mlp_part_partial_kernel (:1062), the resident chains on the shard's
+// Megatron slice ending in a product with no bias, and the LoRA layer's
+// _mlp_partial_dx_kernel (:1099), the dx chain with no LayerScale prologue
+// and no residual.
 // The TPU design holds one whole block
 // (12 D^2 bf16 weights = 3.5 MB at D = 384) plus a few rows of activations
 // in VMEM per program. Hopper gives a block at most 227 KB of shared memory,
@@ -81,6 +86,11 @@
 //                       without the o GEMM, on do (pre-LayerScale): gemm_nt<-,
 //                       bf16>(dctx) ... ln_bwd_rows<sums, NO_RES>(dx, dbo = sum
 //                       (do), dg1, db1) ... gemm_tn(dWo = ctx^T do)
+//   _attn_part_partial_kernel = gemm<LN,BIAS>(qkv_l, N = 3D/tp) -> attention
+//                       (H/tp heads) -> gemm<-,NONE>(out, K = D/tp)
+//   _mlp_part_partial_kernel  = gemm<LN,GELU>(fc1, N = 4D/tp) -> gemm<-,NONE>(fc2)
+//   _mlp_partial_dx_kernel    = gemm<LN,BIAS>(h1) -> gemm_nt<-, *gelu'(h1)>(dh1b)
+//                       -> gemm_nt<-, f32>(dm) -> ln_bwd_rows<NO_RES>(dx2)
 //
 // Every rounding point of the JAX kernels is reproduced: each product is
 // rounded to bf16, then the bias (f32 parameter rounded to bf16) is added in
@@ -132,10 +142,12 @@ constexpr size_t MAX_SMEM = 232448;  // shared memory one Hopper block may use
 
 // EPI_BIAS* round the product to bf16 and add the bf16-rounded bias in bf16
 // (the resident TPU kernels); EPI_F32BIAS* add the bias to the f32 sum
-// before one rounding (the weight-streamed ones, dinov2-large).
+// before one rounding (the weight-streamed ones, dinov2-large); EPI_NONE
+// rounds the product and adds nothing (a tensor-parallel shard's partial
+// product, whose bias is added once after the all-reduce).
 enum Epilogue {
   EPI_BIAS = 0, EPI_BIAS_GELU = 1, EPI_BIAS_LS_RES = 2, EPI_BIAS_GELU_PAIR = 3,
-  EPI_F32BIAS = 4, EPI_F32BIAS_LS_RES = 5, EPI_F32BIAS_LS_RES_H2 = 6
+  EPI_F32BIAS = 4, EPI_F32BIAS_LS_RES = 5, EPI_F32BIAS_LS_RES_H2 = 6, EPI_NONE = 7
 };
 enum EpilogueNT { EPT_GELU_GRAD = 0, EPT_F32 = 1, EPT_BF16 = 2 };
 // What ln_bwd_rows_kernel adds and sums besides the LayerNorm backward:
@@ -179,6 +191,7 @@ size_t gemm_smem_bytes(bool ln, int K) {
 // EPI_F32BIAS_LS_RES: bf16(res + bf16((acc + bias) * ls)), in f32 up to the
 // inner rounding; EPI_F32BIAS_LS_RES_H2 also writes h2 = bf16(acc + bias) to
 // out2 (the pre-LayerScale output that _mlp_stream_train_kernel saves).
+// EPI_NONE: bf16(acc); bias, ls and res are not read.
 template <bool LN, int EPI>
 __global__ void __launch_bounds__(GEMM_THREADS)
 gemm_kernel(const bf16* __restrict__ A, const bf16* __restrict__ W,
@@ -286,6 +299,10 @@ gemm_kernel(const bf16* __restrict__ A, const bf16* __restrict__ W,
     const int gm = m0 + r, gn = n0 + c;
     if (gm >= M) continue;
     const size_t idx = static_cast<size_t>(gm) * N + gn;
+    if (EPI == EPI_NONE) {
+      out[idx] = __float2bfloat16(Cs[r * LDC + c]);
+      continue;
+    }
     if (EPI == EPI_F32BIAS || EPI == EPI_F32BIAS_LS_RES || EPI == EPI_F32BIAS_LS_RES_H2) {
       float o = Cs[r * LDC + c] + bias[gn];
       if (EPI == EPI_F32BIAS_LS_RES_H2) out2[idx] = __float2bfloat16(o);
@@ -1271,26 +1288,31 @@ cudaError_t launch_attention(const void* qkv, void* ctx, void* stats, int B, int
 }
 
 // The attention half, its out-projection epilogue OUT_EPI: EPI_BIAS (o,
-// resident rounding), EPI_BIAS_LS_RES (x2 = x + ls1*o, the whole block) or
-// EPI_F32BIAS (o, streamed rounding).
+// resident rounding), EPI_BIAS_LS_RES (x2 = x + ls1*o, the whole block),
+// EPI_F32BIAS (o, streamed rounding) or EPI_NONE (a tensor-parallel shard's
+// partial o, no bias). D is the model width (x and out), Dl the width of
+// the heads this call computes (qkv (M, 3Dl) as [q|k|v], ctx (M, Dl), wo
+// (Dl, D)) and H their count: Dl = D on one device, D/tp on a shard.
 template <int OUT_EPI>
 cudaError_t attn_half(const void* x, const void* g1, const void* b1, const void* wqkv,
                       const void* bqkv, const void* wo, const void* bo, const void* ls1,
-                      void* qkv, void* ctx, void* out, int B, int S, int D, int H, float eps,
-                      cudaStream_t st) {
+                      void* qkv, void* ctx, void* out, int B, int S, int D, int Dl, int H,
+                      float eps, cudaStream_t st) {
   const int M = B * S;
   cudaError_t err = launch_gemm<true, EPI_BIAS>(x, wqkv, bqkv, nullptr, nullptr, g1, b1, qkv,
-                                                M, 3 * D, D, eps, st);
+                                                M, 3 * Dl, D, eps, st);
   if (err != cudaSuccess) return err;
-  err = launch_attention(qkv, ctx, nullptr, B, S, H, D / H, flash_forward(S, D / H), st);
+  err = launch_attention(qkv, ctx, nullptr, B, S, H, Dl / H, flash_forward(S, Dl / H), st);
   if (err != cudaSuccess) return err;
-  return launch_gemm<false, OUT_EPI>(ctx, wo, bo, ls1, x, nullptr, nullptr, out, M, D, D, eps,
+  return launch_gemm<false, OUT_EPI>(ctx, wo, bo, ls1, x, nullptr, nullptr, out, M, D, Dl, eps,
                                      st);
 }
 
 // The MLP half, its fc2 epilogue OUT_EPI: EPI_BIAS_LS_RES (resident rounding),
-// EPI_F32BIAS_LS_RES (streamed rounding) or EPI_F32BIAS_LS_RES_H2 (streamed,
-// h2 written to the buffer h2).
+// EPI_F32BIAS_LS_RES (streamed rounding), EPI_F32BIAS_LS_RES_H2 (streamed,
+// h2 written to the buffer h2) or EPI_NONE (a tensor-parallel shard's partial
+// fc2 product: hidden is the shard's 4D/tp, bf2, ls2 and x2's residual are
+// not read).
 template <int OUT_EPI>
 cudaError_t mlp_half(const void* x2, const void* g2, const void* b2, const void* w1,
                      const void* bf1, const void* w2, const void* bf2, const void* ls2,
@@ -1391,6 +1413,34 @@ cudaError_t attn_bwd(const void* x, const void* dres, const void* g1, const void
                                      splits_o, st);
 }
 
+// The MLP half's activation-only backward: h1 = bf16(LN2(x2) W1) + bf16(bf1)
+// recomputed into h1buf, dh1b = bf16((dy' W2^T) * gelu'(h1)), dm = dh1b W1^T
+// (f32), dx2 = LN2^T(dm) rounded once. _mlp_dx_kernel (PARTIAL false): dy'
+// = bf16(dy * ls2) and dx2 adds dy (the residual). _mlp_partial_dx_kernel
+// (PARTIAL true, a tensor-parallel shard, hidden = 4D/tp): dy' = dy, the
+// cotangent of the shard's partial product (already times ls2), no residual;
+// ls2 is not read.
+template <bool PARTIAL>
+cudaError_t mlp_dx(const void* x2, const void* dy, const void* g2, const void* b2,
+                   const void* w1, const void* bf1, const void* w2, const void* ls2, void* h1buf,
+                   void* dh1b, void* dm, void* dx2, int M, int D, int hidden, float eps,
+                   cudaStream_t st) {
+  cudaError_t err = launch_gemm<true, EPI_BIAS>(x2, w1, bf1, nullptr, nullptr, g2, b2, h1buf,
+                                                M, hidden, D, eps, st);
+  if (err != cudaSuccess) return err;
+  err = launch_gemm_nt<!PARTIAL, EPT_GELU_GRAD>(dy, w2, ls2, h1buf, dh1b, M, hidden, D, st);
+  if (err != cudaSuccess) return err;
+  err = launch_gemm_nt<false, EPT_F32>(dh1b, w1, nullptr, nullptr, dm, M, D, hidden, st);
+  if (err != cudaSuccess) return err;
+  const int rows_per_block = ROW_THREADS / 32;
+  ln_bwd_rows_kernel<false, PARTIAL ? ROWS_NO_RES : ROWS_RESIDENT>
+      <<<(M + rows_per_block - 1) / rows_per_block, ROW_THREADS, 0, st>>>(
+          static_cast<const bf16*>(x2), static_cast<const bf16*>(dy),
+          static_cast<const float*>(dm), static_cast<const float*>(g2), nullptr, nullptr,
+          static_cast<bf16*>(dx2), nullptr, M, D, eps, rows_per_block);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -1412,7 +1462,7 @@ int dp_fused_block(const void* x, const void* g1, const void* b1, const void* wq
                    float eps, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err = attn_half<EPI_BIAS_LS_RES>(x, g1, b1, wqkv, bqkv, wo, bo, ls1, qkv, ctx,
-                                               x2, B, S, D, H, eps, st);
+                                               x2, B, S, D, D, H, eps, st);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(mlp_half<EPI_BIAS_LS_RES>(x2, g2, b2, w1, bf1, w2, bf2, ls2, hbuf, y,
                                                     B * S, D, hidden, eps, st));
@@ -1423,7 +1473,7 @@ int dp_fused_attn_part(const void* x, const void* g1, const void* b1, const void
                        const void* bqkv, const void* wo, const void* bo, void* qkv, void* ctx,
                        void* out, int B, int S, int D, int H, float eps, void* stream) {
   return static_cast<int>(attn_half<EPI_BIAS>(x, g1, b1, wqkv, bqkv, wo, bo, nullptr, qkv, ctx,
-                                              out, B, S, D, H, eps,
+                                              out, B, S, D, D, H, eps,
                                               static_cast<cudaStream_t>(stream)));
 }
 
@@ -1446,7 +1496,7 @@ int dp_fused_attn_part_stream(const void* x, const void* g1, const void* b1, con
                               void* ctx, void* out, int B, int S, int D, int H, float eps,
                               void* stream) {
   return static_cast<int>(attn_half<EPI_F32BIAS>(x, g1, b1, wqkv, bqkv, wo, bo, nullptr, qkv,
-                                                 ctx, out, B, S, D, H, eps,
+                                                 ctx, out, B, S, D, D, H, eps,
                                                  static_cast<cudaStream_t>(stream)));
 }
 
@@ -1482,20 +1532,8 @@ int dp_fused_mlp_dx(const void* x2, const void* dy, const void* g2, const void* 
                     const void* ls2, void* h1buf, void* dh1b, void* dm, void* dx2, int M,
                     int D, int hidden, float eps, void* stream) {
   (void)bf2;  // the fc2 bias has no part in dx2
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err = launch_gemm<true, EPI_BIAS>(x2, w1, bf1, nullptr, nullptr, g2, b2, h1buf,
-                                                M, hidden, D, eps, st);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  err = launch_gemm_nt<true, EPT_GELU_GRAD>(dy, w2, ls2, h1buf, dh1b, M, hidden, D, st);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  err = launch_gemm_nt<false, EPT_F32>(dh1b, w1, nullptr, nullptr, dm, M, D, hidden, st);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int rows_per_block = ROW_THREADS / 32;
-  ln_bwd_rows_kernel<false><<<(M + rows_per_block - 1) / rows_per_block, ROW_THREADS, 0, st>>>(
-      static_cast<const bf16*>(x2), static_cast<const bf16*>(dy),
-      static_cast<const float*>(dm), static_cast<const float*>(g2), nullptr, nullptr,
-      static_cast<bf16*>(dx2), nullptr, M, D, eps, rows_per_block);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(mlp_dx<false>(x2, dy, g2, b2, w1, bf1, w2, ls2, h1buf, dh1b, dm, dx2,
+                                         M, D, hidden, eps, static_cast<cudaStream_t>(stream)));
 }
 
 // _mlp_bwd_kernel: dx2 and every MLP weight gradient, summed in f32 over the
@@ -1579,6 +1617,47 @@ int dp_fused_attn_bwd_stream(const void* x, const void* dout, const void* g1, co
                                          ws_o, gsum_part, dx, dwqkv, dbqkv, dwo, vec4, B, S, D, H,
                                          splits_qkv, splits_o, eps,
                                          static_cast<cudaStream_t>(stream)));
+}
+
+// _attn_part_partial_kernel (block.py:1010): one tensor-parallel shard's
+// attention half, o_l = bf16(MHA_l(LN1(x) Wqkv_l + bqkv_l) Wo_l) with no bias
+// (bo is added once after the all-reduce). x (B, S, D); wqkv (D, 3Dl) laid out
+// [q_l | k_l | v_l], bqkv (3Dl); wo (Dl, D); H the shard's Dl/dh heads. The
+// TPU kernel runs _attn_part_kernel's body on the shard's weights in VMEM;
+// here the resident chain runs at the local widths: qkv (B*S, 3Dl) and ctx
+// (B*S, Dl) scratch, out (B, S, D).
+int dp_fused_attn_part_partial(const void* x, const void* g1, const void* b1, const void* wqkv,
+                               const void* bqkv, const void* wo, void* qkv, void* ctx, void* out,
+                               int B, int S, int D, int Dl, int H, float eps, void* stream) {
+  return static_cast<int>(attn_half<EPI_NONE>(x, g1, b1, wqkv, bqkv, wo, nullptr, nullptr, qkv,
+                                              ctx, out, B, S, D, Dl, H, eps,
+                                              static_cast<cudaStream_t>(stream)));
+}
+
+// _mlp_part_partial_kernel (block.py:1062): one shard's MLP half,
+// bf16(gelu(bf16(LN2(x2) W1_l) + bf16(bf1_l)) W2_l) with no bias, LayerScale
+// or residual. w1 (D, hidden), w2 (hidden, D) at the shard's hidden = 4D/tp;
+// hbuf (M, hidden) scratch.
+int dp_fused_mlp_part_partial(const void* x2, const void* g2, const void* b2, const void* w1,
+                              const void* bf1, const void* w2, void* hbuf, void* out, int M,
+                              int D, int hidden, float eps, void* stream) {
+  return static_cast<int>(mlp_half<EPI_NONE>(x2, g2, b2, w1, bf1, w2, nullptr, nullptr, hbuf,
+                                             out, M, D, hidden, eps,
+                                             static_cast<cudaStream_t>(stream)));
+}
+
+// _mlp_partial_dx_kernel (block.py:1099): dx2 of one shard's MLP half with its
+// weights held fixed, dx2 = LN2^T(W1_l^T(gelu'(h1) * W2_l^T dp)): dp (M, D)
+// is the cotangent of the shard's partial product, already times ls2, and the
+// residual's term is added outside. Scratch as dp_fused_mlp_dx's, at the
+// shard's hidden width.
+int dp_fused_mlp_partial_dx(const void* x2, const void* dp, const void* g2, const void* b2,
+                            const void* w1, const void* bf1, const void* w2, void* h1buf,
+                            void* dh1b, void* dm, void* dx2, int M, int D, int hidden, float eps,
+                            void* stream) {
+  return static_cast<int>(mlp_dx<true>(x2, dp, g2, b2, w1, bf1, w2, nullptr, h1buf, dh1b, dm,
+                                        dx2, M, D, hidden, eps,
+                                        static_cast<cudaStream_t>(stream)));
 }
 
 }  // extern "C"

@@ -65,7 +65,6 @@ _TILE_TARGET = 100 * 1024  # tile bytes that leave room for two blocks an SM
 _CHANNELS = 64         # channels a block takes at most (one thread each)
 _ROWS = 8              # output rows of a block's strip, at most
 KERNEL_SIZES = (3, 7)  # the kernel's template instances (FastViT's mixer and ConvFFN)
-F32_FLOPS = 67e12      # H100 SXM f32 rate outside the tensor cores (the conv's type)
 
 # ---------------------------------------------------------------------------
 # The JAX package's VMEM byte models and gates (dwconv.py:130-146, 229-263,
@@ -182,7 +181,7 @@ def dwconv_cost(b: int, h: int, w: int, c: int, kk: int) -> tuple[int, int]:
     """(FLOPs, bytes) of one conv: 2*k*k FLOPs an output (JAX's
     CostEstimate, dwconv.py:163); x read and the output written once in
     bf16, the f32 taps once. The FLOPs are f32 on the CUDA cores
-    (``F32_FLOPS``)."""
+    (``block.F32_FLOPS``)."""
     n = b * h * w * c
     return 2 * n * kk * kk, 2 * n * 2 + kk * kk * c * 4
 

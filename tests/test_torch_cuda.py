@@ -1166,3 +1166,276 @@ def test_fastvit_arms_train_step_kernels_match_plain(cuda_device, monkeypatch):
         assert torch.isfinite(kg[n]).all() and kg[n].abs().max() > 0, n
         tol = 2 * rel(pg[n], rg[n]) + 1e-2
         assert max(rel(kg[n], rg[n]), rel(kg[n], pg[n])) <= tol, n
+
+
+# ---------------------------------------------------------------------------
+# Tensor-parallel shards (one card) and the gated LayerNorm
+# ---------------------------------------------------------------------------
+
+# (D, heads, MLP width, tp): dinov2-base at tp = 2 (the slice's path),
+# dinov2-large at tp = 2 and 4, dinov2-small at tp = 2.
+TP_WIDTHS = {"base-tp2": (768, 12, 3072, 2), "large-tp2": (1024, 16, 4096, 2),
+             "large-tp4": (1024, 16, 4096, 4), "small-tp2": (384, 6, 1536, 2)}
+
+
+def _tp_inputs(key, batch, seq, device):
+    d, heads, hidden, tp = TP_WIDTHS[key]
+    p = _params(device, d, hidden)
+    rng = np.random.default_rng(batch + seq + d + tp)
+    x, dp = (_bf16(rng, (batch, seq, d), device) for _ in range(2))
+    return x, dp, p, heads, tp
+
+
+def _f32_params(pp):
+    """A shard's (or a half's) parameters in f32, the matrices as the kernels
+    read them (bf16-rounded): the plain f32 yardstick's weights."""
+    return type(pp)(*(t.float() for t in pp))
+
+
+def _assert_shard_close(got, want, want_f32, attention: bool):
+    """A shard's output, which adds no bias or residual, against its plain
+    version: elementwise at the attention tolerance (the attention half) or
+    3e-2 abs/rel, and in relative Frobenius norm within the plain bf16
+    path's own distance from the same function in f32 on the same inputs.
+    The fixed 3e-3 of the attention halves does not carry over: without
+    the bias the partials are smaller (the dinov2-base shard's o is 0.67 of
+    the whole half's norm), and an H100 measured 3.04e-3 for the base
+    shard's attention at batch 1, where the plain bf16 version itself sits
+    6.0e-3 from f32 (CPU)."""
+    got, want, want_f32 = got.float(), want.float(), want_f32.float()
+    if attention:
+        torch.testing.assert_close(got, want, atol=4e-3, rtol=2e-2)
+    else:
+        torch.testing.assert_close(got, want, atol=3e-2, rtol=3e-2)
+    fro = ((got - want).norm() / want.norm()).item()
+    noise = ((want - want_f32).norm() / want_f32.norm()).item()
+    assert fro <= noise, (fro, noise)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch, seq", [(1, 257), (8, 257), (2, 57)])
+@pytest.mark.parametrize("key", list(TP_WIDTHS))
+def test_tp_shard_kernels_match_plain(cuda_device, key, batch, seq):
+    """Each shard's three kernels against their plain versions
+    (``_assert_shard_close``), one launch each a shard, and the shards'
+    all-reduce plus the bias against the whole half's plain version, within
+    the whole half's own bf16 distance from f32."""
+    from dino_pose_tpu_torch.core.mesh import MeshSpec, create_mesh
+    from dino_pose_tpu_torch.ops import dispatch
+
+    x, dp, p, heads, tp = _tp_inputs(key, batch, seq, cuda_device)
+    ap, mp = block.attn_params(p), block.mlp_params(p)
+    xf, dpf = x.float(), dp.float()
+    with dispatch.scoped():
+        mesh = create_mesh(MeshSpec(1, tp), device=cuda_device)
+    attn, mlp = [], []
+    for r in range(tp):
+        pa = block.AttnPartialParams(*(t.contiguous() for t in block.shard_attn(ap, tp, r)))
+        pm = block.MlpPartialParams(*(t.contiguous() for t in block.shard_mlp(mp, tp, r)))
+        block.reset_launches()
+        got = block.fused_attn_part_partial(x, pa, heads // tp, EPS)
+        got_m = block.fused_mlp_part_partial(x, pm, EPS)
+        got_dx = block.fused_mlp_partial_dx(x, dp, pm, EPS)
+        torch.cuda.synchronize()
+        assert block.LAUNCHES == {**dict.fromkeys(block.LAUNCHES, 0), "fused_attn_part_partial": 1,
+                                  "fused_mlp_part_partial": 1, "fused_mlp_partial_dx": 1}
+        h = heads // tp
+        _assert_shard_close(got, block.attn_part_math_partial(x, pa, num_heads=h, eps=EPS),
+                            block.attn_part_math_partial(xf, _f32_params(pa), num_heads=h,
+                                                         eps=EPS), attention=True)
+        _assert_shard_close(got_m, block.mlp_part_math_partial(x, pm, eps=EPS),
+                            block.mlp_part_math_partial(xf, _f32_params(pm), eps=EPS),
+                            attention=False)
+        _assert_shard_close(got_dx, block.mlp_partial_dx_math(x, dp, pm, eps=EPS),
+                            block.mlp_partial_dx_math(xf, dpf, _f32_params(pm), eps=EPS),
+                            attention=False)
+        attn.append(got)
+        mlp.append(got_m)
+    o = mesh.all_reduce(attn) + ap.bo.to(torch.bfloat16)
+    _assert_shard_close(o, block.attn_part_math(x, ap, num_heads=heads, eps=EPS),
+                        block.attn_part_math(xf, _f32_params(ap), num_heads=heads, eps=EPS),
+                        attention=True)
+    h2 = mesh.all_reduce(mlp) + mp.bf2.to(torch.bfloat16)
+    y = x + h2 * mp.ls2.to(torch.bfloat16)
+    torch.testing.assert_close(y.float(), block.mlp_part_math(x, mp, eps=EPS).float(),
+                               atol=3e-2, rtol=3e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("key", ["base-tp2", "large-tp2"])
+def test_mlp_part_partial_frozen_autograd_on_card(cuda_device, key):
+    """The shard's autograd function: forward fused_mlp_part_partial, x2's
+    gradient fused_mlp_partial_dx's, also for dinov2-large at tp = 2, where
+    JAX's backward takes its unfused vjp; a shard weight that requires grad
+    is refused."""
+    x, dp, p, _, tp = _tp_inputs(key, 2, 257, cuda_device)
+    pm = block.MlpPartialParams(*(t.contiguous() for t in block.shard_mlp(block.mlp_params(p),
+                                                                           tp, 1)))
+    xg = x.clone().requires_grad_()
+    block.reset_launches()
+    y = block.mlp_part_partial_frozen(xg, pm, EPS)
+    y.backward(dp)
+    torch.cuda.synchronize()
+    assert block.LAUNCHES["fused_mlp_part_partial"] == 1
+    assert block.LAUNCHES["fused_mlp_partial_dx"] == 1
+    with torch.no_grad():
+        want = block.mlp_partial_dx_math(x, dp, pm, eps=EPS)
+        want_f32 = block.mlp_partial_dx_math(x.float(), dp.float(), _f32_params(pm), eps=EPS)
+    _assert_shard_close(xg.grad, want, want_f32, attention=False)
+    with pytest.raises(ValueError, match="requires grad"):
+        block.mlp_part_partial_frozen(xg, pm._replace(w1=pm.w1.clone().requires_grad_()), EPS)
+
+
+@pytest.mark.cuda
+def test_tp_wrappers_refuse_what_they_do_not_take(cuda_device):
+    x, dp, p, heads, tp = _tp_inputs("small-tp2", 1, 57, cuda_device)
+    ap, mp = block.attn_params(p), block.mlp_params(p)
+    pa2, pm2 = block.shard_attn(ap, 2, 0), block.shard_mlp(mp, 2, 0)
+    pa2 = block.AttnPartialParams(*(t.contiguous() for t in pa2))
+    pm2 = block.MlpPartialParams(*(t.contiguous() for t in pm2))
+    with pytest.raises(TypeError, match="bf16"):
+        block.fused_attn_part_partial(x.float(), pa2, 3, EPS)
+    with pytest.raises(TypeError, match="bf16"):
+        block.fused_mlp_partial_dx(x.float(), dp.float(), pm2, EPS)
+    with pytest.raises(ValueError, match="head width"):
+        block.fused_attn_part_partial(x, pa2, 2, EPS)            # 192 / 2 = 96
+    pa4 = block.AttnPartialParams(*(t.contiguous() for t in block.shard_attn(ap, 4, 0)))
+    with pytest.raises(ValueError, match="multiples of 64 and 32"):
+        block.fused_attn_part_partial(x, pa4, 1, EPS)            # 3 * 96 = 288 wide
+    pm_bad = block.MlpPartialParams(*(t.contiguous() for t in block.shard_mlp(mp, 64, 0)))
+    with pytest.raises(ValueError, match="multiples of 64 and 32"):
+        block.fused_mlp_part_partial(x, pm_bad, EPS)             # 1536 / 64 = 24 wide
+    with pytest.raises(ValueError, match="differ"):
+        block.fused_mlp_partial_dx(x, dp[:, :8].contiguous(), pm2, EPS)
+
+
+@pytest.mark.cuda
+def test_dinov2_base_tp2_serving_launches(cuda_device):
+    """dinov2-base + LoRA at 224², batch 2, under a tp = 2 mesh on the card:
+    24 fused_attn_part_partial and 24 fused_mlp_part_partial launches a
+    forward and nothing else, and the outputs within 5% of their largest
+    magnitude of the plain path (chip_smoke.py's MODEL_REL_TOL)."""
+    from dino_pose_tpu_torch.core.mesh import MeshSpec, create_mesh
+    from dino_pose_tpu_torch.ops import dispatch
+
+    model = registry.create_model_from_config(
+        {"model_name": "facebook/dinov2-base", "use_lora": True}, seed=0, device=cuda_device)
+    x = _bf16(np.random.default_rng(0), (2, 3, 224, 224), cuda_device)
+    with dispatch.scoped(), torch.inference_mode():
+        create_mesh(MeshSpec(1, 2), device=cuda_device)
+        block.reset_launches()
+        hm, z = model(x)
+        torch.cuda.synchronize()
+        assert block.LAUNCHES == {**dict.fromkeys(block.LAUNCHES, 0),
+                                  "fused_attn_part_partial": 24, "fused_mlp_part_partial": 24}
+        hm_p, z_p = model(x, kernels=False)
+    for got, want in ((hm, hm_p), (z, z_p)):
+        assert torch.isfinite(got).all()
+        err = (got.float() - want.float()).abs().max().item()
+        assert err <= 5e-2 * want.float().abs().max().item()
+
+
+@pytest.mark.cuda
+def test_tp2_lora_train_step_kernels_match_plain(cuda_device, monkeypatch):
+    """A LoRA train step of test/vit-tiny widened to D = 128 (2 heads of 64,
+    2 layers: each shard 64 wide at tp = 2, the smallest the kernels take)
+    under a tp = 2 mesh, batch 4: 4 + 4 partial launches and 2 partial dx
+    (the LoRA layer's two shards), and the losses against the plain path's
+    to 1e-3 relative."""
+    from dino_pose_tpu_torch.core.mesh import MeshSpec, create_mesh
+    from dino_pose_tpu_torch.models import vit
+    from dino_pose_tpu_torch.ops import dispatch
+
+    monkeypatch.setitem(vit.VIT_PRESETS, "test/vit-tiny",
+                        vit.ViTConfig(hidden_size=128, num_layers=2, num_heads=2, pos_grid=37))
+    config = {"model_name": "test/vit-tiny", "use_lora": True, "lora_dropout": 0.0}
+    model = registry.create_model_from_config(config, seed=0, device=cuda_device)
+    rng = np.random.default_rng(5)
+    kps = rng.uniform(20, 200, (4, 24, 3)).astype(np.float32)
+    kps[..., 2] = 2.0
+    batch = {"image": torch.from_numpy(rng.standard_normal((4, 3, 224, 224)).astype(np.float32)),
+             "2d_keypoints": torch.from_numpy(kps),
+             "z_coords": torch.from_numpy(rng.standard_normal((4, 24)).astype(np.float32))}
+    batch = {k: v.to(cuda_device) for k, v in batch.items()}
+    stats = {}
+    with dispatch.scoped():
+        create_mesh(MeshSpec(1, 2), device=cuda_device)
+        for kernels in (True, False):
+            m = copy.deepcopy(model)
+            state, opt, part = create_train_state(m, config)
+            step = prepare_batch(make_train_step(m, opt, part, kernels=kernels), (224, 48),
+                                 torch.bfloat16)
+            block.reset_launches()
+            _, stats[kernels] = step(state, batch, 3e-5, 0)
+            torch.cuda.synchronize()
+            want = ({"fused_attn_part_partial": 4, "fused_mlp_part_partial": 4,
+                     "fused_mlp_partial_dx": 2} if kernels else {})
+            assert block.LAUNCHES == {**dict.fromkeys(block.LAUNCHES, 0), **want}
+    for k in ("loss", "kp_loss", "z_loss"):
+        got, want = stats[True][k].item(), stats[False][k].item()
+        assert abs(got - want) <= 1e-3 * abs(want), k
+
+
+# (rows, D): dinov2-small's serving and train-step final norms, base's and
+# large's widths, ragged row counts, and the block-a-row path (D > 1024).
+LN_CASES = [(257, 384), (128 * 257, 384), (8 * 257, 768), (8 * 257, 1024), (1, 384), (3, 8),
+            (1000, 1536), (5, 4096)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("rows, d", LN_CASES)
+def test_layernorm_kernel_matches_plain(cuda_device, rows, d, dtype):
+    """fused_layernorm against layernorm_reference on the same card: f32 to
+    1e-5 abs/rel (the f32 sums in another order, rsqrt's last bits); bf16
+    within one ulp of the larger magnitude plus that 1e-5 elementwise (one
+    rounding of f32 values that differ in their last bits, which is more
+    than an ulp of a result that the bias cancels to near zero)."""
+    from dino_pose_tpu_torch.ops import layernorm
+
+    rng = np.random.default_rng(rows + d)
+    x = torch.from_numpy((rng.standard_normal((rows, d)) * 3 + 1).astype(np.float32))
+    x = x.to(cuda_device, getattr(torch, dtype))
+    scale = torch.from_numpy(rng.uniform(0.5, 1.5, d).astype(np.float32)).to(cuda_device)
+    bias = torch.from_numpy(rng.uniform(-1, 1, d).astype(np.float32)).to(cuda_device)
+    block.reset_launches()
+    got = layernorm.fused_layernorm(x, scale, bias, EPS)
+    want = layernorm.layernorm_reference(x, scale, bias, EPS)
+    torch.cuda.synchronize()
+    assert got.dtype == x.dtype and block.LAUNCHES["fused_layernorm"] == 1
+    got, want = got.float(), want.float()
+    if dtype == "float32":
+        torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+    else:
+        mag = torch.maximum(got.abs(), want.abs()).clamp_min(1e-30)
+        ulp = torch.exp2(torch.floor(torch.log2(mag)) - 7)
+        assert bool(((got - want).abs() <= ulp + 1e-5).all())
+
+
+@pytest.mark.cuda
+def test_layernorm_backward_and_refusals(cuda_device):
+    """The backward is autograd of the plain formula (JAX's contract): the
+    same gradients as layernorm_reference's; and the wrapper refuses widths
+    and dtypes the kernel does not take."""
+    from dino_pose_tpu_torch.ops import layernorm
+
+    rng = np.random.default_rng(1)
+    x = torch.from_numpy(rng.standard_normal((3, 70, 128)).astype(np.float32)).to(cuda_device)
+    scale = torch.from_numpy(rng.uniform(0.5, 1.5, 128).astype(np.float32)).to(cuda_device)
+    bias = torch.zeros(128, device=cuda_device)
+    grads = []
+    for fn in (layernorm.fused_layernorm, layernorm.layernorm_reference):
+        args = [t.clone().requires_grad_() for t in (x, scale, bias)]
+        (fn(*args, EPS) ** 2).sum().backward()
+        grads.append([a.grad for a in args])
+    for g, w in zip(*grads):
+        torch.testing.assert_close(g, w, atol=1e-4, rtol=1e-4)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        layernorm.fused_layernorm(torch.zeros(4, 100, device=cuda_device), scale[:100],
+                                  bias[:100], EPS)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        layernorm.fused_layernorm(torch.zeros(4, 8192, device=cuda_device),
+                                  torch.ones(8192, device=cuda_device),
+                                  torch.zeros(8192, device=cuda_device), EPS)
+    with pytest.raises(TypeError, match="bf16 or f32"):
+        layernorm.fused_layernorm(x.half(), scale, bias, EPS)
