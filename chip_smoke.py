@@ -5,8 +5,10 @@ them (LoRA, and unfreeze-last-4 with whole blocks training), all at 224²;
 then the long-sequence paths at 504² (S = 1297), where every layer streams
 its attention through the flash kernels: serving, and unfreeze-last-4 steps
 at batch 32; then FastViT serving at 256²: fastvit_t8 + LoRA r=8 (10
-ConvFFN kernel launches a forward) and fastvit_sa12 (12 ConvFFN launches and
-2 flash forwards, its attention stage); then FastViT LoRA fine-tuning at
+ConvFFN kernel launches a forward), fastvit_sa12 (12 ConvFFN launches and
+2 flash forwards, its attention stage) and fastvit_ma36 + LoRA r=8 (36
+ConvFFN launches, stages 0 and 1 at C = 76 and 152 zero-padded to the
+kernel's multiples of 16, and 6 flash forwards); then FastViT LoRA fine-tuning at
 256²: fastvit_t8 + LoRA r=8 at batch 128 (10 ConvFFN forward and 10
 backward launches a step) and fastvit_sa12 + LoRA r=8 at batch 32 (12 and
 12, and 2 flash forwards and backwards); then the bigger dinov2 backbones at
@@ -172,6 +174,12 @@ T8_CONFIG = {"model_name": "timm/fastvit_t8.apple_in1k", "use_lora": True}
 SA12_CONFIG = {"model_name": "timm/fastvit_sa12.apple_in1k"}
 SERVING_T8_LAUNCHES = {"fused_convffn": 10}
 SERVING_SA12_LAUNCHES = {"fused_convffn": 12, "flash_fwd": 2}
+# fastvit_ma36 + LoRA r=8 at 256² (depths 6/6/18/6, C = 76-608): one ConvFFN
+# kernel per block (stages 0 and 1 zero-padded from C = 76 and 152 to
+# multiples of 16 around the launch), one flash forward per attention block
+# of stage 3 (19 heads of 32 over the 8x8 grid).
+MA36_CONFIG = {"model_name": "timm/fastvit_ma36.apple_in1k", "use_lora": True}
+SERVING_MA36_LAUNCHES = {"fused_convffn": 36, "flash_fwd": 6}
 # FastViT LoRA fine-tuning at 256² (bench.py's FastViT cell: t8 + LoRA r=8 at
 # bs=128; sa12 + LoRA r=8 at bs=32, two checked steps, three timed). Every
 # ConvFFN runs its forward kernel and, in the backward, its backward kernel;
@@ -199,8 +207,9 @@ FASTVIT_GRAD_NAMES = (
 CONVFFN_STAGES = {
     "t8": [(48, 144, 4096, 2), (96, 288, 1024, 2), (192, 576, 256, 4), (384, 1152, 64, 2)],
     "sa12": [(64, 256, 4096, 2), (128, 512, 1024, 2), (256, 1024, 256, 6), (512, 2048, 64, 2)],
+    "ma36": [(76, 304, 4096, 6), (152, 608, 1024, 6), (304, 1216, 256, 18), (608, 2432, 64, 6)],
 }
-CONVFFN_RANK = {"t8": 8, "sa12": 0}
+CONVFFN_RANK = {"t8": 8, "sa12": 0, "ma36": 8}
 # The bigger dinov2 backbones at 224² (models/vit.py VIT_PRESETS): LoRA r=8
 # on the last layer, as the registry builds them. Their block route is JAX's
 # single-device TPU dispatch (ops/block.block_route): dinov2-base the
@@ -756,43 +765,61 @@ def check_flash(results: dict, q, k, v, g, where: str) -> None:
         row["max_abs_err"] = max(row["max_abs_err"], *errs)
 
 
-def flash_cost(b: int) -> dict:
-    """(FLOPs, bytes) of the flash forward and backward at batch b: the JAX
-    CostEstimate FLOP counts (4 and 10 * B*H*S^2*dh); bytes read and written
-    once: q, k, v (and the cotangent) in, o (dq, dk, dv) out, bf16, and the
-    f32 row max and sum out of the forward, into the backward."""
-    dh = D // H
-    act, stats = b * H * S_LONG * dh * 2, b * H * S_LONG * 2 * 4
-    return {"flash_attention": (4 * b * H * S_LONG**2 * dh, 4 * act + stats),
-            "flash_attention_bwd": (10 * b * H * S_LONG**2 * dh, 7 * act + stats)}
-
-
 def phase_flash(results: dict) -> dict:
     """flash_attention's kernels (a forward launch, a backward pair) against
     flash_math and flash_bwd_math on o, dq, dk and dv, bf16, B = 1, 8, 32:
     at (B, 6, 1297, 64), dinov2-small's at 504², and at (B, 16, 64, 32),
     fastvit_sa12's attention stage at 256² (32-wide heads; its train batch is
-    32); then, at the first shape, their times beside the plain versions',
-    the bound and torch's scaled_dot_product_attention (forward; backward
-    alone on a kept graph, and forward+backward), the library yardstick,
-    which the port never calls. Returns the times by batch."""
+    32), and two launches of each giving the same bits; then, at the first
+    shape, the forward at both of its query tiles (64 and 128 rows a block,
+    the measurement behind the kernel's choice by block count), and their
+    times beside the plain versions', the bound (JAX's FLOP count,
+    ``attention.flash_cost``), the rate on the FLOPs the kernels execute and
+    torch's scaled_dot_product_attention (forward; backward alone on a kept
+    graph, and forward+backward), the library yardstick, which the port
+    never calls. Returns the times by batch."""
     import torch.nn.functional as F
 
+    from dino_pose_tpu_torch.ops import _ext
     from dino_pose_tpu_torch.ops import attention as A
     from dino_pose_tpu_torch.ops import block as B
 
     gen, gen_sa12 = (torch.Generator().manual_seed(SEED + i) for i in (6, 10))
-    scale = (D // H) ** -0.5
+    dh = D // H
+    scale = dh ** -0.5
+    lib = _ext.lib()
     times = {}
     for b in FLASH_BATCHES:
         q, k, v, g = flash_inputs(b, gen)
         check_flash(results, q, k, v, g, f"B={b}")
-        heads, s, dh = SA12_FLASH_SHAPE
+        heads, s, sdh = SA12_FLASH_SHAPE
         check_flash(results, *flash_inputs(b, gen_sa12, SA12_FLASH_SHAPE),
-                    f"B={b} (fastvit_sa12: {heads} heads, S={s}, dh={dh})")
+                    f"B={b} (fastvit_sa12: {heads} heads, S={s}, dh={sdh})")
         leaves = [t.clone().requires_grad_() for t in (q, k, v)]
 
         saved = dict(B.LAUNCHES)
+        runs = []
+        for _ in range(2):
+            o, stats = A.flash_fwd(q, k, v, scale)
+            runs.append((o, stats, *A.flash_bwd(q, k, v, g, stats, scale)))
+        torch.cuda.synchronize()
+        # stats' third row is the backward's (written into flash_bwd's copy).
+        (o0, st0, *g0), (o1, st1, *g1) = runs
+        same = torch.equal(st0[:, :, :2], st1[:, :, :2]) and all(
+            torch.equal(x, y) for x, y in zip((o0, *g0), (o1, *g1)))
+        log(f"flash_attention B={b}: two launches of the forward and the backward pair give "
+            f"{'the same bits' if same else 'DIFFERENT bits'}")
+        if not same:
+            raise AssertionError(f"flash kernels at B={b} are not deterministic")
+        del runs, o0, st0, g0, o1, st1, g1
+        tiles = {}
+        for rows in (64, 128):
+            lib.dp_flash_fwd_rows(rows)
+            tiles[rows] = cuda_ms(lambda: A.flash_fwd(q, k, v, scale), iters=20)
+        lib.dp_flash_fwd_rows(0)
+        log(f"time flash_attention B={b} by query rows a block: 64 rows {tiles[64]:.4f} ms "
+            f"({b * H * -(-S_LONG // 64)} blocks), 128 rows {tiles[128]:.4f} ms "
+            f"({b * H * -(-S_LONG // 128)} blocks)")
         _, stats = A.flash_fwd(q, k, v, scale)
         sdpa_out = F.scaled_dot_product_attention(*leaves, scale=scale)
         t = {
@@ -810,13 +837,18 @@ def phase_flash(results: dict) -> dict:
             F.scaled_dot_product_attention(*leaves, scale=scale), leaves, g), iters=20)
         B.LAUNCHES.update(saved)  # timing launches are not main-path launches
         del sdpa_out, leaves, stats
+        cost = A.flash_cost(b, H, S_LONG, dh)
         for name, (ms, plain_ms, lib_ms) in t.items():
-            bound, by = B.bound_ms(*flash_cost(b)[name])
+            flops, nbytes, executed = cost[name]
+            bound, by = B.bound_ms(flops, nbytes)
+            rate = executed / ms / 1e9
             times.setdefault(b, {})[name] = {
                 "ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
-                "library_ms": lib_ms}
-            log(f"time {name} B={b}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-                f"bound {bound:.5f} ms ({by}), scaled_dot_product_attention {lib_ms:.4f} ms")
+                "library_ms": lib_ms, "executed_tflops": rate}
+            log(f"time {name} B={b}: kernel {ms:.4f} ms ({rate:.1f} TFLOP/s on the "
+                f"{executed:.4g} FLOPs it executes), plain {plain_ms:.4f} ms, bound "
+                f"{bound:.5f} ms ({by}), scaled_dot_product_attention {lib_ms:.4f} ms")
+        times[b]["flash_attention"]["ms_by_rows"] = tiles
         times[b]["flash_attention_bwd"]["library_fwd_bwd_ms"] = sdpa_fwd_bwd
         log(f"time scaled_dot_product_attention forward+backward B={b}: {sdpa_fwd_bwd:.4f} ms")
     return times
@@ -1534,10 +1566,12 @@ def convffn_inputs(b: int, s: int, c: int, h: int, r: int, gen: torch.Generator)
 def phase_convffn(results: dict, backward: bool) -> dict:
     """fused_convffn (with ``backward``, fused_convffn_bwd) against
     convffn_math (convffn_bwd_math, with a unit-scale seeded cotangent) at
-    every fastvit_t8 and fastvit_sa12 stage shape (256² input), bf16, at
-    batch 1, 8 and the model's train batch (128, 32): the forward at batch 1
-    and 8 at the serving rank (t8: 8, sa12: 0, rank-1 zero adapters with
-    ones masks), everything else at rank 8 with Dropout2d-style masks.
+    every fastvit_t8, fastvit_sa12 and fastvit_ma36 stage shape (256² input;
+    ma36's C = 76 and 152 through the wrappers' zero padding), bf16, at
+    batch 1, 8 and the model's train batch (128, 32; ma36 32): the forward
+    at batch 1 and 8 at the serving rank (t8 and ma36: 8, sa12: 0, rank-1
+    zero adapters with ones masks), everything else at rank 8 with
+    Dropout2d-style masks.
     Outputs at the kernel tolerance, each parameter gradient within GRAD_TOL
     of its largest magnitude; then kernel, plain and bound times. Returns, by
     batch, each model's sums over the launches of one forward (step) (stage
@@ -1550,6 +1584,7 @@ def phase_convffn(results: dict, backward: bool) -> dict:
     gen_train = gen if backward else torch.Generator().manual_seed(SEED + 11)
     out: dict = {}
     for model, stages in CONVFFN_STAGES.items():
+        # ma36 has no training phase: its backward is held at sa12's batch.
         train_batch = T8_TRAIN_BATCH if model == "t8" else SA12_TRAIN_BATCH
         rank = 8 if backward else CONVFFN_RANK[model]
         for b, r, g in ((1, rank, gen), (8, rank, gen), (train_batch, 8, gen_train)):
@@ -2018,6 +2053,7 @@ def main() -> int:
     unfreeze_504: dict = {}
     serving_t8: dict = {}
     serving_sa12: dict = {}
+    serving_ma36: dict = {}
     train_t8: dict = {}
     train_sa12: dict = {}
     serving_base: dict = {}
@@ -2053,6 +2089,9 @@ def main() -> int:
     phase_serving(results, serving_sa12, "serving_fastvit_sa12",
                   per_forward_launches=SERVING_SA12_LAUNCHES, n_lat=10, n_batches=4,
                   fwd_iters=10, config=SA12_CONFIG)
+    phase_serving(results, serving_ma36, "serving_fastvit_ma36",
+                  per_forward_launches=SERVING_MA36_LAUNCHES, n_lat=10, n_batches=4,
+                  fwd_iters=10, config=MA36_CONFIG)
     convffn_bwd_times = phase_convffn(results, backward=True)
     t8_run = phase_train(results, train_t8, "fastvit_t8_lora", T8_CONFIG, T8_TRAIN_LAUNCHES,
                          FASTVIT_GRAD_NAMES, ("fused_convffn", "fused_convffn_bwd"),
@@ -2199,6 +2238,7 @@ def main() -> int:
                        "serving": serving, "training": lora, "training_unfreeze": unfreeze,
                        "serving_504": serving_504, "training_unfreeze_504": unfreeze_504,
                        "serving_fastvit_t8": serving_t8, "serving_fastvit_sa12": serving_sa12,
+                       "serving_fastvit_ma36": serving_ma36,
                        "training_fastvit_t8_lora": train_t8,
                        "training_fastvit_sa12_lora": train_sa12,
                        "serving_dinov2_base": serving_base, "training_dinov2_base_lora": train_base,

@@ -24,6 +24,7 @@ import torch
 SIGMA = 15.0
 TH = 1.6052
 DELTA = math.sqrt(TH * 2)
+_LOG2E = math.log2(math.e)
 
 
 def _cubic_weights(frac: np.ndarray, a: float = -0.75) -> np.ndarray:
@@ -82,7 +83,11 @@ def _windowed_gaussians_torch(centers: torch.Tensor, size: int):
     hi = torch.floor(torch.clamp(centers + r, max=float(size)))
     xs = torch.arange(size, dtype=centers.dtype, device=centers.device)
     mask = (xs >= lo[..., None]) & (xs < hi[..., None])
-    g = torch.exp(-((xs - centers[..., None]) ** 2) / (2.0 * SIGMA**2))
+    # exp2 of the exponent times log2(e), not torch.exp: on the CPU torch.exp
+    # goes through MKL's vector math, whose first call in a process has
+    # returned a run of values up to 2e-5 off (relative) on a loaded host,
+    # while the same call repeated was right; exp2 does not take that path.
+    g = torch.exp2(-((xs - centers[..., None]) ** 2) * (_LOG2E / (2.0 * SIGMA**2)))
     return g * mask, lo, hi
 
 

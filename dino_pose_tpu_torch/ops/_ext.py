@@ -85,6 +85,7 @@ _SIGNATURES = {
     "dp_fused_attn_bwd_stream": ([_P] * 24 + [_I] * 6 + [_F, _P], _I),
     "dp_flash_fwd": ([_P] * 5 + [_I] * 4 + [_F, _P], _I),
     "dp_flash_bwd": ([_P] * 8 + [_I] * 4 + [_F, _P], _I),
+    "dp_flash_fwd_rows": ([_I], _I),
     "dp_convffn_smem_bytes": ([_I], ctypes.c_longlong),
     "dp_fused_convffn": ([_P] * 14 + [_I] * 5 + [_F, _P], _I),
     "dp_convffn_bwd_smem_bytes": ([_I], ctypes.c_longlong),

@@ -12,9 +12,12 @@ its backward           ``flash_bwd_math``   ``_flash_bwd_kernel`` (:130)
 tensors, the counterpart of JAX's ``custom_vjp`` (attention.py:240-254). On
 a CUDA tensor its forward launches ``flash_fwd_kernel`` and its backward
 ``flash_bwd_dq_kernel`` then ``flash_bwd_dkv_kernel``
-(``ops/csrc/flash_kernels.cu``, bf16, head width 32 or 64, any S); it never
-falls back. On the CPU it runs ``flash_math`` and ``flash_bwd_math`` inside
-the same function, so that both paths keep JAX's f32 intermediates.
+(``ops/csrc/flash_kernels.cu``, bf16, head width 32 or 64, any S; register
+tiles of ``mma.sync``, K and V streamed by ``cp.async`` in two stages); it
+never falls back. On the CPU it runs ``flash_math`` and ``flash_bwd_math``
+inside the same function, so that both paths keep JAX's f32 intermediates.
+``flash_cost`` counts their work: JAX's FLOPs and bytes, which give the
+bound, and the FLOPs the kernels execute.
 
 The same kernels are the attention step of the block chains
 (``ops/block.py``) wherever the head's K and V do not fit shared memory
@@ -68,6 +71,21 @@ def flash_bwd_math(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.
     dk = (torch.matmul(dsb.transpose(-1, -2), q.float()) * scale).to(dt)
     dq = (torch.matmul(dsb, k.float()) * scale).to(dt)
     return dq, dk, dv
+
+
+def flash_cost(b: int, h: int, s: int, dh: int) -> dict[str, tuple[int, int, int]]:
+    """(FLOPs, bytes, executed FLOPs) of the flash forward and backward on
+    (b, h, s, dh) bf16 tensors. FLOPs and bytes are the JAX kernels'
+    ``CostEstimate`` (attention.py:120-124 and :226-230) at the true length
+    s, where JAX counts its padded one: 4 and 10 * B*H*S^2*dh FLOPs; q, k, v
+    in and o out, then q, k, v and the cotangent in and dq, dk, dv out, each
+    once. They give the bound. The kernels execute 6 (Q K^T in both passes)
+    and 18 (Q K^T and dO V^T in both passes of the dq kernel and again in
+    the dkv kernel) * B*H*S^2*dh: the price of the normalised P and the
+    exact rowsum(P * dP)."""
+    unit, act = b * h * s * s * dh, b * h * s * dh * 2
+    return {"flash_attention": (4 * unit, 4 * act, 6 * unit),
+            "flash_attention_bwd": (10 * unit, 7 * act, 18 * unit)}
 
 
 def _check(name: str, *tensors: torch.Tensor) -> None:

@@ -115,6 +115,7 @@ bf16 where the JAX math casts them.
 
 from __future__ import annotations
 
+import os
 from typing import NamedTuple
 
 import torch
@@ -644,13 +645,32 @@ def block_route(d: int, s: int, num_heads: int, hidden: int, itemsize: int, *,
     fits, and ``"math"`` otherwise, as does a block that trains whole. At
     224² in bf16 dinov2-base and -large take ``"tp"`` at tp 2 and 4,
     dinov2-small at tp 2 (its 6 heads do not divide over 4); at S = 1297
-    ``"math"``."""
+    ``"math"``.
+
+    ``DINO_POSE_TPU_BLOCK`` is read at call time, as JAX's three gates read
+    it (``fused_blocks_enabled``, ``stream_fused_enabled``,
+    ``parts_fused_enabled``, ops/block.py:2650-2675, :2513-2517,
+    :2557-2561): ``unfused``/``xla`` close all three (``"math"``);
+    ``fused``/``pallas`` open the whole-block gate at any shape (``"block"``;
+    under a mesh a frozen block keeps the whole kernel over its data shard, a
+    trainable one gives way to ``block_math``, a LoRA block takes the TP
+    halves without a fit); ``parts`` sizes the halves on one device's
+    byte model; ``stream`` opens the streamed gate, which the halves' gate
+    precedes, so it moves no route of the TPU dispatch. Every route still
+    runs the port's kernel chains on the card."""
     sp = -(-s // 8) * 8
+    override = os.environ.get("DINO_POSE_TPU_BLOCK", "").lower()
+    if override in ("unfused", "xla"):
+        return "math"
+    forced = override in ("fused", "pallas") and hidden == 4 * d
     if tp > 1:
+        if forced and not lora:
+            return "math" if training else "block"
         if (training and not lora) or num_heads % tp or hidden % tp:
             return "math"
-        return "tp" if _halves_fit(d, sp, hidden, itemsize, tp) else "math"
-    if _whole_block_fits(d, sp, hidden, itemsize):
+        fits = _halves_fit(d, sp, hidden, itemsize, 1 if override == "parts" else tp)
+        return "tp" if forced or fits else "math"
+    if forced or _whole_block_fits(d, sp, hidden, itemsize):
         return "block"
     streams = _stream_plans_exist(d, sp, num_heads, hidden, itemsize)
     if training and not lora:

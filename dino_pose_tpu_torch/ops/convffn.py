@@ -31,6 +31,15 @@ copied.
 Rank 0 (no LoRA) is expressed as JAX expresses it (fastvit.py:596-603):
 rank-1 zero adapters, ones masks and s = 1, so one kernel serves every
 configuration.
+
+The kernels take widths C and H in multiples of 16 (their 16x16 tensor-core
+tiles). fastvit_ma36's stages 0 and 1 (C = 76, 152) are not: the wrappers
+zero-pad C and H up to the next multiple of 16 before the launch
+(``pad_widths``: y, res, df, inv, shift, the W1 rows and columns, the W2
+rows and columns, b1, b2, the A1 and A2 rows and the B1 and B2 columns)
+and slice the outputs and gradients back (``unpad_grads``). The padded
+lanes carry exact zeros through every product (m, h, g, dh and dm are 0
+there), so the result is the unpadded one up to the order of the f32 sums.
 """
 
 from __future__ import annotations
@@ -241,21 +250,55 @@ def _stream() -> int:
     return torch.cuda.current_stream().cuda_stream
 
 
-def _check(y: torch.Tensor, p: ConvFFNParams, name: str,
-           smem_bytes: str = "dp_convffn_smem_bytes") -> tuple[int, int, int, int, int]:
+def _up16(n: int) -> int:
+    return -(-n // 16) * 16
+
+
+def pad_widths(y: torch.Tensor, p: ConvFFNParams, *rows: torch.Tensor
+               ) -> tuple[torch.Tensor, ConvFFNParams, tuple[torch.Tensor, ...]]:
+    """(y, p, rows) with C and H zero-padded up to multiples of 16, the
+    kernels' widths: y and each of ``rows`` (res, df: (B, S, C)) along C;
+    inv, shift, b2, the W2 and B2 columns and the W1 and A1 rows along C;
+    b1, the W1 and B1 columns and the W2 and A2 rows along H. The masks are
+    unchanged. Returns the operands as they are where both widths already
+    are multiples of 16."""
+    c, h = y.shape[-1], p.w1.shape[-1]
+    dc, dh = _up16(c) - c, _up16(h) - h
+    if not (dc or dh):
+        return y, p, rows
+
+    def pad(t: torch.Tensor, last: int, first: int = 0) -> torch.Tensor:
+        return torch.nn.functional.pad(t, (0, last, 0, first) if first else (0, last))
+
+    padded = ConvFFNParams(
+        inv=pad(p.inv, dc), shift=pad(p.shift, dc), w1=pad(p.w1, dh, dc), b1=pad(p.b1, dh),
+        w2=pad(p.w2, dc, dh), b2=pad(p.b2, dc), a1=pad(p.a1, 0, dc), b1l=pad(p.b1l, dh),
+        a2=pad(p.a2, 0, dh), b2l=pad(p.b2l, dc), m1=p.m1, m2=p.m2)
+    return pad(y, dc), padded, tuple(pad(t, dc) for t in rows)
+
+
+def unpad_grads(g: ConvFFNGrads, c: int, h: int) -> ConvFFNGrads:
+    """The gradients of ``pad_widths``' operands sliced back to C and H."""
+    return ConvFFNGrads(inv=g.inv[:c], shift=g.shift[:c], a1=g.a1[:c].contiguous(),
+                        b1l=g.b1l[:, :h].contiguous(), a2=g.a2[:h].contiguous(),
+                        b2l=g.b2l[:, :c].contiguous())
+
+
+def _unpad_rows(t: torch.Tensor, c: int) -> torch.Tensor:
+    return t if t.shape[-1] == c else t[..., :c].contiguous()
+
+
+def _check(y: torch.Tensor, p: ConvFFNParams, name: str) -> tuple[int, int, int, int, int]:
+    """Refuses what the kernels do not take, on the caller's (unpadded)
+    operands."""
     if y.dtype != torch.bfloat16:
         raise TypeError(f"{name}: the CUDA kernel takes bf16 activations, got {y.dtype}")
     if y.dim() != 3 or not y.is_contiguous() or y.data_ptr() % 16:
         raise ValueError(f"{name}: y must be a contiguous, 16-byte aligned (B, S, C) tensor")
     b, s, c = y.shape
     h, r = p.w1.shape[-1], p.a1.shape[-1]
-    if c % 16 or h % 16:
-        raise ValueError(f"{name}: widths C={c}, H={h} must be multiples of 16 (the kernel's "
-                         f"16x16 tensor-core tiles); fastvit_ma36's C=76 is not ported yet")
     if not 1 <= r <= MAX_RANK:
         raise ValueError(f"{name}: LoRA rank {r} is not in 1..{MAX_RANK} (rank 0 is rank-1 zeros)")
-    if getattr(_ext.lib(), smem_bytes)(c) > _SMEM_LIMIT:
-        raise ValueError(f"{name}: rows of width {c} do not fit shared memory")
     shapes = {"inv": (c,), "shift": (c,), "w1": (c, h), "b1": (h,), "w2": (h, c), "b2": (c,),
               "a1": (c, r), "b1l": (r, h), "a2": (h, r), "b2l": (r, c), "m1": (b, r), "m2": (b, r)}
     for field, shape in shapes.items():
@@ -268,6 +311,11 @@ def _check(y: torch.Tensor, p: ConvFFNParams, name: str,
             raise ValueError(f"{name}: {field} must be a contiguous, 32-byte aligned {shape} "
                              f"tensor, got {tuple(t.shape)}")
     return b, s, c, h, r
+
+
+def _check_smem(c: int, name: str, smem_bytes: str = "dp_convffn_smem_bytes") -> None:
+    if getattr(_ext.lib(), smem_bytes)(c) > _SMEM_LIMIT:
+        raise ValueError(f"{name}: rows of width {c} do not fit shared memory")
 
 
 def fused_convffn(y: torch.Tensor, p: ConvFFNParams, s_lora: float) -> torch.Tensor:
@@ -283,9 +331,10 @@ def fused_convffn(y: torch.Tensor, p: ConvFFNParams, s_lora: float) -> torch.Ten
     memory, and u2 += g-chunk @ A2[chunk] on the CUDA cores. h and g never
     reach device memory, as on the TPU. The rank-R LoRA products are 8 FMAs
     per output element on the CUDA cores, not padded tensor-core tiles; the
-    masks are per sample (row // S). Widths are multiples of 16 (t8 and
-    sa12's C = 48-512, H = 144-2048; 16x16 tiles need no edge masks), rows
-    are masked at the ragged edge.
+    masks are per sample (row // S). The kernel's widths are multiples of
+    16 (16x16 tiles need no edge masks): t8 and sa12's C = 48-512 and
+    H = 144-2048 are, ma36's C = 76 and 152 are padded (``pad_widths``);
+    rows are masked at the ragged edge.
 
     Bound on an H100: 4*B*S*C*H FLOPs (plus 4*B*S*R*(C+H) for LoRA) at
     989 TFLOP/s, or y and out (bf16) plus the weights at 3.35 TB/s;
@@ -299,13 +348,18 @@ def fused_convffn(y: torch.Tensor, p: ConvFFNParams, s_lora: float) -> torch.Ten
     if torch.is_grad_enabled() and any(t.requires_grad for t in (y, *p)):
         raise ValueError(f"{name} has no backward of its own, and an operand requires grad: "
                          "convffn_train is the differentiable ConvFFN")
-    b, s, c, h, r = _check(y, p, name)
+    _check(y, p, name)
+    c = y.shape[-1]
+    y, p, _ = pad_widths(y, p)
+    b, s, cp = y.shape
+    _check_smem(cp, name)
     out = torch.empty_like(y)
     err = _ext.lib().dp_fused_convffn(
-        *(t.data_ptr() for t in (y, *p, out)), b * s, s, c, h, r, float(s_lora), _stream())
+        *(t.data_ptr() for t in (y, *p, out)), b * s, s, cp, p.w1.shape[-1], p.a1.shape[-1],
+        float(s_lora), _stream())
     _ext.check(err, name)
     LAUNCHES[name] += 1
-    return out
+    return _unpad_rows(out, c)
 
 
 def fused_convffn_res(y: torch.Tensor, res: torch.Tensor, p: ConvFFNParams,
@@ -329,17 +383,22 @@ def fused_convffn_res(y: torch.Tensor, res: torch.Tensor, p: ConvFFNParams,
     if torch.is_grad_enabled() and any(t.requires_grad for t in (y, res, *p)):
         raise ValueError(f"{name} has no backward of its own, and an operand requires grad: "
                          "convffn_res_train is the differentiable one")
-    b, s, c, h, r = _check(y, p, name)
+    _check(y, p, name)
     if (res.shape != y.shape or res.dtype != y.dtype or res.device != y.device
             or not res.is_contiguous() or res.data_ptr() % 16):
         raise ValueError(f"{name}: res must be a contiguous, 16-byte aligned bf16 tensor of y's "
                          f"shape {tuple(y.shape)}")
+    c = y.shape[-1]
+    y, p, (res,) = pad_widths(y, p, res)
+    b, s, cp = y.shape
+    _check_smem(cp, name)
     out = torch.empty_like(y)
     err = _ext.lib().dp_fused_convffn_res(
-        *(t.data_ptr() for t in (y, res, *p, out)), b * s, s, c, h, r, float(s_lora), _stream())
+        *(t.data_ptr() for t in (y, res, *p, out)), b * s, s, cp, p.w1.shape[-1],
+        p.a1.shape[-1], float(s_lora), _stream())
     _ext.check(err, name)
     LAUNCHES[name] += 1
-    return out
+    return _unpad_rows(out, c)
 
 
 def fused_convffn_bwd(y: torch.Tensor, df: torch.Tensor, p: ConvFFNParams,
@@ -370,27 +429,32 @@ def fused_convffn_bwd(y: torch.Tensor, df: torch.Tensor, p: ConvFFNParams,
         return convffn_bwd_math(y, df, p, s_lora)
     if y.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {y.device}")
-    b, s, c, h, r = _check(y, p, name, "dp_convffn_bwd_smem_bytes")
+    _, _, c, h, _ = _check(y, p, name)
     if (df.shape != y.shape or df.dtype != y.dtype or df.device != y.device
             or not df.is_contiguous() or df.data_ptr() % 16):
         raise ValueError(f"{name}: df must be a contiguous, 16-byte aligned bf16 tensor of y's "
                          f"shape {tuple(y.shape)}")
+    y, p, (df,) = pad_widths(y, p, df)
+    b, s, cp = y.shape
+    hp, r = p.w1.shape[-1], p.a1.shape[-1]
+    _check_smem(cp, name, "dp_convffn_bwd_smem_bytes")
     lib = _ext.lib()
     m = b * s
-    blocks = lib.dp_convffn_bwd_blocks(m, c)
+    blocks = lib.dp_convffn_bwd_blocks(m, cp)
     if blocks < 1:
-        raise RuntimeError(f"{name}: the kernel's occupancy query failed at C={c}")
-    shapes = ((c,), (c,), (c, r), (r, h), (h, r), (r, c))
+        raise RuntimeError(f"{name}: the kernel's occupancy query failed at C={cp}")
+    shapes = ((cp,), (cp,), (cp, r), (r, hp), (hp, r), (r, cp))
     sizes = [math.prod(shape) for shape in shapes]
     partials = torch.empty(blocks * sum(sizes), dtype=torch.float32, device=y.device)
     flat = torch.empty(sum(sizes), dtype=torch.float32, device=y.device)
     dy = torch.empty_like(y)
     err = lib.dp_fused_convffn_bwd(
-        *(t.data_ptr() for t in (y, df, *p, dy, partials, flat)), blocks, m, s, c, h, r,
+        *(t.data_ptr() for t in (y, df, *p, dy, partials, flat)), blocks, m, s, cp, hp, r,
         float(s_lora), _stream())
     _ext.check(err, name)
     LAUNCHES[name] += 1
-    return dy, ConvFFNGrads(*(t.view(shape) for t, shape in zip(flat.split(sizes), shapes)))
+    grads = ConvFFNGrads(*(t.view(shape) for t, shape in zip(flat.split(sizes), shapes)))
+    return _unpad_rows(dy, c), unpad_grads(grads, c, h)
 
 
 _FROZEN = ("w1", "b1", "w2", "b2", "m1", "m2")

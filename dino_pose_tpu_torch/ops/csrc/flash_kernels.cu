@@ -11,425 +11,683 @@
 // shared memory in 64-row tiles, so a block's shared memory does not grow
 // with S:
 //
-//   flash_fwd_kernel<DH>      one block per (64-query tile, head, batch),
-//                             4 warps x 16 query rows; two passes over the
-//                             key tiles: the first finds each row's max m
-//                             and sum l (the sum rescaled as the max moves),
-//                             the second forms P = bf16(exp(s*scale - m)/l)
-//                             and accumulates P V in f32. 53 KB (DH = 64).
+//   flash_fwd_kernel<DH, MT>  one block per (16*4*MT-query tile, head,
+//                             batch), 4 warps of 16*MT query rows; two
+//                             passes over the key tiles: the first finds
+//                             each row's max m and sum l (the sum rescaled
+//                             as the max moves), the second forms
+//                             P = bf16(exp(s*scale - m) * (1/l)) and
+//                             accumulates P V in f32.
 //   flash_bwd_dq_kernel<DH>   per 64-query tile over the key tiles: a first
 //                             pass sums rowsum(P * dP) exactly in f32, the
 //                             second forms dS = P * (dP - rowsum) and
-//                             accumulates bf16(dS) K. 79 KB.
+//                             accumulates bf16(dS) K.
 //   flash_bwd_dkv_kernel<DH>  per 64-key tile over the query tiles: P and dS
 //                             rebuilt from the statistics, dv += bf16(P)^T dO,
-//                             dk += bf16(dS)^T Q. 89 KB.
+//                             dk += bf16(dS)^T Q.
 //
 // Rounding points are those of the JAX kernels (attention.py:50-69 and
-// :143-186): f32 scores times scale, max-subtracted exp, f32 normalisation,
-// P rounded to bf16 before P V and the output rounded once; in the backward
-// P and dP in f32, bf16(P) and bf16(dS) before their products, dq, dk and dv
-// accumulated in f32 and rounded once (dq and dk after the scale). The one
-// departure: l is summed tile by tile, rescaled as the running max moves,
-// where JAX sums exp(s - max) over the whole row once; the two differ by f32
-// roundoff. A single online-softmax pass would round P before it is
-// normalised; it is left to a later PR. Keys >= S get P = 0 (JAX's valid_len
-// mask) and queries >= S are never written: the ragged last tile is masked,
-// no padding copy is made. No atomics: two runs give the same bits.
+// :143-186): f32 scores, max-subtracted exp, f32 normalisation, P rounded to
+// bf16 before P V and the output rounded once; in the backward P and dP in
+// f32, dS formed with the exact f32 rowsum(P * dP), bf16(P) and bf16(dS)
+// before their products, dq, dk and dv accumulated in f32 and rounded once
+// (dq and dk after the scale). Departures at the level of f32 roundoff: the
+// exp is exp2 with scale*log2(e) folded into one FMA, each row's 1/l is
+// taken once and multiplied in, and l is summed tile by tile, rescaled as
+// the running max moves, where JAX sums exp(s - max) over the whole row
+// once. A single online-softmax pass would round P before it is normalised,
+// and rowsum(dO * O) in place of rowsum(P * dP) would move the backward's
+// rounding; neither is taken. Keys >= S get P = 0 (JAX's valid_len mask) and
+// queries >= S are never written: the ragged last tile is zero-filled in
+// shared memory and masked, no padding copy is made. No atomics: two runs
+// give the same bits.
 //
 // Bound on an H100 at dinov2-small, 504² input (S = 1297, 6 heads of 64):
-// 4*B*H*S^2*dh FLOPs forward (0.084 ms at B = 32), 10*B*H*S^2*dh backward
-// (0.209 ms), the JAX CostEstimate counts; operations bound both from
-// batch 1. This first version recomputes Q K^T in its second pass (and dq's
-// dP twice), runs 16x16x16 WMMA tiles without a copy pipeline, and so sits
-// far from that bound; PERF.md holds its times.
+// JAX's counts, 4*B*H*S^2*dh FLOPs forward and 10*B*H*S^2*dh backward
+// (0.084 and 0.209 ms at B = 32), bound by operations from batch 1. The
+// exact rowsum and the normalised P cost recomputation: the kernels execute
+// 6 (forward: Q K^T in both passes) and 18 (backward: Q K^T and dO V^T in
+// both dq passes and again in dkv) B*H*S^2*dh FLOPs, ops/attention.py's
+// flash_cost. What bounds them on the card is the rate of those products
+// and the per-score arithmetic (an exp and a few FMAs on each of S^2 scores
+// per pass). The design, for the tensor cores' register-level rate:
+//
+//   - mma.sync.m16n8k16 (bf16 in, f32 accumulate) through inline PTX, whose
+//     fragment layout is documented: scores, P, dP and dS never leave
+//     registers. A warp owns 16 rows; the row max and sum reduce over the
+//     quad of lanes that holds a row. The f32 accumulator of Q K^T (or
+//     K Q^T) is packed to bf16 pairs in place as the A operand of P V,
+//     dS K, P^T dO and dS^T Q.
+//   - K and V tiles (Q and dO in the dkv kernel) arrive by cp.async in a
+//     ring of two stages: the next tile's copy runs while the tensor cores
+//     work on the current one (the forward's second pass starts its first
+//     tile's copy during the first pass's last). Operands reach registers by
+//     ldmatrix (.trans for the k-major B operands) from rows padded by 16
+//     bytes, so the eight rows of an 8x8 matrix fall in different banks.
+//   - exp2 (ex2.approx.ftz) of one FMA per score; one reciprocal per row.
+//   - Tiles (measured on an H100 80GB HBM3 at 700 W at S = 1297, dh = 64,
+//     chip_smoke.py's flash phase): 64 keys per streamed tile and 4 warps a
+//     block throughout; the forward takes 64 query rows a block (MT = 1:
+//     126 blocks at B = 1 on 132 SMs, 0.034 ms against 0.047 for 66
+//     128-row blocks) where 128-row blocks would leave fewer than two
+//     blocks per SM, else 128 (MT = 2: each ldmatrix'd K and V fragment
+//     feeds two row tiles and the K/V traffic per query halves; 0.129
+//     against 0.141 ms at B = 8, 0.500 against 0.515 at B = 32). The
+//     backward pair runs 64-row tiles (126 blocks each at B = 1): its
+//     accumulators (dk and dv, or S, dP and dq) already take 168-245
+//     registers a thread, no room for a second row tile.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
-#include <mma.h>
 #include <stdint.h>
 
 #include "flash_kernels.cuh"
 
-using namespace nvcuda;
 typedef __nv_bfloat16 bf16;
 
 namespace dp_flash {
 namespace {
 
-constexpr int FQ = 64;         // query rows per block (4 warps x 16)
-constexpr int FK = 64;         // keys per streamed tile
-constexpr int THREADS = 128;
-constexpr int PAD_H = 8;       // bf16 row padding (WMMA ldm % 8 == 0)
-constexpr int PAD_F = 4;       // f32 row padding
-constexpr int LDS = FK + PAD_F;  // f32 score rows
-constexpr int LDP = FK + PAD_H;  // bf16 probability rows
+constexpr int WARPS = 4;
+constexpr int THREADS = 32 * WARPS;
+constexpr int FK = 64;   // keys (queries in the dkv kernel) per streamed tile
+constexpr int PAD = 8;   // bf16 row padding: 16 bytes, conflict-free ldmatrix
+constexpr float LOG2E = 1.4426950408889634f;
 
 template <int DH>
-__host__ __device__ constexpr size_t tile_bytes() {
-  return static_cast<size_t>(FQ) * (DH + PAD_H) * 2;
+constexpr size_t tile_bytes(int rows) {
+  return static_cast<size_t>(rows) * (DH + PAD) * sizeof(bf16);
 }
-constexpr size_t SCORE_BYTES = static_cast<size_t>(FQ) * LDS * 4;
-constexpr size_t PROB_BYTES = static_cast<size_t>(FQ) * LDP * 2;
-
+// Q tile + two stages of K and V.
+template <int DH, int MT>
+constexpr size_t fwd_smem() { return tile_bytes<DH>(64 * MT) + 4 * tile_bytes<DH>(FK); }
+// Q and dO tiles + two stages of K and V.
 template <int DH>
-constexpr size_t fwd_smem() { return 3 * tile_bytes<DH>() + SCORE_BYTES + PROB_BYTES; }
-template <int DH>
-constexpr size_t dq_smem() { return 4 * tile_bytes<DH>() + 2 * SCORE_BYTES + PROB_BYTES; }
+constexpr size_t dq_smem() { return 2 * tile_bytes<DH>(64) + 4 * tile_bytes<DH>(FK); }
+// K and V tiles + two stages of Q and dO + two stages of the queries'
+// (m * log2e, 1/l, rowsum) triples.
 template <int DH>
 constexpr size_t dkv_smem() {
-  return 4 * tile_bytes<DH>() + 2 * SCORE_BYTES + 2 * PROB_BYTES + 3 * FQ * 4;
+  return 2 * tile_bytes<DH>(64) + 4 * tile_bytes<DH>(FK) + 2 * 3 * FK * sizeof(float);
 }
 
-typedef wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> FragA;
-typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> FragBRow;
-typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> FragBCol;
-typedef wmma::fragment<wmma::accumulator, 16, 16, 16, float> FragC;
+__device__ __forceinline__ uint32_t smem_u32(const void* ptr) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(ptr));
+}
 
-// rows [r0, r0 + 64) of a (., DH) slab with row stride ld into a padded
-// shared tile; rows >= S are zero.
-template <int DH>
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(valid ? 16 : 0));
+}
+__device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+// c (16 x 8, f32) += a (16 x 16, bf16) b (16 x 8, bf16).
+__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                    uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// The mma fragments (lane = 4*g + t): an accumulator c of a 16 x 8 tile holds
+// (row g, cols 2t, 2t+1) in c[0..1] and (row g+8, the same cols) in c[2..3];
+// an A operand a[0..3] = (row g, k 2t..), (row g+8, k 2t..), (row g,
+// k 2t+8..), (row g+8, k 2t+8..); a B operand b[0..1] = (k 2t.., col g),
+// (k 2t+8.., col g).
+
+// rows [r0, r0 + ROWS) of a (., DH) slab with row stride ld into a padded
+// shared tile, asynchronously; rows >= S are zero-filled.
+template <int DH, int ROWS>
 __device__ __forceinline__ void load_tile(bf16* dst, const bf16* src, long long ld, int r0,
                                           int S) {
   constexpr int VPR = DH / 8;  // 16-byte vectors per row
-  constexpr int LDH = DH + PAD_H;
-  for (int i = threadIdx.x; i < FQ * VPR; i += THREADS) {
+  static_assert(ROWS * VPR % THREADS == 0, "tile vectors must split evenly over the block");
+  const uint32_t base = smem_u32(dst);
+#pragma unroll
+  for (int k = 0; k < ROWS * VPR / THREADS; ++k) {
+    const int i = threadIdx.x + k * THREADS;
     const int r = i / VPR, c = (i % VPR) * 8;
-    uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (r0 + r < S) v = *reinterpret_cast<const uint4*>(src + (r0 + r) * ld + c);
-    *reinterpret_cast<uint4*>(dst + r * LDH + c) = v;
+    const bool valid = r0 + r < S;
+    cp_async16(base + (r * (DH + PAD) + c) * 2, valid ? src + (r0 + r) * ld + c : src, valid);
   }
 }
 
-// dst (16 x 64, f32, row stride LDS) = a (16 x DH, fragments) times the
-// 64 rows of b (row stride LDH) transposed: a warp's 16 rows of Q K^T,
-// dO V^T, K Q^T or V dO^T.
+// The A operand of rows [r0, r0 + 16), k [k0, k0 + 16) of a row-major tile.
 template <int DH>
-__device__ __forceinline__ void rows_times_tile_t(float* dst, const FragA (&a)[DH / 16],
-                                                  const bf16* b) {
-  constexpr int LDH = DH + PAD_H;
-#pragma unroll
-  for (int n = 0; n < FK; n += 16) {
-    FragC acc;
-    wmma::fill_fragment(acc, 0.f);
-#pragma unroll
-    for (int kk = 0; kk < DH / 16; ++kk) {
-      FragBCol bf;
-      wmma::load_matrix_sync(bf, b + n * LDH + kk * 16, LDH);
-      wmma::mma_sync(acc, a[kk], bf, acc);
-    }
-    wmma::store_matrix_sync(dst + n, acc, LDS, wmma::mem_row_major);
-  }
-}
-
-// acc (16 x DH) += a (16 x 64 bf16, row stride LDP) times b (64 x DH, row
-// stride LDH): P V, dS K, P^T dO, dS^T Q.
-template <int DH>
-__device__ __forceinline__ void rows_times_tile(FragC (&acc)[DH / 16], const bf16* a,
-                                                const bf16* b) {
-  constexpr int LDH = DH + PAD_H;
-#pragma unroll
-  for (int kk = 0; kk < FK; kk += 16) {
-    FragA af;
-    wmma::load_matrix_sync(af, a + kk, LDP);
-#pragma unroll
-    for (int j = 0; j < DH / 16; ++j) {
-      FragBRow bf;
-      wmma::load_matrix_sync(bf, b + kk * LDH + j * 16, LDH);
-      wmma::mma_sync(acc[j], af, bf, acc[j]);
-    }
-  }
-}
-
-// Rounds a warp's 16 x DH accumulators to bf16 rows dst + r*ld (r < rows),
-// times scale, through its 16 rows of f32 scratch (row stride LDS >= DH).
-template <int DH>
-__device__ __forceinline__ void store_rows(bf16* dst, long long ld, int rows,
-                                           FragC (&acc)[DH / 16], float* scratch, float scale) {
+__device__ __forceinline__ void lds_a(uint32_t (&a)[4], const bf16* tile, int r0, int k0) {
   const int lane = threadIdx.x & 31;
-  __syncwarp();
+  ldsm_x4(a, smem_u32(tile + (r0 + (lane & 7) + ((lane >> 3) & 1) * 8) * (DH + PAD) + k0 +
+                      (lane >> 4) * 8));
+}
+
+// B operands of two 8-column tiles, cols [n0, n0 + 16), from a tile whose
+// rows are the columns (K for Q K^T): b[0..1] cols n0.., b[2..3] n0 + 8...
+template <int DH>
+__device__ __forceinline__ void lds_b_nk(uint32_t (&b)[4], const bf16* tile, int n0, int k0) {
+  const int lane = threadIdx.x & 31;
+  ldsm_x4(b, smem_u32(tile + (n0 + (lane & 7) + (lane >> 4) * 8) * (DH + PAD) + k0 +
+                      ((lane >> 3) & 1) * 8));
+}
+
+// B operands of two 8-column tiles from a tile whose rows are k (V for P V).
+template <int DH>
+__device__ __forceinline__ void lds_b_kn(uint32_t (&b)[4], const bf16* tile, int k0, int n0) {
+  const int lane = threadIdx.x & 31;
+  ldsm_x4_t(b, smem_u32(tile + (k0 + (lane & 7) + ((lane >> 3) & 1) * 8) * (DH + PAD) + n0 +
+                        (lane >> 4) * 8));
+}
+
+// s[mt] (16 x 64, f32) = a[mt] (16 x DH) times the 64 rows of tile
+// transposed: Q K^T, dO V^T, K Q^T or V dO^T for MT row tiles.
+template <int DH, int MT>
+__device__ __forceinline__ void rows_times_tile_t(float (&s)[MT][FK / 8][4],
+                                                  const uint32_t (&a)[MT][DH / 16][4],
+                                                  const bf16* tile) {
 #pragma unroll
-  for (int j = 0; j < DH / 16; ++j)
-    wmma::store_matrix_sync(scratch + j * 16, acc[j], LDS, wmma::mem_row_major);
-  __syncwarp();
-  for (int i = lane; i < 16 * DH; i += 32) {
-    const int r = i / DH, c = i % DH;
-    if (r < rows) dst[r * ld + c] = __float2bfloat16(scratch[r * LDS + c] * scale);
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int j = 0; j < FK / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[mt][j][e] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < DH / 16; ++kk) {
+#pragma unroll
+    for (int j2 = 0; j2 < FK / 16; ++j2) {
+      uint32_t b[4];
+      lds_b_nk<DH>(b, tile, 16 * j2, 16 * kk);
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        mma(s[mt][2 * j2], a[mt][kk], b[0], b[1]);
+        mma(s[mt][2 * j2 + 1], a[mt][kk], b[2], b[3]);
+      }
+    }
   }
 }
 
-// Lane l of a warp owns row (l & 15) of the warp's 16 rows and columns
-// [32*(l >> 4), +32) of a 64-wide tile; it visits them in a row-skewed order
-// (c = (j + row) & 31) so that the 16 rows fall in different banks.
+// acc[mt] (16 x DH) += p[mt] (16 x 64 as bf16 A operands) times tile
+// (64 x DH): P V, dS K, P^T dO, dS^T Q.
+template <int DH, int MT>
+__device__ __forceinline__ void rows_times_tile(float (&acc)[MT][DH / 8][4],
+                                                const uint32_t (&p)[MT][FK / 16][4],
+                                                const bf16* tile) {
+#pragma unroll
+  for (int kk = 0; kk < FK / 16; ++kk) {
+#pragma unroll
+    for (int j2 = 0; j2 < DH / 16; ++j2) {
+      uint32_t b[4];
+      lds_b_kn<DH>(b, tile, 16 * kk, 16 * j2);
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        mma(acc[mt][2 * j2], p[mt][kk], b[0], b[1]);
+        mma(acc[mt][2 * j2 + 1], p[mt][kk], b[2], b[3]);
+      }
+    }
+  }
+}
 
+// The A operand of the 16 x 64 product's k chunk kk from its accumulator:
+// an accumulator's column pairs are an A operand's k pairs.
+__device__ __forceinline__ void to_a(uint32_t (&a)[4], const float (&s)[FK / 8][4], int kk) {
+  a[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
+  a[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
+  a[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
+  a[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+}
+
+template <int DH, int MT>
+__device__ __forceinline__ void zero(float (&acc)[MT][DH / 8][4]) {
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int j = 0; j < DH / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mt][j][e] = 0.f;
+}
+
+// Rounds a warp's 16 x DH accumulator (times scale) to bf16 rows
+// dst + r*ld, r = row0 + (g, g + 8) for r < S.
 template <int DH>
+__device__ __forceinline__ void store_rows(bf16* dst, long long ld, int row0, int S,
+                                           const float (&acc)[DH / 8][4], float scale) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const int r = row0 + g + 8 * hr;
+    if (r >= S) continue;
+    bf16* row = dst + r * ld + 2 * t;
+#pragma unroll
+    for (int j = 0; j < DH / 8; ++j)
+      *reinterpret_cast<uint32_t*>(row + 8 * j) =
+          pack_bf16(acc[j][2 * hr] * scale, acc[j][2 * hr + 1] * scale);
+  }
+}
+
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+// Columns of a 64-wide tile at or past valid (keys >= S) to -inf.
+template <int MT>
+__device__ __forceinline__ void mask_cols(float (&s)[MT][FK / 8][4], int valid) {
+  const int t = threadIdx.x & 3;
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int j = 0; j < FK / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        if (8 * j + 2 * t + (e & 1) >= valid) s[mt][j][e] = -INFINITY;
+}
+
+template <int DH, int MT>
 __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(const Params p) {
+  constexpr int BQ = 64 * MT, LD = DH + PAD;
   extern __shared__ __align__(128) unsigned char smem[];
-  constexpr int LDH = DH + PAD_H;
   bf16* Qs = reinterpret_cast<bf16*>(smem);
-  bf16* Ks = reinterpret_cast<bf16*>(smem + tile_bytes<DH>());
-  bf16* Vs = reinterpret_cast<bf16*>(smem + 2 * tile_bytes<DH>());
-  float* Ss = reinterpret_cast<float*>(smem + 3 * tile_bytes<DH>());
-  bf16* Ps = reinterpret_cast<bf16*>(smem + 3 * tile_bytes<DH>() + SCORE_BYTES);
+  bf16* Ks = Qs + BQ * LD;      // two stages
+  bf16* Vs = Ks + 2 * FK * LD;  // two stages
 
-  const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * FQ, S = p.S;
+  const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * BQ, S = p.S;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int wr = warp * 16, rr = lane & 15, half = lane >> 4;
+  const int wr = warp * 16 * MT;
   const long long in_base = b * p.in_b + h * p.in_h;
+  const bf16* kg = p.k + in_base;
+  const bf16* vg = p.v + in_base;
+  const int nt = (S + FK - 1) / FK;
+  const float c = p.scale * LOG2E;
 
-  load_tile<DH>(Qs, p.q + in_base, p.in_r, q0, S);
-  __syncthreads();
-  FragA qf[DH / 16];
+  // Step i < nt streams key tile i for pass 1 (K), step nt + t tile t for
+  // pass 2 (K and V), into stage i & 1; step i + 1's copy is issued before
+  // step i's products.
+  auto prefetch = [&](int i) {
+    const int t = i < nt ? i : i - nt;
+    load_tile<DH, FK>(Ks + (i & 1) * FK * LD, kg, p.in_r, t * FK, S);
+    if (i >= nt) load_tile<DH, FK>(Vs + (i & 1) * FK * LD, vg, p.in_r, t * FK, S);
+    cp_commit();
+  };
+  load_tile<DH, BQ>(Qs, p.q + in_base, p.in_r, q0, S);
+  prefetch(0);
+
+  uint32_t qa[MT][DH / 16][4];
+  float m[MT][2], l[MT][2];
 #pragma unroll
-  for (int kk = 0; kk < DH / 16; ++kk) wmma::load_matrix_sync(qf[kk], Qs + wr * LDH + kk * 16, LDH);
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      m[mt][hr] = -INFINITY;
+      l[mt][hr] = 0.f;
+    }
+  float s[MT][FK / 8][4];
 
-  const float* srow = Ss + (wr + rr) * LDS + half * 32;
-  float m = -INFINITY, l = 0.f;
-  // Pass 1: row max and sum over all keys.
-  for (int k0 = 0; k0 < S; k0 += FK) {
+  // Pass 1: each row's max (of the raw products: max commutes with the
+  // positive scale) and its sum of exp2((s - m) * scale * log2e), a
+  // partial sum per lane, rescaled as the max moves.
+  for (int i = 0; i < nt; ++i) {
+    prefetch(i + 1);
+    cp_wait<1>();
     __syncthreads();
-    load_tile<DH>(Ks, p.k + in_base, p.in_r, k0, S);
+    if (i == 0) {
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int kk = 0; kk < DH / 16; ++kk) lds_a<DH>(qa[mt][kk], Qs, wr + 16 * mt, 16 * kk);
+    }
+    rows_times_tile_t<DH, MT>(s, qa, Ks + (i & 1) * FK * LD);
+    if (i * FK + FK > S) mask_cols<MT>(s, S - i * FK);
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        float mx = -INFINITY;
+#pragma unroll
+        for (int j = 0; j < FK / 8; ++j)
+          mx = fmaxf(mx, fmaxf(s[mt][j][2 * hr], s[mt][j][2 * hr + 1]));
+        const float mnew = fmaxf(m[mt][hr], quad_max(mx));  // finite: a tile holds a key
+        const float mc = mnew * c;
+        float sum = 0.f;
+#pragma unroll
+        for (int j = 0; j < FK / 8; ++j)
+          sum += ex2(fmaf(s[mt][j][2 * hr], c, -mc)) + ex2(fmaf(s[mt][j][2 * hr + 1], c, -mc));
+        l[mt][hr] = l[mt][hr] * ex2((m[mt][hr] - mnew) * c) + sum;
+        m[mt][hr] = mnew;
+      }
     __syncthreads();
-    rows_times_tile_t<DH>(Ss + wr * LDS, qf, Ks);
-    __syncwarp();
-    const int valid = S - k0 - half * 32;  // this lane's valid columns (may be <= 0)
-    float tmax = -INFINITY;
-#pragma unroll 8
-    for (int j = 0; j < 32; ++j) {
-      const int c = (j + rr) & 31;
-      if (c < valid) tmax = fmaxf(tmax, __fmul_rn(srow[c], p.scale));
-    }
-    tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, 16));
-    const float mnew = fmaxf(m, tmax);  // finite: every tile holds a valid key
-    float ts = 0.f;
-#pragma unroll 8
-    for (int j = 0; j < 32; ++j) {
-      const int c = (j + rr) & 31;
-      if (c < valid) ts += expf(__fmul_rn(srow[c], p.scale) - mnew);
-    }
-    ts += __shfl_xor_sync(0xffffffffu, ts, 16);
-    l = l * expf(m - mnew) + ts;
-    m = mnew;
   }
 
-  // Pass 2: O = bf16(P) V with P = exp(s*scale - m) / l.
-  FragC oacc[DH / 16];
+  float mc[MT][2], rl[MT][2];
 #pragma unroll
-  for (int j = 0; j < DH / 16; ++j) wmma::fill_fragment(oacc[j], 0.f);
-  bf16* prow = Ps + (wr + rr) * LDP + half * 32;
-  for (int k0 = 0; k0 < S; k0 += FK) {
-    __syncthreads();
-    load_tile<DH>(Ks, p.k + in_base, p.in_r, k0, S);
-    load_tile<DH>(Vs, p.v + in_base, p.in_r, k0, S);
-    __syncthreads();
-    rows_times_tile_t<DH>(Ss + wr * LDS, qf, Ks);
-    __syncwarp();
-    const int valid = S - k0 - half * 32;
-#pragma unroll 8
-    for (int j = 0; j < 32; ++j) {
-      const int c = (j + rr) & 31;
-      const float pv = c < valid ? expf(__fmul_rn(srow[c], p.scale) - m) / l : 0.f;
-      prow[c] = __float2bfloat16(pv);
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      l[mt][hr] = quad_sum(l[mt][hr]);
+      mc[mt][hr] = m[mt][hr] * c;
+      rl[mt][hr] = 1.f / l[mt][hr];
     }
-    __syncwarp();
-    rows_times_tile<DH>(oacc, Ps + wr * LDP, Vs);
+
+  // Pass 2: O = bf16(P) V with P = exp2((s - m) * c) * (1/l), in f32.
+  float o[MT][DH / 8][4];
+  zero<DH, MT>(o);
+  for (int t = 0; t < nt; ++t) {
+    const int i = nt + t;
+    if (t + 1 < nt) {
+      prefetch(i + 1);
+      cp_wait<1>();
+    } else {
+      cp_wait<0>();
+    }
+    __syncthreads();
+    rows_times_tile_t<DH, MT>(s, qa, Ks + (i & 1) * FK * LD);
+    if (t * FK + FK > S) mask_cols<MT>(s, S - t * FK);
+    uint32_t pa[MT][FK / 16][4];
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+#pragma unroll
+      for (int j = 0; j < FK / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          s[mt][j][e] = ex2(fmaf(s[mt][j][e], c, -mc[mt][e >> 1])) * rl[mt][e >> 1];
+#pragma unroll
+      for (int kk = 0; kk < FK / 16; ++kk) to_a(pa[mt][kk], s[mt], kk);
+    }
+    rows_times_tile<DH, MT>(o, pa, Vs + (i & 1) * FK * LD);
+    __syncthreads();
   }
-  const int q = q0 + wr;
-  store_rows<DH>(p.o + b * p.out_b + h * p.out_h + static_cast<long long>(q) * p.out_r,
-                 p.out_r, S - q, oacc, Ss + wr * LDS, 1.f);
-  if (p.stats != nullptr && half == 0 && q + rr < S) {
-    float* st = p.stats + (static_cast<long long>(b) * p.H + h) * 3 * S;
-    st[q + rr] = m;
-    st[S + q + rr] = l;
+
+  bf16* og = p.o + b * p.out_b + h * p.out_h;
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+    const int r0 = q0 + wr + 16 * mt;
+    store_rows<DH>(og, p.out_r, r0, S, o[mt], 1.f);
+    if (p.stats != nullptr && (lane & 3) == 0) {
+      float* st = p.stats + (static_cast<long long>(b) * p.H + h) * 3 * S;
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        const int q = r0 + (lane >> 2) + 8 * hr;
+        if (q < S) {
+          st[q] = m[mt][hr] * p.scale;
+          st[S + q] = l[mt][hr];
+        }
+      }
+    }
   }
 }
 
 template <int DH>
 __global__ void __launch_bounds__(THREADS) flash_bwd_dq_kernel(const Params p) {
+  constexpr int LD = DH + PAD;
   extern __shared__ __align__(128) unsigned char smem[];
-  constexpr int LDH = DH + PAD_H;
-  constexpr size_t T = tile_bytes<DH>();
   bf16* Qs = reinterpret_cast<bf16*>(smem);
-  bf16* Os = reinterpret_cast<bf16*>(smem + T);      // dO tile
-  bf16* Ks = reinterpret_cast<bf16*>(smem + 2 * T);
-  bf16* Vs = reinterpret_cast<bf16*>(smem + 3 * T);
-  float* Ss = reinterpret_cast<float*>(smem + 4 * T);                // scores
-  float* Dp = reinterpret_cast<float*>(smem + 4 * T + SCORE_BYTES);  // dP
-  bf16* Ds = reinterpret_cast<bf16*>(smem + 4 * T + 2 * SCORE_BYTES);
+  bf16* Os = Qs + 64 * LD;      // dO tile
+  bf16* Ks = Os + 64 * LD;      // two stages
+  bf16* Vs = Ks + 2 * FK * LD;  // two stages
 
-  const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * FQ, S = p.S;
+  const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * 64, S = p.S;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int wr = warp * 16, rr = lane & 15, half = lane >> 4;
+  const int wr = warp * 16;
   const long long in_base = b * p.in_b + h * p.in_h;
+  const bf16* kg = p.k + in_base;
+  const bf16* vg = p.v + in_base;
   float* st = p.stats + (static_cast<long long>(b) * p.H + h) * 3 * S;
+  const int nt = (S + FK - 1) / FK;
+  const float c = p.scale * LOG2E;
 
-  load_tile<DH>(Qs, p.q + in_base, p.in_r, q0, S);
-  load_tile<DH>(Os, p.dout + b * p.out_b + h * p.out_h, p.out_r, q0, S);
-  __syncthreads();
-  FragA qf[DH / 16], of[DH / 16];
+  // Step i streams key tile i mod nt (K and V) into stage i & 1: pass 1
+  // for i < nt, pass 2 after.
+  auto prefetch = [&](int i) {
+    const int t = i < nt ? i : i - nt;
+    load_tile<DH, FK>(Ks + (i & 1) * FK * LD, kg, p.in_r, t * FK, S);
+    load_tile<DH, FK>(Vs + (i & 1) * FK * LD, vg, p.in_r, t * FK, S);
+    cp_commit();
+  };
+  load_tile<DH, 64>(Qs, p.q + in_base, p.in_r, q0, S);
+  load_tile<DH, 64>(Os, p.dout + b * p.out_b + h * p.out_h, p.out_r, q0, S);
+  prefetch(0);
+
+  float mc[2], rl[2], rs[2] = {0.f, 0.f};
 #pragma unroll
-  for (int kk = 0; kk < DH / 16; ++kk) {
-    wmma::load_matrix_sync(qf[kk], Qs + wr * LDH + kk * 16, LDH);
-    wmma::load_matrix_sync(of[kk], Os + wr * LDH + kk * 16, LDH);
+  for (int hr = 0; hr < 2; ++hr) {
+    const int q = q0 + wr + (lane >> 2) + 8 * hr;
+    mc[hr] = q < S ? st[q] * LOG2E : 0.f;
+    rl[hr] = q < S ? 1.f / st[S + q] : 0.f;
   }
-  const int q = q0 + wr + rr;
-  const float m = q < S ? st[q] : 0.f;
-  const float l = q < S ? st[S + q] : 1.f;
-  const float* srow = Ss + (wr + rr) * LDS + half * 32;
-  const float* drow = Dp + (wr + rr) * LDS + half * 32;
+  uint32_t qa[1][DH / 16][4], oa[1][DH / 16][4];
+  float s[1][FK / 8][4], dp[1][FK / 8][4];
+
+  // P = exp2(s * c - m * log2e) * (1/l), 0 at keys >= S.
+  auto probs = [&](int k0) {
+    if (k0 + FK > S) mask_cols<1>(s, S - k0);
+#pragma unroll
+    for (int j = 0; j < FK / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[0][j][e] = ex2(fmaf(s[0][j][e], c, -mc[e >> 1])) * rl[e >> 1];
+  };
 
   // Pass 1: rowsum(P * dP) over all keys, in f32.
-  float rs = 0.f;
-  for (int k0 = 0; k0 < S; k0 += FK) {
+  for (int i = 0; i < nt; ++i) {
+    prefetch(i + 1);
+    cp_wait<1>();
     __syncthreads();
-    load_tile<DH>(Ks, p.k + in_base, p.in_r, k0, S);
-    load_tile<DH>(Vs, p.v + in_base, p.in_r, k0, S);
-    __syncthreads();
-    rows_times_tile_t<DH>(Ss + wr * LDS, qf, Ks);
-    rows_times_tile_t<DH>(Dp + wr * LDS, of, Vs);
-    __syncwarp();
-    const int valid = S - k0 - half * 32;
-#pragma unroll 8
-    for (int j = 0; j < 32; ++j) {
-      const int c = (j + rr) & 31;
-      if (c < valid) rs += expf(__fmul_rn(srow[c], p.scale) - m) / l * drow[c];
+    if (i == 0) {
+#pragma unroll
+      for (int kk = 0; kk < DH / 16; ++kk) {
+        lds_a<DH>(qa[0][kk], Qs, wr, 16 * kk);
+        lds_a<DH>(oa[0][kk], Os, wr, 16 * kk);
+      }
     }
+    rows_times_tile_t<DH, 1>(s, qa, Ks + (i & 1) * FK * LD);
+    rows_times_tile_t<DH, 1>(dp, oa, Vs + (i & 1) * FK * LD);
+    probs(i * FK);
+#pragma unroll
+    for (int j = 0; j < FK / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) rs[e >> 1] = fmaf(s[0][j][e], dp[0][j][e], rs[e >> 1]);
+    __syncthreads();
   }
-  rs += __shfl_xor_sync(0xffffffffu, rs, 16);
-  if (half == 0 && q < S) st[2 * S + q] = rs;
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    rs[hr] = quad_sum(rs[hr]);
+    const int q = q0 + wr + (lane >> 2) + 8 * hr;
+    if ((lane & 3) == 0 && q < S) st[2 * S + q] = rs[hr];
+  }
 
   // Pass 2: dq = bf16(dS) K * scale, dS = P * (dP - rowsum).
-  FragC qacc[DH / 16];
-#pragma unroll
-  for (int j = 0; j < DH / 16; ++j) wmma::fill_fragment(qacc[j], 0.f);
-  bf16* dsrow = Ds + (wr + rr) * LDP + half * 32;
-  for (int k0 = 0; k0 < S; k0 += FK) {
-    __syncthreads();
-    load_tile<DH>(Ks, p.k + in_base, p.in_r, k0, S);
-    load_tile<DH>(Vs, p.v + in_base, p.in_r, k0, S);
-    __syncthreads();
-    rows_times_tile_t<DH>(Ss + wr * LDS, qf, Ks);
-    rows_times_tile_t<DH>(Dp + wr * LDS, of, Vs);
-    __syncwarp();
-    const int valid = S - k0 - half * 32;
-#pragma unroll 8
-    for (int j = 0; j < 32; ++j) {
-      const int c = (j + rr) & 31;
-      float ds = 0.f;
-      if (c < valid) {
-        const float pv = expf(__fmul_rn(srow[c], p.scale) - m) / l;
-        ds = pv * (drow[c] - rs);
-      }
-      dsrow[c] = __float2bfloat16(ds);
+  float dq[1][DH / 8][4];
+  zero<DH, 1>(dq);
+  for (int t = 0; t < nt; ++t) {
+    const int i = nt + t;
+    if (t + 1 < nt) {
+      prefetch(i + 1);
+      cp_wait<1>();
+    } else {
+      cp_wait<0>();
     }
-    __syncwarp();
-    rows_times_tile<DH>(qacc, Ds + wr * LDP, Ks);
+    __syncthreads();
+    rows_times_tile_t<DH, 1>(s, qa, Ks + (i & 1) * FK * LD);
+    rows_times_tile_t<DH, 1>(dp, oa, Vs + (i & 1) * FK * LD);
+    probs(t * FK);
+#pragma unroll
+    for (int j = 0; j < FK / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[0][j][e] *= dp[0][j][e] - rs[e >> 1];
+    uint32_t da[1][FK / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < FK / 16; ++kk) to_a(da[0][kk], s[0], kk);
+    rows_times_tile<DH, 1>(dq, da, Ks + (i & 1) * FK * LD);
+    __syncthreads();
   }
-  const int qw = q0 + wr;
-  store_rows<DH>(p.dq + in_base + static_cast<long long>(qw) * p.in_r, p.in_r, S - qw, qacc,
-                 Ss + wr * LDS, p.scale);
+  store_rows<DH>(p.dq + in_base, p.in_r, q0 + wr, S, dq[0], p.scale);
 }
 
 template <int DH>
 __global__ void __launch_bounds__(THREADS) flash_bwd_dkv_kernel(const Params p) {
+  constexpr int LD = DH + PAD;
   extern __shared__ __align__(128) unsigned char smem[];
-  constexpr int LDH = DH + PAD_H;
-  constexpr size_t T = tile_bytes<DH>();
   bf16* Kt = reinterpret_cast<bf16*>(smem);
-  bf16* Vt = reinterpret_cast<bf16*>(smem + T);
-  bf16* Qs = reinterpret_cast<bf16*>(smem + 2 * T);
-  bf16* Os = reinterpret_cast<bf16*>(smem + 3 * T);                  // dO tile
-  float* St = reinterpret_cast<float*>(smem + 4 * T);                // S^T
-  float* Dt = reinterpret_cast<float*>(smem + 4 * T + SCORE_BYTES);  // dP^T
-  bf16* Pt = reinterpret_cast<bf16*>(smem + 4 * T + 2 * SCORE_BYTES);
-  bf16* Gt = reinterpret_cast<bf16*>(smem + 4 * T + 2 * SCORE_BYTES + PROB_BYTES);  // dS^T
-  float* Qstat = reinterpret_cast<float*>(smem + 4 * T + 2 * SCORE_BYTES + 2 * PROB_BYTES);
+  bf16* Vt = Kt + 64 * LD;
+  bf16* Qs = Vt + 64 * LD;      // two stages
+  bf16* Os = Qs + 2 * FK * LD;  // dO, two stages
+  float* Ls = reinterpret_cast<float*>(Os + 2 * FK * LD);  // two stages of (m*log2e, 1/l, rowsum)
 
-  const int b = blockIdx.z, h = blockIdx.y, k0 = blockIdx.x * FK, S = p.S;
+  const int b = blockIdx.z, h = blockIdx.y, k0 = blockIdx.x * 64, S = p.S;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int kr = warp * 16, rr = lane & 15, half = lane >> 4;
+  const int kr = warp * 16;
   const long long in_base = b * p.in_b + h * p.in_h;
-  const long long out_base = b * p.out_b + h * p.out_h;
+  const bf16* qg = p.q + in_base;
+  const bf16* og = p.dout + b * p.out_b + h * p.out_h;
   const float* st = p.stats + (static_cast<long long>(b) * p.H + h) * 3 * S;
+  const int nt = (S + FK - 1) / FK;
+  const float c = p.scale * LOG2E;
 
-  load_tile<DH>(Kt, p.k + in_base, p.in_r, k0, S);
-  load_tile<DH>(Vt, p.v + in_base, p.in_r, k0, S);
-  __syncthreads();
-  FragA kf[DH / 16], vf[DH / 16];
+  // Query tile t's statistics, read by threads < FK (queries >= S get
+  // 1/l = 0, so their P and dS are 0: their Q and dO rows are zero-filled).
+  float stat[3];
+  auto read_stats = [&](int t) {
+    const int q = t * FK + threadIdx.x;
+    const bool ok = threadIdx.x < FK && q < S;
+    stat[0] = ok ? st[q] * LOG2E : 0.f;
+    stat[1] = ok ? 1.f / st[S + q] : 0.f;
+    stat[2] = ok ? st[2 * S + q] : 0.f;
+  };
+  auto write_stats = [&](int stage) {
+    if (threadIdx.x < FK)
 #pragma unroll
-  for (int kk = 0; kk < DH / 16; ++kk) {
-    wmma::load_matrix_sync(kf[kk], Kt + kr * LDH + kk * 16, LDH);
-    wmma::load_matrix_sync(vf[kk], Vt + kr * LDH + kk * 16, LDH);
-  }
-  const bool key_ok = k0 + kr + rr < S;
-  const float* srow = St + (kr + rr) * LDS + half * 32;
-  const float* drow = Dt + (kr + rr) * LDS + half * 32;
-  bf16* prow = Pt + (kr + rr) * LDP + half * 32;
-  bf16* grow = Gt + (kr + rr) * LDP + half * 32;
+      for (int w = 0; w < 3; ++w) Ls[(stage * 3 + w) * FK + threadIdx.x] = stat[w];
+  };
+  auto prefetch = [&](int t) {
+    load_tile<DH, FK>(Qs + (t & 1) * FK * LD, qg, p.in_r, t * FK, S);
+    load_tile<DH, FK>(Os + (t & 1) * FK * LD, og, p.out_r, t * FK, S);
+    cp_commit();
+  };
+  load_tile<DH, 64>(Kt, p.k + in_base, p.in_r, k0, S);
+  load_tile<DH, 64>(Vt, p.v + in_base, p.in_r, k0, S);
+  prefetch(0);
+  read_stats(0);
+  write_stats(0);
 
-  FragC vacc[DH / 16], kacc[DH / 16];
-#pragma unroll
-  for (int j = 0; j < DH / 16; ++j) {
-    wmma::fill_fragment(vacc[j], 0.f);
-    wmma::fill_fragment(kacc[j], 0.f);
-  }
-  for (int i0 = 0; i0 < S; i0 += FQ) {
-    __syncthreads();
-    load_tile<DH>(Qs, p.q + in_base, p.in_r, i0, S);
-    load_tile<DH>(Os, p.dout + out_base, p.out_r, i0, S);
-    for (int i = threadIdx.x; i < 3 * FQ; i += THREADS) {
-      const int w = i / FQ, qi = i0 + i % FQ;
-      Qstat[i] = qi < S ? st[w * S + qi] : (w == 1 ? 1.f : 0.f);
+  uint32_t ka[1][DH / 16][4], va[1][DH / 16][4];
+  float s[1][FK / 8][4], dp[1][FK / 8][4];
+  float dk[1][DH / 8][4], dv[1][DH / 8][4];
+  zero<DH, 1>(dk);
+  zero<DH, 1>(dv);
+  const int t4 = lane & 3;
+  for (int t = 0; t < nt; ++t) {
+    const int stage = t & 1;
+    if (t + 1 < nt) {
+      prefetch(t + 1);
+      read_stats(t + 1);
+      cp_wait<1>();
+    } else {
+      cp_wait<0>();
     }
     __syncthreads();
-    rows_times_tile_t<DH>(St + kr * LDS, kf, Qs);
-    rows_times_tile_t<DH>(Dt + kr * LDS, vf, Os);
-    __syncwarp();
-    const int valid = key_ok ? S - i0 - half * 32 : 0;
-#pragma unroll 8
-    for (int j = 0; j < 32; ++j) {
-      const int c = (j + rr) & 31;
-      float pv = 0.f, ds = 0.f;
-      if (c < valid) {
-        const int qi = half * 32 + c;
-        pv = expf(__fmul_rn(srow[c], p.scale) - Qstat[qi]) / Qstat[FQ + qi];
-        ds = pv * (drow[c] - Qstat[2 * FQ + qi]);
+    if (t == 0) {
+#pragma unroll
+      for (int kk = 0; kk < DH / 16; ++kk) {
+        lds_a<DH>(ka[0][kk], Kt, kr, 16 * kk);
+        lds_a<DH>(va[0][kk], Vt, kr, 16 * kk);
       }
-      prow[c] = __float2bfloat16(pv);
-      grow[c] = __float2bfloat16(ds);
     }
-    __syncwarp();
-    rows_times_tile<DH>(vacc, Pt + kr * LDP, Os);
-    rows_times_tile<DH>(kacc, Gt + kr * LDP, Qs);
+    const bf16* qt = Qs + stage * FK * LD;
+    const bf16* ot = Os + stage * FK * LD;
+    rows_times_tile_t<DH, 1>(s, ka, qt);   // S^T: keys x queries
+    rows_times_tile_t<DH, 1>(dp, va, ot);  // dP^T
+    const float* ls = Ls + stage * 3 * FK;
+#pragma unroll
+    for (int j = 0; j < FK / 8; ++j) {
+      const float2 m2 = *reinterpret_cast<const float2*>(ls + 8 * j + 2 * t4);
+      const float2 r2 = *reinterpret_cast<const float2*>(ls + FK + 8 * j + 2 * t4);
+      const float2 s2 = *reinterpret_cast<const float2*>(ls + 2 * FK + 8 * j + 2 * t4);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const bool hi = e & 1;
+        const float pv = ex2(fmaf(s[0][j][e], c, -(hi ? m2.y : m2.x))) * (hi ? r2.y : r2.x);
+        s[0][j][e] = pv;
+        dp[0][j][e] = pv * (dp[0][j][e] - (hi ? s2.y : s2.x));
+      }
+    }
+    uint32_t pa[1][FK / 16][4], da[1][FK / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < FK / 16; ++kk) {
+      to_a(pa[0][kk], s[0], kk);
+      to_a(da[0][kk], dp[0], kk);
+    }
+    rows_times_tile<DH, 1>(dv, pa, ot);
+    rows_times_tile<DH, 1>(dk, da, qt);
+    if (t + 1 < nt) write_stats(stage ^ 1);
+    __syncthreads();
   }
-  const int kw = k0 + kr;
-  store_rows<DH>(p.dk + in_base + static_cast<long long>(kw) * p.in_r, p.in_r, S - kw, kacc,
-                 St + kr * LDS, p.scale);
-  store_rows<DH>(p.dv + in_base + static_cast<long long>(kw) * p.in_r, p.in_r, S - kw, vacc,
-                 St + kr * LDS, 1.f);
+  store_rows<DH>(p.dk + in_base, p.in_r, k0 + kr, S, dk[0], p.scale);
+  store_rows<DH>(p.dv + in_base, p.in_r, k0 + kr, S, dv[0], 1.f);
 }
 
 template <typename Kernel>
-cudaError_t launch(Kernel kernel, size_t smem, const Params& p, cudaStream_t stream) {
+cudaError_t launch(Kernel kernel, size_t smem, int rows, const Params& p, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  dim3 grid((p.S + FQ - 1) / FQ, p.H, p.B);
+  dim3 grid((p.S + rows - 1) / rows, p.H, p.B);
   kernel<<<grid, THREADS, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
+// The forward's query rows a block: 0 chooses by the launch's size.
+int g_fwd_rows = 0;
+
+// 128 rows a block where that still gives every SM two blocks, else 64.
+int fwd_rows(const Params& p) {
+  if (g_fwd_rows != 0) return g_fwd_rows;
+  int device = 0, sms = 0;
+  if (cudaGetDevice(&device) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device) != cudaSuccess)
+    return 64;
+  const long long blocks128 = static_cast<long long>(p.B) * p.H * ((p.S + 127) / 128);
+  return blocks128 >= 2LL * sms ? 128 : 64;
+}
+
 template <int DH>
 cudaError_t fwd(const Params& p, cudaStream_t stream) {
-  return launch(flash_fwd_kernel<DH>, fwd_smem<DH>(), p, stream);
+  if (fwd_rows(p) == 128) return launch(flash_fwd_kernel<DH, 2>, fwd_smem<DH, 2>(), 128, p, stream);
+  return launch(flash_fwd_kernel<DH, 1>, fwd_smem<DH, 1>(), 64, p, stream);
 }
 
 template <int DH>
 cudaError_t bwd(const Params& p, cudaStream_t stream) {
-  cudaError_t err = launch(flash_bwd_dq_kernel<DH>, dq_smem<DH>(), p, stream);
+  cudaError_t err = launch(flash_bwd_dq_kernel<DH>, dq_smem<DH>(), 64, p, stream);
   if (err != cudaSuccess) return err;
-  return launch(flash_bwd_dkv_kernel<DH>, dkv_smem<DH>(), p, stream);
+  return launch(flash_bwd_dkv_kernel<DH>, dkv_smem<DH>(), 64, p, stream);
 }
 
 // The (B, H, S, dh) layout of the standalone wrapper: every tensor contiguous.
@@ -490,6 +748,15 @@ int dp_flash_bwd(const void* q, const void* k, const void* v, const void* dout, 
   p.dk = static_cast<bf16*>(dk);
   p.dv = static_cast<bf16*>(dv);
   return static_cast<int>(dp_flash::launch_bwd(p, dh, static_cast<cudaStream_t>(stream)));
+}
+
+// Sets the forward's query rows a block (64 or 128; 0 restores the choice by
+// the launch's block count) and returns the previous setting: the tile
+// measurement of chip_smoke.py's flash phase.
+int dp_flash_fwd_rows(int rows) {
+  const int prev = dp_flash::g_fwd_rows;
+  if (rows == 0 || rows == 64 || rows == 128) dp_flash::g_fwd_rows = rows;
+  return prev;
 }
 
 }  // extern "C"

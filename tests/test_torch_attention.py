@@ -108,3 +108,36 @@ def test_attention_dispatch_and_constants():
     q, k, v, _ = (torch.from_numpy(t) for t in _inputs((1, 2, 40, 32), 4))
     torch.testing.assert_close(tattention.attention(q, k, v, 0.2),
                                tattention.flash_math(q, k, v, 0.2), atol=0, rtol=0)
+
+
+@pytest.mark.parametrize("shape", [(2, 6, 64, 32), (1, 3, 256, 64), (32, 6, 1297, 64)])
+def test_flash_cost_is_jax_cost_estimate(shape, monkeypatch):
+    """``flash_cost``'s FLOPs and bytes are the ``CostEstimate`` JAX's
+    ``_pallas_forward`` and ``_pallas_backward`` give their pallas_calls
+    (traced abstractly, nothing runs), where JAX pads nothing (S a multiple
+    of 8, and of 128 past the backward's one chunk); at S = 1297 JAX counts
+    its padded 1304 (forward) and 1408 (backward) rows, the port the true
+    S. The executed counts are 1.5 and 1.8 times JAX's FLOPs."""
+    b, h, s, dh = shape
+    estimates = []
+    real = jattention.pl.CostEstimate
+
+    def record(**kw):
+        estimates.append(kw)
+        return real(**kw)
+
+    monkeypatch.setattr(jattention.pl, "CostEstimate", record)
+    x = jax.ShapeDtypeStruct(shape, jnp.bfloat16)
+    jax.eval_shape(lambda q, k, v: jattention._pallas_forward(q, k, v, 0.125), x, x, x)
+    jax.eval_shape(lambda q, k, v, g: jattention._pallas_backward(q, k, v, g, 0.125),
+                   x, x, x, x)
+    cost = tattention.flash_cost(b, h, s, dh)
+    pads = {"flash_attention": -(-s // 8) * 8, "flash_attention_bwd": jattention._bwd_chunk(s)[0]}
+    for (name, (flops, nbytes, executed)), est in zip(cost.items(), estimates):
+        sp = pads[name]
+        assert flops * sp * sp == est["flops"] * s * s, name
+        assert nbytes * sp == est["bytes_accessed"] * s, name
+        if sp == s:
+            assert (flops, nbytes) == (est["flops"], est["bytes_accessed"]), name
+        assert executed * (4 if name == "flash_attention" else 10) == flops * (
+            6 if name == "flash_attention" else 18)

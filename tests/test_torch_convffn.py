@@ -31,7 +31,8 @@ from dino_pose_tpu_torch.ops import convffn as tconvffn
 B, C, H, S_LORA = 2, 64, 192, 4.0
 
 
-def _inputs(s: int, rank: int, seed: int) -> tuple[np.ndarray, dict]:
+def _inputs(s: int, rank: int, seed: int, c: int = C, h: int = H) -> tuple[np.ndarray, dict]:
+    C, H = c, h  # noqa: N806 - the widths, as the module's defaults name them
     rng = np.random.default_rng(seed)
 
     def n(*shape, std=1.0):
@@ -301,3 +302,130 @@ def test_bwd_cost_counts_the_products_and_bytes():
         flops, nbytes = flops + n * f, nbytes + n * b
     assert abs(flops / 989e12 * 1e3 - 0.260) < 1e-3
     assert abs(nbytes / 3.35e12 * 1e3 - 0.193) < 1e-3
+
+
+# ---------------------------------------------------------------------------
+# fastvit_ma36's widths: the wrappers' zero padding to multiples of 16
+# ---------------------------------------------------------------------------
+
+# (C, H) of ma36's four stages (models/fastvit.py:142-148): stages 0 and 1
+# are padded to C = 80 and 160, stages 2 and 3 are already multiples of 16.
+# 32 rows a sample stand in for the stages' 4096-64 (the widths are the point).
+MA36_STAGES = [(76, 304), (152, 608), (304, 1216), (608, 2432)]
+MA36_S = 32
+
+
+def _ma36(c, h, seed):
+    y, p = _inputs(MA36_S, 4, seed, c, h)
+    rng = np.random.default_rng(seed + 1)
+    return y, p, *(rng.standard_normal(y.shape).astype(np.float32) for _ in range(2))
+
+
+def _torch_params(p):
+    return tconvffn.ConvFFNParams(**{k: torch.from_numpy(v) for k, v in p.items()})
+
+
+def _jax_fits(c, h):
+    """JAX's forward plan at these widths in f32 (stage 3's f32 weights alone
+    exceed its 12 MiB budget; there JAX runs its XLA chain)."""
+    return jconvffn._fwd_rows(MA36_S, c, h, 4, 4, B) > 0
+
+
+def _jax_body(y, jp):
+    """JAX's ``_convffn_fwd_kernel`` body on whole f32 arrays (traceable)."""
+    out = _Ref(None)
+    jconvffn._convffn_fwd_kernel(
+        _Ref(y), _Ref(jp.m1[:, None, :]), _Ref(jp.m2[:, None, :]),
+        *(_Ref(a) for a in jconvffn._prep(jp, jnp.float32)), out, s_lora=S_LORA)
+    return out.value
+
+
+def _jax_res(y, res, p, monkeypatch):
+    """JAX's fused_convffn_res (its Pallas ``_convffn_fwd_res_kernel``, interpret)."""
+    monkeypatch.setenv("DINO_POSE_TPU_CONVFFN", "force")
+    calls = []
+    kernel = jconvffn._convffn_fwd_res_kernel
+    monkeypatch.setattr(jconvffn, "_convffn_fwd_res_kernel",
+                        lambda *a, **k: calls.append(1) or kernel(*a, **k))
+    jp = jconvffn.ConvFFNParams(**{k: jnp.asarray(v) for k, v in p.items()})
+    with jdispatch.local():
+        out = jconvffn.fused_convffn_res(jnp.asarray(y), jnp.asarray(res), jp, S_LORA)
+    assert calls, "the JAX side must run its Pallas kernel"
+    return np.asarray(out)
+
+
+def test_pad_widths_pads_to_multiples_of_16_with_zeros():
+    y, p, res, df = _ma36(76, 300, 90)
+    yt, pt = torch.from_numpy(y), _torch_params(p)
+    yk, pk, (rk, dk) = tconvffn.pad_widths(yt, pt, torch.from_numpy(res), torch.from_numpy(df))
+    assert yk.shape[-1] == rk.shape[-1] == dk.shape[-1] == 80 and pk.w1.shape == (80, 304)
+    assert pk.w2.shape == (304, 80) and pk.a1.shape == (80, 4) and pk.a2.shape == (304, 4)
+    assert pk.b1l.shape == (4, 304) and pk.b2l.shape == (4, 80) and pk.m1 is pt.m1
+    assert not yk[..., 76:].any() and not pk.w1[76:].any() and not pk.w1[:, 300:].any()
+    assert torch.equal(pk.w1[:76, :300], pt.w1) and torch.equal(yk[..., :76], yt)
+    y16, p16 = _inputs(8, 4, 91)
+    same = tconvffn.pad_widths(torch.from_numpy(y16), _torch_params(p16))
+    assert same[0].shape[-1] == C and same[1].w1.shape == (C, H)
+
+
+@pytest.mark.parametrize("stage", MA36_STAGES, ids=lambda t: f"C{t[0]}-H{t[1]}")
+def test_padded_forward_matches_unpadded_and_jax_at_ma36_widths(stage, monkeypatch):
+    """The wrapper's pad-and-slice through the plain version: padded
+    convffn_math (and convffn_res_math) sliced back equals the unpadded one
+    to f32 roundoff (a wider GEMM may block its sums otherwise), the padded
+    output lanes are exact zeros, and both equal JAX's kernels (f32, the
+    module's tolerance; at stage 3, where JAX's f32 plan does not fit, the
+    kernel's body run eagerly)."""
+    c, h = stage
+    y, p, res, _ = _ma36(c, h, 100 + c)
+    yt, pt, rt = torch.from_numpy(y), _torch_params(p), torch.from_numpy(res)
+    yk, pk, (rk,) = tconvffn.pad_widths(yt, pt, rt)
+    assert yk.shape[-1] % 16 == 0 and pk.w1.shape[-1] % 16 == 0
+    got = tconvffn.convffn_math(yk, pk, S_LORA)
+    got_res = tconvffn.convffn_res_math(yk, rk, pk, S_LORA)
+    assert not got[..., c:].any()
+    plain = tconvffn.convffn_math(yt, pt, S_LORA).numpy()
+    plain_res = tconvffn.convffn_res_math(yt, rt, pt, S_LORA).numpy()
+    for padded, want in ((got, plain), (got_res, plain_res)):
+        np.testing.assert_allclose(padded[..., :c].numpy(), want, rtol=1e-5,
+                                   atol=1e-6 * np.abs(want).max())
+    if _jax_fits(c, h):
+        jx, _ = _run_both(y, p, torch.float32, monkeypatch)
+        jx_res = _jax_res(y, res, p, monkeypatch)
+    else:  # the kernel's body, eagerly: JAX's kernel does not fit at stage 3
+        jx = _jax_eager(y, p, torch.float32)
+        jx_res = jx + res
+    for want, jwant in ((plain, jx), (plain_res, jx_res)):
+        np.testing.assert_allclose(want, jwant, rtol=1e-5, atol=1e-5 * np.abs(jwant).max())
+
+
+@pytest.mark.parametrize("stage", MA36_STAGES, ids=lambda t: f"C{t[0]}-H{t[1]}")
+def test_padded_backward_matches_unpadded_and_jax_at_ma36_widths(stage, monkeypatch):
+    """The backward's pad-and-slice (``pad_widths``, ``unpad_grads``) through
+    convffn_bwd_math: dy and every gradient equal the unpadded ones to f32
+    roundoff (1e-6 relative Frobenius), the padded lanes of dy are zeros, and
+    both equal jax.vjp of JAX's fused_convffn (its ``_convffn_bwd_kernel``;
+    at stage 3 jax.vjp of the forward kernel's body) within the module's
+    1e-5."""
+    c, h = stage
+    y, p, _, df = _ma36(c, h, 200 + c)
+    yt, pt, dft = torch.from_numpy(y), _torch_params(p), torch.from_numpy(df)
+    yk, pk, (dk,) = tconvffn.pad_widths(yt, pt, dft)
+    dy_pad, g_pad = tconvffn.convffn_bwd_math(yk, dk, pk, S_LORA)
+    assert not dy_pad[..., c:].any()
+    g_pad = tconvffn.unpad_grads(g_pad, c, h)
+    dy, g = tconvffn.convffn_bwd_math(yt, dft, pt, S_LORA)
+    assert _rel_fro(dy_pad[..., :c].numpy(), dy.numpy()) < 1e-6
+    for k in GRAD_FIELDS:
+        assert getattr(g_pad, k).shape == getattr(g, k).shape, k
+        assert _rel_fro(getattr(g_pad, k).numpy(), getattr(g, k).numpy()) < 1e-6, k
+    if _jax_fits(c, h):
+        want_dy, want = _jax_vjp(y, df, p, jnp.float32, monkeypatch)
+    else:  # jax.vjp of the kernel's body: JAX's kernels do not fit at stage 3
+        jp = jconvffn.ConvFFNParams(**{k: jnp.asarray(v) for k, v in p.items()})
+        _, vjp = jax.vjp(_jax_body, jnp.asarray(y), jp)
+        jdy, jdp = vjp(jnp.asarray(df))
+        want_dy, want = np.asarray(jdy), {k: np.asarray(getattr(jdp, k)) for k in GRAD_FIELDS}
+    assert _rel_fro(dy.numpy(), want_dy) < 1e-5
+    for k in GRAD_FIELDS:
+        assert _rel_fro(getattr(g, k).numpy(), want[k]) < 1e-5, k

@@ -17,7 +17,8 @@ tolerance: 4e-3 + 2e-2*|ref| elementwise, since its values are ~0.04 at
 long S, and in relative Frobenius norm 5e-4 (flash) and 3e-3
 (fused_attn_part, two GEMMs more), about three and two times the largest
 an H100 measured. ``fused_convffn`` (FastViT's ConvFFN) is held to 3e-2
-abs/rel at every fastvit_t8 and fastvit_sa12 stage shape; its backward
+abs/rel at every fastvit_t8, fastvit_sa12 and fastvit_ma36 stage shape
+(ma36's C = 76 and 152 zero-padded to multiples of 16); its backward
 ``fused_convffn_bwd`` holds dy to the same and each parameter gradient (f32
 sums over all rows) to 2e-3 of its largest magnitude, as the block
 backward's. dinov2-large's weight-streamed halves (``fused_attn_part_stream``,
@@ -350,11 +351,13 @@ def _assert_attention_close(got, want, fro_tol):
 
 
 # (B, H, S, dh): dinov2-small at 504² (S = 1297, ragged: 20*64 + 17 rows) at
-# batch 1 and 4, head width 32, S = 577, and a single short tile.
+# batch 1, 4 and 8 (8: the forward's 128-row tiles), head width 32, S = 577,
+# and a single short tile; S = 1296 (whole tiles) and 65 (one key over).
 # fastvit_sa12's SpatialAttention at 256² (16 heads of 32 over an 8x8 grid:
-# one query tile, no ragged edge) at batch 1 and 8.
+# one query tile, no ragged edge) at batch 1, 8 and its train batch 32.
 FLASH_CASES = [(1, 6, 1297, 64), (4, 6, 1297, 64), (2, 2, 1297, 32), (2, 6, 577, 64),
-               (1, 2, 100, 32), (1, 16, 64, 32), (8, 16, 64, 32)]
+               (1, 2, 100, 32), (1, 16, 64, 32), (8, 16, 64, 32),
+               (1, 6, 1296, 64), (8, 6, 1297, 64), (2, 6, 65, 64), (32, 16, 64, 32)]
 
 
 @pytest.mark.cuda
@@ -375,6 +378,32 @@ def test_flash_attention_matches_plain(cuda_device, shape):
     for got, w in zip((o.detach(), *(t.grad for t in leaves)), want):
         assert got.dtype == torch.bfloat16 and torch.isfinite(got).all()
         _assert_attention_close(got, w, 5e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [64, 128])
+def test_flash_attention_is_deterministic(cuda_device, rows):
+    """No atomics: two launches give the same bits, at both of the forward's
+    row tiles (the backward has one)."""
+    gen = torch.Generator().manual_seed(rows)
+    q, k, v, g = (torch.randn((2, 6, 1297, 64), generator=gen).to(cuda_device, torch.bfloat16)
+                  for _ in range(4))
+    lib = attention._ext.lib()
+    prev = lib.dp_flash_fwd_rows(rows)
+    try:
+        runs = []
+        for _ in range(2):
+            o, stats = attention.flash_fwd(q, k, v, 0.125)
+            runs.append((o, stats, *attention.flash_bwd(q, k, v, g, stats, 0.125)))
+    finally:
+        lib.dp_flash_fwd_rows(prev)
+    torch.cuda.synchronize()
+    # stats' third row is the backward's (written into flash_bwd's copy).
+    (o0, st0, *g0), (o1, st1, *g1) = runs
+    assert torch.equal(st0[:, :, :2], st1[:, :, :2])
+    assert all(torch.equal(a, b) for a, b in zip((o0, *g0), (o1, *g1)))
+    want = attention.flash_math(q, k, v, 0.125)
+    _assert_attention_close(runs[0][0], want, 5e-4)
 
 
 @pytest.mark.cuda
@@ -546,9 +575,6 @@ def test_convffn_refuses_what_it_does_not_take(cuda_device):
         convffn.fused_convffn(y, p._replace(a1=p.a1.clone().requires_grad_()), 2.0)
     with torch.no_grad():
         convffn.fused_convffn(y, p._replace(a1=p.a1.clone().requires_grad_()), 2.0)
-    with pytest.raises(ValueError, match="multiples of 16"):
-        y76, p76 = _convffn_inputs(1, 64, 76, 304, 8, cuda_device)   # fastvit_ma36
-        convffn.fused_convffn(y76, p76, 2.0)
     with pytest.raises(ValueError, match="rank"):
         y16, p16 = _convffn_inputs(1, 64, 48, 144, 16, cuda_device)
         convffn.fused_convffn(y16, p16, 2.0)
@@ -641,6 +667,43 @@ def test_convffn_bwd_ragged_rows_and_ranks(cuda_device, batch, seq, rank):
     assert all(torch.equal(a, b) for a, b in zip(got, again))  # no atomics
 
 
+# fastvit_ma36's stages at 256² (C, H, S): C = 76 and 152 are not multiples
+# of 16, the kernels' width; the wrappers zero-pad C and slice back.
+MA36_STAGES = [(76, 304, 4096), (152, 608, 1024), (304, 1216, 256), (608, 2432, 64)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["fwd", "res", "bwd"])
+@pytest.mark.parametrize("stage", MA36_STAGES, ids=lambda t: f"C{t[0]}-H{t[1]}-S{t[2]}")
+def test_convffn_kernels_at_ma36_stages(cuda_device, stage, kind):
+    """fused_convffn, fused_convffn_res and fused_convffn_bwd launch once at
+    every fastvit_ma36 stage shape (batch 2, rank 8) and agree with their
+    plain versions at the tolerances above; outputs and gradients come back
+    at the caller's C and H."""
+    c, h, s = stage
+    y, p = _convffn_inputs(2, s, c, h, 8, cuda_device, seed=c)
+    other = torch.from_numpy(np.random.default_rng(c + 1).standard_normal((2, s, c))
+                             .astype(np.float32)).to(cuda_device, torch.bfloat16)
+    block.reset_launches()
+    if kind == "bwd":
+        got = _flat_bwd(convffn.fused_convffn_bwd(y, other, p, 2.0))
+        want = _flat_bwd(convffn.convffn_bwd_math(y, other, p, 2.0))
+    elif kind == "res":
+        got = (convffn.fused_convffn_res(y, other, p, 2.0),)
+        want = (convffn.convffn_res_math(y, other, p, 2.0),)
+    else:
+        got, want = (convffn.fused_convffn(y, p, 2.0),), (convffn.convffn_math(y, p, 2.0),)
+    torch.cuda.synchronize()
+    name = {"fwd": "fused_convffn", "res": "fused_convffn_res", "bwd": "fused_convffn_bwd"}[kind]
+    assert block.LAUNCHES[name] == 1 and sum(block.LAUNCHES.values()) == 1
+    assert got[0].shape == (2, s, c)
+    if kind == "bwd":
+        assert got[4].shape == (8, h) and got[6].shape == (8, c)  # dB1, dB2
+        _assert_bwd_close(got, want)
+    else:
+        torch.testing.assert_close(got[0].float(), want[0].float(), atol=3e-2, rtol=3e-2)
+
+
 @pytest.mark.cuda
 def test_convffn_bwd_refuses_what_it_does_not_take(cuda_device):
     y, p = _convffn_inputs(1, 64, 48, 144, 8, cuda_device)
@@ -648,9 +711,6 @@ def test_convffn_bwd_refuses_what_it_does_not_take(cuda_device):
         convffn.fused_convffn_bwd(y.float(), y.float(), p, 2.0)
     with pytest.raises(ValueError, match="df must be"):
         convffn.fused_convffn_bwd(y, y[:, :32], p, 2.0)
-    with pytest.raises(ValueError, match="multiples of 16"):
-        y76, p76 = _convffn_inputs(1, 64, 76, 304, 8, cuda_device)   # fastvit_ma36
-        convffn.fused_convffn_bwd(y76, y76, p76, 2.0)
     with pytest.raises(ValueError, match="rank"):
         y16, p16 = _convffn_inputs(1, 64, 48, 144, 16, cuda_device)
         convffn.fused_convffn_bwd(y16, y16, p16, 2.0)

@@ -90,15 +90,18 @@ def pixels():
     return np.random.default_rng(1).standard_normal((2, 3, 128, 128)).astype(np.float32)
 
 
-@pytest.mark.parametrize("route", ["xla", "force"])
+@pytest.mark.parametrize("route", ["xla", "force", "0", "unset"])
 def test_pose_model_matches_jax(models, pixels, route, monkeypatch):
-    """``xla``: JAX's default CPU route, the folded XLA ConvFFN chain;
-    ``force``: its Pallas ConvFFN kernel in interpret mode, once per block."""
+    """Each value of JAX's ``DINO_POSE_TPU_CONVFFN`` against the port, which
+    reads none (its ConvFFN rounds as both of JAX's routes do): ``xla``,
+    ``0`` and unset, JAX's folded XLA ConvFFN chain (unset: the default off a
+    TPU); ``force``: its Pallas ConvFFN kernel in interpret mode, once per
+    block."""
     jmodule, variables, tm = models
-    if route == "force":
-        monkeypatch.setenv("DINO_POSE_TPU_CONVFFN", "force")
-    else:
+    if route == "unset":
         monkeypatch.delenv("DINO_POSE_TPU_CONVFFN", raising=False)
+    else:
+        monkeypatch.setenv("DINO_POSE_TPU_CONVFFN", route)
     calls = []
     kernel = jconvffn._convffn_fwd_kernel
     monkeypatch.setattr(jconvffn, "_convffn_fwd_kernel",

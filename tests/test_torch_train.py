@@ -82,22 +82,31 @@ def _keypoints(rng, b, k, hw):
     return kps
 
 
+@pytest.mark.parametrize("against", ["jax", "jax_host", "port_host"])
 @pytest.mark.parametrize("hw", [(224, 224), (200, 160)])
-def test_render_heatmaps_matches_jax(hw):
-    """Invisible, negative, edge and off-image keypoints included."""
+def test_render_heatmaps_matches_jax(hw, against):
+    """Invisible, negative, edge and off-image keypoints included. One
+    comparison a case, so that a failure names it: ``jax``, the port's
+    batched f32 render against JAX's (1e-6); ``jax_host``, each sample of it
+    against JAX's numpy host render (f64, rounded once; 1e-6);
+    ``port_host``, the port's host render against JAX's, bit for bit."""
     h, w = hw
     kps = _keypoints(np.random.default_rng(0), 3, 24, hw)
-    want = np.asarray(jheatmaps.render_heatmaps(jnp.asarray(kps), height=h, width=w,
-                                                heatmap_size=48))
     got = theatmaps.render_heatmaps(_t(kps), height=h, width=w, heatmap_size=48).numpy()
     assert got.shape == (3, 24, 48, 48) and got.dtype == np.float32
-    np.testing.assert_allclose(got, want, atol=1e-6, rtol=0)
-    for i in range(3):
-        host = jheatmaps.render_heatmaps_host(kps[i], (w, h), 48)
-        np.testing.assert_allclose(got[i], host, atol=1e-6, rtol=0)
-        np.testing.assert_array_equal(theatmaps.render_heatmaps_host(kps[i], (w, h), 48), host)
     assert not got[0, [0, 4, 5]].any()          # x < 0, window off the image, v == 0
     assert min(got[0, c].max() for c in (1, 2, 3)) > 0   # corner, edge, x == w
+    if against == "jax":
+        want = np.asarray(jheatmaps.render_heatmaps(jnp.asarray(kps), height=h, width=w,
+                                                    heatmap_size=48))
+        np.testing.assert_allclose(got, want, atol=1e-6, rtol=0)
+    for i in range(3):
+        host = jheatmaps.render_heatmaps_host(kps[i], (w, h), 48)
+        if against == "jax_host":
+            np.testing.assert_allclose(got[i], host, atol=1e-6, rtol=0, err_msg=f"sample {i}")
+        elif against == "port_host":
+            np.testing.assert_array_equal(theatmaps.render_heatmaps_host(kps[i], (w, h), 48),
+                                          host, err_msg=f"sample {i}")
 
 
 @pytest.mark.parametrize("sizes", [(224, 48), (200, 48), (48, 64), (17, 5)])
