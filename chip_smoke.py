@@ -40,7 +40,10 @@ layer's partial dx on both shards); then the final LayerNorm's kernel
 (JAX's DINO_POSE_TPU_LN=pallas) against its plain version and
 torch.nn.functional.layer_norm, and dinov2-small + LoRA serving and
 fine-tuning with that switch on. Times kernels, serving and every train
-step.
+step; the depthwise-conv and LayerNorm kernels, and cuDNN's grouped conv
+and torch.nn.functional.layer_norm beside them, on three clocks
+(host-inclusive, device-only from a CUDA graph's replay, host microseconds
+a call).
 
     python3 chip_smoke.py [--out results.json] [--profile]
 
@@ -58,6 +61,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import copy
+import gc
 import json
 import os
 import subprocess
@@ -315,6 +319,9 @@ LN_GATE = {"DINO_POSE_TPU_LN": "pallas"}
 SERVING_LN_LAUNCHES = {**SERVING_LAUNCHES, "fused_layernorm": 1}
 LORA_LN_LAUNCHES = {**LORA_LAUNCHES, "fused_layernorm": 1}
 LN_CASES = [(S, D), (TRAIN_BATCH * S, D), (TRAIN_BATCH * S, 768), (TRAIN_BATCH * S, 1024)]
+# The library call's three clocks beside a kernel's (``clocks``), where one
+# PyTorch call computes the kernel's function (rows 24 and 27).
+LIBRARY_CLOCKS = ("library_ms", "library_device_ms", "library_host_us")
 LN_SOURCE = "dino_pose_tpu_torch/ops/csrc/layernorm_kernels.cu"
 # Per JSON row: the TPU kernel it replaces, its source, the batch its
 # numbers were taken at, the path whose launches "launches" reports and the
@@ -416,6 +423,85 @@ def cuda_ms(fn, iters: int = 50, warmup: int = 5) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, iters: int = 20, reps: int = 5) -> float:
+    """Device-only ms a call: ``iters`` calls captured once in a CUDA graph,
+    the graph replayed ``reps`` times between two events, so that no host
+    work sits between the launches. Where capture refuses ``fn``, the
+    kernels' summed time in a torch.profiler trace of ``iters`` calls."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    try:
+        with torch.cuda.graph(graph):
+            for _ in range(iters):
+                fn()
+    except RuntimeError as err:
+        log(f"device_ms: CUDA graph capture refused ({str(err).splitlines()[0]}); "
+            "profiler kernel time instead")
+        torch.cuda.synchronize()
+        return profiler_ms(fn, iters)
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    del graph
+    return start.elapsed_time(end) / (reps * iters)
+
+
+def profiler_ms(fn, iters: int) -> float:
+    """The summed device time of the kernels of ``iters`` calls, a call."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA)
+    return us / 1000 / iters
+
+
+def host_us(fn, iters: int = 50) -> float:
+    """Host microseconds a call: a host-clock loop of ``iters`` calls with
+    no synchronisation inside it, the launches left queued on the card."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    seconds = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return seconds / iters * 1e6
+
+
+def clocks(fn, iters: int = 20, warmup: int = 5) -> dict:
+    """Three clocks of one call: host-inclusive ms (``cuda_ms``: back-to-back
+    calls between two events, so the slower of host and device), device-only
+    ms (``device_ms``) and host microseconds a call (``host_us``). The host
+    clocks are the median of three runs with Python's garbage collector
+    paused: a collection inside a run of 20 calls can double a batch-1
+    reading."""
+    gc.collect()
+    gc.disable()
+    try:
+        ms = sorted(cuda_ms(fn, iters=iters, warmup=warmup) for _ in range(3))[1]
+        us = sorted(host_us(fn, 2 * iters) for _ in range(3))[1]
+        return {"ms": ms, "device_ms": device_ms(fn, iters), "host_us": us}
+    finally:
+        gc.enable()
+
+
+def clocks_text(t: dict, prefix: str = "") -> str:
+    return (f"{t[prefix + 'ms']:.4f} ms, device {t[prefix + 'device_ms']:.4f} ms, "
+            f"host {t[prefix + 'host_us']:.1f} us/call")
 
 
 def block_inputs(b: int, gen: torch.Generator, s: int = S, d: int = D, hidden: int = HIDDEN):
@@ -1702,11 +1788,13 @@ def check_dw(results: dict, name: str, got: tuple, want: tuple, where: str) -> f
 
 def phase_dwconv(results: dict) -> dict:
     """FastViT's opt-in arms' wrappers against their plain versions at t8's
-    stage 0 and 1 shapes (256²), bf16, batch 1, 8 and 128: fused_dw_conv,
-    fused_combine_dw and fused_combine_dw_bwd at k = 3 and 7, and
-    fused_convffn_res at rank 8 with Dropout2d-style masks; the conv kernels
-    also at ragged H = 24 and 56. Then kernel, plain, bound and (for the
-    conv) cuDNN's grouped conv times at the path's shapes. Returns, by
+    stage 0 and 1 shapes (256²), bf16, batch 1, 8 and 128: fused_dw_conv
+    (also with flip=True, its transpose), fused_combine_dw and
+    fused_combine_dw_bwd at k = 3 and 7, and fused_convffn_res at rank 8
+    with Dropout2d-style masks; the conv kernels also at ragged H = 24 and
+    56. Then kernel (``clocks``: host-inclusive, device-only and host us a
+    call), plain, bound and (for the conv) cuDNN's grouped conv times at the
+    path's shapes. Returns, by
     batch, each wrapper's per-stage numbers and its sums over the launches
     of one forward (the conv at batch 1, k = 7: the serving path) or one
     step (the segment and the residual ConvFFN at batch 128, k = 7)."""
@@ -1724,6 +1812,8 @@ def phase_dwconv(results: dict) -> dict:
             where = f"(ragged: C={c}, H=W={h}, k={kk}) B=8"
             check_dw(results, "fused_dw_conv", (DW.fused_dw_conv(x, kern),),
                      (DW.dw_conv_math(x, kern),), where)
+            check_dw(results, "fused_dw_conv", (DW.fused_dw_conv(x, kern, flip=True),),
+                     (DW.dw_conv_math(x, kern.flip(0, 1)),), where + " flip")
             check_dw(results, "fused_combine_dw", DW.fused_combine_dw(x, y0, a, b, bias, kern),
                      DW.combine_dw_math(x, y0, a, b, bias, kern), where)
             check_dw(results, "fused_combine_dw_bwd",
@@ -1750,23 +1840,27 @@ def phase_dwconv(results: dict) -> dict:
                         lambda: DW.combine_dw_bwd_math(x, y0, dx2, dy7, a, bv, kern),
                         DW.combine_dw_bwd_cost(b, h, h, c, kk), None),
                 }
+                # The conv's transpose (dw_conv_frozen's dx): the taps read mirrored.
+                check_dw(results, "fused_dw_conv", (DW.fused_dw_conv(x, kern, flip=True),),
+                         (DW.dw_conv_math(x, kern.flip(0, 1)),), where + " flip")
                 for name, (kern_fn, plain_fn, (flops, nbytes), lib_fn) in cases.items():
                     err = check_dw(results, name, kern_fn(), plain_fn(), where)
                     with torch.inference_mode():
-                        ms = cuda_ms(kern_fn, iters=20)
+                        t = clocks(kern_fn)
                         plain_ms = cuda_ms(plain_fn, iters=5 if b > 8 else 10, warmup=2)
-                        lib_ms = cuda_ms(lib_fn, iters=20) if lib_fn else None
+                        lib = ({f"library_{k}": v for k, v in clocks(lib_fn).items()}
+                               if lib_fn else dict.fromkeys(LIBRARY_CLOCKS))
                     bound, by = B.bound_ms(flops, nbytes, B.F32_FLOPS)
-                    log(f"time {name} {where}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+                    log(f"time {name} {where}: kernel {clocks_text(t)}, plain {plain_ms:.4f} ms, "
                         f"bound {bound:.5f} ms ({by})"
-                        + (f", cuDNN grouped conv (bf16 taps) {lib_ms:.4f} ms" if lib_fn else ""))
+                        + (f", cuDNN grouped conv (bf16 taps) {clocks_text(lib, 'library_')}"
+                           if lib_fn else ""))
                     blocks = {"fused_dw_conv": n_serve, "fused_combine_dw": n_fwd,
                               "fused_combine_dw_bwd": n_bwd}[name]
                     out.setdefault(b, {}).setdefault(f"{name}_stages", []).append({
-                        "C": c, "H": h, "k": kk, "launches": blocks, "ms": ms,
-                        "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
-                        "library_ms": lib_ms, "flops": flops, "bytes": nbytes,
-                        "max_abs_err": err})
+                        "C": c, "H": h, "k": kk, "launches": blocks, **t,
+                        "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by, **lib,
+                        "flops": flops, "bytes": nbytes, "max_abs_err": err})
                 del x, y0, dx2, dy7
             y, p = convffn_inputs(b, h * h, c, hidden, 8, gen)
             res = torch.randn((b, h * h, c), generator=gen).to("cuda", torch.bfloat16)
@@ -1774,16 +1868,17 @@ def phase_dwconv(results: dict) -> dict:
             err = check_dw(results, "fused_convffn_res", (CF.fused_convffn_res(y, res, p, 2.0),),
                            (CF.convffn_res_math(y, res, p, 2.0),), where)
             with torch.inference_mode():
-                ms = cuda_ms(lambda: CF.fused_convffn_res(y, res, p, 2.0), iters=20)
+                t = clocks(lambda: CF.fused_convffn_res(y, res, p, 2.0))
                 plain_ms = cuda_ms(lambda: CF.convffn_res_math(y, res, p, 2.0), iters=5, warmup=2)
             flops, nbytes = CF.convffn_cost(b, h * h, c, hidden, 8, res=True)
             bound, by = B.bound_ms(flops, nbytes)
-            log(f"time fused_convffn_res {where}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-                f"bound {bound:.5f} ms ({by})")
+            log(f"time fused_convffn_res {where}: kernel {clocks_text(t)}, plain {plain_ms:.4f} "
+                f"ms, bound {bound:.5f} ms ({by})")
             out[b].setdefault("fused_convffn_res_stages", []).append({
-                "C": c, "H": hidden, "S": h * h, "launches": n_fwd, "ms": ms,
-                "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by, "library_ms": None,
-                "flops": flops, "bytes": nbytes, "max_abs_err": err})
+                "C": c, "H": hidden, "S": h * h, "launches": n_fwd, **t,
+                "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+                **dict.fromkeys(LIBRARY_CLOCKS), "flops": flops, "bytes": nbytes,
+                "max_abs_err": err})
             del y, p, res
     B.LAUNCHES.update(saved)  # checks and timing launches are not main-path launches
 
@@ -1793,13 +1888,14 @@ def phase_dwconv(results: dict) -> dict:
                     ("fused_convffn_res", T8_TRAIN_BATCH)):
         rows = [r for r in out[b][f"{name}_stages"] if r.get("k", 7) == 7]
         total = {k: sum(r["launches"] * r[k] for r in rows)
-                 for k in ("ms", "plain_ms", "flops", "bytes")}
-        lib = [r["library_ms"] for r in rows]
+                 for k in ("ms", "device_ms", "host_us", "plain_ms", "flops", "bytes")}
         bound, by = (B.bound_ms(total["flops"], total["bytes"]) if name == "fused_convffn_res"
                      else B.bound_ms(total["flops"], total["bytes"], B.F32_FLOPS))
-        out[b][name] = {"ms": total["ms"], "plain_ms": total["plain_ms"], "bound_ms": bound,
-                        "bound_by": by, "library_ms": None if None in lib else sum(
-                            r["launches"] * r["library_ms"] for r in rows)}
+        out[b][name] = {**{k: total[k] for k in ("ms", "device_ms", "host_us", "plain_ms")},
+                        "bound_ms": bound, "bound_by": by, **{
+                            k: None if rows[0][k] is None else sum(r["launches"] * r[k]
+                                                                   for r in rows)
+                            for k in LIBRARY_CLOCKS}}
         log(f"time {name} t8 {'forward' if b == 1 else 'step'} "
             f"({sum(r['launches'] for r in rows)} launches, k=7) B={b}: " + json.dumps(out[b][name]))
     return out
@@ -1927,8 +2023,9 @@ def phase_layernorm(results: dict) -> dict:
     reason); then kernel, plain, bound (bytes: each row read and written
     once, f32 scale and bias read once) and torch.nn.functional.layer_norm
     times, the library yardstick, on the same tensor with scale and bias in
-    its dtype. Returns the times: (257, 384) and (128*257, 384) in bf16 under
-    ``fused_layernorm`` at batch 1 and 128, every case under ``cases``."""
+    its dtype, each on the three ``clocks``. Returns the times: (257, 384)
+    and (128*257, 384) in bf16 under ``fused_layernorm`` at batch 1 and 128,
+    every case under ``cases``."""
     import torch.nn.functional as F
 
     from dino_pose_tpu_torch.ops import block as B
@@ -1963,17 +2060,17 @@ def phase_layernorm(results: dict) -> dict:
             row["max_abs_err"] = max(row["max_abs_err"], err.max().item())
             w_lib, b_lib = scale.to(dtype), bias.to(dtype)
             with torch.inference_mode():
-                ms = cuda_ms(lambda: LN.fused_layernorm(x, scale, bias, EPS), iters=50)
+                kern = clocks(lambda: LN.fused_layernorm(x, scale, bias, EPS), iters=50)
                 plain_ms = cuda_ms(lambda: LN.layernorm_reference(x, scale, bias, EPS), iters=20)
-                lib_ms = cuda_ms(lambda: F.layer_norm(x, (d,), w_lib, b_lib, EPS), iters=50)
+                lib = clocks(lambda: F.layer_norm(x, (d,), w_lib, b_lib, EPS), iters=50)
             flops, nbytes = LN.layernorm_cost(rows, d, x.element_size())
             bound, by = B.bound_ms(flops, nbytes, B.F32_FLOPS)
-            t = {"rows": rows, "D": d, "dtype": str(dtype).split(".")[-1], "ms": ms,
-                 "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by, "library_ms": lib_ms,
-                 "max_abs_err": err.max().item()}
+            t = {"rows": rows, "D": d, "dtype": str(dtype).split(".")[-1], **kern,
+                 "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+                 **{f"library_{k}": v for k, v in lib.items()}, "max_abs_err": err.max().item()}
             out["cases"].append(t)
-            log(f"time fused_layernorm {where}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-                f"bound {bound:.5f} ms ({by}), F.layer_norm {lib_ms:.4f} ms")
+            log(f"time fused_layernorm {where}: kernel {clocks_text(kern)}, plain {plain_ms:.4f} "
+                f"ms, bound {bound:.5f} ms ({by}), F.layer_norm {clocks_text(lib)}")
             if d == D and dtype == torch.bfloat16:
                 out.setdefault(1 if rows == S else TRAIN_BATCH, {})["fused_layernorm"] = t
             del x, got, want
@@ -2221,6 +2318,9 @@ def main() -> int:
             **({"max_grad_err_rel": row["max_grad_err_rel"]} if "max_grad_err_rel" in row else {}),
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t.get("library_ms"),
+            # Rows 24-27: device-only ms and host us a call beside "ms".
+            **{k: t[k] for k in ("device_ms", "host_us", "library_device_ms", "library_host_us")
+               if k in t},
         })
     log("kernel_times_b8 " + json.dumps(by_batch[8]))
     log("kernel_times_b32 " + json.dumps(by_batch[LONG_BATCH]))

@@ -26,6 +26,8 @@ import subprocess
 import threading
 import time
 
+import torch
+
 _CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 _BUILD = pathlib.Path(__file__).resolve().parent.parent / "build"
 _SOURCES = ("block_kernels.cu", "flash_kernels.cu", "convffn_kernels.cu", "dwconv_kernels.cu",
@@ -92,10 +94,11 @@ _SIGNATURES = {
     "dp_convffn_bwd_blocks": ([_I, _I], _I),
     "dp_fused_convffn_bwd": ([_P] * 17 + [_I] * 6 + [_F, _P], _I),
     "dp_fused_convffn_res": ([_P] * 15 + [_I] * 5 + [_F, _P], _I),
-    "dp_dw_smem_bytes": ([_I] * 4, ctypes.c_longlong),
-    "dp_dw_conv": ([_P] * 3 + [_I] * 8 + [_P], _I),
-    "dp_combine_dw": ([_P] * 8 + [_I] * 8 + [_P], _I),
-    "dp_combine_dw_bwd": ([_P] * 11 + [_I] * 8 + [_P], _I),
+    "dp_dw_smem_bytes": ([_I] * 6, ctypes.c_longlong),
+    "dp_dw_occupancy": ([_I] * 4 + [ctypes.c_longlong], _I),
+    "dp_dw_conv": ([_P] * 4 + [_I, _P], _I),
+    "dp_combine_dw": ([_P] * 10, _I),
+    "dp_combine_dw_bwd": ([_P] * 13, _I),
     "dp_fused_attn_part_partial": ([_P] * 9 + [_I] * 5 + [_F, _P], _I),
     "dp_fused_mlp_part_partial": ([_P] * 8 + [_I] * 3 + [_F, _P], _I),
     "dp_fused_mlp_partial_dx": ([_P] * 11 + [_I] * 3 + [_F, _P], _I),
@@ -166,6 +169,8 @@ def build(verbose: bool = False) -> pathlib.Path:
 def lib() -> ctypes.CDLL:
     """The loaded kernel library (built on first call)."""
     global _LIB
+    if _LIB is not None:
+        return _LIB
     with _LOCK:
         if _LIB is None:
             handle = ctypes.CDLL(str(build()))
@@ -175,6 +180,13 @@ def lib() -> ctypes.CDLL:
                 fn.restype = res
             _LIB = handle
     return _LIB
+
+
+def stream(index: int) -> int:
+    """The raw handle of PyTorch's current CUDA stream on device ``index``:
+    ``torch.cuda.current_stream(index).cuda_stream`` without building a
+    Stream object (a host cost the small launches notice)."""
+    return torch._C._cuda_getCurrentRawStream(index)
 
 
 def check(err: int, what: str) -> None:

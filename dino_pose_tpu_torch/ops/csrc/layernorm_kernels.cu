@@ -10,8 +10,10 @@
 //
 // The TPU kernel takes 512 rows a program and pads the row count to a
 // multiple of 512 with zero rows; here each row is independent work: one
-// warp a row for D <= 1024 (four rows a 128-thread block), one block a row
-// up to D = 4096, any row count and no padding. A thread holds its share of
+// warp a row for D <= 1024, one block a row up to D = 4096, any row count
+// and no padding. A block takes four rows (warps), or two or one where four
+// would leave SMs without a block: at dinov2-small's 257 serving rows two,
+// 129 blocks, where four gave 65 blocks on 132 SMs. A thread holds its share of
 // the row in registers (16-byte chunks of 8 values), so the row is read from
 // device memory once and both passes over it (mean, then the squared
 // deviations) run in registers: the kernel moves each input byte once and
@@ -23,12 +25,14 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <atomic>
+
 namespace {
 
 typedef __nv_bfloat16 bf16;
 
 constexpr int VEC = 8;          // values of a chunk (16 bytes of bf16)
-constexpr int THREADS = 128;    // threads a block
+constexpr int THREADS = 128;    // threads a block (a block-a-row block; at most, a warp a row)
 constexpr int MAX_CHUNKS = 4;   // chunks a thread holds: D <= 32*8*4 a warp, 128*8*4 a block
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -81,7 +85,7 @@ __device__ __forceinline__ float row_sum(float v, float* red) {
 
 // y[row] = bf16-or-f32(((x - mean) * rsqrt(var + eps)) * gamma + beta) over
 // rows of D (D % 8 == 0, D <= TPR * 8 * MAX_CHUNKS). TPR = 32: a warp a row,
-// grid ceil(rows / 4); TPR = THREADS: a block a row, grid rows. The affine's
+// blockDim.x / 32 rows a block; TPR = THREADS: a block a row. The affine's
 // products and sum are kept apart (no fused multiply-add), as the plain
 // version computes them.
 template <typename T, int TPR>
@@ -90,7 +94,7 @@ ln_fwd_kernel(const T* __restrict__ x, const float* __restrict__ gamma,
               const float* __restrict__ beta, T* __restrict__ y, int rows, int D, float eps) {
   __shared__ float red[THREADS / 32];
   const int t = TPR == 32 ? (threadIdx.x & 31) : threadIdx.x;
-  const int row = TPR == 32 ? blockIdx.x * (THREADS / 32) + (threadIdx.x >> 5) : blockIdx.x;
+  const int row = TPR == 32 ? blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5) : blockIdx.x;
   if (row >= rows) return;  // a whole warp (TPR = 32) or never (a block a row)
   const T* src = x + static_cast<size_t>(row) * D;
   T* dst = y + static_cast<size_t>(row) * D;
@@ -135,6 +139,28 @@ ln_fwd_kernel(const T* __restrict__ x, const float* __restrict__ gamma,
   }
 }
 
+// The SMs of the current device, read once per device.
+int sm_count() {
+  static std::atomic<int> cached[32];
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev >= 32) return 132;
+  int n = cached[dev].load();
+  if (n == 0) {
+    if (cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess) n = 132;
+    cached[dev].store(n);
+  }
+  return n;
+}
+
+// Rows (warps) a block for the warp-a-row kernel: four, halved while the
+// grid would hold fewer blocks than half the SMs.
+int rows_per_block(int rows) {
+  const int sms = sm_count();
+  int rpb = THREADS / 32;
+  while (rpb > 1 && (rows + rpb - 1) / rpb * 2 < sms) rpb /= 2;
+  return rpb;
+}
+
 template <typename T>
 cudaError_t launch_ln(const void* x, const void* gamma, const void* beta, void* y, int rows,
                       int D, float eps, cudaStream_t st) {
@@ -143,9 +169,9 @@ cudaError_t launch_ln(const void* x, const void* gamma, const void* beta, void* 
   const float* b = static_cast<const float*>(beta);
   T* yp = static_cast<T*>(y);
   if (D <= 32 * VEC * MAX_CHUNKS) {
-    const int per_block = THREADS / 32;
-    ln_fwd_kernel<T, 32><<<(rows + per_block - 1) / per_block, THREADS, 0, st>>>(
-        xp, g, b, yp, rows, D, eps);
+    const int rpb = rows_per_block(rows);
+    ln_fwd_kernel<T, 32><<<(rows + rpb - 1) / rpb, 32 * rpb, 0, st>>>(xp, g, b, yp, rows, D,
+                                                                      eps);
   } else {
     ln_fwd_kernel<T, THREADS><<<rows, THREADS, 0, st>>>(xp, g, b, yp, rows, D, eps);
   }

@@ -31,7 +31,8 @@ and its backward, given the cotangents dx2bar of x2 and dy7bar of y7::
 
 The transpose of a stride-1 SAME conv is the same conv with its kernel
 flipped in H and W (both frameworks cross-correlate), so ``dw_conv_frozen``'s
-backward is ``fused_dw_conv`` on the flipped taps. The conv kernel gets a
+backward is ``fused_dw_conv(..., flip=True)``, whose kernel reads the taps
+mirrored (no flipped copy is made). The conv kernel gets a
 zero gradient (JAX's frozen-backbone contract: no FastViT training mode
 trains a backbone conv).
 
@@ -51,7 +52,10 @@ route the card takes.
 
 from __future__ import annotations
 
+import ctypes
+import functools
 import os
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -61,9 +65,11 @@ from dino_pose_tpu_torch.ops import _ext
 LAUNCHES = _ext.LAUNCHES
 
 _SMEM_LIMIT = 232448   # bytes of shared memory one Hopper block may use
-_TILE_TARGET = 100 * 1024  # tile bytes that leave room for two blocks an SM
-_CHANNELS = 64         # channels a block takes at most (one thread each)
-_ROWS = 8              # output rows of a block's strip, at most
+_SMEM_BUDGET = 233472 // 2 - 1024  # two blocks in an SM's 228 KB (1 KB reserved each)
+_CHANNELS = 64         # channels of a group, at most
+_ROWS, _COLS = 16, 64  # output rows of a strip and columns of a tile, at most
+_TW = 8                # output columns of a thread's slot (TW in the kernel)
+_THREADS = 192         # threads of a block, at most (MAX_THREADS)
 KERNEL_SIZES = (3, 7)  # the kernel's template instances (FastViT's mixer and ConvFFN)
 
 # ---------------------------------------------------------------------------
@@ -147,10 +153,11 @@ def _conv_f32(x: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
     return F.conv2d(x.float().permute(0, 3, 1, 2), w, None, 1, kk // 2, 1, c).permute(0, 2, 3, 1)
 
 
-def dw_conv_math(x: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
-    """Plain version of ``_dw_kernel``: the conv in f32 on f32 taps, rounded
-    to x's dtype."""
-    return _conv_f32(x, kernel).to(x.dtype).contiguous()
+def dw_conv_math(x: torch.Tensor, kernel: torch.Tensor, flip: bool = False) -> torch.Tensor:
+    """Plain version of ``_dw_kernel``: the conv in f32 on f32 taps (mirrored
+    in H and W where ``flip``: the conv's transpose), rounded to x's
+    dtype."""
+    return _conv_f32(x, kernel.flip(0, 1) if flip else kernel).to(x.dtype).contiguous()
 
 
 def _combine(x, y0, a, b, bias) -> torch.Tensor:
@@ -206,100 +213,213 @@ def combine_dw_bwd_cost(b: int, h: int, w: int, c: int, kk: int) -> tuple[int, i
 # ---------------------------------------------------------------------------
 # Wrappers
 
-
-def _stream() -> int:
-    return torch.cuda.current_stream().cuda_stream
+# dw_kernel's modes (MODE in dwconv_kernels.cu).
+DW, COMBINE, COMBINE_BWD = 0, 1, 2
 
 
 def _check(name: str, kernel: torch.Tensor, *acts: torch.Tensor, vecs=()) -> tuple:
-    """(B, H, W, C, k) after checking what the kernel takes."""
+    """(B, H, W, C, k) after checking what the kernel takes; runs on any
+    device (the wrappers call it for CUDA tensors only)."""
     x = acts[0]
-    if any(t.dtype != torch.bfloat16 for t in acts):
-        raise TypeError(f"{name}: the CUDA kernel takes bf16 activations, got "
-                        f"{[str(t.dtype) for t in acts]}")
-    if x.dim() != 4:
-        raise ValueError(f"{name}: activations must be (B, H, W, C), got {tuple(x.shape)}")
+    shape, dev = x.shape, x.get_device()
     for t in acts:
-        if (t.shape != x.shape or t.device != x.device or not t.is_contiguous()
+        if t.dtype is not torch.bfloat16:
+            raise TypeError(f"{name}: the CUDA kernel takes bf16 activations, got "
+                            f"{[str(t.dtype) for t in acts]}")
+        if (t.shape != shape or t.get_device() != dev or not t.is_contiguous()
                 or t.data_ptr() % 16):
             raise ValueError(f"{name}: activations must be contiguous, 16-byte aligned "
-                             f"(B, H, W, C) tensors of one shape {tuple(x.shape)} on one device")
-    b, h, w, c = x.shape
+                             f"(B, H, W, C) tensors of one shape {tuple(shape)} on one device")
+    if len(shape) != 4:
+        raise ValueError(f"{name}: activations must be (B, H, W, C), got {tuple(shape)}")
+    b, h, w, c = shape
     kk = kernel.shape[0]
-    if tuple(kernel.shape) != (kk, kk, 1, c) or kk not in KERNEL_SIZES:
+    if kernel.shape != (kk, kk, 1, c) or kk not in KERNEL_SIZES:
         raise ValueError(f"{name}: kernel must be HWIO (k, k, 1, {c}) with k in {KERNEL_SIZES}, "
                          f"got {tuple(kernel.shape)}")
     for v in vecs:
-        if tuple(v.shape) != (c,) or v.dtype != torch.float32 or v.device != x.device:
+        if v.shape != (c,) or v.dtype is not torch.float32 or v.get_device() != dev:
             raise ValueError(f"{name}: per-channel vectors must be f32 ({c},) on {x.device}")
-    if kernel.device != x.device:
+    if kernel.get_device() != dev:
         raise ValueError(f"{name}: kernel on {kernel.device}, activations on {x.device}")
     return b, h, w, c, kk
 
 
 def _taps(kernel: torch.Tensor) -> torch.Tensor:
-    """The f32 tap table (k*k, C), row dh*k + dw."""
-    kk, c = kernel.shape[0], kernel.shape[-1]
-    return kernel.detach().float().reshape(kk * kk, c).contiguous()
+    """The f32 tap table (k*k, C), row dh*k + dw: the HWIO kernel itself
+    where it is f32 and contiguous (its memory is that table), else a
+    copy."""
+    if kernel.dtype == torch.float32 and kernel.is_contiguous():
+        return kernel
+    return kernel.detach().float().contiguous()
 
 
-def _plan(name: str, b: int, h: int, w: int, c: int, kk: int, dev: torch.device) -> tuple:
-    """(rows a strip, channels a group, groups): groups of at most 64
-    channels (one thread each; a multiple of 8 where C is, so that the tile
-    is staged in 16-byte vectors); strips of 8 rows, halved while the grid
-    would leave SMs idle or the zero-padded bf16 halo tile outgrows
-    ``_TILE_TARGET`` (two blocks an SM)."""
-    lib = _ext.lib()
+class Plan(NamedTuple):
+    """A launch of dw_kernel: strips of ``th`` output rows, column tiles of
+    ``twc`` columns, groups of ``cg`` channels, ``nt`` threads a block,
+    ``grid`` persistent blocks over ``items`` tiles; ``smem`` bytes a
+    block; ``rb`` output rows a thread's slot. ``packed`` holds (B, H, W,
+    C, k, th, twc, cg, nt, grid, rb) as C ints, the C entries' first
+    argument, at address ``addr``."""
+    th: int
+    twc: int
+    cg: int
+    nt: int
+    grid: int
+    items: int
+    smem: int
+    rb: int
+    packed: ctypes.Array
+    addr: int
+
+
+def _layout_elems(th: int, twc: int, kk: int, cg: int) -> int:
+    """bf16 elements of one tile (``Layout`` in dwconv_kernels.cu): pixels
+    of the group's channels rounded up to even, 8-pixel chunks padded by
+    (-7*np) mod 32 four-byte words (np channel pairs), rows of whole
+    chunks."""
+    ps = cg + (cg & 1)
+    cs = 8 * ps + 2 * ((-7 * (ps // 2)) % 32)
+    return (th + kk - 1) * -(-(twc + kk - 1) // _TW) * cs
+
+
+def _smem_bytes(th: int, twc: int, kk: int, cg: int, mode: int, nt: int) -> int:
+    """Shared-memory bytes of a block (``smem_bytes`` in dwconv_kernels.cu):
+    two tile buffers, and COMBINE's y0 tile or COMBINE_BWD's (6, nt) f32
+    sums and the group's f32 taps."""
+    def a128(n):
+        return -(-n // 128) * 128
+
+    tile = a128(2 * _layout_elems(th, twc, kk, cg))
+    if mode == COMBINE:
+        return 3 * tile
+    if mode == COMBINE_BWD:
+        return 2 * tile + a128(24 * nt) + a128(4 * kk * kk * (cg + (cg & 1)))
+    return 2 * tile
+
+
+def _groups(c: int) -> tuple[int, int]:
+    """(channels a group, groups): groups of at most 64 channels, whole
+    16-byte vectors (multiples of 8) where C is a multiple of 8, even
+    where C is even (the kernel's bf16x2 pairs)."""
     groups = -(-c // _CHANNELS)
     cg = -(-c // groups)
-    if c % 8 == 0:  # groups of whole 16-byte vectors: the kernel's vector staging
-        cg = -(-cg // 8) * 8
-        groups = -(-c // cg)
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    th = _ROWS
-    while th > 1 and (b * -(-h // th) * groups < 2 * sms
-                      or lib.dp_dw_smem_bytes(w, kk, th, cg) > _TILE_TARGET):
-        th //= 2
-    if lib.dp_dw_smem_bytes(w, kk, th, cg) > _SMEM_LIMIT:
-        raise ValueError(f"{name}: rows of width W={w} do not fit shared memory at k={kk}")
-    return th, cg, groups
+    step = 8 if c % 8 == 0 else 2 if c % 2 == 0 else 1
+    cg = -(-cg // step) * step
+    return cg, -(-c // cg)
+
+
+def _threads(cg: int, th: int, twc: int, rb: int) -> int:
+    """Threads of a block: a multiple of the group's channel pairs (a
+    thread keeps one pair), as many (rb-row, 8-column) slots at once as
+    divide the item's slots evenly, at most 192."""
+    np_ = (cg + 1) // 2
+    slots = th // rb * (twc // _TW)
+    return np_ * max(m for m in range(1, slots + 1) if slots % m == 0 and np_ * m <= _THREADS)
+
+
+def _sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _occupancy(kk: int, mode: int, rb: int, plan: tuple) -> int:
+    """Blocks of the plan an SM holds at once (``dp_dw_occupancy``), after
+    checking the plan's shared-memory bytes against the kernel's own
+    formula."""
+    th, twc, cg, nt, smem = plan
+    lib = _ext.lib()
+    if lib.dp_dw_smem_bytes(th, twc, kk, cg, mode, nt) != smem:
+        raise RuntimeError("dwconv: _smem_bytes disagrees with dp_dw_smem_bytes")
+    return lib.dp_dw_occupancy(kk, mode, rb, nt, smem)
+
+
+@functools.lru_cache(maxsize=256)
+def _plan(b: int, h: int, w: int, c: int, kk: int, mode: int, device: int) -> Plan:
+    """The launch plan of a shape, cached. Items of (sample, strip, column
+    tile, channel group) start at 16 rows x 64 columns; while the grid
+    would leave an SM without an item, the column tile halves (to 8) while
+    it is wider than twice the strip, else the strip halves (to 2): at
+    batch 1 the card fills with tiles of several rows rather than with
+    one-row strips. Then, until a block's shared memory fits
+    ``_SMEM_BUDGET`` (two blocks an SM), the column tile halves to 16, then
+    the strip to 2, then the tile to 8. A thread's slot takes two output
+    rows where whole strips alone fill the card (each window row feeds
+    both), else one (a shorter chain a thread where the grid is small);
+    COMBINE_BWD always one (its slots hold their operands in registers too,
+    and measured faster so). The grid is as many persistent blocks as the
+    card holds at once, at most one an item."""
+    sms = _sms(device)
+    cg, groups = _groups(c)
+    th, twc = _ROWS, min(_COLS, -(-w // _TW) * _TW)
+
+    def items(th, twc):
+        return b * -(-h // th) * -(-w // twc) * groups
+
+    rb = 2 if items(th, twc) >= sms and mode != COMBINE_BWD else 1
+
+    def half(twc):
+        return -(-twc // (2 * _TW)) * _TW
+
+    while items(th, twc) < sms and (twc > _TW or th > 2):
+        th, twc = (th, half(twc)) if twc > _TW and (twc > 2 * th or th == 2) else (th // 2, twc)
+    while _smem_bytes(th, twc, kk, cg, mode, _threads(cg, th, twc, rb)) > _SMEM_BUDGET:
+        if twc == _TW and th == 2:
+            raise ValueError(f"dwconv: rows of {c} channels do not fit shared memory at k={kk}")
+        th, twc = (th, half(twc)) if twc > 2 * _TW or (th == 2) else (th // 2, twc)
+    nt = _threads(cg, th, twc, rb)
+    smem = _smem_bytes(th, twc, kk, cg, mode, nt)
+    occ = _occupancy(kk, mode, rb, (th, twc, cg, nt, smem))
+    if occ < 1:
+        raise RuntimeError(f"dwconv: a block of {nt} threads and {smem} bytes does not launch")
+    n = items(th, twc)
+    grid = min(n, sms * occ)
+    packed = (ctypes.c_int * 11)(b, h, w, c, kk, th, twc, cg, nt, grid, rb)
+    return Plan(th, twc, cg, nt, grid, n, smem, rb, packed, ctypes.addressof(packed))
 
 
 def _launch_checks(name: str, *tensors: torch.Tensor) -> None:
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+    if torch.is_grad_enabled() and any([t.requires_grad for t in tensors]):
         raise ValueError(f"{name} has no backward of its own, and an operand requires grad: "
                          "dw_conv_frozen and combine_dw_frozen are the differentiable ones")
 
 
-def fused_dw_conv(x: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
+def fused_dw_conv(x: torch.Tensor, kernel: torch.Tensor, flip: bool = False) -> torch.Tensor:
     """The stride-1 SAME depthwise conv of (B, H, W, C) x with the HWIO
-    kernel's f32 taps; replaces ``_dw_kernel`` (dino_pose_tpu/ops/dwconv.py:54,
-    body ``_tap_conv`` :75, via ``dw_conv_frozen`` :174).
+    kernel's f32 taps, mirrored in H and W where ``flip`` (the conv's
+    transpose, ``dw_conv_frozen``'s dx); replaces ``_dw_kernel``
+    (dino_pose_tpu/ops/dwconv.py:54, body ``_tap_conv`` :75, via
+    ``dw_conv_frozen`` :174).
 
-    Design (``dw_kernel<K, DW>``): one block per (sample, strip of up to 8
-    rows, group of up to 64 channels); the strip and its k-1 halo rows and
-    columns, zero-padded, are staged once in shared memory in bf16 (exact:
-    x is bf16); one thread per channel walks 8 outputs along W at a time,
-    keeping its channel's k*k f32 taps and a row of the window in
-    registers, f32 sums, one rounding. The TPU kernel's lane-packed (H, W*C)
-    view and its lane rolls exist for the 128-wide vector unit; here
-    neighbouring threads take neighbouring channels, which is NHWC's
-    contiguous axis. Any H and W (the TPU kernel's 16-row chunks fail at
-    H > 16, H % 16 != 0).
+    Design (``dw_kernel<K, DW>``, dwconv_kernels.cu): persistent blocks walk
+    items of (sample, strip, column tile, channel group), sized by ``_plan``
+    so that the grid covers the card at every batch; each item's tile with
+    its k-1 halo is staged by cp.async while the block computes the one
+    before; a thread keeps a channel pair's f32 taps in registers and sums
+    2 rows x 8 columns of outputs at once from bf16x2 reads of the tile,
+    f32 sums rounded once, bf16x2 stores. The TPU kernel's lane-packed (H,
+    W*C) view and its lane rolls exist for the 128-wide vector unit; here
+    neighbouring threads take neighbouring channel pairs, NHWC's contiguous
+    axis. Any H and W (the TPU kernel's 16-row chunks fail at H > 16,
+    H % 16 != 0).
+
+    Host side: the plan is cached per shape, the kernel's shared-memory
+    limit is raised once per device, and the taps are read in place (no
+    flipped copy).
 
     Bound on an H100: 2*k*k FLOPs an output in f32 at 67 TFLOP/s, or x and
     the output (bf16) at 3.35 TB/s; ``dwconv_cost`` counts both."""
     name = "fused_dw_conv"
-    if x.device.type == "cpu":
-        return dw_conv_math(x, kernel)
-    if x.device.type != "cuda":
+    if not x.is_cuda:
+        if x.device.type == "cpu":
+            return dw_conv_math(x, kernel, flip)
         raise ValueError(f"{name}: unsupported device {x.device}")
     _launch_checks(name, x, kernel)
     b, h, w, c, kk = _check(name, kernel, x)
-    th, cg, groups = _plan(name, b, h, w, c, kk, x.device)
+    index = x.get_device()
+    plan = _plan(b, h, w, c, kk, DW, index)
     taps, out = _taps(kernel), torch.empty_like(x)
-    err = _ext.lib().dp_dw_conv(x.data_ptr(), taps.data_ptr(), out.data_ptr(),
-                                b, h, w, c, kk, th, cg, groups, _stream())
+    err = _ext.lib().dp_dw_conv(plan.addr, x.data_ptr(), taps.data_ptr(), out.data_ptr(),
+                                flip, _ext.stream(index))
     _ext.check(err, name)
     LAUNCHES[name] += 1
     return out
@@ -310,27 +430,29 @@ def fused_combine_dw(x, y0, a, b, bias, kernel) -> tuple[torch.Tensor, torch.Ten
     replaces ``_combine_dw_fwd_kernel`` (dino_pose_tpu/ops/dwconv.py:287, via
     ``combine_dw_frozen`` :407).
 
-    Design (``dw_kernel<K, COMBINE>``): ``fused_dw_conv``'s block with a
-    prologue: while staging the tile it forms x2 in f32 from x, y0 and the
-    per-channel a, b, bias, rounds it to bf16, writes the strip's own rows
-    of x2 once and keeps the rounded values (halo rows recomputed by each
-    neighbouring strip the same way) for the conv, so the conv reads x2 as
-    rounded (dwconv.py:299-303) and x2 makes no extra round trip through
-    device memory. The zero padding is x2's, not x's.
+    Design (``dw_kernel<K, COMBINE>``): ``fused_dw_conv``'s kernel with a
+    prologue: x and y0 are staged into two buffers, x2 is formed in f32
+    from them and the per-channel a, b, bias, rounded to bf16 in place, and
+    the item's own pixels of x2 are written once (halo pixels recomputed by
+    each neighbouring item the same way), so the conv reads x2 as rounded
+    (dwconv.py:299-303) and x2 makes no extra round trip through device
+    memory. The zero padding is x2's, not x's.
 
     Bound on an H100: 2*(k*k + 2) FLOPs an output in f32 at 67 TFLOP/s, or
     x, y0, x2, y7 (bf16) at 3.35 TB/s; ``combine_dw_cost`` counts both."""
     name = "fused_combine_dw"
-    if x.device.type == "cpu":
-        return combine_dw_math(x, y0, a, b, bias, kernel)
-    if x.device.type != "cuda":
+    if not x.is_cuda:
+        if x.device.type == "cpu":
+            return combine_dw_math(x, y0, a, b, bias, kernel)
         raise ValueError(f"{name}: unsupported device {x.device}")
     _launch_checks(name, x, y0, a, b, bias, kernel)
     bsz, h, w, c, kk = _check(name, kernel, x, y0, vecs=(a, b, bias))
-    th, cg, groups = _plan(name, bsz, h, w, c, kk, x.device)
+    index = x.get_device()
+    plan = _plan(bsz, h, w, c, kk, COMBINE, index)
     taps, x2, y7 = _taps(kernel), torch.empty_like(x), torch.empty_like(x)
-    err = _ext.lib().dp_combine_dw(*(t.data_ptr() for t in (x, y0, a, b, bias, taps, x2, y7)),
-                                   bsz, h, w, c, kk, th, cg, groups, _stream())
+    err = _ext.lib().dp_combine_dw(plan.addr,
+                                   *(t.data_ptr() for t in (x, y0, a, b, bias, taps, x2, y7)),
+                                   _ext.stream(index))
     _ext.check(err, name)
     LAUNCHES[name] += 1
     return x2, y7
@@ -339,35 +461,37 @@ def fused_combine_dw(x, y0, a, b, bias, kernel) -> tuple[torch.Tensor, torch.Ten
 def fused_combine_dw_bwd(x, y0, dx2bar, dy7bar, a, b, kernel):
     """(dx, dy0, da, db, dbias) of the combine + conv segment; replaces
     ``_combine_dw_bwd_kernel`` (dino_pose_tpu/ops/dwconv.py:310, via
-    ``_combine_dw_vjp_bwd`` :419). ``kernel`` is the forward's (flipped
-    here, as JAX's ``_prep_taps(jnp.flip(kernel, (0, 1)))``).
+    ``_combine_dw_vjp_bwd`` :419). ``kernel`` is the forward's, read
+    mirrored by the kernel (JAX's ``_prep_taps(jnp.flip(kernel, (0, 1)))``).
 
-    Design (``dw_kernel<K, COMBINE_BWD>``): ``fused_dw_conv``'s block on
-    dy7bar with the flipped taps; per output dx2 = dx2bar + the conv (f32),
-    dx and dy0 written once, and the thread's f32 sums of dx2*x, dx2*y0 and
-    dx2; the block sums its threads' sums in a fixed order into its own
-    slot, and ``dw_sums_reduce_kernel`` (same C entry) adds the slots in
-    block order. No atomics: the TPU grid's sequential VMEM accumulation
-    becomes a second pass, and the same inputs give the same bits.
+    Design (``dw_kernel<K, COMBINE_BWD>``): ``fused_dw_conv``'s kernel on
+    dy7bar with the mirrored taps; per output dx2 = dx2bar + the conv
+    (f32), dx and dy0 written once, and the thread's f32 sums of dx2*x,
+    dx2*y0 and dx2; each item sums its threads' sums in a fixed order into
+    its own slot (one per (sample, strip, column tile)), and
+    ``dw_sums_reduce_kernel`` (same C entry) adds the slots in order. No
+    atomics: the TPU grid's sequential VMEM accumulation becomes a second
+    pass, and the same inputs give the same bits.
 
     Bound on an H100: (2*k*k + 8) FLOPs an element in f32 at 67 TFLOP/s, or
     x, y0, dx2bar, dy7bar, dx, dy0 (bf16) at 3.35 TB/s;
     ``combine_dw_bwd_cost`` counts both."""
     name = "fused_combine_dw_bwd"
-    if x.device.type == "cpu":
-        return combine_dw_bwd_math(x, y0, dx2bar, dy7bar, a, b, kernel)
-    if x.device.type != "cuda":
+    if not x.is_cuda:
+        if x.device.type == "cpu":
+            return combine_dw_bwd_math(x, y0, dx2bar, dy7bar, a, b, kernel)
         raise ValueError(f"{name}: unsupported device {x.device}")
     bsz, h, w, c, kk = _check(name, kernel, x, y0, dx2bar, dy7bar, vecs=(a, b))
-    th, cg, groups = _plan(name, bsz, h, w, c, kk, x.device)
-    slots = bsz * -(-h // th)
-    taps = _taps(kernel.flip(0, 1))
-    dx, dy0 = torch.empty_like(x), torch.empty_like(x)
-    partials = torch.empty((slots, 3, c), dtype=torch.float32, device=x.device)
-    sums = torch.empty((3, c), dtype=torch.float32, device=x.device)
+    index = x.get_device()
+    plan = _plan(bsz, h, w, c, kk, COMBINE_BWD, index)
+    taps, dx, dy0 = _taps(kernel), torch.empty_like(x), torch.empty_like(x)
+    # The blocks' sums (one slot a block) and their total, in one allocation.
+    partials = torch.empty(((plan.grid + 1) * 3, c), dtype=torch.float32, device=x.device)
+    sums = partials[plan.grid * 3:]
     err = _ext.lib().dp_combine_dw_bwd(
+        plan.addr,
         *(t.data_ptr() for t in (x, y0, dx2bar, dy7bar, a, b, taps, dx, dy0, partials, sums)),
-        bsz, h, w, c, kk, th, cg, groups, _stream())
+        _ext.stream(index))
     _ext.check(err, name)
     LAUNCHES[name] += 1
     return dx, dy0, sums[0], sums[1], sums[2]
@@ -390,7 +514,7 @@ class _DWConv(torch.autograd.Function):
         dx = None
         if ctx.needs_input_grad[0]:
             conv = fused_dw_conv if ctx.kernels else dw_conv_math
-            dx = conv(dy.contiguous(), kernel.detach().flip(0, 1))
+            dx = conv(dy.contiguous(), kernel.detach(), True)
         return dx, torch.zeros_like(kernel) if ctx.needs_input_grad[1] else None, None
 
 

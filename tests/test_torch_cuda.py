@@ -1112,6 +1112,41 @@ def test_dwconv_kernels_at_t8_stage0_batches(cuda_device, batch):
                       *dwconv.combine_dw_bwd_math(x, y0, dx2, dy7, a, b, kern)))
 
 
+# (C, H = W) of the plan's tilings: t8's stage 0 and 1 (at batch 1 tiled in
+# columns as well as rows), W not a multiple of the column tile (24, 56, 20),
+# C not a multiple of 8 (76, 20: staged a pair at a time), C > 64 (192:
+# three channel groups).
+TILING_SHAPES = [(48, 64), (96, 32), (48, 24), (96, 56), (76, 20), (20, 20), (192, 16)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kk", [3, 7])
+@pytest.mark.parametrize("shape", TILING_SHAPES, ids=lambda t: f"C{t[0]}-H{t[1]}")
+@pytest.mark.parametrize("batch", [1, 8])
+def test_dwconv_tilings_match_plain(cuda_device, batch, shape, kk):
+    """The three modes at the plan's batch-1 and batch-8 tilings against
+    their plain versions, the conv also with ``flip=True`` (the taps read
+    mirrored) against the conv on flipped taps; COMBINE_BWD twice gives the
+    same bits."""
+    from dino_pose_tpu_torch.ops import dwconv
+
+    c, h = shape
+    (x, y0, dx2, dy7), (a, b, bias), kern = _dw_inputs(batch, h, c, kk, cuda_device,
+                                                       seed=batch + c + h + kk)
+    block.reset_launches()
+    got = (dwconv.fused_dw_conv(x, kern), dwconv.fused_dw_conv(x, kern, flip=True),
+           *dwconv.fused_combine_dw(x, y0, a, b, bias, kern))
+    bwd = dwconv.fused_combine_dw_bwd(x, y0, dx2, dy7, a, b, kern)
+    torch.cuda.synchronize()
+    assert block.LAUNCHES == {**dict.fromkeys(block.LAUNCHES, 0), "fused_dw_conv": 2,
+                              "fused_combine_dw": 1, "fused_combine_dw_bwd": 1}
+    _assert_dw_close(got, (dwconv.dw_conv_math(x, kern), dwconv.dw_conv_math(x, kern.flip(0, 1)),
+                           *dwconv.combine_dw_math(x, y0, a, b, bias, kern)))
+    _assert_dw_close(bwd, dwconv.combine_dw_bwd_math(x, y0, dx2, dy7, a, b, kern))
+    again = dwconv.fused_combine_dw_bwd(x, y0, dx2, dy7, a, b, kern)
+    assert all(torch.equal(p, q) for p, q in zip(bwd, again))
+
+
 @pytest.mark.cuda
 def test_dwconv_autograd_gives_the_conv_kernel_zero(cuda_device):
     """dw_conv_frozen and combine_dw_frozen on the card: dx (and dy0, da,
@@ -1437,9 +1472,10 @@ def test_tp2_lora_train_step_kernels_match_plain(cuda_device, monkeypatch):
 
 
 # (rows, D): dinov2-small's serving and train-step final norms, base's and
-# large's widths, ragged row counts, and the block-a-row path (D > 1024).
+# large's widths, ragged row counts (1, 3, 65, 258: grids of one, two and
+# four rows a block), and the block-a-row path (D > 1024).
 LN_CASES = [(257, 384), (128 * 257, 384), (8 * 257, 768), (8 * 257, 1024), (1, 384), (3, 8),
-            (1000, 1536), (5, 4096)]
+            (1000, 1536), (5, 4096), (65, 384), (258, 384)]
 
 
 @pytest.mark.cuda

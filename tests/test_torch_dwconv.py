@@ -345,3 +345,141 @@ def test_gates_equal_jax(model, mode, monkeypatch):
         assert bs128[192, 7] == bs128[384, 3] == (False, False)
     if mode == "on" and model == "sa12":
         assert bs128[64, 7] == (True, False) and bs128[128, 7] == (False, False)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape, kk", CONV_CASES[:3])
+def test_fused_dw_conv_flip_is_the_conv_transpose(shape, kk, dtype):
+    """``fused_dw_conv(x, k, flip=True)`` (the kernel reads the taps
+    mirrored, no flipped copy) is the conv with ``k.flip(0, 1)`` bit for
+    bit on the CPU, and JAX's ``dw_conv_frozen`` dx (its vjp); f32 within
+    1e-5, bf16 within one ulp on at most 1e-3 of the outputs."""
+    ct, kern = _arrays(sum(shape) + 3 * kk, shape, (kk, kk, 1, shape[-1]))
+    jdt = JDT[dtype]
+
+    def jdx(x_, k_, ct_):
+        return jax.vjp(jdwconv.dw_conv_frozen, x_, k_)[1](ct_)[0]
+
+    want = _jit(jdx, jnp.zeros(shape, jdt), jnp.asarray(kern), jnp.asarray(ct, jdt))
+    ctt, kt = torch.from_numpy(ct).to(dtype), torch.from_numpy(kern)
+    got = tdwconv.fused_dw_conv(ctt, kt, flip=True)
+    assert torch.equal(got, tdwconv.dw_conv_math(ctt, kt.flip(0, 1)))
+    if dtype == torch.float32:
+        np.testing.assert_allclose(_np(got), _np(want), atol=1e-5, rtol=1e-5)
+    else:
+        _close(got, want, dtype)
+
+
+# Plan shapes (C, H = W): t8's stage 0 and 1, ragged rows and columns (24,
+# 56: not multiples of the 8-row strip or 8-column slot), ma36's C = 76 and
+# a C = 20 (not multiples of 8: staged a pair at a time).
+PLAN_SHAPES = [(48, 64), (96, 32), (48, 24), (96, 56), (76, 16), (20, 24), (76, 64)]
+
+
+@pytest.fixture
+def fake_card(monkeypatch):
+    """The plan on a fake card of 132 SMs, each holding one block of any
+    plan; the plan cache emptied before and after."""
+    monkeypatch.setattr(tdwconv, "_sms", lambda index: 132)
+    monkeypatch.setattr(tdwconv, "_occupancy", lambda kk, mode, rb, plan: 1)
+    tdwconv._plan.cache_clear()
+    yield
+    tdwconv._plan.cache_clear()
+
+
+def _coverage(plan, h, w, c, kk) -> np.ndarray:
+    """How often the plan's items and threads write each (row, column,
+    channel) of one sample: item (strip, column tile, group), then thread t
+    of the block on channel pair t % np and the (2-row, 8-column) slots
+    t // np, + nt // np, ... (dw_kernel's walk), inside the image only."""
+    hits = np.zeros((h, w, c), np.int32)
+    np_ = (plan.cg + 1) // 2
+    chs = plan.twc // 8
+    subs = plan.th // plan.rb * chs
+    for r0 in range(0, h, plan.th):
+        for w0 in range(0, w, plan.twc):
+            for c0 in range(0, c, plan.cg):
+                cgn = min(plan.cg, c - c0)
+                for t in range(plan.nt):
+                    pr, slot = t % np_, t // np_
+                    chans = [c0 + 2 * pr + j for j in (0, 1) if 2 * pr + j < cgn]
+                    for q in range(slot, subs, plan.nt // np_):
+                        rg, ch = divmod(q, chs)
+                        rows = slice(r0 + plan.rb * rg, min(r0 + plan.rb * (rg + 1), h))
+                        cols = slice(w0 + 8 * ch, min(w0 + 8 * ch + 8, w))
+                        hits[rows, cols, chans] += 1
+    return hits
+
+
+@pytest.mark.parametrize("mode", [tdwconv.DW, tdwconv.COMBINE, tdwconv.COMBINE_BWD])
+@pytest.mark.parametrize("kk", [3, 7])
+@pytest.mark.parametrize("b", [1, 8, 128])
+def test_plan_covers_every_output_once(b, kk, mode, fake_card):
+    """Every output row, column and channel is written by exactly one
+    thread of one item, at every plan shape; the plan keeps what the
+    kernel takes (even strips, 8-column tiles, groups of <= 64 channels in
+    whole 16-byte vectors where C allows, threads a multiple of the pairs
+    and at most 192) and never asks for more than the shared memory a
+    block may use."""
+    for c, hw in PLAN_SHAPES:
+        plan = tdwconv._plan(b, hw, hw, c, kk, mode, 0)
+        assert plan.th % 2 == 0 and plan.twc % 8 == 0 and plan.cg <= 64
+        # two rows a slot where the batch fills the card, COMBINE_BWD always one
+        assert plan.rb == (2 if b == 128 and mode != tdwconv.COMBINE_BWD else 1)
+        assert plan.cg % 8 == 0 if c % 8 == 0 else plan.cg % 2 == 0
+        assert plan.nt % ((plan.cg + 1) // 2) == 0 and plan.nt <= 192
+        assert plan.smem == tdwconv._smem_bytes(plan.th, plan.twc, kk, plan.cg, mode, plan.nt)
+        assert plan.smem <= tdwconv._SMEM_LIMIT
+        groups = -(-c // plan.cg)
+        assert plan.items == b * -(-hw // plan.th) * -(-hw // plan.twc) * groups
+        assert plan.grid == min(plan.items, 132)
+        assert (_coverage(plan, hw, hw, c, kk) == 1).all(), (c, hw, plan)
+
+
+@pytest.mark.parametrize("kk", [3, 7])
+def test_plan_fills_the_card_at_batch_1(kk, fake_card):
+    """At t8's stage 0 and batch 1 (the serving forward) the plan tiles W as
+    well as H: at least one block on each of the 132 SMs, with strips of
+    more than one row, so that fewer input rows are staged for each output
+    row than the one-row strips of the old plan (k of them)."""
+    plan = tdwconv._plan(1, 64, 64, 48, kk, tdwconv.DW, 0)
+    assert plan.grid >= 132 and plan.twc < 64 and plan.th >= 2
+    assert (plan.th + kk - 1) / plan.th < kk
+    big = tdwconv._plan(128, 64, 64, 48, kk, tdwconv.DW, 0)
+    assert big.th >= 8 and big.smem <= tdwconv._SMEM_BUDGET  # tall strips at batch 128
+
+
+def test_plan_is_cached(fake_card):
+    first = tdwconv._plan(8, 32, 32, 96, 7, tdwconv.COMBINE, 0)
+    assert tdwconv._plan(8, 32, 32, 96, 7, tdwconv.COMBINE, 0) is first
+    assert tdwconv._plan(8, 32, 32, 96, 7, tdwconv.DW, 0) is not first
+
+
+def test_plan_refuses_what_does_not_fit(fake_card, monkeypatch):
+    """A shape whose smallest tile outgrows the plan's shared-memory budget
+    is refused, not launched."""
+    monkeypatch.setattr(tdwconv, "_SMEM_BUDGET", 4096)
+    with pytest.raises(ValueError, match="do not fit shared memory"):
+        tdwconv._plan(1, 64, 64, 48, 7, tdwconv.DW, 0)
+
+
+def test_wrapper_refusals_run_on_the_cpu():
+    """What the kernels refuse, ``_check`` and ``_launch_checks`` refuse on
+    any device: the same errors the wrappers raise on the card."""
+    x = torch.zeros(1, 16, 16, 48, dtype=torch.bfloat16)
+    kern = torch.zeros(7, 7, 1, 48)
+    vec = torch.zeros(48)
+    assert tdwconv._check("w", kern, x, x, vecs=(vec,)) == (1, 16, 16, 48, 7)
+    with pytest.raises(TypeError, match="bf16"):
+        tdwconv._check("w", kern, x.float())
+    with pytest.raises(ValueError, match="HWIO"):
+        tdwconv._check("w", torch.zeros(5, 5, 1, 48), x)
+    with pytest.raises(ValueError, match="vectors"):
+        tdwconv._check("w", kern, x, vecs=(vec.double(),))
+    with pytest.raises(ValueError, match="one shape"):
+        tdwconv._check("w", kern, x, x[:, :8])
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        tdwconv._check("w", kern, torch.zeros(16 * 16 * 48 + 1, dtype=torch.bfloat16)[1:]
+                       .view(1, 16, 16, 48))
+    with pytest.raises(ValueError, match="no backward"):
+        tdwconv._launch_checks("w", x.clone().requires_grad_())

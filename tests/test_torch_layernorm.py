@@ -89,6 +89,54 @@ def test_fused_layernorm_gradients_match_jax():
         np.testing.assert_allclose(a.grad.numpy(), np.asarray(w), atol=1e-4, rtol=1e-4)
 
 
+def test_validation_cache_revalidates_after_an_in_place_update():
+    """``check_operands`` converts and checks scale and bias once per
+    (tensor, version): a second call returns the same f32 views; an in-place
+    update of scale moves its ``_version``, and the next call converts it
+    again (the new values, not the cached ones)."""
+    x, scale, bias = (torch.from_numpy(a) for a in _inputs((4, 384), 3))
+    scale = scale.to(torch.bfloat16)
+    d, s1, b1 = tln.check_operands(x, scale, bias)
+    assert d == 384 and s1.dtype == torch.float32 and torch.equal(s1, scale.float())
+    _, s2, b2 = tln.check_operands(x, scale, bias)
+    assert s2 is s1 and b2 is b1
+    scale.mul_(2)
+    _, s3, b3 = tln.check_operands(x, scale, bias)
+    assert s3 is not s1 and torch.equal(s3, scale.float()) and not torch.equal(s3, s1)
+    bias.add_(1)
+    _, s4, b4 = tln.check_operands(x, scale, bias)
+    assert s4 is not s3 and b4 is not b1 and torch.equal(b4, bias)
+
+
+@pytest.mark.parametrize("case", ["dtype", "width", "too_wide", "strided", "unaligned",
+                                  "scale_shape", "scale_device"])
+def test_refusals_run_on_the_cpu(case):
+    """Every refusal of the card's wrapper is raised by ``check_operands``,
+    which runs on any device: a wrong dtype, a width the kernel does not
+    take, an x that is not contiguous or not 16-byte aligned, scale or bias
+    of the wrong shape or on another device; also after the pair was cached."""
+    x, scale, bias = (torch.from_numpy(a) for a in _inputs((4, 384), 4))
+    tln.check_operands(x, scale, bias)
+    if case == "dtype":
+        args, err, match = (x.half(), scale, bias), TypeError, "bf16 or f32"
+    elif case == "width":
+        args, err, match = (torch.zeros(4, 100), scale[:100], bias[:100]), ValueError, "multiple of 8"
+    elif case == "too_wide":
+        args, err, match = (torch.zeros(2, 8192), torch.ones(8192), torch.zeros(8192)), \
+            ValueError, "multiple of 8"
+    elif case == "strided":
+        args, err, match = (torch.zeros(384, 8).t(), scale, bias), ValueError, "contiguous"
+    elif case == "unaligned":
+        args, err, match = (torch.zeros(4 * 384 + 1)[1:].view(4, 384), scale, bias), \
+            ValueError, "16-byte aligned"
+    elif case == "scale_shape":
+        args, err, match = (x, scale[:192], bias), ValueError, "scale and bias"
+    else:
+        args, err, match = (x, scale, bias.to("meta")), ValueError, "scale and bias"
+    with pytest.raises(err, match=match):
+        tln.check_operands(*args)
+
+
 def test_layernorm_cost():
     flops, nbytes = tln.layernorm_cost(128 * 257, 384, 2)
     assert nbytes == 128 * 257 * 384 * 4 + 2 * 384 * 4 and flops == 8 * 128 * 257 * 384
