@@ -323,6 +323,81 @@ LN_CASES = [(S, D), (TRAIN_BATCH * S, D), (TRAIN_BATCH * S, 768), (TRAIN_BATCH *
 # PyTorch call computes the kernel's function (rows 24 and 27).
 LIBRARY_CLOCKS = ("library_ms", "library_device_ms", "library_host_us")
 LN_SOURCE = "dino_pose_tpu_torch/ops/csrc/layernorm_kernels.cu"
+# The chains' GEMM alone (phase_gemm, ops/block.fused_gemm): every product
+# shape the driven dinov2 paths run, (D, MLP width, tp) per model: qkv (K =
+# D, N = 3D/tp), the out-projection (K = D/tp, N = D), fc1 (K = D, N =
+# 4D/tp) and fc2 (K = 4D/tp, N = D), each with the epilogues its chains put
+# on it, at M = B*257 for B = 1, 8, 128 and a ragged M = 2*57.
+GEMM_MODELS = {"dinov2-small": (384, 1536, 1), "dinov2-base": (768, 3072, 1),
+               "dinov2-large": (1024, 4096, 1), "dinov2-base tp2": (768, 3072, 2),
+               "dinov2-large tp2": (1024, 4096, 2), "dinov2-large tp4": (1024, 4096, 4)}
+GEMM_EPIS = {
+    "qkv": (("bias",), ("bias",)),
+    "out": (("bias", "bias_ls_res", "f32bias"), ("none",)),
+    "fc1": (("bias_gelu", "bias_gelu_pair", "bias"), ("bias_gelu", "bias")),
+    "fc2": (("bias_ls_res", "f32bias_ls_res", "f32bias_ls_res_h2", "bias"), ("none",)),
+}
+GEMM_ROWS = (S, 8 * S, TRAIN_BATCH * S, 2 * 57)
+# The chains' attention step at S = 257, head width 64 (phase_attention_route):
+# the resident attention_kernel against the streamed flash_fwd_kernel at
+# each driven model's heads a call (dinov2-small, -base and -large, and the
+# shards' H/tp), B = 1, 8, 128.
+ROUTE_HEADS = {"dinov2-small": 6, "dinov2-base": 12, "dinov2-base tp2": 6, "dinov2-large": 16,
+               "dinov2-large tp2": 8, "dinov2-large tp4": 4}
+# The replaced WMMA gemm_kernel's three clocks (ms, device ms, host us) at
+# each EPI_NONE shape and each M of GEMM_ROWS, measured by this script on an
+# H100 80GB HBM3 at 700.00 W before the wgmma kernel took its place;
+# printed beside the new kernel's.
+OLD_GEMM = {
+    "dinov2-small qkv": ((0.0418, 0.0179, 39.5), (0.0258, 0.0235, 23.5),
+                        (0.3660, 0.3583, 36.5), (0.0254, 0.0179, 24.0)),
+    "dinov2-small out": ((0.0328, 0.0183, 34.5), (0.0263, 0.0189, 25.2),
+                        (0.1388, 0.1336, 33.8), (0.0296, 0.0180, 23.3)),
+    "dinov2-small fc1": ((0.0268, 0.0180, 24.5), (0.0419, 0.0390, 38.5),
+                        (0.4933, 0.4778, 47.0), (0.0325, 0.0180, 34.3)),
+    "dinov2-small fc2": ((0.0652, 0.0628, 24.0), (0.0669, 0.0645, 30.2),
+                        (0.5357, 0.5156, 43.9), (0.0653, 0.0617, 23.3)),
+    "dinov2-base qkv": ((0.0350, 0.0328, 41.1), (0.0843, 0.0812, 36.8),
+                       (1.3469, 1.3094, 44.2), (0.0348, 0.0325, 24.2)),
+    "dinov2-base out": ((0.0350, 0.0323, 26.5), (0.0393, 0.0367, 33.6),
+                       (0.4810, 0.4744, 29.8), (0.0393, 0.0332, 37.0)),
+    "dinov2-base fc1": ((0.0358, 0.0335, 24.5), (0.1148, 0.1122, 26.6),
+                       (1.8008, 1.7592, 31.6), (0.0348, 0.0324, 24.3)),
+    "dinov2-base fc2": ((0.1210, 0.1180, 24.8), (0.1371, 0.1337, 30.5),
+                       (2.1010, 2.0642, 25.7), (0.1284, 0.1219, 24.9)),
+    "dinov2-large qkv": ((0.0456, 0.0432, 39.3), (0.1582, 0.1614, 22.8),
+                        (2.3381, 2.3001, 35.1), (0.0436, 0.0414, 25.5)),
+    "dinov2-large out": ((0.0440, 0.0418, 21.3), (0.0529, 0.0503, 33.6),
+                        (0.8044, 0.7860, 38.6), (0.0469, 0.0435, 39.5)),
+    "dinov2-large fc1": ((0.0473, 0.0448, 24.8), (0.2127, 0.2099, 24.2),
+                        (2.9697, 2.9382, 29.4), (0.0461, 0.0416, 43.3)),
+    "dinov2-large fc2": ((0.1576, 0.1546, 24.9), (0.2166, 0.2432, 42.0),
+                        (3.6682, 3.6262, 26.3), (0.1701, 0.1634, 34.1)),
+    "dinov2-base tp2 qkv": ((0.0345, 0.0322, 24.7), (0.0450, 0.0419, 38.4),
+                           (0.6806, 0.6753, 26.0), (0.0356, 0.0335, 23.0)),
+    "dinov2-base tp2 out": ((0.0245, 0.0181, 23.1), (0.0261, 0.0205, 26.3),
+                           (0.2630, 0.2548, 25.7), (0.0242, 0.0179, 22.3)),
+    "dinov2-base tp2 fc1": ((0.0345, 0.0320, 25.4), (0.0759, 0.0726, 44.8),
+                           (0.9121, 0.8917, 27.5), (0.0367, 0.0324, 25.0)),
+    "dinov2-base tp2 fc2": ((0.0642, 0.0617, 35.5), (0.0725, 0.0693, 39.2),
+                           (0.9315, 0.9210, 27.2), (0.0659, 0.0635, 25.6)),
+    "dinov2-large tp2 qkv": ((0.0448, 0.0414, 39.8), (0.0996, 0.0963, 24.4),
+                            (1.1865, 1.1667, 23.8), (0.0447, 0.0425, 26.7)),
+    "dinov2-large tp2 out": ((0.0280, 0.0228, 37.1), (0.0381, 0.0273, 38.5),
+                            (0.4350, 0.4265, 43.7), (0.0382, 0.0234, 40.2)),
+    "dinov2-large tp2 fc1": ((0.0552, 0.0427, 44.7), (0.1085, 0.1046, 28.6),
+                            (1.5380, 1.5312, 43.4), (0.0443, 0.0418, 28.4)),
+    "dinov2-large tp2 fc2": ((0.0837, 0.0795, 27.7), (0.0985, 0.0958, 29.5),
+                            (1.5778, 1.5561, 29.0), (0.0868, 0.0843, 25.7)),
+    "dinov2-large tp4 qkv": ((0.0442, 0.0419, 27.8), (0.0506, 0.0473, 26.9),
+                            (0.6370, 0.6200, 49.9), (0.0447, 0.0422, 26.2)),
+    "dinov2-large tp4 out": ((0.0427, 0.0133, 41.1), (0.0264, 0.0160, 24.0),
+                            (0.2342, 0.2297, 24.3), (0.0241, 0.0130, 23.5)),
+    "dinov2-large tp4 fc1": ((0.0435, 0.0413, 23.2), (0.0526, 0.0496, 22.8),
+                            (0.8058, 0.7922, 43.5), (0.0460, 0.0435, 25.0)),
+    "dinov2-large tp4 fc2": ((0.0438, 0.0413, 25.6), (0.0575, 0.0501, 48.9),
+                            (0.8017, 0.7902, 24.7), (0.0450, 0.0423, 25.3)),
+}
 # Per JSON row: the TPU kernel it replaces, its source, the batch its
 # numbers were taken at, the path whose launches "launches" reports and the
 # LAUNCHES key counted there. The forward kernels at the serving batch on the
@@ -2015,6 +2090,156 @@ def phase_tp(results: dict) -> dict:
     return by_batch
 
 
+def gemm_shapes() -> list:
+    """(label, K, N, epilogues) of every product in GEMM_MODELS."""
+    shapes = []
+    for model, (d, hidden, tp) in GEMM_MODELS.items():
+        kn = {"qkv": (d, 3 * d // tp), "out": (d // tp, d), "fc1": (d, hidden // tp),
+              "fc2": (hidden // tp, d)}
+        for prod, (k, n) in kn.items():
+            shapes.append((f"{model} {prod}", k, n, GEMM_EPIS[prod][tp > 1]))
+    return shapes
+
+
+def outputs(out) -> tuple:
+    """A wrapper's output as a tuple of tensors."""
+    return out if isinstance(out, tuple) else (out,)
+
+
+def check_gemm(got, want, label: str) -> float:
+    """One fused_gemm output against gemm_math's: elementwise at the kernel
+    tolerance and within ATTN_FRO in relative Frobenius norm (a sum-order
+    difference flips single bf16 roundings; a dropped K tile or a wrong
+    swizzle moves the whole tensor). Returns the largest error."""
+    got, want = got.float(), want.float()
+    diff = (got - want).abs()
+    fro = (diff.norm() / want.norm().clamp_min(1e-30)).item()
+    ok = (bool(torch.isfinite(got).all()) and fro <= ATTN_FRO
+          and bool((diff <= KERNEL_ATOL + KERNEL_RTOL * want.abs()).all()))
+    if not ok:
+        raise AssertionError(f"fused_gemm {label} disagrees with gemm_math: max_abs="
+                             f"{diff.max().item():.6g} rel_fro={fro:.4g}")
+    return diff.max().item()
+
+
+def phase_gemm(results: dict) -> dict:
+    """The chains' GEMM kernel alone (fused_gemm) against gemm_math at every
+    (epilogue, shape) of gemm_shapes() and every M of GEMM_ROWS, twice with
+    the same bits; then, for the epilogue-free product, three clocks of the
+    kernel and of torch.matmul (cuBLAS, bf16 in, f32 sums, one rounding:
+    the same function) beside the old kernel's (OLD_GEMM), TFLOP/s on
+    2*M*N*K at the device clock and the bound. Returns the times by label."""
+    from dino_pose_tpu_torch.ops import block as B
+
+    gen = torch.Generator().manual_seed(SEED + 17)
+    saved = dict(B.LAUNCHES)
+    # cuBLAS's yardstick sums in f32 and rounds once, as the kernel does.
+    reduced = torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    out: dict = {}
+    worst = 0.0
+    for d in (D, 768, 1024):
+        # The LayerNorm rows every chain's first product reads: the old
+        # prologue's arithmetic, against the plain LayerNorm's one rounding.
+        x = (torch.randn((TRAIN_BATCH * S, d), generator=gen) * 3 + 1).to("cuda", torch.bfloat16)
+        g = (torch.rand(d, generator=gen) + 0.5).cuda()
+        b = (torch.randn(d, generator=gen) * 0.1).cuda()
+        got, want = B.ln_rows(x, g, b, EPS), B._ln_fwd(x, g, b, EPS)[0]
+        mag = torch.maximum(got.float().abs(), want.float().abs()).clamp_min(1e-30)
+        err = (got.float() - want.float()).abs()
+        flips = (got != want).float().mean().item()
+        ok = flips <= 1e-3 and bool((err <= torch.exp2(torch.floor(torch.log2(mag)) - 7)
+                                     + 1e-5).all())
+        log(f"kernel ln_rows ({TRAIN_BATCH * S}, {d}): {flips:.3g} of elements round the other "
+            f"way, max_abs={err.max().item():.6g} (tol one ulp + 1e-5, at most 1e-3 flipped) -> "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"ln_rows at D={d} disagrees with the plain LayerNorm")
+        del x, got, want
+    for label, k, n, epis in gemm_shapes():
+        w = (torch.randn((k, n), generator=gen) * k**-0.5).to("cuda", torch.bfloat16)
+        bias = (torch.randn(n, generator=gen) * 0.05).cuda()
+        ls = (torch.rand(n, generator=gen) * 0.9 + 0.1).cuda()
+        for m in GEMM_ROWS:
+            a = torch.randn((m, k), generator=gen).to("cuda", torch.bfloat16)
+            res = torch.randn((m, n), generator=gen).to("cuda", torch.bfloat16)
+            for epi in epis:
+                kw = {"bias": bias, "ls": ls, "res": res}
+                with torch.inference_mode():
+                    got = outputs(B.fused_gemm(a, w, epi, **kw))
+                    again = outputs(B.fused_gemm(a, w, epi, **kw))
+                    want = outputs(B.gemm_math(a, w, epi, **kw))
+                torch.cuda.synchronize()
+                if not all(torch.equal(g, h) for g, h in zip(got, again)):
+                    raise AssertionError(f"fused_gemm {label} M={m} {epi}: two runs differ")
+                for i, (g, h) in enumerate(zip(got, want)):
+                    worst = max(worst, check_gemm(g, h, f"{label} M={m} {epi} output {i}"))
+            log(f"kernel fused_gemm {label} M={m} K={k} N={n} ({', '.join(epis)}): ok, "
+                f"same bits twice")
+            flops, nbytes = B.gemm_cost(m, n, k)
+            bound, by = B.bound_ms(flops, nbytes)
+            iters = 10 if m > 8 * S else 20
+            with torch.inference_mode():
+                kern = clocks(lambda: B.fused_gemm(a, w, "none"), iters=iters)
+                lib = clocks(lambda: torch.matmul(a, w), iters=iters)
+            key = f"{label} M={m}"
+            old = OLD_GEMM[label][GEMM_ROWS.index(m)] if label in OLD_GEMM else None
+            t = {"M": m, "K": k, "N": n, **kern, **{f"library_{x}": v for x, v in lib.items()},
+                 "tflops": flops / kern["device_ms"] / 1e9,
+                 "library_tflops": flops / lib["device_ms"] / 1e9, "bound_ms": bound,
+                 "bound_by": by}
+            if old:
+                t.update(old_ms=old[0], old_device_ms=old[1], old_host_us=old[2])
+            out[key] = t
+            old_text = "" if old is None else \
+                f", old kernel {old[0]:.4f} ms, device {old[1]:.4f} ms, host {old[2]:.1f} us/call"
+            log(f"time fused_gemm {key} K={k} N={n}: kernel {clocks_text(kern)} "
+                f"({t['tflops']:.1f} TFLOP/s), torch.matmul {clocks_text(lib)} "
+                f"({t['library_tflops']:.1f} TFLOP/s){old_text}, bound {bound:.5f} ms ({by})")
+            del a, res, got, again, want
+        del w
+    results.setdefault("fused_gemm", {"max_abs_err": 0.0})["max_abs_err"] = worst
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = reduced
+    B.LAUNCHES.update(saved)
+    return out
+
+
+def phase_attention_route(results: dict) -> dict:
+    """The chains' attention step at S = 257 on a packed qkv (packed_attention):
+    the resident attention_kernel against the streamed flash_fwd_kernel at
+    ROUTE_HEADS, B = 1, 8, 128; both held to the plain attention at B = 1
+    and 8 (attention tolerance, FLASH_FRO), both on the three clocks."""
+    from dino_pose_tpu_torch.ops import block as B
+
+    gen = torch.Generator().manual_seed(SEED + 18)
+    saved = dict(B.LAUNCHES)
+    out: dict = {}
+    for model, heads in ROUTE_HEADS.items():
+        for b in (1, 8, TRAIN_BATCH):
+            qkv = torch.randn((b, S, 3 * heads * 64), generator=gen).to("cuda", torch.bfloat16)
+            t: dict = {}
+            for streamed in (False, True):
+                kind = "flash" if streamed else "resident"
+                with torch.inference_mode():
+                    if b < TRAIN_BATCH:
+                        got = B.packed_attention(qkv, heads, streamed=streamed)
+                        want = B._heads_attention(qkv, heads)
+                        max_abs, fro, ok = attn_check(got, want, FLASH_FRO)
+                        log(f"kernel packed_attention {kind} B={b} ({model}: {heads} heads, "
+                            f"S={S}): max_abs={max_abs:.6g} rel_fro={fro:.4g} tol="
+                            f"{attn_tol_text(FLASH_FRO)} -> {'ok' if ok else 'FAIL'}")
+                        if not ok:
+                            raise AssertionError(f"packed_attention {kind} {model} B={b} "
+                                                 "disagrees with its plain version")
+                    t[kind] = clocks(lambda: B.packed_attention(qkv, heads, streamed=streamed))
+            out[f"{model} B={b}"] = t
+            log(f"time attention route {model} B={b} ({heads} heads, S={S}): resident "
+                f"{clocks_text(t['resident'])}; flash {clocks_text(t['flash'])}")
+            del qkv
+    B.LAUNCHES.update(saved)
+    return out
+
+
 def phase_layernorm(results: dict) -> dict:
     """fused_layernorm against layernorm_reference at the gated path's rows,
     (257, 384) (a serving forward) and (128*257, D) for D = 384, 768, 1024
@@ -2165,6 +2390,8 @@ def main() -> int:
     train_base_tp: dict = {}
     serving_ln: dict = {}
     lora_ln: dict = {}
+    gemm_times = phase_gemm(results)
+    route_times = phase_attention_route(results)
     phase_kernels(results)
     phase_mlp_dx(results)
     phase_train_kernels(results)
@@ -2330,6 +2557,8 @@ def main() -> int:
     log("dwconv_times " + json.dumps(dw_times))
     log("tp_times " + json.dumps(tp_times))
     log("layernorm_times " + json.dumps(ln_times["cases"]))
+    log("gemm_times " + json.dumps(gemm_times))
+    log("attention_route_times " + json.dumps(route_times))
     if args.out:
         with open(args.out, "w") as f:
             json.dump({"card": card, "kernels": kernels, "b1": by_batch[1], "b8": by_batch[8],
@@ -2351,7 +2580,8 @@ def main() -> int:
                        "serving_dinov2_base_tp2": serving_base_tp,
                        "training_dinov2_base_lora_tp2": train_base_tp,
                        "layernorm": ln_times["cases"], "serving_ln": serving_ln,
-                       "training_lora_ln": lora_ln},
+                       "training_lora_ln": lora_ln, "gemm": gemm_times,
+                       "attention_route": route_times},
                       f, indent=1)
     print(json.dumps({"kernels": kernels}))
     print(card)

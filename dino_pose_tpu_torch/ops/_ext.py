@@ -62,6 +62,10 @@ LAUNCHES: dict[str, int] = {
     # layer's partial dx, and the gated final LayerNorm (ln_fwd_kernel).
     "fused_attn_part_partial": 0, "fused_mlp_part_partial": 0, "fused_mlp_partial_dx": 0,
     "fused_layernorm": 0,
+    # The chains' GEMM, LayerNorm rows and attention step alone (ops/block.py
+    # fused_gemm, ln_rows, packed_attention): what the card tests and
+    # chip_smoke.py hold and time; no path calls them.
+    "fused_gemm": 0, "ln_rows": 0, "packed_attention": 0,
 }
 
 _LIB: ctypes.CDLL | None = None
@@ -71,7 +75,10 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
-    "dp_gemm_smem_bytes": ([_I, _I], ctypes.c_longlong),
+    "dp_gemm_plan": ([_I, _I], _I),
+    "dp_gemm": ([_P] * 7 + [_I] * 4 + [_P], _I),
+    "dp_packed_attention": ([_P] * 2 + [_I] * 5 + [_P], _I),
+    "dp_ln_rows": ([_P] * 4 + [_I] * 2 + [_F, _P], _I),
     "dp_flash_forward": ([_I, _I], _I),
     "dp_flash_backward": ([_I, _I], _I),
     "dp_fused_block": ([_P] * 20 + [_I] * 5 + [_F, _P], _I),

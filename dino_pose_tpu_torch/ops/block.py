@@ -126,7 +126,6 @@ from dino_pose_tpu_torch.ops.attention import plain_attention
 
 LAUNCHES = _ext.LAUNCHES
 
-_SMEM_LIMIT = 232448  # bytes of shared memory one Hopper block may use
 # Rows per block of the backward's column-sum partials: BM of the gemm_nt
 # epilogue sums and SUM_ROWS of the LayerNorm-backward row kernel.
 _SUM_ROWS = 64
@@ -283,6 +282,56 @@ def _heads_attention(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
     dh = d // num_heads
     q, k, v = (t.reshape(b, s, num_heads, dh).transpose(1, 2) for t in qkv.split(d, dim=-1))
     return plain_attention(q, k, v, dh**-0.5).transpose(1, 2).reshape(b, s, d)
+
+
+# The chains' GEMM epilogues (block_kernels.cu ``Epilogue``), by name.
+EPILOGUES = ("bias", "bias_gelu", "bias_ls_res", "bias_gelu_pair", "f32bias",
+             "f32bias_ls_res", "f32bias_ls_res_h2", "none")
+# Epilogues that write a second output: the GELU pair (h, gelu(h)) and the
+# streamed fc2's (y, h2).
+PAIRED = ("bias_gelu_pair", "f32bias_ls_res_h2")
+
+
+def gemm_math(a: torch.Tensor, w: torch.Tensor, epi: str, bias: torch.Tensor | None = None,
+              ls: torch.Tensor | None = None, res: torch.Tensor | None = None):
+    """The plain version of one product of the chains, ``epilogue(a @ w)``,
+    at its rounding points: the ``bias*`` modes round the product to a's
+    dtype and add the bias rounded to it (``_dense``), then GELU in f32
+    rounded once, or ``res + o * ls`` in a's dtype; the ``f32bias*`` modes
+    add the f32 bias (and multiply ls) to the f32 sum and round once, then
+    add ``res``; ``none`` rounds the product. The paired modes return
+    (out, out2): (h, gelu(h)) and (y, h2)."""
+    dt = a.dtype
+    if epi == "none":
+        return (a @ w.to(dt)).to(dt)
+    if epi.startswith("f32bias"):
+        o = _dense_f32(a, w, bias)
+        if epi == "f32bias":
+            return o.to(dt)
+        y = res + (o * ls.float()).to(dt)
+        return (y, o.to(dt)) if epi == "f32bias_ls_res_h2" else y
+    o = _dense(a, w, bias)
+    if epi == "bias_gelu":
+        return _gelu_exact(o)
+    if epi == "bias_gelu_pair":
+        return o, _gelu_exact(o)
+    if epi == "bias_ls_res":
+        return res + o * ls.to(dt)
+    return o
+
+
+def gemm_cost(m: int, n: int, k: int, epi: str = "none") -> tuple[int, int]:
+    """(FLOPs, bytes) of one (m, k) @ (k, n) bf16 product with epilogue
+    ``epi``: 2mnk FLOPs; a, w and the output once, the f32 bias and ls
+    vectors, the residual and a second output where the epilogue has them."""
+    nbytes = 2 * (m * k + k * n + m * n)
+    if epi != "none":
+        nbytes += 4 * n
+    if "ls_res" in epi:
+        nbytes += 4 * n + 2 * m * n
+    if epi in PAIRED:
+        nbytes += 2 * m * n
+    return 2 * m * n * k, nbytes
 
 
 def attn_part_math(
@@ -717,11 +766,6 @@ def _check_shapes(d: int, num_heads: int, name: str) -> None:
         raise ValueError(f"{name}: head width {d / num_heads} is not 32 or 64")
 
 
-def _check_ln_width(k: int, name: str) -> None:
-    if _ext.lib().dp_gemm_smem_bytes(1, k) > _SMEM_LIMIT:
-        raise ValueError(f"{name}: LayerNorm rows of width {k} do not fit shared memory")
-
-
 def _attn_shapes(d: int) -> dict[str, tuple[int, ...]]:
     return {"g1": (d,), "b1": (d,), "wqkv": (d, 3 * d), "bqkv": (3 * d,),
             "wo": (d, d), "bo": (d,)}
@@ -756,13 +800,14 @@ def fused_block(
     """Whole pre-norm block forward; replaces ``_block_kernel``
     (dino_pose_tpu/ops/block.py:159).
 
-    Design: five launches — gemm<LN1 prologue, +bqkv> -> attention (K/V
-    resident, or streamed past S ~ 320) -> gemm<+bo, *ls1, +x> ->
-    gemm<LN2 prologue, +bf1, GELU> -> gemm<+bf2, *ls2, +x2>. The TPU kernel keeps the block's 3.5 MB of weights
-    and a few rows in VMEM; Hopper's 227 KB of shared memory cannot, so the
-    block is split where a product's whole output tile is ready, and only
-    qkv, ctx, x2 and the MLP hidden tensor pass through device memory (L2 at
-    these sizes).
+    Design: seven launches — LN1 rows -> gemm<+bqkv> -> attention (K/V
+    resident, or streamed past S ~ 320) -> gemm<+bo, *ls1, +x> -> LN2 rows
+    -> gemm<+bf1, GELU> -> gemm<+bf2, *ls2, +x2>, each gemm the wgmma/TMA
+    kernel of ``block_kernels.cu``. The TPU kernel keeps the block's 3.5 MB
+    of weights and a few rows in VMEM; Hopper's 227 KB of shared memory
+    cannot, so the block is split where a product's whole output tile is
+    ready, and only the normalised rows, qkv, ctx, x2 and the MLP hidden
+    tensor pass through device memory (L2 at these sizes).
 
     Bound on an H100 at dinov2-small, S = 257: per image 1.011 GFLOP and
     3.54 MB of weights plus 2*S*D*2 B of activations — both ~1 us at batch 1
@@ -801,7 +846,6 @@ def _launch_block(x: torch.Tensor, p: BlockParams, num_heads: int, eps: float,
     hidden = p.w1.shape[-1]
     _check_shapes(d, num_heads, name)
     _check_hidden(hidden, name)
-    _check_ln_width(d, name)
     _check_params(x, p, {**_attn_shapes(d), "ls1": (d,), **_mlp_shapes(d, hidden)}, name)
     qkv = torch.empty((b, s, 3 * d), dtype=x.dtype, device=x.device)
     ctx = torch.empty_like(x)
@@ -825,10 +869,11 @@ def fused_attn_part(
     LayerScale); replaces ``_attn_part_kernel`` (dino_pose_tpu/ops/block.py:999,
     body ``_attn_half_core`` :948).
 
-    Design: three launches — gemm<LN1 prologue, +bqkv> -> attention (one
-    block per batch row, head and 64-query tile; the head's K and V for all
-    S keys in shared memory, f32 softmax, P rounded to bf16; past S ~ 320
-    the streamed flash_fwd_kernel) -> gemm<+bo>.
+    Design: four launches — LN1 rows (once, into the output buffer) ->
+    gemm<+bqkv> -> attention (one block per batch row, head and 64-query
+    tile; the head's K and V for all S keys in shared memory, f32 softmax,
+    P rounded to bf16; past S ~ 320 the streamed flash_fwd_kernel) ->
+    gemm<+bo>.
 
     Bound on an H100 at S = 257, D = 384: 0.405 GFLOP per image and 2.36 MB
     of weights; bytes bound it at batch 1, operations from batch 2 up.
@@ -848,15 +893,13 @@ def fused_attn_part_stream(
     ``_attn_stream_kernel`` (dino_pose_tpu/ops/block.py:1807), dinov2-large's
     attention half.
 
-    Design: ``fused_attn_part``'s three launches with another epilogue on
-    the last — gemm<LN1 prologue, +bqkv> -> attention (K/V resident; the
+    Design: ``fused_attn_part``'s four launches with another epilogue on
+    the last — LN1 rows -> gemm<+bqkv> -> attention (K/V resident; the
     streamed flash_fwd_kernel past S ~ 320) -> gemm<f32 +bo>. The TPU
     kernel streams per-head-group weight slices through VMEM because one
     half's 8 MB of bf16 weights (D = 1024) exceed its 16 MiB budget with the
-    activations; the Hopper GEMMs already walk every weight in 32x64 tiles
-    through shared memory, so that plan has nothing to carry over. The LN
-    prologue holds a 64-row tile of width D: 154 KB at D = 1024, one block
-    per SM.
+    activations; the Hopper GEMMs already stream every weight in 64-deep
+    TMA tiles through shared memory, so that plan has nothing to carry over.
 
     Bound on an H100 at S = 257, D = 1024: 2.43 GFLOP per image and 8.4 MB
     of weights; bytes bound it at batch 1, operations from batch 2 up.
@@ -873,7 +916,6 @@ def _launch_attn_part(x: torch.Tensor, ap: AttnParams, num_heads: int, eps: floa
     _check_act(x, name)
     b, s, d = x.shape
     _check_shapes(d, num_heads, name)
-    _check_ln_width(d, name)
     _check_params(x, ap, _attn_shapes(d), name)
     qkv = torch.empty((b, s, 3 * d), dtype=x.dtype, device=x.device)
     ctx = torch.empty_like(x)
@@ -890,9 +932,9 @@ def fused_mlp_part(x2: torch.Tensor, mp: MlpParams, eps: float) -> torch.Tensor:
     """MLP half y = x2 + ls2*(W2*gelu(W1*LN2(x2) + bf1) + bf2); replaces
     ``_mlp_part_kernel`` (dino_pose_tpu/ops/block.py:1021).
 
-    Design: two launches — gemm<LN2 prologue, +bf1, exact GELU (erff)> ->
-    gemm<+bf2, *ls2, +x2>; the (B*S, 4D) hidden tensor is the only
-    intermediate in device memory.
+    Design: three launches — LN2 rows (once, into the output buffer) ->
+    gemm<+bf1, exact GELU (erff)> -> gemm<+bf2, *ls2, +x2>; the (B*S, 4D)
+    hidden tensor is the only other intermediate in device memory.
 
     Bound on an H100 at S = 257, D = 384: 0.606 GFLOP per image and 2.36 MB
     of weights; bytes bound it at batch 1, operations from batch 2 up.
@@ -910,13 +952,13 @@ def fused_mlp_part_stream(x2: torch.Tensor, mp: MlpParams, eps: float) -> torch.
     replaces ``_mlp_stream_kernel`` (dino_pose_tpu/ops/block.py:1636),
     dinov2-large's MLP half.
 
-    Design: ``fused_mlp_part``'s two launches with another epilogue on the
-    second — gemm<LN2 prologue, +bf1, exact GELU> -> gemm<f32 +bf2, *ls2,
+    Design: ``fused_mlp_part``'s three launches with another epilogue on the
+    last — LN2 rows -> gemm<+bf1, exact GELU> -> gemm<f32 +bf2, *ls2,
     rounded, +x2>. The TPU kernel streams (D, bh) fc1 and (bh, D) fc2 blocks
     through VMEM (16.8 MB of bf16 weights at D = 1024) with an f32 (rows, D)
     accumulator resident; here each output tile's f32 accumulator lives in
     registers over the whole hidden axis, and the weights reach shared
-    memory in 32x64 tiles, so no plan of hidden blocks is needed.
+    memory in 64-deep TMA tiles, so no plan of hidden blocks is needed.
 
     Bound on an H100 at S = 257, D = 1024: 4.31 GFLOP per image and 16.8 MB
     of weights; bytes bound it at batch 1, operations from batch 2 up.
@@ -936,9 +978,9 @@ def fused_mlp_part_stream_train(
     ``_mlp_stream_train_kernel`` (dino_pose_tpu/ops/block.py:1695), the MLP
     half of a trainable dinov2-base or -large block.
 
-    Design: ``fused_mlp_part_stream``'s two launches, the fc2 epilogue
-    also storing h2 from the f32 sum it scales for y — gemm<LN2 prologue,
-    +bf1, exact GELU> -> gemm<f32 +bf2, h2 out, *ls2, rounded, +x2>. The TPU
+    Design: ``fused_mlp_part_stream``'s three launches, the fc2 epilogue
+    also storing h2 from the f32 sum it scales for y — LN2 rows ->
+    gemm<+bf1, exact GELU> -> gemm<f32 +bf2, h2 out, *ls2, rounded, +x2>. The TPU
     kernel adds an h2 output block to ``_mlp_stream_kernel``'s hidden-block
     walk; here the output tile's epilogue writes it.
 
@@ -962,7 +1004,6 @@ def _launch_mlp_part(x2: torch.Tensor, mp: MlpParams, eps: float, name: str,
     if d % 64:
         raise ValueError(f"{name}: hidden size {d} is not a multiple of 64")
     _check_hidden(hidden, name)
-    _check_ln_width(d, name)
     _check_params(x2, mp, _mlp_shapes(d, hidden), name)
     hbuf = torch.empty((b, s, hidden), dtype=x2.dtype, device=x2.device)
     outs = (torch.empty_like(x2), torch.empty_like(x2)) if save_h2 else (torch.empty_like(x2),)
@@ -980,8 +1021,9 @@ def fused_mlp_dx(
     """Activation-only backward of the MLP half, dx2 with no weight
     gradients; replaces ``_mlp_dx_kernel`` (dino_pose_tpu/ops/block.py:1044).
 
-    Design: four launches — gemm<LN2 prologue, +bf1> recomputes h1 (JAX
-    keeps only x2 and the weights as residuals) -> gemm_nt<dy*ls2 prologue,
+    Design: five launches — LN2 rows (into dm's buffer) -> gemm<+bf1>
+    recomputes h1 (JAX keeps only x2 and the weights as residuals) ->
+    gemm_nt<dy*ls2 prologue,
     *gelu'(h1)> gives dh1b -> gemm_nt<f32 out> gives dm = dh1b W1^T -> a row
     kernel applies the LayerNorm backward and adds dy. gemm_nt reads the
     (in, out) weight transposed. h1 and dh1b (B*S, 4D) bf16 and dm (B*S, D)
@@ -1000,7 +1042,6 @@ def fused_mlp_dx(
     if d % 64:
         raise ValueError(f"{name}: hidden size {d} is not a multiple of 64")
     _check_hidden(hidden, name)
-    _check_ln_width(d, name)
     _check_params(x2, mp, _mlp_shapes(d, hidden), name)
     h1 = torch.empty((b, s, hidden), dtype=x2.dtype, device=x2.device)
     dh1b = torch.empty_like(h1)
@@ -1036,13 +1077,17 @@ def fused_attn_part_partial(
     ``_attn_half_core`` :948, launched by ``_part_call`` :1117 from
     ``fused_attn_part_partial`` :1250).
 
-    Design: ``fused_attn_part``'s three launches at the shard's widths —
-    gemm<LN1 prologue, +bqkv> with N = 3D/tp -> attention on the H/tp heads
-    of the packed [q_l | k_l | v_l] (K/V resident; the streamed
-    flash_fwd_kernel past S ~ 320) -> gemm<no bias> with K = D/tp. The
-    LayerNorm prologue still reads whole rows of width D. The TPU kernel
-    holds the shard's 8D²/tp bytes of weights in VMEM; here the GEMMs walk
-    them in 32x64 tiles.
+    Design: ``fused_attn_part``'s four launches at the shard's widths —
+    LN1 rows of width D (each shard normalises every row once, into its own
+    output buffer, as JAX's shard kernel does) -> gemm<+bqkv> with N = 3D/tp
+    -> attention on the H/tp heads of the packed [q_l | k_l | v_l] (K/V
+    resident; the streamed flash_fwd_kernel past S ~ 320) -> gemm<no bias>
+    with K = D/tp. The TPU kernel holds the shard's 8D²/tp bytes of weights
+    in VMEM; here the wgmma GEMMs stream them through a TMA ring. What bounds
+    it from batch 8 up is the tensor cores (the two products at ~512 FLOPs
+    a byte at D = 768); the WMMA GEMM it replaces ran its qkv product at
+    ~18 TFLOP/s, one block an SM renormalising its rows in each column
+    block.
 
     Bound on an H100 at dinov2-base's shard (D = 768, tp = 2), S = 257:
     0.708 GFLOP per image and 2.36 MB of weights; bytes bound it at batch
@@ -1057,7 +1102,6 @@ def fused_attn_part_partial(
     dl = pp.wqkv.shape[-1] // 3
     _check_partial_widths(d, 3 * dl, dl, name)
     _check_shapes(dl, num_heads, name)
-    _check_ln_width(d, name)
     _check_params(x, pp, {"g1": (d,), "b1": (d,), "wqkv": (d, 3 * dl), "bqkv": (3 * dl,),
                           "wo": (dl, d)}, name)
     qkv = _act(b, s, 3 * dl, like=x)
@@ -1076,7 +1120,6 @@ def _partial_mlp_checks(x2: torch.Tensor, pp: MlpPartialParams, name: str) -> tu
     b, s, d = x2.shape
     hidden = pp.w1.shape[-1]
     _check_partial_widths(d, hidden, hidden, name)
-    _check_ln_width(d, name)
     _check_params(x2, pp, {"g2": (d,), "b2": (d,), "w1": (d, hidden), "bf1": (hidden,),
                            "w2": (hidden, d)}, name)
     return b, s, d, hidden
@@ -1088,10 +1131,12 @@ def fused_mlp_part_partial(x2: torch.Tensor, pp: MlpPartialParams, eps: float) -
     ``_mlp_part_partial_kernel`` (dino_pose_tpu/ops/block.py:1062, through
     ``fused_mlp_part_partial`` :1288).
 
-    Design: ``fused_mlp_part``'s two launches at the shard's MLP width
-    4D/tp — gemm<LN2 prologue, +bf1, exact GELU> -> gemm<no bias> with
-    K = 4D/tp; the (B*S, 4D/tp) hidden tensor is the only intermediate in
-    device memory.
+    Design: ``fused_mlp_part``'s three launches at the shard's MLP width
+    4D/tp — LN2 rows (once, into the output buffer) -> gemm<+bf1, exact
+    GELU> -> gemm<no bias> with K = 4D/tp; the (B*S, 4D/tp) hidden tensor
+    is the only other intermediate in device memory. Bound by the tensor
+    cores from batch 8 up; both products run on the wgmma/TMA GEMM (the WMMA
+    GEMM's LayerNorm prologue it replaces held fc1 at ~26 TFLOP/s).
 
     Bound on an H100 at dinov2-base's shard (D = 768, tp = 2), S = 257:
     1.212 GFLOP per image and 4.72 MB of weights; bytes bound it at batch
@@ -1120,8 +1165,8 @@ def fused_mlp_partial_dx(
     gradients; replaces ``_mlp_partial_dx_kernel``
     (dino_pose_tpu/ops/block.py:1099, through ``_mlp_partial_bwd`` :1309).
 
-    Design: ``fused_mlp_dx``'s four launches at the shard's MLP width with
-    two modes off — gemm<LN2 prologue, +bf1> recomputes h1 -> gemm_nt<no
+    Design: ``fused_mlp_dx``'s five launches at the shard's MLP width with
+    two modes off — LN2 rows -> gemm<+bf1> recomputes h1 -> gemm_nt<no
     dy*ls2 prologue, *gelu'(h1)> gives dh1b -> gemm_nt<f32> gives dm ->
     the LayerNorm-backward row kernel with no residual.
 
@@ -1144,6 +1189,107 @@ def fused_mlp_partial_dx(
     _ext.check(err, name)
     LAUNCHES[name] += 1
     return dx2
+
+
+def fused_gemm(a: torch.Tensor, w: torch.Tensor, epi: str, *, bias: torch.Tensor | None = None,
+               ls: torch.Tensor | None = None, res: torch.Tensor | None = None):
+    """One product of the chains alone, ``epilogue(a @ w)`` (plain version
+    :func:`gemm_math`): a (M, K) and w (K, N) bf16, bias and ls (N,) f32,
+    res (M, N) bf16 as ``epi`` reads them; returns out, or (out, out2) for
+    the paired epilogues. M any, N a multiple of 64, K of 32.
+
+    The chains (every wrapper above) launch the same GEMM kernel through
+    their own C entries; this wrapper exists so that the card tests and
+    ``chip_smoke.py`` can hold and time the GEMM core by itself. It counts
+    its launches under ``LAUNCHES["fused_gemm"]``, which no path calls.
+    """
+    if epi not in EPILOGUES:
+        raise ValueError(f"fused_gemm: unknown epilogue {epi!r}")
+    if not _route(a):
+        return gemm_math(a, w, epi, bias, ls, res)
+    name = "fused_gemm"
+    _refuse_grad(name, a, w)
+    if a.dim() != 2 or w.dim() != 2 or a.shape[1] != w.shape[0]:
+        raise ValueError(f"{name}: a (M, K) and w (K, N) expected, got {tuple(a.shape)} and "
+                         f"{tuple(w.shape)}")
+    (m, k), n = a.shape, w.shape[1]
+    for t, what in ((a, "a"), (w, "w")):
+        if t.dtype != torch.bfloat16 or t.device != a.device:
+            raise TypeError(f"{name}: {what} must be bf16 on {a.device}")
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{name}: {what} must be contiguous and 16-byte aligned")
+    if n % 64 or k % 32:
+        raise ValueError(f"{name}: N = {n} is not a multiple of 64 or K = {k} of 32")
+    # What the epilogue reads: the f32 bias (all but "none"), ls and res.
+    wants = {"bias": (torch.float32, (n,)), "ls": (torch.float32, (n,)),
+             "res": (torch.bfloat16, (m, n))}
+    reads = {"bias": epi != "none", "ls": "ls_res" in epi, "res": "ls_res" in epi}
+    given = {"bias": bias, "ls": ls, "res": res}
+    for what, (dtype, shape) in wants.items():
+        t = given[what] if reads[what] else None
+        given[what] = t
+        if reads[what] and (t is None or t.dtype != dtype or tuple(t.shape) != shape
+                            or not t.is_contiguous() or t.device != a.device):
+            raise ValueError(f"{name}: epilogue {epi} needs {what} as a contiguous {shape} "
+                             f"{dtype} tensor on {a.device}")
+    out = torch.empty((m, n), dtype=a.dtype, device=a.device)
+    out2 = torch.empty_like(out) if epi in PAIRED else None
+    ptr = [0 if t is None else t.data_ptr() for t in (a, w, *given.values(), out, out2)]
+    err = _ext.lib().dp_gemm(*ptr, m, n, k, EPILOGUES.index(epi), _stream())
+    _ext.check(err, name)
+    LAUNCHES[name] += 1
+    return (out, out2) if out2 is not None else out
+
+
+def ln_rows(x: torch.Tensor, g: torch.Tensor, b: torch.Tensor, eps: float) -> torch.Tensor:
+    """The chains' LayerNorm step alone: the rows of x (..., D) bf16
+    normalised with f32 statistics (lane-strided sums, two-pass variance)
+    and the f32 scale g and bias b, rounded to bf16 once: what every chain's
+    first product reads. Plain version: ``_ln_fwd``'s output. Counts its
+    launches under ``LAUNCHES["ln_rows"]``; no path calls it."""
+    if not _route(x):
+        return _ln_fwd(x, g, b, eps)[0]
+    name = "ln_rows"
+    d = x.shape[-1]
+    if x.dtype != torch.bfloat16 or not x.is_contiguous() or x.data_ptr() % 16:
+        raise ValueError(f"{name}: x must be a contiguous, 16-byte aligned bf16 tensor")
+    for t in (g, b):
+        if t.dtype != torch.float32 or tuple(t.shape) != (d,) or t.device != x.device \
+                or not t.is_contiguous():
+            raise ValueError(f"{name}: scale and bias must be contiguous ({d},) f32 on {x.device}")
+    out = torch.empty_like(x)
+    err = _ext.lib().dp_ln_rows(x.data_ptr(), g.data_ptr(), b.data_ptr(), out.data_ptr(),
+                                x.numel() // d, d, eps, _stream())
+    _ext.check(err, name)
+    LAUNCHES[name] += 1
+    return out
+
+
+def packed_attention(qkv: torch.Tensor, num_heads: int, *, streamed: bool) -> torch.Tensor:
+    """The chains' attention step alone on a packed qkv (B, S, 3D) bf16,
+    q|k|v on the last axis: ctx (B, S, D). ``streamed`` picks the kernel:
+    flash_fwd_kernel (counted under ``LAUNCHES["flash_fwd"]`` too) or the
+    resident attention_kernel (K/V in shared memory, S up to ~320 at head
+    width 64: the chains' choice where it fits). Plain version: the chains'
+    ``_heads_attention``. Counts its launches under
+    ``LAUNCHES["packed_attention"]``; no path calls it: it times the
+    chains' attention routing."""
+    if not _route(qkv):
+        return _heads_attention(qkv, num_heads)
+    name = "packed_attention"
+    _check_act(qkv, name)
+    b, s, d3 = qkv.shape
+    _check_shapes(d3 // 3, num_heads, name)
+    dh = d3 // 3 // num_heads
+    if not streamed and _ext.lib().dp_flash_forward(s, dh):
+        raise ValueError(f"{name}: K and V of {s} keys do not fit the resident kernel")
+    ctx = _act(b, s, d3 // 3, like=qkv)
+    err = _ext.lib().dp_packed_attention(qkv.data_ptr(), ctx.data_ptr(), b, s, num_heads, dh,
+                                         int(streamed), _stream())
+    _ext.check(err, name)
+    LAUNCHES[name] += 1
+    LAUNCHES["flash_fwd"] += int(streamed)
+    return ctx
 
 
 def _splits(m: int, k_in: int, n: int) -> int:

@@ -26,14 +26,24 @@
 // so each TPU kernel becomes a short chain of kernels here, sharing these
 // building blocks:
 //
-//   gemm_kernel<LN, EPI>   C = epilogue(prologue(A) @ W), bf16 tensor-core
-//                          tiles (WMMA 16x16x16, f32 accumulation).
-//                          LN = LayerNorm prologue (f32 statistics, output
-//                          rounded to bf16) over whole rows held in shared
-//                          memory; EPI = +bias | +bias,GELU(erf) |
-//                          +bias,*LayerScale,+residual | +bias with both the
-//                          pre-activation and its GELU written out | f32
-//                          +bias | f32 +bias,*LayerScale, then +residual.
+//   gemm_kernel<WG, TN, EPI>  C = epilogue(A @ W) for every forward product
+//                          (and the backward's recomputed ones): wgmma
+//                          m64nTNk16 (bf16 in, f32 accumulators in registers)
+//                          on 128-byte-swizzled tiles that one producer
+//                          thread loads by TMA into a 4-deep mbarrier ring,
+//                          outputs staged in shared memory and written by
+//                          TMA stores, persistent blocks, tiles of 128 x 128
+//                          (two consumer warpgroups) where they fill the 132
+//                          SMs, else 64 x 128 or 64 x 64 (one). EPI = +bias |
+//                          +bias,GELU(erf) | +bias,*LayerScale,+residual |
+//                          +bias with both the pre-activation and its GELU
+//                          written out | f32 +bias | f32 +bias,*LayerScale,
+//                          then +residual (also writing h2) | none. What
+//                          bounds it at B = 128 is the tensor cores (D = 768:
+//                          2*M*768*1536 FLOPs against 2*M*(768+1536) bytes,
+//                          512 FLOPs a byte, over the card's ~295); the
+//                          ring keeps them fed and the swizzle keeps wgmma's
+//                          shared-memory reads free of bank conflicts.
 //   gemm_nt_kernel<SCALE, EPI>  the same tile with W read transposed (the
 //                          backward products), an optional per-column scale
 //                          prologue, a *gelu'(h), raw-f32 or bf16 epilogue,
@@ -59,26 +69,32 @@
 //                          optional per-block column sums for the vector
 //                          gradients.
 //
-//   _attn_part_kernel = gemm<LN,BIAS>(qkv) -> attention -> gemm<-,BIAS>(out)
-//   _mlp_part_kernel  = gemm<LN,GELU>(fc1) -> gemm<-,LS_RES>(fc2)
-//   _attn_stream_kernel = gemm<LN,BIAS>(qkv) -> attention -> gemm<-,F32BIAS>(out)
-//   _mlp_stream_kernel  = gemm<LN,GELU>(fc1) -> gemm<-,F32BIAS_LS_RES>(fc2)
-//   _block_kernel     = gemm<LN,BIAS> -> attention -> gemm<-,LS_RES>
-//                       -> gemm<LN,GELU> -> gemm<-,LS_RES>
-//   _mlp_dx_kernel    = gemm<LN,BIAS>(h1) -> gemm_nt<dy*ls2, *gelu'(h1)>(dh1b)
-//                       -> gemm_nt<-, f32>(dm) -> ln_bwd_rows(dx2)
-//   _mlp_bwd_kernel   = ln_rows(m) -> gemm<-,BIAS,GELU pair>(h1, g)
-//                       -> gemm<-,BIAS>(h2) -> gemm_nt<dy*ls2,*gelu'(h1),sums>
+//   Every chain whose TPU kernel normalises its input first launches
+//   ln_rows once into a bf16 (M, D) buffer and then the GEMM (the old WMMA
+//   GEMM held 64 whole rows in shared memory and normalised them again in
+//   each of the N/64 column blocks: 99 KB at D = 768, one block an SM):
+//
+//   _attn_part_kernel = ln_rows -> gemm<BIAS>(qkv) -> attention -> gemm<BIAS>(out)
+//   _mlp_part_kernel  = ln_rows -> gemm<GELU>(fc1) -> gemm<LS_RES>(fc2)
+//   _attn_stream_kernel = ln_rows -> gemm<BIAS>(qkv) -> attention -> gemm<F32BIAS>(out)
+//   _mlp_stream_kernel  = ln_rows -> gemm<GELU>(fc1) -> gemm<F32BIAS_LS_RES>(fc2)
+//   _block_kernel     = ln_rows -> gemm<BIAS> -> attention -> gemm<LS_RES>
+//                       -> ln_rows -> gemm<GELU> -> gemm<LS_RES>
+//   _mlp_dx_kernel    = ln_rows -> gemm<BIAS>(h1) -> gemm_nt<dy*ls2, *gelu'(h1)>
+//                       (dh1b) -> gemm_nt<-, f32>(dm) -> ln_bwd_rows(dx2)
+//   _mlp_bwd_kernel   = ln_rows(m) -> gemm<BIAS,GELU pair>(h1, g)
+//                       -> gemm<BIAS>(h2) -> gemm_nt<dy*ls2,*gelu'(h1),sums>
 //                       (dh1b, dbf1) -> gemm_nt<-,f32>(dm) -> ln_bwd_rows<sums>
 //                       (dx2, dbf2, dls2, dg2, db2) -> gemm_tn(dW1 = m^T dh1b)
 //                       -> gemm_tn<*ls2>(dW2 = g^T bf16(dy*ls2))
-//   _attn_bwd_kernel  = ln_rows(a) -> gemm<-,BIAS>(qkv) -> attention(ctx)
-//                       -> gemm<-,BIAS>(o) -> gemm_nt<dx2*ls1,bf16>(dctx)
+//   _attn_bwd_kernel  = ln_rows(a) -> gemm<BIAS>(qkv) -> attention(ctx)
+//                       -> gemm<BIAS>(o) -> gemm_nt<dx2*ls1,bf16>(dctx)
 //                       -> attn_bwd_dq -> attn_bwd_dkv (dqkv)
 //                       -> gemm_nt<-,f32>(da) -> ln_bwd_rows<sums>(dx, dbo,
 //                       dls1, dg1, db1) -> gemm_tn<colsums>(dWqkv, dbqkv)
 //                       -> gemm_tn<*ls1>(dWo = ctx^T bf16(dx2*ls1))
-//   _mlp_stream_train_kernel = gemm<LN,GELU>(fc1) -> gemm<-,F32BIAS_LS_RES_H2>(fc2, h2)
+//   _mlp_stream_train_kernel = ln_rows -> gemm<GELU>(fc1)
+//                       -> gemm<F32BIAS_LS_RES_H2>(fc2, h2)
 //   _mlp_stream_dx_full_kernel + _mlp_stream_dw_kernel = _mlp_bwd_kernel's
 //                       chain without the h2 GEMM (h2 saved by the forward),
 //                       ln_bwd_rows<sums, UNSCALED> (dbf2 = ls2 * sum(dy))
@@ -86,11 +102,19 @@
 //                       without the o GEMM, on do (pre-LayerScale): gemm_nt<-,
 //                       bf16>(dctx) ... ln_bwd_rows<sums, NO_RES>(dx, dbo = sum
 //                       (do), dg1, db1) ... gemm_tn(dWo = ctx^T do)
-//   _attn_part_partial_kernel = gemm<LN,BIAS>(qkv_l, N = 3D/tp) -> attention
-//                       (H/tp heads) -> gemm<-,NONE>(out, K = D/tp)
-//   _mlp_part_partial_kernel  = gemm<LN,GELU>(fc1, N = 4D/tp) -> gemm<-,NONE>(fc2)
-//   _mlp_partial_dx_kernel    = gemm<LN,BIAS>(h1) -> gemm_nt<-, *gelu'(h1)>(dh1b)
-//                       -> gemm_nt<-, f32>(dm) -> ln_bwd_rows<NO_RES>(dx2)
+//   _attn_part_partial_kernel = ln_rows -> gemm<BIAS>(qkv_l, N = 3D/tp)
+//                       -> attention (H/tp heads) -> gemm<NONE>(out, K = D/tp)
+//   _mlp_part_partial_kernel  = ln_rows -> gemm<GELU>(fc1, N = 4D/tp)
+//                       -> gemm<NONE>(fc2)
+//   _mlp_partial_dx_kernel    = ln_rows -> gemm<BIAS>(h1) -> gemm_nt<-,
+//                       *gelu'(h1)>(dh1b) -> gemm_nt<-, f32>(dm)
+//                       -> ln_bwd_rows<NO_RES>(dx2)
+//
+//   The forward halves put the normalised rows in their own output buffer
+//   (the attention half's out, the MLP half's y), and the dx chains in dm's
+//   f32 buffer: each is dead until a later launch of the chain overwrites
+//   it, so the split costs no allocation. ln_rows_kernel is the old
+//   prologue's arithmetic, so the GEMMs read the same bf16 rows as before.
 //
 // Every rounding point of the JAX kernels is reproduced: each product is
 // rounded to bf16, then the bias (f32 parameter rounded to bf16) is added in
@@ -110,12 +134,17 @@
 // each block of rows writes f32 partials and one pass adds them in a fixed
 // order (no atomics: two runs give the same bits).
 //
-// Shapes: M = B*S rows are masked at the ragged edge (no padding copy); N is a
-// multiple of 64, K of 32 (the wrapper checks D % 64 == 0). Kernels launch on
-// the caller's stream, allocate nothing and never synchronise; each C entry
-// returns cudaGetLastError() after its launches.
+// Shapes: M = B*S rows are masked at the ragged edge (no padding copy: TMA
+// reads the rows and the K tail past the edge as zeros, the stores are
+// masked); N is a multiple of 64, K of 32 (the wrapper checks D % 64 == 0).
+// The GEMM's TMA tensor maps are encoded on the host at each launch with
+// cuTensorMapEncodeTiled, reached through cudaGetDriverEntryPointByVersion,
+// so the library links without -lcuda. Kernels launch on the caller's
+// stream, allocate nothing and never synchronise; each C entry returns
+// cudaGetLastError() after its launches.
 
 #include <cuda_bf16.h>
+#include <cuda.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <mma.h>
@@ -178,150 +207,368 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
-size_t gemm_smem_bytes(bool ln, int K) {
-  const int lda = ln ? K + PAD_H : BK + PAD_H;
-  return align128(static_cast<size_t>(BM) * lda * 2) +
-         align128(static_cast<size_t>(BK) * (BN + PAD_H) * 2) +
-         align128(static_cast<size_t>(BM) * (BN + PAD_F) * 4);
+// ---------------------------------------------------------------------------
+// gemm_kernel<WG, TN, EPI>: C[M,N] = epilogue(A[M,K] @ W[K,N]), A, W, C, res
+// row-major bf16, bias and ls f32 vectors. Warp-specialised for sm_90a:
+// warpgroup WG (the last) is the producer, one thread of it issuing the TMA
+// loads of A (TM x 64, K-major) and W (64 x TN, N-major: W is read as it is
+// stored, never copied or transposed) into a GSTAGES-deep ring of
+// 128-byte-swizzled tiles guarded by mbarriers; warpgroups 0..WG-1 are the
+// consumers, each issuing wgmma.mma_async m64nTNk16 on 64 rows of the tile
+// with f32 accumulators in registers, then the epilogue from those
+// registers into swizzled shared memory, which TMA stores write out while
+// the next tile's products run. Blocks are persistent: each walks output
+// tiles (row-block major, so a row block's A stays in L2 across its column
+// blocks) while the producer runs ahead into the next tile's stages.
+// TM = 64*WG.
+// EPI_BIAS_GELU_PAIR writes the biased product h to out and gelu(h) to out2.
+// EPI_F32BIAS: bf16(acc + bias); EPI_F32BIAS_LS_RES: bf16(res + bf16((acc +
+// bias) * ls)), in f32 up to the inner rounding; EPI_F32BIAS_LS_RES_H2 also
+// writes h2 = bf16(acc + bias) to out2 (the pre-LayerScale output that
+// _mlp_stream_train_kernel saves). EPI_NONE: bf16(acc); bias, ls and res are
+// not read.
+// ---------------------------------------------------------------------------
+
+constexpr int GK = 64;           // K depth of a stage: one 128-byte swizzled bf16 row
+constexpr int GSTAGES = 4;       // ring depth
+constexpr int WG_THREADS = 128;  // a warpgroup
+
+// EPI_BIAS_GELU_PAIR and EPI_F32BIAS_LS_RES_H2 write a second output.
+__host__ __device__ constexpr bool two_outputs(int epi) {
+  return epi == EPI_BIAS_GELU_PAIR || epi == EPI_F32BIAS_LS_RES_H2;
 }
 
-// C[M,N] = epilogue(A'[M,K] @ W[K,N]); A, W, C, res row-major bf16;
-// bias, ls, gamma, beta f32 vectors. EPI_BIAS_GELU_PAIR writes the biased
-// product h to out and gelu(h) to out2. EPI_F32BIAS: bf16(acc + bias);
-// EPI_F32BIAS_LS_RES: bf16(res + bf16((acc + bias) * ls)), in f32 up to the
-// inner rounding; EPI_F32BIAS_LS_RES_H2 also writes h2 = bf16(acc + bias) to
-// out2 (the pre-LayerScale output that _mlp_stream_train_kernel saves).
-// EPI_NONE: bf16(acc); bias, ls and res are not read.
-template <bool LN, int EPI>
-__global__ void __launch_bounds__(GEMM_THREADS)
-gemm_kernel(const bf16* __restrict__ A, const bf16* __restrict__ W,
-            const float* __restrict__ bias, const float* __restrict__ ls,
-            const bf16* __restrict__ res, const float* __restrict__ gamma,
-            const float* __restrict__ beta, bf16* __restrict__ out,
-            bf16* __restrict__ out2, int M, int N, int K, float eps) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int lda = LN ? K + PAD_H : BK + PAD_H;
-  constexpr int LDB = BN + PAD_H;
-  constexpr int LDC = BN + PAD_F;
-  bf16* As = reinterpret_cast<bf16*>(smem);
-  const size_t a_bytes = align128(static_cast<size_t>(BM) * lda * 2);
-  bf16* Bs = reinterpret_cast<bf16*>(smem + a_bytes);
-  const size_t b_bytes = align128(static_cast<size_t>(BK) * LDB * 2);
-  float* Cs = reinterpret_cast<float*>(smem + a_bytes + b_bytes);
+template <int WG, int TN, int EPI>
+struct GemmPlan {
+  static constexpr int TM = 64 * WG;
+  static constexpr int A_BYTES = TM * GK * 2;
+  static constexpr int B_BYTES = GK * TN * 2;
+  static constexpr int STAGE_BYTES = A_BYTES + B_BYTES;
+  static constexpr int THREADS = (WG + 1) * WG_THREADS;
+  // Each consumer warpgroup stages its 64 x TN output (and the second one)
+  // in TN/64 swizzled 64 x 64 boxes for the TMA stores.
+  static constexpr int OUT_BYTES = 64 * TN * 2;
+  static constexpr int OUTS = two_outputs(EPI) ? 2 : 1;
+  // The ring, the staging buffers, then 2*GSTAGES mbarriers, and slack to
+  // align the ring to the 1024 bytes a 128-byte swizzle pattern repeats over.
+  static constexpr size_t SMEM = static_cast<size_t>(GSTAGES) * STAGE_BYTES +
+                                 static_cast<size_t>(WG) * OUTS * OUT_BYTES + 2 * GSTAGES * 8 + 1024;
+};
 
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
 
-  if (LN) {
-    // LayerNorm prologue: whole rows into shared memory, normalised once.
-    for (int r = warp; r < BM; r += GEMM_THREADS / 32) {
-      const int gm = m0 + r;
-      bf16* dst = As + r * lda;
-      if (gm >= M) {
-        for (int c = lane; c < K; c += 32) dst[c] = __float2bfloat16(0.f);
-        continue;
-      }
-      const bf16* src = A + static_cast<size_t>(gm) * K;
-      float s = 0.f;
-      for (int c = lane; c < K; c += 32) {
-        const float v = __bfloat162float(src[c]);
-        dst[c] = src[c];
-        s += v;
-      }
-      const float mu = warp_sum(s) / K;
-      float q = 0.f;
-      for (int c = lane; c < K; c += 32) {
-        const float d = __bfloat162float(dst[c]) - mu;
-        q += d * d;
-      }
-      const float rstd = rsqrtf(warp_sum(q) / K + eps);
-      for (int c = lane; c < K; c += 32) {
-        const float y = (__bfloat162float(dst[c]) - mu) * rstd * gamma[c] + beta[c];
-        dst[c] = __float2bfloat16(y);
-      }
-    }
-    __syncthreads();
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+// Spin until the phase of parity `parity` of the barrier has completed.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
   }
+}
 
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-  const int wm = (warp >> 1) * 32, wn = (warp & 1) * 32;
+// One 2-D TMA tile load (coordinates innermost first) that completes its
+// bytes on the barrier; out-of-bounds elements arrive as zeros.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar, int c0,
+                                         int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
+      : "memory");
+}
 
-  for (int k0 = 0; k0 < K; k0 += BK) {
-    if (!LN) {
-      for (int i = tid; i < BM * BK / 8; i += GEMM_THREADS) {
-        const int r = i / (BK / 8), c = (i % (BK / 8)) * 8;
-        const int gm = m0 + r;
-        uint4 v = make_uint4(0u, 0u, 0u, 0u);
-        if (gm < M)
-          v = *reinterpret_cast<const uint4*>(A + static_cast<size_t>(gm) * K + k0 + c);
-        *reinterpret_cast<uint4*>(As + r * lda + c) = v;
-      }
-    }
-    for (int i = tid; i < BK * BN / 8; i += GEMM_THREADS) {
-      const int r = i / (BN / 8), c = (i % (BN / 8)) * 8;
-      *reinterpret_cast<uint4*>(Bs + r * LDB + c) =
-          *reinterpret_cast<const uint4*>(W + static_cast<size_t>(k0 + r) * N + n0 + c);
-    }
-    __syncthreads();
-    const int acol = LN ? k0 : 0;
+// One 2-D TMA tile store from shared memory (a bulk group); rows past the
+// tensor's edge are not written.
+__device__ __forceinline__ void tma_store(const CUtensorMap* map, uint32_t src, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+__device__ __forceinline__ void st_shared(uint32_t addr, uint32_t v) {
+  asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(addr), "r"(v) : "memory");
+}
+
+// A barrier among the 128 threads of one warpgroup (ids 1 and 2; 0 is
+// __syncthreads').
+__device__ __forceinline__ void warpgroup_sync(int id) {
+  asm volatile("bar.sync %0, 128;\n" ::"r"(id) : "memory");
+}
+
+// wgmma shared-memory descriptor of a 128-byte-swizzled tile (layout type 1
+// in bits 62-63): start address, leading and stride byte offsets, each >> 4.
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>((lbo & 0x3FFFF) >> 4) << 16) |
+         (static_cast<uint64_t>((sbo & 0x3FFFF) >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Keeps the compiler from moving accumulator reads or writes across the
+// asynchronous wgmma's issue and wait.
+template <int R>
+__device__ __forceinline__ void fence_acc(float* d) {
 #pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> af[2];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> bfr[2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-        wmma::load_matrix_sync(af[i], As + (wm + 16 * i) * lda + acol + kk, lda);
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        wmma::load_matrix_sync(bfr[j], Bs + kk * LDB + wn + 16 * j, LDB);
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) wmma::mma_sync(acc[i][j], af[i], bfr[j], acc[i][j]);
-    }
-    __syncthreads();
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// D (64 x 64 f32, 32 registers a thread) += A (64 x 16, K-major) * B (16 x 64,
+// N-major), both read from shared memory through their descriptors.
+__device__ __forceinline__ void wgmma_n64(float* d, uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// D (64 x 128 f32, 64 registers a thread) += A (64 x 16, K-major) * B (16 x 128,
+// N-major), both read from shared memory through their descriptors.
+__device__ __forceinline__ void wgmma_n128(float* d, uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+template <int TN>
+__device__ __forceinline__ void wgmma_tile(float* d, uint64_t da, uint64_t db) {
+  if constexpr (TN == 128)
+    wgmma_n128(d, da, db);
+  else
+    wgmma_n64(d, da, db);
+}
+
+// One thread's two adjacent outputs (columns gn and gn + 1 of element idx's
+// row) through the epilogue, as bf16 pairs: out in o, the second output in
+// o2. The rounding points of the TPU kernels: EPI_BIAS* round the product,
+// add the bf16 bias in bf16, then GELU (f32, one rounding) or *bf16(ls)
+// and +res, each rounded. A row past M (in_rows false) reads no residual.
+template <int EPI>
+__device__ __forceinline__ void gemm_pair(float a0, float a1, bool in_rows, size_t idx, int gn,
+                                          const float* __restrict__ bias,
+                                          const float* __restrict__ ls,
+                                          const bf16* __restrict__ res, uint32_t* o,
+                                          uint32_t* o2) {
+  constexpr bool F32 = EPI == EPI_F32BIAS || EPI == EPI_F32BIAS_LS_RES || EPI == EPI_F32BIAS_LS_RES_H2;
+  constexpr bool RES = EPI == EPI_BIAS_LS_RES || EPI == EPI_F32BIAS_LS_RES || EPI == EPI_F32BIAS_LS_RES_H2;
+  float v[2] = {a0, a1}, v2[2] = {0.f, 0.f}, rv[2] = {0.f, 0.f};
+  if (RES && in_rows) {
+    const __nv_bfloat162 r = *reinterpret_cast<const __nv_bfloat162*>(res + idx);
+    rv[0] = __low2float(r);
+    rv[1] = __high2float(r);
   }
+#pragma unroll
+  for (int c = 0; c < 2; ++c) {
+    if (EPI == EPI_NONE) continue;
+    if (F32) {
+      float x = v[c] + bias[gn + c];
+      if (EPI == EPI_F32BIAS_LS_RES_H2) v2[c] = x;
+      if (EPI != EPI_F32BIAS) x = bf16r(rv[c] + bf16r(x * ls[gn + c]));
+      v[c] = x;
+      continue;
+    }
+    float x = bf16r(bf16r(v[c]) + bf16r(bias[gn + c]));
+    if (EPI == EPI_BIAS_GELU || EPI == EPI_BIAS_GELU_PAIR) {
+      const float gl = bf16r(x * 0.5f * (1.f + erff(x * 0.70710678118654752440f)));
+      if (EPI == EPI_BIAS_GELU_PAIR)
+        v2[c] = gl;
+      else
+        x = gl;
+    } else if (EPI == EPI_BIAS_LS_RES) {
+      x = bf16r(rv[c] + bf16r(x * bf16r(ls[gn + c])));
+    }
+    v[c] = x;
+  }
+  __nv_bfloat162 p = __floats2bfloat162_rn(v[0], v[1]), p2 = __floats2bfloat162_rn(v2[0], v2[1]);
+  *o = *reinterpret_cast<uint32_t*>(&p);
+  *o2 = *reinterpret_cast<uint32_t*>(&p2);
+}
 
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-      wmma::store_matrix_sync(Cs + (wm + 16 * i) * LDC + wn + 16 * j, acc[i][j], LDC,
-                              wmma::mem_row_major);
+template <int WG, int TN, int EPI>
+__global__ void __launch_bounds__((WG + 1) * WG_THREADS, 1)
+gemm_kernel(const __grid_constant__ CUtensorMap tma_a, const __grid_constant__ CUtensorMap tma_w,
+            const __grid_constant__ CUtensorMap tma_out,
+            const __grid_constant__ CUtensorMap tma_out2, const float* __restrict__ bias,
+            const float* __restrict__ ls, const bf16* __restrict__ res, int M, int N, int K) {
+  using P = GemmPlan<WG, TN, EPI>;
+  constexpr bool TWO = two_outputs(EPI);
+  extern __shared__ unsigned char gemm_smem[];
+  // The ring starts at the first 1024-byte boundary: stage s holds A then W;
+  // then each consumer warpgroup's staging buffers (out, then out2).
+  const uint32_t base = (smem_addr(gemm_smem) + 1023u) & ~1023u;
+  const uint32_t staging = base + GSTAGES * P::STAGE_BYTES;
+  const uint32_t bars = staging + WG * P::OUTS * P::OUT_BYTES;  // full[s], then empty[s]
+  const int wg = threadIdx.x / WG_THREADS;
+  const int tiles_n = N / TN;
+  const int tiles = (M + P::TM - 1) / P::TM * tiles_n;
+  const int ktiles = (K + GK - 1) / GK;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < GSTAGES; ++s) {
+      mbar_init(bars + 8 * s, 1);                 // the producer's expect_tx
+      mbar_init(bars + 8 * (GSTAGES + s), WG);    // one arrival per consumer warpgroup
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
   __syncthreads();
 
-  for (int i = tid; i < BM * BN; i += GEMM_THREADS) {
-    const int r = i / BN, c = i % BN;
-    const int gm = m0 + r, gn = n0 + c;
-    if (gm >= M) continue;
-    const size_t idx = static_cast<size_t>(gm) * N + gn;
-    if (EPI == EPI_NONE) {
-      out[idx] = __float2bfloat16(Cs[r * LDC + c]);
-      continue;
+  if (wg == WG) {
+    // Producer: one thread keeps the ring full across all of this block's
+    // tiles. In the 128 x 128 plan (384 threads, 168 registers a thread at
+    // entry) its warpgroup hands registers to the two consumers, which hold
+    // 64 accumulators each; a 256-thread block already leaves its one
+    // consumer enough.
+    if (WG > 1) asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (threadIdx.x == WG * WG_THREADS) {
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+        const int m0 = t / tiles_n * P::TM, n0 = t % tiles_n * TN;
+        for (int kt = 0; kt < ktiles; ++kt) {
+          const uint32_t full = bars + 8 * stage;
+          mbar_wait(bars + 8 * (GSTAGES + stage), phase ^ 1);
+          mbar_expect_tx(full, P::STAGE_BYTES);
+          const uint32_t sa = base + stage * P::STAGE_BYTES, sb = sa + P::A_BYTES;
+          tma_load(sa, &tma_a, full, kt * GK, m0);
+#pragma unroll
+          for (int h = 0; h < TN / 64; ++h) tma_load(sb + h * GK * 128, &tma_w, full, n0 + 64 * h, kt * GK);
+          if (++stage == GSTAGES) {
+            stage = 0;
+            phase ^= 1;
+          }
+        }
+      }
     }
-    if (EPI == EPI_F32BIAS || EPI == EPI_F32BIAS_LS_RES || EPI == EPI_F32BIAS_LS_RES_H2) {
-      float o = Cs[r * LDC + c] + bias[gn];
-      if (EPI == EPI_F32BIAS_LS_RES_H2) out2[idx] = __float2bfloat16(o);
-      if (EPI != EPI_F32BIAS) o = bf16r(__bfloat162float(res[idx]) + bf16r(o * ls[gn]));
-      out[idx] = __float2bfloat16(o);
-      continue;
+  } else {
+    // Consumers: warpgroup wg owns rows [64*wg, 64*wg + 64) of each tile.
+    if (WG > 1) asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    constexpr int R = TN / 2;  // accumulators a thread
+    float acc[R];
+    const int lane = threadIdx.x & 31, wq = (threadIdx.x >> 5) & 3;
+    const bool signal = (threadIdx.x & (WG_THREADS - 1)) == 0;
+    const uint32_t out_s = staging + wg * P::OUTS * P::OUT_BYTES, out2_s = out_s + P::OUT_BYTES;
+    int stage = 0;
+    uint32_t phase = 0;
+    for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+      const int m0 = t / tiles_n * P::TM, n0 = t % tiles_n * TN;
+#pragma unroll
+      for (int i = 0; i < R; ++i) acc[i] = 0.f;
+      int prev = -1;
+      for (int kt = 0; kt < ktiles; ++kt) {
+        mbar_wait(bars + 8 * stage, phase);
+        const uint32_t sa = base + stage * P::STAGE_BYTES + wg * 64 * 128;
+        const uint32_t sb = base + stage * P::STAGE_BYTES + P::A_BYTES;
+        // A: 8-row groups 1024 bytes apart, k16 steps 32 bytes along the
+        // swizzled row. W: N-major, 64-column blocks GK*128 bytes apart,
+        // 8-row (k) groups 1024 bytes apart, k16 steps two such groups.
+        const uint64_t da = sw128_desc(sa, 16, 1024);
+        const uint64_t db = sw128_desc(sb, GK * 128, 1024);
+        fence_acc<R>(acc);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < GK / 16; ++kk)
+          wgmma_tile<TN>(acc, da + static_cast<uint64_t>(2 * kk), db + static_cast<uint64_t>(128 * kk));
+        wgmma_commit();
+        fence_acc<R>(acc);
+        wgmma_wait<1>();  // the previous stage's products are done: release it
+        if (prev >= 0 && signal) mbar_arrive(bars + 8 * (GSTAGES + prev));
+        prev = stage;
+        if (++stage == GSTAGES) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+      wgmma_wait<0>();
+      fence_acc<R>(acc);
+      if (prev >= 0 && signal) mbar_arrive(bars + 8 * (GSTAGES + prev));
+      // Epilogue: accumulator i of this thread is row 16*wq + lane/4 +
+      // 8*((i/2)%2), column 8*(i/4) + 2*(lane%4) + i%2 of the warpgroup's
+      // 64 x TN slice. Its bf16 pairs go into the staging buffers in the
+      // tensor maps' 128-byte swizzle (16-byte chunk c of row r at chunk
+      // c ^ (r % 8): the warp's eight rows hit distinct banks), then one
+      // thread stores the slice by TMA, which overlaps the next tile's main
+      // loop. Direct 4-byte stores in this layout cost as much as the
+      // products at K = 384.
+      if (signal) asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+      warpgroup_sync(1 + wg);  // the previous tile's stores have read the buffers
+      const int row = wq * 16 + (lane >> 2);
+      const int col = n0 + 2 * (lane & 3);
+#pragma unroll
+      for (int j = 0; j < TN / 8; ++j) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int r = row + 8 * h, gm = m0 + wg * 64 + r;
+          uint32_t o, o2;
+          gemm_pair<EPI>(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1], gm < M,
+                         static_cast<size_t>(gm) * N + col + 8 * j, col + 8 * j, bias, ls, res,
+                         &o, &o2);
+          const uint32_t off = (j / 8) * 64 * 128 + r * 128 + (((j % 8) ^ (r % 8)) * 16) + (lane & 3) * 4;
+          st_shared(out_s + off, o);
+          if (TWO) st_shared(out2_s + off, o2);
+        }
+      }
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      warpgroup_sync(1 + wg);
+      if (signal) {
+#pragma unroll
+        for (int h = 0; h < TN / 64; ++h) {
+          tma_store(&tma_out, out_s + h * 64 * 128, n0 + 64 * h, m0 + wg * 64);
+          if (TWO) tma_store(&tma_out2, out2_s + h * 64 * 128, n0 + 64 * h, m0 + wg * 64);
+        }
+        asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+      }
     }
-    float o = bf16r(bf16r(Cs[r * LDC + c]) + bf16r(bias[gn]));
-    if (EPI == EPI_BIAS_GELU || EPI == EPI_BIAS_GELU_PAIR) {
-      const float gl = bf16r(o * 0.5f * (1.f + erff(o * 0.70710678118654752440f)));
-      if (EPI == EPI_BIAS_GELU_PAIR)
-        out2[idx] = __float2bfloat16(gl);
-      else
-        o = gl;
-    } else if (EPI == EPI_BIAS_LS_RES) {
-      const float rv = __bfloat162float(res[idx]);
-      o = bf16r(rv + bf16r(o * bf16r(ls[gn])));
-    }
-    out[idx] = __float2bfloat16(o);
+    if (signal) asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
   }
 }
 
@@ -530,9 +777,9 @@ __global__ void sum_rows_kernel(const float* __restrict__ part, int rows, long l
   }
 }
 
-// LayerNorm forward over whole rows, rounded to bf16: the arithmetic of
-// gemm_kernel's LN prologue, written out for the backward's weight-gradient
-// products. One warp per row.
+// LayerNorm forward over whole rows, rounded to bf16, that every chain's
+// first product reads (the arithmetic of the old WMMA GEMM's LayerNorm
+// prologue: lane-strided f32 sums, two-pass variance). One warp per row.
 __global__ void __launch_bounds__(ROW_THREADS)
 ln_rows_kernel(const bf16* __restrict__ x, const float* __restrict__ gamma,
                const float* __restrict__ beta, bf16* __restrict__ out, int M, int D,
@@ -1087,24 +1334,106 @@ attn_bwd_dkv_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ dctx,
   }
 }
 
-template <bool LN, int EPI>
-cudaError_t launch_gemm(const void* A, const void* W, const void* bias, const void* ls,
-                        const void* res, const void* gamma, const void* beta, void* out,
-                        int M, int N, int K, float eps, cudaStream_t stream,
-                        void* out2 = nullptr) {
-  const size_t smem = gemm_smem_bytes(LN, K);
-  cudaError_t err = cudaFuncSetAttribute(gemm_kernel<LN, EPI>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
-  dim3 grid(N / BN, (M + BM - 1) / BM);
-  gemm_kernel<LN, EPI><<<grid, GEMM_THREADS, smem, stream>>>(
-      static_cast<const bf16*>(A), static_cast<const bf16*>(W),
-      static_cast<const float*>(bias), static_cast<const float*>(ls),
-      static_cast<const bf16*>(res), static_cast<const float*>(gamma),
-      static_cast<const float*>(beta), static_cast<bf16*>(out), static_cast<bf16*>(out2), M, N,
-      K, eps);
+// cuTensorMapEncodeTiled through the runtime's driver entry point, so that
+// the library links without -lcuda (the runtime finds the driver it runs on).
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                       cudaEnableDefault, &found);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
+                                              &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiledFn>(p);
+  }
+  return fn;
+}
+
+// A row-major (outer, inner) bf16 matrix as TMA tiles of (box_outer,
+// box_inner) elements, 128-byte swizzled (box_inner = 64).
+bool encode_tiles(CUtensorMap* map, const void* base, int inner, int outer, int box_outer) {
+  EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(inner), static_cast<cuuint64_t>(outer)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(inner) * 2};
+  const cuuint32_t box[2] = {static_cast<cuuint32_t>(GK), static_cast<cuuint32_t>(box_outer)};
+  const cuuint32_t step[2] = {1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims, strides, box,
+            step, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+int sm_count() {
+  static int count[64] = {};
+  int dev = 0;
+  cudaGetDevice(&dev);
+  if (dev < 0 || dev >= 64) return 132;
+  if (count[dev] == 0) cudaDeviceGetAttribute(&count[dev], cudaDevAttrMultiProcessorCount, dev);
+  return count[dev] > 0 ? count[dev] : 132;
+}
+
+// The tile plan of an (M, N) product: 0 = 128 x 128 (two consumer
+// warpgroups) where those tiles fill the card; 1 = 64 x 128 where only 64-row
+// tiles do; 2 = 64 x 64 otherwise (the batch-1 products), or where N is not a
+// multiple of 128.
+int gemm_plan(int M, int N) {
+  const int sms = sm_count();
+  if (N % 128 == 0 && (M + 127) / 128 * (N / 128) >= sms) return 0;
+  if (N % 128 == 0 && (M + 63) / 64 * (N / 128) >= sms) return 1;
+  return 2;
+}
+
+template <int WG, int TN, int EPI>
+cudaError_t launch_gemm_plan(const void* A, const void* W, const void* bias, const void* ls,
+                             const void* res, void* out, void* out2, int M, int N, int K,
+                             cudaStream_t stream) {
+  using P = GemmPlan<WG, TN, EPI>;
+  CUtensorMap ta, tw, to, to2;
+  if (!encode_tiles(&ta, A, K, M, P::TM) || !encode_tiles(&tw, W, N, K, GK) ||
+      !encode_tiles(&to, out, N, M, 64) ||
+      !encode_tiles(&to2, two_outputs(EPI) ? out2 : out, N, M, 64))
+    return cudaErrorInvalidValue;
+  static bool sized = false;  // the same value from every thread that races here
+  if (!sized) {
+    cudaError_t err = cudaFuncSetAttribute(gemm_kernel<WG, TN, EPI>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           static_cast<int>(P::SMEM));
+    if (err != cudaSuccess) return err;
+    sized = true;
+  }
+  const int tiles = (M + P::TM - 1) / P::TM * (N / TN);
+  const int grid = tiles < sm_count() ? tiles : sm_count();
+  gemm_kernel<WG, TN, EPI><<<grid, P::THREADS, P::SMEM, stream>>>(
+      ta, tw, to, to2, static_cast<const float*>(bias), static_cast<const float*>(ls),
+      static_cast<const bf16*>(res), M, N, K);
   return cudaGetLastError();
+}
+
+// out = epilogue(A @ W) (and out2 for the paired epilogues), the plan by
+// gemm_plan. M any, N % 64 == 0, K % 32 == 0 (the wrappers check).
+template <int EPI>
+cudaError_t launch_gemm(const void* A, const void* W, const void* bias, const void* ls,
+                        const void* res, void* out, int M, int N, int K, cudaStream_t stream,
+                        void* out2 = nullptr) {
+  if (M <= 0) return cudaSuccess;
+  switch (gemm_plan(M, N)) {
+    case 0:
+      return launch_gemm_plan<2, 128, EPI>(A, W, bias, ls, res, out, out2, M, N, K, stream);
+    case 1:
+      return launch_gemm_plan<1, 128, EPI>(A, W, bias, ls, res, out, out2, M, N, K, stream);
+    default:
+      return launch_gemm_plan<1, 64, EPI>(A, W, bias, ls, res, out, out2, M, N, K, stream);
+  }
 }
 
 template <bool SCALE, int EPI>
@@ -1292,37 +1621,41 @@ cudaError_t launch_attention(const void* qkv, void* ctx, void* stats, int B, int
 // EPI_F32BIAS (o, streamed rounding) or EPI_NONE (a tensor-parallel shard's
 // partial o, no bias). D is the model width (x and out), Dl the width of
 // the heads this call computes (qkv (M, 3Dl) as [q|k|v], ctx (M, Dl), wo
-// (Dl, D)) and H their count: Dl = D on one device, D/tp on a shard.
+// (Dl, D)) and H their count: Dl = D on one device, D/tp on a shard. The
+// LayerNorm rows (M, D) go into out, the half's own output buffer, which
+// nothing reads until the out-projection overwrites it: each call (each
+// shard) normalises every row once, into a buffer of its own.
 template <int OUT_EPI>
 cudaError_t attn_half(const void* x, const void* g1, const void* b1, const void* wqkv,
                       const void* bqkv, const void* wo, const void* bo, const void* ls1,
                       void* qkv, void* ctx, void* out, int B, int S, int D, int Dl, int H,
                       float eps, cudaStream_t st) {
   const int M = B * S;
-  cudaError_t err = launch_gemm<true, EPI_BIAS>(x, wqkv, bqkv, nullptr, nullptr, g1, b1, qkv,
-                                                M, 3 * Dl, D, eps, st);
+  cudaError_t err = launch_ln_rows(x, g1, b1, out, M, D, eps, st);
+  if (err != cudaSuccess) return err;
+  err = launch_gemm<EPI_BIAS>(out, wqkv, bqkv, nullptr, nullptr, qkv, M, 3 * Dl, D, st);
   if (err != cudaSuccess) return err;
   err = launch_attention(qkv, ctx, nullptr, B, S, H, Dl / H, flash_forward(S, Dl / H), st);
   if (err != cudaSuccess) return err;
-  return launch_gemm<false, OUT_EPI>(ctx, wo, bo, ls1, x, nullptr, nullptr, out, M, D, Dl, eps,
-                                     st);
+  return launch_gemm<OUT_EPI>(ctx, wo, bo, ls1, x, out, M, D, Dl, st);
 }
 
 // The MLP half, its fc2 epilogue OUT_EPI: EPI_BIAS_LS_RES (resident rounding),
 // EPI_F32BIAS_LS_RES (streamed rounding), EPI_F32BIAS_LS_RES_H2 (streamed,
 // h2 written to the buffer h2) or EPI_NONE (a tensor-parallel shard's partial
 // fc2 product: hidden is the shard's 4D/tp, bf2, ls2 and x2's residual are
-// not read).
+// not read). The LayerNorm rows (M, D) go into y, the output buffer, which
+// fc2 overwrites once fc1 has read them.
 template <int OUT_EPI>
 cudaError_t mlp_half(const void* x2, const void* g2, const void* b2, const void* w1,
                      const void* bf1, const void* w2, const void* bf2, const void* ls2,
                      void* hbuf, void* y, int M, int D, int hidden, float eps,
                      cudaStream_t st, void* h2 = nullptr) {
-  cudaError_t err = launch_gemm<true, EPI_BIAS_GELU>(x2, w1, bf1, nullptr, nullptr, g2, b2,
-                                                     hbuf, M, hidden, D, eps, st);
+  cudaError_t err = launch_ln_rows(x2, g2, b2, y, M, D, eps, st);
   if (err != cudaSuccess) return err;
-  return launch_gemm<false, OUT_EPI>(hbuf, w2, bf2, ls2, x2, nullptr, nullptr, y, M, D, hidden,
-                                     eps, st, h2);
+  err = launch_gemm<EPI_BIAS_GELU>(y, w1, bf1, nullptr, nullptr, hbuf, M, hidden, D, st);
+  if (err != cudaSuccess) return err;
+  return launch_gemm<OUT_EPI>(hbuf, w2, bf2, ls2, x2, y, M, D, hidden, st, h2);
 }
 
 // The MLP half's backward with its weight gradients (dp_fused_mlp_bwd's
@@ -1339,12 +1672,10 @@ cudaError_t mlp_bwd(const void* x2, const void* dy, const void* g2, const void* 
                     int splits1, int splits2, float eps, cudaStream_t st) {
   cudaError_t err = launch_ln_rows(x2, g2, b2, m, M, D, eps, st);
   if (err != cudaSuccess) return err;
-  err = launch_gemm<false, EPI_BIAS_GELU_PAIR>(m, w1, bf1, nullptr, nullptr, nullptr, nullptr,
-                                               h1, M, hidden, D, eps, st, g);
+  err = launch_gemm<EPI_BIAS_GELU_PAIR>(m, w1, bf1, nullptr, nullptr, h1, M, hidden, D, st, g);
   if (err != cudaSuccess) return err;
   if (!SAVED_H2) {
-    err = launch_gemm<false, EPI_BIAS>(g, w2, bf2, nullptr, nullptr, nullptr, nullptr, h2, M, D,
-                                       hidden, eps, st);
+    err = launch_gemm<EPI_BIAS>(g, w2, bf2, nullptr, nullptr, h2, M, D, hidden, st);
     if (err != cudaSuccess) return err;
   }
   err = launch_gemm_nt<true, EPT_GELU_GRAD>(dy, w2, ls2, h1, dh1b, M, hidden, D, st,
@@ -1381,8 +1712,7 @@ cudaError_t attn_bwd(const void* x, const void* dres, const void* g1, const void
   const int M = B * S;
   cudaError_t err = launch_ln_rows(x, g1, b1, a, M, D, eps, st);
   if (err != cudaSuccess) return err;
-  err = launch_gemm<false, EPI_BIAS>(a, wqkv, bqkv, nullptr, nullptr, nullptr, nullptr, qkv, M,
-                                     3 * D, D, eps, st);
+  err = launch_gemm<EPI_BIAS>(a, wqkv, bqkv, nullptr, nullptr, qkv, M, 3 * D, D, st);
   if (err != cudaSuccess) return err;
   const bool flash = flash_backward(S, D / H);
   err = launch_attention(qkv, ctx, stats, B, S, H, D / H, flash, st);
@@ -1390,8 +1720,7 @@ cudaError_t attn_bwd(const void* x, const void* dres, const void* g1, const void
   if (STREAM) {
     err = launch_gemm_nt<false, EPT_BF16>(dres, wo, nullptr, nullptr, dctx, M, D, D, st);
   } else {
-    err = launch_gemm<false, EPI_BIAS>(ctx, wo, bo, nullptr, nullptr, nullptr, nullptr, o, M, D,
-                                       D, eps, st);
+    err = launch_gemm<EPI_BIAS>(ctx, wo, bo, nullptr, nullptr, o, M, D, D, st);
     if (err != cudaSuccess) return err;
     err = launch_gemm_nt<true, EPT_BF16>(dres, wo, ls1, nullptr, dctx, M, D, D, st);
   }
@@ -1425,8 +1754,11 @@ cudaError_t mlp_dx(const void* x2, const void* dy, const void* g2, const void* b
                    const void* w1, const void* bf1, const void* w2, const void* ls2, void* h1buf,
                    void* dh1b, void* dm, void* dx2, int M, int D, int hidden, float eps,
                    cudaStream_t st) {
-  cudaError_t err = launch_gemm<true, EPI_BIAS>(x2, w1, bf1, nullptr, nullptr, g2, b2, h1buf,
-                                                M, hidden, D, eps, st);
+  // The LayerNorm rows (bf16, M x D) go into dm's f32 buffer, which the
+  // last product overwrites once h1 is formed.
+  cudaError_t err = launch_ln_rows(x2, g2, b2, dm, M, D, eps, st);
+  if (err != cudaSuccess) return err;
+  err = launch_gemm<EPI_BIAS>(dm, w1, bf1, nullptr, nullptr, h1buf, M, hidden, D, st);
   if (err != cudaSuccess) return err;
   err = launch_gemm_nt<!PARTIAL, EPT_GELU_GRAD>(dy, w2, ls2, h1buf, dh1b, M, hidden, D, st);
   if (err != cudaSuccess) return err;
@@ -1445,9 +1777,49 @@ cudaError_t mlp_dx(const void* x2, const void* dy, const void* g2, const void* b
 
 extern "C" {
 
-// Shared-memory bytes the kernels ask for, so the wrapper can refuse shapes
-// the card cannot hold before launching.
-long long dp_gemm_smem_bytes(int ln, int K) { return (long long)gemm_smem_bytes(ln != 0, K); }
+// The GEMM's tile plan for an (M, N) product (gemm_plan): 0 = 128 x 128,
+// 1 = 64 x 128, 2 = 64 x 64.
+int dp_gemm_plan(int M, int N) { return gemm_plan(M, N); }
+
+// The chains' GEMM alone: out = epilogue(A @ W) with Epilogue mode epi.
+int dp_gemm(const void* A, const void* W, const void* bias, const void* ls, const void* res,
+            void* out, void* out2, int M, int N, int K, int epi, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  switch (epi) {
+#define DP_GEMM_CASE(E)                                                                      \
+  case E:                                                                                    \
+    err = launch_gemm<E>(A, W, bias, ls, res, out, M, N, K, st, out2);                        \
+    break;
+    DP_GEMM_CASE(EPI_BIAS)
+    DP_GEMM_CASE(EPI_BIAS_GELU)
+    DP_GEMM_CASE(EPI_BIAS_LS_RES)
+    DP_GEMM_CASE(EPI_BIAS_GELU_PAIR)
+    DP_GEMM_CASE(EPI_F32BIAS)
+    DP_GEMM_CASE(EPI_F32BIAS_LS_RES)
+    DP_GEMM_CASE(EPI_F32BIAS_LS_RES_H2)
+    DP_GEMM_CASE(EPI_NONE)
+#undef DP_GEMM_CASE
+    default:
+      err = cudaErrorInvalidValue;
+  }
+  return static_cast<int>(err);
+}
+
+// The chains' LayerNorm rows alone: out (M, D) bf16 = LN(x) rounded once.
+int dp_ln_rows(const void* x, const void* gamma, const void* beta, void* out, int M, int D,
+               float eps, void* stream) {
+  return static_cast<int>(
+      launch_ln_rows(x, gamma, beta, out, M, D, eps, static_cast<cudaStream_t>(stream)));
+}
+
+// The chains' attention step alone on a packed qkv (B, S, 3*H*dh): the
+// streamed kernel (flash != 0) or the resident one.
+int dp_packed_attention(const void* qkv, void* ctx, int B, int S, int H, int dh, int flash,
+                        void* stream) {
+  return static_cast<int>(launch_attention(qkv, ctx, nullptr, B, S, H, dh, flash != 0,
+                                           static_cast<cudaStream_t>(stream)));
+}
 // 1 when the chains' attention forward (backward) at (S, dh) takes the
 // streamed kernels of flash_kernels.cu, 0 when the resident ones.
 int dp_flash_forward(int S, int dh) { return flash_forward(S, dh) ? 1 : 0; }

@@ -1535,3 +1535,117 @@ def test_layernorm_backward_and_refusals(cuda_device):
                                   torch.zeros(8192, device=cuda_device), EPS)
     with pytest.raises(TypeError, match="bf16 or f32"):
         layernorm.fused_layernorm(x.half(), scale, bias, EPS)
+
+
+# The chains' GEMM alone (block.fused_gemm, wgmma fed by TMA): (M, K, N) at
+# dinov2-small's qkv at batch 1 (the 64 x 64 plan), a ragged M = 2*57 at
+# N = 576 (N % 128 != 0: 64 x 64), dinov2-large's tp = 4 out-projection at
+# batch 128 (K = 256, 128 x 128), dinov2-small's fc1 at 128 (128 x 128), a
+# batch-8 product of dinov2-base's width (64 x 128), dinov2-large's fc1 at
+# batch 1, and K = 96 (a K tail of 32: test/vit-tiny's shard depth, widened).
+GEMM_CASES = [(257, 384, 1152), (114, 768, 576), (128 * 257, 256, 1024), (128 * 257, 384, 1536),
+              (8 * 257, 768, 768), (257, 1024, 4096), (114, 96, 128)]
+
+
+def _gemm_operands(device, m, k, n, seed=3):
+    rng = np.random.default_rng(seed)
+
+    def t(*shape, std=1.0, dtype=torch.bfloat16):
+        return torch.from_numpy((rng.standard_normal(shape) * std).astype(np.float32)).to(
+            device, dtype)
+
+    return (t(m, k), t(k, n, std=k**-0.5),
+            {"bias": t(n, std=0.05, dtype=torch.float32),
+             "ls": torch.from_numpy(rng.uniform(0.1, 1, n).astype(np.float32)).to(device),
+             "res": t(m, n)})
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", GEMM_CASES, ids=lambda s: "M{}-K{}-N{}".format(*s))
+@pytest.mark.parametrize("epi", block.EPILOGUES)
+def test_gemm_matches_plain(cuda_device, epi, shape):
+    """fused_gemm against gemm_math for every epilogue: elementwise at 3e-2
+    abs/rel and within 3e-3 in relative Frobenius norm (one-ulp flips from
+    the f32 summation order; a wrong tile or a dropped K tail moves the
+    whole tensor), and two runs give the same bits (no split K)."""
+    m, k, n = shape
+    a, w, kw = _gemm_operands(cuda_device, m, k, n)
+    block.reset_launches()
+    got = block.fused_gemm(a, w, epi, **kw)
+    again = block.fused_gemm(a, w, epi, **kw)
+    want = block.gemm_math(a, w, epi, **kw)
+    torch.cuda.synchronize()
+    assert block.LAUNCHES["fused_gemm"] == 2
+    got, again, want = ((t,) if torch.is_tensor(t) else t for t in (got, again, want))
+    assert len(got) == len(want) == (2 if epi in block.PAIRED else 1)
+    for g, h, r in zip(got, again, want):
+        assert torch.equal(g, h)
+        g, r = g.float(), r.float()
+        torch.testing.assert_close(g, r, atol=3e-2, rtol=3e-2)
+        assert ((g - r).norm() / r.norm()).item() <= 3e-3
+
+
+@pytest.mark.cuda
+def test_gemm_reaches_every_tile_plan(cuda_device):
+    """The plan by block count on the card's SMs: 128 x 128 where those
+    tiles fill the card, 64 x 128 where only 64-row ones do, 64 x 64 at
+    batch 1 and where N % 128 != 0; GEMM_CASES reach all three."""
+    plans = {block._ext.lib().dp_gemm_plan(m, n) for m, _, n in GEMM_CASES}
+    assert plans == {0, 1, 2}
+    assert block._ext.lib().dp_gemm_plan(128 * 257, 576) == 2
+
+
+@pytest.mark.cuda
+def test_gemm_refuses_what_it_does_not_take(cuda_device):
+    a, w, kw = _gemm_operands(cuda_device, 64, 128, 128)
+    with pytest.raises(ValueError, match="multiple of 64"):
+        block.fused_gemm(a, w[:, :96].contiguous(), "none")
+    with pytest.raises(ValueError, match="needs bias"):
+        block.fused_gemm(a, w, "bias")
+    with pytest.raises(TypeError, match="bf16"):
+        block.fused_gemm(a.float(), w, "none")
+    with pytest.raises(ValueError, match="unknown epilogue"):
+        block.fused_gemm(a, w, "gelu")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [384, 768, 1024])
+def test_ln_rows_matches_plain_rounding(cuda_device, d):
+    """The chains' LayerNorm rows (what every first product reads) against
+    the plain LayerNorm's one bf16 rounding: the statistics are summed in
+    another order and rsqrtf is not 1/sqrt to the last bit, so a value on a
+    bf16 rounding boundary may round the other way; every element within
+    one ulp of the larger magnitude plus 1e-5 (an output near zero is the
+    difference of terms near one, test_layernorm_kernel_matches_plain's
+    bound), and at least 99.9% with the same bits."""
+    rng = np.random.default_rng(d)
+    x = torch.from_numpy((rng.standard_normal((128 * 257, d)) * 3 + 1).astype(np.float32))
+    x = x.to(cuda_device, torch.bfloat16)
+    g = torch.from_numpy(rng.uniform(0.5, 1.5, d).astype(np.float32)).to(cuda_device)
+    b = torch.from_numpy((rng.standard_normal(d) * 0.1).astype(np.float32)).to(cuda_device)
+    block.reset_launches()
+    got = block.ln_rows(x, g, b, EPS)
+    want = block._ln_fwd(x, g, b, EPS)[0]
+    torch.cuda.synchronize()
+    assert block.LAUNCHES["ln_rows"] == 1
+    gf, wf = got.float(), want.float()
+    mag = torch.maximum(gf.abs(), wf.abs()).clamp_min(1e-30)
+    assert bool(((gf - wf).abs() <= torch.exp2(torch.floor(torch.log2(mag)) - 7) + 1e-5).all())
+    assert (got != want).float().mean().item() <= 1e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("heads", [6, 12, 16])
+@pytest.mark.parametrize("streamed", [False, True])
+def test_packed_attention_matches_plain(cuda_device, streamed, heads):
+    """The chains' attention step at S = 257 on a packed qkv, each kernel
+    (resident and streamed) at chip_smoke.py's attention tolerance."""
+    rng = np.random.default_rng(heads)
+    qkv = torch.from_numpy(rng.standard_normal((2, 257, 3 * heads * 64)).astype(np.float32))
+    qkv = qkv.to(cuda_device, torch.bfloat16)
+    got = block.packed_attention(qkv, heads, streamed=streamed).float()
+    want = block._heads_attention(qkv, heads).float()
+    torch.cuda.synchronize()
+    err = (got - want).abs()
+    assert bool((err <= 4e-3 + 2e-2 * want.abs()).all())
+    assert ((got - want).norm() / want.norm()).item() <= 5e-4
