@@ -1,5 +1,7 @@
 """Chip smoke test of the PyTorch/H100 port: build the CUDA kernels, hold each
-against its plain PyTorch version, serve dinov2-small + LoRA pose requests
+against its plain PyTorch version (first the chains' three GEMM kernels
+alone, forward, dx and weight-gradient products, at every dinov2 product
+shape, timed beside torch.matmul), serve dinov2-small + LoRA pose requests
 through the kernels, take dinov2-small fine-tuning steps at batch 128 through
 them (LoRA, and unfreeze-last-4 with whole blocks training), all at 224²;
 then the long-sequence paths at 504² (S = 1297), where every layer streams
@@ -397,6 +399,159 @@ OLD_GEMM = {
                             (0.8058, 0.7922, 43.5), (0.0460, 0.0435, 25.0)),
     "dinov2-large tp4 fc2": ((0.0438, 0.0413, 25.6), (0.0575, 0.0501, 48.9),
                             (0.8017, 0.7902, 24.7), (0.0450, 0.0423, 25.3)),
+}
+# The chains' backward products alone (phase_gemm_bwd, ops/block.fused_gemm_nt
+# and fused_gemm_tn): every backward product shape the driven paths run, per
+# model (D, MLP width, tp): gemm_nt dh1b (K = D, N = 4D/tp, *gelu'(h1)), dm
+# (K = 4D/tp, N = D, f32), dctx (K = N = D, bf16), da (K = 3D, N = D, f32);
+# gemm_tn dW1 (K_in = D, N = 4D), dW2 (K_in = 4D, N = D), dWqkv with dbqkv's
+# column sums (K_in = D, N = 3D), dWo (K_in = N = D). A shard's dx chain
+# (#22) runs only dh1b and dm. Each product is checked in every form its
+# chains give it (the scaled cotangent, the column sums) and timed in the
+# first form listed (no scale) at GEMM_ROWS, dinov2-small also at the 504²
+# step's 32*1297 rows.
+GEMM_BWD_MODELS = {"dinov2-small": (384, 1536, 1), "dinov2-base": (768, 3072, 1),
+                   "dinov2-large": (1024, 4096, 1), "dinov2-base tp2": (768, 3072, 2),
+                   "dinov2-large tp2": (1024, 4096, 2)}
+# Per product: (kind, K or K_in, N) from (D, MLP width / tp) and its forms.
+GEMM_BWD_PRODUCTS = {
+    "dh1b": ("nt", lambda d, h: (d, h), ({"epi": "gelu_grad", "colsum": True},
+                                         {"epi": "gelu_grad", "colsum": True, "scale": True},
+                                         {"epi": "gelu_grad", "scale": True})),
+    "dm": ("nt", lambda d, h: (h, d), ({"epi": "f32"},)),
+    "dctx": ("nt", lambda d, h: (d, d), ({"epi": "bf16"}, {"epi": "bf16", "scale": True})),
+    "da": ("nt", lambda d, h: (3 * d, d), ({"epi": "f32"},)),
+    "dW1": ("tn", lambda d, h: (d, h), ({},)),
+    "dW2": ("tn", lambda d, h: (h, d), ({}, {"scale": True})),
+    "dWqkv": ("tn", lambda d, h: (d, 3 * d), ({"gsum": True},)),
+    "dWo": ("tn", lambda d, h: (d, d), ({}, {"scale": True})),
+}
+GEMM_BWD_SHARD = (({"epi": "gelu_grad"},), ({"epi": "f32"},))
+# The replaced WMMA gemm_nt_kernel's and gemm_tn_kernel's three clocks (ms,
+# device ms, host us) in each product's timed form, by "<model> <product>
+# M=<rows>", measured by this script on an H100 80GB HBM3 at 700.00 W before
+# the wgmma kernels took their place; printed beside the new kernels'.
+OLD_GEMM_BWD = {
+    "dinov2-small dh1b M=257": (0.0458, 0.0258, 39.6),
+    "dinov2-small dh1b M=2056": (0.0410, 0.0375, 29.8),
+    "dinov2-small dh1b M=32896": (0.7036, 0.6854, 52.2),
+    "dinov2-small dh1b M=114": (0.0342, 0.0257, 31.2),
+    "dinov2-small dh1b M=41504": (0.8717, 0.8589, 30.8),
+    "dinov2-small dm M=257": (0.0636, 0.0615, 28.0),
+    "dinov2-small dm M=2056": (0.0679, 0.0658, 17.6),
+    "dinov2-small dm M=32896": (0.4678, 0.4575, 26.8),
+    "dinov2-small dm M=114": (0.0622, 0.0612, 20.1),
+    "dinov2-small dm M=41504": (0.5859, 0.5768, 19.3),
+    "dinov2-small dctx M=257": (0.0195, 0.0181, 17.2),
+    "dinov2-small dctx M=2056": (0.0269, 0.0190, 21.4),
+    "dinov2-small dctx M=32896": (0.1164, 0.1122, 18.0),
+    "dinov2-small dctx M=114": (0.0192, 0.0174, 17.5),
+    "dinov2-small dctx M=41504": (0.1439, 0.1399, 28.6),
+    "dinov2-small da M=257": (0.0490, 0.0462, 30.1),
+    "dinov2-small da M=2056": (0.0513, 0.0495, 17.6),
+    "dinov2-small da M=32896": (0.3516, 0.3453, 17.8),
+    "dinov2-small da M=114": (0.0485, 0.0466, 17.4),
+    "dinov2-small da M=41504": (0.4430, 0.4397, 25.1),
+    "dinov2-small dW1 M=257": (0.0356, 0.0137, 34.7),
+    "dinov2-small dW1 M=2056": (0.0403, 0.0362, 36.7),
+    "dinov2-small dW1 M=32896": (0.5985, 0.5948, 24.8),
+    "dinov2-small dW1 M=114": (0.0341, 0.0108, 33.6),
+    "dinov2-small dW1 M=41504": (0.7555, 0.7385, 23.8),
+    "dinov2-small dW2 M=257": (0.0287, 0.0137, 28.7),
+    "dinov2-small dW2 M=2056": (0.0403, 0.0360, 23.5),
+    "dinov2-small dW2 M=32896": (0.6139, 0.6066, 29.8),
+    "dinov2-small dW2 M=114": (0.0254, 0.0107, 24.3),
+    "dinov2-small dW2 M=41504": (0.7713, 0.7599, 49.4),
+    "dinov2-small dWqkv M=257": (0.0528, 0.0139, 53.3),
+    "dinov2-small dWqkv M=2056": (0.0371, 0.0325, 35.6),
+    "dinov2-small dWqkv M=32896": (0.4826, 0.4748, 33.6),
+    "dinov2-small dWqkv M=114": (0.0420, 0.0109, 38.2),
+    "dinov2-small dWqkv M=41504": (0.6096, 0.5950, 39.3),
+    "dinov2-small dWo M=257": (0.0276, 0.0104, 26.6),
+    "dinov2-small dWo M=2056": (0.0383, 0.0173, 38.8),
+    "dinov2-small dWo M=32896": (0.1817, 0.1757, 31.9),
+    "dinov2-small dWo M=114": (0.0231, 0.0085, 23.3),
+    "dinov2-small dWo M=41504": (0.2279, 0.2145, 46.6),
+    "dinov2-base dh1b M=257": (0.0491, 0.0422, 46.7),
+    "dinov2-base dh1b M=2056": (0.1308, 0.1273, 28.4),
+    "dinov2-base dh1b M=32896": (2.0056, 1.9729, 29.8),
+    "dinov2-base dh1b M=114": (0.0433, 0.0399, 27.8),
+    "dinov2-base dm M=257": (0.1175, 0.1157, 18.1),
+    "dinov2-base dm M=2056": (0.1644, 0.1369, 28.3),
+    "dinov2-base dm M=32896": (1.6836, 1.6526, 25.4),
+    "dinov2-base dm M=114": (0.1223, 0.1235, 19.7),
+    "dinov2-base dctx M=257": (0.0336, 0.0312, 28.6),
+    "dinov2-base dctx M=2056": (0.0398, 0.0380, 20.4),
+    "dinov2-base dctx M=32896": (0.3633, 0.3600, 17.2),
+    "dinov2-base dctx M=114": (0.0336, 0.0315, 23.9),
+    "dinov2-base da M=257": (0.0890, 0.0868, 24.8),
+    "dinov2-base da M=2056": (0.1070, 0.1044, 25.2),
+    "dinov2-base da M=32896": (1.2565, 1.2342, 17.6),
+    "dinov2-base da M=114": (0.0912, 0.0886, 16.9),
+    "dinov2-base dW1 M=257": (0.0301, 0.0245, 23.5),
+    "dinov2-base dW1 M=2056": (0.1757, 0.1703, 23.1),
+    "dinov2-base dW1 M=32896": (2.6028, 2.5373, 27.6),
+    "dinov2-base dW1 M=114": (0.0257, 0.0165, 22.9),
+    "dinov2-base dW2 M=257": (0.0281, 0.0254, 23.5),
+    "dinov2-base dW2 M=2056": (0.1630, 0.1626, 30.4),
+    "dinov2-base dW2 M=32896": (2.6328, 2.5805, 44.3),
+    "dinov2-base dW2 M=114": (0.0239, 0.0175, 22.6),
+    "dinov2-base dWqkv M=257": (0.0342, 0.0261, 32.0),
+    "dinov2-base dWqkv M=2056": (0.1506, 0.1430, 46.9),
+    "dinov2-base dWqkv M=32896": (2.4328, 2.3944, 33.4),
+    "dinov2-base dWqkv M=114": (0.0826, 0.0158, 84.6),
+    "dinov2-base dWo M=257": (0.0371, 0.0138, 36.0),
+    "dinov2-base dWo M=2056": (0.0437, 0.0359, 41.4),
+    "dinov2-base dWo M=32896": (0.6117, 0.5974, 23.6),
+    "dinov2-base dWo M=114": (0.0241, 0.0108, 23.2),
+    "dinov2-large dh1b M=257": (0.0573, 0.0537, 41.7),
+    "dinov2-large dh1b M=2056": (0.2407, 0.2372, 27.8),
+    "dinov2-large dh1b M=32896": (3.2092, 3.1879, 34.9),
+    "dinov2-large dh1b M=114": (0.0523, 0.0491, 28.3),
+    "dinov2-large dm M=257": (0.1552, 0.1527, 19.1),
+    "dinov2-large dm M=2056": (0.2457, 0.2376, 28.7),
+    "dinov2-large dm M=32896": (2.8332, 2.8213, 20.2),
+    "dinov2-large dm M=114": (0.1644, 0.1596, 18.4),
+    "dinov2-large dctx M=257": (0.0425, 0.0404, 19.0),
+    "dinov2-large dctx M=2056": (0.0538, 0.0518, 19.7),
+    "dinov2-large dctx M=32896": (0.6105, 0.6024, 18.5),
+    "dinov2-large dctx M=114": (0.0441, 0.0425, 28.5),
+    "dinov2-large da M=257": (0.1180, 0.1154, 26.2),
+    "dinov2-large da M=2056": (0.1799, 0.1763, 27.6),
+    "dinov2-large da M=32896": (2.1789, 2.1414, 21.6),
+    "dinov2-large da M=114": (0.1240, 0.1220, 21.1),
+    "dinov2-large dW1 M=257": (0.0446, 0.0412, 26.9),
+    "dinov2-large dW1 M=2056": (0.1945, 0.1909, 26.2),
+    "dinov2-large dW1 M=32896": (2.7545, 2.7258, 44.9),
+    "dinov2-large dW1 M=114": (0.0313, 0.0281, 28.8),
+    "dinov2-large dW2 M=257": (0.0441, 0.0403, 43.7),
+    "dinov2-large dW2 M=2056": (0.1982, 0.1938, 30.0),
+    "dinov2-large dW2 M=32896": (2.7490, 2.7119, 53.0),
+    "dinov2-large dW2 M=114": (0.0312, 0.0281, 27.3),
+    "dinov2-large dWqkv M=257": (0.0602, 0.0312, 58.7),
+    "dinov2-large dWqkv M=2056": (0.1894, 0.1806, 49.6),
+    "dinov2-large dWqkv M=32896": (2.6446, 2.5969, 41.3),
+    "dinov2-large dWqkv M=114": (0.0609, 0.0217, 55.4),
+    "dinov2-large dWo M=257": (0.0271, 0.0162, 37.7),
+    "dinov2-large dWo M=2056": (0.0534, 0.0500, 35.0),
+    "dinov2-large dWo M=32896": (0.8443, 0.8186, 24.5),
+    "dinov2-large dWo M=114": (0.0373, 0.0125, 36.7),
+    "dinov2-base tp2 dh1b M=257": (0.0395, 0.0378, 18.0),
+    "dinov2-base tp2 dh1b M=2056": (0.0582, 0.0560, 21.3),
+    "dinov2-base tp2 dh1b M=32896": (1.0182, 1.0045, 35.3),
+    "dinov2-base tp2 dh1b M=114": (0.0406, 0.0381, 17.8),
+    "dinov2-base tp2 dm M=257": (0.0612, 0.0593, 19.1),
+    "dinov2-base tp2 dm M=2056": (0.0727, 0.0710, 17.9),
+    "dinov2-base tp2 dm M=32896": (0.7937, 0.7833, 17.7),
+    "dinov2-base tp2 dm M=114": (0.0620, 0.0617, 30.3),
+    "dinov2-large tp2 dh1b M=257": (0.0501, 0.0479, 18.8),
+    "dinov2-large tp2 dh1b M=2056": (0.1196, 0.1194, 18.0),
+    "dinov2-large tp2 dh1b M=32896": (1.6277, 1.6118, 18.9),
+    "dinov2-large tp2 dh1b M=114": (0.0490, 0.0465, 26.8),
+    "dinov2-large tp2 dm M=257": (0.0793, 0.0772, 20.2),
+    "dinov2-large tp2 dm M=2056": (0.1023, 0.0984, 38.0),
+    "dinov2-large tp2 dm M=32896": (1.4023, 1.3842, 21.0),
+    "dinov2-large tp2 dm M=114": (0.0842, 0.0812, 31.1),
 }
 # Per JSON row: the TPU kernel it replaces, its source, the batch its
 # numbers were taken at, the path whose launches "launches" reports and the
@@ -2204,6 +2359,141 @@ def phase_gemm(results: dict) -> dict:
     return out
 
 
+def gemm_bwd_shapes() -> list:
+    """(label, kind, K or K_in, N, forms, rows) of every backward product in
+    GEMM_BWD_MODELS."""
+    shapes = []
+    for model, (d, hidden, tp) in GEMM_BWD_MODELS.items():
+        rows = GEMM_ROWS + ((LONG_BATCH * S_LONG,) if model == "dinov2-small" else ())
+        for i, (prod, (kind, kn, forms)) in enumerate(GEMM_BWD_PRODUCTS.items()):
+            if tp > 1 and prod not in ("dh1b", "dm"):
+                continue
+            forms = GEMM_BWD_SHARD[i] if tp > 1 else forms
+            shapes.append((f"{model} {prod}", kind, *kn(d, hidden // tp), forms, rows))
+    return shapes
+
+
+def check_sums(got: torch.Tensor, want: torch.Tensor, label: str) -> float:
+    """An f32 sum over every row (a weight gradient, column sums) against the
+    plain version's: elementwise within GRAD_TOL of its largest magnitude
+    (the same bf16 terms, added in another order). Returns the largest
+    error over that magnitude."""
+    err = (got - want).abs().max().item() / want.abs().max().clamp_min(1e-30).item()
+    if not (bool(torch.isfinite(got).all()) and err <= GRAD_TOL):
+        raise AssertionError(f"{label} disagrees with its plain version: max_abs/max|ref| = "
+                             f"{err:.4g} (tol {GRAD_TOL})")
+    return err
+
+
+def phase_gemm_bwd(results: dict) -> dict:
+    """The chains' backward products alone (fused_gemm_nt, fused_gemm_tn)
+    against gemm_nt_math / gemm_tn_math at every product, form and M of
+    gemm_bwd_shapes(), twice with the same bits; bf16 and f32 outputs as
+    check_gemm, the f32 sums (dW, column sums) as check_sums. Then the timed
+    form's three clocks beside torch.matmul's on the same bf16 operands
+    (a @ w^T, a^T @ g; cuBLAS rounds its output to bf16, else the same
+    product), the bare product's where the timed form does more (the GELU
+    gradient, column sums), and the old kernels' (OLD_GEMM_BWD), TFLOP/s on
+    2*M*N*K at the device clock and the bound (gemm_nt_cost, gemm_tn_cost).
+    Returns the times by label."""
+    from dino_pose_tpu_torch.ops import block as B
+
+    gen = torch.Generator().manual_seed(SEED + 19)
+    saved = dict(B.LAUNCHES)
+    reduced = torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    out: dict = {}
+    worst = {"fused_gemm_nt": 0.0, "fused_gemm_tn": 0.0}
+    for label, kind, k, n, forms, rows in gemm_bwd_shapes():
+        name = f"fused_gemm_{kind}"
+        # nt: w (N, K), the forward weight read transposed; tn: the scale
+        # multiplies g's N columns.
+        w = (torch.randn((n, k), generator=gen) * k**-0.5).to("cuda", torch.bfloat16)
+        scale = (torch.rand(k if kind == "nt" else n, generator=gen) * 0.9 + 0.1).cuda()
+        for m in rows:
+            a = torch.randn((m, k), generator=gen).to("cuda", torch.bfloat16)
+            other = (torch.randn((m, n), generator=gen) * 2).to("cuda", torch.bfloat16)
+            for form in forms:
+                sc = scale if form.get("scale") else None
+                if kind == "nt":
+                    args = (a, w, form["epi"])
+                    kw = {"scale": sc, "aux": other, "colsum": form.get("colsum", False)}
+                    kern, plain = B.fused_gemm_nt, B.gemm_nt_math
+                else:
+                    args, kw = (a, other), {"scale": sc, "gsum": form.get("gsum", False)}
+                    kern, plain = B.fused_gemm_tn, B.gemm_tn_math
+                with torch.inference_mode():
+                    got = outputs(kern(*args, **kw))
+                    again = outputs(kern(*args, **kw))
+                    want = outputs(plain(*args, **kw))
+                torch.cuda.synchronize()
+                what = f"{name} {label} M={m} {form}"
+                if not all(torch.equal(g, h) for g, h in zip(got, again)):
+                    raise AssertionError(f"{what}: two runs differ")
+                for i, (g, h) in enumerate(zip(got, want)):
+                    check = check_gemm if kind == "nt" and i == 0 else check_sums
+                    worst[name] = max(worst[name], check(g, h, f"{what} output {i}"))
+                del got, again, want
+            log(f"kernel {name} {label} M={m} K={k} N={n} ({len(forms)} forms): ok, same bits "
+                "twice")
+            timed = forms[0]
+            if kind == "nt":
+                flops, nbytes = B.gemm_nt_cost(m, n, k, timed["epi"], timed.get("colsum", False))
+
+                def kfn():
+                    return B.fused_gemm_nt(a, w, timed["epi"], aux=other,
+                                           colsum=timed.get("colsum", False))
+
+                def lfn():
+                    return torch.matmul(a, w.t())
+            else:
+                flops, nbytes = B.gemm_tn_cost(m, k, n, timed.get("gsum", False))
+
+                def kfn():
+                    return B.fused_gemm_tn(a, other, gsum=timed.get("gsum", False))
+
+                def lfn():
+                    return torch.matmul(a.t(), other)
+            bound, by = B.bound_ms(flops, nbytes)
+            iters = 10 if m > 8 * S else 20
+            with torch.inference_mode():
+                kt = clocks(kfn, iters=iters)
+                lt = clocks(lfn, iters=iters)
+                # Where the chains' form does more than the bare product
+                # (the GELU gradient, column sums), the bare one too: what
+                # torch.matmul computes.
+                bare = None
+                if timed.get("epi") == "gelu_grad" or timed.get("gsum"):
+                    bare = clocks((lambda: B.fused_gemm_nt(a, w, "bf16")) if kind == "nt"
+                                  else (lambda: B.fused_gemm_tn(a, other)), iters=iters)
+            key = f"{label} M={m}"
+            old = OLD_GEMM_BWD.get(key)
+            t = {"M": m, "K": k, "N": n, "form": timed, **kt,
+                 **{f"library_{x}": v for x, v in lt.items()},
+                 **({f"bare_{x}": v for x, v in bare.items()} if bare else {}),
+                 "tflops": flops / kt["device_ms"] / 1e9,
+                 "library_tflops": flops / lt["device_ms"] / 1e9, "bound_ms": bound,
+                 "bound_by": by}
+            if old:
+                t.update(old_ms=old[0], old_device_ms=old[1], old_host_us=old[2])
+            out[key] = t
+            old_text = "" if old is None else \
+                f", old kernel {old[0]:.4f} ms, device {old[1]:.4f} ms, host {old[2]:.1f} us/call"
+            bare_text = "" if bare is None else \
+                f", bare product {clocks_text(bare)} ({flops / bare['device_ms'] / 1e9:.1f} TFLOP/s)"
+            log(f"time {name} {key} K={k} N={n} {timed}: kernel {clocks_text(kt)} "
+                f"({t['tflops']:.1f} TFLOP/s), torch.matmul {clocks_text(lt)} "
+                f"({t['library_tflops']:.1f} TFLOP/s){bare_text}{old_text}, bound {bound:.5f} ms "
+                f"({by})")
+            del a, other
+        del w
+    for name, err in worst.items():
+        results.setdefault(name, {"max_abs_err": 0.0})["max_abs_err"] = err
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = reduced
+    B.LAUNCHES.update(saved)
+    return out
+
+
 def phase_attention_route(results: dict) -> dict:
     """The chains' attention step at S = 257 on a packed qkv (packed_attention):
     the resident attention_kernel against the streamed flash_fwd_kernel at
@@ -2316,7 +2606,7 @@ def profile_forward(model, image_size: int = 224) -> None:
             for _ in range(5):
                 model(x)
             torch.cuda.synchronize()
-    log(prof.key_averages().table(sort_by="cuda_time_total", row_limit=25))
+    log(prof.key_averages().table(sort_by="cuda_time_total", row_limit=40))
 
 
 def profile_train_step(step, state, batch) -> None:
@@ -2333,7 +2623,7 @@ def profile_train_step(step, state, batch) -> None:
             state, _ = step(state, batch, LR, SEED)
         torch.cuda.synchronize()
     B.LAUNCHES.update(saved)
-    log(prof.key_averages().table(sort_by="cuda_time_total", row_limit=25))
+    log(prof.key_averages().table(sort_by="cuda_time_total", row_limit=40))
 
 
 def main() -> int:
@@ -2345,7 +2635,8 @@ def main() -> int:
                          "unfreeze (batch 32); of the fastvit_t8 + LoRA batch-1 forward "
                          "and its LoRA train step (batch 128); of the dinov2-large + "
                          "LoRA batch-1 forward and its LoRA train step (batch 128); of "
-                         "the dinov2-large unfreeze-last-4 train step (batch 128); of "
+                         "the dinov2-large and dinov2-base unfreeze-last-4 train steps "
+                         "(batch 128); of "
                          "the fastvit_t8 + LoRA train step with both opt-in arms (batch 128); "
                          "of the dinov2-base + LoRA tp=2 batch-1 forward and its LoRA step; "
                          "and of the dinov2-small + LoRA step with the gated LayerNorm")
@@ -2391,6 +2682,7 @@ def main() -> int:
     serving_ln: dict = {}
     lora_ln: dict = {}
     gemm_times = phase_gemm(results)
+    gemm_bwd_times = phase_gemm_bwd(results)
     route_times = phase_attention_route(results)
     phase_kernels(results)
     phase_mlp_dx(results)
@@ -2479,9 +2771,10 @@ def main() -> int:
         steps=WIDE_STEPS, timed=WIDE_TIMED, grad_batches=WIDE_GRAD_BATCHES)
     phase_backbone_grads(unfreeze_large, "dinov2_large_unfreeze", LARGE_UNFREEZE_CONFIG,
                          TRAIN_BATCH, 224)
-    phase_train(results, unfreeze_base, "dinov2_base_unfreeze", BASE_UNFREEZE_CONFIG,
-                BASE_UNFREEZE_LAUNCHES, unfreeze_grad_names(11), BASE_UNFREEZE_RECORDED,
-                steps=WIDE_STEPS, timed=WIDE_TIMED, grad_batches=WIDE_GRAD_BATCHES)
+    base_unfreeze_run = phase_train(
+        results, unfreeze_base, "dinov2_base_unfreeze", BASE_UNFREEZE_CONFIG,
+        BASE_UNFREEZE_LAUNCHES, unfreeze_grad_names(11), BASE_UNFREEZE_RECORDED,
+        steps=WIDE_STEPS, timed=WIDE_TIMED, grad_batches=WIDE_GRAD_BATCHES)
     phase_backbone_grads(unfreeze_base, "dinov2_base_unfreeze", BASE_UNFREEZE_CONFIG,
                          TRAIN_BATCH, 224)
     dw_times = phase_dwconv(results)
@@ -2522,6 +2815,7 @@ def main() -> int:
         profile_forward(model_large)
         profile_train_step(*large_run)
         profile_train_step(*large_unfreeze_run)
+        profile_train_step(*base_unfreeze_run)
         with gates(ARMS):
             profile_train_step(*pair_run)
         with dispatch.scoped():
@@ -2558,6 +2852,7 @@ def main() -> int:
     log("tp_times " + json.dumps(tp_times))
     log("layernorm_times " + json.dumps(ln_times["cases"]))
     log("gemm_times " + json.dumps(gemm_times))
+    log("gemm_bwd_times " + json.dumps(gemm_bwd_times))
     log("attention_route_times " + json.dumps(route_times))
     if args.out:
         with open(args.out, "w") as f:
@@ -2581,6 +2876,7 @@ def main() -> int:
                        "training_dinov2_base_lora_tp2": train_base_tp,
                        "layernorm": ln_times["cases"], "serving_ln": serving_ln,
                        "training_lora_ln": lora_ln, "gemm": gemm_times,
+                       "gemm_bwd": gemm_bwd_times,
                        "attention_route": route_times},
                       f, indent=1)
     print(json.dumps({"kernels": kernels}))

@@ -62,10 +62,12 @@ LAUNCHES: dict[str, int] = {
     # layer's partial dx, and the gated final LayerNorm (ln_fwd_kernel).
     "fused_attn_part_partial": 0, "fused_mlp_part_partial": 0, "fused_mlp_partial_dx": 0,
     "fused_layernorm": 0,
-    # The chains' GEMM, LayerNorm rows and attention step alone (ops/block.py
-    # fused_gemm, ln_rows, packed_attention): what the card tests and
+    # The chains' GEMMs (forward, backward dx, weight gradient), LayerNorm
+    # rows and attention step alone (ops/block.py fused_gemm, fused_gemm_nt,
+    # fused_gemm_tn, ln_rows, packed_attention): what the card tests and
     # chip_smoke.py hold and time; no path calls them.
-    "fused_gemm": 0, "ln_rows": 0, "packed_attention": 0,
+    "fused_gemm": 0, "fused_gemm_nt": 0, "fused_gemm_tn": 0, "ln_rows": 0,
+    "packed_attention": 0,
 }
 
 _LIB: ctypes.CDLL | None = None
@@ -77,6 +79,8 @@ _F = ctypes.c_float
 _SIGNATURES = {
     "dp_gemm_plan": ([_I, _I], _I),
     "dp_gemm": ([_P] * 7 + [_I] * 4 + [_P], _I),
+    "dp_gemm_nt": ([_P] * 8 + [_I] * 4 + [_P], _I),
+    "dp_gemm_tn": ([_P] * 8 + [_I] * 4 + [_P], _I),
     "dp_packed_attention": ([_P] * 2 + [_I] * 5 + [_P], _I),
     "dp_ln_rows": ([_P] * 4 + [_I] * 2 + [_F, _P], _I),
     "dp_flash_forward": ([_I, _I], _I),

@@ -115,6 +115,7 @@ bf16 where the JAX math casts them.
 
 from __future__ import annotations
 
+import functools
 import os
 from typing import NamedTuple
 
@@ -126,8 +127,9 @@ from dino_pose_tpu_torch.ops.attention import plain_attention
 
 LAUNCHES = _ext.LAUNCHES
 
-# Rows per block of the backward's column-sum partials: BM of the gemm_nt
-# epilogue sums and SUM_ROWS of the LayerNorm-backward row kernel.
+# Rows per partial of the backward's column sums: a consumer warpgroup's
+# rows in gemm_nt's epilogue sums, SUM_ROWS of the LayerNorm-backward row
+# kernel.
 _SUM_ROWS = 64
 
 
@@ -332,6 +334,68 @@ def gemm_cost(m: int, n: int, k: int, epi: str = "none") -> tuple[int, int]:
     if epi in PAIRED:
         nbytes += 2 * m * n
     return 2 * m * n * k, nbytes
+
+
+# The backward products' epilogues (block_kernels.cu ``EpilogueNT``), by
+# name: bf16(acc * gelu'(aux)), the f32 sums, bf16(acc).
+EPILOGUES_NT = ("gelu_grad", "f32", "bf16")
+
+
+def scale_rows_math(a: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """The chains' scaled cotangent, a * scale[k] in f32 rounded once to a's
+    dtype (bf16(dy * ls2), bf16(dx2 * ls1)): the plain version of
+    ``scale_rows_kernel``."""
+    return (a.float() * scale.float()).to(a.dtype)
+
+
+def gemm_nt_math(a: torch.Tensor, w: torch.Tensor, epi: str, *,
+                 scale: torch.Tensor | None = None, aux: torch.Tensor | None = None,
+                 colsum: bool = False):
+    """The plain version of one backward product, ``epilogue(a' @ w^T)``:
+    w a forward weight stored (N, K), read transposed; a' = a, or
+    ``scale_rows_math(a, scale)``. The f32 sum acc, then ``gelu_grad``
+    bf16(acc * gelu'(aux)) (aux (M, N) in a's dtype), ``f32`` acc itself,
+    ``bf16`` bf16(acc). With ``colsum`` also the f32 column sums of the
+    values before rounding: (out, sums)."""
+    dt = a.dtype
+    if scale is not None:
+        a = scale_rows_math(a, scale)
+    acc = a.float() @ w.to(dt).float().t()
+    if epi == "gelu_grad":
+        acc = acc * _gelu_grad(aux.float())
+    out = acc if epi == "f32" else acc.to(dt)
+    return (out, _colsum(acc)) if colsum else out
+
+
+def gemm_tn_math(a: torch.Tensor, g: torch.Tensor, *, scale: torch.Tensor | None = None,
+                 gsum: bool = False):
+    """The plain version of one weight-gradient product, dW = a^T g' summed
+    in f32 over every row (``_tmm``), g' = g or ``scale_rows_math(g,
+    scale)``; with ``gsum`` also the f32 column sums of g': (dW, sums)."""
+    if scale is not None:
+        g = scale_rows_math(g, scale)
+    dw = _tmm(a, g)
+    return (dw, _colsum(g)) if gsum else dw
+
+
+def gemm_nt_cost(m: int, n: int, k: int, epi: str = "bf16",
+                 colsum: bool = False) -> tuple[int, int]:
+    """(FLOPs, bytes) of one backward product (m, k) @ (n, k)^T: 2mnk FLOPs;
+    a, w and the output once (f32 for ``f32``), aux for ``gelu_grad``, the
+    f32 column sums where asked."""
+    nbytes = 2 * (m * k + n * k) + (4 if epi == "f32" else 2) * m * n
+    if epi == "gelu_grad":
+        nbytes += 2 * m * n
+    if colsum:
+        nbytes += 4 * n
+    return 2 * m * n * k, nbytes
+
+
+def gemm_tn_cost(m: int, k_in: int, n: int, gsum: bool = False) -> tuple[int, int]:
+    """(FLOPs, bytes) of one weight-gradient product (m, k_in)^T @ (m, n):
+    2 m k_in n FLOPs; a and g once, the f32 dW (and g's column sums)."""
+    nbytes = 2 * m * (k_in + n) + 4 * k_in * n + (4 * n if gsum else 0)
+    return 2 * m * k_in * n, nbytes
 
 
 def attn_part_math(
@@ -1021,13 +1085,13 @@ def fused_mlp_dx(
     """Activation-only backward of the MLP half, dx2 with no weight
     gradients; replaces ``_mlp_dx_kernel`` (dino_pose_tpu/ops/block.py:1044).
 
-    Design: five launches — LN2 rows (into dm's buffer) -> gemm<+bf1>
+    Design: six launches — LN2 rows (into dm's buffer) -> gemm<+bf1>
     recomputes h1 (JAX keeps only x2 and the weights as residuals) ->
-    gemm_nt<dy*ls2 prologue,
+    scale_rows forms bf16(dy*ls2) (into dm's buffer again) -> gemm_nt<
     *gelu'(h1)> gives dh1b -> gemm_nt<f32 out> gives dm = dh1b W1^T -> a row
     kernel applies the LayerNorm backward and adds dy. gemm_nt reads the
-    (in, out) weight transposed. h1 and dh1b (B*S, 4D) bf16 and dm (B*S, D)
-    f32 pass through device memory.
+    (in, out) weight as it is stored, both operands K-major for wgmma. h1
+    and dh1b (B*S, 4D) bf16 and dm (B*S, D) f32 pass through device memory.
 
     Bound on an H100 at S = 257, D = 384: 0.909 GFLOP per image (three
     products of 2*S*D*4D) and 3*B*S*D*2 bytes of activations plus 2.36 MB of
@@ -1166,9 +1230,9 @@ def fused_mlp_partial_dx(
     (dino_pose_tpu/ops/block.py:1099, through ``_mlp_partial_bwd`` :1309).
 
     Design: ``fused_mlp_dx``'s five launches at the shard's MLP width with
-    two modes off — LN2 rows -> gemm<+bf1> recomputes h1 -> gemm_nt<no
-    dy*ls2 prologue, *gelu'(h1)> gives dh1b -> gemm_nt<f32> gives dm ->
-    the LayerNorm-backward row kernel with no residual.
+    two steps off — LN2 rows -> gemm<+bf1> recomputes h1 -> gemm_nt<
+    *gelu'(h1)> on dp as it comes (no scale_rows) gives dh1b -> gemm_nt<f32>
+    gives dm -> the LayerNorm-backward row kernel with no residual.
 
     Bound on an H100 at dinov2-base's shard (D = 768, tp = 2), S = 257:
     1.818 GFLOP per image and 3*B*S*D*2 bytes of activations plus 4.72 MB
@@ -1189,6 +1253,21 @@ def fused_mlp_partial_dx(
     _ext.check(err, name)
     LAUNCHES[name] += 1
     return dx2
+
+
+def _check_operand(t: torch.Tensor, what: str, like: torch.Tensor, name: str) -> None:
+    """A bf16 matrix the kernels read by TMA: 2-D, contiguous, 16-byte
+    aligned, on ``like``'s device."""
+    if t.dtype != torch.bfloat16 or t.device != like.device or t.dim() != 2:
+        raise TypeError(f"{name}: {what} must be a bf16 matrix on {like.device}")
+    if not t.is_contiguous() or t.data_ptr() % 16:
+        raise ValueError(f"{name}: {what} must be contiguous and 16-byte aligned")
+
+
+def _check_vector(t: torch.Tensor, n: int, what: str, like: torch.Tensor, name: str) -> None:
+    if t.dtype != torch.float32 or tuple(t.shape) != (n,) or t.device != like.device \
+            or not t.is_contiguous():
+        raise ValueError(f"{name}: {what} must be a contiguous ({n},) f32 tensor on {like.device}")
 
 
 def fused_gemm(a: torch.Tensor, w: torch.Tensor, epi: str, *, bias: torch.Tensor | None = None,
@@ -1213,11 +1292,8 @@ def fused_gemm(a: torch.Tensor, w: torch.Tensor, epi: str, *, bias: torch.Tensor
         raise ValueError(f"{name}: a (M, K) and w (K, N) expected, got {tuple(a.shape)} and "
                          f"{tuple(w.shape)}")
     (m, k), n = a.shape, w.shape[1]
-    for t, what in ((a, "a"), (w, "w")):
-        if t.dtype != torch.bfloat16 or t.device != a.device:
-            raise TypeError(f"{name}: {what} must be bf16 on {a.device}")
-        if not t.is_contiguous() or t.data_ptr() % 16:
-            raise ValueError(f"{name}: {what} must be contiguous and 16-byte aligned")
+    _check_operand(a, "a", a, name)
+    _check_operand(w, "w", a, name)
     if n % 64 or k % 32:
         raise ValueError(f"{name}: N = {n} is not a multiple of 64 or K = {k} of 32")
     # What the epilogue reads: the f32 bias (all but "none"), ls and res.
@@ -1239,6 +1315,95 @@ def fused_gemm(a: torch.Tensor, w: torch.Tensor, epi: str, *, bias: torch.Tensor
     _ext.check(err, name)
     LAUNCHES[name] += 1
     return (out, out2) if out2 is not None else out
+
+
+def fused_gemm_nt(a: torch.Tensor, w: torch.Tensor, epi: str, *,
+                  scale: torch.Tensor | None = None, aux: torch.Tensor | None = None,
+                  colsum: bool = False):
+    """One backward product of the chains alone, ``epilogue(a' @ w^T)``
+    (plain version :func:`gemm_nt_math`): a (M, K) and w (N, K) bf16, the
+    forward weight read transposed; ``scale`` (K,) f32 forms a' =
+    bf16(a * scale) first (``scale_rows_kernel``, as the chains do); aux (M,
+    N) bf16 for ``gelu_grad``. Returns out ((M, N), f32 for ``f32``, else
+    bf16), or (out, the (N,) f32 column sums before rounding) with
+    ``colsum``. M any, N a multiple of 64, K of 32.
+
+    Every backward chain launches ``gemm_nt_kernel`` through its own C
+    entry; this wrapper exists so that the card tests and ``chip_smoke.py``
+    can hold and time it alone. It counts its launches under
+    ``LAUNCHES["fused_gemm_nt"]``, which no path calls.
+    """
+    if epi not in EPILOGUES_NT:
+        raise ValueError(f"fused_gemm_nt: unknown epilogue {epi!r}")
+    if not _route(a):
+        return gemm_nt_math(a, w, epi, scale=scale, aux=aux, colsum=colsum)
+    name = "fused_gemm_nt"
+    _refuse_grad(name, a, w)
+    _check_operand(a, "a", a, name)
+    _check_operand(w, "w", a, name)
+    (m, k), n = a.shape, w.shape[0]
+    if w.shape[1] != k:
+        raise ValueError(f"{name}: a (M, K) and w (N, K) expected, got {tuple(a.shape)} and "
+                         f"{tuple(w.shape)}")
+    if n % 64 or k % 32:
+        raise ValueError(f"{name}: N = {n} is not a multiple of 64 or K = {k} of 32")
+    if epi == "gelu_grad":
+        if aux is None or tuple(aux.shape) != (m, n):
+            raise ValueError(f"{name}: epilogue gelu_grad needs aux as an ({m}, {n}) bf16 tensor")
+        _check_operand(aux, "aux", a, name)
+    else:
+        aux = None
+    scaled = None
+    if scale is not None:
+        _check_vector(scale, k, "scale", a, name)
+        scaled = torch.empty_like(a)
+    out = torch.empty((m, n), dtype=torch.float32 if epi == "f32" else a.dtype, device=a.device)
+    part = sums = None
+    if colsum:
+        part, sums = _f32(-(-m // _SUM_ROWS), n, like=a), _f32(n, like=a)
+    ptr = [0 if t is None else t.data_ptr() for t in (a, w, scale, scaled, aux, out, part, sums)]
+    err = _ext.lib().dp_gemm_nt(*ptr, m, n, k, EPILOGUES_NT.index(epi), _stream())
+    _ext.check(err, name)
+    LAUNCHES[name] += 1
+    return (out, sums) if colsum else out
+
+
+def fused_gemm_tn(a: torch.Tensor, g: torch.Tensor, *, scale: torch.Tensor | None = None,
+                  gsum: bool = False):
+    """One weight-gradient product of the chains alone, dW = a^T g' (plain
+    version :func:`gemm_tn_math`): a (M, K_in) and g (M, N) bf16, g' = g or
+    bf16(g * scale) with ``scale`` (N,) f32; dW (K_in, N) f32 summed over the
+    M rows in ``_splits`` row splits added in a fixed order; with ``gsum``
+    also the (N,) f32 column sums of g': (dW, sums). K_in and N multiples of
+    64. Counts its launches under ``LAUNCHES["fused_gemm_tn"]``; no path
+    calls it (the chains launch ``gemm_tn_kernel`` through their C entries).
+    """
+    if not _route(a):
+        return gemm_tn_math(a, g, scale=scale, gsum=gsum)
+    name = "fused_gemm_tn"
+    _refuse_grad(name, a, g)
+    _check_operand(a, "a", a, name)
+    _check_operand(g, "g", a, name)
+    (m, k_in), n = a.shape, g.shape[1]
+    if g.shape[0] != m:
+        raise ValueError(f"{name}: a (M, K_in) and g (M, N) expected, got {tuple(a.shape)} and "
+                         f"{tuple(g.shape)}")
+    if k_in % 64 or n % 64:
+        raise ValueError(f"{name}: K_in = {k_in} or N = {n} is not a multiple of 64")
+    scaled = None
+    if scale is not None:
+        _check_vector(scale, n, "scale", a, name)
+        scaled = torch.empty_like(g)
+    s = _splits(m, k_in, n)
+    ws, dw = _partials(s, k_in, n, like=a), _f32(k_in, n, like=a)
+    gws = sums = None
+    if gsum:  # a partial per split and 64 rows of dW
+        gws, sums = _f32(s * (k_in // 64), n, like=a), _f32(n, like=a)
+    ptr = [0 if t is None else t.data_ptr() for t in (a, g, scale, scaled, ws, gws, dw, sums)]
+    err = _ext.lib().dp_gemm_tn(*ptr, m, k_in, n, s, _stream())
+    _ext.check(err, name)
+    LAUNCHES[name] += 1
+    return (dw, sums) if gsum else dw
 
 
 def ln_rows(x: torch.Tensor, g: torch.Tensor, b: torch.Tensor, eps: float) -> torch.Tensor:
@@ -1292,12 +1457,54 @@ def packed_attention(qkv: torch.Tensor, num_heads: int, *, streamed: bool) -> to
     return ctx
 
 
+_SMS = 132  # the H100's streaming multiprocessors
+
+
+def _tn_tile(k_in: int, n: int) -> tuple[int, int]:
+    """gemm_tn_kernel's tile (rows of dW, columns) for a (k_in, n) weight
+    gradient: the largest the shape takes, as ``tn_plan`` in
+    block_kernels.cu picks it (128 x 128, 64 x 128 or 64 x 64)."""
+    if n % 128:
+        return 64, 64
+    return (128 if k_in % 128 == 0 else 64), 128
+
+
+def _split_rows(m: int, s: int) -> int:
+    """Rows of each of s row splits of m rows: the 64-row steps shared out
+    evenly (``split_rows`` in block_kernels.cu), so no TMA box of a split
+    reads the next split's rows."""
+    steps = -(-m // 64)
+    return -(-steps // s) * 64
+
+
+@functools.lru_cache(maxsize=256)
 def _splits(m: int, k_in: int, n: int) -> int:
-    """Row splits of a weight-gradient product dW (k_in, n) over m rows:
-    enough blocks for about four waves on the H100's 132 SMs, and at least
-    256 rows per split."""
-    tiles = (k_in // 64) * (n // 64)
-    return max(1, min(-(-m // 256), -(-4 * 132 // tiles)))
+    """Row splits of a weight-gradient product dW (k_in, n) over m rows, each
+    non-empty: the count with the least modelled time, as waves of tiles
+    over the card's SMs (a 64-row step of a 128 x 128 tile ~0.38 us at 5.5
+    TFLOP/s an SM, ~1.5 us a tile to fill the ring and store) plus the
+    fixed-order pass that adds the f32 partials (read once each at ~2.5
+    TB/s, 3 us a launch) where there is more than one."""
+    tm, tn = _tn_tile(k_in, n)
+    tiles = (k_in // tm) * (n // tn)
+    steps = -(-m // 64)
+    best, best_us = 1, None
+    for s in range(1, min(steps, 32) + 1):
+        rows = _split_rows(m, s)
+        s_eff = -(-m // rows)
+        waves = -(-tiles * s_eff // _SMS)
+        us = waves * (rows / 64 * 2 * 64 * tm * tn / 5.5e6 + 1.5)
+        if s_eff > 1:
+            us += (s_eff + 1) * k_in * n * 4 / 2.5e6 + 3
+        if best_us is None or us < best_us - 1e-9:
+            best, best_us = s_eff, us
+    return best
+
+
+def _partials(s: int, k_in: int, n: int, like: torch.Tensor) -> torch.Tensor:
+    """The f32 partials (s, k_in, n) of a product split over s row splits;
+    with one split the kernel writes the result itself, and none are made."""
+    return _f32(s, k_in, n, like=like) if s > 1 else _f32(0, like=like)
 
 
 def _f32(*shape: int, like: torch.Tensor) -> torch.Tensor:
@@ -1323,13 +1530,16 @@ def fused_mlp_bwd(
     ``_mlp_bwd_kernel`` (dino_pose_tpu/ops/block.py:284, via ``_mlp_bwd`` :634).
 
     Design: LN2 rows -> gemm<+bf1, h1 and GELU pair> -> gemm<+bf2>(h2) ->
-    gemm_nt<dy*ls2, *gelu'(h1), column sums>(dh1b, dbf1) -> gemm_nt<f32>(dm)
-    -> LayerNorm-backward rows with column sums (dx2, dbf2, dls2, dg2, db2)
-    -> gemm_tn(dW1 = m^T dh1b) -> gemm_tn<*ls2>(dW2 = g^T bf16(dy*ls2)). The
-    TPU kernel adds each batch row's weight gradients into VMEM across its
-    sequential grid; here the rows are split over blocks into f32 partials
-    that a second pass adds in a fixed order (reproducible bits, no atomics).
-    h1, g and h2 are recomputed, as JAX saves only x2.
+    scale_rows(bf16(dy*ls2), once for both products that read it) ->
+    gemm_nt<*gelu'(h1), column sums>(dh1b, dbf1) -> gemm_tn(dW2 = g^T
+    bf16(dy*ls2)) -> gemm_nt<f32>(dm) -> LayerNorm-backward rows with column
+    sums (dx2, dbf2, dls2, dg2, db2) -> gemm_tn(dW1 = m^T dh1b). The TPU
+    kernel adds each batch row's weight gradients into VMEM across its
+    sequential grid; here gemm_tn reduces over the rows inside each tile and
+    splits them into 64-row-aligned ranges (``_splits``) only where the
+    tiles alone do not fill the card, their f32 partials added by a second
+    pass in a fixed order (reproducible bits, no atomics). h1, g and h2 are
+    recomputed, as JAX saves only x2.
 
     Bound on an H100 at S = 257, D = 384: six products of 2*S*D*4D = 1.818
     GFLOP per image, 0.235 ms at batch 128; operations bound it from batch 2.
@@ -1351,10 +1561,10 @@ def fused_mlp_bwd_stream(
     XLA dls2 = sum(dy*h2) and dbf2 = ls2*sum(dy) (``_mlp_stream_bwd`` :2217).
 
     Design: ``fused_mlp_bwd``'s chain without the h2 GEMM — LN2 rows ->
-    gemm<+bf1, h1 and GELU pair> -> gemm_nt<dy*ls2, *gelu'(h1), column
-    sums>(dh1b, dbf1) -> gemm_nt<f32>(dm) -> LayerNorm-backward rows with
-    column sums (dx2, sum(dy), dls2 on the saved h2, dg2, db2) ->
-    gemm_tn(dW1) -> gemm_tn<*ls2>(dW2); the wrapper scales sum(dy) by ls2.
+    gemm<+bf1, h1 and GELU pair> -> scale_rows(bf16(dy*ls2)) -> gemm_nt<
+    *gelu'(h1), column sums>(dh1b, dbf1) -> gemm_tn(dW2) -> gemm_nt<f32>(dm)
+    -> LayerNorm-backward rows with column sums (dx2, sum(dy), dls2 on the
+    saved h2, dg2, db2) -> gemm_tn(dW1); the wrapper scales sum(dy) by ls2.
     The TPU pair streams (D, bh)/(bh, D) weight blocks through VMEM, the dW
     pass hidden-block-major so each gradient block stays resident over the
     rows; here every GEMM walks the weights in tiles, and dW sums fixed-order
@@ -1390,7 +1600,7 @@ def _launch_mlp_bwd(x2: torch.Tensor, dy: torch.Tensor, h2: torch.Tensor | None,
                _act(m_rows, hidden, like=x2), _act(m_rows, d, like=x2) if h2 is None else h2,
                _act(m_rows, hidden, like=x2), _f32(m_rows, d, like=x2),
                _f32(nblk, hidden, like=x2), _f32(nblk, 4, d, like=x2),
-               _f32(s1, d, hidden, like=x2), _f32(s2, hidden, d, like=x2))
+               _partials(s1, d, hidden, like=x2), _partials(s2, hidden, d, like=x2))
     dx2 = torch.empty_like(x2)
     dw1, dbf1 = _f32(d, hidden, like=x2), _f32(hidden, like=x2)
     dw2, vec4 = _f32(hidden, d, like=x2), _f32(4, d, like=x2)
@@ -1415,14 +1625,15 @@ def fused_attn_bwd(
     via ``_attn_bwd`` :654).
 
     Design: LN1 rows -> gemm<+bqkv> -> attention (ctx) -> gemm<+bo>(o) ->
-    gemm_nt<dx2*ls1, bf16>(dctx) -> attention backward: a dq kernel per
-    64-query tile with the head's K and V resident (f32 P, rowsum(P*dP)
-    saved) and a dk/dv kernel per 64-key tile with Q and dctx resident;
-    past S = 304 the streamed flash_bwd_dq/dkv kernels, after a streamed
-    forward that saves the row statistics they read) -> gemm_nt<f32>(da) -> LayerNorm-backward rows with column sums (dx, dbo,
-    dls1, dg1, db1) -> gemm_tn with column sums (dWqkv, dbqkv) ->
-    gemm_tn<*ls1>(dWo). qkv, P, ctx and o are recomputed from x, as JAX
-    saves only x; weight gradients go through fixed-order f32 partials.
+    scale_rows(bf16(dx2*ls1)) -> gemm_nt<bf16>(dctx) -> gemm_tn(dWo = ctx^T
+    bf16(dx2*ls1)) -> attention backward: a dq kernel per 64-query tile with
+    the head's K and V resident (f32 P, rowsum(P*dP) saved) and a dk/dv
+    kernel per 64-key tile with Q and dctx resident (past S = 304 the
+    streamed flash_bwd_dq/dkv kernels, after a streamed forward that saves
+    the row statistics they read) -> gemm_nt<f32>(da) -> LayerNorm-backward
+    rows with column sums (dx, dbo, dls1, dg1, db1) -> gemm_tn with column
+    sums (dWqkv, dbqkv). qkv, P, ctx and o are recomputed from x, as JAX
+    saves only x; weight gradients are reduced in fixed order.
 
     Bound on an H100 at S = 257, D = 384: three qkv-sized products, three of
     2*S*D^2 and six of 2*S^2*D = 1.214 GFLOP per image, 0.157 ms at batch
@@ -1450,11 +1661,11 @@ def fused_attn_bwd_stream(
 
     Design: ``fused_attn_bwd``'s chain without the o recompute and without a
     residual — LN1 rows -> gemm<+bqkv> -> attention (ctx, the row statistics)
-    -> gemm_nt<bf16>(dctx = do Wo^T) -> attention backward (the resident dq
-    and dk/dv kernels; past S = 304 the streamed flash pair) ->
-    gemm_nt<f32>(da) -> LayerNorm-backward rows with column sums (dx =
-    LN1^T(da), dbo, dg1, db1) -> gemm_tn with column sums (dWqkv, dbqkv) ->
-    gemm_tn(dWo = ctx^T do). The TPU pair streams per-head-group q/k/v
+    -> gemm_nt<bf16>(dctx = do Wo^T) -> gemm_tn(dWo = ctx^T do) -> attention
+    backward (the resident dq and dk/dv kernels; past S = 304 the streamed
+    flash pair) -> gemm_nt<f32>(da) -> LayerNorm-backward rows with column
+    sums (dx = LN1^T(da), dbo, dg1, db1) -> gemm_tn with column sums
+    (dWqkv, dbqkv). The TPU pair streams per-head-group q/k/v
     column and out-projection row slices, summing da over the groups in a
     VMEM accumulator; here the GEMMs walk the weights in tiles.
 
@@ -1484,13 +1695,13 @@ def _launch_attn_bwd(x: torch.Tensor, dres: torch.Tensor, ap, num_heads: int, ep
 
     # a, qkv, ctx, o (not on the streamed route), dctx, dqkv, da, the
     # softmax statistics, then the partials of the row sums, of dWqkv, of
-    # dWo and of dbqkv.
+    # dWo and of dbqkv (a split's and 64 rows of dWqkv's each).
     o = () if stream else (_act(m_rows, d, like=x),)
     scratch = (_act(m_rows, d, like=x), _act(m_rows, 3 * d, like=x), _act(m_rows, d, like=x),
                *o, _act(m_rows, d, like=x), _act(m_rows, 3 * d, like=x),
                _f32(m_rows, d, like=x), _f32(b, num_heads, 3, s, like=x),
-               _f32(nblk, 4, d, like=x), _f32(sq, d, 3 * d, like=x), _f32(so, d, d, like=x),
-               _f32(sq, 3 * d, like=x))
+               _f32(nblk, 4, d, like=x), _partials(sq, d, 3 * d, like=x),
+               _partials(so, d, d, like=x), _f32(sq * (d // 64), 3 * d, like=x))
     dx = torch.empty_like(x)
     dwqkv, dbqkv = _f32(d, 3 * d, like=x), _f32(3 * d, like=x)
     dwo, vec4 = _f32(d, d, like=x), _f32(4, d, like=x)

@@ -44,14 +44,21 @@
 //                          512 FLOPs a byte, over the card's ~295); the
 //                          ring keeps them fed and the swizzle keeps wgmma's
 //                          shared-memory reads free of bank conflicts.
-//   gemm_nt_kernel<SCALE, EPI>  the same tile with W read transposed (the
-//                          backward products), an optional per-column scale
-//                          prologue, a *gelu'(h), raw-f32 or bf16 epilogue,
-//                          and optional per-tile f32 column sums.
-//   gemm_tn_kernel<SCALE, GSUM>  the weight-gradient product
-//                          dW = A^T @ G, reducing over the M = B*S rows: M is
-//                          split over blocks into f32 partials that
-//                          sum_rows_kernel adds in a fixed order.
+//   gemm_nt_kernel<WG, TN, EPI>  the backward's dx products on the same
+//                          design, C = epilogue(A @ W^T) with W a forward
+//                          weight read as it is stored (both operands
+//                          K-major): *gelu'(h) with h's tile loaded by TMA,
+//                          f32 or bf16 outputs, optional f32 column sums a
+//                          64-row slice.
+//   gemm_tn_kernel<WG, TN>  the weight-gradient product dW = A^T @ G on the
+//                          same design, reducing over the M = B*S rows with
+//                          both operands MN-major (wgmma's transpose bits):
+//                          M is split into 64-row-aligned ranges whose f32
+//                          partials sum_rows_kernel adds in a fixed order,
+//                          or written as dW where one split fills the card;
+//                          optional column sums of G from the staged tiles.
+//   scale_rows_kernel      bf16(a * scale[k]): the chains' scaled cotangents,
+//                          formed once for the two products that read them.
 //   attention_kernel<DH>   one (batch, head, 64-query tile) per block: K and V
 //                          of all S keys for the head stay in shared memory,
 //                          f32 scores and softmax, P rounded to bf16 before PV.
@@ -80,34 +87,37 @@
 //   _mlp_stream_kernel  = ln_rows -> gemm<GELU>(fc1) -> gemm<F32BIAS_LS_RES>(fc2)
 //   _block_kernel     = ln_rows -> gemm<BIAS> -> attention -> gemm<LS_RES>
 //                       -> ln_rows -> gemm<GELU> -> gemm<LS_RES>
-//   _mlp_dx_kernel    = ln_rows -> gemm<BIAS>(h1) -> gemm_nt<dy*ls2, *gelu'(h1)>
-//                       (dh1b) -> gemm_nt<-, f32>(dm) -> ln_bwd_rows(dx2)
+//   _mlp_dx_kernel    = ln_rows -> gemm<BIAS>(h1) -> scale_rows(dy*ls2)
+//                       -> gemm_nt<*gelu'(h1)>(dh1b) -> gemm_nt<f32>(dm)
+//                       -> ln_bwd_rows(dx2)
 //   _mlp_bwd_kernel   = ln_rows(m) -> gemm<BIAS,GELU pair>(h1, g)
-//                       -> gemm<BIAS>(h2) -> gemm_nt<dy*ls2,*gelu'(h1),sums>
-//                       (dh1b, dbf1) -> gemm_nt<-,f32>(dm) -> ln_bwd_rows<sums>
-//                       (dx2, dbf2, dls2, dg2, db2) -> gemm_tn(dW1 = m^T dh1b)
-//                       -> gemm_tn<*ls2>(dW2 = g^T bf16(dy*ls2))
+//                       -> gemm<BIAS>(h2) -> scale_rows(dy*ls2)
+//                       -> gemm_nt<*gelu'(h1),sums>(dh1b, dbf1)
+//                       -> gemm_tn(dW2 = g^T bf16(dy*ls2)) -> gemm_nt<f32>(dm)
+//                       -> ln_bwd_rows<sums>(dx2, dbf2, dls2, dg2, db2)
+//                       -> gemm_tn(dW1 = m^T dh1b)
 //   _attn_bwd_kernel  = ln_rows(a) -> gemm<BIAS>(qkv) -> attention(ctx)
-//                       -> gemm<BIAS>(o) -> gemm_nt<dx2*ls1,bf16>(dctx)
-//                       -> attn_bwd_dq -> attn_bwd_dkv (dqkv)
-//                       -> gemm_nt<-,f32>(da) -> ln_bwd_rows<sums>(dx, dbo,
+//                       -> gemm<BIAS>(o) -> scale_rows(dx2*ls1)
+//                       -> gemm_nt<bf16>(dctx) -> gemm_tn(dWo = ctx^T
+//                       bf16(dx2*ls1)) -> attn_bwd_dq -> attn_bwd_dkv (dqkv)
+//                       -> gemm_nt<f32>(da) -> ln_bwd_rows<sums>(dx, dbo,
 //                       dls1, dg1, db1) -> gemm_tn<colsums>(dWqkv, dbqkv)
-//                       -> gemm_tn<*ls1>(dWo = ctx^T bf16(dx2*ls1))
 //   _mlp_stream_train_kernel = ln_rows -> gemm<GELU>(fc1)
 //                       -> gemm<F32BIAS_LS_RES_H2>(fc2, h2)
 //   _mlp_stream_dx_full_kernel + _mlp_stream_dw_kernel = _mlp_bwd_kernel's
 //                       chain without the h2 GEMM (h2 saved by the forward),
 //                       ln_bwd_rows<sums, UNSCALED> (dbf2 = ls2 * sum(dy))
 //   _attn_stream_dx_kernel + _attn_stream_dw_kernel = _attn_bwd_kernel's chain
-//                       without the o GEMM, on do (pre-LayerScale): gemm_nt<-,
-//                       bf16>(dctx) ... ln_bwd_rows<sums, NO_RES>(dx, dbo = sum
-//                       (do), dg1, db1) ... gemm_tn(dWo = ctx^T do)
+//                       without the o GEMM and the scaling, on do
+//                       (pre-LayerScale): gemm_nt<bf16>(dctx) -> gemm_tn(dWo
+//                       = ctx^T do) ... ln_bwd_rows<sums, NO_RES>(dx, dbo =
+//                       sum(do), dg1, db1) ...
 //   _attn_part_partial_kernel = ln_rows -> gemm<BIAS>(qkv_l, N = 3D/tp)
 //                       -> attention (H/tp heads) -> gemm<NONE>(out, K = D/tp)
 //   _mlp_part_partial_kernel  = ln_rows -> gemm<GELU>(fc1, N = 4D/tp)
 //                       -> gemm<NONE>(fc2)
-//   _mlp_partial_dx_kernel    = ln_rows -> gemm<BIAS>(h1) -> gemm_nt<-,
-//                       *gelu'(h1)>(dh1b) -> gemm_nt<-, f32>(dm)
+//   _mlp_partial_dx_kernel    = ln_rows -> gemm<BIAS>(h1) -> gemm_nt<
+//                       *gelu'(h1)>(dh1b) -> gemm_nt<f32>(dm)
 //                       -> ln_bwd_rows<NO_RES>(dx2)
 //
 //   The forward halves put the normalised rows in their own output buffer
@@ -115,6 +125,9 @@
 //   f32 buffer: each is dead until a later launch of the chain overwrites
 //   it, so the split costs no allocation. ln_rows_kernel is the old
 //   prologue's arithmetic, so the GEMMs read the same bf16 rows as before.
+//   The scaled cotangents go the same way, into the f32 buffer (dm, da)
+//   that the chain's last dx product overwrites; the product that needs
+//   them last (dW2, dWo) runs before that.
 //
 // Every rounding point of the JAX kernels is reproduced: each product is
 // rounded to bf16, then the bias (f32 parameter rounded to bf16) is added in
@@ -122,8 +135,8 @@
 // backward, dy*ls2 and dh1b are rounded to bf16, the products dg and dm stay
 // f32, dx2 is rounded once. dm goes through device memory as f32 (B*S*D*4
 // bytes, 50 MB at batch 128) to a row kernel rather than into a GEMM
-// epilogue: the LayerNorm backward needs whole rows, and a 64x64 tile holds
-// a sixth of one. The dx chain is bound by its three products (0.909 GFLOP
+// epilogue: the LayerNorm backward needs whole rows, and a 128-column tile holds
+// a third of one. The dx chain is bound by its three products (0.909 GFLOP
 // per image at S = 257, D = 384: 0.118 ms at batch 128 on an H100) from
 // batch 2 up. The trainable block's backward keeps JAX's rounding points
 // too: dh1, dy*ls2 and dx2*ls1 enter their bias sums unrounded, the bf16
@@ -131,13 +144,13 @@
 // h2, qkv, P, ctx and o are recomputed from (x, x2), as JAX saves nothing
 // else. Weight gradients are sums over all B*S rows that the TPU kernel
 // carries across its sequential batch grid; a CUDA grid has no order, so
-// each block of rows writes f32 partials and one pass adds them in a fixed
+// each range of rows writes f32 partials and one pass adds them in a fixed
 // order (no atomics: two runs give the same bits).
 //
 // Shapes: M = B*S rows are masked at the ragged edge (no padding copy: TMA
 // reads the rows and the K tail past the edge as zeros, the stores are
 // masked); N is a multiple of 64, K of 32 (the wrapper checks D % 64 == 0).
-// The GEMM's TMA tensor maps are encoded on the host at each launch with
+// The GEMMs' TMA tensor maps are encoded on the host at each launch with
 // cuTensorMapEncodeTiled, reached through cudaGetDriverEntryPointByVersion,
 // so the library links without -lcuda. Kernels launch on the caller's
 // stream, allocate nothing and never synchronise; each C entry returns
@@ -157,8 +170,6 @@ typedef __nv_bfloat16 bf16;
 
 namespace {
 
-constexpr int BM = 64, BN = 64, BK = 32;
-constexpr int GEMM_THREADS = 128;  // 4 warps, each a 32x32 quarter of the tile
 constexpr int PAD_H = 8;           // bf16 row padding (keeps WMMA ldm % 8 == 0)
 constexpr int PAD_F = 4;           // f32 row padding
 constexpr int BQ = 64;             // query rows per attention block
@@ -208,51 +219,86 @@ __device__ __forceinline__ float warp_max(float v) {
 }
 
 // ---------------------------------------------------------------------------
-// gemm_kernel<WG, TN, EPI>: C[M,N] = epilogue(A[M,K] @ W[K,N]), A, W, C, res
-// row-major bf16, bias and ls f32 vectors. Warp-specialised for sm_90a:
+// The three GEMM kernels share one design, warp-specialised for sm_90a:
 // warpgroup WG (the last) is the producer, one thread of it issuing the TMA
-// loads of A (TM x 64, K-major) and W (64 x TN, N-major: W is read as it is
-// stored, never copied or transposed) into a GSTAGES-deep ring of
+// loads of each stage's A and B tiles into a GSTAGES-deep ring of
 // 128-byte-swizzled tiles guarded by mbarriers; warpgroups 0..WG-1 are the
-// consumers, each issuing wgmma.mma_async m64nTNk16 on 64 rows of the tile
-// with f32 accumulators in registers, then the epilogue from those
+// consumers, each issuing wgmma.mma_async m64nTNk16 on its 64 rows of the
+// tile with f32 accumulators in registers, then an epilogue from those
 // registers into swizzled shared memory, which TMA stores write out while
 // the next tile's products run. Blocks are persistent: each walks output
-// tiles (row-block major, so a row block's A stays in L2 across its column
-// blocks) while the producer runs ahead into the next tile's stages.
-// TM = 64*WG.
-// EPI_BIAS_GELU_PAIR writes the biased product h to out and gelu(h) to out2.
-// EPI_F32BIAS: bf16(acc + bias); EPI_F32BIAS_LS_RES: bf16(res + bf16((acc +
-// bias) * ls)), in f32 up to the inner rounding; EPI_F32BIAS_LS_RES_H2 also
-// writes h2 = bf16(acc + bias) to out2 (the pre-LayerScale output that
-// _mlp_stream_train_kernel saves). EPI_NONE: bf16(acc); bias, ls and res are
-// not read.
+// tiles while the producer runs ahead into the next tile's stages. TM =
+// 64*WG. They differ in how the operands lie in memory, which only changes
+// the TMA boxes and the wgmma descriptors (a K-major operand has the
+// reduction axis contiguous, an MN-major one the output axis):
+//
+//   gemm_kernel<WG, TN, EPI>   C = epi(A[M,K] @ W[K,N])      A K-major, W MN-major
+//   gemm_nt_kernel<WG, TN, EPI> C = epi(A[M,K] @ W[N,K]^T)   both K-major
+//   gemm_tn_kernel<WG, TN>     dW = A[M,Kin]^T @ G[M,N]       both MN-major
+//
+// gemm_nt reads a forward weight stored (N, K) as it is, and gemm_tn the
+// activations and cotangents as they are: no operand is ever transposed or
+// copied. What bounds them at B = 128 is the tensor cores (D = 1024: 2*M*
+// 1024*4096 FLOPs against 2*M*(1024+4096) bytes, ~800 FLOPs a byte, over
+// the card's ~295); the ring keeps them fed and the swizzle keeps wgmma's
+// shared-memory reads free of bank conflicts.
 // ---------------------------------------------------------------------------
 
 constexpr int GK = 64;           // K depth of a stage: one 128-byte swizzled bf16 row
 constexpr int GSTAGES = 4;       // ring depth
 constexpr int WG_THREADS = 128;  // a warpgroup
+constexpr int BOX_BYTES = 64 * 128;  // one 64-row TMA box of 128-byte rows
 
 // EPI_BIAS_GELU_PAIR and EPI_F32BIAS_LS_RES_H2 write a second output.
 __host__ __device__ constexpr bool two_outputs(int epi) {
   return epi == EPI_BIAS_GELU_PAIR || epi == EPI_F32BIAS_LS_RES_H2;
 }
 
-template <int WG, int TN, int EPI>
-struct GemmPlan {
+// The ring of a (WG, TN) tile: stage s holds the A tile (TM x GK, or for
+// gemm_tn WG boxes of GK rows x 64) then the B tile (GK x TN).
+template <int WG, int TN>
+struct RingPlan {
   static constexpr int TM = 64 * WG;
   static constexpr int A_BYTES = TM * GK * 2;
   static constexpr int B_BYTES = GK * TN * 2;
   static constexpr int STAGE_BYTES = A_BYTES + B_BYTES;
   static constexpr int THREADS = (WG + 1) * WG_THREADS;
-  // Each consumer warpgroup stages its 64 x TN output (and the second one)
-  // in TN/64 swizzled 64 x 64 boxes for the TMA stores.
+  static constexpr size_t RING = static_cast<size_t>(GSTAGES) * STAGE_BYTES;
+};
+
+// gemm_kernel: each consumer warpgroup stages its 64 x TN output (and the
+// second one) in TN/64 swizzled 64 x 64 boxes for the TMA stores. Then
+// 2*GSTAGES mbarriers, and slack to align the ring to the 1024 bytes a
+// 128-byte swizzle pattern repeats over.
+template <int WG, int TN, int EPI>
+struct GemmPlan : RingPlan<WG, TN> {
   static constexpr int OUT_BYTES = 64 * TN * 2;
   static constexpr int OUTS = two_outputs(EPI) ? 2 : 1;
-  // The ring, the staging buffers, then 2*GSTAGES mbarriers, and slack to
-  // align the ring to the 1024 bytes a 128-byte swizzle pattern repeats over.
-  static constexpr size_t SMEM = static_cast<size_t>(GSTAGES) * STAGE_BYTES +
-                                 static_cast<size_t>(WG) * OUTS * OUT_BYTES + 2 * GSTAGES * 8 + 1024;
+  static constexpr size_t SMEM =
+      RingPlan<WG, TN>::RING + static_cast<size_t>(WG) * OUTS * OUT_BYTES + 2 * GSTAGES * 8 + 1024;
+};
+
+// gemm_nt_kernel: per consumer warpgroup the output staging (bf16 64-column
+// or f32 32-column boxes), the aux tile of EPT_GELU_GRAD (h1, loaded by TMA
+// beside the main loop) and, with SUMS, four warps' column sums; then the
+// ring's barriers and one aux barrier a warpgroup.
+template <int WG, int TN, int EPI, bool SUMS>
+struct NtPlan : RingPlan<WG, TN> {
+  static constexpr int OUT_BYTES = 64 * TN * (EPI == EPT_F32 ? 4 : 2);
+  static constexpr int AUX_BYTES = EPI == EPT_GELU_GRAD ? 64 * TN * 2 : 0;
+  static constexpr int RED_BYTES = SUMS ? 4 * TN * 4 : 0;
+  static constexpr size_t SMEM = RingPlan<WG, TN>::RING +
+                                 static_cast<size_t>(WG) * (OUT_BYTES + AUX_BYTES + RED_BYTES) +
+                                 (2 * GSTAGES + WG) * 8 + 1024;
+};
+
+// gemm_tn_kernel: per consumer warpgroup its 64 x TN f32 output in 32-column
+// boxes.
+template <int WG, int TN>
+struct TnPlan : RingPlan<WG, TN> {
+  static constexpr int OUT_BYTES = 64 * TN * 4;
+  static constexpr size_t SMEM =
+      RingPlan<WG, TN>::RING + static_cast<size_t>(WG) * OUT_BYTES + 2 * GSTAGES * 8 + 1024;
 };
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -311,6 +357,10 @@ __device__ __forceinline__ void st_shared(uint32_t addr, uint32_t v) {
   asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(addr), "r"(v) : "memory");
 }
 
+__device__ __forceinline__ void st_shared2(uint32_t addr, float a, float b) {
+  asm volatile("st.shared.v2.f32 [%0], {%1, %2};\n" ::"r"(addr), "f"(a), "f"(b) : "memory");
+}
+
 // A barrier among the 128 threads of one warpgroup (ids 1 and 2; 0 is
 // __syncthreads').
 __device__ __forceinline__ void warpgroup_sync(int id) {
@@ -323,6 +373,20 @@ __device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo, uint
   return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
          (static_cast<uint64_t>((lbo & 0x3FFFF) >> 4) << 16) |
          (static_cast<uint64_t>((sbo & 0x3FFFF) >> 4) << 32) | (1ull << 62);
+}
+
+// The descriptor of one operand tile and its step per k16. K-major (rows of
+// 64 k values, 128 bytes): 8-row groups 1024 bytes apart, a k16 step 32
+// bytes along the swizzled row. MN-major (rows of 64 m or n values, one row
+// per k): 64-column blocks BOX_BYTES apart (the leading offset), 8-row (k)
+// groups 1024 bytes apart (the stride offset), a k16 step two such groups.
+template <bool MN>
+__device__ __forceinline__ uint64_t operand_desc(uint32_t addr) {
+  return MN ? sw128_desc(addr, BOX_BYTES, 1024) : sw128_desc(addr, 16, 1024);
+}
+template <bool MN>
+__host__ __device__ constexpr uint64_t k16_step() {
+  return MN ? 2048 >> 4 : 32 >> 4;
 }
 
 __device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
@@ -342,24 +406,26 @@ __device__ __forceinline__ void fence_acc(float* d) {
   for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
-// D (64 x 64 f32, 32 registers a thread) += A (64 x 16, K-major) * B (16 x 64,
-// N-major), both read from shared memory through their descriptors.
+// D (64 x 64 f32, 32 registers a thread) += A (64 x 16) * B (16 x 64), both
+// read from shared memory through their descriptors; TA, TB: the transpose
+// bits, 1 where the operand is MN-major.
+template <int TA, int TB>
 __device__ __forceinline__ void wgmma_n64(float* d, uint64_t da, uint64_t db) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
       "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
       "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, 0, 1;\n}\n"
+      "}, %32, %33, p, 1, 1, %35, %36;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
         "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(1));
+      : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
 }
 
-// D (64 x 128 f32, 64 registers a thread) += A (64 x 16, K-major) * B (16 x 128,
-// N-major), both read from shared memory through their descriptors.
+// D (64 x 128 f32, 64 registers a thread) += A (64 x 16) * B (16 x 128).
+template <int TA, int TB>
 __device__ __forceinline__ void wgmma_n128(float* d, uint64_t da, uint64_t db) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
@@ -368,7 +434,7 @@ __device__ __forceinline__ void wgmma_n128(float* d, uint64_t da, uint64_t db) {
       "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
       "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
       "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-      "}, %64, %65, p, 1, 1, 0, 1;\n}\n"
+      "}, %64, %65, p, 1, 1, %67, %68;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
         "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
@@ -377,15 +443,105 @@ __device__ __forceinline__ void wgmma_n128(float* d, uint64_t da, uint64_t db) {
         "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(1));
+      : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
 }
 
-template <int TN>
+template <int TN, bool A_MN, bool B_MN>
 __device__ __forceinline__ void wgmma_tile(float* d, uint64_t da, uint64_t db) {
   if constexpr (TN == 128)
-    wgmma_n128(d, da, db);
+    wgmma_n128<A_MN, B_MN>(d, da, db);
   else
-    wgmma_n64(d, da, db);
+    wgmma_n64<A_MN, B_MN>(d, da, db);
+}
+
+// The ring's position, as the producer and each consumer walk it.
+struct RingPos {
+  int stage = 0;
+  uint32_t phase = 0;
+  __device__ __forceinline__ void next() {
+    if (++stage == GSTAGES) {
+      stage = 0;
+      phase ^= 1;
+    }
+  }
+};
+
+// The producer's side of the ring for one tile: for each of its ktiles
+// stages, wait until the slot is empty, expect its bytes on the slot's full
+// barrier and issue its loads (load(slot address, barrier, kt)). bars holds
+// full[s], then empty[s].
+template <int STAGE_BYTES, typename Load>
+__device__ __forceinline__ void produce_tile(uint32_t base, uint32_t bars, int ktiles, RingPos& pos,
+                                             Load load) {
+  for (int kt = 0; kt < ktiles; ++kt) {
+    const uint32_t full = bars + 8 * pos.stage;
+    mbar_wait(bars + 8 * (GSTAGES + pos.stage), pos.phase ^ 1);
+    mbar_expect_tx(full, STAGE_BYTES);
+    load(base + pos.stage * STAGE_BYTES, full, kt);
+    pos.next();
+  }
+}
+
+// The consumers' side for one tile: warpgroup wg waits for each stage,
+// issues its GK/16 wgmma steps on its 64 rows (acc += A B), and releases
+// the stage one step later, once the next stage's products are issued and
+// these retired. on_stage(B tile address) runs after a stage's products are
+// issued and before the stage is released.
+template <int TN, bool A_MN, bool B_MN, int A_BYTES, int STAGE_BYTES, typename OnStage>
+__device__ __forceinline__ void consume_tile(float* acc, uint32_t base, uint32_t bars, int wg,
+                                             bool signal, int ktiles, RingPos& pos,
+                                             OnStage on_stage) {
+  constexpr int R = TN / 2;  // accumulators a thread
+  int prev = -1;
+  for (int kt = 0; kt < ktiles; ++kt) {
+    mbar_wait(bars + 8 * pos.stage, pos.phase);
+    const uint32_t sa = base + pos.stage * STAGE_BYTES + wg * BOX_BYTES;
+    const uint32_t sb = base + pos.stage * STAGE_BYTES + A_BYTES;
+    const uint64_t da = operand_desc<A_MN>(sa), db = operand_desc<B_MN>(sb);
+    fence_acc<R>(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < GK / 16; ++kk)
+      wgmma_tile<TN, A_MN, B_MN>(acc, da + kk * k16_step<A_MN>(), db + kk * k16_step<B_MN>());
+    wgmma_commit();
+    on_stage(sb);
+    fence_acc<R>(acc);
+    wgmma_wait<1>();  // the previous stage's products are done: release it
+    if (prev >= 0 && signal) mbar_arrive(bars + 8 * (GSTAGES + prev));
+    prev = pos.stage;
+    pos.next();
+  }
+  wgmma_wait<0>();
+  fence_acc<R>(acc);
+  if (prev >= 0 && signal) mbar_arrive(bars + 8 * (GSTAGES + prev));
+}
+
+// Initialise the ring's barriers (full: the producer's expect_tx; empty: one
+// arrival per consumer warpgroup) and `extra` more of count 1 after them.
+__device__ __forceinline__ void init_ring(uint32_t bars, int consumers, int extra) {
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < GSTAGES; ++s) {
+      mbar_init(bars + 8 * s, 1);
+      mbar_init(bars + 8 * (GSTAGES + s), consumers);
+    }
+    for (int e = 0; e < extra; ++e) mbar_init(bars + 8 * (2 * GSTAGES + e), 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+}
+
+// Accumulator i of a consumer thread is row 16*wq + lane/4 + 8*((i/2)%2),
+// column 8*(i/4) + 2*(lane%4) + i%2 of its warpgroup's 64 x TN slice. The
+// staging offsets of the pair (j, h) = accumulators 4j + 2h and 4j + 2h + 1,
+// row r = 16*wq + lane/4 + 8h, in the tensor maps' 128-byte swizzle (16-byte
+// chunk c of row r at chunk c ^ (r % 8), so a warp's eight rows hit
+// distinct banks): bf16 in 64-column boxes, f32 in 32-column boxes.
+__device__ __forceinline__ uint32_t stage_bf16(int j, int r, int lane) {
+  return (j / 8) * BOX_BYTES + r * 128 + (((j % 8) ^ (r % 8)) * 16) + (lane & 3) * 4;
+}
+__device__ __forceinline__ uint32_t stage_f32(int j, int r, int lane) {
+  return (j / 4) * BOX_BYTES + r * 128 + ((((j % 4) * 2 + ((lane & 3) >> 1)) ^ (r % 8)) * 16) +
+         (lane & 1) * 8;
 }
 
 // One thread's two adjacent outputs (columns gn and gn + 1 of element idx's
@@ -434,6 +590,17 @@ __device__ __forceinline__ void gemm_pair(float a0, float a1, bool in_rows, size
   *o2 = *reinterpret_cast<uint32_t*>(&p2);
 }
 
+// gemm_kernel<WG, TN, EPI>: C[M,N] = epilogue(A[M,K] @ W[K,N]), A, W, C, res
+// row-major bf16, bias and ls f32 vectors: every forward product of the
+// chains. A is loaded K-major (TM x 64 boxes), W as it is stored, N-major
+// (64 x 64 boxes). Tiles walk row-block major, so a row block's A stays in
+// L2 across its column blocks.
+// EPI_BIAS_GELU_PAIR writes the biased product h to out and gelu(h) to out2.
+// EPI_F32BIAS: bf16(acc + bias); EPI_F32BIAS_LS_RES: bf16(res + bf16((acc +
+// bias) * ls)), in f32 up to the inner rounding; EPI_F32BIAS_LS_RES_H2 also
+// writes h2 = bf16(acc + bias) to out2 (the pre-LayerScale output that
+// _mlp_stream_train_kernel saves). EPI_NONE: bf16(acc); bias, ls and res are
+// not read.
 template <int WG, int TN, int EPI>
 __global__ void __launch_bounds__((WG + 1) * WG_THREADS, 1)
 gemm_kernel(const __grid_constant__ CUtensorMap tma_a, const __grid_constant__ CUtensorMap tma_w,
@@ -443,24 +610,16 @@ gemm_kernel(const __grid_constant__ CUtensorMap tma_a, const __grid_constant__ C
   using P = GemmPlan<WG, TN, EPI>;
   constexpr bool TWO = two_outputs(EPI);
   extern __shared__ unsigned char gemm_smem[];
-  // The ring starts at the first 1024-byte boundary: stage s holds A then W;
-  // then each consumer warpgroup's staging buffers (out, then out2).
+  // The ring starts at the first 1024-byte boundary; then each consumer
+  // warpgroup's staging buffers (out, then out2); then the barriers.
   const uint32_t base = (smem_addr(gemm_smem) + 1023u) & ~1023u;
-  const uint32_t staging = base + GSTAGES * P::STAGE_BYTES;
-  const uint32_t bars = staging + WG * P::OUTS * P::OUT_BYTES;  // full[s], then empty[s]
+  const uint32_t staging = base + P::RING;
+  const uint32_t bars = staging + WG * P::OUTS * P::OUT_BYTES;
   const int wg = threadIdx.x / WG_THREADS;
   const int tiles_n = N / TN;
   const int tiles = (M + P::TM - 1) / P::TM * tiles_n;
   const int ktiles = (K + GK - 1) / GK;
-
-  if (threadIdx.x == 0) {
-    for (int s = 0; s < GSTAGES; ++s) {
-      mbar_init(bars + 8 * s, 1);                 // the producer's expect_tx
-      mbar_init(bars + 8 * (GSTAGES + s), WG);    // one arrival per consumer warpgroup
-    }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  }
-  __syncthreads();
+  init_ring(bars, WG, 0);
 
   if (wg == WG) {
     // Producer: one thread keeps the ring full across all of this block's
@@ -470,75 +629,35 @@ gemm_kernel(const __grid_constant__ CUtensorMap tma_a, const __grid_constant__ C
     // consumer enough.
     if (WG > 1) asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
     if (threadIdx.x == WG * WG_THREADS) {
-      int stage = 0;
-      uint32_t phase = 0;
+      RingPos pos;
       for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
         const int m0 = t / tiles_n * P::TM, n0 = t % tiles_n * TN;
-        for (int kt = 0; kt < ktiles; ++kt) {
-          const uint32_t full = bars + 8 * stage;
-          mbar_wait(bars + 8 * (GSTAGES + stage), phase ^ 1);
-          mbar_expect_tx(full, P::STAGE_BYTES);
-          const uint32_t sa = base + stage * P::STAGE_BYTES, sb = sa + P::A_BYTES;
+        produce_tile<P::STAGE_BYTES>(base, bars, ktiles, pos, [&](uint32_t sa, uint32_t full, int kt) {
           tma_load(sa, &tma_a, full, kt * GK, m0);
 #pragma unroll
-          for (int h = 0; h < TN / 64; ++h) tma_load(sb + h * GK * 128, &tma_w, full, n0 + 64 * h, kt * GK);
-          if (++stage == GSTAGES) {
-            stage = 0;
-            phase ^= 1;
-          }
-        }
+          for (int h = 0; h < TN / 64; ++h)
+            tma_load(sa + P::A_BYTES + h * BOX_BYTES, &tma_w, full, n0 + 64 * h, kt * GK);
+        });
       }
     }
   } else {
     // Consumers: warpgroup wg owns rows [64*wg, 64*wg + 64) of each tile.
     if (WG > 1) asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
-    constexpr int R = TN / 2;  // accumulators a thread
-    float acc[R];
+    float acc[TN / 2];
     const int lane = threadIdx.x & 31, wq = (threadIdx.x >> 5) & 3;
     const bool signal = (threadIdx.x & (WG_THREADS - 1)) == 0;
     const uint32_t out_s = staging + wg * P::OUTS * P::OUT_BYTES, out2_s = out_s + P::OUT_BYTES;
-    int stage = 0;
-    uint32_t phase = 0;
+    RingPos pos;
     for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
       const int m0 = t / tiles_n * P::TM, n0 = t % tiles_n * TN;
 #pragma unroll
-      for (int i = 0; i < R; ++i) acc[i] = 0.f;
-      int prev = -1;
-      for (int kt = 0; kt < ktiles; ++kt) {
-        mbar_wait(bars + 8 * stage, phase);
-        const uint32_t sa = base + stage * P::STAGE_BYTES + wg * 64 * 128;
-        const uint32_t sb = base + stage * P::STAGE_BYTES + P::A_BYTES;
-        // A: 8-row groups 1024 bytes apart, k16 steps 32 bytes along the
-        // swizzled row. W: N-major, 64-column blocks GK*128 bytes apart,
-        // 8-row (k) groups 1024 bytes apart, k16 steps two such groups.
-        const uint64_t da = sw128_desc(sa, 16, 1024);
-        const uint64_t db = sw128_desc(sb, GK * 128, 1024);
-        fence_acc<R>(acc);
-        wgmma_fence();
-#pragma unroll
-        for (int kk = 0; kk < GK / 16; ++kk)
-          wgmma_tile<TN>(acc, da + static_cast<uint64_t>(2 * kk), db + static_cast<uint64_t>(128 * kk));
-        wgmma_commit();
-        fence_acc<R>(acc);
-        wgmma_wait<1>();  // the previous stage's products are done: release it
-        if (prev >= 0 && signal) mbar_arrive(bars + 8 * (GSTAGES + prev));
-        prev = stage;
-        if (++stage == GSTAGES) {
-          stage = 0;
-          phase ^= 1;
-        }
-      }
-      wgmma_wait<0>();
-      fence_acc<R>(acc);
-      if (prev >= 0 && signal) mbar_arrive(bars + 8 * (GSTAGES + prev));
-      // Epilogue: accumulator i of this thread is row 16*wq + lane/4 +
-      // 8*((i/2)%2), column 8*(i/4) + 2*(lane%4) + i%2 of the warpgroup's
-      // 64 x TN slice. Its bf16 pairs go into the staging buffers in the
-      // tensor maps' 128-byte swizzle (16-byte chunk c of row r at chunk
-      // c ^ (r % 8): the warp's eight rows hit distinct banks), then one
-      // thread stores the slice by TMA, which overlaps the next tile's main
-      // loop. Direct 4-byte stores in this layout cost as much as the
-      // products at K = 384.
+      for (int i = 0; i < TN / 2; ++i) acc[i] = 0.f;
+      consume_tile<TN, false, true, P::A_BYTES, P::STAGE_BYTES>(acc, base, bars, wg, signal, ktiles,
+                                                                 pos, [](uint32_t) {});
+      // Epilogue into the staging buffers, then one thread stores the slice
+      // by TMA, which overlaps the next tile's main loop. Direct 4-byte
+      // stores in the accumulator layout cost as much as the products at
+      // K = 384.
       if (signal) asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
       warpgroup_sync(1 + wg);  // the previous tile's stores have read the buffers
       const int row = wq * 16 + (lane >> 2);
@@ -552,9 +671,8 @@ gemm_kernel(const __grid_constant__ CUtensorMap tma_a, const __grid_constant__ C
           gemm_pair<EPI>(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1], gm < M,
                          static_cast<size_t>(gm) * N + col + 8 * j, col + 8 * j, bias, ls, res,
                          &o, &o2);
-          const uint32_t off = (j / 8) * 64 * 128 + r * 128 + (((j % 8) ^ (r % 8)) * 16) + (lane & 3) * 4;
-          st_shared(out_s + off, o);
-          if (TWO) st_shared(out2_s + off, o2);
+          st_shared(out_s + stage_bf16(j, r, lane), o);
+          if (TWO) st_shared(out2_s + stage_bf16(j, r, lane), o2);
         }
       }
       asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
@@ -562,8 +680,8 @@ gemm_kernel(const __grid_constant__ CUtensorMap tma_a, const __grid_constant__ C
       if (signal) {
 #pragma unroll
         for (int h = 0; h < TN / 64; ++h) {
-          tma_store(&tma_out, out_s + h * 64 * 128, n0 + 64 * h, m0 + wg * 64);
-          if (TWO) tma_store(&tma_out2, out2_s + h * 64 * 128, n0 + 64 * h, m0 + wg * 64);
+          tma_store(&tma_out, out_s + h * BOX_BYTES, n0 + 64 * h, m0 + wg * 64);
+          if (TWO) tma_store(&tma_out2, out2_s + h * BOX_BYTES, n0 + 64 * h, m0 + wg * 64);
         }
         asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
       }
@@ -572,196 +690,322 @@ gemm_kernel(const __grid_constant__ CUtensorMap tma_a, const __grid_constant__ C
   }
 }
 
-// C[M,N] = epilogue(A'[M,K] @ W[N,K]^T) for the backward products: W is a
-// forward weight stored (in, out) = row-major (N, K), read transposed. The B
-// tile is staged [n][k] in shared memory and loaded as a column-major WMMA
-// operand. A' = A, or with SCALE each element bf16(f32(a) * scale[k]).
-// EPT_GELU_GRAD: out bf16 = bf16(acc * gelu'(f32 aux[m, n])), aux bf16 (M, N);
-// EPT_F32: out f32 = acc (not rounded); EPT_BF16: out bf16 = bf16(acc).
-// With colsum, each block also writes the f32 column sums of its tile's
-// epilogue values before rounding: colsum[blockIdx.y][n], (ceil(M/BM), N).
-template <bool SCALE, int EPI>
-__global__ void __launch_bounds__(GEMM_THREADS)
-gemm_nt_kernel(const bf16* __restrict__ A, const bf16* __restrict__ W,
-               const float* __restrict__ scale, const bf16* __restrict__ aux,
-               void* __restrict__ out, float* __restrict__ colsum, int M, int N, int K) {
-  constexpr int LDA = BK + PAD_H;  // As[m][k]
-  constexpr int LDW = BK + PAD_H;  // Ws[n][k]
-  constexpr int LDC = BN + PAD_F;
-  __shared__ __align__(128) bf16 As[BM * LDA];
-  __shared__ __align__(128) bf16 Ws[BN * LDW];
-  __shared__ __align__(128) float Cs[BM * LDC];
+// d/dz GELU(z) = Phi(z) + z phi(z), the backward epilogue's f32 factor:
+// erf as XLA's f32 rational approximation (x P(x^2) / Q(x^2), x clamped to
+// [-4, 4], the erf JAX's compiler emits), exp(-z^2/2) by ex2.approx: two
+// special-function operations an element, fewer than erff and expf take
+// (tests/test_torch_gemm_bwd.py holds the formula against the exact
+// derivative at every bf16 z). The product is rounded to bf16 after it.
+__device__ __forceinline__ float gelu_grad(float z) {
+  const float x = fminf(fmaxf(z * 0.70710678118654752440f, -4.f), 4.f);
+  const float x2 = x * x;
+  float p = -2.72614225801306e-10f;
+  p = fmaf(p, x2, 2.77068142495902e-08f);
+  p = fmaf(p, x2, -2.10102402082508e-06f);
+  p = fmaf(p, x2, -5.69250639462346e-05f);
+  p = fmaf(p, x2, -7.34990630326855e-04f);
+  p = fmaf(p, x2, -2.95459980854025e-03f);
+  p = fmaf(p, x2, -1.60960333262415e-02f);
+  float q = -1.45660718464996e-05f;
+  q = fmaf(q, x2, -2.13374055278905e-04f);
+  q = fmaf(q, x2, -1.68282697438203e-03f);
+  q = fmaf(q, x2, -7.37332916720468e-03f);
+  q = fmaf(q, x2, -1.42647390514189e-02f);
+  return 0.5f * (1.f + __fdividef(x * p, q)) + z * __expf(-0.5f * z * z) * 0.3989422804014327f;
+}
 
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  const int tid = threadIdx.x, warp = tid >> 5;
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][2];
+// One round of the column sums' reduce-scatter: of its 2*HALF sums a lane
+// keeps the upper half where `hi`, else the lower, and adds its partner's
+// (lane ^ mask) copy of them into slots 0..HALF-1. A template, so that every
+// index is a constant and the sums stay in registers.
+template <int HALF>
+__device__ __forceinline__ void fold_sums(float* cs, bool hi, int mask) {
 #pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-  const int wm = (warp >> 1) * 32, wn = (warp & 1) * 32;
-
-  for (int k0 = 0; k0 < K; k0 += BK) {
-    for (int i = tid; i < BM * BK / 8; i += GEMM_THREADS) {
-      const int r = i / (BK / 8), c = (i % (BK / 8)) * 8;
-      const int gm = m0 + r;
-      uint4 v = make_uint4(0u, 0u, 0u, 0u);
-      if (gm < M) {
-        v = *reinterpret_cast<const uint4*>(A + static_cast<size_t>(gm) * K + k0 + c);
-        if (SCALE) {
-          bf16* e = reinterpret_cast<bf16*>(&v);
-#pragma unroll
-          for (int j = 0; j < 8; ++j)
-            e[j] = __float2bfloat16(__bfloat162float(e[j]) * scale[k0 + c + j]);
-        }
-      }
-      *reinterpret_cast<uint4*>(As + r * LDA + c) = v;
-    }
-    for (int i = tid; i < BN * BK / 8; i += GEMM_THREADS) {
-      const int r = i / (BK / 8), c = (i % (BK / 8)) * 8;
-      *reinterpret_cast<uint4*>(Ws + r * LDW + c) =
-          *reinterpret_cast<const uint4*>(W + static_cast<size_t>(n0 + r) * K + k0 + c);
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> af[2];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> bfr[2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-        wmma::load_matrix_sync(af[i], As + (wm + 16 * i) * LDA + kk, LDA);
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        wmma::load_matrix_sync(bfr[j], Ws + (wn + 16 * j) * LDW + kk, LDW);
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) wmma::mma_sync(acc[i][j], af[i], bfr[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-      wmma::store_matrix_sync(Cs + (wm + 16 * i) * LDC + wn + 16 * j, acc[i][j], LDC,
-                              wmma::mem_row_major);
-  __syncthreads();
-
-  for (int i = tid; i < BM * BN; i += GEMM_THREADS) {
-    const int r = i / BN, c = i % BN;
-    const int gm = m0 + r, gn = n0 + c;
-    if (gm >= M) {
-      Cs[r * LDC + c] = 0.f;  // no part in the column sums
-      continue;
-    }
-    float a = Cs[r * LDC + c];
-    const size_t o = static_cast<size_t>(gm) * N + gn;
-    if (EPI == EPT_GELU_GRAD) {
-      const float z = __bfloat162float(aux[o]);
-      const float g = 0.5f * (1.f + erff(z * 0.70710678118654752440f)) +
-                      z * expf(-0.5f * z * z) * 0.3989422804014327f;
-      a *= g;
-      static_cast<bf16*>(out)[o] = __float2bfloat16(a);
-    } else if (EPI == EPT_BF16) {
-      static_cast<bf16*>(out)[o] = __float2bfloat16(a);
-    } else {
-      static_cast<float*>(out)[o] = a;
-    }
-    Cs[r * LDC + c] = a;  // each element belongs to this one thread
-  }
-  if (colsum != nullptr) {  // the same for the whole block
-    __syncthreads();
-    if (tid < BN) {
-      float s = 0.f;
-      for (int r = 0; r < BM; ++r) s += Cs[r * LDC + tid];
-      colsum[static_cast<size_t>(blockIdx.y) * N + n0 + tid] = s;
-    }
+  for (int i = 0; i < HALF; ++i) {
+    const float send = hi ? cs[i] : cs[i + HALF];
+    const float keep = hi ? cs[i + HALF] : cs[i];
+    cs[i] = keep + __shfl_xor_sync(0xffffffffu, send, mask);
   }
 }
 
-// ws[split][Kin, N] = A[rows, Kin]^T @ G'[rows, N] over the split's rows
-// [split*rps, min(M, (split+1)*rps)): the weight-gradient product. G' = G,
-// or with SCALE each element bf16(f32(g) * scale[n]). Grid (N/BN, Kin/BM,
-// splits); a split with no rows writes zeros. With GSUM the blocks of the
-// first Kin tile also write the f32 column sums of G' over their rows to
-// gsum[split][n]. A is staged [m][i] and loaded as a column-major WMMA
-// operand, so no transposed copy is made.
-template <bool SCALE, bool GSUM>
-__global__ void __launch_bounds__(GEMM_THREADS)
-gemm_tn_kernel(const bf16* __restrict__ A, const bf16* __restrict__ G,
-               const float* __restrict__ scale, float* __restrict__ ws,
-               float* __restrict__ gsum, int M, int Kin, int N, int rps) {
-  constexpr int LDA = BM + PAD_H;  // As[m][i]
-  constexpr int LDG = BN + PAD_H;  // Gs[m][n]
-  __shared__ __align__(128) bf16 As[BK * LDA];
-  __shared__ __align__(128) bf16 Gs[BK * LDG];
+// gemm_nt_kernel<WG, TN, EPI>: C[M,N] = epilogue(A[M,K] @ W[N,K]^T), the
+// dx products of the backward chains: W is a forward weight stored (in,
+// out) = row-major (N, K), so both operands are K-major, wgmma's native
+// layout (W in TN x 64 boxes). EPT_GELU_GRAD: out bf16 = bf16(acc *
+// gelu'(f32 aux[m, n])), aux bf16 (M, N), its tile loaded by TMA into shared
+// memory at the start of each tile while the main loop runs; EPT_F32: out
+// f32 = acc, staged and stored as f32 boxes; EPT_BF16: out bf16 = bf16(acc).
+// With SUMS, each consumer warpgroup also writes the f32 column sums of
+// its 64 rows' epilogue values before rounding, rows past M left out, to
+// colsum[(m0 + 64*wg) / 64][n], (ceil(M/64), N): each thread adds its two
+// rows of each column, the eight lanes of a warp that share columns add
+// theirs by a reduce-scatter butterfly (each of three shuffle rounds keeps
+// half the columns: 28 shuffles a thread for 32 sums), the four warps
+// theirs in shared memory in order, so two runs give the same bits. A
+// warpgroup whose rows all lie past M (the ragged last tile) skips its
+// epilogue. Shared memory that the epilogue reads back (the aux tile, the
+// sums) is read by plain loads, which the compiler batches; the barrier
+// waits before them carry the memory clobbers that order them.
+template <int WG, int TN, int EPI, bool SUMS>
+__global__ void __launch_bounds__((WG + 1) * WG_THREADS, 1)
+gemm_nt_kernel(const __grid_constant__ CUtensorMap tma_a, const __grid_constant__ CUtensorMap tma_w,
+               const __grid_constant__ CUtensorMap tma_aux,
+               const __grid_constant__ CUtensorMap tma_out, float* __restrict__ colsum, int M,
+               int N, int K) {
+  using P = NtPlan<WG, TN, EPI, SUMS>;
+  constexpr bool F32 = EPI == EPT_F32, GELU = EPI == EPT_GELU_GRAD;
+  extern __shared__ unsigned char gemm_smem[];
+  // Ring, then per warpgroup its output staging and aux tile, then the
+  // warpgroups' column-sum rows, then the barriers (full, empty, aux[wg]).
+  const uint32_t base = (smem_addr(gemm_smem) + 1023u) & ~1023u;
+  const uint32_t staging = base + P::RING;
+  const uint32_t red = staging + WG * (P::OUT_BYTES + P::AUX_BYTES);
+  const uint32_t bars = red + WG * P::RED_BYTES;
+  const int wg = threadIdx.x / WG_THREADS;
+  const int tiles_n = N / TN;
+  const int tiles = (M + P::TM - 1) / P::TM * tiles_n;
+  const int ktiles = (K + GK - 1) / GK;
+  init_ring(bars, WG, WG);
 
-  const int n0 = blockIdx.x * BN, i0 = blockIdx.y * BM, split = blockIdx.z;
-  const int mb = split * rps, me = min(M, mb + rps);
-  const int tid = threadIdx.x, warp = tid >> 5;
-  const bool sums = GSUM && blockIdx.y == 0 && tid < BN;
-  const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-  const int wi = (warp >> 1) * 32, wn = (warp & 1) * 32;
-  float gs = 0.f;
-
-  for (int m0 = mb; m0 < me; m0 += BK) {
-    for (int i = tid; i < BK * BM / 8; i += GEMM_THREADS) {
-      const int r = i / (BM / 8), c = (i % (BM / 8)) * 8;
-      uint4 v = zero;
-      if (m0 + r < me)
-        v = *reinterpret_cast<const uint4*>(A + static_cast<size_t>(m0 + r) * Kin + i0 + c);
-      *reinterpret_cast<uint4*>(As + r * LDA + c) = v;
+  if (wg == WG) {
+    if (WG > 1) asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (threadIdx.x == WG * WG_THREADS) {
+      RingPos pos;
+      for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+        const int m0 = t / tiles_n * P::TM, n0 = t % tiles_n * TN;
+        produce_tile<P::STAGE_BYTES>(base, bars, ktiles, pos, [&](uint32_t sa, uint32_t full, int kt) {
+          tma_load(sa, &tma_a, full, kt * GK, m0);
+          tma_load(sa + P::A_BYTES, &tma_w, full, kt * GK, n0);
+        });
+      }
     }
-    for (int i = tid; i < BK * BN / 8; i += GEMM_THREADS) {
-      const int r = i / (BN / 8), c = (i % (BN / 8)) * 8;
-      uint4 v = zero;
-      if (m0 + r < me) {
-        v = *reinterpret_cast<const uint4*>(G + static_cast<size_t>(m0 + r) * N + n0 + c);
-        if (SCALE) {
-          bf16* e = reinterpret_cast<bf16*>(&v);
+  } else {
+    if (WG > 1) asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    float acc[TN / 2];
+    const int lane = threadIdx.x & 31, wq = (threadIdx.x >> 5) & 3;
+    const int tid = threadIdx.x & (WG_THREADS - 1);
+    const bool signal = tid == 0;
+    const uint32_t out_s = staging + wg * (P::OUT_BYTES + P::AUX_BYTES);
+    const uint32_t aux_s = out_s + P::OUT_BYTES;
+    const uint32_t red_s = red + wg * P::RED_BYTES;
+    const uint32_t aux_bar = bars + 8 * (2 * GSTAGES + wg);
+    // Generic pointers to this warpgroup's aux tile and column-sum rows.
+    const unsigned char* aux_p = gemm_smem + (aux_s - smem_addr(gemm_smem));
+    float* red_p = reinterpret_cast<float*>(gemm_smem + (red_s - smem_addr(gemm_smem)));
+    RingPos pos;
+    uint32_t aux_phase = 0;
+    for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+      const int m0 = t / tiles_n * P::TM, n0 = t % tiles_n * TN;
+      const int r0 = m0 + wg * 64;  // this warpgroup's first row
+      const bool live = r0 < M;
+      // The aux tile: the previous tile's epilogue read it before the
+      // warpgroup barrier that ended it, so the buffer is free.
+      if (GELU && live && signal) {
+        mbar_expect_tx(aux_bar, P::AUX_BYTES);
 #pragma unroll
-          for (int j = 0; j < 8; ++j)
-            e[j] = __float2bfloat16(__bfloat162float(e[j]) * scale[n0 + c + j]);
+        for (int h = 0; h < TN / 64; ++h) tma_load(aux_s + h * BOX_BYTES, &tma_aux, aux_bar, n0 + 64 * h, r0);
+      }
+#pragma unroll
+      for (int i = 0; i < TN / 2; ++i) acc[i] = 0.f;
+      consume_tile<TN, false, false, P::A_BYTES, P::STAGE_BYTES>(acc, base, bars, wg, signal, ktiles,
+                                                                  pos, [](uint32_t) {});
+      if (!live) continue;
+      if (signal) asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+      warpgroup_sync(1 + wg);  // the previous tile's stores have read the buffers
+      if (GELU) {
+        mbar_wait(aux_bar, aux_phase);
+        aux_phase ^= 1;
+      }
+      const int row = wq * 16 + (lane >> 2);
+      float cs[TN / 4];  // column 8j + 2(lane%4) + c at 2j + c: this thread's two rows
+#pragma unroll
+      for (int j = 0; j < TN / 8; ++j) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int r = row + 8 * h;
+          float v[2] = {acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]};
+          if (GELU) {
+            const __nv_bfloat162 z2 =
+                *reinterpret_cast<const __nv_bfloat162*>(aux_p + stage_bf16(j, r, lane));
+            const float z[2] = {__low2float(z2), __high2float(z2)};
+#pragma unroll
+            for (int c = 0; c < 2; ++c) v[c] *= gelu_grad(z[c]);
+          }
+          if (SUMS) {
+            const bool in = r0 + r < M;
+#pragma unroll
+            for (int c = 0; c < 2; ++c) cs[2 * j + c] = (h ? cs[2 * j + c] : 0.f) + (in ? v[c] : 0.f);
+          }
+          if (F32) {
+            st_shared2(out_s + stage_f32(j, r, lane), v[0], v[1]);
+          } else {
+            __nv_bfloat162 p = __floats2bfloat162_rn(v[0], v[1]);
+            st_shared(out_s + stage_bf16(j, r, lane), *reinterpret_cast<uint32_t*>(&p));
+          }
         }
       }
-      *reinterpret_cast<uint4*>(Gs + r * LDG + c) = v;
+      if (SUMS) {
+        // Reduce-scatter over the eight lanes that share lane % 4: in round
+        // s a lane keeps half of its remaining sums and adds its partner's
+        // (lane ^ (16 >> s)) copy of that half. Slot i then holds column
+        // index base + i of the cs layout, summed over the warp's 16 rows.
+        constexpr int V = TN / 4;
+        fold_sums<V / 2>(cs, (lane & 16) != 0, 16);
+        fold_sums<V / 4>(cs, (lane & 8) != 0, 8);
+        fold_sums<V / 8>(cs, (lane & 4) != 0, 4);
+        const int base = ((lane >> 4) & 1) * (V / 2) + ((lane >> 3) & 1) * (V / 4) +
+                         ((lane >> 2) & 1) * (V / 8);
+#pragma unroll
+        for (int i = 0; i < V / 8; i += 2)
+          st_shared2(red_s + (wq * TN + 8 * ((base + i) >> 1) + 2 * (lane & 3)) * 4, cs[i],
+                     cs[i + 1]);
+      }
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      warpgroup_sync(1 + wg);
+      if (signal) {
+        if (F32) {
+#pragma unroll
+          for (int h = 0; h < TN / 32; ++h) tma_store(&tma_out, out_s + h * BOX_BYTES, n0 + 32 * h, r0);
+        } else {
+#pragma unroll
+          for (int h = 0; h < TN / 64; ++h) tma_store(&tma_out, out_s + h * BOX_BYTES, n0 + 64 * h, r0);
+        }
+        asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+      }
+      if (SUMS && tid < TN)
+        colsum[static_cast<size_t>(r0 / 64) * N + n0 + tid] =
+            ((red_p[tid] + red_p[TN + tid]) + red_p[2 * TN + tid]) + red_p[3 * TN + tid];
     }
-    __syncthreads();
-    if (sums)
-      for (int r = 0; r < BK; ++r) gs += __bfloat162float(Gs[r * LDG + tid]);
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major> af[2];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> bfr[2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-        wmma::load_matrix_sync(af[i], As + kk * LDA + wi + 16 * i, LDA);
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        wmma::load_matrix_sync(bfr[j], Gs + kk * LDG + wn + 16 * j, LDG);
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) wmma::mma_sync(acc[i][j], af[i], bfr[j], acc[i][j]);
-    }
-    __syncthreads();
+    if (signal) asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
   }
+}
 
-  float* dst = ws + static_cast<size_t>(split) * Kin * N;
+// gemm_tn_kernel<WG, TN>: the weight-gradient product dW[Kin,N] = A[M,Kin]^T
+// @ G[M,N], reducing over the M = B*S rows, split over `splits` row ranges
+// of rps rows (a multiple of the 64-row box, so a box never reads the next
+// split's rows; TMA reads the rows past M as zeros): split s writes its f32
+// partial to rows [s*Kin, (s+1)*Kin) of out (the caller's workspace, or dW
+// itself when there is one split), which sum_rows_kernel adds in a fixed
+// order. wgmma's A is the Kin x m tile, read MN-major with the transpose bit
+// (WG boxes of 64 rows x 64 Kin columns, one per consumer warpgroup), its B
+// the m x TN tile of G, MN-major as gemm_kernel reads W. Tiles walk split
+// major, so the blocks in flight stream the same rows through L2. With
+// gsum, every consumer warpgroup also adds the column sums of G over a
+// share of its split's rows from the staged B tiles: the tiles of one
+// (split, column block) see the same G rows, so warpgroup part p = (i0 +
+// 64*wg) / 64 of the Kin/64 sums the rows r of each stage with r % (Kin/64)
+// == p, in order, into gsum[s * Kin/64 + p][n] (the same bits every run,
+// and no tile slower than the others).
+template <int WG, int TN>
+__global__ void __launch_bounds__((WG + 1) * WG_THREADS, 1)
+gemm_tn_kernel(const __grid_constant__ CUtensorMap tma_a, const __grid_constant__ CUtensorMap tma_g,
+               const __grid_constant__ CUtensorMap tma_out, float* __restrict__ gsum, int M,
+               int Kin, int N, int rps, int splits) {
+  using P = TnPlan<WG, TN>;
+  extern __shared__ unsigned char gemm_smem[];
+  const uint32_t base = (smem_addr(gemm_smem) + 1023u) & ~1023u;
+  const uint32_t staging = base + P::RING;
+  const uint32_t bars = staging + WG * P::OUT_BYTES;
+  const int wg = threadIdx.x / WG_THREADS;
+  const int tiles_n = N / TN, per_split = Kin / P::TM * tiles_n;
+  const int tiles = per_split * splits;
+  init_ring(bars, WG, 0);
+  // Tile t: its split, Kin block, column block and 64-row k steps.
+  auto tile = [&](int t, int& s, int& i0, int& n0) {
+    s = t / per_split;
+    const int rem = t % per_split;
+    i0 = rem / tiles_n * P::TM;
+    n0 = rem % tiles_n * TN;
+    const int rows = min(rps, M - s * rps);
+    return rows > 0 ? (rows + GK - 1) / GK : 0;
+  };
+
+  if (wg == WG) {
+    if (WG > 1) asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (threadIdx.x == WG * WG_THREADS) {
+      RingPos pos;
+      for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+        int s, i0, n0;
+        const int ktiles = tile(t, s, i0, n0);
+        produce_tile<P::STAGE_BYTES>(base, bars, ktiles, pos, [&](uint32_t sa, uint32_t full, int kt) {
+          const int m = s * rps + kt * GK;
 #pragma unroll
-  for (int i = 0; i < 2; ++i)
+          for (int w = 0; w < WG; ++w) tma_load(sa + w * BOX_BYTES, &tma_a, full, i0 + 64 * w, m);
 #pragma unroll
-    for (int j = 0; j < 2; ++j)
-      wmma::store_matrix_sync(dst + static_cast<size_t>(i0 + wi + 16 * i) * N + n0 + wn + 16 * j,
-                              acc[i][j], N, wmma::mem_row_major);
-  if (sums) gsum[static_cast<size_t>(split) * N + n0 + tid] = gs;
+          for (int h = 0; h < TN / 64; ++h)
+            tma_load(sa + P::A_BYTES + h * BOX_BYTES, &tma_g, full, n0 + 64 * h, m);
+        });
+      }
+    }
+  } else {
+    if (WG > 1) asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    float acc[TN / 2];
+    const int lane = threadIdx.x & 31, wq = (threadIdx.x >> 5) & 3;
+    const int tid = threadIdx.x & (WG_THREADS - 1);
+    const bool signal = tid == 0;
+    const uint32_t out_s = staging + wg * P::OUT_BYTES;
+    // The column of G this thread sums: box tid / 64, 16-byte chunk (tid %
+    // 64) / 8 of each row, swizzled by the row; the rows of its part.
+    const uint32_t gcol = (tid / 64) * BOX_BYTES + (tid % 8) * 2;
+    const int gchunk = (tid % 64) / 8;
+    const int parts = Kin / 64;
+    RingPos pos;
+    for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+      int s, i0, n0;
+      const int ktiles = tile(t, s, i0, n0);
+      const int part = i0 / 64 + wg;
+      const bool sums = gsum != nullptr && tid < TN;
+      float gs = 0.f;
+#pragma unroll
+      for (int i = 0; i < TN / 2; ++i) acc[i] = 0.f;
+      consume_tile<TN, true, true, P::A_BYTES, P::STAGE_BYTES>(
+          acc, base, bars, wg, signal, ktiles, pos, [&](uint32_t sb) {
+            if (!sums) return;
+            const unsigned char* col = gemm_smem + (sb + gcol - smem_addr(gemm_smem));
+#pragma unroll 4
+            for (int r = part; r < GK; r += parts)
+              gs += __bfloat162float(
+                  *reinterpret_cast<const bf16*>(col + r * 128 + ((gchunk ^ (r % 8)) * 16)));
+          });
+      if (signal) asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+      warpgroup_sync(1 + wg);
+      const int row = wq * 16 + (lane >> 2);
+#pragma unroll
+      for (int j = 0; j < TN / 8; ++j) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          st_shared2(out_s + stage_f32(j, row + 8 * h, lane), acc[4 * j + 2 * h],
+                     acc[4 * j + 2 * h + 1]);
+      }
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      warpgroup_sync(1 + wg);
+      if (signal) {
+#pragma unroll
+        for (int h = 0; h < TN / 32; ++h)
+          tma_store(&tma_out, out_s + h * BOX_BYTES, n0 + 32 * h, s * Kin + i0 + 64 * wg);
+        asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+      }
+      if (sums) gsum[(static_cast<size_t>(s) * parts + part) * N + n0 + tid] = gs;
+    }
+    if (signal) asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+  }
+}
+
+// out[m, k] = bf16(f32(a[m, k]) * scale[k]) over (M, K) bf16, 8 elements a
+// thread: the chains' scaled cotangents bf16(dy * ls2) and bf16(dx2 * ls1),
+// rounded once as the TPU kernels round them, formed once for the two
+// products that read them (TMA cannot scale what it loads).
+__global__ void scale_rows_kernel(const bf16* __restrict__ a, const float* __restrict__ scale,
+                                  bf16* __restrict__ out, long long n8, int k8) {
+  for (long long i = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x; i < n8;
+       i += static_cast<long long>(gridDim.x) * blockDim.x) {
+    uint4 v = reinterpret_cast<const uint4*>(a)[i];
+    const float* sc = scale + (i % k8) * 8;
+    bf16* e = reinterpret_cast<bf16*>(&v);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) e[j] = __float2bfloat16(__bfloat162float(e[j]) * sc[j]);
+    reinterpret_cast<uint4*>(out)[i] = v;
+  }
 }
 
 // out[i] = sum over r of part[r][i], r = 0 .. rows-1 in order: the fixed-order
@@ -1359,18 +1603,21 @@ EncodeTiledFn encode_tiled() {
   return fn;
 }
 
-// A row-major (outer, inner) bf16 matrix as TMA tiles of (box_outer,
-// box_inner) elements, 128-byte swizzled (box_inner = 64).
-bool encode_tiles(CUtensorMap* map, const void* base, int inner, int outer, int box_outer) {
+// A row-major (outer, inner) matrix as TMA tiles of box_outer rows of 128
+// bytes (64 bf16 or 32 f32 values), 128-byte swizzled.
+bool encode_tiles(CUtensorMap* map, const void* base, int inner, int outer, int box_outer,
+                  bool f32 = false) {
   EncodeTiledFn fn = encode_tiled();
   if (fn == nullptr) return false;
+  const int esize = f32 ? 4 : 2;
   const cuuint64_t dims[2] = {static_cast<cuuint64_t>(inner), static_cast<cuuint64_t>(outer)};
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(inner) * 2};
-  const cuuint32_t box[2] = {static_cast<cuuint32_t>(GK), static_cast<cuuint32_t>(box_outer)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(inner) * esize};
+  const cuuint32_t box[2] = {static_cast<cuuint32_t>(128 / esize), static_cast<cuuint32_t>(box_outer)};
   const cuuint32_t step[2] = {1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims, strides, box,
-            step, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+  return fn(map, f32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+            const_cast<void*>(base), dims, strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 int sm_count() {
@@ -1382,16 +1629,44 @@ int sm_count() {
   return count[dev] > 0 ? count[dev] : 132;
 }
 
-// The tile plan of an (M, N) product: 0 = 128 x 128 (two consumer
-// warpgroups) where those tiles fill the card; 1 = 64 x 128 where only 64-row
-// tiles do; 2 = 64 x 64 otherwise (the batch-1 products), or where N is not a
-// multiple of 128.
+// The tile plan of an (M, N) product of gemm_kernel or gemm_nt_kernel: 0 =
+// 128 x 128 (two consumer warpgroups) where those tiles fill the card; 1 =
+// 64 x 128 where only 64-row tiles do; 2 = 64 x 64 otherwise (the batch-1
+// products), or where N is not a multiple of 128.
 int gemm_plan(int M, int N) {
   const int sms = sm_count();
   if (N % 128 == 0 && (M + 127) / 128 * (N / 128) >= sms) return 0;
   if (N % 128 == 0 && (M + 63) / 64 * (N / 128) >= sms) return 1;
   return 2;
 }
+
+// The tile plan of a gemm_tn product dW (Kin, N): the largest tile the
+// shape takes (the row splits fill the card), 0 = 128 x 128, 1 = 64 x 128,
+// 2 = 64 x 64. ops/block.py _tn_tile mirrors it.
+int tn_plan(int Kin, int N) {
+  if (N % 128) return 2;
+  return Kin % 128 ? 1 : 0;
+}
+
+// Rows a split of a gemm_tn product takes: the M rows' 64-row steps shared
+// out evenly over `splits` (ops/block.py _split_rows mirrors it).
+int split_rows(int M, int splits) {
+  const int steps = (M + GK - 1) / GK;
+  return (steps + splits - 1) / splits * GK;
+}
+
+// Sets the kernel's dynamic shared memory once per instantiation (`sized`
+// is the caller's static; every thread that races here sets the same value).
+template <typename Kernel>
+cudaError_t size_once(Kernel kernel, size_t smem, bool& sized) {
+  if (sized) return cudaSuccess;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  sized = err == cudaSuccess;
+  return err;
+}
+
+int grid_for(int tiles) { return tiles < sm_count() ? tiles : sm_count(); }
 
 template <int WG, int TN, int EPI>
 cudaError_t launch_gemm_plan(const void* A, const void* W, const void* bias, const void* ls,
@@ -1403,19 +1678,13 @@ cudaError_t launch_gemm_plan(const void* A, const void* W, const void* bias, con
       !encode_tiles(&to, out, N, M, 64) ||
       !encode_tiles(&to2, two_outputs(EPI) ? out2 : out, N, M, 64))
     return cudaErrorInvalidValue;
-  static bool sized = false;  // the same value from every thread that races here
-  if (!sized) {
-    cudaError_t err = cudaFuncSetAttribute(gemm_kernel<WG, TN, EPI>,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           static_cast<int>(P::SMEM));
-    if (err != cudaSuccess) return err;
-    sized = true;
-  }
-  const int tiles = (M + P::TM - 1) / P::TM * (N / TN);
-  const int grid = tiles < sm_count() ? tiles : sm_count();
-  gemm_kernel<WG, TN, EPI><<<grid, P::THREADS, P::SMEM, stream>>>(
-      ta, tw, to, to2, static_cast<const float*>(bias), static_cast<const float*>(ls),
-      static_cast<const bf16*>(res), M, N, K);
+  static bool sized = false;
+  cudaError_t err = size_once(gemm_kernel<WG, TN, EPI>, P::SMEM, sized);
+  if (err != cudaSuccess) return err;
+  gemm_kernel<WG, TN, EPI><<<grid_for((M + P::TM - 1) / P::TM * (N / TN)), P::THREADS, P::SMEM,
+                             stream>>>(ta, tw, to, to2, static_cast<const float*>(bias),
+                                       static_cast<const float*>(ls),
+                                       static_cast<const bf16*>(res), M, N, K);
   return cudaGetLastError();
 }
 
@@ -1436,16 +1705,46 @@ cudaError_t launch_gemm(const void* A, const void* W, const void* bias, const vo
   }
 }
 
-template <bool SCALE, int EPI>
-cudaError_t launch_gemm_nt(const void* A, const void* W, const void* scale, const void* aux,
-                           void* out, int M, int N, int K, cudaStream_t stream,
-                           void* colsum = nullptr) {
-  dim3 grid(N / BN, (M + BM - 1) / BM);
-  gemm_nt_kernel<SCALE, EPI><<<grid, GEMM_THREADS, 0, stream>>>(
-      static_cast<const bf16*>(A), static_cast<const bf16*>(W),
-      static_cast<const float*>(scale), static_cast<const bf16*>(aux), out,
-      static_cast<float*>(colsum), M, N, K);
+template <int WG, int TN, int EPI, bool SUMS>
+cudaError_t launch_gemm_nt_plan(const void* A, const void* W, const void* aux, void* out,
+                                void* colsum, int M, int N, int K, cudaStream_t stream) {
+  using P = NtPlan<WG, TN, EPI, SUMS>;
+  CUtensorMap ta, tw, tx, to;
+  if (!encode_tiles(&ta, A, K, M, P::TM) || !encode_tiles(&tw, W, K, N, TN) ||
+      !encode_tiles(&to, out, N, M, 64, EPI == EPT_F32))
+    return cudaErrorInvalidValue;
+  if (EPI != EPT_GELU_GRAD)
+    tx = ta;  // not read
+  else if (!encode_tiles(&tx, aux, N, M, 64))
+    return cudaErrorInvalidValue;
+  static bool sized = false;
+  cudaError_t err = size_once(gemm_nt_kernel<WG, TN, EPI, SUMS>, P::SMEM, sized);
+  if (err != cudaSuccess) return err;
+  gemm_nt_kernel<WG, TN, EPI, SUMS><<<grid_for((M + P::TM - 1) / P::TM * (N / TN)), P::THREADS,
+                                      P::SMEM, stream>>>(ta, tw, tx, to,
+                                                         static_cast<float*>(colsum), M, N, K);
   return cudaGetLastError();
+}
+
+// out = epilogue(A @ W^T), W stored (N, K); with colsum the per-64-row
+// column sums (ceil(M/64), N). The plan by gemm_plan; M any, N % 64 == 0,
+// K % 32 == 0.
+template <int EPI>
+cudaError_t launch_gemm_nt(const void* A, const void* W, const void* aux, void* out, int M, int N,
+                           int K, cudaStream_t stream, void* colsum = nullptr) {
+  if (M <= 0) return cudaSuccess;
+  const bool sums = colsum != nullptr;
+  switch (gemm_plan(M, N)) {
+    case 0:
+      return sums ? launch_gemm_nt_plan<2, 128, EPI, true>(A, W, aux, out, colsum, M, N, K, stream)
+                  : launch_gemm_nt_plan<2, 128, EPI, false>(A, W, aux, out, colsum, M, N, K, stream);
+    case 1:
+      return sums ? launch_gemm_nt_plan<1, 128, EPI, true>(A, W, aux, out, colsum, M, N, K, stream)
+                  : launch_gemm_nt_plan<1, 128, EPI, false>(A, W, aux, out, colsum, M, N, K, stream);
+    default:
+      return sums ? launch_gemm_nt_plan<1, 64, EPI, true>(A, W, aux, out, colsum, M, N, K, stream)
+                  : launch_gemm_nt_plan<1, 64, EPI, false>(A, W, aux, out, colsum, M, N, K, stream);
+  }
 }
 
 // out[i] = sum over the first `rows` rows of part (rows, n), in order.
@@ -1457,25 +1756,60 @@ cudaError_t launch_sum_rows(const void* part, int rows, long long n, void* out,
   return cudaGetLastError();
 }
 
-// dW[Kin, N] = A[M, Kin]^T @ G'[M, N] through `splits` f32 partials in ws
-// (splits, Kin, N); with GSUM also gsum_out[N] = column sums of G' through
-// gsum_ws (splits, N).
-template <bool SCALE, bool GSUM>
-cudaError_t launch_gemm_tn(const void* A, const void* G, const void* scale, void* ws,
-                           void* gsum_ws, void* dw, void* gsum_out, int M, int Kin, int N,
-                           int splits, cudaStream_t stream) {
-  const int rows = (M + splits - 1) / splits;
-  const int rps = (rows + BK - 1) / BK * BK;
-  dim3 grid(N / BN, Kin / BM, splits);
-  gemm_tn_kernel<SCALE, GSUM><<<grid, GEMM_THREADS, 0, stream>>>(
-      static_cast<const bf16*>(A), static_cast<const bf16*>(G),
-      static_cast<const float*>(scale), static_cast<float*>(ws), static_cast<float*>(gsum_ws),
-      M, Kin, N, rps);
-  cudaError_t err = cudaGetLastError();
+// out (M, K) = bf16(a * scale[k]); K % 8 == 0.
+cudaError_t launch_scale_rows(const void* a, const void* scale, void* out, int M, int K,
+                              cudaStream_t stream) {
+  const long long n8 = static_cast<long long>(M) * K / 8;
+  const long long blocks = (n8 + 255) / 256;
+  scale_rows_kernel<<<static_cast<int>(blocks < 4096 ? blocks : 4096), 256, 0, stream>>>(
+      static_cast<const bf16*>(a), static_cast<const float*>(scale), static_cast<bf16*>(out), n8,
+      K / 8);
+  return cudaGetLastError();
+}
+
+template <int WG, int TN>
+cudaError_t launch_gemm_tn_plan(const void* A, const void* G, void* out, void* gsum, int M,
+                                int Kin, int N, int splits, cudaStream_t stream) {
+  using P = TnPlan<WG, TN>;
+  CUtensorMap ta, tg, to;
+  if (!encode_tiles(&ta, A, Kin, M, 64) || !encode_tiles(&tg, G, N, M, 64) ||
+      !encode_tiles(&to, out, N, splits * Kin, 64, true))
+    return cudaErrorInvalidValue;
+  static bool sized = false;
+  cudaError_t err = size_once(gemm_tn_kernel<WG, TN>, P::SMEM, sized);
   if (err != cudaSuccess) return err;
-  err = launch_sum_rows(ws, splits, static_cast<long long>(Kin) * N, dw, stream);
-  if (err != cudaSuccess || !GSUM) return err;
-  return launch_sum_rows(gsum_ws, splits, N, gsum_out, stream);
+  gemm_tn_kernel<WG, TN><<<grid_for(Kin / P::TM * (N / TN) * splits), P::THREADS, P::SMEM,
+                           stream>>>(ta, tg, to, static_cast<float*>(gsum), M, Kin, N,
+                                     split_rows(M, splits), splits);
+  return cudaGetLastError();
+}
+
+// dW[Kin, N] = A[M, Kin]^T @ G[M, N] over `splits` row splits: with one,
+// straight into dw; with more, f32 partials in ws (splits, Kin, N) that
+// sum_rows adds in a fixed order. With gsum_out also the column sums of G
+// (N), through gsum_ws (splits * Kin/64, N). The plan by tn_plan; Kin and
+// N multiples of 64.
+cudaError_t launch_gemm_tn(const void* A, const void* G, void* ws, void* gsum_ws, void* dw,
+                           void* gsum_out, int M, int Kin, int N, int splits,
+                           cudaStream_t stream) {
+  const bool direct = splits == 1;
+  void* out = direct ? dw : ws;
+  void* gs = gsum_out == nullptr ? nullptr : gsum_ws;
+  cudaError_t err;
+  switch (tn_plan(Kin, N)) {
+    case 0:
+      err = launch_gemm_tn_plan<2, 128>(A, G, out, gs, M, Kin, N, splits, stream);
+      break;
+    case 1:
+      err = launch_gemm_tn_plan<1, 128>(A, G, out, gs, M, Kin, N, splits, stream);
+      break;
+    default:
+      err = launch_gemm_tn_plan<1, 64>(A, G, out, gs, M, Kin, N, splits, stream);
+  }
+  if (err == cudaSuccess && !direct)
+    err = launch_sum_rows(ws, splits, static_cast<long long>(Kin) * N, dw, stream);
+  if (err != cudaSuccess || gsum_out == nullptr) return err;
+  return launch_sum_rows(gsum_ws, splits * (Kin / 64), N, gsum_out, stream);
 }
 
 cudaError_t launch_ln_rows(const void* x, const void* gamma, const void* beta, void* out, int M,
@@ -1678,21 +2012,23 @@ cudaError_t mlp_bwd(const void* x2, const void* dy, const void* g2, const void* 
     err = launch_gemm<EPI_BIAS>(g, w2, bf2, nullptr, nullptr, h2, M, D, hidden, st);
     if (err != cudaSuccess) return err;
   }
-  err = launch_gemm_nt<true, EPT_GELU_GRAD>(dy, w2, ls2, h1, dh1b, M, hidden, D, st,
-                                            colsum_part);
+  // bf16(dy * ls2), formed once into dm's f32 buffer (dead until dm is
+  // formed), for the two products that read it: dh1b and dW2.
+  void* dys = dm;
+  err = launch_scale_rows(dy, ls2, dys, M, D, st);
   if (err != cudaSuccess) return err;
-  err = launch_sum_rows(colsum_part, (M + BM - 1) / BM, hidden, dbf1, st);
+  err = launch_gemm_nt<EPT_GELU_GRAD>(dys, w2, h1, dh1b, M, hidden, D, st, colsum_part);
   if (err != cudaSuccess) return err;
-  err = launch_gemm_nt<false, EPT_F32>(dh1b, w1, nullptr, nullptr, dm, M, D, hidden, st);
+  err = launch_sum_rows(colsum_part, (M + 63) / 64, hidden, dbf1, st);
+  if (err != cudaSuccess) return err;
+  err = launch_gemm_tn(g, dys, ws2, nullptr, dw2, nullptr, M, hidden, D, splits2, st);
+  if (err != cudaSuccess) return err;
+  err = launch_gemm_nt<EPT_F32>(dh1b, w1, nullptr, dm, M, D, hidden, st);
   if (err != cudaSuccess) return err;
   err = launch_ln_bwd_sums<SAVED_H2 ? ROWS_UNSCALED : ROWS_RESIDENT>(
       x2, dy, dm, g2, ls2, h2, dx2, row_part, vec4, M, D, eps, st);
   if (err != cudaSuccess) return err;
-  err = launch_gemm_tn<false, false>(m, dh1b, nullptr, ws1, nullptr, dw1, nullptr, M, D, hidden,
-                                     splits1, st);
-  if (err != cudaSuccess) return err;
-  return launch_gemm_tn<true, false>(g, dy, ls2, ws2, nullptr, dw2, nullptr, M, hidden, D,
-                                     splits2, st);
+  return launch_gemm_tn(m, dh1b, ws1, nullptr, dw1, nullptr, M, D, hidden, splits1, st);
 }
 
 // The attention half's backward with its weight gradients (dp_fused_attn_bwd's
@@ -1717,29 +2053,28 @@ cudaError_t attn_bwd(const void* x, const void* dres, const void* g1, const void
   const bool flash = flash_backward(S, D / H);
   err = launch_attention(qkv, ctx, stats, B, S, H, D / H, flash, st);
   if (err != cudaSuccess) return err;
-  if (STREAM) {
-    err = launch_gemm_nt<false, EPT_BF16>(dres, wo, nullptr, nullptr, dctx, M, D, D, st);
-  } else {
+  // The out-projection's cotangent: do itself, or bf16(dx2 * ls1) formed
+  // once into da's f32 buffer (dead until da is formed), for dctx and dWo.
+  const void* dob = dres;
+  if (!STREAM) {
     err = launch_gemm<EPI_BIAS>(ctx, wo, bo, nullptr, nullptr, o, M, D, D, st);
     if (err != cudaSuccess) return err;
-    err = launch_gemm_nt<true, EPT_BF16>(dres, wo, ls1, nullptr, dctx, M, D, D, st);
+    err = launch_scale_rows(dres, ls1, da, M, D, st);
+    if (err != cudaSuccess) return err;
+    dob = da;
   }
+  err = launch_gemm_nt<EPT_BF16>(dob, wo, nullptr, dctx, M, D, D, st);
+  if (err != cudaSuccess) return err;
+  err = launch_gemm_tn(ctx, dob, ws_o, nullptr, dwo, nullptr, M, D, D, splits_o, st);
   if (err != cudaSuccess) return err;
   err = launch_attn_bwd(qkv, dctx, stats, dqkv, B, S, H, D / H, flash, st);
   if (err != cudaSuccess) return err;
-  err = launch_gemm_nt<false, EPT_F32>(dqkv, wqkv, nullptr, nullptr, da, M, D, 3 * D, st);
+  err = launch_gemm_nt<EPT_F32>(dqkv, wqkv, nullptr, da, M, D, 3 * D, st);
   if (err != cudaSuccess) return err;
   err = launch_ln_bwd_sums<STREAM ? ROWS_NO_RES : ROWS_RESIDENT>(
       x, dres, da, g1, ls1, o, dx, row_part, vec4, M, D, eps, st);
   if (err != cudaSuccess) return err;
-  err = launch_gemm_tn<false, true>(a, dqkv, nullptr, ws_qkv, gsum_part, dwqkv, dbqkv, M, D,
-                                    3 * D, splits_qkv, st);
-  if (err != cudaSuccess) return err;
-  if (STREAM)
-    return launch_gemm_tn<false, false>(ctx, dres, nullptr, ws_o, nullptr, dwo, nullptr, M, D, D,
-                                        splits_o, st);
-  return launch_gemm_tn<true, false>(ctx, dres, ls1, ws_o, nullptr, dwo, nullptr, M, D, D,
-                                     splits_o, st);
+  return launch_gemm_tn(a, dqkv, ws_qkv, gsum_part, dwqkv, dbqkv, M, D, 3 * D, splits_qkv, st);
 }
 
 // The MLP half's activation-only backward: h1 = bf16(LN2(x2) W1) + bf16(bf1)
@@ -1755,14 +2090,22 @@ cudaError_t mlp_dx(const void* x2, const void* dy, const void* g2, const void* b
                    void* dh1b, void* dm, void* dx2, int M, int D, int hidden, float eps,
                    cudaStream_t st) {
   // The LayerNorm rows (bf16, M x D) go into dm's f32 buffer, which the
-  // last product overwrites once h1 is formed.
+  // last product overwrites; once h1 is formed, bf16(dy * ls2) takes their
+  // place there (_mlp_dx_kernel's scaled cotangent; a shard's dy is already
+  // scaled).
   cudaError_t err = launch_ln_rows(x2, g2, b2, dm, M, D, eps, st);
   if (err != cudaSuccess) return err;
   err = launch_gemm<EPI_BIAS>(dm, w1, bf1, nullptr, nullptr, h1buf, M, hidden, D, st);
   if (err != cudaSuccess) return err;
-  err = launch_gemm_nt<!PARTIAL, EPT_GELU_GRAD>(dy, w2, ls2, h1buf, dh1b, M, hidden, D, st);
+  const void* dys = dy;
+  if (!PARTIAL) {
+    err = launch_scale_rows(dy, ls2, dm, M, D, st);
+    if (err != cudaSuccess) return err;
+    dys = dm;
+  }
+  err = launch_gemm_nt<EPT_GELU_GRAD>(dys, w2, h1buf, dh1b, M, hidden, D, st);
   if (err != cudaSuccess) return err;
-  err = launch_gemm_nt<false, EPT_F32>(dh1b, w1, nullptr, nullptr, dm, M, D, hidden, st);
+  err = launch_gemm_nt<EPT_F32>(dh1b, w1, nullptr, dm, M, D, hidden, st);
   if (err != cudaSuccess) return err;
   const int rows_per_block = ROW_THREADS / 32;
   ln_bwd_rows_kernel<false, PARTIAL ? ROWS_NO_RES : ROWS_RESIDENT>
@@ -1805,6 +2148,58 @@ int dp_gemm(const void* A, const void* W, const void* bias, const void* ls, cons
   }
   return static_cast<int>(err);
 }
+
+// The chains' dx product alone: out = epilogue(A' W^T) with EpilogueNT epi,
+// W stored (N, K); A' = A, or where scale is not null bf16(A * scale[k])
+// formed first in scaled (M, K). With colsum_part not null also colsum (N)
+// = the column sums before rounding, through colsum_part (ceil(M/64), N).
+int dp_gemm_nt(const void* A, const void* W, const void* scale, void* scaled, const void* aux,
+               void* out, void* colsum_part, void* colsum, int M, int N, int K, int epi,
+               void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err = cudaSuccess;
+  if (scale != nullptr) {
+    err = launch_scale_rows(A, scale, scaled, M, K, st);
+    A = scaled;
+  }
+  if (err != cudaSuccess) return static_cast<int>(err);
+  switch (epi) {
+    case EPT_GELU_GRAD:
+      err = launch_gemm_nt<EPT_GELU_GRAD>(A, W, aux, out, M, N, K, st, colsum_part);
+      break;
+    case EPT_F32:
+      err = launch_gemm_nt<EPT_F32>(A, W, aux, out, M, N, K, st, colsum_part);
+      break;
+    case EPT_BF16:
+      err = launch_gemm_nt<EPT_BF16>(A, W, aux, out, M, N, K, st, colsum_part);
+      break;
+    default:
+      err = cudaErrorInvalidValue;
+  }
+  if (err == cudaSuccess && colsum_part != nullptr)
+    err = launch_sum_rows(colsum_part, (M + 63) / 64, N, colsum, st);
+  return static_cast<int>(err);
+}
+
+// The chains' weight-gradient product alone: dw (Kin, N) = A^T G' in
+// `splits` row splits (partials in ws (splits, Kin, N) when more than one),
+// G' = G or bf16(G * scale[n]) formed first in scaled (M, N); with gsum not
+// null also its column sums (N), through gsum_ws (splits * Kin/64, N).
+int dp_gemm_tn(const void* A, const void* G, const void* scale, void* scaled, void* ws,
+               void* gsum_ws, void* dw, void* gsum, int M, int Kin, int N, int splits,
+               void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (scale != nullptr) {
+    cudaError_t err = launch_scale_rows(G, scale, scaled, M, N, st);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    G = scaled;
+  }
+  return static_cast<int>(launch_gemm_tn(A, G, ws, gsum_ws, dw, gsum, M, Kin, N, splits, st));
+}
+
+// The weight-gradient product's tile plan (tn_plan): 0 = 128 x 128, 1 =
+// 64 x 128, 2 = 64 x 64.
+int dp_gemm_tn_plan(int Kin, int N) { return tn_plan(Kin, N); }
 
 // The chains' LayerNorm rows alone: out (M, D) bf16 = LN(x) rounded once.
 int dp_ln_rows(const void* x, const void* gamma, const void* beta, void* out, int M, int D,
@@ -1913,8 +2308,9 @@ int dp_fused_mlp_dx(const void* x2, const void* dy, const void* g2, const void* 
 // (M, hidden), h2 (M, D), all bf16 at JAX's rounding points; dh1b
 // (M, hidden) bf16 and dm (M, D) f32 as in _mlp_dx_kernel. Partials:
 // colsum_part (ceil(M/64), hidden), row_part (ceil(M/64), 4, D), ws1
-// (splits1, D, hidden), ws2 (splits2, hidden, D). Outputs f32: dw1 (D, hidden),
-// dbf1 (hidden), dw2 (hidden, D), vec4 (4, D) = dbf2 | dls2 | dg2 | db2.
+// (splits1, D, hidden), ws2 (splits2, hidden, D) (not read for one split).
+// Outputs f32: dw1 (D, hidden), dbf1 (hidden), dw2 (hidden, D), vec4 (4, D)
+// = dbf2 | dls2 | dg2 | db2.
 int dp_fused_mlp_bwd(const void* x2, const void* dy, const void* g2, const void* b2,
                      const void* w1, const void* bf1, const void* w2, const void* bf2,
                      const void* ls2, void* m, void* h1, void* g, void* h2, void* dh1b, void* dm,
@@ -1953,8 +2349,10 @@ int dp_fused_mlp_bwd_stream(const void* x2, const void* dy, const void* g2, cons
 // (M, 3D), ctx (M, D), o = ctx Wo + bo (M, D, before LayerScale); then dctx
 // (M, D) and dqkv (M, 3D) bf16, da (M, D) f32, stats (B, H, 3, S) f32.
 // Partials: row_part (ceil(M/64), 4, D), ws_qkv (splits_qkv, D, 3D), ws_o
-// (splits_o, D, D), gsum_part (splits_qkv, 3D). Outputs f32: dwqkv (D, 3D),
-// dbqkv (3D), dwo (D, D), vec4 (4, D) = dbo | dls1 | dg1 | db1.
+// (splits_o, D, D) (not read for one split), gsum_part (splits_qkv * D/64,
+// 3D).
+// Outputs f32: dwqkv (D, 3D), dbqkv (3D), dwo (D, D), vec4 (4, D) = dbo |
+// dls1 | dg1 | db1.
 int dp_fused_attn_bwd(const void* x, const void* dx2, const void* g1, const void* b1,
                       const void* wqkv, const void* bqkv, const void* wo, const void* bo,
                       const void* ls1, void* a, void* qkv, void* ctx, void* o, void* dctx,

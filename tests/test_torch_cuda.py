@@ -1608,6 +1608,119 @@ def test_gemm_refuses_what_it_does_not_take(cuda_device):
         block.fused_gemm(a, w, "gelu")
 
 
+# The chains' backward products alone (block.fused_gemm_nt, fused_gemm_tn,
+# wgmma fed by TMA). gemm_nt (M, K, N): dinov2-small's dh1b at batch 1 (the
+# 64 x 64 plan), a ragged M = 2*57 at N = 576 (N % 128 != 0), dinov2-base's
+# dctx at batch 8 (64 x 128), dinov2-small's dm and dinov2-large's da at
+# batch 128 (128 x 128), K = 96 (a K tail of 32).
+GEMM_NT_CASES = [(257, 384, 1536), (114, 768, 576), (8 * 257, 768, 768), (128 * 257, 1536, 384),
+                 (128 * 257, 3072, 1024), (114, 96, 128)]
+# gemm_tn (M, K_in, N): dinov2-small's dW1 at batch 1 (one split), dWo at
+# batch 128 (many splits, 128 x 128 tiles), dinov2-base's dWo at batch 8,
+# dinov2-large's dWqkv at batch 128, K_in = 192 with N = 576 (64 x 64
+# tiles) and K_in = 64 (64 x 128) at ragged M.
+GEMM_TN_CASES = [(257, 384, 1536), (128 * 257, 384, 384), (8 * 257, 768, 768),
+                 (128 * 257, 1024, 3072), (114, 192, 576), (2 * 57 + 1000, 64, 256)]
+
+
+def _check_bwd_product(got, again, want, sums):
+    """Two runs with the same bits; bf16 and f32 products at 3e-2 abs/rel
+    and 3e-3 relative Frobenius (test_gemm_matches_plain), f32 sums over
+    the rows (weight gradients, column sums) within 2e-3 of their largest
+    magnitude (the block backward's weight-gradient tolerance)."""
+    got, again, want = ((t,) if torch.is_tensor(t) else t for t in (got, again, want))
+    assert len(got) == len(want)
+    for i, (g, h, r) in enumerate(zip(got, again, want)):
+        assert torch.equal(g, h)
+        assert g.dtype == r.dtype and g.shape == r.shape
+        g, r = g.float(), r.float()
+        if i in sums:
+            assert (g - r).abs().max().item() <= 2e-3 * r.abs().max().item()
+        else:
+            torch.testing.assert_close(g, r, atol=3e-2, rtol=3e-2)
+            assert ((g - r).norm() / r.norm()).item() <= 3e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", GEMM_NT_CASES, ids=lambda s: "M{}-K{}-N{}".format(*s))
+@pytest.mark.parametrize("epi", block.EPILOGUES_NT)
+def test_gemm_nt_matches_plain(cuda_device, epi, shape):
+    """fused_gemm_nt against gemm_nt_math for every epilogue, bare, with the
+    scaled operand (scale_rows first) and with the column sums."""
+    m, k, n = shape
+    a, wt, kw = _gemm_operands(cuda_device, m, k, n)
+    w = wt.t().contiguous()  # (N, K): the forward weight as stored
+    aux = kw["res"]
+    scale = torch.from_numpy(np.random.default_rng(4).uniform(0.5, 1.5, k).astype(np.float32))
+    scale = scale.to(cuda_device)
+    for extra in ({}, {"scale": scale}, {"colsum": True}, {"scale": scale, "colsum": True}):
+        block.reset_launches()
+        got = block.fused_gemm_nt(a, w, epi, aux=aux, **extra)
+        again = block.fused_gemm_nt(a, w, epi, aux=aux, **extra)
+        want = block.gemm_nt_math(a, w, epi, aux=aux, **extra)
+        torch.cuda.synchronize()
+        assert block.LAUNCHES["fused_gemm_nt"] == 2
+        _check_bwd_product(got, again, want, sums=(1,))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", GEMM_TN_CASES, ids=lambda s: "M{}-Kin{}-N{}".format(*s))
+def test_gemm_tn_matches_plain(cuda_device, shape):
+    """fused_gemm_tn against gemm_tn_math, bare, with the scaled cotangent
+    and with its column sums; the weight gradient and the sums are f32 sums
+    over every row, fixed-order across the row splits."""
+    m, k_in, n = shape
+    a, _, kw = _gemm_operands(cuda_device, m, k_in, n)
+    g = kw["res"]
+    scale = kw["ls"]
+    for extra in ({}, {"scale": scale}, {"gsum": True}, {"scale": scale, "gsum": True}):
+        block.reset_launches()
+        got = block.fused_gemm_tn(a, g, **extra)
+        again = block.fused_gemm_tn(a, g, **extra)
+        want = block.gemm_tn_math(a, g, **extra)
+        torch.cuda.synchronize()
+        assert block.LAUNCHES["fused_gemm_tn"] == 2
+        _check_bwd_product(got, again, want, sums=(0, 1))
+
+
+@pytest.mark.cuda
+def test_gemm_tn_reaches_every_plan_and_split(cuda_device):
+    """GEMM_TN_CASES reach one split and many, and all three tile plans, and
+    the wrapper's split policy sizes its tiles as the kernel's tn_plan."""
+    splits = {block._splits(m, k, n) for m, k, n in GEMM_TN_CASES}
+    assert 1 in splits and max(splits) > 4
+    plans = {block._ext.lib().dp_gemm_tn_plan(k, n) for _, k, n in GEMM_TN_CASES}
+    assert plans == {0, 1, 2}
+    for _, k, n in GEMM_TN_CASES:
+        tm, tn = block._tn_tile(k, n)
+        assert block._ext.lib().dp_gemm_tn_plan(k, n) == {(128, 128): 0, (64, 128): 1,
+                                                          (64, 64): 2}[(tm, tn)]
+    nt_plans = {block._ext.lib().dp_gemm_plan(m, n) for m, _, n in GEMM_NT_CASES}
+    assert nt_plans == {0, 1, 2}
+
+
+@pytest.mark.cuda
+def test_gemm_bwd_refuses_what_it_does_not_take(cuda_device):
+    a, wt, kw = _gemm_operands(cuda_device, 64, 128, 128)
+    w = wt.t().contiguous()
+    with pytest.raises(ValueError, match="multiple of 64"):
+        block.fused_gemm_nt(a, w[:96].contiguous(), "bf16")
+    with pytest.raises(ValueError, match="needs aux"):
+        block.fused_gemm_nt(a, w, "gelu_grad")
+    with pytest.raises(TypeError, match="bf16"):
+        block.fused_gemm_nt(a.float(), w, "bf16")
+    with pytest.raises(ValueError, match="unknown epilogue"):
+        block.fused_gemm_nt(a, w, "f16")
+    with pytest.raises(ValueError, match="scale"):
+        block.fused_gemm_nt(a, w, "bf16", scale=kw["ls"][:64])
+    with pytest.raises(ValueError, match="multiple of 64"):
+        block.fused_gemm_tn(a[:, :96].contiguous(), kw["res"])
+    with pytest.raises(ValueError, match="a \\(M, K_in\\) and g \\(M, N\\)"):
+        block.fused_gemm_tn(a, kw["res"][:32].contiguous())
+    with pytest.raises(ValueError, match="contiguous"):
+        block.fused_gemm_tn(a, kw["res"].t())
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("d", [384, 768, 1024])
 def test_ln_rows_matches_plain_rounding(cuda_device, d):
