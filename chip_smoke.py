@@ -1,7 +1,9 @@
 """Chip smoke test of the PyTorch/H100 port: build the CUDA kernels, hold each
 against its plain PyTorch version (first the chains' three GEMM kernels
 alone, forward, dx and weight-gradient products, at every dinov2 product
-shape, timed beside torch.matmul), serve dinov2-small + LoRA pose requests
+shape, timed beside torch.matmul; then the chains' attention step alone,
+the resident pair and the streamed one, at every dinov2 head count, timed
+beside scaled_dot_product_attention), serve dinov2-small + LoRA pose requests
 through the kernels, take dinov2-small fine-tuning steps at batch 128 through
 them (LoRA, and unfreeze-last-4 with whole blocks training), all at 224²;
 then the long-sequence paths at 504² (S = 1297), where every layer streams
@@ -163,15 +165,18 @@ def unfreeze_grad_names(top: int) -> tuple:
 
 UNFREEZE_GRAD_NAMES = unfreeze_grad_names(11)
 # Launches of each wrapper per forward or step on each path (the others 0:
-# no flash launch at 224², where the chains keep K and V resident). At 504²
-# every attention streams: one flash forward per layer, and per trainable
-# layer a recomputed forward and a backward pair in fused_attn_bwd.
-SERVING_LAUNCHES = {"fused_block": 11, "fused_attn_part": 1, "fused_mlp_part": 1}
-LORA_LAUNCHES = {"fused_block": 11, "fused_attn_part": 1, "fused_mlp_part": 1, "fused_mlp_dx": 1}
+# no flash launch at 224², where the chains keep K and V resident: one
+# resident attention forward per layer, attn_fwd, and per trainable layer a
+# recomputed forward and a backward pair, attn_bwd, in fused_attn_bwd). At
+# 504² every attention streams: one flash forward per layer, and per
+# trainable layer a recomputed forward and a backward pair.
+SERVING_LAUNCHES = {"fused_block": 11, "fused_attn_part": 1, "fused_mlp_part": 1, "attn_fwd": 12}
+LORA_LAUNCHES = {**SERVING_LAUNCHES, "fused_mlp_dx": 1}
 UNFREEZE_LAUNCHES = {"fused_block": 8, "fused_block_train": 4, "fused_mlp_bwd": 4,
-                     "fused_attn_bwd": 4}
-SERVING_504_LAUNCHES = {**SERVING_LAUNCHES, "flash_fwd": 12}
-UNFREEZE_504_LAUNCHES = {**UNFREEZE_LAUNCHES, "flash_fwd": 16, "flash_bwd": 4}
+                     "fused_attn_bwd": 4, "attn_fwd": 16, "attn_bwd": 4}
+SERVING_504_LAUNCHES = {**SERVING_LAUNCHES, "attn_fwd": 0, "flash_fwd": 12}
+UNFREEZE_504_LAUNCHES = {**UNFREEZE_LAUNCHES, "attn_fwd": 0, "attn_bwd": 0, "flash_fwd": 16,
+                         "flash_bwd": 4}
 # FastViT serving at 256² (timm's input size): t8 + LoRA r=8, the family's
 # default model, and sa12, whose last stage is attention. Launches per forward:
 # one ConvFFN kernel per block (depths 2/2/4/2 and 2/2/6/2), one flash
@@ -226,7 +231,8 @@ CONVFFN_RANK = {"t8": 8, "sa12": 0, "ma36": 8}
 WIDE = {"dinov2-base": (768, 12, 3072), "dinov2-large": (1024, 16, 4096)}
 BASE_LORA_CONFIG = {"model_name": "facebook/dinov2-base", "use_lora": True}
 LARGE_LORA_CONFIG = {"model_name": "facebook/dinov2-large", "use_lora": True}
-SERVING_LARGE_LAUNCHES = {"fused_attn_part_stream": 24, "fused_mlp_part_stream": 24}
+SERVING_LARGE_LAUNCHES = {"fused_attn_part_stream": 24, "fused_mlp_part_stream": 24,
+                          "attn_fwd": 24}
 LARGE_LORA_LAUNCHES = {**SERVING_LARGE_LAUNCHES, "fused_mlp_dx": 1}
 WIDE_STEPS, WIDE_TIMED = 2, 3
 # Their step-1 LoRA gradients are sums that the heads' BatchNorms nearly
@@ -258,10 +264,11 @@ BASE_UNFREEZE_CONFIG = {"model_name": "facebook/dinov2-base", "use_lora": False,
                         "unfreeze_last_n_layers": 4}
 LARGE_UNFREEZE_CONFIG = {**BASE_UNFREEZE_CONFIG, "model_name": "facebook/dinov2-large"}
 STREAM_TRAIN = ("fused_mlp_part_stream_train", "fused_mlp_bwd_stream", "fused_attn_bwd_stream")
-STREAM_TRAIN_LAUNCHES = {"fused_attn_part_stream": 4, **dict.fromkeys(STREAM_TRAIN, 4)}
-BASE_UNFREEZE_LAUNCHES = {"fused_block": 8, **STREAM_TRAIN_LAUNCHES}
+STREAM_TRAIN_LAUNCHES = {"fused_attn_part_stream": 4, **dict.fromkeys(STREAM_TRAIN, 4),
+                         "attn_fwd": 8, "attn_bwd": 4}
+BASE_UNFREEZE_LAUNCHES = {"fused_block": 8, **STREAM_TRAIN_LAUNCHES, "attn_fwd": 16}
 LARGE_UNFREEZE_LAUNCHES = {**STREAM_TRAIN_LAUNCHES, "fused_attn_part_stream": 24,
-                           "fused_mlp_part_stream": 20}
+                           "fused_mlp_part_stream": 20, "attn_fwd": 28}
 BASE_UNFREEZE_RECORDED = ("fused_block", "fused_attn_part_stream", *STREAM_TRAIN)
 LARGE_UNFREEZE_RECORDED = ("fused_attn_part_stream", "fused_mlp_part_stream", *STREAM_TRAIN)
 # Outputs that add no residual (output indices): the streamed MLP half's
@@ -310,7 +317,8 @@ TP = 2
 TP_SHAPES = {"dinov2-base": (768, 12, 3072, 2), "dinov2-large": (1024, 16, 4096, 2),
              "dinov2-large-tp4": (1024, 16, 4096, 4)}
 TP_SHARD = ("fused_attn_part_partial", "fused_mlp_part_partial", "fused_mlp_partial_dx")
-SERVING_TP_LAUNCHES = {"fused_attn_part_partial": 24, "fused_mlp_part_partial": 24}
+SERVING_TP_LAUNCHES = {"fused_attn_part_partial": 24, "fused_mlp_part_partial": 24,
+                       "attn_fwd": 24}
 TP_LORA_LAUNCHES = {**SERVING_TP_LAUNCHES, "fused_mlp_partial_dx": 2}
 # The final LayerNorm's kernel behind JAX's DINO_POSE_TPU_LN=pallas, on
 # dinov2-small + LoRA (the gate's home, nn/layers.py:246-250): one launch a
@@ -340,12 +348,56 @@ GEMM_EPIS = {
     "fc2": (("bias_ls_res", "f32bias_ls_res", "f32bias_ls_res_h2", "bias"), ("none",)),
 }
 GEMM_ROWS = (S, 8 * S, TRAIN_BATCH * S, 2 * 57)
-# The chains' attention step at S = 257, head width 64 (phase_attention_route):
-# the resident attention_kernel against the streamed flash_fwd_kernel at
-# each driven model's heads a call (dinov2-small, -base and -large, and the
-# shards' H/tp), B = 1, 8, 128.
+# The chains' attention step at S = 257, head width 64 (phase_attention_core):
+# the resident pair against the streamed flash pair at each driven model's
+# heads a call (dinov2-small, -base and -large, and the shards' H/tp), B = 1,
+# 8, 128; and the ragged S at which both routes are held against their plain
+# versions (the resident route's limits, S = 304 and 320 at head width 64).
 ROUTE_HEADS = {"dinov2-small": 6, "dinov2-base": 12, "dinov2-base tp2": 6, "dinov2-large": 16,
                "dinov2-large tp2": 8, "dinov2-large tp4": 4}
+ATTN_CORE_SEQS = (1, 63, 65, 200, 257, 304, 320)
+# The replaced WMMA attention kernels' three clocks (ms, device ms, host us)
+# at each ROUTE_HEADS shape and batch, forward and backward, measured by this
+# script on an H100 80GB HBM3 at 700.00 W before the wgmma kernels took
+# their place; printed beside the new kernels'.
+OLD_ATTN = {
+    "dinov2-small B=1 fwd": (0.0332, 0.0308, 18.5),
+    "dinov2-small B=1 bwd": (0.0919, 0.0883, 30.3),
+    "dinov2-small B=8 fwd": (0.0635, 0.0607, 38.7),
+    "dinov2-small B=8 bwd": (0.1762, 0.1712, 64.7),
+    "dinov2-small B=128 fwd": (0.9941, 0.9694, 28.8),
+    "dinov2-small B=128 bwd": (2.8009, 2.7170, 87.9),
+    "dinov2-base B=1 fwd": (0.0348, 0.0307, 33.0),
+    "dinov2-base B=1 bwd": (0.0917, 0.0874, 60.0),
+    "dinov2-base B=8 fwd": (0.1218, 0.1201, 26.5),
+    "dinov2-base B=8 bwd": (0.3462, 0.3362, 60.7),
+    "dinov2-base B=128 fwd": (1.9671, 1.9040, 33.7),
+    "dinov2-base B=128 bwd": (5.4417, 5.4079, 52.4),
+    "dinov2-base tp2 B=1 fwd": (0.0323, 0.0305, 22.5),
+    "dinov2-base tp2 B=1 bwd": (0.0914, 0.0881, 37.5),
+    "dinov2-base tp2 B=8 fwd": (0.0624, 0.0605, 24.2),
+    "dinov2-base tp2 B=8 bwd": (0.1741, 0.1704, 40.5),
+    "dinov2-base tp2 B=128 fwd": (1.0015, 0.9698, 45.1),
+    "dinov2-base tp2 B=128 bwd": (2.8001, 2.7155, 78.7),
+    "dinov2-large B=1 fwd": (0.0328, 0.0308, 27.8),
+    "dinov2-large B=1 bwd": (0.0921, 0.0862, 133.4),
+    "dinov2-large B=8 fwd": (0.1529, 0.1511, 22.9),
+    "dinov2-large B=8 bwd": (0.4451, 0.4336, 42.4),
+    "dinov2-large B=128 fwd": (2.6064, 2.5399, 38.3),
+    "dinov2-large B=128 bwd": (7.2125, 7.1829, 45.7),
+    "dinov2-large tp2 B=1 fwd": (0.0336, 0.0308, 35.8),
+    "dinov2-large tp2 B=1 bwd": (0.0926, 0.0887, 43.0),
+    "dinov2-large tp2 B=8 fwd": (0.0918, 0.0899, 22.7),
+    "dinov2-large tp2 B=8 bwd": (0.2570, 0.2519, 39.6),
+    "dinov2-large tp2 B=128 fwd": (1.3308, 1.2828, 40.9),
+    "dinov2-large tp2 B=128 bwd": (3.7094, 3.6230, 73.6),
+    "dinov2-large tp4 B=1 fwd": (0.0334, 0.0304, 22.5),
+    "dinov2-large tp4 B=1 bwd": (0.0904, 0.0866, 42.5),
+    "dinov2-large tp4 B=8 fwd": (0.0621, 0.0602, 25.6),
+    "dinov2-large tp4 B=8 bwd": (0.1715, 0.1669, 41.8),
+    "dinov2-large tp4 B=128 fwd": (0.6808, 0.6595, 46.5),
+    "dinov2-large tp4 B=128 bwd": (1.9016, 1.8363, 98.2),
+}
 # The replaced WMMA gemm_kernel's three clocks (ms, device ms, host us) at
 # each EPI_NONE shape and each M of GEMM_ROWS, measured by this script on an
 # H100 80GB HBM3 at 700.00 W before the wgmma kernel took its place;
@@ -623,9 +675,18 @@ KERNEL_ROWS = {
     "fused_mlp_partial_dx": ("dino_pose_tpu/ops/block.py:1099", BLOCK_SOURCE, TRAIN_BATCH,
                              "dinov2_base_lora_tp2_train"),
     "fused_layernorm": ("dino_pose_tpu/ops/layernorm.py:36", LN_SOURCE, 1, "serving_ln"),
+    # The resident attention step alone (the per-head loops of _block_kernel
+    # and _attn_bwd_kernel, inside rows 1-7 and 17-20) at dinov2-small's 6
+    # heads, batch 128, on its unfreeze path: 16 forwards and 4 backward
+    # pairs a step.
+    "attention_core": ("dino_pose_tpu/ops/block.py:182", BLOCK_SOURCE, TRAIN_BATCH,
+                       "unfreeze_train"),
+    "attention_core_bwd": ("dino_pose_tpu/ops/block.py:384", BLOCK_SOURCE, TRAIN_BATCH,
+                           "unfreeze_train"),
 }
 # The LAUNCHES key each row counts.
 LAUNCH_KEY = {"flash_attention": "flash_fwd", "flash_attention_bwd": "flash_bwd",
+              "attention_core": "attn_fwd", "attention_core_bwd": "attn_bwd",
               "fused_mlp_dx_dinov2_large": "fused_mlp_dx"}
 
 
@@ -2494,38 +2555,153 @@ def phase_gemm_bwd(results: dict) -> dict:
     return out
 
 
-def phase_attention_route(results: dict) -> dict:
-    """The chains' attention step at S = 257 on a packed qkv (packed_attention):
-    the resident attention_kernel against the streamed flash_fwd_kernel at
-    ROUTE_HEADS, B = 1, 8, 128; both held to the plain attention at B = 1
-    and 8 (attention tolerance, FLASH_FRO), both on the three clocks."""
+def attention_core_inputs(b: int, heads: int, s: int, dh: int, gen: torch.Generator):
+    """A seeded packed qkv (b, s, 3*heads*dh) and a unit-scale cotangent of its
+    ctx (b, s, heads*dh), bf16 on the card."""
+    qkv = torch.randn((b, s, 3 * heads * dh), generator=gen).to("cuda", torch.bfloat16)
+    dctx = torch.randn((b, s, heads * dh), generator=gen).to("cuda", torch.bfloat16)
+    return qkv, dctx
+
+
+def check_attention_core(results: dict, qkv, dctx, heads: int, streamed: bool,
+                         where: str) -> None:
+    """The attention step alone (packed_attention, packed_attention_bwd) on
+    one route against its plain versions: ctx, and dq, dk, dv of dqkv, at the
+    attention tolerance with FLASH_FRO. The resident kernels' largest errors
+    are kept under attention_core and attention_core_bwd. The backward is
+    held where its route takes the shape (the resident pair up to S = 304 at
+    head width 64)."""
+    from dino_pose_tpu_torch.ops import _ext
+    from dino_pose_tpu_torch.ops import block as B
+
+    b, s, d3 = qkv.shape
+    dh = d3 // 3 // heads
+    kind = "flash" if streamed else "resident"
+    cases = [("attention_core", lambda: (B.packed_attention(qkv, heads, streamed=streamed),),
+              lambda: (B._heads_attention(qkv, heads),), "ctx")]
+    if streamed or not _ext.lib().dp_flash_backward(s, dh):
+        cases.append(("attention_core_bwd",
+                      lambda: B.packed_attention_bwd(qkv, dctx, heads, streamed=streamed).chunk(3, -1),
+                      lambda: B.packed_attention_bwd_math(qkv, dctx, heads).chunk(3, -1),
+                      "dq dk dv"))
+    for name, kern, plain, outs in cases:
+        with torch.inference_mode():
+            got, want = kern(), plain()
+        torch.cuda.synchronize()
+        # At S = 1 dq and dk are zero (P = 1, dS = 0), where a relative norm
+        # means nothing: held to the tolerance's absolute part.
+        errs, fros, oks = zip(*(
+            attn_check(x, w, FLASH_FRO) if bool(w.any()) else
+            (x.float().abs().max().item(), 0.0, bool((x.float().abs() <= ATTN_ATOL).all()))
+            for x, w in zip(got, want)))
+        ok = all(oks)
+        log(f"kernel {name} {kind} {where}: max_abs ({outs}) = "
+            f"{' '.join(f'{e:.6g}' for e in errs)} rel_fro = {' '.join(f'{e:.4g}' for e in fros)} "
+            f"tol={attn_tol_text(FLASH_FRO)} -> {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"{name} {kind} at {where} disagrees with its plain version")
+        if not streamed:
+            row = results.setdefault(name, {"max_abs_err": 0.0})
+            row["max_abs_err"] = max(row["max_abs_err"], *errs)
+        del got, want
+
+
+def phase_attention_core(results: dict) -> dict:
+    """The chains' attention step alone on the packed layout: the resident
+    pair (attn_fwd_kernel; attn_bwd_dq_kernel + attn_bwd_dkv_kernel, through
+    packed_attention and packed_attention_bwd) and the streamed flash pair
+    held against their plain versions at every ROUTE_HEADS shape (S = 257)
+    at B = 1 and 8, and at ATTN_CORE_SEQS (head widths 64 and 32); then at
+    each ROUTE_HEADS shape and B = 1, 8, 128 both routes' forward and
+    backward on the three ``clocks`` beside torch's
+    scaled_dot_product_attention (forward, and its backward alone on a kept
+    graph) on (B, H, S, dh) views of the same tensors, the library
+    yardstick, which the port never calls; the old WMMA kernels' times
+    (OLD_ATTN); TFLOP/s on JAX's FLOPs at the device clock (and, for the
+    resident kernels, on the FLOPs they execute); and the bound
+    (attention_core_cost). Returns the times by shape, dinov2-small's at
+    B = 128 also under the batch for the kernels line."""
+    import torch.nn.functional as F
+
     from dino_pose_tpu_torch.ops import block as B
 
     gen = torch.Generator().manual_seed(SEED + 18)
     saved = dict(B.LAUNCHES)
     out: dict = {}
+    for heads, dh in ((H, 64), (2 * H, 32)):
+        for s in ATTN_CORE_SEQS:
+            qkv, dctx = attention_core_inputs(2, heads, s, dh, gen)
+            for streamed in (False, True):
+                check_attention_core(results, qkv, dctx, heads, streamed,
+                                     f"B=2 ({heads} heads of {dh}, S={s})")
+            del qkv, dctx
     for model, heads in ROUTE_HEADS.items():
         for b in (1, 8, TRAIN_BATCH):
-            qkv = torch.randn((b, S, 3 * heads * 64), generator=gen).to("cuda", torch.bfloat16)
-            t: dict = {}
-            for streamed in (False, True):
-                kind = "flash" if streamed else "resident"
+            qkv, dctx = attention_core_inputs(b, heads, S, 64, gen)
+            where = f"{model} B={b}"
+            if b < TRAIN_BATCH:
+                for streamed in (False, True):
+                    check_attention_core(results, qkv, dctx, heads, streamed,
+                                         f"B={b} ({model}: {heads} heads, S={S})")
+            views = qkv.view(b, S, 3, heads, 64).permute(2, 0, 3, 1, 4)
+            leaf = qkv.detach().requires_grad_()
+            lviews = leaf.view(b, S, 3, heads, 64).permute(2, 0, 3, 1, 4)
+            sdpa_out = F.scaled_dot_product_attention(*lviews)
+            dout = dctx.view(b, S, heads, 64).transpose(1, 2)
+            iters = 10 if b == TRAIN_BATCH else 20
+            with torch.inference_mode():
+                t = {
+                    "fwd": clocks(lambda: B.packed_attention(qkv, heads, streamed=False),
+                                  iters=iters),
+                    "bwd": clocks(lambda: B.packed_attention_bwd(qkv, dctx, heads,
+                                                                 streamed=False), iters=iters),
+                    "flash_fwd": clocks(lambda: B.packed_attention(qkv, heads, streamed=True),
+                                        iters=iters),
+                    "flash_bwd": clocks(lambda: B.packed_attention_bwd(qkv, dctx, heads,
+                                                                       streamed=True),
+                                        iters=iters),
+                    "sdpa_fwd": clocks(lambda: F.scaled_dot_product_attention(*views),
+                                       iters=iters),
+                }
+            t["sdpa_bwd"] = clocks(lambda: torch.autograd.grad(sdpa_out, leaf, dout,
+                                                               retain_graph=True), iters=iters)
+            del sdpa_out, leaf, lviews
+            if model == "dinov2-small" and b == TRAIN_BATCH:
                 with torch.inference_mode():
-                    if b < TRAIN_BATCH:
-                        got = B.packed_attention(qkv, heads, streamed=streamed)
-                        want = B._heads_attention(qkv, heads)
-                        max_abs, fro, ok = attn_check(got, want, FLASH_FRO)
-                        log(f"kernel packed_attention {kind} B={b} ({model}: {heads} heads, "
-                            f"S={S}): max_abs={max_abs:.6g} rel_fro={fro:.4g} tol="
-                            f"{attn_tol_text(FLASH_FRO)} -> {'ok' if ok else 'FAIL'}")
-                        if not ok:
-                            raise AssertionError(f"packed_attention {kind} {model} B={b} "
-                                                 "disagrees with its plain version")
-                    t[kind] = clocks(lambda: B.packed_attention(qkv, heads, streamed=streamed))
-            out[f"{model} B={b}"] = t
-            log(f"time attention route {model} B={b} ({heads} heads, S={S}): resident "
-                f"{clocks_text(t['resident'])}; flash {clocks_text(t['flash'])}")
-            del qkv
+                    t["plain_fwd_ms"] = cuda_ms(lambda: B._heads_attention(qkv, heads), iters=3,
+                                                warmup=1)
+                    t["plain_bwd_ms"] = cuda_ms(
+                        lambda: B.packed_attention_bwd_math(qkv, dctx, heads), iters=3, warmup=1)
+            for kind, backward in (("fwd", False), ("bwd", True)):
+                flops, nbytes = B.attention_core_cost(b, heads, S, 64, backward)
+                bound, by = B.bound_ms(flops, nbytes)
+                t[f"{kind}_bound_ms"], t[f"{kind}_bound_by"] = bound, by
+                old = OLD_ATTN.get(f"{where} {kind}")
+                old_text = "" if old is None else (
+                    f"; old WMMA kernel {old[0]:.4f} ms, device {old[1]:.4f} ms, host "
+                    f"{old[2]:.1f} us/call")
+                lib = t[f"sdpa_{kind}"]
+                executed = B.attention_core_executed(b, heads, S, 64, backward)
+                t[f"{kind}_tflops"] = flops / t[kind]["device_ms"] / 1e9
+                t[f"{kind}_executed_tflops"] = executed / t[kind]["device_ms"] / 1e9
+                log(f"time attention_core {kind} {where} ({heads} heads, S={S}): resident "
+                    f"{clocks_text(t[kind])} ({t[kind + '_tflops']:.1f} TFLOP/s, "
+                    f"{t[kind + '_executed_tflops']:.1f} on the {executed:.4g} FLOPs it "
+                    "executes); "
+                    f"flash {clocks_text(t['flash_' + kind])} "
+                    f"({flops / t['flash_' + kind]['device_ms'] / 1e9:.1f} TFLOP/s); "
+                    f"scaled_dot_product_attention {clocks_text(lib)} "
+                    f"({flops / lib['device_ms'] / 1e9:.1f} TFLOP/s){old_text}; bound "
+                    f"{bound:.5f} ms ({by}), JAX's {flops:.4g} FLOPs")
+            out[where] = t
+            del qkv, dctx, views, dout
+    small = out[f"dinov2-small B={TRAIN_BATCH}"]
+    for name, kind in (("attention_core", "fwd"), ("attention_core_bwd", "bwd")):
+        lib = small[f"sdpa_{kind}"]
+        out.setdefault(TRAIN_BATCH, {})[name] = {
+            **small[kind], "plain_ms": small[f"plain_{kind}_ms"],
+            "bound_ms": small[f"{kind}_bound_ms"], "bound_by": small[f"{kind}_bound_by"],
+            **{f"library_{k}": v for k, v in lib.items()}}
     B.LAUNCHES.update(saved)
     return out
 
@@ -2683,7 +2859,7 @@ def main() -> int:
     lora_ln: dict = {}
     gemm_times = phase_gemm(results)
     gemm_bwd_times = phase_gemm_bwd(results)
-    route_times = phase_attention_route(results)
+    core_times = phase_attention_core(results)
     phase_kernels(results)
     phase_mlp_dx(results)
     phase_train_kernels(results)
@@ -2801,7 +2977,8 @@ def main() -> int:
                 by_batch.setdefault(b, {})[name] = t["t8"]
     for b, t in dw_times.items():
         by_batch.setdefault(b, {}).update({k: v for k, v in t.items() if k in KERNEL_ROWS})
-    for times in (tp_times, {b: t for b, t in ln_times.items() if b != "cases"}):
+    for times in (tp_times, {b: t for b, t in ln_times.items() if b != "cases"},
+                  {b: t for b, t in core_times.items() if isinstance(b, int)}):
         for b, t in times.items():
             by_batch.setdefault(b, {}).update(t)
     if args.profile:
@@ -2853,7 +3030,8 @@ def main() -> int:
     log("layernorm_times " + json.dumps(ln_times["cases"]))
     log("gemm_times " + json.dumps(gemm_times))
     log("gemm_bwd_times " + json.dumps(gemm_bwd_times))
-    log("attention_route_times " + json.dumps(route_times))
+    log("attention_core_times " + json.dumps({k: v for k, v in core_times.items()
+                                              if isinstance(k, str)}))
     if args.out:
         with open(args.out, "w") as f:
             json.dump({"card": card, "kernels": kernels, "b1": by_batch[1], "b8": by_batch[8],
@@ -2877,7 +3055,8 @@ def main() -> int:
                        "layernorm": ln_times["cases"], "serving_ln": serving_ln,
                        "training_lora_ln": lora_ln, "gemm": gemm_times,
                        "gemm_bwd": gemm_bwd_times,
-                       "attention_route": route_times},
+                       "attention_core": {k: v for k, v in core_times.items()
+                                          if isinstance(k, str)}},
                       f, indent=1)
     print(json.dumps({"kernels": kernels}))
     print(card)

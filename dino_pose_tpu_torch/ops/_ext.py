@@ -49,6 +49,11 @@ LAUNCHES: dict[str, int] = {
     # a backward pair (flash_bwd_dq_kernel + flash_bwd_dkv_kernel), counted
     # inside the chains above and by the standalone ``flash_attention``.
     "flash_fwd": 0, "flash_bwd": 0,
+    # The resident attention kernels of block_kernels.cu: a forward launch
+    # (attn_fwd_kernel) and a backward pair (attn_bwd_dq_kernel +
+    # attn_bwd_dkv_kernel), counted inside the chains where S is within the
+    # resident route and by packed_attention / packed_attention_bwd.
+    "attn_fwd": 0, "attn_bwd": 0,
     # FastViT's ConvFFN past its depthwise conv (convffn_fwd_kernel) and its
     # backward (convffn_bwd_kernel + convffn_bwd_reduce_kernel).
     "fused_convffn": 0, "fused_convffn_bwd": 0,
@@ -64,10 +69,10 @@ LAUNCHES: dict[str, int] = {
     "fused_layernorm": 0,
     # The chains' GEMMs (forward, backward dx, weight gradient), LayerNorm
     # rows and attention step alone (ops/block.py fused_gemm, fused_gemm_nt,
-    # fused_gemm_tn, ln_rows, packed_attention): what the card tests and
-    # chip_smoke.py hold and time; no path calls them.
+    # fused_gemm_tn, ln_rows, packed_attention, packed_attention_bwd): what
+    # the card tests and chip_smoke.py hold and time; no path calls them.
     "fused_gemm": 0, "fused_gemm_nt": 0, "fused_gemm_tn": 0, "ln_rows": 0,
-    "packed_attention": 0,
+    "packed_attention": 0, "packed_attention_bwd": 0,
 }
 
 _LIB: ctypes.CDLL | None = None
@@ -82,9 +87,11 @@ _SIGNATURES = {
     "dp_gemm_nt": ([_P] * 8 + [_I] * 4 + [_P], _I),
     "dp_gemm_tn": ([_P] * 8 + [_I] * 4 + [_P], _I),
     "dp_packed_attention": ([_P] * 2 + [_I] * 5 + [_P], _I),
+    "dp_packed_attention_bwd": ([_P] * 5 + [_I] * 5 + [_P], _I),
     "dp_ln_rows": ([_P] * 4 + [_I] * 2 + [_F, _P], _I),
     "dp_flash_forward": ([_I, _I], _I),
     "dp_flash_backward": ([_I, _I], _I),
+    "dp_attention_keys": ([_I, _I], _I),
     "dp_fused_block": ([_P] * 20 + [_I] * 5 + [_F, _P], _I),
     "dp_fused_attn_part": ([_P] * 10 + [_I] * 4 + [_F, _P], _I),
     "dp_fused_mlp_part": ([_P] * 10 + [_I] * 3 + [_F, _P], _I),

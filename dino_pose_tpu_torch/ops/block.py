@@ -77,12 +77,13 @@ tensor it launches the kernels of ``ops/csrc/block_kernels.cu`` or raises;
 it never falls back. Each launch adds one to ``LAUNCHES[<wrapper name>]``.
 
 Every wrapper takes any sequence length. The attention step of a chain keeps
-the head's K and V resident in shared memory where they fit (S up to ~320
-at head width 64, dinov2 at 224²); past that it launches the streamed
-kernels of ``ops/csrc/flash_kernels.cu`` (``_flash_kernel`` and
-``_flash_bwd_kernel``'s counterparts, ``ops/attention.py``), and each such
-launch also adds one to ``LAUNCHES["flash_fwd"]`` (a forward) or
-``LAUNCHES["flash_bwd"]`` (a backward pair). This is where the port departs
+the head's K and V resident in shared memory up to the resident route's
+limits (S = 320 forward and 304 backward at head width 64, dinov2 at 224²),
+and each such launch adds one to ``LAUNCHES["attn_fwd"]`` (a forward) or
+``LAUNCHES["attn_bwd"]`` (a backward pair); past them it launches the
+streamed kernels of ``ops/csrc/flash_kernels.cu`` (``_flash_kernel`` and
+``_flash_bwd_kernel``'s counterparts, ``ops/attention.py``), counted under
+``LAUNCHES["flash_fwd"]`` and ``["flash_bwd"]``. This is where the port departs
 from the JAX route: at 504² (S = 1297) the JAX package runs ``block_math``
 in every layer, XLA's dense products around its flash kernel; the port keeps
 its GEMM chains, with ``block_math``'s rounding points, and puts the
@@ -640,12 +641,19 @@ def attn_stream_bwd_math(
     return _attn_bwd(x, do, ap, None, num_heads, eps)
 
 
-def _attn_bwd(x, dres, ap, ls1: torch.Tensor | None, num_heads: int, eps: float):
-    """The two attention backward routes: ``dres`` is dx2 and the LayerScale
-    ``ls1`` scales it (the resident kernel, its residual added to dx), or,
-    with ``ls1`` None, the pre-LayerScale cotangent do (the streamed one)."""
-    dt = x.dtype
-    b, s, d = x.shape
+def packed_attention_bwd_math(qkv: torch.Tensor, dctx: torch.Tensor,
+                              num_heads: int) -> torch.Tensor:
+    """The attention step's backward on the chains' packed layout: dqkv (B,
+    S, 3D) from qkv (B, S, 3D), q|k|v on the last axis, and the cotangent of
+    ctx, dctx (B, S, D). The per-head loop of ``_attn_bwd_kernel`` (JAX
+    block.py:384-397) at its rounding points: the probabilities P in f32
+    (recomputed from q and k), dP = dO V^T and dS = P * (dP - rowsum(P * dP))
+    in f32, dS rounded for dq = dS K * scale and dk = dS^T Q * scale, P
+    rounded for dv = P^T dO; dq, dk, dv rounded. The plain version of
+    ``packed_attention_bwd`` and of the backward chains' attention step."""
+    dt = qkv.dtype
+    b, s, d3 = qkv.shape
+    d = d3 // 3
     dh = d // num_heads
     scale = dh**-0.5
 
@@ -655,12 +663,26 @@ def _attn_bwd(x, dres, ap, ls1: torch.Tensor | None, num_heads: int, eps: float)
     def merge(t: torch.Tensor) -> torch.Tensor:
         return t.transpose(1, 2).reshape(b, s, d).to(dt)
 
-    a, xhat, r = _ln_fwd(x, ap.g1, ap.b1, eps)
-    qkv = _dense(a, ap.wqkv, ap.bqkv)
     q, k, v = (heads(t) for t in qkv.split(d, dim=-1))
     p = torch.softmax((q @ k.transpose(-1, -2)) * scale, dim=-1)
     pb = p.to(dt).float()
-    ctx = merge(pb @ v)
+    do = heads(dctx)
+    dp = do @ v.transpose(-1, -2)
+    ds = p * (dp - (p * dp).sum(dim=-1, keepdim=True))
+    dsb = ds.to(dt).float()
+    return torch.cat([merge((dsb @ k) * scale), merge((dsb.transpose(-1, -2) @ q) * scale),
+                      merge(pb.transpose(-1, -2) @ do)], dim=-1)
+
+
+def _attn_bwd(x, dres, ap, ls1: torch.Tensor | None, num_heads: int, eps: float):
+    """The two attention backward routes: ``dres`` is dx2 and the LayerScale
+    ``ls1`` scales it (the resident kernel, its residual added to dx), or,
+    with ``ls1`` None, the pre-LayerScale cotangent do (the streamed one).
+    The attention step's dqkv is ``packed_attention_bwd_math``'s."""
+    dt = x.dtype
+    a, xhat, r = _ln_fwd(x, ap.g1, ap.b1, eps)
+    qkv = _dense(a, ap.wqkv, ap.bqkv)
+    ctx = _heads_attention(qkv, num_heads)
     if ls1 is None:
         do = dres.float()
         dob = dres
@@ -668,12 +690,8 @@ def _attn_bwd(x, dres, ap, ls1: torch.Tensor | None, num_heads: int, eps: float)
         dx2f = dres.float()
         do = dx2f * ls1.float()
         dob = do.to(dt)
-    dctx = heads((dob.float() @ ap.wo.to(dt).float().t()).to(dt))
-    dp = dctx @ v.transpose(-1, -2)
-    ds = p * (dp - (p * dp).sum(dim=-1, keepdim=True))
-    dsb = ds.to(dt).float()
-    dqkv = torch.cat([merge((dsb @ k) * scale), merge((dsb.transpose(-1, -2) @ q) * scale),
-                      merge(pb.transpose(-1, -2) @ dctx)], dim=-1)
+    dctx = (dob.float() @ ap.wo.to(dt).float().t()).to(dt)
+    dqkv = packed_attention_bwd_math(qkv, dctx, num_heads)
     da = dqkv.float() @ ap.wqkv.to(dt).float().t()
     dln = _ln_bwd(da, xhat, r, ap.g1)
     grads = dict(g1=_colsum(da * xhat), b1=_colsum(da), wqkv=_tmm(a, dqkv), bqkv=_colsum(dqkv),
@@ -806,6 +824,18 @@ def _route(x: torch.Tensor) -> bool:
     return True
 
 
+def _count_attention(s: int, dh: int, backward: bool = False) -> None:
+    """Count the attention step's kernels inside a chain: the streamed
+    forward (and backward pair) past the resident route's limits, else the
+    resident ones (``LAUNCHES["attn_fwd"]``, ``["attn_bwd"]``). A backward
+    chain recomputes its forward on the route of its backward."""
+    lib = _ext.lib()
+    flash = lib.dp_flash_backward(s, dh) if backward else lib.dp_flash_forward(s, dh)
+    LAUNCHES["flash_fwd" if flash else "attn_fwd"] += 1
+    if backward:
+        LAUNCHES["flash_bwd" if flash else "attn_bwd"] += 1
+
+
 def _check_act(x: torch.Tensor, name: str) -> None:
     if x.dtype != torch.bfloat16:
         raise TypeError(f"{name}: the CUDA kernels take bf16 activations, got {x.dtype}")
@@ -922,7 +952,7 @@ def _launch_block(x: torch.Tensor, p: BlockParams, num_heads: int, eps: float,
     )
     _ext.check(err, name)
     LAUNCHES[name] += 1
-    LAUNCHES["flash_fwd"] += _ext.lib().dp_flash_forward(s, d // num_heads)
+    _count_attention(s, d // num_heads)
     return y, x2
 
 
@@ -988,7 +1018,7 @@ def _launch_attn_part(x: torch.Tensor, ap: AttnParams, num_heads: int, eps: floa
                 b, s, d, num_heads, eps, _stream())
     _ext.check(err, name)
     LAUNCHES[name] += 1
-    LAUNCHES["flash_fwd"] += _ext.lib().dp_flash_forward(s, d // num_heads)
+    _count_attention(s, d // num_heads)
     return out
 
 
@@ -1175,7 +1205,7 @@ def fused_attn_part_partial(
         *(t.data_ptr() for t in (x, *pp, qkv, ctx, out)), b, s, d, dl, num_heads, eps, _stream())
     _ext.check(err, name)
     LAUNCHES[name] += 1
-    LAUNCHES["flash_fwd"] += _ext.lib().dp_flash_forward(s, dl // num_heads)
+    _count_attention(s, dl // num_heads)
     return out
 
 
@@ -1434,11 +1464,11 @@ def packed_attention(qkv: torch.Tensor, num_heads: int, *, streamed: bool) -> to
     """The chains' attention step alone on a packed qkv (B, S, 3D) bf16,
     q|k|v on the last axis: ctx (B, S, D). ``streamed`` picks the kernel:
     flash_fwd_kernel (counted under ``LAUNCHES["flash_fwd"]`` too) or the
-    resident attention_kernel (K/V in shared memory, S up to ~320 at head
-    width 64: the chains' choice where it fits). Plain version: the chains'
-    ``_heads_attention``. Counts its launches under
-    ``LAUNCHES["packed_attention"]``; no path calls it: it times the
-    chains' attention routing."""
+    resident attn_fwd_kernel (under ``LAUNCHES["attn_fwd"]``; K/V in shared
+    memory, S up to 320 at head width 64: the chains' choice where it fits).
+    Plain version: the chains' ``_heads_attention``. Counts its launches
+    under ``LAUNCHES["packed_attention"]``; no path calls it: it holds and
+    times the chains' attention step."""
     if not _route(qkv):
         return _heads_attention(qkv, num_heads)
     name = "packed_attention"
@@ -1453,8 +1483,72 @@ def packed_attention(qkv: torch.Tensor, num_heads: int, *, streamed: bool) -> to
                                          int(streamed), _stream())
     _ext.check(err, name)
     LAUNCHES[name] += 1
-    LAUNCHES["flash_fwd"] += int(streamed)
+    LAUNCHES["flash_fwd" if streamed else "attn_fwd"] += 1
     return ctx
+
+
+def packed_attention_bwd(qkv: torch.Tensor, dctx: torch.Tensor, num_heads: int, *,
+                         streamed: bool) -> torch.Tensor:
+    """The chains' attention backward alone: dqkv (B, S, 3D) from a packed
+    qkv (B, S, 3D) bf16 and the cotangent of its ctx, dctx (B, S, D).
+    ``streamed`` picks the kernels: the streamed flash_fwd_kernel (for the
+    row statistics) then flash_bwd_dq_kernel + flash_bwd_dkv_kernel (counted
+    under ``LAUNCHES["flash_fwd"]`` and ``["flash_bwd"]`` too), or the
+    resident pair attn_bwd_dq_kernel + attn_bwd_dkv_kernel (under
+    ``LAUNCHES["attn_bwd"]``; S up to 304 at head width 64: the backward
+    chains' choice where it fits). Plain version: ``packed_attention_bwd_math``.
+    Counts its launches under ``LAUNCHES["packed_attention_bwd"]``; no path
+    calls it: it times the backward chains' attention step."""
+    if not _route(qkv):
+        return packed_attention_bwd_math(qkv, dctx, num_heads)
+    name = "packed_attention_bwd"
+    _check_act(qkv, name)
+    _check_act(dctx, name)
+    b, s, d3 = qkv.shape
+    d = d3 // 3
+    _check_shapes(d, num_heads, name)
+    if tuple(dctx.shape) != (b, s, d) or dctx.device != qkv.device:
+        raise ValueError(f"{name}: dctx must be ({b}, {s}, {d}) on {qkv.device}, "
+                         f"got {tuple(dctx.shape)} on {dctx.device}")
+    dh = d // num_heads
+    if not streamed and _ext.lib().dp_flash_backward(s, dh):
+        raise ValueError(f"{name}: {s} queries do not fit the resident backward kernels")
+    # The streamed forward's output (its statistics are what the backward
+    # reads), and the softmax statistics (B, H, 3, S).
+    ctx = _act(b, s, d, like=qkv) if streamed else _act(0, like=qkv)
+    stats = _f32(b, num_heads, 3, s, like=qkv)
+    dqkv = torch.empty_like(qkv)
+    err = _ext.lib().dp_packed_attention_bwd(qkv.data_ptr(), dctx.data_ptr(), ctx.data_ptr(),
+                                             stats.data_ptr(), dqkv.data_ptr(), b, s, num_heads,
+                                             dh, int(streamed), _stream())
+    _ext.check(err, name)
+    LAUNCHES[name] += 1
+    LAUNCHES["flash_bwd" if streamed else "attn_bwd"] += 1
+    LAUNCHES["flash_fwd"] += int(streamed)
+    return dqkv
+
+
+def attention_core_cost(b: int, h: int, s: int, dh: int, backward: bool) -> tuple[int, int]:
+    """(FLOPs, bytes) of the chains' attention step on the packed layout, for
+    its bound: JAX's FLOPs at the true length s (``flash_cost``'s count: 4
+    * B*H*S^2*dh forward, scores and PV; 10 backward, the recomputed scores,
+    dP, dq, dk and dv), and each byte once: qkv read and ctx written, or
+    qkv and dctx read and dqkv written (bf16)."""
+    unit, act = b * h * s * s * dh, b * s * h * dh * 2
+    return (10 * unit, 7 * act) if backward else (4 * unit, 4 * act)
+
+
+def attention_core_executed(b: int, h: int, s: int, dh: int, backward: bool) -> int:
+    """FLOPs the resident kernels execute at (b, h, s, dh), for their rate:
+    every 64-row query tile against the 16 * NK16 keys of the instantiation
+    that takes s (``dp_attention_keys``). Forward: Q K^T and P V. Backward:
+    the dq kernel's Q K^T, dO V^T and dS K, and the dkv kernel's K Q^T, V
+    dO^T, P^T dO and dS^T Q over 64-query chunks. Needs the built library."""
+    rows = -(-s // 64) * 64
+    keys = _ext.lib().dp_attention_keys(s, dh)
+    if not backward:
+        return 4 * b * h * rows * keys * dh
+    return b * h * dh * (6 * rows * keys + 8 * rows * rows)
 
 
 _SMS = 132  # the H100's streaming multiprocessors
@@ -1712,9 +1806,7 @@ def _launch_attn_bwd(x: torch.Tensor, dres: torch.Tensor, ap, num_heads: int, ep
     )
     _ext.check(err, name)
     LAUNCHES[name] += 1
-    flash = _ext.lib().dp_flash_backward(s, d // num_heads)
-    LAUNCHES["flash_fwd"] += flash
-    LAUNCHES["flash_bwd"] += flash
+    _count_attention(s, d // num_heads, backward=True)
     return dx, {"wqkv": dwqkv, "bqkv": dbqkv, "wo": dwo}, vec4
 
 

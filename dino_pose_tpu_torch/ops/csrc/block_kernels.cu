@@ -59,15 +59,18 @@
 //                          optional column sums of G from the staged tiles.
 //   scale_rows_kernel      bf16(a * scale[k]): the chains' scaled cotangents,
 //                          formed once for the two products that read them.
-//   attention_kernel<DH>   one (batch, head, 64-query tile) per block: K and V
-//                          of all S keys for the head stay in shared memory,
-//                          f32 scores and softmax, P rounded to bf16 before PV.
-//   attn_bwd_dq_kernel<DH>, attn_bwd_dkv_kernel<DH>  the attention backward,
-//                          FlashAttention-2 style: per query tile dq and the
-//                          softmax statistics, then per key tile dk and dv.
-//   The resident K/V (or Q/dO) hold S up to ~320 (dh = 64). Past that the
-//   attention step of every chain launches the streamed kernels of
-//   flash_kernels.cu instead (dp_flash::launch_fwd / launch_bwd): a choice
+//   attn_fwd_kernel<DH, NK16>  the attention step: K and V of all S keys for
+//                          a head in shared memory, a 64-query tile's whole
+//                          rows of f32 scores in registers (wgmma), the exact
+//                          softmax there, P rounded to bf16 and fed from
+//                          registers to the PV wgmma.
+//   attn_bwd_dq_kernel<DH, NK16>, attn_bwd_dkv_kernel<DH>  its backward on
+//                          the same design, FlashAttention-2 style: per query
+//                          tile dq and the softmax statistics (dP once a
+//                          tile), then per key tile dk and dv.
+//   The resident route takes S up to 320 forward and 304 backward (dh =
+//   64). Past that the attention step of every chain launches the streamed
+//   kernels of flash_kernels.cu instead (dp_flash::launch_fwd / launch_bwd): a choice
 //   between hand-written kernels by shape, made in attn_half and
 //   dp_fused_attn_bwd (a backward that streams recomputes its forward
 //   streamed too, for the row statistics it reads).
@@ -160,25 +163,18 @@
 #include <cuda.h>
 #include <cuda_runtime.h>
 #include <math.h>
-#include <mma.h>
 #include <stdint.h>
 
 #include "flash_kernels.cuh"
 
-using namespace nvcuda;
 typedef __nv_bfloat16 bf16;
 
 namespace {
 
-constexpr int PAD_H = 8;           // bf16 row padding (keeps WMMA ldm % 8 == 0)
-constexpr int PAD_F = 4;           // f32 row padding
-constexpr int BQ = 64;             // query rows per attention block
-constexpr int ATTN_THREADS = 128;  // 4 warps, 16 query rows each
 constexpr int ROW_THREADS = 128;   // 4 warps, one row each (LayerNorm rows)
 constexpr int SUM_ROWS = 64;       // rows per block of the column-summing row kernel
 constexpr int NSUMS = 4;           // column sums of ln_bwd_rows_kernel<true>
 
-constexpr size_t MAX_SMEM = 232448;  // shared memory one Hopper block may use
 
 // EPI_BIAS* round the product to bf16 and add the bf16-rounded bias in bf16
 // (the resident TPU kernels); EPI_F32BIAS* add the bias to the f32 sum
@@ -198,10 +194,6 @@ enum EpilogueNT { EPT_GELU_GRAD = 0, EPT_F32 = 1, EPT_BF16 = 2 };
 // backward: dres = do adds nothing to dx, and its sum is dbo).
 enum RowsMode { ROWS_RESIDENT = 0, ROWS_UNSCALED = 1, ROWS_NO_RES = 2 };
 
-__host__ __device__ __forceinline__ size_t align128(size_t n) {
-  return (n + 127) & ~static_cast<size_t>(127);
-}
-
 __device__ __forceinline__ float bf16r(float v) {
   return __bfloat162float(__float2bfloat16(v));
 }
@@ -209,12 +201,6 @@ __device__ __forceinline__ float bf16r(float v) {
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
   return v;
 }
 
@@ -1116,465 +1102,661 @@ ln_bwd_rows_kernel(const bf16* __restrict__ x, const bf16* __restrict__ dres,
   }
 }
 
-size_t attention_smem_bytes(int S, int dh) {
-  const int sp = (S + 15) / 16 * 16;
-  const int ldh = dh + PAD_H;
-  return 2 * align128(static_cast<size_t>(sp) * ldh * 2) +
-         align128(static_cast<size_t>(BQ) * ldh * 2) +
-         align128(static_cast<size_t>(BQ) * (sp + PAD_F) * 4) +
-         align128(static_cast<size_t>(BQ) * (sp + PAD_H) * 2);
+// ---------------------------------------------------------------------------
+// The resident attention step: the per-head softmax loops of _block_kernel
+// (block.py:182-199), _attn_half_core (:972-990) and _attn_bwd_kernel
+// (:354-397). For one head, K and V of all S keys (or Q and dO of all S
+// queries) stay in shared memory, and one consumer warpgroup holds a
+// 64-row tile's whole rows of scores in registers: the softmax sees the
+// exact row max over every key, takes exp, divides by the f32 row sum, and
+// only then rounds P to bf16, JAX's rounding points (a streamed, online
+// softmax moves them):
+//
+//   attn_fwd_kernel<DH, NK16>      ctx = bf16(bf16(P) V), P = softmax(Q K^T * scale)
+//   attn_bwd_dq_kernel<DH, NK16>   dq = bf16(bf16(dS) K * scale) and the rows'
+//                                  statistics (max, sum, rowsum(P * dP)), with
+//                                  dS = P * (dP - rowsum(P * dP)), dP = dO V^T
+//   attn_bwd_dkv_kernel<DH>        dk = bf16(bf16(dS)^T Q * scale),
+//                                  dv = bf16(bf16(P)^T dO), P and dS rebuilt
+//                                  from the statistics
+//
+// Every product is a wgmma. Q K^T, dO V^T (and K Q^T, V dO^T) read both
+// operands K-major from shared memory, as stored. P V, dS K, P^T dO and
+// dS^T Q take P or dS as the A operand straight from registers: the f32
+// accumulator of an m64nN product holds, in each 16-column group, exactly
+// the A fragment of one k16 step, so no score goes to shared memory; the
+// other operand is read MN-major through the transpose bit. Tiles arrive by
+// TMA from the packed (B, S, 3D) qkv seen as a 3-D tensor, so rows past S
+// of a sample read as zeros and never as the next sample's: boxes of 64
+// rows by the head's dh columns, swizzled as wide as a head row (128 bytes
+// at dh = 64, 64 at dh = 32). Outputs leave through a staging tile by TMA
+// stores, which clip the rows past S. A block is one consumer warpgroup and
+// a producer warp whose one thread issues the loads.
+//
+// The softmax keeps the f32 arithmetic of the WMMA kernels these replace
+// (row_softmax), and the tensor cores sum each k16 step of a wgmma as they
+// summed an mma.sync step, so ctx and dv keep the replaced kernels' bits;
+// dq and dk differ where rowsum(P * dP), summed in another order, moves a
+// bf16 rounding.
+//
+// NK16 is the number of 16-key groups of scores a thread holds, 8 f32 values
+// each: the instantiation at or above ceil(S/16) (key_groups). Its 64-key
+// chunks are m64n64 products, a 17th group one m64n16, so that S = 257
+// holds 272 keys (136 registers), not 320. dP needs the full row's
+// rowsum(P * dP) before dS, so the dq kernel computes each 64-key chunk of
+// dP once, adds its share of the rowsum and keeps the chunk in shared
+// memory (each thread its own values) until dS. The row statistics go to
+// device memory, (B, H, 3, S) f32, for the dkv kernel, which walks the
+// queries in 64-row chunks with Q and dO resident, accumulating dk and dv
+// in registers.
+//
+// What bounds them: at dinov2-large, B = 128, the forward moves 270 MB (qkv
+// read, ctx written: 0.080 ms at 3.35 TB/s) for 4*B*H*S^2*dh = 34.6 GFLOP
+// (0.035 ms at 989 TFLOP/s), the backward 472 MB for 86.6 GFLOP: bytes.
+// Each block loads its head's K and V (Q and dO) once and walks the head's
+// tiles where there are enough heads to fill the card, and the forward and
+// dkv blocks fit two an SM.
+// ---------------------------------------------------------------------------
+
+constexpr int AQ = 64;            // rows of an attention tile: one wgmma M
+constexpr int ATT_THREADS = 160;  // a consumer warpgroup and a producer warp
+
+// A 64-row tile of head rows (dh bf16 values, RB bytes), as TMA lays it
+// down: 16-byte chunk j of row r at chunk j ^ (r % 8) (128-byte rows) or
+// j ^ ((r / 2) % 4) (64-byte rows).
+template <int DH>
+struct HeadTile {
+  static constexpr int RB = DH * 2;
+  static constexpr int BYTES = AQ * RB;
+  static constexpr uint64_t LAYOUT = DH == 64 ? 1 : 2;  // wgmma's 128- or 64-byte swizzle
+  // A K-major operand's k16 step in descriptor units (16 bytes): 32 bytes
+  // along the rows (an MN-major one's is 16 rows, taken as an address).
+  static constexpr uint64_t K_STEP = 32 >> 4;
+  // The wgmma descriptor of the tile at addr: K-major (8-row groups 8 rows
+  // apart, the reduction along each row) or MN-major (the reduction down the
+  // rows, one atom of dh columns).
+  __device__ static uint64_t desc(uint32_t addr, bool mn) {
+    const uint32_t lbo = mn ? BYTES : 16, sbo = 8 * RB;
+    return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(lbo >> 4) << 16) |
+           (static_cast<uint64_t>(sbo >> 4) << 32) | (LAYOUT << 62);
+  }
+  // The offset of lane's 4-byte pair in 16-byte chunk j of row r.
+  __device__ static uint32_t pair(int j, int r, int lane) {
+    const int sw = DH == 64 ? (r & 7) : ((r >> 1) & 3);
+    return r * RB + ((j ^ sw) << 4) + (lane & 3) * 4;
+  }
+};
+
+// D (64 x 16 f32, 8 registers a thread) += A (64 x 16) * B (16 x 16), both
+// from shared memory, as wgmma_n64.
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_n16(float* d, uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, %8, %9, p, 1, 1, %11, %12;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
 }
 
-// qkv: (B, S, 3D) bf16 with q|k|v on the last axis (head h at columns
-// h*DH within each third); ctx: (B, S, D) bf16. Grid (ceil(S/BQ), H, B).
-template <int DH>
-__global__ void __launch_bounds__(ATTN_THREADS)
-attention_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ ctx, int S, int H,
-                 float scale) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int sp = (S + 15) / 16 * 16;
-  constexpr int LDH = DH + PAD_H;
-  const int lds = sp + PAD_F;
-  const int ldp = sp + PAD_H;
-  size_t off = 0;
-  bf16* Ks = reinterpret_cast<bf16*>(smem + off);
-  off += align128(static_cast<size_t>(sp) * LDH * 2);
-  bf16* Vs = reinterpret_cast<bf16*>(smem + off);
-  off += align128(static_cast<size_t>(sp) * LDH * 2);
-  bf16* Qs = reinterpret_cast<bf16*>(smem + off);
-  off += align128(static_cast<size_t>(BQ) * LDH * 2);
-  float* Ss = reinterpret_cast<float*>(smem + off);
-  off += align128(static_cast<size_t>(BQ) * lds * 4);
-  bf16* Ps = reinterpret_cast<bf16*>(smem + off);
+// D (64 x 32 f32) += A (64 x 16 bf16, four registers a thread in the
+// accumulator's layout: rows lane/4 and +8, columns 2*(lane%4) and +8) * B
+// (16 x 32) from shared memory; TB: B's transpose bit.
+template <int TB>
+__device__ __forceinline__ void wgmma_rs_n32(float* d, const uint32_t* a, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1, %22;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1), "n"(TB));
+}
 
-  const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * BQ;
-  const int D = H * DH, row = 3 * D;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const bf16* base = qkv + static_cast<size_t>(b) * S * row;
-  constexpr int VPR = DH / 8;  // 16-byte vectors per head row
-  const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
+// D (64 x 64 f32) += A (64 x 16, registers, as wgmma_rs_n32) * B (16 x 64).
+template <int TB>
+__device__ __forceinline__ void wgmma_rs_n64(float* d, const uint32_t* a, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1), "n"(TB));
+}
 
-  for (int i = tid; i < sp * VPR; i += ATTN_THREADS) {
-    const int r = i / VPR, c = (i % VPR) * 8;
-    uint4 kv = zero, vv = zero;
-    if (r < S) {
-      const bf16* p = base + static_cast<size_t>(r) * row + h * DH + c;
-      kv = *reinterpret_cast<const uint4*>(p + D);
-      vv = *reinterpret_cast<const uint4*>(p + 2 * D);
-    }
-    *reinterpret_cast<uint4*>(Ks + r * LDH + c) = kv;
-    *reinterpret_cast<uint4*>(Vs + r * LDH + c) = vv;
-  }
-  for (int i = tid; i < BQ * VPR; i += ATTN_THREADS) {
-    const int r = i / VPR, c = (i % VPR) * 8;
-    uint4 qv = zero;
-    if (q0 + r < S)
-      qv = *reinterpret_cast<const uint4*>(base + static_cast<size_t>(q0 + r) * row + h * DH + c);
-    *reinterpret_cast<uint4*>(Qs + r * LDH + c) = qv;
-  }
-  __syncthreads();
 
-  // Scores for this warp's 16 query rows against all keys (f32).
-  const int wr = warp * 16;
-  wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> qf[DH / 16];
+// d (64 x N) += A (64 x 16) B (16 x N), both from shared memory: N = 64
+// for a 64-key chunk, 16 for the tail group of S = 257 (17 groups).
+template <int N, int TA, int TB>
+__device__ __forceinline__ void wgmma_ss(float* d, uint64_t da, uint64_t db) {
+  static_assert(N == 64 || N == 16, "the attention kernels' products are 64 or 16 keys wide");
+  if constexpr (N == 64)
+    wgmma_n64<TA, TB>(d, da, db);
+  else
+    wgmma_n16<TA, TB>(d, da, db);
+}
+
+// d (64 x N) += A (64 x 16, registers) B (16 x N), B MN-major.
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float* d, const uint32_t* a, uint64_t db) {
+  if constexpr (N == 64)
+    wgmma_rs_n64<1>(d, a, db);
+  else
+    wgmma_rs_n32<1>(d, a, db);
+}
+
+// Keeps the compiler from reusing an A fragment's registers before the
+// wgmma that reads them has been waited for.
+template <int R>
+__device__ __forceinline__ void fence_frag(uint32_t* a) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+r"(a[i])::"memory");
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&p);
+}
+
+// One 3-D TMA tile load (coordinates innermost first) completing on bar.
+__device__ __forceinline__ void tma_load3(uint32_t dst, const CUtensorMap* map, uint32_t bar, int c0,
+                                          int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// One 3-D TMA tile store (a bulk group); rows past the tensor's S are not
+// written.
+__device__ __forceinline__ void tma_store3(const CUtensorMap* map, uint32_t src, int c0, int c1,
+                                           int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%2, %3, %4}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// d (64 x N) = A (64 x DH) B (N x DH)^T for the tiles at a and b, both
+// K-major: issued into the open wgmma group.
+template <int DH, int N>
+__device__ __forceinline__ void issue_nt(float* d, uint32_t a, uint32_t b) {
+  using T = HeadTile<DH>;
+  const uint64_t da = T::desc(a, false), db = T::desc(b, false);
 #pragma unroll
   for (int kk = 0; kk < DH / 16; ++kk)
-    wmma::load_matrix_sync(qf[kk], Qs + wr * LDH + kk * 16, LDH);
-  for (int n = 0; n < sp; n += 16) {
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-    wmma::fill_fragment(acc, 0.f);
-#pragma unroll
-    for (int kk = 0; kk < DH / 16; ++kk) {
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> kf;
-      wmma::load_matrix_sync(kf, Ks + n * LDH + kk * 16, LDH);
-      wmma::mma_sync(acc, qf[kk], kf, acc);
-    }
-    wmma::store_matrix_sync(Ss + wr * lds + n, acc, lds, wmma::mem_row_major);
-  }
-  __syncwarp();
-
-  // Row softmax over the S valid keys; padded keys get probability 0.
-  for (int r = wr; r < wr + 16; ++r) {
-    float* srow = Ss + r * lds;
-    float mx = -INFINITY;
-    for (int c = lane; c < S; c += 32) mx = fmaxf(mx, srow[c] * scale);
-    mx = warp_max(mx);
-    float sum = 0.f;
-    for (int c = lane; c < S; c += 32) {
-      const float e = expf(srow[c] * scale - mx);
-      srow[c] = e;
-      sum += e;
-    }
-    sum = warp_sum(sum);
-    bf16* prow = Ps + r * ldp;
-    for (int c = lane; c < sp; c += 32)
-      prow[c] = __float2bfloat16(c < S ? srow[c] / sum : 0.f);
-  }
-  __syncwarp();
-
-  // O = P V for this warp's rows; staged through its own score rows.
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> oacc[DH / 16];
-#pragma unroll
-  for (int j = 0; j < DH / 16; ++j) wmma::fill_fragment(oacc[j], 0.f);
-  for (int k = 0; k < sp; k += 16) {
-    wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> pf;
-    wmma::load_matrix_sync(pf, Ps + wr * ldp + k, ldp);
-#pragma unroll
-    for (int j = 0; j < DH / 16; ++j) {
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> vf;
-      wmma::load_matrix_sync(vf, Vs + k * LDH + j * 16, LDH);
-      wmma::mma_sync(oacc[j], pf, vf, oacc[j]);
-    }
-  }
-  __syncwarp();
-#pragma unroll
-  for (int j = 0; j < DH / 16; ++j)
-    wmma::store_matrix_sync(Ss + wr * lds + j * 16, oacc[j], lds, wmma::mem_row_major);
-  __syncwarp();
-  for (int i = lane; i < 16 * DH; i += 32) {
-    const int r = i / DH, c = i % DH;
-    const int q = q0 + wr + r;
-    if (q < S)
-      ctx[(static_cast<size_t>(b) * S + q) * D + h * DH + c] =
-          __float2bfloat16(Ss[(wr + r) * lds + c]);
-  }
+    wgmma_ss<N, 0, 0>(d, da + kk * T::K_STEP, db + kk * T::K_STEP);
 }
 
-// Attention backward (the per-head loop of _attn_bwd_kernel, block.py:383-397):
-//   P = softmax(Q K^T * scale) (f32), dP = dO V^T (f32),
-//   dS = P * (dP - rowsum(P * dP)),
-//   dq = bf16(bf16(dS) K * scale), dk = bf16(bf16(dS)^T Q * scale),
-//   dv = bf16(bf16(P)^T dO),
-// dO being the head's slice of dctx. dk and dv sum over all queries, so the
-// work is split FlashAttention-2 style: attn_bwd_dq_kernel takes one query
-// tile with K and V resident and writes dq and the row statistics (max,
-// sum, rowsum(P*dP)); attn_bwd_dkv_kernel takes one key tile with Q and dO
-// resident, rebuilds P and dS from those statistics, and writes dk and dv.
-// Keys and queries >= S get P = dS = 0 (the forward's masking; no padding
-// copy). stats: (B, H, 3, S) f32. dqkv: (B, S, 3D) bf16, q|k|v as qkv.
-size_t attn_bwd_smem_bytes(int S, int dh) {
-  const int sp = (S + 15) / 16 * 16;
-  const int ldh = dh + PAD_H;
-  const size_t seq = align128(static_cast<size_t>(sp) * ldh * 2);
-  const size_t tile = align128(static_cast<size_t>(BQ) * ldh * 2);
-  const size_t pb = align128(static_cast<size_t>(BQ) * (sp + PAD_H) * 2);
-  const size_t warps = ATTN_THREADS / 32;
-  const size_t dq = 2 * seq + 2 * tile + align128(static_cast<size_t>(BQ) * (sp + PAD_F) * 4) +
-                    pb + align128(warps * 256 * 4);
-  const size_t dkv = 2 * seq + 2 * tile + 2 * pb + align128(warps * 2 * 256 * 4) +
-                     align128(static_cast<size_t>(3) * sp * 4);
-  return dq > dkv ? dq : dkv;
+// d (64 x N) = A B^T as one wgmma group, waited for.
+template <int DH, int N>
+__device__ __forceinline__ void product_nt(float* d, uint32_t a, uint32_t b) {
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) d[i] = 0.f;
+  fence_acc<N / 2>(d);
+  wgmma_fence();
+  issue_nt<DH, N>(d, a, b);
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_acc<N / 2>(d);
 }
 
-// Grid (ceil(S/BQ), H, B). Each warp owns 16 query rows of the tile.
+// s = Q K^T for the query tile at q against the 16*NK16 keys of the K
+// tiles at k: 64-key chunks at s + 32c, the tail after them.
+template <int DH, int NK16>
+__device__ __forceinline__ void row_scores(float* s, uint32_t q, uint32_t k) {
+  using T = HeadTile<DH>;
+  constexpr int NC = NK16 / 4, TAIL = NK16 % 4;
+#pragma unroll
+  for (int i = 0; i < NK16 * 8; ++i) s[i] = 0.f;
+  fence_acc<NK16 * 8>(s);
+  wgmma_fence();
+#pragma unroll
+  for (int c = 0; c < NC; ++c) issue_nt<DH, 64>(s + 32 * c, q, k + c * T::BYTES);
+  if constexpr (TAIL > 0) issue_nt<DH, 16 * TAIL>(s + 32 * NC, q, k + NC * T::BYTES);
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_acc<NK16 * 8>(s);
+}
+
+// Score i of a thread lies in row (i / 2) % 2 of its two (16*warp + lane/4
+// and 8 below it) and at key 8*(i/4) + 2*(lane%4) + i%2 (the m64nN
+// accumulator layout, chunk after chunk).
+__device__ __forceinline__ int score_col(int i, int lane) { return 8 * (i >> 2) + 2 * (lane & 3) + (i & 1); }
+
+// a / b correctly rounded from y = RN(1/b), one reciprocal a row: q = a*y is
+// within an ulp, the residual a - b*q is exact in an FMA, and one
+// correction rounds to the IEEE quotient (Markstein) wherever a is normal:
+// three operations for division's sequence.
+__device__ __forceinline__ float div_by(float a, float b, float y) {
+  const float q = __fmul_rn(a, y);
+  return fmaf(fmaf(-b, q, a), y, q);
+}
+
+// The softmax of the two rows in place, at JAX's rounding points: the exact
+// max over every key of s * scale, e = expf(s * scale - max), the f32 row
+// sum, p = e / sum (keys >= S masked to p = 0). In the f32 arithmetic of the
+// WMMA kernel it replaces, so that P keeps its bits: max(s * scale) as
+// max(s) * scale (the same rounded value, scale > 0), the exponent's
+// argument one FMA, and the sum in that kernel's order: its lane L = 8*(j %
+// 4) + 2*(lane % 4) + e added keys L, L + 32, .. in turn (here the four
+// residues of the 8-key group j of each row and e), then a butterfly over
+// lanes 16, 8, 4, 2 and 1 apart (the residues two then one apart, this
+// thread's lanes two then one apart, then e). mx and sum: the rows'
+// statistics, the same in the row's four lanes.
+template <int NK16>
+__device__ __forceinline__ void row_softmax(float* s, int S, float scale, int lane, float* mx,
+                                            float* sum) {
+  constexpr int R = NK16 * 8, NJ = NK16 * 2;
+  // Only the 16-key groups that reach S are masked.
+  const int full = S / 16;
+  mx[0] = mx[1] = -INFINITY;
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    if (i / 8 >= full && score_col(i, lane) >= S) s[i] = -INFINITY;
+    mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], s[i]);
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+    mx[h] = __fmul_rn(fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2)), scale);
+  }
+#pragma unroll
+  for (int i = 0; i < R; ++i) s[i] = expf(fmaf(s[i], scale, -mx[(i >> 1) & 1]));
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    float t[2];
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      float part[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) part[j & 3] += s[4 * j + 2 * h + e];
+      t[e] = (part[0] + part[2]) + (part[1] + part[3]);
+      t[e] += __shfl_xor_sync(0xffffffffu, t[e], 2);
+      t[e] += __shfl_xor_sync(0xffffffffu, t[e], 1);
+    }
+    sum[h] = t[0] + t[1];
+  }
+  const float y[2] = {__frcp_rn(sum[0]), __frcp_rn(sum[1])};
+#pragma unroll
+  for (int i = 0; i < R; ++i) s[i] = div_by(s[i], sum[(i >> 1) & 1], y[(i >> 1) & 1]);
+}
+
+// The consumer warpgroup's 64 x DH accumulators times mul, rounded to bf16,
+// through the staging tile at stage and out by one TMA store to (c0, c1,
+// c2) of map, once the previous store from a staging tile has read it.
+// row: the thread's first row of the tile.
 template <int DH>
-__global__ void __launch_bounds__(ATTN_THREADS)
-attn_bwd_dq_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ dctx,
-                   float* __restrict__ stats, bf16* __restrict__ dqkv, int S, int H,
-                   float scale) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int sp = (S + 15) / 16 * 16;
-  constexpr int LDH = DH + PAD_H;
-  const int lds = sp + PAD_F;
-  const int ldp = sp + PAD_H;
-  size_t off = 0;
-  bf16* Ks = reinterpret_cast<bf16*>(smem + off);
-  off += align128(static_cast<size_t>(sp) * LDH * 2);
-  bf16* Vs = reinterpret_cast<bf16*>(smem + off);
-  off += align128(static_cast<size_t>(sp) * LDH * 2);
-  bf16* Qs = reinterpret_cast<bf16*>(smem + off);
-  off += align128(static_cast<size_t>(BQ) * LDH * 2);
-  bf16* Os = reinterpret_cast<bf16*>(smem + off);  // dO tile
-  off += align128(static_cast<size_t>(BQ) * LDH * 2);
-  float* Ss = reinterpret_cast<float*>(smem + off);  // scores, then P (f32)
-  off += align128(static_cast<size_t>(BQ) * lds * 4);
-  bf16* Ps = reinterpret_cast<bf16*>(smem + off);  // bf16(dS)
-  off += align128(static_cast<size_t>(BQ) * ldp * 2);
-  float* Sc = reinterpret_cast<float*>(smem + off);  // 16x16 f32 per warp
-
-  const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * BQ;
-  const int D = H * DH, row = 3 * D;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const bf16* base = qkv + static_cast<size_t>(b) * S * row;
-  const bf16* dbase = dctx + static_cast<size_t>(b) * S * D;
-  float* st = stats + (static_cast<size_t>(b) * H + h) * 3 * S;
-  constexpr int VPR = DH / 8;
-  const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
-
-  for (int i = tid; i < sp * VPR; i += ATTN_THREADS) {
-    const int r = i / VPR, c = (i % VPR) * 8;
-    uint4 kv = zero, vv = zero;
-    if (r < S) {
-      const bf16* p = base + static_cast<size_t>(r) * row + h * DH + c;
-      kv = *reinterpret_cast<const uint4*>(p + D);
-      vv = *reinterpret_cast<const uint4*>(p + 2 * D);
-    }
-    *reinterpret_cast<uint4*>(Ks + r * LDH + c) = kv;
-    *reinterpret_cast<uint4*>(Vs + r * LDH + c) = vv;
+__device__ __forceinline__ void store_tile(const float* o, float mul, uint32_t stage,
+                                           const CUtensorMap* map, int c0, int c1, int c2,
+                                           int row, int lane, bool signal) {
+  using T = HeadTile<DH>;
+  if (signal) asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+  warpgroup_sync(1);
+#pragma unroll
+  for (int j = 0; j < DH / 8; ++j) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      st_shared(stage + T::pair(j, row + 8 * h, lane),
+                pack_bf16(o[4 * j + 2 * h] * mul, o[4 * j + 2 * h + 1] * mul));
   }
-  for (int i = tid; i < BQ * VPR; i += ATTN_THREADS) {
-    const int r = i / VPR, c = (i % VPR) * 8;
-    uint4 qv = zero, ov = zero;
-    if (q0 + r < S) {
-      qv = *reinterpret_cast<const uint4*>(base + static_cast<size_t>(q0 + r) * row + h * DH + c);
-      ov = *reinterpret_cast<const uint4*>(dbase + static_cast<size_t>(q0 + r) * D + h * DH + c);
-    }
-    *reinterpret_cast<uint4*>(Qs + r * LDH + c) = qv;
-    *reinterpret_cast<uint4*>(Os + r * LDH + c) = ov;
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  warpgroup_sync(1);
+  if (signal) {
+    tma_store3(map, stage, c0, c1, c2);
+    asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+  }
+}
+
+// The block's head and tile range: blockIdx.x = (b*H + h) * groups + g,
+// tiles [g*tpb, min(tiles, (g+1)*tpb)).
+struct HeadBlock {
+  int b, h, t0, t1;
+  __device__ HeadBlock(int S, int H, int tpb) {
+    const int tiles = (S + AQ - 1) / AQ, groups = (tiles + tpb - 1) / tpb;
+    const int bh = blockIdx.x / groups;
+    b = bh / H;
+    h = bh % H;
+    t0 = blockIdx.x % groups * tpb;
+    t1 = min(tiles, t0 + tpb);
+  }
+};
+
+__device__ __forceinline__ void init_bars(uint32_t bars, int n) {
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < n; ++i) mbar_init(bars + 8 * i, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
+}
 
-  // Scores and softmax exactly as attention_kernel, P kept in f32.
-  const int wr = warp * 16;
-  {
-    wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> qf[DH / 16];
-#pragma unroll
-    for (int kk = 0; kk < DH / 16; ++kk)
-      wmma::load_matrix_sync(qf[kk], Qs + wr * LDH + kk * 16, LDH);
-    for (int n = 0; n < sp; n += 16) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-      wmma::fill_fragment(acc, 0.f);
-#pragma unroll
-      for (int kk = 0; kk < DH / 16; ++kk) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> kf;
-        wmma::load_matrix_sync(kf, Ks + n * LDH + kk * 16, LDH);
-        wmma::mma_sync(acc, qf[kk], kf, acc);
-      }
-      wmma::store_matrix_sync(Ss + wr * lds + n, acc, lds, wmma::mem_row_major);
-    }
-  }
-  __syncwarp();
-  for (int r = wr; r < wr + 16; ++r) {
-    float* srow = Ss + r * lds;
-    float mx = -INFINITY;
-    for (int c = lane; c < S; c += 32) mx = fmaxf(mx, srow[c] * scale);
-    mx = warp_max(mx);
-    float sum = 0.f;
-    for (int c = lane; c < S; c += 32) {
-      const float e = expf(srow[c] * scale - mx);
-      srow[c] = e;
-      sum += e;
-    }
-    sum = warp_sum(sum);
-    __syncwarp();
-    for (int c = lane; c < sp; c += 32) srow[c] = c < S ? srow[c] / sum : 0.f;
-    if (lane == 0 && q0 + r < S) {
-      st[q0 + r] = mx;
-      st[S + q0 + r] = sum;
-    }
-  }
-  __syncwarp();
+// Shared memory: K and V of the head (BOXES 64-key tiles each), two stages
+// of a query tile, the ctx staging tile, then the barriers (K/V, query
+// full[2], query empty[2]), after slack to align the tiles to 1024 bytes.
+template <int DH, int NK16>
+struct FwdPlan {
+  using T = HeadTile<DH>;
+  static constexpr int BOXES = (NK16 + 3) / 4;
+  static constexpr int KV = BOXES * T::BYTES;
+  static constexpr size_t SMEM = 2 * KV + 3 * T::BYTES + 5 * 8 + 1024;
+};
 
-  // dP = dO V^T, 16 keys at a time through this warp's scratch tile, twice:
-  // first for rowsum(P * dP), then for dS. Lane pair (2j, 2j+1) owns row j
-  // of the tile, eight columns each.
-  wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> of[DH / 16];
-#pragma unroll
-  for (int kk = 0; kk < DH / 16; ++kk)
-    wmma::load_matrix_sync(of[kk], Os + wr * LDH + kk * 16, LDH);
-  float* sc = Sc + warp * 256;
-  const int tr = lane >> 1, tc = (lane & 1) * 8;
-  const float* prow = Ss + (wr + tr) * lds;
-  float rt = 0.f;
-  for (int pass = 0; pass < 2; ++pass) {
-    for (int n = 0; n < sp; n += 16) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-      wmma::fill_fragment(acc, 0.f);
-#pragma unroll
-      for (int kk = 0; kk < DH / 16; ++kk) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> vf;
-        wmma::load_matrix_sync(vf, Vs + n * LDH + kk * 16, LDH);
-        wmma::mma_sync(acc, of[kk], vf, acc);
-      }
-      wmma::store_matrix_sync(sc, acc, 16, wmma::mem_row_major);
-      __syncwarp();
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const float p = prow[n + tc + j], dp = sc[tr * 16 + tc + j];
-        if (pass == 0)
-          rt += p * dp;
-        else
-          Ps[(wr + tr) * ldp + n + tc + j] = __float2bfloat16(p * (dp - rt));
-      }
-      __syncwarp();
-    }
-    if (pass == 0) {
-      rt += __shfl_xor_sync(0xffffffffu, rt, 1);
-      if ((lane & 1) == 0 && q0 + wr + tr < S) st[2 * S + q0 + wr + tr] = rt;
-    }
-  }
-  __syncwarp();
+// ctx (B, S, D) for qkv (B, S, 3D) (tensor maps tqkv, tctx; head h at
+// columns h*DH of each third). Grid: B*H heads x their query tiles in groups
+// of tpb. Two blocks an SM up to NK16 = 20 (the scores' 160 registers and
+// what the softmax needs beside them).
+template <int DH, int NK16>
+__global__ void __launch_bounds__(ATT_THREADS, NK16 <= 20 ? 2 : 1)
+attn_fwd_kernel(const __grid_constant__ CUtensorMap tqkv, const __grid_constant__ CUtensorMap tctx,
+                int S, int H, int tpb, float scale) {
+  using T = HeadTile<DH>;
+  using P = FwdPlan<DH, NK16>;
+  extern __shared__ unsigned char attn_smem[];
+  const uint32_t ks = (smem_addr(attn_smem) + 1023u) & ~1023u;
+  const uint32_t vs = ks + P::KV, qs = vs + P::KV, os = qs + 2 * T::BYTES;
+  const uint32_t bars = os + T::BYTES, full = bars + 8, empty = bars + 24;
+  const HeadBlock blk(S, H, tpb);
+  const int D = H * DH;
+  init_bars(bars, 5);
 
-  // dq = bf16(dS) K * scale, staged through this warp's rows of Ss.
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> qacc[DH / 16];
-#pragma unroll
-  for (int j = 0; j < DH / 16; ++j) wmma::fill_fragment(qacc[j], 0.f);
-  for (int k = 0; k < sp; k += 16) {
-    wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> dsf;
-    wmma::load_matrix_sync(dsf, Ps + wr * ldp + k, ldp);
-#pragma unroll
-    for (int j = 0; j < DH / 16; ++j) {
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> kf;
-      wmma::load_matrix_sync(kf, Ks + k * LDH + j * 16, LDH);
-      wmma::mma_sync(qacc[j], dsf, kf, qacc[j]);
+  if (threadIdx.x >= WG_THREADS) {
+    // Producer: the head's K and V once, then the block's query tiles
+    // through two stages.
+    if (threadIdx.x == WG_THREADS) {
+      mbar_expect_tx(bars, 2 * P::KV);
+      for (int i = 0; i < P::BOXES; ++i) {
+        tma_load3(ks + i * T::BYTES, &tqkv, bars, D + blk.h * DH, i * AQ, blk.b);
+        tma_load3(vs + i * T::BYTES, &tqkv, bars, 2 * D + blk.h * DH, i * AQ, blk.b);
+      }
+      for (int t = blk.t0; t < blk.t1; ++t) {
+        const int k = t - blk.t0, st = k & 1;
+        mbar_wait(empty + 8 * st, ((k >> 1) & 1) ^ 1);
+        mbar_expect_tx(full + 8 * st, T::BYTES);
+        tma_load3(qs + st * T::BYTES, &tqkv, full + 8 * st, blk.h * DH, t * AQ, blk.b);
+      }
     }
-  }
-  __syncwarp();
+  } else {
+    const int lane = threadIdx.x & 31, row = (threadIdx.x >> 5) * 16 + (lane >> 2);
+    const bool signal = threadIdx.x == 0;
+    mbar_wait(bars, 0);
+    for (int t = blk.t0; t < blk.t1; ++t) {
+      const int k = t - blk.t0, st = k & 1;
+      mbar_wait(full + 8 * st, (k >> 1) & 1);
+      float s[NK16 * 8];
+      row_scores<DH, NK16>(s, qs + st * T::BYTES, ks);
+      if (signal) mbar_arrive(empty + 8 * st);
+      float mx[2], sum[2];
+      row_softmax<NK16>(s, S, scale, lane, mx, sum);
+      uint32_t p[NK16 * 4];
 #pragma unroll
-  for (int j = 0; j < DH / 16; ++j)
-    wmma::store_matrix_sync(Ss + wr * lds + j * 16, qacc[j], lds, wmma::mem_row_major);
-  __syncwarp();
-  for (int i = lane; i < 16 * DH; i += 32) {
-    const int r = i / DH, c = i % DH;
-    const int q = q0 + wr + r;
-    if (q < S)
-      dqkv[(static_cast<size_t>(b) * S + q) * row + h * DH + c] =
-          __float2bfloat16(Ss[(wr + r) * lds + c] * scale);
+      for (int i = 0; i < NK16 * 4; ++i) p[i] = pack_bf16(s[2 * i], s[2 * i + 1]);
+      float o[DH / 2];
+#pragma unroll
+      for (int i = 0; i < DH / 2; ++i) o[i] = 0.f;
+      fence_acc<DH / 2>(o);
+      wgmma_fence();
+#pragma unroll
+      for (int g = 0; g < NK16; ++g) wgmma_rs<DH>(o, p + 4 * g, T::desc(vs + g * 16 * T::RB, true));
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_acc<DH / 2>(o);
+      fence_frag<NK16 * 4>(p);
+      store_tile<DH>(o, 1.f, os, &tctx, blk.h * DH, t * AQ, blk.b, row, lane, signal);
+    }
+    if (signal) asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
   }
 }
 
-// Grid (ceil(S/BQ), H, B) over key tiles. Each warp owns 16 keys of the tile
-// and walks all queries 16 at a time: S^T = K Q^T and dP^T = V dO^T in its
-// scratch tiles, then P^T and dS^T (bf16) into shared rows; at the end
-// dv = P^T dO and dk = dS^T Q * scale for its 16 keys.
-template <int DH>
-__global__ void __launch_bounds__(ATTN_THREADS)
-attn_bwd_dkv_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ dctx,
-                    const float* __restrict__ stats, bf16* __restrict__ dqkv, int S, int H,
-                    float scale) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int sp = (S + 15) / 16 * 16;
-  constexpr int LDH = DH + PAD_H;
-  const int ldp = sp + PAD_H;
-  size_t off = 0;
-  bf16* Qs = reinterpret_cast<bf16*>(smem + off);
-  off += align128(static_cast<size_t>(sp) * LDH * 2);
-  bf16* Os = reinterpret_cast<bf16*>(smem + off);  // dO, all queries
-  off += align128(static_cast<size_t>(sp) * LDH * 2);
-  bf16* Kt = reinterpret_cast<bf16*>(smem + off);
-  off += align128(static_cast<size_t>(BQ) * LDH * 2);
-  bf16* Vt = reinterpret_cast<bf16*>(smem + off);
-  off += align128(static_cast<size_t>(BQ) * LDH * 2);
-  bf16* Pt = reinterpret_cast<bf16*>(smem + off);  // bf16(P)^T, [key][query]
-  off += align128(static_cast<size_t>(BQ) * ldp * 2);
-  bf16* Dt = reinterpret_cast<bf16*>(smem + off);  // bf16(dS)^T
-  off += align128(static_cast<size_t>(BQ) * ldp * 2);
-  float* Sc = reinterpret_cast<float*>(smem + off);  // two 16x16 f32 per warp
-  off += align128(static_cast<size_t>(ATTN_THREADS / 32) * 2 * 256 * 4);
-  float* St = reinterpret_cast<float*>(smem + off);  // max | sum | rowsum(P dP)
+// Shared memory: K and V of the head, two stages of (Q, dO) query tiles,
+// the dq staging tile, dP's stash (each consumer thread's 8*NK16 values,
+// thread-major so that a warp's accesses are consecutive), then the
+// barriers (K/V, full[2], empty[2]).
+template <int DH, int NK16>
+struct DqPlan {
+  using T = HeadTile<DH>;
+  static constexpr int BOXES = (NK16 + 3) / 4;
+  static constexpr int KV = BOXES * T::BYTES;
+  static constexpr int STASH = NK16 * 8 * WG_THREADS * 4;
+  static constexpr size_t SMEM = 2 * KV + 5 * T::BYTES + STASH + 5 * 8 + 1024;
+};
 
-  const int b = blockIdx.z, h = blockIdx.y, k0 = blockIdx.x * BQ;
-  const int D = H * DH, row = 3 * D;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const bf16* base = qkv + static_cast<size_t>(b) * S * row;
-  const bf16* dbase = dctx + static_cast<size_t>(b) * S * D;
-  const float* st = stats + (static_cast<size_t>(b) * H + h) * 3 * S;
-  constexpr int VPR = DH / 8;
-  const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
+// dq into dqkv (columns h*DH of the first third) and the rows' statistics
+// stats[b][h] = (max, sum, rowsum(P * dP)) over S queries, from qkv and
+// dctx (tensor maps tqkv, tdout, tdqkv). Grid as attn_fwd_kernel's; one
+// block an SM (the stash).
+template <int DH, int NK16>
+__global__ void __launch_bounds__(ATT_THREADS, 1)
+attn_bwd_dq_kernel(const __grid_constant__ CUtensorMap tqkv, const __grid_constant__ CUtensorMap tdout,
+                   const __grid_constant__ CUtensorMap tdqkv, float* __restrict__ stats, int S,
+                   int H, int tpb, float scale) {
+  using T = HeadTile<DH>;
+  using P = DqPlan<DH, NK16>;
+  constexpr int NC = NK16 / 4, TAIL = NK16 % 4, R = NK16 * 8;
+  extern __shared__ unsigned char attn_smem[];
+  const uint32_t ks = (smem_addr(attn_smem) + 1023u) & ~1023u;
+  const uint32_t vs = ks + P::KV, qs = vs + P::KV, os = qs + 4 * T::BYTES, stash = os + T::BYTES;
+  const uint32_t bars = stash + P::STASH, full = bars + 8, empty = bars + 24;
+  const HeadBlock blk(S, H, tpb);
+  const int D = H * DH;
+  init_bars(bars, 5);
 
-  for (int i = tid; i < sp * VPR; i += ATTN_THREADS) {
-    const int r = i / VPR, c = (i % VPR) * 8;
-    uint4 qv = zero, ov = zero;
-    if (r < S) {
-      qv = *reinterpret_cast<const uint4*>(base + static_cast<size_t>(r) * row + h * DH + c);
-      ov = *reinterpret_cast<const uint4*>(dbase + static_cast<size_t>(r) * D + h * DH + c);
-    }
-    *reinterpret_cast<uint4*>(Qs + r * LDH + c) = qv;
-    *reinterpret_cast<uint4*>(Os + r * LDH + c) = ov;
-  }
-  for (int i = tid; i < BQ * VPR; i += ATTN_THREADS) {
-    const int r = i / VPR, c = (i % VPR) * 8;
-    uint4 kv = zero, vv = zero;
-    if (k0 + r < S) {
-      const bf16* p = base + static_cast<size_t>(k0 + r) * row + h * DH + c;
-      kv = *reinterpret_cast<const uint4*>(p + D);
-      vv = *reinterpret_cast<const uint4*>(p + 2 * D);
-    }
-    *reinterpret_cast<uint4*>(Kt + r * LDH + c) = kv;
-    *reinterpret_cast<uint4*>(Vt + r * LDH + c) = vv;
-  }
-  for (int i = tid; i < 3 * sp; i += ATTN_THREADS) {
-    const int w = i / sp, q = i % sp;
-    St[i] = q < S ? st[w * S + q] : 0.f;
-  }
-  __syncthreads();
-
-  const int kr = warp * 16;
-  wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> kf[DH / 16], vf[DH / 16];
-#pragma unroll
-  for (int kk = 0; kk < DH / 16; ++kk) {
-    wmma::load_matrix_sync(kf[kk], Kt + kr * LDH + kk * 16, LDH);
-    wmma::load_matrix_sync(vf[kk], Vt + kr * LDH + kk * 16, LDH);
-  }
-  float* s0 = Sc + warp * 512;
-  float* s1 = s0 + 256;
-  const int tr = lane >> 1, tc = (lane & 1) * 8;
-  const bool key_ok = k0 + kr + tr < S;
-  for (int i0 = 0; i0 < sp; i0 += 16) {
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> sacc, dacc;
-    wmma::fill_fragment(sacc, 0.f);
-    wmma::fill_fragment(dacc, 0.f);
-#pragma unroll
-    for (int kk = 0; kk < DH / 16; ++kk) {
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> qf, of;
-      wmma::load_matrix_sync(qf, Qs + i0 * LDH + kk * 16, LDH);
-      wmma::load_matrix_sync(of, Os + i0 * LDH + kk * 16, LDH);
-      wmma::mma_sync(sacc, kf[kk], qf, sacc);
-      wmma::mma_sync(dacc, vf[kk], of, dacc);
-    }
-    wmma::store_matrix_sync(s0, sacc, 16, wmma::mem_row_major);
-    wmma::store_matrix_sync(s1, dacc, 16, wmma::mem_row_major);
-    __syncwarp();
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int q = i0 + tc + j;
-      float p = 0.f, ds = 0.f;
-      if (key_ok && q < S) {
-        p = expf(s0[tr * 16 + tc + j] * scale - St[q]) / St[sp + q];
-        ds = p * (s1[tr * 16 + tc + j] - St[2 * sp + q]);
+  if (threadIdx.x >= WG_THREADS) {
+    if (threadIdx.x == WG_THREADS) {
+      mbar_expect_tx(bars, 2 * P::KV);
+      for (int i = 0; i < P::BOXES; ++i) {
+        tma_load3(ks + i * T::BYTES, &tqkv, bars, D + blk.h * DH, i * AQ, blk.b);
+        tma_load3(vs + i * T::BYTES, &tqkv, bars, 2 * D + blk.h * DH, i * AQ, blk.b);
       }
-      Pt[(kr + tr) * ldp + q] = __float2bfloat16(p);
-      Dt[(kr + tr) * ldp + q] = __float2bfloat16(ds);
+      for (int t = blk.t0; t < blk.t1; ++t) {
+        const int k = t - blk.t0, st = k & 1;
+        const uint32_t q = qs + 2 * st * T::BYTES;
+        mbar_wait(empty + 8 * st, ((k >> 1) & 1) ^ 1);
+        mbar_expect_tx(full + 8 * st, 2 * T::BYTES);
+        tma_load3(q, &tqkv, full + 8 * st, blk.h * DH, t * AQ, blk.b);
+        tma_load3(q + T::BYTES, &tdout, full + 8 * st, blk.h * DH, t * AQ, blk.b);
+      }
     }
-    __syncwarp();
-  }
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> vacc[DH / 16], kacc[DH / 16];
+  } else {
+    const int tid = threadIdx.x, lane = tid & 31, row = (tid >> 5) * 16 + (lane >> 2);
+    const bool signal = tid == 0;
+    float* dp_s = reinterpret_cast<float*>(attn_smem + (stash - smem_addr(attn_smem))) + tid;
+    float* st = stats + (static_cast<size_t>(blk.b) * H + blk.h) * 3 * S;
+    mbar_wait(bars, 0);
+    for (int t = blk.t0; t < blk.t1; ++t) {
+      const int k = t - blk.t0, sg = k & 1;
+      const uint32_t q = qs + 2 * sg * T::BYTES, dout = q + T::BYTES;
+      mbar_wait(full + 8 * sg, (k >> 1) & 1);
+      float p[R];
+      row_scores<DH, NK16>(p, q, ks);
+      float mx[2], sum[2], rs[2] = {0.f, 0.f};
+      row_softmax<NK16>(p, S, scale, lane, mx, sum);
+      // dP = dO V^T a 64-key chunk at a time: its share of rowsum(P * dP),
+      // then into the stash until rowsum is whole.
 #pragma unroll
-  for (int j = 0; j < DH / 16; ++j) {
-    wmma::fill_fragment(vacc[j], 0.f);
-    wmma::fill_fragment(kacc[j], 0.f);
-  }
-  for (int k = 0; k < sp; k += 16) {
-    wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> pf, df;
-    wmma::load_matrix_sync(pf, Pt + kr * ldp + k, ldp);
-    wmma::load_matrix_sync(df, Dt + kr * ldp + k, ldp);
+      for (int c = 0; c < NC; ++c) {
+        float d[32];
+        product_nt<DH, 64>(d, dout, vs + c * T::BYTES);
 #pragma unroll
-    for (int j = 0; j < DH / 16; ++j) {
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> of, qf;
-      wmma::load_matrix_sync(of, Os + k * LDH + j * 16, LDH);
-      wmma::load_matrix_sync(qf, Qs + k * LDH + j * 16, LDH);
-      wmma::mma_sync(vacc[j], pf, of, vacc[j]);
-      wmma::mma_sync(kacc[j], df, qf, kacc[j]);
-    }
-  }
-  // dk at columns D + h*DH, dv at 2D + h*DH, 16x16 at a time through s0.
-  for (int j = 0; j < DH / 16; ++j) {
-    for (int which = 0; which < 2; ++which) {
-      __syncwarp();
-      wmma::store_matrix_sync(s0, which == 0 ? kacc[j] : vacc[j], 16, wmma::mem_row_major);
-      __syncwarp();
-      const int key = k0 + kr + tr;
-      if (key < S) {
-        bf16* dst = dqkv + (static_cast<size_t>(b) * S + key) * row + (1 + which) * D + h * DH +
-                    j * 16 + tc;
-#pragma unroll
-        for (int e = 0; e < 8; ++e) {
-          const float v = s0[tr * 16 + tc + e];
-          dst[e] = __float2bfloat16(which == 0 ? v * scale : v);
+        for (int i = 0; i < 32; ++i) {
+          rs[(i >> 1) & 1] += p[32 * c + i] * d[i];
+          dp_s[(32 * c + i) * WG_THREADS] = d[i];
         }
       }
+      if constexpr (TAIL > 0) {
+        float d[8 * TAIL];
+        product_nt<DH, 16 * TAIL>(d, dout, vs + NC * T::BYTES);
+#pragma unroll
+        for (int i = 0; i < 8 * TAIL; ++i) {
+          rs[(i >> 1) & 1] += p[32 * NC + i] * d[i];
+          dp_s[(32 * NC + i) * WG_THREADS] = d[i];
+        }
+      }
+      if (signal) mbar_arrive(empty + 8 * sg);  // Q and dO are read
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        rs[h] += __shfl_xor_sync(0xffffffffu, rs[h], 1);
+        rs[h] += __shfl_xor_sync(0xffffffffu, rs[h], 2);
+        const int qrow = t * AQ + row + 8 * h;
+        if ((lane & 3) == 0 && qrow < S) {
+          st[qrow] = mx[h];
+          st[S + qrow] = sum[h];
+          st[2 * S + qrow] = rs[h];
+        }
+      }
+      // bf16(dS) as the A fragments of dq = dS K.
+      uint32_t f[R / 2];
+#pragma unroll
+      for (int i = 0; i < R / 2; ++i) {
+        const float r = rs[i & 1];
+        f[i] = pack_bf16(p[2 * i] * (dp_s[2 * i * WG_THREADS] - r),
+                         p[2 * i + 1] * (dp_s[(2 * i + 1) * WG_THREADS] - r));
+      }
+      float o[DH / 2];
+#pragma unroll
+      for (int i = 0; i < DH / 2; ++i) o[i] = 0.f;
+      fence_acc<DH / 2>(o);
+      wgmma_fence();
+#pragma unroll
+      for (int g = 0; g < NK16; ++g) wgmma_rs<DH>(o, f + 4 * g, T::desc(ks + g * 16 * T::RB, true));
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_acc<DH / 2>(o);
+      fence_frag<R / 2>(f);
+      store_tile<DH>(o, scale, os, &tdqkv, blk.h * DH, t * AQ, blk.b, row, lane, signal);
     }
+    if (signal) asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+  }
+}
+
+// Shared memory of attn_bwd_dkv_kernel at nq 64-query tiles: Q and dO of
+// every query, the key tile's K and V (which then stage dk and dv), the
+// statistics and the sums' reciprocals (4, nq*64) f32, the barriers (Q/dO,
+// K/V full, K/V empty).
+template <int DH>
+__host__ __device__ constexpr size_t dkv_smem(int nq) {
+  return static_cast<size_t>(2 * nq + 2) * HeadTile<DH>::BYTES + 4 * nq * AQ * 4 + 3 * 8 + 1024;
+}
+
+// dk and dv into dqkv (columns D + h*DH and 2D + h*DH) from qkv, dctx and
+// the dq kernel's statistics. Grid: B*H heads x their key tiles in groups
+// of tpb; two blocks an SM.
+template <int DH>
+__global__ void __launch_bounds__(ATT_THREADS, 2)
+attn_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tqkv, const __grid_constant__ CUtensorMap tdout,
+                    const __grid_constant__ CUtensorMap tdqkv, const float* __restrict__ stats,
+                    int S, int H, int tpb, float scale) {
+  using T = HeadTile<DH>;
+  extern __shared__ unsigned char attn_smem[];
+  const int nq = (S + AQ - 1) / AQ;
+  const uint32_t qs = (smem_addr(attn_smem) + 1023u) & ~1023u;
+  const uint32_t dos = qs + nq * T::BYTES, kc = dos + nq * T::BYTES, vc = kc + T::BYTES;
+  const uint32_t sts = vc + T::BYTES, bars = sts + 4 * nq * AQ * 4;
+  const uint32_t full = bars + 8, empty = bars + 16;
+  const HeadBlock blk(S, H, tpb);
+  const int D = H * DH;
+  init_bars(bars, 3);
+
+  if (threadIdx.x >= WG_THREADS) {
+    if (threadIdx.x == WG_THREADS) {
+      mbar_expect_tx(bars, 2 * nq * T::BYTES);
+      for (int j = 0; j < nq; ++j) {
+        tma_load3(qs + j * T::BYTES, &tqkv, bars, blk.h * DH, j * AQ, blk.b);
+        tma_load3(dos + j * T::BYTES, &tdout, bars, blk.h * DH, j * AQ, blk.b);
+      }
+      for (int t = blk.t0; t < blk.t1; ++t) {
+        const int k = t - blk.t0;
+        mbar_wait(empty, (k & 1) ^ 1);
+        mbar_expect_tx(full, 2 * T::BYTES);
+        tma_load3(kc, &tqkv, full, D + blk.h * DH, t * AQ, blk.b);
+        tma_load3(vc, &tqkv, full, 2 * D + blk.h * DH, t * AQ, blk.b);
+      }
+    }
+  } else {
+    const int tid = threadIdx.x, lane = tid & 31, row = (tid >> 5) * 16 + (lane >> 2);
+    const bool signal = tid == 0;
+    // The statistics of every query (rows past S: max 0, sum 1, and P = 0
+    // by the mask below), then RN(1/sum) for the division.
+    float* sm = reinterpret_cast<float*>(attn_smem + (sts - smem_addr(attn_smem)));
+    const float* st = stats + (static_cast<size_t>(blk.b) * H + blk.h) * 3 * S;
+    const int qn = nq * AQ;
+    for (int i = tid; i < 3 * qn; i += WG_THREADS) {
+      const int w = i / qn, qi = i % qn;
+      const float v = qi < S ? st[w * S + qi] : (w == 1 ? 1.f : 0.f);
+      sm[i] = v;
+      if (w == 1) sm[3 * qn + qi] = __frcp_rn(v);
+    }
+    warpgroup_sync(1);
+    mbar_wait(bars, 0);
+    for (int t = blk.t0; t < blk.t1; ++t) {
+      mbar_wait(full, (t - blk.t0) & 1);
+      float dk[DH / 2], dv[DH / 2];
+#pragma unroll
+      for (int i = 0; i < DH / 2; ++i) dk[i] = dv[i] = 0.f;
+      for (int j = 0; j < nq; ++j) {
+        // S^T = K Q_j^T and dP^T = V dO_j^T (keys as rows), one group.
+        float sT[32], dT[32];
+#pragma unroll
+        for (int i = 0; i < 32; ++i) sT[i] = dT[i] = 0.f;
+        fence_acc<32>(sT);
+        fence_acc<32>(dT);
+        wgmma_fence();
+        issue_nt<DH, 64>(sT, kc, qs + j * T::BYTES);
+        issue_nt<DH, 64>(dT, vc, dos + j * T::BYTES);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_acc<32>(sT);
+        fence_acc<32>(dT);
+        uint32_t pf[16], df[16];
+#pragma unroll
+        for (int i = 0; i < 16; ++i) {
+          float pv[2], ds[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int qi = j * AQ + score_col(2 * i + e, lane);
+            const float p = qi < S ? div_by(expf(fmaf(sT[2 * i + e], scale, -sm[qi])),
+                                            sm[qn + qi], sm[3 * qn + qi])
+                                   : 0.f;
+            pv[e] = p;
+            ds[e] = p * (dT[2 * i + e] - sm[2 * qn + qi]);
+          }
+          pf[i] = pack_bf16(pv[0], pv[1]);
+          df[i] = pack_bf16(ds[0], ds[1]);
+        }
+        // dv += bf16(P^T) dO_j, dk += bf16(dS^T) Q_j: 16 queries a k16 step.
+        fence_acc<DH / 2>(dv);
+        fence_acc<DH / 2>(dk);
+        wgmma_fence();
+#pragma unroll
+        for (int g = 0; g < 4; ++g) {
+          wgmma_rs<DH>(dv, pf + 4 * g, T::desc(dos + j * T::BYTES + g * 16 * T::RB, true));
+          wgmma_rs<DH>(dk, df + 4 * g, T::desc(qs + j * T::BYTES + g * 16 * T::RB, true));
+        }
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_acc<DH / 2>(dv);
+        fence_acc<DH / 2>(dk);
+        fence_frag<16>(pf);
+        fence_frag<16>(df);
+      }
+      // K and V are read: they stage dk and dv, and once the stores have
+      // read them the producer may load the next key tile.
+      store_tile<DH>(dk, scale, kc, &tdqkv, D + blk.h * DH, t * AQ, blk.b, row, lane, signal);
+      store_tile<DH>(dv, 1.f, vc, &tdqkv, 2 * D + blk.h * DH, t * AQ, blk.b, row, lane, signal);
+      if (signal) {
+        asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+        mbar_arrive(empty);
+      }
+    }
+    if (signal) asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
   }
 }
 
@@ -1845,27 +2027,93 @@ cudaError_t launch_ln_bwd_sums(const void* x, const void* dres, const void* dm,
   return launch_sum_rows(part, blocks, static_cast<long long>(NSUMS) * D, vec4, stream);
 }
 
-template <int DH>
-cudaError_t launch_attn_bwd_dh(const void* qkv, const void* dctx, void* stats, void* dqkv,
-                               int B, int S, int H, float scale, size_t smem,
-                               cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(attn_bwd_dq_kernel<DH>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
+// A (B, S, row) bf16 tensor as TMA boxes of 64 rows x dh columns of one
+// sample (3-D, so that rows past S read as zeros and are not written),
+// swizzled as wide as a head row.
+bool encode_heads(CUtensorMap* map, const void* base, int row, int S, int B, int dh) {
+  EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(row), static_cast<cuuint64_t>(S),
+                              static_cast<cuuint64_t>(B)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(row) * 2,
+                                 static_cast<cuuint64_t>(S) * row * 2};
+  const cuuint32_t box[3] = {static_cast<cuuint32_t>(dh), AQ, 1};
+  const cuuint32_t step[3] = {1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims, strides, box,
+            step, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            dh == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// The chains' attention route: the resident kernels take S up to these
+// limits, the streamed ones past them. The first resident kernels' shared
+// memory set them; they stay as they were, so that no shape moves between
+// the two routes' rounding points.
+int resident_limit(int dh, bool backward) {
+  if (dh == 64) return backward ? 304 : 320;
+  if (dh == 32) return backward ? 384 : 400;
+  return 0;
+}
+
+bool flash_forward(int S, int dh) { return S > resident_limit(dh, false); }
+bool flash_backward(int S, int dh) { return S > resident_limit(dh, true); }
+
+// The 16-key groups of the instantiation that takes S at head width dh: the
+// least at or above ceil(S/16) (0 past the resident limits). 17 is
+// dinov2's S = 257; 25 only the forward at dh = 32.
+int key_groups(int S, int dh) {
+  static const int g64[] = {4, 8, 12, 17, 20}, g32[] = {8, 17, 24, 25};
+  const int need = (S + 15) / 16;
+  const int* g = dh == 64 ? g64 : g32;
+  const int n = dh == 64 ? 5 : (dh == 32 ? 4 : 0);
+  for (int i = 0; i < n; ++i)
+    if (g[i] >= need) return g[i];
+  return 0;
+}
+
+// Query (key) tiles a block walks: all of its head's where the heads alone
+// fill the card `per_sm` blocks an SM deep (K and V, or Q and dO, loaded
+// once a head), else one (the batch-1 shapes: a block a tile).
+int tiles_per_block(int B, int H, int S, int per_sm) {
+  return B * H >= per_sm * sm_count() ? (S + AQ - 1) / AQ : 1;
+}
+
+int head_blocks(int B, int H, int S, int tpb) {
+  return B * H * (((S + AQ - 1) / AQ + tpb - 1) / tpb);
+}
+
+template <int DH, int NK16>
+cudaError_t launch_fwd_plan(const CUtensorMap& tq, const CUtensorMap& to, int B, int S, int H,
+                            float scale, cudaStream_t stream) {
+  using P = FwdPlan<DH, NK16>;
+  static bool sized = false;
+  cudaError_t err = size_once(attn_fwd_kernel<DH, NK16>, P::SMEM, sized);
   if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(attn_bwd_dkv_kernel<DH>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(smem));
+  const int tpb = tiles_per_block(B, H, S, NK16 <= 20 ? 2 : 1);
+  attn_fwd_kernel<DH, NK16><<<head_blocks(B, H, S, tpb), ATT_THREADS, P::SMEM, stream>>>(
+      tq, to, S, H, tpb, scale);
+  return cudaGetLastError();
+}
+
+template <int DH, int NK16>
+cudaError_t launch_bwd_plan(const CUtensorMap& tq, const CUtensorMap& tdo, const CUtensorMap& tdq,
+                            void* stats, int B, int S, int H, float scale, cudaStream_t stream) {
+  using P = DqPlan<DH, NK16>;
+  static bool sized_dq = false, sized_dkv = false;
+  // The dkv kernel sized once for the most query tiles its head width takes.
+  const int nq_max = (resident_limit(DH, true) + AQ - 1) / AQ;
+  cudaError_t err = size_once(attn_bwd_dq_kernel<DH, NK16>, P::SMEM, sized_dq);
+  if (err == cudaSuccess) err = size_once(attn_bwd_dkv_kernel<DH>, dkv_smem<DH>(nq_max), sized_dkv);
   if (err != cudaSuccess) return err;
-  dim3 grid((S + BQ - 1) / BQ, H, B);
-  attn_bwd_dq_kernel<DH><<<grid, ATTN_THREADS, smem, stream>>>(
-      static_cast<const bf16*>(qkv), static_cast<const bf16*>(dctx),
-      static_cast<float*>(stats), static_cast<bf16*>(dqkv), S, H, scale);
+  int tpb = tiles_per_block(B, H, S, 1);
+  attn_bwd_dq_kernel<DH, NK16><<<head_blocks(B, H, S, tpb), ATT_THREADS, P::SMEM, stream>>>(
+      tq, tdo, tdq, static_cast<float*>(stats), S, H, tpb, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  attn_bwd_dkv_kernel<DH><<<grid, ATTN_THREADS, smem, stream>>>(
-      static_cast<const bf16*>(qkv), static_cast<const bf16*>(dctx),
-      static_cast<const float*>(stats), static_cast<bf16*>(dqkv), S, H, scale);
+  tpb = tiles_per_block(B, H, S, 2);
+  attn_bwd_dkv_kernel<DH><<<head_blocks(B, H, S, tpb), ATT_THREADS, dkv_smem<DH>((S + AQ - 1) / AQ),
+                            stream>>>(tq, tdo, tdq, static_cast<const float*>(stats), S, H, tpb,
+                                      scale);
   return cudaGetLastError();
 }
 
@@ -1891,11 +2139,10 @@ dp_flash::Params packed_heads(const void* qkv, int B, int S, int H, int dh) {
   return p;
 }
 
-bool flash_forward(int S, int dh) { return attention_smem_bytes(S, dh) > MAX_SMEM; }
-bool flash_backward(int S, int dh) { return attn_bwd_smem_bytes(S, dh) > MAX_SMEM; }
-
 // flash: the streamed kernels, which read the forward's statistics from
-// stats (written by launch_attention with flash); else the resident pair.
+// stats (written by launch_attention with flash); else the resident pair,
+// the dq kernel writing the statistics to stats and the dkv kernel reading
+// them.
 cudaError_t launch_attn_bwd(const void* qkv, const void* dctx, void* stats, void* dqkv, int B,
                             int S, int H, int dh, bool flash, cudaStream_t stream) {
   if (flash) {
@@ -1909,15 +2156,32 @@ cudaError_t launch_attn_bwd(const void* qkv, const void* dctx, void* stats, void
     p.dv = g + 2 * D;
     return dp_flash::launch_bwd(p, dh, stream);
   }
-  const size_t smem = attn_bwd_smem_bytes(S, dh);
+  const int D = H * dh;
+  CUtensorMap tq, tdo, tdq;
+  if (!encode_heads(&tq, qkv, 3 * D, S, B, dh) || !encode_heads(&tdo, dctx, D, S, B, dh) ||
+      !encode_heads(&tdq, dqkv, 3 * D, S, B, dh))
+    return cudaErrorInvalidValue;
   const float scale = 1.0f / sqrtf(static_cast<float>(dh));
-  if (dh == 64) return launch_attn_bwd_dh<64>(qkv, dctx, stats, dqkv, B, S, H, scale, smem, stream);
-  if (dh == 32) return launch_attn_bwd_dh<32>(qkv, dctx, stats, dqkv, B, S, H, scale, smem, stream);
-  return cudaErrorInvalidValue;
+  switch (dh * 100 + key_groups(S, dh)) {
+#define ATTN_BWD_CASE(DH, G) \
+  case DH * 100 + G:         \
+    return launch_bwd_plan<DH, G>(tq, tdo, tdq, stats, B, S, H, scale, stream);
+    ATTN_BWD_CASE(64, 4)
+    ATTN_BWD_CASE(64, 8)
+    ATTN_BWD_CASE(64, 12)
+    ATTN_BWD_CASE(64, 17)
+    ATTN_BWD_CASE(64, 20)
+    ATTN_BWD_CASE(32, 8)
+    ATTN_BWD_CASE(32, 17)
+    ATTN_BWD_CASE(32, 24)
+#undef ATTN_BWD_CASE
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 // flash: the streamed forward (writing the row statistics to stats when it
-// is not null); else attention_kernel with the head's K and V resident.
+// is not null); else attn_fwd_kernel with the head's K and V resident.
 cudaError_t launch_attention(const void* qkv, void* ctx, void* stats, int B, int S, int H,
                              int dh, bool flash, cudaStream_t stream) {
   if (flash) {
@@ -1926,28 +2190,27 @@ cudaError_t launch_attention(const void* qkv, void* ctx, void* stats, int B, int
     p.stats = static_cast<float*>(stats);
     return dp_flash::launch_fwd(p, dh, stream);
   }
-  const size_t smem = attention_smem_bytes(S, dh);
-  const float scale = 1.0f / sqrtf(static_cast<float>(dh));
-  dim3 grid((S + BQ - 1) / BQ, H, B);
-  cudaError_t err;
-  if (dh == 64) {
-    err = cudaFuncSetAttribute(attention_kernel<64>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(smem));
-    if (err != cudaSuccess) return err;
-    attention_kernel<64><<<grid, ATTN_THREADS, smem, stream>>>(
-        static_cast<const bf16*>(qkv), static_cast<bf16*>(ctx), S, H, scale);
-  } else if (dh == 32) {
-    err = cudaFuncSetAttribute(attention_kernel<32>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(smem));
-    if (err != cudaSuccess) return err;
-    attention_kernel<32><<<grid, ATTN_THREADS, smem, stream>>>(
-        static_cast<const bf16*>(qkv), static_cast<bf16*>(ctx), S, H, scale);
-  } else {
+  CUtensorMap tq, to;
+  if (!encode_heads(&tq, qkv, 3 * H * dh, S, B, dh) || !encode_heads(&to, ctx, H * dh, S, B, dh))
     return cudaErrorInvalidValue;
+  const float scale = 1.0f / sqrtf(static_cast<float>(dh));
+  switch (dh * 100 + key_groups(S, dh)) {
+#define ATTN_FWD_CASE(DH, G) \
+  case DH * 100 + G:         \
+    return launch_fwd_plan<DH, G>(tq, to, B, S, H, scale, stream);
+    ATTN_FWD_CASE(64, 4)
+    ATTN_FWD_CASE(64, 8)
+    ATTN_FWD_CASE(64, 12)
+    ATTN_FWD_CASE(64, 17)
+    ATTN_FWD_CASE(64, 20)
+    ATTN_FWD_CASE(32, 8)
+    ATTN_FWD_CASE(32, 17)
+    ATTN_FWD_CASE(32, 24)
+    ATTN_FWD_CASE(32, 25)
+#undef ATTN_FWD_CASE
+    default:
+      return cudaErrorInvalidValue;
   }
-  return cudaGetLastError();
 }
 
 // The attention half, its out-projection epilogue OUT_EPI: EPI_BIAS (o,
@@ -2215,10 +2478,28 @@ int dp_packed_attention(const void* qkv, void* ctx, int B, int S, int H, int dh,
   return static_cast<int>(launch_attention(qkv, ctx, nullptr, B, S, H, dh, flash != 0,
                                            static_cast<cudaStream_t>(stream)));
 }
+// The chains' attention backward alone: dqkv (B, S, 3*H*dh) from qkv and
+// dctx (B, S, H*dh). Streamed (flash != 0): the streamed forward first, for
+// the row statistics it writes to stats (its output into ctx, scratch
+// (B, S, H*dh)), then the streamed pair, as the backward chains run them;
+// else the resident pair, which writes the statistics and reads them back.
+// stats: (B, H, 3, S) f32.
+int dp_packed_attention_bwd(const void* qkv, const void* dctx, void* ctx, void* stats,
+                            void* dqkv, int B, int S, int H, int dh, int flash, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (flash) {
+    cudaError_t err = launch_attention(qkv, ctx, stats, B, S, H, dh, true, st);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  return static_cast<int>(launch_attn_bwd(qkv, dctx, stats, dqkv, B, S, H, dh, flash != 0, st));
+}
 // 1 when the chains' attention forward (backward) at (S, dh) takes the
 // streamed kernels of flash_kernels.cu, 0 when the resident ones.
 int dp_flash_forward(int S, int dh) { return flash_forward(S, dh) ? 1 : 0; }
 int dp_flash_backward(int S, int dh) { return flash_backward(S, dh) ? 1 : 0; }
+// The keys the resident kernels compute scores for at (S, dh): 16 * the
+// instantiation's key groups (its executed FLOPs).
+int dp_attention_keys(int S, int dh) { return 16 * key_groups(S, dh); }
 
 // _block_kernel: y = x2 + ls2*MLP(LN2(x2)), x2 = x + ls1*(Wo MHA(LN1(x)) + bo).
 int dp_fused_block(const void* x, const void* g1, const void* b1, const void* wqkv,

@@ -139,7 +139,7 @@ def test_tiny_model_kernels_match_plain(cuda_device):
         hm_p, z_p = model(x, kernels=False)
     torch.cuda.synchronize()
     assert block.LAUNCHES == {**dict.fromkeys(block.LAUNCHES, 0), "fused_block": 1,
-                              "fused_attn_part": 1, "fused_mlp_part": 1}
+                              "fused_attn_part": 1, "fused_mlp_part": 1, "attn_fwd": 2}
     for got, want in ((hm, hm_p), (z, z_p)):
         assert torch.isfinite(got).all()
         err = (got.float() - want.float()).abs().max().item()
@@ -212,7 +212,7 @@ def test_tiny_model_train_step_kernels_match_plain(cuda_device):
         want = 1 if kernels else 0
         assert block.LAUNCHES == {**dict.fromkeys(block.LAUNCHES, 0), "fused_block": want,
                                   "fused_attn_part": want, "fused_mlp_part": want,
-                                  "fused_mlp_dx": want}
+                                  "fused_mlp_dx": want, "attn_fwd": 2 * want}
         params = dict(m.named_parameters())
         out[name] = (stats, {n: params[n].grad.float() for n in names})
     (ks, kg), (ps, pg), (_, rg) = out["kernels"], out["plain"], out["f32"]
@@ -262,7 +262,9 @@ def test_train_kernel_matches_plain(cuda_device, name, batch, seq):
     got = _train_call(name, x, dy, p, kernel=True)
     want = _train_call(name, x, dy, p, kernel=False)
     torch.cuda.synchronize()
-    assert block.LAUNCHES[name] == 1 and sum(block.LAUNCHES.values()) == 1
+    attention = {"fused_block_train": {"attn_fwd": 1},
+                 "fused_attn_bwd": {"attn_fwd": 1, "attn_bwd": 1}}.get(name, {})
+    assert block.LAUNCHES == {**dict.fromkeys(block.LAUNCHES, 0), name: 1, **attention}
     for i, (g, w) in enumerate(zip(got, want)):
         g, w = g.float(), w.float()
         assert g.shape == w.shape and torch.isfinite(g).all(), i
@@ -292,7 +294,8 @@ def test_train_wrappers_refuse_f32_on_cuda(cuda_device):
 def test_tiny_model_unfreeze_train_step_kernels_match_plain(cuda_device):
     """One test/vit-tiny unfreeze-2 train step at batch 2 (both blocks train
     whole), kernels vs plain in bf16 and plain in f32. Launches per step: two
-    fused_block_train, fused_mlp_bwd and fused_attn_bwd, nothing else. Losses
+    fused_block_train, fused_mlp_bwd and fused_attn_bwd, and their resident
+    attention kernels (four forwards, two backward pairs), nothing else. Losses
     agree to 1e-3; each block gradient's error vs f32, and its distance from
     the plain path, are at most twice the plain bf16 path's error vs f32
     plus 1e-2."""
@@ -322,7 +325,8 @@ def test_tiny_model_unfreeze_train_step_kernels_match_plain(cuda_device):
         torch.cuda.synchronize()
         want = 2 if kernels else 0
         assert block.LAUNCHES == {**dict.fromkeys(block.LAUNCHES, 0), "fused_block_train": want,
-                                  "fused_mlp_bwd": want, "fused_attn_bwd": want}
+                                  "fused_mlp_bwd": want, "fused_attn_bwd": want,
+                                  "attn_fwd": 2 * want, "attn_bwd": want}
         params = dict(m.named_parameters())
         out[name] = (stats, {n: params[n].grad.float() for n in names})
     (ks, kg), (ps, pg), (_, rg) = out["kernels"], out["plain"], out["f32"]
@@ -491,7 +495,7 @@ def test_attn_bwd_streams_where_only_the_resident_forward_fits(cuda_device):
     block.reset_launches()
     got = _call("fused_block", x, p, kernel=True)
     torch.cuda.synchronize()
-    assert block.LAUNCHES == {**zero, "fused_block": 1}
+    assert block.LAUNCHES == {**zero, "fused_block": 1, "attn_fwd": 1}
     torch.testing.assert_close(got.float(), _call("fused_block", x, p, kernel=False).float(),
                                atol=3e-2, rtol=3e-2)
     block.reset_launches()
@@ -802,7 +806,8 @@ def test_stream_kernel_matches_plain(cuda_device, name, batch, seq):
     got = _stream_call(name, x, p, kernel=True).float()
     want = _stream_call(name, x, p, kernel=False).float()
     torch.cuda.synchronize()
-    assert block.LAUNCHES == {**dict.fromkeys(block.LAUNCHES, 0), name: 1}
+    attention = {"attn_fwd": 1} if name == "fused_attn_part_stream" else {}
+    assert block.LAUNCHES == {**dict.fromkeys(block.LAUNCHES, 0), name: 1, **attention}
     assert torch.isfinite(got).all()
     if name == "fused_attn_part_stream":
         _assert_attention_close(got, want, 3e-3)
@@ -856,7 +861,7 @@ def test_tiny_model_on_the_stream_route_kernels_match_plain(cuda_device, monkeyp
         hm, z = model(x)
         hm_p, z_p = model(x, kernels=False)
     torch.cuda.synchronize()
-    stream = {"fused_attn_part_stream": 2, "fused_mlp_part_stream": 2}
+    stream = {"fused_attn_part_stream": 2, "fused_mlp_part_stream": 2, "attn_fwd": 2}
     assert block.LAUNCHES == {**dict.fromkeys(block.LAUNCHES, 0), **stream}
     for got, want in ((hm, hm_p), (z, z_p)):
         assert torch.isfinite(got).all()
@@ -927,11 +932,12 @@ def test_stream_train_kernel_matches_plain(cuda_device, name, model, batch, seq)
     got = _stream_train_call(name, x, dy, p, heads, kernel=True)
     want = _stream_train_call(name, x, dy, p, heads, kernel=False)
     torch.cuda.synchronize()
-    flash = 0
+    attention = {}
     if name == "fused_attn_bwd_stream":
         flash = block._ext.lib().dp_flash_backward(seq, d // heads)
-    assert block.LAUNCHES == {**dict.fromkeys(block.LAUNCHES, 0), name: 1,
-                              "flash_fwd": flash, "flash_bwd": flash}
+        attention = {"flash_fwd": flash, "flash_bwd": flash, "attn_fwd": 1 - flash,
+                     "attn_bwd": 1 - flash}
+    assert block.LAUNCHES == {**dict.fromkeys(block.LAUNCHES, 0), name: 1, **attention}
     no_residual = {"fused_mlp_part_stream_train": 1, "fused_attn_bwd_stream": 0}.get(name)
     for i, (g, w) in enumerate(zip(got, want)):
         g, w = g.float(), w.float()
@@ -1015,7 +1021,8 @@ def test_tiny_model_unfreeze_on_the_stream_route_kernels_match_plain(cuda_device
         want = 2 if kernels else 0
         assert block.LAUNCHES == {**dict.fromkeys(block.LAUNCHES, 0),
                                   "fused_attn_part_stream": want,
-                                  **dict.fromkeys(STREAM_TRAIN_NAMES, want)}
+                                  **dict.fromkeys(STREAM_TRAIN_NAMES, want),
+                                  "attn_fwd": 2 * want, "attn_bwd": want}
         params = dict(m.named_parameters())
         out[name] = (stats, {n: params[n].grad.float() for n in names})
     (ks, kg), (ps, pg), (_, rg) = out["kernels"], out["plain"], out["f32"]
@@ -1333,7 +1340,8 @@ def test_tp_shard_kernels_match_plain(cuda_device, key, batch, seq):
         got_dx = block.fused_mlp_partial_dx(x, dp, pm, EPS)
         torch.cuda.synchronize()
         assert block.LAUNCHES == {**dict.fromkeys(block.LAUNCHES, 0), "fused_attn_part_partial": 1,
-                                  "fused_mlp_part_partial": 1, "fused_mlp_partial_dx": 1}
+                                  "fused_mlp_part_partial": 1, "fused_mlp_partial_dx": 1,
+                                  "attn_fwd": 1}
         h = heads // tp
         _assert_shard_close(got, block.attn_part_math_partial(x, pa, num_heads=h, eps=EPS),
                             block.attn_part_math_partial(xf, _f32_params(pa), num_heads=h,
@@ -1408,7 +1416,8 @@ def test_tp_wrappers_refuse_what_they_do_not_take(cuda_device):
 def test_dinov2_base_tp2_serving_launches(cuda_device):
     """dinov2-base + LoRA at 224², batch 2, under a tp = 2 mesh on the card:
     24 fused_attn_part_partial and 24 fused_mlp_part_partial launches a
-    forward and nothing else, and the outputs within 5% of their largest
+    forward, each attention half's resident attention kernel, and nothing
+    else, and the outputs within 5% of their largest
     magnitude of the plain path (chip_smoke.py's MODEL_REL_TOL)."""
     from dino_pose_tpu_torch.core.mesh import MeshSpec, create_mesh
     from dino_pose_tpu_torch.ops import dispatch
@@ -1422,7 +1431,8 @@ def test_dinov2_base_tp2_serving_launches(cuda_device):
         hm, z = model(x)
         torch.cuda.synchronize()
         assert block.LAUNCHES == {**dict.fromkeys(block.LAUNCHES, 0),
-                                  "fused_attn_part_partial": 24, "fused_mlp_part_partial": 24}
+                                  "fused_attn_part_partial": 24, "fused_mlp_part_partial": 24,
+                                  "attn_fwd": 24}
         hm_p, z_p = model(x, kernels=False)
     for got, want in ((hm, hm_p), (z, z_p)):
         assert torch.isfinite(got).all()
@@ -1464,7 +1474,7 @@ def test_tp2_lora_train_step_kernels_match_plain(cuda_device, monkeypatch):
             _, stats[kernels] = step(state, batch, 3e-5, 0)
             torch.cuda.synchronize()
             want = ({"fused_attn_part_partial": 4, "fused_mlp_part_partial": 4,
-                     "fused_mlp_partial_dx": 2} if kernels else {})
+                     "fused_mlp_partial_dx": 2, "attn_fwd": 4} if kernels else {})
             assert block.LAUNCHES == {**dict.fromkeys(block.LAUNCHES, 0), **want}
     for k in ("loss", "kp_loss", "z_loss"):
         got, want = stats[True][k].item(), stats[False][k].item()
@@ -1762,3 +1772,125 @@ def test_packed_attention_matches_plain(cuda_device, streamed, heads):
     err = (got - want).abs()
     assert bool((err <= 4e-3 + 2e-2 * want.abs()).all())
     assert ((got - want).norm() / want.norm()).item() <= 5e-4
+
+
+# The resident attention pair at every ROUTE_HEADS shape of chip_smoke.py
+# (dinov2-small, -base, -large and the tp shards' heads, S = 257) at B = 1
+# and 8, and at ragged S at both head widths: up to the resident route's
+# limits, 320 (304 backward) at dh = 64 and 400 (384) at dh = 32.
+ROUTE_HEADS = (6, 12, 16, 8, 4)
+CORE_SEQS = {64: (1, 63, 65, 200, 257, 304, 320), 32: (1, 63, 65, 200, 257, 304, 320, 384, 400)}
+CORE_CASES = ([(b, h, 257, 64) for h in ROUTE_HEADS for b in (1, 8)]
+              + [(2, 12 if dh == 32 else 6, s, dh) for dh, seqs in CORE_SEQS.items() for s in seqs])
+
+
+def _assert_core_close(got, want):
+    """chip_smoke.py's attention tolerance with the flash pair's relative
+    Frobenius limit; a zero reference (dq and dk at S = 1) to its absolute
+    part."""
+    got, want = got.float(), want.float()
+    assert torch.isfinite(got).all()
+    if not bool(want.any()):
+        assert bool((got.abs() <= 4e-3).all())
+        return
+    assert bool(((got - want).abs() <= 4e-3 + 2e-2 * want.abs()).all())
+    assert ((got - want).norm() / want.norm()).item() <= 5e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch, heads, seq, dh", CORE_CASES,
+                         ids=lambda c: str(c))
+def test_attention_core_matches_plain(cuda_device, batch, heads, seq, dh):
+    """The resident forward (attn_fwd_kernel) and backward (attn_bwd_dq_kernel
+    + attn_bwd_dkv_kernel) on a packed qkv against the plain versions: ctx,
+    and dq, dk, dv with a unit-scale cotangent, where the route takes the
+    backward; one launch each."""
+    rng = np.random.default_rng(batch * 1000 + seq + dh)
+    qkv = _bf16(rng, (batch, seq, 3 * heads * dh), cuda_device)
+    dctx = _bf16(rng, (batch, seq, heads * dh), cuda_device)
+    block.reset_launches()
+    got = block.packed_attention(qkv, heads, streamed=False)
+    torch.cuda.synchronize()
+    assert block.LAUNCHES == {**dict.fromkeys(block.LAUNCHES, 0), "packed_attention": 1,
+                              "attn_fwd": 1}
+    _assert_core_close(got, block._heads_attention(qkv, heads))
+    if block._ext.lib().dp_flash_backward(seq, dh):
+        with pytest.raises(ValueError, match="resident backward"):
+            block.packed_attention_bwd(qkv, dctx, heads, streamed=False)
+        return
+    block.reset_launches()
+    got = block.packed_attention_bwd(qkv, dctx, heads, streamed=False)
+    again = block.packed_attention_bwd(qkv, dctx, heads, streamed=False)
+    torch.cuda.synchronize()
+    assert block.LAUNCHES == {**dict.fromkeys(block.LAUNCHES, 0), "packed_attention_bwd": 2,
+                              "attn_bwd": 2}
+    assert torch.equal(got, again)  # no atomics: the same bits every run
+    want = block.packed_attention_bwd_math(qkv, dctx, heads)
+    for g, w in zip(got.chunk(3, -1), want.chunk(3, -1)):
+        _assert_core_close(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("streamed", [False, True])
+def test_packed_attention_bwd_launches_and_refusals(cuda_device, streamed):
+    """packed_attention_bwd at dinov2-small's S = 257: the streamed route
+    runs a flash forward (for the statistics) and the flash pair; both
+    routes refuse what they do not take."""
+    rng = np.random.default_rng(5)
+    qkv = _bf16(rng, (2, 257, 3 * 384), cuda_device)
+    dctx = _bf16(rng, (2, 257, 384), cuda_device)
+    block.reset_launches()
+    got = block.packed_attention_bwd(qkv, dctx, 6, streamed=streamed)
+    torch.cuda.synchronize()
+    want = ({"flash_fwd": 1, "flash_bwd": 1} if streamed else {"attn_bwd": 1})
+    assert block.LAUNCHES == {**dict.fromkeys(block.LAUNCHES, 0), "packed_attention_bwd": 1,
+                              **want}
+    for g, w in zip(got.chunk(3, -1), block.packed_attention_bwd_math(qkv, dctx, 6).chunk(3, -1)):
+        _assert_core_close(g, w)
+    with pytest.raises(ValueError, match="dctx"):
+        block.packed_attention_bwd(qkv, dctx[:, :128].contiguous(), 6, streamed=streamed)
+    with pytest.raises(TypeError, match="bf16"):
+        block.packed_attention_bwd(qkv.float(), dctx, 6, streamed=streamed)
+    with pytest.raises(ValueError, match="head width"):
+        block.packed_attention_bwd(qkv, dctx, 5, streamed=streamed)
+
+
+# The chains' attention route as the first resident kernels' shared memory
+# set it: resident forward up to S = 320 (dh 64) and 400 (dh 32), resident
+# backward up to 304 and 384. The new kernels take the same shapes.
+ROUTE_PINS = {64: {257: (0, 0), 304: (0, 0), 305: (0, 1), 320: (0, 1), 321: (1, 1),
+                   1297: (1, 1)},
+              32: {257: (0, 0), 384: (0, 0), 385: (0, 1), 400: (0, 1), 401: (1, 1),
+                   1297: (1, 1)}}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dh", [64, 32])
+def test_attention_route_is_pinned(cuda_device, dh):
+    lib = block._ext.lib()
+    for seq, (fwd, bwd) in ROUTE_PINS[dh].items():
+        assert (lib.dp_flash_forward(seq, dh), lib.dp_flash_backward(seq, dh)) == (fwd, bwd), seq
+
+
+def _definition(src: str, head: str) -> str:
+    """The text of the definition in ``src`` that starts with ``head``: up to
+    the closing brace at the start of a line."""
+    start = src.index(head)
+    return src[start:src.index("\n}\n", start)]
+
+
+@pytest.mark.cuda
+def test_attention_kernels_are_wgmma(cuda_device):
+    """The resident attention kernels issue their products as wgmma (the
+    helpers they call hold wgmma.mma_async, P and dS from registers through
+    wgmma_rs), and no WMMA call is left in block_kernels.cu."""
+    import pathlib
+
+    src = (pathlib.Path(block.__file__).parent / "csrc" / "block_kernels.cu").read_text()
+    assert "wmma::" not in src and "<mma.h>" not in src
+    for helper in ("wgmma_rs_n64(", "wgmma_rs_n32(", "wgmma_n16(", "wgmma_n64("):
+        assert "wgmma.mma_async" in _definition(src, f"void {helper}"), helper
+    for name in ("attn_fwd_kernel(", "attn_bwd_dq_kernel(", "attn_bwd_dkv_kernel("):
+        body = _definition(src, f"\n{name}")
+        assert "wgmma_rs<DH>" in body, name
+        assert "row_scores<" in body or "issue_nt<" in body, name
