@@ -44,12 +44,19 @@ layer's partial dx on both shards); then the final LayerNorm's kernel
 (JAX's DINO_POSE_TPU_LN=pallas) against its plain version and
 torch.nn.functional.layer_norm, and dinov2-small + LoRA serving and
 fine-tuning with that switch on. Times kernels, serving and every train
-step; the depthwise-conv and LayerNorm kernels, and cuDNN's grouped conv
-and torch.nn.functional.layer_norm beside them, on three clocks
-(host-inclusive, device-only from a CUDA graph's replay, host microseconds
-a call).
+step; the ConvFFN, depthwise-conv and LayerNorm kernels, and cuDNN's
+grouped conv and torch.nn.functional.layer_norm beside them, on three
+clocks (host-inclusive, device-only from a CUDA graph's replay, host
+microseconds a call), the ConvFFN kernels beside the replaced WMMA ones'
+(OLD_CONVFFN).
 
     python3 chip_smoke.py [--out results.json] [--profile]
+    python3 chip_smoke.py --ab-parent DIR [--out ab.json]
+
+The second form only times the fastvit_t8 + LoRA bs=128 train step on the
+kernel path against the tree at DIR (e.g. ``git archive`` of the parent
+commit), each arm in a fresh process from its own tree, in turns parent,
+change, change, parent on one card.
 
 Needs one CUDA card and ``nvcc``; exits non-zero without a card, when a
 kernel does not build, launch or agree, or when any phase fails. The last
@@ -604,6 +611,92 @@ OLD_GEMM_BWD = {
     "dinov2-large tp2 dm M=2056": (0.1023, 0.0984, 38.0),
     "dinov2-large tp2 dm M=32896": (1.4023, 1.3842, 21.0),
     "dinov2-large tp2 dm M=114": (0.0842, 0.0812, 31.1),
+}
+# The replaced ConvFFN kernels' three clocks (ms, device ms, host us) at each
+# phase_convffn stage shape and batch, forward and backward, and of
+# fused_convffn_res at phase_dwconv's t8 stages ("res"), measured by this
+# script on an H100 80GB HBM3 at 700.00 W before the wgmma kernels took
+# their place (their 32-row WMMA tiles, rank terms on the CUDA cores);
+# printed beside the new kernels'.
+OLD_CONVFFN = {
+    "t8 stage 0 B=1 fwd": (0.0435, 0.0260, 41.3),
+    "t8 stage 1 B=1 fwd": (0.0564, 0.0527, 35.3),
+    "t8 stage 2 B=1 fwd": (0.1313, 0.1265, 54.8),
+    "t8 stage 3 B=1 fwd": (0.3613, 0.3515, 53.5),
+    "sa12 stage 0 B=1 fwd": (0.0522, 0.0366, 50.3),
+    "sa12 stage 1 B=1 fwd": (0.0863, 0.0839, 35.7),
+    "sa12 stage 2 B=1 fwd": (0.2309, 0.2274, 47.2),
+    "sa12 stage 3 B=1 fwd": (0.7226, 0.7077, 36.4),
+    "ma36 stage 0 B=1 fwd": (0.1681, 0.0808, 164.4),
+    "ma36 stage 1 B=1 fwd": (0.1801, 0.1552, 170.4),
+    "ma36 stage 2 B=1 fwd": (0.3322, 0.3260, 56.9),
+    "ma36 stage 3 B=1 fwd": (0.9889, 0.9659, 55.0),
+    "t8 stage 0 B=8 fwd": (0.0923, 0.0884, 32.9),
+    "t8 stage 1 B=8 fwd": (0.0643, 0.0633, 54.0),
+    "t8 stage 2 B=8 fwd": (0.1332, 0.1302, 37.1),
+    "t8 stage 3 B=8 fwd": (0.3618, 0.3548, 45.7),
+    "sa12 stage 0 B=8 fwd": (0.1399, 0.1379, 54.7),
+    "sa12 stage 1 B=8 fwd": (0.1171, 0.1147, 31.2),
+    "sa12 stage 2 B=8 fwd": (0.2394, 0.2327, 57.1),
+    "sa12 stage 3 B=8 fwd": (0.7243, 0.7098, 59.2),
+    "ma36 stage 0 B=8 fwd": (0.2424, 0.2165, 155.4),
+    "ma36 stage 1 B=8 fwd": (0.2152, 0.1833, 168.7),
+    "ma36 stage 2 B=8 fwd": (0.3449, 0.3346, 60.6),
+    "ma36 stage 3 B=8 fwd": (0.9864, 0.9711, 35.8),
+    "t8 stage 0 B=128 fwd": (1.2870, 1.2612, 46.1),
+    "t8 stage 1 B=128 fwd": (0.7460, 0.7297, 42.2),
+    "t8 stage 2 B=128 fwd": (0.5532, 0.5413, 37.4),
+    "t8 stage 3 B=128 fwd": (0.5186, 0.5117, 34.4),
+    "sa12 stage 0 B=32 fwd": (0.5863, 0.5737, 31.6),
+    "sa12 stage 1 B=32 fwd": (0.3925, 0.3855, 57.6),
+    "sa12 stage 2 B=32 fwd": (0.3502, 0.3465, 52.6),
+    "sa12 stage 3 B=32 fwd": (0.7725, 0.7575, 56.0),
+    "ma36 stage 0 B=32 fwd": (0.8064, 0.7660, 226.5),
+    "ma36 stage 1 B=32 fwd": (0.5529, 0.5282, 160.9),
+    "ma36 stage 2 B=32 fwd": (0.4378, 0.4262, 57.7),
+    "ma36 stage 3 B=32 fwd": (1.0129, 1.0108, 43.2),
+    "t8 stage 0 B=1 bwd": (0.0747, 0.0478, 66.0),
+    "t8 stage 1 B=1 bwd": (0.1102, 0.1019, 99.4),
+    "t8 stage 2 B=1 bwd": (0.2433, 0.2356, 67.7),
+    "t8 stage 3 B=1 bwd": (0.6708, 0.6530, 97.5),
+    "sa12 stage 0 B=1 bwd": (0.1248, 0.0838, 113.3),
+    "sa12 stage 1 B=1 bwd": (0.1809, 0.1742, 110.6),
+    "sa12 stage 2 B=1 bwd": (0.4739, 0.4634, 120.8),
+    "sa12 stage 3 B=1 bwd": (1.3763, 1.3537, 70.3),
+    "ma36 stage 0 B=1 bwd": (0.3723, 0.1340, 358.0),
+    "ma36 stage 1 B=1 bwd": (0.3120, 0.2725, 256.5),
+    "ma36 stage 2 B=1 bwd": (0.6589, 0.6448, 129.3),
+    "ma36 stage 3 B=1 bwd": (2.0480, 2.0160, 217.8),
+    "t8 stage 0 B=8 bwd": (0.1974, 0.1906, 71.5),
+    "t8 stage 1 B=8 bwd": (0.1376, 0.1314, 67.3),
+    "t8 stage 2 B=8 bwd": (0.2472, 0.2397, 69.3),
+    "t8 stage 3 B=8 bwd": (0.6752, 0.6599, 141.3),
+    "sa12 stage 0 B=8 bwd": (0.3895, 0.3816, 80.7),
+    "sa12 stage 1 B=8 bwd": (0.2492, 0.2426, 75.6),
+    "sa12 stage 2 B=8 bwd": (0.4802, 0.4744, 82.1),
+    "sa12 stage 3 B=8 bwd": (1.3875, 1.3644, 109.5),
+    "ma36 stage 0 B=8 bwd": (0.4989, 0.4581, 409.2),
+    "ma36 stage 1 B=8 bwd": (0.3863, 0.3559, 248.3),
+    "ma36 stage 2 B=8 bwd": (0.6786, 0.6644, 71.7),
+    "ma36 stage 3 B=8 bwd": (2.0467, 2.0140, 126.6),
+    "t8 stage 0 B=128 bwd": (2.7527, 2.6953, 122.4),
+    "t8 stage 1 B=128 bwd": (1.6935, 1.6373, 211.3),
+    "t8 stage 2 B=128 bwd": (1.2866, 1.2506, 152.5),
+    "t8 stage 3 B=128 bwd": (1.3636, 1.3488, 108.2),
+    "sa12 stage 0 B=32 bwd": (1.4928, 1.4659, 80.3),
+    "sa12 stage 1 B=32 bwd": (0.9996, 0.9879, 73.1),
+    "sa12 stage 2 B=32 bwd": (0.6568, 0.6429, 146.0),
+    "sa12 stage 3 B=32 bwd": (1.4275, 1.4028, 137.3),
+    "ma36 stage 0 B=32 bwd": (1.7161, 1.6475, 294.3),
+    "ma36 stage 1 B=32 bwd": (1.3151, 1.2445, 450.6),
+    "ma36 stage 2 B=32 bwd": (0.9124, 0.9079, 107.2),
+    "ma36 stage 3 B=32 bwd": (2.1260, 2.1117, 86.8),
+    "t8 stage 0 B=1 res": (0.0590, 0.0267, 51.7),
+    "t8 stage 1 B=1 res": (0.0582, 0.0548, 53.6),
+    "t8 stage 0 B=8 res": (0.0931, 0.0905, 32.8),
+    "t8 stage 1 B=8 res": (0.0689, 0.0646, 47.5),
+    "t8 stage 0 B=128 res": (1.3190, 1.2758, 47.0),
+    "t8 stage 1 B=128 res": (0.7707, 0.7428, 38.9),
 }
 # Per JSON row: the TPU kernel it replaces, its source, the batch its
 # numbers were taken at, the path whose launches "launches" reports and the
@@ -1966,7 +2059,8 @@ def phase_convffn(results: dict, backward: bool) -> dict:
         rank = 8 if backward else CONVFFN_RANK[model]
         for b, r, g in ((1, rank, gen), (8, rank, gen), (train_batch, 8, gen_train)):
             s_lora = 16.0 / r if r else 1.0
-            total = {"ms": 0.0, "plain_ms": 0.0, "flops": 0, "bytes": 0}
+            total = {"ms": 0.0, "device_ms": 0.0, "host_us": 0.0, "plain_ms": 0.0, "flops": 0,
+                     "bytes": 0}
             for i, (c, h, s, blocks) in enumerate(stages):
                 y, p = convffn_inputs(b, s, c, h, r, g)
                 if backward:
@@ -2003,27 +2097,45 @@ def phase_convffn(results: dict, backward: bool) -> dict:
                 del got, want
                 saved = dict(B.LAUNCHES)
                 with torch.inference_mode():
-                    ms = cuda_ms(kern, iters=10 if backward else 20, warmup=2 if backward else 5)
+                    t = clocks(kern, iters=10 if backward else 20, warmup=2 if backward else 5)
                     plain_ms = cuda_ms(plain, iters=3 if backward else 10,
                                        warmup=1 if backward else 2)
                 B.LAUNCHES.update(saved)  # timing launches are not main-path launches
                 bound, by = B.bound_ms(flops, nbytes)
-                log(f"time {name} {where}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-                    f"bound {bound:.5f} ms ({by}); x{blocks} blocks a "
+                old = OLD_CONVFFN.get(f"{model} stage {i} B={b} {'bwd' if backward else 'fwd'}")
+                tflops = flops / t["device_ms"] / 1e9
+                log(f"time {name} {where}: kernel {clocks_text(t)} ({tflops:.1f} TFLOP/s, "
+                    f"{100 * bound / t['device_ms']:.1f}% of the bound), "
+                    + ("" if old is None else f"old kernel {old[0]:.4f} ms, device {old[1]:.4f} "
+                       f"ms, host {old[2]:.1f} us/call (x{old[1] / t['device_ms']:.2f}), ")
+                    + f"plain {plain_ms:.4f} ms, bound {bound:.5f} ms ({by}); x{blocks} blocks a "
                     f"{'step' if backward else 'forward'}")
                 out.setdefault(b, {}).setdefault(f"{model}_stages", []).append({
-                    "C": c, "H": h, "S": s, "R": r, "blocks": blocks, "ms": ms,
+                    "C": c, "H": h, "S": s, "R": r, "blocks": blocks, **t, "tflops": tflops,
+                    **({} if old is None else dict(zip(("old_ms", "old_device_ms", "old_host_us"),
+                                                       old))),
                     "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
                     "max_abs_err": act_err, **({"max_grad_err_rel": grad_rel} if backward else {})})
-                total["ms"] += blocks * ms
+                for k in ("device_ms", "host_us"):
+                    total[k] += blocks * t[k]
+                total["ms"] += blocks * t["ms"]
+                if old is not None:
+                    for k, v in zip(("old_ms", "old_device_ms", "old_host_us"), old):
+                        total[k] = total.get(k, 0.0) + blocks * v
                 total["plain_ms"] += blocks * plain_ms
                 total["flops"] += blocks * flops
                 total["bytes"] += blocks * nbytes
             bound, by = B.bound_ms(total["flops"], total["bytes"])
-            out[b][model] = {"ms": total["ms"], "plain_ms": total["plain_ms"], "bound_ms": bound,
-                             "bound_by": by, "library_ms": None}
+            out[b][model] = {**{k: total[k] for k in ("ms", "device_ms", "host_us", "plain_ms")},
+                             "bound_ms": bound, "bound_by": by, "library_ms": None,
+                             **{k: total[k] for k in ("old_ms", "old_device_ms", "old_host_us")
+                                if k in total}}
+            old_text = ("" if "old_ms" not in total else
+                        f", old kernels {clocks_text(total, 'old_')} "
+                        f"(x{total['old_device_ms'] / total['device_ms']:.2f})")
             log(f"time {name} {model} {'step' if backward else 'forward'} "
-                f"({sum(t[3] for t in stages)} launches) B={b}: kernel {total['ms']:.4f} ms, "
+                f"({sum(st[3] for st in stages)} launches) B={b}: kernel {clocks_text(total)} "
+                f"({total['flops'] / total['device_ms'] / 1e9:.1f} TFLOP/s){old_text}, "
                 f"plain {total['plain_ms']:.4f} ms, bound {bound:.5f} ms ({by})")
     return out
 
@@ -2163,10 +2275,15 @@ def phase_dwconv(results: dict) -> dict:
                 plain_ms = cuda_ms(lambda: CF.convffn_res_math(y, res, p, 2.0), iters=5, warmup=2)
             flops, nbytes = CF.convffn_cost(b, h * h, c, hidden, 8, res=True)
             bound, by = B.bound_ms(flops, nbytes)
-            log(f"time fused_convffn_res {where}: kernel {clocks_text(t)}, plain {plain_ms:.4f} "
-                f"ms, bound {bound:.5f} ms ({by})")
+            old = OLD_CONVFFN[f"t8 stage {ARM_STAGES.index((c, h, hidden, n_serve, n_fwd, n_bwd))}"
+                              f" B={b} res"]
+            log(f"time fused_convffn_res {where}: kernel {clocks_text(t)}, old kernel "
+                f"{old[0]:.4f} ms, device {old[1]:.4f} ms, host {old[2]:.1f} us/call "
+                f"(x{old[1] / t['device_ms']:.2f}), plain {plain_ms:.4f} ms, bound {bound:.5f} ms "
+                f"({by})")
             out[b].setdefault("fused_convffn_res_stages", []).append({
                 "C": c, "H": hidden, "S": h * h, "launches": n_fwd, **t,
+                **dict(zip(("old_ms", "old_device_ms", "old_host_us"), old)),
                 "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
                 **dict.fromkeys(LIBRARY_CLOCKS), "flops": flops, "bytes": nbytes,
                 "max_abs_err": err})
@@ -2178,11 +2295,12 @@ def phase_dwconv(results: dict) -> dict:
                     ("fused_combine_dw_bwd", T8_TRAIN_BATCH),
                     ("fused_convffn_res", T8_TRAIN_BATCH)):
         rows = [r for r in out[b][f"{name}_stages"] if r.get("k", 7) == 7]
-        total = {k: sum(r["launches"] * r[k] for r in rows)
-                 for k in ("ms", "device_ms", "host_us", "plain_ms", "flops", "bytes")}
+        keys = ("ms", "device_ms", "host_us", "plain_ms", "flops", "bytes") + (
+            ("old_ms", "old_device_ms", "old_host_us") if name == "fused_convffn_res" else ())
+        total = {k: sum(r["launches"] * r[k] for r in rows) for k in keys}
         bound, by = (B.bound_ms(total["flops"], total["bytes"]) if name == "fused_convffn_res"
                      else B.bound_ms(total["flops"], total["bytes"], B.F32_FLOPS))
-        out[b][name] = {**{k: total[k] for k in ("ms", "device_ms", "host_us", "plain_ms")},
+        out[b][name] = {**{k: total[k] for k in keys if k not in ("flops", "bytes")},
                         "bound_ms": bound, "bound_by": by, **{
                             k: None if rows[0][k] is None else sum(r["launches"] * r[k]
                                                                    for r in rows)
@@ -2802,6 +2920,60 @@ def profile_train_step(step, state, batch) -> None:
     log(prof.key_averages().table(sort_by="cuda_time_total", row_limit=40))
 
 
+# One arm of the A/B of the fastvit_t8 + LoRA bs=128 train step on the
+# kernel path, run in its own process from the root of a tree (this one or
+# the one --ab-parent names) with that tree's chip_smoke.py and package:
+# two warm-up steps, then CUDA events around AB_STEPS steps, each way's
+# weights random from the same seed. Uses only helpers both trees have.
+AB_STEPS = 10
+AB_ARM = """
+import json, sys, torch
+sys.path.insert(0, ".")
+import chip_smoke as cs
+from dino_pose_tpu_torch.models.registry import create_model_from_config
+from dino_pose_tpu_torch.ops import _ext
+_ext.build()
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+model = create_model_from_config(dict(cs.T8_CONFIG), seed=cs.SEED, device="cuda")
+cs.randomise_for_serving(model, torch.Generator().manual_seed(cs.SEED + 4))
+batch = cs.synthetic_batch(cs.T8_TRAIN_BATCH, cs.FASTVIT_IMAGE)
+state, step = cs.make_step(model, cs.T8_CONFIG, kernels=True, image_size=cs.FASTVIT_IMAGE)
+for _ in range(2):
+    state, _ = step(state, batch, cs.LR, cs.SEED)
+start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+torch.cuda.synchronize()
+start.record()
+for _ in range({steps}):
+    state, _ = step(state, batch, cs.LR, cs.SEED)
+end.record()
+torch.cuda.synchronize()
+print("AB_STEP_MS " + json.dumps(start.elapsed_time(end) / {steps}))
+"""
+
+
+def ab_step(parent: str) -> dict:
+    """The fastvit_t8 + LoRA bs=128 train step on the kernel path, this tree
+    against the tree at ``parent`` (e.g. a ``git archive`` of the parent
+    commit) on this card, each arm a fresh process, in turns parent,
+    change, change, parent."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    runs: dict = {"parent": [], "change": []}
+    for arm in ("parent", "change", "change", "parent"):
+        root = os.path.abspath(parent) if arm == "parent" else here
+        proc = subprocess.run([sys.executable, "-c", AB_ARM.format(steps=AB_STEPS)], cwd=root,
+                              capture_output=True, text=True, timeout=900)
+        lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("AB_STEP_MS ")]
+        if proc.returncode != 0 or not lines:
+            raise RuntimeError(f"A/B arm {arm} failed ({proc.returncode}): {proc.stderr[-2000:]}")
+        runs[arm].append(json.loads(lines[-1].split(" ", 1)[1]))
+        log(f"ab t8 + LoRA bs={T8_TRAIN_BATCH} step, {arm} ({root}): {runs[arm][-1]:.3f} ms")
+    out = {arm: {"step_ms": float(np.mean(ms)), "runs": ms} for arm, ms in runs.items()}
+    out["faster_ms"] = out["parent"]["step_ms"] - out["change"]["step_ms"]
+    log("ab_step " + json.dumps(out))
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write all measurements to this JSON file")
@@ -2816,11 +2988,22 @@ def main() -> int:
                          "the fastvit_t8 + LoRA train step with both opt-in arms (batch 128); "
                          "of the dinov2-base + LoRA tp=2 batch-1 forward and its LoRA step; "
                          "and of the dinov2-small + LoRA step with the gated LayerNorm")
+    ap.add_argument("--ab-parent", metavar="DIR",
+                    help="only time the fastvit_t8 + LoRA bs=128 train step on the kernel path "
+                         "against the tree at DIR (parent, change, change, parent; each arm a "
+                         "fresh process), print it and exit")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    if args.ab_parent:
+        log(f"card: {nvidia_smi()}")
+        ab = ab_step(args.ab_parent)
+        if args.out:
+            with open(args.out, "w") as f:
+                json.dump({"card": nvidia_smi(), "ab_step": ab}, f, indent=1)
+        return 0
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     from dino_pose_tpu_torch.core.mesh import MeshSpec, create_mesh

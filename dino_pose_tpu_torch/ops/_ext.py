@@ -54,11 +54,11 @@ LAUNCHES: dict[str, int] = {
     # attn_bwd_dkv_kernel), counted inside the chains where S is within the
     # resident route and by packed_attention / packed_attention_bwd.
     "attn_fwd": 0, "attn_bwd": 0,
-    # FastViT's ConvFFN past its depthwise conv (convffn_fwd_kernel) and its
-    # backward (convffn_bwd_kernel + convffn_bwd_reduce_kernel).
+    # FastViT's ConvFFN past its depthwise conv (convffn_kernel<false, ..>)
+    # and its backward (convffn_kernel<true, ..> + convffn_bwd_reduce_kernel).
     "fused_convffn": 0, "fused_convffn_bwd": 0,
     # FastViT's opt-in arms: the ConvFFN with the block residual (the same
-    # convffn_fwd_kernel, res operand), the stride-1 depthwise conv
+    # forward kernel, res operand), the stride-1 depthwise conv
     # (dw_kernel<K, DW>), and the combine + conv segment forward and backward
     # (dw_kernel<K, COMBINE>, dw_kernel<K, COMBINE_BWD> + dw_sums_reduce_kernel).
     "fused_convffn_res": 0, "fused_dw_conv": 0, "fused_combine_dw": 0,
@@ -106,12 +106,9 @@ _SIGNATURES = {
     "dp_flash_fwd": ([_P] * 5 + [_I] * 4 + [_F, _P], _I),
     "dp_flash_bwd": ([_P] * 8 + [_I] * 4 + [_F, _P], _I),
     "dp_flash_fwd_rows": ([_I], _I),
-    "dp_convffn_smem_bytes": ([_I], ctypes.c_longlong),
-    "dp_fused_convffn": ([_P] * 14 + [_I] * 5 + [_F, _P], _I),
-    "dp_convffn_bwd_smem_bytes": ([_I], ctypes.c_longlong),
-    "dp_convffn_bwd_blocks": ([_I, _I], _I),
-    "dp_fused_convffn_bwd": ([_P] * 17 + [_I] * 6 + [_F, _P], _I),
-    "dp_fused_convffn_res": ([_P] * 15 + [_I] * 5 + [_F, _P], _I),
+    "dp_convffn_smem": ([_I] * 11, ctypes.c_longlong),
+    "dp_convffn_fwd": ([_P] * 15 + [_I] * 5 + [_F] + [_I] * 10 + [_P, _I, _P], _I),
+    "dp_convffn_bwd": ([_P] * 17 + [_I] * 5 + [_F] + [_I] * 12 + [_P], _I),
     "dp_dw_smem_bytes": ([_I] * 6, ctypes.c_longlong),
     "dp_dw_occupancy": ([_I] * 4 + [ctypes.c_longlong], _I),
     "dp_dw_conv": ([_P] * 4 + [_I, _P], _I),

@@ -32,8 +32,8 @@ Rank 0 (no LoRA) is expressed as JAX expresses it (fastvit.py:596-603):
 rank-1 zero adapters, ones masks and s = 1, so one kernel serves every
 configuration.
 
-The kernels take widths C and H in multiples of 16 (their 16x16 tensor-core
-tiles). fastvit_ma36's stages 0 and 1 (C = 76, 152) are not: the wrappers
+The kernels take widths C and H in multiples of 16 (their k16 steps).
+fastvit_ma36's stages 0 and 1 (C = 76, 152) are not: the wrappers
 zero-pad C and H up to the next multiple of 16 before the launch
 (``pad_widths``: y, res, df, inv, shift, the W1 rows and columns, the W2
 rows and columns, b1, b2, the A1 and A2 rows and the B1 and B2 columns)
@@ -44,6 +44,7 @@ there), so the result is the unpadded one up to the order of the f32 sums.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import NamedTuple
 
@@ -55,7 +56,7 @@ from dino_pose_tpu_torch.ops.block import _gelu_grad
 LAUNCHES = _ext.LAUNCHES
 
 _SMEM_LIMIT = 232448  # bytes of shared memory one Hopper block may use
-MAX_RANK = 8          # LoRA rank the kernel takes (one (row, rank) pair per thread)
+MAX_RANK = 8          # LoRA rank the kernel takes (its m64n8k16 rank products)
 
 
 class ConvFFNParams(NamedTuple):
@@ -246,10 +247,6 @@ def convffn_bwd_cost(b: int, s: int, c: int, h: int, r: int) -> tuple[int, int]:
     return flops, nbytes
 
 
-def _stream() -> int:
-    return torch.cuda.current_stream().cuda_stream
-
-
 def _up16(n: int) -> int:
     return -(-n // 16) * 16
 
@@ -306,35 +303,177 @@ def _check(y: torch.Tensor, p: ConvFFNParams, name: str) -> tuple[int, int, int,
         want = torch.bfloat16 if t.dim() == 2 and field not in ("m1", "m2") else torch.float32
         if t.device != y.device or t.dtype != want:
             raise TypeError(f"{name}: {field} must be {want} on {y.device}, got {t.dtype} on {t.device}")
-        # 32-byte alignment: the tensor-core tiles read W1 and W2 from device memory.
+        # 32-byte alignment: TMA reads W1 and W2 from their base addresses.
         if tuple(t.shape) != shape or not t.is_contiguous() or t.data_ptr() % 32:
             raise ValueError(f"{name}: {field} must be a contiguous, 32-byte aligned {shape} "
                              f"tensor, got {tuple(t.shape)}")
     return b, s, c, h, r
 
 
-def _check_smem(c: int, name: str, smem_bytes: str = "dp_convffn_smem_bytes") -> None:
-    if getattr(_ext.lib(), smem_bytes)(c) > _SMEM_LIMIT:
-        raise ValueError(f"{name}: rows of width {c} do not fit shared memory")
+# The kernel's shared memory (ops/csrc/convffn_kernels.cu ``make_layout``),
+# mirrored here so that the plan is chosen, cached and tested on the host.
+_BOX, _RANK_TILE = 8192, 1024   # a 64 x 64 bf16 tile; an 8-row rank tile
+_SLICES = {False: 4, True: 3}   # 64-column out (dm) slices a consumer warpgroup holds
+_RING = (8, 6, 4)               # ring depths tried, deepest first
+# The kernel's instances (BWD, column warpgroups, slices, row lanes).
+INSTANCES = frozenset({
+    (False, 1, 1, 2), (False, 1, 2, 2), (False, 1, 3, 2), (False, 2, 2, 1), (False, 2, 3, 1),
+    (False, 2, 4, 1), (True, 1, 1, 2), (True, 1, 2, 2), (True, 1, 1, 1), (True, 1, 2, 1),
+    (True, 2, 2, 1), (True, 2, 3, 1)})
+
+
+def partial_floats(c: int, h: int, r: int) -> int:
+    """f32 values of one partial gradient set: inv, shift (C), A1 (C, R),
+    B1 (R, H), A2 (H, R), B2 (R, C)."""
+    return 2 * c + 2 * r * (c + h)
+
+
+def convffn_smem(bwd: bool, c: int, h: int, r: int, nwg: int, lanes: int, tb: int, rs: int,
+                 dfr: bool, lres: bool, persist: bool) -> int:
+    """Shared-memory bytes of one plan of the kernel (``dp_convffn_smem``)."""
+    nc, nch = -(-c // 64), -(-h // 64)
+    o = tb * lanes * nc * _BOX * (2 if bwd and not dfr else 1) + rs * _BOX
+    o += nwg * lanes * (_BOX * (2 if bwd else 1) + (0 if lres else 3 * _RANK_TILE))
+    o += (2 * nch + 1) * _RANK_TILE if lres else 0
+    o += lanes * _BOX + (2 * nc + 1) * _RANK_TILE
+    if bwd:
+        o += lanes * 4 * _RANK_TILE + nwg * lanes * 2048
+    if nwg > 1:
+        o += 128 * 8 * 4
+    if persist:
+        o += lanes * -(-partial_floats(c, h, r) * 4 // 1024) * 1024
+    return o + (2 * rs + 2 * tb * lanes) * 8 + 1024
+
+
+class Plan(NamedTuple):
+    """One launch of the ConvFFN kernel: ``nwg`` column warpgroups sharing a
+    row tile's chunks and holding ``nsw`` 64-column out (dm) slices each for
+    ``passes`` walks of H, or ``lanes`` row lanes each on its own tile and
+    all reading every weight box; ``tb`` row-tile buffers; ``rs`` weight-box
+    ring slots (``resident``: the tile's whole box sequence, loaded once);
+    ``lres`` every chunk's B1 and A2^T rank tiles resident; ``dfr`` df's
+    boxes through the ring; ``persist`` the backward's partial sets kept in
+    shared memory across the block's tiles (else one set a tile);
+    ``splits`` the forward's H split (``cpg`` chunk groups a split);
+    ``blocks`` the grid; ``sets`` the backward's partial sets."""
+
+    nwg: int
+    nsw: int
+    lanes: int
+    passes: int
+    tb: int
+    rs: int
+    resident: bool
+    lres: bool
+    dfr: bool
+    persist: bool
+    splits: int
+    cpg: int
+    blocks: int
+    sets: int
+    smem: int
+
+
+@functools.lru_cache(maxsize=None)
+def convffn_plan(bwd: bool, m: int, c: int, h: int, r: int, sms: int) -> Plan:
+    """The launch plan over M = B*S rows of widths C, H (multiples of 16) at
+    rank r on a card of ``sms`` SMs, cached per shape. Up to C = 128 (192
+    forward) two row lanes (the row split; one where the backward's partial
+    sets would not fit two), else two column warpgroups and the passes that
+    their out (dm) slices need. The backward keeps its partial sets on chip
+    where a block walks several tiles (else one set a tile), and streams df
+    through the ring only where its tile does not fit beside m's. The
+    weights resident where one tile's boxes fit, else the deepest ring that
+    does; two row-tile buffers where a block walks several tiles and they
+    fit; the chunks' rank tiles resident where they fit. Where the
+    forward's row tiles would fill less than half the card, H is split over
+    blocks (each a run of chunk groups), as many splits as fill it; a
+    finishing kernel sums the splits in order."""
+    nc, nch, tiles = -(-c // 64), -(-h // 64), -(-m // 64)
+    nwg, lanes0 = (1, 2) if nc <= (2 if bwd else 3) else (2, 1)
+    passes = -(-nc // (nwg * _SLICES[bwd]))
+    nsw = -(-nc // (nwg * passes))
+    ng = -(-nch // nwg)
+    splits, cpg = 1, ng
+    if not bwd and 2 * -(-tiles // lanes0) <= sms and ng > 1:
+        splits = min(ng, sms // -(-tiles // lanes0))
+        cpg = -(-ng // splits)
+        splits = -(-ng // cpg)
+    boxes = nch * nc * (3 if bwd else 2)  # one tile's weight boxes, one pass
+    for dfr in ((False, True) if bwd else (False,)):
+        for persist in ((True, False) if bwd else (False,)):
+            for lanes in ((lanes0, 1) if bwd and lanes0 > 1 else (lanes0,)):
+                groups = -(-tiles // lanes)
+                many = groups > sms
+                if persist and not many:
+                    continue
+                tbs = (2, 1) if many and (persist or not bwd) else (1,)
+                resident_ok = passes == 1 and not dfr and splits == 1
+                for tb, rs in ([(tb, boxes) for tb in tbs] if resident_ok else []) + [
+                        (tb, n) for tb in tbs for n in _RING]:
+                    for lres in (True, False):
+                        smem = convffn_smem(bwd, c, h, r, nwg, lanes, tb, rs, dfr, lres, persist)
+                        if smem <= _SMEM_LIMIT:
+                            blocks = (groups * splits if splits > 1 else
+                                      groups if bwd and not persist else min(groups, sms))
+                            return Plan(nwg, nsw, lanes, passes, tb, rs,
+                                        rs == boxes and resident_ok, lres, dfr, persist, splits,
+                                        cpg, blocks, blocks * lanes if persist else tiles, smem)
+    raise ValueError(f"ConvFFN at C={c}, H={h} fits no plan in shared memory")
+
+
+_SMS: dict[int, int] = {}
+
+
+def _sms(device: torch.device) -> int:
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    if index not in _SMS:
+        _SMS[index] = torch.cuda.get_device_properties(index).multi_processor_count
+    return _SMS[index]
+
+
+def _forward(name: str, y: torch.Tensor, res: torch.Tensor | None, p: ConvFFNParams,
+             s_lora: float) -> torch.Tensor:
+    """One launch of the forward kernel on the padded operands."""
+    c = y.shape[-1]
+    y, p, rows = pad_widths(y, p, *(() if res is None else (res,)))
+    b, s, cp = y.shape
+    hp, r = p.w1.shape[-1], p.a1.shape[-1]
+    plan = convffn_plan(False, b * s, cp, hp, r, _sms(y.device))
+    out = torch.empty_like(y)
+    # The H split's f32 partial out and u2, splits x M x (C + 8).
+    scratch = (torch.empty(plan.splits * b * s * (cp + 8), dtype=torch.float32, device=y.device)
+               if plan.splits > 1 else None)
+    err = _ext.lib().dp_convffn_fwd(
+        y.data_ptr(), rows[0].data_ptr() if rows else None, *(t.data_ptr() for t in p),
+        out.data_ptr(), b * s, s, cp, hp, r, float(s_lora), plan.nwg, plan.nsw, plan.lanes,
+        plan.passes, plan.tb, plan.rs, int(plan.resident), int(plan.lres), plan.splits, plan.cpg,
+        None if scratch is None else scratch.data_ptr(), plan.blocks, _ext.stream(y.device.index))
+    _ext.check(err, name)
+    LAUNCHES[name] += 1
+    return _unpad_rows(out, c)
 
 
 def fused_convffn(y: torch.Tensor, p: ConvFFNParams, s_lora: float) -> torch.Tensor:
     """out over (B, S, C) rows; replaces ``_convffn_fwd_kernel``
     (dino_pose_tpu/ops/convffn.py:92, via ``fused_convffn`` :258).
 
-    Design: one launch, one block per 32-row tile. The tile's
-    m = bf16(y*inv + shift) and its rank-R u1 stay in shared memory; the
-    block walks H in 64-column chunks: h-chunk = m @ W1[:, chunk] on the
-    tensor cores (W1 read from device memory, L2 at these sizes), the
-    bias/LoRA/GELU epilogue into a bf16 g-chunk in shared memory,
-    then out += g-chunk @ W2[chunk] into an f32 (32, C) accumulator in shared
-    memory, and u2 += g-chunk @ A2[chunk] on the CUDA cores. h and g never
-    reach device memory, as on the TPU. The rank-R LoRA products are 8 FMAs
-    per output element on the CUDA cores, not padded tensor-core tiles; the
-    masks are per sample (row // S). The kernel's widths are multiples of
-    16 (16x16 tiles need no edge masks): t8 and sa12's C = 48-512 and
-    H = 144-2048 are, ma36's C = 76 and 152 are padded (``pad_widths``);
-    rows are masked at the ragged edge.
+    Design: one launch of ``convffn_kernel<false, NWG, NSW, LANES>``
+    (ops/csrc/convffn_kernels.cu) on ``convffn_plan``'s persistent grid,
+    each block walking 64-row tiles (two at a time at C <= 192, one per
+    warpgroup); a producer thread loads y by TMA and the W1/W2 64 x 64
+    boxes into an mbarrier ring (resident where a tile's boxes fit); per
+    64-column chunk of H, h-chunk = m @ W1 on ``wgmma`` with the fc1 LoRA
+    up-term u1b @ B1 as one k16 step into its own accumulator, the bias
+    epilogue and GELU (a table of every bf16 h) into a bf16 g tile in
+    shared memory, u2 += g @ A2 (m64n8k16), and out += g @ W2 into f32
+    registers held across the walk; then out = bf16(bf16(bf16(acc) +
+    bf16(b2)) + bf16(f32(u2b @ B2) * s)). Where the row tiles would fill
+    less than half the card, H is split over blocks and a finishing kernel
+    (inside the same C entry) sums the f32 partials in order before that
+    epilogue. h and g never reach device memory, as on the TPU. The masks
+    are per sample (row // S). ma36's C = 76 and 152 are padded
+    (``pad_widths``).
 
     Bound on an H100: 4*B*S*C*H FLOPs (plus 4*B*S*R*(C+H) for LoRA) at
     989 TFLOP/s, or y and out (bf16) plus the weights at 3.35 TB/s;
@@ -349,17 +488,7 @@ def fused_convffn(y: torch.Tensor, p: ConvFFNParams, s_lora: float) -> torch.Ten
         raise ValueError(f"{name} has no backward of its own, and an operand requires grad: "
                          "convffn_train is the differentiable ConvFFN")
     _check(y, p, name)
-    c = y.shape[-1]
-    y, p, _ = pad_widths(y, p)
-    b, s, cp = y.shape
-    _check_smem(cp, name)
-    out = torch.empty_like(y)
-    err = _ext.lib().dp_fused_convffn(
-        *(t.data_ptr() for t in (y, *p, out)), b * s, s, cp, p.w1.shape[-1], p.a1.shape[-1],
-        float(s_lora), _stream())
-    _ext.check(err, name)
-    LAUNCHES[name] += 1
-    return _unpad_rows(out, c)
+    return _forward(name, y, None, p, s_lora)
 
 
 def fused_convffn_res(y: torch.Tensor, res: torch.Tensor, p: ConvFFNParams,
@@ -388,17 +517,7 @@ def fused_convffn_res(y: torch.Tensor, res: torch.Tensor, p: ConvFFNParams,
             or not res.is_contiguous() or res.data_ptr() % 16):
         raise ValueError(f"{name}: res must be a contiguous, 16-byte aligned bf16 tensor of y's "
                          f"shape {tuple(y.shape)}")
-    c = y.shape[-1]
-    y, p, (res,) = pad_widths(y, p, res)
-    b, s, cp = y.shape
-    _check_smem(cp, name)
-    out = torch.empty_like(y)
-    err = _ext.lib().dp_fused_convffn_res(
-        *(t.data_ptr() for t in (y, res, *p, out)), b * s, s, cp, p.w1.shape[-1],
-        p.a1.shape[-1], float(s_lora), _stream())
-    _ext.check(err, name)
-    LAUNCHES[name] += 1
-    return _unpad_rows(out, c)
+    return _forward(name, y, res, p, s_lora)
 
 
 def fused_convffn_bwd(y: torch.Tensor, df: torch.Tensor, p: ConvFFNParams,
@@ -407,19 +526,22 @@ def fused_convffn_bwd(y: torch.Tensor, df: torch.Tensor, p: ConvFFNParams,
     ``_convffn_bwd_kernel`` (dino_pose_tpu/ops/convffn.py:117, via
     ``fused_convffn``'s vjp :307).
 
-    Design: one launch of ``convffn_bwd_kernel`` on a fixed grid (as many
-    blocks as fit on the card at once, at most one per 32-row tile), each
-    block walking its tiles in order; then ``convffn_bwd_reduce_kernel``
-    (inside the same C entry) sums the blocks' f32 partial gradients in
-    block order. No atomics: the result is the same bits from run to run.
-    Per tile, m = bf16(y*inv + shift), df and an f32 (32, C) dm accumulator
-    stay in shared memory; du2 = bf16(f32(df·B2ᵀ)·s·m2) first; then H is
-    walked in 64-column chunks: h-chunk (m·W1, WMMA) with its bias/LoRA
-    epilogue and g, dg-chunk = df·W2ᵀ (WMMA) + du2·A2ᵀ, dh = bf16(dg·
-    gelu'(h)), dm += dh·W1ᵀ (WMMA), and on the CUDA cores u2 += g·A2,
-    du1 += dh·B1ᵀ and the dA2, dB1 partials. After the walk dm += du1·A1ᵀ,
-    dy = bf16(dm·inv), and the dinv, dshift, dA1, dB2 partials. The hidden
-    h, g, dg and dh never reach device memory.
+    Design: one launch of ``convffn_kernel<true, NWG, NSW, LANES>`` on
+    ``convffn_plan``'s grid, then ``convffn_bwd_reduce_kernel`` (inside the
+    same C entry) summing the f32 partial gradient sets in order: no
+    atomics, the same bits from run to run. Per 64-row tile the forward is
+    recomputed on ``wgmma`` (m by TMA, converted in place; u1 = m @ A1,
+    m64n8k16), du2 = bf16(f32(df @ B2^T) * s * m2) first; then per 64-column
+    chunk of H: h-chunk (m @ W1) with its own LoRA accumulator and g,
+    dg-chunk = [df | du2b] @ [W2^T ; A2^T] in one accumulator, dh =
+    bf16(dg * gelu'(h)) (gelu' from a table of every bf16 h), u2 += g @ A2,
+    du1 += dh @ B1^T, the chunk's dA2 = g^T du2b and dB1^T = dh^T u1b over
+    the tile's rows (m64n8k16, A transposed), and dm += dh @ W1^T held in
+    f32 registers across the walk. After it dm += du1b @ A1^T (one k16
+    step), dy = bf16(dm * inv), the dinv/dshift column sums, dA1 = m^T du1b
+    and dB2^T = df^T u2b. The partial sets stay in shared memory across
+    the block's tiles and are written once (or, where they do not fit,
+    one set a tile). h, g, dg and dh never reach device memory.
 
     Bound on an H100: 6*B*S*C*H FLOPs plus the rank-R terms at 989 TFLOP/s,
     or y, df and dy (bf16) plus the weights at 3.35 TB/s;
@@ -437,22 +559,21 @@ def fused_convffn_bwd(y: torch.Tensor, df: torch.Tensor, p: ConvFFNParams,
     y, p, (df,) = pad_widths(y, p, df)
     b, s, cp = y.shape
     hp, r = p.w1.shape[-1], p.a1.shape[-1]
-    _check_smem(cp, name, "dp_convffn_bwd_smem_bytes")
-    lib = _ext.lib()
     m = b * s
-    blocks = lib.dp_convffn_bwd_blocks(m, cp)
-    if blocks < 1:
-        raise RuntimeError(f"{name}: the kernel's occupancy query failed at C={cp}")
-    shapes = ((cp,), (cp,), (cp, r), (r, hp), (hp, r), (r, cp))
-    sizes = [math.prod(shape) for shape in shapes]
-    partials = torch.empty(blocks * sum(sizes), dtype=torch.float32, device=y.device)
-    flat = torch.empty(sum(sizes), dtype=torch.float32, device=y.device)
+    plan = convffn_plan(True, m, cp, hp, r, _sms(y.device))
+    n = partial_floats(cp, hp, r)
+    scratch = torch.empty((plan.sets + 1) * n, dtype=torch.float32, device=y.device)
+    flat = scratch[plan.sets * n:]
     dy = torch.empty_like(y)
-    err = lib.dp_fused_convffn_bwd(
-        *(t.data_ptr() for t in (y, df, *p, dy, partials, flat)), blocks, m, s, cp, hp, r,
-        float(s_lora), _stream())
+    err = _ext.lib().dp_convffn_bwd(
+        *(t.data_ptr() for t in (y, df, *p, dy, scratch, flat)), m, s, cp, hp, r, float(s_lora),
+        plan.nwg, plan.nsw, plan.lanes, plan.passes, plan.tb, plan.rs, int(plan.resident),
+        int(plan.lres), int(plan.dfr), int(plan.persist), plan.blocks, plan.sets,
+        _ext.stream(y.device.index))
     _ext.check(err, name)
     LAUNCHES[name] += 1
+    shapes = ((cp,), (cp,), (cp, r), (r, hp), (hp, r), (r, cp))
+    sizes = [math.prod(shape) for shape in shapes]
     grads = ConvFFNGrads(*(t.view(shape) for t, shape in zip(flat.split(sizes), shapes)))
     return _unpad_rows(dy, c), unpad_grads(grads, c, h)
 

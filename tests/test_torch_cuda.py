@@ -723,6 +723,135 @@ def test_convffn_bwd_refuses_what_it_does_not_take(cuda_device):
         convffn.convffn_train(y, leaves, 2.0)
 
 
+# Every fastvit_t8, fastvit_sa12 and fastvit_ma36 stage (ma36 at its own C,
+# which the wrappers pad) with the model's train batch (t8 128; sa12 32; ma36,
+# which has no training phase, at sa12's).
+CONVFFN_EVERY_STAGE = ([("t8", *st, 128) for st in CONVFFN_STAGES[:4]]
+                       + [("sa12", *st, 32) for st in CONVFFN_STAGES[4:]]
+                       + [("ma36", *st, 32) for st in MA36_STAGES])
+
+
+def _convffn_kind(kind, y, other, p, s_lora):
+    """(kernel, plain) outputs of one wrapper and its LAUNCHES key."""
+    if kind == "bwd":
+        return (_flat_bwd(convffn.fused_convffn_bwd(y, other, p, s_lora)),
+                _flat_bwd(convffn.convffn_bwd_math(y, other, p, s_lora)), "fused_convffn_bwd")
+    if kind == "res":
+        return ((convffn.fused_convffn_res(y, other, p, s_lora),),
+                (convffn.convffn_res_math(y, other, p, s_lora),), "fused_convffn_res")
+    return ((convffn.fused_convffn(y, p, s_lora),), (convffn.convffn_math(y, p, s_lora),),
+            "fused_convffn")
+
+
+def _assert_kind_close(kind, got, want):
+    if kind == "bwd":
+        _assert_bwd_close(got, want)
+    else:
+        torch.testing.assert_close(got[0].float(), want[0].float(), atol=3e-2, rtol=3e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["fwd", "res", "bwd"])
+@pytest.mark.parametrize("batch", ["1", "8", "train"])
+@pytest.mark.parametrize("stage", CONVFFN_EVERY_STAGE, ids=lambda t: f"{t[0]}-C{t[1]}")
+def test_convffn_wgmma_kernels_at_every_stage(cuda_device, stage, batch, kind):
+    """The wgmma ConvFFN kernels (every launch plan: the row split, one
+    warpgroup, the column split in one and two passes, df through the ring;
+    weights resident or ringed, partial sets on chip or a set a tile) against
+    their plain versions at each stage, batch 1, 8 and the train batch, rank
+    8 with Dropout2d masks, at the tolerances above; one launch each."""
+    _, c, h, s, train = stage
+    b = train if batch == "train" else int(batch)
+    y, p = _convffn_inputs(b, s, c, h, 8, cuda_device, seed=c + b)
+    other = torch.from_numpy(np.random.default_rng(c + b).standard_normal((b, s, c))
+                             .astype(np.float32)).to(cuda_device, torch.bfloat16)
+    block.reset_launches()
+    got, want, name = _convffn_kind(kind, y, other, p, 2.0)
+    torch.cuda.synchronize()
+    assert block.LAUNCHES[name] == 1 and sum(block.LAUNCHES.values()) == 1
+    _assert_kind_close(kind, got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["fwd", "res", "bwd"])
+@pytest.mark.parametrize("rank", [1, 2, 5, 8, 0])
+@pytest.mark.parametrize("width", [(48, 144), (96, 288), (192, 576), (384, 1152), (512, 2048),
+                                   (608, 2432)], ids=lambda t: f"C{t[0]}")
+def test_convffn_wgmma_ragged_rows_and_ranks(cuda_device, width, rank, kind):
+    """147 rows (B = 3, S = 49: the last 64-row tile ragged, the sample and
+    its masks changing inside tiles), ranks 1-8 and rank 0 (rank-1 zeros,
+    ones masks, s = 1), at a width of each launch plan."""
+    c, h = width
+    y, p = _convffn_inputs(3, 49, c, h, rank, cuda_device, seed=c + rank)
+    other = torch.from_numpy(np.random.default_rng(rank).standard_normal((3, 49, c))
+                             .astype(np.float32)).to(cuda_device, torch.bfloat16)
+    got, want, _ = _convffn_kind(kind, y, other, p, 2.0 if rank else 1.0)
+    torch.cuda.synchronize()
+    if kind == "bwd" and not rank:
+        torch.testing.assert_close(got[0].float(), want[0].float(), atol=3e-2, rtol=3e-2)
+        assert not any(t.any() for t in got[3:])
+    else:
+        _assert_kind_close(kind, got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(8, 4096, 48, 144), (128, 64, 384, 1152), (8, 64, 512, 2048),
+                                   (2, 1024, 96, 288)],
+                         ids=["on-chip-sets", "a-set-a-tile", "df-ring", "row-lanes"])
+def test_convffn_wgmma_bwd_same_bits_twice(cuda_device, shape):
+    """Two backward calls on the same inputs give the same bits (fixed-order
+    partial sums, no atomics) in each way of keeping the partial sets."""
+    b, s, c, h = shape
+    y, p = _convffn_inputs(b, s, c, h, 8, cuda_device, seed=s)
+    df = torch.from_numpy(np.random.default_rng(s).standard_normal((b, s, c))
+                          .astype(np.float32)).to(cuda_device, torch.bfloat16)
+    first = _flat_bwd(convffn.fused_convffn_bwd(y, df, p, 2.0))
+    again = _flat_bwd(convffn.fused_convffn_bwd(y, df, p, 2.0))
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["fwd", "res"])
+@pytest.mark.parametrize("stage", [CONVFFN_STAGES[3], CONVFFN_STAGES[7], MA36_STAGES[3]],
+                         ids=["t8", "sa12", "ma36"])
+def test_convffn_h_split_forward_at_late_stage(cuda_device, stage, kind):
+    """At a late stage and batch 1 the forward's row tiles would leave the
+    card idle: H is split over blocks (the plan says so), each writing f32
+    partial products, and the finishing kernel sums them in split order
+    before the epilogue. Against the plain version, one counted launch."""
+    c, h, s = stage
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    plan = convffn.convffn_plan(False, s, -(-c // 16) * 16, h, 8, sms)
+    assert plan.splits > 1 and plan.blocks == plan.splits
+    y, p = _convffn_inputs(1, s, c, h, 8, cuda_device, seed=c + 1)
+    other = torch.from_numpy(np.random.default_rng(c).standard_normal((1, s, c))
+                             .astype(np.float32)).to(cuda_device, torch.bfloat16)
+    block.reset_launches()
+    got, want, name = _convffn_kind(kind, y, other, p, 2.0)
+    torch.cuda.synchronize()
+    assert block.LAUNCHES[name] == 1 and sum(block.LAUNCHES.values()) == 1
+    _assert_kind_close(kind, got, want)
+
+
+@pytest.mark.cuda
+def test_convffn_plan_smem_matches_the_kernel_layout(cuda_device):
+    """convffn_smem (the host's plan) counts the bytes the kernel lays out
+    (dp_convffn_smem) for the plan of every stage, batch and direction."""
+    from dino_pose_tpu_torch.ops import _ext
+
+    lib = _ext.lib()
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    for _, c, h, s, _ in CONVFFN_EVERY_STAGE:
+        cp, hp = -(-c // 16) * 16, -(-h // 16) * 16
+        for b in (1, 8, 32, 128):
+            for bwd in (False, True):
+                plan = convffn.convffn_plan(bwd, b * s, cp, hp, 8, sms)
+                assert plan.smem == lib.dp_convffn_smem(
+                    int(bwd), cp, hp, 8, plan.nwg, plan.lanes, plan.tb, plan.rs, int(plan.dfr),
+                    int(plan.lres), int(plan.persist)), (c, b, bwd)
+
+
 @pytest.mark.cuda
 def test_fastvit_train_step_kernels_match_plain(cuda_device):
     """One fastvit_t8 + LoRA train step at 256², batch 2, kernels vs plain
@@ -1880,14 +2009,32 @@ def _definition(src: str, head: str) -> str:
 
 
 @pytest.mark.cuda
-def test_attention_kernels_are_wgmma(cuda_device):
-    """The resident attention kernels issue their products as wgmma (the
-    helpers they call hold wgmma.mma_async, P and dS from registers through
-    wgmma_rs), and no WMMA call is left in block_kernels.cu."""
+def test_convffn_kernels_are_wgmma(cuda_device):
+    """convffn_kernels.cu holds no WMMA: its products (the rank terms and the
+    weight-gradient reductions too, m64n8k16) are wgmma.mma_async, fed by
+    TMA tile loads."""
     import pathlib
 
-    src = (pathlib.Path(block.__file__).parent / "csrc" / "block_kernels.cu").read_text()
+    src = (pathlib.Path(convffn.__file__).parent / "csrc" / "convffn_kernels.cu").read_text()
     assert "wmma::" not in src and "<mma.h>" not in src
+    assert "wgmma.mma_async.sync.aligned.m64n8k16" in _definition(src, "void wgmma_n8(")
+    body = _definition(src, "\nconvffn_kernel(")
+    for call in ("wgmma_n64<", "wgmma_n8<", "tma_load("):
+        assert call in body, call
+
+
+@pytest.mark.cuda
+def test_attention_kernels_are_wgmma(cuda_device):
+    """The resident attention kernels issue their products as wgmma (the
+    helpers they call, in block_kernels.cu or the shared hopper.cuh, hold
+    wgmma.mma_async, P and dS from registers through wgmma_rs), and no WMMA
+    call is left in block_kernels.cu."""
+    import pathlib
+
+    csrc = pathlib.Path(block.__file__).parent / "csrc"
+    src = (csrc / "block_kernels.cu").read_text()
+    assert "wmma::" not in src and "<mma.h>" not in src
+    src += (csrc / "hopper.cuh").read_text()
     for helper in ("wgmma_rs_n64(", "wgmma_rs_n32(", "wgmma_n16(", "wgmma_n64("):
         assert "wgmma.mma_async" in _definition(src, f"void {helper}"), helper
     for name in ("attn_fwd_kernel(", "attn_bwd_dq_kernel(", "attn_bwd_dkv_kernel("):
