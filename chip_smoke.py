@@ -48,15 +48,16 @@ step; the ConvFFN, depthwise-conv and LayerNorm kernels, and cuDNN's
 grouped conv and torch.nn.functional.layer_norm beside them, on three
 clocks (host-inclusive, device-only from a CUDA graph's replay, host
 microseconds a call), the ConvFFN kernels beside the replaced WMMA ones'
-(OLD_CONVFFN).
+(OLD_CONVFFN), the combine + conv segment's kernels beside the replaced ones'
+(OLD_DWPAIR) and an unfused library yardstick.
 
     python3 chip_smoke.py [--out results.json] [--profile]
     python3 chip_smoke.py --ab-parent DIR [--out ab.json]
 
 The second form only times the fastvit_t8 + LoRA bs=128 train step on the
-kernel path against the tree at DIR (e.g. ``git archive`` of the parent
-commit), each arm in a fresh process from its own tree, in turns parent,
-change, change, parent on one card.
+kernel path, default and with both opt-in arms on, against the tree at DIR
+(e.g. ``git archive`` of the parent commit), each arm in a fresh process
+from its own tree, in turns parent, change, change, parent on one card.
 
 Needs one CUDA card and ``nvcc``; exits non-zero without a card, when a
 kernel does not build, launch or agree, or when any phase fails. The last
@@ -697,6 +698,64 @@ OLD_CONVFFN = {
     "t8 stage 1 B=8 res": (0.0689, 0.0646, 47.5),
     "t8 stage 0 B=128 res": (1.3190, 1.2758, 47.0),
     "t8 stage 1 B=128 res": (0.7707, 0.7428, 38.9),
+}
+# The replaced segment kernels' three clocks (ms, device ms, host us a call),
+# dw_kernel<K, COMBINE, RB> and dw_kernel<K, COMBINE_BWD, 1> with
+# dw_sums_reduce_kernel, at each phase_dwconv shape (t8's stage 0 and 1
+# and the ragged H = 24, 56), k and batch, measured on an H100 80GB HBM3 at
+# 700.00 W before pair_kernel took their place: t8's stages by this
+# script's phase_dwconv, the ragged shapes by the same ``clocks`` on
+# ``dw_inputs``, as phase_dwconv now times them. Printed beside the new
+# kernels'.
+OLD_DWPAIR = {
+    "fused_combine_dw C=48 H=64 k=3 B=1": (0.0217, 0.0045, 19.6),
+    "fused_combine_dw C=48 H=64 k=7 B=1": (0.0205, 0.0096, 19.7),
+    "fused_combine_dw C=96 H=32 k=3 B=1": (0.0317, 0.0046, 19.4),
+    "fused_combine_dw C=96 H=32 k=7 B=1": (0.0151, 0.0096, 17.6),
+    "fused_combine_dw C=48 H=24 k=3 B=1": (0.0226, 0.0044, 21.3),
+    "fused_combine_dw C=48 H=24 k=7 B=1": (0.0135, 0.0096, 12.7),
+    "fused_combine_dw C=96 H=56 k=3 B=1": (0.0210, 0.0050, 20.3),
+    "fused_combine_dw C=96 H=56 k=7 B=1": (0.0138, 0.0088, 13.1),
+    "fused_combine_dw C=48 H=64 k=3 B=8": (0.0139, 0.0080, 12.8),
+    "fused_combine_dw C=48 H=64 k=7 B=8": (0.0170, 0.0151, 13.7),
+    "fused_combine_dw C=96 H=32 k=3 B=8": (0.0139, 0.0060, 13.4),
+    "fused_combine_dw C=96 H=32 k=7 B=8": (0.0229, 0.0110, 22.2),
+    "fused_combine_dw C=48 H=24 k=3 B=8": (0.0233, 0.0050, 21.2),
+    "fused_combine_dw C=48 H=24 k=7 B=8": (0.0151, 0.0086, 13.8),
+    "fused_combine_dw C=96 H=56 k=3 B=8": (0.0231, 0.0141, 21.3),
+    "fused_combine_dw C=96 H=56 k=7 B=8": (0.0303, 0.0283, 19.5),
+    "fused_combine_dw C=48 H=64 k=3 B=128": (0.0990, 0.0963, 13.2),
+    "fused_combine_dw C=48 H=64 k=7 B=128": (0.1854, 0.1811, 20.3),
+    "fused_combine_dw C=96 H=32 k=3 B=128": (0.0591, 0.0572, 17.7),
+    "fused_combine_dw C=96 H=32 k=7 B=128": (0.0991, 0.0966, 14.1),
+    "fused_combine_dw C=48 H=24 k=3 B=128": (0.0211, 0.0191, 14.0),
+    "fused_combine_dw C=48 H=24 k=7 B=128": (0.0401, 0.0385, 15.2),
+    "fused_combine_dw C=96 H=56 k=3 B=128": (0.1660, 0.1635, 18.9),
+    "fused_combine_dw C=96 H=56 k=7 B=128": (0.3191, 0.3136, 20.8),
+    "fused_combine_dw_bwd C=48 H=64 k=3 B=1": (0.0335, 0.0113, 32.7),
+    "fused_combine_dw_bwd C=48 H=64 k=7 B=1": (0.0431, 0.0163, 40.9),
+    "fused_combine_dw_bwd C=96 H=32 k=3 B=1": (0.0239, 0.0092, 24.1),
+    "fused_combine_dw_bwd C=96 H=32 k=7 B=1": (0.0462, 0.0144, 41.6),
+    "fused_combine_dw_bwd C=48 H=24 k=3 B=1": (0.0256, 0.0075, 25.1),
+    "fused_combine_dw_bwd C=48 H=24 k=7 B=1": (0.0244, 0.0125, 23.4),
+    "fused_combine_dw_bwd C=96 H=56 k=3 B=1": (0.0272, 0.0110, 25.1),
+    "fused_combine_dw_bwd C=96 H=56 k=7 B=1": (0.0278, 0.0141, 23.8),
+    "fused_combine_dw_bwd C=48 H=64 k=3 B=8": (0.0403, 0.0151, 42.6),
+    "fused_combine_dw_bwd C=48 H=64 k=7 B=8": (0.0409, 0.0200, 39.9),
+    "fused_combine_dw_bwd C=96 H=32 k=3 B=8": (0.0265, 0.0127, 24.7),
+    "fused_combine_dw_bwd C=96 H=32 k=7 B=8": (0.0260, 0.0155, 25.1),
+    "fused_combine_dw_bwd C=48 H=24 k=3 B=8": (0.0289, 0.0097, 33.8),
+    "fused_combine_dw_bwd C=48 H=24 k=7 B=8": (0.0317, 0.0124, 30.7),
+    "fused_combine_dw_bwd C=96 H=56 k=3 B=8": (0.0294, 0.0208, 32.4),
+    "fused_combine_dw_bwd C=96 H=56 k=7 B=8": (0.0376, 0.0354, 29.2),
+    "fused_combine_dw_bwd C=48 H=64 k=3 B=128": (0.1348, 0.1308, 38.8),
+    "fused_combine_dw_bwd C=48 H=64 k=7 B=128": (0.1945, 0.1914, 27.8),
+    "fused_combine_dw_bwd C=96 H=32 k=3 B=128": (0.1019, 0.0971, 42.9),
+    "fused_combine_dw_bwd C=96 H=32 k=7 B=128": (0.1184, 0.1140, 41.6),
+    "fused_combine_dw_bwd C=48 H=24 k=3 B=128": (0.0393, 0.0355, 31.2),
+    "fused_combine_dw_bwd C=48 H=24 k=7 B=128": (0.0504, 0.0462, 41.9),
+    "fused_combine_dw_bwd C=96 H=56 k=3 B=128": (0.2897, 0.2842, 29.3),
+    "fused_combine_dw_bwd C=96 H=56 k=7 B=128": (0.3497, 0.3455, 27.2),
 }
 # Per JSON row: the TPU kernel it replaces, its source, the batch its
 # numbers were taken at, the path whose launches "launches" reports and the
@@ -2189,18 +2248,55 @@ def check_dw(results: dict, name: str, got: tuple, want: tuple, where: str) -> f
     return act_err
 
 
+def pair_unfused(x, y0, dx2, dy7, a, b, bias, kern):
+    """The segment from library calls, the yardstick beside pair_kernel (two
+    or more calls, so no row's "library ms"): forward DW._combine, then
+    cuDNN's grouped conv with bf16 taps (as row 24's is timed); backward
+    cuDNN's grouped conv on the mirrored bf16 taps, the elementwise products
+    and ``.sum``. Returns (forward, backward) callables."""
+    import torch.nn.functional as F
+
+    from dino_pose_tpu_torch.ops import dwconv as DW
+
+    kk, c = kern.shape[0], x.shape[-1]
+    w = kern.permute(3, 2, 0, 1).to(torch.bfloat16).contiguous()
+    wf = kern.flip(0, 1).permute(3, 2, 0, 1).to(torch.bfloat16).contiguous()
+
+    def fwd():
+        x2 = DW._combine(x, y0, a, b, bias)
+        return x2, F.conv2d(x2.permute(0, 3, 1, 2), w, None, 1, kk // 2, 1, c)
+
+    def bwd():
+        conv = F.conv2d(dy7.permute(0, 3, 1, 2), wf, None, 1, kk // 2, 1, c)
+        d2 = dx2.float() + conv.permute(0, 2, 3, 1).float()
+        dims = (0, 1, 2)
+        return ((d2 * a).to(x.dtype), (d2 * b).to(x.dtype), (d2 * x.float()).sum(dims),
+                (d2 * y0.float()).sum(dims), d2.sum(dims))
+
+    return fwd, bwd
+
+
+PAIR_NAMES = ("fused_combine_dw", "fused_combine_dw_bwd")
+OLD_CLOCKS = ("old_ms", "old_device_ms", "old_host_us")
+UNFUSED_CLOCKS = ("unfused_ms", "unfused_device_ms", "unfused_host_us")
+
+
 def phase_dwconv(results: dict) -> dict:
     """FastViT's opt-in arms' wrappers against their plain versions at t8's
     stage 0 and 1 shapes (256²), bf16, batch 1, 8 and 128: fused_dw_conv
     (also with flip=True, its transpose), fused_combine_dw and
     fused_combine_dw_bwd at k = 3 and 7, and fused_convffn_res at rank 8
     with Dropout2d-style masks; the conv kernels also at ragged H = 24 and
-    56. Then kernel (``clocks``: host-inclusive, device-only and host us a
-    call), plain, bound and (for the conv) cuDNN's grouped conv times at the
-    path's shapes. Returns, by
-    batch, each wrapper's per-stage numbers and its sums over the launches
-    of one forward (the conv at batch 1, k = 7: the serving path) or one
-    step (the segment and the residual ConvFFN at batch 128, k = 7)."""
+    56 (the conv at batch 8, the segment at 1, 8 and 128). The segment's x2
+    is held bit-equal to DW._combine's, and a second call of each segment
+    kernel to the first's bits. Then kernel (``clocks``: host-inclusive,
+    device-only and host us a call), plain, bound and (for the conv) cuDNN's
+    grouped conv times at the path's shapes; beside the segment kernels the
+    replaced kernels' (OLD_DWPAIR) and the unfused library yardstick's
+    (``pair_unfused``). Returns, by batch, each wrapper's per-stage numbers
+    and its sums over the launches of one forward (the conv at batch 1, k =
+    7: the serving path) or one step (the segment and the residual ConvFFN
+    at batch 128, k = 7)."""
     import torch.nn.functional as F
 
     from dino_pose_tpu_torch.ops import block as B
@@ -2209,20 +2305,62 @@ def phase_dwconv(results: dict) -> dict:
 
     gen = torch.Generator().manual_seed(SEED + 14)
     saved = dict(B.LAUNCHES)
+    out: dict = {}
+
+    def pair_cases(b, h, c, kk, x, y0, dx2, dy7, a, bv, bias, kern):
+        unf_fwd, unf_bwd = pair_unfused(x, y0, dx2, dy7, a, bv, bias, kern)
+        return {
+            "fused_combine_dw": (lambda: DW.fused_combine_dw(x, y0, a, bv, bias, kern),
+                                 lambda: DW.combine_dw_math(x, y0, a, bv, bias, kern),
+                                 DW.combine_dw_cost(b, h, h, c, kk), unf_fwd),
+            "fused_combine_dw_bwd": (
+                lambda: DW.fused_combine_dw_bwd(x, y0, dx2, dy7, a, bv, kern),
+                lambda: DW.combine_dw_bwd_math(x, y0, dx2, dy7, a, bv, kern),
+                DW.combine_dw_bwd_cost(b, h, h, c, kk), unf_bwd),
+        }
+
+    def check_pair(name, kern_fn, plain_fn, where) -> float:
+        got, want = kern_fn(), plain_fn()
+        err = check_dw(results, name, got, want, where)
+        if name == "fused_combine_dw" and not torch.equal(got[0], want[0]):
+            raise AssertionError(f"{name} at {where}: x2 is not DW._combine's bits")
+        if not all(torch.equal(p, q) for p, q in zip(got, kern_fn())):
+            raise AssertionError(f"{name} at {where}: a second call gave other bits")
+        return err
+
+    def time_pair(name, key, kern_fn, plain_fn, flops, nbytes, unf_fn, where, b) -> dict:
+        with torch.inference_mode():
+            t = clocks(kern_fn)
+            plain_ms = cuda_ms(plain_fn, iters=5 if b > 8 else 10, warmup=2)
+            unf = {f"unfused_{k}": v for k, v in clocks(unf_fn).items()}
+        bound, by = B.bound_ms(flops, nbytes, B.F32_FLOPS)
+        old = dict(zip(OLD_CLOCKS, OLD_DWPAIR[key]))
+        log(f"time {name} {where}: kernel {clocks_text(t)}, old kernel {old['old_ms']:.4f} ms, "
+            f"device {old['old_device_ms']:.4f} ms, host {old['old_host_us']:.1f} us/call "
+            f"(x{old['old_device_ms'] / t['device_ms']:.2f} device), plain {plain_ms:.4f} ms, "
+            f"unfused library {clocks_text(unf, 'unfused_')}, bound {bound:.5f} ms ({by})")
+        return {**t, **old, **unf, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by}
+
     for c, h in ARM_RAGGED:
         for kk in DW.KERNEL_SIZES:
-            (x, y0, dx2, dy7), (a, b, bias), kern = dw_inputs(8, h, c, kk, gen)
+            (x, y0, dx2, dy7), (a, bv, bias), kern = dw_inputs(8, h, c, kk, gen)
             where = f"(ragged: C={c}, H=W={h}, k={kk}) B=8"
             check_dw(results, "fused_dw_conv", (DW.fused_dw_conv(x, kern),),
                      (DW.dw_conv_math(x, kern),), where)
             check_dw(results, "fused_dw_conv", (DW.fused_dw_conv(x, kern, flip=True),),
                      (DW.dw_conv_math(x, kern.flip(0, 1)),), where + " flip")
-            check_dw(results, "fused_combine_dw", DW.fused_combine_dw(x, y0, a, b, bias, kern),
-                     DW.combine_dw_math(x, y0, a, b, bias, kern), where)
-            check_dw(results, "fused_combine_dw_bwd",
-                     DW.fused_combine_dw_bwd(x, y0, dx2, dy7, a, b, kern),
-                     DW.combine_dw_bwd_math(x, y0, dx2, dy7, a, b, kern), where)
-    out: dict = {}
+            for b in (1, 8, T8_TRAIN_BATCH):
+                (x, y0, dx2, dy7), (a, bv, bias), kern = dw_inputs(b, h, c, kk, gen)
+                where = f"(ragged: C={c}, H=W={h}, k={kk}) B={b}"
+                cases = pair_cases(b, h, c, kk, x, y0, dx2, dy7, a, bv, bias, kern)
+                for name, (kern_fn, plain_fn, (flops, nbytes), unf_fn) in cases.items():
+                    err = check_pair(name, kern_fn, plain_fn, where)
+                    row = time_pair(name, f"{name} C={c} H={h} k={kk} B={b}", kern_fn, plain_fn,
+                                    flops, nbytes, unf_fn, where, b)
+                    out.setdefault(b, {}).setdefault(f"{name}_ragged", []).append({
+                        "C": c, "H": h, "k": kk, **row, "flops": flops, "bytes": nbytes,
+                        "max_abs_err": err})
+            del x, y0, dx2, dy7
     for b in (1, 8, T8_TRAIN_BATCH):
         for c, h, hidden, n_serve, n_fwd, n_bwd in ARM_STAGES:
             for kk in DW.KERNEL_SIZES:
@@ -2230,40 +2368,36 @@ def phase_dwconv(results: dict) -> dict:
                 where = f"t8 stage C={c}, H=W={h}, k={kk} B={b}"
                 x_nchw = x.permute(0, 3, 1, 2)  # channels_last, as the model holds it
                 w_lib = kern.permute(3, 2, 0, 1).to(torch.bfloat16).contiguous()
-                cases = {
-                    "fused_dw_conv": (lambda: (DW.fused_dw_conv(x, kern),),
-                                      lambda: (DW.dw_conv_math(x, kern),),
-                                      DW.dwconv_cost(b, h, h, c, kk),
-                                      lambda: F.conv2d(x_nchw, w_lib, None, 1, kk // 2, 1, c)),
-                    "fused_combine_dw": (lambda: DW.fused_combine_dw(x, y0, a, bv, bias, kern),
-                                         lambda: DW.combine_dw_math(x, y0, a, bv, bias, kern),
-                                         DW.combine_dw_cost(b, h, h, c, kk), None),
-                    "fused_combine_dw_bwd": (
-                        lambda: DW.fused_combine_dw_bwd(x, y0, dx2, dy7, a, bv, kern),
-                        lambda: DW.combine_dw_bwd_math(x, y0, dx2, dy7, a, bv, kern),
-                        DW.combine_dw_bwd_cost(b, h, h, c, kk), None),
-                }
                 # The conv's transpose (dw_conv_frozen's dx): the taps read mirrored.
                 check_dw(results, "fused_dw_conv", (DW.fused_dw_conv(x, kern, flip=True),),
                          (DW.dw_conv_math(x, kern.flip(0, 1)),), where + " flip")
-                for name, (kern_fn, plain_fn, (flops, nbytes), lib_fn) in cases.items():
-                    err = check_dw(results, name, kern_fn(), plain_fn(), where)
-                    with torch.inference_mode():
-                        t = clocks(kern_fn)
-                        plain_ms = cuda_ms(plain_fn, iters=5 if b > 8 else 10, warmup=2)
-                        lib = ({f"library_{k}": v for k, v in clocks(lib_fn).items()}
-                               if lib_fn else dict.fromkeys(LIBRARY_CLOCKS))
-                    bound, by = B.bound_ms(flops, nbytes, B.F32_FLOPS)
-                    log(f"time {name} {where}: kernel {clocks_text(t)}, plain {plain_ms:.4f} ms, "
-                        f"bound {bound:.5f} ms ({by})"
-                        + (f", cuDNN grouped conv (bf16 taps) {clocks_text(lib, 'library_')}"
-                           if lib_fn else ""))
-                    blocks = {"fused_dw_conv": n_serve, "fused_combine_dw": n_fwd,
-                              "fused_combine_dw_bwd": n_bwd}[name]
-                    out.setdefault(b, {}).setdefault(f"{name}_stages", []).append({
-                        "C": c, "H": h, "k": kk, "launches": blocks, **t,
-                        "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by, **lib,
-                        "flops": flops, "bytes": nbytes, "max_abs_err": err})
+                err = check_dw(results, "fused_dw_conv", (DW.fused_dw_conv(x, kern),),
+                               (DW.dw_conv_math(x, kern),), where)
+                flops, nbytes = DW.dwconv_cost(b, h, h, c, kk)
+                with torch.inference_mode():
+                    t = clocks(lambda: DW.fused_dw_conv(x, kern))
+                    plain_ms = cuda_ms(lambda: DW.dw_conv_math(x, kern),
+                                       iters=5 if b > 8 else 10, warmup=2)
+                    lib = {f"library_{k}": v for k, v in clocks(
+                        lambda: F.conv2d(x_nchw, w_lib, None, 1, kk // 2, 1, c)).items()}
+                bound, by = B.bound_ms(flops, nbytes, B.F32_FLOPS)
+                log(f"time fused_dw_conv {where}: kernel {clocks_text(t)}, plain {plain_ms:.4f} "
+                    f"ms, bound {bound:.5f} ms ({by}), cuDNN grouped conv (bf16 taps) "
+                    f"{clocks_text(lib, 'library_')}")
+                out.setdefault(b, {}).setdefault("fused_dw_conv_stages", []).append({
+                    "C": c, "H": h, "k": kk, "launches": n_serve, **t, "plain_ms": plain_ms,
+                    "bound_ms": bound, "bound_by": by, **lib, "flops": flops, "bytes": nbytes,
+                    "max_abs_err": err})
+                cases = pair_cases(b, h, c, kk, x, y0, dx2, dy7, a, bv, bias, kern)
+                for name, (kern_fn, plain_fn, (flops, nbytes), unf_fn) in cases.items():
+                    err = check_pair(name, kern_fn, plain_fn, where)
+                    row = time_pair(name, f"{name} C={c} H={h} k={kk} B={b}", kern_fn, plain_fn,
+                                    flops, nbytes, unf_fn, where, b)
+                    out[b].setdefault(f"{name}_stages", []).append({
+                        "C": c, "H": h, "k": kk,
+                        "launches": n_fwd if name == "fused_combine_dw" else n_bwd, **row,
+                        **dict.fromkeys(LIBRARY_CLOCKS), "flops": flops, "bytes": nbytes,
+                        "max_abs_err": err})
                 del x, y0, dx2, dy7
             y, p = convffn_inputs(b, h * h, c, hidden, 8, gen)
             res = torch.randn((b, h * h, c), generator=gen).to("cuda", torch.bfloat16)
@@ -2283,7 +2417,7 @@ def phase_dwconv(results: dict) -> dict:
                 f"({by})")
             out[b].setdefault("fused_convffn_res_stages", []).append({
                 "C": c, "H": hidden, "S": h * h, "launches": n_fwd, **t,
-                **dict(zip(("old_ms", "old_device_ms", "old_host_us"), old)),
+                **dict(zip(OLD_CLOCKS, old)),
                 "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
                 **dict.fromkeys(LIBRARY_CLOCKS), "flops": flops, "bytes": nbytes,
                 "max_abs_err": err})
@@ -2296,7 +2430,8 @@ def phase_dwconv(results: dict) -> dict:
                     ("fused_convffn_res", T8_TRAIN_BATCH)):
         rows = [r for r in out[b][f"{name}_stages"] if r.get("k", 7) == 7]
         keys = ("ms", "device_ms", "host_us", "plain_ms", "flops", "bytes") + (
-            ("old_ms", "old_device_ms", "old_host_us") if name == "fused_convffn_res" else ())
+            OLD_CLOCKS if name in ("fused_convffn_res", *PAIR_NAMES) else ()) + (
+            UNFUSED_CLOCKS if name in PAIR_NAMES else ())
         total = {k: sum(r["launches"] * r[k] for r in rows) for k in keys}
         bound, by = (B.bound_ms(total["flops"], total["bytes"]) if name == "fused_convffn_res"
                      else B.bound_ms(total["flops"], total["bytes"], B.F32_FLOPS))
@@ -2924,7 +3059,8 @@ def profile_train_step(step, state, batch) -> None:
 # kernel path, run in its own process from the root of a tree (this one or
 # the one --ab-parent names) with that tree's chip_smoke.py and package:
 # two warm-up steps, then CUDA events around AB_STEPS steps, each way's
-# weights random from the same seed. Uses only helpers both trees have.
+# weights random from the same seed; the arms step sets ARMS in the
+# process's environment. Uses only helpers both trees have.
 AB_STEPS = 10
 AB_ARM = """
 import json, sys, torch
@@ -2953,23 +3089,28 @@ print("AB_STEP_MS " + json.dumps(start.elapsed_time(end) / {steps}))
 
 
 def ab_step(parent: str) -> dict:
-    """The fastvit_t8 + LoRA bs=128 train step on the kernel path, this tree
-    against the tree at ``parent`` (e.g. a ``git archive`` of the parent
-    commit) on this card, each arm a fresh process, in turns parent,
-    change, change, parent."""
+    """The fastvit_t8 + LoRA bs=128 train step on the kernel path, default
+    and with both opt-in arms on (``ARMS``), this tree against the tree at
+    ``parent`` (e.g. a ``git archive`` of the parent commit) on this card,
+    each arm a fresh process, in turns parent, change, change, parent."""
     here = os.path.dirname(os.path.abspath(__file__))
-    runs: dict = {"parent": [], "change": []}
-    for arm in ("parent", "change", "change", "parent"):
-        root = os.path.abspath(parent) if arm == "parent" else here
-        proc = subprocess.run([sys.executable, "-c", AB_ARM.format(steps=AB_STEPS)], cwd=root,
-                              capture_output=True, text=True, timeout=900)
-        lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("AB_STEP_MS ")]
-        if proc.returncode != 0 or not lines:
-            raise RuntimeError(f"A/B arm {arm} failed ({proc.returncode}): {proc.stderr[-2000:]}")
-        runs[arm].append(json.loads(lines[-1].split(" ", 1)[1]))
-        log(f"ab t8 + LoRA bs={T8_TRAIN_BATCH} step, {arm} ({root}): {runs[arm][-1]:.3f} ms")
-    out = {arm: {"step_ms": float(np.mean(ms)), "runs": ms} for arm, ms in runs.items()}
-    out["faster_ms"] = out["parent"]["step_ms"] - out["change"]["step_ms"]
+    out: dict = {}
+    for step, env in (("t8", {}), ("t8_arms", ARMS)):
+        runs: dict = {"parent": [], "change": []}
+        for arm in ("parent", "change", "change", "parent"):
+            root = os.path.abspath(parent) if arm == "parent" else here
+            proc = subprocess.run([sys.executable, "-c", AB_ARM.format(steps=AB_STEPS)],
+                                  cwd=root, capture_output=True, text=True, timeout=900,
+                                  env={**os.environ, **env})
+            lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("AB_STEP_MS ")]
+            if proc.returncode != 0 or not lines:
+                raise RuntimeError(f"A/B {step} arm {arm} failed ({proc.returncode}): "
+                                   f"{proc.stderr[-2000:]}")
+            runs[arm].append(json.loads(lines[-1].split(" ", 1)[1]))
+            log(f"ab {step} + LoRA bs={T8_TRAIN_BATCH} step, {arm} ({root}): "
+                f"{runs[arm][-1]:.3f} ms")
+        out[step] = {arm: {"step_ms": float(np.mean(ms)), "runs": ms} for arm, ms in runs.items()}
+        out[step]["faster_ms"] = out[step]["parent"]["step_ms"] - out[step]["change"]["step_ms"]
     log("ab_step " + json.dumps(out))
     return out
 
@@ -2989,9 +3130,10 @@ def main() -> int:
                          "of the dinov2-base + LoRA tp=2 batch-1 forward and its LoRA step; "
                          "and of the dinov2-small + LoRA step with the gated LayerNorm")
     ap.add_argument("--ab-parent", metavar="DIR",
-                    help="only time the fastvit_t8 + LoRA bs=128 train step on the kernel path "
-                         "against the tree at DIR (parent, change, change, parent; each arm a "
-                         "fresh process), print it and exit")
+                    help="only time the fastvit_t8 + LoRA bs=128 train step on the kernel path, "
+                         "default and with both opt-in arms on, against the tree at DIR "
+                         "(parent, change, change, parent; each arm a fresh process), print "
+                         "them and exit")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():

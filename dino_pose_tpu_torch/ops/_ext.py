@@ -59,8 +59,8 @@ LAUNCHES: dict[str, int] = {
     "fused_convffn": 0, "fused_convffn_bwd": 0,
     # FastViT's opt-in arms: the ConvFFN with the block residual (the same
     # forward kernel, res operand), the stride-1 depthwise conv
-    # (dw_kernel<K, DW>), and the combine + conv segment forward and backward
-    # (dw_kernel<K, COMBINE>, dw_kernel<K, COMBINE_BWD> + dw_sums_reduce_kernel).
+    # (dw_kernel<K, RB>), and the combine + conv segment forward and backward
+    # (pair_kernel<K, 0>, pair_kernel<K, 1>: one launch each).
     "fused_convffn_res": 0, "fused_dw_conv": 0, "fused_combine_dw": 0,
     "fused_combine_dw_bwd": 0,
     # One tensor-parallel shard's halves (a launch per shard) and the LoRA
@@ -109,11 +109,13 @@ _SIGNATURES = {
     "dp_convffn_smem": ([_I] * 11, ctypes.c_longlong),
     "dp_convffn_fwd": ([_P] * 15 + [_I] * 5 + [_F] + [_I] * 10 + [_P, _I, _P], _I),
     "dp_convffn_bwd": ([_P] * 17 + [_I] * 5 + [_F] + [_I] * 12 + [_P], _I),
-    "dp_dw_smem_bytes": ([_I] * 6, ctypes.c_longlong),
-    "dp_dw_occupancy": ([_I] * 4 + [ctypes.c_longlong], _I),
+    "dp_dw_smem_bytes": ([_I] * 4, ctypes.c_longlong),
+    "dp_dw_occupancy": ([_I] * 3 + [ctypes.c_longlong], _I),
     "dp_dw_conv": ([_P] * 4 + [_I, _P], _I),
+    "dp_pair_smem": ([_I] * 6, ctypes.c_longlong),
+    "dp_pair_occupancy": ([_I] * 4 + [ctypes.c_longlong], _I),
     "dp_combine_dw": ([_P] * 10, _I),
-    "dp_combine_dw_bwd": ([_P] * 13, _I),
+    "dp_combine_dw_bwd": ([_P] * 14, _I),
     "dp_fused_attn_part_partial": ([_P] * 9 + [_I] * 5 + [_F, _P], _I),
     "dp_fused_mlp_part_partial": ([_P] * 8 + [_I] * 3 + [_F, _P], _I),
     "dp_fused_mlp_partial_dx": ([_P] * 11 + [_I] * 3 + [_F, _P], _I),

@@ -252,24 +252,6 @@ __device__ __forceinline__ void wgmma_n8(float* d, uint64_t da, uint64_t db) {
       : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
 }
 
-// mbar_wait, but ends the kernel with a trap instead of spinning forever if
-// the phase never completes (a fault in the box order would otherwise hang
-// the card): ~8 s of the SM clock.
-__device__ __forceinline__ void bar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done = 0;
-  const long long start = clock64();
-  for (uint32_t n = 1; !done; ++n) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-    if (!done && (n & 1023) == 0 && clock64() - start > (1ll << 34)) __trap();
-  }
-}
-
 __device__ __forceinline__ uint64_t kdesc(uint32_t addr) { return operand_desc<false>(addr); }
 __device__ __forceinline__ uint64_t mdesc(uint32_t addr) { return operand_desc<true>(addr); }
 constexpr uint64_t KSTEP = k16_step<false>(), MSTEP = k16_step<true>();

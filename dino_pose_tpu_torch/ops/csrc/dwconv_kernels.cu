@@ -2,29 +2,28 @@
 // conv segment for Hopper (sm_90a), CUDA C++ with a plain C interface
 // (loaded with ctypes by dino_pose_tpu_torch/ops/_ext.py).
 //
-// One kernel template, dw_kernel<K, MODE>, replaces three Pallas kernels of
+// Two kernel templates replace three Pallas kernels of
 // dino_pose_tpu/ops/dwconv.py, all built on the same k x k tap walk
 // (_tap_conv, :75):
 //
-//   MODE DW           _dw_kernel (:54)              y   = conv(x)
-//   MODE COMBINE      _combine_dw_fwd_kernel (:287) x2  = bf16(a*x + b*y0 + bias),
-//                                                   y7  = conv(x2 as rounded)
-//   MODE COMBINE_BWD  _combine_dw_bwd_kernel (:310) dx2 = dx2bar + conv'(dy7bar),
-//                                                   dx = bf16(dx2*a), dy0 = bf16(dx2*b),
-//                                                   sums of dx2*x, dx2*y0, dx2
+//   dw_kernel<K, RB>     _dw_kernel (:54)              y   = conv(x)
+//   pair_kernel<K, 0>    _combine_dw_fwd_kernel (:287) x2  = bf16(a*x + b*y0 + bias),
+//                                                      y7  = conv(x2 as rounded)
+//   pair_kernel<K, 1>    _combine_dw_bwd_kernel (:310) dx2 = dx2bar + conv'(dy7bar),
+//                                                      dx = bf16(dx2*a), dy0 = bf16(dx2*b),
+//                                                      sums of dx2*x, dx2*y0, dx2
 //
 // conv is the stride-1 SAME depthwise (multiplier-1) cross-correlation with
 // f32 taps (k*k, C) and f32 sums, rounded once; conv' the same with the
-// taps mirrored in H and W, which the kernel reads by index (flip), so no
+// taps mirrored in H and W, which the kernels read by index (flip), so no
 // flipped copy of the taps is made. Activations are NHWC bf16
 // (channels_last), per-channel vectors f32.
 //
-// Design. The TPU kernels view a sample as an (H, W*C) plane so that C = 48
-// still fills 128-wide vector lanes. Here the work is cut into items of
+// dw_kernel. The TPU kernel views a sample as an (H, W*C) plane so that C =
+// 48 still fills 128-wide vector lanes. Here the work is cut into items of
 // (sample, strip of TH output rows, column tile of TWc output columns, group
 // of CG <= 64 channels), which the wrapper's plan sizes so that the grid
-// covers the 132 SMs at every batch (at batch 1 by tiling W as well as H,
-// where the first version shrank its strips to one row with a 7x halo):
+// covers the 132 SMs at every batch (at batch 1 by tiling W as well as H):
 //
 //   * persistent blocks walk the items (item = blockIdx.x, + gridDim.x, ...,
 //     the channel group slowest); an item's tile (TH + K - 1 rows x TWc +
@@ -40,25 +39,12 @@
 //     touches (RB = 2 where the batch fills the card: register blocking,
 //     (2+K-1)*(8+K-1)/16 reads an output pair instead of K*K; RB = 1 at
 //     small grids, a shorter chain a thread); outputs are stored as bf16x2;
-//   * DW and COMBINE keep the pair's 2*K*K f32 taps in registers, loaded
-//     while the first tile is in flight (at most 170 registers a thread, two
-//     blocks of up to 192 threads an SM); COMBINE_BWD, whose slots also hold
-//     their dx2bar, x and y0 words in registers (loaded before the conv, so
-//     their latency hides behind it), reads its taps from shared memory as
-//     (tap, pair) float2;
+//   * the pair's 2*K*K f32 taps stay in registers, loaded while the first
+//     tile is in flight (at most 170 registers a thread, two blocks of up to
+//     192 threads an SM);
 //   * the tile's 8-pixel chunks are padded so that a chunk's stride is the
 //     channel-pair count modulo 32 banks: the lanes of a warp, which take
-//     consecutive (chunk, pair) slots, read 32 different banks;
-//   * COMBINE copies x and y0 in, then forms x2 in place in f32 from the
-//     per-channel a, b, bias, rounds it to bf16 and writes the item's own
-//     pixels of x2 once (halo pixels recomputed by the neighbouring items
-//     with the same rounding), so the conv reads x2 as rounded and x2 makes
-//     no extra round trip through device memory;
-//   * COMBINE_BWD adds each thread's f32 sums over its slots and items, sums
-//     them over the block's threads of a channel pair in a fixed order into
-//     the block's own slot (per channel group), and dw_sums_reduce_kernel
-//     adds the slots in block order. No atomics: the same inputs and plan
-//     give the same bits.
+//     consecutive (chunk, pair) slots, read 32 different banks.
 //
 // Where C or the group is not a multiple of 8 channels (fastvit_ma36's C =
 // 76), the tile is staged a channel pair at a time with plain loads; odd C
@@ -70,23 +56,30 @@
 // 0.037 ms (operations), the K = 3 conv's bytes 0.030 ms. The K = 7 conv
 // is bound by instruction issue (the bf16x2 unpacking and the shared-memory
 // reads beside each fused multiply-add); PERF.md holds its times.
+//
+// pair_kernel: see its own note below.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include <atomic>
+#include <mutex>
+
+#include "hopper.cuh"
 
 typedef __nv_bfloat16 bf16;
 typedef __nv_bfloat162 bf162;
 
 namespace {
 
+using namespace dp_hopper;
+
 constexpr int MAX_THREADS = 192;  // two blocks an SM at up to 170 registers a thread
 constexpr int TW = 8;              // output columns of a thread's slot
 constexpr int MAX_CG = 64;   // channels of a group
 constexpr int SMEM_LIMIT = 232448;
-constexpr int DW = 0, COMBINE = 1, COMBINE_BWD = 2;
 
 __host__ __device__ __forceinline__ size_t align128(size_t n) {
   return (n + 127) & ~static_cast<size_t>(127);
@@ -111,32 +104,15 @@ struct Layout {
   }
 };
 
-// Two tile buffers, then COMBINE's y0 tile, or COMBINE_BWD's per-thread
-// sums (6, NT) f32 and the group's taps (K*K, pairs) float2.
-// ops/dwconv.py's _smem_bytes computes the same.
-__host__ __device__ __forceinline__ size_t extra_offset(size_t tile, int mode, int NT) {
-  return 2 * tile + (mode == COMBINE ? tile : 0) +
-         (mode == COMBINE_BWD ? align128(static_cast<size_t>(6) * NT * 4) : 0);
-}
-
-size_t smem_bytes(int TH, int TWc, int K, int CG, int mode, int NT) {
-  const Layout L(TH, TWc, K, CG);
-  return extra_offset(L.tile_bytes(), mode, NT) +
-         (mode == COMBINE_BWD ? align128(static_cast<size_t>(K) * K * L.ps * 4) : 0);
+// Two tile buffers. ops/dwconv.py's _smem_bytes computes the same.
+size_t smem_bytes(int TH, int TWc, int K, int CG) {
+  return 2 * Layout(TH, TWc, K, CG).tile_bytes();
 }
 
 struct Args {
-  const bf16* src;     // the conv's input: DW x, COMBINE x, COMBINE_BWD dy7bar
-  const bf16* y0;      // COMBINE's second operand; COMBINE_BWD's, for the sums
-  const bf16* x;       // COMBINE_BWD's x, for the sums
-  const bf16* dx2bar;  // COMBINE_BWD
-  const float* a;
-  const float* b;
-  const float* bias;
+  const bf16* src;     // x
   const float* taps;   // (K*K, C) f32, row dh*K + dw
-  bf16* out;           // DW y, COMBINE y7, COMBINE_BWD dx
-  bf16* out2;          // COMBINE x2, COMBINE_BWD dy0
-  float* slots;        // COMBINE_BWD (grid, 3, C): a block's sums
+  bf16* out;           // y
   int H, W, C, TH, TWc, CG, groups, strips, ctiles, items, flip;
 };
 
@@ -205,21 +181,13 @@ struct PixelWalk {
   }
 };
 
-// x2 = bf16(a*x + b*y0 + bias): f32 products, each rounded, added left to
-// right, then one bf16 rounding (no fused multiply-add: XLA rounds the
-// products).
-__device__ __forceinline__ bf16 combine1(float x, float y, float a, float b, float bias) {
-  return __float2bfloat16(__fadd_rn(__fadd_rn(__fmul_rn(x, a), __fmul_rn(y, b)), bias));
-}
-
 // Stages item `it`'s tile into T. Where C and CG are multiples of 8: by
-// cp.async in 16-byte vectors (COMBINE: x into T, y0 into Y), zero-filled
-// outside the image, committed as one group and not waited for. Elsewhere a
-// channel pair at a time with plain loads, COMBINE forming x2 on the way
-// (rounded into T, the item's own pixels written out).
-template <int K, int MODE>
+// cp.async in 16-byte vectors, zero-filled outside the image, committed as
+// one group and not waited for. Elsewhere a channel pair at a time with
+// plain loads.
+template <int K>
 __device__ __forceinline__ void stage(const Args& p, const Layout& L, const Item& it, bf16* T,
-                                      bf16* Y, bool vec, bool pairs) {
+                                      bool vec, bool pairs) {
   constexpr int P = K / 2;
   const int tid = threadIdx.x, nt = blockDim.x;
   const size_t img = static_cast<size_t>(it.n) * p.H * p.W * p.C;
@@ -234,223 +202,70 @@ __device__ __forceinline__ void stage(const Args& p, const Layout& L, const Item
     const int d = pw.row * L.rs + (pw.col >> 3) * L.cs + (pw.col & 7) * L.ps + cl;
     if (vec) {
       cp_async16(T + d, p.src + off, in);
-      if (MODE == COMBINE) cp_async16(Y + d, p.y0 + off, in);
       continue;
     }
-    float2 v = in ? load_pair(p.src, off, pairs, have1) : make_float2(0.f, 0.f);
-    if (MODE == COMBINE && in) {
-      const float2 y = load_pair(p.y0, off, pairs, have1);
-      const int c = it.c0 + cl;
-      bf162 x2;
-      x2.x = combine1(v.x, y.x, p.a[c], p.b[c], p.bias[c]);
-      x2.y = have1 ? combine1(v.y, y.y, p.a[c + 1], p.b[c + 1], p.bias[c + 1])
-                   : __float2bfloat16(0.f);
-      v = __bfloat1622float2(x2);
-      if (pw.row >= P && pw.row < P + p.TH && pw.col >= P && pw.col < P + p.TWc)
-        store_pair(p.out2, off, v.x, v.y, pairs, have1);
-    }
+    const float2 v = in ? load_pair(p.src, off, pairs, have1) : make_float2(0.f, 0.f);
     *reinterpret_cast<bf162*>(T + d) = __floats2bfloat162_rn(v.x, v.y);  // exact: bf16 values
   }
   if (vec) cp_commit();
 }
 
-// COMBINE's prologue on a tile staged in vectors: T = x2 from x (in T) and
-// y0 (in Y) where the pixel is inside the image (outside, T keeps the zero
-// the copy wrote: x2's own padding), and the item's own pixels of x2
-// written out, 8 channels a thread.
-template <int K>
-__device__ __forceinline__ void combine_tile(const Args& p, const Layout& L, const Item& it,
-                                             bf16* T, const bf16* Y) {
-  constexpr int P = K / 2;
-  const int tid = threadIdx.x, nt = blockDim.x;
-  const size_t img = static_cast<size_t>(it.n) * p.H * p.W * p.C;
-  const int h0 = it.r0 - P, w0 = it.w0 - P;
-  const int per = L.ps / 8, cl = tid % per * 8, step = nt / per;
-  if (cl >= it.cgn) return;
-  float ca[8], cb[8], cbias[8];
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    const int c = it.c0 + cl + j;
-    ca[j] = p.a[c];
-    cb[j] = p.b[c];
-    cbias[j] = p.bias[c];
-  }
-  for (PixelWalk pw(tid / per, L.cols); pw.row < L.rows; pw.next(step, L.cols)) {
-    const int h = h0 + pw.row, w = w0 + pw.col;
-    if (h < 0 || h >= p.H || w < 0 || w >= p.W) continue;
-    const int d = pw.row * L.rs + (pw.col >> 3) * L.cs + (pw.col & 7) * L.ps + cl;
-    uint4 xv = *reinterpret_cast<const uint4*>(T + d);
-    const uint4 yv = *reinterpret_cast<const uint4*>(Y + d);
-    bf16* xs = reinterpret_cast<bf16*>(&xv);
-    const bf16* ys = reinterpret_cast<const bf16*>(&yv);
-#pragma unroll
-    for (int j = 0; j < 8; ++j) xs[j] = combine1(bf(xs[j]), bf(ys[j]), ca[j], cb[j], cbias[j]);
-    *reinterpret_cast<uint4*>(T + d) = xv;
-    if (pw.row >= P && pw.row < P + p.TH && pw.col >= P && pw.col < P + p.TWc)
-      *reinterpret_cast<uint4*>(p.out2 + img + (static_cast<size_t>(h) * p.W + w) * p.C +
-                                it.c0 + cl) = xv;
-  }
-}
-
-// COMBINE_BWD's taps: in shared memory as (tap, pair) float2 (channel c,
-// c + 1), mirrored where flip, zero past the group's channels; loaded in
-// batches of 8 a thread.
-template <int K>
-__device__ __forceinline__ void stage_taps(const Args& p, const Item& it, float2* taps_s,
-                                           int np) {
-  const int n = K * K * np, nt = blockDim.x;
-  for (int base = threadIdx.x; base < n; base += 8 * nt) {
-    float2 v[8];
-#pragma unroll
-    for (int u = 0; u < 8; ++u) {
-      const int i = base + u * nt, j = i / np, c = 2 * (i - j * np);
-      const int src = (p.flip ? K * K - 1 - j : j) * p.C + it.c0 + c;
-      v[u] = make_float2(i < n && c < it.cgn ? p.taps[src] : 0.f,
-                         i < n && c + 1 < it.cgn ? p.taps[src + 1] : 0.f);
-    }
-#pragma unroll
-    for (int u = 0; u < 8; ++u)
-      if (base + u * nt < n) taps_s[base + u * nt] = v[u];
-  }
-}
-
-// One bf16x2 word of activations at o (channels o, o + 1 where have1).
-__device__ __forceinline__ uint32_t load_word(const bf16* p, size_t o, bool pairs, bool have1) {
-  if (pairs) return *reinterpret_cast<const uint32_t*>(p + o);
-  bf162 v;
-  v.x = p[o];
-  v.y = have1 ? p[o + 1] : __float2bfloat16(0.f);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-__device__ __forceinline__ float2 word2(uint32_t w) {
-  return __bfloat1622float2(*reinterpret_cast<const bf162*>(&w));
-}
-
 // RBV output rows a thread's slot (1 where the grid is small: shorter
-// chains a thread; 2 at large batches: each window row feeds two).
-// COMBINE_BWD keeps its taps in shared memory (its slots hold their
-// operands in registers while the conv runs); the others in registers.
-template <int K, int MODE, int RBV>
+// chains a thread; 2 at large batches: each window row feeds two); the
+// pair's taps in registers.
+template <int K, int RBV>
 __global__ void __launch_bounds__(MAX_THREADS, 2) dw_kernel(const Args p) {
   constexpr int NV = TW + K - 1;                // values of a window row
-  constexpr bool TR = MODE != COMBINE_BWD;      // taps in registers
-  constexpr int NTAP = TR ? K * K : 1;
   extern __shared__ __align__(128) unsigned char smem[];
   const Layout L(p.TH, p.TWc, K, p.CG);
   const size_t tile_b = L.tile_bytes();
-  bf16* const Y = reinterpret_cast<bf16*>(smem + 2 * tile_b);
-  float* const red = reinterpret_cast<float*>(smem + 2 * tile_b);
   const int nt = blockDim.x, tid = threadIdx.x;
-  float2* const taps_s = reinterpret_cast<float2*>(smem + extra_offset(tile_b, MODE, nt));
   const int np = L.ps / 2, pr = tid % np, slot0 = tid / np, nslot = nt / np;
   const int chs = p.TWc / TW, subs = p.TH / RBV * chs;
   const bool vec = p.C % 8 == 0 && p.CG % 8 == 0, pairs = p.C % 2 == 0;
 
-  float tx[NTAP], ty[NTAP];                          // the pair's taps (TR)
-  float ca0 = 0.f, ca1 = 0.f, cb0 = 0.f, cb1 = 0.f;  // COMBINE_BWD's a, b of the pair
-  float sums[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};   // COMBINE_BWD: x, y0, 1 times dx2
-  Item grp;                                          // the channel group loaded
+  float tx[K * K], ty[K * K];  // the pair's taps
+  Item grp;                    // the channel group loaded
   grp.c0 = -1;
   grp.cgn = 0;
-  float* const slot =
-      MODE == COMBINE_BWD ? p.slots + static_cast<size_t>(blockIdx.x) * 3 * p.C : nullptr;
-  if (MODE == COMBINE_BWD)
-    for (int i = tid; i < 3 * p.C; i += nt) slot[i] = 0.f;
 
-  // COMBINE_BWD: the sums of the channel group done into the block's slot,
-  // its threads in slot order.
-  auto flush = [&]() {
-#pragma unroll
-    for (int q = 0; q < 6; ++q) red[q * nt + tid] = sums[q];
-    __syncthreads();
-    const int c = grp.c0 + 2 * pr;
-    if (slot0 == 0 && 2 * pr < grp.cgn) {
-      float t[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-      for (int s = 0; s < nslot; ++s)
-#pragma unroll
-        for (int q = 0; q < 6; ++q) t[q] += red[q * nt + s * np + pr];
-#pragma unroll
-      for (int q = 0; q < 3; ++q) {
-        slot[q * p.C + c] = t[2 * q];
-        if (2 * pr + 1 < grp.cgn) slot[q * p.C + c + 1] = t[2 * q + 1];
-      }
-    }
-#pragma unroll
-    for (int q = 0; q < 6; ++q) sums[q] = 0.f;
-  };
-  // A channel group's taps (and COMBINE_BWD's a, b): in registers, their
-  // loads in flight beside the tile's, or staged in shared memory.
+  // A channel group's taps: in registers, their loads in flight beside the
+  // tile's.
   auto load_group = [&](const Item& it) {
     const int c = it.c0 + 2 * pr;
     const bool have0 = 2 * pr < it.cgn, have1 = 2 * pr + 1 < it.cgn;
-    if (TR) {
 #pragma unroll
-      for (int j = 0; j < NTAP; ++j) {
-        const int src = (p.flip ? K * K - 1 - j : j) * p.C + c;
-        tx[j] = have0 ? p.taps[src] : 0.f;
-        ty[j] = have1 ? p.taps[src + 1] : 0.f;
-      }
-    } else {
-      stage_taps<K>(p, it, taps_s, np);
-    }
-    if (MODE == COMBINE_BWD) {
-      ca0 = have0 ? p.a[c] : 0.f;
-      cb0 = have0 ? p.b[c] : 0.f;
-      ca1 = have1 ? p.a[c + 1] : 0.f;
-      cb1 = have1 ? p.b[c + 1] : 0.f;
+    for (int j = 0; j < K * K; ++j) {
+      const int src = (p.flip ? K * K - 1 - j : j) * p.C + c;
+      tx[j] = have0 ? p.taps[src] : 0.f;
+      ty[j] = have1 ? p.taps[src + 1] : 0.f;
     }
     grp = it;
   };
 
   if (blockIdx.x < p.items) {
     const Item first = decode(p, blockIdx.x);
-    stage<K, MODE>(p, L, first, reinterpret_cast<bf16*>(smem), Y, vec, pairs);
-    if (TR) load_group(first);
+    stage<K>(p, L, first, reinterpret_cast<bf16*>(smem), vec, pairs);
+    load_group(first);
   }
   for (int k = 0, item = blockIdx.x; item < p.items; ++k, item += gridDim.x) {
     bf16* const T = reinterpret_cast<bf16*>(smem + (k & 1) * tile_b);
     const Item it = decode(p, item);
     cp_wait_all();
     __syncthreads();  // this item's tile has landed; the other buffer is free
-    if (it.c0 != grp.c0) {  // a new channel group, the same for the whole block
-      if (MODE == COMBINE_BWD && grp.c0 >= 0) flush();
-      load_group(it);
-      if (!TR) __syncthreads();
-    }
-    if (MODE == COMBINE && vec) {
-      combine_tile<K>(p, L, it, T, Y);
-      __syncthreads();  // x2 in T; Y free
-    }
+    if (it.c0 != grp.c0) load_group(it);  // a new channel group, the same for the whole block
     if (item + static_cast<int>(gridDim.x) < p.items)
-      stage<K, MODE>(p, L, decode(p, item + gridDim.x),
-                     reinterpret_cast<bf16*>(smem + ((k + 1) & 1) * tile_b), Y, vec, pairs);
+      stage<K>(p, L, decode(p, item + gridDim.x),
+               reinterpret_cast<bf16*>(smem + ((k + 1) & 1) * tile_b), vec, pairs);
 
     const int c = it.c0 + 2 * pr;
     const bool have0 = 2 * pr < it.cgn, have1 = 2 * pr + 1 < it.cgn;
     const size_t img = static_cast<size_t>(it.n) * p.H * p.W * p.C;
-    const float2* const tp = taps_s + pr;
 
     for (int q = slot0; q < subs && have0; q += nslot) {
       const int rg = q / chs, ch = q - rg * chs;
       const int hb = it.r0 + rg * RBV, wb = it.w0 + ch * TW;
       const int nw = min(TW, p.W - wb);
-      // COMBINE_BWD's per-output operands, loaded before the conv so that
-      // their latency hides behind it.
-      constexpr int OR = MODE == COMBINE_BWD ? RBV : 1, OC = MODE == COMBINE_BWD ? TW : 1;
-      uint32_t od[OR][OC], ox[OR][OC], oy[OR][OC];
-      if (MODE == COMBINE_BWD) {
-#pragma unroll
-        for (int j = 0; j < OR; ++j)
-#pragma unroll
-          for (int i = 0; i < OC; ++i) {
-            const bool in = hb + j < p.H && i < nw;
-            const size_t o = img + (static_cast<size_t>(hb + j) * p.W + wb + i) * p.C + c;
-            od[j][i] = in ? load_word(p.dx2bar, o, pairs, have1) : 0u;
-            ox[j][i] = in ? load_word(p.x, o, pairs, have1) : 0u;
-            oy[j][i] = in ? load_word(p.y0, o, pairs, have1) : 0u;
-          }
-      }
       const bf16* tb = T + rg * RBV * L.rs + ch * L.cs + 2 * pr;
       float acc[RBV][TW][2];
 #pragma unroll
@@ -471,9 +286,7 @@ __global__ void __launch_bounds__(MAX_THREADS, 2) dw_kernel(const Args p) {
           if (dh < 0 || dh >= K) continue;
           float2 t[K];
 #pragma unroll
-          for (int dw = 0; dw < K; ++dw)
-            t[dw] = TR ? make_float2(tx[TR ? dh * K + dw : 0], ty[TR ? dh * K + dw : 0])
-                       : tp[(dh * K + dw) * np];
+          for (int dw = 0; dw < K; ++dw) t[dw] = make_float2(tx[dh * K + dw], ty[dh * K + dw]);
 #pragma unroll
           for (int i = 0; i < TW; ++i)
 #pragma unroll
@@ -491,79 +304,453 @@ __global__ void __launch_bounds__(MAX_THREADS, 2) dw_kernel(const Args p) {
 #pragma unroll
         for (int i = 0; i < TW; ++i) {
           if (i >= nw) break;
-          const size_t o = orow + static_cast<size_t>(wb + i) * p.C;
-          if (MODE == COMBINE_BWD) {
-            const int jj = MODE == COMBINE_BWD ? j : 0, ii = MODE == COMBINE_BWD ? i : 0;
-            const float2 d2 = word2(od[jj][ii]), xv = word2(ox[jj][ii]), yv = word2(oy[jj][ii]);
-            const float e0 = d2.x + acc[j][i][0], e1 = d2.y + acc[j][i][1];
-            store_pair(p.out, o, e0 * ca0, e1 * ca1, pairs, have1);
-            store_pair(p.out2, o, e0 * cb0, e1 * cb1, pairs, have1);
-            sums[0] += e0 * xv.x;
-            sums[1] += e1 * xv.y;
-            sums[2] += e0 * yv.x;
-            sums[3] += e1 * yv.y;
-            sums[4] += e0;
-            sums[5] += e1;
-          } else {
-            store_pair(p.out, o, acc[j][i][0], acc[j][i][1], pairs, have1);
-          }
+          store_pair(p.out, orow + static_cast<size_t>(wb + i) * p.C, acc[j][i][0], acc[j][i][1],
+                     pairs, have1);
         }
       }
     }
   }
-  if (MODE == COMBINE_BWD) flush();
 }
 
-// out[i] = sum over slots, in slot order, of slots[s * n + i].
-__global__ void dw_sums_reduce_kernel(const float* __restrict__ slots, int nslots, int n,
-                                      float* __restrict__ out) {
-  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n; i += gridDim.x * blockDim.x) {
-    float acc = 0.f;
-    for (int s = 0; s < nslots; ++s) acc += slots[static_cast<size_t>(s) * n + i];
-    out[i] = acc;
+// ===========================================================================
+// pair_kernel<K, BWD, TWT>: the RepMixer-combine + depthwise-conv segment,
+// forward (BWD = 0, replaces _combine_dw_fwd_kernel) and backward (BWD = 1,
+// replaces _combine_dw_bwd_kernel), written for Hopper's TMA and mbarriers.
+//
+// Items are (sample, band of TH rows, column tile of TWc columns, group of
+// CG channels), the group slowest; persistent blocks walk them (item =
+// blockIdx.x, + gridDim.x, ...). A block streams an item's input rows, RB =
+// 2 at a time, through a ring of shared-memory stages:
+//
+//   * thread 0 issues, for step t of an item, a 4-D TMA box over the NHWC
+//     tensor, (CG channels, TWc + K - 1 columns, RB rows, 1 sample), of the
+//     conv's operand (x and y0 forward, dy7bar backward) at input rows h0 -
+//     P + t*RB: the image's edge and the channels past C arrive as zeros,
+//     so the SAME padding costs no address arithmetic; the backward's
+//     dx2bar, x and y0 come in boxes without the column halo at the output
+//     rows of the step. Its loads run `stages` steps ahead of the block,
+//     across items, so the next item's boxes are in flight while the
+//     current one computes: a step's stage is refilled as soon as the
+//     block's barrier shows it read (after the conversion forward, after
+//     the epilogue backward). No producer warp: a forward block of 6 warps
+//     keeps 168 registers a thread at two blocks an SM, a backward block of
+//     6 up to 255 at one, which the K = 7 conv needs (TWT below). The
+//     boxes' tensor maps are encoded once per data pointer and shape and
+//     cached;
+//   * the consumers convert each landed chunk once into an f32 ring of RB +
+//     K - 1 rows (the conv's window): forward x2 = bf16(a*x + b*y0 + bias)
+//     with combine1's rounding, 0 at pixels outside the image (the combine
+//     of two zero-filled operands would be bias: the padding is x2's, not
+//     x's), the item's own pixels of x2 written out as 16-byte vectors;
+//     backward dy7bar as it is. So every input pixel is combined and
+//     unpacked once an item (the row halo is shared by the band, only the
+//     column halo of a tile narrower than W is redone), and the conv reads
+//     f32 words with no unpacking;
+//   * thread t takes channel t % CG and the TWT-column slot t / CG of the
+//     item; its K*K f32 taps stay in registers; each of the RB + K - 1
+//     window rows of TWT + K - 1 values is read once and feeds both output
+//     rows (an 8-pixel chunk's stride is CG words modulo the 32 banks, so a
+//     warp's lanes, which take consecutive (slot, channel) pairs, read 32
+//     different banks);
+//   * forward y7 is rounded and stored; backward dx2 = dx2bar + the conv
+//     (f32), dx and dy0 rounded and stored, and the thread's f32 sums of
+//     dx2*x, dx2*y0 and dx2 kept in registers. At a change of channel group
+//     and at the end a block sums its threads' sums by slot in a fixed
+//     order; each block writes its (3, C) slot, and the last block to finish
+//     (picked by a ticket counter that only counts) adds the slots in block
+//     order and resets the counter. No atomics add: the same inputs and plan
+//     give the same bits.
+//
+// Bound on an H100: forward x, y0, x2, y7 and backward x, y0, dx2bar,
+// dy7bar, dx, dy0 (bf16) at 3.35 TB/s; at t8's stage 0 (B = 128, 64x64, C =
+// 48) 0.060 and 0.090 ms, above the K = 7 conv's 0.037 ms of f32 FMAs. A
+// cycle trace of an instrumented build (PERF.md) put a block's time
+// in the conversion and the conv with its epilogue, at about half the SM's
+// issue rate, and a few percent in waiting for the TMA boxes: at K = 7 the
+// kernels are held by instruction issue and registers, not bytes. C must
+// be a multiple of 8 (the tensor map's 16-byte strides): the wrapper pads
+// other widths.
+
+constexpr int RB = 2;                   // input rows of a stage; output rows of a step
+constexpr int PAIR_THREADS = 384;       // threads of a forward block, at most; backward half
+constexpr int MAX_STAGES = 4;
+
+// The shared memory of one pair plan, in bytes: the stages' barriers and
+// the last-block flag; the group's a, b, bias (3, CG) f32; backward the
+// block's sums (3, C) f32; the ring of stages (forward: x and y0 boxes with
+// the column halo; backward: dy7bar's, then dx2bar's, x's and y0's
+// without); the f32 conv ring of RB + K - 1 rows of TWc + K - 1 pixels in
+// 8-pixel chunks of cs words (the last chunk unpadded). ops/dwconv.py's
+// _pair_smem computes the same.
+struct PairLayout {
+  uint32_t cols, cs, roww, halo_raw, own_raw, halo, own, stage, vec, bsum, ring, conv, total;
+  __host__ __device__ PairLayout(int K, bool bwd, int CG, int TWc, int stages, int C) {
+    cols = TWc + K - 1;
+    cs = 8 * CG + ((-7 * CG) % 32 + 32) % 32;
+    roww = (cols - 1) / 8 * cs + ((cols - 1) % 8 + 1) * CG;
+    halo_raw = RB * cols * CG * 2;
+    own_raw = RB * TWc * CG * 2;
+    halo = align128(halo_raw);
+    own = align128(own_raw);
+    stage = bwd ? halo + 3 * own : 2 * halo;
+    vec = 128;
+    bsum = vec + align128(3 * CG * 4);
+    ring = bsum + (bwd ? align128(3 * C * 4) : 0);
+    conv = ring + stages * stage;
+    total = conv + (RB + K - 1) * roww * 4;
+  }
+};
+
+struct PairArgs {
+  const float* a;
+  const float* b;
+  const float* bias;   // forward
+  const float* taps;   // (K*K, C) f32, the forward's (read mirrored backward)
+  bf16* out;           // forward y7, backward dx
+  bf16* out2;          // forward x2, backward dy0
+  float* slots;        // backward (grid, 3, C): a block's sums
+  float* sums;         // backward (3, C): da, db, dbias
+  unsigned* ticket;    // backward: blocks done, 0 between launches
+  int H, W, C, CG, TWc, TH, NC, stages, groups, bands, ctiles, items;
+};
+
+struct PairItem {
+  int n, h0, w0, c0;
+};
+
+__device__ __forceinline__ PairItem pair_item(const PairArgs& p, int item) {
+  const int per = p.items / p.groups;
+  const int g = item / per, s = item - g * per;
+  const int ct = s % p.ctiles, t = s / p.ctiles;
+  PairItem it;
+  it.n = t / p.bands;
+  it.h0 = (t - it.n * p.bands) * p.TH;
+  it.w0 = ct * p.TWc;
+  it.c0 = g * p.CG;
+  return it;
+}
+
+// x2 = bf16(a*x + b*y0 + bias): f32 products, each rounded, added left to
+// right, then one bf16 rounding (no fused multiply-add: XLA rounds the
+// products).
+__device__ __forceinline__ bf16 combine1(float x, float y, float a, float b, float bias) {
+  return __float2bfloat16(__fadd_rn(__fadd_rn(__fmul_rn(x, a), __fmul_rn(y, b)), bias));
+}
+
+__device__ __forceinline__ void consumers_sync(int nc) {
+  asm volatile("bar.sync 1, %0;\n" ::"r"(nc) : "memory");
+}
+
+// TWT: output columns of a thread's slot. 8 (the forward): blocks of up to
+// 384 threads at 168 registers, two blocks an SM at 192. 16 (the
+// backward): blocks of up to 192 threads at up to 255 registers, one an
+// SM; the longer window row feeds twice the sums, and the epilogue's three
+// operand reads, two outputs and three sums an output keep their registers.
+template <int K, bool BWD, int TWT>
+__global__ void __launch_bounds__(TWT == 16 ? PAIR_THREADS / 2 : PAIR_THREADS)
+    pair_kernel(const __grid_constant__ CUtensorMap t_halo, const __grid_constant__ CUtensorMap t_1,
+                const __grid_constant__ CUtensorMap t_2, const __grid_constant__ CUtensorMap t_3,
+                const PairArgs p) {
+  constexpr int P = K / 2, PRE = (K - 1) / RB;  // steps before an item's first output rows
+  constexpr int RING = RB + K - 1;              // conv rows: 4 or 8, a power of two
+  constexpr int NV = TWT + K - 1;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const PairLayout L(K, BWD, p.CG, p.TWc, p.stages, p.C);
+  const uint32_t base = smem_addr(smem);
+  const uint32_t full = base;
+  int* const last_flag = reinterpret_cast<int*>(smem + 8 * MAX_STAGES);
+  float* const vec = reinterpret_cast<float*>(smem + L.vec);
+  float* const bsum = reinterpret_cast<float*>(smem + L.bsum);
+  float* const conv = reinterpret_cast<float*>(smem + L.conv);
+  const int tid = threadIdx.x, NC = p.NC, CG = p.CG;
+  const int steps = p.TH / RB + PRE;
+
+  if (tid == 0) {
+    for (int s = 0; s < p.stages; ++s) mbar_init(full + 8 * s, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  if (BWD)
+    for (int i = tid; i < 3 * p.C; i += NC) bsum[i] = 0.f;
+  __syncthreads();
+
+  // Thread 0's loads: the block's (item, step) walk, `stages` steps ahead of
+  // the consumers, each step into the stage the consumers last freed.
+  int ld_item = blockIdx.x, ld_t = 0, ld_s = 0;
+  auto issue = [&]() {
+    if (ld_item >= p.items) return;
+    const PairItem it = pair_item(p, ld_item);
+    const int m = ld_t - PRE;  // the output rows' group of this step
+    const uint32_t f = full + 8 * ld_s, dst = base + L.ring + ld_s * L.stage;
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // after the block's reads
+    mbar_expect_tx(f, BWD ? L.halo_raw + (m >= 0 ? 3 * L.own_raw : 0) : 2 * L.halo_raw);
+    const int hin = it.h0 - P + ld_t * RB;
+    tma_load4(dst, &t_halo, f, it.c0, it.w0 - P, hin, it.n);
+    if (!BWD) {
+      tma_load4(dst + L.halo, &t_1, f, it.c0, it.w0 - P, hin, it.n);
+    } else if (m >= 0) {
+      const int ho = it.h0 + m * RB;
+      tma_load4(dst + L.halo, &t_1, f, it.c0, it.w0, ho, it.n);
+      tma_load4(dst + L.halo + L.own, &t_2, f, it.c0, it.w0, ho, it.n);
+      tma_load4(dst + L.halo + 2 * L.own, &t_3, f, it.c0, it.w0, ho, it.n);
+    }
+    if (++ld_s == p.stages) ld_s = 0;
+    if (++ld_t == steps) {
+      ld_t = 0;
+      ld_item += gridDim.x;
+    }
+  };
+  if (tid == 0)
+    for (int i = 0; i < p.stages; ++i) issue();
+
+  // Thread t: channel t % CG of the group, 8-column slot t / CG of the item.
+  const int c = tid % CG, slot = tid / CG;
+  const bool conv_thread = slot < p.TWc / TWT;
+  const int nv = CG / 8, cols = L.cols, npix = RB * cols;
+  const int q = tid % nv, pix0 = tid / nv, pstep = NC / nv;  // the conversion's walk
+  const bool converts = tid < pstep * nv;
+  const int cs = L.cs, roww = L.roww;
+  float tap[K * K];
+  float sx = 0.f, sy = 0.f, s1 = 0.f;  // backward: sums of dx2*x, dx2*y0, dx2
+  int grp = -1;                        // the channel group loaded
+  int s = 0;
+  uint32_t ph = 0;
+
+  // Backward: the channel group's sums into the block's (3, C) sums, the
+  // slots of each channel added in order (the conv ring is free between
+  // items).
+  auto flush = [&](int c0) {
+    conv[tid] = sx;
+    conv[NC + tid] = sy;
+    conv[2 * NC + tid] = s1;
+    consumers_sync(NC);
+    if (tid < CG && c0 + tid < p.C) {
+      float t0 = 0.f, t1 = 0.f, t2 = 0.f;
+      for (int q = 0; q < p.TWc / TWT; ++q) {
+        t0 += conv[q * CG + tid];
+        t1 += conv[NC + q * CG + tid];
+        t2 += conv[2 * NC + q * CG + tid];
+      }
+      bsum[c0 + tid] = t0;
+      bsum[p.C + c0 + tid] = t1;
+      bsum[2 * p.C + c0 + tid] = t2;
+    }
+    consumers_sync(NC);
+    sx = sy = s1 = 0.f;
+  };
+
+  for (int item = blockIdx.x; item < p.items; item += gridDim.x) {
+    const PairItem it = pair_item(p, item);
+    const int gc = it.c0 + c;
+    const bool active = conv_thread && gc < p.C;
+    if (it.c0 != grp) {  // a new channel group, the same for the whole block
+      if (BWD && grp >= 0) flush(grp);
+#pragma unroll
+      for (int j = 0; j < K * K; ++j) tap[j] = active ? p.taps[(BWD ? K * K - 1 - j : j) * p.C + gc] : 0.f;
+      for (int i = tid; i < CG; i += NC) {
+        const bool in = it.c0 + i < p.C;
+        vec[i] = in ? p.a[it.c0 + i] : 0.f;
+        vec[CG + i] = in ? p.b[it.c0 + i] : 0.f;
+        vec[2 * CG + i] = !BWD && in ? p.bias[it.c0 + i] : 0.f;
+      }
+      consumers_sync(NC);
+      grp = it.c0;
+    }
+    const float ca = vec[c], cb = vec[CG + c];
+    const size_t img = static_cast<size_t>(it.n) * p.H * p.W * p.C;
+    const int h_end = min(p.H, it.h0 + p.TH);
+
+    for (int t = 0; t < steps; ++t) {
+      const unsigned char* const st = smem + L.ring + s * L.stage;
+      bar_wait(full + 8 * s, ph);
+
+      // The chunk's input rows into the conv ring, 8 channels a vector:
+      // thread t the vector t % nv of pixels t / nv, + NC / nv, ...
+      const int r0 = it.h0 - P + t * RB;
+      for (int pix = pix0; converts && pix < npix; pix += pstep) {
+        const int r = pix >= cols ? 1 : 0, j = pix - r * cols;  // RB = 2 rows
+        const int h = r0 + r, w = it.w0 - P + j, v = pix * nv + q;
+        float f[8];
+        if (BWD) {
+          const uint4 d = reinterpret_cast<const uint4*>(st)[v];
+          const bf16* ds = reinterpret_cast<const bf16*>(&d);
+#pragma unroll
+          for (int k = 0; k < 8; ++k) f[k] = bf(ds[k]);
+        } else if (h >= 0 && h < p.H && w >= 0 && w < p.W && it.c0 + 8 * q < p.C) {
+          const uint4 xv = reinterpret_cast<const uint4*>(st)[v];
+          const uint4 yv = reinterpret_cast<const uint4*>(st + L.halo)[v];
+          const bf16* xs = reinterpret_cast<const bf16*>(&xv);
+          const bf16* ys = reinterpret_cast<const bf16*>(&yv);
+          float va[8], vb[8], vc[8];
+#pragma unroll
+          for (int k = 0; k < 8; k += 4) {
+            *reinterpret_cast<float4*>(va + k) = *reinterpret_cast<const float4*>(vec + 8 * q + k);
+            *reinterpret_cast<float4*>(vb + k) =
+                *reinterpret_cast<const float4*>(vec + CG + 8 * q + k);
+            *reinterpret_cast<float4*>(vc + k) =
+                *reinterpret_cast<const float4*>(vec + 2 * CG + 8 * q + k);
+          }
+          uint4 x2v;
+          bf16* x2 = reinterpret_cast<bf16*>(&x2v);
+#pragma unroll
+          for (int k = 0; k < 8; ++k) {
+            x2[k] = combine1(bf(xs[k]), bf(ys[k]), va[k], vb[k], vc[k]);
+            f[k] = bf(x2[k]);
+          }
+          if (j >= P && j < P + p.TWc && h >= it.h0 && h < h_end)
+            *reinterpret_cast<uint4*>(p.out2 + img + (static_cast<size_t>(h) * p.W + w) * p.C +
+                                      it.c0 + 8 * q) = x2v;
+        } else {
+#pragma unroll
+          for (int k = 0; k < 8; ++k) f[k] = 0.f;  // x2's own zero padding
+        }
+        float* dst = conv + ((t * RB + r) & (RING - 1)) * roww + (j >> 3) * cs + (j & 7) * CG + 8 * q;
+        reinterpret_cast<float4*>(dst)[0] = make_float4(f[0], f[1], f[2], f[3]);
+        reinterpret_cast<float4*>(dst)[1] = make_float4(f[4], f[5], f[6], f[7]);
+      }
+      consumers_sync(NC);
+      if (!BWD && tid == 0) issue();  // the stage is read: refill it
+
+      const int m = t - PRE;
+      if (m >= 0 && active) {
+        float acc[RB][TWT];
+#pragma unroll
+        for (int j = 0; j < RB; ++j)
+#pragma unroll
+          for (int i = 0; i < TWT; ++i) acc[j][i] = 0.f;
+        const float* cb0 = conv + slot * (TWT / 8) * cs + c;
+#pragma unroll
+        for (int r = 0; r < RB + K - 1; ++r) {
+          const float* rp = cb0 + ((m * RB + r) & (RING - 1)) * roww;
+          float v[NV];
+#pragma unroll
+          for (int i = 0; i < NV; ++i) v[i] = rp[(i >> 3) * cs + (i & 7) * CG];
+#pragma unroll
+          for (int j = 0; j < RB; ++j) {
+            const int dh = r - j;
+            if (dh < 0 || dh >= K) continue;
+#pragma unroll
+            for (int i = 0; i < TWT; ++i)
+#pragma unroll
+              for (int dw = 0; dw < K; ++dw) acc[j][i] = fmaf(v[i + dw], tap[dh * K + dw], acc[j][i]);
+          }
+        }
+        const bf16* d2s = reinterpret_cast<const bf16*>(st + L.halo);
+        const bf16* xs = reinterpret_cast<const bf16*>(st + L.halo + L.own);
+        const bf16* ys = reinterpret_cast<const bf16*>(st + L.halo + 2 * L.own);
+#pragma unroll
+        for (int j = 0; j < RB; ++j) {
+          const int h = it.h0 + m * RB + j;
+          if (h >= h_end) break;
+#pragma unroll
+          for (int i = 0; i < TWT; ++i) {
+            const int w = it.w0 + slot * TWT + i;
+            if (w >= p.W) break;
+            const size_t o = img + (static_cast<size_t>(h) * p.W + w) * p.C + gc;
+            if (BWD) {
+              const int e = (j * p.TWc + slot * TWT + i) * CG + c;
+              const float d2 = bf(d2s[e]) + acc[j][i];
+              p.out[o] = __float2bfloat16(d2 * ca);
+              p.out2[o] = __float2bfloat16(d2 * cb);
+              sx += d2 * bf(xs[e]);
+              sy += d2 * bf(ys[e]);
+              s1 += d2;
+            } else {
+              p.out[o] = __float2bfloat16(acc[j][i]);
+            }
+          }
+        }
+      }
+      consumers_sync(NC);  // the window's oldest rows are free for the next chunk
+      if (BWD && tid == 0) issue();
+      if (++s == p.stages) {
+        s = 0;
+        ph ^= 1;
+      }
+    }
+  }
+
+  if (BWD) {
+    if (grp >= 0) flush(grp);
+    const int n3 = 3 * p.C;
+    float* const mine = p.slots + static_cast<size_t>(blockIdx.x) * n3;
+    for (int i = tid; i < n3; i += NC) mine[i] = bsum[i];
+    __threadfence();
+    consumers_sync(NC);
+    if (tid == 0) *last_flag = atomicAdd(p.ticket, 1u) == gridDim.x - 1;
+    consumers_sync(NC);
+    if (*last_flag) {
+      __threadfence();
+      for (int i = tid; i < n3; i += NC) {
+        float acc = 0.f;
+        for (int b = 0; b < static_cast<int>(gridDim.x); ++b)
+          acc += __ldcg(p.slots + static_cast<size_t>(b) * n3 + i);
+        p.sums[i] = acc;
+      }
+      if (tid == 0) *p.ticket = 0u;
+    }
   }
 }
 
 // Lets an instance take up to SMEM_LIMIT bytes of dynamic shared memory:
 // once per device, not once per launch.
-template <int K, int MODE, int RBV>
-cudaError_t allow_smem() {
-  static std::atomic<unsigned> done{0u};
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, std::atomic<unsigned>& done) {
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
   const unsigned bit = dev < 32 ? 1u << dev : 0u;
   if (done.load() & bit) return cudaSuccess;
-  err = cudaFuncSetAttribute(dw_kernel<K, MODE, RBV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             SMEM_LIMIT);
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_LIMIT);
   if (err == cudaSuccess) done.fetch_or(bit);
   return err;
 }
 
-template <int K, int MODE, int RBV>
-int occupancy(int NT, size_t smem) {
+template <int K, int RBV>
+cudaError_t allow_dw() {
+  static std::atomic<unsigned> done{0u};
+  return allow_smem(dw_kernel<K, RBV>, done);
+}
+
+template <int K, bool BWD, int TWT>
+cudaError_t allow_pair() {
+  static std::atomic<unsigned> done{0u};
+  return allow_smem(pair_kernel<K, BWD, TWT>, done);
+}
+
+template <int K, int RBV>
+int dw_occupancy(int NT, size_t smem) {
   int blocks = 0;
-  if (allow_smem<K, MODE, RBV>() != cudaSuccess ||
-      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, dw_kernel<K, MODE, RBV>, NT, smem) !=
+  if (allow_dw<K, RBV>() != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, dw_kernel<K, RBV>, NT, smem) !=
           cudaSuccess)
     return 0;
   return blocks;
 }
 
-template <int K, int MODE, int RBV>
-int launch(const Args& p, int NT, int grid, cudaStream_t stream) {
-  const cudaError_t err = allow_smem<K, MODE, RBV>();
+template <int K, bool BWD, int TWT>
+int pair_occupancy(int NT, size_t smem) {
+  int blocks = 0;
+  if (allow_pair<K, BWD, TWT>() != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, pair_kernel<K, BWD, TWT>, NT, smem) !=
+          cudaSuccess)
+    return 0;
+  return blocks;
+}
+
+template <int K, int RBV>
+int launch_dw(const Args& p, int NT, int grid, cudaStream_t stream) {
+  const cudaError_t err = allow_dw<K, RBV>();
   if (err != cudaSuccess) return static_cast<int>(err);
-  dw_kernel<K, MODE, RBV><<<grid, NT, smem_bytes(p.TH, p.TWc, K, p.CG, MODE, NT), stream>>>(p);
+  dw_kernel<K, RBV><<<grid, NT, smem_bytes(p.TH, p.TWc, K, p.CG), stream>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
-// The plan the wrapper packs once per shape: B, H, W, C, K, TH, TWc, CG,
-// NT, grid, RB (ints).
+// The DW plan the wrapper packs once per shape: B, H, W, C, K, TH, TWc,
+// CG, NT, grid, RB (ints).
 enum { Q_B, Q_H, Q_W, Q_C, Q_K, Q_TH, Q_TWC, Q_CG, Q_NT, Q_GRID, Q_RB, Q_N };
 
 // Args of a plan after checking what the kernel takes (false: refused).
-bool prepare(const int* q, int mode, int flip, Args& p) {
+bool prepare(const int* q, int flip, Args& p) {
   p = Args{};
   p.H = q[Q_H];
   p.W = q[Q_W];
@@ -580,7 +767,7 @@ bool prepare(const int* q, int mode, int flip, Args& p) {
   if (p.TH < RBV || p.TH % RBV != 0 || p.TWc < TW || p.TWc % TW != 0) return false;
   const int np = (p.CG + 1) / 2;
   if (NT < np || NT > MAX_THREADS || NT % np != 0) return false;
-  if (smem_bytes(p.TH, p.TWc, K, p.CG, mode, NT) > static_cast<size_t>(SMEM_LIMIT)) return false;
+  if (smem_bytes(p.TH, p.TWc, K, p.CG) > static_cast<size_t>(SMEM_LIMIT)) return false;
   p.groups = (p.C + p.CG - 1) / p.CG;
   p.strips = (p.H + p.TH - 1) / p.TH;
   p.ctiles = (p.W + p.TWc - 1) / p.TWc;
@@ -590,39 +777,147 @@ bool prepare(const int* q, int mode, int flip, Args& p) {
   return true;
 }
 
-template <int MODE>
-int dispatch(const int* q, const Args& p, cudaStream_t st) {
-  const int NT = q[Q_NT], grid = q[Q_GRID];
-  if (q[Q_K] == 3)
-    return q[Q_RB] == 1 ? launch<3, MODE, 1>(p, NT, grid, st) : launch<3, MODE, 2>(p, NT, grid, st);
-  return q[Q_RB] == 1 ? launch<7, MODE, 1>(p, NT, grid, st) : launch<7, MODE, 2>(p, NT, grid, st);
+// The pair plan the wrapper packs once per shape: B, H, W, C, K, CG, TWc,
+// TH, NC, stages, grid, TW (ints).
+enum { R_B, R_H, R_W, R_C, R_K, R_CG, R_TWC, R_TH, R_NC, R_ST, R_GRID, R_TW, R_N };
+
+bool prepare_pair(const int* q, bool bwd, PairArgs& p) {
+  p = PairArgs{};
+  p.H = q[R_H];
+  p.W = q[R_W];
+  p.C = q[R_C];
+  p.CG = q[R_CG];
+  p.TWc = q[R_TWC];
+  p.TH = q[R_TH];
+  p.NC = q[R_NC];
+  p.stages = q[R_ST];
+  const int B = q[R_B], K = q[R_K];
+  if ((K != 3 && K != 7) || B < 1 || p.H < 1 || p.W < 1 || p.C < 8 || p.C % 8 != 0 ||
+      q[R_GRID] < 1)
+    return false;
+  if (p.CG < 8 || p.CG % 8 != 0 || p.CG > 256 || p.TWc < TW || p.TWc % TW != 0 ||
+      p.TWc + K - 1 > 256 || p.TH < RB || p.TH % RB != 0)
+    return false;
+  const int tw = q[R_TW];
+  if ((tw != 8 && tw != 16) || p.TWc % tw != 0) return false;
+  if (p.NC != (p.CG * (p.TWc / tw) + 31) / 32 * 32 ||
+      p.NC > (tw == 16 ? PAIR_THREADS / 2 : PAIR_THREADS))
+    return false;
+  if (p.stages < 2 || p.stages > MAX_STAGES) return false;
+  if (PairLayout(K, bwd, p.CG, p.TWc, p.stages, p.C).total > static_cast<uint32_t>(SMEM_LIMIT))
+    return false;
+  p.groups = (p.C + p.CG - 1) / p.CG;
+  p.bands = (p.H + p.TH - 1) / p.TH;
+  p.ctiles = (p.W + p.TWc - 1) / p.TWc;
+  const long long items = static_cast<long long>(B) * p.bands * p.ctiles * p.groups;
+  if (items > 0x7fffffff || q[R_GRID] > items) return false;
+  p.items = static_cast<int>(items);
+  return true;
 }
 
-template <int MODE>
-int occupancy_of(int K, int RBV, int NT, size_t smem) {
-  if (K == 3) return RBV == 1 ? occupancy<3, MODE, 1>(NT, smem) : occupancy<3, MODE, 2>(NT, smem);
-  if (K == 7) return RBV == 1 ? occupancy<7, MODE, 1>(NT, smem) : occupancy<7, MODE, 2>(NT, smem);
-  return 0;
+// A (B, H, W, C) bf16 tensor as TMA boxes of (cg channels, bw columns, RB
+// rows, 1 sample), unswizzled, zero outside. A tensor map describes only an
+// address, its dims and its box, so the one encoded for the same seven
+// serves every later call (the caching allocator hands the same address
+// back): a small direct-mapped cache saves cuTensorMapEncodeTiled's host
+// time.
+CUresult encode_nhwc(CUtensorMap* map, const void* base, int B, int H, int W, int C, int cg, int bw) {
+  struct Entry {
+    const void* base;
+    int B, H, W, C, cg, bw;
+    CUtensorMap map;
+  };
+  static Entry cache[64] = {};
+  static std::mutex lock;
+  // A multiplicative hash of the address and shape: same-sized tensors lie
+  // multiples of their size apart, which a plain modulus folds into one slot.
+  const uint64_t key = (static_cast<uint64_t>(reinterpret_cast<uintptr_t>(base)) >> 4) ^
+                       (static_cast<uint64_t>(B * 131 + H * 31 + W * 7 + C) << 40) ^
+                       (static_cast<uint64_t>(cg * 17 + bw) << 52);
+  const size_t slot = (key * 0x9E3779B97F4A7C15ull) >> 58;
+  std::lock_guard<std::mutex> guard(lock);
+  Entry& e = cache[slot];
+  if (e.base != base || e.B != B || e.H != H || e.W != W || e.C != C || e.cg != cg || e.bw != bw) {
+    EncodeTiledFn fn = encode_tiled();
+    if (fn == nullptr) return CUDA_ERROR_NOT_FOUND;
+    // cuTensorMapEncodeTiled needs a current context on the calling thread,
+    // which a thread whose first CUDA work is this launch (autograd's
+    // backward thread) does not have yet: bind the device's primary one.
+    int dev = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess || cudaSetDevice(dev) != cudaSuccess)
+      return CUDA_ERROR_INVALID_CONTEXT;
+    const cuuint64_t dims[4] = {static_cast<cuuint64_t>(C), static_cast<cuuint64_t>(W),
+                                static_cast<cuuint64_t>(H), static_cast<cuuint64_t>(B)};
+    const cuuint64_t strides[3] = {static_cast<cuuint64_t>(C) * 2,
+                                   static_cast<cuuint64_t>(W) * C * 2,
+                                   static_cast<cuuint64_t>(H) * W * C * 2};
+    const cuuint32_t box[4] = {static_cast<cuuint32_t>(cg), static_cast<cuuint32_t>(bw),
+                               static_cast<cuuint32_t>(RB), 1};
+    const cuuint32_t step[4] = {1, 1, 1, 1};
+    e.base = nullptr;
+    const CUresult res =
+        fn(&e.map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides, box,
+           step, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+           CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+    if (res != CUDA_SUCCESS) return res;
+    e.base = base;
+    e.B = B;
+    e.H = H;
+    e.W = W;
+    e.C = C;
+    e.cg = cg;
+    e.bw = bw;
+  }
+  *map = e.map;
+  return CUDA_SUCCESS;
+}
+
+template <int K, bool BWD, int TWT>
+int run_pair(const CUtensorMap* m, const PairArgs& p, int grid, uint32_t smem, cudaStream_t stream) {
+  const cudaError_t err = allow_pair<K, BWD, TWT>();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  pair_kernel<K, BWD, TWT><<<grid, p.NC, smem, stream>>>(m[0], m[1], m[2], m[3], p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// A launch's error: a CUDA error code, or -1000 * (i + 1) - the CUresult
+// of cuTensorMapEncodeTiled where tensor map i could not be encoded, -2
+// where the plan's slot width is not the direction's.
+template <bool BWD>
+int launch_pair(const int* q, const PairArgs& p, const void* const* ops, cudaStream_t stream) {
+  const int B = q[R_B], K = q[R_K], bw = p.TWc + K - 1;
+  CUtensorMap m[4];
+  // Forward: x and y0 with the column halo (m[2], m[3] unused copies);
+  // backward: dy7bar with it, dx2bar, x and y0 without.
+  for (int i = 0; i < 4; ++i) {
+    const bool halo = BWD ? i == 0 : i < 2;
+    const void* t = ops[BWD || i < 2 ? i : 0];
+    const CUresult res = encode_nhwc(&m[i], t, B, p.H, p.W, p.C, p.CG, halo ? bw : p.TWc);
+    if (res != CUDA_SUCCESS) return -1000 * (i + 1) - static_cast<int>(res);
+  }
+  const uint32_t smem = PairLayout(K, BWD, p.CG, p.TWc, p.stages, p.C).total;
+  constexpr int TWT = BWD ? 16 : 8;
+  if (q[R_TW] != TWT) return -2;
+  return K == 3 ? run_pair<3, BWD, TWT>(m, p, q[R_GRID], smem, stream)
+                : run_pair<7, BWD, TWT>(m, p, q[R_GRID], smem, stream);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Shared-memory bytes a block asks for at a plan (mode 0 DW, 1 COMBINE,
-// 2 COMBINE_BWD), the formula the wrapper's plan also computes.
-long long dp_dw_smem_bytes(int TH, int TWc, int K, int CG, int mode, int NT) {
-  return static_cast<long long>(smem_bytes(TH, TWc, K, CG, mode, NT));
+// Shared-memory bytes a DW block asks for at a plan, the formula the
+// wrapper's plan also computes.
+long long dp_dw_smem_bytes(int TH, int TWc, int K, int CG) {
+  return static_cast<long long>(smem_bytes(TH, TWc, K, CG));
 }
 
 // Blocks of NT threads and smem bytes that one SM holds at once (0 where
 // the instance cannot launch so), for the wrapper's grid.
-int dp_dw_occupancy(int K, int mode, int RBV, int NT, long long smem) {
+int dp_dw_occupancy(int K, int RBV, int NT, long long smem) {
   const size_t s = static_cast<size_t>(smem);
-  if (RBV != 1 && RBV != 2) return 0;
-  if (mode == DW) return occupancy_of<DW>(K, RBV, NT, s);
-  if (mode == COMBINE) return occupancy_of<COMBINE>(K, RBV, NT, s);
-  if (mode == COMBINE_BWD) return occupancy_of<COMBINE_BWD>(K, RBV, NT, s);
+  if (K == 3) return RBV == 1 ? dw_occupancy<3, 1>(NT, s) : RBV == 2 ? dw_occupancy<3, 2>(NT, s) : 0;
+  if (K == 7) return RBV == 1 ? dw_occupancy<7, 1>(NT, s) : RBV == 2 ? dw_occupancy<7, 2>(NT, s) : 0;
   return 0;
 }
 
@@ -632,56 +927,69 @@ int dp_dw_conv(const void* plan, const void* x, const void* taps, void* out, int
                void* stream) {
   const int* q = static_cast<const int*>(plan);
   Args p;
-  if (!prepare(q, DW, flip, p)) return static_cast<int>(cudaErrorInvalidValue);
+  if (!prepare(q, flip, p)) return static_cast<int>(cudaErrorInvalidValue);
   p.src = static_cast<const bf16*>(x);
   p.taps = static_cast<const float*>(taps);
   p.out = static_cast<bf16*>(out);
-  return dispatch<DW>(q, p, static_cast<cudaStream_t>(stream));
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int NT = q[Q_NT], grid = q[Q_GRID];
+  if (q[Q_K] == 3)
+    return q[Q_RB] == 1 ? launch_dw<3, 1>(p, NT, grid, st) : launch_dw<3, 2>(p, NT, grid, st);
+  return q[Q_RB] == 1 ? launch_dw<7, 1>(p, NT, grid, st) : launch_dw<7, 2>(p, NT, grid, st);
+}
+
+// Shared-memory bytes of a pair plan (bwd 0 forward, 1 backward), the
+// formula the wrapper's plan also computes.
+long long dp_pair_smem(int K, int bwd, int CG, int TWc, int stages, int C) {
+  return static_cast<long long>(PairLayout(K, bwd != 0, CG, TWc, stages, C).total);
+}
+
+// Blocks of the pair kernel's instance (K, backward, TW columns a slot)
+// that one SM holds at once (0: cannot launch so). The forward runs TW = 8,
+// the backward 16.
+int dp_pair_occupancy(int K, int bwd, int tw, int NT, long long smem) {
+  const size_t s = static_cast<size_t>(smem);
+  if ((K != 3 && K != 7) || tw != (bwd ? 16 : 8)) return 0;
+  if (K == 3) return bwd ? pair_occupancy<3, true, 16>(NT, s) : pair_occupancy<3, false, 8>(NT, s);
+  return bwd ? pair_occupancy<7, true, 16>(NT, s) : pair_occupancy<7, false, 8>(NT, s);
 }
 
 // _combine_dw_fwd_kernel: x2 = bf16(a*x + b*y0 + bias), y7 = conv(x2).
 int dp_combine_dw(const void* plan, const void* x, const void* y0, const void* a, const void* b,
                   const void* bias, const void* taps, void* x2, void* y7, void* stream) {
   const int* q = static_cast<const int*>(plan);
-  Args p;
-  if (!prepare(q, COMBINE, 0, p)) return static_cast<int>(cudaErrorInvalidValue);
-  p.src = static_cast<const bf16*>(x);
-  p.y0 = static_cast<const bf16*>(y0);
+  PairArgs p;
+  if (!prepare_pair(q, false, p)) return static_cast<int>(cudaErrorInvalidValue);
   p.a = static_cast<const float*>(a);
   p.b = static_cast<const float*>(b);
   p.bias = static_cast<const float*>(bias);
   p.taps = static_cast<const float*>(taps);
   p.out = static_cast<bf16*>(y7);
   p.out2 = static_cast<bf16*>(x2);
-  return dispatch<COMBINE>(q, p, static_cast<cudaStream_t>(stream));
+  const void* ops[4] = {x, y0, nullptr, nullptr};
+  return launch_pair<false>(q, p, ops, static_cast<cudaStream_t>(stream));
 }
 
 // _combine_dw_bwd_kernel on the forward's taps (read mirrored); dx, dy0
 // (B, H, W, C) bf16 and sums (3, C) f32 = (da, db, dbias), through slots
-// (grid, 3, C) f32, one a block, added in block order.
+// (grid, 3, C) f32, one a block, added in block order by the last block to
+// finish (ticket: a zeroed counter the launch leaves at zero).
 int dp_combine_dw_bwd(const void* plan, const void* x, const void* y0, const void* dx2bar,
                       const void* dy7bar, const void* a, const void* b, const void* taps,
-                      void* dx, void* dy0, void* slots, void* sums, void* stream) {
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+                      void* dx, void* dy0, void* slots, void* sums, void* ticket, void* stream) {
   const int* q = static_cast<const int*>(plan);
-  Args p;
-  if (!prepare(q, COMBINE_BWD, 1, p)) return static_cast<int>(cudaErrorInvalidValue);
-  p.src = static_cast<const bf16*>(dy7bar);
-  p.x = static_cast<const bf16*>(x);
-  p.y0 = static_cast<const bf16*>(y0);
-  p.dx2bar = static_cast<const bf16*>(dx2bar);
+  PairArgs p;
+  if (!prepare_pair(q, true, p)) return static_cast<int>(cudaErrorInvalidValue);
   p.a = static_cast<const float*>(a);
   p.b = static_cast<const float*>(b);
   p.taps = static_cast<const float*>(taps);
   p.out = static_cast<bf16*>(dx);
   p.out2 = static_cast<bf16*>(dy0);
   p.slots = static_cast<float*>(slots);
-  const int err = dispatch<COMBINE_BWD>(q, p, st);
-  if (err != 0) return err;
-  const int n = 3 * p.C;
-  dw_sums_reduce_kernel<<<(n + MAX_THREADS - 1) / MAX_THREADS, MAX_THREADS, 0, st>>>(
-      static_cast<const float*>(slots), q[Q_GRID], n, static_cast<float*>(sums));
-  return static_cast<int>(cudaGetLastError());
+  p.sums = static_cast<float*>(sums);
+  p.ticket = static_cast<unsigned*>(ticket);
+  const void* ops[4] = {dy7bar, dx2bar, x, y0};
+  return launch_pair<true>(q, p, ops, static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -1,5 +1,6 @@
-// Hopper building blocks shared by the kernels of block_kernels.cu and
-// convffn_kernels.cu: mbarriers, TMA tile loads and stores, wgmma
+// Hopper building blocks shared by the kernels of block_kernels.cu,
+// convffn_kernels.cu and dwconv_kernels.cu: mbarriers, TMA tile loads and
+// stores, wgmma
 // shared-memory descriptors of 128-byte-swizzled tiles and the wgmma
 // instructions, and the host's tensor-map encoding.
 #pragma once
@@ -43,6 +44,24 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
   }
 }
 
+// mbar_wait, but ends the kernel with a trap instead of spinning forever if
+// the phase never completes (a fault in the box order would otherwise hang
+// the card): ~8 s of the SM clock.
+__device__ __forceinline__ void bar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  const long long start = clock64();
+  for (uint32_t n = 1; !done; ++n) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (!done && (n & 1023) == 0 && clock64() - start > (1ll << 34)) __trap();
+  }
+}
+
 // One 2-D TMA tile load (coordinates innermost first) that completes its
 // bytes on the barrier; out-of-bounds elements arrive as zeros.
 __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar, int c0,
@@ -51,6 +70,17 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, u
       "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
       " [%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// One 4-D TMA box load (coordinates innermost first; negative or past the
+// edge arrive as zeros) that completes its bytes on the barrier.
+__device__ __forceinline__ void tma_load4(uint32_t dst, const CUtensorMap* map, uint32_t bar, int c0,
+                                          int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
       : "memory");
 }
 

@@ -37,7 +37,8 @@ zero gradient (JAX's frozen-backbone contract: no FastViT training mode
 trains a backbone conv).
 
 On a CPU tensor a wrapper runs its plain version; on a CUDA tensor it
-launches its kernel (``ops/csrc/dwconv_kernels.cu``) and adds one to
+launches its kernel (``ops/csrc/dwconv_kernels.cu``: ``dw_kernel<K, RB>``
+for the conv, ``pair_kernel<K, BWD>`` for the segment) and adds one to
 ``LAUNCHES[<wrapper>]``, or raises; it never falls back.
 
 The gates ``dwconv_enabled`` and ``pair_enabled`` are JAX's own switches
@@ -71,6 +72,16 @@ _ROWS, _COLS = 16, 64  # output rows of a strip and columns of a tile, at most
 _TW = 8                # output columns of a thread's slot (TW in the kernel)
 _THREADS = 192         # threads of a block, at most (MAX_THREADS)
 KERNEL_SIZES = (3, 7)  # the kernel's template instances (FastViT's mixer and ConvFFN)
+# pair_kernel (the segment): rows of a ring stage and of an output step
+# (RB), threads a block aims at, ring depths tried (MAX_STAGES first), and
+# by direction the output columns of a thread's slot (TWT) and the channels
+# of a group at most: the forward 8 and 64 (two blocks an SM), the backward
+# 16 and 96 (one block an SM at up to 255 registers a thread).
+PAIR_RB = 2
+_PAIR_THREADS = 192
+_PAIR_STAGES = (4, 3, 2)
+PAIR_TW = {False: 8, True: 16}
+_PAIR_CG = {False: 64, True: 96}
 
 # ---------------------------------------------------------------------------
 # The JAX package's VMEM byte models and gates (dwconv.py:130-146, 229-263,
@@ -213,7 +224,8 @@ def combine_dw_bwd_cost(b: int, h: int, w: int, c: int, kk: int) -> tuple[int, i
 # ---------------------------------------------------------------------------
 # Wrappers
 
-# dw_kernel's modes (MODE in dwconv_kernels.cu).
+# The launches a plan is made for: dw_kernel (the conv) and pair_kernel's
+# forward and backward (the segment).
 DW, COMBINE, COMBINE_BWD = 0, 1, 2
 
 
@@ -255,12 +267,15 @@ def _taps(kernel: torch.Tensor) -> torch.Tensor:
 
 
 class Plan(NamedTuple):
-    """A launch of dw_kernel: strips of ``th`` output rows, column tiles of
-    ``twc`` columns, groups of ``cg`` channels, ``nt`` threads a block,
-    ``grid`` persistent blocks over ``items`` tiles; ``smem`` bytes a
-    block; ``rb`` output rows a thread's slot. ``packed`` holds (B, H, W,
-    C, k, th, twc, cg, nt, grid, rb) as C ints, the C entries' first
-    argument, at address ``addr``."""
+    """A launch of dw_kernel (DW) or pair_kernel (COMBINE, COMBINE_BWD):
+    strips (pair: bands) of ``th`` output rows, column tiles of ``twc``
+    columns, groups of ``cg`` channels, ``nt`` threads a block, ``grid`` persistent blocks
+    over ``items`` tiles; ``smem`` bytes a block; ``rb`` output rows a
+    thread's slot (pair: rows a step); ``stages`` tile buffers (pair: the
+    TMA ring's depth); ``tw`` output columns a thread's slot. ``packed``
+    holds the C entries' first argument, at address ``addr``: (B, H, W, C,
+    k, th, twc, cg, nt, grid, rb) for DW, (B, H, W, C, k, cg, twc, th, nt,
+    stages, grid, tw) for the pair."""
     th: int
     twc: int
     cg: int
@@ -269,6 +284,8 @@ class Plan(NamedTuple):
     items: int
     smem: int
     rb: int
+    stages: int
+    tw: int
     packed: ctypes.Array
     addr: int
 
@@ -283,19 +300,34 @@ def _layout_elems(th: int, twc: int, kk: int, cg: int) -> int:
     return (th + kk - 1) * -(-(twc + kk - 1) // _TW) * cs
 
 
-def _smem_bytes(th: int, twc: int, kk: int, cg: int, mode: int, nt: int) -> int:
-    """Shared-memory bytes of a block (``smem_bytes`` in dwconv_kernels.cu):
-    two tile buffers, and COMBINE's y0 tile or COMBINE_BWD's (6, nt) f32
-    sums and the group's f32 taps."""
-    def a128(n):
-        return -(-n // 128) * 128
+def _cdiv(n: int, d: int) -> int:
+    return -(-n // d)
 
-    tile = a128(2 * _layout_elems(th, twc, kk, cg))
-    if mode == COMBINE:
-        return 3 * tile
-    if mode == COMBINE_BWD:
-        return 2 * tile + a128(24 * nt) + a128(4 * kk * kk * (cg + (cg & 1)))
-    return 2 * tile
+
+def _a128(n: int) -> int:
+    return _cdiv(n, 128) * 128
+
+
+def _smem_bytes(th: int, twc: int, kk: int, cg: int) -> int:
+    """Shared-memory bytes of a dw_kernel block (``smem_bytes`` in
+    dwconv_kernels.cu): two tile buffers."""
+    return 2 * _a128(2 * _layout_elems(th, twc, kk, cg))
+
+
+def _pair_smem(kk: int, bwd: bool, cg: int, twc: int, stages: int, c: int) -> int:
+    """Shared-memory bytes of a pair_kernel block (``PairLayout`` in
+    dwconv_kernels.cu): barriers, the group's a, b, bias, backward the
+    block's (3, C) sums; ``stages`` TMA stages (forward x and y0 boxes of PAIR_RB rows with the
+    k - 1 column halo; backward dy7bar's with it and dx2bar's, x's, y0's
+    without); the f32 conv ring of PAIR_RB + k - 1 rows of 8-pixel chunks,
+    each CG words modulo the 32 banks (the last chunk unpadded)."""
+    cols = twc + kk - 1
+    chunk = 8 * cg + (-7 * cg) % 32
+    halo, own = _a128(PAIR_RB * cols * cg * 2), _a128(PAIR_RB * twc * cg * 2)
+    stage = halo + 3 * own if bwd else 2 * halo
+    head = 128 + _a128(3 * cg * 4) + (_a128(3 * c * 4) if bwd else 0)
+    row = (cols - 1) // 8 * chunk + ((cols - 1) % 8 + 1) * cg
+    return head + stages * stage + (PAIR_RB + kk - 1) * row * 4
 
 
 def _groups(c: int) -> tuple[int, int]:
@@ -322,21 +354,30 @@ def _sms(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def _occupancy(kk: int, mode: int, rb: int, plan: tuple) -> int:
-    """Blocks of the plan an SM holds at once (``dp_dw_occupancy``), after
-    checking the plan's shared-memory bytes against the kernel's own
-    formula."""
-    th, twc, cg, nt, smem = plan
+def _occupancy(kk: int, mode: int, depth: int, plan: tuple) -> int:
+    """Blocks of the plan an SM holds at once (``dp_dw_occupancy``,
+    ``dp_pair_occupancy``), after checking the plan's shared-memory bytes
+    against the kernel's own formula. DW: ``depth`` rows a slot, ``plan``
+    (th, twc, cg, nt, smem); the pair: ``depth`` ring stages, ``plan`` (cg,
+    twc, C, threads, smem)."""
     lib = _ext.lib()
-    if lib.dp_dw_smem_bytes(th, twc, kk, cg, mode, nt) != smem:
-        raise RuntimeError("dwconv: _smem_bytes disagrees with dp_dw_smem_bytes")
-    return lib.dp_dw_occupancy(kk, mode, rb, nt, smem)
+    if mode == DW:
+        th, twc, cg, nt, smem = plan
+        if lib.dp_dw_smem_bytes(th, twc, kk, cg) != smem:
+            raise RuntimeError("dwconv: _smem_bytes disagrees with dp_dw_smem_bytes")
+        return lib.dp_dw_occupancy(kk, depth, nt, smem)
+    cg, twc, c, nc, smem = plan
+    bwd = mode == COMBINE_BWD
+    if lib.dp_pair_smem(kk, int(bwd), cg, twc, depth, c) != smem:
+        raise RuntimeError("dwconv: _pair_smem disagrees with dp_pair_smem")
+    return lib.dp_pair_occupancy(kk, int(bwd), PAIR_TW[bwd], nc, smem)
 
 
 @functools.lru_cache(maxsize=256)
 def _plan(b: int, h: int, w: int, c: int, kk: int, mode: int, device: int) -> Plan:
-    """The launch plan of a shape, cached. Items of (sample, strip, column
-    tile, channel group) start at 16 rows x 64 columns; while the grid
+    """The launch plan of a shape and mode, cached (the pair's:
+    ``_pair_plan``). dw_kernel's items of (sample, strip, column tile,
+    channel group) start at 16 rows x 64 columns; while the grid
     would leave an SM without an item, the column tile halves (to 8) while
     it is wider than twice the strip, else the strip halves (to 2): at
     batch 1 the card fills with tiles of several rows rather than with
@@ -344,10 +385,11 @@ def _plan(b: int, h: int, w: int, c: int, kk: int, mode: int, device: int) -> Pl
     ``_SMEM_BUDGET`` (two blocks an SM), the column tile halves to 16, then
     the strip to 2, then the tile to 8. A thread's slot takes two output
     rows where whole strips alone fill the card (each window row feeds
-    both), else one (a shorter chain a thread where the grid is small);
-    COMBINE_BWD always one (its slots hold their operands in registers too,
-    and measured faster so). The grid is as many persistent blocks as the
-    card holds at once, at most one an item."""
+    both), else one (a shorter chain a thread where the grid is small).
+    The grid is as many persistent blocks as the card holds at once, at
+    most one an item."""
+    if mode != DW:
+        return _pair_plan(b, h, w, c, kk, mode, device)
     sms = _sms(device)
     cg, groups = _groups(c)
     th, twc = _ROWS, min(_COLS, -(-w // _TW) * _TW)
@@ -355,26 +397,88 @@ def _plan(b: int, h: int, w: int, c: int, kk: int, mode: int, device: int) -> Pl
     def items(th, twc):
         return b * -(-h // th) * -(-w // twc) * groups
 
-    rb = 2 if items(th, twc) >= sms and mode != COMBINE_BWD else 1
+    rb = 2 if items(th, twc) >= sms else 1
 
     def half(twc):
         return -(-twc // (2 * _TW)) * _TW
 
     while items(th, twc) < sms and (twc > _TW or th > 2):
         th, twc = (th, half(twc)) if twc > _TW and (twc > 2 * th or th == 2) else (th // 2, twc)
-    while _smem_bytes(th, twc, kk, cg, mode, _threads(cg, th, twc, rb)) > _SMEM_BUDGET:
+    while _smem_bytes(th, twc, kk, cg) > _SMEM_BUDGET:
         if twc == _TW and th == 2:
             raise ValueError(f"dwconv: rows of {c} channels do not fit shared memory at k={kk}")
         th, twc = (th, half(twc)) if twc > 2 * _TW or (th == 2) else (th // 2, twc)
     nt = _threads(cg, th, twc, rb)
-    smem = _smem_bytes(th, twc, kk, cg, mode, nt)
+    smem = _smem_bytes(th, twc, kk, cg)
     occ = _occupancy(kk, mode, rb, (th, twc, cg, nt, smem))
     if occ < 1:
         raise RuntimeError(f"dwconv: a block of {nt} threads and {smem} bytes does not launch")
     n = items(th, twc)
     grid = min(n, sms * occ)
     packed = (ctypes.c_int * 11)(b, h, w, c, kk, th, twc, cg, nt, grid, rb)
-    return Plan(th, twc, cg, nt, grid, n, smem, rb, packed, ctypes.addressof(packed))
+    return Plan(th, twc, cg, nt, grid, n, smem, rb, 2, _TW, packed, ctypes.addressof(packed))
+
+
+def _pair_groups(c: int, most: int) -> tuple[int, int]:
+    """(channels a group, groups) of the pair: at most ``most`` channels,
+    whole 16-byte vectors (C is a multiple of 8 here)."""
+    groups = _cdiv(c, most)
+    cg = _cdiv(_cdiv(c, groups), 8) * 8
+    return cg, _cdiv(c, cg)
+
+
+def _pair_plan(b: int, h: int, w: int, c: int, kk: int, mode: int, device: int) -> Plan:
+    """pair_kernel's plan (through ``_plan``'s cache). A thread takes one
+    channel and a slot of ``tw`` columns (PAIR_TW: the forward 8, the
+    backward 16), so the column tile is as wide as W or as 192 threads allow
+    for the group (forward 32 columns at C = 48; backward 64 at C = 48, 32
+    at 96 in one group), split evenly. The TMA ring is as deep as shared
+    memory allows (4, 3 or 2 stages): the forward's within half an SM, two
+    blocks an SM running out of step, else a whole SM; the backward's within
+    a whole SM (one block, 255 registers a thread); the column tile halves
+    while nothing fits. Items are (sample, band of ``th`` rows, column tile,
+    group); the band height (even) takes the fewest steps for the busiest
+    block of a grid of ``sms`` x occupancy persistent blocks, where an item
+    of ``th`` rows streams th + k - 1 input rows: whole images where the
+    batch fills the card (B = 128), short bands where it does not (B = 1,
+    8). The choice of tw and the budgets follows measurements on an H100 at
+    t8's stage shapes (PERF.md)."""
+    sms = _sms(device)
+    bwd = mode == COMBINE_BWD
+    tw = PAIR_TW[bwd]
+    cg, groups = _pair_groups(c, _PAIR_CG[bwd])
+
+    def fit(twc):  # the deepest ring within the first budget that holds one
+        for budget in ((_SMEM_LIMIT,) if bwd else (_SMEM_BUDGET, _SMEM_LIMIT)):
+            fits = [n for n in _PAIR_STAGES if _pair_smem(kk, bwd, cg, twc, n, c) <= budget]
+            if fits:
+                return fits[0]
+        return 0
+
+    twc = min(_cdiv(w, tw) * tw, max(1, _PAIR_THREADS // cg) * tw)
+    twc = _cdiv(_cdiv(w, _cdiv(w, twc)), tw) * tw  # the same width for every column tile
+    while not (stages := fit(twc)):
+        if twc == tw:
+            raise ValueError(f"dwconv: rows of {cg} channels do not fit shared memory at k={kk}")
+        twc = _cdiv(twc, 2 * tw) * tw
+    ctiles = _cdiv(w, twc)
+    nc = _cdiv(cg * twc // tw, 32) * 32
+    smem = _pair_smem(kk, bwd, cg, twc, stages, c)
+    occ = _occupancy(kk, mode, stages, (cg, twc, c, nc, smem))
+    if occ < 1:
+        raise RuntimeError(f"dwconv: a block of {nc} threads and {smem} bytes does not launch")
+    slots, per_band = sms * occ, b * groups * ctiles
+
+    def cost(th):
+        return _cdiv(per_band * _cdiv(h, th), slots) * (th + kk - 1)
+
+    th = min((_cdiv(_cdiv(h, n), PAIR_RB) * PAIR_RB for n in range(1, _cdiv(h, PAIR_RB) + 1)),
+             key=lambda t: (cost(t), -t))
+    n = per_band * _cdiv(h, th)
+    grid = min(n, slots)
+    packed = (ctypes.c_int * 12)(b, h, w, c, kk, cg, twc, th, nc, stages, grid, tw)
+    return Plan(th, twc, cg, nc, grid, n, smem, PAIR_RB, stages, tw, packed,
+                ctypes.addressof(packed))
 
 
 def _launch_checks(name: str, *tensors: torch.Tensor) -> None:
@@ -425,21 +529,43 @@ def fused_dw_conv(x: torch.Tensor, kernel: torch.Tensor, flip: bool = False) -> 
     return out
 
 
+def _pad_channels(t: torch.Tensor, c: int) -> torch.Tensor:
+    """``t`` zero-padded along its last (channel) axis to ``c``."""
+    return F.pad(t, (0, c - t.shape[-1])) if t.shape[-1] != c else t
+
+
+# The backward's ticket counters, one a device: zero between launches (the
+# kernel's last block resets its own), so launches on one device must run
+# in stream order, as the port's single stream runs them.
+_TICKETS: dict[int, torch.Tensor] = {}
+
+
+def _ticket(index: int) -> torch.Tensor:
+    t = _TICKETS.get(index)
+    if t is None:
+        t = _TICKETS[index] = torch.zeros(1, dtype=torch.int32, device=torch.device("cuda", index))
+    return t
+
+
 def fused_combine_dw(x, y0, a, b, bias, kernel) -> tuple[torch.Tensor, torch.Tensor]:
     """(x2, y7) = (bf16(a*x + b*y0 + bias), dwconv(x2)) over (B, H, W, C);
     replaces ``_combine_dw_fwd_kernel`` (dino_pose_tpu/ops/dwconv.py:287, via
     ``combine_dw_frozen`` :407).
 
-    Design (``dw_kernel<K, COMBINE>``): ``fused_dw_conv``'s kernel with a
-    prologue: x and y0 are staged into two buffers, x2 is formed in f32
-    from them and the per-channel a, b, bias, rounded to bf16 in place, and
-    the item's own pixels of x2 are written once (halo pixels recomputed by
-    each neighbouring item the same way), so the conv reads x2 as rounded
+    Design (``pair_kernel<K, 0, 8>``, dwconv_kernels.cu): persistent blocks
+    stream each item's input rows two at a time through a ring of TMA
+    stages (x and y0 boxes with the column halo, zero-filled at the image's
+    edge); the block's threads form x2 once per pixel into an f32 conv ring
+    (0 outside the image: the padding is x2's, not x's), write the item's
+    own x2 pixels once, and take the conv from f32 words, one channel and 8
+    columns a thread, taps in registers, so the conv reads x2 as rounded
     (dwconv.py:299-303) and x2 makes no extra round trip through device
-    memory. The zero padding is x2's, not x's.
+    memory. ``_plan`` (cached) sizes bands, column tiles, groups and the
+    ring's depth; C not a multiple of 8 is zero-padded to one here (the
+    tensor maps' strides), off the arm's t8 path.
 
-    Bound on an H100: 2*(k*k + 2) FLOPs an output in f32 at 67 TFLOP/s, or
-    x, y0, x2, y7 (bf16) at 3.35 TB/s; ``combine_dw_cost`` counts both."""
+    Bound on an H100: x, y0, x2, y7 (bf16) at 3.35 TB/s, or 2*(k*k + 2) f32
+    FLOPs an output at 67 TFLOP/s; ``combine_dw_cost`` counts both."""
     name = "fused_combine_dw"
     if not x.is_cuda:
         if x.device.type == "cpu":
@@ -448,13 +574,17 @@ def fused_combine_dw(x, y0, a, b, bias, kernel) -> tuple[torch.Tensor, torch.Ten
     _launch_checks(name, x, y0, a, b, bias, kernel)
     bsz, h, w, c, kk = _check(name, kernel, x, y0, vecs=(a, b, bias))
     index = x.get_device()
-    plan = _plan(bsz, h, w, c, kk, COMBINE, index)
+    cp = _cdiv(c, 8) * 8
+    x, y0, a, b, bias, kernel = (_pad_channels(t, cp) for t in (x, y0, a, b, bias, kernel))
+    plan = _plan(bsz, h, w, cp, kk, COMBINE, index)
     taps, x2, y7 = _taps(kernel), torch.empty_like(x), torch.empty_like(x)
     err = _ext.lib().dp_combine_dw(plan.addr,
                                    *(t.data_ptr() for t in (x, y0, a, b, bias, taps, x2, y7)),
                                    _ext.stream(index))
     _ext.check(err, name)
     LAUNCHES[name] += 1
+    if cp != c:
+        return x2[..., :c].contiguous(), y7[..., :c].contiguous()
     return x2, y7
 
 
@@ -464,18 +594,19 @@ def fused_combine_dw_bwd(x, y0, dx2bar, dy7bar, a, b, kernel):
     ``_combine_dw_vjp_bwd`` :419). ``kernel`` is the forward's, read
     mirrored by the kernel (JAX's ``_prep_taps(jnp.flip(kernel, (0, 1)))``).
 
-    Design (``dw_kernel<K, COMBINE_BWD>``): ``fused_dw_conv``'s kernel on
-    dy7bar with the mirrored taps; per output dx2 = dx2bar + the conv
-    (f32), dx and dy0 written once, and the thread's f32 sums of dx2*x,
-    dx2*y0 and dx2; each item sums its threads' sums in a fixed order into
-    its own slot (one per (sample, strip, column tile)), and
-    ``dw_sums_reduce_kernel`` (same C entry) adds the slots in order. No
-    atomics: the TPU grid's sequential VMEM accumulation becomes a second
-    pass, and the same inputs give the same bits.
+    Design (``pair_kernel<K, 1, 16>``): the forward's ring and conv on
+    dy7bar (with its column halo) and the mirrored taps, 16 columns a
+    thread, dx2bar, x and y0 staged in the same TMA stages without a halo;
+    per output dx2 = dx2bar + the conv (f32), dx and dy0 written once, and
+    each thread's f32 sums of
+    dx2*x, dx2*y0 and dx2. Each block adds its threads' sums in a fixed
+    order into its own slot, and the last block to finish (a ticket counter
+    that only counts) adds the slots in block order, in the same launch. No
+    atomics add: the same inputs and plan give the same bits.
 
-    Bound on an H100: (2*k*k + 8) FLOPs an element in f32 at 67 TFLOP/s, or
-    x, y0, dx2bar, dy7bar, dx, dy0 (bf16) at 3.35 TB/s;
-    ``combine_dw_bwd_cost`` counts both."""
+    Bound on an H100: x, y0, dx2bar, dy7bar, dx, dy0 (bf16) at 3.35 TB/s, or
+    (2*k*k + 8) f32 FLOPs an element at 67 TFLOP/s; ``combine_dw_bwd_cost``
+    counts both."""
     name = "fused_combine_dw_bwd"
     if not x.is_cuda:
         if x.device.type == "cpu":
@@ -483,17 +614,23 @@ def fused_combine_dw_bwd(x, y0, dx2bar, dy7bar, a, b, kernel):
         raise ValueError(f"{name}: unsupported device {x.device}")
     bsz, h, w, c, kk = _check(name, kernel, x, y0, dx2bar, dy7bar, vecs=(a, b))
     index = x.get_device()
-    plan = _plan(bsz, h, w, c, kk, COMBINE_BWD, index)
+    cp = _cdiv(c, 8) * 8
+    x, y0, dx2bar, dy7bar, a, b, kernel = (_pad_channels(t, cp)
+                                           for t in (x, y0, dx2bar, dy7bar, a, b, kernel))
+    plan = _plan(bsz, h, w, cp, kk, COMBINE_BWD, index)
     taps, dx, dy0 = _taps(kernel), torch.empty_like(x), torch.empty_like(x)
     # The blocks' sums (one slot a block) and their total, in one allocation.
-    partials = torch.empty(((plan.grid + 1) * 3, c), dtype=torch.float32, device=x.device)
+    partials = torch.empty(((plan.grid + 1) * 3, cp), dtype=torch.float32, device=x.device)
     sums = partials[plan.grid * 3:]
     err = _ext.lib().dp_combine_dw_bwd(
         plan.addr,
-        *(t.data_ptr() for t in (x, y0, dx2bar, dy7bar, a, b, taps, dx, dy0, partials, sums)),
+        *(t.data_ptr() for t in (x, y0, dx2bar, dy7bar, a, b, taps, dx, dy0, partials, sums,
+                                 _ticket(index))),
         _ext.stream(index))
     _ext.check(err, name)
     LAUNCHES[name] += 1
+    if cp != c:
+        dx, dy0, sums = dx[..., :c].contiguous(), dy0[..., :c].contiguous(), sums[:, :c]
     return dx, dy0, sums[0], sums[1], sums[2]
 
 

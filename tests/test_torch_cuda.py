@@ -34,7 +34,8 @@ within 2e-3 of their largest magnitude. FastViT's opt-in arms
 ``fused_convffn_res``) at 3e-2 abs/rel on their activations at every t8 and
 sa12 stage shape, at ragged H = 24 and 56 and at C = 76 and 20, k = 3 and 7;
 the backward's f32 sums da, db, dbias within 2e-3 of their largest
-magnitude.
+magnitude; the segment's x2 bit-equal to the plain combine's and its
+kernels' second calls bit-equal to the first.
 """
 
 import copy
@@ -1281,6 +1282,106 @@ def test_dwconv_tilings_match_plain(cuda_device, batch, shape, kk):
     _assert_dw_close(bwd, dwconv.combine_dw_bwd_math(x, y0, dx2, dy7, a, b, kern))
     again = dwconv.fused_combine_dw_bwd(x, y0, dx2, dy7, a, b, kern)
     assert all(torch.equal(p, q) for p, q in zip(bwd, again))
+
+
+# The segment's pair_kernel<K, BWD> (TMA ring, f32 conv ring, the
+# backward's sums reduced in the same launch) at t8's stage 0 and 1 shapes,
+# the ragged H = 24 and 56, and C = 76 and 20 (zero-padded to a multiple of
+# 8 by the wrappers), at every batch its plan treats differently.
+PAIR_SHAPES = [(48, 64), (96, 32), (48, 24), (96, 56), (76, 16), (20, 24)]
+
+
+def _pair_check(got, want, bwd_got, bwd_want, again):
+    """x2 bit-equal to the plain combine's, the rest as _assert_dw_close, and
+    a second backward call the same bits."""
+    assert torch.equal(got[0], want[0])
+    _assert_dw_close(got, want)
+    _assert_dw_close(bwd_got, bwd_want)
+    assert all(torch.equal(p, q) for p, q in zip(bwd_got, again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kk", [3, 7])
+@pytest.mark.parametrize("batch", [1, 8, 32, 128])
+@pytest.mark.parametrize("shape", PAIR_SHAPES, ids=lambda t: f"C{t[0]}-H{t[1]}")
+def test_pair_kernels_match_plain(cuda_device, shape, batch, kk):
+    """fused_combine_dw and fused_combine_dw_bwd against their plain versions,
+    one launch each; x2 bit-equal, and the forward's second call and the
+    backward's the same bits."""
+    from dino_pose_tpu_torch.ops import dwconv
+
+    c, h = shape
+    (x, y0, dx2, dy7), (a, b, bias), kern = _dw_inputs(batch, h, c, kk, cuda_device,
+                                                       seed=c + h + batch + kk)
+    block.reset_launches()
+    got = dwconv.fused_combine_dw(x, y0, a, b, bias, kern)
+    bwd = dwconv.fused_combine_dw_bwd(x, y0, dx2, dy7, a, b, kern)
+    torch.cuda.synchronize()
+    assert block.LAUNCHES == {**dict.fromkeys(block.LAUNCHES, 0), "fused_combine_dw": 1,
+                              "fused_combine_dw_bwd": 1}
+    assert all(torch.equal(p, q) for p, q in zip(got, dwconv.fused_combine_dw(x, y0, a, b, bias,
+                                                                              kern)))
+    _pair_check(got, dwconv.combine_dw_math(x, y0, a, b, bias, kern), bwd,
+                dwconv.combine_dw_bwd_math(x, y0, dx2, dy7, a, b, kern),
+                dwconv.fused_combine_dw_bwd(x, y0, dx2, dy7, a, b, kern))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kk", [3, 7])
+@pytest.mark.parametrize("batch", [1, 8, 128])
+@pytest.mark.parametrize("shape", PAIR_SHAPES, ids=lambda t: f"C{t[0]}-H{t[1]}")
+def test_pair_padding_is_x2s(cuda_device, shape, batch, kk):
+    """With bias = 4 and a = b = 1 the combine of the zero-filled boxes
+    outside the image would be 4, not x2's zero padding: x2 bit-equal and
+    y7, its border rows and columns too, at the kernel tolerance
+    (tests/test_torch_dwconv_plan.py shows such a leak moves them)."""
+    from dino_pose_tpu_torch.ops import dwconv
+
+    c, h = shape
+    (x, y0, _, _), _, kern = _dw_inputs(batch, h, c, kk, cuda_device, seed=3 * c + h + kk)
+    ones = torch.ones(c, device=cuda_device)
+    x2, y7 = dwconv.fused_combine_dw(x, y0, ones, ones, 4 * ones, kern)
+    wx2, wy7 = dwconv.combine_dw_math(x, y0, ones, ones, 4 * ones, kern)
+    assert torch.equal(x2, wx2)
+    _assert_dw_close((y7,), (wy7,))
+    p = kk // 2
+    border = torch.ones(h, h, dtype=torch.bool, device=cuda_device)
+    border[p:h - p, p:h - p] = False
+    torch.testing.assert_close(y7.float()[:, border], wy7.float()[:, border], atol=3e-2, rtol=3e-2)
+
+
+@pytest.mark.cuda
+def test_pair_smem_matches_the_kernels(cuda_device):
+    """_pair_smem (the plan's) equals the kernel's PairLayout (dp_pair_smem)
+    at every plan the wrappers make here and around them."""
+    from dino_pose_tpu_torch.ops import _ext, dwconv
+
+    lib = _ext.lib()
+    for kk in (3, 7):
+        for bwd in (0, 1):
+            for cg in (8, 24, 40, 48, 64):
+                for twc in (8, 16, 24, 32, 64):
+                    for stages in (2, 3, 4):
+                        for c in (cg, 2 * cg, 96):
+                            assert dwconv._pair_smem(kk, bool(bwd), cg, twc, stages, c) == \
+                                lib.dp_pair_smem(kk, bwd, cg, twc, stages, c)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch", [1, 8, 128])
+def test_dw_conv_unchanged_beside_the_pair(cuda_device, batch):
+    """#24's kernel (dw_kernel<K, RB>, no longer sharing its template with
+    the segment) at t8's stage shapes, k = 3 and 7, both ways, against its
+    plain version, twice the same bits."""
+    from dino_pose_tpu_torch.ops import dwconv
+
+    for c, h in PAIR_SHAPES[:2]:
+        for kk in (3, 7):
+            (x, _, _, _), _, kern = _dw_inputs(batch, h, c, kk, cuda_device, seed=c + kk)
+            for flip in (False, True):
+                got = dwconv.fused_dw_conv(x, kern, flip)
+                _assert_dw_close((got,), (dwconv.dw_conv_math(x, kern, flip),))
+                assert torch.equal(got, dwconv.fused_dw_conv(x, kern, flip))
 
 
 @pytest.mark.cuda

@@ -411,24 +411,57 @@ def _coverage(plan, h, w, c, kk) -> np.ndarray:
     return hits
 
 
+def _pair_coverage(plan, h, w, c) -> np.ndarray:
+    """How often pair_kernel's items of one sample write each (row, column,
+    channel): an item (band, column tile, group) writes its band's rows
+    within the image, its tile's columns and its group's channels, the
+    group's channels x 8-column slots taken by the block's threads."""
+    hits = np.zeros((h, w, c), np.int32)
+    for h0 in range(0, h, plan.th):
+        for w0 in range(0, w, plan.twc):
+            for c0 in range(0, c, plan.cg):
+                hits[h0:min(h0 + plan.th, h), w0:w0 + plan.twc, c0:c0 + plan.cg] += 1
+    return hits
+
+
 @pytest.mark.parametrize("mode", [tdwconv.DW, tdwconv.COMBINE, tdwconv.COMBINE_BWD])
 @pytest.mark.parametrize("kk", [3, 7])
 @pytest.mark.parametrize("b", [1, 8, 128])
 def test_plan_covers_every_output_once(b, kk, mode, fake_card):
     """Every output row, column and channel is written by exactly one
     thread of one item, at every plan shape; the plan keeps what the
-    kernel takes (even strips, 8-column tiles, groups of <= 64 channels in
-    whole 16-byte vectors where C allows, threads a multiple of the pairs
-    and at most 192) and never asks for more than the shared memory a
-    block may use."""
+    kernel takes (dw_kernel: even strips, 8-column tiles, groups of <= 64
+    channels in whole 16-byte vectors where C allows, threads a multiple of
+    the pairs and at most 192; pair_kernel, the segment's, at the wrapper's
+    width padded to a multiple of 8: even bands, 8-column tiles, groups of
+    <= 64 (forward) or 96 (backward) channels in 16-byte vectors, a thread
+    for each channel and 8 (forward) or 16 (backward) columns, at most 384
+    or 192) and never asks for more than the shared memory a
+    block may use. tests/test_torch_dwconv_plan.py holds the segment's plan
+    in detail."""
     for c, hw in PLAN_SHAPES:
+        if mode != tdwconv.DW:
+            cp = -(-c // 8) * 8
+            plan = tdwconv._plan(b, hw, hw, cp, kk, mode, 0)
+            bwd = mode == tdwconv.COMBINE_BWD
+            assert plan.th % 2 == 0 and plan.twc % plan.tw == 0 and plan.cg % 8 == 0
+            assert plan.cg <= (96 if bwd else 64) and plan.tw == (16 if bwd else 8)
+            assert plan.cg * (plan.twc // plan.tw) <= plan.nt <= (192 if bwd else 384)
+            assert plan.rb == 2
+            assert plan.smem == tdwconv._pair_smem(kk, mode == tdwconv.COMBINE_BWD, plan.cg,
+                                                   plan.twc, plan.stages, cp)
+            assert plan.smem <= tdwconv._SMEM_LIMIT
+            assert plan.items == b * -(-hw // plan.th) * -(-hw // plan.twc) * -(-cp // plan.cg)
+            assert plan.grid == min(plan.items, 132)
+            assert (_pair_coverage(plan, hw, hw, cp) == 1).all(), (c, hw, plan)
+            continue
         plan = tdwconv._plan(b, hw, hw, c, kk, mode, 0)
         assert plan.th % 2 == 0 and plan.twc % 8 == 0 and plan.cg <= 64
-        # two rows a slot where the batch fills the card, COMBINE_BWD always one
-        assert plan.rb == (2 if b == 128 and mode != tdwconv.COMBINE_BWD else 1)
+        # two rows a slot where the batch fills the card
+        assert plan.rb == (2 if b == 128 else 1)
         assert plan.cg % 8 == 0 if c % 8 == 0 else plan.cg % 2 == 0
         assert plan.nt % ((plan.cg + 1) // 2) == 0 and plan.nt <= 192
-        assert plan.smem == tdwconv._smem_bytes(plan.th, plan.twc, kk, plan.cg, mode, plan.nt)
+        assert plan.smem == tdwconv._smem_bytes(plan.th, plan.twc, kk, plan.cg)
         assert plan.smem <= tdwconv._SMEM_LIMIT
         groups = -(-c // plan.cg)
         assert plan.items == b * -(-hw // plan.th) * -(-hw // plan.twc) * groups
