@@ -43,7 +43,11 @@ shard launches a forward) and fine-tuning at batch 128 (and the LoRA
 layer's partial dx on both shards); then the final LayerNorm's kernel
 (JAX's DINO_POSE_TPU_LN=pallas) against its plain version and
 torch.nn.functional.layer_norm, and dinov2-small + LoRA serving and
-fine-tuning with that switch on. Times kernels, serving and every train
+fine-tuning with that switch on; last, the training entry point
+(``python -m dino_pose_tpu_torch.cli.train``'s ``main``) on a seeded
+COCO-format set: two epochs of the default configuration with their
+launches, files and PCKh gate, the final checkpoint reloaded and served
+bit-equal, an auto-resumed third epoch and a device-warp epoch. Times kernels, serving and every train
 step; the ConvFFN, depthwise-conv and LayerNorm kernels, and cuDNN's
 grouped conv and torch.nn.functional.layer_norm beside them, on three
 clocks (host-inclusive, device-only from a CUDA graph's replay, host
@@ -78,6 +82,8 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
+import threading
 import time
 
 import numpy as np
@@ -341,6 +347,13 @@ LN_CASES = [(S, D), (TRAIN_BATCH * S, D), (TRAIN_BATCH * S, 768), (TRAIN_BATCH *
 # PyTorch call computes the kernel's function (rows 24 and 27).
 LIBRARY_CLOCKS = ("library_ms", "library_device_ms", "library_host_us")
 LN_SOURCE = "dino_pose_tpu_torch/ops/csrc/layernorm_kernels.cu"
+# phase_fit's dataset: train and validation images (batch 32: 4 steps and one
+# validation batch an epoch).
+FIT_TRAIN, FIT_VAL = 128, 32
+# Steps timed alone after the fit runs, on one batch kept on the card.
+FIT_ALONE = 10
+# fit's per-epoch history: seconds, images/s and the StepTimer's split.
+EPOCH_KEYS = ("epoch_seconds", "images_per_sec", "input_wait_s", "dispatch_s", "drain_s")
 # The chains' GEMM alone (phase_gemm, ops/block.fused_gemm): every product
 # shape the driven dinov2 paths run, (D, MLP width, tp) per model: qkv (K =
 # D, N = 3D/tp), the out-projection (K = D/tp, N = D), fc1 (K = D, N =
@@ -1409,13 +1422,16 @@ def randomise_for_serving(model, gen: torch.Generator) -> None:
                 p.copy_(torch.rand(p.shape, generator=gen).to(p.device) * 0.9 + 0.1)
 
 
+# (height, width) of the seeded requests and of phase_fit's dataset images.
+IMAGE_SIZES = [(320, 240), (480, 640), (224, 224), (500, 333), (256, 300)]
+
+
 def seeded_images(rng: np.random.Generator, n: int):
     from PIL import Image
 
-    sizes = [(320, 240), (480, 640), (224, 224), (500, 333), (256, 300)]
     return [
         Image.fromarray(rng.integers(0, 256, (h, w, 3), dtype=np.uint8))
-        for h, w in (sizes[i % len(sizes)] for i in range(n))
+        for h, w in (IMAGE_SIZES[i % len(IMAGE_SIZES)] for i in range(n))
     ]
 
 
@@ -3022,6 +3038,247 @@ def phase_layernorm(results: dict) -> dict:
     return out
 
 
+def write_coco(root: str, n: int, seed: int) -> tuple[str, str]:
+    """``n`` seeded JPEGs at IMAGE_SIZES and a COCO keypoint file under
+    ``root``: 24 keypoints each with mixed visibility (v = 0, 1, 2), and
+    ``keypoints_z``. Returns (images dir, annotation path)."""
+    images_dir = os.path.join(root, "images")
+    os.makedirs(images_dir, exist_ok=True)
+    rng = np.random.default_rng(seed)
+    images, annotations = [], []
+    for i, img in enumerate(seeded_images(rng, n)):
+        w, h = img.size
+        img.save(os.path.join(images_dir, f"{i}.jpg"))
+        kps = np.stack([rng.uniform(0.15 * w, 0.85 * w, 24), rng.uniform(0.15 * h, 0.85 * h, 24),
+                        rng.choice([0.0, 1.0, 2.0], 24, p=[0.2, 0.3, 0.5])], 1)
+        images.append({"id": i, "file_name": f"{i}.jpg", "width": w, "height": h})
+        annotations.append({"id": i, "image_id": i, "num_keypoints": 24,
+                            "keypoints": kps.reshape(-1).tolist(),
+                            "keypoints_z": rng.uniform(-40, 40, 24).tolist()})
+    path = os.path.join(root, "annotation.json")
+    with open(path, "w") as f:
+        json.dump({"images": images, "annotations": annotations}, f)
+    return images_dir, path
+
+
+FIT_CONFIG = """from dino_pose_tpu_torch.configs.config import get_default_configs as _defaults
+
+
+def get_default_configs():
+    dataset, training, preproc, model = _defaults()
+    dataset.update(train_images_dir={ti!r}, train_annotation_json={ta!r},
+                   val_images_dir={vi!r}, val_annotation_json={va!r})
+    training.update(checkpoint_dir={ck!r}, num_epochs=2, save_freq=1{extra})
+    return dataset, training, preproc, model
+"""
+
+
+def phase_fit(results: dict, root: str) -> dict:
+    """The training entry point end to end: ``python -m
+    dino_pose_tpu_torch.cli.train --config_file <file>`` (its ``main``) on the
+    card with the port's default configuration (dinov2-small + LoRA r=8,
+    batch 32, 224², bf16, the kernels on) on a seeded COCO-format dataset of
+    FIT_TRAIN train and FIT_VAL validation JPEGs written under ``root``: two
+    epochs (the PCKh baseline, 4 steps, a validation batch and a PCKh
+    evaluation each), checked for finite losses, the CSV, the PCKh-gated
+    checkpoints and each kernel's launches per step and per forward (in
+    every run); the final checkpoint reloaded through ``load_model_smart``
+    and served bit-equal to the trained model; the same command auto-resumed for a
+    third epoch; one epoch with ``device_warp``, its first batch's warp on
+    the card held against the CPU's; a fourth host epoch under the
+    profiler, for the card's busy share; the step alone on one batch kept
+    on the card, against the loop's dispatch a step."""
+    import csv
+
+    from dino_pose_tpu_torch.cli.train import main as train_main
+    from dino_pose_tpu_torch.config import load_config_file
+    from dino_pose_tpu_torch.data.dataset import create_dataloaders
+    from dino_pose_tpu_torch.data.warp import WARP_KEYS, warp_batch
+    from dino_pose_tpu_torch.io.checkpoint import load_model_smart
+    from dino_pose_tpu_torch.ops import block as B
+    from dino_pose_tpu_torch.serve import make_predictor
+    from dino_pose_tpu_torch.train.loop import MetricsWriter
+    from dino_pose_tpu_torch.train.step import make_train_step, prepare_batch
+
+    card = nvidia_smi()
+    ti, ta = write_coco(os.path.join(root, "train"), FIT_TRAIN, SEED + 20)
+    vi, va = write_coco(os.path.join(root, "valid"), FIT_VAL, SEED + 21)
+    paths = {}
+    prof_dir = os.path.join(root, "profile")
+    for arm, extra, ck_arm in (("host", "", "host"),
+                               ("device_warp", ", device_warp=True", "device_warp"),
+                               ("profiled", f", profile_dir={prof_dir!r}", "host")):
+        ck = os.path.join(root, f"checkpoints_{ck_arm}")
+        paths[arm] = (os.path.join(root, f"config_{arm}.py"), ck)
+        with open(paths[arm][0], "w") as f:
+            f.write(FIT_CONFIG.format(ti=ti, ta=ta, vi=vi, va=va, ck=ck, extra=extra))
+    config_file, ck = paths["host"]
+    _, training, _, model_cfg = load_config_file(config_file)
+    batch = training["batch_size"]
+    steps_per_epoch = FIT_TRAIN // batch
+    val_batches = -(-FIT_VAL // batch)
+    fit: dict = {"card": card, "config": {"model": model_cfg, "batch_size": batch,
+                                          "train_images": FIT_TRAIN, "val_images": FIT_VAL}}
+
+    def train(tag: str, argv: list) -> tuple[dict, dict]:
+        """``cli.train.main(argv)`` with the launch counts from 0: each train
+        step 11/1/1/1 (+ 12 attn_fwd), each validation or PCKh forward 11/1/1
+        (+ 12), 0 of every other wrapper."""
+        B.reset_launches()
+        history = train_main(argv)
+        torch.cuda.synchronize()
+        launches = dict(B.LAUNCHES)
+        steps = len(history["train_loss"]) * steps_per_epoch
+        forwards = (len(history["val_loss"]) + len(history["pckh"])) * val_batches
+        want = {k: steps * LORA_LAUNCHES.get(k, 0) + forwards * SERVING_LAUNCHES.get(k, 0)
+                for k in B.LAUNCHES}
+        log(f"{tag} launches over {steps} train steps and {forwards} eval forwards: {launches}")
+        if launches != want:
+            raise AssertionError(f"{tag}: launches {launches}, want {want}")
+        return history, launches
+
+    # Two epochs: the main path.
+    t0 = time.perf_counter()
+    history, launches = train("fit", ["--config_file", config_file])
+    run_s = time.perf_counter() - t0
+    record_launches(results, "fit", launches)
+    steps = 2 * steps_per_epoch
+    losses = history["train_loss"] + history["val_loss"]
+    if len(losses) != 4 or not np.isfinite(losses).all():
+        raise AssertionError(f"fit: losses {losses}")
+    with open(os.path.join(ck, "metrics.csv")) as f:
+        rows = list(csv.DictReader(f))
+    if list(rows[0]) != MetricsWriter.FIELDS or [r["epoch"] for r in rows] != ["1", "2"]:
+        raise AssertionError(f"fit: metrics.csv {rows}")
+    best = list(history["pckh"][0])
+    gated = []
+    for r in rows:
+        pckh = (float(r["pckh_2d"]), float(r["pckh_3d"]))
+        passed = pckh[0] > best[0] or pckh[1] > best[1]
+        best = [max(a, b) for a, b in zip(best, pckh)]
+        exists = os.path.exists(os.path.join(ck, f"best_model_{r['epoch']}.pth"))
+        if exists != passed:
+            raise AssertionError(f"fit: epoch {r['epoch']} PCKh {pckh}, best_model file {exists}")
+        gated += [int(r["epoch"])] if passed else []
+    final_path = os.path.join(ck, "final_model.pth")
+    if not os.path.exists(final_path) or history["state"].step != steps:
+        raise AssertionError(f"fit: no {final_path} or step {history['state'].step} != {steps}")
+    log(f"fit: losses {losses}, PCKh (2D, 3D) baseline and per epoch {history['pckh']}, "
+        f"best_model files for epochs {gated}; wall {run_s:.2f} s")
+
+    # The final checkpoint served bit-equal to the trained model.
+    t0 = time.perf_counter()
+    reloaded = load_model_smart(final_path, device="cuda")
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    images = seeded_images(np.random.default_rng(SEED + 22), 8)
+    got = make_predictor(reloaded)(images)
+    want_out = make_predictor(history["model"])(images)
+    same = all(np.array_equal(a, b) for a, b in zip(got, want_out))
+    log(f"fit reload: final_model.pth through load_model_smart in {load_s:.3f} s; "
+        f"8 images served bit-equal to the trained model: {same}")
+    if not same:
+        raise AssertionError("fit: the reloaded checkpoint serves other outputs")
+    del reloaded
+
+    # Auto-resume: the same command, one epoch more.
+    again, _ = train("fit resume", ["--config_file", config_file, "--num_epochs", "3"])
+    adam_steps = {float(v["step"]) for v in again["state"].optimizer.state_dict()["state"].values()}
+    log(f"fit resume: {len(again['train_loss'])} epoch, step {again['state'].step}, "
+        f"AdamW steps {sorted(adam_steps)}")
+    if len(again["train_loss"]) != 1 or again["state"].step != steps + steps_per_epoch \
+            or adam_steps != {float(steps + steps_per_epoch)}:
+        raise AssertionError("fit: auto-resume did not continue from step 8 for one epoch")
+
+    # One epoch with the device warp; its first batch on the card vs the CPU.
+    warp_file, _ = paths["device_warp"]
+    _, warp_training, preproc, _ = load_config_file(warp_file)
+
+    def loader(device_warp: bool):
+        return create_dataloaders(preproc, model_cfg, ti, ta, batch_size=batch,
+                                  num_workers=warp_training["multiprocessing_num"],
+                                  render_targets=False, device_warp=device_warp)
+
+    first = next(iter(loader(True)))
+    args = [torch.from_numpy(first[k]) for k in WARP_KEYS]
+    on_card = warp_batch(*(a.cuda() for a in args)).cpu()
+    on_cpu = warp_batch(*args)
+    warp_err = float((on_card - on_cpu).abs().max())
+    log(f"fit device_warp: first batch's warp_batch on cuda vs cpu max_abs={warp_err:.3g} "
+        f"(tol 1e-5) -> {'ok' if warp_err <= 1e-5 else 'FAIL'}")
+    if not warp_err <= 1e-5:
+        raise AssertionError("fit: warp_batch on the card disagrees with the CPU")
+    warped, _ = train("fit device_warp", ["--config_file", warp_file, "--num_epochs", "1"])
+    if len(warped["train_loss"]) != 1 or not np.isfinite(warped["train_loss"]).all():
+        raise AssertionError(f"fit device_warp: losses {warped['train_loss']}")
+
+    # A fourth host epoch under config_training["profile_dir"] (utils/profiling.trace,
+    # resumed from the host arm's epoch 3): the card's busy share of the
+    # traced train loop from the Chrome trace's kernel and copy events.
+    traced, _ = train("fit profiled", ["--config_file", paths["profiled"][0], "--num_epochs", "4"])
+    with open(os.path.join(prof_dir, "trace.json")) as f:
+        events = json.load(f)["traceEvents"]
+    device_ms = {cat: sum(e.get("dur", 0) for e in events if e.get("cat") == cat) / 1e3
+                 for cat in ("kernel", "gpu_memcpy", "gpu_memset")}
+    epoch_ms = traced["epoch_seconds"][0] * 1e3
+    busy = sum(device_ms.values()) / epoch_ms
+    log(f"fit profiled epoch ({card}): {epoch_ms:.1f} ms (under the profiler), device "
+        f"{json.dumps(device_ms)} ms: busy {busy:.3f}, idle {1 - busy:.3f}; kernel ms a step "
+        f"{device_ms['kernel'] / steps_per_epoch:.3f}; dispatch s {traced['dispatch_s'][0]:.4f}, "
+        f"input wait s {traced['input_wait_s'][0]:.4f}")
+    if not device_ms["kernel"] > 0:
+        raise AssertionError("fit profiled: the trace holds no kernel on the card")
+
+    # The same step alone: the profiled run's model, optimizer and state on
+    # one host-path batch copied to the card once; host clock over FIT_ALONE
+    # steps ended by a synchronize, with no loader thread running and then
+    # while a loader's workers augment three epochs beside it, against the
+    # loop's dispatch a step.
+    state = traced["state"]
+    partition = frozenset(n for n, q in state.model.named_parameters() if q.requires_grad)
+    step = prepare_batch(make_train_step(state.model, state.optimizer, partition),
+                         (state.model.input_size, state.model.heatmap_size), torch.bfloat16)
+    host_loader = loader(False)
+    on_card = {k: torch.from_numpy(v).cuda() for k, v in next(iter(host_loader)).items()}
+
+    def steps_ms() -> float:
+        nonlocal state
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(FIT_ALONE):
+            state, _ = step(state, on_card, 1e-6, SEED)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / FIT_ALONE
+
+    steps_ms()  # warm-up
+    alone_ms = steps_ms()
+    augmenting = threading.Thread(target=lambda: [b for _ in range(3) for b in host_loader])
+    augmenting.start()
+    beside_ms = steps_ms()
+    augmenting.join()
+    loop_ms = [s_ * 1e3 / steps_per_epoch for s_ in history["dispatch_s"] + again["dispatch_s"]]
+    log(f"fit step alone ({card}): {alone_ms:.2f} ms a bs={batch} step (host clock, "
+        f"{FIT_ALONE} steps), {beside_ms:.2f} ms beside the loader's workers; the loop's "
+        f"dispatch {loop_ms} ms a step")
+
+    fit.update(
+        step_alone_ms=alone_ms, step_beside_loader_ms=beside_ms, loop_dispatch_ms=loop_ms,
+        profiled={"epoch_ms": epoch_ms, "device_ms": device_ms, "busy": busy,
+                  "dispatch_s": traced["dispatch_s"][0],
+                  "input_wait_s": traced["input_wait_s"][0]},
+        wall_s=run_s, load_s=load_s, save_s=history["save_seconds"], warp_max_abs_err=warp_err,
+        pckh=history["pckh"], best_model_epochs=gated, launches=launches,
+        pckh_eval_s=history["pckh_seconds"] + again["pckh_seconds"],
+        arms={arm: {k: h[k] for k in EPOCH_KEYS}
+              for arm, h in (("host", {k: history[k] + again[k] for k in EPOCH_KEYS}),
+                             ("device_warp", warped))})
+    for arm, a in fit["arms"].items():
+        log(f"fit {arm} ({card}): " + ", ".join(f"{k} {a[k]}" for k in EPOCH_KEYS))
+    log(f"fit ({card}): PCKh eval s {fit['pckh_eval_s']}, checkpoint save s {fit['save_s']}, "
+        f"load s {load_s}")
+    return fit
+
+
 def profile_forward(model, image_size: int = 224) -> None:
     """Kernel time by name over five batch-1 forwards (torch.profiler)."""
     from torch.profiler import ProfilerActivity, profile
@@ -3290,6 +3547,8 @@ def main() -> int:
     log("fastvit_t8_lora step ms by route (this card, kernels / plain): default "
         f"{train_t8['step_ms_kernels']:.3f} / {train_t8['step_ms_plain']:.3f}, both arms on "
         f"{train_t8_pair['step_ms_kernels']:.3f} / {train_t8_pair['step_ms_plain']:.3f}")
+    with tempfile.TemporaryDirectory() as fit_root:
+        fit = phase_fit(results, fit_root)
     by_batch = phase_times()
     for times in (*wide_times, stream_train_times):
         for b, t in times.items():
@@ -3381,7 +3640,7 @@ def main() -> int:
                        "training_lora_ln": lora_ln, "gemm": gemm_times,
                        "gemm_bwd": gemm_bwd_times,
                        "attention_core": {k: v for k, v in core_times.items()
-                                          if isinstance(k, str)}},
+                                          if isinstance(k, str)}, "fit": fit},
                       f, indent=1)
     print(json.dumps({"kernels": kernels}))
     print(card)

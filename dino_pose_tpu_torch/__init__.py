@@ -5,11 +5,13 @@ is found at the same path. It imports ``torch`` and never JAX or the JAX
 package. Entry points run on ``cuda`` unless the caller passes
 ``device="cpu"``; without a card they raise.
 
-What this package covers so far: dinov2 + LoRA pose inference (the serving
-path) — the ViT backbone with the three fused block kernels
-(``ops/block.py`` over ``ops/csrc/block_kernels.cu``), the spatial-aware
-heads, heatmap decode, preprocessing, the weight carry from the JAX package's
-variables (``io/convert.py``) and ``serve.make_predictor``.
+What this package covers: dinov2 and FastViT pose serving
+(``serve.make_predictor``) and fine-tuning (``train/step.py``) on the hand-written
+Hopper kernels of ``ops/csrc/``, the weight carry from the JAX package's
+variables (``io/convert.py``), and the training entry point
+(``python -m dino_pose_tpu_torch.cli.train`` → ``train/loop.fit``: the COCO
+data pipeline, ``.pth`` checkpoints with resume, PCKh evaluation). Still to
+come: the other CLIs, ``viz``, multi-process (``ROADMAP.md`` Queue 1).
 """
 
 __version__ = "0.1.0"

@@ -67,6 +67,14 @@ def resolve_model_name(model_name_or_family: str) -> str:
     return FAMILY_DEFAULTS.get(model_name_or_family, model_name_or_family)
 
 
+def is_supported_backbone(model_name: str) -> bool:
+    return model_name in BACKBONE_REGISTRY
+
+
+def is_family_name(name: str) -> bool:
+    return name in FAMILY_DEFAULTS
+
+
 def vit_config_for(name: str, config: dict) -> ViTConfig:
     """The ViTConfig a dinov2 registry entry builds with ``config``."""
     preset = VIT_PRESETS[name]

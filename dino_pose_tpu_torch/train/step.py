@@ -24,6 +24,7 @@ from typing import Callable
 import torch
 
 from dino_pose_tpu_torch.data.heatmaps import render_heatmaps
+from dino_pose_tpu_torch.data.warp import WARP_KEYS, warp_batch
 from dino_pose_tpu_torch.train import weighting
 from dino_pose_tpu_torch.train.losses import keypoint_loss, z_loss
 from dino_pose_tpu_torch.train.state import TrainState
@@ -117,17 +118,23 @@ def prepare_batch(
     device_targets: tuple[int, int] | None = None,
     compute_dtype: torch.dtype | None = None,
 ) -> Callable:
-    """Wrap a step: render the heatmap targets from ``2d_keypoints`` on the
-    device (``device_targets=(input_size, heatmap_size)``) and cast the
-    pixels to ``compute_dtype`` (bf16 on the card); targets and losses stay
-    f32."""
+    """Wrap a step: warp a device-warp batch's canvases into its pixels
+    (``data/warp.warp_batch``, on the canvases' device), render the heatmap
+    targets from ``2d_keypoints`` on the device
+    (``device_targets=(input_size, heatmap_size)``) and cast the pixels to
+    ``compute_dtype`` (bf16 on the card); targets and losses stay f32. A
+    device-warp batch carries no targets, so it needs ``device_targets``."""
 
     def wrapped(state, batch, *rest):
         batch = dict(batch)
         if "canvas" in batch:
-            raise NotImplementedError(
-                "device-warp ('canvas') batches need data/warp.py, which the "
-                "data-pipeline slice of the port brings"
+            if device_targets is None:
+                raise ValueError(
+                    "device_warp batches require device_targets=(input, "
+                    "heatmap) so targets render in-step"
+                )
+            batch["image"] = warp_batch(
+                *(batch.pop(k) for k in WARP_KEYS), model_input=device_targets[0]
             )
         if device_targets is not None:
             input_size, heatmap_size = device_targets

@@ -2142,3 +2142,77 @@ def test_attention_kernels_are_wgmma(cuda_device):
         body = _definition(src, f"\n{name}")
         assert "wgmma_rs<DH>" in body, name
         assert "row_scores<" in body or "issue_nt<" in body, name
+
+
+def _write_coco(root, n, seed):
+    """``n`` seeded JPEGs (portrait and landscape) and a COCO keypoint file
+    with mixed visibility under ``root``; returns (images dir, annotation)."""
+    import json
+
+    from PIL import Image
+
+    (root / "images").mkdir(parents=True)
+    rng = np.random.default_rng(seed)
+    images, annotations = [], []
+    for i in range(n):
+        h, w = ((240, 320), (640, 480), (333, 500))[i % 3]
+        Image.fromarray(rng.integers(0, 256, (h, w, 3), dtype=np.uint8)).save(
+            root / "images" / f"{i}.jpg")
+        kps = np.stack([rng.uniform(0.15 * w, 0.85 * w, 24), rng.uniform(0.15 * h, 0.85 * h, 24),
+                        rng.choice([0.0, 1.0, 2.0], 24)], 1)
+        images.append({"id": i, "file_name": f"{i}.jpg", "width": w, "height": h})
+        annotations.append({"id": i, "image_id": i, "num_keypoints": 24,
+                            "keypoints": kps.reshape(-1).tolist(),
+                            "keypoints_z": rng.uniform(-40, 40, 24).tolist()})
+    (root / "ann.json").write_text(json.dumps({"images": images, "annotations": annotations}))
+    return str(root / "images"), str(root / "ann.json")
+
+
+@pytest.mark.cuda
+def test_warp_batch_on_cuda_matches_cpu(cuda_device, tmp_path):
+    """The device warp (plain torch ops) of a loader batch on the card
+    against the same function on the CPU: 1e-5 abs in normalised units."""
+    from dino_pose_tpu_torch.config import get_default_configs
+    from dino_pose_tpu_torch.data.dataset import create_dataloaders
+    from dino_pose_tpu_torch.data.warp import WARP_KEYS, warp_batch
+
+    images, ann = _write_coco(tmp_path, 8, seed=0)
+    _, _, preproc, model_cfg = get_default_configs()
+    loader = create_dataloaders(preproc, model_cfg, images, ann, batch_size=8, num_workers=2,
+                                render_targets=False, device_warp=True)
+    batch = [torch.from_numpy(next(iter(loader))[k]) for k in WARP_KEYS]
+    got = warp_batch(*(a.to(cuda_device) for a in batch))
+    assert got.device.type == "cuda" and got.shape == (8, 3, 224, 224)
+    assert (got.cpu() - warp_batch(*batch)).abs().max().item() <= 1e-5
+
+
+@pytest.mark.cuda
+def test_fit_two_steps_on_cuda(cuda_device, tmp_path):
+    """``fit`` on the card with test/vit-tiny + LoRA: two train steps through
+    the kernels (1 fused_block, 1/1/1 halves and 1 fused_mlp_dx a step), a
+    validation batch and the PCKh evaluations (1 fused_block and 1/1 halves a
+    forward), the checkpoint reloaded on the card."""
+    from dino_pose_tpu_torch.config import get_default_configs
+    from dino_pose_tpu_torch.io.checkpoint import load_model_smart
+    from dino_pose_tpu_torch.train.loop import fit
+
+    (ti, ta), (vi, va) = _write_coco(tmp_path / "train", 8, 1), _write_coco(tmp_path / "val", 4, 2)
+    d, t, p, m = get_default_configs()
+    d.update(train_images_dir=ti, train_annotation_json=ta, val_images_dir=vi,
+             val_annotation_json=va)
+    t.update(batch_size=4, num_epochs=1, save_freq=1, checkpoint_dir=str(tmp_path / "ck"),
+             multiprocessing_num=2)
+    m.update(model_name="test/vit-tiny")
+    block.reset_launches()
+    history = fit(d, t, p, m, progress=False)
+    torch.cuda.synchronize()
+    steps, forwards = 2, 1 + len(history["pckh"])
+    assert history["state"].step == steps and np.isfinite(history["train_loss"]).all()
+    assert block.LAUNCHES == {**dict.fromkeys(block.LAUNCHES, 0),
+                              "fused_block": steps + forwards, "fused_attn_part": steps + forwards,
+                              "fused_mlp_part": steps + forwards, "fused_mlp_dx": steps,
+                              "attn_fwd": 2 * (steps + forwards)}
+    model = load_model_smart(str(tmp_path / "ck" / "final_model.pth"))
+    assert next(model.parameters()).device.type == "cuda"
+    for a, b in zip(model.state_dict().values(), history["model"].state_dict().values()):
+        assert torch.equal(a, b)

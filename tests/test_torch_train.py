@@ -790,9 +790,21 @@ def test_eval_step_matches_jax(jax_pose, batch):
 
 
 def test_prepare_batch_refuses_device_warp_batches():
-    fn = tstep.prepare_batch(lambda state, batch: batch, (224, 48))
-    with pytest.raises(NotImplementedError, match="data-pipeline"):
-        fn(None, {"canvas": torch.zeros(1)})
+    """A device-warp batch carries no heatmap targets: without
+    ``device_targets`` it is refused, as JAX's ``_prepare_batch`` refuses
+    it; with them its canvases are warped into the pixels
+    (``tests/test_torch_data.py`` holds the warp against JAX's)."""
+    ident = torch.tensor([[[1.0, 0, 0], [0, 1.0, 0]]])
+    batch = {"canvas": torch.zeros(1, 512, 512, 3, dtype=torch.uint8), "affine": ident,
+             "pad_color": torch.full((1, 3), -1.0), "src_wh": torch.tensor([[512.0, 512.0]]),
+             "occ": torch.full((1, 4), -1.0), "f3_affine": ident, "f2_affine": ident,
+             "frame": torch.tensor([[224.0, 224.0, 0.0]]),
+             "2d_keypoints": torch.full((1, 2, 3), 50.0), "z_coords": torch.zeros(1, 2)}
+    with pytest.raises(ValueError, match="device_targets"):
+        tstep.prepare_batch(lambda state, batch: batch)(None, batch)
+    out = tstep.prepare_batch(lambda state, batch: batch, (224, 48))(None, batch)
+    assert "canvas" not in out and out["image"].shape == (1, 3, 224, 224)
+    assert out["2d_heatmaps"].shape == (1, 2, 48, 48)
     out = tstep.prepare_batch(lambda s, b: b, (224, 48), torch.bfloat16)(
         None, {"image": torch.zeros(1, 3, 4, 4), "2d_keypoints": torch.full((1, 2, 3), 50.0)})
     assert out["image"].dtype == torch.bfloat16 and out["2d_heatmaps"].shape == (1, 2, 48, 48)
