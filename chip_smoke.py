@@ -4,10 +4,13 @@ alone, forward, dx and weight-gradient products, at every dinov2 product
 shape, timed beside torch.matmul; then the chains' attention step alone,
 the resident pair and the streamed one, at every dinov2 head count, timed
 beside scaled_dot_product_attention), serve dinov2-small + LoRA pose requests
-through the kernels, take dinov2-small fine-tuning steps at batch 128 through
-them (LoRA, and unfreeze-last-4 with whole blocks training), all at 224²;
-then the long-sequence paths at 504² (S = 1297), where every layer streams
-its attention through the flash kernels: serving, and unfreeze-last-4 steps
+through the kernels, drive the port's five other CLIs (model_info,
+export_coreml, demo, benchmark_model, compare_models) on a checkpoint of
+that model with their exact launches, take dinov2-small fine-tuning steps
+at batch 128 through them (LoRA, and unfreeze-last-4 with whole blocks
+training), all at 224²; then the long-sequence paths at 504² (S = 1297),
+where every layer streams its attention through the flash kernels:
+serving, and unfreeze-last-4 steps
 at batch 32; then FastViT serving at 256²: fastvit_t8 + LoRA r=8 (10
 ConvFFN kernel launches a forward), fastvit_sa12 (12 ConvFFN launches and
 2 flash forwards, its attention stage) and fastvit_ma36 + LoRA r=8 (36
@@ -354,6 +357,14 @@ FIT_TRAIN, FIT_VAL = 128, 32
 FIT_ALONE = 10
 # fit's per-epoch history: seconds, images/s and the StepTimer's split.
 EPOCH_KEYS = ("epoch_seconds", "images_per_sec", "input_wait_s", "dispatch_s", "drain_s")
+# The five other CLIs (phase_cli) on dinov2-small + LoRA r=8 at full width:
+# a forward of a registry name without LoRA launches 12 fused_block; a
+# fastvit_t8 forward 10 fused_convffn. benchmark_model's warm-up and timed
+# forwards, compare_models' iterations (its device-time adds 3 warm-up and
+# as many timed forward + decode calls), the demo's frames and their batch.
+SMALL_LAUNCHES = {"fused_block": 12, "attn_fwd": 12}
+CLI_BENCH_WARMUP, CLI_BENCH_ITERS, CLI_COMPARE_ITERS = 3, 20, 10
+CLI_FRAMES, CLI_FRAME_BATCH = 10, 8
 # The chains' GEMM alone (phase_gemm, ops/block.fused_gemm): every product
 # shape the driven dinov2 paths run, (D, MLP width, tp) per model: qkv (K =
 # D, N = 3D/tp), the out-projection (K = D/tp, N = D), fc1 (K = D, N =
@@ -3279,6 +3290,191 @@ def phase_fit(results: dict, root: str) -> dict:
     return fit
 
 
+def phase_cli(results: dict, serving: dict, root: str) -> dict:
+    """The five other CLIs of ``dino_pose_tpu_torch.cli`` on the card, each
+    through its ``main`` (or ``benchmark_model``), on dinov2-small + LoRA r=8
+    at full width with ``randomise_for_serving``'s weights written to a
+    ``.pth`` under ``root``: model_info's four modes (their key lines, no
+    launch), export_coreml to ``.pth`` (the reload's forward bit-equal to the
+    source model's) and to ``.mlpackage`` (the ``.pth`` beside it), the demo
+    on a seeded 300x400 JPEG (the heatmaps it draws from bit-equal to
+    serve.make_predictor's and within the serving tolerances of the plain
+    path) and its chunked video prediction on CLI_FRAMES seeded frames
+    (a full and a padded chunk), benchmark_model, and compare_models with
+    --device-time (dinov2-small against fastvit_t8). Each call's launches are
+    held exactly; plotting and the video codecs run where matplotlib and
+    imageio are installed, and a line says what was not driven."""
+    import importlib.util
+    import io
+
+    from PIL import Image
+
+    from dino_pose_tpu_torch.cli import benchmark_model as bench_cli
+    from dino_pose_tpu_torch.cli import compare_models, demo, export_coreml, model_info
+    from dino_pose_tpu_torch.data.preprocess import create_preprocessor
+    from dino_pose_tpu_torch.io.checkpoint import load_model_smart, save_checkpoint
+    from dino_pose_tpu_torch.models.registry import create_model_from_config
+    from dino_pose_tpu_torch.ops import block as B
+    from dino_pose_tpu_torch.serve import device_pixels, make_predictor
+
+    t_phase = time.perf_counter()
+    card = nvidia_smi()
+    have = {m: importlib.util.find_spec(m) is not None for m in ("matplotlib", "imageio", "cv2")}
+    log(f"cli: plotting and codec packages here: {have}")
+    model = create_model_from_config(dict(LORA_CONFIG), seed=SEED, device="cuda")
+    randomise_for_serving(model, torch.Generator().manual_seed(SEED + 30))
+    ckpt = os.path.join(root, "ckpt.pth")
+    save_checkpoint(ckpt, model, epoch=5, train_loss=0.3, valid_loss=0.4)
+    total = dict.fromkeys(B.LAUNCHES, 0)
+    cli: dict = {"card": card, "packages": have}
+
+    def call(tag: str, per_forward: list, fn, *args, **kwargs):
+        """``fn(*args, **kwargs)`` with its launches held to
+        sum(n * launches) over ``per_forward``'s (launches, n); returns what
+        fn returns and what it printed."""
+        want = dict.fromkeys(B.LAUNCHES, 0)
+        for per, n in per_forward:
+            for k, v in per.items():
+                want[k] += n * v
+        B.reset_launches()
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            got = fn(*args, **kwargs)
+        torch.cuda.synchronize()
+        launches = dict(B.LAUNCHES)
+        log(f"cli {tag}: launches {({k: v for k, v in launches.items() if v})}")
+        if launches != want:
+            raise AssertionError(f"cli {tag}: launches {launches}, want {want}")
+        for k, v in launches.items():
+            total[k] += v
+        return got, out.getvalue()
+
+    # model_info: no model, no launch.
+    for argv, lines in ((["--checkpoint", ckpt], ["Dinov2PoseModelLoRA", "epoch: 5",
+                                                  f"backbone: {model.model_name}"]),
+                        (["--backbones"], ["facebook/dinov2-small", "FASTVIT Family:"]),
+                        (["--families"], ["DINOV2 Family", "Total models:"]),
+                        (["--list-checkpoints", root], ["ckpt.pth"])):
+        _, text = call("model_info " + argv[0], [], model_info.main, argv)
+        missing = [line for line in lines if line not in text]
+        if missing:
+            raise AssertionError(f"cli model_info {argv}: missing {missing} in {text!r}")
+
+    # export_coreml: one self-check forward each; the reload bit-equal.
+    out_pth = os.path.join(root, "out.pth")
+    _, text = call("export_coreml .pth", [(SERVING_LAUNCHES, 1)], export_coreml.main,
+                   ["-c", ckpt, "-o", out_pth])
+    if "Self-check forward: heatmaps (1, 24, 48, 48), depths (1, 24)" not in text:
+        raise AssertionError(f"cli export_coreml: no self-check line in {text!r}")
+    with contextlib.redirect_stdout(io.StringIO()):
+        reloaded = load_model_smart(out_pth, device="cuda")
+    x = device_pixels(np.random.default_rng(SEED + 31).standard_normal((2, 3, 224, 224)),
+                      next(model.parameters()).device)
+    with torch.inference_mode():
+        same = all(torch.equal(a, b) for a, b in zip(reloaded(x), model(x)))
+    log(f"cli export_coreml: out.pth through load_model_smart, forward bit-equal: {same}")
+    if not same:
+        raise AssertionError("cli export_coreml: the exported model serves other outputs")
+    del reloaded
+    call("export_coreml .mlpackage", [(SERVING_LAUNCHES, 1)], export_coreml.main,
+         ["-c", ckpt, "-o", os.path.join(root, "m.mlpackage")])
+    if not os.path.exists(os.path.join(root, "m.pth")):
+        raise AssertionError("cli export_coreml: no m.pth beside m.mlpackage")
+
+    # The demo on one image: the heatmaps it draws from.
+    jpg, png = os.path.join(root, "person.jpg"), os.path.join(root, "out.png")
+    rng = np.random.default_rng(SEED + 32)
+    Image.fromarray(rng.integers(0, 256, (300, 400, 3), dtype=np.uint8)).save(jpg)
+    drawn = []
+    draw_image = demo.draw_image
+
+    def capture(image, heatmaps, z, args):
+        drawn.append((heatmaps, z))
+        if have["matplotlib"]:
+            draw_image(image, heatmaps, z, args)
+
+    demo.draw_image = capture
+    try:
+        call("demo image", [(SERVING_LAUNCHES, 1)], demo.main,
+             ["--input", jpg, "--model", ckpt, "--output", png, "--plot_mode", "combined"])
+    finally:
+        demo.draw_image = draw_image
+    image = Image.open(jpg).convert("RGB")
+    predict = make_predictor(model)
+    want = predict([image])
+    same = np.array_equal(drawn[0][0], want[2][0]) and np.array_equal(drawn[0][1], want[1][0])
+    log(f"cli demo: drawn heatmaps and z bit-equal to serve.make_predictor's: {same}")
+    if len(drawn) != 1 or not same:
+        raise AssertionError("cli demo: the drawn heatmaps are not make_predictor's")
+    preprocessor = create_preprocessor(model.model_name)
+    compare_paths(model, preprocessor([image])["pixel_values"], want, "cli demo image")
+    if have["matplotlib"]:
+        if not os.path.getsize(png) > 0:
+            raise AssertionError("cli demo: empty PNG")
+        log(f"cli demo: {png} written, {os.path.getsize(png)} bytes")
+    else:
+        log("cli demo: rendering not driven: matplotlib is not installed here (the forward "
+            "ran on the card through the kernels; no PNG written)")
+
+    # The demo's chunked video prediction: a full chunk and a padded one.
+    frames = seeded_images(np.random.default_rng(SEED + 33), CLI_FRAMES)
+    chunks, _ = call("demo chunks", [(SERVING_LAUNCHES, -(-CLI_FRAMES // CLI_FRAME_BATCH))],
+                     lambda: list(demo.predict_chunks(frames, predict, preprocessor,
+                                                      CLI_FRAME_BATCH)))
+    for i, (chunk, hm, z) in enumerate(chunks):
+        pixels = demo._pad_to(preprocessor(chunk)["pixel_values"], CLI_FRAME_BATCH)
+        out = predict(pixels)
+        n = len(chunk)
+        if not (np.array_equal(hm, out[2][:n]) and np.array_equal(z, out[1][:n])):
+            raise AssertionError(f"cli demo chunk {i}: outputs are not the padded batch's")
+        compare_paths(model, pixels, out, f"cli demo chunk {i} ({n} frames)")
+    if have["matplotlib"] and have["imageio"]:
+        import imageio
+
+        gif_in, gif_out = os.path.join(root, "in.gif"), os.path.join(root, "out.gif")
+        imageio.mimsave(gif_in, [np.asarray(f.resize((160, 120))) for f in frames[:3]], fps=5)
+        call("demo gif", [(SERVING_LAUNCHES, 1)], demo.main,
+             ["--input", gif_in, "--model", ckpt, "--output", gif_out, "--max_frames", "2",
+              "--batch_size", "2"])
+        if len(imageio.mimread(gif_out)) != 2:
+            raise AssertionError("cli demo gif: not two frames written")
+    else:
+        log("cli demo: video codecs not driven: matplotlib or imageio is not installed here "
+            "(the chunked prediction above ran on the card)")
+
+    # benchmark_model on the checkpoint, compare_models with --device-time.
+    bench, _ = call("benchmark_model", [(SERVING_LAUNCHES, CLI_BENCH_WARMUP + 2 * CLI_BENCH_ITERS)],
+                    bench_cli.benchmark_model, ckpt, warmup=CLI_BENCH_WARMUP,
+                    iters=CLI_BENCH_ITERS)
+    params = model.count_parameters(trainable_only=False)
+    # benchmark_model's default warm-up (CLI_BENCH_WARMUP) and timed forwards,
+    # then --device-time's.
+    n_cmp = CLI_BENCH_WARMUP + 2 * CLI_COMPARE_ITERS + compare_models.DEVICE_TIME_WARMUP + \
+        CLI_COMPARE_ITERS
+    (a, b), text = call("compare_models", [(SMALL_LAUNCHES, n_cmp), (SERVING_T8_LAUNCHES, n_cmp)],
+                        compare_models.main,
+                        ["--model_a", "facebook/dinov2-small", "--model_b",
+                         "timm/fastvit_t8.apple_in1k", "--iters", str(CLI_COMPARE_ITERS),
+                         "--device-time"])
+    times = [bench[k] for k in ("avg_ms", "p50_ms", "device_ms", "device_p50_ms")] + \
+        [r[k] for r in (a, b) for k in ("avg_ms", "p50_ms", "device_ms", "device_p50_ms")]
+    if not all(t > 0 for t in times) or bench["params"] != params or "on-device:" not in text:
+        raise AssertionError(f"cli: times {times}, params {bench['params']} vs {params}")
+    record_launches(results, "cli", total)
+    cli.update(
+        benchmark_model={k: bench[k] for k in ("avg_ms", "p50_ms", "device_ms", "device_p50_ms",
+                                               "params")},
+        compare_models={r["model"]: {k: r[k] for k in ("avg_ms", "p50_ms", "device_ms",
+                                                       "device_p50_ms", "params")}
+                        for r in (a, b)},
+        serving_b1_latency_ms_p50=serving["b1_latency_ms_p50"],
+        serving_forward_ms_b1=serving["forward_ms_b1"],
+        launches={k: v for k, v in total.items() if v},
+        phase_s=time.perf_counter() - t_phase)
+    log(f"cli: phase {cli['phase_s']:.1f} s, launches {({k: v for k, v in total.items() if v})}")
+    return cli
+
+
 def profile_forward(model, image_size: int = 224) -> None:
     """Kernel time by name over five batch-1 forwards (torch.profiler)."""
     from torch.profiler import ProfilerActivity, profile
@@ -3447,6 +3643,8 @@ def main() -> int:
     phase_train_kernels(results)
     flash_times = phase_flash(results)
     model = phase_serving(results, serving)
+    with tempfile.TemporaryDirectory() as cli_root:
+        cli = phase_cli(results, serving, cli_root)
     lora_run = phase_train(results, lora, "lora", LORA_CONFIG, LORA_LAUNCHES, LORA_GRAD_NAMES,
                            ("fused_mlp_dx",))
     unfreeze_run = phase_train(results, unfreeze, "unfreeze", UNFREEZE_CONFIG, UNFREEZE_LAUNCHES,
@@ -3640,8 +3838,9 @@ def main() -> int:
                        "training_lora_ln": lora_ln, "gemm": gemm_times,
                        "gemm_bwd": gemm_bwd_times,
                        "attention_core": {k: v for k, v in core_times.items()
-                                          if isinstance(k, str)}, "fit": fit},
+                                          if isinstance(k, str)}, "fit": fit, "cli": cli},
                       f, indent=1)
+    log(f"cli ({card}): " + json.dumps(cli))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

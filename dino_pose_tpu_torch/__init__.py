@@ -10,8 +10,10 @@ What this package covers: dinov2 and FastViT pose serving
 Hopper kernels of ``ops/csrc/``, the weight carry from the JAX package's
 variables (``io/convert.py``), and the training entry point
 (``python -m dino_pose_tpu_torch.cli.train`` → ``train/loop.fit``: the COCO
-data pipeline, ``.pth`` checkpoints with resume, PCKh evaluation). Still to
-come: the other CLIs, ``viz``, multi-process (``ROADMAP.md`` Queue 1).
+data pipeline, ``.pth`` checkpoints with resume, PCKh evaluation), and the
+other five CLIs (``cli.demo``, ``cli.model_info``, ``cli.benchmark_model``,
+``cli.compare_models``, ``cli.export_coreml``) with ``viz``. Still to come:
+multi-process (``ROADMAP.md`` Queue 1).
 """
 
 __version__ = "0.1.0"

@@ -16,13 +16,14 @@ from torch import nn
 
 from dino_pose_tpu_torch.models.fastvit import FastViTBackbone, FastViTConfig
 from dino_pose_tpu_torch.models.heads import SpatialAwarePoseHeads
+from dino_pose_tpu_torch.models.pose import ParameterCounts
 
 # The constant the reference passes to the heads for FastViT
 # (fastvit_pose.py:34), not the 8x8 grid of a 256² input.
 REFERENCE_SPATIAL_INPUT_SIZE = 14
 
 
-class FastVitPoseModule(nn.Module):
+class FastVitPoseModule(ParameterCounts, nn.Module):
     """``forward(pixels[B,3,H,W]) -> (heatmaps[B,K,h,h], z[B,K])``."""
 
     def __init__(self, cfg: FastViTConfig, num_keypoints: int = 24, heatmap_size: int = 48):

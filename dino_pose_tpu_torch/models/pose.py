@@ -18,7 +18,24 @@ from dino_pose_tpu_torch.models.vit import Dinov2Backbone, ViTConfig
 INIT_INPUT_SIZE = 224
 
 
-class DinoPoseModule(nn.Module):
+class ParameterCounts:
+    """``count_parameters`` and ``print_trainable_parameters`` of a pose
+    model (counterparts of the JAX ``PoseModel``'s). Parameters only: the
+    BatchNorm statistics are buffers here, as they are ``batch_stats`` (not
+    ``params``) there. "Trainable" is ``requires_grad``, which
+    ``train.partition.apply_partition`` sets from JAX's trainable mask."""
+
+    def count_parameters(self, trainable_only: bool = True) -> int:
+        return sum(p.numel() for p in self.parameters()
+                   if p.requires_grad or not trainable_only)
+
+    def print_trainable_parameters(self) -> None:
+        for name, p in self.named_parameters():
+            if p.requires_grad:
+                print(f"Trainable: {name}, Shape: {tuple(p.shape)}, Parameters: {p.numel():,}")
+
+
+class DinoPoseModule(ParameterCounts, nn.Module):
     """DINOv2 backbone + spatial-aware pose heads (torch keys ``backbone.*``
     and ``pose_heads.*``). Any input whose patch grid is divisible by 4 runs;
     the heads take their upsampling plan from the grid of each call."""

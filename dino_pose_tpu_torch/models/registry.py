@@ -2,7 +2,10 @@
 dino_pose_tpu/models/registry.py).
 
 Both families build: dinov2 (``models/pose.py``) and FastViT
-(``models/fastvit_pose.py``, every preset). Weights are
+(``models/fastvit_pose.py``, every preset). The family surface
+(``FAMILY_INFO``, ``register_backbone``, ``register_family_default``,
+``get_family_models``, ``list_families``, ``list_supported_backbones``) is
+the JAX registry's, for ``cli/model_info.py``. Weights are
 made from a seed with an explicit ``torch.Generator``; trained weights come
 in through ``load_state_dict`` (reference schema) or ``io/convert.py`` (the
 JAX package's variables).
@@ -60,6 +63,43 @@ FAMILY_DEFAULTS: dict[str, str] = {
     "fastvit": "timm/fastvit_t8.apple_in1k",
 }
 
+FAMILY_INFO: dict[str, dict] = {
+    "dinov2": {
+        "description": "Vision Transformer with self-supervised learning",
+        "features": [
+            "Self-supervised pre-training",
+            "Strong feature representations",
+            "LoRA support",
+        ],
+        "available_sizes": ["small (21M)", "base (86M)", "large (300M)"],
+        "default": "facebook/dinov2-small",
+    },
+    "fastvit": {
+        "description": "FastViT: A Fast Hybrid Vision Transformer using Structural Reparameterization",
+        "features": ["Fast inference", "Hybrid architecture", "Mobile-optimized"],
+        "available_sizes": [
+            "t8 (4M)",
+            "sa12 (9M)",
+            "sa24 (22M)",
+            "sa36 (31M)",
+            "ma36 (44M)",
+        ],
+        "default": "timm/fastvit_t8.apple_in1k",
+    },
+}
+
+
+def register_backbone(
+    model_name: str, family: str, default_config: dict | None = None, variant: str = ""
+) -> None:
+    BACKBONE_REGISTRY[model_name] = BackboneEntry(
+        family=family, default_config=default_config or {}, variant=variant
+    )
+
+
+def register_family_default(family_name: str, default_model_name: str) -> None:
+    FAMILY_DEFAULTS[family_name] = default_model_name
+
 
 def resolve_model_name(model_name_or_family: str) -> str:
     if model_name_or_family in BACKBONE_REGISTRY:
@@ -73,6 +113,29 @@ def is_supported_backbone(model_name: str) -> bool:
 
 def is_family_name(name: str) -> bool:
     return name in FAMILY_DEFAULTS
+
+
+def get_family_models(family_name: str) -> dict[str, BackboneEntry]:
+    return {
+        name: entry
+        for name, entry in BACKBONE_REGISTRY.items()
+        if entry.family == family_name
+    }
+
+
+def list_families() -> dict[str, dict]:
+    return {
+        family: {
+            "info": FAMILY_INFO.get(family, {}),
+            "default": default,
+            "models": list(get_family_models(family)),
+        }
+        for family, default in FAMILY_DEFAULTS.items()
+    }
+
+
+def list_supported_backbones() -> dict[str, BackboneEntry]:
+    return dict(BACKBONE_REGISTRY)
 
 
 def vit_config_for(name: str, config: dict) -> ViTConfig:

@@ -1831,7 +1831,7 @@ cudaError_t launch_ln_bwd_sums(const void* x, const void* dres, const void* dm,
 // swizzled as wide as a head row.
 bool encode_heads(CUtensorMap* map, const void* base, int row, int S, int B, int dh) {
   EncodeTiledFn fn = encode_tiled();
-  if (fn == nullptr) return false;
+  if (fn == nullptr || !bind_context()) return false;
   const cuuint64_t dims[3] = {static_cast<cuuint64_t>(row), static_cast<cuuint64_t>(S),
                               static_cast<cuuint64_t>(B)};
   const cuuint64_t strides[2] = {static_cast<cuuint64_t>(row) * 2,

@@ -840,12 +840,7 @@ CUresult encode_nhwc(CUtensorMap* map, const void* base, int B, int H, int W, in
   if (e.base != base || e.B != B || e.H != H || e.W != W || e.C != C || e.cg != cg || e.bw != bw) {
     EncodeTiledFn fn = encode_tiled();
     if (fn == nullptr) return CUDA_ERROR_NOT_FOUND;
-    // cuTensorMapEncodeTiled needs a current context on the calling thread,
-    // which a thread whose first CUDA work is this launch (autograd's
-    // backward thread) does not have yet: bind the device's primary one.
-    int dev = 0;
-    if (cudaGetDevice(&dev) != cudaSuccess || cudaSetDevice(dev) != cudaSuccess)
-      return CUDA_ERROR_INVALID_CONTEXT;
+    if (!bind_context()) return CUDA_ERROR_INVALID_CONTEXT;
     const cuuint64_t dims[4] = {static_cast<cuuint64_t>(C), static_cast<cuuint64_t>(W),
                                 static_cast<cuuint64_t>(H), static_cast<cuuint64_t>(B)};
     const cuuint64_t strides[3] = {static_cast<cuuint64_t>(C) * 2,

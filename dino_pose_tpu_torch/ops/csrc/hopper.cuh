@@ -220,12 +220,27 @@ inline EncodeTiledFn encode_tiled() {
   return fn;
 }
 
+// cuTensorMapEncodeTiled needs a current context on the calling thread. A
+// host thread whose first CUDA work is a launch that encodes (autograd's
+// backward thread, a caller's worker thread) has none yet, since PyTorch
+// sets the device there without binding one: bind the device's primary
+// context, once a thread. Every encoder calls this first.
+inline bool bind_context() {
+  thread_local bool bound = false;
+  if (!bound) {
+    int dev = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess || cudaSetDevice(dev) != cudaSuccess) return false;
+    bound = true;
+  }
+  return true;
+}
+
 // A row-major (outer, inner) matrix as TMA tiles of box_outer rows of 128
 // bytes (64 bf16 or 32 f32 values), 128-byte swizzled.
 inline bool encode_tiles(CUtensorMap* map, const void* base, int inner, int outer, int box_outer,
                   bool f32 = false) {
   EncodeTiledFn fn = encode_tiled();
-  if (fn == nullptr) return false;
+  if (fn == nullptr || !bind_context()) return false;
   const int esize = f32 ? 4 : 2;
   const cuuint64_t dims[2] = {static_cast<cuuint64_t>(inner), static_cast<cuuint64_t>(outer)};
   const cuuint64_t strides[1] = {static_cast<cuuint64_t>(inner) * esize};

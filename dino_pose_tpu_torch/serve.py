@@ -20,6 +20,14 @@ from dino_pose_tpu_torch.data.preprocess import create_preprocessor
 from dino_pose_tpu_torch.ops.decode import decode_heatmaps
 
 
+def device_pixels(pixels: np.ndarray, device: torch.device) -> torch.Tensor:
+    """(B, 3, H, W) host pixels on ``device`` in its compute dtype: bf16 on
+    the card, where every kernel wrapper refuses f32 activations, f32 on the
+    CPU. The one cast that every entry point applies."""
+    dtype = policy_for_device(device).compute_dtype
+    return torch.from_numpy(np.ascontiguousarray(pixels, np.float32)).to(device).to(dtype)
+
+
 def make_predictor(
     model: torch.nn.Module, device: str | torch.device | None = None
 ) -> Callable[..., tuple[np.ndarray, np.ndarray, np.ndarray]]:
@@ -32,7 +40,6 @@ def make_predictor(
     bench decodes into its image size."""
     dev = resolve_device(device)
     model = model.to(dev).eval()
-    dtype = policy_for_device(dev).compute_dtype
     preprocessor = create_preprocessor(getattr(model, "model_name", "facebook/dinov2-small"))
 
     def predict(images) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
@@ -42,7 +49,7 @@ def make_predictor(
             pixels = images
         else:
             pixels = preprocessor(list(images))["pixel_values"]
-        x = torch.from_numpy(np.ascontiguousarray(pixels, np.float32)).to(dev).to(dtype)
+        x = device_pixels(pixels, dev)
         with torch.inference_mode():
             heatmaps, z = model(x)
             keypoints = decode_heatmaps(heatmaps, (x.shape[-1], x.shape[-2]))

@@ -35,7 +35,10 @@ within 2e-3 of their largest magnitude. FastViT's opt-in arms
 sa12 stage shape, at ragged H = 24 and 56 and at C = 76 and 20, k = 3 and 7;
 the backward's f32 sums da, db, dbias within 2e-3 of their largest
 magnitude; the segment's x2 bit-equal to the plain combine's and its
-kernels' second calls bit-equal to the first.
+kernels' second calls bit-equal to the first. A launch that is a fresh host
+thread's first CUDA work is held bit-equal to the same call on the main
+thread (the TMA encoders bind a context there), and the five CLIs beside
+``cli.train`` run on the card with exact launch counts.
 """
 
 import copy
@@ -2216,3 +2219,200 @@ def test_fit_two_steps_on_cuda(cuda_device, tmp_path):
     assert next(model.parameters()).device.type == "cuda"
     for a, b in zip(model.state_dict().values(), history["model"].state_dict().values()):
         assert torch.equal(a, b)
+
+
+# A fresh interpreter (so that the ConvFFN's tensor-map cache is cold) makes
+# the operands on its main thread, leaves freed blocks in the caching
+# allocator's pools, then calls the wrapper on a new thread, whose first CUDA
+# work that launch is, and again on the main thread.
+_FRESH_THREAD = r"""
+import json, sys, threading
+import torch
+from dino_pose_tpu_torch.ops import block, convffn
+from test_torch_cuda import _convffn_inputs, _gemm_operands
+
+dev = torch.device("cuda")
+if sys.argv[1] == "fused_gemm":
+    a, w, kw = _gemm_operands(dev, 257, 384, 1152)
+    call = lambda: block.fused_gemm(a, w, "bias_gelu", **kw)
+elif sys.argv[1] == "packed_attention":
+    qkv = torch.randn(2, 257, 3 * 384, generator=torch.Generator().manual_seed(5)).to(
+        dev, torch.bfloat16)
+    call = lambda: block.packed_attention(qkv, 6, streamed=False)
+else:
+    y, p = _convffn_inputs(1, 1024, 96, 288, 8, dev, seed=5)
+    call = lambda: convffn.fused_convffn(y, p, 2.0)
+for n in (1 << 19, 1 << 26):
+    del_me = torch.empty(n, dtype=torch.uint8, device=dev)
+    del del_me
+torch.cuda.synchronize()
+box = {}
+
+def run():
+    try:
+        box["out"] = call()
+        torch.cuda.synchronize()
+    except Exception as e:  # reported to the test, which fails on it
+        box["err"] = repr(e)
+
+thread = threading.Thread(target=run)
+thread.start()
+thread.join(300)
+main = call()
+torch.cuda.synchronize()
+print(json.dumps({"alive": thread.is_alive(), "err": box.get("err"),
+                  "equal": "out" in box and torch.equal(box["out"], main)}))
+"""
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wrapper", ["fused_gemm", "fused_convffn", "packed_attention"])
+def test_tensor_map_encoder_on_a_fresh_thread(cuda_device, wrapper):
+    """A launch that is a new host thread's first CUDA work encodes its TMA
+    tensor maps (``dp_hopper::encode_tiles``: directly from block_kernels.cu
+    for fused_gemm, through convffn_kernels.cu's cache, cold, for
+    fused_convffn; the resident attention's 3-D ``encode_heads``) and gives
+    the same bits as the call on the main thread. Without a context bound on
+    that thread the encode fails and the launch returns CUDA error 1."""
+    import json
+    import os
+    import pathlib
+    import subprocess
+    import sys
+
+    here = pathlib.Path(__file__).resolve().parent
+    env = {**os.environ, "PYTHONPATH": f"{here.parent}:{here}"}
+    proc = subprocess.run([sys.executable, "-c", _FRESH_THREAD, wrapper], cwd=here.parent,
+                          env=env, capture_output=True, text=True, timeout=600)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    got = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert got == {"alive": False, "err": None, "equal": True}
+
+
+# The CLIs on the card with test/vit-tiny + LoRA (one fused_block, the LoRA
+# layer's two halves and two resident attention steps a forward) and
+# fastvit_t8 (ten ConvFFN launches a forward).
+TINY_LORA_FWD = {"fused_block": 1, "fused_attn_part": 1, "fused_mlp_part": 1, "attn_fwd": 2}
+TINY_FWD = {"fused_block": 2, "attn_fwd": 2}
+T8_FWD = {"fused_convffn": 10}
+
+
+def _launches(*per_forward: tuple[dict, int]) -> dict:
+    want = dict.fromkeys(block.LAUNCHES, 0)
+    for per, n in per_forward:
+        for k, v in per.items():
+            want[k] += n * v
+    return want
+
+
+@pytest.fixture
+def tiny_pth(cuda_device, tmp_path):
+    """A test/vit-tiny + LoRA checkpoint written from the card, its LoRA B
+    non-zero."""
+    from dino_pose_tpu_torch.io.checkpoint import save_checkpoint
+
+    model = registry.create_model_from_config({"model_name": "test/vit-tiny", "use_lora": True},
+                                              device=cuda_device)
+    gen = torch.Generator().manual_seed(3)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name.endswith("lora_B"):
+                p.copy_(torch.randn(p.shape, generator=gen).to(p.device) * 0.02)
+    path = tmp_path / "tiny.pth"
+    save_checkpoint(path, model, epoch=5, train_loss=0.3, valid_loss=0.4)
+    return str(path), model
+
+
+@pytest.mark.cuda
+def test_cli_model_info_on_cuda(tiny_pth, tmp_path, capsys):
+    from dino_pose_tpu_torch.cli import model_info
+
+    block.reset_launches()
+    model_info.main(["--checkpoint", tiny_pth[0]])
+    model_info.main(["--list-checkpoints", str(tmp_path)])
+    out = capsys.readouterr().out
+    assert "Dinov2PoseModelLoRA" in out and "epoch: 5" in out and "tiny.pth" in out
+    assert block.LAUNCHES == _launches()
+
+
+@pytest.mark.cuda
+def test_cli_export_on_cuda(tiny_pth, tmp_path, capsys):
+    """One self-check forward an export; the exported file serves the same
+    bits as the source model on the card."""
+    from dino_pose_tpu_torch.cli import export_coreml
+    from dino_pose_tpu_torch.io.checkpoint import load_model_smart
+
+    out = tmp_path / "out.pth"
+    block.reset_launches()
+    export_coreml.main(["-c", tiny_pth[0], "-o", str(out)])
+    torch.cuda.synchronize()
+    assert block.LAUNCHES == _launches((TINY_LORA_FWD, 1))
+    assert "Self-check forward: heatmaps (1, 24, 48, 48), depths (1, 24)" in capsys.readouterr().out
+    x = torch.randn(2, 3, 224, 224, generator=torch.Generator().manual_seed(0)).to(
+        "cuda", torch.bfloat16)
+    exported = load_model_smart(str(out))
+    with torch.inference_mode():
+        got = exported(x)
+        want = tiny_pth[1](x)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    export_coreml.main(["-c", tiny_pth[0], "-o", str(tmp_path / "m.mlpackage")])
+    assert (tmp_path / "m.pth").exists()
+
+
+@pytest.mark.cuda
+def test_cli_demo_on_cuda(tiny_pth, tmp_path, monkeypatch):
+    """The demo's one forward an image, drawing from serve.make_predictor's
+    heatmaps bit for bit; its chunked video prediction, one forward a chunk
+    of --batch_size frames (the last padded)."""
+    from PIL import Image
+
+    from dino_pose_tpu_torch.cli import demo
+    from dino_pose_tpu_torch.data.preprocess import create_preprocessor
+    from dino_pose_tpu_torch.serve import make_predictor
+
+    rng = np.random.default_rng(4)
+    path = tmp_path / "person.jpg"
+    Image.fromarray(rng.integers(0, 256, (300, 400, 3), dtype=np.uint8)).save(path)
+    drawn = []
+    monkeypatch.setattr(demo, "draw_image", lambda image, hm, z, args: drawn.append((hm, z)))
+    block.reset_launches()
+    demo.main(["--input", str(path), "--model", tiny_pth[0], "--output", str(tmp_path / "o.png")])
+    torch.cuda.synchronize()
+    assert block.LAUNCHES == _launches((TINY_LORA_FWD, 1))
+    predict = make_predictor(tiny_pth[1])
+    _, z, hm = predict([Image.open(path).convert("RGB")])
+    assert np.array_equal(drawn[0][0], hm[0]) and np.array_equal(drawn[0][1], z[0])
+
+    frames = [Image.fromarray(rng.integers(0, 256, (120, 160, 3), dtype=np.uint8))
+              for _ in range(10)]
+    block.reset_launches()
+    chunks = list(demo.predict_chunks(frames, predict, create_preprocessor("test/vit-tiny"), 8))
+    torch.cuda.synchronize()
+    assert block.LAUNCHES == _launches((TINY_LORA_FWD, 2))
+    assert [len(c[1]) for c in chunks] == [8, 2]
+    assert all(np.isfinite(c[1]).all() and np.isfinite(c[2]).all() for c in chunks)
+
+
+@pytest.mark.cuda
+def test_cli_benchmark_on_cuda(tiny_pth):
+    from dino_pose_tpu_torch.cli.benchmark_model import benchmark_model
+
+    block.reset_launches()
+    result = benchmark_model(tiny_pth[0], warmup=1, iters=2)
+    assert block.LAUNCHES == _launches((TINY_LORA_FWD, 1 + 2 + 2))
+    assert all(result[k] > 0 for k in ("avg_ms", "p50_ms", "device_ms", "device_p50_ms"))
+    assert result["params"] == tiny_pth[1].count_parameters(trainable_only=False)
+
+
+@pytest.mark.cuda
+def test_cli_compare_on_cuda(cuda_device, capsys):
+    """Each model: 3 warm-up + 2 + 2 timed forwards in benchmark_model, then
+    3 + 2 in --device-time's forward + decode."""
+    from dino_pose_tpu_torch.cli import compare_models
+
+    block.reset_launches()
+    a, b = compare_models.main(["--model_a", "test/vit-tiny", "--model_b",
+                                "timm/fastvit_t8.apple_in1k", "--iters", "2", "--device-time"])
+    assert block.LAUNCHES == _launches((TINY_FWD, 12), (T8_FWD, 12))
+    assert all(r[k] > 0 for r in (a, b) for k in ("avg_ms", "device_ms", "device_p50_ms"))
+    assert "on-device:" in capsys.readouterr().out
