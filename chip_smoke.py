@@ -50,7 +50,13 @@ fine-tuning with that switch on; last, the training entry point
 (``python -m dino_pose_tpu_torch.cli.train``'s ``main``) on a seeded
 COCO-format set: two epochs of the default configuration with their
 launches, files and PCKh gate, the final checkpoint reloaded and served
-bit-equal, an auto-resumed third epoch and a device-warp epoch. Times kernels, serving and every train
+bit-equal, an auto-resumed third epoch and a device-warp epoch; then
+multi-process training on the one card (phase_dist): two ranks as
+processes of this script under torchrun's launch variables, gloo with CUDA
+tensors, dinov2-small and fastvit_t8 + LoRA steps of 2 x 64 against one
+process of 128, ``cli.train`` on two ranks against phase_fit's run and its
+resume, dinov2-base + LoRA with its model axis across the two ranks
+bit-equal to the one-card route, and a world of one under NCCL. Times kernels, serving and every train
 step; the ConvFFN, depthwise-conv and LayerNorm kernels, and cuDNN's
 grouped conv and torch.nn.functional.layer_norm beside them, on three
 clocks (host-inclusive, device-only from a CUDA graph's replay, host
@@ -60,6 +66,8 @@ microseconds a call), the ConvFFN kernels beside the replaced WMMA ones'
 
     python3 chip_smoke.py [--out results.json] [--profile]
     python3 chip_smoke.py --ab-parent DIR [--out ab.json]
+
+(``--dist-worker SPEC`` is how phase_dist starts its ranks.)
 
 The second form only times the fastvit_t8 + LoRA bs=128 train step on the
 kernel path, default and with both opt-in arms on, against the tree at DIR
@@ -3279,6 +3287,7 @@ def phase_fit(results: dict, root: str) -> dict:
                   "input_wait_s": traced["input_wait_s"][0]},
         wall_s=run_s, load_s=load_s, save_s=history["save_seconds"], warp_max_abs_err=warp_err,
         pckh=history["pckh"], best_model_epochs=gated, launches=launches,
+        history={k: history[k] for k in ("train_loss", "val_loss", "pckh", "epoch_seconds")},
         pckh_eval_s=history["pckh_seconds"] + again["pckh_seconds"],
         arms={arm: {k: h[k] for k in EPOCH_KEYS}
               for arm, h in (("host", {k: history[k] + again[k] for k in EPOCH_KEYS}),
@@ -3288,6 +3297,592 @@ def phase_fit(results: dict, root: str) -> dict:
     log(f"fit ({card}): PCKh eval s {fit['pckh_eval_s']}, checkpoint save s {fit['save_s']}, "
         f"load s {load_s}")
     return fit
+
+
+# phase_dist: the port's multi-process training on the one card, two ranks
+# started as processes through torchrun's launch contract (WORLD_SIZE, RANK,
+# LOCAL_RANK = 0, MASTER_ADDR, MASTER_PORT), both on cuda:0 under gloo with
+# CUDA tensors (NCCL takes one card a rank), each ``python3 chip_smoke.py
+# --dist-worker SPEC``. The steps: dinov2-small + LoRA r=8 at 224² and
+# fastvit_t8 + LoRA r=8 at 256², each 2 ranks x DIST_BATCH / 2 images
+# against one process x DIST_BATCH on the same weights and global batch.
+# Their losses are held to LOSS_RTOL; their step-1 gradients and BatchNorm
+# running-stat updates to the bf16 noise rule of the training phases (within
+# GRAD_NOISE_FACTOR times the one process's own error against its f32 plain
+# step, plus GRAD_NOISE_SLACK). A gradient that the f32 step gives as
+# rounding (below DIST_ZERO_GRAD of the step's largest: a conv bias that the
+# BatchNorm after it normalises away) has no relative error to hold: its
+# distance from f32 is held to DIST_ZERO_FACTOR times the one process's (two
+# independent roundings of a zero sum). One AdamW update is held
+# elementwise within DIST_ADAM_TOL (AdamW's first step is lr * sign(g), so
+# a gradient within roundoff of zero may step the other way: 2 * lr and the
+# rounding of the weight decay), and it must step the same way as the one
+# process's for at least as many elements as the one process's steps the
+# same way as its f32 step, less DIST_SIGN_SLACK. Both ranks end
+# bit-identical.
+DIST_WORLD, DIST_BATCH, DIST_TIMED = 2, TRAIN_BATCH, 5
+DIST_ZERO_GRAD, DIST_ZERO_FACTOR = 1e-5, 2.0
+DIST_ADAM_TOL = 2 * LR * 1.01
+DIST_SIGN_SLACK = 0.02
+# fit across ranks (``cli.train``'s main on phase_fit's set, global batch 32):
+# the ranks' global batches hold other images than the one process's (each
+# rank loads its half of every epoch's order), so the epoch losses are held
+# to DIST_FIT_RTOL of the one process's, and the baseline PCKh, on the same
+# weights, to DIST_PCKH_ATOL (a few keypoints moved across the threshold by
+# bf16 forwards at another batch size).
+DIST_FIT_RTOL, DIST_PCKH_ATOL = 5e-2, 1e-2
+# A worker run's limit (seconds); past it every worker is killed and the
+# phase fails.
+DIST_TIMEOUT = 900
+
+
+def dist_spawn(root: str, tag: str, jobs: list, world: int = DIST_WORLD,
+               backend: str = "gloo", timeout: float = DIST_TIMEOUT) -> list:
+    """Run ``jobs`` in ``world`` processes of this script (``--dist-worker``)
+    under torchrun's contract on localhost, each one's output in a log under
+    ``root``; returns each rank's results (``torch.save``'d by the worker).
+    Raises if a worker fails or outlives ``timeout`` (every worker is then
+    killed)."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    spec = os.path.join(root, f"{tag}.json")
+    with open(spec, "w") as f:
+        json.dump({"out": root, "tag": tag, "jobs": jobs, "backend": backend}, f)
+    procs, logs = [], []
+    for r in range(world):
+        logs.append(os.path.join(root, f"{tag}_rank{r}.log"))
+        env = {"GLOO_SOCKET_IFNAME": "lo", "NCCL_SOCKET_IFNAME": "lo", **os.environ,
+               "WORLD_SIZE": str(world), "RANK": str(r), "LOCAL_RANK": "0",
+               "MASTER_ADDR": "localhost", "MASTER_PORT": str(port)}
+        with open(logs[-1], "w") as out:
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--dist-worker", spec],
+                stdout=out, stderr=subprocess.STDOUT, env=env,
+                cwd=os.path.dirname(os.path.abspath(__file__))))
+    deadline = time.perf_counter() + timeout
+    try:
+        for p in procs:
+            p.wait(timeout=max(1.0, deadline - time.perf_counter()))
+    except subprocess.TimeoutExpired:
+        raise RuntimeError(f"dist {tag}: a worker outlived {timeout} s") from None
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    texts = []
+    for r, (p, path) in enumerate(zip(procs, logs)):
+        with open(path) as f:
+            texts.append(f.read())
+        if p.returncode != 0:
+            raise RuntimeError(f"dist {tag}: rank {r} exited {p.returncode}:\n{texts[-1][-4000:]}")
+    return [{**torch.load(os.path.join(root, f"{tag}_rank{r}.pt"), weights_only=False),
+             "log": texts[r]} for r in range(world)]
+
+
+def dist_worker(spec_path: str) -> int:
+    """One rank of phase_dist: ``maybe_initialize_distributed`` from the
+    launch contract (gloo with CUDA tensors, or NCCL where the spec asks),
+    then each job in order; its results go to ``<out>/<tag>_rank<r>.pt``."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    import torch.distributed as dist
+
+    from dino_pose_tpu_torch.core import distributed
+
+    with open(spec_path) as f:
+        spec = json.load(f)
+    backend = spec.get("backend", "gloo")
+    distributed.maybe_initialize_distributed("cuda:0", backend=backend)
+    rank, world = distributed.rank(), distributed.world_size()
+    out = {}
+    for job in spec["jobs"]:
+        t0 = time.perf_counter()
+        out[job["name"]] = DIST_JOBS[job["kind"]](job, rank, world)
+        out[job["name"]]["wall_s"] = time.perf_counter() - t0
+        log(f"dist worker rank {rank}: {job['name']} done in {out[job['name']]['wall_s']:.2f} s")
+    torch.save(out, os.path.join(spec["out"], f"{spec['tag']}_rank{rank}.pt"))
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def seeded_model(config: dict):
+    from dino_pose_tpu_torch.models.registry import create_model_from_config
+
+    model = create_model_from_config(dict(config), seed=SEED, device="cuda")
+    randomise_for_serving(model, torch.Generator().manual_seed(SEED + 4))
+    return model
+
+
+def timed_steps_ms(step, state, batch, n: int = DIST_TIMED) -> tuple:
+    """Host-clock ms a step over ``n`` steps after one warm-up, closed by a
+    synchronize (and, across ranks, a barrier on each side)."""
+    from dino_pose_tpu_torch.core import distributed
+
+    state, _ = step(state, batch, LR, SEED)
+    torch.cuda.synchronize()
+    if distributed.is_initialized():
+        torch.distributed.barrier()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        state, _ = step(state, batch, LR, SEED)
+    torch.cuda.synchronize()
+    if distributed.is_initialized():
+        torch.distributed.barrier()
+    return (time.perf_counter() - t0) * 1e3 / n, state
+
+
+def step_record(model, config: dict, batch: dict, image_size: int) -> dict:
+    """One kernel-path bf16 train step of ``model`` on ``batch``: its
+    launches, stats, the trainable parameters before it, their gradients,
+    the state dict after it (on the host); then the step's time."""
+    from dino_pose_tpu_torch.ops import block as B
+
+    state, step = make_step(model, config, kernels=True, image_size=image_size)
+    names = [n for n, p in model.named_parameters() if p.requires_grad]
+    # What a step changes: the trainable parameters and the buffers (the
+    # frozen weights are held bitwise unchanged by the training phases).
+    kept = set(names) | {n for n, _ in model.named_buffers()}
+
+    def host_state() -> dict:
+        return {k: v.detach().cpu().clone() for k, v in model.state_dict().items() if k in kept}
+
+    before = host_state()
+    B.reset_launches()
+    state, stats = step(state, batch, LR, SEED)
+    torch.cuda.synchronize()
+    launches = dict(B.LAUNCHES)
+    params = dict(model.named_parameters())
+    rec = {"launches": launches, "stats": {k: v.item() for k, v in stats.items()},
+           "before": before, "grads": {n: params[n].grad.detach().cpu() for n in names},
+           "after": host_state()}
+    rec["step_ms"], _ = timed_steps_ms(step, state, batch)
+    return rec
+
+
+def dist_job_step(job: dict, rank: int, world: int) -> dict:
+    """(a)/(b): this rank's rows of the seeded global batch under the
+    default mesh (every rank a data shard)."""
+    from dino_pose_tpu_torch.core.mesh import create_mesh
+    from dino_pose_tpu_torch.ops import dispatch
+
+    model = seeded_model(job["config"])
+    full = synthetic_batch(job["batch"], job["image_size"])
+    b = job["batch"] // world
+    local = {k: v[rank * b:(rank + 1) * b].contiguous() for k, v in full.items()}
+    with dispatch.scoped():
+        create_mesh(device="cuda:0")
+        return step_record(model, job["config"], local, job["image_size"])
+
+
+def dist_job_tp(job: dict, rank: int, world: int) -> dict:
+    """(d): dinov2-base + LoRA under ('data', 'model') = (1, world) across
+    the ranks: a batch-8 forward and one train step."""
+    from dino_pose_tpu_torch.core.mesh import MeshSpec, create_mesh
+    from dino_pose_tpu_torch.ops import dispatch
+
+    with dispatch.scoped(), deterministic_cudnn():
+        create_mesh(MeshSpec(1, world), device="cuda:0")
+        return tp_record(job["config"], job["batch"])
+
+
+@contextlib.contextmanager
+def deterministic_cudnn():
+    """cuDNN's deterministic algorithms for a block: the heads' convolution
+    backward otherwise sums with atomics, in an order that differs from run
+    to run."""
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = prev
+
+
+def tp_record(config: dict, batch_size: int) -> dict:
+    """The recorded mesh's dinov2-base + LoRA: a batch-8 eval forward and
+    one train step at ``batch_size`` (launches of each)."""
+    from dino_pose_tpu_torch.ops import block as B
+
+    model = seeded_model(config)
+    pixels = synthetic_batch(8)["image"].to(torch.bfloat16)
+    B.reset_launches()
+    with torch.no_grad():
+        hm, z = model.eval()(pixels)
+    torch.cuda.synchronize()
+    fwd = dict(B.LAUNCHES)
+    rec = step_record(model, config, synthetic_batch(batch_size), 224)
+    rec.update(fwd_launches=fwd, hm=hm.float().cpu(), z=z.float().cpu())
+    return rec
+
+
+def dist_job_fit(job: dict, rank: int, world: int) -> dict:
+    """(c): ``cli.train``'s main with this rank's config file (its own
+    checkpoint directory); with ``pretend_no_ckpt``, rank 1 acts as if no
+    ``.pth`` were on its filesystem."""
+    from dino_pose_tpu_torch.cli.train import main as train_main
+    from dino_pose_tpu_torch.ops import block as B
+    from dino_pose_tpu_torch.train import evaluate
+
+    if job.get("pretend_no_ckpt") and rank > 0:
+        real = os.path.isfile
+        os.path.isfile = lambda p: False if str(p).endswith(".pth") else real(p)
+    B.reset_launches()
+    history = train_main(job["argv"][rank])
+    torch.cuda.synchronize()
+    state = history["model"].state_dict()
+    import hashlib
+
+    digest = hashlib.sha256()
+    for k, v in state.items():
+        digest.update(k.encode())
+        digest.update(v.detach().cpu().contiguous().view(-1).view(torch.uint8).numpy().tobytes())
+    return {"launches": dict(B.LAUNCHES), "eval_info": dict(evaluate.last_eval_info),
+            "state_sha256": digest.hexdigest(), "step": history["state"].step,
+            **{k: history[k] for k in ("train_loss", "val_loss", "pckh", "epoch_seconds",
+                                       "images_per_sec")}}
+
+
+def dist_job_nccl(job: dict, rank: int, world: int) -> dict:
+    """(e): a world of one under NCCL: the collectives of core/distributed
+    on CUDA tensors, AdamW's host-side ``step`` tensors included."""
+    import torch.distributed as dist
+
+    from dino_pose_tpu_torch.core import distributed
+    from dino_pose_tpu_torch.train.state import make_optimizer
+    from dino_pose_tpu_torch.train.weighting import LossWeightState
+
+    out = {"backend": dist.get_backend(), "device": str(distributed.collective_device()),
+           "string": distributed.broadcast_string("final_model.pth")}
+    model = torch.nn.Sequential(torch.nn.Linear(16, 8), torch.nn.BatchNorm1d(8)).cuda()
+    opt = make_optimizer(model.parameters(), 1e-6)
+    opt.param_groups[0]["lr"] = 1e-3
+    model(torch.randn(4, 16, device="cuda")).square().sum().backward()
+    opt.step()
+    steps = [st["step"] for st in opt.state.values()]
+    before = {k: v.clone() for k, v in model.state_dict().items()}
+    moments = [st["exp_avg"].clone() for st in opt.state.values()]
+    lw = LossWeightState.create(0.3, device="cuda")
+    distributed.check_same_structure(distributed.state_description(model, opt), "nccl")
+    lw2, scalars = distributed.broadcast_state(model, opt, lw, [3, 1e-4])
+    t = torch.arange(4.0, device="cuda", requires_grad=True)
+    summed = distributed._DataSum.apply(t, None)
+    summed.sum().backward()
+    out.update(
+        steps_on_host=all(s.device.type == "cpu" for s in steps),
+        steps=[float(s) for s in steps], scalars=scalars, weight=float(lw2.weight),
+        state_kept=all(torch.equal(before[k], v) for k, v in model.state_dict().items()),
+        moments_kept=all(torch.equal(m, st["exp_avg"]) for m, st in zip(moments,
+                                                                        opt.state.values())),
+        sum_ok=bool(torch.equal(summed.detach(), t.detach())),
+        grad_ok=bool(torch.equal(t.grad, torch.ones_like(t))))
+    return out
+
+
+DIST_JOBS = {"step": dist_job_step, "tp": dist_job_tp, "fit": dist_job_fit, "nccl": dist_job_nccl}
+
+
+def dist_hold_step(tag: str, two: list, one: dict, ref_grads: dict, ref_after: dict,
+                   failures: list) -> dict:
+    """(a)/(b)'s checks of the two ranks' step against one process's."""
+    r0 = two[0]
+    rec = {"losses": {}, "grads": {}, "stats_updates": {}}
+    for k in ("loss", "kp_loss", "z_loss", "weight"):
+        got, want = r0["stats"][k], one["stats"][k]
+        rel = abs(got - want) / abs(want)
+        ok = np.isfinite(got) and rel <= LOSS_RTOL
+        rec["losses"][k] = (got, want, rel)
+        log(f"dist {tag} {k}: 2 ranks {got:.7g}, 1 process {want:.7g}, rel {rel:.3g} "
+            f"(tol {LOSS_RTOL}) -> {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(f"{tag} {k}")
+    worst, zeros = 0.0, []
+    largest = max(float(g.norm()) for g in ref_grads.values())
+    for n, g in r0["grads"].items():
+        if not ref_grads[n].any():
+            # A leaf this input does not reach: zero on every path.
+            if g.any() or one["grads"][n].any():
+                failures.append(f"{tag} gradient {n} not zero")
+            continue
+        g1, gf = one["grads"][n], ref_grads[n]
+        if float(gf.norm()) < DIST_ZERO_GRAD * largest:
+            d2, d1 = float((g.float() - gf).norm()), float((g1.float() - gf).norm())
+            zeros.append((n, d2, d1))
+            if not (bool(torch.isfinite(g).all()) and d2 <= DIST_ZERO_FACTOR * d1):
+                failures.append(f"{tag} gradient {n}")
+                log(f"dist {tag} grad {n} (rounding in f32): |2 ranks - f32| {d2:.4g}, "
+                    f"|1 process - f32| {d1:.4g} (tol {DIST_ZERO_FACTOR}x) -> FAIL")
+            continue
+        rel, k_ref, p_ref = rel_err(g, g1), rel_err(g, gf), rel_err(g1, gf)
+        tol = GRAD_NOISE_FACTOR * p_ref + GRAD_NOISE_SLACK
+        ok = bool(torch.isfinite(g).all()) and max(rel, k_ref) <= tol
+        worst = max(worst, max(rel, k_ref) / tol)
+        rec["grads"][n] = (rel, k_ref, p_ref)
+        if not ok:
+            failures.append(f"{tag} gradient {n}")
+            log(f"dist {tag} grad {n}: 2 ranks vs 1 process {rel:.4g}, vs f32 {k_ref:.4g}, "
+                f"1 process vs f32 {p_ref:.4g} (tol {tol:.4g}) -> FAIL")
+    rec["rounding_grads"] = zeros
+    log(f"dist {tag}: {len(rec['grads'])} step-1 gradients within the bf16 noise rule, worst "
+        f"{worst:.3f} of its tolerance; {len(zeros)} that f32 gives as rounding (below "
+        f"{DIST_ZERO_GRAD} of the largest), their distance from f32 at most "
+        f"{max((d2 / d1 for _, d2, d1 in zeros), default=0.0):.3f}x the one process's "
+        f"(tol {DIST_ZERO_FACTOR}x)")
+    # The BatchNorm running statistics' update over the step, by the same rule.
+    for k, v in r0["after"].items():
+        if k.endswith(("running_mean", "running_var")):
+            d2, d1, df = (v - r0["before"][k], one["after"][k] - one["before"][k],
+                          ref_after[k] - one["before"][k])
+            if not df.any():
+                # A BatchNorm this input does not reach: no update on any path.
+                if d2.any() or d1.any():
+                    failures.append(f"{tag} running stat {k} moved")
+                continue
+            rel, k_ref, p_ref = rel_err(d2, d1), rel_err(d2, df), rel_err(d1, df)
+            tol = GRAD_NOISE_FACTOR * p_ref + GRAD_NOISE_SLACK
+            rec["stats_updates"][k] = (rel, k_ref, p_ref)
+            if not max(rel, k_ref) <= tol:
+                failures.append(f"{tag} running stat {k}")
+                log(f"dist {tag} {k} update: 2 ranks vs 1 process {rel:.4g}, vs f32 "
+                    f"{k_ref:.4g}, 1 process vs f32 {p_ref:.4g} (tol {tol:.4g}) -> FAIL")
+    if rec["stats_updates"]:
+        log(f"dist {tag}: {len(rec['stats_updates'])} BatchNorm running-stat updates held, worst "
+            f"2 ranks vs 1 process {max(r[0] for r in rec['stats_updates'].values()):.4g}")
+    # One AdamW update of every trainable parameter, against the one
+    # process's, and the one process's against its f32 step.
+    diffs, agree, agree_f32, total = [], 0, 0, 0
+    for n in r0["grads"]:
+        u2, u1 = r0["after"][n] - r0["before"][n], one["after"][n] - one["before"][n]
+        uf = ref_after[n] - one["before"][n]
+        diffs.append(float((u2 - u1).abs().max()))
+        agree += int((torch.sign(u2) == torch.sign(u1)).sum())
+        agree_f32 += int((torch.sign(u1) == torch.sign(uf)).sum())
+        total += u1.numel()
+    rec["adam_max_diff"], rec["adam_sign_agree"] = max(diffs), agree / total
+    rec["adam_sign_agree_one_vs_f32"] = agree_f32 / total
+    floor = rec["adam_sign_agree_one_vs_f32"] - DIST_SIGN_SLACK
+    ok = rec["adam_max_diff"] <= DIST_ADAM_TOL and rec["adam_sign_agree"] >= floor
+    log(f"dist {tag} AdamW update: max |2 ranks - 1 process| {rec['adam_max_diff']:.3g} "
+        f"(tol {DIST_ADAM_TOL:.3g}); same direction as 1 process {rec['adam_sign_agree']:.4f}, "
+        f"1 process as its f32 step {rec['adam_sign_agree_one_vs_f32']:.4f} (at least "
+        f"{floor:.4f}) -> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append(f"{tag} AdamW update")
+    same = all(torch.equal(v, two[1]["after"][k]) for k, v in r0["after"].items())
+    log(f"dist {tag}: both ranks' parameters and buffers bit-identical: {same}")
+    if not same:
+        failures.append(f"{tag} ranks differ")
+    if two[1]["launches"] != r0["launches"]:
+        failures.append(f"{tag} launches differ across ranks")
+    return rec
+
+
+def phase_dist(results: dict, root: str, fit_history: dict) -> dict:
+    """Multi-process training on the one card (see DIST_WORLD above): (a)
+    dinov2-small + LoRA r=8 and (b) fastvit_t8 + LoRA r=8, one step on two
+    ranks against one process on the same global batch; (c) ``cli.train``
+    across two ranks on phase_fit's set (``root``) against phase_fit's one
+    process (``fit_history``), then an auto-resumed epoch with rank 1
+    pretending the checkpoint is absent; (d) dinov2-base + LoRA under
+    ('data', 'model') = (1, 2) across two ranks against the one-card tp = 2
+    route, bit for bit; (e) a world of one under NCCL. Launches per rank per
+    step, and wall seconds of each part."""
+    from dino_pose_tpu_torch.core.mesh import MeshSpec, create_mesh
+    from dino_pose_tpu_torch.ops import dispatch
+
+    card = nvidia_smi()
+    out: dict = {"card": card, "wall_s": {}}
+    failures: list = []
+    t_phase = time.perf_counter()
+
+    # One process's references, each from the same seeded weights and batch:
+    # the bf16 kernel step and the f32 plain step (the noise yardstick).
+    refs = {}
+    t0 = time.perf_counter()
+    for tag, config, b, img in (("dinov2_small_lora", LORA_CONFIG, DIST_BATCH, 224),
+                                ("fastvit_t8_lora", T8_CONFIG, DIST_BATCH, FASTVIT_IMAGE)):
+        model = seeded_model(config)
+        ref = copy.deepcopy(model)
+        batch = synthetic_batch(b, img)
+        one = step_record(model, config, batch, img)
+        rstate, rstep = make_step(ref, config, kernels=False, dtype=torch.float32,
+                                  image_size=img)
+        rstep(rstate, batch, LR, SEED)
+        ref_grads = {n: p.grad.detach().cpu() for n, p in ref.named_parameters()
+                     if p.requires_grad}
+        ref_after = {k: v.detach().cpu() for k, v in ref.state_dict().items()}
+        refs[tag] = (config, b, img, one, ref_grads, ref_after)
+        del model, ref, rstate, rstep, batch
+        gc.collect()
+        torch.cuda.empty_cache()
+    with dispatch.scoped(), deterministic_cudnn():
+        create_mesh(MeshSpec(1, DIST_WORLD))
+        card_tp = tp_record(BASE_LORA_CONFIG, DIST_BATCH)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["wall_s"]["references"] = time.perf_counter() - t0
+
+    # The two ranks: (a), (b), (d), then (c) and its resume.
+    argv = {}
+    for arm in ("fit", "resume"):
+        argv[arm] = []
+        for r in range(DIST_WORLD):
+            path = os.path.join(root, f"config_dist_{r}.py")
+            with open(path, "w") as f:
+                f.write(FIT_CONFIG.format(
+                    ti=os.path.join(root, "train", "images"),
+                    ta=os.path.join(root, "train", "annotation.json"),
+                    vi=os.path.join(root, "valid", "images"),
+                    va=os.path.join(root, "valid", "annotation.json"),
+                    ck=os.path.join(root, f"checkpoints_dist_{r}"), extra=""))
+            argv[arm].append(["--config_file", path] + (["--num_epochs", "3"]
+                                                        if arm == "resume" else []))
+    jobs = [{"name": tag, "kind": "step", "config": refs[tag][0], "batch": refs[tag][1],
+             "image_size": refs[tag][2]} for tag in refs]
+    jobs += [{"name": "dinov2_base_lora_tp2", "kind": "tp", "config": BASE_LORA_CONFIG,
+              "batch": DIST_BATCH},
+             {"name": "fit", "kind": "fit", "argv": argv["fit"]},
+             {"name": "fit_resume", "kind": "fit", "argv": argv["resume"],
+              "pretend_no_ckpt": True}]
+    t0 = time.perf_counter()
+    two = dist_spawn(root, "dist", jobs)
+    out["wall_s"]["two_ranks"] = time.perf_counter() - t0
+    for tag in refs:
+        out["wall_s"][tag] = two[0][tag]["wall_s"]
+    for name in ("dinov2_base_lora_tp2", "fit", "fit_resume"):
+        out["wall_s"][name] = two[0][name]["wall_s"]
+
+    # (a), (b)
+    for tag, path, per_step in (("dinov2_small_lora", "dist_lora_train", LORA_LAUNCHES),
+                                ("fastvit_t8_lora", "dist_fastvit_t8_lora_train",
+                                 T8_TRAIN_LAUNCHES)):
+        config, b, img, one, ref_grads, ref_after = refs[tag]
+        ranks = [r[tag] for r in two]
+        launches = ranks[0]["launches"]
+        log(f"dist {tag}: launches a rank a step {launches}")
+        if launches != expected(per_step):
+            failures.append(f"{tag} launches {launches}")
+        record_launches(results, path, launches)
+        out[tag] = dist_hold_step(tag, ranks, one, ref_grads, ref_after, failures)
+        out[tag].update(step_ms_two_ranks=ranks[0]["step_ms"], step_ms_one_process=one["step_ms"])
+        log(f"dist {tag} ({card}): step {ranks[0]['step_ms']:.2f} ms on 2 ranks x {b // 2} "
+            f"sharing the card, {one['step_ms']:.2f} ms in 1 process x {b} (host clock, "
+            f"{DIST_TIMED} steps)")
+
+    # (d): bit for bit against the one-card tp = 2 route.
+    tag = "dinov2_base_lora_tp2"
+    ranks = [r[tag] for r in two]
+    per_step = {k: v // DIST_WORLD for k, v in TP_LORA_LAUNCHES.items() if k in TP_SHARD}
+    per_step["attn_fwd"] = TP_LORA_LAUNCHES["attn_fwd"] // DIST_WORLD
+    per_fwd = {k: v // DIST_WORLD for k, v in SERVING_TP_LAUNCHES.items()}
+    for r in ranks:
+        if r["launches"] != expected(per_step) or r["fwd_launches"] != expected(per_fwd):
+            failures.append(f"{tag} launches {r['launches']} / {r['fwd_launches']}")
+    record_launches(results, "dist_tp2_train", ranks[0]["launches"])
+    mismatch = []
+    for r_i, r in enumerate(ranks):
+        pairs = [("hm", r["hm"], card_tp["hm"]), ("z", r["z"], card_tp["z"])]
+        pairs += [(f"stat {k}", torch.tensor(v), torch.tensor(card_tp["stats"][k]))
+                  for k, v in r["stats"].items()]
+        pairs += [(f"grad {n}", g, card_tp["grads"][n]) for n, g in r["grads"].items()]
+        pairs += [(f"after {k}", v, card_tp["after"][k]) for k, v in r["after"].items()]
+        for what, got, want in pairs:
+            if not torch.equal(got, want):
+                diff = float((got.double() - want.double()).abs().max())
+                mismatch.append(f"rank {r_i} {what}: max abs {diff:.3g}")
+    log(f"dist {tag}: forward (batch 8) and LoRA step (batch {DIST_BATCH}) across 2 ranks vs "
+        f"the one-card tp=2 route: {'bit-equal' if not mismatch else mismatch[:20]}; "
+        f"launches a rank: step {ranks[0]['launches']}, forward {ranks[0]['fwd_launches']}")
+    if mismatch:
+        failures.append(f"{tag}: {len(mismatch)} tensors differ from the one-card route")
+    out[tag] = {"bit_equal": not mismatch, "mismatch": mismatch[:20],
+                "step_ms_two_ranks": ranks[0]["step_ms"], "step_ms_one_card": card_tp["step_ms"]}
+    log(f"dist {tag} ({card}): step {ranks[0]['step_ms']:.2f} ms with a shard a rank on 2 "
+        f"ranks sharing the card, {card_tp['step_ms']:.2f} ms with both shards in 1 process "
+        f"(host clock, {DIST_TIMED} steps, cuDNN deterministic)")
+
+    # (c): fit across the ranks against phase_fit's one process.
+    fit = [r["fit"] for r in two]
+    one_fit = fit_history
+    steps = 2 * (FIT_TRAIN // 32)
+    forwards = len(fit[0]["val_loss"]) + len(fit[0]["pckh"])  # one local batch of 16 each
+    want = {k: steps * LORA_LAUNCHES.get(k, 0) + forwards * SERVING_LAUNCHES.get(k, 0)
+            for k in fit[0]["launches"]}
+    for r in fit:
+        if r["launches"] != want:
+            failures.append(f"fit launches {r['launches']}, want {want}")
+    record_launches(results, "dist_fit", fit[0]["launches"])
+    losses = {}
+    for key in ("train_loss", "val_loss"):
+        got, ref = np.asarray(fit[0][key]), np.asarray(one_fit[key])
+        rel = np.abs(got - ref) / np.abs(ref)
+        losses[key] = (got.tolist(), ref.tolist(), rel.tolist())
+        ok = got.shape == ref.shape and np.isfinite(got).all() and (rel <= DIST_FIT_RTOL).all()
+        log(f"dist fit {key}: 2 ranks {got.tolist()}, 1 process {ref.tolist()}, rel "
+            f"{rel.tolist()} (tol {DIST_FIT_RTOL}) -> {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(f"fit {key}")
+    base_diff = np.abs(np.asarray(fit[0]["pckh"][0]) - np.asarray(one_fit["pckh"][0])).max()
+    info_ok = all(r["eval_info"] == {"local_images": FIT_VAL // 2, "total_images": FIT_VAL}
+                  for r in fit)
+    pckh_ok = info_ok and base_diff <= DIST_PCKH_ATOL and fit[0]["pckh"] == fit[1]["pckh"]
+    log(f"dist fit PCKh: 2 ranks {fit[0]['pckh']}, 1 process {one_fit['pckh']}; baseline diff "
+        f"{base_diff:.4g} (tol {DIST_PCKH_ATOL}); images a rank {[r['eval_info'] for r in fit]} "
+        f"-> {'ok' if pckh_ok else 'FAIL'}")
+    if not pckh_ok:
+        failures.append("fit PCKh")
+    files = [sorted(os.listdir(os.path.join(root, f"checkpoints_dist_{r}")))
+             for r in range(DIST_WORLD)]
+    files_ok = not files[1] and "final_model.pth" in files[0] and "metrics.csv" in files[0]
+    same = fit[0]["state_sha256"] == fit[1]["state_sha256"]
+    log(f"dist fit files: rank 0 {files[0]}, rank 1 {files[1]}; final states equal: {same}")
+    if not (files_ok and same):
+        failures.append("fit files or states")
+    res = [r["fit_resume"] for r in two]
+    logs_ok = ("Auto-resuming from latest checkpoint" in two[0]["log"]
+               and "will receive resumed state from the primary" in two[1]["log"])
+    res_ok = (logs_ok and res[0]["state_sha256"] == res[1]["state_sha256"]
+              and all(len(r["train_loss"]) == 1 and r["step"] == steps + steps // 2 for r in res))
+    log(f"dist fit resume (rank 1 without the file): epochs {[r['train_loss'] for r in res]}, "
+        f"steps {[r['step'] for r in res]}, states bit-identical "
+        f"{res[0]['state_sha256'] == res[1]['state_sha256']}, logs {logs_ok} "
+        f"-> {'ok' if res_ok else 'FAIL'}")
+    if not res_ok:
+        failures.append("fit resume")
+    out["fit"] = {"losses": losses, "pckh": fit[0]["pckh"], "pckh_one": one_fit["pckh"],
+                  "eval_info": [r["eval_info"] for r in fit], "files": files,
+                  "epoch_seconds_two_ranks": fit[0]["epoch_seconds"],
+                  "epoch_seconds_one_process": one_fit["epoch_seconds"],
+                  "images_per_sec_two_ranks": fit[0]["images_per_sec"],
+                  "launches": fit[0]["launches"]}
+    log(f"dist fit ({card}): epoch s {fit[0]['epoch_seconds']} on 2 ranks sharing the card, "
+        f"{one_fit['epoch_seconds']} in 1 process (phase_fit)")
+
+    # (e): NCCL, a world of one.
+    t0 = time.perf_counter()
+    (nccl,) = dist_spawn(root, "nccl", [{"name": "nccl", "kind": "nccl"}], world=1,
+                         backend="nccl")
+    out["wall_s"]["nccl"] = time.perf_counter() - t0
+    n = nccl["nccl"]
+    nccl_ok = (n["backend"] == "nccl" and n["device"].startswith("cuda")
+               and n["string"] == "final_model.pth" and n["steps_on_host"]
+               and n["steps"] == [1.0, 1.0, 1.0, 1.0] and n["scalars"] == [3.0, 1e-4]
+               and abs(n["weight"] - 0.3) < 1e-7 and n["state_kept"] and n["moments_kept"]
+               and n["sum_ok"] and n["grad_ok"])
+    log(f"dist nccl (a world of one): {json.dumps({k: v for k, v in n.items() if k != 'wall_s'})}"
+        f" -> {'ok' if nccl_ok else 'FAIL'}")
+    if not nccl_ok:
+        failures.append("nccl")
+    out["nccl"] = n
+    out["wall_s"]["phase"] = time.perf_counter() - t_phase
+    log(f"dist wall seconds ({card}): {json.dumps(out['wall_s'])}")
+    if failures:
+        raise AssertionError("phase_dist: " + "; ".join(failures))
+    return out
 
 
 def phase_cli(results: dict, serving: dict, root: str) -> dict:
@@ -3587,11 +4182,16 @@ def main() -> int:
                          "default and with both opt-in arms on, against the tree at DIR "
                          "(parent, change, change, parent; each arm a fresh process), print "
                          "them and exit")
+    ap.add_argument("--dist-worker", metavar="SPEC",
+                    help="run as one rank of phase_dist (started by the script itself under "
+                         "torchrun's launch variables): the jobs SPEC names")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    if args.dist_worker:
+        return dist_worker(args.dist_worker)
     if args.ab_parent:
         log(f"card: {nvidia_smi()}")
         ab = ab_step(args.ab_parent)
@@ -3747,6 +4347,7 @@ def main() -> int:
         f"{train_t8_pair['step_ms_kernels']:.3f} / {train_t8_pair['step_ms_plain']:.3f}")
     with tempfile.TemporaryDirectory() as fit_root:
         fit = phase_fit(results, fit_root)
+        dist = phase_dist(results, fit_root, fit["history"])
     by_batch = phase_times()
     for times in (*wide_times, stream_train_times):
         for b, t in times.items():
@@ -3838,7 +4439,8 @@ def main() -> int:
                        "training_lora_ln": lora_ln, "gemm": gemm_times,
                        "gemm_bwd": gemm_bwd_times,
                        "attention_core": {k: v for k, v in core_times.items()
-                                          if isinstance(k, str)}, "fit": fit, "cli": cli},
+                                          if isinstance(k, str)}, "fit": fit, "cli": cli,
+                       "dist": dist},
                       f, indent=1)
     log(f"cli ({card}): " + json.dumps(cli))
     print(json.dumps({"kernels": kernels}))

@@ -1,13 +1,18 @@
 """Training CLI (counterpart of dino_pose_tpu/cli/train.py).
 
     python -m dino_pose_tpu_torch.cli.train [--config_file FILE] [--num_epochs N]
+    torchrun --nproc_per_node=8 -m dino_pose_tpu_torch.cli.train [...]
 
 The given Python file's ``get_default_configs()`` is loaded; the default is
 the port's own ``dino_pose_tpu_torch/configs/config.py`` (the repository's
 ``config/config.py`` imports the JAX package). Training runs on the card
-(``train/loop.fit``) and raises without one. ``--no_pth_export`` is parsed
-for the JAX CLI's flags and changes nothing: ``.pth`` is the port's native
-checkpoint format, so there is no second file to skip.
+(``train/loop.fit``) and raises without one. Under a multi-process launch
+(torchrun's, JAX's or SLURM's variables, ``core/distributed.py``) each rank
+runs this same command, on its own card, and together they train one
+model over the global batch ``batch_size``; no flag is needed.
+``--no_pth_export`` is parsed for the JAX CLI's flags and changes nothing:
+``.pth`` is the port's native checkpoint format, so there is no second file
+to skip.
 """
 
 from __future__ import annotations

@@ -19,8 +19,11 @@ sample carries a letterboxed uint8 canvas and the warp's affines instead of
 
 The loader is a thread-pooled prefetcher, not torch's fork-worker
 ``DataLoader``: decode/augment of the next batches overlaps device work, and
-batches are yielded as stacked numpy arrays. One process loads the whole
-dataset (multi-process input sharding is ROADMAP Queue 1 item 8).
+batches are yielded as stacked numpy arrays. Under a multi-process launch
+each rank loads its data shard of every epoch's order
+(``shard_by_process=True``: the shard is the rank's data coordinate of the
+recorded mesh, ``core/distributed.data_shard``; ranks of one model group
+load the same slice), as the JAX package's loader shards by process.
 """
 
 from __future__ import annotations
@@ -31,6 +34,7 @@ from typing import Iterator
 
 import numpy as np
 
+from dino_pose_tpu_torch.core import distributed
 from dino_pose_tpu_torch.data import keypoints as kp_math
 from dino_pose_tpu_torch.data import warp as W
 from dino_pose_tpu_torch.data.augment import AugmentParams, augment_image_host, build_chain
@@ -186,7 +190,13 @@ class DataLoader:
         drop_last: bool = True,
         seed: int = 0,
         prefetch_batches: int = 2,
+        shard_by_process: bool = False,
     ):
+        """``shard_by_process=True`` gives each data shard a disjoint
+        (epoch-rotating) slice of the dataset: the shuffle seed is shared,
+        so the slices never overlap, and the shards are equal, padded with
+        the epoch's leading indices, so that every rank counts the same
+        batches."""
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -194,8 +204,12 @@ class DataLoader:
         self.drop_last = drop_last
         self.seed = seed
         self.prefetch_batches = prefetch_batches
+        self.shard_by_process = shard_by_process
         self._epoch = 0
         self._lock = threading.Lock()
+
+    def _shard_info(self) -> tuple[int, int]:
+        return distributed.data_shard() if self.shard_by_process else (0, 1)
 
     def set_epoch(self, epoch: int) -> None:
         """Fast-forward the per-epoch RNG streams (shuffle order + the
@@ -205,7 +219,8 @@ class DataLoader:
             self._epoch = epoch
 
     def __len__(self) -> int:
-        n = len(self.dataset)
+        _, nshards = self._shard_info()
+        n = -(-len(self.dataset) // nshards)  # ceil: shards are padded equal
         return n // self.batch_size if self.drop_last else -(-n // self.batch_size)
 
     def __iter__(self) -> Iterator[dict]:
@@ -218,6 +233,17 @@ class DataLoader:
             np.random.default_rng(
                 np.random.SeedSequence([self.seed, epoch])
             ).shuffle(order)
+        rank, nshards = self._shard_info()
+        if nshards > 1:
+            # Equal shards keep every rank's batch count the same (each step
+            # runs collectives, and unequal counts would hang them); the pad
+            # repeats the epoch's leading indices (at most nshards - 1 of
+            # them, torch DistributedSampler's policy), so every sample is
+            # seen.
+            per = -(-len(order) // nshards)
+            if per * nshards > len(order):
+                order = np.concatenate([order, order[: per * nshards - len(order)]])
+            order = order[rank * per : (rank + 1) * per]
         if self.drop_last:
             order = order[: len(order) - len(order) % self.batch_size]
         batches = [
@@ -269,6 +295,7 @@ def create_dataloaders(
     render_targets: bool = True,
     device_warp: bool = False,
     seed: int = 0,
+    shard_by_process: bool = False,
 ) -> DataLoader:
     """The reference data loader's factory shape: a :class:`PoseDataset`
     with the backbone's preprocessor behind a :class:`DataLoader`."""
@@ -295,4 +322,5 @@ def create_dataloaders(
         num_workers=num_workers,
         drop_last=drop_last,
         seed=seed,
+        shard_by_process=shard_by_process,
     )

@@ -16,6 +16,11 @@ rides in the same file: ``optimizer_state_dict`` is AdamW's own state dict
 A ``.pth`` written by the JAX package therefore resumes its weights, epoch,
 loss weight and scheduler, and starts AdamW's moments at zero. flax's
 ``.msgpack`` is the JAX package's own format and is refused.
+
+Under a multi-process launch only the primary writes (``save_checkpoint``
+returns at once on the other ranks, the async writer included), and
+``latest_checkpoint`` is the primary's answer, broadcast: on a filesystem
+the ranks do not share, theirs could differ.
 """
 
 from __future__ import annotations
@@ -27,6 +32,7 @@ import os
 import torch
 from torch import nn
 
+from dino_pose_tpu_torch.core import distributed
 from dino_pose_tpu_torch.core.device import resolve_device
 from dino_pose_tpu_torch.models import registry
 from dino_pose_tpu_torch.train.schedule import PlateauState
@@ -157,9 +163,12 @@ def save_checkpoint(
     ``async_writer`` the file is written on its thread (call
     ``async_writer.wait()`` before relying on it). ``loss_weight`` overrides
     the scalar ``loss_weight`` field; with a ``state`` it defaults to the
-    best-validation weight, as the reference saves it, else 0.1."""
+    best-validation weight, as the reference saves it, else 0.1. Only the
+    primary process writes: elsewhere this returns at once."""
     path = os.fspath(save_path)
     _require_pth(path)
+    if not distributed.is_primary():
+        return
     state_dict = {
         k: v.detach().to("cpu", torch.float32 if v.is_floating_point() else v.dtype, copy=True)
         for k, v in model.state_dict().items()
@@ -335,7 +344,16 @@ def get_model_info(model_path: str) -> dict:
 
 
 def latest_checkpoint(checkpoint_dir: str | os.PathLike) -> str | None:
-    """Most recent ``.pth`` checkpoint in a directory (auto-resume)."""
+    """Most recent ``.pth`` checkpoint in a directory (auto-resume). Under a
+    multi-process launch the primary's answer, broadcast: every rank must
+    call it."""
+    if distributed.world_size() > 1:
+        latest = _latest(checkpoint_dir) if distributed.is_primary() else None
+        return distributed.broadcast_string(latest)
+    return _latest(checkpoint_dir)
+
+
+def _latest(checkpoint_dir) -> str | None:
     try:
         files = [
             os.path.join(checkpoint_dir, f)

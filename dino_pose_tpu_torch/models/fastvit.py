@@ -74,6 +74,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from dino_pose_tpu_torch.core import distributed
 from dino_pose_tpu_torch.models.fastvit_fold import (
     apply_folded,
     bn_affine,
@@ -258,12 +259,13 @@ class MobileOneBlock(nn.Module):
             elif groups == 1 and cin <= 8:
                 # Dense 1x1 over few channels (stem0): gram-matrix moments on
                 # the strided grid, the output as cin per-channel FMAs.
+                # Under a data axis across ranks: the global batch's moments.
                 xs = x[:, :, ::s, ::s].float()
                 flat = xs.permute(0, 2, 3, 1).reshape(-1, cin)
-                n = flat.shape[0]
-                gram = flat.t() @ flat / n
+                n = distributed.data_count(flat.shape[0])
+                gram = distributed.data_matmul_mean(flat.t(), flat)
                 wm = w[:, :, 0, 0].t().float()  # (cin, features)
-                mean = flat.mean(dim=0) @ wm
+                mean = distributed.data_mean(flat, (0,)) @ wm
                 var = torch.einsum("co,do,cd->o", wm, wm, gram) - mean.square()
                 inv, shift = bn_train_affine(bn, mean, var, n)
                 y_scale = xs[:, 0:1] * wm[0].view(_VIEW)
@@ -529,7 +531,9 @@ class ConvFFN(nn.Module):
         dev, r = inv.device, max(self.lora_rank, 1)
         if self.training and self.lora_rank and self.lora_dropout > 0.0:
             keep = 1.0 - self.lora_dropout
-            m1, m2 = ((torch.rand((b, r), generator=generator, device=dev) < keep).float() / keep
+            # Under a data axis across ranks: this rank's rows of the global
+            # batch's masks (core/distributed.batch_rand).
+            m1, m2 = ((distributed.batch_rand((b, r), generator, dev) < keep).float() / keep
                       for _ in range(2))
         else:
             m1 = m2 = torch.ones((b, r), dtype=torch.float32, device=dev)

@@ -39,6 +39,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from dino_pose_tpu_torch.core import distributed
 from dino_pose_tpu_torch.nn.layers import update_running_stats
 from dino_pose_tpu_torch.ops.dwconv import dw_conv_frozen, dwconv_enabled
 
@@ -63,20 +64,23 @@ def bn_train_affine(bn: nn.BatchNorm2d, mean: torch.Tensor, var: torch.Tensor,
 def channel_moments(x: torch.Tensor, stride: int = 1) -> tuple[torch.Tensor, torch.Tensor, int]:
     """f32 per-channel (mean, mean of squares, count) of NCHW ``x`` over the
     stride-sampled positions (fastvit_fold.py:246-262): one pass, var =
-    m2 - mean^2."""
+    m2 - mean^2. Under a data axis across ranks both means and the count
+    are the global batch's (``core/distributed.data_mean``)."""
     if stride != 1:
         x = x[:, :, ::stride, ::stride]
     xf = x.float()
-    return xf.mean(dim=(0, 2, 3)), xf.square().mean(dim=(0, 2, 3)), x.numel() // x.shape[1]
+    return (distributed.data_mean(xf, (0, 2, 3)), distributed.data_mean(xf.square(), (0, 2, 3)),
+            distributed.data_count(x.numel() // x.shape[1]))
 
 
 def branch_stats(y: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, int]:
     """f32 (mean, biased var, count) of a materialised branch output,
-    two-pass (fastvit_fold.py:265-275)."""
+    two-pass (fastvit_fold.py:265-275); under a data axis across ranks the
+    global batch's, the global mean taken before the second pass."""
     yf = y.float()
-    mean = yf.mean(dim=(0, 2, 3))
-    var = (yf - mean.view(1, -1, 1, 1)).square().mean(dim=(0, 2, 3))
-    return mean, var, y.numel() // y.shape[1]
+    mean = distributed.data_mean(yf, (0, 2, 3))
+    var = distributed.data_mean((yf - mean.view(1, -1, 1, 1)).square(), (0, 2, 3))
+    return mean, var, distributed.data_count(y.numel() // y.shape[1])
 
 
 def dw_route(x: torch.Tensor, kernel: torch.Tensor, stride: int, groups: int) -> bool:

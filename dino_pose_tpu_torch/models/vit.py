@@ -268,18 +268,21 @@ class Block(nn.Module):
             self._packed = (key, params)
         return self._packed[1]
 
-    def shards(self, dtype: torch.dtype, tp: int) -> list[tuple]:
-        """Each model shard's (``AttnPartialParams``, ``MlpPartialParams``),
-        rank by rank, cut from ``packed(dtype)`` as JAX's ``attn_part_tp`` and
-        ``mlp_part_tp`` cut them, made contiguous for the kernels (row slices
-        stay views of the packed copies); cached beside them, keyed also on
-        ``tp``."""
+    def shards(self, dtype: torch.dtype, mesh) -> list[tuple]:
+        """Each local model shard's (``AttnPartialParams``,
+        ``MlpPartialParams``) under ``mesh``, rank by rank: all ``tp`` in one
+        process, this rank's own across ranks (``mesh.local_model_ranks``).
+        Cut from ``packed(dtype)`` as JAX's ``attn_part_tp`` and
+        ``mlp_part_tp`` cut them, made contiguous for the kernels (row
+        slices stay views of the packed copies); cached beside them, keyed
+        also on ``tp`` and the local shards."""
         p = self.packed(dtype)
-        key = (self._packed[0], tp)
+        tp, ranks = mesh.tp, tuple(mesh.local_model_ranks)
+        key = (self._packed[0], tp, ranks)
         if self._shards is None or self._shards[0] != key:
             ap, mp = attn_params(p), mlp_params(p)
             with torch.inference_mode(False), torch.no_grad():
-                cut = [(shard_attn(ap, tp, r), shard_mlp(mp, tp, r)) for r in range(tp)]
+                cut = [(shard_attn(ap, tp, r), shard_mlp(mp, tp, r)) for r in ranks]
                 cut = [tuple(type(h)(*(t.contiguous() for t in h)) for h in pair) for pair in cut]
             self._shards = (key, cut)
         return self._shards[1]
@@ -333,7 +336,7 @@ class Block(nn.Module):
         """The block over ``mesh``'s model axis: JAX's ``vit.py:183``/``:384``
         with ``attn_part_tp`` and ``mlp_part_tp``."""
         cfg = self.cfg
-        shards = self.shards(x.dtype, mesh.tp)
+        shards = self.shards(x.dtype, mesh)
         o = attn_part_tp(x, attn_params(p), cfg.num_heads, cfg.layer_norm_eps, mesh,
                          kernels=kernels, shards=[a for a, _ in shards])
         if self.use_lora:

@@ -17,6 +17,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from dino_pose_tpu_torch.core import distributed
+
 
 # ---------------------------------------------------------------------------
 # Rounding-faithful layer applications
@@ -79,12 +81,14 @@ def batch_norm_train(x: torch.Tensor, bn: nn.BatchNorm2d) -> torch.Tensor:
     """Train ``BatchNorm`` (torch semantics, as the JAX package's): f32
     two-pass batch statistics, the biased variance for normalising, the
     running statistics updated (``update_running_stats``); output in
-    x.dtype."""
+    x.dtype. Under a data axis across ranks the statistics are the global
+    batch's (``core/distributed.data_mean``): the global mean before the
+    second pass."""
     view = (1, -1, 1, 1)
     xf = x.float()
-    mean = xf.mean(dim=(0, 2, 3))
-    var = (xf - mean.view(view)).square().mean(dim=(0, 2, 3))
-    update_running_stats(bn, mean, var, x.numel() // x.shape[1])
+    mean = distributed.data_mean(xf, (0, 2, 3))
+    var = distributed.data_mean((xf - mean.view(view)).square(), (0, 2, 3))
+    update_running_stats(bn, mean, var, distributed.data_count(x.numel() // x.shape[1]))
     inv = torch.rsqrt(var + bn.eps) * bn.weight
     y = (xf - mean.view(view)) * inv.view(view) + bn.bias.view(view)
     return y.to(x.dtype)
@@ -93,13 +97,15 @@ def batch_norm_train(x: torch.Tensor, bn: nn.BatchNorm2d) -> torch.Tensor:
 def dropout(x: torch.Tensor, rate: float, generator: torch.Generator | None) -> torch.Tensor:
     """Inverted dropout drawing its mask from ``generator`` (``None``: the
     device's default generator): keep with probability 1 - rate, scale the
-    kept values by 1 / (1 - rate) in x.dtype (flax ``Dropout``)."""
+    kept values by 1 / (1 - rate) in x.dtype (flax ``Dropout``). Under a
+    data axis across ranks the mask is this rank's rows of the global
+    batch's (``core/distributed.batch_rand``)."""
     if rate == 0.0:
         return x
     if rate >= 1.0:
         return torch.zeros_like(x)
     keep_prob = 1.0 - rate
-    keep = torch.rand(x.shape, generator=generator, device=x.device) < keep_prob
+    keep = distributed.batch_rand(x.shape, generator, x.device) < keep_prob
     return torch.where(keep, x / keep_prob, torch.zeros_like(x))
 
 

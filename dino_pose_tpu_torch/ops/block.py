@@ -122,6 +122,7 @@ from typing import NamedTuple
 
 import torch
 
+from dino_pose_tpu_torch.core.sharding import vit_block_dims
 from dino_pose_tpu_torch.nn.layers import layer_norm
 from dino_pose_tpu_torch.ops import _ext
 from dino_pose_tpu_torch.ops.attention import plain_attention
@@ -211,31 +212,43 @@ class MlpPartialParams(NamedTuple):
     w2: torch.Tensor     # (4D/tp, D)
 
 
+def _cut(t: torch.Tensor, dim: int, tp: int, r: int) -> torch.Tensor:
+    """Block ``r`` of ``tp`` equal blocks of ``t`` along ``dim`` (a view)."""
+    n = t.shape[dim] // tp
+    return t.narrow(dim, r * n, n)
+
+
 def shard_attn(ap: AttnParams, tp: int, r: int) -> AttnPartialParams:
     """Shard ``r`` of ``tp`` of an attention half, as JAX ``attn_part_tp``
-    splits it (block.py:1351-1360): q, k and v apart first, each cut by
-    columns into ``tp`` blocks and shard ``r``'s three concatenated back;
-    ``wo`` cut by rows. Cut from ``ap`` with its autograd (``wo`` a view)."""
+    splits it (block.py:1351-1360) and ``core/sharding.VIT_TP_RULES`` gives
+    the dims: q, k and v apart first, each cut along its output features
+    into ``tp`` blocks and shard ``r``'s three concatenated back; ``wo``
+    cut along its input features. The kernels hold the matrices transposed
+    to (in, out), so torch's dim ``k`` is dim ``1 - k`` here. Cut from
+    ``ap`` with its autograd (``wo`` a view)."""
     d = ap.wo.shape[0]
     if d % tp:
         raise ValueError(f"shard_attn: width {d} does not divide over {tp} shards")
-    dl = d // tp
-    cols = slice(r * dl, (r + 1) * dl)
+    dims = vit_block_dims()
     w, b = ap.wqkv.split(d, dim=1), ap.bqkv.split(d)
     return AttnPartialParams(
-        g1=ap.g1, b1=ap.b1, wqkv=torch.cat([t[:, cols] for t in w], dim=1),
-        bqkv=torch.cat([t[cols] for t in b]), wo=ap.wo[cols])
+        g1=ap.g1, b1=ap.b1, wqkv=torch.cat([_cut(t, 1 - dims["qkv"], tp, r) for t in w], dim=1),
+        bqkv=torch.cat([_cut(t, dims["qkv_bias"], tp, r) for t in b]),
+        wo=_cut(ap.wo, 1 - dims["out"], tp, r))
 
 
 def shard_mlp(mp: MlpParams, tp: int, r: int) -> MlpPartialParams:
     """Shard ``r`` of ``tp`` of an MLP half, as JAX ``mlp_part_tp`` splits
-    it: ``w1``/``bf1`` by columns, ``w2`` by rows."""
+    it and ``core/sharding.VIT_TP_RULES`` gives the dims: ``w1``/``bf1``
+    along fc1's output features, ``w2`` along fc2's input features (the
+    matrices transposed, as in :func:`shard_attn`)."""
     h = mp.w1.shape[-1]
     if h % tp:
         raise ValueError(f"shard_mlp: hidden width {h} does not divide over {tp} shards")
-    cols = slice(r * h // tp, (r + 1) * h // tp)
-    return MlpPartialParams(g2=mp.g2, b2=mp.b2, w1=mp.w1[:, cols], bf1=mp.bf1[cols],
-                            w2=mp.w2[cols])
+    dims = vit_block_dims()
+    return MlpPartialParams(g2=mp.g2, b2=mp.b2, w1=_cut(mp.w1, 1 - dims["fc1"], tp, r),
+                            bf1=_cut(mp.bf1, dims["fc1_bias"], tp, r),
+                            w2=_cut(mp.w2, 1 - dims["fc2"], tp, r))
 
 
 def attn_params(p: BlockParams) -> AttnParams:
@@ -1889,14 +1902,16 @@ def attn_part_tp(
     block.py:1342-1375): each shard's ``fused_attn_part_partial`` on its
     ``num_heads/tp`` heads (``kernels=False``: ``attn_part_math_partial``),
     in rank order, the mesh's ``all_reduce`` of the partials, then ``+ bo``
-    in the activation dtype. ``shards``: ``shard_attn(ap, tp, r)`` for each
-    rank, cut once by the caller; cut here when None. Its forward only, as
-    JAX's is on the LoRA path (nothing below the adapter trains)."""
+    in the activation dtype. Across ranks this process computes its own
+    shard only (``mesh.local_model_ranks``) and the all-reduce runs over the
+    model group. ``shards``: ``shard_attn(ap, tp, r)`` for each local shard,
+    cut once by the caller; cut here when None. Its forward only, as JAX's
+    is on the LoRA path (nothing below the adapter trains)."""
     tp = mesh.tp
     if num_heads % tp:
         raise ValueError(f"attn_part_tp: {num_heads} heads do not divide over {tp} shards")
     if shards is None:
-        shards = [shard_attn(ap, tp, r) for r in range(tp)]
+        shards = [shard_attn(ap, tp, r) for r in mesh.local_model_ranks]
     fn = fused_attn_part_partial if kernels else (
         lambda x_, pp, h, e: attn_part_math_partial(x_, pp, num_heads=h, eps=e))
     parts = [fn(x_r, pp, num_heads // tp, eps) for x_r, pp in zip(mesh.replicate(x), shards)]
@@ -1914,10 +1929,11 @@ def mlp_part_tp(
     then ``+ bf2`` and ``x2 + h2 * ls2`` in the activation dtype. x2's
     cotangent is the shards' dx2 summed by ``mesh.replicate``'s transpose,
     plus the residual's; a shard weight that requires grad is refused.
-    ``shards``: as for :func:`attn_part_tp` (``shard_mlp``)."""
+    ``shards``: as for :func:`attn_part_tp` (``shard_mlp``), the local
+    shards only across ranks."""
     tp = mesh.tp
     if shards is None:
-        shards = [shard_mlp(mp, tp, r) for r in range(tp)]
+        shards = [shard_mlp(mp, tp, r) for r in mesh.local_model_ranks]
     h2 = mesh.all_reduce([mlp_part_partial_frozen(x_r, pp, eps, kernels=kernels)
                           for x_r, pp in zip(mesh.replicate(x2), shards)])
     h2 = h2 + mp.bf2.to(h2.dtype)

@@ -8,7 +8,11 @@ per-image mean of both.
 
 Images are preprocessed by a thread pool, batched, and forward + decode +
 metrics run on the model's device per batch; two scalars per image return to
-the host. One process evaluates the whole set.
+the host. Under a data axis across ranks (``core/distributed.data_axis``)
+each rank evaluates the strided slice ``range(data_rank, n, dp)`` with a
+rank-local forward (no mesh, as ``dispatch.local()`` scopes it), and the
+metric sums are all-reduced once at the end; ``last_eval_info`` records how
+many images this rank evaluated.
 """
 
 from __future__ import annotations
@@ -17,15 +21,23 @@ import concurrent.futures as cf
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
+
+from dino_pose_tpu_torch.core import distributed
 
 from dino_pose_tpu_torch.core.precision import policy_for_device
 from dino_pose_tpu_torch.data.coco import CocoPoseAnnotations, image_path
 from dino_pose_tpu_torch.data.preprocess import create_preprocessor
+from dino_pose_tpu_torch.ops import dispatch
 from dino_pose_tpu_torch.ops.decode import decode_heatmaps
 from dino_pose_tpu_torch.train.metrics import pck_bbox, pckh_2d, pckh_z
 
 METRICS = ("pckh", "pckh_z", "pck_bbox", "pckh_fc", "pck_bbox_fc")
+
+# The last evaluation's image counts: ``local_images`` (this rank's) and
+# ``total_images`` (the dataset's).
+last_eval_info: dict = {}
 
 
 def _eval_batch(model: nn.Module, images, sizes, frames, target_kps, target_z3d,
@@ -104,10 +116,17 @@ def compute_pckh_dataset(
                 crop_frame(proc, *img.size), rec.keypoints, rec.keypoints_z)
 
     sums = dict.fromkeys(METRICS, 0.0)
+    n_total = len(coco)
+    axis = distributed.data_axis()
+    # A strided slice: ranks differ by at most one image and so may count
+    # different batches, which is safe because the forward below is local;
+    # every rank reaches the one all-reduce at the end exactly once.
+    indices = list(range(axis.rank, n_total, axis.size)) if axis else list(range(n_total))
     model.eval()
-    with cf.ThreadPoolExecutor(max(1, num_workers)) as pool, torch.inference_mode():
-        for start in range(0, len(coco), batch_size):
-            rows = list(pool.map(load, range(start, min(start + batch_size, len(coco)))))
+    with (dispatch.local(), cf.ThreadPoolExecutor(max(1, num_workers)) as pool,
+          torch.inference_mode()):
+        for start in range(0, len(indices), batch_size):
+            rows = list(pool.map(load, indices[start:start + batch_size]))
             n = len(rows)
 
             def stack(i):
@@ -121,7 +140,14 @@ def compute_pckh_dataset(
             for k, v in zip(METRICS, host):
                 sums[k] += float(np.sum(v))
 
-    means = {k: v / len(coco) for k, v in sums.items()}
+    if axis is not None:
+        total = torch.tensor([sums[k] for k in METRICS], dtype=torch.float64,
+                             device=distributed.collective_device())
+        dist.all_reduce(total, group=axis.group)
+        sums = dict(zip(METRICS, total.tolist()))
+    last_eval_info.clear()
+    last_eval_info.update(local_images=len(indices), total_images=n_total)
+    means = {k: v / n_total for k, v in sums.items()}
     if return_all:
         return means
     return means["pckh"], means["pckh_z"]

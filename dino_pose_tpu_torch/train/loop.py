@@ -20,18 +20,31 @@ Validation batches are *augmented and shuffled*, as the reference builds its
 val loader through the same ``create_dataloaders``; short tail batches are
 zero-padded to the batch size and masked out of the loss.
 
+Across processes (``torchrun``, or JAX's or SLURM's launch variables, see
+``core/distributed.py``) every rank trains one model over the global batch
+``config_training["batch_size"]``, as JAX's ``fit`` does: each rank loads
+its data shard of both loaders (``batch_size / dp`` a step), the step
+all-reduces what the global batch's step needs (``train/step.py``), the
+PCKh evaluation splits the images over the ranks, and only the primary
+writes the metrics, checkpoints and the loss plot. Resume is the primary's:
+it resolves the checkpoint, a rank without the file builds a placeholder,
+a digest guard checks that every rank's state has one structure, and the
+primary's state is broadcast.
+
 Departures from the JAX loop: checkpoints are ``.pth`` only (the native
 format, with the optimizer state inside, so a ``.pth`` resumes AdamW too);
 the persistent compilation cache has no counterpart (the kernels build once
 into ``dino_pose_tpu_torch/build/``); ``tqdm`` and ``matplotlib`` are used
-when they import; one process on one device: a multi-process launch or a
-model-parallel mesh raises.
+when they import; the mesh is data-parallel across processes: a model axis
+that spans ranks raises (``ROADMAP.md``), while ``mesh=MeshSpec(1, tp)`` in
+one process trains on the one-card tensor-parallel route.
 """
 
 from __future__ import annotations
 
 import contextlib
 import csv
+import dataclasses
 import os
 import time
 from typing import Any
@@ -39,7 +52,9 @@ from typing import Any
 import numpy as np
 import torch
 
+from dino_pose_tpu_torch.core import distributed
 from dino_pose_tpu_torch.core.device import resolve_device
+from dino_pose_tpu_torch.core.mesh import MeshSpec, create_mesh
 from dino_pose_tpu_torch.core.precision import policy_for_device
 from dino_pose_tpu_torch.data.dataset import create_dataloaders, pad_batch
 from dino_pose_tpu_torch.io import checkpoint as ck
@@ -51,11 +66,6 @@ from dino_pose_tpu_torch.train.schedule import PlateauState, plateau_step
 from dino_pose_tpu_torch.train.state import create_train_state
 from dino_pose_tpu_torch.train.step import make_eval_step, make_train_step, prepare_batch
 from dino_pose_tpu_torch.utils.profiling import StepTimer, enable_nan_checks, trace
-
-# Launch variables that ask for more than one process: torch.distributed's
-# launchers, JAX's and SLURM's.
-_MULTI_PROCESS_ENV = ("WORLD_SIZE", "JAX_NUM_PROCESSES", "SLURM_NTASKS", "SLURM_NPROCS")
-
 
 class MetricsWriter:
     """Append-only CSV metrics log."""
@@ -92,16 +102,6 @@ def _to_device(batch: dict, device: torch.device) -> dict:
     return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device) for k, v in batch.items()}
 
 
-def _refuse_multi_process() -> None:
-    asked = {k: os.environ[k] for k in _MULTI_PROCESS_ENV if int(os.environ.get(k) or 1) > 1}
-    mesh = dispatch.target_mesh()
-    if asked or (mesh is not None and mesh.tp > 1):
-        raise NotImplementedError(
-            f"fit runs one process on one device (asked: {asked or mesh}); multi-process "
-            "and model-parallel training are ROADMAP Queue 1 item 8"
-        )
-
-
 def _progress_bar(enabled: bool, total: int, desc: str):
     if not enabled:
         return None
@@ -119,12 +119,22 @@ def fit(
     config_model: dict,
     *,
     device: str | torch.device | None = None,
+    mesh: MeshSpec | None = None,
     export_pth: bool = True,
     progress: bool = True,
     num_epochs: int | None = None,
 ) -> dict[str, Any]:
-    """Train a pose model end to end on ``device`` (default ``cuda``; raises
-    without a card unless ``device="cpu"``); returns the history dict.
+    """Train a pose model end to end on ``device`` (default ``cuda``, this
+    rank's card under a launch; raises without a card unless
+    ``device="cpu"``); returns the history dict.
+
+    Under a multi-process launch (``core/distributed.py``) every rank calls
+    this and trains one model over the global batch ``config_training
+    ["batch_size"]``; an incomplete launch raises. ``mesh`` (default: every
+    process a data shard) is the ``('data', 'model')`` mesh: in one process
+    ``MeshSpec(1, tp)`` trains on the one-card tensor-parallel route; a
+    model axis across ranks raises. The mesh is recorded for this call only
+    (``ops/dispatch.scoped``).
 
     Checkpoints go to ``config_training["checkpoint_dir"]`` as ``.pth``
     files; ``export_pth`` is kept for the JAX signature and has nothing to
@@ -133,14 +143,36 @@ def fit(
     ``.pth`` in the checkpoint directory is resumed
     (``config_training["auto_resume"]``, on by default). ``num_epochs``
     overrides ``config_training["num_epochs"]``, the epoch to stop at."""
+    distributed.maybe_initialize_distributed(device)
     dev = resolve_device(device)
-    _refuse_multi_process()
+    with dispatch.scoped():
+        return _fit(config_dataset, config_training, config_preproc, config_model, dev=dev,
+                    mesh=mesh, progress=progress, num_epochs=num_epochs)
+
+
+def _fit(config_dataset: dict, config_training: dict, config_preproc: dict,
+         config_model: dict, *, dev: torch.device, mesh: MeshSpec | None, progress: bool,
+         num_epochs: int | None) -> dict[str, Any]:
+    world = distributed.world_size()
+    if world > 1 and mesh is not None and mesh.tp > 1:
+        raise NotImplementedError(
+            f"fit trains data-parallel across processes; a model axis across ranks "
+            f"({mesh}) is left for later (ROADMAP.md, Queue 1 item 8)"
+        )
+    grid = create_mesh(mesh, device=dev)
     checkpoint_dir = config_training["checkpoint_dir"]
     os.makedirs(checkpoint_dir, exist_ok=True)
+    # batch_size is the GLOBAL batch; each data shard loads its slice.
     batch_size = int(config_training["batch_size"])
+    if batch_size % grid.data_size:
+        raise ValueError(f"batch_size={batch_size} must divide evenly over "
+                         f"{grid.data_size} data shards")
+    local_batch = batch_size // grid.data_size
+    shard = world > 1
     workers = config_training.get("multiprocessing_num", 4)
     name = f" ({torch.cuda.get_device_name(dev)})" if dev.type == "cuda" else ""
-    print(f"Using device: {dev}{name}")
+    print(f"Using device: {dev}{name}, mesh {grid}"
+          + (f" across {world} processes" if shard else ""))
 
     print(f"Creating dataloader for {config_dataset['train_images_dir']}...")
     device_warp = bool(config_training.get("device_warp", False))
@@ -148,9 +180,9 @@ def fit(
         config_preproc, config_model,
         images_dir_path=config_dataset["train_images_dir"],
         annotation_json_path=config_dataset["train_annotation_json"],
-        batch_size=batch_size, num_workers=workers,
+        batch_size=local_batch, num_workers=workers,
         render_targets=False,  # targets render on the device inside the step
-        device_warp=device_warp,
+        device_warp=device_warp, shard_by_process=shard,
     )
     val_loader = None
     if config_dataset.get("val_images_dir") and config_dataset.get("val_annotation_json"):
@@ -159,11 +191,11 @@ def fit(
             config_preproc, config_model,
             images_dir_path=config_dataset["val_images_dir"],
             annotation_json_path=config_dataset["val_annotation_json"],
-            batch_size=batch_size, num_workers=workers,
+            batch_size=local_batch, num_workers=workers,
             render_targets=False,
             # Evaluate every sample: the short tail batch is padded to the
             # batch size and masked via 'sample_valid'.
-            drop_last=False,
+            drop_last=False, shard_by_process=shard,
         )
         if len(val_loader) == 0:
             print(
@@ -173,21 +205,28 @@ def fit(
             val_loader = None
 
     # Model: fresh, loaded from a checkpoint, or auto-resumed from the latest
-    # checkpoint in checkpoint_dir.
+    # checkpoint in checkpoint_dir (the primary's, broadcast).
     print(f"Creating model {config_model['model_name']}...")
+    seed = int(config_training.get("seed", 0))
     load_path = config_model.get("load_model") or ""
+    auto_resumed = False
     if not load_path and config_training.get("auto_resume", True):
         latest = ck.latest_checkpoint(checkpoint_dir)
         if latest:
             print(f"Auto-resuming from latest checkpoint: {latest}")
-            load_path = latest
+            load_path, auto_resumed = latest, True
     resume_ckpt = None
-    if load_path.endswith((".pth", ".msgpack")):
+    if load_path.endswith((".pth", ".msgpack")) and not (
+            auto_resumed and shard and not os.path.isfile(load_path)):
         resume_ckpt = ck.load_checkpoint(load_path)
         model = ck.load_model_smart(load_path, eval_mode=False, ckpt=resume_ckpt, device=dev)
     else:
-        model = registry.create_model_from_config(
-            config_model, seed=int(config_training.get("seed", 0)), device=dev)
+        if load_path.endswith((".pth", ".msgpack")):
+            # A filesystem the ranks do not share: this rank never saw the
+            # primary's file. A placeholder; the broadcast below replaces it.
+            print("Checkpoint not on this host's filesystem; will receive resumed state "
+                  "from the primary process.")
+        model = registry.create_model_from_config(config_model, seed=seed, device=dev)
     state, optimizer, partition = create_train_state(
         model, model.config_model, weight_decay=config_training.get("weight_decay", 1e-6))
     trainable = sum(p.numel() for p in model.parameters() if p.requires_grad)
@@ -210,6 +249,22 @@ def fit(
     if resume_ckpt is not None:
         state, scheduler, start_epoch = ck.restore_train_state(resume_ckpt, state, scheduler)
         print(f"Resumed at epoch {start_epoch}, step {state.step}")
+    if shard and load_path:
+        # A placeholder is built from this run's config while the primary
+        # restored the checkpoint's own: check that the structures agree
+        # before the broadcast, which would otherwise fail opaquely or hang.
+        distributed.check_same_structure(
+            distributed.state_description(model, optimizer),
+            "resume: the train state (the run's config does not match the checkpoint "
+            "the primary restored, e.g. model_name or the LoRA settings changed)")
+        # Every rank bit-identical to the primary's resumed state. A fresh
+        # start needs no broadcast: the seeded init is the same everywhere.
+        state.loss_weight, sync = distributed.broadcast_state(
+            model, optimizer, state.loss_weight,
+            [start_epoch, state.step, scheduler.lr, scheduler.best, scheduler.num_bad_epochs])
+        start_epoch, state.step = int(sync[0]), int(sync[1])
+        scheduler = dataclasses.replace(scheduler, lr=sync[2], best=sync[3],
+                                        num_bad_epochs=int(sync[4]))
     if start_epoch:
         # Continue the loaders' per-epoch RNG streams instead of replaying
         # epochs 0..start_epoch-1's orders and augmentation draws.
@@ -223,8 +278,8 @@ def fit(
                                device_targets=device_targets, compute_dtype=compute_dtype)
     eval_step = prepare_batch(make_eval_step(model),
                               device_targets=device_targets, compute_dtype=compute_dtype)
-    metrics = MetricsWriter(os.path.join(checkpoint_dir, "metrics.csv"))
-    seed = int(config_training.get("seed", 0))
+    metrics = (MetricsWriter(os.path.join(checkpoint_dir, "metrics.csv"))
+               if distributed.is_primary() else None)
     if config_training.get("debug_nans"):
         enable_nan_checks()
 
@@ -240,7 +295,7 @@ def fit(
         t0 = time.perf_counter()
         out = compute_pckh_dataset(
             model, config_dataset["val_images_dir"], config_dataset["val_annotation_json"],
-            batch_size=batch_size, num_workers=workers)
+            batch_size=local_batch, num_workers=workers)
         history["pckh_seconds"].append(time.perf_counter() - t0)
         history["pckh"].append(out)
         return out
@@ -274,7 +329,7 @@ def fit(
                 with timer.step():
                     state, stats = train_step(state, _to_device(batch, dev), scheduler.lr, seed)
                 per_step.append(stats)
-                images += len(batch["2d_keypoints"])
+                images += len(batch["2d_keypoints"]) * grid.data_size  # the global batch
                 if bar is not None:
                     bar.update(1)
                     if (i + 1) % 10 == 0:
@@ -307,7 +362,7 @@ def fit(
         if val_loader is not None:
             per_step = []
             for batch in val_loader:
-                batch, valid = pad_batch(batch, batch_size)
+                batch, valid = pad_batch(batch, local_batch)
                 batch["sample_valid"] = valid.astype(np.float32)
                 out = eval_step(state, _to_device(batch, dev))
                 per_step.append({k: out[k] for k in ("loss", "kp_loss", "z_loss")})
@@ -348,7 +403,8 @@ def fit(
                 save(f"best_model_{epoch + 1}", epoch + 1)
             best_pckh_2d = max(best_pckh_2d, p2d)
             best_pckh_3d = max(best_pckh_3d, p3d)
-        metrics.write(row)
+        if metrics is not None:
+            metrics.write(row)
 
     # ---- final save + loss plot ----
     save("final_model", total_epochs)
@@ -362,6 +418,8 @@ def fit(
 
 
 def _plot_losses(history: dict, checkpoint_dir: str) -> None:
+    if not distributed.is_primary():
+        return
     try:
         import matplotlib
 

@@ -15,6 +15,15 @@ Dropout randomness: the JAX step folds the step number into its key. Here a
 device ``torch.Generator`` is seeded from (seed, step) by
 :func:`step_generator`; the bits differ from JAX's, so parity tests run with
 dropout off.
+
+Across processes (a data axis of the recorded mesh spanning ranks, see
+``core/distributed``) each rank runs the step on its shard of the global
+batch and the step is the global batch's: the loss weights update from the
+all-reduced global kp and z losses before the balanced loss is formed, each
+rank backpropagates its part of the global loss, the trainable gradients
+are summed over the data group before AdamW, and dropout masks are the
+rank's rows of the global batch's. ``stats`` then hold the global values,
+the same on every rank.
 """
 
 from __future__ import annotations
@@ -23,6 +32,7 @@ from typing import Callable
 
 import torch
 
+from dino_pose_tpu_torch.core import distributed
 from dino_pose_tpu_torch.data.heatmaps import render_heatmaps
 from dino_pose_tpu_torch.data.warp import WARP_KEYS, warp_batch
 from dino_pose_tpu_torch.train import weighting
@@ -33,6 +43,15 @@ from dino_pose_tpu_torch.train.state import TrainState
 def step_generator(seed: int, step: int, device: torch.device) -> torch.Generator:
     """The dropout generator of one step: seeded from (seed, step)."""
     return torch.Generator(device=device).manual_seed((int(seed) * 1_000_003 + int(step)) % 2**63)
+
+
+def _global(kp: torch.Tensor, z: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The global kp and z losses from this rank's parts: summed over the
+    data group, detached (one all-reduce); the parts themselves without a
+    data axis."""
+    if distributed.data_axis() is None:
+        return kp, z
+    return distributed.data_sum(torch.stack([kp.detach(), z.detach()])).unbind()
 
 
 def make_train_step(
@@ -63,9 +82,12 @@ def make_train_step(
             group["lr"] = lr
         optimizer.zero_grad(set_to_none=True)
         pred_hm, pred_z = model(batch["image"], kernels=kernels, generator=generator)
+        # This rank's parts of the global losses (the losses themselves in
+        # one process); the weights update from the global values.
         kp_l = keypoint_loss(pred_hm, batch["2d_heatmaps"], confidence)
         z_l = z_loss(pred_z, batch["z_coords"], confidence)
-        lw = weighting.update(state.loss_weight, kp_l, z_l)
+        kp_g, z_g = _global(kp_l, z_l)
+        lw = weighting.update(state.loss_weight, kp_g, z_g)
         loss = weighting.balanced_loss(lw, kp_l, z_l)
         loss.backward()
         # A trainable parameter that this input does not reach (the heads'
@@ -75,15 +97,16 @@ def make_train_step(
         for p in params:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
+        distributed.all_reduce_grads(params)
         optimizer.step()
 
-        kp_c, z_c = weighting.loss_contributions(lw, kp_l.detach(), z_l.detach())
+        kp_c, z_c = weighting.loss_contributions(lw, kp_g.detach(), z_g.detach())
         state.step += 1
         state.loss_weight = lw
         stats = {
-            "loss": loss.detach(),
-            "kp_loss": kp_l.detach(),
-            "z_loss": z_l.detach(),
+            "loss": weighting.balanced_loss(lw, kp_g.detach(), z_g.detach()),
+            "kp_loss": kp_g.detach(),
+            "z_loss": z_g.detach(),
             "kp_contrib": kp_c,
             "z_contrib": z_c,
             "weight": lw.weight,
@@ -96,7 +119,9 @@ def make_train_step(
 def make_eval_step(model: torch.nn.Module) -> Callable:
     """``eval_step(state, batch) -> dict``: eval-mode forward (running BN
     statistics, no dropout) and the validation loss ``kp + weight * z``.
-    An optional (B,) ``sample_valid`` mask drops padded samples."""
+    An optional (B,) ``sample_valid`` mask drops padded samples. Across
+    processes the losses are the global batch's (the ranks' parts summed)
+    and the predictions this rank's."""
 
     def eval_step(state: TrainState, batch: dict) -> dict:
         sample_valid = batch.get("sample_valid")
@@ -104,8 +129,9 @@ def make_eval_step(model: torch.nn.Module) -> Callable:
         model.eval()
         with torch.inference_mode():
             pred_hm, pred_z = model(batch["image"])
-            kp_l = keypoint_loss(pred_hm, batch["2d_heatmaps"], confidence, sample_valid)
-            z_l = z_loss(pred_z, batch["z_coords"], confidence, sample_valid)
+            kp_l, z_l = _global(
+                keypoint_loss(pred_hm, batch["2d_heatmaps"], confidence, sample_valid),
+                z_loss(pred_z, batch["z_coords"], confidence, sample_valid))
             loss = weighting.validation_loss(state.loss_weight, kp_l, z_l)
         return {"loss": loss, "kp_loss": kp_l, "z_loss": z_l,
                 "pred_heatmaps": pred_hm, "pred_z": pred_z}

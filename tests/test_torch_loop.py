@@ -216,15 +216,28 @@ def test_fit_device_warp_and_async_saves(data, tmp_path):
 
 
 def test_fit_refusals(data, tmp_path, monkeypatch):
+    """An incomplete launch (two processes asked for, no rank or address)
+    and a data axis in one process raise before anything is written; a
+    model axis across ranks and dp * tp != world are held by
+    test_torch_dist_fit.py, where two processes run."""
     cfgs = _configs(data, tmp_path)
     monkeypatch.setenv("WORLD_SIZE", "2")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
+    with pytest.raises(RuntimeError, match="incomplete torchrun launch"):
         tloop.fit(*cfgs, device="cpu")
-    monkeypatch.setenv("WORLD_SIZE", "1")
+    monkeypatch.setenv("RANK", "0")
+    monkeypatch.setenv("LOCAL_RANK", "0")
+    with pytest.raises(RuntimeError, match="MASTER_ADDR"):
+        tloop.fit(*cfgs, device="cpu")
+    for k in ("WORLD_SIZE", "RANK", "LOCAL_RANK"):
+        monkeypatch.delenv(k)
+    monkeypatch.setenv("JAX_NUM_PROCESSES", "2")
+    with pytest.raises(RuntimeError, match="incomplete JAX launch"):
+        tloop.fit(*cfgs, device="cpu")
+    monkeypatch.delenv("JAX_NUM_PROCESSES")
     with dispatch.scoped():
-        create_mesh(MeshSpec(1, 2), device="cpu")
-        with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-            tloop.fit(*cfgs, device="cpu")
+        with pytest.raises(ValueError, match="dp must be 1"):
+            tloop.fit(*cfgs, device="cpu", mesh=MeshSpec(2, 1))
+        assert dispatch.target_mesh() is None
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         tloop.fit(*cfgs)

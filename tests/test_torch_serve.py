@@ -125,8 +125,11 @@ def _imports(path: pathlib.Path) -> set[str]:
 
 
 def test_port_imports_no_jax():
-    files = sorted((ROOT / "dino_pose_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    files = sorted((ROOT / "dino_pose_tpu_torch").rglob("*.py")) + [
+        ROOT / "chip_smoke.py", ROOT / "tests" / "_torch_dist_worker.py"]
     assert len(files) > 10
+    assert {ROOT / "dino_pose_tpu_torch" / "core" / f for f in ("distributed.py", "sharding.py")
+            } <= set(files)
     banned = {"jax", "flax", "optax", "dino_pose_tpu"}
     for path in files:
         bad = _imports(path) & banned

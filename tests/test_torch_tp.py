@@ -346,8 +346,16 @@ def test_mesh_refuses_a_data_axis_and_restores_its_target():
         with tdispatch.local():
             assert tdispatch.target_mesh() is None
         assert tdispatch.target_mesh() is mesh
+        # One process holds one data shard: dp > 1 needs a multi-process
+        # launch (dp * tp against the world: test_torch_dist_fit.py).
         with pytest.raises(ValueError, match="dp must be 1"):
             create_mesh(MeshSpec(2, 2), device="cpu")
+        with pytest.raises(ValueError, match="dp must be 1"):
+            create_mesh(MeshSpec(2, 1), device="cpu")
+        assert tdispatch.target_mesh() is mesh
+        default = create_mesh(device="cpu")
+        assert (default.data_size, default.tp, default.world) == (1, 1, 1)
+        assert list(mesh.local_model_ranks) == [0, 1]
     assert tdispatch.target_mesh() is None
 
 

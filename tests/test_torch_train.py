@@ -519,54 +519,82 @@ def _two_steps_match_jax(module, variables, config, batch, step2_rtol=1e-5,
     run at this input size: their BatchNorms count no batch. ``family`` is
     the JAX model family (its partition rule). Returns the port's step-1
     gradients."""
+    want = _jax_two_steps(module, variables, config, batch, family)
+    tm = _port_model(variables, config)
+    tblock.reset_launches()
+    got = _port_two_steps(tm, config, batch)
+    assert all(n == 0 for n in tblock.LAUNCHES.values())
+    _check_two_steps(tm, want, got, step2_rtol=step2_rtol, above=above, unreached=unreached,
+                     below_tol=below_tol, step2_stats_atol=step2_stats_atol,
+                     step_atol=step_atol)
+    return got["grads"]
+
+
+def _jax_two_steps(module, variables, config, batch, family="dinov2") -> dict:
+    """JAX's two steps of ``_two_steps_match_jax`` on ``batch``: the
+    partition, the stats and states after each step, the step-1 gradients
+    (from optax's first moment) as numpy under JAX's tree."""
     targets = (batch["image"].shape[-1], 48)
-    # --- JAX
     js, tx, part = jstate.create_train_state(variables, config, family, weight_decay=WD)
     jfn = jax.jit(jstep._prepare_batch(jstep.make_train_step(module, tx, part), targets))
     jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
     with jdispatch.local():
         js1, jstats1 = jfn(js, jbatch, jnp.float32(LR), jax.random.key(0))
         js2, jstats2 = jfn(js1, jbatch, jnp.float32(LR), jax.random.key(0))
+    # Step-1 gradients: after one step optax's first moment is (1 - 0.9) * g.
+    _, frozen = part.split(js.params)
+    grads = {"params": part.merge(
+        jax.tree.map(lambda m: np.asarray(m) / (1 - 0.9), js1.opt_state[0].mu),
+        jax.tree.map(np.zeros_like, frozen)), "batch_stats": variables["batch_stats"]}
+    return {"stats": [jstats1, jstats2], "states": [js1, js2], "grads": grads}
 
-    # --- port
-    tm = _port_model(variables, config)
+
+def _port_two_steps(tm, config, batch) -> dict:
+    """The port's two steps on ``batch`` (numpy, this process's rows):
+    stats, the step-1 gradients, the state dicts before and after each
+    step, the partition, the step count."""
     ts, opt, tpart = tstate.create_train_state(tm, config, weight_decay=WD)
-    tfn = tstep.prepare_batch(tstep.make_train_step(tm, opt, tpart), targets)
+    tfn = tstep.prepare_batch(tstep.make_train_step(tm, opt, tpart),
+                              (batch["image"].shape[-1], 48))
     tbatch = {k: _t(v) for k, v in batch.items()}
     before = {k: v.clone() for k, v in tm.state_dict().items()}
-    tblock.reset_launches()
     ts, tstats1 = tfn(ts, tbatch, LR, 0)
     grads = {n: p.grad.numpy().copy() for n, p in tm.named_parameters() if p.grad is not None}
     after1 = {k: v.clone() for k, v in tm.state_dict().items()}
     ts, tstats2 = tfn(ts, tbatch, LR, 0)
-    assert ts.step == 2 and all(n == 0 for n in tblock.LAUNCHES.values())
+    assert ts.step == 2
+    return {"stats": [tstats1, tstats2], "grads": grads, "partition": tpart,
+            "states": [before, after1, {k: v.clone() for k, v in tm.state_dict().items()}]}
 
-    for got, want, rtol in ((tstats1, jstats1, 1e-5), (tstats2, jstats2, step2_rtol)):
-        assert set(got) == set(want)
-        for k in want:
-            np.testing.assert_allclose(got[k].item(), float(want[k]), rtol=rtol, err_msg=k)
 
-    # Step-1 gradients: after one step optax's first moment is (1 - 0.9) * g.
-    mu = js1.opt_state[0].mu
-    _, frozen = part.split(js.params)
-    jgrads = state_dict_from_jax(
-        {"params": part.merge(jax.tree.map(lambda m: np.asarray(m) / (1 - 0.9), mu),
-                              jax.tree.map(np.zeros_like, frozen)),
-         "batch_stats": variables["batch_stats"]}, tm)
+def _check_two_steps(tm, want: dict, got: dict, *, step2_rtol=1e-5, above=_ABOVE_GATE_FLIPS,
+                     unreached=(), below_tol=1e-2, step2_stats_atol=1e-4,
+                     step_atol=2 * LR, stats_atol=1e-7) -> None:
+    """``_two_steps_match_jax``'s checks of the port's two steps ``got``
+    against JAX's ``want``; ``tm`` names the port's keys. ``stats_atol``:
+    the step-1 running statistics' absolute tolerance."""
+    for g, w, rtol in zip(got["stats"], want["stats"], (1e-5, step2_rtol)):
+        assert set(g) == set(w)
+        for k in w:
+            np.testing.assert_allclose(float(g[k]), float(w[k]), rtol=rtol, err_msg=k)
+
+    grads, tpart = got["grads"], got["partition"]
+    jgrads = state_dict_from_jax(want["grads"], tm)
     assert set(grads) == tpart
     scale = max(np.abs(jgrads[n]).max() for n in grads)
     for n in grads:
         _grad_close(grads[n], jgrads[n].numpy(), scale, n, above, below_tol)
 
     # Parameters and BatchNorm statistics after each step.
-    for k_step, (tsd, jst) in enumerate(((after1, js1), (tm.state_dict(), js2)), start=1):
+    before = got["states"][0]
+    for k_step, (tsd, jst) in enumerate(zip(got["states"][1:], want["states"]), start=1):
         jsd = state_dict_from_jax({"params": jst.params, "batch_stats": jst.batch_stats}, tm)
         for k, v in tsd.items():
             if k.endswith("num_batches_tracked"):
                 assert v.item() == (0 if k.startswith(unreached) else k_step), k
             elif k.endswith(("running_mean", "running_var")):
                 np.testing.assert_allclose(v.numpy(), jsd[k].numpy(), rtol=1e-5,
-                                           atol=1e-7 if k_step == 1 else step2_stats_atol,
+                                           atol=stats_atol if k_step == 1 else step2_stats_atol,
                                            err_msg=k)
             elif k in tpart:
                 np.testing.assert_allclose(v.numpy(), jsd[k].numpy(), rtol=0,
@@ -574,7 +602,6 @@ def _two_steps_match_jax(module, variables, config, batch, step2_rtol=1e-5,
                 assert not torch.equal(v, before[k]) or np.abs(grads[k]).max() == 0
             else:
                 assert torch.equal(v, before[k]), k  # frozen: bitwise unchanged
-    return grads
 
 
 def _count_calls(monkeypatch, *names):
