@@ -11,7 +11,14 @@ at batch 128 through them (LoRA, and unfreeze-last-4 with whole blocks
 training), all at 224²; then the long-sequence paths at 504² (S = 1297),
 where every layer streams its attention through the flash kernels:
 serving, and unfreeze-last-4 steps
-at batch 32; then FastViT serving at 256²: fastvit_t8 + LoRA r=8 (10
+at batch 32; then dinov2-small + LoRA from pretrained DINOv2 weights in a
+local Hugging Face hub cache that the script writes itself (nothing is
+downloaded; every other phase builds its weights from a seed and sees an
+empty cache): the load bit-equal to the cache, serving, a LoRA step and one
+``cli.train`` epoch on those weights, an empty cache's warning and a
+checkpoint's reload that reads no cache; then dinov2-base and -large at
+504² (their kernels at S = 1297 and the flash pair at 12 and 16 heads,
+serving, and unfreeze-last-4 steps at batch 32); then FastViT serving at 256²: fastvit_t8 + LoRA r=8 (10
 ConvFFN kernel launches a forward), fastvit_sa12 (12 ConvFFN launches and
 2 flash forwards, its attention stage) and fastvit_ma36 + LoRA r=8 (36
 ConvFFN launches, stages 0 and 1 at C = 76 and 152 zero-padded to the
@@ -45,8 +52,8 @@ under a ('data', 'model') = (1, 2) mesh on the one card, serving (24 + 24
 shard launches a forward) and fine-tuning at batch 128 (and the LoRA
 layer's partial dx on both shards); then the final LayerNorm's kernel
 (JAX's DINO_POSE_TPU_LN=pallas) against its plain version and
-torch.nn.functional.layer_norm, and dinov2-small + LoRA serving and
-fine-tuning with that switch on; last, the training entry point
+torch.nn.functional.layer_norm, and dinov2-small, -base and -large + LoRA
+serving and fine-tuning with that switch on; last, the training entry point
 (``python -m dino_pose_tpu_torch.cli.train``'s ``main``) on a seeded
 COCO-format set: two epochs of the default configuration with their
 launches, files and PCKh gate, the final checkpoint reloaded and served
@@ -202,6 +209,30 @@ UNFREEZE_LAUNCHES = {"fused_block": 8, "fused_block_train": 4, "fused_mlp_bwd": 
 SERVING_504_LAUNCHES = {**SERVING_LAUNCHES, "attn_fwd": 0, "flash_fwd": 12}
 UNFREEZE_504_LAUNCHES = {**UNFREEZE_LAUNCHES, "attn_fwd": 0, "attn_bwd": 0, "flash_fwd": 16,
                          "flash_bwd": 4}
+# The bigger dinov2 backbones at 504² (S = 1297): every block takes the
+# "math" route there (ops/block.block_route), whose chains stream their
+# attention through the flash kernels: a frozen block fused_block, the LoRA
+# layer its two halves, a trainable block block_train (fused_block_train,
+# backward fused_mlp_bwd + fused_attn_bwd), each with one flash forward, a
+# trainable one also with its recomputed forward and a flash backward in
+# the backward. Serving dinov2-base and -large + LoRA r=8 on the last layer
+# (seeded arrays, batch 1 and 8) and their unfreeze-last-4 step at batch 32
+# (bench.py --image-size 504), two checked steps and three timed each way.
+LONG_WIDE_LAYERS = {"dinov2-base": 12, "dinov2-large": 24}
+
+
+def serving_504_launches(layers: int) -> dict:
+    return {"fused_block": layers - 1, "fused_attn_part": 1, "fused_mlp_part": 1,
+            "flash_fwd": layers}
+
+
+def unfreeze_504_launches(layers: int) -> dict:
+    return {"fused_block": layers - 4, "fused_block_train": 4, "fused_mlp_bwd": 4,
+            "fused_attn_bwd": 4, "flash_fwd": layers + 4, "flash_bwd": 4}
+
+
+UNFREEZE_504_WIDE_RECORDED = ("fused_block", "fused_block_train", "fused_mlp_bwd",
+                              "fused_attn_bwd")
 # FastViT serving at 256² (timm's input size): t8 + LoRA r=8, the family's
 # default model, and sa12, whose last stage is attention. Launches per forward:
 # one ConvFFN kernel per block (depths 2/2/4/2 and 2/2/6/2), one flash
@@ -353,6 +384,26 @@ TP_LORA_LAUNCHES = {**SERVING_TP_LAUNCHES, "fused_mlp_partial_dx": 2}
 LN_GATE = {"DINO_POSE_TPU_LN": "pallas"}
 SERVING_LN_LAUNCHES = {**SERVING_LAUNCHES, "fused_layernorm": 1}
 LORA_LN_LAUNCHES = {**LORA_LAUNCHES, "fused_layernorm": 1}
+# The same gate on dinov2-base (D = 768, the resident route) and -large
+# (D = 1024, the weight-streamed halves) + LoRA r=8 at 224²: serving and the
+# bs=128 LoRA step, one fused_layernorm launch a forward at their widths,
+# each step followed by the backbone's LoRA gradients alone (the final
+# LayerNorm's kernel in its forward). dinov2-large's step-1 LoRA A gradient
+# is the bf16 noise of a sum the heads' BatchNorms nearly cancel
+# (LARGE_GRAD_NOISE_FACTOR): with the gate on, an H100 read its kernel path
+# 1.596 times as far from f32 as the plain path, with the kernel path 0.29
+# from the plain one and the plain one 0.24 from f32, every wrapper of the
+# step within tolerance on its own tensors. There it is held by the
+# backbone-alone gradients (within GRAD_NOISE_FACTOR), not by the step's.
+LN_WIDE = {
+    "dinov2-base": ("ln_base", BASE_LORA_CONFIG, {**SERVING_LAUNCHES, "fused_layernorm": 1},
+                    {**LORA_LAUNCHES, "fused_layernorm": 1}, lora_grad_names(11),
+                    GRAD_NOISE_FACTOR),
+    "dinov2-large": ("ln_large", LARGE_LORA_CONFIG, {**SERVING_LARGE_LAUNCHES,
+                                                     "fused_layernorm": 1},
+                     {**LARGE_LORA_LAUNCHES, "fused_layernorm": 1}, lora_grad_names(23)[1:],
+                     LARGE_GRAD_NOISE_FACTOR),
+}
 LN_CASES = [(S, D), (TRAIN_BATCH * S, D), (TRAIN_BATCH * S, 768), (TRAIN_BATCH * S, 1024)]
 # The library call's three clocks beside a kernel's (``clocks``), where one
 # PyTorch call computes the kernel's function (rows 24 and 27).
@@ -1109,15 +1160,18 @@ def where_text(model: str | None, s: int = S) -> str:
 def phase_kernels(results: dict, model: str | None = None, batches: tuple = (1, 8),
                   seqs: tuple = (S, S_LONG), seed: int = SEED) -> None:
     """Each forward kernel of ``model``'s block route (dinov2-small's when
-    None) vs its plain version at full width, bf16, at ``batches`` and
-    ``seqs``: at S = 1297 the chains stream their attention through
+    None) at each of ``seqs`` vs its plain version at full width, bf16, at
+    ``batches``: at S = 1297 the chains stream their attention through
     flash_fwd_kernel on the packed qkv."""
+    from dino_pose_tpu_torch.ops import block as B
+
     d, heads, hidden = width(model)
     gen = torch.Generator().manual_seed(seed)
     for s in seqs:
+        stream = B.block_route(d, s, heads, hidden, 2, lora=False, training=False) == "stream"
         for b in batches:
             x, p = block_inputs(b, gen, s, d, hidden)
-            cases = kernel_cases(x, p, heads, stream=model == "dinov2-large")
+            cases = kernel_cases(x, p, heads, stream=stream)
             for name, (kern, plain) in cases.items():
                 check_kernel(results, result_key(name, model), kern(), plain(),
                              f"{name} B={b}{where_text(model, s)}")
@@ -1147,19 +1201,19 @@ def phase_mlp_dx(results: dict, model: str | None = None, seed: int = SEED + 3) 
         del x2, dy, mp
 
 
-def train_cases(x, dy, p):
+def train_cases(x, dy, p, heads: int = H):
     """The trainable block's three wrappers and their plain versions, each
     returning a flat tuple: (y, x2), or (dx, *weight gradients)."""
     from dino_pose_tpu_torch.ops import block as B
 
     mp, atp = B.mlp_params(p), B.attn_train_params(p)
     return {
-        "fused_block_train": (lambda: B.fused_block_train(x, p, H, EPS),
-                              lambda: B.block_train_math(x, p, num_heads=H, eps=EPS)),
+        "fused_block_train": (lambda: B.fused_block_train(x, p, heads, EPS),
+                              lambda: B.block_train_math(x, p, num_heads=heads, eps=EPS)),
         "fused_mlp_bwd": (lambda: flat(B.fused_mlp_bwd(x, dy, mp, EPS)),
                           lambda: flat(B.mlp_bwd_math(x, dy, mp, eps=EPS))),
-        "fused_attn_bwd": (lambda: flat(B.fused_attn_bwd(x, dy, atp, H, EPS)),
-                           lambda: flat(B.attn_bwd_math(x, dy, atp, num_heads=H, eps=EPS))),
+        "fused_attn_bwd": (lambda: flat(B.fused_attn_bwd(x, dy, atp, heads, EPS)),
+                           lambda: flat(B.attn_bwd_math(x, dy, atp, num_heads=heads, eps=EPS))),
     }
 
 
@@ -1267,27 +1321,32 @@ def phase_stream_train(results: dict) -> dict:
     return by_batch
 
 
-def phase_train_kernels(results: dict) -> None:
+def phase_train_kernels(results: dict, model: str | None = None,
+                        cases: tuple = ((1, S), (8, S), (TRAIN_BATCH, S), (LONG_BATCH, S_LONG)),
+                        ) -> None:
     """fused_block_train, fused_mlp_bwd and fused_attn_bwd vs their plain
-    versions at full width, bf16, batch 1, 8 and 128 at S = 257, and at the
-    504² step's batch 32 at S = 1297 (where fused_block_train streams its
-    attention and fused_attn_bwd its recomputed forward and backward, on the
-    packed qkv), with a unit-scale seeded cotangent, on every output."""
+    versions at ``model``'s width (dinov2-small's when None), bf16, at each
+    (batch, S) of ``cases``: by default batch 1, 8 and 128 at S = 257, and
+    the 504² step's batch 32 at S = 1297 (where fused_block_train streams
+    its attention and fused_attn_bwd its recomputed forward and backward, on
+    the packed qkv), with a unit-scale seeded cotangent, on every output."""
+    d, heads, hidden = width(model)
     gen = torch.Generator().manual_seed(SEED + 5)
-    for b, s in ((1, S), (8, S), (TRAIN_BATCH, S), (LONG_BATCH, S_LONG)):
-        x, p = block_inputs(b, gen, s)
-        dy = torch.randn((b, s, D), generator=gen).to("cuda", torch.bfloat16)
-        for name, (kern, plain) in train_cases(x, dy, p).items():
+    for b, s in cases:
+        x, p = block_inputs(b, gen, s, d, hidden)
+        dy = torch.randn((b, s, d), generator=gen).to("cuda", torch.bfloat16)
+        for name, (kern, plain) in train_cases(x, dy, p, heads).items():
             got, want = kern(), plain()
             torch.cuda.synchronize()
             act_err, grad_rel, ok = compare_outputs(got, want)
-            where = "" if s == S else f" S={s}"
+            where = where_text(model, s)
             log(f"kernel {name} B={b}{where}: max_abs(activations)={act_err:.6g} "
                 f"max_err/max|ref|(weight grads)={grad_rel:.6g} tol=atol {KERNEL_ATOL} + rtol "
                 f"{KERNEL_RTOL}*|ref|, grads {GRAD_TOL}*max|ref| -> {'ok' if ok else 'FAIL'}")
             if not ok:
-                raise AssertionError(f"{name} at B={b}, S={s} disagrees with its plain version")
-            row = results.setdefault(name, {"max_abs_err": 0.0, "max_grad_err_rel": 0.0})
+                raise AssertionError(f"{name} at B={b}{where} disagrees with its plain version")
+            row = results.setdefault(result_key(name, model),
+                                     {"max_abs_err": 0.0, "max_grad_err_rel": 0.0})
             row["max_abs_err"] = max(row["max_abs_err"], act_err)
             row["max_grad_err_rel"] = max(row.get("max_grad_err_rel", 0.0), grad_rel)
 
@@ -1326,19 +1385,21 @@ def check_flash(results: dict, q, k, v, g, where: str) -> None:
         row["max_abs_err"] = max(row["max_abs_err"], *errs)
 
 
-def phase_flash(results: dict) -> dict:
+def phase_flash(results: dict, model: str | None = None) -> dict:
     """flash_attention's kernels (a forward launch, a backward pair) against
     flash_math and flash_bwd_math on o, dq, dk and dv, bf16, B = 1, 8, 32:
-    at (B, 6, 1297, 64), dinov2-small's at 504², and at (B, 16, 64, 32),
-    fastvit_sa12's attention stage at 256² (32-wide heads; its train batch is
-    32), and two launches of each giving the same bits; then, at the first
-    shape, the forward at both of its query tiles (64 and 128 rows a block,
-    the measurement behind the kernel's choice by block count), and their
-    times beside the plain versions', the bound (JAX's FLOP count,
-    ``attention.flash_cost``), the rate on the FLOPs the kernels execute and
-    torch's scaled_dot_product_attention (forward; backward alone on a kept
-    graph, and forward+backward), the library yardstick, which the port
-    never calls. Returns the times by batch."""
+    at (B, heads, 1297, 64), ``model``'s attention at 504² (dinov2-small's 6
+    heads when None, -base's 12, -large's 16), and, for dinov2-small, at
+    (B, 16, 64, 32), fastvit_sa12's attention stage at 256² (32-wide heads;
+    its train batch is 32), and two launches of each giving the same bits;
+    then, for dinov2-small, the forward at both of its query tiles (64 and
+    128 rows a block, the measurement behind the kernel's choice by block
+    count), and the times beside the plain versions', the bound (JAX's FLOP
+    count, ``attention.flash_cost``), the rate on the FLOPs the kernels
+    execute and torch's scaled_dot_product_attention (forward; backward
+    alone on a kept graph, and forward+backward), the library yardstick,
+    which the port never calls. Returns the times by batch, under each
+    wrapper's ``result_key``."""
     import torch.nn.functional as F
 
     from dino_pose_tpu_torch.ops import _ext
@@ -1346,16 +1407,19 @@ def phase_flash(results: dict) -> dict:
     from dino_pose_tpu_torch.ops import block as B
 
     gen, gen_sa12 = (torch.Generator().manual_seed(SEED + i) for i in (6, 10))
-    dh = D // H
+    d, heads, _ = width(model)
+    dh = d // heads
     scale = dh ** -0.5
     lib = _ext.lib()
     times = {}
+    where = "" if model is None else where_text(model, S_LONG)
     for b in FLASH_BATCHES:
-        q, k, v, g = flash_inputs(b, gen)
-        check_flash(results, q, k, v, g, f"B={b}")
-        heads, s, sdh = SA12_FLASH_SHAPE
-        check_flash(results, *flash_inputs(b, gen_sa12, SA12_FLASH_SHAPE),
-                    f"B={b} (fastvit_sa12: {heads} heads, S={s}, dh={sdh})")
+        q, k, v, g = flash_inputs(b, gen, (heads, S_LONG, dh))
+        check_flash(results, q, k, v, g, f"B={b}{where}")
+        if model is None:
+            sa_heads, s, sdh = SA12_FLASH_SHAPE
+            check_flash(results, *flash_inputs(b, gen_sa12, SA12_FLASH_SHAPE),
+                        f"B={b} (fastvit_sa12: {sa_heads} heads, S={s}, dh={sdh})")
         leaves = [t.clone().requires_grad_() for t in (q, k, v)]
 
         saved = dict(B.LAUNCHES)
@@ -1368,19 +1432,20 @@ def phase_flash(results: dict) -> dict:
         (o0, st0, *g0), (o1, st1, *g1) = runs
         same = torch.equal(st0[:, :, :2], st1[:, :, :2]) and all(
             torch.equal(x, y) for x, y in zip((o0, *g0), (o1, *g1)))
-        log(f"flash_attention B={b}: two launches of the forward and the backward pair give "
-            f"{'the same bits' if same else 'DIFFERENT bits'}")
+        log(f"flash_attention B={b}{where}: two launches of the forward "
+            f"and the backward pair give {'the same bits' if same else 'DIFFERENT bits'}")
         if not same:
             raise AssertionError(f"flash kernels at B={b} are not deterministic")
         del runs, o0, st0, g0, o1, st1, g1
         tiles = {}
-        for rows in (64, 128):
+        for rows in ((64, 128) if model is None else ()):
             lib.dp_flash_fwd_rows(rows)
             tiles[rows] = cuda_ms(lambda: A.flash_fwd(q, k, v, scale), iters=20)
         lib.dp_flash_fwd_rows(0)
-        log(f"time flash_attention B={b} by query rows a block: 64 rows {tiles[64]:.4f} ms "
-            f"({b * H * -(-S_LONG // 64)} blocks), 128 rows {tiles[128]:.4f} ms "
-            f"({b * H * -(-S_LONG // 128)} blocks)")
+        if tiles:
+            log(f"time flash_attention B={b} by query rows a block: 64 rows {tiles[64]:.4f} ms "
+                f"({b * H * -(-S_LONG // 64)} blocks), 128 rows {tiles[128]:.4f} ms "
+                f"({b * H * -(-S_LONG // 128)} blocks)")
         _, stats = A.flash_fwd(q, k, v, scale)
         sdpa_out = F.scaled_dot_product_attention(*leaves, scale=scale)
         t = {
@@ -1398,20 +1463,22 @@ def phase_flash(results: dict) -> dict:
             F.scaled_dot_product_attention(*leaves, scale=scale), leaves, g), iters=20)
         B.LAUNCHES.update(saved)  # timing launches are not main-path launches
         del sdpa_out, leaves, stats
-        cost = A.flash_cost(b, H, S_LONG, dh)
+        cost = A.flash_cost(b, heads, S_LONG, dh)
         for name, (ms, plain_ms, lib_ms) in t.items():
             flops, nbytes, executed = cost[name]
             bound, by = B.bound_ms(flops, nbytes)
             rate = executed / ms / 1e9
-            times.setdefault(b, {})[name] = {
+            times.setdefault(b, {})[result_key(name, model)] = {
                 "ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
                 "library_ms": lib_ms, "executed_tflops": rate}
-            log(f"time {name} B={b}: kernel {ms:.4f} ms ({rate:.1f} TFLOP/s on the "
-                f"{executed:.4g} FLOPs it executes), plain {plain_ms:.4f} ms, bound "
-                f"{bound:.5f} ms ({by}), scaled_dot_product_attention {lib_ms:.4f} ms")
-        times[b]["flash_attention"]["ms_by_rows"] = tiles
-        times[b]["flash_attention_bwd"]["library_fwd_bwd_ms"] = sdpa_fwd_bwd
-        log(f"time scaled_dot_product_attention forward+backward B={b}: {sdpa_fwd_bwd:.4f} ms")
+            log(f"time {name} B={b}{where}: kernel {ms:.4f} ms ({rate:.1f} "
+                f"TFLOP/s on the {executed:.4g} FLOPs it executes), plain {plain_ms:.4f} ms, "
+                f"bound {bound:.5f} ms ({by}), scaled_dot_product_attention {lib_ms:.4f} ms")
+        if tiles:
+            times[b]["flash_attention"]["ms_by_rows"] = tiles
+        times[b][result_key("flash_attention_bwd", model)]["library_fwd_bwd_ms"] = sdpa_fwd_bwd
+        log(f"time scaled_dot_product_attention forward+backward B={b}"
+            f"{where}: {sdpa_fwd_bwd:.4f} ms")
     return times
 
 
@@ -1502,11 +1569,12 @@ def bf16_ties(hm: torch.Tensor) -> np.ndarray:
 def phase_serving(results: dict, serving: dict, tag: str = "serving", image_size: int = 224,
                   per_forward_launches: dict = SERVING_LAUNCHES, n_lat: int = 30,
                   n_batches: int = 10, fwd_iters: int = 20, config: dict = LORA_CONFIG,
-                  pil: bool = True):
-    """A model (by default the repo's: dinov2-small + LoRA r=8 on layer 11)
-    behind ``serve.make_predictor``: 4 batch-1 requests and 1 batch-8
-    request, each checked (launches per forward, shapes, agreement with the
-    plain path), then timed. With ``pil`` the requests are PIL images of
+                  pil: bool = True, model=None):
+    """A model (by default the repo's: dinov2-small + LoRA r=8 on layer 11,
+    seeded, with ``randomise_for_serving``; or ``model`` as it is) behind
+    ``serve.make_predictor``: 4 batch-1 requests and 1 batch-8 request,
+    each checked (launches per forward, shapes, agreement with the plain
+    path), then timed. With ``pil`` the requests are PIL images of
     several sizes (the model's preprocessor crops them to its input size);
     otherwise (B, 3, image_size, image_size) pixel arrays, seeded."""
     from dino_pose_tpu_torch.data.preprocess import create_preprocessor
@@ -1514,8 +1582,10 @@ def phase_serving(results: dict, serving: dict, tag: str = "serving", image_size
     from dino_pose_tpu_torch.ops import block as B
     from dino_pose_tpu_torch.serve import make_predictor
 
-    model = create_model_from_config(dict(config), seed=SEED, device="cuda")
-    randomise_for_serving(model, torch.Generator().manual_seed(SEED + 1))
+    if model is None:
+        model = create_model_from_config(dict(config), seed=SEED, device="cuda",
+                                         pretrained=False)
+        randomise_for_serving(model, torch.Generator().manual_seed(SEED + 1))
     predict = make_predictor(model)
     rng = np.random.default_rng(SEED)
     if pil:
@@ -1640,6 +1710,9 @@ def plain_pair(name: str, args: tuple, out) -> tuple:
         x, p, *heads, eps = args
         kw = {"num_heads": heads[0]} if heads else {}
         return (out,), (forward[name](x, p, eps=eps, **kw),), None
+    if name == "fused_block_train":
+        x, p, heads, eps = args
+        return tuple(out), tuple(B.block_train_math(x, p, num_heads=heads, eps=eps)), None
     if name == "fused_mlp_dx":
         x2, dy, mp, eps = args
         return (out,), (B.mlp_dx_math(x2, dy, mp, eps=eps),), dy
@@ -1801,9 +1874,10 @@ def step1_grads(model, config: dict, kernels: bool, dtype, batch: dict, image_si
 def phase_train(results: dict, training: dict, tag: str, config: dict, per_step: dict,
                 grad_names: tuple, recorded: tuple, batch_size: int = TRAIN_BATCH,
                 image_size: int = 224, steps: int = TRAIN_STEPS, timed: int = 5,
-                grad_batches: int = 1, grad_factor: float = GRAD_NOISE_FACTOR):
+                grad_batches: int = 1, grad_factor: float = GRAD_NOISE_FACTOR, model=None):
     """``steps`` fine-tune steps of the model ``config`` names (dinov2, or a
-    FastViT) at ``batch_size`` through the kernels, as many from an
+    FastViT; seeded, with ``randomise_for_serving``, or a copy of ``model``
+    as it is) at ``batch_size`` through the kernels, as many from an
     identical copy through the plain versions (the same dropout masks),
     compared step by step; the first step's first and last call of each
     ``recorded`` wrapper (a backward's first call is the top layer's, its
@@ -1814,8 +1888,12 @@ def phase_train(results: dict, training: dict, tag: str, config: dict, per_step:
     from dino_pose_tpu_torch.models.registry import create_model_from_config
     from dino_pose_tpu_torch.ops import block as B
 
-    model = create_model_from_config(dict(config), seed=SEED, device="cuda")
-    randomise_for_serving(model, torch.Generator().manual_seed(SEED + 4))
+    if model is None:
+        model = create_model_from_config(dict(config), seed=SEED, device="cuda",
+                                         pretrained=False)
+        randomise_for_serving(model, torch.Generator().manual_seed(SEED + 4))
+    else:
+        model = copy.deepcopy(model)
     plain_model = copy.deepcopy(model)
     ref_model = copy.deepcopy(model)
     init_model = copy.deepcopy(model) if grad_batches > 1 else None
@@ -1998,7 +2076,8 @@ def phase_backbone_grads(training: dict, tag: str, config: dict, batch_size: int
     from dino_pose_tpu_torch.ops import block as B
     from dino_pose_tpu_torch.train.step import step_generator
 
-    model = create_model_from_config(dict(config), seed=SEED, device="cuda")
+    model = create_model_from_config(dict(config), seed=SEED, device="cuda",
+                                     pretrained=False)
     randomise_for_serving(model, torch.Generator().manual_seed(SEED + 4))
     gen = torch.Generator().manual_seed(SEED + 9)
     x = torch.randn((batch_size, 3, image_size, image_size), generator=gen).cuda()
@@ -2236,8 +2315,9 @@ def phase_convffn(results: dict, backward: bool) -> dict:
 
 @contextlib.contextmanager
 def gates(env: dict):
-    """Set JAX's arm switches ``env`` for one phase and restore them after
-    it, also when the phase fails (the failure still ends the run)."""
+    """Set the environment ``env`` (JAX's switches, the hub cache) for one
+    phase and restore it after, also when the phase fails (the failure still
+    ends the run)."""
     saved = {k: os.environ.get(k) for k in env}
     os.environ.update(env)
     try:
@@ -3299,6 +3379,248 @@ def phase_fit(results: dict, root: str) -> dict:
     return fit
 
 
+# phase_pretrained: DINOv2 weights from a local Hugging Face hub cache. The
+# script writes that cache itself, in the hub's layout
+# (models--facebook--dinov2-small/refs/main naming snapshots/<commit>/ with
+# config.json and model.safetensors), with its own safetensors writer, not
+# the port's reader: dinov2-small's published config and seeded f32 tensors
+# (PRETRAINED_SEED, not the model's seed) under HF Dinov2Model's plain key
+# names. Nothing is downloaded. Every other phase runs with HF_HUB_CACHE on
+# an empty folder (main), so that no cache on the machine moves its
+# numbers.
+PRETRAINED_NAME = "facebook/dinov2-small"
+PRETRAINED_COMMIT = "a1b2c3d4e5f60718293a4b5c6d7e8f9012345678"
+PRETRAINED_SEED = SEED + 40
+DINOV2_SMALL_HF_CONFIG = {
+    "architectures": ["Dinov2Model"], "model_type": "dinov2", "hidden_size": 384,
+    "num_hidden_layers": 12, "num_attention_heads": 6, "mlp_ratio": 4, "patch_size": 14,
+    "image_size": 518, "num_channels": 3, "layerscale_value": 1.0, "layer_norm_eps": 1e-6,
+    "hidden_act": "gelu", "qkv_bias": True, "use_swiglu_ffn": False, "drop_path_rate": 0.0,
+    "hidden_dropout_prob": 0.0, "attention_probs_dropout_prob": 0.0,
+    "initializer_range": 0.02, "torch_dtype": "float32"}
+# The pretrained LoRA step's checked step-1 gradients: LoRA B and two head
+# convs (LoRA A's is zero at step 1, where B is the registry's zero).
+PRETRAINED_GRAD_NAMES = LORA_GRAD_NAMES[1:]
+UNAVAILABLE = ("Pre-trained weights for {} unavailable (OSError); initialising backbone "
+               "randomly. Provide a checkpoint via config_model['load_model'] for real training.")
+
+
+def dinov2_hf_tensors(gen: torch.Generator, d: int = D, layers: int = 12,
+                      hidden: int = HIDDEN, patch: int = 14, grid: int = 37) -> dict:
+    """Seeded f32 tensors under HF ``Dinov2Model``'s plain key names and
+    shapes (linear weights (out, in)), scaled like trained ones."""
+    def n(*shape, std, mean=0.0):
+        return torch.randn(shape, generator=gen) * std + mean
+
+    t = {"embeddings.cls_token": n(1, 1, d, std=0.1), "embeddings.mask_token": n(1, d, std=0.1),
+         "embeddings.position_embeddings": n(1, grid * grid + 1, d, std=0.1),
+         "embeddings.patch_embeddings.projection.weight": n(d, 3, patch, patch,
+                                                            std=(3 * patch * patch) ** -0.5),
+         "embeddings.patch_embeddings.projection.bias": n(d, std=0.05),
+         "layernorm.weight": n(d, std=0.1, mean=1.0), "layernorm.bias": n(d, std=0.05)}
+    for i in range(layers):
+        p = f"encoder.layer.{i}."
+        for norm in ("norm1", "norm2"):
+            t[f"{p}{norm}.weight"] = n(d, std=0.1, mean=1.0)
+            t[f"{p}{norm}.bias"] = n(d, std=0.05)
+        for lin, out, k in (("attention.attention.query", d, d), ("attention.attention.key", d, d),
+                            ("attention.attention.value", d, d), ("attention.output.dense", d, d),
+                            ("mlp.fc1", hidden, d), ("mlp.fc2", d, hidden)):
+            t[f"{p}{lin}.weight"] = n(out, k, std=k ** -0.5)
+            t[f"{p}{lin}.bias"] = n(out, std=0.05)
+        for ls in ("layer_scale1", "layer_scale2"):
+            t[f"{p}{ls}.lambda1"] = torch.rand(d, generator=gen) * 0.9 + 0.1
+    return t
+
+
+def write_safetensors(path: str, tensors: dict) -> None:
+    """f32 tensors in the safetensors format: an 8-byte little-endian header
+    length, the JSON header (padded with spaces to 8 bytes), the raw bytes."""
+    header, blobs, offset = {}, [], 0
+    for name, t in tensors.items():
+        data = t.detach().float().contiguous().numpy().astype("<f4").tobytes()
+        header[name] = {"dtype": "F32", "shape": list(t.shape),
+                        "data_offsets": [offset, offset + len(data)]}
+        blobs.append(data)
+        offset += len(data)
+    head = json.dumps(header).encode()
+    head += b" " * (-len(head) % 8)
+    with open(path, "wb") as f:
+        f.write(len(head).to_bytes(8, "little"))
+        f.write(head)
+        for data in blobs:
+            f.write(data)
+
+
+def write_hub_cache(root: str, repo_id: str, config: dict, tensors: dict) -> str:
+    """``repo_id``'s entry in a hub cache at ``root``; returns its snapshot."""
+    repo = os.path.join(root, "models--" + repo_id.replace("/", "--"))
+    snapshot = os.path.join(repo, "snapshots", PRETRAINED_COMMIT)
+    os.makedirs(snapshot)
+    os.makedirs(os.path.join(repo, "refs"))
+    with open(os.path.join(repo, "refs", "main"), "w") as f:
+        f.write(PRETRAINED_COMMIT)
+    with open(os.path.join(snapshot, "config.json"), "w") as f:
+        json.dump(config, f, indent=2)
+    write_safetensors(os.path.join(snapshot, "model.safetensors"), tensors)
+    return snapshot
+
+
+def port_key(hf_key: str, lora_layer: int) -> str:
+    """An HF plain key's name in the port's LoRA model."""
+    plain = f"encoder.layer.{lora_layer}.attention."
+    return "backbone." + hf_key.replace(plain, plain + "original_attention.")
+
+
+def unavailable(caught: list) -> list:
+    return [str(w.message) for w in caught if "unavailable" in str(w.message)]
+
+
+def phase_pretrained(results: dict, serving: dict, training: dict, root: str) -> dict:
+    """dinov2-small + LoRA r=8 from a DINOv2 cache that the phase writes
+    under ``root`` (HF_HUB_CACHE set for this phase only): (a) the cache;
+    (b) ``create_model_from_config`` with JAX's default ``pretrained``,
+    every backbone tensor bit-equal to the written one, LoRA B zero, LoRA A
+    and the heads equal to a ``pretrained=False`` build of the same seed, no
+    warning; (c) 4 batch-1 and 1 batch-8 requests through
+    ``serve.make_predictor`` and a bs=128 LoRA step on those weights as
+    they are, exact launches, against the plain path; (d) ``cli.train`` for
+    one epoch of the default config on phase_fit's seeded set, no
+    "unavailable" warning, the saved ``final_model.pth``'s frozen backbone
+    equal to the cache; (e) an empty cache: JAX's warning once, the seeded
+    weights; (f) ``load_model_smart`` on (d)'s file with the cache removed:
+    no warning, no cache read, the file's weights."""
+    import shutil
+    import warnings
+
+    from dino_pose_tpu_torch.cli.train import main as train_main
+    from dino_pose_tpu_torch.config import load_config_file
+    from dino_pose_tpu_torch.io import hf_cache
+    from dino_pose_tpu_torch.io.checkpoint import load_model_smart
+    from dino_pose_tpu_torch.models.registry import create_model_from_config
+    from dino_pose_tpu_torch.ops import block as B
+
+    out: dict = {"card": nvidia_smi()}
+    cache = os.path.join(root, "hub")
+    lora_layer = 11
+    written = dinov2_hf_tensors(torch.Generator().manual_seed(PRETRAINED_SEED))
+    t0 = time.perf_counter()
+    write_hub_cache(cache, PRETRAINED_NAME, DINOV2_SMALL_HF_CONFIG, written)
+    out["write_s"] = time.perf_counter() - t0
+    want = {port_key(k, lora_layer): v for k, v in written.items()}
+    log(f"pretrained (a): {len(written)} tensors of {PRETRAINED_NAME} written to a hub cache "
+        f"in {out['write_s']:.3f} s")
+
+    with gates({"HF_HUB_CACHE": cache}):
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            t0 = time.perf_counter()
+            model = create_model_from_config(dict(LORA_CONFIG), seed=SEED, device="cuda")
+            torch.cuda.synchronize()
+            out["load_s"] = time.perf_counter() - t0
+        seeded = create_model_from_config(dict(LORA_CONFIG), seed=SEED, device="cuda",
+                                          pretrained=False).state_dict()
+        sd = model.state_dict()
+        backbone = {k for k in sd if k.startswith("backbone.") and "lora_output" not in k}
+        differ = sorted(k for k in want if not torch.equal(sd[k].cpu(), want[k]))
+        lora_b = sd[f"backbone.encoder.layer.{lora_layer}.attention.lora_output.lora_B"]
+        kept = [k for k in sd if not k.startswith("backbone.") or "lora_A" in k]
+        moved = sorted(k for k in kept if not torch.equal(sd[k], seeded[k]))
+        ok = (not caught and backbone == set(want) and not differ and not moved
+              and bool((lora_b == 0).all()))
+        log(f"pretrained (b): create_model_from_config in {out['load_s']:.3f} s; "
+            f"{len(want)} backbone tensors bit-equal to the cache: {not differ} "
+            f"(keys match: {backbone == set(want)}), LoRA B zero: {bool((lora_b == 0).all())}, "
+            f"LoRA A and {len(kept) - 1} head tensors as the seeded build: {not moved}; "
+            f"warnings {[str(w.message) for w in caught]} -> {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"pretrained (b): differ {differ[:5]}, moved {moved[:5]}")
+        del seeded
+
+        phase_serving(results, serving, "serving_pretrained", model=model)
+        phase_train(results, training, "lora_pretrained", LORA_CONFIG, LORA_LAUNCHES,
+                    PRETRAINED_GRAD_NAMES, ("fused_mlp_dx",), steps=2, timed=3, model=model)
+        del model
+
+        ti, ta = write_coco(os.path.join(root, "train"), FIT_TRAIN, SEED + 20)
+        vi, va = write_coco(os.path.join(root, "valid"), FIT_VAL, SEED + 21)
+        ck = os.path.join(root, "checkpoints")
+        config_file = os.path.join(root, "config.py")
+        with open(config_file, "w") as f:
+            f.write(FIT_CONFIG.format(ti=ti, ta=ta, vi=vi, va=va, ck=ck, extra=""))
+        B.reset_launches()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            t0 = time.perf_counter()
+            history = train_main(["--config_file", config_file, "--num_epochs", "1"])
+            torch.cuda.synchronize()
+            out["fit_s"] = time.perf_counter() - t0
+        launches = dict(B.LAUNCHES)
+        batch = load_config_file(config_file)[1]["batch_size"]
+        steps = len(history["train_loss"]) * (FIT_TRAIN // batch)
+        forwards = (len(history["val_loss"]) + len(history["pckh"])) * -(-FIT_VAL // batch)
+        want_launches = {k: steps * LORA_LAUNCHES.get(k, 0) + forwards * SERVING_LAUNCHES.get(k, 0)
+                         for k in B.LAUNCHES}
+        record_launches(results, "pretrained_fit", launches)
+        final_path = os.path.join(ck, "final_model.pth")
+        saved = torch.load(final_path, map_location="cpu", weights_only=False)["model_state_dict"]
+        differ = sorted(k for k in want if not torch.equal(saved[k], want[k]))
+        losses = history["train_loss"] + history["val_loss"]
+        ok = (not unavailable(caught) and launches == want_launches and not differ
+              and len(losses) == 2 and bool(np.isfinite(losses).all()))
+        log(f"pretrained (d): cli.train one epoch in {out['fit_s']:.2f} s, losses {losses}, "
+            f"launches over {steps} steps and {forwards} forwards {launches}; 'unavailable' "
+            f"warnings {unavailable(caught)}; final_model.pth's {len(want)} frozen backbone "
+            f"tensors equal to the cache: {not differ} -> {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"pretrained (d): launches {launches} (want {want_launches}), "
+                                 f"differ {differ[:5]}")
+        out["fit_losses"] = losses
+
+    empty = os.path.join(root, "empty")
+    os.makedirs(empty)
+    with gates({"HF_HUB_CACHE": empty}):
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            model = create_model_from_config(dict(LORA_CONFIG), seed=SEED, device="cuda")
+        seeded = create_model_from_config(dict(LORA_CONFIG), seed=SEED, device="cuda",
+                                          pretrained=False).state_dict()
+        same = all(torch.equal(v, seeded[k]) for k, v in model.state_dict().items())
+        texts = [str(w.message) for w in caught]
+        ok = texts == [UNAVAILABLE.format(PRETRAINED_NAME)] and same
+        log(f"pretrained (e): empty cache: warnings {texts}; weights equal to the seeded "
+            f"build: {same} -> {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError("pretrained (e): the empty cache's build")
+        del model, seeded
+
+    shutil.rmtree(cache)
+    reads = []
+    read = hf_cache.load_dinov2
+
+    def counted(*args, **kwargs):
+        reads.append(args)
+        return read(*args, **kwargs)
+
+    hf_cache.load_dinov2 = counted
+    try:
+        with gates({"HF_HUB_CACHE": cache}), warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            model = load_model_smart(final_path, device="cuda")
+    finally:
+        hf_cache.load_dinov2 = read
+    same = all(torch.equal(v.cpu(), saved[k]) for k, v in model.state_dict().items())
+    texts = [str(w.message) for w in caught]
+    ok = not texts and not reads and same
+    log(f"pretrained (f): load_model_smart(final_model.pth) with the cache removed: cache "
+        f"reads {len(reads)}, warnings {texts}, weights equal to the file's: {same} -> "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("pretrained (f): the checkpoint's reload read the cache or moved")
+    log(f"pretrained ({out['card']}): " + json.dumps(out))
+    return out
+
+
 # phase_dist: the port's multi-process training on the one card, two ranks
 # started as processes through torchrun's launch contract (WORLD_SIZE, RANK,
 # LOCAL_RANK = 0, MASTER_ADDR, MASTER_PORT), both on cuda:0 under gloo with
@@ -3413,7 +3735,8 @@ def dist_worker(spec_path: str) -> int:
 def seeded_model(config: dict):
     from dino_pose_tpu_torch.models.registry import create_model_from_config
 
-    model = create_model_from_config(dict(config), seed=SEED, device="cuda")
+    model = create_model_from_config(dict(config), seed=SEED, device="cuda",
+                                     pretrained=False)
     randomise_for_serving(model, torch.Generator().manual_seed(SEED + 4))
     return model
 
@@ -3916,7 +4239,8 @@ def phase_cli(results: dict, serving: dict, root: str) -> dict:
     card = nvidia_smi()
     have = {m: importlib.util.find_spec(m) is not None for m in ("matplotlib", "imageio", "cv2")}
     log(f"cli: plotting and codec packages here: {have}")
-    model = create_model_from_config(dict(LORA_CONFIG), seed=SEED, device="cuda")
+    model = create_model_from_config(dict(LORA_CONFIG), seed=SEED, device="cuda",
+                                     pretrained=False)
     randomise_for_serving(model, torch.Generator().manual_seed(SEED + 30))
     ckpt = os.path.join(root, "ckpt.pth")
     save_checkpoint(ckpt, model, epoch=5, train_loss=0.3, valid_loss=0.4)
@@ -4119,7 +4443,8 @@ from dino_pose_tpu_torch.ops import _ext
 _ext.build()
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
-model = create_model_from_config(dict(cs.T8_CONFIG), seed=cs.SEED, device="cuda")
+model = create_model_from_config(dict(cs.T8_CONFIG), seed=cs.SEED, device="cuda",
+                                 pretrained=False)
 cs.randomise_for_serving(model, torch.Generator().manual_seed(cs.SEED + 4))
 batch = cs.synthetic_batch(cs.T8_TRAIN_BATCH, cs.FASTVIT_IMAGE)
 state, step = cs.make_step(model, cs.T8_CONFIG, kernels=True, image_size=cs.FASTVIT_IMAGE)
@@ -4211,6 +4536,16 @@ def main() -> int:
     _ext.build(verbose=True)
     _ext.lib()
     log(f"build_seconds {time.perf_counter() - t0:.1f}")
+    marks = [time.perf_counter()]
+
+    def mark(what: str) -> None:
+        marks.append(time.perf_counter())
+        log(f"wall {what}: {marks[-1] - marks[-2]:.1f} s")
+
+    # No phase but phase_pretrained reads a hub cache: the default
+    # (pretrained) builds of fit, the CLIs and the ranks see an empty one.
+    empty_cache = tempfile.mkdtemp(prefix="hub_empty_")
+    os.environ["HF_HUB_CACHE"] = empty_cache
 
     results: dict = {}
     serving: dict = {}
@@ -4235,16 +4570,25 @@ def main() -> int:
     train_base_tp: dict = {}
     serving_ln: dict = {}
     lora_ln: dict = {}
+    serving_pre: dict = {}
+    lora_pre: dict = {}
+    long_wide: dict = {}
+    ln_wide: dict = {}
     gemm_times = phase_gemm(results)
+    mark("gemm")
     gemm_bwd_times = phase_gemm_bwd(results)
+    mark("gemm_bwd")
     core_times = phase_attention_core(results)
+    mark("attention_core")
     phase_kernels(results)
     phase_mlp_dx(results)
     phase_train_kernels(results)
     flash_times = phase_flash(results)
+    mark("kernels, flash")
     model = phase_serving(results, serving)
     with tempfile.TemporaryDirectory() as cli_root:
         cli = phase_cli(results, serving, cli_root)
+    mark("serving, cli")
     lora_run = phase_train(results, lora, "lora", LORA_CONFIG, LORA_LAUNCHES, LORA_GRAD_NAMES,
                            ("fused_mlp_dx",))
     unfreeze_run = phase_train(results, unfreeze, "unfreeze", UNFREEZE_CONFIG, UNFREEZE_LAUNCHES,
@@ -4255,6 +4599,27 @@ def main() -> int:
         results, unfreeze_504, "unfreeze_504", UNFREEZE_CONFIG, UNFREEZE_504_LAUNCHES,
         UNFREEZE_GRAD_NAMES, ("fused_mlp_bwd", "fused_attn_bwd"), batch_size=LONG_BATCH,
         image_size=LONG_IMAGE, steps=LONG_STEPS, timed=3)
+    mark("dinov2-small lora, unfreeze, 504²")
+    with tempfile.TemporaryDirectory() as pre_root:
+        pretrained = phase_pretrained(results, serving_pre, lora_pre, pre_root)
+    mark("pretrained")
+    for wide, lora_config, unfreeze_config in (
+            ("dinov2-base", BASE_LORA_CONFIG, BASE_UNFREEZE_CONFIG),
+            ("dinov2-large", LARGE_LORA_CONFIG, LARGE_UNFREEZE_CONFIG)):
+        tag, layers = wide.replace("-", "_"), LONG_WIDE_LAYERS[wide]
+        phase_kernels(results, wide, batches=(1, 8), seqs=(S_LONG,), seed=SEED + 41)
+        phase_train_kernels(results, wide, cases=((LONG_BATCH, S_LONG),))
+        for b, t in phase_flash(results, wide).items():
+            flash_times.setdefault(b, {}).update(t)
+        long_wide[wide] = {"serving_504": {}, "unfreeze_504": {}}
+        phase_serving(results, long_wide[wide]["serving_504"], f"serving_504_{tag}", LONG_IMAGE,
+                      serving_504_launches(layers), n_lat=8, n_batches=3, fwd_iters=5,
+                      config=lora_config, pil=False)
+        phase_train(results, long_wide[wide]["unfreeze_504"], f"unfreeze_504_{tag}",
+                    unfreeze_config, unfreeze_504_launches(layers),
+                    unfreeze_grad_names(layers - 1), UNFREEZE_504_WIDE_RECORDED,
+                    batch_size=LONG_BATCH, image_size=LONG_IMAGE, steps=LONG_STEPS, timed=3)
+        mark(f"{wide} 504²")
     convffn_times = phase_convffn(results, backward=False)
     model_t8 = phase_serving(results, serving_t8, "serving_fastvit_t8",
                              per_forward_launches=SERVING_T8_LAUNCHES, config=T8_CONFIG)
@@ -4274,6 +4639,7 @@ def main() -> int:
                                      "flash_bwd"),
                 batch_size=SA12_TRAIN_BATCH, image_size=FASTVIT_IMAGE, steps=2, timed=3)
     phase_backbone_grads(train_sa12, "fastvit_sa12_lora", SA12_LORA_CONFIG, SA12_TRAIN_BATCH)
+    mark("fastvit serving, convffn, fastvit training")
     wide_times = []
     for wide in WIDE:
         phase_kernels(results, wide, batches=(1, 8, TRAIN_BATCH), seqs=(S,), seed=SEED + 12)
@@ -4302,11 +4668,22 @@ def main() -> int:
         f"serving b1 p50 {serving_base['b1_latency_ms_p50']:.3f} / tp=2 "
         f"{serving_base_tp['b1_latency_ms_p50']:.3f} ms, b8 images/s "
         f"{serving_base['b8_images_per_s']:.2f} / {serving_base_tp['b8_images_per_s']:.2f}")
+    mark("dinov2-base 224², tp")
     ln_times = phase_layernorm(results)
     with gates(LN_GATE):
         phase_serving(results, serving_ln, "serving_ln", per_forward_launches=SERVING_LN_LAUNCHES)
         ln_run = phase_train(results, lora_ln, "lora_ln", LORA_CONFIG, LORA_LN_LAUNCHES,
                              LORA_GRAD_NAMES, ("fused_mlp_dx", "fused_layernorm"))
+        for tag, config, serve_launches, step_launches, grad_names, factor in LN_WIDE.values():
+            ln_wide[tag] = {"serving": {}, "lora": {}}
+            phase_serving(results, ln_wide[tag]["serving"], f"serving_{tag}",
+                          per_forward_launches=serve_launches, n_lat=8, n_batches=3,
+                          fwd_iters=5, config=config)
+            phase_train(results, ln_wide[tag]["lora"], f"lora_{tag}", config, step_launches,
+                        grad_names, ("fused_mlp_dx", "fused_layernorm"), steps=WIDE_STEPS,
+                        timed=WIDE_TIMED, grad_factor=factor)
+            phase_backbone_grads(ln_wide[tag]["lora"], f"lora_{tag}", config, TRAIN_BATCH, 224)
+    mark("layernorm")
     log("dinov2-small + LoRA by final LayerNorm (this card, kernels / plain): plain norm "
         f"step {lora['step_ms_kernels']:.3f} / {lora['step_ms_plain']:.3f} ms, serving b1 p50 "
         f"{serving['b1_latency_ms_p50']:.3f}; DINO_POSE_TPU_LN=pallas step "
@@ -4333,6 +4710,7 @@ def main() -> int:
         steps=WIDE_STEPS, timed=WIDE_TIMED, grad_batches=WIDE_GRAD_BATCHES)
     phase_backbone_grads(unfreeze_base, "dinov2_base_unfreeze", BASE_UNFREEZE_CONFIG,
                          TRAIN_BATCH, 224)
+    mark("dinov2-large 224², stream train, base unfreeze")
     dw_times = phase_dwconv(results)
     with gates({"DINO_POSE_TPU_DWCONV": "on"}):
         phase_serving(results, serving_t8_dw, "serving_fastvit_t8_dwconv",
@@ -4345,9 +4723,13 @@ def main() -> int:
     log("fastvit_t8_lora step ms by route (this card, kernels / plain): default "
         f"{train_t8['step_ms_kernels']:.3f} / {train_t8['step_ms_plain']:.3f}, both arms on "
         f"{train_t8_pair['step_ms_kernels']:.3f} / {train_t8_pair['step_ms_plain']:.3f}")
+    mark("dwconv arms")
     with tempfile.TemporaryDirectory() as fit_root:
         fit = phase_fit(results, fit_root)
+        mark("fit")
         dist = phase_dist(results, fit_root, fit["history"])
+        mark("dist")
+    os.rmdir(empty_cache)
     by_batch = phase_times()
     for times in (*wide_times, stream_train_times):
         for b, t in times.items():
@@ -4436,7 +4818,10 @@ def main() -> int:
                        "serving_dinov2_base_tp2": serving_base_tp,
                        "training_dinov2_base_lora_tp2": train_base_tp,
                        "layernorm": ln_times["cases"], "serving_ln": serving_ln,
-                       "training_lora_ln": lora_ln, "gemm": gemm_times,
+                       "training_lora_ln": lora_ln, "ln_wide": ln_wide,
+                       "pretrained": pretrained, "serving_pretrained": serving_pre,
+                       "training_lora_pretrained": lora_pre, "long_wide": long_wide,
+                       "gemm": gemm_times,
                        "gemm_bwd": gemm_bwd_times,
                        "attention_core": {k: v for k, v in core_times.items()
                                           if isinstance(k, str)}, "fit": fit, "cli": cli,

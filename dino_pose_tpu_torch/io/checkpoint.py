@@ -259,7 +259,8 @@ def load_model_smart(
 
     A checkpoint rebuilds its architecture from the embedded config and loads
     its weights non-strictly, reporting missing or unexpected keys;
-    registry/family names build a fresh model from the seeded weights.
+    registry/family names build a fresh model, its dinov2 backbone from the
+    local DINOv2 cache where it has the weights (``pretrained``, as JAX's).
     ``ckpt`` lets a caller that already read the file skip a second read.
     The model comes back in eval mode, or train mode with
     ``eval_mode=False``."""
@@ -267,7 +268,9 @@ def load_model_smart(
     if os.path.isfile(model_path) and model_path.endswith((".pth", ".msgpack")):
         print(f"Loading model from checkpoint: {model_path}")
         ckpt = ckpt if ckpt is not None else load_checkpoint(model_path)
-        model = registry.create_model_from_config(_model_from_ckpt_config(ckpt), device=dev)
+        # The checkpoint's weights replace the backbone's: no cache is read.
+        model = registry.create_model_from_config(_model_from_ckpt_config(ckpt), device=dev,
+                                                  pretrained=False)
         missing, unexpected = load_weights(model, ckpt["model_state_dict"])
         if missing:
             print(f"Warning: Missing keys in checkpoint: {missing}")

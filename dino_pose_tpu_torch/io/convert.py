@@ -26,6 +26,10 @@ none        identical                    identical
 dilated convolution (spatially flipped); torch's ``ConvTranspose2d`` takes
 the unflipped weight, hence the flip back.
 
+Pretrained DINOv2 weights from the hub cache (``io/hf_cache.py``) carry
+the plain HF keys; :func:`backbone_state_from_hf` renames them onto the
+backbone, LoRA layers included, from the same rule table.
+
 A JAX ``TrainState`` carries over in two parts: ``params`` and
 ``batch_stats`` through :func:`state_dict_from_jax`, ``loss_weight``
 through :func:`loss_weight_from_jax`. Adam moments are not carried (both
@@ -105,6 +109,20 @@ def vit_rules(num_layers: int, lora_layers: Iterable[int] = ()) -> list[Rule]:
             Rule(fl + ("fc2", "bias"), f"{tl}mlp.fc2.bias"),
         ]
     return rules
+
+
+def backbone_state_from_hf(hf_state: Mapping[str, torch.Tensor], num_layers: int,
+                           lora_layers: Iterable[int] = ()) -> dict[str, torch.Tensor]:
+    """HF ``Dinov2Model`` weights (plain keys, torch layout) under the
+    port's ``backbone.`` names: the rules of the plain layout and of the
+    ``lora_layers`` one paired by their JAX path, so a LoRA layer's
+    ``attention.attention.query.weight`` lands on
+    ``attention.original_attention.attention.query.weight``. Keys the rules
+    do not name are left out; the layouts match, so tensors pass as they
+    are."""
+    port = {r.jax_path: r.torch_key for r in vit_rules(num_layers, lora_layers)}
+    return {f"backbone.{port[r.jax_path]}": hf_state[r.torch_key]
+            for r in vit_rules(num_layers) if r.torch_key in hf_state}
 
 
 def _conv_bn_rules(jax_base, torch_conv, torch_bn, *, deconv=False) -> list[Rule]:

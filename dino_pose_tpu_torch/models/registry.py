@@ -6,21 +6,27 @@ Both families build: dinov2 (``models/pose.py``) and FastViT
 (``FAMILY_INFO``, ``register_backbone``, ``register_family_default``,
 ``get_family_models``, ``list_families``, ``list_supported_backbones``) is
 the JAX registry's, for ``cli/model_info.py``. Weights are
-made from a seed with an explicit ``torch.Generator``; trained weights come
-in through ``load_state_dict`` (reference schema) or ``io/convert.py`` (the
-JAX package's variables).
+made from a seed with an explicit ``torch.Generator``; with ``pretrained``
+(the default, as in JAX) a dinov2 backbone then takes DINOv2's weights from
+the local Hugging Face cache (``io/hf_cache.py``; nothing is downloaded),
+or warns in the JAX package's words and keeps the seeded ones. Trained
+weights come in through ``load_state_dict`` (reference schema) or
+``io/convert.py`` (the JAX package's variables).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+import warnings
 from typing import Any
 
 import torch
 from torch import nn
 
 from dino_pose_tpu_torch.core.device import resolve_device
+from dino_pose_tpu_torch.io import hf_cache
+from dino_pose_tpu_torch.io.convert import backbone_state_from_hf
 from dino_pose_tpu_torch.models.fastvit import FASTVIT_PRESETS, ConvLoRA, FastViTConfig
 from dino_pose_tpu_torch.models.fastvit_pose import FastVitPoseModule
 from dino_pose_tpu_torch.models.pose import DinoPoseModule
@@ -172,6 +178,7 @@ def create_model_from_config(
     *,
     seed: int = 0,
     device: str | torch.device | None = None,
+    pretrained: bool = True,
 ) -> DinoPoseModule | FastVitPoseModule:
     """Build a pose model from a ``config_model`` dict, in eval mode, with
     weights drawn from ``seed`` and ``requires_grad`` set by
@@ -179,7 +186,14 @@ def create_model_from_config(
     last ``unfreeze_last_n_layers`` blocks (dinov2 only). ``device``
     defaults to ``cuda``. ``model.input_size`` is the family's input
     resolution: 224 for dinov2, ``input_size`` for FastViT (timm's 256;
-    128 for ``test/fastvit-tiny``)."""
+    128 for ``test/fastvit-tiny``).
+
+    ``pretrained`` (JAX's flag and default): a dinov2 backbone outside
+    ``test/`` takes the cached DINOv2 weights (``_load_pretrained_dinov2``)
+    over its seeded ones, non-strictly, as JAX merges them; the heads, the
+    LoRA adapters and any key the cache lacks keep the seeded values. With
+    no cached weights it warns and keeps them all; FastViT warns (no timm
+    weights are read). ``pretrained=False`` gives the seeded model alone."""
     name = resolve_model_name(config_model["model_name"])
     if name not in BACKBONE_REGISTRY:
         raise ValueError(f"Unsupported backbone: {name}")
@@ -196,6 +210,18 @@ def create_model_from_config(
                                       num_keypoints, heatmap_size)
     model = model.to_empty(device="cpu")
     init_weights(model, torch.Generator().manual_seed(seed))
+    if pretrained and not name.startswith("test/"):
+        if entry.family == "dinov2":
+            state = _load_pretrained_dinov2(name, model.vit)
+            if state is not None:
+                model.load_state_dict(state, strict=False)
+        else:
+            warnings.warn(
+                f"Pre-trained timm weights for {name} are not available in this "
+                "environment; initialising the FastViT backbone randomly. Provide "
+                "a checkpoint via config_model['load_model'] for real training.",
+                stacklevel=2,
+            )
     # The reference freezes the backbone when it builds the model; the heads,
     # the LoRA adapters or the last unfrozen blocks stay trainable, by the
     # train step's own rule.
@@ -204,6 +230,27 @@ def create_model_from_config(
     model.config_model = merged
     model.input_size = 224 if entry.family == "dinov2" else int(merged.get("input_size", 256))
     return model.to(dev).eval()
+
+
+def _load_pretrained_dinov2(name: str, vit: ViTConfig) -> dict[str, torch.Tensor] | None:
+    """The cached DINOv2 weights of ``name`` under the backbone's keys
+    (``io/convert.backbone_state_from_hf``), or ``None`` with the JAX
+    package's warning where the cache has none (an ``OSError``). A cached
+    config of another shape raises ``ValueError``, as JAX's import does."""
+    expected = {"hidden_size": vit.hidden_size, "num_hidden_layers": vit.num_layers,
+                "num_attention_heads": vit.num_heads, "patch_size": vit.patch_size,
+                "image_size": vit.pos_grid * vit.patch_size}
+    try:
+        hf_state = hf_cache.load_dinov2(name, expected)
+    except OSError as e:
+        warnings.warn(
+            f"Pre-trained weights for {name} unavailable ({type(e).__name__}); "
+            "initialising backbone randomly. Provide a checkpoint via "
+            "config_model['load_model'] for real training.",
+            stacklevel=3,
+        )
+        return None
+    return backbone_state_from_hf(hf_state, vit.num_layers, vit.lora_layers)
 
 
 def init_weights(model: nn.Module, gen: torch.Generator) -> None:

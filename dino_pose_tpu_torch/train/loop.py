@@ -220,12 +220,15 @@ def _fit(config_dataset: dict, config_training: dict, config_preproc: dict,
             auto_resumed and shard and not os.path.isfile(load_path)):
         resume_ckpt = ck.load_checkpoint(load_path)
         model = ck.load_model_smart(load_path, eval_mode=False, ckpt=resume_ckpt, device=dev)
+    elif load_path.endswith((".pth", ".msgpack")):
+        # A filesystem the ranks do not share: this rank never saw the
+        # primary's file. A placeholder, which reads no cache; the broadcast
+        # below replaces it.
+        print("Checkpoint not on this host's filesystem; will receive resumed state "
+              "from the primary process.")
+        model = registry.create_model_from_config(config_model, seed=seed, device=dev,
+                                                  pretrained=False)
     else:
-        if load_path.endswith((".pth", ".msgpack")):
-            # A filesystem the ranks do not share: this rank never saw the
-            # primary's file. A placeholder; the broadcast below replaces it.
-            print("Checkpoint not on this host's filesystem; will receive resumed state "
-                  "from the primary process.")
         model = registry.create_model_from_config(config_model, seed=seed, device=dev)
     state, optimizer, partition = create_train_state(
         model, model.config_model, weight_decay=config_training.get("weight_decay", 1e-6))

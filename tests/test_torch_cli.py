@@ -172,7 +172,7 @@ def _jax_shapes_model(config: dict) -> PoseModel:
                          ids=["dinov2-small-lora", "dinov2-small-unfreeze4", "fastvit_t8-lora"])
 def test_count_parameters_match_jax(config):
     jm = _jax_shapes_model(config)
-    tm = tregistry.create_model_from_config(dict(config), device="cpu")
+    tm = tregistry.create_model_from_config(dict(config), device="cpu", pretrained=False)
     for trainable_only in (True, False):
         assert tm.count_parameters(trainable_only) == jm.count_parameters(trainable_only)
     assert tm.count_parameters() < tm.count_parameters(trainable_only=False)

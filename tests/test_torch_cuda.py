@@ -42,6 +42,8 @@ thread (the TMA encoders bind a context there), and the five CLIs beside
 """
 
 import copy
+import json
+import warnings
 
 import numpy as np
 import pytest
@@ -597,7 +599,7 @@ def test_fastvit_kernels_match_plain(cuda_device, name, launches):
     versions: launches per forward and agreement within 5% of the largest
     output (chip_smoke.py's MODEL_REL_TOL)."""
     model = registry.create_model_from_config(
-        {"model_name": name, "use_lora": "t8" in name}, device=cuda_device)
+        {"model_name": name, "use_lora": "t8" in name}, device=cuda_device, pretrained=False)
     with torch.no_grad():
         for n, prm in model.named_parameters():
             if "lora_B" in n:
@@ -866,7 +868,7 @@ def test_fastvit_train_step_kernels_match_plain(cuda_device):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     config = {"model_name": "timm/fastvit_t8.apple_in1k", "use_lora": True}
-    model = registry.create_model_from_config(config, device=cuda_device)
+    model = registry.create_model_from_config(config, device=cuda_device, pretrained=False)
     with torch.no_grad():
         for n, prm in model.named_parameters():
             if "lora_B" in n:
@@ -1456,7 +1458,7 @@ def test_fastvit_arms_train_step_kernels_match_plain(cuda_device, monkeypatch):
     monkeypatch.setenv("DINO_POSE_TPU_DWCONV", "on")
     monkeypatch.setenv("DINO_POSE_TPU_STAGE_PAIR", "on")
     config = {"model_name": "timm/fastvit_t8.apple_in1k", "use_lora": True}
-    model = registry.create_model_from_config(config, device=cuda_device)
+    model = registry.create_model_from_config(config, device=cuda_device, pretrained=False)
     gen = torch.Generator(device=cuda_device).manual_seed(4)
     with torch.no_grad():
         for n, prm in model.named_parameters():
@@ -1656,7 +1658,8 @@ def test_dinov2_base_tp2_serving_launches(cuda_device):
     from dino_pose_tpu_torch.ops import dispatch
 
     model = registry.create_model_from_config(
-        {"model_name": "facebook/dinov2-base", "use_lora": True}, seed=0, device=cuda_device)
+        {"model_name": "facebook/dinov2-base", "use_lora": True}, seed=0, device=cuda_device,
+        pretrained=False)
     x = _bf16(np.random.default_rng(0), (2, 3, 224, 224), cuda_device)
     with dispatch.scoped(), torch.inference_mode():
         create_mesh(MeshSpec(1, 2), device=cuda_device)
@@ -2416,3 +2419,73 @@ def test_cli_compare_on_cuda(cuda_device, capsys):
     assert block.LAUNCHES == _launches((TINY_FWD, 12), (T8_FWD, 12))
     assert all(r[k] > 0 for r in (a, b) for k in ("avg_ms", "device_ms", "device_p50_ms"))
     assert "on-device:" in capsys.readouterr().out
+
+
+SMALL_SERVING = {"fused_block": 11, "fused_attn_part": 1, "fused_mlp_part": 1}
+
+
+def _assert_model_close(got: tuple, want: tuple) -> None:
+    """chip_smoke.py's MODEL_REL_TOL: within 5% of the largest output."""
+    for g, w in zip(got, want):
+        assert torch.isfinite(g).all()
+        assert (g.float() - w.float()).abs().max().item() <= 5e-2 * w.float().abs().max().item()
+
+
+@pytest.mark.cuda
+def test_pretrained_dinov2_small_from_a_cache_on_the_card(cuda_device, tmp_path, monkeypatch):
+    """A full-width dinov2-small entry in a hub cache written here (seeded
+    tensors under HF's plain keys, ``pytorch_model.bin``; nothing is
+    downloaded), loaded by the registry's default ``pretrained`` into a
+    LoRA model on the card: the backbone bit-equal to the file, LoRA B
+    zero, then a batch-2 forward's launches (11/1/1 and 12 resident
+    attention forwards) and its outputs against the plain path."""
+    source = registry.create_model_from_config({"model_name": "facebook/dinov2-small"},
+                                               seed=3, device="cpu", pretrained=False)
+    gen = torch.Generator().manual_seed(4)
+    hf = {k[len("backbone."):]: v + 0.05 * torch.randn(v.shape, generator=gen)
+          for k, v in source.state_dict().items() if k.startswith("backbone.")}
+    commit = "0123456789abcdef0123456789abcdef01234567"
+    repo = tmp_path / "models--facebook--dinov2-small"
+    (repo / "snapshots" / commit).mkdir(parents=True)
+    (repo / "refs").mkdir()
+    (repo / "refs" / "main").write_text(commit)
+    (repo / "snapshots" / commit / "config.json").write_text(json.dumps(
+        {"hidden_size": 384, "num_hidden_layers": 12, "num_attention_heads": 6,
+         "patch_size": 14, "image_size": 518, "layerscale_value": 1.0}))
+    torch.save(hf, repo / "snapshots" / commit / "pytorch_model.bin")
+    monkeypatch.setenv("HF_HUB_CACHE", str(tmp_path))
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        model = registry.create_model_from_config(
+            {"model_name": "facebook/dinov2-small", "use_lora": True}, device=cuda_device)
+    sd = model.state_dict()
+    lora = "encoder.layer.11.attention."
+    for k, v in hf.items():
+        got = sd["backbone." + k.replace(lora, lora + "original_attention.")]
+        assert got.device.type == "cuda" and torch.equal(got.cpu(), v), k
+    assert (sd["backbone." + lora + "lora_output.lora_B"] == 0).all()
+    x = _bf16(np.random.default_rng(6), (2, 3, 224, 224), cuda_device)
+    with torch.inference_mode():
+        block.reset_launches()
+        out = model(x)
+        torch.cuda.synchronize()
+        assert block.LAUNCHES == _launches((SMALL_SERVING, 1), ({"attn_fwd": 12}, 1))
+        _assert_model_close(out, model(x, kernels=False))
+
+
+@pytest.mark.cuda
+def test_dinov2_base_504_forward_launches(cuda_device):
+    """dinov2-base + LoRA at 504² (S = 1297), batch 1: every block on the
+    "math" route, whose chains stream their attention, so 11 fused_block,
+    the LoRA layer's two halves and 12 flash forwards and nothing else, and
+    the outputs against the plain path."""
+    model = registry.create_model_from_config(
+        {"model_name": "facebook/dinov2-base", "use_lora": True}, seed=0, device=cuda_device,
+        pretrained=False)
+    x = _bf16(np.random.default_rng(7), (1, 3, 504, 504), cuda_device)
+    with torch.inference_mode():
+        block.reset_launches()
+        out = model(x)
+        torch.cuda.synchronize()
+        assert block.LAUNCHES == _launches((SMALL_SERVING, 1), ({"flash_fwd": 12}, 1))
+        _assert_model_close(out, model(x, kernels=False))

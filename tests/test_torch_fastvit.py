@@ -182,7 +182,8 @@ def test_heads_take_the_reference_14_at_an_8x8_grid():
 
 
 def test_registry_builds_fastvit_t8_by_default():
-    model = tregistry.create_model_from_config({"model_name": "fastvit"}, device="cpu")
+    model = tregistry.create_model_from_config({"model_name": "fastvit"}, device="cpu",
+                                               pretrained=False)
     assert model.model_name == jregistry.resolve_model_name("fastvit") == \
         "timm/fastvit_t8.apple_in1k"
     assert model.cfg.embed_dims == (48, 96, 192, 384) and model.input_size == 256
@@ -240,7 +241,7 @@ def test_refusals():
         model.eval()(x)
     if torch.cuda.is_available():
         ma36 = tregistry.create_model_from_config(
-            {"model_name": "timm/fastvit_ma36.apple_in1k"}, device="cuda")
+            {"model_name": "timm/fastvit_ma36.apple_in1k"}, device="cuda", pretrained=False)
         with pytest.raises(ValueError, match="multiples of 16"), torch.no_grad():
             ma36(torch.zeros(1, 3, 256, 256, device="cuda", dtype=torch.bfloat16))
 

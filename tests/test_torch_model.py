@@ -241,7 +241,7 @@ def test_registry_names_and_families():
     assert tregistry.resolve_model_name("dinov2") == "facebook/dinov2-small"
     assert tregistry.resolve_model_name("fastvit") == jregistry.resolve_model_name("fastvit")
     fastvit = tregistry.create_model_from_config({"model_name": "timm/fastvit_sa12.apple_in1k"},
-                                                 device="cpu")
+                                                 device="cpu", pretrained=False)
     assert fastvit.model_name == "timm/fastvit_sa12.apple_in1k"
     assert fastvit.cfg.token_mixers[-1] == "attention" and fastvit.input_size == 256
     with pytest.raises(ValueError, match="Unsupported"):

@@ -134,3 +134,15 @@ def test_port_imports_no_jax():
     for path in files:
         bad = _imports(path) & banned
         assert not bad, f"{path.relative_to(ROOT)} imports {sorted(bad)}"
+
+
+def test_port_imports_no_hub_packages():
+    """The card machine has no ``transformers``, ``huggingface_hub`` or
+    ``safetensors``: the port reads the hub cache itself (``io/hf_cache.py``)."""
+    files = sorted((ROOT / "dino_pose_tpu_torch").rglob("*.py")) + [
+        ROOT / "chip_smoke.py", ROOT / "tests" / "_torch_dist_worker.py"]
+    assert ROOT / "dino_pose_tpu_torch" / "io" / "hf_cache.py" in files
+    banned = {"transformers", "huggingface_hub", "safetensors"}
+    for path in files:
+        bad = _imports(path) & banned
+        assert not bad, f"{path.relative_to(ROOT)} imports {sorted(bad)}"
