@@ -20,12 +20,18 @@ checkpoint's reload that reads no cache; then dinov2-base and -large at
 504² (their kernels at S = 1297 and the flash pair at 12 and 16 heads,
 serving, and unfreeze-last-4 steps at batch 32); then FastViT serving at 256²: fastvit_t8 + LoRA r=8 (10
 ConvFFN kernel launches a forward), fastvit_sa12 (12 ConvFFN launches and
-2 flash forwards, its attention stage) and fastvit_ma36 + LoRA r=8 (36
+2 flash forwards, its attention stage), fastvit_ma36 + LoRA r=8 (36
 ConvFFN launches, stages 0 and 1 at C = 76 and 152 zero-padded to the
-kernel's multiples of 16, and 6 flash forwards); then FastViT LoRA fine-tuning at
+kernel's multiples of 16, and 6 flash forwards), fastvit_sa24 (24 and 4)
+and fastvit_sa36 (36 and 6); then FastViT LoRA fine-tuning at
 256²: fastvit_t8 + LoRA r=8 at batch 128 (10 ConvFFN forward and 10
-backward launches a step) and fastvit_sa12 + LoRA r=8 at batch 32 (12 and
-12, and 2 flash forwards and backwards); then the bigger dinov2 backbones at
+backward launches a step), fastvit_sa12 + LoRA r=8 at batch 32 (12 and
+12, and 2 flash forwards and backwards) and fastvit_ma36 + LoRA r=8 at
+batch 32 (36 and 36, 6 and 6); then JAX's FastViT fold switches, each for
+its phases only: DINO_POSE_TPU_FASTVIT_FOLD=0 (t8 + LoRA and sa12 served,
+the t8 step), DINO_POSE_TPU_FASTVIT_TRAIN_BLOCKS=branch (the t8 step) and
+DINO_POSE_TPU_FASTVIT_TRAIN_FFN=fold (the sa12 step), every kernel held
+on the path's own tensors; then the bigger dinov2 backbones at
 224²: each forward kernel of their block routes and fused_mlp_dx at
 dinov2-base's and dinov2-large's widths at batch 1, 8 and 128, dinov2-base
 + LoRA serving and fine-tuning at batch 128 (the resident kernels, 11/1/1
@@ -44,7 +50,9 @@ depthwise conv, the combine + conv segment forward and backward and the
 ConvFFN with the block residual held at t8's stage 0 and 1 shapes (and
 ragged H) at batch 1, 8 and 128, fastvit_t8 + LoRA serving with the conv
 arm (4 depthwise-conv and 10 ConvFFN launches a forward), and its LoRA
-fine-tuning at batch 128 with both arms (the pair in stages 0-1); then the
+fine-tuning at batch 128 with both arms (the pair in stages 0-1), and
+with both arms under DINO_POSE_TPU_FASTVIT_TRAIN_BLOCKS=fold (no pair
+launch: the pair needs the reuse form); then the
 tensor-parallel slice: each shard's kernels (the attention and MLP halves'
 partial products and the LoRA layer's partial dx) at dinov2-base's shard
 shapes (tp = 2) and dinov2-large's (tp = 2 and 4), dinov2-base + LoRA r=8
@@ -259,6 +267,46 @@ SA12_TRAIN_LAUNCHES = {"fused_convffn": 12, "fused_convffn_bwd": 12, "flash_fwd"
                        "flash_bwd": 2}
 # fastvit_sa12's attention at 256²: (heads, S, dh) over stage 3's 8x8 grid.
 SA12_FLASH_SHAPE = (16, 64, 32)
+# fastvit_sa24 and sa36 serving at 256² (as sa12: no LoRA; depths 4/4/12/4
+# and 6/6/18/6): one ConvFFN kernel a block, one flash forward a block of
+# the attention stage (16 heads of 32 over the 8x8 grid), a forward.
+SA24_CONFIG = {"model_name": "timm/fastvit_sa24.apple_in1k"}
+SA36_CONFIG = {"model_name": "timm/fastvit_sa36.apple_in1k"}
+SERVING_SA24_LAUNCHES = {"fused_convffn": 24, "flash_fwd": 4}
+SERVING_SA36_LAUNCHES = {"fused_convffn": 36, "flash_fwd": 6}
+FASTVIT_SERVING_RECORDED = ("fused_convffn", "flash_fwd")
+# fastvit_ma36 + LoRA r=8 fine-tuning at bs=32 (sa12's train batch; two
+# checked steps, three timed): 36 ConvFFN forward and backward launches a
+# step, stages 0-1 zero-padded from C = 76 and 152 around each launch, and 6
+# flash forwards and backwards (19 heads of 32). Held: stage 0's first block
+# (padded), stage 1's first (padded), the last block and the heads.
+MA36_TRAIN_BATCH = 32
+MA36_TRAIN_LAUNCHES = {"fused_convffn": 36, "fused_convffn_bwd": 36, "flash_fwd": 6,
+                       "flash_bwd": 6}
+MA36_GRAD_NAMES = (
+    "backbone.stages.0.blocks.0.mlp.fc1.lora_A.weight",
+    "backbone.stages.0.blocks.0.mlp.fc1.lora_B.weight",
+    "backbone.stages.1.blocks.0.mlp.fc2.lora_A.weight",
+    "backbone.stages.3.blocks.5.mlp.fc2.lora_A.weight",
+    "backbone.stages.3.blocks.5.mlp.fc2.lora_B.weight",
+    "backbone.head.heatmap_head.feature_refine.0.weight",
+)
+# JAX's FastViT fold switches, each arm for its phases only (gates): a.
+# FASTVIT_FOLD=0, the branch math in eval (t8 + LoRA and sa12 served; the
+# launches as by default: every ConvFFN keeps its kernel) and in training
+# (the t8 + LoRA bs=128 step); b. TRAIN_BLOCKS=branch (the t8 step); c.
+# TRAIN_BLOCKS=fold with both opt-in arms on (the t8 step): the stage pair
+# needs the reuse form, so the pair kernels launch 0 times; the conv arm
+# takes only the ConvFFN 7x7 of stages 0-1 (a folded block's conv is JAX's
+# lax.conv), 4 forward and the dx of the 3 whose input carries a gradient;
+# d. TRAIN_FFN=fold (the sa12 + LoRA bs=32 step: the statistics as one-pass
+# moments, the attention's BatchNorm folded into qkv). Two checked steps
+# and three timed in each.
+FOLD0 = {"DINO_POSE_TPU_FASTVIT_FOLD": "0"}
+BLOCKS_BRANCH = {"DINO_POSE_TPU_FASTVIT_TRAIN_BLOCKS": "branch"}
+FFN_FOLD = {"DINO_POSE_TPU_FASTVIT_TRAIN_FFN": "fold"}
+T8_FOLD_ARMS_LAUNCHES = {"fused_dw_conv": 4 + 3, "fused_convffn": 10, "fused_convffn_bwd": 10}
+ARM_STEPS, ARM_TIMED = 2, 3
 # The first and the last ConvFFN's adapters (t8 and sa12 both end with two
 # blocks) and the heads' first conv.
 FASTVIT_GRAD_NAMES = (
@@ -356,6 +404,8 @@ T8_PAIR_LAUNCHES = {"fused_dw_conv": 4 + 3, "fused_combine_dw": 4, "fused_convff
                     "fused_convffn": 6, "fused_combine_dw_bwd": 3, "fused_convffn_bwd": 10}
 T8_PAIR_RECORDED = ("fused_dw_conv", "fused_combine_dw", "fused_combine_dw_bwd",
                     "fused_convffn_res", "fused_convffn_bwd")
+# Arm c of the fold switches (FOLD0 above): TRAIN_BLOCKS=fold with both arms.
+BLOCKS_FOLD_ARMS = {**ARMS, "DINO_POSE_TPU_FASTVIT_TRAIN_BLOCKS": "fold"}
 # The arms' t8 stages at 256²: (C, H = W, ConvFFN hidden, launches of a
 # serving forward's 7x7 conv, of a step's segment forward and of its
 # backward), and ragged rows (H = 24, 56) held but not on the path.
@@ -1569,14 +1619,16 @@ def bf16_ties(hm: torch.Tensor) -> np.ndarray:
 def phase_serving(results: dict, serving: dict, tag: str = "serving", image_size: int = 224,
                   per_forward_launches: dict = SERVING_LAUNCHES, n_lat: int = 30,
                   n_batches: int = 10, fwd_iters: int = 20, config: dict = LORA_CONFIG,
-                  pil: bool = True, model=None):
+                  pil: bool = True, model=None, recorded: tuple = ()):
     """A model (by default the repo's: dinov2-small + LoRA r=8 on layer 11,
     seeded, with ``randomise_for_serving``; or ``model`` as it is) behind
     ``serve.make_predictor``: 4 batch-1 requests and 1 batch-8 request,
     each checked (launches per forward, shapes, agreement with the plain
     path), then timed. With ``pil`` the requests are PIL images of
     several sizes (the model's preprocessor crops them to its input size);
-    otherwise (B, 3, image_size, image_size) pixel arrays, seeded."""
+    otherwise (B, 3, image_size, image_size) pixel arrays, seeded. The
+    first and last call of each ``recorded`` wrapper in the batch-8 request
+    are held against its plain version on their own tensors."""
     from dino_pose_tpu_torch.data.preprocess import create_preprocessor
     from dino_pose_tpu_torch.models.registry import create_model_from_config
     from dino_pose_tpu_torch.ops import block as B
@@ -1606,7 +1658,8 @@ def phase_serving(results: dict, serving: dict, tag: str = "serving", image_size
     B.reset_launches()
     for i, request in enumerate(requests):
         before = dict(B.LAUNCHES)
-        out = predict(request)
+        with recording(recorded if i == len(requests) - 1 else ()) as calls:
+            out = predict(request)
         torch.cuda.synchronize()
         delta = {k: B.LAUNCHES[k] - before[k] for k in B.LAUNCHES}
         n = len(request)
@@ -1617,6 +1670,9 @@ def phase_serving(results: dict, serving: dict, tag: str = "serving", image_size
         if kp.shape != (n, 24, 2) or z.shape != (n, 24) or hm.shape != (n, 24, 48, 48):
             raise AssertionError(f"{tag} request {i}: shapes {kp.shape} {z.shape} {hm.shape}")
         compare_paths(model, pixels_of(request), out, f"{tag} request {i}")
+    with torch.inference_mode():
+        check_calls(tag, recorded, *calls, serving, what="batch-8 request")
+    del calls
     launches = dict(B.LAUNCHES)
     record_launches(results, tag, launches)
     log(f"{tag}-path launches over {len(requests)} requests: {launches}")
@@ -1799,7 +1855,7 @@ def shard_check(got: torch.Tensor, want: torch.Tensor, want_f32: torch.Tensor, a
 
 
 def check_step_tensors(tag: str, name: str, which: str, args: tuple, out,
-                       training: dict) -> bool:
+                       training: dict, what: str = "train step 0") -> bool:
     """A wrapper's output in the first train step against its plain version
     on the same inputs (the step's own activations, cotangent and weights).
     A backward's outputs are linear in the incoming cotangent, so the
@@ -1834,7 +1890,7 @@ def check_step_tensors(tag: str, name: str, which: str, args: tuple, out,
     ok &= ct_max > 0
     training.setdefault("step1_tensors", {})[f"{name} {which}"] = {
         "max_abs": act_err, "max_ct": ct_max, "max_abs_over_max_ct": act_err / ct_max, **extra}
-    log(f"{tag} train step 0 {name} ({which} call) on the step's tensors: max_abs={act_err:.6g} "
+    log(f"{tag} {what} {name} ({which} call) on its own tensors: max_abs={act_err:.6g} "
         f"max|ct|={ct_max:.6g} (ratio {act_err / ct_max:.4g})"
         + "".join(f" {k}={v:.4g}" for k, v in extra.items())
         + f"; tol={tol}, atol scaled by max|ct| -> {'ok' if ok else 'FAIL'}")
@@ -1846,7 +1902,9 @@ def wrapper_modules(name: str) -> tuple:
     dinov2 block's forward wrappers and the gated final LayerNorm by
     models/vit.py (fused_attn_part_stream also by ops/block.py, in a
     trainable streamed block), the MLP halves, the tensor-parallel shard
-    wrappers and the backward ones by ops/block.py."""
+    wrappers and the backward ones by ops/block.py; fused_convffn by
+    ops/convffn.py in training and by models/fastvit.py in eval."""
+    from dino_pose_tpu_torch.models import fastvit as FV
     from dino_pose_tpu_torch.models import vit as V
     from dino_pose_tpu_torch.ops import attention as A
     from dino_pose_tpu_torch.ops import block as B
@@ -1859,7 +1917,58 @@ def wrapper_modules(name: str) -> tuple:
         return (V,)
     if name in ("fused_dw_conv", "fused_combine_dw", "fused_combine_dw_bwd"):
         return (DW,)
+    if name == "fused_convffn":
+        return CF, FV
     return (CF if name.startswith("fused_convffn") else A if name.startswith("flash") else B,)
+
+
+@contextlib.contextmanager
+def recording(recorded: tuple):
+    """While the block runs, the first and the last call of each wrapper
+    named in ``recorded`` (a backward's first call is the top layer's, its
+    last the bottom one's) with its inputs and outputs cloned: yields the
+    dicts (first, last), filled as calls come."""
+    first, last = {}, {}
+    originals = {(m, name): getattr(m, name) for name in recorded for m in wrapper_modules(name)}
+
+    def recorder(name):
+        fn = originals[wrapper_modules(name)[0], name]
+
+        def record(*args):
+            out = fn(*args)
+            entry = (clone(args), clone(out))
+            first.setdefault(name, entry)
+            last[name] = entry  # the first entry itself when there is one call
+            return out
+        return record
+
+    for name in recorded:
+        rec = recorder(name)
+        for m in wrapper_modules(name):
+            setattr(m, name, rec)
+    try:
+        yield first, last
+    finally:
+        for (m, name), fn in originals.items():
+            setattr(m, name, fn)
+
+
+def check_calls(tag: str, recorded: tuple, first: dict, last: dict, into: dict,
+                what: str = "train step 0") -> None:
+    """Each recorded wrapper's first and last call against its plain version
+    on the call's own tensors (``check_step_tensors``); raises if any
+    disagrees or if a recorded wrapper was not called."""
+    missing = [name for name in recorded if name not in first]
+    if missing:
+        raise AssertionError(f"{tag}: {missing} not called on the path")
+    calls = [(name, which, entry) for name in recorded
+             for which, entry in (("first", first[name]), ("last", last[name]))
+             if which == "first" or entry is not first[name]]
+    bad = [f"{name} ({which} call)" for name, which, entry in calls
+           if not check_step_tensors(tag, name, which, *entry, into, what)]
+    if bad:
+        raise AssertionError(f"{tag}: {bad} disagree with their plain versions on the "
+                             f"{what}'s tensors")
 
 
 def step1_grads(model, config: dict, kernels: bool, dtype, batch: dict, image_size: int,
@@ -1902,35 +2011,15 @@ def phase_train(results: dict, training: dict, tag: str, config: dict, per_step:
     pstate, pstep = make_step(plain_model, config, kernels=False, image_size=image_size)
 
     want_step = expected(per_step)
-    first, last = {}, {}
-    originals = {(m, name): getattr(m, name) for name in recorded for m in wrapper_modules(name)}
-
-    def recorder(name):
-        fn = originals[wrapper_modules(name)[0], name]
-
-        def recording(*args):
-            out = fn(*args)
-            entry = (clone(args), clone(out))
-            first.setdefault(name, entry)
-            last[name] = entry  # the first entry itself when there is one call
-            return out
-        return recording
-
     B.reset_launches()
     kstats, grads = [], {}
     params = dict(model.named_parameters())
     for i in range(steps):
         before = dict(B.LAUNCHES)
-        if i == 0:
-            for name in recorded:
-                rec = recorder(name)
-                for m in wrapper_modules(name):
-                    setattr(m, name, rec)
-        try:
+        with recording(recorded if i == 0 else ()) as calls:
             state, stats = step(state, batch, LR, SEED)
-        finally:
-            for (m, name), fn in originals.items():
-                setattr(m, name, fn)
+        if i == 0:
+            first, last = calls
         torch.cuda.synchronize()
         delta = {k: B.LAUNCHES[k] - before[k] for k in B.LAUNCHES}
         log(f"{tag} train step {i} (batch {batch_size}): launches {delta}")
@@ -1943,16 +2032,8 @@ def phase_train(results: dict, training: dict, tag: str, config: dict, per_step:
     record_launches(results, f"{tag}_train", launches)
     log(f"{tag} training-path launches over {steps} steps: {launches}")
 
-    calls = [(name, which, entry) for name in recorded
-             for which, entry in (("first", first[name]), ("last", last[name]))
-             if which == "first" or entry is not first[name]]
-    bad = [f"{name} ({which} call)" for name, which, entry in calls
-           if not check_step_tensors(tag, name, which, *entry, training)]
-    if bad:
-        raise AssertionError(f"{tag}: {bad} disagree with their plain versions on the step's tensors")
-    first.clear()
-    last.clear()
-    del calls
+    check_calls(tag, recorded, first, last, training)
+    del first, last, calls
 
     # The step-1 gradients in f32 (plain versions, TF32 off) from the same
     # weights and dropout masks: the yardstick for both bf16 paths.
@@ -2227,8 +2308,8 @@ def phase_convffn(results: dict, backward: bool) -> dict:
     gen_train = gen if backward else torch.Generator().manual_seed(SEED + 11)
     out: dict = {}
     for model, stages in CONVFFN_STAGES.items():
-        # ma36 has no training phase: its backward is held at sa12's batch.
-        train_batch = T8_TRAIN_BATCH if model == "t8" else SA12_TRAIN_BATCH
+        train_batch = {"t8": T8_TRAIN_BATCH, "sa12": SA12_TRAIN_BATCH,
+                       "ma36": MA36_TRAIN_BATCH}[model]
         rank = 8 if backward else CONVFFN_RANK[model]
         for b, r, g in ((1, rank, gen), (8, rank, gen), (train_batch, 8, gen_train)):
             s_lora = 16.0 / r if r else 1.0
@@ -4556,8 +4637,14 @@ def main() -> int:
     serving_t8: dict = {}
     serving_sa12: dict = {}
     serving_ma36: dict = {}
+    serving_sa24: dict = {}
+    serving_sa36: dict = {}
     train_t8: dict = {}
     train_sa12: dict = {}
+    train_ma36: dict = {}
+    fold_arms: dict = {"serving_t8_fold0": {}, "serving_sa12_fold0": {}, "train_t8_fold0": {},
+                       "train_t8_branch": {}, "train_t8_fold_arms": {},
+                       "train_sa12_ffn_fold": {}}
     serving_base: dict = {}
     train_base: dict = {}
     serving_large: dict = {}
@@ -4629,6 +4716,12 @@ def main() -> int:
     phase_serving(results, serving_ma36, "serving_fastvit_ma36",
                   per_forward_launches=SERVING_MA36_LAUNCHES, n_lat=10, n_batches=4,
                   fwd_iters=10, config=MA36_CONFIG)
+    for serving_sa, tag, launches, config in (
+            (serving_sa24, "serving_fastvit_sa24", SERVING_SA24_LAUNCHES, SA24_CONFIG),
+            (serving_sa36, "serving_fastvit_sa36", SERVING_SA36_LAUNCHES, SA36_CONFIG)):
+        phase_serving(results, serving_sa, tag, per_forward_launches=launches, n_lat=10,
+                      n_batches=4, fwd_iters=10, config=config,
+                      recorded=FASTVIT_SERVING_RECORDED)
     convffn_bwd_times = phase_convffn(results, backward=True)
     t8_run = phase_train(results, train_t8, "fastvit_t8_lora", T8_CONFIG, T8_TRAIN_LAUNCHES,
                          FASTVIT_GRAD_NAMES, ("fused_convffn", "fused_convffn_bwd"),
@@ -4639,7 +4732,33 @@ def main() -> int:
                                      "flash_bwd"),
                 batch_size=SA12_TRAIN_BATCH, image_size=FASTVIT_IMAGE, steps=2, timed=3)
     phase_backbone_grads(train_sa12, "fastvit_sa12_lora", SA12_LORA_CONFIG, SA12_TRAIN_BATCH)
+    phase_train(results, train_ma36, "fastvit_ma36_lora", MA36_CONFIG, MA36_TRAIN_LAUNCHES,
+                MA36_GRAD_NAMES, ("fused_convffn", "fused_convffn_bwd", "flash_fwd", "flash_bwd"),
+                batch_size=MA36_TRAIN_BATCH, image_size=FASTVIT_IMAGE, steps=2, timed=3)
+    phase_backbone_grads(train_ma36, "fastvit_ma36_lora", MA36_CONFIG, MA36_TRAIN_BATCH)
     mark("fastvit serving, convffn, fastvit training")
+    t8_recorded = ("fused_convffn", "fused_convffn_bwd")
+    sa12_recorded = (*t8_recorded, "flash_fwd", "flash_bwd")
+    with gates(FOLD0):
+        phase_serving(results, fold_arms["serving_t8_fold0"], "serving_fastvit_t8_fold0",
+                      per_forward_launches=SERVING_T8_LAUNCHES, n_lat=10, n_batches=4,
+                      fwd_iters=10, config=T8_CONFIG, recorded=("fused_convffn",))
+        phase_serving(results, fold_arms["serving_sa12_fold0"], "serving_fastvit_sa12_fold0",
+                      per_forward_launches=SERVING_SA12_LAUNCHES, n_lat=10, n_batches=4,
+                      fwd_iters=10, config=SA12_CONFIG, recorded=FASTVIT_SERVING_RECORDED)
+    for env, key, tag, config, launches, recorded, batch_size in (
+            (FOLD0, "train_t8_fold0", "fastvit_t8_lora_fold0", T8_CONFIG, T8_TRAIN_LAUNCHES,
+             t8_recorded, T8_TRAIN_BATCH),
+            (BLOCKS_BRANCH, "train_t8_branch", "fastvit_t8_lora_branch", T8_CONFIG,
+             T8_TRAIN_LAUNCHES, t8_recorded, T8_TRAIN_BATCH),
+            (FFN_FOLD, "train_sa12_ffn_fold", "fastvit_sa12_lora_ffn_fold", SA12_LORA_CONFIG,
+             SA12_TRAIN_LAUNCHES, sa12_recorded, SA12_TRAIN_BATCH)):
+        with gates(env):
+            phase_train(results, fold_arms[key], tag, config, launches, FASTVIT_GRAD_NAMES,
+                        recorded, batch_size=batch_size, image_size=FASTVIT_IMAGE,
+                        steps=ARM_STEPS, timed=ARM_TIMED)
+            phase_backbone_grads(fold_arms[key], tag, config, batch_size)
+    mark("fastvit sa24, sa36, ma36 training, fold switches")
     wide_times = []
     for wide in WIDE:
         phase_kernels(results, wide, batches=(1, 8, TRAIN_BATCH), seqs=(S,), seed=SEED + 12)
@@ -4720,9 +4839,25 @@ def main() -> int:
                                T8_PAIR_LAUNCHES, FASTVIT_GRAD_NAMES, T8_PAIR_RECORDED,
                                batch_size=T8_TRAIN_BATCH, image_size=FASTVIT_IMAGE)
         phase_backbone_grads(train_t8_pair, "fastvit_t8_lora_pair", T8_CONFIG, T8_TRAIN_BATCH)
+    with gates(BLOCKS_FOLD_ARMS):
+        phase_train(results, fold_arms["train_t8_fold_arms"], "fastvit_t8_lora_fold_arms",
+                    T8_CONFIG, T8_FOLD_ARMS_LAUNCHES, FASTVIT_GRAD_NAMES,
+                    ("fused_dw_conv", *t8_recorded), batch_size=T8_TRAIN_BATCH,
+                    image_size=FASTVIT_IMAGE, steps=ARM_STEPS, timed=ARM_TIMED)
+        phase_backbone_grads(fold_arms["train_t8_fold_arms"], "fastvit_t8_lora_fold_arms",
+                             T8_CONFIG, T8_TRAIN_BATCH)
     log("fastvit_t8_lora step ms by route (this card, kernels / plain): default "
         f"{train_t8['step_ms_kernels']:.3f} / {train_t8['step_ms_plain']:.3f}, both arms on "
-        f"{train_t8_pair['step_ms_kernels']:.3f} / {train_t8_pair['step_ms_plain']:.3f}")
+        f"{train_t8_pair['step_ms_kernels']:.3f} / {train_t8_pair['step_ms_plain']:.3f}, "
+        + ", ".join(f"{arm} {fold_arms[key]['step_ms_kernels']:.3f} / "
+                    f"{fold_arms[key]['step_ms_plain']:.3f}"
+                    for arm, key in (("FASTVIT_FOLD=0", "train_t8_fold0"),
+                                     ("TRAIN_BLOCKS=branch", "train_t8_branch"),
+                                     ("TRAIN_BLOCKS=fold with both arms", "train_t8_fold_arms")))
+        + "; fastvit_sa12_lora default "
+        f"{train_sa12['step_ms_kernels']:.3f} / {train_sa12['step_ms_plain']:.3f}, "
+        f"TRAIN_FFN=fold {fold_arms['train_sa12_ffn_fold']['step_ms_kernels']:.3f} / "
+        f"{fold_arms['train_sa12_ffn_fold']['step_ms_plain']:.3f}")
     mark("dwconv arms")
     with tempfile.TemporaryDirectory() as fit_root:
         fit = phase_fit(results, fit_root)
@@ -4806,6 +4941,9 @@ def main() -> int:
                        "serving_504": serving_504, "training_unfreeze_504": unfreeze_504,
                        "serving_fastvit_t8": serving_t8, "serving_fastvit_sa12": serving_sa12,
                        "serving_fastvit_ma36": serving_ma36,
+                       "serving_fastvit_sa24": serving_sa24,
+                       "serving_fastvit_sa36": serving_sa36,
+                       "training_fastvit_ma36_lora": train_ma36, "fastvit_fold_arms": fold_arms,
                        "training_fastvit_t8_lora": train_t8,
                        "training_fastvit_sa12_lora": train_sa12,
                        "serving_dinov2_base": serving_base, "training_dinov2_base_lora": train_base,

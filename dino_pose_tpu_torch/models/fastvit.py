@@ -31,6 +31,25 @@ fc1/fc2 matrices. The backbone is frozen in every FastViT training mode
 ConvFFN backward; without, no backbone tensor requires grad and autograd
 builds no graph below the heads.
 
+JAX's fold switches are read at each call, with JAX's defaults and texts
+(``fastvit_fold.fold_enabled``, ``train_block_mode``, ``ffn_fold_active``):
+
+- ``DINO_POSE_TPU_FASTVIT_TRAIN_BLOCKS`` (``reuse``, ``fold`` or ``branch``;
+  any other value raises ``ValueError``): in training, ``fold`` runs each
+  MobileOneBlock, ReparamLargeKernelConv and RepMixer as ONE conv whose
+  kernel is folded from the batch statistics (``fold_stats_branch``, the
+  moments, the whole-mixer K = ls*(Km - Kn) + I), differentiable in x
+  through them; ``branch`` runs the reference's branch math;
+- ``DINO_POSE_TPU_FASTVIT_FOLD=0``: the branch math in training and in
+  eval (SpatialAttention's BatchNorm then qkv; no fold cache);
+- ``DINO_POSE_TPU_FASTVIT_TRAIN_FFN=fold``: in training, SpatialAttention
+  folds its BatchNorm into qkv from x's one-pass moments, and each ConvFFN
+  takes its batch statistics as one-pass moments, as JAX's fold arm does.
+
+Every ConvFFN keeps its kernel on every arm. ``DINO_POSE_TPU_DS_BWD`` picks
+one of two backwards of one function in JAX and is not read
+(``fastvit_fold``). ``fuse_mobileone_params`` is JAX's deploy-time fusion.
+
 **The port departs from the JAX route here:** the JAX package takes its
 ConvFFN kernel only at 64 <= C <= 256 on a TPU (convffn.py:586-604, a
 measured loss of XLA fusions elsewhere), and in training only with LoRA;
@@ -52,12 +71,14 @@ JAX's two opt-in kernel arms are its own switches, read at call time (off
 when unset; ``ops/dwconv.py`` for ``on`` and ``force``):
 
 - ``DINO_POSE_TPU_DWCONV``: every stride-1, multiplier-1 depthwise conv in
-  the window (the RepMixer mixer's 3x3 branch in training, each ConvFFN's
-  7x7 in eval and training, at C < 128) runs ``ops/dwconv.dw_conv_frozen``
+  the window that JAX routes through ``dw_branch_conv`` (the RepMixer
+  mixer's 3x3 branch in the reuse form, each ConvFFN's 7x7 in every mode,
+  at C < 128) runs ``ops/dwconv.dw_conv_frozen``
   with f32 taps, where the conv route casts them to the compute dtype;
-- ``DINO_POSE_TPU_STAGE_PAIR``: in training, a RepMixer + ConvFFN block
-  whose shapes pass ``pair_enabled`` and ``convffn_res_enabled`` (JAX's
-  gate, fastvit.py:870-898) runs as two segment kernels around its two
+- ``DINO_POSE_TPU_STAGE_PAIR``: in training in the reuse form, a RepMixer +
+  ConvFFN block whose shapes pass ``pair_enabled`` and
+  ``convffn_res_enabled`` (JAX's gate, fastvit.py:870-898) runs as two
+  segment kernels around its two
   batch-statistics barriers: the RepMixer as per-channel (a, b, bias) on x
   and its 3x3 branch y0 (``RepMixer.combine_terms``), then
   ``combine_dw_frozen`` (x2 = a*x + b*y0 + bias, y7 = dw7(x2)), y7's batch
@@ -77,6 +98,8 @@ from torch import nn
 from dino_pose_tpu_torch.core import distributed
 from dino_pose_tpu_torch.models.fastvit_fold import (
     apply_folded,
+    block_fold_active,
+    block_reuse_active,
     bn_affine,
     bn_train_affine,
     branch_stats,
@@ -86,7 +109,12 @@ from dino_pose_tpu_torch.models.fastvit_fold import (
     dw_arm_conv,
     dw_branch_conv,
     dw_route,
+    ffn_fold_active,
     fold_branch,
+    fold_enabled,
+    fold_stats_branch,
+    fold_term,
+    frozen_tensors,
     stats_branch_reuse,
 )
 from dino_pose_tpu_torch.nn import layers as L
@@ -188,9 +216,12 @@ class SEBlock(nn.Module):
 class MobileOneBlock(nn.Module):
     """Multi-branch reparameterisable conv block: ``num_conv_branches`` kxk
     (conv, BN) branches, a 1x1 (conv, BN) scale branch when k > 1, an
-    identity BN when shapes allow; summed, optionally SE'd and GELU'd. Runs
-    as its eval fold (fastvit.py:298-401), in train mode as its reuse form
-    (``_reuse``, fastvit.py:176-296)."""
+    identity BN when shapes allow; summed, optionally SE'd and GELU'd. Routed
+    as JAX routes it (fastvit.py:147-174): in eval one folded conv (cached);
+    in training the reuse form (``_reuse``, fastvit.py:176-296) or the
+    train-time fold (``_folded`` on batch statistics, fastvit.py:298-401);
+    the reference's branch math in training under ``TRAIN_BLOCKS=branch``
+    and everywhere under ``FASTVIT_FOLD=0``."""
 
     def __init__(self, cin: int, features: int, kernel_size: int = 3, stride: int = 1,
                  groups: int = 1, *, use_act: bool = True, use_se: bool = False,
@@ -207,19 +238,59 @@ class MobileOneBlock(nn.Module):
         self.rbr_skip = nn.BatchNorm2d(features) if cin == features and stride == 1 else None
         self.se = SEBlock(features) if use_se else None
 
-    def fold_f32(self) -> tuple[torch.Tensor, torch.Tensor]:
+    def _scale_moments(self, x: torch.Tensor):
+        """The scale branch's train-mode (inv, shift) where its batch
+        statistics are functions of x's moments (fastvit.py:217-242, :327-
+        355), else None: a depthwise(-multiplier) 1x1 is a per-channel scalar
+        on x (``channel_moments`` on the strided grid); stem0's dense 1x1
+        over few channels takes gram-matrix moments on the strided grid,
+        under a data axis across ranks the global batch's."""
+        s, groups, cin = self.stride, self.groups, self.in_g * self.groups
+        w, bn = self.rbr_scale.conv.weight, self.rbr_scale.bn
+        if self.in_g == 1:
+            mult = self.features // groups
+            mx, m2x, n = channel_moments(x, s)
+            svec = w[:, 0, 0, 0].float()
+            mean = svec * mx.repeat_interleave(mult)
+            var = svec.square() * m2x.repeat_interleave(mult) - mean.square()
+            return bn_train_affine(bn, mean, var, n)
+        if groups == 1 and cin <= 8:
+            flat = x[:, :, ::s, ::s].float().permute(0, 2, 3, 1).reshape(-1, cin)
+            n = distributed.data_count(flat.shape[0])
+            gram = distributed.data_matmul_mean(flat.t(), flat)
+            wm = w[:, :, 0, 0].t().float()  # (cin, features)
+            mean = distributed.data_mean(flat, (0,)) @ wm
+            var = torch.einsum("co,do,cd->o", wm, wm, gram) - mean.square()
+            return bn_train_affine(bn, mean, var, n)
+        return None
+
+    def _skip_moments(self, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        """The identity BN's train-mode (inv, shift) from x's moments."""
+        mx, m2x, n = channel_moments(x)
+        return bn_train_affine(self.rbr_skip, mx, m2x - mx.square(), n)
+
+    def fold_f32(self, x: torch.Tensor | None = None) -> tuple[torch.Tensor, torch.Tensor]:
         """The linear part as one f32 (kernel, bias): ``_folded`` with
-        ``return_fold``."""
-        k = self.kernel_size
+        ``return_fold``, from the running statistics; with ``x`` its train
+        form, every BatchNorm on x's batch statistics (updating the running
+        ones: ``fold_stats_branch`` where a branch conv must run, moments
+        where they suffice), differentiable in x."""
+        k, s, groups = self.kernel_size, self.stride, self.groups
         dev = next(self.parameters()).device
         kf = torch.zeros((self.features, self.in_g, k, k), device=dev)
         bf = torch.zeros((self.features,), device=dev)
         branches = [*self.rbr_conv] + ([self.rbr_scale] if self.rbr_scale is not None else [])
         for branch in branches:
-            kt, bt = branch.fold(k)
+            if x is None:
+                kt, bt = branch.fold(k)
+            else:
+                affine = self._scale_moments(x) if branch is self.rbr_scale else None
+                kt, bt = (fold_stats_branch(x, branch.conv.weight, branch.bn, k, stride=s,
+                                            groups=groups) if affine is None
+                          else (fold_term(branch.conv.weight, affine[0], k), affine[1]))
             kf, bf = kf + kt, bf + bt
         if self.rbr_skip is not None:
-            inv, shift = bn_affine(self.rbr_skip)
+            inv, shift = bn_affine(self.rbr_skip) if x is None else self._skip_moments(x)
             ident = center_identity(k, self.in_g, self.features, dev)
             kf, bf = kf + ident * inv.view(-1, 1, 1, 1), bf + shift
         return kf, bf
@@ -232,8 +303,7 @@ class MobileOneBlock(nn.Module):
         the features of a depthwise-multiplier block, ``bias`` f32. Every
         BatchNorm of the block takes its batch statistics here, once.
         ``kernels`` picks the depthwise-conv arm's kernel or plain version."""
-        s, groups, cin = self.stride, self.groups, self.in_g * self.groups
-        mult = self.features // groups
+        s, groups = self.stride, self.groups
         terms, xc, xc_rep = [], None, None
         bias = torch.zeros(self.features, device=x.device)
         for branch in self.rbr_conv:
@@ -243,46 +313,39 @@ class MobileOneBlock(nn.Module):
             bias = bias + shift
         if self.rbr_scale is not None:
             w, bn = self.rbr_scale.conv.weight, self.rbr_scale.bn
-            if self.in_g == 1:
-                # Depthwise(-multiplier) 1x1: a per-channel scalar on x, whose
-                # statistics and output are functions of x's moments.
-                mx, m2x, n = channel_moments(x, s)
-                svec = w[:, 0, 0, 0].float()
-                mean = svec * mx.repeat_interleave(mult)
-                var = svec.square() * m2x.repeat_interleave(mult) - mean.square()
-                inv, shift = bn_train_affine(bn, mean, var, n)
-                coeff = inv * svec
-                if mult == 1:
-                    xc = coeff if xc is None else xc + coeff
-                else:
-                    xc_rep = coeff if xc_rep is None else xc_rep + coeff
-            elif groups == 1 and cin <= 8:
-                # Dense 1x1 over few channels (stem0): gram-matrix moments on
-                # the strided grid, the output as cin per-channel FMAs.
-                # Under a data axis across ranks: the global batch's moments.
-                xs = x[:, :, ::s, ::s].float()
-                flat = xs.permute(0, 2, 3, 1).reshape(-1, cin)
-                n = distributed.data_count(flat.shape[0])
-                gram = distributed.data_matmul_mean(flat.t(), flat)
-                wm = w[:, :, 0, 0].t().float()  # (cin, features)
-                mean = distributed.data_mean(flat, (0,)) @ wm
-                var = torch.einsum("co,do,cd->o", wm, wm, gram) - mean.square()
-                inv, shift = bn_train_affine(bn, mean, var, n)
-                y_scale = xs[:, 0:1] * wm[0].view(_VIEW)
-                for ci in range(1, cin):
-                    y_scale = y_scale + xs[:, ci:ci + 1] * wm[ci].view(_VIEW)
-                terms.append((inv, y_scale))
-            else:
+            affine = self._scale_moments(x)
+            if affine is None:
                 y, inv, shift = stats_branch_reuse(x, w, bn, stride=s, groups=groups,
                                                    kernels=kernels)
                 terms.append((inv, y))
+            elif self.in_g == 1:
+                # A per-channel scalar on x: its output is a coefficient too.
+                inv, shift = affine
+                coeff = inv * w[:, 0, 0, 0].float()
+                if self.features == groups:
+                    xc = coeff if xc is None else xc + coeff
+                else:
+                    xc_rep = coeff if xc_rep is None else xc_rep + coeff
+            else:
+                # stem0: the output as cin per-channel FMAs on the strided grid.
+                inv, shift = affine
+                xs = x[:, :, ::s, ::s].float()
+                wm = w[:, :, 0, 0].t().float()
+                y_scale = xs[:, 0:1] * wm[0].view(_VIEW)
+                for ci in range(1, xs.shape[1]):
+                    y_scale = y_scale + xs[:, ci:ci + 1] * wm[ci].view(_VIEW)
+                terms.append((inv, y_scale))
             bias = bias + shift
         if self.rbr_skip is not None:
-            mx, m2x, n = channel_moments(x)
-            inv, shift = bn_train_affine(self.rbr_skip, mx, m2x - mx.square(), n)
+            inv, shift = self._skip_moments(x)
             xc = inv if xc is None else xc + inv
             bias = bias + shift
         return terms, xc, xc_rep, bias
+
+    def _finish(self, out: torch.Tensor) -> torch.Tensor:
+        if self.se is not None:
+            out = self.se(out)
+        return F.gelu(out) if self.use_act else out
 
     def _train_forward(self, x: torch.Tensor) -> torch.Tensor:
         """``_reuse`` applied: sum the terms in f32, cast, then SE and GELU."""
@@ -296,33 +359,46 @@ class MobileOneBlock(nn.Module):
         if xc_rep is not None:
             mult = self.features // self.groups
             out = out + x_s.repeat_interleave(mult, dim=1).float() * xc_rep.view(_VIEW)
-        out = out.to(x.dtype)
-        if self.se is not None:
-            out = self.se(out)
-        return F.gelu(out) if self.use_act else out
+        return self._finish(out.to(x.dtype))
+
+    def _branch_forward(self, x: torch.Tensor) -> torch.Tensor:
+        """The reference's branch math (fastvit.py:154-174): each branch's
+        conv in x's dtype, then its BatchNorm on batch statistics in training
+        or running ones in eval, summed in x's dtype; the skip BN; SE, GELU."""
+        bn = L.batch_norm_train if self.training else L.batch_norm_eval
+        out = None
+        for branch in [*self.rbr_conv] + ([self.rbr_scale] if self.rbr_scale is not None else []):
+            y = bn(L.conv2d(x, branch.conv), branch.bn)
+            out = y if out is None else out + y
+        if self.rbr_skip is not None:
+            y = bn(x, self.rbr_skip)
+            out = y if out is None else out + y
+        return self._finish(out)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.training:
+        if not block_fold_active(self.training):
+            return self._branch_forward(x)
+        if block_reuse_active(self.training):
             return self._train_forward(x)
         if self.rbr_skip is not None and not self.rbr_conv and self.rbr_scale is None:
             # Pure-affine block (identity BN only): no conv (fastvit.py:387-393).
-            inv, shift = bn_affine(self.rbr_skip)
+            inv, shift = self._skip_moments(x) if self.training else bn_affine(self.rbr_skip)
             out = (x.float() * inv.view(1, -1, 1, 1) + shift.view(1, -1, 1, 1)).to(x.dtype)
         else:
-            kernel, bias = cached_fold(
-                self, x.dtype, lambda dt: tuple(t.to(dt) for t in self.fold_f32()))
+            kernel, bias = (self.fold_f32(x) if self.training else cached_fold(
+                self, x.dtype, lambda dt: tuple(t.to(dt) for t in self.fold_f32())))
             out = apply_folded(x, kernel, bias, stride=self.stride,
                                padding=self.kernel_size // 2, groups=self.groups)
-        if self.se is not None:
-            out = self.se(out)
-        return F.gelu(out) if self.use_act else out
+        return self._finish(out)
 
 
 class ReparamLargeKernelConv(nn.Module):
     """Large-kernel conv with a parallel small-kernel branch, GELU'd; runs
-    as one folded k x k conv (fastvit.py:437-454), in train mode as both
-    branch outputs through their batch-statistics affines, summed in f32
-    (fastvit.py:418-436)."""
+    as one folded k x k conv (fastvit.py:437-454: in eval cached, in
+    training on batch statistics), in the reuse form as both branch outputs
+    through their batch-statistics affines, summed in f32 (fastvit.py:
+    418-436), and as the branch math (fastvit.py:455-467) where JAX's gates
+    say."""
 
     def __init__(self, cin: int, features: int, kernel_size: int = 7, stride: int = 2,
                  groups: int = 1, small_kernel: int = 3):
@@ -337,15 +413,25 @@ class ReparamLargeKernelConv(nn.Module):
         return (kl + ks).to(dtype), (bl + bs).to(dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.training:
+        branches = (self.lkb_origin, self.small_conv)
+        if not block_fold_active(self.training):
+            bn = L.batch_norm_train if self.training else L.batch_norm_eval
+            return F.gelu(sum(bn(L.conv2d(x, b.conv), b.bn) for b in branches))
+        if block_reuse_active(self.training):
             acc = None
-            for branch in (self.lkb_origin, self.small_conv):
+            for branch in branches:
                 y, inv, shift = stats_branch_reuse(x, branch.conv.weight, branch.bn,
                                                    stride=self.stride, groups=self.groups)
                 t = y.float() * inv.view(_VIEW) + shift.view(_VIEW)
                 acc = t if acc is None else acc + t
             return F.gelu(acc.to(x.dtype))
-        kernel, bias = cached_fold(self, x.dtype, self._fold)
+        if self.training:
+            (kl, bl), (ks, bs) = (
+                fold_stats_branch(x, b.conv.weight, b.bn, self.kernel_size, stride=self.stride,
+                                  groups=self.groups) for b in branches)
+            kernel, bias = kl + ks, bl + bs
+        else:
+            kernel, bias = cached_fold(self, x.dtype, self._fold)
         out = apply_folded(x, kernel, bias, stride=self.stride,
                            padding=self.kernel_size // 2, groups=self.groups)
         return F.gelu(out)
@@ -379,10 +465,13 @@ class RepCPE(nn.Module):
 
 class RepMixer(nn.Module):
     """Token mixing x + ls*(mixer(x) - norm(x)) as ONE 3x3 depthwise conv,
-    K = ls*(Km - Kn) + I, b = ls*(bm - bn) (fastvit.py:781-802). In train
-    mode the reuse form (fastvit.py:756-780): the mixer's materialised 3x3
+    K = ls*(Km - Kn) + I, b = ls*(bm - bn) (fastvit.py:781-802; in eval
+    cached, in training the whole-mixer train fold on batch statistics). In
+    the reuse form (fastvit.py:756-780): the mixer's materialised 3x3
     branch y0 and per-channel coefficients on x, one f32 map
-    x*(1 + ls*(xc_m - xc_n)) + ls*inv0*y0 + ls*(b_m - b_n)."""
+    x*(1 + ls*(xc_m - xc_n)) + ls*inv0*y0 + ls*(b_m - b_n). The branch form
+    (fastvit.py:803-813) runs both children as branch math, LayerScale in
+    x's dtype."""
 
     def __init__(self, c: int, layer_scale_init: float):
         super().__init__()
@@ -392,13 +481,17 @@ class RepMixer(nn.Module):
                                    use_scale_branch=False, num_conv_branches=0)
         self.layer_scale = nn.Parameter(torch.empty(c, 1, 1))
 
-    def _fold(self, dtype: torch.dtype) -> tuple[torch.Tensor, torch.Tensor]:
-        km, bm = self.mixer.fold_f32()
-        kn, bn_ = self.norm.fold_f32()
+    def _fold_f32(self, x: torch.Tensor | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+        """The whole mixer as one f32 3x3 depthwise (kernel, bias), from the
+        running statistics or, with ``x``, from its batch statistics."""
+        km, bm = self.mixer.fold_f32(x)
+        kn, bn_ = self.norm.fold_f32(x)
         ls = self.layer_scale.float().view(-1)
         ident = center_identity(3, 1, ls.shape[0], ls.device)
-        kernel = ls.view(-1, 1, 1, 1) * (km - kn) + ident
-        return kernel.to(dtype), (ls * (bm - bn_)).to(dtype)
+        return ls.view(-1, 1, 1, 1) * (km - kn) + ident, ls * (bm - bn_)
+
+    def _fold(self, dtype: torch.dtype) -> tuple[torch.Tensor, torch.Tensor]:
+        return tuple(t.to(dtype) for t in self._fold_f32())
 
     def _coefficients(self, x: torch.Tensor, kernels: bool):
         """The train-mode terms: (mixer terms, norm terms, f32 ls, f32 a, f32
@@ -425,7 +518,9 @@ class RepMixer(nn.Module):
         """The train-mode mixer unapplied, for the stage-pair arm (JAX's
         ``return_combine``, fastvit.py:727-755): f32 (C,) ``a``, ``b``,
         ``bias`` and the mixer's 3x3 branch output ``y0``, with out = a*x +
-        b*y0 + bias."""
+        b*y0 + bias. The reuse form only: JAX's raises in any other mode."""
+        if not block_reuse_active(self.training):
+            raise ValueError("combine_terms requires the reuse train mode")
         terms_m, terms_n, ls, a, bias = self._coefficients(x, kernels)
         if len(terms_m) != 1 or terms_n:
             raise ValueError("combine_terms expects exactly one materialised mixer branch "
@@ -434,9 +529,12 @@ class RepMixer(nn.Module):
         return a, ls * inv0, bias, y0
 
     def forward(self, x: torch.Tensor, kernels: bool = True) -> torch.Tensor:
-        if self.training:
+        if not block_fold_active(self.training):
+            return x + self.layer_scale.to(x.dtype) * (self.mixer(x) - self.norm(x))
+        if block_reuse_active(self.training):
             return self._train_forward(x, kernels)
-        kernel, bias = cached_fold(self, x.dtype, self._fold)
+        kernel, bias = (self._fold_f32(x) if self.training
+                        else cached_fold(self, x.dtype, self._fold))
         return apply_folded(x, kernel, bias, stride=1, padding=1, groups=x.shape[1])
 
 
@@ -463,13 +561,16 @@ class ConvFFN(nn.Module):
     runs on its own (JAX's ``dw_branch_conv``, stride 1, fastvit_fold.py:442;
     the depthwise-conv arm where ``dw_route`` passes, in eval as in
     training, as JAX's eval takes it, fastvit.py:656); the rest is the
-    ConvFFN kernel on the BatchNorm affine (fastvit.py: 658-674): in eval
-    without grad ``fused_convffn`` on the cached eval affine; in train mode
-    ``convffn_train`` on the batch-statistics affine (``branch_stats``,
-    two-pass) with the ConvLoRA Dropout2d masks bernoulli(keep)/keep per
-    (sample, rank) (fastvit.py:585-595). Eval under grad with a trainable
-    adapter is refused by the eval cache. ``pair_forward`` is the
-    stage-pair arm's block (fastvit.py:626-655)."""
+    ConvFFN kernel on the BatchNorm affine (fastvit.py: 658-674), on every
+    arm of JAX's switches: in eval without grad ``fused_convffn`` on the
+    cached eval affine (under ``FASTVIT_FOLD=0`` built anew each call, no
+    cache); in train mode ``convffn_train`` on the batch-statistics affine
+    (``branch_stats``, two-pass; under ``TRAIN_FFN=fold`` one-pass
+    ``channel_moments``, var = m2 - mean^2, as JAX's fold arm takes them,
+    fastvit.py:681-683) with the ConvLoRA Dropout2d masks bernoulli(keep)/keep
+    per (sample, rank) (fastvit.py:585-595). Eval under grad with a
+    trainable adapter is refused. ``pair_forward`` is the stage-pair arm's
+    block (fastvit.py:626-655)."""
 
     def __init__(self, c: int, hidden: int, lora_rank: int = 0, lora_alpha: float = 16.0,
                  lora_dropout: float = 0.0):
@@ -543,11 +644,19 @@ class ConvFFN(nn.Module):
                 generator: torch.Generator | None = None) -> torch.Tensor:
         if self.training:
             y = dw_branch_conv(x, self.conv.conv.weight, 1, self.c, kernels)
-            mean, var, n = branch_stats(y)
-            inv, shift = bn_train_affine(self.conv.bn, mean, var, n)
+            if ffn_fold_active(True):
+                my, m2y, n = channel_moments(y)
+                inv, shift = bn_train_affine(self.conv.bn, my, m2y - my.square(), n)
+            else:
+                mean, var, n = branch_stats(y)
+                inv, shift = bn_train_affine(self.conv.bn, mean, var, n)
             p = self._live_params(inv, shift, y.shape[0], x.dtype, generator)
         else:
-            dw, p = cached_fold(self, x.dtype, self._fold)
+            if fold_enabled():
+                dw, p = cached_fold(self, x.dtype, self._fold)
+            else:
+                frozen_tensors(self)
+                dw, p = self._fold(x.dtype)
             if dw_route(x, self.conv.conv.weight, 1, self.c):
                 y = dw_arm_conv(x, self.conv.conv.weight, kernels)
             else:
@@ -594,10 +703,13 @@ class ConvFFN(nn.Module):
 class SpatialAttention(nn.Module):
     """Multi-head self-attention over the flattened grid (timm's Attention:
     ``qkv`` without bias, ``proj``). The pre-norm BatchNorm, which timm keeps
-    on the block (``blocks.j.norm``), is folded into qkv in eval: BN(x) @ W =
-    x @ (inv * W) + shift @ W (fastvit.py:825-853). In train mode it
-    normalises with its batch statistics first, then qkv, attention and proj
-    run as layers (fastvit.py:841-853, JAX's train default)."""
+    on the block (``blocks.j.norm``), is folded into qkv where JAX's
+    ``ffn_fold_active`` passes: BN(x) @ W = x @ (inv * W) + shift @ W
+    (fastvit.py:825-840), in eval from the cache, in training under
+    ``TRAIN_FFN=fold`` from x's one-pass ``channel_moments``. Otherwise (JAX's
+    train default, and eval under ``FASTVIT_FOLD=0``) it normalises first, on
+    batch or running statistics, then qkv and proj run as layers
+    (fastvit.py:841-853)."""
 
     def __init__(self, c: int, head_dim: int):
         super().__init__()
@@ -606,28 +718,42 @@ class SpatialAttention(nn.Module):
         self.qkv = nn.Linear(c, 3 * c, bias=False)
         self.proj = nn.Linear(c, c)
 
-    def _fold(self, norm: nn.BatchNorm2d, dtype: torch.dtype) -> tuple[torch.Tensor, ...]:
-        inv, shift = bn_affine(norm)
+    def _qkv_fold(self, inv: torch.Tensor, shift: torch.Tensor,
+                  dtype: torch.dtype) -> tuple[torch.Tensor, torch.Tensor]:
         wq = self.qkv.weight.float().t()  # (in, out)
-        return ((inv[:, None] * wq).to(dtype).contiguous(), (shift @ wq).to(dtype),
+        return (inv[:, None] * wq).to(dtype), (shift @ wq).to(dtype)
+
+    def _fold(self, norm: nn.BatchNorm2d, dtype: torch.dtype) -> tuple[torch.Tensor, ...]:
+        wqkv, bqkv = self._qkv_fold(*bn_affine(norm), dtype)
+        return (wqkv.contiguous(), bqkv,
                 self.proj.weight.t().to(dtype).contiguous(), self.proj.bias.to(dtype))
 
     def forward(self, x: torch.Tensor, norm: nn.BatchNorm2d, kernels: bool = True) -> torch.Tensor:
         b, c, hh, ww = x.shape
         s, nh = hh * ww, self.num_heads
-        if self.training:
-            t = L.batch_norm_train(x, norm).permute(0, 2, 3, 1).reshape(b, s, c)
-            qkv = L.dense(t, self.qkv)
+
+        def rows(t: torch.Tensor) -> torch.Tensor:
+            return t.permute(0, 2, 3, 1).reshape(b, s, c)
+
+        wproj = None
+        if self.training and ffn_fold_active(True):
+            mx, m2x, n = channel_moments(x)
+            wqkv, bqkv = self._qkv_fold(*bn_train_affine(norm, mx, m2x - mx.square(), n),
+                                        x.dtype)
+            qkv = rows(x) @ wqkv + bqkv
+        elif self.training or not fold_enabled():
+            bn = L.batch_norm_train if self.training else L.batch_norm_eval
+            qkv = L.dense(rows(bn(x, norm)), self.qkv)
         else:
             wqkv, bqkv, wproj, bproj = cached_fold(
                 self, x.dtype, lambda dt: self._fold(norm, dt), norm)
-            qkv = x.permute(0, 2, 3, 1).reshape(b, s, c) @ wqkv + bqkv
+            qkv = rows(x) @ wqkv + bqkv
         q, k, v = (t.reshape(b, s, nh, c // nh).transpose(1, 2).contiguous()
                    for t in qkv.split(c, dim=-1))
         scale = self.head_dim ** -0.5
         o = attention(q, k, v, scale) if kernels else plain_attention(q, k, v, scale)
         o = o.transpose(1, 2).reshape(b, s, c)
-        o = L.dense(o, self.proj) if self.training else o @ wproj + bproj
+        o = L.dense(o, self.proj) if wproj is None else o @ wproj + bproj
         return o.view(b, hh, ww, c).permute(0, 3, 1, 2)
 
 
@@ -654,10 +780,13 @@ class FastViTBlock(nn.Module):
 
     def pair(self, x: torch.Tensor) -> bool:
         """JAX's stage-pair gate (fastvit.py:870-884): a RepMixer block in
-        training (the reuse form, the port's only train form) whose shapes
-        pass ``pair_enabled`` (k = 7) and ``convffn_res_enabled``."""
+        training in the reuse form (``block_fold_active`` and
+        ``block_reuse_active``: off under ``TRAIN_BLOCKS=fold`` or ``branch``
+        and ``FASTVIT_FOLD=0``) whose shapes pass ``pair_enabled`` (k = 7) and
+        ``convffn_res_enabled``."""
         b, c, hh, ww = x.shape
         return (self.training and self.mixer == "repmixer"
+                and block_fold_active(True) and block_reuse_active(True)
                 and pair_enabled(c, hh, ww, 7, x.element_size(), batch=b)
                 and convffn_res_enabled(c, self.mlp.hidden, hh * ww, x.element_size(), True,
                                         self.mlp.lora_rank, batch=b))
@@ -728,3 +857,35 @@ class FastViTBackbone(nn.Module):
         for stage in self.stages:
             x = stage(x, kernels, generator)
         return self.final_conv(x)
+
+
+def fuse_mobileone_params(conv_weight, conv_bn: dict, scale_weight=None,
+                          scale_bn: dict | None = None, skip_bn: dict | None = None,
+                          eps: float = 1e-5) -> tuple[torch.Tensor, torch.Tensor]:
+    """The deploy-time branch fusion (fastvit.py:950-983) in torch layout:
+    a (conv, BN) branch, the optional 1x1 scale branch and the optional
+    identity BN as one f32 (kernel (O, I/g, k, k), bias (O,)). Kernels are
+    torch-layout arrays or tensors; each BN a dict under the reference's
+    names (``weight``, ``bias``, ``running_mean``, ``running_var``). Each
+    branch is ``fold_term`` on inv = weight / sqrt(running_var + eps) with
+    bias - running_mean * inv, the 1x1 zero-padded to the centre; the
+    identity is ``center_identity``, the same centred dirac as the train
+    fold's skip branch, so that the fused block computes what was
+    trained."""
+    def fold(weight, bn: dict, k: int) -> tuple[torch.Tensor, torch.Tensor]:
+        f32 = {name: torch.as_tensor(bn[name]).float()
+               for name in ("weight", "bias", "running_mean", "running_var")}
+        inv = torch.rsqrt(f32["running_var"] + eps) * f32["weight"]
+        return (fold_term(torch.as_tensor(weight), inv, k),
+                f32["bias"] - f32["running_mean"] * inv)
+
+    conv_weight = torch.as_tensor(conv_weight)
+    k = conv_weight.shape[-1]
+    kernel, bias = fold(conv_weight, conv_bn, k)
+    if scale_weight is not None:
+        ks, bs = fold(scale_weight, scale_bn, k)
+        kernel, bias = kernel + ks, bias + bs
+    if skip_bn is not None:
+        ki, bi = fold(center_identity(k, kernel.shape[1], kernel.shape[0]), skip_bn, k)
+        kernel, bias = kernel + ki, bias + bi
+    return kernel, bias

@@ -21,18 +21,28 @@ are known: ``bn_train_affine`` gives the differentiable (inv, shift) of
 ``BNAffine`` (fastvit_fold.py:197-243) and updates the running statistics,
 from ``branch_stats`` of a materialised branch output (two-pass) or from
 ``channel_moments`` of the input (one-pass, on the strided grid) for the
-branches whose statistics are functions of x. The blocks combine them in
-the reuse arrangement (JAX's default train mode, ``stats_branch_reuse``),
-never through the cache. JAX's ``_dw_s2_conv_frozen`` only works around an
-XLA layout of the stride-2 depthwise conv's dx; its function is
-``dw_branch_conv``'s conv, whose autograd gives the same dx (the kernel is
-frozen). A stride-1 multiplier-1 depthwise conv takes JAX's opt-in
-depthwise-conv arm when ``ops/dwconv.dwconv_enabled`` passes
-(``DINO_POSE_TPU_DWCONV``; ``dw_route``): ``dw_conv_frozen``, f32 taps.
+branches whose statistics are functions of x. The blocks combine them as
+JAX's switches say, read at each call (``fold_enabled``,
+``train_block_mode``, ``block_fold_active``, ``block_reuse_active``,
+``ffn_fold_active``; fastvit_fold.py:66-130): in the reuse arrangement
+(JAX's default, ``stats_branch_reuse``), as the train-time fold (one conv
+whose kernel depends on x through the batch statistics,
+``fold_stats_branch``), or as the reference's branch math; in training
+never through the cache, which would cut the kernel's gradient.
+
+JAX's ``DINO_POSE_TPU_DS_BWD`` chooses between two backwards of one
+function: ``_dw_s2_conv_frozen`` only works around an XLA layout of the
+stride-2 depthwise conv's dx, and returns a zero kernel cotangent. The port
+reads nothing: its function is ``dw_branch_conv``'s conv, whose autograd
+gives the same dx (the kernel is frozen in every FastViT training mode). A
+stride-1 multiplier-1 depthwise conv takes JAX's opt-in depthwise-conv arm
+when ``ops/dwconv.dwconv_enabled`` passes (``DINO_POSE_TPU_DWCONV``;
+``dw_route``): ``dw_conv_frozen``, f32 taps.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Any, Callable
 
 import torch
@@ -42,6 +52,53 @@ from torch import nn
 from dino_pose_tpu_torch.core import distributed
 from dino_pose_tpu_torch.nn.layers import update_running_stats
 from dino_pose_tpu_torch.ops.dwconv import dw_conv_frozen, dwconv_enabled
+
+
+def fold_enabled() -> bool:
+    """JAX's master gate (fastvit_fold.py:66-69):
+    ``DINO_POSE_TPU_FASTVIT_FOLD=0`` forces the reference's literal branch
+    math everywhere, in train and in eval."""
+    return os.environ.get("DINO_POSE_TPU_FASTVIT_FOLD", "1") != "0"
+
+
+def train_block_mode() -> str:
+    """The train-mode math of the MobileOne family (MobileOneBlock,
+    ReparamLargeKernelConv, RepMixer), ``DINO_POSE_TPU_FASTVIT_TRAIN_BLOCKS``
+    (fastvit_fold.py:72-100): ``reuse`` (the default), ``fold`` or
+    ``branch``; any other value raises JAX's ``ValueError``."""
+    mode = os.environ.get("DINO_POSE_TPU_FASTVIT_TRAIN_BLOCKS", "reuse").lower()
+    if mode not in ("branch", "fold", "reuse"):
+        raise ValueError(
+            f"DINO_POSE_TPU_FASTVIT_TRAIN_BLOCKS={mode!r}: expected branch|fold|reuse"
+        )
+    return mode
+
+
+def block_fold_active(train: bool) -> bool:
+    """Whether the MobileOne family takes its folded or reuse form
+    (fastvit_fold.py:103-107): in eval while the fold is on, in training
+    unless the mode is ``branch``."""
+    if not fold_enabled():
+        return False
+    return (not train) or train_block_mode() != "branch"
+
+
+def block_reuse_active(train: bool) -> bool:
+    """Within the folded forms, whether training reuses the branch outputs
+    (fastvit_fold.py:110-112)."""
+    return train and train_block_mode() == "reuse"
+
+
+def ffn_fold_active(train: bool) -> bool:
+    """JAX's fold gate of the BatchNorm-into-matmul sites (fastvit_fold.py:
+    115-130: SpatialAttention's qkv, the ConvFFN's fc1): on in eval while
+    the fold is on; in training only under
+    ``DINO_POSE_TPU_FASTVIT_TRAIN_FFN=fold``."""
+    if not fold_enabled():
+        return False
+    if not train:
+        return True
+    return os.environ.get("DINO_POSE_TPU_FASTVIT_TRAIN_FFN", "branch").lower() == "fold"
 
 
 def bn_affine(bn: nn.BatchNorm2d) -> tuple[torch.Tensor, torch.Tensor]:
@@ -127,15 +184,36 @@ def stats_branch_reuse(x: torch.Tensor, kernel: torch.Tensor, bn: nn.BatchNorm2d
     return y, inv, shift
 
 
+def fold_term(weight: torch.Tensor, inv: torch.Tensor, k: int) -> torch.Tensor:
+    """A branch's torch-layout kernel scaled by its BatchNorm's per-output
+    ``inv`` in f32, zero-padded to k x k at the centre (both convs pad to
+    half their kernel, so the offsets align)."""
+    term = weight.float() * inv.view(-1, 1, 1, 1)
+    lo = (k - weight.shape[-1]) // 2
+    hi = k - weight.shape[-1] - lo
+    return F.pad(term, (lo, hi, lo, hi))
+
+
 def fold_branch(weight: torch.Tensor, bn: nn.BatchNorm2d, k: int) -> tuple[torch.Tensor, torch.Tensor]:
     """``fold_stats_branch`` in eval (fastvit_fold.py:287-325): a (conv, BN)
     branch as an f32 (kernel term zero-padded to k x k at the centre, bias
     term)."""
     inv, shift = bn_affine(bn)
-    term = weight.float() * inv.view(-1, 1, 1, 1)
-    lo = (k - weight.shape[-1]) // 2
-    hi = k - weight.shape[-1] - lo
-    return F.pad(term, (lo, hi, lo, hi)), shift
+    return fold_term(weight, inv, k), shift
+
+
+def fold_stats_branch(x: torch.Tensor, weight: torch.Tensor, bn: nn.BatchNorm2d, k: int, *,
+                      stride: int, groups: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """``fold_stats_branch`` in training (fastvit_fold.py:287-325): the
+    branch conv runs in x's dtype only for its batch statistics
+    (``branch_stats``, two-pass; ``F.conv2d``, as JAX's ``lax.conv`` there
+    takes no depthwise-conv arm), and the branch comes back as the f32
+    (``fold_term`` on the batch-statistics inv, shift), differentiable in x
+    through those statistics; the running statistics update."""
+    y = F.conv2d(x, weight.to(x.dtype), None, stride, weight.shape[-1] // 2, 1, groups)
+    mean, var, n = branch_stats(y)
+    inv, shift = bn_train_affine(bn, mean, var, n)
+    return fold_term(weight, inv, k), shift
 
 
 def center_identity(k: int, in_g: int, features: int,
@@ -155,6 +233,18 @@ def apply_folded(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor, *,
     return y + bias.to(x.dtype).view(1, -1, 1, 1)
 
 
+def frozen_tensors(owner: nn.Module, *others: nn.Module) -> list[torch.Tensor]:
+    """Every parameter and buffer of ``owner`` and ``others``; raises while
+    grad mode is on if a parameter requires grad, since the eval forms run
+    their kernels without autograd and would cut its gradient."""
+    tensors = [t for m in (owner, *others) for t in (*m.parameters(), *m.buffers())]
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise ValueError(
+            f"{type(owner).__name__}: a parameter requires grad, but the folded copies are "
+            "built without autograd and would cut its gradient; freeze it (train/partition.py)")
+    return tensors
+
+
 def cached_fold(owner: nn.Module, dtype: torch.dtype, build: Callable[[torch.dtype], Any],
                 *others: nn.Module) -> Any:
     """``build(dtype)``, cached on ``owner`` and built anew when the dtype,
@@ -162,11 +252,7 @@ def cached_fold(owner: nn.Module, dtype: torch.dtype, build: Callable[[torch.dty
     changes. Built as normal tensors without autograd even when first asked
     for under ``inference_mode``, so that later calls outside it can use
     them."""
-    tensors = [t for m in (owner, *others) for t in (*m.parameters(), *m.buffers())]
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        raise ValueError(
-            f"{type(owner).__name__}: a parameter requires grad, but the folded copies are "
-            "built without autograd and would cut its gradient; freeze it (train/partition.py)")
+    tensors = frozen_tensors(owner, *others)
     key = (dtype, tensors[0].device, tuple((t.data_ptr(), t._version) for t in tensors))
     hit = getattr(owner, "_fold_cache", None)
     if hit is None or hit[0] != key:

@@ -598,6 +598,19 @@ def test_fastvit_kernels_match_plain(cuda_device, name, launches):
     """t8 + LoRA and sa12 at 256², batch 2, through the kernels and the plain
     versions: launches per forward and agreement within 5% of the largest
     output (chip_smoke.py's MODEL_REL_TOL)."""
+    _fastvit_forward_matches_plain(cuda_device, name, launches, 2)
+
+
+@pytest.mark.cuda
+def test_fastvit_sa24_forward_at_batch_1(cuda_device):
+    """fastvit_sa24 at 256², batch 1: 24 ConvFFN launches and 4 flash
+    forwards (its attention stage's four blocks), agreeing with the plain
+    versions as test_fastvit_kernels_match_plain holds them."""
+    _fastvit_forward_matches_plain(cuda_device, "timm/fastvit_sa24.apple_in1k",
+                                   {"fused_convffn": 24, "flash_fwd": 4}, 1)
+
+
+def _fastvit_forward_matches_plain(cuda_device, name, launches, batch):
     model = registry.create_model_from_config(
         {"model_name": name, "use_lora": "t8" in name}, device=cuda_device, pretrained=False)
     with torch.no_grad():
@@ -607,7 +620,7 @@ def test_fastvit_kernels_match_plain(cuda_device, name, launches):
             elif n.rsplit(".", 1)[-1].startswith("layer_scale"):
                 prm.uniform_(0.1, 1.0)
     x = torch.from_numpy(
-        np.random.default_rng(0).standard_normal((2, 3, 256, 256)).astype(np.float32)
+        np.random.default_rng(0).standard_normal((batch, 3, 256, 256)).astype(np.float32)
     ).to(cuda_device, torch.bfloat16)
     block.reset_launches()
     with torch.inference_mode():
@@ -1453,10 +1466,30 @@ def test_fastvit_arms_train_step_kernels_match_plain(cuda_device, monkeypatch):
     one H100 run, past the 1e-3; at batch 8, over three seeds, an H100
     measured at most 1.5e-4 with both arms and 4.0e-4 on the default
     route. The weights are now seeded.)"""
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     monkeypatch.setenv("DINO_POSE_TPU_DWCONV", "on")
     monkeypatch.setenv("DINO_POSE_TPU_STAGE_PAIR", "on")
+    _t8_step_matches_plain(cuda_device, {
+        "fused_dw_conv": 7, "fused_combine_dw": 4, "fused_convffn_res": 4,
+        "fused_combine_dw_bwd": 3, "fused_convffn": 6, "fused_convffn_bwd": 10})
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["fold", "branch"])
+def test_fastvit_block_mode_train_step_kernels_match_plain(cuda_device, monkeypatch, mode):
+    """One fastvit_t8 + LoRA train step at 256², batch 8, under JAX's
+    ``DINO_POSE_TPU_FASTVIT_TRAIN_BLOCKS`` (``fold``: each MobileOne block,
+    ReparamLargeKernelConv and RepMixer one conv folded from its batch
+    statistics; ``branch``: the reference's branch math): every ConvFFN's
+    forward and backward kernel and nothing else, and the kernels against
+    the plain path as test_fastvit_arms_train_step_kernels_match_plain
+    holds them."""
+    monkeypatch.setenv("DINO_POSE_TPU_FASTVIT_TRAIN_BLOCKS", mode)
+    _t8_step_matches_plain(cuda_device, {"fused_convffn": 10, "fused_convffn_bwd": 10})
+
+
+def _t8_step_matches_plain(cuda_device, launches):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     config = {"model_name": "timm/fastvit_t8.apple_in1k", "use_lora": True}
     model = registry.create_model_from_config(config, device=cuda_device, pretrained=False)
     gen = torch.Generator(device=cuda_device).manual_seed(4)
@@ -1477,8 +1510,6 @@ def test_fastvit_arms_train_step_kernels_match_plain(cuda_device, monkeypatch):
              "backbone.stages.1.blocks.1.mlp.fc2.lora_B.weight",
              "backbone.stages.3.blocks.1.mlp.fc2.lora_B.weight",
              "backbone.head.heatmap_head.prediction.3.weight")
-    arms = {"fused_dw_conv": 7, "fused_combine_dw": 4, "fused_convffn_res": 4,
-            "fused_combine_dw_bwd": 3, "fused_convffn": 6, "fused_convffn_bwd": 10}
     out = {}
     for name, kernels, dtype in (("kernels", True, torch.bfloat16), ("plain", False, torch.bfloat16),
                                  ("f32", False, torch.float32)):
@@ -1488,7 +1519,7 @@ def test_fastvit_arms_train_step_kernels_match_plain(cuda_device, monkeypatch):
         block.reset_launches()
         _, stats = step(state, batch, 3e-5, 0)
         torch.cuda.synchronize()
-        want = arms if kernels else {}
+        want = launches if kernels else {}
         assert block.LAUNCHES == {**dict.fromkeys(block.LAUNCHES, 0), **want}
         params = dict(m.named_parameters())
         out[name] = (stats, {n: params[n].grad.float() for n in names})

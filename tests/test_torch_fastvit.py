@@ -138,7 +138,7 @@ def test_lora_reaches_the_feature_map(jax_lora, pixels):
 
 
 @pytest.mark.parametrize("lora", [True, False])
-@pytest.mark.parametrize("variant", ["t8", "sa12", "ma36"])
+@pytest.mark.parametrize("variant", ["t8", "sa12", "sa24", "sa36", "ma36"])
 def test_state_dict_keys_are_the_reference_schema(variant, lora):
     """The port's keys equal the torch keys of JAX's ``fastvit_pose_rules``
     (with BatchNorm's ``num_batches_tracked``), on the meta device."""
