@@ -58,7 +58,12 @@ partial products and the LoRA layer's partial dx) at dinov2-base's shard
 shapes (tp = 2) and dinov2-large's (tp = 2 and 4), dinov2-base + LoRA r=8
 under a ('data', 'model') = (1, 2) mesh on the one card, serving (24 + 24
 shard launches a forward) and fine-tuning at batch 128 (and the LoRA
-layer's partial dx on both shards); then the final LayerNorm's kernel
+layer's partial dx on both shards); then FastViT under the same mesh:
+the ConvFFN kernels and the flash pair at every t8/sa12 shard width (H/2,
+8 heads), fastvit_t8 + LoRA and fastvit_sa12 + LoRA served and fine-tuned
+with every ConvFFN as two shards (two ConvFFN launches a layer) and held
+against their one-card route, and the MLP-variant heads in bf16 against
+the CPU in f32; then the final LayerNorm's kernel
 (JAX's DINO_POSE_TPU_LN=pallas) against its plain version and
 torch.nn.functional.layer_norm, and dinov2-small, -base and -large + LoRA
 serving and fine-tuning with that switch on; last, the training entry point
@@ -71,7 +76,10 @@ processes of this script under torchrun's launch variables, gloo with CUDA
 tensors, dinov2-small and fastvit_t8 + LoRA steps of 2 x 64 against one
 process of 128, ``cli.train`` on two ranks against phase_fit's run and its
 resume, dinov2-base + LoRA with its model axis across the two ranks
-bit-equal to the one-card route, and a world of one under NCCL. Times kernels, serving and every train
+bit-equal to the one-card route, ``fit`` with a (1, 2) mesh across the two
+ranks (dinov2-base and fastvit_sa12 + LoRA) bit-equal to the same mesh in
+one process, ``fit`` with a (2, 2) mesh across four ranks (dinov2-small +
+LoRA), and a world of one under NCCL. Times kernels, serving and every train
 step; the ConvFFN, depthwise-conv and LayerNorm kernels, and cuDNN's
 grouped conv and torch.nn.functional.layer_norm beside them, on three
 clocks (host-inclusive, device-only from a CUDA graph's replay, host
@@ -426,6 +434,26 @@ TP_SHARD = ("fused_attn_part_partial", "fused_mlp_part_partial", "fused_mlp_part
 SERVING_TP_LAUNCHES = {"fused_attn_part_partial": 24, "fused_mlp_part_partial": 24,
                        "attn_fwd": 24}
 TP_LORA_LAUNCHES = {**SERVING_TP_LAUNCHES, "fused_mlp_partial_dx": 2}
+# FastViT under the same (1, 2) mesh (models/fastvit.py): every ConvFFN runs
+# as two shards of H/2 hidden units (t8: 72 to 576, the 72 zero-padded to
+# 80; sa12: 128 to 1024), each its own fused_convffn launch (and in a step
+# fused_convffn_bwd), the partials summed by the mesh and fc2's bias added
+# once; sa12's two attention blocks as two shards of 8 heads, a flash launch
+# each. So every layer launches tp kernels where one card launches one:
+# t8 + LoRA r=8 served at B = 1 and 8 and trained at bs=128, sa12 + LoRA r=8
+# served and trained at bs=32 (two checked steps, three timed). Each is also
+# held against the same model's one-card route (tp = 1) on the kernels: its
+# forward and its step-1 LoRA gradients.
+T8_TP_SERVING = {"fused_convffn": 2 * 10}
+T8_TP_TRAIN = {"fused_convffn": 2 * 10, "fused_convffn_bwd": 2 * 10}
+SA12_TP_SERVING = {"fused_convffn": 2 * 12, "flash_fwd": 2 * 2}
+SA12_TP_TRAIN = {"fused_convffn": 2 * 12, "fused_convffn_bwd": 2 * 12, "flash_fwd": 2 * 2,
+                 "flash_bwd": 2 * 2}
+SA12_TP_FLASH_SHAPE = (16 // TP, 64, 32)
+# The MLP-variant heads (models/heads.PoseHeads; no model uses them) on the
+# card in bf16 against the CPU in f32, at heatmap 48 and at 40 (the chain
+# overshoots to 48 and pools back), on dinov2-base-wide feature vectors.
+MLP_HEADS_FEATURES, MLP_HEADS_BATCH = 768, 8
 # The final LayerNorm's kernel behind JAX's DINO_POSE_TPU_LN=pallas, on
 # dinov2-small + LoRA (the gate's home, nn/layers.py:246-250): one launch a
 # forward on top of the path's own; held at the serving forward's (257, 384)
@@ -1064,13 +1092,15 @@ def clocks(fn, iters: int = 20, warmup: int = 5) -> dict:
     ms (``device_ms``) and host microseconds a call (``host_us``). The host
     clocks are the median of three runs with Python's garbage collector
     paused: a collection inside a run of 20 calls can double a batch-1
-    reading."""
+    reading. The graph of ``iters`` calls is replayed twice, and the host
+    loop runs ``iters`` calls: the script's whole run has to fit its time
+    limit on a shared host."""
     gc.collect()
     gc.disable()
     try:
         ms = sorted(cuda_ms(fn, iters=iters, warmup=warmup) for _ in range(3))[1]
-        us = sorted(host_us(fn, 2 * iters) for _ in range(3))[1]
-        return {"ms": ms, "device_ms": device_ms(fn, iters), "host_us": us}
+        us = sorted(host_us(fn, iters) for _ in range(3))[1]
+        return {"ms": ms, "device_ms": device_ms(fn, iters, reps=2), "host_us": us}
     finally:
         gc.enable()
 
@@ -2284,7 +2314,7 @@ def convffn_inputs(b: int, s: int, c: int, h: int, r: int, gen: torch.Generator)
         k: v.to("cuda", torch.bfloat16 if v.dim() == 2 and k not in ("m1", "m2")
                 else torch.float32).contiguous()
         for k, v in p.items()})
-    return n(b, s, c).to("cuda", torch.bfloat16), p
+    return cuda_randn((b, s, c), gen).to(torch.bfloat16), p
 
 
 def phase_convffn(results: dict, backward: bool) -> dict:
@@ -2318,7 +2348,7 @@ def phase_convffn(results: dict, backward: bool) -> dict:
             for i, (c, h, s, blocks) in enumerate(stages):
                 y, p = convffn_inputs(b, s, c, h, r, g)
                 if backward:
-                    df = torch.randn((b, s, c), generator=g).to("cuda", torch.bfloat16)
+                    df = cuda_randn((b, s, c), g).to(torch.bfloat16)
 
                     def kern():
                         return flat(CF.fused_convffn_bwd(y, df, p, s_lora))
@@ -2755,6 +2785,199 @@ def phase_tp(results: dict) -> dict:
     return by_batch
 
 
+def phase_fastvit_tp_kernels(results: dict) -> None:
+    """The ConvFFN kernels and the flash pair at FastViT's shard widths
+    under a (1, 2) mesh. For every fastvit_t8 and fastvit_sa12 stage (256²),
+    one seeded ConvFFN at rank 8 with Dropout2d-style masks, cut as
+    models/fastvit.py cuts it (hidden units [r*H/2, (r+1)*H/2): fc1's
+    columns, its bias and LoRA B columns, fc2's rows and LoRA A rows, fc2's
+    bias zero): each shard's fused_convffn at B = 1, 8 and the train batch
+    (128, 32) and its fused_convffn_bwd (a unit-scale seeded cotangent) at
+    the train batch, against convffn_math / convffn_bwd_math on the same
+    cut (``compare_outputs``: the kernel tolerance, gradients within
+    GRAD_TOL); the mesh's all-reduce of the shards' outputs plus fc2's bias
+    against the whole ConvFFN's plain version. Then flash_attention at
+    sa12's shard of 8 heads of 32 over S = 64, B = 1, 8, 32. Checks are not
+    main-path launches."""
+    from dino_pose_tpu_torch.core.mesh import Mesh, MeshSpec
+    from dino_pose_tpu_torch.ops import block as B
+    from dino_pose_tpu_torch.ops import convffn as CF
+
+    gen = torch.Generator().manual_seed(SEED + 50)
+    mesh = Mesh(MeshSpec(1, TP))
+    saved = dict(B.LAUNCHES)
+    r = 8
+    s_lora = 16.0 / r
+    for model, train_batch in (("t8", T8_TRAIN_BATCH), ("sa12", SA12_TRAIN_BATCH)):
+        for b in (1, 8, train_batch):
+            for i, (c, h, s, _) in enumerate(CONVFFN_STAGES[model]):
+                y, p = convffn_inputs(b, s, c, h, r, gen)
+                df = cuda_randn((b, s, c), gen).to(torch.bfloat16)
+                n = h // TP
+                parts = []
+                for sh in range(TP):
+                    def cut(t, dim, sh=sh):
+                        return t.narrow(dim, sh * n, n).clone()
+
+                    ps = p._replace(w1=cut(p.w1, 1), b1=cut(p.b1, 0), w2=cut(p.w2, 0),
+                                    b2=torch.zeros_like(p.b2), b1l=cut(p.b1l, 1),
+                                    a2=cut(p.a2, 0))
+                    where = f"{model} stage {i} shard {sh} (C={c}, H/tp={n}, S={s}, R={r}) B={b}"
+                    cases = [("fused_convffn", (CF.fused_convffn(y, ps, s_lora),),
+                              (CF.convffn_math(y, ps, s_lora),))]
+                    if b == train_batch:
+                        cases.append(("fused_convffn_bwd",
+                                      flat(CF.fused_convffn_bwd(y, df, ps, s_lora)),
+                                      flat(CF.convffn_bwd_math(y, df, ps, s_lora))))
+                    parts.append(cases[0][1][0])
+                    torch.cuda.synchronize()
+                    for name, got, want in cases:
+                        act_err, grad_rel, ok = compare_outputs(got, want)
+                        log(f"kernel {name} {where}: max_abs={act_err:.6g}"
+                            + (f" max_err/max|ref|(grads)={grad_rel:.6g}" if len(got) > 1
+                               else "") + f" -> {'ok' if ok else 'FAIL'}")
+                        if not ok:
+                            raise AssertionError(f"{name} at {where} disagrees with its plain "
+                                                 "version")
+                        row = results.setdefault(name, {"max_abs_err": 0.0})
+                        row["max_abs_err"] = max(row["max_abs_err"], act_err)
+                        if len(got) > 1:
+                            row["max_grad_err_rel"] = max(row.get("max_grad_err_rel", 0.0),
+                                                          grad_rel)
+                total = mesh.all_reduce(parts) + p.b2.to(torch.bfloat16)
+                act_err, _, ok = compare_outputs((total,), (CF.convffn_math(y, p, s_lora),))
+                log(f"kernel all_reduce(fused_convffn shards) + b2 {model} stage {i} B={b}: "
+                    f"max_abs={act_err:.6g} vs the whole ConvFFN's plain version (tol atol "
+                    f"{KERNEL_ATOL} + rtol {KERNEL_RTOL}*|ref|) -> {'ok' if ok else 'FAIL'}")
+                if not ok:
+                    raise AssertionError(f"the ConvFFN shards' sum at {model} stage {i} B={b} "
+                                         "disagrees with the whole ConvFFN")
+                del y, p, df, parts, total
+    heads, sq, dh = SA12_TP_FLASH_SHAPE
+    for b in (1, 8, SA12_TRAIN_BATCH):
+        check_flash(results, *flash_inputs(b, gen, SA12_TP_FLASH_SHAPE),
+                    f"B={b} (fastvit_sa12 shard: {heads} heads of {dh}, S={sq})")
+    torch.cuda.synchronize()
+    B.LAUNCHES.update(saved)
+
+
+def phase_fastvit_tp_one_card(tag: str, config: dict, batch_size: int) -> dict:
+    """A FastViT + LoRA model under the (1, 2) mesh against the same seeded
+    model on one card (tp = 1), both on the kernels: a batch-8 eval forward
+    (heatmaps and z) and the step-1 gradients of FASTVIT_GRAD_NAMES on the
+    seeded batch. The tp = 2 forward must sit from the one-card forward no
+    farther than plain bf16 sits from plain f32 (relative Frobenius); the
+    tp = 2 gradients by the bf16 noise rule: within GRAD_NOISE_FACTOR times
+    the plain bf16 step's distance from the f32 one, plus GRAD_NOISE_SLACK.
+    Launches restored."""
+    from dino_pose_tpu_torch.core.mesh import MeshSpec, create_mesh
+    from dino_pose_tpu_torch.ops import block as B
+    from dino_pose_tpu_torch.ops import dispatch
+
+    model = seeded_model(config)
+    saved = dict(B.LAUNCHES)
+    pixels = synthetic_batch(8, FASTVIT_IMAGE, seed=3)["image"]
+    batch = synthetic_batch(batch_size, FASTVIT_IMAGE)
+    runs: dict = {}
+    for which, kernels, dtype, tp in (("tp2", True, torch.bfloat16, TP),
+                                      ("one", True, torch.bfloat16, 1),
+                                      ("plain", False, torch.bfloat16, 1),
+                                      ("f32", False, torch.float32, 1)):
+        with dispatch.scoped():
+            if tp > 1:
+                create_mesh(MeshSpec(1, tp))
+            with torch.inference_mode():
+                hm, z = model.eval()(pixels.to(dtype), kernels=kernels)
+            grads = step1_grads(model, config, kernels, dtype, batch, FASTVIT_IMAGE,
+                                FASTVIT_GRAD_NAMES)
+        runs[which] = {"hm": hm.float(), "z": z.float(), "grads": grads}
+    torch.cuda.synchronize()
+    B.LAUNCHES.update(saved)
+    out: dict = {"forward": {}, "grads": {}}
+    bad = []
+    for k in ("hm", "z"):
+        d_tp, noise = rel_err(runs["tp2"][k], runs["one"][k]), rel_err(runs["plain"][k],
+                                                                       runs["f32"][k])
+        ok = bool(torch.isfinite(runs["tp2"][k]).all()) and d_tp <= noise
+        out["forward"][k] = {"tp2_vs_one_card": d_tp, "plain_vs_f32": noise,
+                             "tp2_vs_f32": rel_err(runs["tp2"][k], runs["f32"][k])}
+        log(f"{tag} forward {k} (batch 8): rel Frobenius tp=2 vs one card {d_tp:.4g}, plain "
+            f"bf16 vs f32 {noise:.4g} (the limit), tp=2 vs f32 "
+            f"{out['forward'][k]['tp2_vs_f32']:.4g} -> {'ok' if ok else 'FAIL'}")
+        if not ok:
+            bad.append(f"forward {k}")
+    for n in FASTVIT_GRAD_NAMES:
+        f32 = runs["f32"]["grads"][n]
+        k_ref, p_ref = rel_err(runs["tp2"]["grads"][n], f32), rel_err(runs["plain"]["grads"][n],
+                                                                      f32)
+        one = rel_err(runs["one"]["grads"][n], f32)
+        tol = GRAD_NOISE_FACTOR * p_ref + GRAD_NOISE_SLACK
+        ok = bool(torch.isfinite(runs["tp2"]["grads"][n]).all()) and k_ref <= tol
+        out["grads"][n] = {"tp2_vs_f32": k_ref, "one_card_vs_f32": one, "plain_vs_f32": p_ref,
+                           "tp2_vs_one_card": rel_err(runs["tp2"]["grads"][n],
+                                                      runs["one"]["grads"][n])}
+        log(f"{tag} step-1 grad {n}: rel Frobenius vs f32: tp=2 {k_ref:.4g}, one card "
+            f"{one:.4g}, plain bf16 {p_ref:.4g} (tol {GRAD_NOISE_FACTOR}*plain+"
+            f"{GRAD_NOISE_SLACK} = {tol:.4g}); tp=2 vs one card "
+            f"{out['grads'][n]['tp2_vs_one_card']:.4g} -> {'ok' if ok else 'FAIL'}")
+        if not ok:
+            bad.append(f"grad {n}")
+    if bad:
+        raise AssertionError(f"{tag}: tp=2 vs the one-card route out of tolerance: {bad}")
+    return out
+
+
+def phase_mlp_heads(results: dict) -> dict:
+    """models/heads.PoseHeads (the MLP variant) at heatmap 48 and 40: seeded
+    on the CPU with its running statistics moved off (0, 1), its eval
+    forward in f32 there, the same weights on the card in bf16 on the same
+    features. Heatmaps and z within MODEL_REL_TOL of the f32 result's
+    largest magnitude, as a served model is held against its plain path."""
+    from dino_pose_tpu_torch.models.heads import PoseHeads
+
+    out = {}
+    gen = torch.Generator().manual_seed(SEED + 60)
+    feats = torch.randn((MLP_HEADS_BATCH, MLP_HEADS_FEATURES), generator=gen)
+    for hm_size in (48, 40):
+        torch.manual_seed(SEED + hm_size)
+        heads = PoseHeads(MLP_HEADS_FEATURES, 24, hm_size)
+        with torch.no_grad():
+            for m in heads.modules():
+                if isinstance(m, torch.nn.BatchNorm2d):
+                    m.running_mean.copy_(torch.randn(m.running_mean.shape, generator=gen) * 0.1)
+                    m.running_var.copy_(torch.rand(m.running_var.shape, generator=gen) + 0.5)
+        heads.eval()
+        with torch.inference_mode():
+            want = heads(feats)
+            card = copy.deepcopy(heads).to("cuda", torch.bfloat16)
+            got = card(feats.to("cuda", torch.bfloat16))
+            torch.cuda.synchronize()
+        row = {}
+        for name, g, w in zip(("heatmaps", "z"), got, want):
+            g = g.float().cpu()
+            err, scale = (g - w).abs().max().item(), w.abs().max().item()
+            ok = g.shape == w.shape and bool(torch.isfinite(g).all()) and err <= MODEL_REL_TOL * scale
+            row[name] = {"max_abs": err, "max_ref": scale, "rel_fro": rel_err(g, w), "ok": ok}
+            log(f"mlp_heads heatmap {hm_size} {name} {tuple(g.shape)} (card bf16 vs CPU f32): "
+                f"max_abs={err:.6g} vs {MODEL_REL_TOL}*max|ref|={MODEL_REL_TOL * scale:.6g}, "
+                f"rel_fro={row[name]['rel_fro']:.4g} -> {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"PoseHeads at heatmap {hm_size}: {name} on the card "
+                                     "disagrees with the CPU")
+        out[hm_size] = row
+    return out
+
+
+def cuda_randn(shape: tuple, gen: torch.Generator) -> torch.Tensor:
+    """Standard-normal f32 of ``shape`` drawn on the card by a CUDA
+    generator seeded from ``gen``: the row operands of the GEMM and
+    attention-core checks run to 32896 x 4096, the ConvFFN checks' rows to
+    128 x 4096 x 512, which would cost the host more than the checks."""
+    seed = int(torch.randint(0, 2**62, (1,), generator=gen))
+    return torch.randn(shape, generator=torch.Generator("cuda").manual_seed(seed),
+                       device="cuda")
+
+
 def gemm_shapes() -> list:
     """(label, K, N, epilogues) of every product in GEMM_MODELS."""
     shapes = []
@@ -2806,7 +3029,7 @@ def phase_gemm(results: dict) -> dict:
     for d in (D, 768, 1024):
         # The LayerNorm rows every chain's first product reads: the old
         # prologue's arithmetic, against the plain LayerNorm's one rounding.
-        x = (torch.randn((TRAIN_BATCH * S, d), generator=gen) * 3 + 1).to("cuda", torch.bfloat16)
+        x = (cuda_randn((TRAIN_BATCH * S, d), gen) * 3 + 1).to(torch.bfloat16)
         g = (torch.rand(d, generator=gen) + 0.5).cuda()
         b = (torch.randn(d, generator=gen) * 0.1).cuda()
         got, want = B.ln_rows(x, g, b, EPS), B._ln_fwd(x, g, b, EPS)[0]
@@ -2826,8 +3049,8 @@ def phase_gemm(results: dict) -> dict:
         bias = (torch.randn(n, generator=gen) * 0.05).cuda()
         ls = (torch.rand(n, generator=gen) * 0.9 + 0.1).cuda()
         for m in GEMM_ROWS:
-            a = torch.randn((m, k), generator=gen).to("cuda", torch.bfloat16)
-            res = torch.randn((m, n), generator=gen).to("cuda", torch.bfloat16)
+            a = cuda_randn((m, k), gen).to(torch.bfloat16)
+            res = cuda_randn((m, n), gen).to(torch.bfloat16)
             for epi in epis:
                 kw = {"bias": bias, "ls": ls, "res": res}
                 with torch.inference_mode():
@@ -2921,8 +3144,8 @@ def phase_gemm_bwd(results: dict) -> dict:
         w = (torch.randn((n, k), generator=gen) * k**-0.5).to("cuda", torch.bfloat16)
         scale = (torch.rand(k if kind == "nt" else n, generator=gen) * 0.9 + 0.1).cuda()
         for m in rows:
-            a = torch.randn((m, k), generator=gen).to("cuda", torch.bfloat16)
-            other = (torch.randn((m, n), generator=gen) * 2).to("cuda", torch.bfloat16)
+            a = cuda_randn((m, k), gen).to(torch.bfloat16)
+            other = (cuda_randn((m, n), gen) * 2).to(torch.bfloat16)
             for form in forms:
                 sc = scale if form.get("scale") else None
                 if kind == "nt":
@@ -3007,8 +3230,8 @@ def phase_gemm_bwd(results: dict) -> dict:
 def attention_core_inputs(b: int, heads: int, s: int, dh: int, gen: torch.Generator):
     """A seeded packed qkv (b, s, 3*heads*dh) and a unit-scale cotangent of its
     ctx (b, s, heads*dh), bf16 on the card."""
-    qkv = torch.randn((b, s, 3 * heads * dh), generator=gen).to("cuda", torch.bfloat16)
-    dctx = torch.randn((b, s, heads * dh), generator=gen).to("cuda", torch.bfloat16)
+    qkv = cuda_randn((b, s, 3 * heads * dh), gen).to(torch.bfloat16)
+    dctx = cuda_randn((b, s, heads * dh), gen).to(torch.bfloat16)
     return qkv, dctx
 
 
@@ -3723,7 +3946,7 @@ def phase_pretrained(results: dict, serving: dict, training: dict, root: str) ->
 # process's for at least as many elements as the one process's steps the
 # same way as its f32 step, less DIST_SIGN_SLACK. Both ranks end
 # bit-identical.
-DIST_WORLD, DIST_BATCH, DIST_TIMED = 2, TRAIN_BATCH, 5
+DIST_WORLD, DIST_BATCH, DIST_TIMED = 2, TRAIN_BATCH, 3
 DIST_ZERO_GRAD, DIST_ZERO_FACTOR = 1e-5, 2.0
 DIST_ADAM_TOL = 2 * LR * 1.01
 DIST_SIGN_SLACK = 0.02
@@ -3737,6 +3960,34 @@ DIST_FIT_RTOL, DIST_PCKH_ATOL = 5e-2, 1e-2
 # A worker run's limit (seconds); past it every worker is killed and the
 # phase fails.
 DIST_TIMEOUT = 900
+# (f) fit with ('data', 'model') = (1, 2) across the two ranks on phase_fit's
+# set at batch 32 (4 steps, a validation batch and the PCKh baseline and
+# epoch evaluation, rank-local), for dinov2-base + LoRA (the tensor-parallel
+# halves) and fastvit_sa12 + LoRA (the ConvFFN and attention shards), held
+# bit for bit (cuDNN deterministic) against fit with the same mesh in one
+# process; (g) fit with (2, 2) across four ranks on dinov2-small + LoRA at a
+# global batch of 128 (64 a data shard): two epochs of one step, fit's own
+# digest guard checking after each that every rank holds the same trained
+# state, and the four final states equal. Launches a rank: a shard's kernels
+# on the split steps and validation forwards, the one-card route's in the
+# rank-local PCKh forwards.
+DIST_FIT_TP = {"dinov2_base": (BASE_LORA_CONFIG, 32, 1), "fastvit_sa12": (SA12_LORA_CONFIG, 32, 1)}
+DIST_FIT_MESH = {"dinov2_small": (LORA_CONFIG, 128, 2)}
+DIST_FIT_LAUNCHES = {
+    # (a train step's, a validation forward's launches on one model shard;
+    # a rank-local PCKh forward's)
+    "dinov2_base": ({"fused_attn_part_partial": 12, "fused_mlp_part_partial": 12,
+                     "fused_mlp_partial_dx": 1, "attn_fwd": 12},
+                    {"fused_attn_part_partial": 12, "fused_mlp_part_partial": 12, "attn_fwd": 12},
+                    SERVING_LAUNCHES),
+    "fastvit_sa12": ({"fused_convffn": 12, "fused_convffn_bwd": 12, "flash_fwd": 2,
+                      "flash_bwd": 2}, {"fused_convffn": 12, "flash_fwd": 2},
+                     SERVING_SA12_LAUNCHES),
+    "dinov2_small": ({"fused_attn_part_partial": 12, "fused_mlp_part_partial": 12,
+                      "fused_mlp_partial_dx": 1, "attn_fwd": 12},
+                     {"fused_attn_part_partial": 12, "fused_mlp_part_partial": 12,
+                      "attn_fwd": 12}, SERVING_LAUNCHES),
+}
 
 
 def dist_spawn(root: str, tag: str, jobs: list, world: int = DIST_WORLD,
@@ -3938,17 +4189,61 @@ def dist_job_fit(job: dict, rank: int, world: int) -> dict:
     B.reset_launches()
     history = train_main(job["argv"][rank])
     torch.cuda.synchronize()
-    state = history["model"].state_dict()
+    return {"launches": dict(B.LAUNCHES), "eval_info": dict(evaluate.last_eval_info),
+            "state_sha256": state_sha256(history["model"]), "step": history["state"].step,
+            **{k: history[k] for k in ("train_loss", "val_loss", "pckh", "epoch_seconds",
+                                       "images_per_sec")}}
+
+
+def state_sha256(model) -> str:
+    """The sha256 of every tensor of ``model``'s state dict, bit for bit."""
     import hashlib
 
     digest = hashlib.sha256()
-    for k, v in state.items():
+    for k, v in model.state_dict().items():
         digest.update(k.encode())
         digest.update(v.detach().cpu().contiguous().view(-1).view(torch.uint8).numpy().tobytes())
-    return {"launches": dict(B.LAUNCHES), "eval_info": dict(evaluate.last_eval_info),
-            "state_sha256": digest.hexdigest(), "step": history["state"].step,
+    return digest.hexdigest()
+
+
+def fit_configs(root: str, tag: str, config: dict, batch_size: int, epochs: int) -> list:
+    """The port's default configuration on phase_fit's set (``root``), with
+    ``config``'s model, the global batch and the epochs; its own checkpoint
+    directory."""
+    from dino_pose_tpu_torch.config import get_default_configs
+
+    d, t, p, m = get_default_configs()
+    d.update(train_images_dir=os.path.join(root, "train", "images"),
+             train_annotation_json=os.path.join(root, "train", "annotation.json"),
+             val_images_dir=os.path.join(root, "valid", "images"),
+             val_annotation_json=os.path.join(root, "valid", "annotation.json"))
+    t.update(checkpoint_dir=os.path.join(root, f"checkpoints_{tag}"), batch_size=batch_size,
+             num_epochs=epochs, save_freq=1)
+    m.update(config)
+    return [d, t, p, m]
+
+
+def fit_record(configs: list, mesh: tuple) -> dict:
+    """``fit`` on this process under ('data', 'model') = ``mesh`` (cuDNN
+    deterministic): launches, history, the final state's digest."""
+    from dino_pose_tpu_torch.core.mesh import MeshSpec
+    from dino_pose_tpu_torch.ops import block as B
+    from dino_pose_tpu_torch.train.loop import fit
+
+    B.reset_launches()
+    with deterministic_cudnn():
+        history = fit(*configs, device="cuda:0", mesh=MeshSpec(*mesh), progress=False)
+    torch.cuda.synchronize()
+    return {"launches": dict(B.LAUNCHES), "state_sha256": state_sha256(history["model"]),
+            "step": history["state"].step,
             **{k: history[k] for k in ("train_loss", "val_loss", "pckh", "epoch_seconds",
-                                       "images_per_sec")}}
+                                       "dispatch_s", "images_per_sec")}}
+
+
+def dist_job_fit_mesh(job: dict, rank: int, world: int) -> dict:
+    """(f)/(g): ``fit`` on this rank with the job's (dp, tp) mesh across
+    the ranks."""
+    return fit_record(job["configs"], tuple(job["mesh"]))
 
 
 def dist_job_nccl(job: dict, rank: int, world: int) -> dict:
@@ -3987,7 +4282,20 @@ def dist_job_nccl(job: dict, rank: int, world: int) -> dict:
     return out
 
 
-DIST_JOBS = {"step": dist_job_step, "tp": dist_job_tp, "fit": dist_job_fit, "nccl": dist_job_nccl}
+DIST_JOBS = {"step": dist_job_step, "tp": dist_job_tp, "fit": dist_job_fit,
+             "fit_mesh": dist_job_fit_mesh, "nccl": dist_job_nccl}
+
+
+def fit_launches(tag: str, history: dict, shards: int, val_batches: int = 1) -> dict:
+    """The launches ``fit`` should count for DIST_FIT_LAUNCHES[tag] with
+    ``shards`` model shards in the process: the split kernels ``shards``
+    times a step and a validation forward, the one-card route's once a
+    rank-local PCKh forward (one batch each)."""
+    step, val, pckh = DIST_FIT_LAUNCHES[tag]
+    n_val, n_pckh = val_batches * len(history["val_loss"]), len(history["pckh"])
+    keys = set(step) | set(val) | set(pckh)
+    return {k: shards * (history["step"] * step.get(k, 0) + n_val * val.get(k, 0))
+            + n_pckh * pckh.get(k, 0) for k in keys}
 
 
 def dist_hold_step(tag: str, two: list, one: dict, ref_grads: dict, ref_after: dict,
@@ -4085,6 +4393,100 @@ def dist_hold_step(tag: str, two: list, one: dict, ref_grads: dict, ref_after: d
     return rec
 
 
+def dist_fit_tp_references(root: str) -> dict:
+    """(f)'s references: fit with the (1, 2) mesh in this process, each
+    model of DIST_FIT_TP on phase_fit's set."""
+    refs = {}
+    for tag, (config, bs, epochs) in DIST_FIT_TP.items():
+        refs[tag] = fit_record(fit_configs(root, f"{tag}_one", config, bs, epochs),
+                               (1, DIST_WORLD))
+        gc.collect()
+        torch.cuda.empty_cache()
+    return refs
+
+
+def dist_fit_tp_jobs(root: str) -> list:
+    """(f)'s jobs for the two ranks."""
+    return [{"name": f"fit_tp_{tag}", "kind": "fit_mesh", "mesh": [1, DIST_WORLD],
+             "configs": fit_configs(root, f"{tag}_ranks", config, bs, epochs)}
+            for tag, (config, bs, epochs) in DIST_FIT_TP.items()]
+
+
+def dist_hold_fit_tp(results: dict, two: list, fit_tp_one: dict, card: str, out: dict,
+                     failures: list) -> None:
+    """(f): fit with a model axis across the two ranks, bit for bit against
+    the same mesh in one process; launches a rank and in the process."""
+    out["fit_tp"] = {}
+    for tag in DIST_FIT_TP:
+        ranks, one = [r[f"fit_tp_{tag}"] for r in two], fit_tp_one[tag]
+        want_rank, want_one = fit_launches(tag, ranks[0], 1), fit_launches(tag, one, DIST_WORLD)
+        launches_ok = (all(r["launches"] == expected(want_rank) for r in ranks)
+                       and one["launches"] == expected(want_one))
+        same = all(r["state_sha256"] == one["state_sha256"] for r in ranks)
+        hist_same = all(r[k] == one[k] for r in ranks
+                        for k in ("train_loss", "val_loss", "pckh", "step"))
+        ok = launches_ok and same and hist_same and one["step"] > 0 and all(
+            np.isfinite(one["train_loss"]))
+        log(f"dist fit_tp {tag}: fit with (1, 2) across 2 ranks vs in 1 process: states "
+            f"bit-identical {same}, losses/PCKh/steps equal {hist_same} (steps {one['step']}, "
+            f"train loss {one['train_loss']}, val loss {one['val_loss']}, PCKh {one['pckh']}); "
+            f"launches a rank {ranks[0]['launches']} (want {expected(want_rank)}), in 1 process "
+            f"{one['launches']} -> {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(f"fit_tp {tag}")
+        record_launches(results, f"dist_fit_tp_{tag}", ranks[0]["launches"])
+        per_step = [e / max(1, one["step"]) for e in (ranks[0]["epoch_seconds"][0],
+                                                      one["epoch_seconds"][0])]
+        out["fit_tp"][tag] = {
+            "bit_equal": same and hist_same, "step": one["step"],
+            "epoch_seconds_two_ranks": ranks[0]["epoch_seconds"],
+            "epoch_seconds_one_process": one["epoch_seconds"],
+            "dispatch_s_two_ranks": ranks[0]["dispatch_s"],
+            "dispatch_s_one_process": one["dispatch_s"],
+            "launches_rank": ranks[0]["launches"], "launches_one_process": one["launches"]}
+        log(f"dist fit_tp {tag} ({card}): epoch {ranks[0]['epoch_seconds'][0]:.2f} s on 2 ranks "
+            f"(a model shard a rank, gloo, sharing the card) vs {one['epoch_seconds'][0]:.2f} s "
+            f"in 1 process; {per_step[0]:.3f} vs {per_step[1]:.3f} s a step (epoch / steps, "
+            f"the loader included)")
+
+
+
+def dist_fit_mesh(results: dict, root: str, card: str, out: dict, failures: list) -> None:
+    """(g): fit with (2, 2) across four ranks on phase_fit's set."""
+    t0 = time.perf_counter()
+    jobs = [{"name": f"fit_mesh_{tag}", "kind": "fit_mesh", "mesh": [2, 2],
+             "configs": fit_configs(root, f"{tag}_mesh22", config, bs, epochs)}
+            for tag, (config, bs, epochs) in DIST_FIT_MESH.items()]
+    four = dist_spawn(root, "dist4", jobs, world=4)
+    out["wall_s"]["four_ranks"] = time.perf_counter() - t0
+    out["fit_mesh"] = {}
+    for tag in DIST_FIT_MESH:
+        ranks = [r[f"fit_mesh_{tag}"] for r in four]
+        want = expected(fit_launches(tag, ranks[0], 1))
+        same = len({r["state_sha256"] for r in ranks}) == 1
+        hist_same = all(r[k] == ranks[0][k] for r in ranks for k in ("train_loss", "val_loss",
+                                                                     "pckh", "step"))
+        guard = all("the values differ" not in r["log"] for r in four)
+        ok = (same and hist_same and guard and ranks[0]["step"] == 2
+              and all(r["launches"] == want for r in ranks)
+              and all(np.isfinite(ranks[0]["train_loss"])))
+        log(f"dist fit_mesh {tag}: fit with (2, 2) across 4 ranks, {ranks[0]['step']} steps "
+            f"(one an epoch, fit's digest guard after each): final states bit-identical on all "
+            f"four {same}, histories equal {hist_same} (train loss {ranks[0]['train_loss']}, "
+            f"PCKh {ranks[0]['pckh']}); launches a rank {ranks[0]['launches']} (want {want}) "
+            f"-> {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(f"fit_mesh {tag}")
+        record_launches(results, f"dist_fit_mesh22_{tag}", ranks[0]["launches"])
+        out["fit_mesh"][tag] = {"bit_identical": same, "steps": ranks[0]["step"],
+                                "train_loss": ranks[0]["train_loss"],
+                                "epoch_seconds": ranks[0]["epoch_seconds"],
+                                "launches_rank": ranks[0]["launches"]}
+        log(f"dist fit_mesh {tag} ({card}): epochs {ranks[0]['epoch_seconds']} s on 4 ranks "
+            f"sharing the card (wall {out['wall_s']['four_ranks']:.1f} s with the ranks' "
+            "start-up)")
+
+
 def phase_dist(results: dict, root: str, fit_history: dict) -> dict:
     """Multi-process training on the one card (see DIST_WORLD above): (a)
     dinov2-small + LoRA r=8 and (b) fastvit_t8 + LoRA r=8, one step on two
@@ -4093,7 +4495,10 @@ def phase_dist(results: dict, root: str, fit_history: dict) -> dict:
     process (``fit_history``), then an auto-resumed epoch with rank 1
     pretending the checkpoint is absent; (d) dinov2-base + LoRA under
     ('data', 'model') = (1, 2) across two ranks against the one-card tp = 2
-    route, bit for bit; (e) a world of one under NCCL. Launches per rank per
+    route, bit for bit; (e) a world of one under NCCL; (f) fit with a model
+    axis across the two ranks, dinov2-base and fastvit_sa12 + LoRA, bit for
+    bit against the same mesh in one process; (g) fit with (2, 2) across
+    four ranks (DIST_FIT_TP, DIST_FIT_MESH above). Launches per rank per
     step, and wall seconds of each part."""
     from dino_pose_tpu_torch.core.mesh import MeshSpec, create_mesh
     from dino_pose_tpu_torch.ops import dispatch
@@ -4128,6 +4533,7 @@ def phase_dist(results: dict, root: str, fit_history: dict) -> dict:
         card_tp = tp_record(BASE_LORA_CONFIG, DIST_BATCH)
     gc.collect()
     torch.cuda.empty_cache()
+    fit_tp_one = dist_fit_tp_references(root)
     out["wall_s"]["references"] = time.perf_counter() - t0
 
     # The two ranks: (a), (b), (d), then (c) and its resume.
@@ -4152,12 +4558,14 @@ def phase_dist(results: dict, root: str, fit_history: dict) -> dict:
              {"name": "fit", "kind": "fit", "argv": argv["fit"]},
              {"name": "fit_resume", "kind": "fit", "argv": argv["resume"],
               "pretend_no_ckpt": True}]
+    jobs += dist_fit_tp_jobs(root)
     t0 = time.perf_counter()
     two = dist_spawn(root, "dist", jobs)
     out["wall_s"]["two_ranks"] = time.perf_counter() - t0
     for tag in refs:
         out["wall_s"][tag] = two[0][tag]["wall_s"]
-    for name in ("dinov2_base_lora_tp2", "fit", "fit_resume"):
+    for name in ("dinov2_base_lora_tp2", "fit", "fit_resume",
+                 *(f"fit_tp_{tag}" for tag in DIST_FIT_TP)):
         out["wall_s"][name] = two[0][name]["wall_s"]
 
     # (a), (b)
@@ -4265,6 +4673,10 @@ def phase_dist(results: dict, root: str, fit_history: dict) -> dict:
                   "launches": fit[0]["launches"]}
     log(f"dist fit ({card}): epoch s {fit[0]['epoch_seconds']} on 2 ranks sharing the card, "
         f"{one_fit['epoch_seconds']} in 1 process (phase_fit)")
+
+    # (f) and (g).
+    dist_hold_fit_tp(results, two, fit_tp_one, card, out, failures)
+    dist_fit_mesh(results, root, card, out, failures)
 
     # (e): NCCL, a world of one.
     t0 = time.perf_counter()
@@ -4655,6 +5067,7 @@ def main() -> int:
     train_t8_pair: dict = {}
     serving_base_tp: dict = {}
     train_base_tp: dict = {}
+    fastvit_tp: dict = {"serving_t8": {}, "serving_sa12": {}, "train_t8": {}, "train_sa12": {}}
     serving_ln: dict = {}
     lora_ln: dict = {}
     serving_pre: dict = {}
@@ -4788,6 +5201,41 @@ def main() -> int:
         f"{serving_base_tp['b1_latency_ms_p50']:.3f} ms, b8 images/s "
         f"{serving_base['b8_images_per_s']:.2f} / {serving_base_tp['b8_images_per_s']:.2f}")
     mark("dinov2-base 224², tp")
+    phase_fastvit_tp_kernels(results)
+    sa12_tp_recorded = ("fused_convffn", "fused_convffn_bwd", "flash_fwd", "flash_bwd")
+    with dispatch.scoped():
+        create_mesh(MeshSpec(1, TP))
+        phase_serving(results, fastvit_tp["serving_t8"], "serving_fastvit_t8_tp2",
+                      per_forward_launches=T8_TP_SERVING, n_lat=10, n_batches=4, fwd_iters=10,
+                      config=T8_CONFIG, recorded=("fused_convffn",))
+        phase_serving(results, fastvit_tp["serving_sa12"], "serving_fastvit_sa12_tp2",
+                      per_forward_launches=SA12_TP_SERVING, n_lat=10, n_batches=4, fwd_iters=10,
+                      config=SA12_LORA_CONFIG, recorded=FASTVIT_SERVING_RECORDED)
+        phase_train(results, fastvit_tp["train_t8"], "fastvit_t8_lora_tp2", T8_CONFIG,
+                    T8_TP_TRAIN, FASTVIT_GRAD_NAMES, ("fused_convffn", "fused_convffn_bwd"),
+                    batch_size=T8_TRAIN_BATCH, image_size=FASTVIT_IMAGE, steps=2, timed=3)
+        phase_train(results, fastvit_tp["train_sa12"], "fastvit_sa12_lora_tp2", SA12_LORA_CONFIG,
+                    SA12_TP_TRAIN, FASTVIT_GRAD_NAMES, sa12_tp_recorded,
+                    batch_size=SA12_TRAIN_BATCH, image_size=FASTVIT_IMAGE, steps=2, timed=3)
+    for key, tag, config, bs in (("one_card_t8", "fastvit_t8_lora_tp2", T8_CONFIG,
+                                  T8_TRAIN_BATCH),
+                                 ("one_card_sa12", "fastvit_sa12_lora_tp2", SA12_LORA_CONFIG,
+                                  SA12_TRAIN_BATCH)):
+        fastvit_tp[key] = phase_fastvit_tp_one_card(tag, config, bs)
+    log(f"fastvit under (1, 2) on one card: every ConvFFN {TP} fused_convffn launches a layer "
+        f"(t8 {T8_TP_SERVING['fused_convffn']} a forward for 10 layers, sa12 "
+        f"{SA12_TP_SERVING['fused_convffn']} for 12), each attention block {TP} flash launches")
+    log("fastvit + LoRA step ms (this card, kernels / plain): t8 bs=128 one card "
+        f"{train_t8['step_ms_kernels']:.3f} / {train_t8['step_ms_plain']:.3f}, tp=2 "
+        f"{fastvit_tp['train_t8']['step_ms_kernels']:.3f} / "
+        f"{fastvit_tp['train_t8']['step_ms_plain']:.3f}; sa12 bs=32 one card "
+        f"{train_sa12['step_ms_kernels']:.3f} / {train_sa12['step_ms_plain']:.3f}, tp=2 "
+        f"{fastvit_tp['train_sa12']['step_ms_kernels']:.3f} / "
+        f"{fastvit_tp['train_sa12']['step_ms_plain']:.3f}; serving b1 p50 t8 "
+        f"{serving_t8['b1_latency_ms_p50']:.3f} / tp=2 "
+        f"{fastvit_tp['serving_t8']['b1_latency_ms_p50']:.3f} ms")
+    mlp_heads = phase_mlp_heads(results)
+    mark("fastvit tp, mlp heads")
     ln_times = phase_layernorm(results)
     with gates(LN_GATE):
         phase_serving(results, serving_ln, "serving_ln", per_forward_launches=SERVING_LN_LAUNCHES)
@@ -4955,6 +5403,7 @@ def main() -> int:
                        "training_fastvit_t8_lora_pair": train_t8_pair, "tp": tp_times,
                        "serving_dinov2_base_tp2": serving_base_tp,
                        "training_dinov2_base_lora_tp2": train_base_tp,
+                       "fastvit_tp2": fastvit_tp, "mlp_heads": mlp_heads,
                        "layernorm": ln_times["cases"], "serving_ln": serving_ln,
                        "training_lora_ln": lora_ln, "ln_wide": ln_wide,
                        "pretrained": pretrained, "serving_pretrained": serving_pre,

@@ -168,6 +168,33 @@ def is_primary() -> bool:
     return rank() == 0
 
 
+def _local_processes(env: Mapping[str, str]) -> int:
+    """The processes this launch runs on this host: torchrun's
+    ``LOCAL_WORLD_SIZE``, SLURM's tasks a node, else one (JAX's contract:
+    one process a host)."""
+    for name in ("LOCAL_WORLD_SIZE", "SLURM_NTASKS_PER_NODE"):
+        digits = (env.get(name) or "").split("(")[0]
+        if digits.isdigit():
+            return int(digits)
+    return 1
+
+
+def unused_cards_warning(device: str | torch.device,
+                         env: Mapping[str, str] | None = None) -> str | None:
+    """One line of warning where this host shows more CUDA devices than its
+    launch runs processes (a process trains on one card), else None."""
+    env = os.environ if env is None else env
+    visible, local = torch.cuda.device_count(), _local_processes(env)
+    if visible <= local:
+        return None
+    return (f"Warning: {visible} CUDA devices are visible and this host runs {local} "
+            f"process{'es' if local > 1 else ''} of the launch; this process trains on "
+            f"{device} alone (the port runs one process a card). To train on every card, "
+            f"launch one process per card: torchrun --nproc_per_node={visible} -m "
+            "dino_pose_tpu_torch.cli.train --config_file <file> (or one JAX_PROCESS_ID "
+            "or SLURM task per card, each with its LOCAL_RANK).")
+
+
 def collective_device() -> torch.device:
     """Where this group's collectives take their tensors: the current card
     under NCCL, the host under gloo."""
@@ -223,10 +250,23 @@ def state_description(model: torch.nn.Module, optimizer: torch.optim.Optimizer |
     return ";".join(parts)
 
 
-def check_same_structure(description: str, what: str) -> None:
+def values_digest(model: torch.nn.Module) -> str:
+    """A digest of the values of ``model``'s trainable parameters and
+    floating buffers (the BatchNorm running statistics): what a train step
+    changes."""
+    h = hashlib.sha256()
+    tensors = [p for p in model.parameters() if p.requires_grad]
+    tensors += [b for b in model.buffers() if b.is_floating_point()]
+    for t in tensors:
+        h.update(t.detach().float().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def check_same_structure(description: str, what: str, noun: str = "structure") -> None:
     """Raise on every rank unless ``description`` is the same on all of
     them: the primary's digest is broadcast, each rank compares, and a
-    mismatch flag is all-reduced. Nothing without a group."""
+    mismatch flag is all-reduced. Nothing without a group. ``noun`` names
+    what the description describes, in the error."""
     if not is_initialized():
         return
     mine = int.from_bytes(hashlib.sha256(description.encode()).digest()[:7], "little")
@@ -236,7 +276,7 @@ def check_same_structure(description: str, what: str) -> None:
     flag = torch.tensor([int(digest.item() != mine)], dtype=torch.int64, device=dev)
     dist.all_reduce(flag)
     if flag.item():
-        raise RuntimeError(f"{what}: the structure differs across processes")
+        raise RuntimeError(f"{what}: the {noun} differs across processes")
 
 
 def broadcast_state(model: torch.nn.Module, optimizer: torch.optim.Optimizer | None = None,

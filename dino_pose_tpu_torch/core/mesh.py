@@ -2,7 +2,10 @@
 
 The JAX package shards the batch over the mesh's ``'data'`` axis and
 attention heads and MLP hidden units over its ``'model'`` axis (Megatron
-layout, one ``psum`` per half, ``ops/block.attn_part_tp``/``mlp_part_tp``).
+layout, one ``psum`` per half): dinov2's blocks through
+``ops/block.attn_part_tp``/``mlp_part_tp``, FastViT's ConvFFN hidden units
+and attention heads through ``models/fastvit.ConvFFN._tp_rows`` and
+``SpatialAttention._tp`` (cut along ``core/sharding.fastvit_dims``).
 
 In one process (no ``torch.distributed`` group, or a world of one) every
 shard of the model axis lives on the one card: each shard's kernel launches

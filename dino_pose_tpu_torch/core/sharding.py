@@ -17,11 +17,15 @@ anchored to encoder blocks: the heads' own linears stay replicated.
 ``ops/block.shard_attn``/``shard_mlp`` cut the blocks' shards along
 :func:`vit_block_dims`, read from this table.
 
-FastViT: the ConvFFN's 1x1 convs (fc1's output channels, fc2's input
-channels) and the attention stages' qkv/proj. The table is ported and held
-against JAX's, but no FastViT shard runs across ranks yet (JAX's FastViT
-split is a layout for XLA's collectives over the same math); ``fit``
-trains FastViT data-parallel.
+FastViT: the ConvFFN's 1x1 convs (fc1's output channels and bias, fc2's
+input channels) and the attention stages' qkv/proj. ``models/fastvit.py``
+cuts its shards along :func:`fastvit_dims`, read from this table, wherever
+the recorded mesh has a model axis (in one process and across ranks, in
+``fit`` too): each ConvFFN's hidden units, with fc1's LoRA B columns and
+fc2's LoRA A rows beside them, and each attention stage's heads. JAX's
+rule splits the *packed* qkv columns into contiguous blocks (shard 0 holds
+q and half of k, a layout XLA reshards); the port cuts q, k and v each by
+heads, the same function.
 """
 
 from __future__ import annotations
@@ -95,3 +99,15 @@ def vit_block_dims() -> dict[str, int]:
             "out": "attention.output.dense.weight", "fc1": "mlp.fc1.weight",
             "fc1_bias": "mlp.fc1.bias", "fc2": "mlp.fc2.weight"}
     return {role: rule_dim(VIT_TP_RULES, p + k) for role, k in keys.items()}
+
+
+def fastvit_dims() -> dict[str, int]:
+    """The dims, in torch's layouts, along which FastViT's shards are cut,
+    as :data:`FASTVIT_TP_RULES` gives them: ``fc1`` (the 1x1 conv weight,
+    (out, in, 1, 1)), ``fc1_bias``, ``fc2``, ``qkv`` (the (3C, C) linear
+    weight; cut per q, k and v) and ``proj``. fc1's LoRA B is cut with
+    fc1's dim and fc2's LoRA A with fc2's."""
+    p = "stages.3.blocks.0."
+    keys = {"fc1": "mlp.fc1.weight", "fc1_bias": "mlp.fc1.bias", "fc2": "mlp.fc2.weight",
+            "qkv": "token_mixer.qkv.weight", "proj": "token_mixer.proj.weight"}
+    return {role: rule_dim(FASTVIT_TP_RULES, p + k) for role, k in keys.items()}

@@ -176,18 +176,55 @@ def spatial_heads_rules(num_up_stages: int = 2, z_hidden_count: int = 3,
         Rule(("params",) + hm + ("pred_out", "kernel"), f"{thm}prediction.3.weight", "conv"),
         Rule(("params",) + hm + ("pred_out", "bias"), f"{thm}prediction.3.bias"),
     ]
-    z = ("pose_heads", "z_head")
-    tz = f"{torch_prefix}z_head.mlp."
-    for j in range(z_hidden_count):
+    return rules + _z_head_rules(("pose_heads", "z_head"), f"{torch_prefix}z_head.mlp.",
+                                 z_hidden_count)
+
+
+def _z_head_rules(z: tuple[str, ...], tz: str, hidden_count: int) -> list[Rule]:
+    """``ZCoordinateHead``: JAX ``fc{j}``/``out`` vs the Sequential's
+    ``mlp.{3j}``/``mlp.{3n}`` (Linear, ReLU, Dropout per hidden layer)."""
+    rules: list[Rule] = []
+    for j in range(hidden_count):
         rules += [
             Rule(("params",) + z + (f"fc{j}", "kernel"), f"{tz}{3 * j}.weight", "linear"),
             Rule(("params",) + z + (f"fc{j}", "bias"), f"{tz}{3 * j}.bias"),
         ]
     rules += [
-        Rule(("params",) + z + ("out", "kernel"), f"{tz}{3 * z_hidden_count}.weight", "linear"),
-        Rule(("params",) + z + ("out", "bias"), f"{tz}{3 * z_hidden_count}.bias"),
+        Rule(("params",) + z + ("out", "kernel"), f"{tz}{3 * hidden_count}.weight", "linear"),
+        Rule(("params",) + z + ("out", "bias"), f"{tz}{3 * hidden_count}.bias"),
     ]
     return rules
+
+
+def heatmap_head_rules(num_up: int, adjust: bool, jax_base: tuple[str, ...] = (),
+                       torch_prefix: str = "") -> list[Rule]:
+    """The MLP variant's ``HeatmapHead`` (JAX ``proj0..2``, ``up{j}`` with
+    its flipped transposed-conv kernel, ``adjust``, ``pred``) vs the port's
+    modules of the same names (``up.{j}``, each deconv + BN + ReLU)."""
+    rules: list[Rule] = []
+    for j in range(3):
+        rules += [
+            Rule(("params",) + jax_base + (f"proj{j}", "kernel"), f"{torch_prefix}proj{j}.weight",
+                 "linear"),
+            Rule(("params",) + jax_base + (f"proj{j}", "bias"), f"{torch_prefix}proj{j}.bias"),
+        ]
+    for j in range(num_up):
+        rules += _conv_bn_rules(jax_base + (f"up{j}",), f"{torch_prefix}up.{j}.0",
+                                f"{torch_prefix}up.{j}.1", deconv=True)
+    if adjust:
+        rules += _conv_bn_rules(jax_base + ("adjust",), f"{torch_prefix}adjust.0",
+                                f"{torch_prefix}adjust.1")
+    return rules + [
+        Rule(("params",) + jax_base + ("pred", "kernel"), f"{torch_prefix}pred.weight", "conv"),
+        Rule(("params",) + jax_base + ("pred", "bias"), f"{torch_prefix}pred.bias"),
+    ]
+
+
+def pose_heads_rules(num_up: int, adjust: bool) -> list[Rule]:
+    """The MLP variant's ``PoseHeads``: ``heatmap_head`` and the z head's
+    two hidden layers."""
+    return (heatmap_head_rules(num_up, adjust, ("heatmap_head",), "heatmap_head.")
+            + _z_head_rules(("z_head",), "z_head.mlp.", 2))
 
 
 def dinov2_pose_rules(
@@ -332,12 +369,18 @@ def _flatten(tree: Mapping, prefix: tuple[str, ...] = ()) -> dict[tuple[str, ...
 
 def state_dict_from_jax(variables: Mapping, model) -> dict[str, torch.Tensor]:
     """Render the JAX variables of a pose model into the port's
-    ``state_dict`` for ``model`` (a ``DinoPoseModule`` or a
-    ``FastVitPoseModule``). Every key of the model is produced, BatchNorm
-    ``num_batches_tracked`` as 0."""
+    ``state_dict`` for ``model`` (a ``DinoPoseModule``, a
+    ``FastVitPoseModule``, or the MLP variant's ``PoseHeads`` or
+    ``HeatmapHead`` alone, from that module's own variables). Every key of
+    the model is produced, BatchNorm ``num_batches_tracked`` as 0."""
     if hasattr(model, "vit"):
         num_up = len(model.pose_heads.heatmap_head.upsampling)
         rules = dinov2_pose_rules(model.vit.num_layers, model.vit.lora_layers, num_up)
+    elif hasattr(model, "proj0"):
+        rules = heatmap_head_rules(len(model.up), model.adjust is not None)
+    elif hasattr(getattr(model, "heatmap_head", None), "proj0"):
+        head = model.heatmap_head
+        rules = pose_heads_rules(len(head.up), head.adjust is not None)
     else:
         rules = fastvit_pose_rules(model.cfg, len(model.backbone.head.heatmap_head.upsampling))
     flat = _flatten(variables)

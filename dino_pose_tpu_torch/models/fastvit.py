@@ -59,6 +59,37 @@ do at every size. SpatialAttention calls ``ops/attention.attention`` (the
 flash kernels on the card). ``kernels=False`` runs the plain versions of
 both.
 
+Under a mesh whose ``'model'`` axis holds tp > 1 shards
+(``core/mesh.create_mesh``, read at call time from
+``ops/dispatch.target_mesh``; in one process every shard on the one card,
+across ranks one a rank), the layers that ``core/sharding.FASTVIT_TP_RULES``
+splits run as Megatron shards, cut along ``core/sharding.fastvit_dims``:
+
+- each ConvFFN (``ConvFFN._tp_rows``): shard r takes hidden units
+  [r*H/tp, (r+1)*H/tp): fc1's output channels and bias and fc1's LoRA B
+  columns, fc2's input rows and fc2's LoRA A rows; the BatchNorm affine,
+  fc1's LoRA A, fc2's LoRA B and the dropout masks in full. It runs the
+  ConvFFN kernels on its cut with a zero fc2 bias; the partials are summed
+  by ``Mesh.all_reduce`` (f32, one rounding) and fc2's bias added once.
+  The sum is linear in the hidden units, fc2's LoRA term included, so it
+  is the unsplit function. The stage-pair arm keeps its combine + depthwise
+  pair replicated and adds the residual and the LayerScaled bias once,
+  after the sum (``fused_convffn_res`` runs on no shard);
+- each SpatialAttention (``SpatialAttention._tp``): shard r takes heads
+  [r*nh/tp, (r+1)*nh/tp), its rows of q, k and v out of the packed qkv
+  (or of the folded wqkv/bqkv) and the matching input rows of proj, runs
+  the attention on its heads and projects; the partial projections are
+  all-reduced and proj's bias added once. JAX's rule splits the packed 3C
+  columns into contiguous blocks instead, which are not head-aligned (XLA
+  reshards them); the port cuts q, k and v by heads, the same function.
+
+A width the split does not divide runs replicated, as JAX's any-mesh
+fallback does. The replicated operands and the LoRA matrices reach each
+shard through ``Mesh.replicate``, so their gradients arrive summed over
+the model axis. The frozen cuts are cached beside the copies they come from.
+JAX's ``fit`` leaves FastViT's state replicated under a model axis; the
+port splits it wherever the mesh has one, the same function.
+
 The backbone runs in ``torch.channels_last``: a conv's NCHW output is then
 (B, H, W, C) in memory, and the ConvFFN kernels and the attention read it as
 (B, H*W, C) rows without a copy.
@@ -90,12 +121,14 @@ when unset; ``ops/dwconv.py`` for ``on`` and ``force``):
 from __future__ import annotations
 
 import dataclasses
+from typing import Any, Callable
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from dino_pose_tpu_torch.core import distributed
+from dino_pose_tpu_torch.core.sharding import fastvit_dims
 from dino_pose_tpu_torch.models.fastvit_fold import (
     apply_folded,
     block_fold_active,
@@ -127,9 +160,41 @@ from dino_pose_tpu_torch.ops.convffn import (
     convffn_train,
     fused_convffn,
 )
+from dino_pose_tpu_torch.ops.dispatch import target_mesh
 from dino_pose_tpu_torch.ops.dwconv import combine_dw_frozen, pair_enabled
 
 _VIEW = (1, -1, 1, 1)  # a per-channel vector against NCHW
+
+
+def _model_mesh(n: int):
+    """The recorded mesh where its model axis splits ``n`` units (tp > 1
+    and dividing ``n``), else None: a width the split does not divide runs
+    replicated (JAX's any-mesh fallback)."""
+    mesh = target_mesh()
+    if mesh is None or mesh.tp == 1 or n % mesh.tp:
+        return None
+    return mesh
+
+
+def _shard(t: torch.Tensor, dim: int, tp: int, r: int) -> torch.Tensor:
+    """Block ``r`` of ``tp`` equal blocks of ``t`` along ``dim``, as a
+    contiguous tensor of its own (aligned for the kernels), with autograd."""
+    n = t.shape[dim] // tp
+    return t.narrow(dim, r * n, n).clone(memory_format=torch.contiguous_format)
+
+
+def _tp_cached(owner: nn.Module, base: tuple, mesh, build: Callable[[], Any]) -> Any:
+    """``build()``, cached on ``owner`` beside the tensors of ``base`` (by
+    identity: the cached copies it cuts), the mesh's ``tp`` and its local
+    model shards; built without autograd."""
+    key = (mesh.tp, tuple(mesh.local_model_ranks))
+    hit = getattr(owner, "_tp_cache", None)
+    if (hit is None or hit[1] != key or len(hit[0]) != len(base)
+            or any(a is not b for a, b in zip(hit[0], base))):
+        with torch.inference_mode(False), torch.no_grad():
+            hit = (tuple(base), key, build())
+        owner._tp_cache = hit
+    return hit[2]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -570,7 +635,8 @@ class ConvFFN(nn.Module):
     fastvit.py:681-683) with the ConvLoRA Dropout2d masks bernoulli(keep)/keep
     per (sample, rank) (fastvit.py:585-595). Eval under grad with a
     trainable adapter is refused. ``pair_forward`` is the stage-pair arm's
-    block (fastvit.py:626-655)."""
+    block (fastvit.py:626-655). Under a model axis that divides H, the
+    kernel part runs as ``tp`` shards (``_tp_rows``)."""
 
     def __init__(self, c: int, hidden: int, lora_rank: int = 0, lora_alpha: float = 16.0,
                  lora_dropout: float = 0.0):
@@ -640,6 +706,39 @@ class ConvFFN(nn.Module):
             m1 = m2 = torch.ones((b, r), dtype=torch.float32, device=dev)
         return ConvFFNParams(inv, shift, *base, *adapters, m1, m2)
 
+    def _tp_rows(self, rows: torch.Tensor, p: ConvFFNParams, mesh, kernels: bool,
+                 train: bool) -> torch.Tensor:
+        """The ConvFFN past its depthwise conv over ``mesh``'s model axis:
+        each local shard r runs the ConvFFN kernels (``convffn_train`` in
+        training, else ``fused_convffn``; ``kernels=False`` their plain
+        versions) on hidden units [r*H/tp, (r+1)*H/tp): fc1's output
+        channels, its bias and its LoRA B columns, fc2's input rows and its
+        LoRA A rows, fc2's bias zero; the BatchNorm affine, fc1's LoRA A,
+        fc2's LoRA B and the masks in full. The frozen cuts come from the
+        cached copies in ``p`` (``_tp_cached``); the LoRA matrices are cut
+        from ``Mesh.replicate`` of the replicated tensor under autograd, so
+        each adapter's gradient arrives summed over the model axis once. The
+        partials are summed by ``Mesh.all_reduce`` (f32, one rounding), then
+        fc2's bias ``p.b2`` is added once, in the rows' dtype."""
+        tp, dims = mesh.tp, fastvit_dims()
+        ranks = mesh.local_model_ranks
+        cuts = _tp_cached(self, (p.w1, p.b1, p.w2, p.b2), mesh, lambda: [
+            (_shard(p.w1, 1 - dims["fc1"], tp, r), _shard(p.b1, dims["fc1_bias"], tp, r),
+             _shard(p.w2, 1 - dims["fc2"], tp, r), torch.zeros_like(p.b2)) for r in ranks])
+        rep = [mesh.replicate(t) for t in (rows, p.inv, p.shift, p.a1, p.b1l, p.a2, p.b2l)]
+        parts = []
+        for i, r in enumerate(ranks):
+            y, inv, shift, a1, b1l, a2, b2l = (t[i] for t in rep)
+            ps = ConvFFNParams(inv, shift, *cuts[i], a1, _shard(b1l, 1 - dims["fc1"], tp, r),
+                               _shard(a2, 1 - dims["fc2"], tp, r), b2l, p.m1, p.m2)
+            if train:
+                parts.append(convffn_train(y, ps, self.s_lora, kernels=kernels))
+            elif kernels:
+                parts.append(fused_convffn(y, ps, self.s_lora))
+            else:
+                parts.append(convffn_math(y, ps, self.s_lora))
+        return mesh.all_reduce(parts) + p.b2.to(rows.dtype)
+
     def forward(self, x: torch.Tensor, kernels: bool = True,
                 generator: torch.Generator | None = None) -> torch.Tensor:
         if self.training:
@@ -665,7 +764,10 @@ class ConvFFN(nn.Module):
             p = p._replace(m1=ones, m2=ones)  # eval: no ConvLoRA dropout
         b, c, hh, ww = y.shape
         rows = y.permute(0, 2, 3, 1).reshape(b, hh * ww, c)  # a view under channels_last
-        if self.training:
+        mesh = _model_mesh(self.hidden)
+        if mesh is not None:
+            out = self._tp_rows(rows.contiguous(), p, mesh, kernels, self.training)
+        elif self.training:
             out = convffn_train(rows, p, self.s_lora, kernels=kernels)
         elif kernels:
             out = fused_convffn(rows.contiguous(), p, self.s_lora)
@@ -682,7 +784,13 @@ class ConvFFN(nn.Module):
         ``combine_dw_frozen`` gives x2 and y7 = dw7(x2) (f32 taps), y7's batch
         statistics give the BatchNorm affine, and ``convffn_res_train`` adds
         the residual x2 to the ConvFFN with LayerScale folded into w2, b2
-        and b2l."""
+        and b2l. Under a model axis that divides H the combine + depthwise
+        pair stays replicated (it is spatial, and JAX's rules replicate it);
+        the ConvFFN runs as ``_tp_rows``' shards with LayerScale folded into
+        each shard's fc2 cut and LoRA B, and the residual x2 and the
+        LayerScaled fc2 bias are added once, after the all-reduce:
+        ``fused_convffn_res`` runs on no shard, since a residual on every
+        shard would count it tp times."""
         a, bvec, bias, y0 = combine
         x2, y7 = combine_dw_frozen(x.permute(0, 2, 3, 1), y0.permute(0, 2, 3, 1), a, bvec, bias,
                                    self.conv.conv.weight.permute(2, 3, 1, 0), kernels=kernels)
@@ -690,8 +798,13 @@ class ConvFFN(nn.Module):
         mean, var, n = branch_stats(y7.permute(0, 3, 1, 2))
         inv, shift = bn_train_affine(self.conv.bn, mean, var, n)
         p = self._live_params(inv, shift, b, x.dtype, generator, ls2=ls2)
-        out = convffn_res_train(y7.reshape(b, hh * ww, c), x2.reshape(b, hh * ww, c), p,
-                                self.s_lora, kernels=kernels)
+        mesh = _model_mesh(self.hidden)
+        if mesh is not None:
+            out = (self._tp_rows(y7.reshape(b, hh * ww, c), p, mesh, kernels, True)
+                   + x2.reshape(b, hh * ww, c))
+        else:
+            out = convffn_res_train(y7.reshape(b, hh * ww, c), x2.reshape(b, hh * ww, c), p,
+                                    self.s_lora, kernels=kernels)
         # The block output in its input's layout: the train-mode reuse forms
         # leave NCHW-contiguous tensors, and a channels_last one would send
         # every depthwise conv after it to cuDNN's grouped kernels.
@@ -709,7 +822,8 @@ class SpatialAttention(nn.Module):
     ``TRAIN_FFN=fold`` from x's one-pass ``channel_moments``. Otherwise (JAX's
     train default, and eval under ``FASTVIT_FOLD=0``) it normalises first, on
     batch or running statistics, then qkv and proj run as layers
-    (fastvit.py:841-853)."""
+    (fastvit.py:841-853). Under a model axis that divides the heads, the
+    heads run as ``tp`` shards (``_tp``)."""
 
     def __init__(self, c: int, head_dim: int):
         super().__init__()
@@ -728,32 +842,79 @@ class SpatialAttention(nn.Module):
         return (wqkv.contiguous(), bqkv,
                 self.proj.weight.t().to(dtype).contiguous(), self.proj.bias.to(dtype))
 
-    def forward(self, x: torch.Tensor, norm: nn.BatchNorm2d, kernels: bool = True) -> torch.Tensor:
-        b, c, hh, ww = x.shape
-        s, nh = hh * ww, self.num_heads
-
-        def rows(t: torch.Tensor) -> torch.Tensor:
-            return t.permute(0, 2, 3, 1).reshape(b, s, c)
-
-        wproj = None
-        if self.training and ffn_fold_active(True):
-            mx, m2x, n = channel_moments(x)
-            wqkv, bqkv = self._qkv_fold(*bn_train_affine(norm, mx, m2x - mx.square(), n),
-                                        x.dtype)
-            qkv = rows(x) @ wqkv + bqkv
-        elif self.training or not fold_enabled():
-            bn = L.batch_norm_train if self.training else L.batch_norm_eval
-            qkv = L.dense(rows(bn(x, norm)), self.qkv)
-        else:
-            wqkv, bqkv, wproj, bproj = cached_fold(
-                self, x.dtype, lambda dt: self._fold(norm, dt), norm)
-            qkv = rows(x) @ wqkv + bqkv
+    def _heads(self, qkv: torch.Tensor, nh: int, kernels: bool) -> torch.Tensor:
+        """Attention over the packed (B, S, 3c) q|k|v rows of ``nh`` heads:
+        the (B, S, c) context."""
+        b, s, c = qkv.shape[0], qkv.shape[1], qkv.shape[2] // 3
         q, k, v = (t.reshape(b, s, nh, c // nh).transpose(1, 2).contiguous()
                    for t in qkv.split(c, dim=-1))
         scale = self.head_dim ** -0.5
         o = attention(q, k, v, scale) if kernels else plain_attention(q, k, v, scale)
-        o = o.transpose(1, 2).reshape(b, s, c)
-        o = L.dense(o, self.proj) if wproj is None else o @ wproj + bproj
+        return o.transpose(1, 2).reshape(b, s, c)
+
+    @staticmethod
+    def _cut(wqkv: torch.Tensor, bqkv: torch.Tensor | None, wproj: torch.Tensor, tp: int,
+             r: int) -> tuple:
+        """Shard ``r``'s heads of the (in, out) matrices: its rows of q, k and
+        v out of the packed qkv columns (and of ``bqkv``), each cut along
+        qkv's output features, and proj's matching input rows
+        (``core/sharding.fastvit_dims``)."""
+        dims, c = fastvit_dims(), wproj.shape[0]
+        wq = torch.cat([_shard(t, 1 - dims["qkv"], tp, r) for t in wqkv.split(c, dim=1)], dim=1)
+        bq = None if bqkv is None else torch.cat(
+            [_shard(t, dims["qkv"], tp, r) for t in bqkv.split(c)])
+        return wq, bq, _shard(wproj, 1 - dims["proj"], tp, r)
+
+    def _tp(self, inp: torch.Tensor, mats: tuple, mesh, kernels: bool,
+            cached: bool) -> torch.Tensor:
+        """The attention over ``mesh``'s model axis, without proj's bias:
+        each local shard r takes heads [r*nh/tp, (r+1)*nh/tp) (``_cut`` of
+        ``mats`` = (wqkv, bqkv, wproj), cached beside the eval fold when
+        ``cached``, else cut from ``Mesh.replicate`` of each under
+        autograd), projects its context by its rows of proj, and the
+        partial projections are summed by ``Mesh.all_reduce`` (f32, one
+        rounding)."""
+        tp, ranks = mesh.tp, mesh.local_model_ranks
+        if cached:
+            cuts = _tp_cached(self, mats, mesh, lambda: [self._cut(*mats, tp, r) for r in ranks])
+        else:
+            rep = [[None] * len(ranks) if t is None else mesh.replicate(t) for t in mats]
+            cuts = [self._cut(*(t[i] for t in rep), tp, r) for i, r in enumerate(ranks)]
+        parts = []
+        for x, (wq, bq, wp) in zip(mesh.replicate(inp), cuts):
+            qkv = x @ wq if bq is None else x @ wq + bq
+            parts.append(self._heads(qkv, self.num_heads // tp, kernels) @ wp)
+        return mesh.all_reduce(parts)
+
+    def forward(self, x: torch.Tensor, norm: nn.BatchNorm2d, kernels: bool = True) -> torch.Tensor:
+        b, c, hh, ww = x.shape
+        s = hh * ww
+
+        def rows(t: torch.Tensor) -> torch.Tensor:
+            return t.permute(0, 2, 3, 1).reshape(b, s, c)
+
+        # (in, out) matrices in x's dtype, as nn/layers.dense applies them.
+        cached = not self.training and fold_enabled()
+        if cached:
+            wqkv, bqkv, wproj, bproj = cached_fold(
+                self, x.dtype, lambda dt: self._fold(norm, dt), norm)
+            inp = rows(x)
+        else:
+            wproj, bproj = self.proj.weight.t().to(x.dtype), self.proj.bias.to(x.dtype)
+            if self.training and ffn_fold_active(True):
+                mx, m2x, n = channel_moments(x)
+                wqkv, bqkv = self._qkv_fold(*bn_train_affine(norm, mx, m2x - mx.square(), n),
+                                            x.dtype)
+                inp = rows(x)
+            else:
+                bn = L.batch_norm_train if self.training else L.batch_norm_eval
+                inp, wqkv, bqkv = rows(bn(x, norm)), self.qkv.weight.t().to(x.dtype), None
+        mesh = _model_mesh(self.num_heads)
+        if mesh is not None:
+            o = self._tp(inp, (wqkv, bqkv, wproj), mesh, kernels, cached) + bproj
+        else:
+            qkv = inp @ wqkv if bqkv is None else inp @ wqkv + bqkv
+            o = self._heads(qkv, self.num_heads, kernels) @ wproj + bproj
         return o.view(b, hh, ww, c).permute(0, 3, 1, 2)
 
 

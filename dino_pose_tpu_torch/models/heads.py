@@ -1,5 +1,7 @@
-"""Spatial-aware pose heads: per-keypoint 48x48 heatmaps + scalar z
-(counterpart of dino_pose_tpu/models/heads.py, ``SpatialAwarePoseHeads``).
+"""Pose heads: per-keypoint 48x48 heatmaps + scalar z (counterpart of
+dino_pose_tpu/models/heads.py): ``SpatialAwarePoseHeads``, which both pose
+models use, and the MLP variant ``HeatmapHead``/``PoseHeads``, which no
+model uses (JAX keeps it for API completeness, and so does the port).
 
 Module trees follow the reference torch Sequential index naming
 (``heatmap_head.feature_refine.0`` ... ``z_head.mlp.9``), so reference-schema
@@ -9,8 +11,10 @@ BatchNorm uses batch statistics and updates its running ones, and the z
 head's dropout draws from the generator passed to ``forward``. Activations
 are NCHW.
 
-The MLP-variant heads (``HeatmapHead``/``PoseHeads``), which no model of the
-repo uses, are not ported yet.
+The MLP variant's torch key names are not in the repo (no model carries
+it); its modules are named after JAX's (``proj0``..``proj2``, ``up{j}``,
+``adjust``, ``pred``; ``io/convert.pose_heads_rules``), with the z head's
+Sequential as the spatial variant's.
 """
 
 from __future__ import annotations
@@ -97,6 +101,20 @@ class HourglassModule(nn.Module):
         b = torch.relu(run(self.bottleneck, d2) + d2)
         u2 = run(self.up2, run(self.up1, b))
         return u2 + skip + dw
+
+
+def adaptive_avg_pool(x: torch.Tensor, target: int) -> torch.Tensor:
+    """torch ``AdaptiveAvgPool2d(target)`` on NCHW as JAX computes it
+    (heads.py:129-141): two averaging matrices in x.dtype over windows
+    [floor(i*s/t), ceil((i+1)*s/t)), H then W."""
+    s = x.shape[-1]
+    m = torch.zeros((target, s), dtype=torch.float32)
+    for i in range(target):
+        lo, hi = (i * s) // target, -(-((i + 1) * s) // target)
+        m[i, lo:hi] = 1.0 / (hi - lo)
+    m = m.to(x.device, x.dtype)
+    x = torch.einsum("ts,bcsw->bctw", m, x)
+    return torch.einsum("ts,bchs->bcht", m, x)
 
 
 def upsampling_plan(spatial_input_size: int, heatmap_size: int) -> list[tuple[int, int]]:
@@ -201,3 +219,70 @@ class SpatialAwarePoseHeads(nn.Module):
         heatmaps = self.heatmap_head(fmap, spatial_input_size)
         z = self.z_head(fmap.mean(dim=(2, 3)), generator)
         return heatmaps, z
+
+
+class HeatmapHead(nn.Module):
+    """The MLP variant's heatmap head (heads.py:233-276): a vector in, three
+    ``Dense`` projections (2048, 1024, s*s*c; ReLU, dropout 0.1 after the
+    first two) reshaped as torch does to an NCHW (B, c, s, s) map, a chain
+    of stride-2 3x3 transposed convs (BatchNorm, ReLU) that doubles it past
+    ``heatmap_size`` (the reference's channel loop), then where it
+    overshoots (or ends off 64 channels) the ``adjust`` conv to 64 with,
+    on an overshoot, the adaptive average pool to ``heatmap_size``, and the
+    1x1 ``pred``. Returns NCHW (B, K, heatmap, heatmap)."""
+
+    def __init__(self, in_features: int, num_keypoints: int = 24, heatmap_size: int = 48,
+                 intermediate_features: int = 512, spatial_size: int = 6):
+        super().__init__()
+        s, c = spatial_size, intermediate_features
+        self.heatmap_size, self.spatial_size, self.channels_in = heatmap_size, s, c
+        self.proj0 = nn.Linear(in_features, 2048)
+        self.proj1 = nn.Linear(2048, 1024)
+        self.proj2 = nn.Linear(1024, s * s * c)
+        self.dropout = nn.Dropout(0.1)
+        channels, current, out_ch = [256], s * 2, 128
+        while current < heatmap_size:
+            channels.append(out_ch)
+            current *= 2
+            out_ch = max(64, out_ch // 2)
+        self.overshoot = current > heatmap_size
+        stages, prev = [], c
+        for ch in channels:
+            stages.append(nn.Sequential(
+                nn.ConvTranspose2d(prev, ch, 3, stride=2, padding=1, output_padding=1),
+                nn.BatchNorm2d(ch), nn.ReLU()))
+            prev = ch
+        self.up = nn.ModuleList(stages)
+        self.adjust = (_conv_bn_relu(prev, 64) if self.overshoot or prev != 64 else None)
+        self.pred = nn.Conv2d(64, num_keypoints, 1)
+
+    def forward(self, feats: torch.Tensor,
+                generator: torch.Generator | None = None) -> torch.Tensor:
+        x = feats
+        for proj in (self.proj0, self.proj1):
+            x = run((proj, nn.ReLU(), self.dropout), x, generator)
+        x = torch.relu(L.dense(x, self.proj2))
+        s = self.spatial_size
+        x = x.reshape(x.shape[0], self.channels_in, s, s)
+        for stage in self.up:
+            x = run(stage, x)
+        if self.adjust is not None:
+            x = run(self.adjust, x)
+            if self.overshoot:
+                x = adaptive_avg_pool(x, self.heatmap_size)
+        return L.conv2d(x, self.pred)
+
+
+class PoseHeads(nn.Module):
+    """The MLP variant's combined heads (heads.py:279-296): vector features
+    in, ``HeatmapHead`` heatmaps and a ``ZCoordinateHead`` (1024, 512;
+    dropout 0.2) z out. No model uses them."""
+
+    def __init__(self, in_features: int, num_keypoints: int = 24, heatmap_size: int = 48):
+        super().__init__()
+        self.heatmap_head = HeatmapHead(in_features, num_keypoints, heatmap_size)
+        self.z_head = ZCoordinateHead(in_features, num_keypoints, (1024, 512), 0.2)
+
+    def forward(self, feats: torch.Tensor, generator: torch.Generator | None = None
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+        return self.heatmap_head(feats, generator), self.z_head(feats, generator)

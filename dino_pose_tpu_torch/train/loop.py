@@ -22,22 +22,31 @@ zero-padded to the batch size and masked out of the loss.
 
 Across processes (``torchrun``, or JAX's or SLURM's launch variables, see
 ``core/distributed.py``) every rank trains one model over the global batch
-``config_training["batch_size"]``, as JAX's ``fit`` does: each rank loads
-its data shard of both loaders (``batch_size / dp`` a step), the step
-all-reduces what the global batch's step needs (``train/step.py``), the
-PCKh evaluation splits the images over the ranks, and only the primary
-writes the metrics, checkpoints and the loss plot. Resume is the primary's:
-it resolves the checkpoint, a rank without the file builds a placeholder,
-a digest guard checks that every rank's state has one structure, and the
-primary's state is broadcast.
+``config_training["batch_size"]``, as JAX's ``fit`` does, on any ``(dp,
+tp)`` mesh over the ``dp * tp`` ranks: each rank loads its data
+coordinate's shard of both loaders (``batch_size / dp`` a step; the ranks
+of one model group load the same rows), the step all-reduces what the
+global batch's step needs over the data group (``train/step.py``), and the
+model axis's sums go over the model group inside the blocks
+(``core/mesh.Mesh``: dinov2's tensor-parallel halves, FastViT's ConvFFN
+and attention shards). Every rank ends each step with the same full
+parameters, and a digest guard checks that at the end of every epoch. The
+PCKh evaluation runs rank-local (``dispatch.local()``) and splits the
+images over the data group; only the primary writes the metrics,
+checkpoints and the loss plot. Resume is the primary's: it resolves the
+checkpoint, a rank without the file builds a placeholder, a digest guard
+checks that every rank's state has one structure, and the primary's state
+is broadcast. A process trains on one card: where more cards are visible
+than the launch runs processes on this host, ``fit`` says so once.
 
 Departures from the JAX loop: checkpoints are ``.pth`` only (the native
 format, with the optimizer state inside, so a ``.pth`` resumes AdamW too);
 the persistent compilation cache has no counterpart (the kernels build once
 into ``dino_pose_tpu_torch/build/``); ``tqdm`` and ``matplotlib`` are used
-when they import; the mesh is data-parallel across processes: a model axis
-that spans ranks raises (``ROADMAP.md``), while ``mesh=MeshSpec(1, tp)`` in
-one process trains on the one-card tensor-parallel route.
+when they import; JAX's ``fit`` keeps FastViT's state replicated under a
+model axis, where the port splits its ConvFFNs and attention heads (the
+same function); one process a card, where JAX's contract is one process a
+host over all its devices.
 """
 
 from __future__ import annotations
@@ -132,9 +141,9 @@ def fit(
     this and trains one model over the global batch ``config_training
     ["batch_size"]``; an incomplete launch raises. ``mesh`` (default: every
     process a data shard) is the ``('data', 'model')`` mesh: in one process
-    ``MeshSpec(1, tp)`` trains on the one-card tensor-parallel route; a
-    model axis across ranks raises. The mesh is recorded for this call only
-    (``ops/dispatch.scoped``).
+    ``MeshSpec(1, tp)`` trains on the one-card tensor-parallel route; across
+    ``dp * tp`` ranks each rank holds one data shard and one model shard.
+    The mesh is recorded for this call only (``ops/dispatch.scoped``).
 
     Checkpoints go to ``config_training["checkpoint_dir"]`` as ``.pth``
     files; ``export_pth`` is kept for the JAX signature and has nothing to
@@ -154,12 +163,10 @@ def _fit(config_dataset: dict, config_training: dict, config_preproc: dict,
          config_model: dict, *, dev: torch.device, mesh: MeshSpec | None, progress: bool,
          num_epochs: int | None) -> dict[str, Any]:
     world = distributed.world_size()
-    if world > 1 and mesh is not None and mesh.tp > 1:
-        raise NotImplementedError(
-            f"fit trains data-parallel across processes; a model axis across ranks "
-            f"({mesh}) is left for later (ROADMAP.md, Queue 1 item 8)"
-        )
     grid = create_mesh(mesh, device=dev)
+    unused = distributed.unused_cards_warning(dev)
+    if unused:
+        print(unused)
     checkpoint_dir = config_training["checkpoint_dir"]
     os.makedirs(checkpoint_dir, exist_ok=True)
     # batch_size is the GLOBAL batch; each data shard loads its slice.
@@ -353,6 +360,11 @@ def _fit(config_dataset: dict, config_training: dict, config_preproc: dict,
         history["input_wait_s"].append(timer.input_wait)
         history["dispatch_s"].append(timer.step_time)
         history["drain_s"].append(timer.drain_time)
+        if shard:
+            # Every rank holds the same full parameters after each step.
+            distributed.check_same_structure(
+                distributed.values_digest(model), f"epoch {epoch + 1}: the trained state",
+                noun="values")
         print(
             f"Epoch {epoch + 1} - Loss: {train_loss:.4f}, "
             f"Keypoint Loss: {train_stats.get('kp_loss', 0.0):.4f}, "

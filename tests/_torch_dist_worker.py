@@ -213,7 +213,8 @@ def job_collectives(job: dict, rank: int, world: int, out: str) -> None:
     from dino_pose_tpu_torch.train.loop import fit
 
     d, t, p, m = job["fit"]
-    runs = {"model_axis": ((d, t, p, m), {"mesh": MeshSpec(1, world)}),
+    runs = {"model_axis": ((d, {**t, "checkpoint_dir": t["checkpoint_dir"] + "_tp"}, p, m),
+                           {"mesh": MeshSpec(1, world)}),
             "batch": ((d, {**t, "batch_size": 3}, p, m), {})}
     for name, (cfgs, kw) in runs.items():
         try:
@@ -260,8 +261,22 @@ def job_fit(job: dict, rank: int, world: int, out: str) -> None:
                    "eval_info": dict(evaluate.last_eval_info)}, f)
 
 
+def job_fit_tp(job: dict, rank: int, world: int, out: str) -> None:
+    """``fit`` with a (1, world) mesh across the ranks, once per model of
+    the job: the history and the final state dict of each."""
+    from dino_pose_tpu_torch.train.loop import fit
+
+    for name, (d, t, p, m) in job["runs"].items():
+        t = {**t, "checkpoint_dir": f"{t['checkpoint_dir']}_{rank}"}
+        history = fit(d, t, p, m, device="cpu", progress=False, mesh=MeshSpec(1, world))
+        _save(out, f"fit_tp_{name}", rank, history["model"].state_dict())
+        with open(os.path.join(out, f"fit_tp_{name}_{rank}.json"), "w") as f:
+            json.dump({"train_loss": history["train_loss"], "val_loss": history["val_loss"],
+                       "pckh": history["pckh"], "step": history["state"].step}, f)
+
+
 JOBS = {"step": job_step, "backbone": job_backbone, "tp": job_tp, "collectives": job_collectives, "pckh": job_pckh,
-        "fit": job_fit}
+        "fit": job_fit, "fit_tp": job_fit_tp}
 
 
 def main() -> None:

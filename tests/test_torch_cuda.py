@@ -610,6 +610,24 @@ def test_fastvit_sa24_forward_at_batch_1(cuda_device):
                                    {"fused_convffn": 24, "flash_fwd": 4}, 1)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("name, launches", [
+    ("timm/fastvit_t8.apple_in1k", {"fused_convffn": 20}),
+    ("timm/fastvit_sa12.apple_in1k", {"fused_convffn": 24, "flash_fwd": 4})])
+def test_fastvit_tp2_forward_launches_two_a_layer(cuda_device, name, launches):
+    """t8 + LoRA and sa12 at 256², batch 2, under a (1, 2) mesh on the card:
+    every ConvFFN as two shards of H/2 (t8's 72 zero-padded to 80) and each
+    attention block as two shards of 8 heads, two launches a layer; the
+    outputs against the plain versions under the same mesh as
+    test_fastvit_kernels_match_plain holds them."""
+    from dino_pose_tpu_torch.core.mesh import MeshSpec, create_mesh
+    from dino_pose_tpu_torch.ops import dispatch
+
+    with dispatch.scoped():
+        create_mesh(MeshSpec(1, 2), device=cuda_device)
+        _fastvit_forward_matches_plain(cuda_device, name, launches, 2)
+
+
 def _fastvit_forward_matches_plain(cuda_device, name, launches, batch):
     model = registry.create_model_from_config(
         {"model_name": name, "use_lora": "t8" in name}, device=cuda_device, pretrained=False)
