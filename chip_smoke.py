@@ -88,14 +88,25 @@ microseconds a call), the ConvFFN kernels beside the replaced WMMA ones'
 (OLD_DWPAIR) and an unfused library yardstick.
 
     python3 chip_smoke.py [--out results.json] [--profile]
-    python3 chip_smoke.py --ab-parent DIR [--out ab.json]
+    python3 chip_smoke.py --ab-parent DIR [--ab-steps t8|unfreeze_504] [--out ab.json]
+    python3 chip_smoke.py --flash-only [--out flash.json]
+    python3 chip_smoke.py --ab-flash DIR [--out ab.json]
 
 (``--dist-worker SPEC`` is how phase_dist starts its ranks.)
 
+The third form only holds and times the streamed attention pair
+(phase_flash at dinov2-small's, -base's and -large's widths), then the
+chains' attention step on both routes across the resident route's range of
+S (flash_crossover). The fourth times the flash phase's wall seconds,
+after a warm-up, against the tree at DIR, parent, change, change, parent,
+each a fresh process.
+
 The second form only times the fastvit_t8 + LoRA bs=128 train step on the
-kernel path, default and with both opt-in arms on, against the tree at DIR
-(e.g. ``git archive`` of the parent commit), each arm in a fresh process
-from its own tree, in turns parent, change, change, parent on one card.
+kernel path, default and with both opt-in arms on (with ``--ab-steps
+unfreeze_504``: the dinov2-small and -large unfreeze-last-4 steps at 504²,
+bs=32), against the tree at DIR (e.g. ``git archive`` of the parent
+commit), each arm in a fresh process from its own tree, in turns parent,
+change, change, parent on one card.
 
 Needs one CUDA card and ``nvcc``; exits non-zero without a card, when a
 kernel does not build, launch or agree, or when any phase fails. The last
@@ -273,8 +284,14 @@ SA12_LORA_CONFIG = {**SA12_CONFIG, "use_lora": True}
 T8_TRAIN_LAUNCHES = {"fused_convffn": 10, "fused_convffn_bwd": 10}
 SA12_TRAIN_LAUNCHES = {"fused_convffn": 12, "fused_convffn_bwd": 12, "flash_fwd": 2,
                        "flash_bwd": 2}
-# fastvit_sa12's attention at 256²: (heads, S, dh) over stage 3's 8x8 grid.
-SA12_FLASH_SHAPE = (16, 64, 32)
+# The FastViT attention shapes at 256², (heads, S, dh) over stage 3's 8x8
+# grid, that phase_flash holds at B = 1, 8, 32: sa12's (sa24's, sa36's),
+# which it also times, and ma36's 19 heads of 32.
+FASTVIT_FLASH_SHAPES = {"fastvit_sa12": (16, 64, 32), "fastvit_ma36": (19, 64, 32)}
+# (S, heads, dh) of the streamed pair on the chains' packed qkv (B, S, 3D)
+# at a ragged S past the resident limits whose last tile holds neither 0
+# nor 64 rows (1300 = 20 * 64 + 20), at both head widths, B = 2.
+FLASH_PACKED = ((1300, 6, 64), (1300, 12, 32))
 # fastvit_sa24 and sa36 serving at 256² (as sa12: no LoRA; depths 4/4/12/4
 # and 6/6/18/6): one ConvFFN kernel a block, one flash forward a block of
 # the attention stage (16 heads of 32 over the 8x8 grid), a forward.
@@ -517,6 +534,36 @@ GEMM_EPIS = {
     "fc2": (("bias_ls_res", "f32bias_ls_res", "f32bias_ls_res_h2", "bias"), ("none",)),
 }
 GEMM_ROWS = (S, 8 * S, TRAIN_BATCH * S, 2 * 57)
+# The replaced mma.sync flash kernels' three clocks (ms, device ms, host us)
+# at each phase_flash shape, forward and backward, measured by this script
+# on an H100 80GB HBM3 at 700.00 W before the wgmma kernels took their
+# place; printed beside the new kernels' (at sa12's shape, device ms alone).
+OLD_FLASH = {
+    "dinov2-small B=1 fwd": (0.0340, 0.0322, 24.9),
+    "dinov2-small B=1 bwd": (0.0878, 0.0828, 78.9),
+    "dinov2-small B=8 fwd": (0.1312, 0.1287, 47.8),
+    "dinov2-small B=8 bwd": (0.4354, 0.4274, 65.9),
+    "dinov2-small B=32 fwd": (0.5101, 0.4979, 50.6),
+    "dinov2-small B=32 bwd": (1.5703, 1.5825, 86.4),
+    "dinov2-base B=1 fwd": (0.0532, 0.0441, 52.3),
+    "dinov2-base B=1 bwd": (0.1240, 0.1174, 107.9),
+    "dinov2-base B=8 fwd": (0.2559, 0.2506, 60.4),
+    "dinov2-base B=8 bwd": (0.8301, 0.8159, 105.4),
+    "dinov2-base B=32 fwd": (1.0167, 0.9972, 59.4),
+    "dinov2-base B=32 bwd": (3.0760, 3.0462, 84.2),
+    "dinov2-large B=1 fwd": (0.0604, 0.0572, 52.2),
+    "dinov2-large B=1 bwd": (0.1880, 0.1837, 68.3),
+    "dinov2-large B=8 fwd": (0.3614, 0.3537, 61.5),
+    "dinov2-large B=8 bwd": (1.0831, 1.0698, 56.5),
+    "dinov2-large B=32 fwd": (1.3543, 1.3462, 60.3),
+    "dinov2-large B=32 bwd": (4.0809, 4.1241, 118.9),
+    "fastvit_sa12 B=1 fwd": (0.0509, 0.0033, 48.1),
+    "fastvit_sa12 B=1 bwd": (0.0911, 0.0085, 90.2),
+    "fastvit_sa12 B=8 fwd": (0.0813, 0.0035, 79.8),
+    "fastvit_sa12 B=8 bwd": (0.0700, 0.0090, 84.5),
+    "fastvit_sa12 B=32 fwd": (0.0656, 0.0080, 64.1),
+    "fastvit_sa12 B=32 bwd": (0.0578, 0.0171, 58.5),
+}
 # The chains' attention step at S = 257, head width 64 (phase_attention_core):
 # the resident pair against the streamed flash pair at each driven model's
 # heads a call (dinov2-small, -base and -large, and the shards' H/tp), B = 1,
@@ -1032,20 +1079,26 @@ def cuda_ms(fn, iters: int = 50, warmup: int = 5) -> float:
 def device_ms(fn, iters: int = 20, reps: int = 5) -> float:
     """Device-only ms a call: ``iters`` calls captured once in a CUDA graph,
     the graph replayed ``reps`` times between two events, so that no host
-    work sits between the launches. Where capture refuses ``fn``, the
-    kernels' summed time in a torch.profiler trace of ``iters`` calls."""
+    work sits between the launches. A refused capture is tried once more
+    (the first capture of a library's backward in a process can fail where
+    the next succeeds); where capture refuses ``fn`` again, the kernels'
+    summed time in a torch.profiler trace of ``iters`` calls."""
     fn()
     torch.cuda.synchronize()
-    graph = torch.cuda.CUDAGraph()
-    try:
-        with torch.cuda.graph(graph):
-            for _ in range(iters):
-                fn()
-    except RuntimeError as err:
-        log(f"device_ms: CUDA graph capture refused ({str(err).splitlines()[0]}); "
-            "profiler kernel time instead")
-        torch.cuda.synchronize()
-        return profiler_ms(fn, iters)
+    for attempt in range(2):
+        graph = torch.cuda.CUDAGraph()
+        try:
+            with torch.cuda.graph(graph):
+                for _ in range(iters):
+                    fn()
+            break
+        except RuntimeError as err:
+            torch.cuda.synchronize()
+            del graph
+            if attempt:
+                log(f"device_ms: CUDA graph capture refused twice "
+                    f"({str(err).splitlines()[0]}); profiler kernel time instead")
+                return profiler_ms(fn, iters)
     graph.replay()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -1432,10 +1485,10 @@ def phase_train_kernels(results: dict, model: str | None = None,
 
 
 def flash_inputs(b: int, gen: torch.Generator, shape: tuple = (H, S_LONG, D // H)) -> list:
-    """Seeded q, k, v and a unit-scale cotangent, (b, *shape) bf16: by
-    default the attention of dinov2-small at 504², (b, 6, 1297, 64)."""
-    return [torch.randn((b, *shape), generator=gen).to("cuda", torch.bfloat16)
-            for _ in range(4)]
+    """Seeded q, k, v and a unit-scale cotangent, (b, *shape) bf16 drawn on
+    the card: by default the attention of dinov2-small at 504², (b, 6, 1297,
+    64)."""
+    return [cuda_randn((b, *shape), gen).to(torch.bfloat16) for _ in range(4)]
 
 
 def check_flash(results: dict, q, k, v, g, where: str) -> None:
@@ -1465,44 +1518,125 @@ def check_flash(results: dict, q, k, v, g, where: str) -> None:
         row["max_abs_err"] = max(row["max_abs_err"], *errs)
 
 
+def time_flash(q, k, v, g, label: str, full: bool) -> dict:
+    """The streamed pair's forward and backward beside torch's
+    scaled_dot_product_attention (forward; backward alone on a kept graph),
+    the library yardstick the port never calls, the replaced kernels'
+    clocks (OLD_FLASH), the bound (JAX's FLOP count, ``attention.flash_cost``)
+    and the rate on the FLOPs the kernels execute: with ``full``,
+    host-inclusive and device ms (``cuda_ms``, ``device_ms``: the flash
+    phase leaves out ``clocks``' host clock and medians, which doubled its
+    time) beside the plain versions' ms; else (FastViT's short shapes) on
+    the device clock alone. Logs one line a direction and returns
+    {"flash_attention": ..., "flash_attention_bwd": ...}."""
+    import torch.nn.functional as F
+
+    from dino_pose_tpu_torch.ops import attention as A
+    from dino_pose_tpu_torch.ops import block as B
+
+    b, heads, s, dh = q.shape
+    scale = dh ** -0.5
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    _, stats = A.flash_fwd(q, k, v, scale)
+    sdpa_out = F.scaled_dot_product_attention(*leaves, scale=scale)
+    iters = 10 if b * heads * s * s > 10**9 or not full else 20
+    runs = {
+        "flash_attention": (
+            lambda: A.flash_fwd(q, k, v, scale), lambda: A.flash_math(q, k, v, scale),
+            lambda: F.scaled_dot_product_attention(q, k, v, scale=scale)),
+        "flash_attention_bwd": (
+            lambda: A.flash_bwd(q, k, v, g, stats, scale),
+            lambda: A.flash_bwd_math(q, k, v, g, scale),
+            lambda: torch.autograd.grad(sdpa_out, leaves, g, retain_graph=True)),
+    }
+    cost = A.flash_cost(b, heads, s, dh)
+
+    def clock(fn) -> dict:
+        t = {"device_ms": device_ms(fn, iters, reps=2)}
+        if full:
+            t["ms"] = cuda_ms(fn, iters=iters, warmup=2)
+        return t
+
+    def text(t: dict) -> str:
+        host = f"{t['ms']:.4f} ms, " if "ms" in t else ""
+        return f"{host}device {t['device_ms']:.4f} ms"
+
+    out = {}
+    for (name, (kern, plain_fn, lib_fn)), kind in zip(runs.items(), ("fwd", "bwd")):
+        t = clock(kern)
+        lib = clock(lib_fn)
+        flops, nbytes, executed = cost[name]
+        bound, by = B.bound_ms(flops, nbytes)
+        rate = executed / t["device_ms"] / 1e9
+        row = {**t, "bound_ms": bound, "bound_by": by, "executed_tflops": rate,
+               **{f"library_{key}": val for key, val in lib.items()}}
+        if full:
+            row["plain_ms"] = cuda_ms(plain_fn, iters=5, warmup=1)
+        old = OLD_FLASH.get(f"{label} {kind}")
+        old_clocks = "" if old is None else (
+            clocks_text(dict(zip(("ms", "device_ms", "host_us"), old))) if full
+            else text({"device_ms": old[1]}))
+        old_text = "" if old is None else (
+            f"; replaced mma.sync kernel {old_clocks} "
+            f"(new/old device {t['device_ms'] / old[1]:.3f})")
+        if old is not None:
+            row["old_device_ms"] = old[1]
+        plain_text = f", plain {row['plain_ms']:.4f} ms" if full else ""
+        log(f"time {name} {label} ({heads} heads, S={s}, dh={dh}): kernel {text(t)} "
+            f"({rate:.1f} TFLOP/s on the {executed:.4g} FLOPs it executes){plain_text}, "
+            f"scaled_dot_product_attention {text(lib)} (kernel/library device "
+            f"{t['device_ms'] / lib['device_ms']:.3f}){old_text}; bound {bound:.5f} ms ({by})")
+        out[name] = row
+    del sdpa_out, leaves, stats
+    return out
+
+
 def phase_flash(results: dict, model: str | None = None) -> dict:
     """flash_attention's kernels (a forward launch, a backward pair) against
     flash_math and flash_bwd_math on o, dq, dk and dv, bf16, B = 1, 8, 32:
     at (B, heads, 1297, 64), ``model``'s attention at 504² (dinov2-small's 6
     heads when None, -base's 12, -large's 16), and, for dinov2-small, at
-    (B, 16, 64, 32), fastvit_sa12's attention stage at 256² (32-wide heads;
-    its train batch is 32), and two launches of each giving the same bits;
-    then, for dinov2-small, the forward at both of its query tiles (64 and
-    128 rows a block, the measurement behind the kernel's choice by block
-    count), and the times beside the plain versions', the bound (JAX's FLOP
-    count, ``attention.flash_cost``), the rate on the FLOPs the kernels
-    execute and torch's scaled_dot_product_attention (forward; backward
-    alone on a kept graph, and forward+backward), the library yardstick,
-    which the port never calls. Returns the times by batch, under each
-    wrapper's ``result_key``."""
-    import torch.nn.functional as F
-
+    fastvit_sa12's (B, 16, 64, 32) and fastvit_ma36's (B, 19, 64, 32)
+    attention stages at 256² (32-wide heads; their train batch is 32), the
+    chains' packed layout at the ragged S = 1300 (FLASH_PACKED), and two
+    launches of each giving the same bits; then ``time_flash`` at
+    ``model``'s shape and, for dinov2-small, the forward's 128-row form
+    beside its 64-row one (the form every launch takes: the measurement
+    behind that choice) and ``time_flash`` at sa12's shape on the device
+    clock alone. Operands are drawn on the card. Logs each batch's wall
+    seconds and returns the times by batch, under each wrapper's
+    ``result_key``."""
     from dino_pose_tpu_torch.ops import _ext
     from dino_pose_tpu_torch.ops import attention as A
     from dino_pose_tpu_torch.ops import block as B
 
-    gen, gen_sa12 = (torch.Generator().manual_seed(SEED + i) for i in (6, 10))
+    gen = torch.Generator().manual_seed(SEED + 6)
     d, heads, _ = width(model)
     dh = d // heads
     scale = dh ** -0.5
     lib = _ext.lib()
     times = {}
+    label = model or "dinov2-small"
     where = "" if model is None else where_text(model, S_LONG)
+    saved = dict(B.LAUNCHES)
+    if model is None:
+        t0 = time.perf_counter()
+        for s, p_heads, p_dh in FLASH_PACKED:
+            qkv, dctx = attention_core_inputs(2, p_heads, s, p_dh, gen)
+            check_attention_core(results, qkv, dctx, p_heads, True,
+                                 f"B=2 ({p_heads} heads of {p_dh}, S={s}, packed)")
+            del qkv, dctx
+        log(f"wall flash packed checks: {time.perf_counter() - t0:.1f} s")
     for b in FLASH_BATCHES:
+        marks = [time.perf_counter()]
         q, k, v, g = flash_inputs(b, gen, (heads, S_LONG, dh))
         check_flash(results, q, k, v, g, f"B={b}{where}")
-        if model is None:
-            sa_heads, s, sdh = SA12_FLASH_SHAPE
-            check_flash(results, *flash_inputs(b, gen_sa12, SA12_FLASH_SHAPE),
-                        f"B={b} (fastvit_sa12: {sa_heads} heads, S={s}, dh={sdh})")
-        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
-
-        saved = dict(B.LAUNCHES)
+        small = {}
+        for fv, shape in (FASTVIT_FLASH_SHAPES.items() if model is None else ()):
+            small[fv] = flash_inputs(b, gen, shape)
+            check_flash(results, *small[fv],
+                        f"B={b} ({fv}: {shape[0]} heads, S={shape[1]}, dh={shape[2]})")
+        marks.append(time.perf_counter())
         runs = []
         for _ in range(2):
             o, stats = A.flash_fwd(q, k, v, scale)
@@ -1517,49 +1651,77 @@ def phase_flash(results: dict, model: str | None = None) -> dict:
         if not same:
             raise AssertionError(f"flash kernels at B={b} are not deterministic")
         del runs, o0, st0, g0, o1, st1, g1
-        tiles = {}
-        for rows in ((64, 128) if model is None else ()):
-            lib.dp_flash_fwd_rows(rows)
-            tiles[rows] = cuda_ms(lambda: A.flash_fwd(q, k, v, scale), iters=20)
-        lib.dp_flash_fwd_rows(0)
-        if tiles:
-            log(f"time flash_attention B={b} by query rows a block: 64 rows {tiles[64]:.4f} ms "
-                f"({b * H * -(-S_LONG // 64)} blocks), 128 rows {tiles[128]:.4f} ms "
-                f"({b * H * -(-S_LONG // 128)} blocks)")
-        _, stats = A.flash_fwd(q, k, v, scale)
-        sdpa_out = F.scaled_dot_product_attention(*leaves, scale=scale)
-        t = {
-            "flash_attention": (
-                cuda_ms(lambda: A.flash_fwd(q, k, v, scale), iters=20),
-                cuda_ms(lambda: A.flash_math(q, k, v, scale), iters=5, warmup=1),
-                cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, scale=scale), iters=20)),
-            "flash_attention_bwd": (
-                cuda_ms(lambda: A.flash_bwd(q, k, v, g, stats, scale), iters=20),
-                cuda_ms(lambda: A.flash_bwd_math(q, k, v, g, scale), iters=5, warmup=1),
-                cuda_ms(lambda: torch.autograd.grad(sdpa_out, leaves, g, retain_graph=True),
-                        iters=20)),
-        }
-        sdpa_fwd_bwd = cuda_ms(lambda: torch.autograd.grad(
-            F.scaled_dot_product_attention(*leaves, scale=scale), leaves, g), iters=20)
-        B.LAUNCHES.update(saved)  # timing launches are not main-path launches
-        del sdpa_out, leaves, stats
-        cost = A.flash_cost(b, heads, S_LONG, dh)
-        for name, (ms, plain_ms, lib_ms) in t.items():
-            flops, nbytes, executed = cost[name]
-            bound, by = B.bound_ms(flops, nbytes)
-            rate = executed / ms / 1e9
-            times.setdefault(b, {})[result_key(name, model)] = {
-                "ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
-                "library_ms": lib_ms, "executed_tflops": rate}
-            log(f"time {name} B={b}{where}: kernel {ms:.4f} ms ({rate:.1f} "
-                f"TFLOP/s on the {executed:.4g} FLOPs it executes), plain {plain_ms:.4f} ms, "
-                f"bound {bound:.5f} ms ({by}), scaled_dot_product_attention {lib_ms:.4f} ms")
-        if tiles:
-            times[b]["flash_attention"]["ms_by_rows"] = tiles
-        times[b][result_key("flash_attention_bwd", model)]["library_fwd_bwd_ms"] = sdpa_fwd_bwd
-        log(f"time scaled_dot_product_attention forward+backward B={b}"
-            f"{where}: {sdpa_fwd_bwd:.4f} ms")
+        marks.append(time.perf_counter())
+        t = time_flash(q, k, v, g, f"{label} B={b}", full=True)
+        marks.append(time.perf_counter())
+        if model is None:
+            # The 64-row form is the one every launch takes: time_flash's.
+            tiles = {64: t["flash_attention"]["device_ms"]}
+            lib.dp_flash_fwd_rows(128)
+            try:
+                tiles[128] = device_ms(lambda: A.flash_fwd(q, k, v, scale), iters=10, reps=2)
+            finally:
+                lib.dp_flash_fwd_rows(0)
+            log(f"time flash_attention B={b} by query rows a block, device ms: 64 rows "
+                f"{tiles[64]:.4f} ({b * H * -(-S_LONG // 64)} blocks), 128 rows "
+                f"{tiles[128]:.4f} ({b * H * -(-S_LONG // 128)} blocks)")
+            t["flash_attention"]["device_ms_by_rows"] = tiles
+            sa12 = small["fastvit_sa12"]
+            t.update({f"{name}_fastvit_sa12": row for name, row in
+                      time_flash(*sa12, f"fastvit_sa12 B={b}", full=False).items()})
+        for name, row in t.items():
+            times.setdefault(b, {})[result_key(name, model)] = row
+        del q, k, v, g, small
+        marks.append(time.perf_counter())
+        parts = np.diff(marks)
+        log(f"wall flash B={b}{where}: {marks[-1] - marks[0]:.1f} s (checks {parts[0]:.1f}, "
+            f"same bits {parts[1]:.1f}, time_flash {parts[2]:.1f}, 128 rows and sa12 "
+            f"{parts[3]:.1f})")
+    B.LAUNCHES.update(saved)  # timing launches are not main-path launches
     return times
+
+
+# The chains' attention step on both of its routes across the resident
+# route's range of S (block_kernels.cu resident_limit: 320 forward and 304
+# backward at head width 64, 400 and 384 at 32), at dinov2-small's 6 heads
+# of 64 and 12 heads of 32, at 224² serving's and training's batches.
+CROSSOVER_SEQS = {64: (64, 128, 192, 257, 304), 32: (64, 128, 257, 384)}
+CROSSOVER_HEADS = {64: 6, 32: 12}
+
+
+def flash_crossover() -> dict:
+    """packed_attention and packed_attention_bwd on the resident route and
+    on the streamed one, device ms, at each S of CROSSOVER_SEQS, B = 8 and
+    128: where, if anywhere, the streamed pair overtakes the resident pair
+    inside the resident route's range. The chains keep their choice by
+    resident_limit (no rounding point moves between the routes); this only
+    measures it. Returns the times by "dh=<dh> S=<s> B=<b>"."""
+    from dino_pose_tpu_torch.ops import block as B
+
+    gen = torch.Generator().manual_seed(SEED + 12)
+    saved = dict(B.LAUNCHES)
+    out = {}
+    for dh, seqs in CROSSOVER_SEQS.items():
+        heads = CROSSOVER_HEADS[dh]
+        for s in seqs:
+            for b in (8, TRAIN_BATCH):
+                qkv, dctx = attention_core_inputs(b, heads, s, dh, gen)
+                row = {}
+                for route, streamed in (("resident", False), ("flash", True)):
+                    row[f"{route}_fwd"] = device_ms(
+                        lambda: B.packed_attention(qkv, heads, streamed=streamed), 10, reps=2)
+                    row[f"{route}_bwd"] = device_ms(
+                        lambda: B.packed_attention_bwd(qkv, dctx, heads, streamed=streamed),
+                        10, reps=2)
+                log(f"crossover attention_core dh={dh} ({heads} heads) S={s} B={b}, device ms "
+                    f"resident / flash: forward {row['resident_fwd']:.4f} / "
+                    f"{row['flash_fwd']:.4f} ({row['flash_fwd'] / row['resident_fwd']:.3f}), "
+                    f"backward {row['resident_bwd']:.4f} / {row['flash_bwd']:.4f} "
+                    f"({row['flash_bwd'] / row['resident_bwd']:.3f})")
+                out[f"dh={dh} S={s} B={b}"] = row
+                del qkv, dctx
+    B.LAUNCHES.update(saved)  # timing launches are not main-path launches
+    return out
 
 
 def randomise_for_serving(model, gen: torch.Generator) -> None:
@@ -4920,13 +5082,20 @@ def profile_train_step(step, state, batch) -> None:
     log(prof.key_averages().table(sort_by="cuda_time_total", row_limit=40))
 
 
-# One arm of the A/B of the fastvit_t8 + LoRA bs=128 train step on the
-# kernel path, run in its own process from the root of a tree (this one or
-# the one --ab-parent names) with that tree's chip_smoke.py and package:
-# two warm-up steps, then CUDA events around AB_STEPS steps, each way's
-# weights random from the same seed; the arms step sets ARMS in the
-# process's environment. Uses only helpers both trees have.
+# One arm of the A/B of a train step on the kernel path, run in its own
+# process from the root of a tree (this one or the one --ab-parent names)
+# with that tree's chip_smoke.py and package: two warm-up steps, then CUDA
+# events around AB_STEPS steps, each way's weights random from the same
+# seed. AB_CASES names the steps of each --ab-steps choice: the config, the
+# batch and the input size (chip_smoke.py names both trees have), and the
+# switches set in the process's environment (the t8 arms step sets ARMS).
 AB_STEPS = 10
+AB_CASES = {
+    "t8": {"t8": ("T8_CONFIG", "T8_TRAIN_BATCH", "FASTVIT_IMAGE", {}),
+           "t8_arms": ("T8_CONFIG", "T8_TRAIN_BATCH", "FASTVIT_IMAGE", ARMS)},
+    "unfreeze_504": {"dinov2_small": ("UNFREEZE_CONFIG", "LONG_BATCH", "LONG_IMAGE", {}),
+                     "dinov2_large": ("LARGE_UNFREEZE_CONFIG", "LONG_BATCH", "LONG_IMAGE", {})},
+}
 AB_ARM = """
 import json, sys, torch
 sys.path.insert(0, ".")
@@ -4936,11 +5105,11 @@ from dino_pose_tpu_torch.ops import _ext
 _ext.build()
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
-model = create_model_from_config(dict(cs.T8_CONFIG), seed=cs.SEED, device="cuda",
+model = create_model_from_config(dict(cs.{config}), seed=cs.SEED, device="cuda",
                                  pretrained=False)
 cs.randomise_for_serving(model, torch.Generator().manual_seed(cs.SEED + 4))
-batch = cs.synthetic_batch(cs.T8_TRAIN_BATCH, cs.FASTVIT_IMAGE)
-state, step = cs.make_step(model, cs.T8_CONFIG, kernels=True, image_size=cs.FASTVIT_IMAGE)
+batch = cs.synthetic_batch(cs.{batch}, cs.{image})
+state, step = cs.make_step(model, cs.{config}, kernels=True, image_size=cs.{image})
 for _ in range(2):
     state, _ = step(state, batch, cs.LR, cs.SEED)
 start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -4954,18 +5123,77 @@ print("AB_STEP_MS " + json.dumps(start.elapsed_time(end) / {steps}))
 """
 
 
-def ab_step(parent: str) -> dict:
-    """The fastvit_t8 + LoRA bs=128 train step on the kernel path, default
-    and with both opt-in arms on (``ARMS``), this tree against the tree at
-    ``parent`` (e.g. a ``git archive`` of the parent commit) on this card,
-    each arm a fresh process, in turns parent, change, change, parent."""
+# One arm of the A/B of the flash phase's wall time: the kernels built, one
+# untimed phase_flash at dinov2-small's width (a fresh process's first-use
+# costs, which the whole script's earlier phases pay before its flash
+# phase: cuBLAS and cuDNN set-up, the first CUDA graph captures, and where
+# SDPA's backward refuses capture, the profiler's), then phase_flash at
+# dinov2-small's, -base's and -large's widths on a host clock, in a process
+# of its own from the root of a tree (this one or the one --ab-flash names)
+# with that tree's chip_smoke.py and package.
+AB_FLASH_ARM = """
+import json, sys, time, torch
+sys.path.insert(0, ".")
+import chip_smoke as cs
+from dino_pose_tpu_torch.ops import _ext
+_ext.build()
+_ext.lib()
+torch.backends.cuda.matmul.allow_tf32 = False
+cs.phase_flash({})
+torch.cuda.synchronize()
+print("warm-up done")
+out = {}
+for model in (None, "dinov2-base", "dinov2-large"):
+    t0 = time.perf_counter()
+    cs.phase_flash({}, model)
+    torch.cuda.synchronize()
+    out[model or "dinov2-small"] = time.perf_counter() - t0
+print("AB_FLASH_S " + json.dumps(out))
+"""
+
+
+def ab_flash(parent: str) -> dict:
+    """The flash phase's wall seconds after a warm-up (``AB_FLASH_ARM``),
+    this tree against the tree at ``parent`` on this card, each arm a fresh
+    process, in turns parent, change, change, parent."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    runs: dict = {"parent": [], "change": []}
+    for arm in ("parent", "change", "change", "parent"):
+        root = os.path.abspath(parent) if arm == "parent" else here
+        proc = subprocess.run([sys.executable, "-c", AB_FLASH_ARM], cwd=root,
+                              capture_output=True, text=True, timeout=900)
+        lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("AB_FLASH_S ")]
+        if proc.returncode != 0 or not lines:
+            raise RuntimeError(f"flash A/B arm {arm} failed ({proc.returncode}): "
+                               f"{proc.stderr[-2000:]}")
+        runs[arm].append(json.loads(lines[-1].split(" ", 1)[1]))
+        timed = proc.stdout.split("warm-up done", 1)[-1]
+        for line in timed.splitlines():
+            if line.startswith("wall flash") or "refused" in line:
+                log(f"  {arm}: {line}")
+        log(f"ab flash phase, {arm} ({root}): wall s {json.dumps(runs[arm][-1])}, total "
+            f"{sum(runs[arm][-1].values()):.1f} s")
+    out = {arm: {"seconds": float(np.mean([sum(r.values()) for r in rs])), "runs": rs}
+           for arm, rs in runs.items()}
+    log("ab_flash " + json.dumps(out))
+    return out
+
+
+def ab_step(parent: str, which: str = "t8") -> dict:
+    """The train steps of ``AB_CASES[which]`` on the kernel path (by
+    default the fastvit_t8 + LoRA bs=128 step, default and with both opt-in
+    arms on; "unfreeze_504" the dinov2-small and -large unfreeze-last-4
+    steps at 504², bs=32), this tree against the tree at ``parent`` (e.g. a
+    ``git archive`` of the parent commit) on this card, each arm a fresh
+    process, in turns parent, change, change, parent."""
     here = os.path.dirname(os.path.abspath(__file__))
     out: dict = {}
-    for step, env in (("t8", {}), ("t8_arms", ARMS)):
+    for step, (config, batch, image, env) in AB_CASES[which].items():
         runs: dict = {"parent": [], "change": []}
+        code = AB_ARM.format(steps=AB_STEPS, config=config, batch=batch, image=image)
         for arm in ("parent", "change", "change", "parent"):
             root = os.path.abspath(parent) if arm == "parent" else here
-            proc = subprocess.run([sys.executable, "-c", AB_ARM.format(steps=AB_STEPS)],
+            proc = subprocess.run([sys.executable, "-c", code],
                                   cwd=root, capture_output=True, text=True, timeout=900,
                                   env={**os.environ, **env})
             lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("AB_STEP_MS ")]
@@ -4973,8 +5201,7 @@ def ab_step(parent: str) -> dict:
                 raise RuntimeError(f"A/B {step} arm {arm} failed ({proc.returncode}): "
                                    f"{proc.stderr[-2000:]}")
             runs[arm].append(json.loads(lines[-1].split(" ", 1)[1]))
-            log(f"ab {step} + LoRA bs={T8_TRAIN_BATCH} step, {arm} ({root}): "
-                f"{runs[arm][-1]:.3f} ms")
+            log(f"ab {step} {config} bs={batch} step, {arm} ({root}): {runs[arm][-1]:.3f} ms")
         out[step] = {arm: {"step_ms": float(np.mean(ms)), "runs": ms} for arm, ms in runs.items()}
         out[step]["faster_ms"] = out[step]["parent"]["step_ms"] - out[step]["change"]["step_ms"]
     log("ab_step " + json.dumps(out))
@@ -5000,6 +5227,19 @@ def main() -> int:
                          "default and with both opt-in arms on, against the tree at DIR "
                          "(parent, change, change, parent; each arm a fresh process), print "
                          "them and exit")
+    ap.add_argument("--ab-steps", choices=sorted(AB_CASES), default="t8",
+                    help="with --ab-parent: the steps to time (t8: the above; unfreeze_504: "
+                         "the dinov2-small and -large unfreeze-last-4 steps at 504², bs=32)")
+    ap.add_argument("--flash-only", action="store_true",
+                    help="only build the kernels and run phase_flash at dinov2-small's, "
+                         "-base's and -large's widths (the streamed attention pair held "
+                         "and timed), then time the chains' attention step on both routes "
+                         "across the resident route's S (flash_crossover), print the times "
+                         "and exit")
+    ap.add_argument("--ab-flash", metavar="DIR",
+                    help="only time the flash phase's wall seconds (build and a warm-up "
+                         "excluded) against the tree at DIR (parent, change, change, parent; "
+                         "each arm a fresh process), print them and exit")
     ap.add_argument("--dist-worker", metavar="SPEC",
                     help="run as one rank of phase_dist (started by the script itself under "
                          "torchrun's launch variables): the jobs SPEC names")
@@ -5012,10 +5252,17 @@ def main() -> int:
         return dist_worker(args.dist_worker)
     if args.ab_parent:
         log(f"card: {nvidia_smi()}")
-        ab = ab_step(args.ab_parent)
+        ab = ab_step(args.ab_parent, args.ab_steps)
         if args.out:
             with open(args.out, "w") as f:
                 json.dump({"card": nvidia_smi(), "ab_step": ab}, f, indent=1)
+        return 0
+    if args.ab_flash:
+        log(f"card: {nvidia_smi()}")
+        ab = ab_flash(args.ab_flash)
+        if args.out:
+            with open(args.out, "w") as f:
+                json.dump({"card": nvidia_smi(), "ab_flash": ab}, f, indent=1)
         return 0
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -5029,6 +5276,20 @@ def main() -> int:
     _ext.build(verbose=True)
     _ext.lib()
     log(f"build_seconds {time.perf_counter() - t0:.1f}")
+    if args.flash_only:
+        results: dict = {}
+        flash = {}
+        for model in (None, "dinov2-base", "dinov2-large"):
+            t1 = time.perf_counter()
+            flash[model] = phase_flash(results, model)
+            log(f"wall flash {model or 'dinov2-small'}: {time.perf_counter() - t1:.1f} s")
+        crossover = flash_crossover()
+        log(f"flash_only_seconds {time.perf_counter() - t0:.1f}")
+        if args.out:
+            with open(args.out, "w") as f:
+                json.dump({"card": card, "flash": {str(m): t for m, t in flash.items()},
+                           "crossover": crossover, "errors": results}, f, indent=1)
+        return 0
     marks = [time.perf_counter()]
 
     def mark(what: str) -> None:
@@ -5083,8 +5344,9 @@ def main() -> int:
     phase_kernels(results)
     phase_mlp_dx(results)
     phase_train_kernels(results)
+    mark("kernels")
     flash_times = phase_flash(results)
-    mark("kernels, flash")
+    mark("flash")
     model = phase_serving(results, serving)
     with tempfile.TemporaryDirectory() as cli_root:
         cli = phase_cli(results, serving, cli_root)

@@ -12,10 +12,12 @@ its backward           ``flash_bwd_math``   ``_flash_bwd_kernel`` (:130)
 tensors, the counterpart of JAX's ``custom_vjp`` (attention.py:240-254). On
 a CUDA tensor its forward launches ``flash_fwd_kernel`` and its backward
 ``flash_bwd_dq_kernel`` then ``flash_bwd_dkv_kernel``
-(``ops/csrc/flash_kernels.cu``, bf16, head width 32 or 64, any S; register
-tiles of ``mma.sync``, K and V streamed by ``cp.async`` in two stages); it
-never falls back. On the CPU it runs ``flash_math`` and ``flash_bwd_math``
-inside the same function, so that both paths keep JAX's f32 intermediates.
+(``ops/csrc/flash_kernels.cu``, bf16, head width 32 or 64, any S): every
+product a ``wgmma``, K and V (Q and dO) streamed by TMA through a ring of
+``mbarrier`` stages that a producer warp keeps full, P and dS fed to the
+tensor cores from registers, JAX's rounding points kept; it never falls
+back. On the CPU it runs ``flash_math`` and ``flash_bwd_math`` inside the
+same function, so that both paths keep JAX's f32 intermediates.
 ``flash_cost`` counts their work: JAX's FLOPs and bytes, which give the
 bound, and the FLOPs the kernels execute.
 

@@ -6,25 +6,25 @@
 // pallas_call :218). The TPU kernels hold a whole (S, S) f32 score tile of
 // one (batch, head) in VMEM (5.4 MB at S = 1297, under the 10 MB budget).
 // A Hopper block has at most 227 KB of shared memory, which does not hold
-// even the head's K and V past S ~ 320 (block_kernels.cu's attention_kernel
-// keeps them resident). Here K and V (or Q and dO) are streamed through
-// shared memory in 64-row tiles, so a block's shared memory does not grow
-// with S:
+// even the head's K and V past S ~ 320 (block_kernels.cu's resident pair
+// keeps them there). Here K and V (or Q and dO) stream through shared
+// memory in 64-row tiles, so a block's shared memory does not grow with S:
 //
-//   flash_fwd_kernel<DH, MT>  one block per (16*4*MT-query tile, head,
-//                             batch), 4 warps of 16*MT query rows; two
-//                             passes over the key tiles: the first finds
-//                             each row's max m and sum l (the sum rescaled
-//                             as the max moves), the second forms
-//                             P = bf16(exp(s*scale - m) * (1/l)) and
-//                             accumulates P V in f32.
-//   flash_bwd_dq_kernel<DH>   per 64-query tile over the key tiles: a first
-//                             pass sums rowsum(P * dP) exactly in f32, the
-//                             second forms dS = P * (dP - rowsum) and
-//                             accumulates bf16(dS) K.
-//   flash_bwd_dkv_kernel<DH>  per 64-key tile over the query tiles: P and dS
-//                             rebuilt from the statistics, dv += bf16(P)^T dO,
-//                             dk += bf16(dS)^T Q.
+//   flash_fwd_kernel<DH, NWG>      one block per 64*NWG-query tile of a
+//                                  (batch, head); two passes over the key
+//                                  tiles: the first finds each row's max m
+//                                  and sum l (the sum rescaled as the max
+//                                  moves), the second forms
+//                                  P = bf16(exp(s*scale - m) * (1/l)) and
+//                                  accumulates P V in f32.
+//   flash_bwd_dq_kernel<DH>        per 64-query tile over the key tiles: a
+//                                  first pass sums rowsum(P * dP) exactly in
+//                                  f32 (stats row 2), the second forms
+//                                  dS = P * (dP - rowsum) and accumulates
+//                                  bf16(dS) K.
+//   flash_bwd_dkv_kernel<DH>       per 64-key tile over the query tiles: P
+//                                  and dS rebuilt from the statistics,
+//                                  dv += bf16(P)^T dO, dk += bf16(dS)^T Q.
 //
 // Rounding points are those of the JAX kernels (attention.py:50-69 and
 // :143-186): f32 scores, max-subtracted exp, f32 normalisation, P rounded to
@@ -32,118 +32,204 @@
 // f32, dS formed with the exact f32 rowsum(P * dP), bf16(P) and bf16(dS)
 // before their products, dq, dk and dv accumulated in f32 and rounded once
 // (dq and dk after the scale). Departures at the level of f32 roundoff: the
-// exp is exp2 with scale*log2(e) folded into one FMA, each row's 1/l is
-// taken once and multiplied in, and l is summed tile by tile, rescaled as
-// the running max moves, where JAX sums exp(s - max) over the whole row
-// once. A single online-softmax pass would round P before it is normalised,
-// and rowsum(dO * O) in place of rowsum(P * dP) would move the backward's
-// rounding; neither is taken. Keys >= S get P = 0 (JAX's valid_len mask) and
-// queries >= S are never written: the ragged last tile is zero-filled in
-// shared memory and masked, no padding copy is made. No atomics: two runs
-// give the same bits.
+// exp is exp2 (ex2.approx) with scale*log2(e) folded into one FMA, each
+// row's 1/l is taken once and multiplied in, and l is summed tile by tile,
+// rescaled as the running max moves, where JAX sums exp(s - max) over the
+// whole row once. A single online-softmax pass would round P before it is
+// normalised, and rowsum(dO * O) in place of rowsum(P * dP) would move the
+// backward's rounding; neither is taken. Keys >= S get P = 0 (JAX's
+// valid_len mask); queries >= S are never written. No atomics: two runs give
+// the same bits.
 //
 // Bound on an H100 at dinov2-small, 504² input (S = 1297, 6 heads of 64):
 // JAX's counts, 4*B*H*S^2*dh FLOPs forward and 10*B*H*S^2*dh backward
 // (0.084 and 0.209 ms at B = 32), bound by operations from batch 1. The
-// exact rowsum and the normalised P cost recomputation: the kernels execute
+// normalised P and the exact rowsum cost recomputation: the kernels execute
 // 6 (forward: Q K^T in both passes) and 18 (backward: Q K^T and dO V^T in
-// both dq passes and again in dkv) B*H*S^2*dh FLOPs, ops/attention.py's
-// flash_cost. What bounds them on the card is the rate of those products
-// and the per-score arithmetic (an exp and a few FMAs on each of S^2 scores
-// per pass). The design, for the tensor cores' register-level rate:
+// both dq passes and again in dkv) B*H*S^2*dh FLOPs (ops/attention.py's
+// flash_cost), 0.125 and 0.376 ms at 989 TFLOP/s. Beside the products each
+// score takes an exp in each pass (two forward, three backward: 0.65 and
+// 0.97 G ex2 at B = 32, ~0.16 and ~0.23 ms at 16 a clock an SM), so the
+// special-function unit is a floor of its own, and the exps only hide
+// behind the products where one warpgroup's softmax runs while another's
+// products do. The design (the mma.sync register tiles, two-stage cp.async
+// ring and four-warp blocks it replaced ran the products at 237-248
+// TFLOP/s):
 //
-//   - mma.sync.m16n8k16 (bf16 in, f32 accumulate) through inline PTX, whose
-//     fragment layout is documented: scores, P, dP and dS never leave
-//     registers. A warp owns 16 rows; the row max and sum reduce over the
-//     quad of lanes that holds a row. The f32 accumulator of Q K^T (or
-//     K Q^T) is packed to bf16 pairs in place as the A operand of P V,
-//     dS K, P^T dO and dS^T Q.
-//   - K and V tiles (Q and dO in the dkv kernel) arrive by cp.async in a
-//     ring of two stages: the next tile's copy runs while the tensor cores
-//     work on the current one (the forward's second pass starts its first
-//     tile's copy during the first pass's last). Operands reach registers by
-//     ldmatrix (.trans for the k-major B operands) from rows padded by 16
-//     bytes, so the eight rows of an 8x8 matrix fall in different banks.
-//   - exp2 (ex2.approx.ftz) of one FMA per score; one reciprocal per row.
-//   - Tiles (measured on an H100 80GB HBM3 at 700 W at S = 1297, dh = 64,
-//     chip_smoke.py's flash phase): 64 keys per streamed tile and 4 warps a
-//     block throughout; the forward takes 64 query rows a block (MT = 1:
-//     126 blocks at B = 1 on 132 SMs, 0.034 ms against 0.047 for 66
-//     128-row blocks) where 128-row blocks would leave fewer than two
-//     blocks per SM, else 128 (MT = 2: each ldmatrix'd K and V fragment
-//     feeds two row tiles and the K/V traffic per query halves; 0.129
-//     against 0.141 ms at B = 8, 0.500 against 0.515 at B = 32). The
-//     backward pair runs 64-row tiles (126 blocks each at B = 1): its
-//     accumulators (dk and dv, or S, dP and dq) already take 168-245
-//     registers a thread, no room for a second row tile.
+//   - Every product is a wgmma (bf16 in, f32 accumulate). Q K^T, dO V^T,
+//     K Q^T and V dO^T read both operands K-major from shared memory, as
+//     TMA lays the tiles down; their first k16 step zeroes the accumulator
+//     (an instruction writing it while wgmmas are in flight would make the
+//     compiler serialise them). P V, dS K, P^T dO and dS^T Q take P or dS as
+//     the A operand straight from registers: the f32 accumulator of an
+//     m64n64 product holds, in each 16-column group, exactly the A fragment
+//     of one k16 step, so no score, P or dS goes to shared memory; the
+//     other operand is read MN-major through the transpose bit.
+//   - Warp-specialised blocks: consumer warpgroups of 64 rows each (query
+//     rows in the forward and dq kernels, key rows in dkv; NWG of them in
+//     the forward, one in the backward pair) and a producer
+//     whose one thread keeps TMA loads in flight through a ring of stages
+//     with full and empty mbarriers (in dkv the producer warp also writes
+//     each query tile's (m*log2e, 1/l, rowsum) triple beside it: the stats
+//     rows of S f32 values are not 16-byte strided, so TMA cannot load
+//     them).
+//   - Overlap across blocks, not inside one: a tile's P V (dS K, P^T dO and
+//     dS^T Q) runs on while the next tile's scores are issued, and the
+//     wait for those retires it; the exps of one block run beside the
+//     products of the other blocks on the SM. The 64-row form (NWG = 1,
+//     one producer warp) fits three forward or dq blocks an SM (four- and
+//     three-stage rings, at most 136 registers a thread) and two dkv
+//     blocks. On an H100 it beat, at every measured shape, the 128-row
+//     form (NWG = 2: the producer a whole warpgroup that hands its
+//     registers to the consumers, setmaxnreg 40 / 232, one block an SM)
+//     and a software-pipelined loop that issued tile t + 1's scores before
+//     tile t's exps (double the score registers, two blocks an SM): 0.43
+//     against 0.57 ms forward, 1.13 against 1.17 ms backward, for the
+//     128-row form at (32, 6, 1297, 64) (chip_smoke.py's flash phase; see
+//     PERF.md). So every launch takes 64 rows; the forward's 128-row form
+//     is kept for that measurement (dp_flash_fwd_rows), the backward pair
+//     has the 64-row form alone.
+//   - Tensor maps are 4-D (dh, S, H, B) over the operand's strides: S is a
+//     dimension of its own, so TMA zero-fills the ragged last tile (never
+//     the next sample's rows) and clips the stores of rows >= S; both
+//     layouts (the standalone (B, H, S, dh) and the chains' packed qkv
+//     (B, S, 3D) with ctx (B, S, D)) are the same map with other strides.
+//     Boxes of 64 rows by dh, swizzled as wide as a head row (128 bytes at
+//     dh = 64, 64 at dh = 32). Maps are cached per (address, geometry).
+//     Outputs leave through a resident tile no product reads any more by
+//     TMA stores.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include <mutex>
+#include <type_traits>
+
 #include "flash_kernels.cuh"
+#include "hopper.cuh"
 
 typedef __nv_bfloat16 bf16;
 
 namespace dp_flash {
 namespace {
 
-constexpr int WARPS = 4;
-constexpr int THREADS = 32 * WARPS;
-constexpr int FK = 64;   // keys (queries in the dkv kernel) per streamed tile
-constexpr int PAD = 8;   // bf16 row padding: 16 bytes, conflict-free ldmatrix
+using namespace dp_hopper;
+
+constexpr int WGT = 128;   // threads of a warpgroup
+constexpr int TR = 64;     // rows of a tile: one wgmma M, one TMA box
 constexpr float LOG2E = 1.4426950408889634f;
 
+// A 64-row tile of head rows (dh bf16 values, RB bytes), as TMA lays it
+// down: 16-byte chunk j of row r at chunk j ^ (r % 8) (128-byte rows) or
+// j ^ ((r / 2) % 4) (64-byte rows).
 template <int DH>
-constexpr size_t tile_bytes(int rows) {
-  return static_cast<size_t>(rows) * (DH + PAD) * sizeof(bf16);
-}
-// Q tile + two stages of K and V.
-template <int DH, int MT>
-constexpr size_t fwd_smem() { return tile_bytes<DH>(64 * MT) + 4 * tile_bytes<DH>(FK); }
-// Q and dO tiles + two stages of K and V.
+struct Tile {
+  static constexpr int RB = DH * 2;
+  static constexpr int BYTES = TR * RB;
+  static constexpr uint64_t LAYOUT = DH == 64 ? 1 : 2;  // wgmma's 128- or 64-byte swizzle
+  static constexpr uint64_t K_STEP = 32 >> 4;           // a K-major k16 step, 16-byte units
+  // The wgmma descriptor of the tile at addr: K-major (the reduction along
+  // each row) or MN-major (the reduction down the rows, one atom of dh
+  // columns).
+  __device__ static uint64_t desc(uint32_t addr, bool mn) {
+    const uint32_t lbo = mn ? BYTES : 16, sbo = 8 * RB;
+    return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(lbo >> 4) << 16) |
+           (static_cast<uint64_t>(sbo >> 4) << 32) | (LAYOUT << 62);
+  }
+  // The offset of lane's 4-byte pair in 16-byte chunk j of row r.
+  __device__ static uint32_t pair(int j, int r, int lane) {
+    const int sw = DH == 64 ? (r & 7) : ((r >> 1) & 3);
+    return r * RB + ((j ^ sw) << 4) + (lane & 3) * 4;
+  }
+};
+
+// The block's threads: NWG consumer warpgroups, then the producer (a
+// whole warpgroup that hands its registers over at NWG = 2, else one warp).
+constexpr int threads_of(int nwg) { return nwg * WGT + (nwg > 1 ? WGT : 32); }
+
+// Shared memory: the block's resident tiles (RES of them: Q, or Q and dO,
+// or K and V, NWG each), the ring of STAGES stages of two tiles, EXTRA
+// bytes a stage beside the ring (dkv's statistics), then the barriers
+// (resident, full[STAGES], empty[STAGES]), after slack to align the tiles to
+// 1024 bytes.
+template <int DH, int NWG, int RES, int EXTRA, int NS, int BLOCKS>
+struct Layout {
+  using T = Tile<DH>;
+  static constexpr int STAGES = NS;
+  // Blocks an SM the kernel is built for: one at NWG = 2, else BLOCKS.
+  static constexpr int MIN_BLOCKS = NWG > 1 ? 1 : BLOCKS;
+  static constexpr int RING = RES * NWG * T::BYTES;
+  static constexpr int STAGE = 2 * T::BYTES;
+  static constexpr int SIDE = RING + STAGES * STAGE;
+  static constexpr int BARS = SIDE + STAGES * EXTRA;
+  static constexpr size_t SMEM = BARS + (1 + 2 * STAGES) * 8 + 1024;
+};
+// Stages and blocks an SM: the forward and dq kernels fit three one-
+// warpgroup blocks an SM (shared memory and 136 registers a thread), dkv,
+// whose accumulators take more registers, two.
+template <int DH, int NWG>
+using FwdLayout = Layout<DH, NWG, 1, 0, 4, 3>;
 template <int DH>
-constexpr size_t dq_smem() { return 2 * tile_bytes<DH>(64) + 4 * tile_bytes<DH>(FK); }
-// K and V tiles + two stages of Q and dO + two stages of the queries'
-// (m * log2e, 1/l, rowsum) triples.
+using DqLayout = Layout<DH, 1, 2, 0, 3, 3>;
+constexpr int STAT_BYTES = 3 * TR * 4;  // (m*log2e, 1/l, rowsum) of 64 queries
 template <int DH>
-constexpr size_t dkv_smem() {
-  return 2 * tile_bytes<DH>(64) + 4 * tile_bytes<DH>(FK) + 2 * 3 * FK * sizeof(float);
+using DkvLayout = Layout<DH, 1, 2, STAT_BYTES, 4, 2>;
+
+// Each instance fits a block's dynamic shared memory on an H100 (232,448
+// bytes), and the blocks an SM it is built for fit the SM's 233,472 bytes,
+// of which each resident block reserves 1 KB.
+template <typename L>
+constexpr bool fits_sm() {
+  return L::SMEM <= 232448 && L::MIN_BLOCKS * (L::SMEM + 1024) <= 233472;
+}
+static_assert(fits_sm<FwdLayout<64, 1>>() && fits_sm<FwdLayout<64, 2>>() &&
+                  fits_sm<FwdLayout<32, 1>>() && fits_sm<FwdLayout<32, 2>>(),
+              "a forward instance does not fit shared memory");
+static_assert(fits_sm<DqLayout<64>>() && fits_sm<DqLayout<32>>() && fits_sm<DkvLayout<64>>() &&
+                  fits_sm<DkvLayout<32>>(),
+              "a backward instance does not fit shared memory");
+static_assert(FwdLayout<64, 1>::STAGES >= 3 && DqLayout<64>::STAGES >= 3 &&
+                  DkvLayout<64>::STAGES >= 3,
+              "a ring holds at least three stages");
+
+// D (64 x 32 f32) += A (64 x 16 bf16, four registers a thread in the
+// accumulator's layout: rows lane/4 and +8, columns 2*(lane%4) and +8) * B
+// (16 x 32) from shared memory, B MN-major.
+__device__ __forceinline__ void wgmma_rs_n32(float* d, const uint32_t* a, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
-__device__ __forceinline__ uint32_t smem_u32(const void* ptr) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(ptr));
+// D (64 x 64 f32) += A (64 x 16, registers, as wgmma_rs_n32) * B (16 x 64).
+__device__ __forceinline__ void wgmma_rs_n64(float* d, const uint32_t* a, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
-               "r"(valid ? 16 : 0));
-}
-__device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int N>
-__device__ __forceinline__ void cp_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-
-// c (16 x 8, f32) += a (16 x 16, bf16) b (16 x 8, bf16).
-__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                    uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+// Keeps the compiler from reusing an A fragment's registers before the
+// wgmma that reads them has been waited for.
+template <int R>
+__device__ __forceinline__ void fence_frag(uint32_t* a) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+r"(a[i])::"memory");
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -157,139 +243,6 @@ __device__ __forceinline__ float ex2(float x) {
   return y;
 }
 
-// The mma fragments (lane = 4*g + t): an accumulator c of a 16 x 8 tile holds
-// (row g, cols 2t, 2t+1) in c[0..1] and (row g+8, the same cols) in c[2..3];
-// an A operand a[0..3] = (row g, k 2t..), (row g+8, k 2t..), (row g,
-// k 2t+8..), (row g+8, k 2t+8..); a B operand b[0..1] = (k 2t.., col g),
-// (k 2t+8.., col g).
-
-// rows [r0, r0 + ROWS) of a (., DH) slab with row stride ld into a padded
-// shared tile, asynchronously; rows >= S are zero-filled.
-template <int DH, int ROWS>
-__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src, long long ld, int r0,
-                                          int S) {
-  constexpr int VPR = DH / 8;  // 16-byte vectors per row
-  static_assert(ROWS * VPR % THREADS == 0, "tile vectors must split evenly over the block");
-  const uint32_t base = smem_u32(dst);
-#pragma unroll
-  for (int k = 0; k < ROWS * VPR / THREADS; ++k) {
-    const int i = threadIdx.x + k * THREADS;
-    const int r = i / VPR, c = (i % VPR) * 8;
-    const bool valid = r0 + r < S;
-    cp_async16(base + (r * (DH + PAD) + c) * 2, valid ? src + (r0 + r) * ld + c : src, valid);
-  }
-}
-
-// The A operand of rows [r0, r0 + 16), k [k0, k0 + 16) of a row-major tile.
-template <int DH>
-__device__ __forceinline__ void lds_a(uint32_t (&a)[4], const bf16* tile, int r0, int k0) {
-  const int lane = threadIdx.x & 31;
-  ldsm_x4(a, smem_u32(tile + (r0 + (lane & 7) + ((lane >> 3) & 1) * 8) * (DH + PAD) + k0 +
-                      (lane >> 4) * 8));
-}
-
-// B operands of two 8-column tiles, cols [n0, n0 + 16), from a tile whose
-// rows are the columns (K for Q K^T): b[0..1] cols n0.., b[2..3] n0 + 8...
-template <int DH>
-__device__ __forceinline__ void lds_b_nk(uint32_t (&b)[4], const bf16* tile, int n0, int k0) {
-  const int lane = threadIdx.x & 31;
-  ldsm_x4(b, smem_u32(tile + (n0 + (lane & 7) + (lane >> 4) * 8) * (DH + PAD) + k0 +
-                      ((lane >> 3) & 1) * 8));
-}
-
-// B operands of two 8-column tiles from a tile whose rows are k (V for P V).
-template <int DH>
-__device__ __forceinline__ void lds_b_kn(uint32_t (&b)[4], const bf16* tile, int k0, int n0) {
-  const int lane = threadIdx.x & 31;
-  ldsm_x4_t(b, smem_u32(tile + (k0 + (lane & 7) + ((lane >> 3) & 1) * 8) * (DH + PAD) + n0 +
-                        (lane >> 4) * 8));
-}
-
-// s[mt] (16 x 64, f32) = a[mt] (16 x DH) times the 64 rows of tile
-// transposed: Q K^T, dO V^T, K Q^T or V dO^T for MT row tiles.
-template <int DH, int MT>
-__device__ __forceinline__ void rows_times_tile_t(float (&s)[MT][FK / 8][4],
-                                                  const uint32_t (&a)[MT][DH / 16][4],
-                                                  const bf16* tile) {
-#pragma unroll
-  for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-    for (int j = 0; j < FK / 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[mt][j][e] = 0.f;
-#pragma unroll
-  for (int kk = 0; kk < DH / 16; ++kk) {
-#pragma unroll
-    for (int j2 = 0; j2 < FK / 16; ++j2) {
-      uint32_t b[4];
-      lds_b_nk<DH>(b, tile, 16 * j2, 16 * kk);
-#pragma unroll
-      for (int mt = 0; mt < MT; ++mt) {
-        mma(s[mt][2 * j2], a[mt][kk], b[0], b[1]);
-        mma(s[mt][2 * j2 + 1], a[mt][kk], b[2], b[3]);
-      }
-    }
-  }
-}
-
-// acc[mt] (16 x DH) += p[mt] (16 x 64 as bf16 A operands) times tile
-// (64 x DH): P V, dS K, P^T dO, dS^T Q.
-template <int DH, int MT>
-__device__ __forceinline__ void rows_times_tile(float (&acc)[MT][DH / 8][4],
-                                                const uint32_t (&p)[MT][FK / 16][4],
-                                                const bf16* tile) {
-#pragma unroll
-  for (int kk = 0; kk < FK / 16; ++kk) {
-#pragma unroll
-    for (int j2 = 0; j2 < DH / 16; ++j2) {
-      uint32_t b[4];
-      lds_b_kn<DH>(b, tile, 16 * kk, 16 * j2);
-#pragma unroll
-      for (int mt = 0; mt < MT; ++mt) {
-        mma(acc[mt][2 * j2], p[mt][kk], b[0], b[1]);
-        mma(acc[mt][2 * j2 + 1], p[mt][kk], b[2], b[3]);
-      }
-    }
-  }
-}
-
-// The A operand of the 16 x 64 product's k chunk kk from its accumulator:
-// an accumulator's column pairs are an A operand's k pairs.
-__device__ __forceinline__ void to_a(uint32_t (&a)[4], const float (&s)[FK / 8][4], int kk) {
-  a[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-  a[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-  a[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-  a[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-}
-
-template <int DH, int MT>
-__device__ __forceinline__ void zero(float (&acc)[MT][DH / 8][4]) {
-#pragma unroll
-  for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-    for (int j = 0; j < DH / 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mt][j][e] = 0.f;
-}
-
-// Rounds a warp's 16 x DH accumulator (times scale) to bf16 rows
-// dst + r*ld, r = row0 + (g, g + 8) for r < S.
-template <int DH>
-__device__ __forceinline__ void store_rows(bf16* dst, long long ld, int row0, int S,
-                                           const float (&acc)[DH / 8][4], float scale) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int hr = 0; hr < 2; ++hr) {
-    const int r = row0 + g + 8 * hr;
-    if (r >= S) continue;
-    bf16* row = dst + r * ld + 2 * t;
-#pragma unroll
-    for (int j = 0; j < DH / 8; ++j)
-      *reinterpret_cast<uint32_t*>(row + 8 * j) =
-          pack_bf16(acc[j][2 * hr] * scale, acc[j][2 * hr + 1] * scale);
-  }
-}
-
 __device__ __forceinline__ float quad_max(float x) {
   x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
   return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
@@ -299,395 +252,688 @@ __device__ __forceinline__ float quad_sum(float x) {
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
-// Columns of a 64-wide tile at or past valid (keys >= S) to -inf.
-template <int MT>
-__device__ __forceinline__ void mask_cols(float (&s)[MT][FK / 8][4], int valid) {
-  const int t = threadIdx.x & 3;
-#pragma unroll
-  for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-    for (int j = 0; j < FK / 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        if (8 * j + 2 * t + (e & 1) >= valid) s[mt][j][e] = -INFINITY;
+// One 4-D TMA tile store from shared memory (a bulk group); elements past
+// the tensor's edge (rows >= S) are not written.
+__device__ __forceinline__ void tma_store4(const CUtensorMap* map, uint32_t src, int c0, int c1,
+                                           int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group [%0, {%2, %3, %4, %5}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
 }
 
-template <int DH, int MT>
-__global__ void __launch_bounds__(THREADS) flash_fwd_kernel(const Params p) {
-  constexpr int BQ = 64 * MT, LD = DH + PAD;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem);
-  bf16* Ks = Qs + BQ * LD;      // two stages
-  bf16* Vs = Ks + 2 * FK * LD;  // two stages
+// Fetches the tensor maps' descriptors ahead of their first load.
+__device__ __forceinline__ void prefetch_map(const CUtensorMap* map) {
+  asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(map)) : "memory");
+}
+template <typename... Maps>
+__device__ __forceinline__ void prefetch_maps(const Maps*... maps) {
+  (prefetch_map(maps), ...);
+}
 
-  const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * BQ, S = p.S;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int wr = warp * 16 * MT;
-  const long long in_base = b * p.in_b + h * p.in_h;
-  const bf16* kg = p.k + in_base;
-  const bf16* vg = p.v + in_base;
-  const int nt = (S + FK - 1) / FK;
-  const float c = p.scale * LOG2E;
+// A 64-row tile of the (dh, S, H, B) operand at map into shared memory.
+__device__ __forceinline__ void load_rows(uint32_t dst, const CUtensorMap* map, uint32_t bar, int r0,
+                                          int h, int b) {
+  tma_load4(dst, map, bar, 0, r0, h, b);
+}
 
-  // Step i < nt streams key tile i for pass 1 (K), step nt + t tile t for
-  // pass 2 (K and V), into stage i & 1; step i + 1's copy is issued before
-  // step i's products.
-  auto prefetch = [&](int i) {
-    const int t = i < nt ? i : i - nt;
-    load_tile<DH, FK>(Ks + (i & 1) * FK * LD, kg, p.in_r, t * FK, S);
-    if (i >= nt) load_tile<DH, FK>(Vs + (i & 1) * FK * LD, vg, p.in_r, t * FK, S);
-    cp_commit();
-  };
-  load_tile<DH, BQ>(Qs, p.q + in_base, p.in_r, q0, S);
-  prefetch(0);
+// The accumulator of an m64n64 product: value i of a thread lies in row
+// (i / 2) % 2 of its two (16*warp + lane/4 and 8 below it) and at column
+// 8*(i/4) + 2*(lane%4) + i%2.
+__device__ __forceinline__ int score_col(int i, int lane) { return 8 * (i >> 2) + 2 * (lane & 3) + (i & 1); }
 
-  uint32_t qa[MT][DH / 16][4];
-  float m[MT][2], l[MT][2];
+// D (64 x 64 f32) = A (64 x 16) * B (16 x 64) + (acc ? D : 0), both read
+// K-major from shared memory through their descriptors. The first k16 step
+// of a product passes acc = 0 in place of zeroing D: an instruction that
+// writes an accumulator while wgmmas are in flight makes the compiler
+// serialise them.
+__device__ __forceinline__ void wgmma_ss_n64(float* d, uint64_t da, uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(acc));
+}
+
+// d (64 x 64) = A B^T for the K-major tiles at a and b, into the open wgmma
+// group: Q K^T, dO V^T, K Q^T, V dO^T.
+template <int DH>
+__device__ __forceinline__ void issue_nt(float* d, uint32_t a, uint32_t b) {
+  using T = Tile<DH>;
+  const uint64_t da = T::desc(a, false), db = T::desc(b, false);
 #pragma unroll
-  for (int mt = 0; mt < MT; ++mt)
+  for (int kk = 0; kk < DH / 16; ++kk)
+    wgmma_ss_n64(d, da + kk * T::K_STEP, db + kk * T::K_STEP, kk > 0);
+}
+
+// d (64 x DH) += p (64 x 64, four k16 A fragments of four registers) times
+// the tile at t (64 x DH, MN-major), into the open wgmma group: P V, dS K,
+// P^T dO, dS^T Q.
+template <int DH>
+__device__ __forceinline__ void issue_pv(float* d, const uint32_t* p, uint32_t t) {
+  using T = Tile<DH>;
 #pragma unroll
-    for (int hr = 0; hr < 2; ++hr) {
-      m[mt][hr] = -INFINITY;
-      l[mt][hr] = 0.f;
+  for (int g = 0; g < 4; ++g) {
+    if constexpr (DH == 64)
+      wgmma_rs_n64(d, p + 4 * g, T::desc(t + g * 16 * T::RB, true));
+    else
+      wgmma_rs_n32(d, p + 4 * g, T::desc(t + g * 16 * T::RB, true));
+  }
+}
+
+// d (64 x 64) = A B^T for the K-major tiles at a and b as one wgmma group,
+// committed and not waited for.
+template <int DH>
+__device__ __forceinline__ void start_nt(float* d, uint32_t a, uint32_t b) {
+  fence_acc<32>(d);
+  wgmma_fence();
+  issue_nt<DH>(d, a, b);
+  wgmma_commit();
+  fence_acc<32>(d);
+}
+
+// The warpgroup's 64 x DH accumulator times mul, rounded to bf16, through
+// the staging tile at stage (a resident tile no product reads any more) and
+// out by one TMA store to rows [r0, r0 + 64) of head h of sample b of map.
+template <int DH>
+__device__ __forceinline__ void store_tile(const float* o, float mul, uint32_t stage,
+                                           const CUtensorMap* map, int r0, int h, int b, int row,
+                                           int lane, bool signal, int bar_id) {
+  using T = Tile<DH>;
+  warpgroup_sync(bar_id);
+#pragma unroll
+  for (int j = 0; j < DH / 8; ++j) {
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh)
+      st_shared(stage + T::pair(j, row + 8 * hh, lane),
+                pack_bf16(o[4 * j + 2 * hh] * mul, o[4 * j + 2 * hh + 1] * mul));
+  }
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  warpgroup_sync(bar_id);
+  if (signal) {
+    tma_store4(map, stage, 0, r0, h, b);
+    asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+  }
+}
+
+template <int STAGES>
+__device__ __forceinline__ void init_bars(uint32_t bars, uint32_t full_count, uint32_t empty_count) {
+  if (threadIdx.x == 0) {
+    mbar_init(bars, 1);
+    for (int i = 0; i < STAGES; ++i) {
+      mbar_init(bars + 8 + 8 * i, full_count);
+      mbar_init(bars + 8 + 8 * STAGES + 8 * i, empty_count);
     }
-  float s[MT][FK / 8][4];
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+}
+
+// The producer's step i into stage i % STAGES: once the consumers have
+// released the stage's previous contents, arm its full barrier for bytes.
+template <int STAGES>
+__device__ __forceinline__ uint32_t claim(uint32_t full, uint32_t empty, int i, uint32_t bytes) {
+  const int st = i % STAGES;
+  bar_wait(empty + 8 * st, ((i / STAGES) & 1) ^ 1);
+  mbar_expect_tx(full + 8 * st, bytes);
+  return full + 8 * st;
+}
+
+template <int DH, int NWG>
+__global__ void __launch_bounds__(threads_of(NWG), FwdLayout<DH, NWG>::MIN_BLOCKS)
+flash_fwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                 const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap to,
+                 float* __restrict__ stats, int S, int H, float scale) {
+  using T = Tile<DH>;
+  using L = FwdLayout<DH, NWG>;
+  constexpr int STAGES = L::STAGES;
+  extern __shared__ unsigned char flash_smem[];
+  const uint32_t base = (smem_addr(flash_smem) + 1023u) & ~1023u;
+  const uint32_t ring = base + L::RING, bars = base + L::BARS;
+  const uint32_t full = bars + 8, empty = bars + 8 + 8 * STAGES;
+  const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * TR * NWG;
+  const int nt = (S + TR - 1) / TR;
+  const int wg = threadIdx.x / WGT;
+  init_bars<STAGES>(bars, 1, NWG);
+
+  if (wg == NWG) {
+    // Producer: the block's query tiles once, then key tile t of pass 1
+    // (K) at step t and of pass 2 (K and V) at step nt + t.
+    if (NWG > 1) asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (threadIdx.x == NWG * WGT) {
+      prefetch_maps(&tq, &tk, &tv);
+      mbar_expect_tx(bars, NWG * T::BYTES);
+      for (int w = 0; w < NWG; ++w) load_rows(base + w * T::BYTES, &tq, bars, q0 + TR * w, h, b);
+      for (int i = 0; i < 2 * nt; ++i) {
+        const int t = i < nt ? i : i - nt;
+        const uint32_t ks = ring + (i % STAGES) * L::STAGE;
+        // With one key tile pass 2 reuses pass 1's scores: V alone.
+        const bool k_tile = i < nt || nt > 1;
+        const uint32_t bar = claim<STAGES>(full, empty, i, (k_tile + (i >= nt)) * T::BYTES);
+        if (k_tile) load_rows(ks, &tk, bar, t * TR, h, b);
+        if (i >= nt) load_rows(ks + T::BYTES, &tv, bar, t * TR, h, b);
+      }
+    }
+    return;
+  }
+  if (NWG > 1) asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+  const int tid = threadIdx.x % WGT, lane = tid & 31, row = (tid >> 5) * 16 + (lane >> 2);
+  const bool signal = tid == 0;
+  const uint32_t qs = base + wg * T::BYTES;
+  const float c = scale * LOG2E;
+  bar_wait(bars, 0);
+
+  // Scores of step i's K tile into d, issued as one wgmma group (not
+  // waited for), once the tile has landed.
+  auto start = [&](float* d, int i) {
+    const int st = i % STAGES;
+    bar_wait(full + 8 * st, (i / STAGES) & 1);
+    start_nt<DH>(d, qs, ring + st * L::STAGE);
+  };
 
   // Pass 1: each row's max (of the raw products: max commutes with the
   // positive scale) and its sum of exp2((s - m) * scale * log2e), a
   // partial sum per lane, rescaled as the max moves.
-  for (int i = 0; i < nt; ++i) {
-    prefetch(i + 1);
-    cp_wait<1>();
-    __syncthreads();
-    if (i == 0) {
-#pragma unroll
-      for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-        for (int kk = 0; kk < DH / 16; ++kk) lds_a<DH>(qa[mt][kk], Qs, wr + 16 * mt, 16 * kk);
-    }
-    rows_times_tile_t<DH, MT>(s, qa, Ks + (i & 1) * FK * LD);
-    if (i * FK + FK > S) mask_cols<MT>(s, S - i * FK);
-#pragma unroll
-    for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-      for (int hr = 0; hr < 2; ++hr) {
-        float mx = -INFINITY;
-#pragma unroll
-        for (int j = 0; j < FK / 8; ++j)
-          mx = fmaxf(mx, fmaxf(s[mt][j][2 * hr], s[mt][j][2 * hr + 1]));
-        const float mnew = fmaxf(m[mt][hr], quad_max(mx));  // finite: a tile holds a key
-        const float mc = mnew * c;
-        float sum = 0.f;
-#pragma unroll
-        for (int j = 0; j < FK / 8; ++j)
-          sum += ex2(fmaf(s[mt][j][2 * hr], c, -mc)) + ex2(fmaf(s[mt][j][2 * hr + 1], c, -mc));
-        l[mt][hr] = l[mt][hr] * ex2((m[mt][hr] - mnew) * c) + sum;
-        m[mt][hr] = mnew;
-      }
-    __syncthreads();
-  }
-
-  float mc[MT][2], rl[MT][2];
-#pragma unroll
-  for (int mt = 0; mt < MT; ++mt)
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  auto stats_of = [&](auto ragged, float* sc, int valid) {
 #pragma unroll
     for (int hr = 0; hr < 2; ++hr) {
-      l[mt][hr] = quad_sum(l[mt][hr]);
-      mc[mt][hr] = m[mt][hr] * c;
-      rl[mt][hr] = 1.f / l[mt][hr];
+      float v[16];
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        const int k = 4 * (j >> 1) + 2 * hr + (j & 1);
+        v[j] = !decltype(ragged)::value || score_col(k, lane) < valid ? sc[k] : -INFINITY;
+      }
+      float mx = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < 16; ++j) mx = fmaxf(mx, v[j]);
+      const float mnew = fmaxf(m[hr], quad_max(mx));  // finite: a tile holds a key
+      const float mc = mnew * c;
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < 16; j += 2) {
+        const float e0 = ex2(fmaf(v[j], c, -mc)), e1 = ex2(fmaf(v[j + 1], c, -mc));
+        sum += e0 + e1;
+        // The exps in place of the scores: at one key tile they are pass
+        // 2's, bit for bit (the same max); past it pass 2 recomputes.
+        sc[4 * (j >> 1) + 2 * hr] = e0;
+        sc[4 * (j >> 1) + 2 * hr + 1] = e1;
+      }
+      l[hr] = l[hr] * ex2((m[hr] - mnew) * c) + sum;
+      m[hr] = mnew;
     }
-
-  // Pass 2: O = bf16(P) V with P = exp2((s - m) * c) * (1/l), in f32.
-  float o[MT][DH / 8][4];
-  zero<DH, MT>(o);
-  for (int t = 0; t < nt; ++t) {
-    const int i = nt + t;
-    if (t + 1 < nt) {
-      prefetch(i + 1);
-      cp_wait<1>();
-    } else {
-      cp_wait<0>();
-    }
-    __syncthreads();
-    rows_times_tile_t<DH, MT>(s, qa, Ks + (i & 1) * FK * LD);
-    if (t * FK + FK > S) mask_cols<MT>(s, S - t * FK);
-    uint32_t pa[MT][FK / 16][4];
+  };
+  auto row_stats = [&](float* sc, int i) {
+    fence_acc<32>(sc);
+    if (signal) mbar_arrive(empty + 8 * (i % STAGES));
+    if (S - i * TR < TR)
+      stats_of(std::true_type(), sc, S - i * TR);
+    else
+      stats_of(std::false_type(), sc, TR);
+  };
+  float s2[32] = {};
+  for (int i = 0; i < nt; ++i) {
+    start(s2, i);
+    wgmma_wait<0>();
+    row_stats(s2, i);
+  }
+  float mc[2], rl[2];
 #pragma unroll
-    for (int mt = 0; mt < MT; ++mt) {
-#pragma unroll
-      for (int j = 0; j < FK / 8; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          s[mt][j][e] = ex2(fmaf(s[mt][j][e], c, -mc[mt][e >> 1])) * rl[mt][e >> 1];
-#pragma unroll
-      for (int kk = 0; kk < FK / 16; ++kk) to_a(pa[mt][kk], s[mt], kk);
-    }
-    rows_times_tile<DH, MT>(o, pa, Vs + (i & 1) * FK * LD);
-    __syncthreads();
+  for (int hr = 0; hr < 2; ++hr) {
+    l[hr] = quad_sum(l[hr]);
+    mc[hr] = m[hr] * c;
+    rl[hr] = 1.f / l[hr];
   }
 
-  bf16* og = p.o + b * p.out_b + h * p.out_h;
+  // Pass 2: O = bf16(P) V with P = exp2(s * c - m * c) * (1/l), in f32.
+  // A tile's P V runs on while the next tile's scores are issued; their
+  // wait retires it, and the tile's stage is released then. With one key
+  // tile (S <= 64: FastViT's attention) pass 1's exps are still in the
+  // registers, the same bits pass 2 would compute again: only V is loaded
+  // and waited for.
+  float o[DH / 2];
 #pragma unroll
-  for (int mt = 0; mt < MT; ++mt) {
-    const int r0 = q0 + wr + 16 * mt;
-    store_rows<DH>(og, p.out_r, r0, S, o[mt], 1.f);
-    if (p.stats != nullptr && (lane & 3) == 0) {
-      float* st = p.stats + (static_cast<long long>(b) * p.H + h) * 3 * S;
+  for (int i = 0; i < DH / 2; ++i) o[i] = 0.f;
+  uint32_t p[16];
+  auto probs_of = [&](auto ragged, int valid) {
 #pragma unroll
-      for (int hr = 0; hr < 2; ++hr) {
-        const int q = r0 + (lane >> 2) + 8 * hr;
-        if (q < S) {
-          st[q] = m[mt][hr] * p.scale;
-          st[S + q] = l[mt][hr];
-        }
+    for (int k = 0; k < 32; ++k) {
+      const float pk = ex2(fmaf(s2[k], c, -mc[(k >> 1) & 1])) * rl[(k >> 1) & 1];
+      s2[k] = !decltype(ragged)::value || score_col(k, lane) < valid ? pk : 0.f;
+    }
+  };
+  auto probs = [&](int t) {
+    fence_acc<32>(s2);
+    if (nt == 1) {
+#pragma unroll
+      for (int k = 0; k < 32; ++k) s2[k] *= rl[(k >> 1) & 1];  // keys >= S: exps of -inf
+    } else if (S - t * TR < TR)
+      probs_of(std::true_type(), S - t * TR);
+    else
+      probs_of(std::false_type(), TR);
+  };
+  auto round_p = [&]() {
+#pragma unroll
+    for (int j = 0; j < 16; ++j) p[j] = pack_bf16(s2[2 * j], s2[2 * j + 1]);
+  };
+  for (int t = 0; t < nt; ++t) {
+    const int i = nt + t;
+    if (nt == 1) {
+      bar_wait(full + 8 * (i % STAGES), (i / STAGES) & 1);
+    } else {
+      start(s2, i);
+      wgmma_wait<0>();
+    }
+    fence_acc<DH / 2>(o);
+    if (t > 0) fence_frag<16>(p);
+    if (t > 0 && signal) mbar_arrive(empty + 8 * ((i - 1) % STAGES));
+    probs(t);
+    round_p();
+    wgmma_fence();
+    issue_pv<DH>(o, p, ring + (i % STAGES) * L::STAGE + T::BYTES);
+    wgmma_commit();
+    fence_acc<DH / 2>(o);
+  }
+  wgmma_wait<0>();
+  fence_acc<DH / 2>(o);
+  fence_frag<16>(p);
+
+  store_tile<DH>(o, 1.f, qs, &to, q0 + TR * wg, h, b, row, lane, signal, 1 + wg);
+  if (stats != nullptr && (lane & 3) == 0) {
+    float* sp = stats + (static_cast<long long>(b) * H + h) * 3 * S;
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      const int q = q0 + TR * wg + row + 8 * hr;
+      if (q < S) {
+        sp[q] = m[hr] * scale;
+        sp[S + q] = l[hr];
       }
     }
   }
+  if (signal) asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
 }
 
 template <int DH>
-__global__ void __launch_bounds__(THREADS) flash_bwd_dq_kernel(const Params p) {
-  constexpr int LD = DH + PAD;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem);
-  bf16* Os = Qs + 64 * LD;      // dO tile
-  bf16* Ks = Os + 64 * LD;      // two stages
-  bf16* Vs = Ks + 2 * FK * LD;  // two stages
+__global__ void __launch_bounds__(threads_of(1), DqLayout<DH>::MIN_BLOCKS)
+flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                    const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,
+                    const __grid_constant__ CUtensorMap tdq, float* __restrict__ stats, int S,
+                    int H, float scale) {
+  using T = Tile<DH>;
+  using L = DqLayout<DH>;
+  constexpr int STAGES = L::STAGES;
+  extern __shared__ unsigned char flash_smem[];
+  const uint32_t base = (smem_addr(flash_smem) + 1023u) & ~1023u;
+  const uint32_t ring = base + L::RING, bars = base + L::BARS;
+  const uint32_t full = bars + 8, empty = bars + 8 + 8 * STAGES;
+  const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * TR;
+  const int nt = (S + TR - 1) / TR;
+  init_bars<STAGES>(bars, 1, 1);
 
-  const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * 64, S = p.S;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int wr = warp * 16;
-  const long long in_base = b * p.in_b + h * p.in_h;
-  const bf16* kg = p.k + in_base;
-  const bf16* vg = p.v + in_base;
-  float* st = p.stats + (static_cast<long long>(b) * p.H + h) * 3 * S;
-  const int nt = (S + FK - 1) / FK;
-  const float c = p.scale * LOG2E;
-
-  // Step i streams key tile i mod nt (K and V) into stage i & 1: pass 1
-  // for i < nt, pass 2 after.
-  auto prefetch = [&](int i) {
-    const int t = i < nt ? i : i - nt;
-    load_tile<DH, FK>(Ks + (i & 1) * FK * LD, kg, p.in_r, t * FK, S);
-    load_tile<DH, FK>(Vs + (i & 1) * FK * LD, vg, p.in_r, t * FK, S);
-    cp_commit();
-  };
-  load_tile<DH, 64>(Qs, p.q + in_base, p.in_r, q0, S);
-  load_tile<DH, 64>(Os, p.dout + b * p.out_b + h * p.out_h, p.out_r, q0, S);
-  prefetch(0);
-
+  if (threadIdx.x >= WGT) {
+    // Producer warp: the block's Q and dO tiles once, then K and V of key
+    // tile i mod nt at step i (pass 1, then pass 2).
+    if (threadIdx.x == WGT) {
+      prefetch_maps(&tq, &tk, &tv, &tdo);
+      mbar_expect_tx(bars, 2 * T::BYTES);
+      load_rows(base, &tq, bars, q0, h, b);
+      load_rows(base + T::BYTES, &tdo, bars, q0, h, b);
+      for (int i = 0; i < 2 * nt; ++i) {
+        const int t = i < nt ? i : i - nt;
+        const uint32_t ks = ring + (i % STAGES) * L::STAGE;
+        const uint32_t bar = claim<STAGES>(full, empty, i, 2 * T::BYTES);
+        load_rows(ks, &tk, bar, t * TR, h, b);
+        load_rows(ks + T::BYTES, &tv, bar, t * TR, h, b);
+      }
+    }
+    return;
+  }
+  const int tid = threadIdx.x, lane = tid & 31, row = (tid >> 5) * 16 + (lane >> 2);
+  const bool signal = tid == 0;
+  const uint32_t qs = base, os = base + T::BYTES;
+  const float c = scale * LOG2E;
+  float* sp = stats + (static_cast<long long>(b) * H + h) * 3 * S;
   float mc[2], rl[2], rs[2] = {0.f, 0.f};
 #pragma unroll
   for (int hr = 0; hr < 2; ++hr) {
-    const int q = q0 + wr + (lane >> 2) + 8 * hr;
-    mc[hr] = q < S ? st[q] * LOG2E : 0.f;
-    rl[hr] = q < S ? 1.f / st[S + q] : 0.f;
+    const int q = q0 + row + 8 * hr;
+    mc[hr] = q < S ? sp[q] * LOG2E : 0.f;
+    rl[hr] = q < S ? 1.f / sp[S + q] : 0.f;
   }
-  uint32_t qa[1][DH / 16][4], oa[1][DH / 16][4];
-  float s[1][FK / 8][4], dp[1][FK / 8][4];
+  bar_wait(bars, 0);
 
-  // P = exp2(s * c - m * log2e) * (1/l), 0 at keys >= S.
-  auto probs = [&](int k0) {
-    if (k0 + FK > S) mask_cols<1>(s, S - k0);
+  // Scores and dP = dO V^T of step i's K and V tile into sd and dd, one
+  // wgmma group (not waited for), once the tile has landed.
+  auto start = [&](float* sd, float* dd, int i) {
+    const int st = i % STAGES;
+    const uint32_t ks = ring + st * L::STAGE;
+    bar_wait(full + 8 * st, (i / STAGES) & 1);
+    fence_acc<32>(sd);
+    fence_acc<32>(dd);
+    wgmma_fence();
+    issue_nt<DH>(sd, qs, ks);
+    issue_nt<DH>(dd, os, ks + T::BYTES);
+    wgmma_commit();
+    fence_acc<32>(sd);
+    fence_acc<32>(dd);
+  };
+  // P = exp2(s * c - m * log2e) * (1/l) in place of tile t's scores, 0 at
+  // keys >= S.
+  auto probs_of = [&](auto ragged, float* sd, int valid) {
 #pragma unroll
-    for (int j = 0; j < FK / 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[0][j][e] = ex2(fmaf(s[0][j][e], c, -mc[e >> 1])) * rl[e >> 1];
+    for (int k = 0; k < 32; ++k) {
+      const float pk = ex2(fmaf(sd[k], c, -mc[(k >> 1) & 1])) * rl[(k >> 1) & 1];
+      sd[k] = !decltype(ragged)::value || score_col(k, lane) < valid ? pk : 0.f;
+    }
+  };
+  auto probs = [&](float* sd, float* dd, int t) {
+    fence_acc<32>(sd);
+    fence_acc<32>(dd);
+    if (S - t * TR < TR)
+      probs_of(std::true_type(), sd, S - t * TR);
+    else
+      probs_of(std::false_type(), sd, TR);
   };
 
   // Pass 1: rowsum(P * dP) over all keys, in f32.
-  for (int i = 0; i < nt; ++i) {
-    prefetch(i + 1);
-    cp_wait<1>();
-    __syncthreads();
-    if (i == 0) {
+  {
+    float sa[32] = {}, da[32] = {};
+    auto add_rows = [&](float* sd, float* dd, int i) {
+      probs(sd, dd, i);
+      if (signal) mbar_arrive(empty + 8 * (i % STAGES));
 #pragma unroll
-      for (int kk = 0; kk < DH / 16; ++kk) {
-        lds_a<DH>(qa[0][kk], Qs, wr, 16 * kk);
-        lds_a<DH>(oa[0][kk], Os, wr, 16 * kk);
-      }
+      for (int j = 0; j < 32; ++j) rs[(j >> 1) & 1] = fmaf(sd[j], dd[j], rs[(j >> 1) & 1]);
+    };
+    for (int i = 0; i < nt; ++i) {
+      start(sa, da, i);
+      wgmma_wait<0>();
+      add_rows(sa, da, i);
     }
-    rows_times_tile_t<DH, 1>(s, qa, Ks + (i & 1) * FK * LD);
-    rows_times_tile_t<DH, 1>(dp, oa, Vs + (i & 1) * FK * LD);
-    probs(i * FK);
-#pragma unroll
-    for (int j = 0; j < FK / 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) rs[e >> 1] = fmaf(s[0][j][e], dp[0][j][e], rs[e >> 1]);
-    __syncthreads();
   }
 #pragma unroll
   for (int hr = 0; hr < 2; ++hr) {
     rs[hr] = quad_sum(rs[hr]);
-    const int q = q0 + wr + (lane >> 2) + 8 * hr;
-    if ((lane & 3) == 0 && q < S) st[2 * S + q] = rs[hr];
+    const int q = q0 + row + 8 * hr;
+    if ((lane & 3) == 0 && q < S) sp[2 * S + q] = rs[hr];
   }
 
-  // Pass 2: dq = bf16(dS) K * scale, dS = P * (dP - rowsum).
-  float dq[1][DH / 8][4];
-  zero<DH, 1>(dq);
+  // Pass 2: dq = bf16(dS) K * scale, dS = P * (dP - rowsum); a tile's dS K
+  // runs on while the next tile's products are issued.
+  float dq[DH / 2], s[32] = {}, dp[32] = {};
+#pragma unroll
+  for (int i = 0; i < DH / 2; ++i) dq[i] = 0.f;
+  uint32_t f[16];
+  auto grads = [&](int t) {
+    probs(s, dp, t);
+#pragma unroll
+    for (int k = 0; k < 32; ++k) s[k] *= dp[k] - rs[(k >> 1) & 1];
+  };
+  auto round_ds = [&]() {
+#pragma unroll
+    for (int j = 0; j < 16; ++j) f[j] = pack_bf16(s[2 * j], s[2 * j + 1]);
+  };
   for (int t = 0; t < nt; ++t) {
     const int i = nt + t;
-    if (t + 1 < nt) {
-      prefetch(i + 1);
-      cp_wait<1>();
-    } else {
-      cp_wait<0>();
-    }
-    __syncthreads();
-    rows_times_tile_t<DH, 1>(s, qa, Ks + (i & 1) * FK * LD);
-    rows_times_tile_t<DH, 1>(dp, oa, Vs + (i & 1) * FK * LD);
-    probs(t * FK);
-#pragma unroll
-    for (int j = 0; j < FK / 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[0][j][e] *= dp[0][j][e] - rs[e >> 1];
-    uint32_t da[1][FK / 16][4];
-#pragma unroll
-    for (int kk = 0; kk < FK / 16; ++kk) to_a(da[0][kk], s[0], kk);
-    rows_times_tile<DH, 1>(dq, da, Ks + (i & 1) * FK * LD);
-    __syncthreads();
+    start(s, dp, i);
+    wgmma_wait<0>();
+    fence_acc<DH / 2>(dq);
+    if (t > 0) fence_frag<16>(f);
+    if (t > 0 && signal) mbar_arrive(empty + 8 * ((i - 1) % STAGES));
+    grads(t);
+    round_ds();
+    wgmma_fence();
+    issue_pv<DH>(dq, f, ring + (i % STAGES) * L::STAGE);
+    wgmma_commit();
+    fence_acc<DH / 2>(dq);
   }
-  store_rows<DH>(p.dq + in_base, p.in_r, q0 + wr, S, dq[0], p.scale);
+  wgmma_wait<0>();
+  fence_acc<DH / 2>(dq);
+  fence_frag<16>(f);
+  store_tile<DH>(dq, scale, qs, &tdq, q0, h, b, row, lane, signal, 1);
+  if (signal) asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
 }
 
 template <int DH>
-__global__ void __launch_bounds__(THREADS) flash_bwd_dkv_kernel(const Params p) {
-  constexpr int LD = DH + PAD;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* Kt = reinterpret_cast<bf16*>(smem);
-  bf16* Vt = Kt + 64 * LD;
-  bf16* Qs = Vt + 64 * LD;      // two stages
-  bf16* Os = Qs + 2 * FK * LD;  // dO, two stages
-  float* Ls = reinterpret_cast<float*>(Os + 2 * FK * LD);  // two stages of (m*log2e, 1/l, rowsum)
+__global__ void __launch_bounds__(threads_of(1), DkvLayout<DH>::MIN_BLOCKS)
+flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                     const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,
+                     const __grid_constant__ CUtensorMap tdk, const __grid_constant__ CUtensorMap tdv,
+                     const float* __restrict__ stats, int S, int H, float scale) {
+  using T = Tile<DH>;
+  using L = DkvLayout<DH>;
+  constexpr int STAGES = L::STAGES;
+  extern __shared__ unsigned char flash_smem[];
+  const uint32_t base = (smem_addr(flash_smem) + 1023u) & ~1023u;
+  const uint32_t ring = base + L::RING, bars = base + L::BARS;
+  const uint32_t full = bars + 8, empty = bars + 8 + 8 * STAGES;
+  float* side = reinterpret_cast<float*>(flash_smem + (base + L::SIDE - smem_addr(flash_smem)));
+  const int b = blockIdx.z, h = blockIdx.y, k0 = blockIdx.x * TR;
+  const int nt = (S + TR - 1) / TR;
+  // A stage is full once its tiles have landed and each producer lane has
+  // written its share of the statistics (32 arrivals beside the armer's).
+  init_bars<STAGES>(bars, 33, 1);
 
-  const int b = blockIdx.z, h = blockIdx.y, k0 = blockIdx.x * 64, S = p.S;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int kr = warp * 16;
-  const long long in_base = b * p.in_b + h * p.in_h;
-  const bf16* qg = p.q + in_base;
-  const bf16* og = p.dout + b * p.out_b + h * p.out_h;
-  const float* st = p.stats + (static_cast<long long>(b) * p.H + h) * 3 * S;
-  const int nt = (S + FK - 1) / FK;
-  const float c = p.scale * LOG2E;
-
-  // Query tile t's statistics, read by threads < FK (queries >= S get
-  // 1/l = 0, so their P and dS are 0: their Q and dO rows are zero-filled).
-  float stat[3];
-  auto read_stats = [&](int t) {
-    const int q = t * FK + threadIdx.x;
-    const bool ok = threadIdx.x < FK && q < S;
-    stat[0] = ok ? st[q] * LOG2E : 0.f;
-    stat[1] = ok ? 1.f / st[S + q] : 0.f;
-    stat[2] = ok ? st[2 * S + q] : 0.f;
-  };
-  auto write_stats = [&](int stage) {
-    if (threadIdx.x < FK)
-#pragma unroll
-      for (int w = 0; w < 3; ++w) Ls[(stage * 3 + w) * FK + threadIdx.x] = stat[w];
-  };
-  auto prefetch = [&](int t) {
-    load_tile<DH, FK>(Qs + (t & 1) * FK * LD, qg, p.in_r, t * FK, S);
-    load_tile<DH, FK>(Os + (t & 1) * FK * LD, og, p.out_r, t * FK, S);
-    cp_commit();
-  };
-  load_tile<DH, 64>(Kt, p.k + in_base, p.in_r, k0, S);
-  load_tile<DH, 64>(Vt, p.v + in_base, p.in_r, k0, S);
-  prefetch(0);
-  read_stats(0);
-  write_stats(0);
-
-  uint32_t ka[1][DH / 16][4], va[1][DH / 16][4];
-  float s[1][FK / 8][4], dp[1][FK / 8][4];
-  float dk[1][DH / 8][4], dv[1][DH / 8][4];
-  zero<DH, 1>(dk);
-  zero<DH, 1>(dv);
-  const int t4 = lane & 3;
-  for (int t = 0; t < nt; ++t) {
-    const int stage = t & 1;
-    if (t + 1 < nt) {
-      prefetch(t + 1);
-      read_stats(t + 1);
-      cp_wait<1>();
-    } else {
-      cp_wait<0>();
+  if (threadIdx.x >= WGT) {
+    // Producer warp: the block's K and V tiles once, then Q and dO of query
+    // tile j at step j, with the tile's statistics from stats (queries >= S
+    // get 1/l = 0, so that their P and dS are 0).
+    const int lane = threadIdx.x & 31;
+    const float* sp = stats + (static_cast<long long>(b) * H + h) * 3 * S;
+    if (lane == 0) {
+      prefetch_maps(&tq, &tk, &tv, &tdo);
+      mbar_expect_tx(bars, 2 * T::BYTES);
+      load_rows(base, &tk, bars, k0, h, b);
+      load_rows(base + T::BYTES, &tv, bars, k0, h, b);
     }
-    __syncthreads();
-    if (t == 0) {
-#pragma unroll
-      for (int kk = 0; kk < DH / 16; ++kk) {
-        lds_a<DH>(ka[0][kk], Kt, kr, 16 * kk);
-        lds_a<DH>(va[0][kk], Vt, kr, 16 * kk);
+    for (int j = 0; j < nt; ++j) {
+      const int st = j % STAGES;
+      const uint32_t qs = ring + st * L::STAGE;
+      bar_wait(empty + 8 * st, ((j / STAGES) & 1) ^ 1);
+      if (lane == 0) {
+        mbar_expect_tx(full + 8 * st, 2 * T::BYTES);
+        load_rows(qs, &tq, full + 8 * st, j * TR, h, b);
+        load_rows(qs + T::BYTES, &tdo, full + 8 * st, j * TR, h, b);
       }
-    }
-    const bf16* qt = Qs + stage * FK * LD;
-    const bf16* ot = Os + stage * FK * LD;
-    rows_times_tile_t<DH, 1>(s, ka, qt);   // S^T: keys x queries
-    rows_times_tile_t<DH, 1>(dp, va, ot);  // dP^T
-    const float* ls = Ls + stage * 3 * FK;
+      float* ls = side + st * 3 * TR;
 #pragma unroll
-    for (int j = 0; j < FK / 8; ++j) {
-      const float2 m2 = *reinterpret_cast<const float2*>(ls + 8 * j + 2 * t4);
-      const float2 r2 = *reinterpret_cast<const float2*>(ls + FK + 8 * j + 2 * t4);
-      const float2 s2 = *reinterpret_cast<const float2*>(ls + 2 * FK + 8 * j + 2 * t4);
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const bool hi = e & 1;
-        const float pv = ex2(fmaf(s[0][j][e], c, -(hi ? m2.y : m2.x))) * (hi ? r2.y : r2.x);
-        s[0][j][e] = pv;
-        dp[0][j][e] = pv * (dp[0][j][e] - (hi ? s2.y : s2.x));
+      for (int e = 0; e < 2; ++e) {
+        const int qi = 2 * lane + e, q = j * TR + qi;
+        const bool ok = q < S;
+        ls[qi] = ok ? sp[q] * LOG2E : 0.f;
+        ls[TR + qi] = ok ? 1.f / sp[S + q] : 0.f;
+        ls[2 * TR + qi] = ok ? sp[2 * S + q] : 0.f;
       }
+      mbar_arrive(full + 8 * st);
     }
-    uint32_t pa[1][FK / 16][4], da[1][FK / 16][4];
-#pragma unroll
-    for (int kk = 0; kk < FK / 16; ++kk) {
-      to_a(pa[0][kk], s[0], kk);
-      to_a(da[0][kk], dp[0], kk);
-    }
-    rows_times_tile<DH, 1>(dv, pa, ot);
-    rows_times_tile<DH, 1>(dk, da, qt);
-    if (t + 1 < nt) write_stats(stage ^ 1);
-    __syncthreads();
+    return;
   }
-  store_rows<DH>(p.dk + in_base, p.in_r, k0 + kr, S, dk[0], p.scale);
-  store_rows<DH>(p.dv + in_base, p.in_r, k0 + kr, S, dv[0], 1.f);
+  const int tid = threadIdx.x, lane = tid & 31, row = (tid >> 5) * 16 + (lane >> 2);
+  const bool signal = tid == 0;
+  const uint32_t kt = base, vt = base + T::BYTES;
+  const float c = scale * LOG2E;
+  bar_wait(bars, 0);
+
+  float dk[DH / 2], dv[DH / 2];
+#pragma unroll
+  for (int i = 0; i < DH / 2; ++i) dk[i] = dv[i] = 0.f;
+  float sT[32] = {}, dT[32] = {};
+  uint32_t pf[16], df[16];
+  // S^T = K Q_j^T and dP^T = V dO_j^T (keys as rows) of query tile j, one
+  // wgmma group (not waited for), once the tile has landed.
+  auto start = [&](int j) {
+    const int st = j % STAGES;
+    const uint32_t qs = ring + st * L::STAGE;
+    bar_wait(full + 8 * st, (j / STAGES) & 1);
+    fence_acc<32>(sT);
+    fence_acc<32>(dT);
+    wgmma_fence();
+    issue_nt<DH>(sT, kt, qs);
+    issue_nt<DH>(dT, vt, qs + T::BYTES);
+    wgmma_commit();
+    fence_acc<32>(sT);
+    fence_acc<32>(dT);
+  };
+  // P^T and dS^T = P^T * (dP^T - rowsum) in f32 in place, from the
+  // statistics of tile j's queries (the columns).
+  auto grads = [&](int j) {
+    fence_acc<32>(sT);
+    fence_acc<32>(dT);
+    const float* ls = side + (j % STAGES) * 3 * TR;
+#pragma unroll
+    for (int k = 0; k < 32; ++k) {
+      const int col = score_col(k, lane);
+      const float pv = ex2(fmaf(sT[k], c, -ls[col])) * ls[TR + col];
+      dT[k] = pv * (dT[k] - ls[2 * TR + col]);
+      sT[k] = pv;
+    }
+  };
+  auto round_pds = [&]() {
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+      pf[i] = pack_bf16(sT[2 * i], sT[2 * i + 1]);
+      df[i] = pack_bf16(dT[2 * i], dT[2 * i + 1]);
+    }
+  };
+  // Per query tile j: dv += bf16(P^T) dO_j and dk += bf16(dS^T) Q_j (16
+  // queries a k16 step) run on while tile j + 1's products are issued;
+  // their wait retires them, and tile j's stage is released then.
+  for (int j = 0; j < nt; ++j) {
+    const int st = j % STAGES;
+    const uint32_t qs = ring + st * L::STAGE;
+    start(j);
+    wgmma_wait<0>();
+    fence_acc<DH / 2>(dk);
+    fence_acc<DH / 2>(dv);
+    if (j > 0) {
+      fence_frag<16>(pf);
+      fence_frag<16>(df);
+    }
+    if (j > 0 && signal) mbar_arrive(empty + 8 * ((j - 1) % STAGES));
+    grads(j);
+    round_pds();
+    wgmma_fence();
+    issue_pv<DH>(dv, pf, qs + T::BYTES);
+    issue_pv<DH>(dk, df, qs);
+    wgmma_commit();
+    fence_acc<DH / 2>(dk);
+    fence_acc<DH / 2>(dv);
+  }
+  wgmma_wait<0>();
+  fence_acc<DH / 2>(dk);
+  fence_acc<DH / 2>(dv);
+  fence_frag<16>(pf);
+  fence_frag<16>(df);
+  // K and V are read: they stage dk and dv.
+  store_tile<DH>(dk, scale, kt, &tdk, k0, h, b, row, lane, signal, 1);
+  store_tile<DH>(dv, 1.f, vt, &tdv, k0, h, b, row, lane, signal, 1);
+  if (signal) asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
 }
 
-template <typename Kernel>
-cudaError_t launch(Kernel kernel, size_t smem, int rows, const Params& p, cudaStream_t stream) {
+// A (B, H, S, dh) operand at base with element strides (rows, heads,
+// samples) as a 4-D tensor map (dh, S, H, B) of 64-row boxes, swizzled as
+// wide as a head row. A map describes only an address and a geometry, so
+// the one encoded for them serves every later call with the same (the
+// caching allocator hands the same addresses back): a small direct-mapped
+// cache saves cuTensorMapEncodeTiled's host time.
+bool encode_rows(CUtensorMap* map, const void* base, int dh, int S, int H, int B, long long rs,
+                 long long hs, long long bs) {
+  struct Entry {
+    const void* base;
+    int dh, S, H, B;
+    long long rs, hs, bs;
+    CUtensorMap map;
+  };
+  static Entry cache[64] = {};
+  static std::mutex lock;
+  const size_t slot =
+      (reinterpret_cast<uintptr_t>(base) >> 6 ^ static_cast<size_t>(S) * 31 ^ H * 7 ^ B) % 64;
+  std::lock_guard<std::mutex> guard(lock);
+  Entry& e = cache[slot];
+  if (e.base != base || e.dh != dh || e.S != S || e.H != H || e.B != B || e.rs != rs ||
+      e.hs != hs || e.bs != bs) {
+    EncodeTiledFn fn = encode_tiled();
+    if (fn == nullptr || !bind_context()) return false;
+    const cuuint64_t dims[4] = {static_cast<cuuint64_t>(dh), static_cast<cuuint64_t>(S),
+                                static_cast<cuuint64_t>(H), static_cast<cuuint64_t>(B)};
+    const cuuint64_t strides[3] = {static_cast<cuuint64_t>(rs) * 2, static_cast<cuuint64_t>(hs) * 2,
+                                   static_cast<cuuint64_t>(bs) * 2};
+    const cuuint32_t box[4] = {static_cast<cuuint32_t>(dh), TR, 1, 1};
+    const cuuint32_t step[4] = {1, 1, 1, 1};
+    e.base = nullptr;
+    if (fn(&e.map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides, box,
+           step, CU_TENSOR_MAP_INTERLEAVE_NONE,
+           dh == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
+           CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+      return false;
+    e.base = base;
+    e.dh = dh;
+    e.S = S;
+    e.H = H;
+    e.B = B;
+    e.rs = rs;
+    e.hs = hs;
+    e.bs = bs;
+  }
+  *map = e.map;
+  return true;
+}
+
+bool map_in(CUtensorMap* map, const Params& p, const void* base, int dh) {
+  return encode_rows(map, base, dh, p.S, p.H, p.B, p.in_r, p.in_h, p.in_b);
+}
+bool map_out(CUtensorMap* map, const Params& p, const void* base, int dh) {
+  return encode_rows(map, base, dh, p.S, p.H, p.B, p.out_r, p.out_h, p.out_b);
+}
+
+// The forward's query rows a block: 64 (one consumer warpgroup, three
+// blocks an SM) unless chip_smoke.py's flash phase asks for 128 (two
+// consumer warpgroups, one block an SM) through dp_flash_fwd_rows. On an
+// H100 the 64-row form beat the 128-row one at every measured shape, B = 1
+// to 32 at S = 1297 and fastvit_sa12's S = 64 (PERF.md, row 8).
+int g_fwd_rows = 64;
+
+template <int NWG, typename Kernel, typename... Args>
+cudaError_t run(Kernel kernel, size_t smem, const Params& p, cudaStream_t stream, Args... args) {
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  dim3 grid((p.S + rows - 1) / rows, p.H, p.B);
-  kernel<<<grid, THREADS, smem, stream>>>(p);
+  const dim3 grid((p.S + TR * NWG - 1) / (TR * NWG), p.H, p.B);
+  kernel<<<grid, threads_of(NWG), smem, stream>>>(args...);
   return cudaGetLastError();
-}
-
-// The forward's query rows a block: 0 chooses by the launch's size.
-int g_fwd_rows = 0;
-
-// 128 rows a block where that still gives every SM two blocks, else 64.
-int fwd_rows(const Params& p) {
-  if (g_fwd_rows != 0) return g_fwd_rows;
-  int device = 0, sms = 0;
-  if (cudaGetDevice(&device) != cudaSuccess ||
-      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device) != cudaSuccess)
-    return 64;
-  const long long blocks128 = static_cast<long long>(p.B) * p.H * ((p.S + 127) / 128);
-  return blocks128 >= 2LL * sms ? 128 : 64;
 }
 
 template <int DH>
 cudaError_t fwd(const Params& p, cudaStream_t stream) {
-  if (fwd_rows(p) == 128) return launch(flash_fwd_kernel<DH, 2>, fwd_smem<DH, 2>(), 128, p, stream);
-  return launch(flash_fwd_kernel<DH, 1>, fwd_smem<DH, 1>(), 64, p, stream);
+  CUtensorMap tq, tk, tv, to;
+  if (!map_in(&tq, p, p.q, DH) || !map_in(&tk, p, p.k, DH) || !map_in(&tv, p, p.v, DH) ||
+      !map_out(&to, p, p.o, DH))
+    return cudaErrorInvalidValue;
+  if (g_fwd_rows == 128)
+    return run<2>(flash_fwd_kernel<DH, 2>, FwdLayout<DH, 2>::SMEM, p, stream, tq, tk, tv, to,
+                  p.stats, p.S, p.H, p.scale);
+  return run<1>(flash_fwd_kernel<DH, 1>, FwdLayout<DH, 1>::SMEM, p, stream, tq, tk, tv, to,
+                p.stats, p.S, p.H, p.scale);
 }
 
 template <int DH>
 cudaError_t bwd(const Params& p, cudaStream_t stream) {
-  cudaError_t err = launch(flash_bwd_dq_kernel<DH>, dq_smem<DH>(), 64, p, stream);
+  CUtensorMap tq, tk, tv, tdo, tdq, tdk, tdv;
+  if (!map_in(&tq, p, p.q, DH) || !map_in(&tk, p, p.k, DH) || !map_in(&tv, p, p.v, DH) ||
+      !map_out(&tdo, p, p.dout, DH) || !map_in(&tdq, p, p.dq, DH) || !map_in(&tdk, p, p.dk, DH) ||
+      !map_in(&tdv, p, p.dv, DH))
+    return cudaErrorInvalidValue;
+  cudaError_t err = run<1>(flash_bwd_dq_kernel<DH>, DqLayout<DH>::SMEM, p, stream, tq, tk, tv, tdo,
+                           tdq, p.stats, p.S, p.H, p.scale);
   if (err != cudaSuccess) return err;
-  return launch(flash_bwd_dkv_kernel<DH>, dkv_smem<DH>(), 64, p, stream);
+  return run<1>(flash_bwd_dkv_kernel<DH>, DkvLayout<DH>::SMEM, p, stream, tq, tk, tv, tdo, tdk,
+                tdv, static_cast<const float*>(p.stats), p.S, p.H, p.scale);
 }
 
 // The (B, H, S, dh) layout of the standalone wrapper: every tensor contiguous.
@@ -710,13 +956,14 @@ Params heads_layout(const void* q, const void* k, const void* v, int B, int H, i
 }  // namespace
 
 cudaError_t launch_fwd(const Params& p, int dh, cudaStream_t stream) {
+  if (p.S < 1 || p.H < 1 || p.B < 1) return cudaErrorInvalidValue;
   if (dh == 64) return fwd<64>(p, stream);
   if (dh == 32) return fwd<32>(p, stream);
   return cudaErrorInvalidValue;
 }
 
 cudaError_t launch_bwd(const Params& p, int dh, cudaStream_t stream) {
-  if (p.stats == nullptr) return cudaErrorInvalidValue;
+  if (p.stats == nullptr || p.S < 1 || p.H < 1 || p.B < 1) return cudaErrorInvalidValue;
   if (dh == 64) return bwd<64>(p, stream);
   if (dh == 32) return bwd<32>(p, stream);
   return cudaErrorInvalidValue;
@@ -750,12 +997,12 @@ int dp_flash_bwd(const void* q, const void* k, const void* v, const void* dout, 
   return static_cast<int>(dp_flash::launch_bwd(p, dh, static_cast<cudaStream_t>(stream)));
 }
 
-// Sets the forward's query rows a block (64 or 128; 0 restores the choice by
-// the launch's block count) and returns the previous setting: the tile
+// Sets the forward's query rows a block (64 or 128; 0 restores 64, the
+// form every launch takes) and returns the previous setting: the tile
 // measurement of chip_smoke.py's flash phase.
 int dp_flash_fwd_rows(int rows) {
   const int prev = dp_flash::g_fwd_rows;
-  if (rows == 0 || rows == 64 || rows == 128) dp_flash::g_fwd_rows = rows;
+  if (rows == 0 || rows == 64 || rows == 128) dp_flash::g_fwd_rows = rows == 0 ? 64 : rows;
   return prev;
 }
 

@@ -361,13 +361,14 @@ def _assert_attention_close(got, want, fro_tol):
 
 
 # (B, H, S, dh): dinov2-small at 504² (S = 1297, ragged: 20*64 + 17 rows) at
-# batch 1, 4 and 8 (8: the forward's 128-row tiles), head width 32, S = 577,
-# and a single short tile; S = 1296 (whole tiles) and 65 (one key over).
-# fastvit_sa12's SpatialAttention at 256² (16 heads of 32 over an 8x8 grid:
-# one query tile, no ragged edge) at batch 1, 8 and its train batch 32.
+# batch 1, 4 and 8, head width 32, S = 577, and a single short tile; S = 1296
+# (whole tiles) and 65 (one key over). fastvit_sa12's SpatialAttention at
+# 256² (16 heads of 32 over an 8x8 grid: one query tile, no ragged edge) at
+# batch 1, 8 and its train batch 32, and fastvit_ma36's 19 heads of 32.
 FLASH_CASES = [(1, 6, 1297, 64), (4, 6, 1297, 64), (2, 2, 1297, 32), (2, 6, 577, 64),
                (1, 2, 100, 32), (1, 16, 64, 32), (8, 16, 64, 32),
-               (1, 6, 1296, 64), (8, 6, 1297, 64), (2, 6, 65, 64), (32, 16, 64, 32)]
+               (1, 6, 1296, 64), (8, 6, 1297, 64), (2, 6, 65, 64), (32, 16, 64, 32),
+               (2, 19, 64, 32), (32, 19, 64, 32)]
 
 
 @pytest.mark.cuda
@@ -394,7 +395,8 @@ def test_flash_attention_matches_plain(cuda_device, shape):
 @pytest.mark.parametrize("rows", [64, 128])
 def test_flash_attention_is_deterministic(cuda_device, rows):
     """No atomics: two launches give the same bits, at both of the forward's
-    row tiles (the backward has one)."""
+    row tiles (64 and 128 rows a block; the backward pair has one), and
+    agree with the plain versions."""
     gen = torch.Generator().manual_seed(rows)
     q, k, v, g = (torch.randn((2, 6, 1297, 64), generator=gen).to(cuda_device, torch.bfloat16)
                   for _ in range(4))
@@ -412,8 +414,28 @@ def test_flash_attention_is_deterministic(cuda_device, rows):
     (o0, st0, *g0), (o1, st1, *g1) = runs
     assert torch.equal(st0[:, :, :2], st1[:, :, :2])
     assert all(torch.equal(a, b) for a, b in zip((o0, *g0), (o1, *g1)))
-    want = attention.flash_math(q, k, v, 0.125)
-    _assert_attention_close(runs[0][0], want, 5e-4)
+    want = (attention.flash_math(q, k, v, 0.125), *attention.flash_bwd_math(q, k, v, g, 0.125))
+    for got, w in zip((o0, *g0), want):
+        _assert_attention_close(got, w, 5e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("heads, dh", [(6, 64), (12, 32)])
+def test_flash_pair_on_the_packed_layout_at_ragged_s(cuda_device, heads, dh):
+    """The chains' packed qkv (B, S, 3D) at S = 1300 (20 * 64 + 20 rows):
+    the streamed forward and backward against the plain versions."""
+    rng = np.random.default_rng(heads)
+    qkv, dctx = _bf16(rng, (2, 1300, 3 * heads * dh), cuda_device), _bf16(
+        rng, (2, 1300, heads * dh), cuda_device)
+    with torch.inference_mode():
+        ctx = block.packed_attention(qkv, heads, streamed=True)
+        dqkv = block.packed_attention_bwd(qkv, dctx, heads, streamed=True)
+        want_ctx = block._heads_attention(qkv, heads)
+        want_dqkv = block.packed_attention_bwd_math(qkv, dctx, heads)
+    torch.cuda.synchronize()
+    _assert_attention_close(ctx, want_ctx, 5e-4)
+    for got, w in zip(dqkv.chunk(3, -1), want_dqkv.chunk(3, -1)):
+        _assert_attention_close(got, w, 5e-4)
 
 
 @pytest.mark.cuda
