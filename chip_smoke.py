@@ -79,7 +79,11 @@ resume, dinov2-base + LoRA with its model axis across the two ranks
 bit-equal to the one-card route, ``fit`` with a (1, 2) mesh across the two
 ranks (dinov2-base and fastvit_sa12 + LoRA) bit-equal to the same mesh in
 one process, ``fit`` with a (2, 2) mesh across four ranks (dinov2-small +
-LoRA), and a world of one under NCCL. Times kernels, serving and every train
+LoRA), and a world of one under NCCL; then the accuracy harness
+(``python -m dino_pose_tpu_torch.scripts.accuracy_trajectory``'s ``main``):
+dinov2-small + LoRA overfitting 64 synthetic images for 60 epochs with its
+launches, its PCKh@0.5 at epoch 60 held to half of JAX's recorded curve
+there and its keypoint loss to a tenth of epoch 1's. Times kernels, serving and every train
 step; the ConvFFN, depthwise-conv and LayerNorm kernels, and cuDNN's
 grouped conv and torch.nn.functional.layer_norm beside them, on three
 clocks (host-inclusive, device-only from a CUDA graph's replay, host
@@ -91,6 +95,7 @@ microseconds a call), the ConvFFN kernels beside the replaced WMMA ones'
     python3 chip_smoke.py --ab-parent DIR [--ab-steps t8|unfreeze_504] [--out ab.json]
     python3 chip_smoke.py --flash-only [--out flash.json]
     python3 chip_smoke.py --ab-flash DIR [--out ab.json]
+    python3 chip_smoke.py --accuracy [--out accuracy.json]
 
 (``--dist-worker SPEC`` is how phase_dist starts its ranks.)
 
@@ -100,6 +105,11 @@ chains' attention step on both routes across the resident route's range of
 S (flash_crossover). The fourth times the flash phase's wall seconds,
 after a warm-up, against the tree at DIR, parent, change, change, parent,
 each a fresh process.
+
+The fifth runs the accuracy harness's two full protocols (dinov2-small +
+LoRA for 200 epochs, fastvit_t8 + LoRA for 150), each curve printed beside
+JAX's record (docs/accuracy_r4, docs/accuracy_r4_fvt: TPU v5e) every 10
+epochs and its final PCK@0.2-bbox, PCKh@0.5 and z-PCKh held to floors.
 
 The second form only times the fastvit_t8 + LoRA bs=128 train step on the
 kernel path, default and with both opt-in arms on (with ``--ab-steps
@@ -112,8 +122,9 @@ Needs one CUDA card and ``nvcc``; exits non-zero without a card, when a
 kernel does not build, launch or agree, or when any phase fails. The last
 line of standard output is ``{"ok": true, "device": {...}}``; the line before
 it is the card's ``nvidia-smi`` name and power limit, and before that the
-per-kernel JSON line. Weights are random (from a seed), so only agreement
-between paths is checked, not pose accuracy. f32 products on the card run in
+per-kernel JSON line. Weights are random (from a seed), so pose accuracy
+is checked only where the model is trained for it: on the accuracy
+harness's synthetic set, against JAX's recorded curve. f32 products on the card run in
 full f32: TF32 is switched off for matmuls and cuDNN convolutions.
 """
 
@@ -3845,6 +3856,110 @@ def phase_fit(results: dict, root: str) -> dict:
     return fit
 
 
+# phase_accuracy: the accuracy harness (dino_pose_tpu_torch/scripts/
+# accuracy_trajectory.py, JAX's scripts/accuracy_trajectory.py protocol):
+# ACCURACY_IMAGES synthetic 256² images whose pose is a function of visible
+# coloured blobs (seed 0), train = val set, bs=32, lr 1e-3 held (min_lr =
+# lr), PCKh every ACCURACY_FREQ epochs, seeded weights (the empty hub cache).
+# Each run is held against JAX's record on a TPU v5e, docs/accuracy_r4*:
+# the default run's shortened dinov2-small run by its PCKh@0.5 at its last
+# epoch (at least ACCURACY_SHARE of the record there) and the fall of its
+# keypoint loss; --accuracy's full runs by their final metrics.
+ACCURACY_IMAGES, ACCURACY_BATCH, ACCURACY_FREQ = 64, 32, 10
+ACCURACY_EPOCHS = 60
+ACCURACY_SHARE, ACCURACY_KP_FALL = 0.5, 0.1
+ACCURACY_RUNS = {
+    # tag: model, full epochs, JAX's record, launches a train step and a forward,
+    # the full run's final-metric floors.
+    "dinov2_small_lora": ("facebook/dinov2-small", 200, "docs/accuracy_r4/metrics.csv",
+                          LORA_LAUNCHES, SERVING_LAUNCHES,
+                          {"pck_bbox": 0.99, "pckh": 0.97, "pckh_z": 0.85}),
+    "fastvit_t8_lora": ("timm/fastvit_t8.apple_in1k", 150, "docs/accuracy_r4_fvt/metrics.csv",
+                        T8_TRAIN_LAUNCHES, SERVING_T8_LAUNCHES,
+                        {"pck_bbox": 0.99, "pckh": 0.95, "pckh_z": 0.95}),
+}
+
+
+def phase_accuracy(results: dict, root: str, tag: str, epochs: int, full: bool) -> dict:
+    """``python -m dino_pose_tpu_torch.scripts.accuracy_trajectory`` (its
+    ``main``) on the card for ``epochs`` epochs of ACCURACY_RUNS[tag]'s
+    model, the launch counts from 0: each train step and each validation or
+    PCKh forward (the loop's, then the final pass on ``final_model.pth``)
+    launches its path's kernels exactly, 0 of every other wrapper. Checks
+    finite losses and, beside JAX's curve every ACCURACY_FREQ epochs: with
+    ``full`` the final metrics against the run's floors, else the loop's
+    PCKh@0.5 at the last epoch against ACCURACY_SHARE of JAX's record there
+    and the last epoch's keypoint loss against ACCURACY_KP_FALL of epoch 1's."""
+    import csv
+
+    from dino_pose_tpu_torch.ops import block as B
+    from dino_pose_tpu_torch.scripts.accuracy_trajectory import main as trajectory_main
+
+    model, _, record, per_step, per_forward, floors = ACCURACY_RUNS[tag]
+    card = nvidia_smi()
+    out = os.path.join(root, tag)
+    B.reset_launches()
+    t0 = time.perf_counter()
+    run = trajectory_main(["--model", model, "--epochs", str(epochs),
+                           "--n-images", str(ACCURACY_IMAGES),
+                           "--batch-size", str(ACCURACY_BATCH),
+                           "--save-freq", str(ACCURACY_FREQ), "--out", out])
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = dict(B.LAUNCHES)
+    history = run["history"]
+    batches = -(-ACCURACY_IMAGES // ACCURACY_BATCH)
+    steps = epochs * (ACCURACY_IMAGES // ACCURACY_BATCH)
+    forwards = (epochs + len(history["pckh"]) + 1) * batches
+    want = {k: steps * per_step.get(k, 0) + forwards * per_forward.get(k, 0) for k in B.LAUNCHES}
+    log(f"accuracy {tag}: launches over {steps} train steps and {forwards} eval forwards: "
+        f"{launches}")
+    if launches != want:
+        raise AssertionError(f"accuracy {tag}: launches {launches}, want {want}")
+    record_launches(results, f"accuracy_{tag}", launches)
+    losses = history["train_loss"] + history["val_loss"]
+    if len(losses) != 2 * epochs or not np.isfinite(losses).all():
+        raise AssertionError(f"accuracy {tag}: losses not finite or missing: {losses}")
+
+    with open(os.path.join(out, "ckpt", "metrics.csv")) as f:
+        rows = {int(r["epoch"]): r for r in csv.DictReader(f)}
+    with open(record) as f:
+        jax_rows = {int(r["epoch"]): r for r in csv.DictReader(f)}
+    curve = {e: (float(rows[e]["pckh_2d"]), float(rows[e]["pckh_3d"]),
+                 float(jax_rows[e]["pckh_2d"]), float(jax_rows[e]["pckh_3d"]))
+             for e in range(ACCURACY_FREQ, epochs + 1, ACCURACY_FREQ)}
+    kp = {e: float(rows[e]["train_kp_loss"]) for e in (1, epochs)}
+    jax_kp = {e: float(jax_rows[e]["train_kp_loss"]) for e in (1, epochs)}
+    images_per_s = history["images_per_sec"][1:]
+    log(f"accuracy {tag} curve ({card}; JAX: TPU v5e, {record}), epoch: PCKh@0.5 port/JAX, "
+        f"z-PCKh port/JAX: " + "; ".join(
+            f"{e}: {p:.4f}/{jp:.4f}, {z:.4f}/{jz:.4f}" for e, (p, z, jp, jz) in curve.items()))
+    log(f"accuracy {tag} ({card}): final {json.dumps(run['final_metrics'])}; train_kp_loss "
+        f"epoch 1 {kp[1]:.6g} -> {epochs} {kp[epochs]:.6g} (JAX {jax_kp[1]:.6g} -> "
+        f"{jax_kp[epochs]:.6g}); wall {wall_s:.1f} s, epoch s median "
+        f"{float(np.median(history['epoch_seconds'])):.3f}, images/s median "
+        f"{float(np.median(images_per_s)):.1f}")
+    failed = []
+    if full:
+        failed = [f"{k} {run['final_metrics'][k]:.4f} < {floor}" for k, floor in floors.items()
+                  if not run["final_metrics"][k] >= floor]
+    else:
+        gate = ACCURACY_SHARE * curve[epochs][2]
+        if not curve[epochs][0] >= gate:
+            failed.append(f"PCKh@0.5 at epoch {epochs} {curve[epochs][0]:.4f} < {gate:.4f}")
+        if not kp[epochs] <= ACCURACY_KP_FALL * kp[1]:
+            failed.append(f"train_kp_loss at epoch {epochs} {kp[epochs]:.6g} > "
+                          f"{ACCURACY_KP_FALL} x epoch 1's {kp[1]:.6g}")
+    log(f"accuracy {tag}: " + ("; ".join(failed) if failed else "ok"))
+    if failed:
+        raise AssertionError(f"accuracy {tag}: " + "; ".join(failed))
+    return {"card": card, "model": model, "epochs": epochs, "wall_s": wall_s,
+            "final_metrics": run["final_metrics"], "curve": curve, "train_kp_loss": kp,
+            "launches": launches, "epoch_seconds": history["epoch_seconds"],
+            "images_per_sec": history["images_per_sec"], "train_loss": history["train_loss"],
+            "val_loss": history["val_loss"], "pckh_history": run["pckh_history"]}
+
+
 # phase_pretrained: DINOv2 weights from a local Hugging Face hub cache. The
 # script writes that cache itself, in the hub's layout
 # (models--facebook--dinov2-small/refs/main naming snapshots/<commit>/ with
@@ -5240,6 +5355,11 @@ def main() -> int:
                     help="only time the flash phase's wall seconds (build and a warm-up "
                          "excluded) against the tree at DIR (parent, change, change, parent; "
                          "each arm a fresh process), print them and exit")
+    ap.add_argument("--accuracy", action="store_true",
+                    help="only build the kernels and run the accuracy harness's two full "
+                         "protocols on the card (dinov2-small + LoRA for 200 epochs, "
+                         "fastvit_t8 + LoRA for 150), each curve beside JAX's record and its "
+                         "final metrics held to the floors, print them and exit")
     ap.add_argument("--dist-worker", metavar="SPEC",
                     help="run as one rank of phase_dist (started by the script itself under "
                          "torchrun's launch variables): the jobs SPEC names")
@@ -5289,6 +5409,19 @@ def main() -> int:
             with open(args.out, "w") as f:
                 json.dump({"card": card, "flash": {str(m): t for m, t in flash.items()},
                            "crossover": crossover, "errors": results}, f, indent=1)
+        return 0
+    if args.accuracy:
+        os.environ["HF_HUB_CACHE"] = tempfile.mkdtemp(prefix="hub_empty_")
+        results = {}
+        accuracy = {}
+        with tempfile.TemporaryDirectory() as root:
+            for tag, (_, epochs, *_) in ACCURACY_RUNS.items():
+                accuracy[tag] = phase_accuracy(results, root, tag, epochs, full=True)
+        os.rmdir(os.environ["HF_HUB_CACHE"])
+        log(f"accuracy_seconds {time.perf_counter() - t0:.1f}")
+        if args.out:
+            with open(args.out, "w") as f:
+                json.dump({"card": card, "accuracy": accuracy}, f, indent=1)
         return 0
     marks = [time.perf_counter()]
 
@@ -5574,6 +5707,10 @@ def main() -> int:
         mark("fit")
         dist = phase_dist(results, fit_root, fit["history"])
         mark("dist")
+    with tempfile.TemporaryDirectory() as accuracy_root:
+        accuracy = phase_accuracy(results, accuracy_root, "dinov2_small_lora", ACCURACY_EPOCHS,
+                                  full=False)
+    mark("accuracy")
     os.rmdir(empty_cache)
     by_batch = phase_times()
     for times in (*wide_times, stream_train_times):
@@ -5674,7 +5811,7 @@ def main() -> int:
                        "gemm_bwd": gemm_bwd_times,
                        "attention_core": {k: v for k, v in core_times.items()
                                           if isinstance(k, str)}, "fit": fit, "cli": cli,
-                       "dist": dist},
+                       "dist": dist, "accuracy": accuracy},
                       f, indent=1)
     log(f"cli ({card}): " + json.dumps(cli))
     print(json.dumps({"kernels": kernels}))

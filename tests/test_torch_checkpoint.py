@@ -187,14 +187,18 @@ def test_async_writer_snapshots_before_it_returns(jax_model, tmp_path):
     tck.save_checkpoint(tmp_path / "sync.pth", tm, state=state, epoch=1, scheduler=sched)
     writer = tck.AsyncCheckpointWriter()
     gate = threading.Event()
-    writer.submit(gate.wait, 30)
-    tck.save_checkpoint(tmp_path / "async.pth", tm, state=state, epoch=1, scheduler=sched,
-                        async_writer=writer)
-    before = {k: v.clone() for k, v in tm.state_dict().items()}
-    state, _ = step(state, _batch(5), 1e-3, 0)
-    assert any(not torch.equal(before[k], v) for k, v in tm.state_dict().items())
-    assert not (tmp_path / "async.pth").exists()
-    gate.set()
+    # Untimed: the write may land only after the gate opens, however slow the
+    # step below runs; the finally opens it should an assertion fail first.
+    writer.submit(gate.wait)
+    try:
+        tck.save_checkpoint(tmp_path / "async.pth", tm, state=state, epoch=1,
+                            scheduler=sched, async_writer=writer)
+        before = {k: v.clone() for k, v in tm.state_dict().items()}
+        state, _ = step(state, _batch(5), 1e-3, 0)
+        assert any(not torch.equal(before[k], v) for k, v in tm.state_dict().items())
+        assert not (tmp_path / "async.pth").exists()
+    finally:
+        gate.set()
     writer.wait()
     _assert_nested_equal(tck.load_checkpoint(tmp_path / "async.pth"),
                          tck.load_checkpoint(tmp_path / "sync.pth"))

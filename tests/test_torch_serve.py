@@ -130,7 +130,10 @@ def test_port_imports_no_jax():
     assert len(files) > 10
     assert {ROOT / "dino_pose_tpu_torch" / "core" / f for f in ("distributed.py", "sharding.py")
             } <= set(files)
-    banned = {"jax", "flax", "optax", "dino_pose_tpu"}
+    assert {ROOT / "dino_pose_tpu_torch" / "scripts" / f
+            for f in ("accuracy_trajectory.py", "real_dataset_parity.py")} <= set(files)
+    # "scripts": the repository's root package of JAX harnesses.
+    banned = {"jax", "flax", "optax", "dino_pose_tpu", "scripts"}
     for path in files:
         bad = _imports(path) & banned
         assert not bad, f"{path.relative_to(ROOT)} imports {sorted(bad)}"
